@@ -1,0 +1,58 @@
+"""The port imports nothing of JAX and nothing of the JAX package.
+
+A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
+and ``karpenter_tpu`` / ``karpenter_tpu.*`` (but not ``karpenter_tpu_torch``),
+then imports the port and ``chip_smoke`` and runs a small CPU solve."""
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+SCRIPT = r'''
+import importlib.abc
+import sys
+
+BLOCKED = ("jax", "jaxlib", "karpenter_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+try:
+    import karpenter_tpu  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise SystemExit("the finder let karpenter_tpu through")
+
+import chip_smoke  # noqa: F401
+import karpenter_tpu_torch
+from karpenter_tpu_torch import testing as T
+from karpenter_tpu_torch.ops import _build, fused_packer  # noqa: F401
+
+pools, inv, pods = T.heterogeneous_problem(scale=0.01)
+sched = karpenter_tpu_torch.TorchScheduler(pools, inv, device="cpu")
+result = sched.solve(pods)
+assert sched.last_path == "tensor", sched.last_path
+assert not result.unschedulable
+assert sum(len(n.pods) for n in result.new_nodes) == len(pods)
+leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ok", len(result.new_nodes))
+'''
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok ")
