@@ -9,26 +9,44 @@ Phases (each failure exits non-zero before the last line is printed):
    power limit as ``nvidia-smi`` reports them.
 2. Build: compiles every CUDA source of the package with ``nvcc`` (all at
    once) and prints the ``-Xptxas -v`` summary of each.
-3. Kernel vs plain: on the config-2 (``heterogeneous_problem``) and flagship
-   (``flagship_problem``) problems, for both objectives, each kernel
-   (``choose_config``, ``ffd_scan``) runs beside its plain PyTorch version
-   on the same card tensors; every output must be bit-equal.
+3. Kernel vs plain: each kernel beside its plain PyTorch version on the
+   same card tensors, both objectives; every output must be bit-equal, and
+   each scan call must launch the kernel expected of it (the wrapper picks
+   by shape, `fused_packer.scan_kernel`):
+   - config 2 (``heterogeneous_problem``, 256 slots) and the flagship
+     (``flagship_problem``): ``choose_config`` and the resident ``ffd_scan``;
+     config 2 also through ``ffd_scan_global`` at its own 256 slots, the
+     shape phase 4 times the two scans in turns at;
+   - config 2's pods on 2,000 live nodes (4096 slots, Cp 8192), the shape
+     at which phase 5's solves launch ``ffd_scan_global``, and config 2
+     padded to 4096 slots: the slot state does not fit one block, so
+     ``ffd_scan_global``;
+   - the wrap case (``testing.wrap_arrays``: the scan's int32 sums wrap) at
+     256 slots (resident) and 4096 (global).
 4. Kernel times: each kernel's device time per launch (torch.profiler)
    and its CUDA-event time over many launches after warm-up, beside the
    plain versions' times (CUDA events) and each kernel's bound at this
-   run's inputs.  The bound counts the bytes and operations this run's
-   data needs; for ``ffd_scan`` the line also carries its latency floor,
-   class steps x (barriers x barrier round trip + dependent L2 loads x L2
-   round trip), with both round trips measured here by
-   ``csrc/latency_probe.cu``.
+   run's inputs, at each of the three problems of phase 5 (the scan the
+   shapes pick).  At config 2 the two scan kernels also run in turns
+   (global, resident, resident, global) and their ratio is printed.  The
+   bound counts the bytes and operations this run's data needs; each scan
+   kernel also gets its latency floor, class steps x (its barriers x
+   barrier round trip + its exposed dependent L2 loads x L2 round trip),
+   with both round trips measured here by ``csrc/latency_probe.cu``.  The
+   kernels line gives each kernel at the problem whose solves launch it:
+   ``choose_config`` and ``ffd_scan`` at config 2, ``ffd_scan_global`` on
+   the live cluster.
 5. The slice: ``TorchScheduler(device="cuda").solve`` on config 2 (10,000
-   pods, 317 classes) and on the flagship, 2 warm-up + 10 timed solves each,
-   with the launch counters set to 0 just before and read just after.  All
-   pods must be placed through the kernels, and each problem's decoded
-   result must equal a CPU solve through the plain version.
-   One more solve per problem runs under torch.profiler, after the counts
-   are read, for the device time of each kernel and the device's busy
-   share of the solve.
+   pods, 317 classes), on the flagship, and on config 2's pods arriving at
+   a cluster of 2,000 live nodes (4096 slots: the global scan), 2 warm-up +
+   10 timed solves each, with the launch counters set to 0 just before and
+   read just after.  All pods must be placed, every solve must launch
+   ``choose_config`` and the scan kernel its shapes pick (the resident one
+   on the two bench problems, the global one on the live cluster), and
+   each problem's decoded result must equal a CPU solve through the plain
+   version.  One more solve per problem runs under torch.profiler, after
+   the counts are read, for the device time of each kernel and the
+   device's busy share of the solve.
 6. Prints the kernels JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -47,10 +65,13 @@ F32_OPS_PER_S = 67e12
 WARMUP_SOLVES, TIMED_SOLVES = 2, 10
 KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
-# loads per class step of ffd_scan whose address or data the previous step
-# decides and that no earlier step touched: the class's req row, and
-# feas[g, cfg[k]] gathered through the slot's config
-SCAN_L2_LOADS_PER_STEP = 2
+KERNELS = ("choose_config", "ffd_scan", "ffd_scan_global")
+SCAN_KERNELS = KERNELS[1:]
+LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
+# the problem each kernel's row of the kernels line is measured at: the one
+# whose solves launch it
+ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
+               "ffd_scan_global": "config2_live"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 
 
@@ -90,16 +111,17 @@ def problems():
     pools, inv, pods = T.heterogeneous_problem()
     pool, types, fpods = T.flagship_problem()
     return {
-        "config2": (pools, inv, pods),
-        "flagship": ([pool], {pool.name: types}, fpods),
+        "config2": (pools, inv, pods, []),
+        "flagship": ([pool], {pool.name: types}, fpods, []),
+        "config2_live": (pools, inv, pods, T.live_cluster(LIVE_NODES)),
     }
 
 
 def compiled(spec):
     from karpenter_tpu_torch.ops.tensorize import compile_problem
 
-    pools, inv, pods = spec
-    return compile_problem(pods, pools, inv)
+    pools, inv, pods, existing = spec
+    return compile_problem(pods, pools, inv, existing=existing)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -118,16 +140,27 @@ def max_abs_err(torch, got, want) -> float:
     return err
 
 
-def scan_threads(K: int) -> int:
-    """Threads of the one ffd_scan block (``scan_threads`` in ffd_pack.cu)."""
-    return min(max((K + 31) // 32 * 32, 32), 1024)
+def scan_step_model(kernel: str, K: int):
+    """``(block barriers, exposed dependent L2 loads)`` per class step of a
+    scan kernel of ffd_pack.cu.
 
+    ``ffd_scan_global``: one barrier after loading the class's req row,
+    three per chunk of its block scan, three in each of its two block sums;
+    it waits on the req row and on feas[g, cfg[k]] gathered through the
+    slot's config (loads whose address or data the previous step decides
+    and that no earlier step touched).
 
-def scan_barriers_per_step(K: int) -> int:
-    """Block barriers ffd_scan_kernel passes per class: one after loading
-    the class's req row, three per chunk of the prefix scan, three in each
-    of the two block sums."""
-    return 1 + 3 * -(-K // scan_threads(K)) + 3 + 3
+    ``ffd_scan`` (resident): one barrier, to exchange the warp totals (a
+    second only where an int32 sum can wrap, which the bench problems never
+    do).  Its feasibility rows arrive in shared memory ahead of the step;
+    its class rows arrive a tile of ``SCAN_TILE`` classes at a time, whose
+    load waits on two dependent L2 loads (c_star, then the alloc row), so
+    2 / SCAN_TILE per step."""
+    from karpenter_tpu_torch.ops.fused_packer import SCAN_TILE, scan_threads
+
+    if kernel == "ffd_scan_global":
+        return 1 + 3 * -(-K // scan_threads(K)) + 3 + 3, 2
+    return 1, 2 / SCAN_TILE
 
 
 def kernel_bounds(args, take, node_cfg):
@@ -171,7 +204,8 @@ def kernel_bounds(args, take, node_cfg):
     fits = open_ & feas[:, cfg_k]
     feas_pairs = sum(len(np.unique(cfg_k[open_[g]])) for g in range(G))
     alloc_rows = len(np.unique(cfg_k[fits.any(axis=0)]))
-    sig_pairs = len({(int(slot[g]), int(k)) for g, k in zip(*np.nonzero(fits))})
+    gi, ki = np.nonzero(fits)
+    sig_pairs = len(np.unique(slot[gi].astype(np.int64) * K + ki))
     # per fitting slot: capacity (4 per requested axis) plus the signature
     # room, min, prefix and clip (5); per slot that takes pods: the usage
     # update (mul + add per requested axis) and the take, pod and
@@ -199,18 +233,19 @@ def kernel_bounds(args, take, node_cfg):
     return out
 
 
-def scan_latency_floor_ms(G: int, K: int, barrier_us: float, l2_us: float) -> float:
-    """ffd_scan's floor as a chain of dependent class steps: each step
+def scan_latency_floor_ms(kernel: str, G: int, K: int, barrier_us: float,
+                          l2_us: float) -> float:
+    """A scan kernel's floor as a chain of dependent class steps: each step
     passes its barriers and waits on its dependent L2 loads in turn."""
-    step_us = scan_barriers_per_step(K) * barrier_us + SCAN_L2_LOADS_PER_STEP * l2_us
-    return G * step_us / 1e3
+    barriers, loads = scan_step_model(kernel, K)
+    return G * (barriers * barrier_us + loads * l2_us) / 1e3
 
 
-def probe_latencies(torch, threads: int):
-    """The barrier round trip of one block of ``threads`` threads and the
-    dependent L2 load round trip, in microseconds, each from two launches
-    of csrc/latency_probe.cu at different step counts (the difference
-    cancels the launch)."""
+def probe_latencies(torch, threads):
+    """``({threads: barrier round trip}, dependent L2 load round trip)`` in
+    microseconds, the barrier of one block at each thread count in
+    ``threads``; each from two launches of csrc/latency_probe.cu at
+    different step counts (the difference cancels the launch)."""
     import ctypes
 
     import numpy as np
@@ -238,50 +273,61 @@ def probe_latencies(torch, threads: int):
         t = lambda n: cuda_ms(torch, lambda: launched(launch(n, stream)), iters=3, warmup=1)
         return (t(n2) - t(n1)) / (n2 - n1) * 1e3
 
-    barrier_us = per_step_us(
-        lambda n, st: lib.probe_barrier(threads, n, out.data_ptr(), st), 20000, 220000)
+    barrier_us = {
+        b: per_step_us(
+            lambda n, st, b=b: lib.probe_barrier(b, n, out.data_ptr(), st), 20000, 220000)
+        for b in threads
+    }
     l2_us = per_step_us(
         lambda n, st: lib.probe_chase(chain.data_ptr(), n, out.data_ptr(), st),
         lines, 4 * lines)
     return barrier_us, l2_us
 
 
-def compare_kernels(torch, prob, dev):
-    """Phase 3 on one problem: each kernel against its plain version on the
-    same card tensors, both objectives.  Returns the largest error."""
+def compare_kernels(torch, args, scans):
+    """Phase 3 on one problem's padded card tensors, both objectives:
+    `choose_config` and each scan wrapper in ``scans`` against the plain
+    versions.  Each scan call must launch the kernel expected of it.
+    Returns the largest error per kernel and the nodes objective's scan
+    outputs."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
-    args = P.to_device(P.pad_problem(prob)[0], dev)
     (req, cnt, maxper, slot, feas, alloc, price, openable,
      used0, cfg0, npods0, next0, sig0) = args
-    errs = {"choose_config": 0.0, "ffd_scan": 0.0}
-    nodes_out = None
+    (G, R), C, K, S = req.shape, alloc.shape[0], used0.shape[0], sig0.shape[0]
+    errs, nodes_out = {}, None
     for objective in ("nodes", "cost"):
         chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
         torch.cuda.synchronize()
         plain = P.choose_config_reference(
             req, maxper, feas, alloc, price, openable, objective
         )
-        torch.cuda.synchronize()
-        e1 = max_abs_err(torch, chosen, plain)
-        got = F.ffd_scan(req, cnt, maxper, slot, feas, alloc, *chosen,
-                         used0, cfg0, npods0, next0, sig0)
-        torch.cuda.synchronize()
         want = P.ffd_scan_reference(req, cnt, maxper, slot, feas, alloc, *plain,
                                     used0, cfg0, npods0, next0, sig0)
         torch.cuda.synchronize()
-        e2 = max_abs_err(torch, got, want)
-        print(f"  {objective}: choose_config max_abs_err={e1} ffd_scan "
-              f"max_abs_err={e2} placed={int(got[0].sum())} "
-              f"leftover={int(got[1].sum())} nodes={int((got[2] >= 0).sum())}")
-        if e1 != 0 or e2 != 0:
-            fail(f"kernel disagrees with its plain version ({objective})")
-        errs["choose_config"] = max(errs["choose_config"], e1)
-        errs["ffd_scan"] = max(errs["ffd_scan"], e2)
-        if objective == "nodes":
-            nodes_out = got
-    return errs, args, nodes_out
+        e1 = max_abs_err(torch, chosen, plain)
+        errs["choose_config"] = max(errs.get("choose_config", 0.0), e1)
+        for scan in scans:
+            expect = ("ffd_scan_global" if scan is F.ffd_scan_global
+                      else F.scan_kernel(K, R, S, C))
+            before = dict(F.LAUNCHES)
+            got = scan(req, cnt, maxper, slot, feas, alloc, *chosen,
+                       used0, cfg0, npods0, next0, sig0)
+            torch.cuda.synchronize()
+            ran = [k for k in SCAN_KERNELS if F.LAUNCHES[k] != before[k]]
+            if ran != [expect]:
+                fail(f"{scan.__name__} at K={K} launched {ran}, expected {expect}")
+            e2 = max_abs_err(torch, got, want)
+            print(f"  {objective}: choose_config max_abs_err={e1} {expect} "
+                  f"max_abs_err={e2} placed={int(got[0].sum())} "
+                  f"leftover={int(got[1].sum())} nodes={int((got[2] >= 0).sum())}")
+            if e1 != 0 or e2 != 0:
+                fail(f"kernel disagrees with its plain version ({objective})")
+            errs[expect] = max(errs.get(expect, 0.0), e2)
+            if objective == "nodes" and nodes_out is None:
+                nodes_out = got
+    return errs, nodes_out
 
 
 def _device_us(ev) -> float:
@@ -310,11 +356,15 @@ def profiled_ms(torch, fn, kernel: str, iters: int):
     return total_us / count / 1e3
 
 
-def time_kernels(torch, args):
+def time_kernels(torch, args, scan_turns: bool = False):
     """Phase 4: per kernel at one problem's shapes (nodes objective), its
     device ms per launch (profiler), its CUDA-event ms per call over
     back-to-back calls (the wrapper's host enqueue included where it is
-    slower than the kernel), and its plain version's CUDA-event ms."""
+    slower than the kernel), its plain version's CUDA-event ms, and the
+    profiler readings it was averaged from.  The scan is the one
+    `fused_packer.scan_kernel` picks for the shapes; with ``scan_turns``
+    (where it picks the resident one) the global scan is timed too, the
+    two in turns (global, resident, resident, global)."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
@@ -324,21 +374,31 @@ def time_kernels(torch, args):
     scan_args = (req, cnt, maxper, slot, feas, alloc, *chosen,
                  used0, cfg0, npods0, next0, sig0)
     choose = lambda: F.choose_config(req, maxper, feas, alloc, price, openable)
-    scan = lambda: F.ffd_scan(*scan_args)
-    return {
-        "choose_config": (
-            profiled_ms(torch, choose, "choose_config", iters=200),
-            cuda_ms(torch, choose, iters=200),
-            cuda_ms(torch, lambda: P.choose_config_reference(
-                req, maxper, feas, alloc, price, openable), iters=20),
-        ),
-        "ffd_scan": (
-            profiled_ms(torch, scan, "ffd_scan", iters=50),
-            cuda_ms(torch, scan, iters=50),
-            cuda_ms(torch, lambda: P.ffd_scan_reference(*scan_args),
-                    iters=3, warmup=1),
-        ),
-    }
+    picked = F.scan_kernel(used0.shape[0], req.shape[1], sig0.shape[0], alloc.shape[0])
+    scans = {picked: lambda: F.ffd_scan(*scan_args)}
+    order = [picked]
+    if scan_turns:
+        if picked != "ffd_scan":
+            fail(f"scan turns need the resident scan's shapes, got {picked}")
+        scans["ffd_scan_global"] = lambda: F.ffd_scan_global(*scan_args)
+        order = ["ffd_scan_global", "ffd_scan", "ffd_scan", "ffd_scan_global"]
+    readings = {k: [] for k in scans}
+    for k in order:
+        readings[k].append(profiled_ms(torch, scans[k], k, iters=50))
+    plain_scan = cuda_ms(torch, lambda: P.ffd_scan_reference(*scan_args),
+                         iters=3, warmup=1)
+    choose_ms = profiled_ms(torch, choose, "choose_config", iters=200)
+    out = {"choose_config": (
+        choose_ms,
+        cuda_ms(torch, choose, iters=200),
+        cuda_ms(torch, lambda: P.choose_config_reference(
+            req, maxper, feas, alloc, price, openable), iters=20),
+        [choose_ms],
+    )}
+    for k, fn in scans.items():
+        out[k] = (statistics.mean(readings[k]), cuda_ms(torch, fn, iters=50),
+                  plain_scan, readings[k])
+    return out
 
 
 def canonical(result):
@@ -361,7 +421,7 @@ def profile_solve(torch, sched, pods):
         sched.solve(pods)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {"choose_config": 0.0, "ffd_scan": 0.0}
+    per_kernel = {k: 0.0 for k in KERNELS}
     busy_us = 0.0
     for ev in prof.key_averages():
         dev_us = _device_us(ev)
@@ -383,8 +443,8 @@ def drive_solves(torch, name, spec):
     """Phase 5 on one problem: warm-up + timed solves through the card."""
     from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 
-    pools, inv, pods = spec
-    sched = TorchScheduler(pools, inv, device="cuda")
+    pools, inv, pods, existing = spec
+    sched = TorchScheduler(pools, inv, existing=existing, device="cuda")
     times, result = [], None
     for i in range(WARMUP_SOLVES + TIMED_SOLVES):
         t0 = time.perf_counter()
@@ -439,48 +499,92 @@ def main() -> int:
               f"configs={C} axes={len(prob.axes)} tracked={prob.n_track_slots}")
 
     print("[kernel vs plain] bit-equality on the card", flush=True)
-    errs, kargs, kouts = {}, {}, {}
-    for name, prob in probs.items():
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import packer as P
+
+    padded = lambda prob, k=0: P.to_device(P.pad_problem(prob, k)[0], dev)
+    kargs = {name: padded(prob) for name, prob in probs.items()}
+    cases = {
+        "config2": (kargs["config2"], [F.ffd_scan, F.ffd_scan_global]),
+        "flagship": (kargs["flagship"], [F.ffd_scan]),
+        "config2_live": (kargs["config2_live"], [F.ffd_scan]),
+        "config2 k_slots=4096": (padded(probs["config2"], 4096), [F.ffd_scan]),
+        "wrap k_slots=256": (P.to_device(T.wrap_arrays(256), dev), [F.ffd_scan]),
+        "wrap k_slots=4096": (P.to_device(T.wrap_arrays(4096), dev), [F.ffd_scan]),
+    }
+    errs, kouts = {}, {}
+    for name, (args, scans) in cases.items():
         print(f" {name}")
-        e, kargs[name], kouts[name] = compare_kernels(torch, prob, dev)
+        e, kouts[name] = compare_kernels(torch, args, scans)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
+    for k in KERNELS:
+        if k not in errs:
+            fail(f"phase 3 never ran {k}")
 
     print(f"[kernel times] torch.profiler device time and CUDA events, {card}", flush=True)
-    times = {name: time_kernels(torch, args) for name, args in kargs.items()}
+    times = {name: time_kernels(torch, args, scan_turns=name == "config2")
+             for name, args in kargs.items()}
     for name, t in times.items():
-        for k, (dev_ms, ev_ms, plain) in t.items():
-            print(f"  {name} {k}: kernel {dev_ms!r} ms device (profiler), "
-                  f"{ev_ms!r} ms per call (CUDA events), plain {plain!r} ms (CUDA events)")
-    c2 = kargs["config2"]
-    take, _, node_cfg, _, _ = kouts["config2"]
-    bounds = kernel_bounds(c2, take, node_cfg)
-    G2, K2 = c2[0].shape[0], c2[8].shape[0]
-    barrier_us, l2_us = probe_latencies(torch, scan_threads(K2))
-    floor_ms = scan_latency_floor_ms(G2, K2, barrier_us, l2_us)
+        for k, (dev_ms, ev_ms, plain, readings) in t.items():
+            print(f"  {name} {k}: kernel {dev_ms!r} ms device (profiler, mean of "
+                  f"{readings!r}), {ev_ms!r} ms per call (CUDA events), "
+                  f"plain {plain!r} ms (CUDA events)")
+    c2t = times["config2"]
+    print(f"  config2 ffd_scan_global / ffd_scan device time, in turns at 256 slots: "
+          f"{c2t['ffd_scan_global'][0] / c2t['ffd_scan'][0]!r}")
+    bounds = {}
+    for k, name in ROW_PROBLEM.items():
+        take, _, node_cfg, _, _ = kouts[name]
+        b = kernel_bounds(kargs[name], take, node_cfg)
+        bounds[k] = b[k if k == "choose_config" else "ffd_scan"]  # one function, two scans
+        print(f"  {name} {k} bound: {bounds[k]}")
+    steps = {name: (kargs[name][0].shape[0], kargs[name][8].shape[0])
+             for name in ("config2", "config2_live")}
+    barrier_us, l2_us = probe_latencies(
+        torch, sorted({F.scan_threads(K) for _, K in steps.values()}))
     print(f"  latency probes ({card}): barrier round trip {barrier_us!r} us "
-          f"({scan_threads(K2)} threads), dependent L2 load {l2_us!r} us")
-    print(f"  config2 ffd_scan latency floor: {G2} steps x ({scan_barriers_per_step(K2)} "
-          f"barriers + {SCAN_L2_LOADS_PER_STEP} L2 loads) = {floor_ms!r} ms")
-    for k, b in bounds.items():
-        print(f"  config2 {k} bound: {b}")
+          f"(by threads), dependent L2 load {l2_us!r} us")
+
+    def floor_ms(kernel, name):
+        G, K = steps[name]
+        ms = scan_latency_floor_ms(kernel, G, K, barrier_us[F.scan_threads(K)], l2_us)
+        barriers, loads = scan_step_model(kernel, K)
+        print(f"  {name} {kernel} latency floor: {G} steps x ({barriers} barriers at "
+              f"{F.scan_threads(K)} threads + {loads} L2 loads) = {ms!r} ms; measured / "
+              f"floor {times[name][kernel][0] / ms!r}")
+        return ms
+
+    floors = {"choose_config": None}
+    floors.update({k: floor_ms(k, ROW_PROBLEM[k]) for k in SCAN_KERNELS})
+    pr1_floor = floor_ms("ffd_scan_global", "config2")
+    print(f"  config2 ffd_scan / the global kernel's floor model at config2: "
+          f"{c2t['ffd_scan'][0] / pr1_floor!r}")
 
     print(f"[slice] TorchScheduler.solve on the card, {card}", flush=True)
+    solves = WARMUP_SOLVES + TIMED_SOLVES
     F.reset_launches()
-    solved = {name: drive_solves(torch, name, spec) for name, spec in specs.items()}
+    solved, per_problem = {}, {}
+    for name, spec in specs.items():
+        before = dict(F.LAUNCHES)
+        solved[name] = drive_solves(torch, name, spec)
+        per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in KERNELS}
     launches = dict(F.LAUNCHES)
-    n_solves = len(specs) * (WARMUP_SOLVES + TIMED_SOLVES)
-    print(f"  launches over {n_solves} solves: {launches}")
-    for k, n in launches.items():
-        if n < n_solves:
-            fail(f"kernel {k} launched {n} times over {n_solves} solves")
+    print(f"  launches over {len(specs) * solves} solves: {launches}, "
+          f"per problem {per_problem}")
+    for name, got in per_problem.items():
+        scan = "ffd_scan_global" if name == "config2_live" else "ffd_scan"
+        for k in ("choose_config", scan):
+            if got[k] < solves:
+                fail(f"{name}: kernel {k} launched {got[k]} times over {solves} solves")
     for name, (sched, result, ts) in solved.items():
         print(f"  {name}: nodes={len(result.new_nodes)} "
+              f"existing_placements={len(result.existing_placements)} "
               f"price={result.total_price()!r} p50_ms={statistics.median(ts)!r} "
               f"min_ms={min(ts)!r} max_ms={max(ts)!r} kernel={sched.last_kernel}")
         print(f"    last_phases_ms={json.dumps({k: v * 1e3 for k, v in sorted(sched.last_phases.items())})}")
-        pools, inv, pods = specs[name]
-        cpu = TorchScheduler(pools, inv, device="cpu").solve(pods)
+        pools, inv, pods, existing = specs[name]
+        cpu = TorchScheduler(pools, inv, existing=existing, device="cpu").solve(pods)
         if canonical(cpu) != canonical(result):
             fail(f"{name}: the card's solve differs from the CPU plain solve")
         print(f"    equals the CPU plain-version solve ({len(cpu.new_nodes)} nodes)")
@@ -489,10 +593,11 @@ def main() -> int:
               + (json.dumps(prof) if prof else "not measured: no device time seen"))
 
     kernels = []
-    for k in ("choose_config", "ffd_scan"):
-        dev_ms, _, plain = times["config2"][k]
+    for k in KERNELS:
+        dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]
         kernels.append({
             "name": k,
+            "problem": ROW_PROBLEM[k],
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES,
@@ -503,7 +608,7 @@ def main() -> int:
             "bound_ms": bounds[k]["bound_ms"],
             "bound_by": bounds[k]["bound_by"],
             "library_ms": None,
-            "latency_floor_ms": floor_ms if k == "ffd_scan" else None,
+            "latency_floor_ms": floors[k],
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

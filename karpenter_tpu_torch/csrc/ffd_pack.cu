@@ -7,28 +7,69 @@
 // karpenter_tpu_torch/ops/packer.py:pack_reference; the Python wrappers are
 // karpenter_tpu_torch/ops/fused_packer.py.
 //
-// Two launches:
-//   choose_config_kernel  grid (Gp,): one block per class picks the config a
-//                         new node of that class opens on (first-index
-//                         argmin of the objective's score over C, as a block
-//                         reduction of (score, index) pairs).
-//   ffd_scan_kernel       grid (1,): one block walks the Gp classes in order.
-//                         Per class: per-slot capacity, a block-wide
-//                         exclusive int32 prefix over K (chunks of
-//                         blockDim with a running carry), first-fit takes,
-//                         an integer ceil-div window of new slots, and the
-//                         state updates.
+// Two launches per pack, choose_config and one of the two scans:
+//   choose_config_kernel    grid (Gp,): one block per class picks the config
+//                           a new node of that class opens on (first-index
+//                           argmin of the objective's score over C, as a
+//                           block reduction of (score, index) pairs).
+//   ffd_scan_kernel<M>      grid (1,): the resident scan.  One block walks
+//                           the Gp classes in order with the whole slot
+//                           state in shared memory; the wrapper takes it
+//                           whenever that state fits a block.
+//   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
+//                           the output buffers (device memory), for slot
+//                           counts whose state does not fit.
+// Per class both compute per-slot capacity, an exclusive int32 prefix over
+// K, first-fit takes, an integer ceil-div window of new slots and the state
+// updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
+// count in exact int32, so they need neither the signature admission table
+// nor the f32 ceil-overshoot mask, and take any S, R and T.
 //
-// What bounds it: the scan is latency-bound, not byte- or FLOP-bound.  Its
-// inputs are ~1.3 MB of feasibility plus ~330 KB of take output at the
-// bench shapes, but it is Gp sequential steps of a few block barriers each.
-// The design keeps every per-slot value owned by one thread (slot k is
-// always handled by thread k % blockDim), so the only barriers per class
-// are those of the prefix and the two sums; the slot state (used, cfg,
-// npods, sigcnt) lives in the output buffers and stays in L2 at these
-// sizes.  Unlike the TPU kernel it gathers feas[g, cfg[k]] directly and
-// counts in exact int32, so it needs neither the signature admission table
-// nor the f32 ceil-overshoot mask, and takes any S, R and T.
+// What bounds the scan: latency, not bytes or FLOPs.  Its inputs are
+// ~1.3 MB of feasibility plus ~330 KB of take output at the bench shapes,
+// but it is Gp dependent steps.  The global kernel pays per step ~10 block
+// barriers (a chunked block scan and two block sums, each a full scan) and
+// a chain of device-memory round trips: cfg[k] -> feas[g, cfg] ->
+// alloc[cfg], the used / sigcnt read-modify-writes, take written and read
+// back, the class scalars loaded after the step's first barrier.
+//
+// The resident kernel removes each of those:
+//   A. Slot state in shared memory.  cfg, npods, used [R][KP], sigcnt
+//      [S][KP] and a cached alloc row per open slot are loaded once and
+//      written out once.  Thread t owns M consecutive slots, stored at
+//      i * blockDim + t, so a warp touches 32 consecutive words.  A slot
+//      that opens copies its config's alloc row into its cache (its config
+//      never changes after), so the alloc gather leaves the step.  take is
+//      stored once per slot and never read back.
+//   B. Nothing the step needs is fetched during the step.  Feasibility
+//      rows come through a ring of kRing rows, copied by cp.async kRing-1
+//      classes ahead.  The class rows (req, alloc[c_star], cnt, maxper,
+//      slot, c_star, new_ok, per and a flag word) come in tiles of kTile
+//      classes, double-buffered: tile j+1 is loaded with plain loads at the
+//      first step of tile j, so the c_star -> alloc gather waits once a
+//      tile, not once a step.  (Per-class 4-byte cp.asyncs, with c_star
+//      read a step ahead, cost more than the whole rest of the ring.)
+//   C. One barrier per class step, __syncthreads_or.  The prefix is a
+//      serial prefix over the thread's M slots, a warp shuffle scan, and
+//      that barrier to exchange the warp totals (double-buffered by step
+//      parity, so reuse needs no second barrier); every warp then scans
+//      the totals itself.  The barrier also ORs "some cap >= 2^18": without
+//      one, the exact sum of caps is below 2^31 and sum(take1) = min(n,
+//      sum(cap)); with one, or n < 0, the wrapped sum is taken at a second
+//      barrier, as _pack_core wraps.  sum(take2) = min(n2, opened * per)
+//      when the window starts at a slot >= 0, else it is reduced and
+//      written after the next step's barrier.  Both branches are
+//      block-uniform.
+// Two cuts of instructions: the caps loop visits only the axes the class
+// requests (a bit mask in its flag word), and a slot that takes no pods
+// skips used += 0 * req, npods += 0 and sigcnt += 0 where that is the
+// identity bit for bit (see used_clean).
+// What bounds the resident scan then is the latency of each warp's chain
+// through a step, with two warps per scheduler at 256 threads: the capacity
+// loads and IEEE divisions, the two shuffle scans around the barrier, the
+// integer division of the window and the state updates.  Fewer warps with
+// more slots each is slower, so the chain, not the issue rate, sets the
+// pace.
 //
 // Float rules (bit-equality with the JAX CPU reference): IEEE division and
 // no contraction of `used + take * req` (explicit __fdiv_rn / __fmul_rn /
@@ -197,7 +238,7 @@ __global__ void choose_config_kernel(const float* __restrict__ req,
   }
 }
 
-__global__ void ffd_scan_kernel(
+__global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
@@ -279,6 +320,383 @@ __global__ void ffd_scan_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The resident scan
+// ---------------------------------------------------------------------------
+
+// The Python wrapper (ops/fused_packer.py: SCAN_RING, SCAN_TILE,
+// SCAN_XCHG_BYTES, MAX_AXES, resident_layout) sizes the shared memory from
+// these; the kernel traps if the bytes it is given do not cover its layout.
+constexpr int kRing = 8;   // feasibility rows in flight
+constexpr int kTile = 32;  // classes per tile of class rows
+constexpr int kMaxR = 31;  // resource axes, at most: one flag bit each
+constexpr unsigned kFinite = 1u << 31;
+constexpr int kXchgBytes = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One cp.async of 4, 8 or 16 bytes (16 goes to L2 only, the form that size
+// takes); both addresses aligned to the size.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// node_cap over a slot's state in shared memory, laid out [R][stride],
+// for the axes set in `asked` (those with req > 0).
+__device__ __forceinline__ int node_cap_sh(const float* alloc_k,
+                                           const float* used_k, int stride,
+                                           const float* req, unsigned asked) {
+  float cap = kBigF;
+  for (; asked; asked &= asked - 1) {
+    const int r = __ffs(asked) - 1;
+    const float rem = __fsub_rn(alloc_k[r * stride], used_k[r * stride]);
+    cap = fminf(cap, floorf(__fadd_rn(__fdiv_rn(rem, req[r]), kNudge)));
+  }
+  return (int)fmaxf(cap, 0.0f);
+}
+
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Wrapped int32 sum over the block at one barrier: warp sums into `sh`
+// ([32]), then every warp adds them up.
+__device__ __forceinline__ unsigned block_sum_once(unsigned v, unsigned* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < (int)(blockDim.x >> 5) ? sh[lane] : 0u);
+}
+
+// Class h's feasibility row into its ring slot, in `chunk`-byte copies.
+__device__ __forceinline__ void issue_feas(int h, unsigned char* dst, int chunk,
+                                           const uint8_t* feas, int Cp) {
+  const uint8_t* row = feas + (size_t)h * Cp;
+  for (int i = threadIdx.x * chunk; i < Cp; i += blockDim.x * chunk)
+    cp_async(dst + i, row + i, chunk);
+}
+
+// The class rows of classes [h0, h0 + kTile) into a tile, W = 2R + 7
+// words a class: req[R], the alloc row of the config its new nodes open on,
+// then cnt, maxper, slot, c_star, new_ok, per, and a word of flags: bit r
+// set where req[r] > 0, kFinite where every req[r] is finite.  Plain
+// loads: the tile is used kTile steps later, so only its own load waits.
+__device__ __forceinline__ void load_tile(
+    int h0, int* tile, int Gp, int Cp, int R, const float* req,
+    const float* alloc, const int* cnt, const int* maxper, const int* slot,
+    const int* c_star, const int* new_ok, const int* per) {
+  const int W = 2 * R + 7;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kTile * W; i += blockDim.x) {
+    const int h = h0 + i / W, f = i % W;
+    int v = 0;
+    if (h < Gp) {
+      if (f < R) {
+        v = __float_as_int(req[(size_t)h * R + f]);
+      } else if (f < 2 * R) {
+        const int cs = c_star[h];
+        if (cs >= 0 && cs < Cp)  // else it never opens a node
+          v = __float_as_int(alloc[(size_t)cs * R + (f - R)]);
+      } else {
+        switch (f - 2 * R) {
+          case 0: v = cnt[h]; break;
+          case 1: v = maxper[h]; break;
+          case 2: v = slot[h]; break;
+          case 3: v = c_star[h]; break;
+          case 4: v = new_ok[h]; break;
+          case 5: v = per[h]; break;
+          default: {
+            unsigned flags = kFinite;
+            for (int r = 0; r < R; ++r) {
+              const float q = req[(size_t)h * R + r];
+              if (q > 0.0f) flags |= 1u << r;
+              if (!isfinite(q)) flags &= ~kFinite;
+            }
+            v = (int)flags;
+          }
+        }
+      }
+    }
+    tile[i] = v;
+  }
+}
+
+// leftover[g] of a step whose opening window began before slot 0: its
+// per-warp take-2 sums were left in `part` ([32]) for after the next barrier.
+__device__ __forceinline__ void flush_leftover(const unsigned* part, int n2,
+                                               int* out) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) == 0) {
+    const unsigned v = warp_sum(lane < (int)(blockDim.x >> 5) ? part[lane] : 0u);
+    if (lane == 0) *out = wsub(n2, (int)v);
+  }
+}
+
+template <int M>  // consecutive slots each thread owns
+__global__ void __launch_bounds__(1024) ffd_scan_kernel(
+    const float* __restrict__ req, const int* __restrict__ cnt,
+    const int* __restrict__ maxper, const int* __restrict__ slot,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const int* __restrict__ c_star, const int* __restrict__ new_ok,
+    const int* __restrict__ per, const float* __restrict__ used0,
+    const int* __restrict__ cfg0, const int* __restrict__ npods0,
+    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
+    int next0, int smem_bytes, int chunk, int* __restrict__ take,
+    int* __restrict__ leftover, int* __restrict__ cfg_out,
+    int* __restrict__ npods_out, float* __restrict__ used_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, B = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
+  const int KP = M * B;  // slot i of thread t sits at i * B + t
+
+  // ring | class tiles | exchanges | slot state; each state array is
+  // [R or S][KP]
+  const int slot_bytes = (Cp + 15) & ~15;
+  const int W = 2 * R + 7;  // words of a class row
+  unsigned char* ring = smem;
+  int* tiles = (int*)(smem + (size_t)kRing * slot_bytes);  // [2][kTile][W]
+  size_t off = (size_t)kRing * slot_bytes + (size_t)8 * kTile * W;
+  unsigned* xtot = (unsigned*)(smem + off);  // [2][32], by step parity
+  unsigned* xsum = xtot + 2 * 32;             // [32]
+  unsigned* xleft = xsum + 32;                // [2][32], by step parity
+  off += kXchgBytes;
+  float* s_used = (float*)(smem + off);
+  float* s_alloc = s_used + (size_t)R * KP;  // alloc row of the slot's config
+  int* s_cfg = (int*)(s_alloc + (size_t)R * KP);
+  int* s_npods = s_cfg + KP;
+  int* s_sig = s_npods + KP;
+  off += (size_t)4 * KP * (2 * R + 2 + S);
+  if (off > (size_t)smem_bytes) __trap();
+
+  // ---- slot state in: the only gathers through cfg0 ------------------------
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, k = tid * M + i;
+    const bool real = k < K;
+    const int c = real ? cfg0[k] : -1;
+    s_cfg[pos] = c;
+    s_npods[pos] = real ? npods0[k] : 0;
+    for (int r = 0; r < R; ++r) {
+      s_used[r * KP + pos] = real ? used0[(size_t)k * R + r] : 0.0f;
+      s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
+    }
+    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * K + k] : 0;
+  }
+  // A slot that takes no pods may skip used += 0 * req when that is the
+  // identity bit for bit: every req finite (a class flag) and no -0.0 or
+  // non-canonical NaN in used, which holds for good if it holds for used0
+  // (an add gives -0.0 only from two -0.0, and only canonical NaNs).
+  bool odd = false;
+  for (int i = tid; i < K * R; i += B) {
+    const unsigned u = __float_as_uint(used0[i]);
+    odd |= u == 0x80000000u || (isnan(__uint_as_float(u)) && u != 0x7fffffffu);
+  }
+  const bool used_clean = !__syncthreads_or(odd);
+
+  // ---- classes 0 .. kRing-2 in flight and the first tile, before step 0 ---
+  for (int h = 0; h < kRing - 1; ++h) {
+    if (h < Gp) issue_feas(h, ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    cp_async_commit();
+  }
+  load_tile(0, tiles, Gp, Cp, R, req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+  cp_async_wait<kRing - 2>();
+  __syncthreads();
+
+  int nxt = next0;
+  bool pend = false;  // a leftover waits for the next barrier
+  int pend_g = 0, pend_n2 = 0;
+  for (int g = 0; g < Gp; ++g) {
+    const int p = g & 1;
+    const unsigned char* row = ring + (size_t)(g % kRing) * slot_bytes;
+    const float* creq =
+        (const float*)(tiles + ((g / kTile) & 1) * kTile * W + (g % kTile) * W);
+    const float* cacs = creq + R;
+    const int* cint = (const int*)(creq + 2 * R);
+    const int n = cint[0], mp = cint[1];
+    int* sig_s = s_sig + cint[2] * KP;
+    const unsigned flags = (unsigned)cint[6];
+    const unsigned asked = flags & ~kFinite;
+    const bool skip_idle = used_clean && (flags & kFinite);
+
+    // ---- capacities and the serial prefix over the thread's slots ---------
+    int cap[M];
+    unsigned pre[M];
+    unsigned run = 0u;
+    bool big = false;  // some cap >= 2^18: the block's sum of caps may pass 2^31
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid;
+      const int c = s_cfg[pos];
+      int cp = 0;
+      if (c >= 0 && row[c]) {
+        cp = node_cap_sh(s_alloc + pos, s_used + pos, KP, creq, asked);
+        cp = min(cp, max(wsub(mp, sig_s[pos]), 0));
+      }
+      cap[i] = cp;
+      pre[i] = run;
+      run += (unsigned)cp;
+      big |= cp >= (1 << 18);
+    }
+    unsigned incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) xtot[p * 32 + warp] = incl;
+    {  // class g+kRing-1's row into the slot class g-1 left: every read of
+       // it was before the previous step's barrier
+      const int h = g + kRing - 1;
+      if (h < Gp) issue_feas(h, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      cp_async_commit();
+    }
+    cp_async_wait<kRing - 2>();  // class g+1's row has landed
+    // the step's barrier; with no cap >= 2^18 anywhere (at most 2 slots a
+    // thread, 1024 threads) the exact sum of caps is below 2^31
+    const bool wraps = __syncthreads_or(big);
+
+    if (pend) {
+      flush_leftover(xleft + (p ^ 1) * 32, pend_n2, leftover + pend_g);
+      pend = false;
+    }
+    if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
+      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
+                req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+
+    // ---- this warp's offset and the block total from the warp totals ------
+    unsigned w = lane < nw ? xtot[p * 32 + lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    const unsigned below = __shfl_sync(kFull, w, warp > 0 ? warp - 1 : 0);
+    const unsigned total = __shfl_sync(kFull, w, 31);
+    const unsigned base = (warp > 0 ? below : 0u) + incl - run;
+
+    // ---- first fit in slot order ------------------------------------------
+    int t1[M];
+    unsigned t1sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      t1[i] = clip(wsub(n, (int)(base + pre[i])), 0, cap[i]);
+      t1sum += (unsigned)t1[i];
+    }
+    // sum(take1) = min(n, sum(cap)) where no prefix wraps; else the wrapped
+    // sum, as _pack_core takes it (a block-uniform branch)
+    const int n2 = (n >= 0 && !wraps)
+                       ? n - min(n, (int)total)
+                       : wsub(n, (int)block_sum_once(t1sum, xsum));
+
+    // ---- open new slots on the precomputed best config --------------------
+    const int pg = cint[5], cs = cint[3];
+    const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
+    const int opened = min(need, wsub(K, nxt));
+    const int end = wadd(nxt, opened);
+    int* take_g = take + (size_t)g * K;
+    unsigned t2sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid, k = tid * M + i;
+      const bool win = k < K && k >= nxt && k < end;
+      const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
+      const int t = wadd(t1[i], t2);
+      if (k < K) take_g[k] = t;
+      if (t != 0 || !skip_idle) {
+        const float tf = (float)t;
+        for (int r = 0; r < R; ++r) {
+          float* u = s_used + r * KP + pos;
+          *u = __fadd_rn(*u, __fmul_rn(tf, creq[r]));
+        }
+        s_npods[pos] = wadd(s_npods[pos], t);
+        sig_s[pos] = wadd(sig_s[pos], t);
+      }
+      if (win) {
+        s_cfg[pos] = cs;
+        for (int r = 0; r < R; ++r) s_alloc[r * KP + pos] = cacs[r];
+      }
+      t2sum += (unsigned)t2;
+    }
+    if (nxt >= 0) {
+      // the window is [nxt, nxt+opened) inside [0, K), so sum(take2) is
+      // min(n2, opened*per) (opened > 0 implies n2 >= 1 and no wrap)
+      if (tid == 0) {
+        const long long placed =
+            opened > 0 ? min((long long)n2, (long long)opened * pg) : 0ll;
+        leftover[g] = n2 - (int)placed;
+      }
+    } else {
+      const unsigned v = warp_sum(t2sum);
+      if (lane == 0) xleft[p * 32 + warp] = v;
+      pend = true;
+      pend_g = g;
+      pend_n2 = n2;
+    }
+    nxt = end;
+  }
+  if (pend) {
+    __syncthreads();
+    flush_leftover(xleft + ((Gp - 1) & 1) * 32, pend_n2, leftover + pend_g);
+  }
+
+  // ---- slot state out -------------------------------------------------------
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, k = tid * M + i;
+    if (k < K) {
+      cfg_out[k] = s_cfg[pos];
+      npods_out[k] = s_npods[pos];
+    }
+  }
+  for (int idx = tid; idx < K * R; idx += B) {
+    const int k = idx / R, r = idx - k * R;
+    used_out[idx] = s_used[r * KP + (k % M) * B + k / M];
+  }
+}
+
+template <int M>
+int launch_resident(const float* req, const int* cnt, const int* maxper,
+                    const int* slot, const uint8_t* feas, const float* alloc,
+                    const int* c_star, const int* new_ok, const int* per,
+                    const float* used0, const int* cfg0, const int* npods0,
+                    const int* sig0, int Gp, int Cp, int K, int R, int S,
+                    int next0, int threads, int smem_bytes, int chunk,
+                    int* take, int* leftover, int* cfg, int* npods,
+                    float* used, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ffd_scan_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return (int)e;
+  }
+  ffd_scan_kernel<M><<<1, threads, smem_bytes, stream>>>(
+      req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
+      npods0, sig0, Gp, Cp, K, R, S, next0, smem_bytes, chunk, take, leftover,
+      cfg, npods, used);
+  return (int)cudaGetLastError();
+}
+
 int scan_threads(int K) {
   int b = ((K + 31) / 32) * 32;
   return b < 32 ? 32 : (b > 1024 ? 1024 : b);
@@ -301,20 +719,50 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
   return (int)cudaGetLastError();
 }
 
+int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
+                    const int* slot, const uint8_t* feas, const float* alloc,
+                    const int* c_star, const int* new_ok, const int* per,
+                    const float* used0, const int* cfg0, const int* npods0,
+                    const int* sig0, int Gp, int Cp, int K, int R, int S,
+                    int next0, int* take, int* leftover, int* cfg,
+                    int* npods, float* used, int* sigcnt, void* stream) {
+  if (K <= 0) return 0;
+  ffd_scan_global_kernel<<<1, scan_threads(K), R * sizeof(float),
+                           (cudaStream_t)stream>>>(
+      req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
+      npods0, sig0, Gp, Cp, K, R, S, next0, take, leftover, cfg, npods, used,
+      sigcnt);
+  return (int)cudaGetLastError();
+}
+
+// The resident scan: `slots_per_thread` is 1 or 2 with
+// slots_per_thread * scan_threads(K) >= K (larger slot counts do not fit
+// a block's shared memory and go to ffd_scan_global), `smem_bytes` the
+// dynamic shared memory the wrapper computed for it, `chunk` (4, 8 or 16)
+// divides Cp and the address of feas.
 int ffd_scan(const float* req, const int* cnt, const int* maxper,
              const int* slot, const uint8_t* feas, const float* alloc,
              const int* c_star, const int* new_ok, const int* per,
              const float* used0, const int* cfg0, const int* npods0,
              const int* sig0, int Gp, int Cp, int K, int R, int S, int next0,
-             int* take, int* leftover, int* cfg, int* npods, float* used,
-             int* sigcnt, void* stream) {
+             int slots_per_thread, int smem_bytes, int chunk, int* take,
+             int* leftover, int* cfg, int* npods, float* used, void* stream) {
   if (K <= 0) return 0;
-  ffd_scan_kernel<<<1, scan_threads(K), R * sizeof(float),
-                    (cudaStream_t)stream>>>(
-      req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
-      npods0, sig0, Gp, Cp, K, R, S, next0, take, leftover, cfg, npods, used,
-      sigcnt);
-  return (int)cudaGetLastError();
+  const int threads = scan_threads(K);
+  if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
+      R > kMaxR || (long long)slots_per_thread * threads < K)
+    return (int)cudaErrorInvalidValue;
+#define FFD_LAUNCH(M)                                                        \
+  launch_resident<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok,    \
+                     per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, \
+                     threads, smem_bytes, chunk, take, leftover, cfg, npods, \
+                     used, (cudaStream_t)stream)
+  switch (slots_per_thread) {
+    case 1: return FFD_LAUNCH(1);
+    case 2: return FFD_LAUNCH(2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFD_LAUNCH
 }
 
 }  // extern "C"

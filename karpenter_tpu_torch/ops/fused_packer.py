@@ -7,7 +7,10 @@ pack is two launches:
 
 - `choose_config`: one block per class picks the config a new node of the
   class opens on (``_pack_core``'s hoisted new-node choice);
-- `ffd_scan`: one block walks the classes in order (the sequential scan).
+- `ffd_scan`: one block walks the classes in order (the sequential scan),
+  with the slot state resident in shared memory; where that state does not
+  fit one block (`scan_kernel`, by shape alone) the same scan runs as
+  `ffd_scan_global`, with the state in device memory.
 
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
@@ -30,7 +33,16 @@ from karpenter_tpu_torch.ops.packer import (
 )
 
 # kernel name -> launches since the last reset (plain integers)
-LAUNCHES: Dict[str, int] = {"choose_config": 0, "ffd_scan": 0}
+LAUNCHES: Dict[str, int] = {"choose_config": 0, "ffd_scan": 0, "ffd_scan_global": 0}
+
+# the resident scan's shared memory and axes (kRing, kTile, kXchgBytes and
+# kMaxR in ffd_pack.cu)
+SCAN_RING = 8  # feasibility rows in flight or resident
+SCAN_TILE = 32  # classes per tile of class rows (two tiles resident)
+SCAN_XCHG_BYTES = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4  # per-warp exchange words
+SMEM_PER_BLOCK = 232_448  # the most a Hopper block may use (227 KB)
+MAX_SLOTS_PER_THREAD = 2  # the largest template instance of ffd_scan_kernel
+MAX_AXES = 31  # resource axes the resident scan's class flags cover
 
 OBJECTIVES = {"nodes": 0, "cost": 1}
 
@@ -48,8 +60,10 @@ def _lib() -> ctypes.CDLL:
     if lib.ffd_scan.argtypes is None:
         lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_P]
         lib.ffd_choose_config.restype = _I
-        lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 6 + [_P] * 6 + [_P]
+        lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + [_P] * 5 + [_P]
         lib.ffd_scan.restype = _I
+        lib.ffd_scan_global.argtypes = [_P] * 13 + [_I] * 6 + [_P] * 6 + [_P]
+        lib.ffd_scan_global.restype = _I
     return lib
 
 
@@ -115,18 +129,58 @@ def choose_config(
     return c_star, new_ok, per
 
 
-def ffd_scan(
+def scan_threads(K: int) -> int:
+    """Threads of the one scan block, either kernel (``scan_threads`` in
+    ffd_pack.cu)."""
+    return min(max((K + 31) // 32 * 32, 32), 1024)
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def resident_layout(K: int, R: int, S: int, C: int) -> Tuple[int, int]:
+    """``(slots per thread, dynamic shared-memory bytes)`` of the resident
+    scan: a ring of `SCAN_RING` feasibility rows (each 16-byte aligned),
+    two tiles of `SCAN_TILE` class rows (req, alloc[c_star], six int32
+    scalars and a word of flags), the exchange words, and per slot cfg,
+    npods, used [R], cached alloc [R] and the signature counters [S].
+    Slots per thread is the power of two that covers K with
+    `scan_threads` threads."""
+    threads = scan_threads(K)
+    per_thread = 1
+    while per_thread * threads < K:
+        per_thread *= 2
+    tiles = 2 * SCAN_TILE * 4 * (2 * R + 7)
+    state = 4 * per_thread * threads * (2 * R + 2 + S)
+    return per_thread, SCAN_RING * _up16(C) + tiles + SCAN_XCHG_BYTES + state
+
+
+def feas_copy_bytes(C: int) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that divides the feasibility
+    row length (``feas`` itself is 16-byte aligned, `_scan_shapes`); 0 if
+    none does."""
+    return next((b for b in (16, 8, 4) if C % b == 0), 0)
+
+
+def scan_kernel(K: int, R: int, S: int, C: int) -> str:
+    """Which scan kernel runs at these shapes, decided by shape alone:
+    ``"ffd_scan"`` (resident) where its slot state fits the shared memory
+    of one block with at most `MAX_SLOTS_PER_THREAD` slots a thread, the
+    problem has at most `MAX_AXES` resource axes and its feasibility rows
+    copy in 4-byte pieces or wider, else ``"ffd_scan_global"``."""
+    per_thread, smem = resident_layout(K, R, S, C)
+    fits = (per_thread <= MAX_SLOTS_PER_THREAD and smem <= SMEM_PER_BLOCK
+            and R <= MAX_AXES)
+    return "ffd_scan" if fits and feas_copy_bytes(C) else "ffd_scan_global"
+
+
+def _scan_shapes(
     req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
-    used0, cfg0, npods0, next0: int, sig0,
-) -> Tuple[torch.Tensor, ...]:
-    """The sequential class scan: ``(take [G, K], leftover [G],
-    node_cfg [K], node_pods [K], node_used [K, R])``."""
+    used0, cfg0, npods0, next0, sig0,
+) -> Tuple[int, int, int, int, int]:
+    """Checks a scan's card inputs; returns ``(G, C, K, R, S)``."""
     dev = req.device
-    if dev.type == "cpu":
-        return ffd_scan_reference(
-            req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
-            used0, cfg0, npods0, next0, sig0,
-        )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     G, R = req.shape
@@ -150,28 +204,86 @@ def ffd_scan(
         ("sig0", sig0, i32, (S, K)),
     ):
         _check(name, t, dt, shp, dev)
+    if feas.data_ptr() % 16:
+        raise ValueError("feas must start on a 16-byte boundary")
     if not 0 <= int(next0) <= K:
         raise ValueError(f"next0={next0} outside [0, {K}]")
-    take = torch.empty((G, K), dtype=i32, device=dev)
-    leftover = torch.empty(G, dtype=i32, device=dev)
-    node_cfg = torch.empty(K, dtype=i32, device=dev)
-    node_pods = torch.empty(K, dtype=i32, device=dev)
-    node_used = torch.empty((K, R), dtype=f32, device=dev)
-    sigcnt = torch.empty((S, K), dtype=i32, device=dev)  # scratch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    return G, C, K, R, S
+
+
+def _scan_outputs(G: int, K: int, R: int, dev) -> Tuple[torch.Tensor, ...]:
+    """``take, leftover, node_cfg, node_pods, node_used`` on ``dev``."""
+    i32 = torch.int32
+    return (
+        torch.empty((G, K), dtype=i32, device=dev),
+        torch.empty(G, dtype=i32, device=dev),
+        torch.empty(K, dtype=i32, device=dev),
+        torch.empty(K, dtype=i32, device=dev),
+        torch.empty((K, R), dtype=torch.float32, device=dev),
+    )
+
+
+def _ptrs(*ts) -> list:
+    return [t.data_ptr() for t in ts]
+
+
+def ffd_scan(
+    req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+    used0, cfg0, npods0, next0: int, sig0,
+) -> Tuple[torch.Tensor, ...]:
+    """The sequential class scan: ``(take [G, K], leftover [G],
+    node_cfg [K], node_pods [K], node_used [K, R])``.  On the card it runs
+    the kernel `scan_kernel` picks for the shapes: the resident one, or the
+    global one where the resident state does not fit."""
+    args = (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, next0, sig0)
+    if req.device.type == "cpu":
+        return ffd_scan_reference(*args)
+    G, C, K, R, S = _scan_shapes(*args)
+    if scan_kernel(K, R, S, C) == "ffd_scan_global":
+        return _launch_global(args, (G, C, K, R, S))
+    per_thread, smem = resident_layout(K, R, S, C)
+    outs = _scan_outputs(G, K, R, req.device)
+    with torch.cuda.device(req.device):
+        stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan(
-            req.data_ptr(), cnt.data_ptr(), maxper.data_ptr(),
-            slot.data_ptr(), feas.data_ptr(), alloc.data_ptr(),
-            c_star.data_ptr(), new_ok.data_ptr(), per.data_ptr(),
-            used0.data_ptr(), cfg0.data_ptr(), npods0.data_ptr(),
-            sig0.data_ptr(), G, C, K, R, S, int(next0),
-            take.data_ptr(), leftover.data_ptr(), node_cfg.data_ptr(),
-            node_pods.data_ptr(), node_used.data_ptr(), sigcnt.data_ptr(),
-            stream,
+            *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+                   used0, cfg0, npods0, sig0),
+            G, C, K, R, S, int(next0), per_thread, smem,
+            feas_copy_bytes(C), *_ptrs(*outs), stream,
         )
     _launched("ffd_scan", err)
-    return take, leftover, node_cfg, node_pods, node_used
+    return outs
+
+
+def ffd_scan_global(
+    req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+    used0, cfg0, npods0, next0: int, sig0,
+) -> Tuple[torch.Tensor, ...]:
+    """`ffd_scan` through the global kernel at any shape (`ffd_scan` takes
+    it only where the resident state does not fit)."""
+    args = (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, next0, sig0)
+    if req.device.type == "cpu":
+        return ffd_scan_reference(*args)
+    return _launch_global(args, _scan_shapes(*args))
+
+
+def _launch_global(args, shapes) -> Tuple[torch.Tensor, ...]:
+    (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+     used0, cfg0, npods0, next0, sig0) = args
+    G, C, K, R, S = shapes
+    outs = _scan_outputs(G, K, R, req.device)
+    sigcnt = torch.empty((S, K), dtype=torch.int32, device=req.device)  # scratch
+    with torch.cuda.device(req.device):
+        stream = torch.cuda.current_stream(req.device).cuda_stream
+        err = _lib().ffd_scan_global(
+            *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+                   used0, cfg0, npods0, sig0),
+            G, C, K, R, S, int(next0), *_ptrs(*outs, sigcnt), stream,
+        )
+    _launched("ffd_scan_global", err)
+    return outs
 
 
 def ffd_pack(

@@ -2,9 +2,10 @@
 
 The counterpart of ``karpenter_tpu/testing.py``'s `Environment` for what
 the solve reads: a default pool, instance types over `generate_catalog`
-in zones ``zone-a/b/c`` of ``region-1``, and the two north-star problems of
+in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 ``bench.py`` (`build_problem`, `build_heterogeneous`) with a ``scale`` on
-the pod count.
+the pod count, a cluster of live nodes, and pack inputs on which the
+scan's int32 sums wrap.
 
 Prices are those the reference environment serves after its operator's
 start-up price refresh: on-demand from the shapes' seed prices, spot at the
@@ -14,6 +15,8 @@ fake cloud's default discount of the on-demand price in every zone.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from karpenter_tpu_torch.api import (
     InstanceType,
@@ -29,6 +32,7 @@ from karpenter_tpu_torch.providers.instancetype import (
     SeedPrices,
     build_instance_types,
 )
+from karpenter_tpu_torch.state.cluster import StateNode
 
 ZONES = ("zone-a", "zone-b", "zone-c")
 REGION = "region-1"
@@ -87,6 +91,64 @@ def flagship_problem(
     ]
     pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_n(scale))]
     return pool, types, pods
+
+
+def live_cluster(n: int) -> List[StateNode]:
+    """``n`` running nodes of 4 vCPU / 16 GiB spread over the zones, none
+    carrying a pool label: what a batch of pending pods meets in a cluster
+    of that size."""
+    return [
+        StateNode(
+            name=f"node-{i}",
+            provider_id=f"i-{i}",
+            labels={
+                L.LABEL_ARCH: "amd64",
+                L.LABEL_OS: "linux",
+                L.LABEL_ZONE: ZONES[i % len(ZONES)],
+            },
+            taints=[],
+            allocatable=Resources(cpu=4, memory="16Gi", pods=110),
+        )
+        for i in range(n)
+    ]
+
+
+def wrap_arrays(k_slots: int = 256, classes: int = 10) -> tuple:
+    """Pack inputs (numpy, in `pack_reference`'s order) on which the scan's
+    int32 sums wrap, as ``_pack_core``'s do.  Classes 0-7 request no axis,
+    so 2^30 copies fit each of the four prefilled feasible slots: slot 3's
+    prefix, 3 x 2^30, wraps to -2^30 and takes 2^30 pods, the class's
+    leftover count goes negative and its window of new slots has negative
+    length, so the first free slot steps down by one per class, to -4.
+    Class 8 (cpu and memory) then opens its window from slot -4, over the
+    prefilled slots 0 and 1; class 9 is capped at 3 a node.
+    ``classes`` keeps the first that many."""
+    rng = np.random.default_rng(7)
+    G, C, R, S, E = 10, 8, 6, 8, 4
+    big = 2**30
+    req = np.zeros((G, R), np.float32)
+    req[8, :2] = (1.0, 2.0)
+    req[9, :2] = (0.5, 0.25)
+    cnt = np.array([5, 6, 7, 8, 9, 10, 11, 12, 400, 7], np.int32)
+    maxper = np.array([big] * 9 + [3], np.int32)
+    slot = np.array([0, 1, 2, 3, 4, 5, 6, 7, 0, 1], np.int32)
+    feas = np.ones((G, C), bool)
+    feas[9, 5:] = False
+    alloc = np.tile(np.array([8, 32, 110, 0, 0, 0], np.float32), (C, 1))
+    alloc[:, 0] *= np.arange(1, C + 1, dtype=np.float32)
+    alloc[:, 1] *= np.arange(1, C + 1, dtype=np.float32)
+    price = (np.arange(1, C + 1) * 0.1 + rng.random(C) * 0.01).astype(np.float32)
+    openable = np.ones(C, bool)
+    used0 = np.zeros((k_slots, R), np.float32)
+    cfg0 = np.full(k_slots, -1, np.int32)
+    cfg0[:E] = (0, 3, 1, 2)
+    used0[:E, :2] = ((2, 4), (1, 8), (0.5, 1), (3, 3))
+    npods0 = np.zeros(k_slots, np.int32)
+    npods0[:E] = (2, 1, 1, 3)
+    sig0 = np.zeros((S, k_slots), np.int32)
+    g = slice(0, classes)
+    return (req[g], cnt[g], maxper[g], slot[g], feas[g], alloc, price, openable,
+            used0, cfg0, npods0, E, sig0)
 
 
 def heterogeneous_problem(

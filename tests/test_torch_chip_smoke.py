@@ -1,5 +1,6 @@
-"""chip_smoke.py on the CPU: it refuses to run without a card, and the
-bound it reports counts only what the run's data needs."""
+"""chip_smoke.py on the CPU: it refuses to run without a card, the bound
+it reports counts only what the run's data needs, and each scan kernel's
+latency floor follows that kernel's own step."""
 
 import pathlib
 import subprocess
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 import chip_smoke
+from karpenter_tpu_torch.ops import fused_packer
 
 
 def test_refuses_without_a_card():
@@ -69,9 +71,17 @@ def test_bound_counts_what_the_data_needs():
 
 
 def test_scan_latency_floor():
-    assert chip_smoke.scan_threads(256) == 256
-    assert chip_smoke.scan_threads(5000) == 1024
-    assert chip_smoke.scan_barriers_per_step(256) == 10
-    assert chip_smoke.scan_barriers_per_step(2048) == 13
-    floor = chip_smoke.scan_latency_floor_ms(320, 256, barrier_us=0.02, l2_us=0.1)
+    assert fused_packer.scan_threads(256) == 256
+    assert fused_packer.scan_threads(5000) == 1024
+    # the global kernel: a barrier after the req row, three per chunk of
+    # its block scan, three in each block sum; two first-touch L2 loads
+    assert chip_smoke.scan_step_model("ffd_scan_global", 256) == (10, 2)
+    assert chip_smoke.scan_step_model("ffd_scan_global", 2048) == (13, 2)
+    # the resident kernel: one barrier; two dependent L2 loads a tile of
+    # class rows
+    assert chip_smoke.scan_step_model("ffd_scan", 256) == (1, 2 / fused_packer.SCAN_TILE)
+    floor = chip_smoke.scan_latency_floor_ms(
+        "ffd_scan_global", 320, 256, barrier_us=0.02, l2_us=0.1)
     assert np.isclose(floor, 320 * (10 * 0.02 + 2 * 0.1) / 1e3)
+    floor = chip_smoke.scan_latency_floor_ms("ffd_scan", 320, 256, barrier_us=0.02, l2_us=0.1)
+    assert np.isclose(floor, 320 * (0.02 + 2 / 32 * 0.1) / 1e3)

@@ -1,5 +1,9 @@
 """The CUDA kernels against their plain PyTorch version, on the card.
 
+Each scan case asserts which scan kernel the wrapper's shape rule launched:
+the resident one up to the slot count whose state fits a block, the global
+one above it, and both on the wrap case (int32 sums that wrap).
+
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
 same tests everywhere.  On the card: ``python -m pytest -m cuda
@@ -12,7 +16,12 @@ import torch
 
 from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.ops import fused_packer
-from karpenter_tpu_torch.ops.packer import pack_reference, pad_problem, to_device
+from karpenter_tpu_torch.ops.packer import (
+    ffd_scan_reference,
+    pack_reference,
+    pad_problem,
+    to_device,
+)
 from karpenter_tpu_torch.ops.tensorize import compile_problem
 from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 
@@ -34,32 +43,89 @@ def _assert_bit_equal(got, want):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("objective", ["nodes", "cost"])
-@pytest.mark.parametrize("problem", ["flagship", "heterogeneous"])
-def test_kernel_matches_reference(cuda_device, problem, objective):
-    if problem == "flagship":
+# case -> (pack arguments on the host, the scan kernel the shapes pick).
+# config 2 at scale 0.1 has R 6, S 2 and Cp 4096: its resident state fits
+# one block at 2048 slots, not at 4096.
+def _case(case: str):
+    if case == "flagship":
         pool, types, pods = T.flagship_problem(scale=0.1)
-        prob = compile_problem(pods, [pool], {pool.name: types})
-    else:
+        return pad_problem(compile_problem(pods, [pool], {pool.name: types}))[0], "ffd_scan"
+    if case.startswith("heterogeneous"):
         pools, inv, pods = T.heterogeneous_problem(scale=0.1)
-        prob = compile_problem(pods, pools, inv)
-    args = to_device(pad_problem(prob)[0], cuda_device)
+        k = int(case.partition("-")[2] or 0)
+        kernel = "ffd_scan_global" if k == 4096 else "ffd_scan"
+        return pad_problem(compile_problem(pods, pools, inv), k)[0], kernel
+    if case == "wrap-short":  # fewer classes than the ring holds
+        return T.wrap_arrays(8, classes=3), "ffd_scan"
+    if case == "wrap-negzero":  # -0.0 in used0: no slot may skip used += 0 * req
+        args = T.wrap_arrays(256)
+        args[8][0, 3] = -0.0
+        return args, "ffd_scan"
+    k = int(case.partition("-")[2] or 256)
+    return T.wrap_arrays(k), "ffd_scan_global" if k == 4096 else "ffd_scan"
+
+
+CASES = ["flagship", "heterogeneous", "heterogeneous-2048", "heterogeneous-4096",
+         "wrap", "wrap-4096", "wrap-short", "wrap-negzero"]
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("problem", CASES)
+def test_kernel_matches_reference(cuda_device, problem, objective):
+    host_args, kernel = _case(problem)
+    args = to_device(host_args, cuda_device)
     before = dict(fused_packer.LAUNCHES)
     got = fused_packer.ffd_pack(*args, objective=objective)
     torch.cuda.synchronize()
-    assert fused_packer.LAUNCHES["choose_config"] == before["choose_config"] + 1
-    assert fused_packer.LAUNCHES["ffd_scan"] == before["ffd_scan"] + 1
+    moved = {k for k, n in fused_packer.LAUNCHES.items() if n != before[k]}
+    assert moved == {"choose_config", kernel}
+    assert all(fused_packer.LAUNCHES[k] == before[k] + 1 for k in moved)
     _assert_bit_equal(got, pack_reference(*args, objective=objective))
 
 
-def test_solve_on_card_matches_cpu(cuda_device):
+def test_global_kernel_matches_reference(cuda_device):
+    """The global kernel at a shape the resident one takes."""
+    args = to_device(_case("heterogeneous")[0], cuda_device)
+    (req, cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    scan_args = (req, cnt, maxper, slot, feas, alloc, *chosen,
+                 used0, cfg0, npods0, next0, sig0)
+    before = fused_packer.LAUNCHES["ffd_scan_global"]
+    got = fused_packer.ffd_scan_global(*scan_args)
+    torch.cuda.synchronize()
+    assert fused_packer.LAUNCHES["ffd_scan_global"] == before + 1
+    _assert_bit_equal(got, ffd_scan_reference(*scan_args))
+
+
+def test_misaligned_feasibility_raises(cuda_device):
+    """The kernel follows the shapes alone: a ``feas`` view that does not
+    start on a 16-byte boundary is refused, not sent to another kernel."""
+    args = list(to_device(_case("heterogeneous")[0], cuda_device))
+    feas = args[4]
+    shifted = torch.zeros(feas.numel() + 1, dtype=torch.bool, device=cuda_device)
+    shifted[1:] = feas.reshape(-1)
+    args[4] = shifted[1:].view(feas.shape)
+    before = dict(fused_packer.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_packer.ffd_pack(*args)
+    assert fused_packer.LAUNCHES["ffd_scan"] == before["ffd_scan"]
+    assert fused_packer.LAUNCHES["ffd_scan_global"] == before["ffd_scan_global"]
+
+
+@pytest.mark.parametrize("live_nodes,kernel", [(0, "ffd_scan"), (2000, "ffd_scan_global")])
+def test_solve_on_card_matches_cpu(cuda_device, live_nodes, kernel):
     pools, inv, pods = T.heterogeneous_problem(scale=0.1)
-    card = TorchScheduler(pools, inv, device=cuda_device)
+    existing = T.live_cluster(live_nodes)
+    card = TorchScheduler(pools, inv, existing=existing, device=cuda_device)
+    before = fused_packer.LAUNCHES[kernel]
     got = card.solve(pods)
-    cpu = TorchScheduler(pools, inv, device="cpu").solve(pods)
+    cpu = TorchScheduler(pools, inv, existing=existing, device="cpu").solve(pods)
     assert card.last_kernel == "cuda_ffd"
+    assert fused_packer.LAUNCHES[kernel] > before
     key = lambda r: sorted(tuple(sorted(p.name for p in n.pods)) for n in r.new_nodes)
     assert key(got) == key(cpu)
+    assert sorted(got.existing_placements.items()) == sorted(cpu.existing_placements.items())
     assert got.total_price() == cpu.total_price()
 
 

@@ -4,8 +4,9 @@
 karpenter_tpu_torch/csrc/ffd_pack.cu) is held to the JAX lax.scan kernel
 (`run_pack`) and the Pallas kernel (`run_pack_pallas`, run through the
 Pallas interpreter as tests/test_pallas.py runs it) on the shapes of
-tests/test_pallas.py, on the two bench problems cut to 500 pods, and on
-random arrays made from numpy seeds.
+tests/test_pallas.py, on the two bench problems cut to 500 pods, on
+random arrays made from numpy seeds, and on arrays where the scan's int32
+sums wrap.  Also the shape rule that picks the card's scan kernel.
 
 Tolerance: none.  `take`, `leftover`, `node_cfg` and `node_pods` must be
 equal, and `node_used` bit-equal to the scan kernel's (the Pallas kernel
@@ -28,7 +29,9 @@ from karpenter_tpu.ops.tensorize import compile_problem
 from karpenter_tpu.state.cluster import StateNode
 from karpenter_tpu.testing import Environment
 from karpenter_tpu_torch.interop import problem_arrays, problem_from_arrays
+from karpenter_tpu_torch.ops import fused_packer
 from karpenter_tpu_torch.ops.packer import pack_reference, run_pack
+from karpenter_tpu_torch.testing import wrap_arrays
 
 OBJECTIVES = ("nodes", "cost")
 
@@ -256,10 +259,7 @@ def _random_arrays(seed: int):
             used0, cfg0, npods0, E, sig0)
 
 
-@pytest.mark.parametrize("objective", OBJECTIVES)
-@pytest.mark.parametrize("seed", range(4))
-def test_random_arrays_parity(seed, objective):
-    args = _random_arrays(seed)
+def _assert_arrays_parity(args, objective):
     K = args[8].shape[0]
     ref = pack_kernel(*args, k_slots=K, objective=objective)
     port = pack_reference(
@@ -275,3 +275,55 @@ def test_random_arrays_parity(seed, objective):
         port[4].numpy().view(np.int32),
         np.asarray(ref.node_used, np.float32).view(np.int32),
     )
+    return port
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("seed", range(4))
+def test_random_arrays_parity(seed, objective):
+    _assert_arrays_parity(_random_arrays(seed), objective)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_wrap_arrays_parity(objective):
+    """Classes that request no axis meet four prefilled feasible slots with
+    2^30 room each: the int32 prefix wraps (see `wrap_arrays`)."""
+    take, leftover, node_cfg, _, _ = _assert_arrays_parity(wrap_arrays(16), objective)
+    # the wrap happened: slot 3 took 2^30 pods of class 0, whose leftover
+    # went negative, and class 8's window started below slot 0, reopening
+    # prefilled slots
+    assert int(take[0, 3]) == 2**30
+    assert int(leftover[0]) == -(2**30)
+    assert int(node_cfg[0]) != 0
+
+
+@pytest.mark.parametrize(
+    "K,kernel,smem",
+    [(256, "ffd_scan", 60_800), (2048, "ffd_scan", 218_496),
+     (4096, "ffd_scan_global", 398_720)],
+)
+def test_scan_kernel_by_shape(K, kernel, smem):
+    """config 2's R 6, S 8, Cp 4096: the resident state fits one block up
+    to 2048 slots (88 bytes a slot plus the ring), not at 4096."""
+    R, S, C = 6, 8, 4096
+    per_thread, got = fused_packer.resident_layout(K, R, S, C)
+    assert got == smem
+    assert per_thread * fused_packer.scan_threads(K) >= K
+    assert fused_packer.scan_kernel(K, R, S, C) == kernel
+
+
+def test_scan_kernel_by_feasibility_row():
+    # rows copy in the widest cp.async the row length allows
+    assert fused_packer.feas_copy_bytes(4096) == 16
+    assert fused_packer.feas_copy_bytes(8) == 8
+    assert fused_packer.feas_copy_bytes(12) == 4
+    assert fused_packer.feas_copy_bytes(6) == 0
+    assert fused_packer.scan_kernel(256, 6, 8, 12) == "ffd_scan"
+    assert fused_packer.scan_kernel(256, 6, 8, 6) == "ffd_scan_global"
+    # at most two slots a thread: past 2048 slots the global kernel runs,
+    # however small the state
+    assert fused_packer.resident_layout(2049, 1, 1, 16)[0] == 4
+    assert fused_packer.scan_kernel(2049, 1, 1, 16) == "ffd_scan_global"
+    # one flag bit per resource axis: at most 31
+    assert fused_packer.scan_kernel(256, 31, 2, 64) == "ffd_scan"
+    assert fused_packer.scan_kernel(256, 32, 2, 64) == "ffd_scan_global"
