@@ -15,38 +15,47 @@ Phases (each failure exits non-zero before the last line is printed):
    by shape, `fused_packer.scan_kernel`):
    - config 2 (``heterogeneous_problem``, 256 slots) and the flagship
      (``flagship_problem``): ``choose_config`` and the resident ``ffd_scan``;
-     config 2 also through ``ffd_scan_global`` at its own 256 slots, the
-     shape phase 4 times the two scans in turns at;
+     config 2 also through ``ffd_scan_global`` at its own 256 slots;
    - config 2's pods on 2,000 live nodes (4096 slots, Cp 8192), the shape
-     at which phase 5's solves launch ``ffd_scan_global``, and config 2
-     padded to 4096 slots: the slot state does not fit one block, so
-     ``ffd_scan_global``;
+     at which phase 5's solves launch ``ffd_scan_cluster``: the slot state
+     does not fit one block, so the cluster scan, and also the global scan
+     and the cluster scan on each other cluster size that holds the shape
+     (the sizes phase 4 times in turns);
+   - config 2 padded to 4096, 8192 and 16,384 slots: the cluster scan on
+     the cluster the shape rule picks for each (8 CTAs of 512 threads, of
+     1024, and of 1024 with 2 slots a thread);
    - the wrap case (``testing.wrap_arrays``: the scan's int32 sums wrap) at
-     256 slots (resident) and 4096 (global).
+     256 slots (resident) and 4096 (cluster, and global), and at 4096 and
+     16,384 slots with its prefilled slots straddling slot K / 2, a CTA
+     boundary (cluster; at 4096 on every cluster size).
 4. Kernel times: each kernel's device time per launch (torch.profiler)
    and its CUDA-event time over many launches after warm-up, beside the
    plain versions' times (CUDA events) and each kernel's bound at this
    run's inputs, at each of the three problems of phase 5 (the scan the
-   shapes pick).  At config 2 the two scan kernels also run in turns
-   (global, resident, resident, global) and their ratio is printed.  The
-   bound counts the bytes and operations this run's data needs; each scan
-   kernel also gets its latency floor, class steps x (its barriers x
-   barrier round trip + its exposed dependent L2 loads x L2 round trip),
-   with both round trips measured here by ``csrc/latency_probe.cu``.  The
-   kernels line gives each kernel at the problem whose solves launch it:
-   ``choose_config`` and ``ffd_scan`` at config 2, ``ffd_scan_global`` on
-   the live cluster.
+   shapes pick).  At config 2 the global and resident scans run in turns
+   (global, resident, resident, global); at the live cluster the global
+   and cluster scans (global, cluster, every other cluster size and back,
+   cluster, global); their ratios are printed.  The bound counts the bytes
+   and operations this run's data needs; each scan kernel also gets its
+   latency floor, class steps x (its barriers x barrier round trip + its
+   exposed dependent L2 loads x L2 round trip), with the round trips (the
+   block barrier per thread count, the cluster barrier per cluster size,
+   the L2 load) measured here by ``csrc/latency_probe.cu``.  The kernels
+   line gives each kernel at the problem whose solves launch it:
+   ``choose_config`` and ``ffd_scan`` at config 2, ``ffd_scan_cluster`` on
+   the live cluster, and ``ffd_scan_global`` there too, timed through its
+   own entry point.
 5. The slice: ``TorchScheduler(device="cuda").solve`` on config 2 (10,000
    pods, 317 classes), on the flagship, and on config 2's pods arriving at
-   a cluster of 2,000 live nodes (4096 slots: the global scan), 2 warm-up +
-   10 timed solves each, with the launch counters set to 0 just before and
-   read just after.  All pods must be placed, every solve must launch
+   a cluster of 2,000 live nodes (4096 slots: the cluster scan), 2 warm-up
+   + 10 timed solves each, with the launch counters set to 0 just before
+   and read just after.  All pods must be placed, every solve must launch
    ``choose_config`` and the scan kernel its shapes pick (the resident one
-   on the two bench problems, the global one on the live cluster), and
-   each problem's decoded result must equal a CPU solve through the plain
-   version.  One more solve per problem runs under torch.profiler, after
-   the counts are read, for the device time of each kernel and the
-   device's busy share of the solve.
+   on the two bench problems, the cluster one on the live cluster), none
+   may launch ``ffd_scan_global``, and each problem's decoded result must
+   equal a CPU solve through the plain version.  One more solve per
+   problem runs under torch.profiler, after the counts are read, for the
+   device time of each kernel and the device's busy share of the solve.
 6. Prints the kernels JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -65,13 +74,14 @@ F32_OPS_PER_S = 67e12
 WARMUP_SOLVES, TIMED_SOLVES = 2, 10
 KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
-KERNELS = ("choose_config", "ffd_scan", "ffd_scan_global")
+KERNELS = ("choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
 SCAN_KERNELS = KERNELS[1:]
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
-# whose solves launch it
+# whose solves launch it (the global scan: where it ran before the cluster
+# scan took that shape)
 ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
-               "ffd_scan_global": "config2_live"}
+               "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 
 
@@ -155,12 +165,18 @@ def scan_step_model(kernel: str, K: int):
     do).  Its feasibility rows arrive in shared memory ahead of the step;
     its class rows arrive a tile of ``SCAN_TILE`` classes at a time, whose
     load waits on two dependent L2 loads (c_star, then the alloc row), so
-    2 / SCAN_TILE per step."""
+    2 / SCAN_TILE per step.
+
+    ``ffd_scan_cluster``: the resident step with its one barrier a cluster
+    barrier (the warp totals exchanged through the cluster's shared
+    memory), and the same 2 / SCAN_TILE loads."""
     from karpenter_tpu_torch.ops.fused_packer import SCAN_TILE, scan_threads
 
     if kernel == "ffd_scan_global":
         return 1 + 3 * -(-K // scan_threads(K)) + 3 + 3, 2
-    return 1, 2 / SCAN_TILE
+    if kernel in ("ffd_scan", "ffd_scan_cluster"):
+        return 1, 2 / SCAN_TILE
+    raise ValueError(f"no step model for {kernel}")
 
 
 def kernel_bounds(args, take, node_cfg):
@@ -241,10 +257,12 @@ def scan_latency_floor_ms(kernel: str, G: int, K: int, barrier_us: float,
     return G * (barriers * barrier_us + loads * l2_us) / 1e3
 
 
-def probe_latencies(torch, threads):
-    """``({threads: barrier round trip}, dependent L2 load round trip)`` in
-    microseconds, the barrier of one block at each thread count in
-    ``threads``; each from two launches of csrc/latency_probe.cu at
+def probe_latencies(torch, threads, clusters):
+    """``({threads: barrier round trip}, {(ctas, threads): cluster barrier
+    round trip}, dependent L2 load round trip)`` in microseconds: the
+    barrier of one block at each thread count in ``threads``, the
+    exchange and barrier of one cluster at each (size, threads) in
+    ``clusters``; each from two launches of csrc/latency_probe.cu at
     different step counts (the difference cancels the launch)."""
     import ctypes
 
@@ -256,8 +274,10 @@ def probe_latencies(torch, threads):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.probe_barrier.argtypes, lib.probe_barrier.restype = [I, I, P, P], I
     lib.probe_chase.argtypes, lib.probe_chase.restype = [P, I, P, P], I
+    lib.probe_cluster_barrier.argtypes = [I, I, I, P, P]
+    lib.probe_cluster_barrier.restype = I
     dev = torch.device("cuda")
-    out = torch.empty(1024, dtype=torch.int32, device=dev)
+    out = torch.empty(8 * 1024, dtype=torch.int32, device=dev)
     lines = L2_PROBE_BYTES // 128
     order = np.random.RandomState(0).permutation(lines)
     chain = np.zeros(lines * 32, np.int32)
@@ -278,24 +298,50 @@ def probe_latencies(torch, threads):
             lambda n, st, b=b: lib.probe_barrier(b, n, out.data_ptr(), st), 20000, 220000)
         for b in threads
     }
+    cluster_us = {
+        (c, b): per_step_us(
+            lambda n, st, c=c, b=b: lib.probe_cluster_barrier(c, b, n, out.data_ptr(), st),
+            20000, 220000)
+        for c, b in clusters
+    }
     l2_us = per_step_us(
         lambda n, st: lib.probe_chase(chain.data_ptr(), n, out.data_ptr(), st),
         lines, 4 * lines)
-    return barrier_us, l2_us
+    return barrier_us, cluster_us, l2_us
 
 
-def compare_kernels(torch, args, scans):
+def pack_shapes(args):
+    """``(K, R, S, C)`` of a pack's arguments, as `fused_packer.scan_kernel`
+    takes them."""
+    return args[8].shape[0], args[0].shape[1], args[12].shape[0], args[5].shape[0]
+
+
+def other_cluster_sizes(K, R, S, C):
+    """The cluster sizes other than the one the shape rule picks that hold
+    these shapes."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    picked = (F.cluster_layout(K, R, S, C) or (None,))[0]
+    return [n for n in F.CLUSTER_SIZES if n != picked and F.cluster_layout(K, R, S, C, n)]
+
+
+def compare_kernels(torch, args, picked, extra):
     """Phase 3 on one problem's padded card tensors, both objectives:
-    `choose_config` and each scan wrapper in ``scans`` against the plain
-    versions.  Each scan call must launch the kernel expected of it.
-    Returns the largest error per kernel and the nodes objective's scan
-    outputs."""
+    `choose_config` and the scan against the plain versions, the scan
+    through `fused_packer.ffd_scan` (whose shape rule must pick
+    ``picked``) and through each ``(label, wrapper, kernel)`` of ``extra``.
+    Each scan call must launch the kernel expected of it.  Returns the
+    largest error per kernel and the nodes objective's scan outputs."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
     (req, cnt, maxper, slot, feas, alloc, price, openable,
      used0, cfg0, npods0, next0, sig0) = args
-    (G, R), C, K, S = req.shape, alloc.shape[0], used0.shape[0], sig0.shape[0]
+    K = used0.shape[0]
+    if F.scan_kernel(*pack_shapes(args)) != picked:
+        fail(f"the shape rule picks {F.scan_kernel(*pack_shapes(args))} at K={K}, "
+             f"expected {picked}")
+    scans = [(picked, F.ffd_scan, picked), *extra]
     errs, nodes_out = {}, None
     for objective in ("nodes", "cost"):
         chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
@@ -308,18 +354,16 @@ def compare_kernels(torch, args, scans):
         torch.cuda.synchronize()
         e1 = max_abs_err(torch, chosen, plain)
         errs["choose_config"] = max(errs.get("choose_config", 0.0), e1)
-        for scan in scans:
-            expect = ("ffd_scan_global" if scan is F.ffd_scan_global
-                      else F.scan_kernel(K, R, S, C))
+        for label, scan, expect in scans:
             before = dict(F.LAUNCHES)
             got = scan(req, cnt, maxper, slot, feas, alloc, *chosen,
                        used0, cfg0, npods0, next0, sig0)
             torch.cuda.synchronize()
             ran = [k for k in SCAN_KERNELS if F.LAUNCHES[k] != before[k]]
             if ran != [expect]:
-                fail(f"{scan.__name__} at K={K} launched {ran}, expected {expect}")
+                fail(f"{label} at K={K} launched {ran}, expected {expect}")
             e2 = max_abs_err(torch, got, want)
-            print(f"  {objective}: choose_config max_abs_err={e1} {expect} "
+            print(f"  {objective}: choose_config max_abs_err={e1} {label} "
                   f"max_abs_err={e2} placed={int(got[0].sum())} "
                   f"leftover={int(got[1].sum())} nodes={int((got[2] >= 0).sum())}")
             if e1 != 0 or e2 != 0:
@@ -363,8 +407,11 @@ def time_kernels(torch, args, scan_turns: bool = False):
     slower than the kernel), its plain version's CUDA-event ms, and the
     profiler readings it was averaged from.  The scan is the one
     `fused_packer.scan_kernel` picks for the shapes; with ``scan_turns``
-    (where it picks the resident one) the global scan is timed too, the
-    two in turns (global, resident, resident, global)."""
+    the global scan is timed too, in turns with it (global, picked,
+    picked, global), and where the picked scan is the cluster one, each
+    other cluster size that holds the shapes between them (global,
+    picked, others, others reversed, picked, global), each under the
+    label ``ffd_scan_cluster ctas=N``."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
@@ -374,17 +421,26 @@ def time_kernels(torch, args, scan_turns: bool = False):
     scan_args = (req, cnt, maxper, slot, feas, alloc, *chosen,
                  used0, cfg0, npods0, next0, sig0)
     choose = lambda: F.choose_config(req, maxper, feas, alloc, price, openable)
-    picked = F.scan_kernel(used0.shape[0], req.shape[1], sig0.shape[0], alloc.shape[0])
-    scans = {picked: lambda: F.ffd_scan(*scan_args)}
+    shapes = pack_shapes(args)
+    picked = F.scan_kernel(*shapes)
+    # label -> (call, kernel symbol)
+    scans = {picked: (lambda: F.ffd_scan(*scan_args), picked)}
     order = [picked]
     if scan_turns:
-        if picked != "ffd_scan":
-            fail(f"scan turns need the resident scan's shapes, got {picked}")
-        scans["ffd_scan_global"] = lambda: F.ffd_scan_global(*scan_args)
-        order = ["ffd_scan_global", "ffd_scan", "ffd_scan", "ffd_scan_global"]
+        if picked == "ffd_scan_global":
+            fail("scan turns need the resident or cluster scan's shapes")
+        scans["ffd_scan_global"] = (lambda: F.ffd_scan_global(*scan_args), "ffd_scan_global")
+        others = []
+        if picked == "ffd_scan_cluster":
+            for n in other_cluster_sizes(*shapes):
+                others.append(f"ffd_scan_cluster ctas={n}")
+                scans[others[-1]] = (
+                    lambda n=n: F.ffd_scan_cluster(*scan_args, ctas=n), "ffd_scan_cluster")
+        order = ["ffd_scan_global", picked, *others, *others[::-1], picked, "ffd_scan_global"]
     readings = {k: [] for k in scans}
     for k in order:
-        readings[k].append(profiled_ms(torch, scans[k], k, iters=50))
+        fn, symbol = scans[k]
+        readings[k].append(profiled_ms(torch, fn, symbol, iters=50))
     plain_scan = cuda_ms(torch, lambda: P.ffd_scan_reference(*scan_args),
                          iters=3, warmup=1)
     choose_ms = profiled_ms(torch, choose, "choose_config", iters=200)
@@ -395,7 +451,7 @@ def time_kernels(torch, args, scan_turns: bool = False):
             req, maxper, feas, alloc, price, openable), iters=20),
         [choose_ms],
     )}
-    for k, fn in scans.items():
+    for k, (fn, _) in scans.items():
         out[k] = (statistics.mean(readings[k]), cuda_ms(torch, fn, iters=50),
                   plain_scan, readings[k])
     return out
@@ -503,19 +559,37 @@ def main() -> int:
     from karpenter_tpu_torch.ops import packer as P
 
     padded = lambda prob, k=0: P.to_device(P.pad_problem(prob, k)[0], dev)
+    wrap = lambda k, at=0: P.to_device(T.wrap_arrays(k, at=at), dev)
     kargs = {name: padded(prob) for name, prob in probs.items()}
+    glob = [("ffd_scan_global", F.ffd_scan_global, "ffd_scan_global")]
+
+    def sizes(args):  # the cluster scan forced onto each other cluster size
+        return [(f"ffd_scan_cluster ctas={n}",
+                 lambda *a, n=n: F.ffd_scan_cluster(*a, ctas=n), "ffd_scan_cluster")
+                for n in other_cluster_sizes(*pack_shapes(args))]
+
+    straddle = wrap(4096, at=4096 // 2 - 2)
+    # name -> (card tensors, the scan the shape rule must pick, more scans)
     cases = {
-        "config2": (kargs["config2"], [F.ffd_scan, F.ffd_scan_global]),
-        "flagship": (kargs["flagship"], [F.ffd_scan]),
-        "config2_live": (kargs["config2_live"], [F.ffd_scan]),
-        "config2 k_slots=4096": (padded(probs["config2"], 4096), [F.ffd_scan]),
-        "wrap k_slots=256": (P.to_device(T.wrap_arrays(256), dev), [F.ffd_scan]),
-        "wrap k_slots=4096": (P.to_device(T.wrap_arrays(4096), dev), [F.ffd_scan]),
+        "config2": (kargs["config2"], "ffd_scan", glob),
+        "flagship": (kargs["flagship"], "ffd_scan", []),
+        "config2_live": (kargs["config2_live"], "ffd_scan_cluster",
+                         glob + sizes(kargs["config2_live"])),
+        "config2 k_slots=4096": (padded(probs["config2"], 4096), "ffd_scan_cluster", []),
+        "config2 k_slots=8192": (padded(probs["config2"], 8192), "ffd_scan_cluster", []),
+        "config2 k_slots=16384": (padded(probs["config2"], 16384), "ffd_scan_cluster", []),
+        "wrap k_slots=256": (wrap(256), "ffd_scan", []),
+        "wrap k_slots=4096": (wrap(4096), "ffd_scan_cluster", glob),
+        "wrap k_slots=4096 straddling slot 2048": (straddle, "ffd_scan_cluster", sizes(straddle)),
+        "wrap k_slots=16384 straddling slot 8192": (
+            wrap(16384, at=16384 // 2 - 2), "ffd_scan_cluster", []),
     }
     errs, kouts = {}, {}
-    for name, (args, scans) in cases.items():
-        print(f" {name}")
-        e, kouts[name] = compare_kernels(torch, args, scans)
+    for name, (args, picked, extra) in cases.items():
+        layout = F.cluster_layout(*pack_shapes(args)) if picked == "ffd_scan_cluster" else None
+        print(f" {name}" + (f" (cluster of {layout[0]} CTAs, {layout[1]} slots a thread, "
+                            f"{layout[2]} bytes of shared memory each)" if layout else ""))
+        e, kouts[name] = compare_kernels(torch, args, picked, extra)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     for k in KERNELS:
@@ -523,16 +597,18 @@ def main() -> int:
             fail(f"phase 3 never ran {k}")
 
     print(f"[kernel times] torch.profiler device time and CUDA events, {card}", flush=True)
-    times = {name: time_kernels(torch, args, scan_turns=name == "config2")
+    times = {name: time_kernels(torch, args, scan_turns=name in ("config2", "config2_live"))
              for name, args in kargs.items()}
     for name, t in times.items():
         for k, (dev_ms, ev_ms, plain, readings) in t.items():
             print(f"  {name} {k}: kernel {dev_ms!r} ms device (profiler, mean of "
                   f"{readings!r}), {ev_ms!r} ms per call (CUDA events), "
                   f"plain {plain!r} ms (CUDA events)")
-    c2t = times["config2"]
+    c2t, livet = times["config2"], times["config2_live"]
     print(f"  config2 ffd_scan_global / ffd_scan device time, in turns at 256 slots: "
           f"{c2t['ffd_scan_global'][0] / c2t['ffd_scan'][0]!r}")
+    print(f"  config2_live ffd_scan_global / ffd_scan_cluster device time, in turns at "
+          f"4096 slots: {livet['ffd_scan_global'][0] / livet['ffd_scan_cluster'][0]!r}")
     bounds = {}
     for k, name in ROW_PROBLEM.items():
         take, _, node_cfg, _, _ = kouts[name]
@@ -541,22 +617,38 @@ def main() -> int:
         print(f"  {name} {k} bound: {bounds[k]}")
     steps = {name: (kargs[name][0].shape[0], kargs[name][8].shape[0])
              for name in ("config2", "config2_live")}
-    barrier_us, l2_us = probe_latencies(
-        torch, sorted({F.scan_threads(K) for _, K in steps.values()}))
+    live_shapes = pack_shapes(kargs["config2_live"])
+    cluster_threads = {n: F.scan_threads(-(-live_shapes[0] // n)) for n in F.CLUSTER_SIZES
+                       if F.cluster_layout(*live_shapes, n)}
+    barrier_us, cluster_us, l2_us = probe_latencies(
+        torch, sorted({F.scan_threads(K) for _, K in steps.values()}),
+        sorted(cluster_threads.items()))
     print(f"  latency probes ({card}): barrier round trip {barrier_us!r} us "
-          f"(by threads), dependent L2 load {l2_us!r} us")
+          f"(by threads), cluster exchange + barrier round trip {cluster_us!r} us "
+          f"(by cluster size, threads), dependent L2 load {l2_us!r} us")
 
-    def floor_ms(kernel, name):
+    def floor_ms(kernel, name, ctas=None):
+        """``ctas``: a cluster size the rule does not pick (phase 4's label)."""
         G, K = steps[name]
-        ms = scan_latency_floor_ms(kernel, G, K, barrier_us[F.scan_threads(K)], l2_us)
         barriers, loads = scan_step_model(kernel, K)
-        print(f"  {name} {kernel} latency floor: {G} steps x ({barriers} barriers at "
-              f"{F.scan_threads(K)} threads + {loads} L2 loads) = {ms!r} ms; measured / "
-              f"floor {times[name][kernel][0] / ms!r}")
+        label = f"{kernel} ctas={ctas}" if ctas else None
+        if kernel == "ffd_scan_cluster":
+            n = ctas or F.cluster_layout(*live_shapes)[0]
+            b_us, where = cluster_us[(n, cluster_threads[n])], (
+                f"cluster barriers of {n} CTAs of {cluster_threads[n]} threads")
+        else:
+            b_us, where = barrier_us[F.scan_threads(K)], (
+                f"barriers at {F.scan_threads(K)} threads")
+        ms = scan_latency_floor_ms(kernel, G, K, b_us, l2_us)
+        print(f"  {name} {label or kernel} latency floor: {G} steps x ({barriers} {where} + "
+              f"{loads} L2 loads) = {ms!r} ms; measured / floor "
+              f"{times[name][label or kernel][0] / ms!r}")
         return ms
 
     floors = {"choose_config": None}
     floors.update({k: floor_ms(k, ROW_PROBLEM[k]) for k in SCAN_KERNELS})
+    for n in other_cluster_sizes(*live_shapes):
+        floor_ms("ffd_scan_cluster", "config2_live", ctas=n)
     pr1_floor = floor_ms("ffd_scan_global", "config2")
     print(f"  config2 ffd_scan / the global kernel's floor model at config2: "
           f"{c2t['ffd_scan'][0] / pr1_floor!r}")
@@ -573,10 +665,12 @@ def main() -> int:
     print(f"  launches over {len(specs) * solves} solves: {launches}, "
           f"per problem {per_problem}")
     for name, got in per_problem.items():
-        scan = "ffd_scan_global" if name == "config2_live" else "ffd_scan"
+        scan = "ffd_scan_cluster" if name == "config2_live" else "ffd_scan"
         for k in ("choose_config", scan):
             if got[k] < solves:
                 fail(f"{name}: kernel {k} launched {got[k]} times over {solves} solves")
+        if got["ffd_scan_global"]:
+            fail(f"{name}: ffd_scan_global launched {got['ffd_scan_global']} times")
     for name, (sched, result, ts) in solved.items():
         print(f"  {name}: nodes={len(result.new_nodes)} "
               f"existing_placements={len(result.existing_placements)} "

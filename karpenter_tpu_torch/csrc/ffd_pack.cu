@@ -7,7 +7,7 @@
 // karpenter_tpu_torch/ops/packer.py:pack_reference; the Python wrappers are
 // karpenter_tpu_torch/ops/fused_packer.py.
 //
-// Two launches per pack, choose_config and one of the two scans:
+// Two launches per pack, choose_config and one of the three scans:
 //   choose_config_kernel    grid (Gp,): one block per class picks the config
 //                           a new node of that class opens on (first-index
 //                           argmin of the objective's score over C, as a
@@ -16,12 +16,17 @@
 //                           the Gp classes in order with the whole slot
 //                           state in shared memory; the wrapper takes it
 //                           whenever that state fits a block.
+//   ffd_scan_cluster_kernel<M>  grid (N,), one cluster of N = 2, 4 or 8
+//                           CTAs: the resident scan with the slot state
+//                           split over the shared memory of the cluster's
+//                           CTAs, for slot counts whose state does not fit
+//                           one block (see "The cluster-resident scan").
 //   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
 //                           the output buffers (device memory), for slot
-//                           counts whose state does not fit.
-// Per class both compute per-slot capacity, an exclusive int32 prefix over
-// K, first-fit takes, an integer ceil-div window of new slots and the state
-// updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
+//                           counts whose state does not fit a cluster.
+// Per class each scan computes per-slot capacity, an exclusive int32 prefix
+// over K, first-fit takes, an integer ceil-div window of new slots and the
+// state updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
 // count in exact int32, so they need neither the signature admission table
 // nor the f32 ceil-overshoot mask, and take any S, R and T.
 //
@@ -702,6 +707,388 @@ int scan_threads(int K) {
   return b < 32 ? 32 : (b > 1024 ? 1024 : b);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster-resident scan
+// ---------------------------------------------------------------------------
+//
+// Replaces the same TPU kernel (karpenter_tpu/ops/pallas_packer.py:
+// _pack_step) where the slot state does not fit one block: 4096 slots at
+// R 6, S 2 need 262,144 bytes of state alone.  It is the resident scan
+// above spread over a thread-block cluster of N = 2, 4 or 8 CTAs, which
+// Hopper schedules on neighbouring SMs of one GPC and lets write each
+// other's shared memory (DSMEM) and meet at one hardware barrier.
+//   A. CTA rank r owns slots [r * KP, (r + 1) * KP), KP = M * blockDim; its
+//      thread t owns M consecutive ones (global slot order: rank, thread,
+//      slot), stored as in ffd_scan_kernel.  Loaded once, written once.
+//   B. Each CTA keeps its own ring of whole feasibility rows (any slot may
+//      hold any config) and its own double-buffered tiles of class rows
+//      (issue_feas, load_tile), so nothing is fetched in the step.
+//   C. One cluster barrier per class step.  Lane 31 of each warp stores its
+//      inclusive warp total and a flag, "some cap of the warp >= wrap_guard",
+//      into entry [parity][rank * nw + warp] of every CTA's exchange array
+//      (st.shared::cluster).  After barrier.cluster.arrive.release / wait.
+//      acquire every warp reads all N * nw entries: its base is the sum of
+//      the entries before its own, the total the sum of all, `wraps` the OR
+//      of all flags.  The ring's next cp.async is issued between arrive and
+//      wait.  Parity double-buffering makes a second barrier unneeded: a CTA
+//      reaches step g+2's stores only after every CTA has passed step g+1's
+//      barrier, so after every read of step g.
+// Every branch that reaches a cluster barrier (wraps, n2, opened, nxt,
+// pend) is computed from cluster-wide values and the class row alone, so
+// it is the same in every CTA.  The wrapped-sum path is a second cluster
+// barrier with the warp sums exchanged the same way; take-2 sums of a
+// window that starts below slot 0 go to rank 0's `xleft` and are reduced
+// there after the next barrier.  The kernel starts and ends with a cluster
+// barrier: no CTA stores into a peer that has not started, and none exits
+// while a peer may still store into it.
+// The wrap guard scales with K: with every cap below wrap_guard the exact
+// sum of K caps is at most K * (wrap_guard - 1) < 2^31, which the wrapper
+// (fused_packer.wrap_guard) makes hold.  The per-slot float arithmetic is
+// the resident kernel's; what the cluster adds is integer (wrapping
+// unsigned sums, associative, so the exchange order changes no bit).
+// What bounds it: latency, as the resident scan -- per step one warp
+// chain through the slots' capacities and one cluster exchange and
+// barrier; the design keeps both to one each and moves every load off the
+// step.  On an H100 the exchange and barrier take 0.8-0.9 us at every
+// cluster size, about a third of a step at 4096 slots on 8 CTAs (PERF.md),
+// so the wrapper takes the largest cluster that holds the slots: fewer
+// slots a CTA shorten the chain and cost no more at the barrier.
+constexpr int kMaxCluster = 8;
+// exchange bytes per CTA of the cluster: xtot [2][32] uint2, xsum [32],
+// xleft [2][32] (fused_packer.CLUSTER_XCHG_BYTES)
+constexpr int kClusterXchgBytes = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4;
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned n;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// `p` (in this CTA's shared memory) as a shared::cluster address in the
+// shared memory of cluster CTA `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster2(unsigned addr, unsigned a, unsigned b) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Wrapped sum of part[0 .. count), in every lane of the calling warp.
+__device__ __forceinline__ unsigned warp_sum_of(const unsigned* part, int count) {
+  unsigned v = 0u;
+  for (int j = threadIdx.x & 31; j < count; j += 32) v += part[j];
+  return warp_sum(v);
+}
+
+template <int M>  // consecutive slots each thread owns
+__global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
+    const float* __restrict__ req, const int* __restrict__ cnt,
+    const int* __restrict__ maxper, const int* __restrict__ slot,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const int* __restrict__ c_star, const int* __restrict__ new_ok,
+    const int* __restrict__ per, const float* __restrict__ used0,
+    const int* __restrict__ cfg0, const int* __restrict__ npods0,
+    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
+    int next0, int ctas, int smem_bytes, int chunk, int wrap_guard,
+    int* __restrict__ take, int* __restrict__ leftover,
+    int* __restrict__ cfg_out, int* __restrict__ npods_out,
+    float* __restrict__ used_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, B = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
+  const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
+  const int rank = (int)cluster_ctarank();
+  const int k0 = rank * KP;        // this CTA's first slot
+  const int XN = ctas * 32;        // exchange entries of one parity
+  const int me = rank * nw + warp;  // this warp's exchange entry
+  const int entries = ctas * nw;
+
+  // ring | class tiles | exchanges | slot state, as in ffd_scan_kernel
+  const int slot_bytes = (Cp + 15) & ~15;
+  const int W = 2 * R + 7;
+  unsigned char* ring = smem;
+  int* tiles = (int*)(smem + (size_t)kRing * slot_bytes);  // [2][kTile][W]
+  size_t off = (size_t)kRing * slot_bytes + (size_t)8 * kTile * W;
+  uint2* xtot = (uint2*)(smem + off);           // [2][XN] (total, flag)
+  unsigned* xsum = (unsigned*)(xtot + 2 * XN);  // [XN]
+  unsigned* xleft = xsum + XN;                  // [2][XN], on rank 0
+  off += (size_t)kClusterXchgBytes * ctas;
+  float* s_used = (float*)(smem + off);
+  float* s_alloc = s_used + (size_t)R * KP;
+  int* s_cfg = (int*)(s_alloc + (size_t)R * KP);
+  int* s_npods = s_cfg + KP;
+  int* s_sig = s_npods + KP;
+  off += (size_t)4 * KP * (2 * R + 2 + S);
+  if (off > (size_t)smem_bytes || ctas > kMaxCluster ||
+      (int)cluster_nctarank() != ctas)
+    __trap();
+
+  // ---- this CTA's slot state in -------------------------------------------
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, k = k0 + tid * M + i;
+    const bool real = k < K;
+    const int c = real ? cfg0[k] : -1;
+    s_cfg[pos] = c;
+    s_npods[pos] = real ? npods0[k] : 0;
+    for (int r = 0; r < R; ++r) {
+      s_used[r * KP + pos] = real ? used0[(size_t)k * R + r] : 0.0f;
+      s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
+    }
+    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * K + k] : 0;
+  }
+  // used_clean as in ffd_scan_kernel, over this CTA's own slots: it only
+  // decides whether they skip used += 0 * req
+  const int own = min(max(K - k0, 0), KP);
+  bool odd = false;
+  for (int i = tid; i < own * R; i += B) {
+    const unsigned u = __float_as_uint(used0[(size_t)k0 * R + i]);
+    odd |= u == 0x80000000u || (isnan(__uint_as_float(u)) && u != 0x7fffffffu);
+  }
+  const bool used_clean = !__syncthreads_or(odd);
+
+  for (int h = 0; h < kRing - 1; ++h) {
+    if (h < Gp) issue_feas(h, ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    cp_async_commit();
+  }
+  load_tile(0, tiles, Gp, Cp, R, req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+  cp_async_wait<kRing - 2>();
+  cluster_sync();  // every CTA runs before the first DSMEM store
+
+  int nxt = next0;
+  bool pend = false;  // a leftover waits on rank 0 for the next barrier
+  int pend_g = 0, pend_n2 = 0;
+  for (int g = 0; g < Gp; ++g) {
+    const int p = g & 1;
+    const unsigned char* row = ring + (size_t)(g % kRing) * slot_bytes;
+    const float* creq =
+        (const float*)(tiles + ((g / kTile) & 1) * kTile * W + (g % kTile) * W);
+    const float* cacs = creq + R;
+    const int* cint = (const int*)(creq + 2 * R);
+    const int n = cint[0], mp = cint[1];
+    int* sig_s = s_sig + cint[2] * KP;
+    const unsigned flags = (unsigned)cint[6];
+    const unsigned asked = flags & ~kFinite;
+    const bool skip_idle = used_clean && (flags & kFinite);
+
+    // ---- capacities, the serial prefix over the thread's slots, the warp's
+    int cap[M];
+    unsigned pre[M];
+    unsigned run = 0u;
+    bool big = false;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid;
+      const int c = s_cfg[pos];
+      int cp = 0;
+      if (c >= 0 && row[c]) {
+        cp = node_cap_sh(s_alloc + pos, s_used + pos, KP, creq, asked);
+        cp = min(cp, max(wsub(mp, sig_s[pos]), 0));
+      }
+      cap[i] = cp;
+      pre[i] = run;
+      run += (unsigned)cp;
+      big |= cp >= wrap_guard;
+    }
+    unsigned incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned wbig = __any_sync(kFull, big);
+    if (lane == 31) {
+      const uint2* dst = xtot + p * XN + me;
+      for (int r = 0; r < ctas; ++r) st_cluster2(cluster_addr(dst, r), incl, wbig);
+    }
+    cp_async_wait<kRing - 3>();  // class g+1's row has landed
+    cluster_arrive();
+    {  // class g+kRing-1's row into the slot class g-1 left: every read of
+       // it was before the previous step's barrier
+      const int h = g + kRing - 1;
+      if (h < Gp) issue_feas(h, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      cp_async_commit();
+    }
+    cluster_wait();
+
+    if (pend) {
+      if (rank == 0 && warp == 0) {
+        const unsigned v = warp_sum_of(xleft + (p ^ 1) * XN, entries);
+        if (lane == 0) leftover[pend_g] = wsub(pend_n2, (int)v);
+      }
+      pend = false;
+    }
+    if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
+      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
+                req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+
+    // ---- this warp's base, the cluster total and the wrap flag ------------
+    unsigned below = 0u, sum = 0u, anyw = 0u;
+    for (int j = lane; j < entries; j += 32) {
+      const uint2 e = xtot[p * XN + j];
+      sum += e.x;
+      below += j < me ? e.x : 0u;
+      anyw |= e.y;
+    }
+    const unsigned total = warp_sum(sum);
+    const unsigned base = warp_sum(below) + incl - run;
+    const bool wraps = __any_sync(kFull, anyw != 0u);
+
+    // ---- first fit in slot order ------------------------------------------
+    int t1[M];
+    unsigned t1sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      t1[i] = clip(wsub(n, (int)(base + pre[i])), 0, cap[i]);
+      t1sum += (unsigned)t1[i];
+    }
+    int n2;
+    if (n >= 0 && !wraps) {
+      n2 = n - min(n, (int)total);
+    } else {  // the wrapped sum, at a second cluster barrier
+      const unsigned v = warp_sum(t1sum);
+      if (lane == 0)
+        for (int r = 0; r < ctas; ++r) st_cluster(cluster_addr(xsum + me, r), v);
+      cluster_sync();
+      n2 = wsub(n, (int)warp_sum_of(xsum, entries));
+    }
+
+    // ---- open new slots on the precomputed best config; each CTA its own --
+    const int pg = cint[5], cs = cint[3];
+    const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
+    const int opened = min(need, wsub(K, nxt));
+    const int end = wadd(nxt, opened);
+    int* take_g = take + (size_t)g * K;
+    unsigned t2sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid, k = k0 + tid * M + i;
+      const bool win = k < K && k >= nxt && k < end;
+      const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
+      const int t = wadd(t1[i], t2);
+      if (k < K) take_g[k] = t;
+      if (t != 0 || !skip_idle) {
+        const float tf = (float)t;
+        for (int r = 0; r < R; ++r) {
+          float* u = s_used + r * KP + pos;
+          *u = __fadd_rn(*u, __fmul_rn(tf, creq[r]));
+        }
+        s_npods[pos] = wadd(s_npods[pos], t);
+        sig_s[pos] = wadd(sig_s[pos], t);
+      }
+      if (win) {
+        s_cfg[pos] = cs;
+        for (int r = 0; r < R; ++r) s_alloc[r * KP + pos] = cacs[r];
+      }
+      t2sum += (unsigned)t2;
+    }
+    if (nxt >= 0) {  // closed form, as in ffd_scan_kernel
+      if (rank == 0 && tid == 0) {
+        const long long placed =
+            opened > 0 ? min((long long)n2, (long long)opened * pg) : 0ll;
+        leftover[g] = n2 - (int)placed;
+      }
+    } else {
+      const unsigned v = warp_sum(t2sum);
+      if (lane == 0) st_cluster(cluster_addr(xleft + p * XN + me, 0), v);
+      pend = true;
+      pend_g = g;
+      pend_n2 = n2;
+    }
+    nxt = end;
+  }
+  cp_async_wait<0>();
+  cluster_sync();  // every DSMEM store has landed; after this none is made
+  if (pend && rank == 0 && warp == 0) {
+    const unsigned v = warp_sum_of(xleft + ((Gp - 1) & 1) * XN, entries);
+    if (lane == 0) leftover[pend_g] = wsub(pend_n2, (int)v);
+  }
+
+  // ---- this CTA's slot state out ------------------------------------------
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, k = k0 + tid * M + i;
+    if (k < K) {
+      cfg_out[k] = s_cfg[pos];
+      npods_out[k] = s_npods[pos];
+    }
+  }
+  for (int idx = tid; idx < own * R; idx += B) {
+    const int kk = idx / R, r = idx - kk * R;
+    used_out[(size_t)k0 * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
+  }
+}
+
+// Returned where no cluster of the launch's shape fits the card at once
+// (cudaOccupancyMaxActiveClusters gives 0).
+constexpr int kClusterRefused = -2;
+
+template <int M>
+int launch_cluster(const float* req, const int* cnt, const int* maxper,
+                   const int* slot, const uint8_t* feas, const float* alloc,
+                   const int* c_star, const int* new_ok, const int* per,
+                   const float* used0, const int* cfg0, const int* npods0,
+                   const int* sig0, int Gp, int Cp, int K, int R, int S,
+                   int next0, int ctas, int threads, int smem_bytes, int chunk,
+                   int wrap_guard, int* take, int* leftover, int* cfg,
+                   int* npods, float* used, cudaStream_t stream) {
+  const auto kernel = ffd_scan_cluster_kernel<M>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  if (clusters < 1) return kClusterRefused;
+  e = cudaLaunchKernelEx(&config, kernel, req, cnt, maxper, slot, feas, alloc,
+                         c_star, new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,
+                         K, R, S, next0, ctas, smem_bytes, chunk, wrap_guard,
+                         take, leftover, cfg, npods, used);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -737,7 +1124,8 @@ int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
 
 // The resident scan: `slots_per_thread` is 1 or 2 with
 // slots_per_thread * scan_threads(K) >= K (larger slot counts do not fit
-// a block's shared memory and go to ffd_scan_global), `smem_bytes` the
+// a block's shared memory and go to ffd_scan_cluster or ffd_scan_global),
+// `smem_bytes` the
 // dynamic shared memory the wrapper computed for it, `chunk` (4, 8 or 16)
 // divides Cp and the address of feas.
 int ffd_scan(const float* req, const int* cnt, const int* maxper,
@@ -757,6 +1145,41 @@ int ffd_scan(const float* req, const int* cnt, const int* maxper,
                      per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, \
                      threads, smem_bytes, chunk, take, leftover, cfg, npods, \
                      used, (cudaStream_t)stream)
+  switch (slots_per_thread) {
+    case 1: return FFD_LAUNCH(1);
+    case 2: return FFD_LAUNCH(2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFD_LAUNCH
+}
+
+// The cluster-resident scan on one cluster of `ctas` (2, 4 or 8) CTAs of
+// scan_threads(ceil(K / ctas)) threads, `slots_per_thread` (1 or 2) slots
+// a thread; `smem_bytes` per CTA as the wrapper computed it
+// (fused_packer.cluster_layout), `chunk` as for ffd_scan, `wrap_guard`
+// with K * (wrap_guard - 1) < 2^31.  Returns -2 where no such cluster fits
+// the card at once.
+int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
+                     const int* slot, const uint8_t* feas, const float* alloc,
+                     const int* c_star, const int* new_ok, const int* per,
+                     const float* used0, const int* cfg0, const int* npods0,
+                     const int* sig0, int Gp, int Cp, int K, int R, int S,
+                     int next0, int ctas, int slots_per_thread, int smem_bytes,
+                     int chunk, int wrap_guard, int* take, int* leftover,
+                     int* cfg, int* npods, float* used, void* stream) {
+  if (K <= 0) return 0;
+  if (ctas != 2 && ctas != 4 && ctas != 8) return (int)cudaErrorInvalidValue;
+  const int threads = scan_threads((K + ctas - 1) / ctas);
+  if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
+      R > kMaxR || wrap_guard < 1 ||
+      (long long)wrap_guard - 1 > (long long)0x7fffffff / K ||
+      (long long)ctas * slots_per_thread * threads < K)
+    return (int)cudaErrorInvalidValue;
+#define FFD_LAUNCH(M)                                                          \
+  launch_cluster<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,  \
+                    used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, ctas,   \
+                    threads, smem_bytes, chunk, wrap_guard, take, leftover,    \
+                    cfg, npods, used, (cudaStream_t)stream)
   switch (slots_per_thread) {
     case 1: return FFD_LAUNCH(1);
     case 2: return FFD_LAUNCH(2);

@@ -1,10 +1,10 @@
 // Latency probes for the FFD scan's floor (sm_90a).
 //
-// `ffd_scan_kernel` (ffd_pack.cu) is a chain of dependent steps: per class
-// a fixed number of block barriers and of loads whose address depends on
-// the previous load.  Its floor is therefore steps x (barriers x barrier
-// round trip + dependent loads x L2 round trip), and these two kernels
-// measure the two round trips on the card:
+// The scans of ffd_pack.cu are chains of dependent steps: per class a
+// fixed number of block (or cluster) barriers and of loads whose address
+// depends on the previous load.  Their floor is therefore steps x
+// (barriers x barrier round trip + dependent loads x L2 round trip), and
+// these kernels measure the round trips on the card:
 //
 //   probe_barrier_kernel  one block of `threads` threads; each iteration
 //                         writes shared memory, passes __syncthreads() and
@@ -15,6 +15,15 @@
 //                         __ldcg (cached in L2, not L1); the chain visits
 //                         one word per 128-byte line of a buffer that
 //                         fits in L2, in an order the caller shuffles.
+//   probe_cluster_barrier_kernel
+//                         one cluster of `ctas` CTAs, launched with the
+//                         cluster attribute: each iteration lane 31 of
+//                         every warp stores a word into entry [parity]
+//                         [rank * nw + warp] of every CTA's shared memory
+//                         (st.shared::cluster), the cluster barrier is
+//                         passed (arrive.release, wait.acquire) and each
+//                         thread reads an entry back: the exchange of
+//                         ffd_scan_cluster_kernel's class step.
 //
 // The caller times two launches with different iteration counts and
 // divides the difference, so the launch overhead cancels.
@@ -33,6 +42,33 @@ __global__ void probe_barrier_kernel(int iters, int* __restrict__ out) {
     v += buf[(threadIdx.x + 1) % blockDim.x];
   }
   out[threadIdx.x] = v;
+}
+
+__global__ void probe_cluster_barrier_kernel(int iters, int* __restrict__ out) {
+  __shared__ unsigned sh[2][256];
+  unsigned rank, ctas;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(ctas));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, entries = ctas * nw;
+  unsigned v = threadIdx.x;
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+  for (int i = 0; i < iters; ++i) {
+    unsigned* buf = sh[i & 1];
+    if (lane == 31) {
+      const unsigned local = (unsigned)__cvta_generic_to_shared(buf + rank * nw + warp);
+      for (unsigned r = 0; r < ctas; ++r) {
+        unsigned a;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(local), "r"(r));
+        asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+      }
+    }
+    asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+    v += buf[threadIdx.x % entries];
+  }
+  // no CTA exits while a peer may still store into it
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+  out[rank * blockDim.x + threadIdx.x] = v;
 }
 
 __global__ void probe_chase_kernel(const int* __restrict__ next, int steps,
@@ -55,6 +91,32 @@ int probe_barrier(int threads, int iters, int* out, void* stream) {
 
 int probe_chase(const int* next, int steps, int* out, void* stream) {
   probe_chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, out);
+  return (int)cudaGetLastError();
+}
+
+// One cluster of `ctas` (2, 4 or 8) CTAs of `threads` threads; `out` holds
+// ctas * threads ints.
+int probe_cluster_barrier(int ctas, int threads, int iters, int* out, void* stream) {
+  if ((ctas != 2 && ctas != 4 && ctas != 8) || threads < 32 || threads > 1024 ||
+      threads % 32 != 0)
+    return -1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&config, probe_cluster_barrier_kernel, iters, out);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -113,16 +113,20 @@ def live_cluster(n: int) -> List[StateNode]:
     ]
 
 
-def wrap_arrays(k_slots: int = 256, classes: int = 10) -> tuple:
+def wrap_arrays(k_slots: int = 256, classes: int = 10, at: int = 0) -> tuple:
     """Pack inputs (numpy, in `pack_reference`'s order) on which the scan's
-    int32 sums wrap, as ``_pack_core``'s do.  Classes 0-7 request no axis,
-    so 2^30 copies fit each of the four prefilled feasible slots: slot 3's
-    prefix, 3 x 2^30, wraps to -2^30 and takes 2^30 pods, the class's
-    leftover count goes negative and its window of new slots has negative
-    length, so the first free slot steps down by one per class, to -4.
-    Class 8 (cpu and memory) then opens its window from slot -4, over the
-    prefilled slots 0 and 1; class 9 is capped at 3 a node.
-    ``classes`` keeps the first that many."""
+    int32 sums wrap, as ``_pack_core``'s do.  Slots ``at`` .. ``at`` + 3
+    are prefilled and the first free slot is ``at`` + 4.  Classes 0-7
+    request no axis, so 2^30 copies fit each of the four prefilled feasible
+    slots: the fourth one's prefix, 3 x 2^30, wraps to -2^30 and it takes
+    2^30 pods, the class's leftover count goes negative and its window of
+    new slots has negative length, so the first free slot steps down by one
+    per class, to ``at`` - 4.  Class 8 (cpu and memory) then opens its
+    window from there, over the first prefilled slots; class 9 is capped at
+    3 a node.  With ``at`` = 0 that window starts below slot 0; with ``at``
+    = k_slots / 2 - 2 the prefilled slots straddle slot k_slots / 2, the
+    boundary between two CTAs of the cluster scan.  ``classes`` keeps the
+    first that many."""
     rng = np.random.default_rng(7)
     G, C, R, S, E = 10, 8, 6, 8, 4
     big = 2**30
@@ -141,14 +145,15 @@ def wrap_arrays(k_slots: int = 256, classes: int = 10) -> tuple:
     openable = np.ones(C, bool)
     used0 = np.zeros((k_slots, R), np.float32)
     cfg0 = np.full(k_slots, -1, np.int32)
-    cfg0[:E] = (0, 3, 1, 2)
-    used0[:E, :2] = ((2, 4), (1, 8), (0.5, 1), (3, 3))
+    pre = slice(at, at + E)
+    cfg0[pre] = (0, 3, 1, 2)
+    used0[pre, :2] = ((2, 4), (1, 8), (0.5, 1), (3, 3))
     npods0 = np.zeros(k_slots, np.int32)
-    npods0[:E] = (2, 1, 1, 3)
+    npods0[pre] = (2, 1, 1, 3)
     sig0 = np.zeros((S, k_slots), np.int32)
     g = slice(0, classes)
     return (req[g], cnt[g], maxper[g], slot[g], feas[g], alloc, price, openable,
-            used0, cfg0, npods0, E, sig0)
+            used0, cfg0, npods0, at + E, sig0)
 
 
 def heterogeneous_problem(

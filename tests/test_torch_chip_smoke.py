@@ -1,6 +1,7 @@
 """chip_smoke.py on the CPU: it refuses to run without a card, the bound
-it reports counts only what the run's data needs, and each scan kernel's
-latency floor follows that kernel's own step."""
+it reports counts only what the run's data needs, each scan kernel's
+latency floor follows that kernel's own step, and the kernels line has a
+row for every kernel the wrappers count."""
 
 import pathlib
 import subprocess
@@ -85,3 +86,25 @@ def test_scan_latency_floor():
     assert np.isclose(floor, 320 * (10 * 0.02 + 2 * 0.1) / 1e3)
     floor = chip_smoke.scan_latency_floor_ms("ffd_scan", 320, 256, barrier_us=0.02, l2_us=0.1)
     assert np.isclose(floor, 320 * (0.02 + 2 / 32 * 0.1) / 1e3)
+    # the cluster kernel: the resident step, its one barrier a cluster
+    # barrier (the caller passes that round trip)
+    assert chip_smoke.scan_step_model("ffd_scan_cluster", 4096) == (
+        1, 2 / fused_packer.SCAN_TILE)
+    floor = chip_smoke.scan_latency_floor_ms(
+        "ffd_scan_cluster", 320, 4096, barrier_us=0.5, l2_us=0.1)
+    assert np.isclose(floor, 320 * (0.5 + 2 / 32 * 0.1) / 1e3)
+
+
+def test_kernels_line_rows():
+    """Four rows, one per counted kernel, the two big-slot scans at the live
+    cluster; phase 4 times the cluster sizes the rule does not pick."""
+    assert chip_smoke.KERNELS == (
+        "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
+    assert set(chip_smoke.KERNELS) == set(fused_packer.LAUNCHES)
+    assert set(chip_smoke.ROW_PROBLEM) == set(chip_smoke.KERNELS)
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
+    picked = fused_packer.cluster_layout(4096, 6, 2, 8192)[0]
+    others = chip_smoke.other_cluster_sizes(4096, 6, 2, 8192)
+    assert sorted(others + [picked]) == [2, 4, 8]
+    assert chip_smoke.other_cluster_sizes(32768, 6, 2, 8192) == []

@@ -6,7 +6,9 @@ karpenter_tpu_torch/csrc/ffd_pack.cu) is held to the JAX lax.scan kernel
 Pallas interpreter as tests/test_pallas.py runs it) on the shapes of
 tests/test_pallas.py, on the two bench problems cut to 500 pods, on
 random arrays made from numpy seeds, and on arrays where the scan's int32
-sums wrap.  Also the shape rule that picks the card's scan kernel.
+sums wrap (also with the wrapping slots across the boundary of two CTAs of
+the cluster scan).  Also the shape rule that picks the card's scan kernel,
+the cluster scan's layout and its wrap guard.
 
 Tolerance: none.  `take`, `leftover`, `node_cfg` and `node_pods` must be
 equal, and `node_used` bit-equal to the scan kernel's (the Pallas kernel
@@ -297,19 +299,77 @@ def test_wrap_arrays_parity(objective):
     assert int(node_cfg[0]) != 0
 
 
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_wrap_arrays_straddle_parity(objective):
+    """The wrap case at 4096 slots with its four prefilled slots at
+    2046-2049, across slot 2048, where the cluster scan's CTAs meet: the
+    wrapping prefix and the window that reopens them cross the boundary."""
+    at = 4096 // 2 - 2
+    args = wrap_arrays(4096, at=at)
+    assert args[11] == at + 4  # the first free slot
+    take, leftover, node_cfg, _, _ = _assert_arrays_parity(args, objective)
+    assert int(take[0, at + 3]) == 2**30
+    assert int(leftover[0]) == -(2**30)
+    # class 8's window opened from slot at - 4 >= 0, over prefilled slots
+    assert int(node_cfg[at - 4]) >= 0 and int(node_cfg[at]) != 0
+
+
 @pytest.mark.parametrize(
     "K,kernel,smem",
     [(256, "ffd_scan", 60_800), (2048, "ffd_scan", 218_496),
-     (4096, "ffd_scan_global", 398_720)],
+     (4096, "ffd_scan_cluster", 398_720), (8192, "ffd_scan_cluster", 759_168),
+     (16384, "ffd_scan_cluster", 1_480_064), (32768, "ffd_scan_global", 2_921_856)],
 )
 def test_scan_kernel_by_shape(K, kernel, smem):
     """config 2's R 6, S 8, Cp 4096: the resident state fits one block up
-    to 2048 slots (88 bytes a slot plus the ring), not at 4096."""
+    to 2048 slots (88 bytes a slot plus the ring), not at 4096; a cluster
+    of up to 8 CTAs holds it up to 16,384 slots."""
     R, S, C = 6, 8, 4096
     per_thread, got = fused_packer.resident_layout(K, R, S, C)
     assert got == smem
     assert per_thread * fused_packer.scan_threads(K) >= K
     assert fused_packer.scan_kernel(K, R, S, C) == kernel
+
+
+@pytest.mark.parametrize(
+    "K,R,S,C,layout",
+    [
+        # config 2 on 2,000 live nodes: 8 CTAs, each a ring of 8 rows of
+        # 8192 bytes, two tiles of 32 class rows of 19 words, 8 x 896
+        # exchange bytes and 512 slots of 64 bytes
+        (4096, 6, 2, 8192, (8, 1, 8 * 8192 + 2 * 32 * 4 * 19 + 8 * 896 + 512 * 64)),
+        (8192, 6, 8, 4096, (8, 1, 8 * 4096 + 4864 + 8 * 896 + 1024 * 88)),
+        (16384, 6, 8, 4096, (8, 2, 8 * 4096 + 4864 + 8 * 896 + 2048 * 88)),
+        (16384, 6, 2, 8192, (8, 2, 8 * 8192 + 4864 + 8 * 896 + 2048 * 64)),
+        (32768, 6, 2, 8192, None),  # 4 slots a thread at 8 CTAs
+        (4096, 6, 64, 8192, None),  # 312 bytes a slot: past 227 KB at 8 CTAs
+    ],
+)
+def test_cluster_layout(K, R, S, C, layout):
+    got = fused_packer.cluster_layout(K, R, S, C)
+    assert got == layout
+    if got is not None:
+        ctas, per_thread, smem = got
+        assert smem <= fused_packer.SMEM_PER_BLOCK
+        assert ctas * per_thread * fused_packer.scan_threads(-(-K // ctas)) >= K
+
+
+def test_cluster_layout_of_each_size():
+    """A forced size gives that size's layout, or None where it does not
+    hold the slots (config2_live's shape at 2, 4 and 8 CTAs)."""
+    assert fused_packer.cluster_layout(4096, 6, 2, 8192, ctas=2) == (2, 2, 203_264)
+    assert fused_packer.cluster_layout(4096, 6, 2, 8192, ctas=4) == (4, 1, 139_520)
+    assert fused_packer.cluster_layout(4096, 6, 2, 8192, ctas=8) == (8, 1, 110_336)
+    assert fused_packer.cluster_layout(16384, 6, 2, 8192, ctas=4) is None
+
+
+@pytest.mark.parametrize("K,guard", [(2048, 2**20), (4096, 2**19), (16384, 2**17)])
+def test_wrap_guard(K, guard):
+    """With every cap below the guard the exact sum of K caps stays below
+    2^31, and the guard is the largest power of two for which it does."""
+    T = fused_packer.wrap_guard(K)
+    assert T == guard
+    assert K * (T - 1) < 2**31 <= K * (2 * T - 1)
 
 
 def test_scan_kernel_by_feasibility_row():
@@ -320,10 +380,13 @@ def test_scan_kernel_by_feasibility_row():
     assert fused_packer.feas_copy_bytes(6) == 0
     assert fused_packer.scan_kernel(256, 6, 8, 12) == "ffd_scan"
     assert fused_packer.scan_kernel(256, 6, 8, 6) == "ffd_scan_global"
-    # at most two slots a thread: past 2048 slots the global kernel runs,
-    # however small the state
+    # at most two slots a thread: past 2048 slots the resident kernel does
+    # not run, however small the state; the cluster kernel does
     assert fused_packer.resident_layout(2049, 1, 1, 16)[0] == 4
-    assert fused_packer.scan_kernel(2049, 1, 1, 16) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(2049, 1, 1, 16) == "ffd_scan_cluster"
+    assert fused_packer.cluster_layout(2049, 1, 1, 16)[:2] == (8, 1)
     # one flag bit per resource axis: at most 31
     assert fused_packer.scan_kernel(256, 31, 2, 64) == "ffd_scan"
     assert fused_packer.scan_kernel(256, 32, 2, 64) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(4096, 32, 2, 64) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(4096, 6, 2, 8190) == "ffd_scan_global"
