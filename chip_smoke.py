@@ -13,9 +13,11 @@ Phases (each failure exits non-zero before the last line is printed):
    same card tensors, both objectives; every output must be bit-equal, and
    each scan call must launch the kernel expected of it (the wrapper picks
    by shape, `fused_packer.scan_kernel`):
-   - config 2 (``heterogeneous_problem``, 256 slots) and the flagship
+   - each problem at the main path's shapes: the resident tensors a cold
+     ``TorchScheduler.solve`` on the card seeds (``ops/resident.py``);
+   - config 2 (``heterogeneous_problem``, 512 slots) and the flagship
      (``flagship_problem``): ``choose_config`` and the resident ``ffd_scan``;
-     config 2 also through ``ffd_scan_global`` at its own 256 slots;
+     config 2 also through ``ffd_scan_global`` at its own 512 slots;
    - config 2's pods on 2,000 live nodes (4096 slots, Cp 8192), the shape
      at which phase 5's solves launch ``ffd_scan_cluster``: the slot state
      does not fit one block, so the cluster scan, and also the global scan
@@ -47,14 +49,22 @@ Phases (each failure exits non-zero before the last line is printed):
    own entry point.
 5. The slice: ``TorchScheduler(device="cuda").solve`` on config 2 (10,000
    pods, 317 classes), on the flagship, and on config 2's pods arriving at
-   a cluster of 2,000 live nodes (4096 slots: the cluster scan), 2 warm-up
-   + 10 timed solves each, with the launch counters set to 0 just before
-   and read just after.  All pods must be placed, every solve must launch
-   ``choose_config`` and the scan kernel its shapes pick (the resident one
-   on the two bench problems, the cluster one on the live cluster), none
-   may launch ``ffd_scan_global``, and each problem's decoded result must
-   equal a CPU solve through the plain version.  One more solve per
-   problem runs under torch.profiler, after the counts are read, for the
+   a cluster of 2,000 live nodes (4096 slots: the cluster scan).  On one
+   scheduler a problem, 2 warm-up + 10 timed solves of each kind: cold
+   (its compile cache and resident states dropped first), hit (the same
+   pods again: a compile-cache hit that packs from the resident tensors)
+   and delta (1 % of the pods replaced by new pod objects of existing
+   shapes and, on the live cluster, 10 nodes' usage grown: the resident
+   tensors absorb the diff).  The launch counters are set to 0 just before
+   and read just after.  All pods must be placed; every hit and delta
+   solve must pack from the resident tensors; after each delta the card
+   tensors must equal their host mirrors bit for bit; every solve must
+   launch ``choose_config`` and the scan its shapes pick once (the
+   resident one on the two bench problems, the cluster one on the live
+   cluster) and none ``ffd_scan_global``; the last cold and the last delta
+   result must equal a CPU cold solve through the plain version.  Then one
+   solve of each kind per problem runs under torch.profiler, after the
+   counts are read and just after an unprofiled solve of its kind, for the
    device time of each kernel and the device's busy share of the solve.
 6. Prints the kernels JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -72,6 +82,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 WARMUP_SOLVES, TIMED_SOLVES = 2, 10
+SOLVE_KINDS = ("cold", "hit", "delta")  # phase 5's solves of each problem
+DELTA_PODS = 100  # pods replaced each delta tick: 1 % of 10,000
+DELTA_NODES = 10  # live nodes whose usage changes each delta tick
 KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
 KERNELS = ("choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
@@ -466,56 +479,180 @@ def canonical(result):
     return nodes, sorted(result.existing_placements.items()), sorted(result.unschedulable)
 
 
-def profile_solve(torch, sched, pods):
-    """One more solve under torch.profiler: the device time of each of the
-    port's kernels and of all device work, beside the solve's wall time.
+def profile_solve(torch, solve, pods):
+    """One more solve (``solve(pods)``) under torch.profiler: the launches
+    the port's wrappers counted during it, the device time of each of the
+    port's kernels and of all device work (kernels, copies and fills: the
+    device-side events only, so no CPU op's attributed time counts twice),
+    the device events that took the most of it, and the solve's wall time.
     Returns None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    before = dict(F.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.solve(pods)
+        solve(pods)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = {k: 0.0 for k in KERNELS}
-    busy_us = 0.0
+    device_events = []
     for ev in prof.key_averages():
         dev_us = _device_us(ev)
-        busy_us += dev_us
+        if ev.device_type != DeviceType.CUDA or dev_us <= 0:
+            continue
+        device_events.append((dev_us, ev.key, ev.count))
         for k in per_kernel:
             if f"{k}_kernel" in ev.key:
                 per_kernel[k] += dev_us
+    busy_us = sum(us for us, _, _ in device_events)
     if busy_us <= 0:
         return None
     return {
         "wall_ms": wall_ms,
+        "launches": {k: F.LAUNCHES[k] - before[k] for k in KERNELS},
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "kernel_device_ms": {k: v / 1e3 for k, v in per_kernel.items()},
+        "top_device_events": [
+            {"name": name[:60], "count": n, "ms": us / 1e3}
+            for us, name, n in sorted(device_events, reverse=True)[:6]
+        ],
     }
 
 
-def drive_solves(torch, name, spec):
-    """Phase 5 on one problem: warm-up + timed solves through the card."""
+def main_path_state(torch, spec):
+    """The resident state a cold ``TorchScheduler.solve`` on the card seeds:
+    its tensors are the pack arguments the main path gives the kernels."""
     from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 
     pools, inv, pods, existing = spec
     sched = TorchScheduler(pools, inv, existing=existing, device="cuda")
-    times, result = [], None
-    for i in range(WARMUP_SOLVES + TIMED_SOLVES):
-        t0 = time.perf_counter()
-        result = sched.solve(pods)
-        torch.cuda.synchronize()
-        if i >= WARMUP_SOLVES:
-            times.append((time.perf_counter() - t0) * 1e3)
-        placed = sum(len(n.pods) for n in result.new_nodes) + len(
-            result.existing_placements
-        )
-        if placed != len(pods) or result.unschedulable:
-            fail(f"{name}: placed {placed} of {len(pods)} pods")
-        if sched.last_kernel != "cuda_ffd" or sched.last_path != "tensor":
-            fail(f"{name}: path {sched.last_path}/{sched.last_kernel}")
-    return sched, result, times
+    sched.solve(pods)
+    torch.cuda.synchronize()
+    if not sched.last_resident:
+        fail("a cold solve on the card seeded no resident state")
+    return sched._resident.states[-1]
+
+
+def cold_solve(sched, pods):
+    """A cold solve on a long-lived scheduler: its compile cache and
+    resident states are dropped first (its catalog stays built)."""
+    sched._compile_cache.clear()
+    sched._resident.states.clear()
+    return sched.solve(pods)
+
+
+def churn(rng, pods, existing):
+    """One delta tick's input: ``DELTA_PODS`` pods leave the batch and as
+    many new pod objects, with the shapes of pods of the batch, join its
+    end (as pods arrive in a pending queue) and, on a live cluster,
+    ``DELTA_NODES`` nodes' usage grows by a bound pod."""
+    import dataclasses
+
+    from karpenter_tpu_torch.api import Pod, Resources
+
+    gone = set(rng.sample(range(len(pods)), DELTA_PODS))
+    out = [p for i, p in enumerate(pods) if i not in gone]
+    out += [dataclasses.replace(pods[rng.randrange(len(pods))], name="")
+            for _ in range(DELTA_PODS)]
+    for sn in rng.sample(existing, min(DELTA_NODES, len(existing))):
+        bp = Pod(requests=Resources(cpu=0.25, memory="256Mi"), node_name=sn.name,
+                 phase="Running")
+        sn.pods = sn.pods + [bp]
+        sn.used = sn.used + bp.requests
+    return out
+
+
+MIRRORS = ("req", "cnt", "feas", "alloc", "price", "openable", "used0", "npods0")
+
+
+def check_mirrors(torch, name, st) -> None:
+    """The resident state's card tensors against its host mirrors, bit for
+    bit, and its slot configs against the live node count."""
+    import numpy as np
+
+    for m in MIRRORS:
+        d, h = getattr(st, f"d_{m}").cpu().numpy(), getattr(st, f"h_{m}")
+        if d.dtype == np.float32:
+            d, h = d.view(np.int32), h.view(np.int32)
+        if d.shape != h.shape or not np.array_equal(d, h):
+            fail(f"{name}: resident d_{m} differs from its host mirror")
+    E = len(st.live)
+    cfg0 = np.full(st.Kp, -1, np.int32)
+    cfg0[:E] = np.arange(st.fe, st.fe + E)
+    if not np.array_equal(st.d_cfg0.cpu().numpy(), cfg0):
+        fail(f"{name}: resident d_cfg0 is not the live slots' configs")
+
+
+def placed_all(name, sched, result, n_pods) -> None:
+    placed = sum(len(n.pods) for n in result.new_nodes) + len(result.existing_placements)
+    if placed != n_pods or result.unschedulable:
+        fail(f"{name}: placed {placed} of {n_pods} pods")
+    if sched.last_kernel != "cuda_ffd" or sched.last_path != "tensor":
+        fail(f"{name}: path {sched.last_path}/{sched.last_kernel}")
+
+
+def cpu_equal(name, label, spec, pods, result) -> None:
+    """The card's result against a cold CPU solve through the plain version
+    of the same pods and live nodes."""
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, _, existing = spec
+    cpu = TorchScheduler(pools, inv, existing=existing, device="cpu").solve(pods)
+    if canonical(cpu) != canonical(result):
+        fail(f"{name}: the card's {label} solve differs from the CPU plain solve")
+    print(f"    {label}: equals the CPU plain-version cold solve ({len(cpu.new_nodes)} nodes)")
+
+
+def drive_solves(torch, name, spec, rng):
+    """Phase 5 on one problem: warm-up + timed solves of each kind on one
+    scheduler on the card, cold (compile cache and resident states dropped
+    first), hit (the same pods again: a compile-cache hit that packs from
+    the resident tensors) and delta (after each `churn`: the resident
+    tensors absorb the diff).  Returns the scheduler, the last pods, and
+    per kind the timed milliseconds and the last solve's phases."""
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, pods, existing = spec
+    sched = TorchScheduler(pools, inv, existing=existing, device="cuda")
+    times = {kind: [] for kind in SOLVE_KINDS}
+    phases = {}
+    for kind in SOLVE_KINDS:
+        last = None
+        for i in range(WARMUP_SOLVES + TIMED_SOLVES):
+            if kind == "delta":
+                pods = churn(rng, pods, existing)
+            hits = sched.compile_cache_hits
+            t0 = time.perf_counter()
+            result = cold_solve(sched, pods) if kind == "cold" else sched.solve(pods)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if i >= WARMUP_SOLVES:
+                times[kind].append(ms)
+            placed_all(name, sched, result, len(pods))
+            hit = sched.compile_cache_hits > hits
+            if kind != "cold" and not sched.last_resident:
+                fail(f"{name}: a {kind} solve did not pack from the resident tensors")
+            if (kind == "hit") != hit:
+                fail(f"{name}: a {kind} solve was {'' if hit else 'not '}a compile-cache hit")
+            if kind == "delta":
+                if sched.last_delta_rows <= 0:
+                    fail(f"{name}: a delta tick scattered {sched.last_delta_rows} rows")
+                check_mirrors(torch, name, sched._resident.states[-1])
+            last = result
+        phases[kind] = dict(sched.last_phases)
+        if kind == "cold":
+            cpu_equal(name, "last cold", spec, pods, last)
+            cold = canonical(last)
+        elif kind == "hit" and canonical(last) != cold:
+            fail(f"{name}: a compile-cache hit decoded another result than the cold solve")
+    cpu_equal(name, "last delta", spec, pods, last)
+    print(f"    after each delta tick the resident card tensors equal their host mirrors; "
+          f"last delta scattered {sched.last_delta_rows} rows")
+    return sched, pods, times, phases
 
 
 def main() -> int:
@@ -560,7 +697,13 @@ def main() -> int:
 
     padded = lambda prob, k=0: P.to_device(P.pad_problem(prob, k)[0], dev)
     wrap = lambda k, at=0: P.to_device(T.wrap_arrays(k, at=at), dev)
-    kargs = {name: padded(prob) for name, prob in probs.items()}
+    # each problem at the main path's shapes: the resident tensors a cold
+    # solve on the card seeds (config 2 and the flagship: 512 slots)
+    kargs = {name: main_path_state(torch, spec).pack_args() for name, spec in specs.items()}
+    for name, args in kargs.items():
+        G, R = args[0].shape
+        print(f"  {name}: main-path tensors Gp={G} Cp={args[5].shape[0]} "
+              f"Kp={args[8].shape[0]} R={R}")
     glob = [("ffd_scan_global", F.ffd_scan_global, "ffd_scan_global")]
 
     def sizes(args):  # the cluster scan forced onto each other cluster size
@@ -605,10 +748,12 @@ def main() -> int:
                   f"{readings!r}), {ev_ms!r} ms per call (CUDA events), "
                   f"plain {plain!r} ms (CUDA events)")
     c2t, livet = times["config2"], times["config2_live"]
-    print(f"  config2 ffd_scan_global / ffd_scan device time, in turns at 256 slots: "
+    print(f"  config2 ffd_scan_global / ffd_scan device time, in turns at "
+          f"{kargs['config2'][8].shape[0]} slots: "
           f"{c2t['ffd_scan_global'][0] / c2t['ffd_scan'][0]!r}")
     print(f"  config2_live ffd_scan_global / ffd_scan_cluster device time, in turns at "
-          f"4096 slots: {livet['ffd_scan_global'][0] / livet['ffd_scan_cluster'][0]!r}")
+          f"{kargs['config2_live'][8].shape[0]} slots: "
+          f"{livet['ffd_scan_global'][0] / livet['ffd_scan_cluster'][0]!r}")
     bounds = {}
     for k, name in ROW_PROBLEM.items():
         take, _, node_cfg, _, _ = kouts[name]
@@ -654,12 +799,16 @@ def main() -> int:
           f"{c2t['ffd_scan'][0] / pr1_floor!r}")
 
     print(f"[slice] TorchScheduler.solve on the card, {card}", flush=True)
-    solves = WARMUP_SOLVES + TIMED_SOLVES
+    import random
+
+    solves = len(SOLVE_KINDS) * (WARMUP_SOLVES + TIMED_SOLVES)
+    rng = random.Random(0)
     F.reset_launches()
     solved, per_problem = {}, {}
     for name, spec in specs.items():
+        print(f"  {name}:", flush=True)
         before = dict(F.LAUNCHES)
-        solved[name] = drive_solves(torch, name, spec)
+        solved[name] = drive_solves(torch, name, spec, rng)
         per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in KERNELS}
     launches = dict(F.LAUNCHES)
     print(f"  launches over {len(specs) * solves} solves: {launches}, "
@@ -667,24 +816,28 @@ def main() -> int:
     for name, got in per_problem.items():
         scan = "ffd_scan_cluster" if name == "config2_live" else "ffd_scan"
         for k in ("choose_config", scan):
-            if got[k] < solves:
+            if got[k] != solves:
                 fail(f"{name}: kernel {k} launched {got[k]} times over {solves} solves")
         if got["ffd_scan_global"]:
             fail(f"{name}: ffd_scan_global launched {got['ffd_scan_global']} times")
-    for name, (sched, result, ts) in solved.items():
-        print(f"  {name}: nodes={len(result.new_nodes)} "
-              f"existing_placements={len(result.existing_placements)} "
-              f"price={result.total_price()!r} p50_ms={statistics.median(ts)!r} "
-              f"min_ms={min(ts)!r} max_ms={max(ts)!r} kernel={sched.last_kernel}")
-        print(f"    last_phases_ms={json.dumps({k: v * 1e3 for k, v in sorted(sched.last_phases.items())})}")
-        pools, inv, pods, existing = specs[name]
-        cpu = TorchScheduler(pools, inv, existing=existing, device="cpu").solve(pods)
-        if canonical(cpu) != canonical(result):
-            fail(f"{name}: the card's solve differs from the CPU plain solve")
-        print(f"    equals the CPU plain-version solve ({len(cpu.new_nodes)} nodes)")
-        prof = profile_solve(torch, sched, pods)
-        print(f"    profiled solve (torch.profiler, {card}): "
-              + (json.dumps(prof) if prof else "not measured: no device time seen"))
+    for name, (sched, pods, ts, phases) in solved.items():
+        for sk in SOLVE_KINDS:
+            print(f"  {name} {sk}: p50_ms={statistics.median(ts[sk])!r} "
+                  f"min_ms={min(ts[sk])!r} max_ms={max(ts[sk])!r} ({card})")
+            print(f"    last_phases_ms={json.dumps({k: v * 1e3 for k, v in sorted(phases[sk].items())})}")
+        for sk in SOLVE_KINDS:
+            # each profiled solve follows an unprofiled one of its kind
+            solve = (lambda q, s=sched: cold_solve(s, q)) if sk == "cold" else sched.solve
+            warm = p = pods
+            if sk == "delta":
+                warm = churn(rng, pods, specs[name][3])
+                p = churn(rng, warm, specs[name][3])
+            solve(warm)
+            torch.cuda.synchronize()
+            prof = profile_solve(torch, solve, p)
+            print(f"    profiled {sk} solve (torch.profiler, {card}, "
+                  f"resident={sched.last_resident}): "
+                  + (json.dumps(prof) if prof else "not measured: no device time seen"))
 
     kernels = []
     for k in KERNELS:

@@ -9,15 +9,19 @@ PyTorch version.  Constraint shapes the pack cannot express fall back to the
 oracle for their coupled closure only (hybrid solve), so callers always get
 a correct answer.
 
-Decoded output is the oracle's `SchedulingResult`.  The reference's
-compile cache, device-resident tensors, consolidation verdicts and mesh are
+The warm reconcile tick is the reference's too: a compile cache keyed on
+pod identity + mutation epoch and on live-node content re-serves an earlier
+compile, and on a miss the device-resident tensors (ops/resident.py) absorb
+the tick's diff as one gather + scatter step, so a warm solve packs with no
+partition, compile or upload.  Decoded output is the oracle's
+`SchedulingResult`.  The reference's consolidation verdicts and mesh are
 later slices of the port.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +36,7 @@ from karpenter_tpu_torch.ops.packer import (
     last_kernel_name,
     resolve_device,
 )
+from karpenter_tpu_torch.ops.resident import ResidentCache
 from karpenter_tpu_torch.ops.tensorize import (
     _SCALE,
     CompiledProblem,
@@ -86,6 +91,24 @@ class TorchScheduler:
         # cross-solve label-scan memo handed to every oracle Scheduler
         self._scan_memo: dict = {}
         self._input_key: tuple = ()
+        # incremental compile cache: a tick that re-solves a pending set it
+        # has seen (same pod objects and epochs, same catalog snapshot,
+        # same live-node content) reuses the prior partition +
+        # CompiledProblem + live-join reservations.  Every entry PINS the
+        # objects its ids reference, so id reuse cannot alias.
+        self._compile_cache: dict = {}
+        self._last_fp = None
+        self.compile_cache_hits = 0
+        self.compile_cache_misses = 0
+        # device-resident incremental tensors (ops/resident.py): warm ticks
+        # skip re-tensorize AND the upload.  `resident_hits` counts solves
+        # packed from the resident tensors (delta or no change),
+        # `resident_rebuilds` full compiles that seeded a state.
+        self._resident = ResidentCache()
+        self.resident_hits = 0
+        self.resident_rebuilds = 0
+        self.last_resident = False  # this solve packed from resident tensors
+        self.last_delta_rows = -1  # scattered rows+cols on a delta tick
         # per-solve observability: disjoint wall-time phases (seconds) and
         # which continuation handled the oracle half ("join" | "oracle")
         self.last_phases: Dict[str, float] = {}
@@ -110,6 +133,8 @@ class TorchScheduler:
         if key != self._input_key:
             self._input_key = key
             self._scan_memo.clear()
+            # rolled inputs also obsolete every cached compilation
+            self._compile_cache.clear()
         self.pools = list(pools)
         self.instance_types = instance_types
         self.existing = list(existing)
@@ -124,8 +149,9 @@ class TorchScheduler:
         oracle CONTINUATION for the remainder (hybrid).
 
         Every solve records a wall-time phase breakdown in ``last_phases``
-        (partition / compile / pad / dispatch / device_block / oracle /
-        decode / other — disjoint self-times that sum to the wall clock)."""
+        (delta / partition / compile / pad / dispatch / device_block /
+        oracle / decode / other — disjoint self-times that sum to the wall
+        clock)."""
         self.last_phases = phases = {}
         with phase_collect(phases), phase("other"):
             return self._solve(list(pods))
@@ -134,27 +160,80 @@ class TorchScheduler:
         self.last_compile_relaxed = 0
         self.last_continuation = ""
         self.last_kernel = ""
-        with phase("partition"), TRACER.span("solver.partition"):
-            sup_groups, unsupported, _reason = partition_groups(
-                pods, existing=self.existing, pools=self.pools
-            )
-        if sup_groups:
-            # live-member co-location closures must JOIN specific live
-            # nodes: compile against SHADOW nodes with the groups' totals
-            # reserved, so the tensor half cannot fill that capacity first
-            with phase("partition"):
-                shadow, join_assign = self._reserve_live_capacity(unsupported)
-            prob = self._compile_tensor(
-                [p for _, members in sup_groups for p in members],
-                sup_groups,
-                existing=shadow,
-            )
+        self.last_resident = False
+        self.last_delta_rows = -1
+        resident = None
+        cached = self._cache_lookup(pods)
+        if cached is None:
+            self.compile_cache_misses += 1
+            # the resident delta path: an already-seeded device problem
+            # absorbs this tick's diff as one gather + scatter step
+            with phase("delta"), TRACER.span("solver.delta"):
+                resident = self._resident.refresh(self, pods)
+            if resident is not None:
+                self.resident_hits += 1
+                self.last_delta_rows = resident.last_delta_rows
+                prob = resident.problem()
+                sup_groups = resident.groups()
+                unsupported, join_assign = [], ()
+                # proven, not assumed: resident eligibility keeps every
+                # batch pod free of spread/affinity selectors and refuses
+                # carriers on ANY existing node, so both _compact_guard
+                # clauses are vacuous
+                compact_ok = True
+                self._cache_store(pods, sup_groups, [], prob, (), compact_ok)
+            else:
+                with phase("partition"), TRACER.span("solver.partition"):
+                    sup_groups, unsupported, _reason = partition_groups(
+                        pods, existing=self.existing, pools=self.pools
+                    )
+                if sup_groups:
+                    # live-member co-location closures must JOIN specific
+                    # live nodes: compile against SHADOW nodes with the
+                    # groups' totals reserved, so the tensor half cannot
+                    # fill that capacity first
+                    with phase("partition"):
+                        shadow, join_assign = self._reserve_live_capacity(
+                            unsupported
+                        )
+                    prob = self._compile_tensor(
+                        [p for _, members in sup_groups for p in members],
+                        sup_groups,
+                        existing=shadow,
+                    )
+                else:
+                    prob, join_assign = None, ()
+                compact_ok = self._compact_guard(pods)
+                self._cache_store(
+                    pods, sup_groups, unsupported, prob, join_assign,
+                    compact_ok,
+                )
+                # a full compile happened: seed a resident state so the
+                # NEXT delta applies on the device (ineligible shapes leave
+                # the layer empty and recompile next time)
+                if prob is not None and prob.supported and not unsupported:
+                    resident = self._resident.rebuild(
+                        self, pods, prob, self._catalog, consumer="solve"
+                    )
+                    if resident is not None:
+                        self.resident_rebuilds += 1
         else:
-            prob, join_assign = None, ()
-        compact_ok = self._compact_guard(pods)
+            self.compile_cache_hits += 1
+            sup_groups, unsupported, prob, join_assign, compact_ok = cached
+            # a hit re-serving the resident snapshot packs straight from
+            # the device tensors, no delta needed
+            resident = (
+                self._resident.match(prob, self.device)
+                if prob is not None
+                else None
+            )
+            if resident is not None:
+                self.resident_hits += 1
+                self.last_delta_rows = 0
         if prob is None or not prob.supported:
             with phase("oracle"), TRACER.span("solver.oracle", pods=len(pods)):
                 return self._oracle(pods)
+        self.last_resident = resident is not None
         self.last_path = "tensor"
         self.last_compile_relaxed = prob.compile_relaxed
 
@@ -170,7 +249,9 @@ class TorchScheduler:
                 join_plan = self._plan_live_join(unsupported, join_assign)
 
         result = self._pack_decode(
-            prob, overlap=overlap if unsupported else None
+            prob,
+            overlap=overlap if unsupported else None,
+            pack_fn=resident.pack if resident is not None else None,
         )
         if unsupported:
             self.last_path = "hybrid"
@@ -429,12 +510,23 @@ class TorchScheduler:
                 groups=groups,
             )
 
-    def _pack_decode(self, prob: CompiledProblem, overlap=None):
+    def _upload_pack(
+        self, prob: CompiledProblem, k_slots: int = 0, objective: str = "nodes"
+    ):
+        """The cold pack: pad, upload and launch (ops/packer.dispatch_pack)."""
+        return dispatch_pack(prob, k_slots, objective, self.device)
+
+    def _pack_decode(self, prob: CompiledProblem, overlap=None, pack_fn=None):
         """Launch the pack, run `overlap` host work while the card executes
         (launches are asynchronous — only the fetch waits), then fetch,
-        retry on slot overflow with a doubled slot bucket, and decode."""
+        retry on slot overflow with a doubled slot bucket, and decode.
+
+        ``pack_fn`` overrides the upload pack for this one solve: the
+        resident path passes its pack over the device tensors, whose
+        overflow retry falls back to the upload path."""
+        eff_pack = pack_fn if pack_fn is not None else self._upload_pack
         with phase("dispatch"), TRACER.span("solver.pack"):
-            outs = dispatch_pack(prob, objective=self.objective, device=self.device)
+            outs = eff_pack(prob, objective=self.objective)
         self.last_kernel = last_kernel_name(self.device)
         if overlap is not None:
             overlap()
@@ -447,13 +539,93 @@ class TorchScheduler:
         while self._overflowed(prob, res.leftover) and k < max_k:
             k *= 2
             with phase("dispatch"), TRACER.span("solver.pack", retry_k=k):
-                outs = dispatch_pack(
-                    prob, k_slots=k, objective=self.objective, device=self.device
-                )
+                outs = eff_pack(prob, k_slots=k, objective=self.objective)
             with phase("device_block"), TRACER.span("solver.fetch", retry_k=k):
                 res = fetch_pack(outs)
         with phase("decode"), TRACER.span("solver.decode"):
             return self._decode(prob, res.take, res.node_cfg, res.node_used)
+
+    # ------------------------------------------------------- compile cache
+    _COMPILE_CACHE_CAP = 8
+
+    def _solve_fingerprint(self, pods: List[Pod]) -> Optional[tuple]:
+        """Fingerprint of everything the compile reads.
+
+        Batch and catalog inputs key by object identity + mutation epoch
+        (providers return NEW list objects on change; the Pod / NodePool
+        ``__setattr__`` epochs catch in-place field reassignment).  Live
+        nodes key by CONTENT (name, used / allocatable / labels / taints,
+        schedulability flags, bound-pod identities), because a cluster
+        snapshot builds fresh StateNode wrappers every tick, and decode
+        refers to live nodes by name, so content-equal wrappers are
+        interchangeable."""
+        try:
+            # direct __dict__ access: this loop runs over the whole batch
+            # per solve ("_mut" exists from field init; KeyError falls
+            # through to the except)
+            pods_fp = tuple((id(p), p.__dict__["_mut"]) for p in pods)
+            pools_fp = tuple(
+                (id(p), p.__dict__.get("_mut", 0)) for p in self.pools
+            )
+            types_fp = tuple(
+                sorted((k, id(v)) for k, v in self.instance_types.items())
+            )
+            ds_fp = tuple(
+                (id(d), d.__dict__.get("_mut", 0)) for d in self.daemonsets
+            )
+            ex_fp = tuple(
+                (
+                    sn.name,
+                    tuple(sorted(sn.used.items())),
+                    tuple(sorted(sn.allocatable.items())),
+                    tuple(sorted(sn.labels.items())),
+                    tuple(map(repr, sn.taints)),
+                    sn.marked_for_deletion(),
+                    sn.node is not None and sn.node.cordoned,
+                    tuple(
+                        (id(bp), bp.__dict__.get("_mut", 0))
+                        for bp in sn.pods
+                    ),
+                )
+                for sn in self.existing
+            )
+        except Exception:  # exotic duck-typed inputs: skip caching
+            return None
+        return (pools_fp, types_fp, ds_fp, pods_fp, ex_fp)
+
+    def _cache_lookup(self, pods: List[Pod]):
+        fp = self._solve_fingerprint(pods)
+        self._last_fp = fp
+        if fp is None:
+            return None
+        ent = self._compile_cache.get(fp)
+        if ent is None:
+            return None
+        return ent[0]
+
+    def _cache_store(
+        self, pods, sup_groups, unsupported, prob, join_assign, compact_ok
+    ):
+        fp = self._last_fp
+        if fp is None:
+            return
+        # pins: every object an id in the fingerprint refers to (batch
+        # pods, pools, type lists, daemonsets, live nodes' BOUND pods; live
+        # nodes themselves key by content) stays allocated for the entry's
+        # lifetime, or a recycled id could alias
+        pins = (
+            list(pods),
+            [list(sn.pods) for sn in self.existing],
+            tuple(self.pools),
+            tuple(self.instance_types.values()),
+            tuple(self.daemonsets),
+        )
+        if len(self._compile_cache) >= self._COMPILE_CACHE_CAP:
+            self._compile_cache.pop(next(iter(self._compile_cache)))
+        self._compile_cache[fp] = (
+            (sup_groups, unsupported, prob, join_assign, compact_ok),
+            pins,
+        )
 
     # ------------------------------------------------------------ live join
     def _plan_live_join(self, unsupported: List[Pod], assignments):

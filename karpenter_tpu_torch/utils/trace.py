@@ -1,10 +1,10 @@
 """Span tracing and per-solve phase accounting.
 
 A small port of ``karpenter_tpu/utils/trace.py``: the same `phase` /
-`phase_collect` self-time collector, so a solve's ``last_phases`` (partition
-/ compile / pad / dispatch / device_block / oracle / decode / other) still
-sums to its wall time, and a `Tracer` whose `span` records count / total /
-max per dotted path when enabled.  Trace-context stamping and the lock
+`phase_collect` self-time collector, so a solve's ``last_phases`` (delta /
+partition / compile / pad / dispatch / device_block / oracle / decode /
+other) still sums to its wall time, and a `Tracer` whose `span` records
+count / total / max per dotted path when enabled.  Trace-context stamping and the lock
 sanitizer stay with the operator slice.
 """
 

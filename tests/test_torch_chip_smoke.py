@@ -108,3 +108,41 @@ def test_kernels_line_rows():
     others = chip_smoke.other_cluster_sizes(4096, 6, 2, 8192)
     assert sorted(others + [picked]) == [2, 4, 8]
     assert chip_smoke.other_cluster_sizes(32768, 6, 2, 8192) == []
+
+
+def test_phase5_churn_and_mirror_check():
+    """Phase 5's delta tick on the CPU: `churn` replaces 1 % of the pods by
+    new objects at the batch's end and grows the usage of live nodes; a
+    delta solve packs from the resident tensors, `check_mirrors` passes on
+    them and fails on a card tensor that drifted from its mirror; a
+    `cold_solve` drops the warm state first."""
+    import random
+
+    import pytest
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, pods = T.heterogeneous_problem(scale=0.05)  # 500 pods
+    existing = T.live_cluster(20)
+    rng = random.Random(0)
+    out = chip_smoke.churn(rng, pods, existing)
+    assert len(out) == len(pods)
+    kept, new = out[: len(pods) - chip_smoke.DELTA_PODS], out[len(pods) - chip_smoke.DELTA_PODS:]
+    assert {id(p) for p in kept} <= {id(p) for p in pods}
+    assert not {id(p) for p in new} & {id(p) for p in pods}
+    assert {p.class_key() for p in new} <= {p.class_key() for p in pods}
+    assert len({p.name for p in out}) == len(out)
+    assert sum(bool(sn.pods) for sn in existing) == chip_smoke.DELTA_NODES
+
+    sched = TorchScheduler(pools, inv, existing=existing, device="cpu")
+    sched.solve(pods)
+    sched.solve(chip_smoke.churn(rng, pods, existing))
+    assert sched.last_resident and sched.last_delta_rows > 0
+    st = sched._resident.states[-1]
+    chip_smoke.check_mirrors(torch, "cpu", st)
+    st.d_used0[0, 0] += 1.0
+    with pytest.raises(SystemExit):
+        chip_smoke.check_mirrors(torch, "cpu", st)
+    chip_smoke.cold_solve(sched, pods)
+    assert sched.compile_cache_misses == 3 and sched.resident_rebuilds == 2

@@ -185,3 +185,33 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
     args[0] = args[0].double()
     with pytest.raises(ValueError, match="dtype"):
         fused_packer.ffd_pack(*args)
+
+
+@pytest.mark.parametrize("live_nodes,kernel", [(0, "ffd_scan"), (2000, "ffd_scan_cluster")])
+def test_warm_ticks_on_card_match_cpu(cuda_device, live_nodes, kernel):
+    """A cold solve, a compile-cache hit and a delta tick on the card, each
+    packed from the resident tensors, equal the same ticks on the CPU; after
+    the delta the card tensors equal their host mirrors."""
+    import dataclasses
+
+    pools, inv, pods = T.heterogeneous_problem(scale=0.1)
+    existing = T.live_cluster(live_nodes)
+    churned = pods[50:] + [dataclasses.replace(p, name="") for p in pods[-50:]]
+    card = TorchScheduler(pools, inv, existing=existing, device=cuda_device)
+    cpu = TorchScheduler(pools, inv, existing=existing, device="cpu")
+    key = lambda r: (sorted(tuple(sorted(p.name for p in n.pods)) for n in r.new_nodes),
+                     sorted(r.existing_placements.items()), r.total_price())
+    for batch in (pods, pods, churned):
+        before = fused_packer.LAUNCHES[kernel]
+        got, want = card.solve(batch), cpu.solve(batch)
+        assert card.last_resident and cpu.last_resident
+        assert fused_packer.LAUNCHES[kernel] == before + 1
+        assert key(got) == key(want)
+    assert card.compile_cache_hits == 1 and card.last_delta_rows > 0
+    st = card._resident.states[-1]
+    assert st.d_feas.device.type == "cuda" and st.d_feas.data_ptr() % 16 == 0
+    for name in ("req", "cnt", "feas", "alloc", "price", "openable", "used0", "npods0"):
+        d, h = getattr(st, f"d_{name}").cpu().numpy(), getattr(st, f"h_{name}")
+        if h.dtype == np.float32:
+            d, h = d.view(np.int32), h.view(np.int32)
+        np.testing.assert_array_equal(d, h)

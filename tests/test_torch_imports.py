@@ -2,7 +2,8 @@
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
 and ``karpenter_tpu`` / ``karpenter_tpu.*`` (but not ``karpenter_tpu_torch``),
-then imports the port and ``chip_smoke`` and runs a small CPU solve."""
+then imports the port (the resident tensors' module too) and ``chip_smoke``
+and runs a small CPU cold solve, a compile-cache hit and a one-pod delta."""
 
 import pathlib
 import subprocess
@@ -35,13 +36,20 @@ else:
 import chip_smoke  # noqa: F401
 import karpenter_tpu_torch
 from karpenter_tpu_torch import testing as T
-from karpenter_tpu_torch.ops import _build, fused_packer  # noqa: F401
+from karpenter_tpu_torch.ops import _build, fused_packer, resident  # noqa: F401
 
 pools, inv, pods = T.heterogeneous_problem(scale=0.01)
 sched = karpenter_tpu_torch.TorchScheduler(pools, inv, device="cpu")
 result = sched.solve(pods)
 assert sched.last_path == "tensor", sched.last_path
 assert not result.unschedulable
+assert sum(len(n.pods) for n in result.new_nodes) == len(pods)
+# the warm tick: a compile-cache hit, then a one-pod delta
+sched.solve(pods)
+assert sched.compile_cache_hits == 1 and sched.last_resident
+pods = pods + [type(pods[0])(requests=pods[0].requests)]  # one arrival
+result = sched.solve(pods)
+assert sched.last_resident and sched.last_delta_rows > 0, sched.last_delta_rows
 assert sum(len(n.pods) for n in result.new_nodes) == len(pods)
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked

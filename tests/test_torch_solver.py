@@ -55,20 +55,30 @@ def test_scenarios_cover_their_paths():
 
 
 def test_overflow_retry_doubles_slots(monkeypatch):
+    """The first pack runs on the resident tensors' 512 slots; the retry
+    pads the problem to twice that and uploads it."""
     from karpenter_tpu_torch.ops import packer
+    from karpenter_tpu_torch.scheduling import solver
 
-    seen = []
-    real = packer.pad_problem
+    padded, fetched = [], []
+    real_pad, real_fetch = packer.pad_problem, solver.fetch_pack
 
-    def spy(prob, k_slots=0):
-        args, kp = real(prob, k_slots)
-        seen.append(kp)
+    def spy_pad(prob, k_slots=0):
+        args, kp = real_pad(prob, k_slots)
+        padded.append(kp)
         return args, kp
 
-    monkeypatch.setattr(packer, "pad_problem", spy)
-    _, ref, _, got = _solve_both("overflow")
-    assert seen[0] == 256 and seen[-1] == 512
-    assert len(got.new_nodes) == 300 and not got.unschedulable
+    def spy_fetch(outs):
+        res = real_fetch(outs)
+        fetched.append(res.node_cfg.shape[0])
+        return res
+
+    monkeypatch.setattr(packer, "pad_problem", spy_pad)
+    monkeypatch.setattr(solver, "fetch_pack", spy_fetch)
+    ref_sched, ref, sched, got = _solve_both("overflow")
+    assert fetched == [512, 1024] and padded == [1024]
+    assert sched.last_resident and ref_sched.last_resident
+    assert len(got.new_nodes) == 600 and not got.unschedulable
     assert torch_specs.canonical(got, L) == torch_specs.canonical(ref, jax_labels)
 
 
@@ -108,7 +118,11 @@ def test_phases_sum_to_wall_time():
     sched.solve(pods)
     wall = time.perf_counter() - t0
     phases = sched.last_phases
-    assert {"partition", "compile", "pad", "dispatch", "device_block", "decode"} <= set(phases)
+    # the first solve compiles, seeds the resident tensors under "delta"
+    # and packs from them: no "pad" phase
+    assert sched.last_resident
+    assert {"partition", "compile", "delta", "dispatch", "device_block", "decode"} <= set(phases)
+    assert "pad" not in phases
     assert all(v >= 0 for v in phases.values())
     assert sum(phases.values()) == pytest.approx(wall, rel=0.05)
 

@@ -2,9 +2,9 @@
 
 The port's parity tests build the same pools, catalogs, live nodes and pods
 in the JAX package and in karpenter_tpu_torch from one spec, calling each
-package's `reset_name_sequences` first so pod names agree.  `Side` gathers
-one package's constructors; `build` turns a scenario name into
-``(pools, inventory, existing, pods)`` on that side.
+package's `reset_name_sequences` first so pod names agree.  `side` gathers
+one package's constructors and its tensor scheduler; `build` turns a
+scenario name into ``(pools, inventory, existing, pods)`` on that side.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ def side(pkg: str) -> SimpleNamespace:
     s.reset = objects.reset_name_sequences
     if pkg == "karpenter_tpu":
         from karpenter_tpu.cloud.fake.backend import generate_catalog
+        from karpenter_tpu.scheduling import TensorScheduler
+        from karpenter_tpu.state.kube import Node
         from karpenter_tpu.testing import Environment
 
         def catalog(pools, shape_kw):
@@ -38,16 +40,26 @@ def side(pkg: str) -> SimpleNamespace:
 
         def pool(name, **kw):
             return s.api.NodePool(name=name, node_class_ref="default", **kw)
+
+        scheduler = TensorScheduler
     else:
         from karpenter_tpu_torch import testing as T
         from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
+        from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+        from karpenter_tpu_torch.state.cluster import Node
 
         def catalog(pools, shape_kw):
             shapes = generate_catalog(**shape_kw)
             return {p.name: T.instance_types(p, shapes) for p in pools}
 
         pool = T.default_node_pool
-    s.catalog, s.pool = catalog, pool
+
+        def scheduler(pools, inventory, **kw):
+            return TorchScheduler(pools, inventory, device="cpu", **kw)
+
+    s.catalog, s.pool, s.Node = catalog, pool, Node
+    # the side's tensor scheduler (the port's on the CPU)
+    s.scheduler = scheduler
     return s
 
 
@@ -228,11 +240,12 @@ def build(s, scenario: str):
         ]
         return pools, inventory, existing, pods
     if scenario == "overflow":
-        # 300 pods of which each needs a node to itself: the first slot
-        # bucket (256) runs out and the solver retries with twice the slots
+        # 600 pods of which each needs a node to itself: the first slot
+        # bucket (512, the resident state's bucket(256 + 1)) runs out and
+        # the solver retries with twice the slots
         pools = [s.pool("general")]
         pods = [
-            s.Pod(requests=s.Resources(cpu=70, memory="8Gi")) for _ in range(300)
+            s.Pod(requests=s.Resources(cpu=70, memory="8Gi")) for _ in range(600)
         ]
         return pools, s.catalog(pools, SMALL_SHAPES), [], pods
     raise ValueError(scenario)
