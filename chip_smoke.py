@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-4), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
 1. Device: requires ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. Build: compiles every CUDA source of the package with ``nvcc`` (all at
-   once) and prints the ``-Xptxas -v`` summary of each.
+   once) and prints the ``-Xptxas -v`` summary of each, then the registers
+   and spills of each instance of ``choose_config_kernel`` (fails on a
+   spill).
 3. Kernel vs plain: each kernel beside its plain PyTorch version on the
    same card tensors, both objectives; every output must be bit-equal, and
    each scan call must launch the kernel expected of it (the wrapper picks
@@ -29,7 +32,12 @@ Phases (each failure exits non-zero before the last line is printed):
    - the wrap case (``testing.wrap_arrays``: the scan's int32 sums wrap) at
      256 slots (resident) and 4096 (cluster, and global), and at 4096 and
      16,384 slots with its prefilled slots straddling slot K / 2, a CTA
-     boundary (cluster; at 4096 on every cluster size).
+     boundary (cluster; at 4096 on every cluster size);
+   - the choice alone (``compare_choose``): ``choose_config`` on the three
+     main-path problems, the wrap case (Gp 10), ``testing.tie_arrays``
+     (first-index ties, a class that fits nothing, a class with maxper 0)
+     at 4096 and 16,384 configs, 6 configs, and config 2 with ``feas`` one
+     byte off (the last two read a config at a time).
 4. Kernel times: each kernel's device time per launch (torch.profiler)
    and its CUDA-event time over many launches after warm-up, beside the
    plain versions' times (CUDA events) and each kernel's bound at this
@@ -98,9 +106,54 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 
 
+LAST_PHASE = 6
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def parse_through(argv) -> int:
+    """The last phase to run: ``--through N`` (N = 1-4) stops after phase
+    N; no argument runs them all.  Anything else exits 2."""
+    if not argv:
+        return LAST_PHASE
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4"):
+        return int(argv[1])
+    print("usage: python3 chip_smoke.py [--through N]  (N = 1-4: stop after phase N)",
+          file=sys.stderr, flush=True)
+    raise SystemExit(2)
+
+
+def phase_done(phase: int, through: int) -> None:
+    """Ends a partial run after ``phase``: exit 3, no result line."""
+    if phase >= through:
+        print(f"chip_smoke: stopped after phase {phase} (partial run)",
+              file=sys.stderr, flush=True)
+        raise SystemExit(3)
+
+
+def ptxas_resources(log: str):
+    """``{kernel symbol: (registers, spill store bytes, spill load bytes)}``
+    from an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, current, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            out[current] = (int(m.group(1)), *spills)
+            current, spills = None, (0, 0)
+    return out
 
 
 def card_line() -> str:
@@ -387,6 +440,34 @@ def compare_kernels(torch, args, picked, extra):
     return errs, nodes_out
 
 
+def compare_choose(torch, name, args):
+    """Phase 3's choice cases: `choose_config` against the plain version on
+    one case's card tensors, both objectives, bit for bit, each call
+    launching the kernel once.  Returns the largest error."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    req, _, maxper, _, feas, alloc, price, openable = args[:8]
+    choice = (req, maxper, feas, alloc, price, openable)
+    err = 0.0
+    for objective in ("nodes", "cost"):
+        want = P.choose_config_reference(*choice, objective)
+        before = dict(F.LAUNCHES)
+        got = F.choose_config(*choice, objective)
+        torch.cuda.synchronize()
+        moved = {k: F.LAUNCHES[k] - before[k] for k in F.LAUNCHES if F.LAUNCHES[k] != before[k]}
+        if moved != {"choose_config": 1}:
+            fail(f"{name}: choose_config launched {moved}, expected choose_config once")
+        e = max_abs_err(torch, got, want)
+        err = max(err, e)
+        if e != 0:
+            fail(f"{name}: choose_config disagrees with its plain version ({objective}): "
+                 f"max_abs_err={e}")
+    print(f"  {name} Gp={req.shape[0]} Cp={alloc.shape[0]}: choose_config equals the plain "
+          f"version (nodes and cost)")
+    return err
+
+
 def _device_us(ev) -> float:
     dev_us = getattr(ev, "self_device_time_total", None)
     return dev_us if dev_us is not None else getattr(ev, "self_cuda_time_total", 0.0)
@@ -655,8 +736,9 @@ def drive_solves(torch, name, spec, rng):
     return sched, pods, times, phases
 
 
-def main() -> int:
+def main(argv) -> int:
     """The run as the module docstring lists it."""
+    through = parse_through(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -672,6 +754,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind} x{torch.cuda.device_count()} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    phase_done(1, through)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -683,6 +766,16 @@ def main() -> int:
             fail(f"no -Xptxas -v summary for {name}.cu")
         for line in log.splitlines():
             print(f"  {name}: {line}")
+    choice = {k: v for k, v in ptxas_resources(_build.BUILD_LOG["ffd_pack"]).items()
+              if "choose_config_kernel" in k}
+    if len(choice) != 2:  # kMulti false and true
+        fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 2")
+    for sym, (regs, st, ld) in sorted(choice.items()):
+        print(f"  choose_config_kernel {sym}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes")
+        if st or ld:
+            fail(f"choose_config_kernel {sym} spills ({st} / {ld} bytes)")
+    phase_done(2, through)
 
     specs = problems()
     probs = {name: compiled(spec) for name, spec in specs.items()}
@@ -735,9 +828,27 @@ def main() -> int:
         e, kouts[name] = compare_kernels(torch, args, picked, extra)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
+    # the choice on its own cases
+    shifted = list(kargs["config2"])
+    feas = shifted[4]
+    buf = torch.zeros(feas.numel() + 1, dtype=torch.bool, device=dev)
+    buf[1:] = feas.reshape(-1)
+    shifted[4] = buf[1:].view(feas.shape)  # one byte off: read a config at a time
+    choose_cases = {
+        **kargs,
+        "wrap k_slots=256": wrap(256),
+        "ties": P.to_device(T.tie_arrays(), dev),
+        "ties configs=16384": P.to_device(T.tie_arrays(16384), dev),
+        "configs=6": P.to_device(T.first_configs(T.wrap_arrays(256), 6), dev),
+        "config2 feas one byte off": tuple(shifted),
+    }
+    for name, args in choose_cases.items():
+        errs["choose_config"] = max(errs.get("choose_config", 0.0),
+                                    compare_choose(torch, name, args))
     for k in KERNELS:
         if k not in errs:
             fail(f"phase 3 never ran {k}")
+    phase_done(3, through)
 
     print(f"[kernel times] torch.profiler device time and CUDA events, {card}", flush=True)
     times = {name: time_kernels(torch, args, scan_turns=name in ("config2", "config2_live"))
@@ -797,6 +908,7 @@ def main() -> int:
     pr1_floor = floor_ms("ffd_scan_global", "config2")
     print(f"  config2 ffd_scan / the global kernel's floor model at config2: "
           f"{c2t['ffd_scan'][0] / pr1_floor!r}")
+    phase_done(4, through)
 
     print(f"[slice] TorchScheduler.solve on the card, {card}", flush=True)
     import random
@@ -866,4 +978,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

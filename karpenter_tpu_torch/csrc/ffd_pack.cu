@@ -8,10 +8,10 @@
 // karpenter_tpu_torch/ops/fused_packer.py.
 //
 // Two launches per pack, choose_config and one of the three scans:
-//   choose_config_kernel    grid (Gp,): one block per class picks the config
-//                           a new node of that class opens on (first-index
-//                           argmin of the objective's score over C, as a
-//                           block reduction of (score, index) pairs).
+//   choose_config_kernel<kMulti>  grid (Gp,): one block per class picks
+//                           the config a new node of that class opens on
+//                           (first-index argmin of the objective's score
+//                           over C); see "The choice" below.
 //   ffd_scan_kernel<M>      grid (1,): the resident scan.  One block walks
 //                           the Gp classes in order with the whole slot
 //                           state in shared memory; the wrapper takes it
@@ -76,6 +76,46 @@
 // more slots each is slower, so the chain, not the issue rate, sets the
 // pace.
 //
+// The choice (choose_config_kernel).  The function is Gp x Cp independent
+// (class, config) pairs, each a capacity (an IEEE division per requested
+// axis) and a score, then a first-index argmin per class; its bytes are
+// the feasibility bytes plus one read of price, openable and the requested
+// alloc axes, so at the bench shapes it is bound by neither bytes nor
+// operations.  What a plain block loop over the configs spends its time
+// on, and what this kernel does about each:
+//   - the price ceiling, max(where(openable, price, 0)) + 1, takes its own
+//     pass over price and openable: here it is reduced from the prices the
+//     block loads for its pairs anyway (a warp reduce, one barrier, a warp
+//     reduce);
+//   - a loop that loads a feasibility byte, an openable byte, a price and
+//     the alloc axes and divides before the next iteration's loads waits
+//     on each load: here thread t owns the config quads (4 consecutive
+//     configs) t, t + 256, ... and loads them a block of kQuads quads at a
+//     time, as 16-byte price, 4-byte openable and 4-byte feasibility words,
+//     plus the alloc values of a round of kRoundAxes requested axes, before
+//     the block's first division; the next round's alloc loads are issued
+//     before this round's divisions, and the next block's other loads
+//     before this block's divisions;
+//   - price / ceiling (JAX's price_norm) is divided only on the pairs that
+//     score;
+//   - thread 0 folding the warps' partials serially: after one barrier,
+//     warp 0 reduces them with shuffles.
+// The first block's capacities do not depend on the ceiling and are
+// computed before its barrier.
+// What bounds it then (measured on an H100, PERF.md): each thread's chain
+// of IEEE divisions.  __fdiv_rn branches to a slow path, so a warp runs
+// its divisions one after another, and the time is the divisions a thread
+// owns over the warps the SMs hold.  Hence the small blocks (1 quad, 1
+// axis a round: every register held for loads in flight costs resident
+// warps) and the register cap of kChooseMinBlocks blocks a SM (the 320
+// blocks of config 2 fit 3 to a SM: one wave on 132 SMs).
+// The arithmetic per pair is node_cap's sequence, min with maxper, the
+// objective's score, +inf where the pair is not feas && openable && cap >
+// 0, and the (score, index) rule of a first-index argmin.  Where Cp is not
+// a multiple of 4 or a word load would be misaligned, the same kernel
+// reads each quad's configs one at a time (a grid-uniform branch).  Past 2
+// blocks of configs the ceiling reads the later blocks' prices once more.
+
 // Float rules (bit-equality with the JAX CPU reference): IEEE division and
 // no contraction of `used + take * req` (explicit __fdiv_rn / __fmul_rn /
 // __fadd_rn; the library is built without --use_fast_math), first-index
@@ -163,58 +203,311 @@ __device__ unsigned block_sum(unsigned v, unsigned* sh) {
   return total;
 }
 
-__global__ void choose_config_kernel(const float* __restrict__ req,
-                                     const int* __restrict__ maxper,
-                                     const uint8_t* __restrict__ feas,
-                                     const float* __restrict__ alloc,
-                                     const float* __restrict__ price,
-                                     const uint8_t* __restrict__ openable,
-                                     int Cp, int R, int objective,
-                                     int* __restrict__ c_star,
-                                     int* __restrict__ new_ok,
-                                     int* __restrict__ per) {
-  extern __shared__ float sreq[];  // [R]
-  __shared__ float s_val[32];
-  __shared__ int s_idx[32];
-  const int g = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) sreq[r] = req[(size_t)g * R + r];
+// ---- the choice (see "The choice" above) ----------------------------------
 
-  // price ceiling: max(where(openable, price, 0)) + 1
-  float pm = -INFINITY;
-  for (int c = threadIdx.x; c < Cp; c += blockDim.x)
-    pm = fmaxf(pm, openable[c] ? price[c] : 0.0f);
-  for (int o = 16; o > 0; o >>= 1) pm = fmaxf(pm, __shfl_down_sync(kFull, pm, o));
-  if (lane == 0) s_val[warp] = pm;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < nw ? s_val[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) w = fmaxf(w, __shfl_down_sync(kFull, w, o));
-    if (lane == 0) s_val[0] = w;
-  }
-  __syncthreads();
-  const float price_ceil = __fadd_rn(s_val[0], 1.0f);
-  __syncthreads();
+constexpr int kChooseThreads = 256;
+constexpr int kChooseWarps = kChooseThreads / 32;
+constexpr int kChooseMinBlocks = 3;           // blocks a SM: caps registers
+constexpr int kQuads = 1;                     // config quads a thread holds
+constexpr int kPairs = 4 * kQuads;            // configs a thread holds
+constexpr int kBlockConfigs = kChooseThreads * kPairs;  // 1024 a block
+constexpr int kRoundAxes = 1;                 // alloc axes loaded per round
 
-  const int mp = maxper[g];
-  const uint8_t* feas_g = feas + (size_t)g * Cp;
-  float best = INFINITY;
-  int bidx = 0x7fffffff;
-  for (int c = threadIdx.x; c < Cp; c += blockDim.x) {
-    const int cap = min(node_cap(alloc + (size_t)c * R, nullptr, sreq, R), mp);
-    float score = INFINITY;
-    if (feas_g[c] && openable[c] && cap > 0) {
-      const float capf = (float)cap;
-      score = objective == 1
-                  ? __fdiv_rn(price[c], capf)
-                  : __fadd_rn(-capf, __fdiv_rn(price[c], price_ceil));
+// Config slot n (< kPairs) of block b held by this thread.
+__device__ __forceinline__ int choose_config_of(int b, int n) {
+  return 4 * ((b * kQuads + (n >> 2)) * kChooseThreads + (int)threadIdx.x) +
+         (n & 3);
+}
+
+// One block of configs as this thread holds it: prices, and per byte
+// (config) 0xff where openable, resp. where feasible and openable.
+struct ChooseBlock {
+  float p[kPairs];
+  unsigned open[kQuads];
+  unsigned fo[kQuads];
+};
+
+__device__ __forceinline__ bool byte_set(unsigned w, int i) {
+  return (w >> (8 * i)) & 1u;
+}
+
+// The block's class: its feasibility row and req row.
+struct ChooseRow {
+  const uint8_t* feas;
+  const float* req;
+  int Cp;
+  bool vec;  // 4-wide loads: Cp % 4 == 0 and every word aligned
+};
+
+// Issues every load of block b: price, openable and the class's
+// feasibility words (one 16-byte and two 4-byte loads a quad on the 4-wide
+// path, byte loads otherwise).  Configs past Cp hold zeros.
+__device__ __forceinline__ void load_block(ChooseBlock& B, int b,
+                                           const ChooseRow& t,
+                                           const float* __restrict__ price,
+                                           const uint8_t* __restrict__ openable) {
+  const int nquads = (t.Cp + 3) >> 2;
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    const int q = (b * kQuads + k) * kChooseThreads + (int)threadIdx.x;
+    float4 p4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    unsigned ow = 0u, fw = 0u;
+    if (q < nquads) {
+      if (t.vec) {
+        p4 = __ldg(reinterpret_cast<const float4*>(price) + q);
+        ow = __ldg(reinterpret_cast<const unsigned*>(openable) + q);
+        fw = __ldg(reinterpret_cast<const unsigned*>(t.feas) + q);
+      } else {
+        float pp[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 4 * q + i;
+          pp[i] = 0.0f;
+          if (c < t.Cp) {
+            pp[i] = __ldg(price + c);
+            ow |= (unsigned)__ldg(openable + c) << (8 * i);
+            fw |= (unsigned)__ldg(t.feas + c) << (8 * i);
+          }
+        }
+        p4 = make_float4(pp[0], pp[1], pp[2], pp[3]);
+      }
     }
+    B.p[4 * k] = p4.x;
+    B.p[4 * k + 1] = p4.y;
+    B.p[4 * k + 2] = p4.z;
+    B.p[4 * k + 3] = p4.w;
+    B.open[k] = __vcmpne4(ow, 0u);
+    B.fo[k] = __vcmpne4(fw, 0u) & B.open[k];
+  }
+}
+
+// max(pm, where(openable, price, 0)) over the block's configs below Cp.
+__device__ __forceinline__ float fold_ceiling(const ChooseBlock& B, int b,
+                                              int Cp, float pm) {
+#pragma unroll
+  for (int n = 0; n < kPairs; ++n)
+    if (choose_config_of(b, n) < Cp)
+      pm = fmaxf(pm, byte_set(B.open[n >> 2], n & 3) ? B.p[n] : 0.0f);
+  return pm;
+}
+
+// The axes the class requests, a warp-uniform cursor over chunks of 32
+// axes: lane l holds the class's req value at axis base + l, `m` the
+// chunk's requested axes not yet handed out.
+struct AxisCursor {
+  int base;
+  unsigned m;
+  float v;
+};
+
+// Up to kRoundAxes requested axes (ax -1 where none) and the class's req
+// there (0 where none).
+struct AxisRound {
+  int ax[kRoundAxes];
+  float rq[kRoundAxes];
+};
+
+__device__ __forceinline__ void cursor_load(AxisCursor& s, const ChooseRow& t,
+                                            int R) {
+  const int r = s.base + (int)(threadIdx.x & 31);
+  s.v = r < R ? __ldg(t.req + r) : 0.0f;
+  s.m = __ballot_sync(kFull, s.v > 0.0f);
+}
+
+__device__ __forceinline__ void cursor_start(AxisCursor& s, const ChooseRow& t,
+                                             int R) {
+  s.base = 0;
+  cursor_load(s, t, R);
+}
+
+// Hands out the next round; false (and an empty round) when no requested
+// axis is left.
+__device__ __forceinline__ bool cursor_next(AxisCursor& s, AxisRound& rd,
+                                            const ChooseRow& t, int R) {
+  bool more = true;
+  while (s.m == 0u) {
+    s.base += 32;
+    if (s.base >= R) {
+      more = false;
+      break;
+    }
+    cursor_load(s, t, R);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kRoundAxes; ++kk) {
+    int bit = -1;
+    if (more && s.m != 0u) {
+      bit = __ffs(s.m) - 1;
+      s.m &= s.m - 1u;
+    }
+    const float v = __shfl_sync(kFull, s.v, bit < 0 ? 0 : bit);
+    rd.rq[kk] = bit < 0 ? 0.0f : v;
+    rd.ax[kk] = bit < 0 ? -1 : s.base + bit;
+  }
+  return more;
+}
+
+// Issues the alloc loads of one round for block b, through the read-only
+// path.
+__device__ __forceinline__ void load_alloc(float (&a)[kRoundAxes][kPairs],
+                                           const AxisRound& rd, int b,
+                                           const float* __restrict__ alloc,
+                                           int Cp, int R) {
+#pragma unroll
+  for (int kk = 0; kk < kRoundAxes; ++kk)
+#pragma unroll
+    for (int n = 0; n < kPairs; ++n) {
+      const int c = choose_config_of(b, n);
+      a[kk][n] = (rd.ax[kk] >= 0 && c < Cp)
+                     ? __ldg(alloc + (size_t)c * R + rd.ax[kk])
+                     : 0.0f;
+    }
+}
+
+// node_cap's per-axis step for one round, on the pairs that are feasible
+// and openable (the others score +inf whatever their capacity).
+__device__ __forceinline__ void apply_round(float (&cap)[kPairs],
+                                            const float (&a)[kRoundAxes][kPairs],
+                                            const AxisRound& rd,
+                                            const ChooseBlock& B) {
+#pragma unroll
+  for (int kk = 0; kk < kRoundAxes; ++kk) {
+    const float q = rd.rq[kk];
+    if (q > 0.0f) {
+#pragma unroll
+      for (int n = 0; n < kPairs; ++n)
+        if (byte_set(B.fo[n >> 2], n & 3))
+          cap[n] = fminf(cap[n], floorf(__fadd_rn(__fdiv_rn(a[kk][n], q), kNudge)));
+    }
+  }
+}
+
+// The block's capacities: round `rd` is loaded in `a`; each later round's
+// alloc loads are issued before the current round's divisions.  Leaves in
+// `cap` the pair's capacity as a float where the pair is feasible, openable
+// and holds a pod, else 0 (`a` and `rd` are spent).
+__device__ __forceinline__ void block_caps(float (&cap)[kPairs],
+                                           float (&a)[kRoundAxes][kPairs],
+                                           AxisRound& rd, AxisCursor& axes,
+                                           const ChooseBlock& B, int b, int mp,
+                                           const float* __restrict__ alloc,
+                                           const ChooseRow& t, int R) {
+#pragma unroll
+  for (int n = 0; n < kPairs; ++n) cap[n] = kBigF;
+  for (;;) {
+    AxisRound rn;
+    float an[kRoundAxes][kPairs];
+    const bool more = cursor_next(axes, rn, t, R);
+    if (more) load_alloc(an, rn, b, alloc, t.Cp, R);
+    apply_round(cap, a, rd, B);
+    if (!more) break;
+    rd = rn;
+#pragma unroll
+    for (int kk = 0; kk < kRoundAxes; ++kk)
+#pragma unroll
+      for (int n = 0; n < kPairs; ++n) a[kk][n] = an[kk][n];
+  }
+#pragma unroll
+  for (int n = 0; n < kPairs; ++n) {
+    const int ci = min((int)fmaxf(cap[n], 0.0f), mp);
+    cap[n] = (byte_set(B.fo[n >> 2], n & 3) && ci > 0) ? (float)ci : 0.0f;
+  }
+}
+
+// Scores the block's pairs into the running (score, index) argmin.
+__device__ __forceinline__ void block_scores(const float (&cap)[kPairs],
+                                             const ChooseBlock& B, int b,
+                                             int Cp, int objective,
+                                             float price_ceil, float& best,
+                                             int& bidx) {
+#pragma unroll
+  for (int n = 0; n < kPairs; ++n) {
+    const int c = choose_config_of(b, n);
+    if (c >= Cp) continue;
+    const float p = B.p[n];
+    const float capf = cap[n];
+    float score = INFINITY;
+    if (capf > 0.0f)
+      score = objective == 1 ? __fdiv_rn(p, capf)
+                             : __fadd_rn(-capf, __fdiv_rn(p, price_ceil));
     if (score < best || (score == best && c < bidx)) {
       best = score;
       bidx = c;
     }
   }
+}
+
+// kMulti: Cp > kBlockConfigs, so the thread walks several blocks.
+template <bool kMulti>
+__global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
+    choose_config_kernel(
+    const float* __restrict__ req, const int* __restrict__ maxper,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const float* __restrict__ price, const uint8_t* __restrict__ openable,
+    int Cp, int R, int objective, int vec, int* __restrict__ c_star,
+    int* __restrict__ new_ok, int* __restrict__ per) {
+  __shared__ float s_pm[kChooseWarps];
+  __shared__ float s_val[kChooseWarps];
+  __shared__ int s_idx[kChooseWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.x;
+  const ChooseRow t{feas + (size_t)g * Cp, req + (size_t)g * R, Cp, vec != 0};
+  const int nb = (Cp + kBlockConfigs - 1) / kBlockConfigs;
+
+  // ---- every load of the first block, then its alloc round -----------------
+  ChooseBlock cur, nxt;
+  load_block(cur, 0, t, price, openable);
+  const int mp = __ldg(maxper + g);
+  AxisCursor axes;
+  AxisRound rd;
+  float a[kRoundAxes][kPairs];
+  cursor_start(axes, t, R);
+  cursor_next(axes, rd, t, R);
+  load_alloc(a, rd, 0, alloc, Cp, R);
+  float pm = fold_ceiling(cur, 0, Cp, -INFINITY);
+  if constexpr (kMulti) {
+    load_block(nxt, 1, t, price, openable);  // before this block's divisions
+    pm = fold_ceiling(nxt, 1, Cp, pm);
+    for (int b = 2; b < nb; ++b) {  // later blocks: a ceiling-only read
+      ChooseBlock far;
+      load_block(far, b, t, price, openable);
+      pm = fold_ceiling(far, b, Cp, pm);
+    }
+  }
+
+  // ---- the first block's capacities, then the ceiling's one barrier -------
+  float cap[kPairs];
+  block_caps(cap, a, rd, axes, cur, 0, mp, alloc, t, R);
+  if constexpr (kMulti) {
+    cursor_start(axes, t, R);
+    cursor_next(axes, rd, t, R);
+    load_alloc(a, rd, 1, alloc, Cp, R);
+  }
+  for (int o = 16; o > 0; o >>= 1) pm = fmaxf(pm, __shfl_down_sync(kFull, pm, o));
+  if (lane == 0) s_pm[warp] = pm;
+  __syncthreads();
+  float w = lane < kChooseWarps ? s_pm[lane] : -INFINITY;
+  for (int o = 16; o > 0; o >>= 1) w = fmaxf(w, __shfl_xor_sync(kFull, w, o));
+  const float price_ceil = __fadd_rn(w, 1.0f);
+
+  float best = INFINITY;
+  int bidx = 0x7fffffff;
+  block_scores(cap, cur, 0, Cp, objective, price_ceil, best, bidx);
+  if constexpr (kMulti) {
+    for (int b = 1; b < nb; ++b) {
+      cur = nxt;
+      if (b + 1 < nb) load_block(nxt, b + 1, t, price, openable);
+      block_caps(cap, a, rd, axes, cur, b, mp, alloc, t, R);
+      if (b + 1 < nb) {
+        cursor_start(axes, t, R);
+        cursor_next(axes, rd, t, R);
+        load_alloc(a, rd, b + 1, alloc, Cp, R);
+      }
+      block_scores(cap, cur, b, Cp, objective, price_ceil, best, bidx);
+    }
+  }
+
+  // ---- the argmin through one barrier --------------------------------------
   for (int o = 16; o > 0; o >>= 1) {
     const float os = __shfl_down_sync(kFull, best, o);
     const int oi = __shfl_down_sync(kFull, bidx, o);
@@ -228,18 +521,25 @@ __global__ void choose_config_kernel(const float* __restrict__ req,
     s_idx[warp] = bidx;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < nw; ++w) {
-      if (s_val[w] < best || (s_val[w] == best && s_idx[w] < bidx)) {
-        best = s_val[w];
-        bidx = s_idx[w];
+  if (warp == 0) {
+    float v = lane < kChooseWarps ? s_val[lane] : INFINITY;
+    int i = lane < kChooseWarps ? s_idx[lane] : 0x7fffffff;
+    for (int o = kChooseWarps / 2; o > 0; o >>= 1) {
+      const float os = __shfl_down_sync(kFull, v, o);
+      const int oi = __shfl_down_sync(kFull, i, o);
+      if (os < v || (os == v && oi < i)) {
+        v = os;
+        i = oi;
       }
     }
-    const int c = bidx;
-    const int cap = min(node_cap(alloc + (size_t)c * R, nullptr, sreq, R), mp);
-    c_star[g] = c;
-    new_ok[g] = (feas_g[c] && openable[c] && cap > 0) ? 1 : 0;
-    per[g] = max(cap, 1);
+    if (lane == 0) {
+      const int c = i;
+      const int cap_c =
+          min(node_cap(alloc + (size_t)c * R, nullptr, t.req, R), mp);
+      c_star[g] = c;
+      new_ok[g] = (t.feas[c] && openable[c] && cap_c > 0) ? 1 : 0;
+      per[g] = max(cap_c, 1);
+    }
   }
 }
 
@@ -1100,9 +1400,19 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
                       int objective, int* c_star, int* new_ok, int* per,
                       void* stream) {
   if (Gp <= 0) return 0;
-  choose_config_kernel<<<Gp, 256, R * sizeof(float), (cudaStream_t)stream>>>(
-      req, maxper, feas, alloc, price, openable, Cp, R, objective, c_star,
-      new_ok, per);
+  if (Cp <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = Cp % 4 == 0 && reinterpret_cast<uintptr_t>(feas) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(openable) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(price) % 16 == 0;
+  const auto st = (cudaStream_t)stream;
+  if (Cp > kBlockConfigs)
+    choose_config_kernel<true><<<Gp, kChooseThreads, 0, st>>>(
+        req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
+        c_star, new_ok, per);
+  else
+    choose_config_kernel<false><<<Gp, kChooseThreads, 0, st>>>(
+        req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
+        c_star, new_ok, per);
   return (int)cudaGetLastError();
 }
 

@@ -107,7 +107,8 @@ def choose_config(
     openable: torch.Tensor,  # [C] bool
     objective: str = "nodes",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-class new-node choice: int32 ``(c_star, new_ok, per)``."""
+    """Per-class new-node choice: int32 ``(c_star, new_ok, per)``; on the
+    card three contiguous rows of one tensor."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     dev = req.device
@@ -128,19 +129,16 @@ def choose_config(
         ("openable", openable, torch.bool, (C,)),
     ):
         _check(name, t, dt, shp, dev)
-    c_star, new_ok, per = (
-        torch.empty(G, dtype=torch.int32, device=dev) for _ in range(3)
-    )
+    out = torch.empty((3, G), dtype=torch.int32, device=dev)
+    base = out.data_ptr()  # rows c_star, new_ok, per
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ffd_choose_config(
-            req.data_ptr(), maxper.data_ptr(), feas.data_ptr(),
-            alloc.data_ptr(), price.data_ptr(), openable.data_ptr(),
-            G, C, R, OBJECTIVES[objective],
-            c_star.data_ptr(), new_ok.data_ptr(), per.data_ptr(), stream,
+            *_ptrs(req, maxper, feas, alloc, price, openable),
+            G, C, R, OBJECTIVES[objective], base, base + 4 * G, base + 8 * G, stream,
         )
     _launched("choose_config", err)
-    return c_star, new_ok, per
+    return out.unbind(0)
 
 
 def scan_threads(K: int) -> int:

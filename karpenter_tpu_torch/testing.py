@@ -5,7 +5,8 @@ the solve reads: a default pool, instance types over `generate_catalog`
 in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 ``bench.py`` (`build_problem`, `build_heterogeneous`) with a ``scale`` on
 the pod count, a cluster of live nodes, and pack inputs on which the
-scan's int32 sums wrap.
+scan's int32 sums wrap, and pack inputs on which the new-node choice
+must break ties by first index.
 
 Prices are those the reference environment serves after its operator's
 start-up price refresh: on-demand from the shapes' seed prices, spot at the
@@ -154,6 +155,87 @@ def wrap_arrays(k_slots: int = 256, classes: int = 10, at: int = 0) -> tuple:
     g = slice(0, classes)
     return (req[g], cnt[g], maxper[g], slot[g], feas[g], alloc, price, openable,
             used0, cfg0, npods0, at + E, sig0)
+
+
+def _quad_config(m: int, t: int, i: int) -> int:
+    """The config that thread ``t`` of the ``choose_config`` kernel (256
+    threads) holds as config ``i`` of its ``m``-th quad: quads t, t + 256,
+    t + 512, ... of 4 configs each."""
+    return 4 * (m * 256 + t) + i
+
+
+def tie_arrays(configs: int = 4096, k_slots: int = 256) -> tuple:
+    """Pack inputs (numpy, in `pack_reference`'s order) on which the
+    new-node choice has to pick the first of equal scores, both objectives.
+
+    - Class 0: duplicate alloc rows and prices (a config four times larger
+      than any other, at one price) at configs that the card's kernel holds
+      in different threads, warps and quads, four in every 4096 configs:
+      the lowest index must win.
+    - Class 1 (cpu only): a cost tie, price 2 on 2 pods at the higher index
+      against price 1 on 1 pod at the lower; the other configs it fits
+      cost more a pod.
+    - Class 2 fits no config (c_star 0, new_ok 0); class 3 has ``maxper``
+      0 (c_star 0, new_ok 0, per 1).
+    - Classes 4-9: random requests and feasibility.
+
+    ``configs`` is a multiple of 4096."""
+    if configs % 4096:
+        raise ValueError(f"configs={configs} is not a multiple of 4096")
+    rng = np.random.default_rng(11)
+    G, C, R, S = 10, configs, 6, 4
+    c = np.arange(C)
+    cpu = (2 + c % 61).astype(np.float32)
+    alloc = np.zeros((C, R), np.float32)
+    alloc[:, 0] = cpu
+    alloc[:, 1] = cpu * (2 + 2 * (c % 4))
+    alloc[:, 2] = 110
+    price = (cpu * 0.05 + alloc[:, 1] * 0.004 + rng.random(C) * 0.01).astype(np.float32)
+    openable = rng.random(C) < 0.9
+    feas = rng.random((G, C)) < 0.5
+    req = np.zeros((G, R), np.float32)
+    req[:, :3] = rng.choice([0.25, 0.5, 1.0, 2.0], size=(G, 3))
+    req[:, 2] = 1.0  # pods
+    maxper = np.full(G, 2**30, np.int32)
+    maxper[7] = 3
+    # class 0: the first of four equal champions wins
+    dups = [_quad_config(4 * b + k, t, i) for b in range(C // 4096)
+            for k, t, i in ((0, 3, 1), (1, 40, 2), (2, 130, 0), (3, 255, 3))]
+    alloc[dups] = (500.0, 2000.0, 1000.0, 0.0, 0.0, 0.0)
+    price[dups] = 7.0
+    openable[dups] = True
+    req[0, :3] = (1.0, 1.0, 1.0)
+    feas[0, dups] = True
+    # class 1: price 2 / cap 2 (higher index) ties price 1 / cap 1 (lower)
+    a, b, worse = _quad_config(1, 5, 2), _quad_config(0, 9, 1), _quad_config(2, 17, 3)
+    alloc[[a, b, worse], :3] = ((8.0, 16.0, 110.0), (4.0, 8.0, 110.0), (12.0, 24.0, 110.0))
+    price[[a, b, worse]] = (2.0, 1.0, 4.0)
+    openable[[a, b, worse]] = True
+    req[1] = (4.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    feas[1] = False
+    feas[1, [a, b, worse]] = True
+    feas[2] = False  # class 2 fits nothing
+    maxper[3] = 0  # class 3 holds no pod anywhere
+    cnt = rng.integers(5, 60, G).astype(np.int32)
+    slot = (np.arange(G) % S).astype(np.int32)
+    used0 = np.zeros((k_slots, R), np.float32)
+    cfg0 = np.full(k_slots, -1, np.int32)
+    cfg0[:2] = (5, 17)
+    used0[:2, :3] = ((2.0, 4.0, 3.0), (1.0, 1.0, 1.0))
+    npods0 = np.zeros(k_slots, np.int32)
+    npods0[:2] = (3, 1)
+    sig0 = np.zeros((S, k_slots), np.int32)
+    return (req, cnt, maxper, slot, feas, alloc, price, openable,
+            used0, cfg0, npods0, 2, sig0)
+
+
+def first_configs(args: tuple, n: int) -> tuple:
+    """Pack inputs (numpy, in `pack_reference`'s order) cut to their first
+    ``n`` configs (every prefilled slot's config must be below ``n``)."""
+    (req, cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    return (req, cnt, maxper, slot, np.ascontiguousarray(feas[:, :n]), alloc[:n].copy(),
+            price[:n].copy(), openable[:n].copy(), used0, cfg0, npods0, next0, sig0)
 
 
 def heterogeneous_problem(

@@ -1,13 +1,15 @@
 """chip_smoke.py on the CPU: it refuses to run without a card, the bound
 it reports counts only what the run's data needs, each scan kernel's
-latency floor follows that kernel's own step, and the kernels line has a
-row for every kernel the wrappers count."""
+latency floor follows that kernel's own step, the kernels line has a
+row for every kernel the wrappers count, ``--through N`` is parsed by a
+plain function, and the ptxas summary is read per kernel."""
 
 import pathlib
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -146,3 +148,67 @@ def test_phase5_churn_and_mirror_check():
         chip_smoke.check_mirrors(torch, "cpu", st)
     chip_smoke.cold_solve(sched, pods)
     assert sched.compile_cache_misses == 3 and sched.resident_rebuilds == 2
+
+
+@pytest.mark.parametrize("argv,through", [
+    ([], chip_smoke.LAST_PHASE),
+    (["--through", "1"], 1),
+    (["--through", "3"], 3),
+    (["--through", "4"], 4),
+])
+def test_through_parses(argv, through):
+    assert chip_smoke.parse_through(argv) == through
+
+
+@pytest.mark.parametrize("argv", [
+    ["--through"], ["--through", "0"], ["--through", "5"], ["--through", "x"],
+    ["--through", "2", "3"], ["--thru", "2"], ["3"],
+])
+def test_through_refuses_bad_values(argv):
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.parse_through(argv)
+    assert exc.value.code == 2
+
+
+def test_partial_run_exits_3(capsys):
+    chip_smoke.phase_done(2, 3)  # phase 2 of a run through 3: goes on
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.phase_done(3, 3)
+    assert exc.value.code == 3
+    err = capsys.readouterr()
+    assert "chip_smoke: stopped after phase 3 (partial run)" in err.err
+    assert '"ok"' not in err.out
+
+
+def test_bad_argument_exits_2_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py", "--through", "9"],
+        cwd=pathlib.Path(chip_smoke.__file__).parent,
+        capture_output=True, text=True, timeout=120,
+        env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 2
+    assert '"ok"' not in proc.stdout
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120choose_config_kernelILb1EEEvPKfPKiPKhS2_S2_S6_iiiiPiS7_S7_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120choose_config_kernelILb1EEEvPKfPKiPKhS2_S2_S6_iiiiPiS7_S7_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 54 registers, used 1 barriers, 440 bytes cmem[0]
+ptxas info    : Function properties for __internal_fdiv
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115ffd_scan_kernelILi1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115ffd_scan_kernelILi1EEEvPKf
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 424 bytes cmem[0]
+"""
+
+
+def test_ptxas_resources_per_kernel():
+    got = chip_smoke.ptxas_resources(PTXAS_LOG)
+    assert got == {
+        "_ZN12_GLOBAL__N_120choose_config_kernelILb1EEEvPKfPKiPKhS2_S2_S6_iiiiPiS7_S7_": (54, 0, 0),
+        "_ZN12_GLOBAL__N_115ffd_scan_kernelILi1EEEvPKf": (40, 12, 8),
+    }

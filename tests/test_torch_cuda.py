@@ -4,7 +4,9 @@ Each scan case asserts which scan kernel the wrapper's shape rule launched:
 the resident one up to the slot count whose state fits a block, the
 cluster one above it (2, 4 or 8 CTAs), on the wrap case (int32 sums that
 wrap) too, also with its prefilled slots straddling a CTA boundary; and
-the global one through its own entry point.
+the global one through its own entry point.  The choice is held to the
+plain version on its own cases: ties broken by first index, few classes,
+6 configs and a ``feas`` one byte off (both read a config at a time).
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -19,6 +21,7 @@ import torch
 from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.ops import fused_packer
 from karpenter_tpu_torch.ops.packer import (
+    choose_config_reference,
     ffd_scan_reference,
     pack_reference,
     pad_problem,
@@ -97,6 +100,47 @@ def test_kernel_matches_reference(cuda_device, problem, objective):
     assert moved == {"choose_config", kernel}
     assert all(fused_packer.LAUNCHES[k] == before[k] + 1 for k in moved)
     _assert_bit_equal(got, pack_reference(*args, objective=objective))
+
+
+CHOICE_CASES = ("heterogeneous", "flagship", "wrap", "ties", "ties-16384", "configs-6",
+                "feas-offset")
+
+
+def _choice(case: str, dev):
+    """The choice's card inputs ``(req, maxper, feas, alloc, price,
+    openable)`` of a choice case; "feas-offset" is the heterogeneous case
+    with ``feas`` a view one byte into its buffer."""
+    if case == "ties":
+        host = T.tie_arrays()
+    elif case == "ties-16384":
+        host = T.tie_arrays(16384)
+    elif case == "configs-6":
+        host = T.first_configs(T.wrap_arrays(256), 6)
+    else:
+        host = _case("heterogeneous" if case == "feas-offset" else case)
+    req, _, maxper, _, feas, alloc, price, openable = to_device(host, dev)[:8]
+    if case == "feas-offset":
+        buf = torch.zeros(feas.numel() + 1, dtype=torch.bool, device=dev)
+        buf[1:] = feas.reshape(-1)
+        feas = buf[1:].view(feas.shape)
+    return req, maxper, feas, alloc, price, openable
+
+
+def _launch_moves(fn):
+    before = dict(fused_packer.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in fused_packer.LAUNCHES.items() if n != before[k]}
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("case", CHOICE_CASES)
+def test_choose_config_matches_reference(cuda_device, case, objective):
+    choice = _choice(case, cuda_device)
+    got, moved = _launch_moves(lambda: fused_packer.choose_config(*choice, objective))
+    assert moved == {"choose_config": 1}
+    assert all(t.is_contiguous() for t in got)
+    _assert_bit_equal(got, choose_config_reference(*choice, objective))
 
 
 def test_global_kernel_matches_reference(cuda_device):

@@ -7,8 +7,9 @@ Pallas interpreter as tests/test_pallas.py runs it) on the shapes of
 tests/test_pallas.py, on the two bench problems cut to 500 pods, on
 random arrays made from numpy seeds, and on arrays where the scan's int32
 sums wrap (also with the wrapping slots across the boundary of two CTAs of
-the cluster scan).  Also the shape rule that picks the card's scan kernel,
-the cluster scan's layout and its wrap guard.
+the cluster scan), and on arrays where the new-node choice breaks ties by
+first index.  Also the shape rule that picks the card's scan kernel, the
+cluster scan's layout and its wrap guard.
 
 Tolerance: none.  `take`, `leftover`, `node_cfg` and `node_pods` must be
 equal, and `node_used` bit-equal to the scan kernel's (the Pallas kernel
@@ -32,8 +33,9 @@ from karpenter_tpu.state.cluster import StateNode
 from karpenter_tpu.testing import Environment
 from karpenter_tpu_torch.interop import problem_arrays, problem_from_arrays
 from karpenter_tpu_torch.ops import fused_packer
-from karpenter_tpu_torch.ops.packer import pack_reference, run_pack
-from karpenter_tpu_torch.testing import wrap_arrays
+from karpenter_tpu_torch import testing
+from karpenter_tpu_torch.ops.packer import choose_config_reference, pack_reference, run_pack
+from karpenter_tpu_torch.testing import tie_arrays, wrap_arrays
 
 OBJECTIVES = ("nodes", "cost")
 
@@ -312,6 +314,37 @@ def test_wrap_arrays_straddle_parity(objective):
     assert int(leftover[0]) == -(2**30)
     # class 8's window opened from slot at - 4 >= 0, over prefilled slots
     assert int(node_cfg[at - 4]) >= 0 and int(node_cfg[at]) != 0
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_tie_arrays_parity(objective):
+    """Equal scores at configs the choice kernel holds in different threads,
+    warps and quads: the pack equals JAX's, and the choice takes the first
+    index (class 0 of four equal champions, class 1 of a cost tie between
+    price 2 on 2 pods and price 1 on 1 pod); a class that fits nothing and
+    one with maxper 0 get c_star 0 and new_ok 0."""
+    args = tie_arrays()
+    _assert_arrays_parity(args, objective)
+    choice = [torch.from_numpy(args[i]) for i in (0, 2, 4, 5, 6, 7)]
+    c_star, new_ok, per = (t.tolist() for t in choose_config_reference(*choice, objective))
+    first_champion = testing._quad_config(0, 3, 1)
+    assert c_star[0] == first_champion and per[0] == 500
+    if objective == "cost":
+        assert c_star[1] == testing._quad_config(0, 9, 1) and per[1] == 1
+    assert (c_star[2], new_ok[2]) == (0, 0)
+    assert (c_star[3], new_ok[3], per[3]) == (0, 0, 1)
+
+
+def test_choice_wrapper_on_the_cpu():
+    """On CPU tensors the choice wrapper runs the plain version; an unknown
+    objective is refused."""
+    args = tie_arrays(k_slots=8)
+    choice = [torch.from_numpy(args[i]) for i in (0, 2, 4, 5, 6, 7)]
+    want = choose_config_reference(*choice, "cost")
+    for a, b in zip(fused_packer.choose_config(*choice, "cost"), want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="objective"):
+        fused_packer.choose_config(*choice, "fewest")
 
 
 @pytest.mark.parametrize(
