@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-4), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-5), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -74,8 +74,32 @@ Phases (each failure exits non-zero before the last line is printed):
    solve of each kind per problem runs under torch.profiler, after the
    counts are read and just after an unprofiled solve of its kind, for the
    device time of each kernel and the device's busy share of the solve.
-6. Prints the kernels JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. The consolidation verdicts: ``TorchScheduler(device="cuda")``'s
+   ``evaluate_removals`` and ``evaluate_population`` on two problems, both
+   objectives.  ``sweep``: the cluster of ``bench.py``'s configs 4b/4c (560
+   pods of two sizes over the 4 and 8 vCPU catalog, opened by a cold solve
+   on the card: about 60 live nodes, Kp 1024, the resident scan), every
+   node a candidate; the singles, then a ``SearchPlan`` pass at population
+   320, 2 rounds.  ``live``: 2,000 live nodes of ``std1.large`` (4 vCPU)
+   of config 2's general pool, each holding 1-4 seeded pods of those two
+   sizes, the universe its 64 least-loaded nodes (Kp 4096, the cluster
+   scan); the 64 singles and the 64 drop-one subsets, then a pass at
+   population 512, 2 rounds.  The launch counters are set to 0 just before
+   the drive and read just after: the batched scan of each problem's
+   shapes, ``verdict_rows`` and ``population_prologue`` must each have
+   launched, ``ffd_scan_global_batched`` not.  The decoded verdicts (and
+   the plan's proposals and pick) must equal the same calls through
+   ``device="cpu"``.  Then on the same card tensors each kernel against its
+   plain version, bit for bit: the batched scan (full outputs; at ``live``
+   also through the global scan), ``population_prologue``'s three outputs
+   and the [B, 6] rows; each kernel's device time (torch.profiler), its
+   bound and the batched scan's latency floor (class steps x (barrier + 2 /
+   32 L2 loads) x ceil(B / elements the card runs at once)), the plain
+   versions' times, ``torch.argsort(stable=True)`` beside the prologue, the
+   p50 of both entry points with their last phases, and the count of
+   ``needs_host`` verdicts.
+Then it prints the kernels JSON line (every kernel, the old and the new),
+the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -95,14 +119,42 @@ DELTA_PODS = 100  # pods replaced each delta tick: 1 % of 10,000
 DELTA_NODES = 10  # live nodes whose usage changes each delta tick
 KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
-KERNELS = ("choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
-SCAN_KERNELS = KERNELS[1:]
+SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
+# the consolidation verdicts' kernels (phase 6): the scans with the batch
+# axis, counted apart from the solve's, and the two verdict kernels
+VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
+                   "ffd_scan_global_batched", "verdict_rows", "population_prologue")
+KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS)
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
 # scan took that shape)
 ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
-               "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live"}
+               "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live",
+               "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
+               "ffd_scan_global_batched": "live", "verdict_rows": "live",
+               "population_prologue": "live"}
+OBJECTIVES = ("nodes", "cost")
+# phase 6: the sweep's pods, the live cluster's nodes and universe, each
+# problem's population and rounds, the plan's seed, timed repeats
+# the JAX package's device functions each verdict kernel takes the place of
+# (jitted XLA functions, not Pallas kernels): the batched scans run
+# removal_verdict_kernel's vmapped _pack_core, verdict_rows its _verdict_row
+# epilogue, population_prologue population_verdict_kernel's prologue
+VERDICT_REPLACES = {
+    "ffd_scan_batched": "karpenter_tpu/ops/packer.py:615",
+    "ffd_scan_cluster_batched": "karpenter_tpu/ops/packer.py:615",
+    "ffd_scan_global_batched": "karpenter_tpu/ops/packer.py:615",
+    "verdict_rows": "karpenter_tpu/ops/packer.py:525",
+    "population_prologue": "karpenter_tpu/ops/packer.py:686",
+}
+SWEEP_PODS = 560
+LIVE_UNIVERSE = 64
+POPULATION = {"sweep": 320, "live": 512}
+SEARCH_ROUNDS, SEARCH_SEED, VERDICT_SEED = 2, 7, 8
+TIMED_VERDICTS = 5
+# the scan each verdict problem's shapes pick, and its batched launch count
+VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 
 
@@ -115,13 +167,13 @@ def fail(msg: str) -> None:
 
 
 def parse_through(argv) -> int:
-    """The last phase to run: ``--through N`` (N = 1-4) stops after phase
+    """The last phase to run: ``--through N`` (N = 1-5) stops after phase
     N; no argument runs them all.  Anything else exits 2."""
     if not argv:
         return LAST_PHASE
-    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4"):
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4", "5"):
         return int(argv[1])
-    print("usage: python3 chip_smoke.py [--through N]  (N = 1-4: stop after phase N)",
+    print("usage: python3 chip_smoke.py [--through N]  (N = 1-5: stop after phase N)",
           file=sys.stderr, flush=True)
     raise SystemExit(2)
 
@@ -736,6 +788,393 @@ def drive_solves(torch, name, spec, rng):
     return sched, pods, times, phases
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the consolidation verdicts
+# ---------------------------------------------------------------------------
+
+
+def verdict_specs(device: str = "cuda"):
+    """Phase 6's problems: name -> dict of pools, inventory, existing nodes,
+    the candidate universe, the removal subsets, node prices, the population
+    and the rounds.  The sweep's nodes come from a cold port solve on
+    ``device``."""
+    from karpenter_tpu_torch import testing as T
+
+    pools, inv, existing, cands = T.consolidation_sweep(SWEEP_PODS, device=device)
+    def spec(pools, inv, existing, universe, subsets, name):
+        node = {sn.name: sn for sn in existing}
+        return dict(pools=pools, inventory=inv, existing=existing, universe=universe,
+                    subsets=subsets, population=POPULATION[name],
+                    prices=T.node_prices([node[c.node_name] for c in universe], inv))
+
+    pools, inv, existing, cands = T.consolidation_sweep(SWEEP_PODS, device=device)
+    specs = {"sweep": spec(pools, inv, existing, cands, [[c] for c in cands], "sweep")}
+    hpools, hinv, _ = T.heterogeneous_problem(scale=1 / T.N_PODS)
+    std = next(it for it in hinv["general"] if it.name == "std1.large")
+    existing, cands = T.consolidation_cluster(VERDICT_SEED, LIVE_NODES, [std])
+    universe = cands[:LIVE_UNIVERSE]
+    drop_one = [[c for c in universe if c is not d] for d in universe]
+    specs["live"] = spec(hpools, hinv, existing, universe,
+                         [[c] for c in universe] + drop_one, "live")
+    return specs
+
+
+def key_masks(keys, width):
+    import numpy as np
+
+    m = np.zeros((len(keys), width), bool)
+    for r, k in enumerate(keys):
+        m[r, list(k)] = True
+    return m
+
+
+def drive_verdicts(sched, spec):
+    """One consolidation pass on ``sched``: `evaluate_removals` on the
+    problem's subsets, then a `SearchPlan` pass, each round through
+    `evaluate_population`.  Returns the verdicts, each round's keys and
+    verdicts, the plan's pick, and each call's wall ms and last phases."""
+    from karpenter_tpu_torch.scheduling.popsearch import SearchPlan
+
+    universe = spec["universe"]
+    t0 = time.perf_counter()
+    removals = sched.evaluate_removals(spec["subsets"], universe)
+    calls = [("evaluate_removals", (time.perf_counter() - t0) * 1e3, dict(sched.last_phases))]
+    plan = SearchPlan(len(universe), spec["prices"], [False] * len(universe),
+                      spec["population"], SEARCH_ROUNDS, SEARCH_SEED)
+    rounds = []
+    while True:
+        keys = plan.propose()
+        if not keys:
+            break
+        t0 = time.perf_counter()
+        got = sched.evaluate_population(key_masks(keys, len(universe)), universe)
+        calls.append(("evaluate_population", (time.perf_counter() - t0) * 1e3,
+                      dict(sched.last_phases)))
+        plan.observe(keys, [(v.fits, v.replacement_price) for v in got])
+        rounds.append((keys, got))
+    return removals, rounds, plan.best(), calls
+
+
+def verdict_inputs(torch, sched, spec):
+    """The card tensors of one problem's verdict launches: the removal base,
+    the removal batch ``(cnt_b, rm_b, perm_b)`` of its subsets, and the
+    first population round's masks as the dispatch pads them."""
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.scheduling.popsearch import SearchPlan
+
+    universe = spec["universe"]
+    base = sched._removal_base(tuple(universe))
+    if base.reason or base.empty or base.pop_reason:
+        fail(f"the removal base refused the universe: {base.reason or base.pop_reason}")
+    cnt, rm, perm, bad = sched._subset_batch(base, spec["subsets"])
+    if bad:
+        fail(f"{len(bad)} subsets outside the compiled universe")
+    keys = SearchPlan(len(universe), spec["prices"], [False] * len(universe),
+                      spec["population"], SEARCH_ROUNDS, SEARCH_SEED).propose()
+    pp = P._bucket(len(keys), floor=sched.MIN_REMOVAL_BATCH)
+    masks = key_masks(keys, base.cand_slot.shape[0])
+    import numpy as np
+
+    masks = np.concatenate([masks, np.zeros((pp - len(keys), masks.shape[1]), bool)])
+    dev = torch.device("cuda")
+    batch = P.to_device((cnt, rm, perm), dev)
+    return base, batch, torch.from_numpy(masks).to(dev)
+
+
+def compare_verdict_kernels(torch, name, base, batch, masks, objective):
+    """Phase 6's bit-equality on one problem's card tensors: the batched
+    scan on the removal batch and on the population (the global scan too at
+    ``live``), `population_prologue`, and `verdict_rows` on each batch,
+    against their plain versions.  Returns the largest error per kernel and
+    the population's inputs and scan outputs (for the times and bounds)."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = base.args
+    chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    pop = (base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank, base.occ_span,
+           masks, base.k_slots)
+    got_pop = F.population_prologue(*pop)
+    want_pop = P.population_prologue_reference(*pop)
+    torch.cuda.synchronize()
+    errs = {"population_prologue": max_abs_err(torch, got_pop, want_pop)}
+    picked = F.scan_kernel(*pack_shapes(base.args))
+    if picked != VERDICT_SCAN[name]:
+        fail(f"{name}: the shape rule picks {picked}, expected {VERDICT_SCAN[name]}")
+    shapes = (req.shape[0], alloc.shape[0], used0.shape[0], req.shape[1], sig0.shape[0])
+    pop_outs = None
+    for label, (cnt_b, rm_b, perm_b) in (("removal batch", batch), ("population", got_pop)):
+        scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
+                     sig0, cnt_b, rm_b, perm_b)
+        outs = F.ffd_scan_batch(*scan_args)
+        want = P.ffd_scan_batch_reference(*scan_args)
+        torch.cuda.synchronize()
+        scans = [(f"{picked}_batched", outs)]
+        if name == "live":
+            g = F._launch_global((req, cnt_b[0], *scan_args[1:13]), shapes,
+                                 (perm_b.shape[0], perm_b, cnt_b, rm_b))
+            torch.cuda.synchronize()
+            scans.append(("ffd_scan_global_batched", g))
+        for k, got in scans:
+            errs[k] = max(errs.get(k, 0.0), max_abs_err(torch, got, want))
+        tail = (perm_b, feas, alloc, price, openable, base.pool_id, base.zone_id, base.ct_id,
+                base.compactable, next0)
+        rows = F.verdict_rows(*outs, *tail)
+        want_rows = P.verdict_rows_reference(*want, *tail)
+        torch.cuda.synchronize()
+        errs["verdict_rows"] = max(errs.get("verdict_rows", 0.0),
+                                   max_abs_err(torch, [rows], [want_rows]))
+        print(f"  {name} {objective} {label}: B={perm_b.shape[0]} Gp={req.shape[0]} "
+              f"Kp={used0.shape[0]} Cp={alloc.shape[0]} R={req.shape[1]}: "
+              + " ".join(f"{k} max_abs_err={v!r}" for k, v in sorted(errs.items())))
+        if label == "population":
+            pop_outs = (scan_args, outs, tail)
+    if any(v != 0 for v in errs.values()):
+        fail(f"{name} {objective}: a verdict kernel disagrees with its plain version: {errs}")
+    return errs, pop, pop_outs
+
+
+def batched_scan_bound(torch, scan_args, outs):
+    """The batched scan's least time for this run's inputs: the base's
+    inputs read once (feasibility and alloc rows only where a slot the
+    element has open meets the class), each element's batch rows, every
+    output written once; operations as `kernel_bounds` counts them, summed
+    over the elements."""
+    (req, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0, npods0, _next0,
+     sig0, cnt_b, rm_b, perm_b) = scan_args
+    take, leftover, node_cfg, node_pods, node_used = outs
+    B, G, K = take.shape
+    C = feas.shape[1]
+    pl = perm_b.long()
+    taken = take > 0
+    gi = torch.arange(G, device=take.device)
+    first = torch.where(taken.any(1), taken.int().argmax(1), G)  # [B, K]
+    cfg_in = torch.where(rm_b, -1, cfg0[None, :])
+    opened_at = torch.where(cfg_in >= 0, -1, first)
+    open_ = gi[None, :, None] > opened_at[:, None, :]  # [B, G, K]
+    cfg_k = node_cfg.clamp(min=0).long()
+    fits = open_ & feas[pl].gather(2, cfg_k[:, None, :].expand(B, G, K))
+    ru = (req > 0).sum(1)[pl]  # [B, G]
+    ops = int((fits * (4 * ru + 5)[:, :, None]).sum()) + int((taken * (2 * ru + 3)[:, :, None]).sum())
+    pairs = (pl[:, :, None] * C + cfg_k[:, None, :])[open_]
+    feas_bytes = int(torch.unique(pairs).numel())
+    alloc_rows = int(torch.unique(cfg_k[:, None, :].expand(B, G, K)[fits]).numel())
+    sig_pairs = int(torch.unique((slot[pl].long()[:, :, None] * K
+                                  + torch.arange(K, device=take.device))[fits]).numel())
+    nb = lambda t: t.numel() * t.element_size()
+    byts = (nb(req) + nb(maxper) + nb(slot) + 3 * G * 4 + feas_bytes + alloc_rows * alloc.shape[1] * 4
+            + sig_pairs * 4 + nb(used0) + nb(cfg0) + nb(npods0) + nb(cnt_b) + nb(rm_b) + nb(perm_b)
+            + sum(nb(t) for t in outs))
+    return _bound(byts, ops)
+
+
+def _bound(byts: int, ops: int) -> dict:
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(byts), "operations": int(ops)}
+
+
+def verdict_rows_bound(torch, outs, tail, rows):
+    """`verdict_rows`' least time: each element reads its leftovers, the
+    pod counts of the slots past next0, the take column and usage row of
+    each new slot and of k_star, its class order; the config arrays and the
+    feasibility rows of the classes on new slots are read once; operations:
+    per element and config the fit tests (2 per axis and the add), the
+    class feasibility tests and the argmin (6), plus a test per window slot
+    and class of a new slot."""
+    take, leftover, node_cfg, node_pods, node_used = outs
+    (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0) = tail
+    B, G, K = take.shape
+    C, R = alloc.shape
+    new = rows[:, 1].long()  # new slots per element
+    on_new = (take[:, :, int(next0):] > 0).any(2)  # [B, G]
+    feas_rows = int(torch.unique(perm_b.long()[on_new]).numel())
+    byts = (B * G * 4 + B * (K - int(next0)) * 4 + B * 4 + int((new + 1).sum()) * (G + R) * 4
+            + B * G * 4 + feas_rows * C + C * (R * 4 + 4 + 1 + 12) + G + B * 6 * 4)
+    ops = B * C * (3 * R + 2 * G + 6) + B * (K - int(next0)) + int(new.sum()) * G
+    return _bound(byts, ops)
+
+
+def prologue_bound(pop, outs):
+    """`population_prologue`'s least time: the masks and candidate tensors
+    read once, the three outputs written once; per member and class a sum
+    and a min over its selected candidates, and the rank's compares."""
+    cand_cnt, cand_slot, cand_occ, sort_rank, _span, masks, k_slots = pop
+    P, U = masks.shape
+    G = sort_rank.shape[0]
+    sel = int(masks.sum())
+    nb = lambda t: t.numel() * t.element_size()
+    byts = nb(masks) + nb(cand_cnt) + nb(cand_occ) + nb(cand_slot) + nb(sort_rank) + sum(nb(t) for t in outs)
+    ops = sel * G * 2 + P * G * G + sel
+    return _bound(byts, ops)
+
+
+def time_verdict_kernels(torch, name, pop, pop_outs):
+    """Device ms a launch (torch.profiler) of the batched scan,
+    `verdict_rows` and `population_prologue` on the population's tensors,
+    beside their plain versions (CUDA events) and, beside the prologue,
+    ``torch.argsort(stable=True)`` of the same keys' shape; at ``live``
+    the global batched scan's ms a launch by CUDA events."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    scan_args, outs, tail = pop_outs
+    picked = VERDICT_SCAN[name]
+    out = {
+        f"{picked}_batched": (
+            profiled_ms(torch, lambda: F.ffd_scan_batch(*scan_args), picked, iters=20),
+            cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=2, warmup=1)),
+        "verdict_rows": (
+            profiled_ms(torch, lambda: F.verdict_rows(*outs, *tail), "verdict_rows", iters=50),
+            cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)),
+        "population_prologue": (
+            profiled_ms(torch, lambda: F.population_prologue(*pop), "population_prologue",
+                        iters=50),
+            cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
+    }
+    if name == "live":
+        shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
+                  scan_args[0].shape[1], scan_args[12].shape[0])
+        cnt_b, rm_b, perm_b = scan_args[13:]
+        glob = lambda: F._launch_global((scan_args[0], cnt_b[0], *scan_args[1:13]), shapes,
+                                        (perm_b.shape[0], perm_b, cnt_b, rm_b))
+        # CUDA events: the profiler records no device time for this
+        # kernel's batched launches on the card (PERF.md §7)
+        out["ffd_scan_global_batched"] = (cuda_ms(torch, glob, iters=3, warmup=1),
+                                          out[f"{picked}_batched"][1])
+    keys = torch.randint(0, 2**30, (pop[5].shape[0], pop[3].shape[0]), dtype=torch.int32,
+                         device="cuda")
+    argsort_ms = cuda_ms(torch, lambda: torch.argsort(keys, dim=1, stable=True), iters=50)
+    return out, argsort_ms
+
+
+def batched_floor_ms(torch, name, base, B, barrier_us, l2_us) -> float:
+    """The batched scan's latency floor: class steps x (its barrier + 2 /
+    SCAN_TILE dependent L2 loads) x ceil(B / elements the card runs at
+    once)."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    K, R, S, C = pack_shapes(base.args)
+    G = base.args[0].shape[0]
+    at_once = F.scan_concurrency(K, R, S, C)
+    waves = -(-B // at_once)
+    _, loads = scan_step_model(VERDICT_SCAN[name], K)
+    ms = G * (barrier_us + loads * l2_us) * waves / 1e3
+    print(f"  {name} {VERDICT_SCAN[name]}_batched latency floor: {G} steps x ({barrier_us!r} us "
+          f"barrier + {loads} L2 x {l2_us!r} us) x {waves} waves ({B} elements, {at_once} at "
+          f"once) = {ms!r} ms")
+    return ms
+
+
+def verdict_phase(torch, card):
+    """Phase 6 as the module docstring lists it.  Returns the kernels-line
+    figures of its kernels."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    specs = verdict_specs()
+    for name, spec in specs.items():
+        print(f"  {name}: {len(spec['existing'])} live nodes, universe {len(spec['universe'])}, "
+              f"{len(spec['subsets'])} subsets, population {spec['population']}", flush=True)
+    F.reset_launches()
+    card_runs, per_problem = {}, {}
+    for name, spec in specs.items():
+        before = dict(F.LAUNCHES)
+        for objective in OBJECTIVES:
+            sched = TorchScheduler(spec["pools"], spec["inventory"], existing=spec["existing"],
+                                   device="cuda", objective=objective)
+            runs = [drive_verdicts(sched, spec)
+                    for _ in range(1 + (TIMED_VERDICTS if objective == "nodes" else 0))]
+            torch.cuda.synchronize()
+            card_runs[(name, objective)] = (sched, runs)
+        per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in VERDICT_KERNELS}
+    launches = dict(F.LAUNCHES)
+    print(f"  launches over the drive: {{{', '.join(f'{k!r}: {launches[k]}' for k in VERDICT_KERNELS)}}}"
+          f", per problem {per_problem}")
+    for name, got in per_problem.items():
+        for k in (f"{VERDICT_SCAN[name]}_batched", "verdict_rows", "population_prologue"):
+            if got[k] <= 0:
+                fail(f"{name}: {k} launched no time in the drive")
+        print(f"  {name}: the elements ran {VERDICT_SCAN[name]} (batched)")
+    if launches["ffd_scan_global_batched"]:
+        fail(f"ffd_scan_global_batched launched {launches['ffd_scan_global_batched']} times")
+    # the same calls through the plain versions on the CPU
+    for (name, objective), (sched, runs) in card_runs.items():
+        spec = specs[name]
+        cpu = TorchScheduler(spec["pools"], spec["inventory"], existing=spec["existing"],
+                             device="cpu", objective=objective)
+        want = drive_verdicts(cpu, spec)
+        for got in runs:
+            if got[0] != want[0] or [r[0] for r in got[1]] != [r[0] for r in want[1]] \
+                    or [r[1] for r in got[1]] != [r[1] for r in want[1]] or got[2] != want[2]:
+                fail(f"{name} {objective}: the card's verdicts differ from the CPU's")
+        removals, rounds, best = runs[0][:3]
+        verdicts = list(removals) + [v for _, vs in rounds for v in vs]
+        print(f"  {name} {objective}: {len(verdicts)} verdicts equal the CPU's "
+              f"({sum(v.fits for v in verdicts)} fit, "
+              f"{sum(v.replacement_price > 0 for v in verdicts)} with a replacement, "
+              f"needs_host {sum(v.needs_host for v in verdicts)}); plan best {best}")
+        if objective == "nodes":
+            for call in ("evaluate_removals", "evaluate_population"):
+                ms = [c[1] for run in runs[1:] for c in run[3] if c[0] == call]
+                last = [c[2] for c in runs[-1][3] if c[0] == call][-1]
+                print(f"  {name} {call}: p50_ms={statistics.median(ms)!r} min_ms={min(ms)!r} "
+                      f"max_ms={max(ms)!r} over {len(ms)} calls ({card}); last_phases_ms="
+                      + json.dumps({k: v * 1e3 for k, v in sorted(last.items())}))
+    # the kernels against their plain versions on the same card tensors
+    errs, timing = {}, {}
+    for name, spec in specs.items():
+        for objective in OBJECTIVES:
+            sched = card_runs[(name, objective)][0]
+            base, batch, masks = verdict_inputs(torch, sched, spec)
+            e, pop, pop_outs = compare_verdict_kernels(torch, name, base, batch, masks, objective)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            if objective == "nodes":
+                timing[name] = (base, pop, pop_outs)
+    # times, bounds and floors
+    threads = sorted({F.scan_threads(pack_shapes(t[0].args)[0]) for t in timing.values()})
+    K, R, S, C = pack_shapes(timing["live"][0].args)
+    ctas, _, _ = F.cluster_layout(K, R, S, C)
+    barrier_us, cluster_us, l2_us = probe_latencies(
+        torch, threads, [(ctas, F.scan_threads(-(-K // ctas)))])
+    figures = {}
+    for name, (base, pop, pop_outs) in timing.items():
+        t, argsort_ms = time_verdict_kernels(torch, name, pop, pop_outs)
+        scan_args, outs, tail = pop_outs
+        rows = F.verdict_rows(*outs, *tail)
+        b_scan = batched_scan_bound(torch, scan_args, outs)
+        bounds = {f"{VERDICT_SCAN[name]}_batched": b_scan,
+                  "verdict_rows": verdict_rows_bound(torch, outs, tail, rows),
+                  "population_prologue": prologue_bound(pop, scan_args[13:16])}
+        if name == "live":
+            bounds["ffd_scan_global_batched"] = b_scan
+        B = scan_args[15].shape[0]
+        Kb = pack_shapes(base.args)[0]
+        if VERDICT_SCAN[name] == "ffd_scan_cluster":
+            b_us = cluster_us[(ctas, F.scan_threads(-(-Kb // ctas)))]
+        else:
+            b_us = barrier_us[F.scan_threads(Kb)]
+        floor = batched_floor_ms(torch, name, base, B, b_us, l2_us)
+        for k, (dev_ms, plain_ms) in t.items():
+            print(f"  {name} {k}: kernel {dev_ms!r} ms device (profiler), plain {plain_ms!r} ms "
+                  f"(CUDA events), bound {bounds[k]} ({card})")
+            if ROW_PROBLEM[k] == name:
+                figures[k] = dict(ms=dev_ms, plain_ms=plain_ms, bound=bounds[k],
+                                  floor=floor if k == f"{VERDICT_SCAN[name]}_batched" else None,
+                                  argsort_ms=argsort_ms if k == "population_prologue" else None)
+        print(f"  {name} torch.argsort(stable=True) of [{pop[5].shape[0]}, {pop[3].shape[0]}] "
+              f"int32 keys: {argsort_ms!r} ms a call (CUDA events) beside population_prologue's "
+              f"{t['population_prologue'][0]!r} ms")
+    for k in VERDICT_KERNELS:
+        if k not in errs:
+            fail(f"phase 6 never compared {k}")
+    return {k: dict(figures[k], launches=launches[k], err=errs[k]) for k in VERDICT_KERNELS}
+
+
 def main(argv) -> int:
     """The run as the module docstring lists it."""
     through = parse_through(argv)
@@ -845,7 +1284,7 @@ def main(argv) -> int:
     for name, args in choose_cases.items():
         errs["choose_config"] = max(errs.get("choose_config", 0.0),
                                     compare_choose(torch, name, args))
-    for k in KERNELS:
+    for k in ("choose_config", *SCAN_KERNELS):
         if k not in errs:
             fail(f"phase 3 never ran {k}")
     phase_done(3, through)
@@ -866,7 +1305,8 @@ def main(argv) -> int:
           f"{kargs['config2_live'][8].shape[0]} slots: "
           f"{livet['ffd_scan_global'][0] / livet['ffd_scan_cluster'][0]!r}")
     bounds = {}
-    for k, name in ROW_PROBLEM.items():
+    for k in ("choose_config", *SCAN_KERNELS):
+        name = ROW_PROBLEM[k]
         take, _, node_cfg, _, _ = kouts[name]
         b = kernel_bounds(kargs[name], take, node_cfg)
         bounds[k] = b[k if k == "choose_config" else "ffd_scan"]  # one function, two scans
@@ -951,8 +1391,13 @@ def main(argv) -> int:
                   f"resident={sched.last_resident}): "
                   + (json.dumps(prof) if prof else "not measured: no device time seen"))
 
+    phase_done(5, through)
+
+    print(f"[verdicts] the consolidation verdicts on the card, {card}", flush=True)
+    verdicts = verdict_phase(torch, card)
+
     kernels = []
-    for k in KERNELS:
+    for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]
         kernels.append({
             "name": k,
@@ -968,6 +1413,24 @@ def main(argv) -> int:
             "bound_by": bounds[k]["bound_by"],
             "library_ms": None,
             "latency_floor_ms": floors[k],
+        })
+    for k in VERDICT_KERNELS:
+        v = verdicts[k]
+        kernels.append({
+            "name": k,
+            "problem": ROW_PROBLEM[k],
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": VERDICT_REPLACES[k],
+            "launches": v["launches"],
+            "max_abs_err": v["err"],
+            "ms": v["ms"],
+            "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound"]["bound_ms"],
+            "bound_by": v["bound"]["bound_by"],
+            "library_ms": None,
+            "latency_floor_ms": v["floor"],
+            **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

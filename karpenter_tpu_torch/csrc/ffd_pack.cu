@@ -24,6 +24,12 @@
 //   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
 //                           the output buffers (device memory), for slot
 //                           counts whose state does not fit a cluster.
+// Each scan takes a batch axis (struct Batch): B what-if problems over one
+// base, one block (resident, global: grid (1, B)) or one cluster (grid
+// (N, B)) per element, for the consolidation verdicts, whose last steps are
+// verdict_rows_kernel and population_prologue_kernel (see "The
+// consolidation verdicts" below).  The solve's scan is the one element B =
+// 1 with no descriptor.
 // Per class each scan computes per-slot capacity, an exclusive int32 prefix
 // over K, first-fit takes, an integer ceil-div window of new slots and the
 // state updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
@@ -150,6 +156,49 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
   return q;
+}
+
+// The batch axis of a what-if scan launch (the consolidation verdicts,
+// ops/fused_packer.py: ffd_scan_batch).  Element e scans the base class
+// rows perm[e][0..Gp) in that order, with the counts cnt[e][g] (in the
+// element's order) and the slots k with rm[e][k] set removed: their config
+// is -1 from the start, so they take nothing, and the survivors keep their
+// first-fit order.  The choice (c_star, new_ok, per) is the base's, read
+// through the base row: a class's choice depends on its own row and the
+// price ceiling alone.  All null: the solve's scan, one element, the base
+// rows in order.  perm is read where a class row or a feasibility row is
+// loaded, never per slot.
+struct Batch {
+  const int* perm;    // [B][Gp] base rows, or null
+  const int* cnt;     // [B][Gp] counts, or null (the base's cnt)
+  const uint8_t* rm;  // [B][K] removed slots, or null
+};
+
+// One element's view of the batch.
+struct Elem {
+  const int* perm;
+  const int* cnt;
+  const uint8_t* rm;
+  __device__ __forceinline__ int row(int g) const { return perm ? __ldg(perm + g) : g; }
+  __device__ __forceinline__ int cfg_in(const int* cfg0, int k) const {
+    return (rm && rm[k]) ? -1 : cfg0[k];
+  }
+};
+
+// Element e of a batched launch (every pointer of bt set), or, with
+// kBatched false, the solve's one element, whose null perm and rm the
+// compiler folds away: the solve's instance of each scan is the scan
+// without a batch axis.
+template <bool kBatched>
+__device__ __forceinline__ Elem elem_of(const Batch& bt, const int* cnt, int e,
+                                        int Gp, int K) {
+  Elem el{nullptr, cnt, nullptr};
+  if (kBatched) {
+    el.perm = bt.perm + (size_t)e * Gp;
+    el.cnt = bt.cnt + (size_t)e * Gp;
+    el.rm = bt.rm + (size_t)e * K;
+  }
+  return el;
 }
 
 // _per_node_cap: copies of `req` that fit in alloc_row - used_row
@@ -543,6 +592,7 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
   }
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -551,17 +601,25 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
     const int* __restrict__ per, const float* __restrict__ used0,
     const int* __restrict__ cfg0, const int* __restrict__ npods0,
     const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
-    int next0, int* __restrict__ take, int* __restrict__ leftover,
+    int next0, Batch bt, int* __restrict__ take, int* __restrict__ leftover,
     int* __restrict__ cfg, int* __restrict__ npods, float* __restrict__ used,
     int* __restrict__ sigcnt) {
   extern __shared__ float sreq[];  // [R]
   __shared__ unsigned sh[32];
   const int B = blockDim.x;
+  const int e = kBatched ? blockIdx.y : 0;  // batch element
+  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  cfg += (size_t)e * K;
+  npods += (size_t)e * K;
+  used += (size_t)e * K * R;
+  sigcnt += (size_t)e * S * K;
 
   // slot state starts from the prefill; slot k belongs to thread k % B in
   // every phase, so no barrier is needed between per-slot updates
   for (int k = threadIdx.x; k < K; k += B) {
-    cfg[k] = cfg0[k];
+    cfg[k] = el.cfg_in(cfg0, k);
     npods[k] = npods0[k];
     for (int r = 0; r < R; ++r) used[(size_t)k * R + r] = used0[(size_t)k * R + r];
     for (int s = 0; s < S; ++s) sigcnt[(size_t)s * K + k] = sig0[(size_t)s * K + k];
@@ -569,10 +627,11 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
 
   int nxt = next0;
   for (int g = 0; g < Gp; ++g) {
-    for (int r = threadIdx.x; r < R; r += B) sreq[r] = req[(size_t)g * R + r];
+    const int hr = el.row(g);  // the class's base row
+    for (int r = threadIdx.x; r < R; r += B) sreq[r] = req[(size_t)hr * R + r];
     __syncthreads();
-    const int n = cnt[g], mp = maxper[g], s = slot[g];
-    const uint8_t* feas_g = feas + (size_t)g * Cp;
+    const int n = el.cnt[g], mp = maxper[hr], s = slot[hr];
+    const uint8_t* feas_g = feas + (size_t)hr * Cp;
     int* take_g = take + (size_t)g * K;
     int* sig_s = sigcnt + (size_t)s * K;
 
@@ -599,10 +658,10 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
     const int n2 = wsub(n, (int)block_sum(t1_local, sh));
 
     // ---- open new slots on the precomputed best config ------------------
-    const int pg = per[g];
-    const int need = new_ok[g] ? floordiv(wadd(n2, pg - 1), pg) : 0;
+    const int pg = per[hr];
+    const int need = new_ok[hr] ? floordiv(wadd(n2, pg - 1), pg) : 0;
     const int opened = min(need, K - nxt);
-    const int cs = c_star[g];
+    const int cs = c_star[hr];
     unsigned t2_local = 0u;
     for (int k = threadIdx.x; k < K; k += B) {
       const bool win = k >= nxt && k < nxt + opened;
@@ -692,10 +751,10 @@ __device__ __forceinline__ unsigned block_sum_once(unsigned v, unsigned* sh) {
   return warp_sum(lane < (int)(blockDim.x >> 5) ? sh[lane] : 0u);
 }
 
-// Class h's feasibility row into its ring slot, in `chunk`-byte copies.
-__device__ __forceinline__ void issue_feas(int h, unsigned char* dst, int chunk,
+// Base row hr's feasibility row into a ring slot, in `chunk`-byte copies.
+__device__ __forceinline__ void issue_feas(int hr, unsigned char* dst, int chunk,
                                            const uint8_t* feas, int Cp) {
-  const uint8_t* row = feas + (size_t)h * Cp;
+  const uint8_t* row = feas + (size_t)hr * Cp;
   for (int i = threadIdx.x * chunk; i < Cp; i += blockDim.x * chunk)
     cp_async(dst + i, row + i, chunk);
 }
@@ -705,9 +764,11 @@ __device__ __forceinline__ void issue_feas(int h, unsigned char* dst, int chunk,
 // then cnt, maxper, slot, c_star, new_ok, per, and a word of flags: bit r
 // set where req[r] > 0, kFinite where every req[r] is finite.  Plain
 // loads: the tile is used kTile steps later, so only its own load waits.
+// Class h of the element is its base row el.row(h); its count is
+// el.cnt[h].
 __device__ __forceinline__ void load_tile(
-    int h0, int* tile, int Gp, int Cp, int R, const float* req,
-    const float* alloc, const int* cnt, const int* maxper, const int* slot,
+    int h0, int* tile, int Gp, int Cp, int R, const Elem& el, const float* req,
+    const float* alloc, const int* maxper, const int* slot,
     const int* c_star, const int* new_ok, const int* per) {
   const int W = 2 * R + 7;
 #pragma unroll 4
@@ -715,24 +776,25 @@ __device__ __forceinline__ void load_tile(
     const int h = h0 + i / W, f = i % W;
     int v = 0;
     if (h < Gp) {
+      const int hr = el.row(h);
       if (f < R) {
-        v = __float_as_int(req[(size_t)h * R + f]);
+        v = __float_as_int(req[(size_t)hr * R + f]);
       } else if (f < 2 * R) {
-        const int cs = c_star[h];
+        const int cs = c_star[hr];
         if (cs >= 0 && cs < Cp)  // else it never opens a node
           v = __float_as_int(alloc[(size_t)cs * R + (f - R)]);
       } else {
         switch (f - 2 * R) {
-          case 0: v = cnt[h]; break;
-          case 1: v = maxper[h]; break;
-          case 2: v = slot[h]; break;
-          case 3: v = c_star[h]; break;
-          case 4: v = new_ok[h]; break;
-          case 5: v = per[h]; break;
+          case 0: v = el.cnt[h]; break;
+          case 1: v = maxper[hr]; break;
+          case 2: v = slot[hr]; break;
+          case 3: v = c_star[hr]; break;
+          case 4: v = new_ok[hr]; break;
+          case 5: v = per[hr]; break;
           default: {
             unsigned flags = kFinite;
             for (int r = 0; r < R; ++r) {
-              const float q = req[(size_t)h * R + r];
+              const float q = req[(size_t)hr * R + r];
               if (q > 0.0f) flags |= 1u << r;
               if (!isfinite(q)) flags &= ~kFinite;
             }
@@ -756,7 +818,7 @@ __device__ __forceinline__ void flush_leftover(const unsigned* part, int n2,
   }
 }
 
-template <int M>  // consecutive slots each thread owns
+template <int M, bool kBatched>  // consecutive slots each thread owns; batch axis
 __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -765,13 +827,20 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     const int* __restrict__ per, const float* __restrict__ used0,
     const int* __restrict__ cfg0, const int* __restrict__ npods0,
     const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
-    int next0, int smem_bytes, int chunk, int* __restrict__ take,
+    int next0, int smem_bytes, int chunk, Batch bt, int* __restrict__ take,
     int* __restrict__ leftover, int* __restrict__ cfg_out,
     int* __restrict__ npods_out, float* __restrict__ used_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // slot i of thread t sits at i * B + t
+  const int e = kBatched ? blockIdx.y : 0;  // batch element
+  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  cfg_out += (size_t)e * K;
+  npods_out += (size_t)e * K;
+  used_out += (size_t)e * K * R;
 
   // ring | class tiles | exchanges | slot state; each state array is
   // [R or S][KP]
@@ -797,7 +866,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   for (int i = 0; i < M; ++i) {
     const int pos = i * B + tid, k = tid * M + i;
     const bool real = k < K;
-    const int c = real ? cfg0[k] : -1;
+    const int c = real ? el.cfg_in(cfg0, k) : -1;
     s_cfg[pos] = c;
     s_npods[pos] = real ? npods0[k] : 0;
     for (int r = 0; r < R; ++r) {
@@ -819,10 +888,13 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
 
   // ---- classes 0 .. kRing-2 in flight and the first tile, before step 0 ---
   for (int h = 0; h < kRing - 1; ++h) {
-    if (h < Gp) issue_feas(h, ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
     cp_async_commit();
   }
-  load_tile(0, tiles, Gp, Cp, R, req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  // the base row of the class whose feasibility row the next step issues,
+  // loaded a step ahead of its use
+  int ring_row = kBatched && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
   cp_async_wait<kRing - 2>();
   __syncthreads();
 
@@ -870,8 +942,9 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     if (lane == 31) xtot[p * 32 + warp] = incl;
     {  // class g+kRing-1's row into the slot class g-1 left: every read of
        // it was before the previous step's barrier
-      const int h = g + kRing - 1;
-      if (h < Gp) issue_feas(h, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      const int h = g + kRing - 1, hr = kBatched ? ring_row : h;
+      if (kBatched && h + 1 < Gp) ring_row = el.row(h + 1);
+      if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
       cp_async_commit();
     }
     cp_async_wait<kRing - 2>();  // class g+1's row has landed
@@ -885,7 +958,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     }
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
       load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
-                req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+                el, req, alloc, maxper, slot, c_star, new_ok, per);
 
     // ---- this warp's offset and the block total from the warp totals ------
     unsigned w = lane < nw ? xtot[p * 32 + lane] : 0u;
@@ -980,25 +1053,25 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   }
 }
 
-template <int M>
+template <int M, bool kBatched>
 int launch_resident(const float* req, const int* cnt, const int* maxper,
                     const int* slot, const uint8_t* feas, const float* alloc,
                     const int* c_star, const int* new_ok, const int* per,
                     const float* used0, const int* cfg0, const int* npods0,
                     const int* sig0, int Gp, int Cp, int K, int R, int S,
                     int next0, int threads, int smem_bytes, int chunk,
-                    int* take, int* leftover, int* cfg, int* npods,
-                    float* used, cudaStream_t stream) {
+                    int nb, Batch bt, int* take, int* leftover, int* cfg,
+                    int* npods, float* used, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      ffd_scan_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      ffd_scan_kernel<M, kBatched>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return (int)e;
   }
-  ffd_scan_kernel<M><<<1, threads, smem_bytes, stream>>>(
+  ffd_scan_kernel<M, kBatched><<<dim3(1, nb), threads, smem_bytes, stream>>>(
       req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
-      npods0, sig0, Gp, Cp, K, R, S, next0, smem_bytes, chunk, take, leftover,
-      cfg, npods, used);
+      npods0, sig0, Gp, Cp, K, R, S, next0, smem_bytes, chunk, bt, take,
+      leftover, cfg, npods, used);
   return (int)cudaGetLastError();
 }
 
@@ -1100,7 +1173,7 @@ __device__ __forceinline__ unsigned warp_sum_of(const unsigned* part, int count)
   return warp_sum(v);
 }
 
-template <int M>  // consecutive slots each thread owns
+template <int M, bool kBatched>  // consecutive slots each thread owns; batch axis
 __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -1109,7 +1182,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     const int* __restrict__ per, const float* __restrict__ used0,
     const int* __restrict__ cfg0, const int* __restrict__ npods0,
     const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
-    int next0, int ctas, int smem_bytes, int chunk, int wrap_guard,
+    int next0, int ctas, int smem_bytes, int chunk, int wrap_guard, Batch bt,
     int* __restrict__ take, int* __restrict__ leftover,
     int* __restrict__ cfg_out, int* __restrict__ npods_out,
     float* __restrict__ used_out) {
@@ -1117,6 +1190,13 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
+  const int e = kBatched ? blockIdx.y : 0;  // batch element: the cluster's grid row
+  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  cfg_out += (size_t)e * K;
+  npods_out += (size_t)e * K;
+  used_out += (size_t)e * K * R;
   const int rank = (int)cluster_ctarank();
   const int k0 = rank * KP;        // this CTA's first slot
   const int XN = ctas * 32;        // exchange entries of one parity
@@ -1148,7 +1228,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   for (int i = 0; i < M; ++i) {
     const int pos = i * B + tid, k = k0 + tid * M + i;
     const bool real = k < K;
-    const int c = real ? cfg0[k] : -1;
+    const int c = real ? el.cfg_in(cfg0, k) : -1;
     s_cfg[pos] = c;
     s_npods[pos] = real ? npods0[k] : 0;
     for (int r = 0; r < R; ++r) {
@@ -1168,10 +1248,13 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   const bool used_clean = !__syncthreads_or(odd);
 
   for (int h = 0; h < kRing - 1; ++h) {
-    if (h < Gp) issue_feas(h, ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
     cp_async_commit();
   }
-  load_tile(0, tiles, Gp, Cp, R, req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  // the base row of the class whose feasibility row the next step issues,
+  // loaded a step ahead of its use
+  int ring_row = kBatched && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
   cp_async_wait<kRing - 2>();
   cluster_sync();  // every CTA runs before the first DSMEM store
 
@@ -1225,8 +1308,9 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     cluster_arrive();
     {  // class g+kRing-1's row into the slot class g-1 left: every read of
        // it was before the previous step's barrier
-      const int h = g + kRing - 1;
-      if (h < Gp) issue_feas(h, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      const int h = g + kRing - 1, hr = kBatched ? ring_row : h;
+      if (kBatched && h + 1 < Gp) ring_row = el.row(h + 1);
+      if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
       cp_async_commit();
     }
     cluster_wait();
@@ -1240,7 +1324,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     }
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
       load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
-                req, alloc, cnt, maxper, slot, c_star, new_ok, per);
+                el, req, alloc, maxper, slot, c_star, new_ok, per);
 
     // ---- this warp's base, the cluster total and the wrap flag ------------
     unsigned below = 0u, sum = 0u, anyw = 0u;
@@ -1343,16 +1427,16 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
 // (cudaOccupancyMaxActiveClusters gives 0).
 constexpr int kClusterRefused = -2;
 
-template <int M>
+template <int M, bool kBatched>
 int launch_cluster(const float* req, const int* cnt, const int* maxper,
                    const int* slot, const uint8_t* feas, const float* alloc,
                    const int* c_star, const int* new_ok, const int* per,
                    const float* used0, const int* cfg0, const int* npods0,
                    const int* sig0, int Gp, int Cp, int K, int R, int S,
                    int next0, int ctas, int threads, int smem_bytes, int chunk,
-                   int wrap_guard, int* take, int* leftover, int* cfg,
-                   int* npods, float* used, cudaStream_t stream) {
-  const auto kernel = ffd_scan_cluster_kernel<M>;
+                   int wrap_guard, int nb, Batch bt, int* take, int* leftover,
+                   int* cfg, int* npods, float* used, cudaStream_t stream) {
+  const auto kernel = ffd_scan_cluster_kernel<M, kBatched>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) {
@@ -1365,7 +1449,7 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(ctas, 1, 1);
+  config.gridDim = dim3(ctas, nb, 1);  // one cluster per element
   config.blockDim = dim3(threads, 1, 1);
   config.dynamicSmemBytes = smem_bytes;
   config.stream = stream;
@@ -1381,12 +1465,274 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
   e = cudaLaunchKernelEx(&config, kernel, req, cnt, maxper, slot, feas, alloc,
                          c_star, new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,
                          K, R, S, next0, ctas, smem_bytes, chunk, wrap_guard,
-                         take, leftover, cfg, npods, used);
+                         bt, take, leftover, cfg, npods, used);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The consolidation verdicts
+// ---------------------------------------------------------------------------
+//
+// The JAX package answers B what-if removals with two jitted XLA functions,
+// removal_verdict_kernel and population_verdict_kernel
+// (karpenter_tpu/ops/packer.py), each _pack_core vmapped over B problems
+// plus a per-element epilogue, _verdict_row.  Here the B scans are one
+// launch of the scans above with the batch axis (Batch), and two kernels
+// do the rest:
+//   verdict_rows_kernel         grid (B,): one block per element reads its
+//                               scan outputs and writes the six-value
+//                               verdict row;
+//   population_prologue_kernel  grid (P,): one block per removal mask
+//                               derives its counts, removed slots and FFD
+//                               class order, the batched scan's inputs.
+// Both are small next to the scans: what bounds them is the latency of a
+// few dependent passes of one block, so each keeps its passes few and its
+// reads coalesced (threads over slots, classes or configs, consecutive
+// threads on consecutive addresses).
+
+constexpr int kVerdictThreads = 256;
+constexpr int kVerdictWarps = kVerdictThreads / 32;
+constexpr float kFitSlack = 1e-6f;  // `used <= alloc + 1e-6`
+constexpr int kVerdictWidth = 6;    // ops/packer.py: RV_WIDTH
+
+// (s, i) goes before (bs, bi) in a first-index argmin.
+__device__ __forceinline__ bool argmin_before(float s, int i, float bs, int bi) {
+  return s < bs || (s == bs && i < bi);
+}
+
+// Dynamic shared memory of one verdict block: new_load [R] and the first
+// new slot's usage [R] floats, the element's base rows [Gp], the new-slot
+// bit mask [ceil(K / 32)], then two flag bytes a class.
+__host__ __device__ inline size_t verdict_smem(int Gp, int K, int R) {
+  return (size_t)4 * (2 * R + Gp + (K + 31) / 32) + (size_t)2 * Gp;
+}
+
+// _verdict_row's epilogue over element e's scan outputs (the batched
+// layout of ffd_scan_batch).  Pass 1: the leftover sum.  Pass 2, threads
+// over the slots [next0, K): the new slots (node_pods > 0; newmask is false
+// below next0), their count, the first (k_star, else 0: argmax of an
+// all-false mask), the non-donors, and per class whether it sits on some
+// new slot.  Pass 3: per class whether it sits on k_star; per axis
+// k_star's usage and new_load, summed in ascending slot order over the bit
+// mask of new slots.  Pass 4, threads over the configs: the masked price's
+// first-index argmin and `hold`.  All counts int32, the row float32 as
+// JAX's.
+__global__ void __launch_bounds__(kVerdictThreads) verdict_rows_kernel(
+    const int* __restrict__ take, const int* __restrict__ leftover,
+    const int* __restrict__ node_cfg, const int* __restrict__ node_pods,
+    const float* __restrict__ node_used, const int* __restrict__ perm_b,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const float* __restrict__ price, const uint8_t* __restrict__ openable,
+    const int* __restrict__ pool_id, const int* __restrict__ zone_id,
+    const int* __restrict__ ct_id, const uint8_t* __restrict__ compactable,
+    int Gp, int Cp, int K, int R, int next0, float* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char vsm[];
+  __shared__ unsigned s_sum[3][kVerdictWarps];  // leftover, new slots, non-donors
+  __shared__ int s_first[kVerdictWarps];
+  __shared__ float s_best[kVerdictWarps];
+  __shared__ int s_bidx[kVerdictWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e = blockIdx.x;
+  const int nwords = (K + 31) >> 5;
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  node_cfg += (size_t)e * K;
+  node_pods += (size_t)e * K;
+  node_used += (size_t)e * K * R;
+  perm_b += (size_t)e * Gp;
+  float* s_load = (float*)vsm;                     // [R]
+  float* s_usedk = s_load + R;                     // [R]
+  int* s_perm = (int*)(s_usedk + R);               // [Gp]
+  unsigned* s_new = (unsigned*)(s_perm + Gp);      // [nwords]
+  uint8_t* s_onnew = (uint8_t*)(s_new + nwords);   // [Gp]
+  uint8_t* s_onany = s_onnew + Gp;                 // [Gp]
+
+  // ---- 1. the leftover sum (wrapping, as int32); flags cleared ------------
+  unsigned lsum = 0u;
+  for (int g = tid; g < Gp; g += kVerdictThreads) {
+    lsum += (unsigned)leftover[g];
+    s_perm[g] = perm_b[g];
+    s_onany[g] = 0;
+  }
+  for (int w = tid; w < nwords; w += kVerdictThreads) s_new[w] = 0u;
+  __syncthreads();
+
+  // ---- 2. the new slots ----------------------------------------------------
+  unsigned cnt = 0u, nondonor = 0u;
+  int first = 0x7fffffff;
+  for (int k = next0 + tid; k < K; k += kVerdictThreads) {
+    const int pods = node_pods[k];
+    if (pods > 0) {
+      ++cnt;
+      first = min(first, k);
+      atomicOr(s_new + (k >> 5), 1u << (k & 31));
+      bool bad = false;  // a class on it that compaction cannot move
+      for (int g = 0; g < Gp; ++g)
+        if (take[(size_t)g * K + k] > 0) {
+          s_onany[g] = 1;
+          bad |= compactable[s_perm[g]] == 0;
+        }
+      nondonor += (pods > 8 || bad) ? 1u : 0u;
+    }
+  }
+  lsum = warp_sum(lsum);
+  cnt = warp_sum(cnt);
+  nondonor = warp_sum(nondonor);
+  for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
+  if (lane == 0) {
+    s_sum[0][warp] = lsum;
+    s_sum[1][warp] = cnt;
+    s_sum[2][warp] = nondonor;
+    s_first[warp] = first;
+  }
+  __syncthreads();
+  unsigned lo_units = 0u, new_count = 0u, non_donors = 0u;
+  first = 0x7fffffff;
+  for (int w = 0; w < kVerdictWarps; ++w) {
+    lo_units += s_sum[0][w];
+    new_count += s_sum[1][w];
+    non_donors += s_sum[2][w];
+    first = min(first, s_first[w]);
+  }
+  const int k_star = first == 0x7fffffff ? 0 : first;
+  const int cs = max(node_cfg[k_star], 0);
+
+  // ---- 3. the classes on k_star, its usage, the new slots' load -----------
+  for (int g = tid; g < Gp; g += kVerdictThreads)
+    s_onnew[g] = take[(size_t)g * K + k_star] > 0;
+  for (int r = tid; r < R; r += kVerdictThreads) {
+    s_usedk[r] = node_used[(size_t)k_star * R + r];
+    float acc = 0.0f;
+    for (int w = next0 >> 5; w < nwords; ++w)
+      for (unsigned bits = s_new[w]; bits; bits &= bits - 1u) {
+        const int k = w * 32 + __ffs(bits) - 1;
+        acc = __fadd_rn(acc, node_used[(size_t)k * R + r]);
+      }
+    s_load[r] = acc;
+  }
+  __syncthreads();
+
+  // ---- 4. the configs --------------------------------------------------------
+  const int pc = pool_id[cs], zc = zone_id[cs], tc = ct_id[cs];
+  float best = INFINITY;
+  int bidx = 0x7fffffff;
+  bool hold = false;
+  for (int c = tid; c < Cp; c += kVerdictThreads) {
+    const bool op = openable[c] != 0;
+    bool class_feas = true, all_new_feas = true;
+    for (int g = 0; g < Gp; ++g) {
+      const bool on = s_onnew[g] != 0, any = s_onany[g] != 0;
+      if (on || any) {
+        const bool f = feas[(size_t)s_perm[g] * Cp + c] != 0;
+        class_feas &= !on || f;
+        all_new_feas &= !any || f;
+      }
+    }
+    bool fits_used = true, holds = true;
+    for (int r = 0; r < R; ++r) {
+      const float a = __fadd_rn(alloc[(size_t)c * R + r], kFitSlack);
+      fits_used &= s_usedk[r] <= a;
+      holds &= s_load[r] <= a;
+    }
+    const bool same = pool_id[c] == pc && zone_id[c] == zc && ct_id[c] == tc;
+    const float masked = (op && class_feas && fits_used && same) ? price[c] : INFINITY;
+    if (argmin_before(masked, c, best, bidx)) {
+      best = masked;
+      bidx = c;
+    }
+    hold |= holds && op && all_new_feas;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float os = __shfl_xor_sync(kFull, best, o);
+    const int oi = __shfl_xor_sync(kFull, bidx, o);
+    if (argmin_before(os, oi, best, bidx)) {
+      best = os;
+      bidx = oi;
+    }
+  }
+  if (lane == 0) {
+    s_best[warp] = best;
+    s_bidx[warp] = bidx;
+  }
+  const bool any_hold = __syncthreads_or(hold) != 0;
+  if (tid == 0) {
+    for (int w = 0; w < kVerdictWarps; ++w)
+      if (argmin_before(s_best[w], s_bidx[w], best, bidx)) {
+        best = s_best[w];
+        bidx = s_bidx[w];
+      }
+    float* row = rows + (size_t)e * kVerdictWidth;
+    row[0] = (float)(int)lo_units;
+    row[1] = (float)(int)new_count;
+    row[2] = (float)bidx;
+    row[3] = best;  // the masked price at bidx: +inf where every one is
+    row[4] = (float)cs;
+    row[5] = ((int)new_count >= 2 && (int)non_donors <= 1 && any_hold) ? 1.0f : 0.0f;
+  }
+}
+
+constexpr int kPrologueThreads = 256;
+constexpr int kPopKeyAbsent = 1 << 30;  // ops/packer.py: POP_KEY_ABSENT
+constexpr int kPopOccAbsent = 1 << 29;  // ops/packer.py: POP_OCC_ABSENT
+
+// population_verdict_kernel's per-member prologue for member p: cnt[g] =
+// the int32 sum of cand_cnt[j][g] over the selected candidates j, occ[g]
+// their first occurrence (min of cand_occ), key[g] = sort_rank[g] *
+// occ_span + occ[g] where cnt[g] > 0, else POP_KEY_ABSENT; rm = the
+// selected candidates' live slots (those past K dropped); then a stable
+// sort of the keys by rank -- (key, index) pairs are distinct, so rank(g)
+// is the count of pairs before g's -- gives perm[rank(g)] = g and the
+// counts in that order.
+__global__ void __launch_bounds__(kPrologueThreads) population_prologue_kernel(
+    const int* __restrict__ cand_cnt, const int* __restrict__ cand_slot,
+    const int* __restrict__ cand_occ, const int* __restrict__ sort_rank,
+    const uint8_t* __restrict__ masks, int U, int Gp, int K, int occ_span,
+    int* __restrict__ cnt_b, uint8_t* __restrict__ rm_b, int* __restrict__ perm_b) {
+  extern __shared__ int psm[];  // key [Gp], cnt [Gp]
+  int* s_key = psm;
+  int* s_cnt = psm + Gp;
+  const int p = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* sel = masks + (size_t)p * U;
+  uint8_t* rm = rm_b + (size_t)p * K;
+  for (int g = tid; g < Gp; g += kPrologueThreads) {
+    unsigned c = 0u;
+    int occ = kPopOccAbsent;
+    for (int j = 0; j < U; ++j)
+      if (sel[j]) {
+        c += (unsigned)cand_cnt[(size_t)j * Gp + g];
+        occ = min(occ, cand_occ[(size_t)j * Gp + g]);
+      }
+    s_cnt[g] = (int)c;
+    s_key[g] = (int)c > 0 ? wadd(wmul(sort_rank[g], occ_span), occ) : kPopKeyAbsent;
+  }
+  for (int k = tid; k < K; k += kPrologueThreads) rm[k] = 0;
+  __syncthreads();  // the zeros land before any slot is set
+  for (int j = tid; j < U; j += kPrologueThreads) {
+    const int k = cand_slot[j];
+    if (sel[j] && k >= 0 && k < K) rm[k] = 1;
+  }
+  for (int g = tid; g < Gp; g += kPrologueThreads) {
+    const int kg = s_key[g];
+    int rank = 0;
+    for (int h = 0; h < Gp; ++h) {
+      const int kh = s_key[h];
+      rank += (kh < kg || (kh == kg && h < g)) ? 1 : 0;
+    }
+    perm_b[(size_t)p * Gp + rank] = g;
+    cnt_b[(size_t)p * Gp + rank] = s_cnt[g];
+  }
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
@@ -1416,19 +1762,34 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
   return (int)cudaGetLastError();
 }
 
+// The batch descriptor of every scan: `nb` elements (1 to 65,535) and
+// perm_b / cnt_b [nb][Gp], rm_b [nb][K], all null for the solve's scan
+// (nb 1); each output (and the global scan's sigcnt) holds nb elements'
+// worth, element after element.
 int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
                     const int* slot, const uint8_t* feas, const float* alloc,
                     const int* c_star, const int* new_ok, const int* per,
                     const float* used0, const int* cfg0, const int* npods0,
                     const int* sig0, int Gp, int Cp, int K, int R, int S,
-                    int next0, int* take, int* leftover, int* cfg,
+                    int next0, int nb, const int* perm_b, const int* cnt_b,
+                    const uint8_t* rm_b, int* take, int* leftover, int* cfg,
                     int* npods, float* used, int* sigcnt, void* stream) {
   if (K <= 0) return 0;
-  ffd_scan_global_kernel<<<1, scan_threads(K), R * sizeof(float),
-                           (cudaStream_t)stream>>>(
-      req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
-      npods0, sig0, Gp, Cp, K, R, S, next0, take, leftover, cfg, npods, used,
-      sigcnt);
+  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
+    return (int)cudaErrorInvalidValue;
+  const Batch bt{perm_b, cnt_b, rm_b};
+  const dim3 grid(1, nb);
+  const auto st = (cudaStream_t)stream;
+  if (perm_b)
+    ffd_scan_global_kernel<true><<<grid, scan_threads(K), R * sizeof(float), st>>>(
+        req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
+        npods0, sig0, Gp, Cp, K, R, S, next0, bt, take, leftover, cfg, npods, used,
+        sigcnt);
+  else
+    ffd_scan_global_kernel<false><<<grid, scan_threads(K), R * sizeof(float), st>>>(
+        req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
+        npods0, sig0, Gp, Cp, K, R, S, next0, bt, take, leftover, cfg, npods, used,
+        sigcnt);
   return (int)cudaGetLastError();
 }
 
@@ -1443,21 +1804,26 @@ int ffd_scan(const float* req, const int* cnt, const int* maxper,
              const int* c_star, const int* new_ok, const int* per,
              const float* used0, const int* cfg0, const int* npods0,
              const int* sig0, int Gp, int Cp, int K, int R, int S, int next0,
-             int slots_per_thread, int smem_bytes, int chunk, int* take,
-             int* leftover, int* cfg, int* npods, float* used, void* stream) {
+             int slots_per_thread, int smem_bytes, int chunk, int nb,
+             const int* perm_b, const int* cnt_b, const uint8_t* rm_b,
+             int* take, int* leftover, int* cfg, int* npods, float* used,
+             void* stream) {
   if (K <= 0) return 0;
   const int threads = scan_threads(K);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
-      R > kMaxR || (long long)slots_per_thread * threads < K)
+      R > kMaxR || (long long)slots_per_thread * threads < K || nb < 1 ||
+      nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
     return (int)cudaErrorInvalidValue;
-#define FFD_LAUNCH(M)                                                        \
-  launch_resident<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok,    \
-                     per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, \
-                     threads, smem_bytes, chunk, take, leftover, cfg, npods, \
-                     used, (cudaStream_t)stream)
+  const Batch bt{perm_b, cnt_b, rm_b};
+#define FFD_LAUNCH(M, BATCHED)                                               \
+  launch_resident<M, BATCHED>(req, cnt, maxper, slot, feas, alloc, c_star,   \
+                              new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,\
+                              K, R, S, next0, threads, smem_bytes, chunk, nb,\
+                              bt, take, leftover, cfg, npods, used,          \
+                              (cudaStream_t)stream)
   switch (slots_per_thread) {
-    case 1: return FFD_LAUNCH(1);
-    case 2: return FFD_LAUNCH(2);
+    case 1: return perm_b ? FFD_LAUNCH(1, true) : FFD_LAUNCH(1, false);
+    case 2: return perm_b ? FFD_LAUNCH(2, true) : FFD_LAUNCH(2, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FFD_LAUNCH
@@ -1475,27 +1841,126 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
                      const float* used0, const int* cfg0, const int* npods0,
                      const int* sig0, int Gp, int Cp, int K, int R, int S,
                      int next0, int ctas, int slots_per_thread, int smem_bytes,
-                     int chunk, int wrap_guard, int* take, int* leftover,
-                     int* cfg, int* npods, float* used, void* stream) {
+                     int chunk, int wrap_guard, int nb, const int* perm_b,
+                     const int* cnt_b, const uint8_t* rm_b, int* take,
+                     int* leftover, int* cfg, int* npods, float* used,
+                     void* stream) {
   if (K <= 0) return 0;
   if (ctas != 2 && ctas != 4 && ctas != 8) return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
+    return (int)cudaErrorInvalidValue;
+  const Batch bt{perm_b, cnt_b, rm_b};
   const int threads = scan_threads((K + ctas - 1) / ctas);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
       R > kMaxR || wrap_guard < 1 ||
       (long long)wrap_guard - 1 > (long long)0x7fffffff / K ||
       (long long)ctas * slots_per_thread * threads < K)
     return (int)cudaErrorInvalidValue;
-#define FFD_LAUNCH(M)                                                          \
-  launch_cluster<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,  \
-                    used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, ctas,   \
-                    threads, smem_bytes, chunk, wrap_guard, take, leftover,    \
-                    cfg, npods, used, (cudaStream_t)stream)
+#define FFD_LAUNCH(M, BATCHED)                                                 \
+  launch_cluster<M, BATCHED>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, \
+                             per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S,    \
+                             next0, ctas, threads, smem_bytes, chunk, wrap_guard,\
+                             nb, bt, take, leftover, cfg, npods, used,           \
+                             (cudaStream_t)stream)
   switch (slots_per_thread) {
-    case 1: return FFD_LAUNCH(1);
-    case 2: return FFD_LAUNCH(2);
+    case 1: return perm_b ? FFD_LAUNCH(1, true) : FFD_LAUNCH(1, false);
+    case 2: return perm_b ? FFD_LAUNCH(2, true) : FFD_LAUNCH(2, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FFD_LAUNCH
+}
+
+// How many elements of a batched scan (the kBatched instances) run on the
+// card at once: kind 0 the
+// resident scan (blocks of `threads` with `smem_bytes`, M slots a thread),
+// 1 the cluster scan (clusters of `ctas`), 2 the global scan; negative on
+// a CUDA error.
+int ffd_scan_concurrency(int kind, int M, int ctas, int threads, int smem_bytes) {
+  int dev = 0, sms = 0, n = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (kind == 0 || kind == 2) {
+    if (kind == 0)
+      e = M == 1 ? allow_smem(ffd_scan_kernel<1, true>, smem_bytes)
+                 : allow_smem(ffd_scan_kernel<2, true>, smem_bytes);
+    if (e == cudaSuccess)
+      e = kind == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          &n, ffd_scan_global_kernel<true>, threads, smem_bytes)
+          : M == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &n, ffd_scan_kernel<1, true>, threads, smem_bytes)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &n, ffd_scan_kernel<2, true>, threads, smem_bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)e;
+    }
+    return n * sms;
+  }
+  const auto kernel =
+      M == 1 ? ffd_scan_cluster_kernel<1, true> : ffd_scan_cluster_kernel<2, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem_bytes;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &config);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return n;
+}
+
+// The verdict rows of a batched scan's B elements: `rows` [B][6].
+int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
+                     const int* node_pods, const float* node_used,
+                     const int* perm_b, const uint8_t* feas, const float* alloc,
+                     const float* price, const uint8_t* openable,
+                     const int* pool_id, const int* zone_id, const int* ct_id,
+                     const uint8_t* compactable, int B, int Gp, int Cp, int K,
+                     int R, int next0, float* rows, void* stream) {
+  if (B <= 0) return 0;
+  if (Gp < 0 || Cp <= 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = verdict_smem(Gp, K, R);
+  const cudaError_t e = allow_smem(verdict_rows_kernel, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  verdict_rows_kernel<<<B, kVerdictThreads, smem, (cudaStream_t)stream>>>(
+      take, leftover, node_cfg, node_pods, node_used, perm_b, feas, alloc, price,
+      openable, pool_id, zone_id, ct_id, compactable, Gp, Cp, K, R, next0, rows);
+  return (int)cudaGetLastError();
+}
+
+// The population prologue of P removal masks over U candidates: cnt_b
+// [P][Gp], rm_b [P][K], perm_b [P][Gp].
+int ffd_population_prologue(const int* cand_cnt, const int* cand_slot,
+                            const int* cand_occ, const int* sort_rank,
+                            const uint8_t* masks, int P, int U, int Gp, int K,
+                            int occ_span, int* cnt_b, uint8_t* rm_b,
+                            int* perm_b, void* stream) {
+  if (P <= 0) return 0;
+  if (U < 0 || Gp < 0 || K <= 0 || occ_span < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)8 * Gp;
+  const cudaError_t e = allow_smem(population_prologue_kernel, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  population_prologue_kernel<<<P, kPrologueThreads, smem, (cudaStream_t)stream>>>(
+      cand_cnt, cand_slot, cand_occ, sort_rank, masks, U, Gp, K, occ_span, cnt_b,
+      rm_b, perm_b);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -15,6 +15,14 @@ pack is two launches:
   does not fit a cluster either, as `ffd_scan_global`, with the state in
   device memory.
 
+The consolidation verdicts (the JAX package's ``removal_verdict_kernel``
+and ``population_verdict_kernel``, jitted XLA functions) reuse the scans
+with a batch axis, `ffd_scan_batch`: B what-if problems over one base, one
+block or one cluster per element.  Two more kernels finish them:
+`verdict_rows` (each element's six-value verdict) and
+`population_prologue` (each removal mask's counts, removed slots and class
+order).
+
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
 launches the kernel or raises, never falls back.  `LAUNCHES` counts the
@@ -31,13 +39,21 @@ import torch
 
 from karpenter_tpu_torch.ops import _build
 from karpenter_tpu_torch.ops.packer import (
+    RV_WIDTH,
     choose_config_reference,
+    ffd_scan_batch_reference,
     ffd_scan_reference,
+    population_prologue_reference,
+    verdict_rows_reference,
 )
 
-# kernel name -> launches since the last reset (plain integers)
+# kernel name -> launches since the last reset (plain integers).  A scan
+# launched with a batch axis (`ffd_scan_batch`) counts under its kernel's
+# name with "_batched": the solve's counts stay the solve's.
 LAUNCHES: Dict[str, int] = {
     "choose_config": 0, "ffd_scan": 0, "ffd_scan_cluster": 0, "ffd_scan_global": 0,
+    "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
+    "verdict_rows": 0, "population_prologue": 0,
 }
 
 # the resident scan's shared memory and axes (kRing, kTile, kXchgBytes and
@@ -70,12 +86,19 @@ def _lib() -> ctypes.CDLL:
     if lib.ffd_scan.argtypes is None:
         lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_P]
         lib.ffd_choose_config.restype = _I
-        lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + [_P] * 5 + [_P]
+        batch = [_I] + [_P] * 3  # B, perm_b, cnt_b, rm_b
+        lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + batch + [_P] * 5 + [_P]
         lib.ffd_scan.restype = _I
-        lib.ffd_scan_global.argtypes = [_P] * 13 + [_I] * 6 + [_P] * 6 + [_P]
+        lib.ffd_scan_global.argtypes = [_P] * 13 + [_I] * 6 + batch + [_P] * 6 + [_P]
         lib.ffd_scan_global.restype = _I
-        lib.ffd_scan_cluster.argtypes = [_P] * 13 + [_I] * 11 + [_P] * 5 + [_P]
+        lib.ffd_scan_cluster.argtypes = [_P] * 13 + [_I] * 11 + batch + [_P] * 5 + [_P]
         lib.ffd_scan_cluster.restype = _I
+        lib.ffd_scan_concurrency.argtypes = [_I] * 5
+        lib.ffd_scan_concurrency.restype = _I
+        lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 6 + [_P] + [_P]
+        lib.ffd_verdict_rows.restype = _I
+        lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
+        lib.ffd_population_prologue.restype = _I
     return lib
 
 
@@ -266,16 +289,33 @@ def _scan_shapes(
     return G, C, K, R, S
 
 
-def _scan_outputs(G: int, K: int, R: int, dev) -> Tuple[torch.Tensor, ...]:
-    """``take, leftover, node_cfg, node_pods, node_used`` on ``dev``."""
+def _scan_outputs(G: int, K: int, R: int, dev, batch=None) -> Tuple[torch.Tensor, ...]:
+    """``take, leftover, node_cfg, node_pods, node_used`` on ``dev``, each
+    with a leading batch axis of B elements where ``batch`` is given."""
     i32 = torch.int32
+    b = () if batch is None else (batch[0],)
     return (
-        torch.empty((G, K), dtype=i32, device=dev),
-        torch.empty(G, dtype=i32, device=dev),
-        torch.empty(K, dtype=i32, device=dev),
-        torch.empty(K, dtype=i32, device=dev),
-        torch.empty((K, R), dtype=torch.float32, device=dev),
+        torch.empty((*b, G, K), dtype=i32, device=dev),
+        torch.empty((*b, G), dtype=i32, device=dev),
+        torch.empty((*b, K), dtype=i32, device=dev),
+        torch.empty((*b, K), dtype=i32, device=dev),
+        torch.empty((*b, K, R), dtype=torch.float32, device=dev),
     )
+
+
+_NO_BATCH = (1, 0, 0, 0)  # B = 1, no perm_b / cnt_b / rm_b: the solve's scan
+
+
+def _batch_ptrs(batch) -> tuple:
+    """The C batch descriptor ``(B, perm_b, cnt_b, rm_b)``."""
+    if batch is None:
+        return _NO_BATCH
+    B, perm_b, cnt_b, rm_b = batch
+    return (B, perm_b.data_ptr(), cnt_b.data_ptr(), rm_b.data_ptr())
+
+
+def _launch_name(kernel: str, batch) -> str:
+    return kernel if batch is None else f"{kernel}_batched"
 
 
 def _ptrs(*ts) -> list:
@@ -295,23 +335,36 @@ def ffd_scan(
             used0, cfg0, npods0, next0, sig0)
     if req.device.type == "cpu":
         return ffd_scan_reference(*args)
-    G, C, K, R, S = _scan_shapes(*args)
+    return _launch_picked(args, _scan_shapes(*args), None)
+
+
+def _launch_picked(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
+    """The scan `scan_kernel` picks for the shapes, with the batch axis
+    where ``batch`` is given."""
+    G, C, K, R, S = shapes
     kernel = scan_kernel(K, R, S, C)
     if kernel == "ffd_scan_global":
-        return _launch_global(args, (G, C, K, R, S))
+        return _launch_global(args, shapes, batch)
     if kernel == "ffd_scan_cluster":
-        return _launch_cluster(args, (G, C, K, R, S), cluster_layout(K, R, S, C))
+        return _launch_cluster(args, shapes, cluster_layout(K, R, S, C), batch)
+    return _launch_resident(args, shapes, batch)
+
+
+def _launch_resident(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
+    (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+     used0, cfg0, npods0, next0, sig0) = args
+    G, C, K, R, S = shapes
     per_thread, smem = resident_layout(K, R, S, C)
-    outs = _scan_outputs(G, K, R, req.device)
+    outs = _scan_outputs(G, K, R, req.device, batch)
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan(
             *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
                    used0, cfg0, npods0, sig0),
             G, C, K, R, S, int(next0), per_thread, smem,
-            feas_copy_bytes(C), *_ptrs(*outs), stream,
+            feas_copy_bytes(C), *_batch_ptrs(batch), *_ptrs(*outs), stream,
         )
-    _launched("ffd_scan", err)
+    _launched(_launch_name("ffd_scan", batch), err)
     return outs
 
 
@@ -325,7 +378,7 @@ def ffd_scan_global(
             used0, cfg0, npods0, next0, sig0)
     if req.device.type == "cpu":
         return ffd_scan_reference(*args)
-    return _launch_global(args, _scan_shapes(*args))
+    return _launch_global(args, _scan_shapes(*args), None)
 
 
 def ffd_scan_cluster(
@@ -345,41 +398,44 @@ def ffd_scan_cluster(
     if layout is None or R > MAX_AXES or not feas_copy_bytes(C):
         raise ValueError(f"no cluster{'' if ctas is None else f' of {ctas} CTAs'} "
                          f"holds K={K}, R={R}, S={S}, C={C}")
-    return _launch_cluster(args, shapes, layout)
+    return _launch_cluster(args, shapes, layout, None)
 
 
-def _launch_cluster(args, shapes, layout) -> Tuple[torch.Tensor, ...]:
+def _launch_cluster(args, shapes, layout, batch) -> Tuple[torch.Tensor, ...]:
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
     ctas, per_thread, smem = layout
-    outs = _scan_outputs(G, K, R, req.device)
+    outs = _scan_outputs(G, K, R, req.device, batch)
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan_cluster(
             *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
                    used0, cfg0, npods0, sig0),
             G, C, K, R, S, int(next0), ctas, per_thread, smem,
-            feas_copy_bytes(C), wrap_guard(K), *_ptrs(*outs), stream,
+            feas_copy_bytes(C), wrap_guard(K), *_batch_ptrs(batch),
+            *_ptrs(*outs), stream,
         )
-    _launched("ffd_scan_cluster", err)
+    _launched(_launch_name("ffd_scan_cluster", batch), err)
     return outs
 
 
-def _launch_global(args, shapes) -> Tuple[torch.Tensor, ...]:
+def _launch_global(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
-    outs = _scan_outputs(G, K, R, req.device)
-    sigcnt = torch.empty((S, K), dtype=torch.int32, device=req.device)  # scratch
+    outs = _scan_outputs(G, K, R, req.device, batch)
+    B = 1 if batch is None else batch[0]
+    sigcnt = torch.empty((B, S, K), dtype=torch.int32, device=req.device)  # scratch
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan_global(
             *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
                    used0, cfg0, npods0, sig0),
-            G, C, K, R, S, int(next0), *_ptrs(*outs, sigcnt), stream,
+            G, C, K, R, S, int(next0), *_batch_ptrs(batch),
+            *_ptrs(*outs, sigcnt), stream,
         )
-    _launched("ffd_scan_global", err)
+    _launched(_launch_name("ffd_scan_global", batch), err)
     return outs
 
 
@@ -395,4 +451,208 @@ def ffd_pack(
     return ffd_scan(
         req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
         used0, cfg0, npods0, next0, sig0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The consolidation verdicts: B what-if scans in one launch, their verdict
+# rows, and the population's per-member prologue
+# ---------------------------------------------------------------------------
+
+
+def _check_batch(cnt_b, rm_b, perm_b, G: int, K: int, dev) -> int:
+    B = perm_b.shape[0] if perm_b.dim() == 2 else -1
+    for name, t, dt, shp in (
+        ("cnt_b", cnt_b, torch.int32, (B, G)),
+        ("rm_b", rm_b, torch.bool, (B, K)),
+        ("perm_b", perm_b, torch.int32, (B, G)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if B > 65535:
+        raise ValueError(f"B={B} elements: at most 65,535 a launch")
+    return B
+
+
+def ffd_scan_batch(
+    req, maxper, slot, feas, alloc, c_star, new_ok, per,
+    used0, cfg0, npods0, next0: int, sig0, cnt_b, rm_b, perm_b,
+) -> Tuple[torch.Tensor, ...]:
+    """B what-if scans over one base problem in one launch: element b scans
+    the base rows ``perm_b[b]`` in that order with the counts ``cnt_b[b]``
+    (in permuted positions) and the slots ``rm_b[b]`` removed (their config
+    -1); ``c_star, new_ok, per`` are the base's choice (`choose_config` on
+    the base rows).  Returns ``(take [B, G, K], leftover [B, G], node_cfg
+    [B, K], node_pods [B, K], node_used [B, K, R])``.  On the card it runs
+    the scan `scan_kernel` picks at the base's shapes, with one block (or
+    one cluster) per element; ``perm_b`` must hold base rows in [0, G)."""
+    if req.device.type == "cpu":
+        return ffd_scan_batch_reference(
+            req, maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, next0, sig0, cnt_b, rm_b, perm_b,
+        )
+    if req.device.type != "cuda":
+        raise ValueError(f"no kernel for device {req.device}")
+    G, K = req.shape[0], used0.shape[0]
+    B = _check_batch(cnt_b, rm_b, perm_b, G, K, req.device)
+    if B == 0:
+        return _scan_outputs(G, K, req.shape[1], req.device, (0,))
+    # cnt_b's first row stands in for the solve's count column (the kernels
+    # read the element's own row of cnt_b)
+    args = (req, cnt_b[0], maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, next0, sig0)
+    return _launch_picked(args, _scan_shapes(*args), (B, perm_b, cnt_b, rm_b))
+
+
+def scan_concurrency(K: int, R: int, S: int, C: int) -> int:
+    """How many elements of a batched scan at these shapes the card runs at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs for the
+    one-block scans, ``cudaOccupancyMaxActiveClusters`` for the cluster
+    scan).  Needs the card."""
+    kernel = scan_kernel(K, R, S, C)
+    if kernel == "ffd_scan_cluster":
+        ctas, per_thread, smem = cluster_layout(K, R, S, C)
+        args = (1, per_thread, ctas, scan_threads(-(-K // ctas)), smem)
+    elif kernel == "ffd_scan":
+        per_thread, smem = resident_layout(K, R, S, C)
+        args = (0, per_thread, 1, scan_threads(K), smem)
+    else:
+        args = (2, 1, 1, scan_threads(K), 4 * R)
+    n = _lib().ffd_scan_concurrency(*args)
+    if n < 1:
+        raise RuntimeError(f"{kernel}: occupancy query failed ({n})")
+    return n
+
+
+def verdict_rows(
+    take, leftover, node_cfg, node_pods, node_used, perm_b,
+    feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable,
+    next0: int,
+) -> torch.Tensor:
+    """The verdict epilogue of each element of a batched scan: [B,
+    RV_WIDTH] float32 rows (ops/packer.py: RV_*).  On the card one block
+    per element."""
+    dev = take.device
+    args = (take, leftover, node_cfg, node_pods, node_used, perm_b,
+            feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
+    if dev.type == "cpu":
+        return verdict_rows_reference(*args, next0)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    B, G, K = take.shape
+    R = node_used.shape[2]
+    C = alloc.shape[0]
+    i32 = torch.int32
+    for name, t, dt, shp in (
+        ("take", take, i32, (B, G, K)),
+        ("leftover", leftover, i32, (B, G)),
+        ("node_cfg", node_cfg, i32, (B, K)),
+        ("node_pods", node_pods, i32, (B, K)),
+        ("node_used", node_used, torch.float32, (B, K, R)),
+        ("perm_b", perm_b, i32, (B, G)),
+        ("feas", feas, torch.bool, (G, C)),
+        ("alloc", alloc, torch.float32, (C, R)),
+        ("price", price, torch.float32, (C,)),
+        ("openable", openable, torch.bool, (C,)),
+        ("pool_id", pool_id, i32, (C,)),
+        ("zone_id", zone_id, i32, (C,)),
+        ("ct_id", ct_id, i32, (C,)),
+        ("compactable", compactable, torch.bool, (G,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if not 0 <= int(next0) <= K:
+        raise ValueError(f"next0={next0} outside [0, {K}]")
+    rows = torch.empty((B, RV_WIDTH), dtype=torch.float32, device=dev)
+    if B == 0:
+        return rows
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ffd_verdict_rows(
+            *_ptrs(*args), B, G, C, K, R, int(next0), rows.data_ptr(), stream,
+        )
+    _launched("verdict_rows", err)
+    return rows
+
+
+def population_prologue(
+    cand_cnt, cand_slot, cand_occ, sort_rank, occ_span: int, masks, k_slots: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each population member's ``(cnt_b [P, G], rm_b [P, K], perm_b [P,
+    G])`` from its removal mask (``population_verdict_kernel``'s prologue):
+    the selected candidates' class counts, their live slots, and the FFD
+    class order by a stable sort of the first-occurrence keys.  On the card
+    one block per member."""
+    dev = masks.device
+    args = (cand_cnt, cand_slot, cand_occ, sort_rank)
+    if dev.type == "cpu":
+        return population_prologue_reference(*args, occ_span, masks, k_slots)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    P, U = masks.shape
+    G = sort_rank.shape[0]
+    i32 = torch.int32
+    for name, t, dt, shp in (
+        ("cand_cnt", cand_cnt, i32, (U, G)),
+        ("cand_slot", cand_slot, i32, (U,)),
+        ("cand_occ", cand_occ, i32, (U, G)),
+        ("sort_rank", sort_rank, i32, (G,)),
+        ("masks", masks, torch.bool, (P, U)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if not 0 <= int(occ_span) < 2**31:
+        raise ValueError(f"occ_span={occ_span} outside int32")
+    cnt_b = torch.empty((P, G), dtype=i32, device=dev)
+    rm_b = torch.empty((P, k_slots), dtype=torch.bool, device=dev)
+    perm_b = torch.empty((P, G), dtype=i32, device=dev)
+    if P == 0:
+        return cnt_b, rm_b, perm_b
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ffd_population_prologue(
+            *_ptrs(*args, masks), P, U, G, k_slots, int(occ_span),
+            *_ptrs(cnt_b, rm_b, perm_b), stream,
+        )
+    _launched("population_prologue", err)
+    return cnt_b, rm_b, perm_b
+
+
+def removal_verdicts(
+    req, maxper, slot, feas, alloc, price, openable,
+    used0, cfg0, npods0, next0: int, sig0,
+    pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b,
+    *, objective: str = "nodes",
+) -> torch.Tensor:
+    """``removal_verdict_kernel``: `choose_config` once on the base, the B
+    what-if scans in one `ffd_scan_batch`, then `verdict_rows`: [B,
+    RV_WIDTH] float32, on the device the tensors lie on."""
+    c_star, new_ok, per = choose_config(
+        req, maxper, feas, alloc, price, openable, objective
+    )
+    outs = ffd_scan_batch(
+        req, maxper, slot, feas, alloc, c_star, new_ok, per,
+        used0, cfg0, npods0, next0, sig0, cnt_b, rm_b, perm_b,
+    )
+    return verdict_rows(
+        *outs, perm_b, feas, alloc, price, openable,
+        pool_id, zone_id, ct_id, compactable, next0,
+    )
+
+
+def population_verdicts(
+    req, maxper, slot, feas, alloc, price, openable,
+    used0, cfg0, npods0, next0: int, sig0,
+    pool_id, zone_id, ct_id, compactable,
+    cand_cnt, cand_slot, cand_occ, sort_rank, occ_span: int, masks,
+    *, k_slots: int, objective: str = "nodes",
+) -> torch.Tensor:
+    """``population_verdict_kernel``: `population_prologue` derives each
+    mask's counts, removed slots and class order, then `removal_verdicts`
+    scores them: [P, RV_WIDTH] float32."""
+    cnt_b, rm_b, perm_b = population_prologue(
+        cand_cnt, cand_slot, cand_occ, sort_rank, occ_span, masks, k_slots
+    )
+    return removal_verdicts(
+        req, maxper, slot, feas, alloc, price, openable,
+        used0, cfg0, npods0, next0, sig0,
+        pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b,
+        objective=objective,
     )

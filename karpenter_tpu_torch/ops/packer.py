@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.ops.tensorize import CompiledProblem
-from karpenter_tpu_torch.utils.trace import phase
+from karpenter_tpu_torch.utils.trace import TRACER, phase
 
 BIGF = float(2**30)  # "unbounded" per-axis capacity (tensorize.BIG)
 NUDGE = 1e-4  # absorbs float32 accumulation error in floor(rem / req)
@@ -203,6 +203,280 @@ def pack_reference(
 
 
 # ---------------------------------------------------------------------------
+# Batched what-if removal verdicts: plain versions (``_verdict_row``,
+# ``removal_verdict_kernel`` and ``population_verdict_kernel`` of the JAX
+# package, batched over B the way ``jax.vmap`` runs them)
+# ---------------------------------------------------------------------------
+
+# verdict row layout ([B, RV_WIDTH] float32; int fields bit-exact in f32
+# range — every count/index here is far below 2**24)
+RV_LEFTOVER = 0  # placement units that fit nowhere
+RV_NEW_COUNT = 1  # freshly opened node slots
+RV_C_MIN = 2  # config row of the cheapest widen-equivalent alternate
+RV_MIN_PRICE = 3  # its (float32) price; +inf when the mask was empty
+RV_C_STAR = 4  # config row the kernel committed for the single new node
+RV_MERGE = 5  # 1.0 when decode compaction might merge >=2 new nodes to 1
+RV_WIDTH = 6
+
+# population search sentinels for the device-side class order: a class with
+# a zero count sorts AFTER every present class (argsort is stable, so absent
+# classes keep index order); the composite first-occurrence keys are
+# host-guarded to stay below them (solver._build_population_tensors)
+POP_KEY_ABSENT = 2**30  # argsort key for classes outside the subset
+POP_OCC_ABSENT = 2**29  # occ fill for (candidate, class) pairs w/o pods
+
+FIT_SLACK = 1e-6  # `used <= alloc + 1e-6` in the verdict's fit tests
+
+
+def ffd_scan_batch_reference(
+    req: torch.Tensor,  # [G, R] float32 — base class rows
+    maxper: torch.Tensor,  # [G] int32
+    slot: torch.Tensor,  # [G] int32
+    feas: torch.Tensor,  # [G, C] bool
+    alloc: torch.Tensor,  # [C, R] float32
+    c_star: torch.Tensor,  # [G] int32 — the base's choice
+    new_ok: torch.Tensor,  # [G] int32
+    per: torch.Tensor,  # [G] int32
+    used0: torch.Tensor,  # [K, R] float32
+    cfg0: torch.Tensor,  # [K] int32
+    npods0: torch.Tensor,  # [K] int32
+    next0: int,
+    sig0: torch.Tensor,  # [S, K] int32
+    cnt_b: torch.Tensor,  # [B, G] int32 — counts in PERMUTED positions
+    rm_b: torch.Tensor,  # [B, K] bool — removed slots
+    perm_b: torch.Tensor,  # [B, G] int32 — element class order (base rows)
+) -> Tuple[torch.Tensor, ...]:
+    """B what-if scans at once: element b is `ffd_scan_reference` on the
+    base rows ``perm_b[b]`` with counts ``cnt_b[b]`` and the removed slots'
+    configs set to -1 — ``_pack_core`` on ``req[perm]`` etc. as JAX's
+    ``_verdict_row`` runs it.  The choice is the base's, permuted: each
+    class's choice depends only on its own row and the price ceiling,
+    which no element changes.  One Python step per class, [B, K] tensors
+    in each.  Returns ``(take [B, G, K], leftover [B, G], node_cfg [B, K],
+    node_pods [B, K], node_used [B, K, R])``."""
+    i32 = torch.int32
+    B, G = perm_b.shape
+    K, R = used0.shape
+    dev = used0.device
+    pl = perm_b.long()
+    req_p, maxper_p, slot_p = req[pl], maxper[pl], slot[pl].long()
+    cs_p, ok_p, per_p = c_star[pl], new_ok[pl], per[pl]
+    idx = torch.arange(K, dtype=i32, device=dev)
+    bi = torch.arange(B, device=dev)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    used = used0.expand(B, K, R).clone()
+    cfg = torch.where(rm_b, torch.full_like(rm_b, -1, dtype=i32), cfg0.expand(B, K))
+    npods = npods0.expand(B, K).clone()
+    sigcnt = sig0.expand(B, *sig0.shape).clone()
+    nxt = torch.full((B,), int(next0), dtype=i32, device=dev)
+    takes, leftovers = [], []
+    for g in range(G):
+        req_g, n_g, s = req_p[:, g], cnt_b[:, g], slot_p[:, g]
+        # ---- fill open nodes, first-fit in slot order -------------------
+        valid = cfg >= 0
+        cfg_safe = torch.clamp(cfg, min=0).long()
+        rem = alloc[cfg_safe] - used  # [B, K, R]
+        cap = _per_node_cap(rem, req_g[:, None, :])
+        sig_room = torch.clamp(maxper_p[:, g, None] - sigcnt[bi, s], min=0)
+        cap = torch.minimum(cap, sig_room)
+        feas_g = feas[pl[:, g]].gather(1, cfg_safe)  # [B, K]
+        cap = torch.where(valid & feas_g, cap, zero)
+        prefix = torch.cumsum(cap, 1, dtype=i32) - cap  # exclusive
+        take1 = torch.minimum(torch.clamp(n_g[:, None] - prefix, min=0), cap)
+        n2 = n_g - take1.sum(1, dtype=i32)
+        # ---- open new nodes on the precomputed best config ---------------
+        per_g = per_p[:, g]
+        need = torch.where(ok_p[:, g] != 0, (n2 + per_g - 1) // per_g, zero)
+        opened = torch.minimum(need, K - nxt)
+        lo, hi = nxt[:, None], (nxt + opened)[:, None]
+        window = (idx >= lo) & (idx < hi)
+        take2 = torch.where(
+            window,
+            torch.minimum(
+                torch.clamp(n2[:, None] - (idx - lo) * per_g[:, None], min=0),
+                per_g[:, None],
+            ),
+            zero,
+        )
+        leftovers.append(n2 - take2.sum(1, dtype=i32))
+        take = take1 + take2
+        used = used + take[:, :, None].to(torch.float32) * req_g[:, None, :]
+        cfg = torch.where(window, cs_p[:, g, None], cfg)
+        npods = npods + take
+        sigcnt[bi, s] += take
+        nxt = nxt + opened
+        takes.append(take)
+    if takes:
+        take_all, left_all = torch.stack(takes, 1), torch.stack(leftovers, 1)
+    else:
+        take_all = torch.zeros((B, 0, K), dtype=i32, device=dev)
+        left_all = torch.zeros((B, 0), dtype=i32, device=dev)
+    return take_all, left_all, cfg, npods, used
+
+
+def verdict_rows_reference(
+    take: torch.Tensor,  # [B, G, K] int32 — the batched scan's outputs
+    leftover: torch.Tensor,  # [B, G] int32
+    node_cfg: torch.Tensor,  # [B, K] int32
+    node_pods: torch.Tensor,  # [B, K] int32
+    node_used: torch.Tensor,  # [B, K, R] float32
+    perm_b: torch.Tensor,  # [B, G] int32
+    feas: torch.Tensor,  # [G, C] bool — base rows
+    alloc: torch.Tensor,  # [C, R] float32
+    price: torch.Tensor,  # [C] float32
+    openable: torch.Tensor,  # [C] bool
+    pool_id: torch.Tensor,  # [C] int32
+    zone_id: torch.Tensor,  # [C] int32
+    ct_id: torch.Tensor,  # [C] int32
+    compactable: torch.Tensor,  # [G] bool — base rows
+    next0: int,
+) -> torch.Tensor:
+    """The verdict epilogue of ``_verdict_row`` over a batch: [B, RV_WIDTH]
+    float32 (see the RV_* layout).  First-index argmin and argmax, int32
+    counts; ``new_load`` is summed in ascending slot order (the kernel's
+    order; XLA's is unspecified, so bit-equality with JAX assumes the sum
+    is exact, as it is for dyadic requests)."""
+    i32, f32 = torch.int32, torch.float32
+    B, G, K = take.shape
+    dev = take.device
+    pl = perm_b.long()
+    idx = torch.arange(K, dtype=i32, device=dev)
+    left_units = leftover.sum(1, dtype=i32)
+    newmask = (idx >= int(next0))[None, :] & (node_pods > 0)  # [B, K]
+    new_count = newmask.sum(1, dtype=i32)
+    k_star = torch.argmax(newmask.to(torch.uint8), dim=1)  # first True, else 0
+    c_star = torch.clamp(node_cfg.gather(1, k_star[:, None])[:, 0], min=0)
+    cs = c_star.long()
+    taken = take > 0  # [B, G, K]
+    on_new = taken.gather(2, k_star[:, None, None].expand(B, G, 1))[:, :, 0]
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    slack = alloc + FIT_SLACK  # [C, R]
+    # every [B, G, C] feasibility reduction gathers one row per class
+    class_feas = torch.ones((B, feas.shape[1]), dtype=torch.bool, device=dev)
+    all_new_feas = class_feas.clone()
+    on_any_new = (taken & newmask[:, None, :]).any(2)  # [B, G]
+    for g in range(G):
+        row = feas[pl[:, g]]  # [B, C]
+        class_feas &= torch.where(on_new[:, g, None], row, true)
+        all_new_feas &= torch.where(on_any_new[:, g, None], row, true)
+    used_k = node_used.gather(1, k_star[:, None, None].expand(B, 1, node_used.shape[2]))[:, 0]
+    fits_used = (used_k[:, None, :] <= slack[None]).all(2)  # [B, C]
+    same = (
+        (pool_id[None, :] == pool_id[cs][:, None])
+        & (zone_id[None, :] == zone_id[cs][:, None])
+        & (ct_id[None, :] == ct_id[cs][:, None])
+    )
+    m = openable[None, :] & class_feas & fits_used & same
+    masked = torch.where(m, price[None, :], torch.full_like(m, float("inf"), dtype=f32))
+    c_min = torch.argmin(masked, dim=1)  # first index of the minimum
+    min_price = masked.gather(1, c_min[:, None])[:, 0]
+    bad_k = (taken & ~compactable[pl][:, :, None]).any(1)  # [B, K]
+    donor_k = newmask & (node_pods <= 8) & ~bad_k
+    n_nondonor = (newmask & ~donor_k).sum(1, dtype=i32)
+    new_load = torch.zeros((B, node_used.shape[2]), dtype=f32, device=dev)
+    zf = torch.zeros((), dtype=f32, device=dev)
+    for k in range(max(int(next0), 0), K):  # ascending slot order
+        new_load = new_load + torch.where(newmask[:, k, None], node_used[:, k], zf)
+    hold = (
+        (new_load[:, None, :] <= slack[None]).all(2)
+        & openable[None, :]
+        & all_new_feas
+    ).any(1)
+    merge = (new_count >= 2) & (n_nondonor <= 1) & hold
+    return torch.stack(
+        [
+            left_units.to(f32),
+            new_count.to(f32),
+            c_min.to(f32),
+            min_price,
+            c_star.to(f32),
+            merge.to(f32),
+        ],
+        dim=1,
+    )
+
+
+def population_prologue_reference(
+    cand_cnt: torch.Tensor,  # [U, G] int32 — per-candidate per-class counts
+    cand_slot: torch.Tensor,  # [U] int32 — live column (k_slots = not live)
+    cand_occ: torch.Tensor,  # [U, G] int32 — first-occurrence composite
+    sort_rank: torch.Tensor,  # [G] int32 — dense rank of the FFD sort key
+    occ_span: int,  # strict upper bound on cand_occ values
+    masks: torch.Tensor,  # [P, U] bool — the population of removal masks
+    k_slots: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-member prologue of ``population_verdict_kernel``: each
+    mask's counts, removed slots and FFD class order, derived from the
+    mask.  Returns ``(cnt_b [P, G] int32 in permuted positions, rm_b
+    [P, K] bool, perm_b [P, G] int32)``."""
+    i32 = torch.int32
+    P = masks.shape[0]
+    dev = masks.device
+    sel = masks[:, :, None]
+    cnt_g = torch.where(sel, cand_cnt[None], torch.zeros((), dtype=i32, device=dev)).sum(
+        1, dtype=i32
+    )
+    # scatter-max of the selected candidates' slots; out-of-range slots
+    # (candidates with no live column) land in a dropped extra column
+    col = torch.clamp(cand_slot.long(), 0, k_slots)
+    rm = torch.zeros((P, k_slots + 1), dtype=i32, device=dev)
+    rm.index_add_(1, col, masks.to(i32))
+    rm_b = rm[:, :k_slots] > 0
+    occ = torch.where(
+        sel, cand_occ[None], torch.full((), POP_OCC_ABSENT, dtype=i32, device=dev)
+    ).amin(1)
+    key = torch.where(
+        cnt_g > 0,
+        sort_rank[None, :] * int(occ_span) + occ,
+        torch.full((), POP_KEY_ABSENT, dtype=i32, device=dev),
+    )
+    perm_b = torch.argsort(key, dim=1, stable=True).to(i32)
+    return cnt_g.gather(1, perm_b.long()), rm_b, perm_b
+
+
+def removal_verdicts_reference(
+    req, maxper, slot, feas, alloc, price, openable,
+    used0, cfg0, npods0, next0, sig0,
+    pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b,
+    *, objective: str = "nodes",
+) -> torch.Tensor:
+    """The plain PyTorch version of ``removal_verdict_kernel``: [B,
+    RV_WIDTH] float32 verdict rows."""
+    c_star, new_ok, per = choose_config_reference(
+        req, maxper, feas, alloc, price, openable, objective
+    )
+    outs = ffd_scan_batch_reference(
+        req, maxper, slot, feas, alloc, c_star, new_ok, per,
+        used0, cfg0, npods0, next0, sig0, cnt_b, rm_b, perm_b,
+    )
+    return verdict_rows_reference(
+        *outs, perm_b, feas, alloc, price, openable,
+        pool_id, zone_id, ct_id, compactable, next0,
+    )
+
+
+def population_verdicts_reference(
+    req, maxper, slot, feas, alloc, price, openable,
+    used0, cfg0, npods0, next0, sig0,
+    pool_id, zone_id, ct_id, compactable,
+    cand_cnt, cand_slot, cand_occ, sort_rank, occ_span, masks,
+    *, objective: str = "nodes",
+) -> torch.Tensor:
+    """The plain PyTorch version of ``population_verdict_kernel``: [P,
+    RV_WIDTH] float32 verdict rows."""
+    cnt_b, rm_b, perm_b = population_prologue_reference(
+        cand_cnt, cand_slot, cand_occ, sort_rank, occ_span, masks,
+        used0.shape[0],
+    )
+    return removal_verdicts_reference(
+        req, maxper, slot, feas, alloc, price, openable,
+        used0, cfg0, npods0, next0, sig0,
+        pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b,
+        objective=objective,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Host wrapper: padding to bucket shapes (copied from the JAX package)
 # ---------------------------------------------------------------------------
 
@@ -326,6 +600,100 @@ def run_pack(
     If the solve overflows ``k_slots`` (leftover pods while feasible
     configs remained), the caller retries with a doubled bucket."""
     return fetch_pack(dispatch_pack(prob, k_slots, objective, device))
+
+
+# ---------------------------------------------------------------------------
+# Batched verdict entry points (the removal batch and the population search)
+# ---------------------------------------------------------------------------
+
+
+def _on(device: torch.device, a):
+    """A host numpy array uploaded to ``device``; tensors pass as they are."""
+    if isinstance(a, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return a
+
+
+def dispatch_population_verdicts(
+    padded_args: tuple,
+    k_slots: int,
+    pool_id, zone_id, ct_id, compactable,
+    cand_cnt, cand_slot, cand_occ, sort_rank,
+    occ_span: int,
+    masks,
+    objective: str = "nodes",
+) -> torch.Tensor:
+    """The ENQUEUE half of the population scoring over the removal base's
+    padded tensors (``pad_problem`` output, on the device): on the card the
+    kernels are launched on the current stream and the in-flight [P,
+    RV_WIDTH] rows come back without waiting; `fetch_verdict_rows` is the
+    blocking half.  Host arrays among the inputs are uploaded first."""
+    from karpenter_tpu_torch.ops.fused_packer import population_verdicts
+
+    (req, _cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, e0, sig0) = padded_args
+    dev = req.device
+    with phase("dispatch"):
+        # the masks' upload: one the device observatory (ROADMAP A2) will count
+        return population_verdicts(
+            req, maxper, slot, feas, alloc, price, openable,
+            used0, cfg0, npods0, e0, sig0,
+            *(_on(dev, a) for a in (pool_id, zone_id, ct_id, compactable,
+                                    cand_cnt, cand_slot, cand_occ, sort_rank)),
+            occ_span, _on(dev, masks), k_slots=k_slots, objective=objective,
+        )
+
+
+def fetch_verdict_rows(out: torch.Tensor, kernel_name: str) -> np.ndarray:
+    """The BLOCKING half of a verdict dispatch: one read of the whole
+    batch's rows, recorded as the kernel's ``device.block`` span."""
+    with phase("device_block"), TRACER.span(f"device.block.{kernel_name}"):
+        return out.cpu().numpy()
+
+
+def run_population_verdicts(
+    padded_args: tuple,
+    k_slots: int,
+    pool_id, zone_id, ct_id, compactable,
+    cand_cnt, cand_slot, cand_occ, sort_rank,
+    occ_span: int,
+    masks,
+    objective: str = "nodes",
+) -> np.ndarray:
+    """Dispatch + fetch in one call: the [P, RV_WIDTH] verdict matrix."""
+    out = dispatch_population_verdicts(
+        padded_args, k_slots, pool_id, zone_id, ct_id, compactable,
+        cand_cnt, cand_slot, cand_occ, sort_rank, occ_span, masks,
+        objective=objective,
+    )
+    return fetch_verdict_rows(out, "population_verdicts")
+
+
+def run_removal_verdicts(
+    padded_args: tuple,
+    k_slots: int,
+    pool_id, zone_id, ct_id, compactable,
+    cnt_b, rm_b, perm_b,
+    objective: str = "nodes",
+) -> np.ndarray:
+    """Launch the batched verdicts over the removal base's padded tensors
+    and fetch the [B, RV_WIDTH] matrix in one read."""
+    from karpenter_tpu_torch.ops.fused_packer import removal_verdicts
+
+    (req, _cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, e0, sig0) = padded_args
+    dev = req.device
+    if used0.shape[0] != k_slots:
+        raise ValueError(f"k_slots={k_slots} but the base has {used0.shape[0]} slots")
+    with phase("dispatch"):
+        out = removal_verdicts(
+            req, maxper, slot, feas, alloc, price, openable,
+            used0, cfg0, npods0, e0, sig0,
+            *(_on(dev, a) for a in (pool_id, zone_id, ct_id, compactable,
+                                    cnt_b, rm_b, perm_b)),
+            objective=objective,
+        )
+    return fetch_verdict_rows(out, "removal_verdicts")
 
 
 def last_kernel_name(device: Optional[torch.device]) -> str:

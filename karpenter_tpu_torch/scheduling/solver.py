@@ -14,16 +14,25 @@ pod identity + mutation epoch and on live-node content re-serves an earlier
 compile, and on a miss the device-resident tensors (ops/resident.py) absorb
 the tick's diff as one gather + scatter step, so a warm solve packs with no
 partition, compile or upload.  Decoded output is the oracle's
-`SchedulingResult`.  The reference's consolidation verdicts and mesh are
-later slices of the port.
+`SchedulingResult`.
+
+Consolidation asks the solver many what-if questions at once ("if these
+nodes went away, would their pods fit on the rest of the cluster plus at
+most one new node, and at what price?"): `evaluate_removals` (a batch of
+candidate subsets) and `evaluate_population` / `dispatch_population` /
+`fetch_population` (a population of removal masks) answer them as the
+reference does, over one compiled base problem per candidate universe, on
+the card as one batched scan (ops/fused_packer.py: `removal_verdicts`,
+`population_verdicts`).  The reference's mesh is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from karpenter_tpu_torch.api import InstanceType, NodePool, Pod, Requirement
 from karpenter_tpu_torch.api import labels as L
@@ -31,14 +40,29 @@ from karpenter_tpu_torch.api.objects import selector_matches
 from karpenter_tpu_torch.api.requirements import Op
 from karpenter_tpu_torch.api.resources import Resources
 from karpenter_tpu_torch.ops.packer import (
+    POP_KEY_ABSENT,
+    POP_OCC_ABSENT,
+    RV_C_MIN,
+    RV_C_STAR,
+    RV_LEFTOVER,
+    RV_MERGE,
+    RV_MIN_PRICE,
+    RV_NEW_COUNT,
+    _bucket,
     dispatch_pack,
+    dispatch_population_verdicts,
     fetch_pack,
+    fetch_verdict_rows,
     last_kernel_name,
+    pad_problem,
     resolve_device,
+    run_removal_verdicts,
+    to_device,
 )
 from karpenter_tpu_torch.ops.resident import ResidentCache
 from karpenter_tpu_torch.ops.tensorize import (
     _SCALE,
+    BIG,
     CompiledProblem,
     ConfigMeta,
     _axes_for_requests,
@@ -56,6 +80,90 @@ from karpenter_tpu_torch.scheduling.scheduler import (
 from karpenter_tpu_torch.scheduling.topology import HOSTNAME, ZONE, TopologyTracker
 from karpenter_tpu_torch.state.cluster import StateNode
 from karpenter_tpu_torch.utils.trace import TRACER, phase, phase_collect
+
+
+class RemovalCandidate(NamedTuple):
+    """One consolidation candidate as the solver sees it: the live node's
+    name plus the pods a removal would have to reschedule."""
+
+    node_name: str
+    pods: Tuple[Pod, ...]
+
+
+class RemovalVerdict(NamedTuple):
+    """The answer to one what-if removal: do the subset's pods fit on the
+    remaining cluster plus at most ONE new node?
+
+    ``replacement_price`` is 0.0 when pure deletion suffices; when
+    ``needs_host`` is set the batched path could not answer bit-identically
+    and the caller must run the sequential simulation for this element."""
+
+    fits: bool
+    replacement_price: float
+    needs_host: bool = False
+    reason: str = ""
+
+
+class _PendingPopulation:
+    """An in-flight population scoring dispatch: the launched rows plus
+    everything the blocking half needs to decode them.  ``ready`` is set
+    when the host guards answered without any device work (base refused /
+    empty universe); ``phases`` accumulates the per-phase self-times across
+    BOTH halves so the completed dict matches the one-call form's."""
+
+    __slots__ = ("P", "base", "out", "ready", "phases")
+
+    def __init__(self, P: int):
+        self.P = P
+        self.base: Optional["_RemovalBase"] = None
+        self.out = None
+        self.ready: Optional[List[RemovalVerdict]] = None
+        self.phases: Dict[str, float] = {}
+
+
+class _RemovalBase:
+    """One compiled-and-padded base problem for a consolidation pass:
+    classes over the candidate-universe pods, existing rows over the FULL
+    remaining cluster.  Every candidate subset then evaluates as a removal
+    mask + count vector over this ONE compile (or records the fallback
+    `reason` that sends the whole pass to the sequential path)."""
+
+    __slots__ = (
+        "reason", "empty", "prob", "args", "k_slots", "n_live",
+        "slot_of", "class_of", "pool_id", "zone_id", "ct_id",
+        "compactable", "compact_ok", "price_py", "gp", "kp", "sort_key",
+        # population-search extras: per-candidate tensors the mask scoring
+        # derives each subset's counts / removed slots / class order from
+        # on the device
+        "pop_reason", "n_universe", "cand_cnt", "cand_slot", "cand_occ",
+        "sort_rank", "occ_span",
+    )
+
+    def __init__(self, reason: str = "", empty: bool = False):
+        self.reason = reason
+        self.empty = empty
+        self.prob = None
+        self.args: tuple = ()
+        self.k_slots = 0
+        self.n_live = 0
+        self.slot_of: Dict[str, int] = {}
+        self.class_of: Dict[int, int] = {}
+        self.pool_id = None
+        self.zone_id = None
+        self.ct_id = None
+        self.compactable = None
+        self.compact_ok = False
+        self.price_py: List[float] = []
+        self.gp = 0
+        self.kp = 0
+        self.sort_key: Dict[int, float] = {}
+        self.pop_reason = ""
+        self.n_universe = 0
+        self.cand_cnt = None
+        self.cand_slot = None
+        self.cand_occ = None
+        self.sort_rank = None
+        self.occ_span = 0
 
 
 class TorchScheduler:
@@ -113,6 +221,11 @@ class TorchScheduler:
         # which continuation handled the oracle half ("join" | "oracle")
         self.last_phases: Dict[str, float] = {}
         self.last_continuation = ""
+        # batched consolidation what-ifs: one compiled base problem per
+        # candidate universe, keyed like the compile cache, so a pass over
+        # an unchanged cluster re-serves the prior compile
+        self._removal_cache: dict = {}
+        self.last_removal_batch = 0  # elements in the last batched dispatch
 
     def update(
         self,
@@ -135,6 +248,7 @@ class TorchScheduler:
             self._scan_memo.clear()
             # rolled inputs also obsolete every cached compilation
             self._compile_cache.clear()
+            self._removal_cache.clear()
         self.pools = list(pools)
         self.instance_types = instance_types
         self.existing = list(existing)
@@ -626,6 +740,418 @@ class TorchScheduler:
             (sup_groups, unsupported, prob, join_assign, compact_ok),
             pins,
         )
+
+    # ------------------------------------------------- batched removals
+    _REMOVAL_CACHE_CAP = 4
+    # below this many fresh elements a batched dispatch cannot beat the
+    # sequential path's (cached-compile) solve
+    MIN_REMOVAL_BATCH = 2
+
+    def evaluate_removals(
+        self,
+        subsets: Sequence[Sequence[RemovalCandidate]],
+        universe: Sequence[RemovalCandidate],
+    ) -> List[RemovalVerdict]:
+        """Answer N consolidation what-ifs with ONE compile + ONE batched
+        launch.
+
+        ``universe`` is the pass's full candidate set in RANK ORDER (every
+        subset must be an order-preserving selection from it); the base
+        problem compiles once against the solver's current ``existing``
+        (the full remaining cluster) and is cached across calls by the
+        compile cache's fingerprint.  Each subset is a removal mask over
+        the live-node axis plus its pods' per-class counts in the subset's
+        own class order, scanned in one batched launch; only per-element
+        verdicts are decoded (fits / new-node count / replacement price).
+        Elements the batch cannot answer bit-identically to the sequential
+        simulation come back ``needs_host``.  Records the per-phase
+        breakdown in ``last_phases``."""
+        self.last_phases = phases = {}
+        with phase_collect(phases), phase("other"):
+            return self._evaluate_removals(
+                [list(s) for s in subsets], tuple(universe)
+            )
+
+    def _evaluate_removals(
+        self, subsets: List[List[RemovalCandidate]], universe: tuple
+    ) -> List[RemovalVerdict]:
+        self.last_removal_batch = 0  # only a real dispatch sets it
+        base = self._removal_base(universe)
+        if base.reason:
+            return [
+                RemovalVerdict(False, 0.0, True, base.reason) for _ in subsets
+            ]
+        if base.empty:
+            # no reschedulable pods anywhere in the universe: every subset
+            # trivially fits by pure deletion
+            return [RemovalVerdict(True, 0.0) for _ in subsets]
+        B = len(subsets)
+        with phase("pad"):
+            cnt_b, rm_b, perm_b, bad = self._subset_batch(base, subsets)
+        verd = run_removal_verdicts(
+            base.args, base.k_slots,
+            base.pool_id, base.zone_id, base.ct_id, base.compactable,
+            cnt_b, rm_b, perm_b, objective=self.objective,
+        )
+        self.last_removal_batch = B
+        out: List[RemovalVerdict] = []
+        with phase("decode"):
+            for i in range(B):
+                if i in bad:
+                    out.append(RemovalVerdict(False, 0.0, True, bad[i]))
+                    continue
+                out.append(self._verdict_from_row(verd[i], base))
+        return out
+
+    def _subset_batch(self, base: _RemovalBase, subsets: List[List[RemovalCandidate]]):
+        """Each subset's ``(counts in its class order, removed slots, class
+        order)`` over the base, padded to a power-of-two batch: numpy
+        ``cnt_b [Bp, Gp]``, ``rm_b [Bp, Kp]``, ``perm_b [Bp, Gp]``, and the
+        elements the base cannot express (index -> reason)."""
+        B = len(subsets)
+        Bp = _bucket(max(B, 1), floor=self.MIN_REMOVAL_BATCH)
+        gp, kp = base.gp, base.kp
+        cnt_b = np.zeros((Bp, gp), np.int32)
+        rm_b = np.zeros((Bp, kp), bool)
+        perm_b = np.tile(np.arange(gp, dtype=np.int32), (Bp, 1))
+        bad: Dict[int, str] = {}
+        for i, subset in enumerate(subsets):
+            order: List[int] = []
+            seen = set()
+            counts: Dict[int, int] = {}
+            for cand in subset:
+                slot = base.slot_of.get(cand.node_name)
+                if slot is not None:
+                    rm_b[i, slot] = True
+                # a candidate absent from the live rows was cordoned away
+                # by the compile on BOTH paths — nothing to mask
+                for p in cand.pods:
+                    g = base.class_of.get(id(p))
+                    if g is None:
+                        bad[i] = "pod outside the compiled universe"
+                        break
+                    if g not in seen:
+                        seen.add(g)
+                        order.append(g)
+                    counts[g] = counts.get(g, 0) + 1
+                if i in bad:
+                    break
+            if i in bad:
+                continue
+            # the subset's own compile orders classes by the FFD sort key
+            # with ties in first-occurrence order over its pod list: replay
+            # that order exactly, the scan is order-sensitive
+            first_idx = {g: j for j, g in enumerate(order)}
+            order.sort(key=lambda g: (base.sort_key[g], first_idx[g]))
+            perm = order + [g for g in range(gp) if g not in seen]
+            perm_b[i] = np.asarray(perm, np.int32)
+            cnt_b[i] = np.asarray([counts.get(g, 0) for g in perm], np.int32)
+        return cnt_b, rm_b, perm_b, bad
+
+    @staticmethod
+    def _verdict_from_row(row: np.ndarray, base: _RemovalBase) -> RemovalVerdict:
+        """Decode ONE verdict row (RV_* layout) — shared by the per-subset
+        batch and the population search, so a mask scored either way
+        decodes to the identical RemovalVerdict."""
+        if row[RV_LEFTOVER] > 0:
+            # unschedulable — exact: the base guards exclude every
+            # relax-eligible constraint shape
+            return RemovalVerdict(False, 0.0)
+        new_count = int(row[RV_NEW_COUNT])
+        if new_count == 0:
+            return RemovalVerdict(True, 0.0)
+        if new_count == 1:
+            # widen-equivalent price: committed config, improved by the
+            # cheapest alternate — read back as PYTHON floats so the price
+            # equals the sequential decode's
+            price = base.price_py[int(row[RV_C_STAR])]
+            if np.isfinite(row[RV_MIN_PRICE]):
+                price = min(price, base.price_py[int(row[RV_C_MIN])])
+            return RemovalVerdict(True, float(price))
+        if row[RV_MERGE] > 0 and base.compact_ok:
+            # >= 2 new nodes that decode compaction might merge to one —
+            # the only decode step the verdict cannot replay
+            return RemovalVerdict(False, 0.0, True, "compaction")
+        return RemovalVerdict(False, 0.0)
+
+    def evaluate_population(
+        self,
+        masks: np.ndarray,
+        universe: Sequence[RemovalCandidate],
+    ) -> List[RemovalVerdict]:
+        """Score a POPULATION of removal masks in one batched launch.
+
+        ``masks`` is a [P, U'] bool matrix over a rank-order PREFIX of
+        ``universe`` (column j selects universe[j]); unlike
+        :meth:`evaluate_removals`, the per-subset counts, removed slots and
+        class orders are derived on the device from the mask
+        (`population_verdicts`), so the host cost per round is one mask
+        upload.  The base problem and the per-candidate population tensors
+        come from the SAME cached removal base the subset batch uses, and
+        each row decodes through the same `_verdict_from_row`, so a mask
+        scored here equals the same subset scored per element.
+
+        :meth:`dispatch_population` + :meth:`fetch_population` back to
+        back."""
+        return self.fetch_population(self.dispatch_population(masks, universe))
+
+    def dispatch_population(
+        self,
+        masks: np.ndarray,
+        universe: Sequence[RemovalCandidate],
+    ) -> _PendingPopulation:
+        """The ENQUEUE half of :meth:`evaluate_population`: build (or
+        cache-hit) the removal base, pad the mask matrix and launch the
+        population scoring on the current stream — NO device read.  Bases
+        the host guards refuse resolve immediately (``ready`` verdicts on
+        the handle) with no device work."""
+        masks = np.asarray(masks, bool)
+        pend = _PendingPopulation(P=int(masks.shape[0]))
+        with phase_collect(pend.phases), phase("other"):
+            base = self._removal_base(tuple(universe))
+            P = pend.P
+            if base.reason:
+                pend.ready = [
+                    RemovalVerdict(False, 0.0, True, base.reason)
+                    for _ in range(P)
+                ]
+            elif base.empty:
+                pend.ready = [RemovalVerdict(True, 0.0) for _ in range(P)]
+            elif base.pop_reason:
+                pend.ready = [
+                    RemovalVerdict(False, 0.0, True, base.pop_reason)
+                    for _ in range(P)
+                ]
+            else:
+                with phase("pad"):
+                    up = int(base.cand_slot.shape[0])
+                    pp = _bucket(max(P, 1), floor=self.MIN_REMOVAL_BATCH)
+                    mb = np.zeros((pp, up), bool)
+                    mb[:P, : masks.shape[1]] = masks
+                pend.base = base
+                pend.out = dispatch_population_verdicts(
+                    base.args, base.k_slots,
+                    base.pool_id, base.zone_id, base.ct_id,
+                    base.compactable, base.cand_cnt, base.cand_slot,
+                    base.cand_occ, base.sort_rank, base.occ_span, mb,
+                    objective=self.objective,
+                )
+        return pend
+
+    def fetch_population(self, pend: _PendingPopulation) -> List[RemovalVerdict]:
+        """The BLOCKING half: one read of the whole population's rows,
+        decoded through `_verdict_from_row`.  Leaves ``last_phases`` /
+        ``last_removal_batch`` as the one-call form does — the handle's
+        phase dict accumulated across both halves."""
+        self.last_phases = phases = pend.phases
+        self.last_removal_batch = 0
+        with phase_collect(phases), phase("other"):
+            if pend.ready is not None:
+                return pend.ready
+            verd = fetch_verdict_rows(pend.out, "population_verdicts")
+            self.last_removal_batch = pend.P
+            out: List[RemovalVerdict] = []
+            with phase("decode"):
+                for i in range(pend.P):
+                    out.append(self._verdict_from_row(verd[i], pend.base))
+        return out
+
+    def _removal_base(self, universe: tuple) -> _RemovalBase:
+        pods = [p for cand in universe for p in cand.pods]
+        fp = self._solve_fingerprint(pods)
+        if fp is not None:
+            ent = self._removal_cache.get(fp)
+            if ent is not None:
+                return ent[0]
+        with phase("partition"):
+            base = self._build_removal_base(universe, pods)
+        if fp is not None:
+            # pin every object the fingerprint's ids refer to (the compile
+            # cache's aliasing contract)
+            pins = (
+                list(pods),
+                [list(sn.pods) for sn in self.existing],
+                tuple(self.pools),
+                tuple(self.instance_types.values()),
+                tuple(self.daemonsets),
+            )
+            if len(self._removal_cache) >= self._REMOVAL_CACHE_CAP:
+                self._removal_cache.pop(next(iter(self._removal_cache)))
+            self._removal_cache[fp] = (base, pins)
+        return base
+
+    @staticmethod
+    def removal_search_guard(
+        universe: Sequence[RemovalCandidate],
+        existing: Sequence[StateNode],
+    ) -> str:
+        """The HOST-ONLY pre-compile guards of the removal base: the
+        constraint shapes whose per-subset behavior the mask batch cannot
+        replay bit-identically — pod-level topology coupling,
+        preference/OR-term carriers, volume claims, and live (anti-)
+        affinity carriers ON a candidate node.  A pure function of
+        (universe, remaining nodes): returns the fallback reason, or ""
+        when the mask encoding is sound."""
+        for cand in universe:
+            for p in cand.pods:
+                if (
+                    p.pod_affinity
+                    or p.topology_spread
+                    or p.preferred_affinity
+                    or len(p.node_affinity_terms()) > 1
+                ):
+                    return "constraint-shape"
+                if p.volume_claims:
+                    return "volume-claims"
+        names = {cand.node_name for cand in universe}
+        for sn in existing:
+            if sn.name in names and any(bp.pod_affinity for bp in sn.pods):
+                return "live-carrier-on-candidate"
+        return ""
+
+    def _build_removal_base(self, universe: tuple, pods: List[Pod]) -> _RemovalBase:
+        if not pods:
+            return _RemovalBase(empty=True)
+        why = self.removal_search_guard(universe, self.existing)
+        if why:
+            return _RemovalBase(reason=why)
+        # the base's guards are a superset of the resident layer's
+        # eligibility (ops/resident.py), so a resident hit serves tensors
+        # the base could have compiled itself and a warm consolidation pass
+        # skips the universe re-tensorize
+        with phase("delta"), TRACER.span("solver.delta"):
+            resident = self._resident.refresh(self, pods)
+        if resident is not None:
+            self.resident_hits += 1
+            prob = resident.problem()
+        else:
+            sup_groups, unsupported, _why = partition_groups(
+                pods, existing=self.existing, pools=self.pools
+            )
+            if unsupported:
+                return _RemovalBase(reason="oracle-pods")
+            prob = self._compile_tensor(
+                [p for _, members in sup_groups for p in members], sup_groups
+            )
+            if not prob.supported:
+                return _RemovalBase(reason="compile-unsupported")
+            if prob.compile_relaxed:
+                return _RemovalBase(reason="compile-relaxed")
+            for cm in prob.classes:
+                if (
+                    cm.group_size
+                    or cm.zone_pin
+                    or cm.rep_override is not None
+                    or cm.pool_allow is not None
+                ):
+                    return _RemovalBase(reason="macro-class")
+            if len(prob.cnt) and (prob.maxper < BIG).any():
+                return _RemovalBase(reason="tracked-signature")
+            if self._resident.rebuild(
+                self, pods, prob, self._catalog, consumer="removal"
+            ) is not None:
+                self.resident_rebuilds += 1
+        base = _RemovalBase()
+        base.prob = prob
+        base.n_live = len(prob.used0)
+        # worst case every pod of the largest subset needs its own node;
+        # the universe total bounds every subset, so one padded K serves
+        # the whole pass and slot overflow is impossible
+        base.args, base.k_slots = pad_problem(
+            prob, k_slots=base.n_live + max(prob.total_pods(), 1)
+        )
+        base.gp = base.args[0].shape[0]
+        cp = base.args[5].shape[0]
+        base.kp = base.k_slots
+        base.slot_of = {
+            prob.configs[prob.cfg0[i]].existing.name: i
+            for i in range(base.n_live)
+        }
+        base.class_of = {
+            id(p): g for g, cm in enumerate(prob.classes) for p in cm.pods
+        }
+        pool_idx: Dict[str, int] = {}
+        zone_idx: Dict[str, int] = {}
+        ct_idx: Dict[str, int] = {}
+        pool_id = np.full(cp, -1, np.int32)
+        zone_id = np.full(cp, -1, np.int32)
+        ct_id = np.full(cp, -1, np.int32)
+        for c, cfg in enumerate(prob.configs):
+            if cfg.existing is not None:
+                continue
+            pool_id[c] = pool_idx.setdefault(cfg.pool.name, len(pool_idx))
+            zone_id[c] = zone_idx.setdefault(cfg.zone, len(zone_idx))
+            ct_id[c] = ct_idx.setdefault(cfg.capacity_type, len(ct_idx))
+        compactable = np.zeros(base.gp, bool)
+        for g, cm in enumerate(prob.classes):
+            # decode compaction moves only label-less pods
+            compactable[g] = not cm.pods[0].labels
+            # the compile's FFD sort key (`constrained` always False under
+            # the guards above): a subset's own compile re-sorts its
+            # classes by this key, ties in first-occurrence order
+            r = cm.requests
+            base.sort_key[g] = -(r.cpu + r.memory / (4 * 2**30))
+        # the base's tensors go to the device ONCE: every verdict batch and
+        # population round of the pass reads them there (the upload the
+        # device observatory, ROADMAP A2, will count)
+        base.args = to_device(base.args, self.device)
+        base.pool_id, base.zone_id, base.ct_id, base.compactable = to_device(
+            (pool_id, zone_id, ct_id, compactable), self.device
+        )
+        base.compact_ok = self._compact_guard(pods)
+        base.price_py = [float(cfg.price) for cfg in prob.configs]
+        self._build_population_tensors(base, universe, self.device)
+        return base
+
+    @staticmethod
+    def _build_population_tensors(
+        base: _RemovalBase, universe: tuple, device: torch.device
+    ) -> None:
+        """Per-candidate tensors for the population scoring: counts per
+        class, live-column index, and the first-occurrence composite that
+        lets the device replay each subset's FFD class order.
+
+        The composite for class g in candidate j is ``j * max_pods +
+        first_pos`` — candidates concatenate in universe rank order, so the
+        min over a mask's selected rows IS the subset's first occurrence;
+        sorting ``sort_rank * occ_span + occ`` reproduces the host's
+        ``(sort_key, first_idx)`` sort exactly.  Everything is int32: the
+        host guard refuses (``pop_reason``) where the composite key space
+        could touch the sentinels."""
+        u = len(universe)
+        base.n_universe = u
+        if u == 0:
+            base.pop_reason = "empty-universe"
+            return
+        maxp = max((len(cand.pods) for cand in universe), default=0) + 1
+        occ_span = u * maxp + 1
+        ranks = {v: i for i, v in enumerate(sorted(set(base.sort_key.values())))}
+        max_rank = max(ranks.values(), default=0)
+        if (max_rank + 2) * occ_span >= min(POP_KEY_ABSENT, 2 * POP_OCC_ABSENT):
+            base.pop_reason = "occ-composite-overflow"
+            return
+        up = _bucket(max(u, 1))
+        cand_cnt = np.zeros((up, base.gp), np.int32)
+        cand_slot = np.full(up, base.k_slots, np.int32)
+        cand_occ = np.full((up, base.gp), POP_OCC_ABSENT, np.int32)
+        for j, cand in enumerate(universe):
+            s = base.slot_of.get(cand.node_name)
+            if s is not None:
+                cand_slot[j] = s
+            for pos, p in enumerate(cand.pods):
+                g = base.class_of[id(p)]
+                cand_cnt[j, g] += 1
+                if cand_occ[j, g] == POP_OCC_ABSENT:
+                    cand_occ[j, g] = j * maxp + pos
+        sort_rank = np.zeros(base.gp, np.int32)
+        for g, v in base.sort_key.items():
+            sort_rank[g] = ranks[v]
+        # on the device like base.args (an upload the device observatory,
+        # ROADMAP A2, will count): a population round uploads only its masks
+        base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank = to_device(
+            (cand_cnt, cand_slot, cand_occ, sort_rank), device
+        )
+        base.occ_span = occ_span
 
     # ------------------------------------------------------------ live join
     def _plan_live_join(self, unsupported: List[Pod], assignments):

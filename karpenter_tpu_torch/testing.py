@@ -4,9 +4,11 @@ The counterpart of ``karpenter_tpu/testing.py``'s `Environment` for what
 the solve reads: a default pool, instance types over `generate_catalog`
 in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 ``bench.py`` (`build_problem`, `build_heterogeneous`) with a ``scale`` on
-the pod count, a cluster of live nodes, and pack inputs on which the
-scan's int32 sums wrap, and pack inputs on which the new-node choice
-must break ties by first index.
+the pod count, a cluster of live nodes, pack inputs on which the scan's
+int32 sums wrap, pack inputs on which the new-node choice must break ties
+by first index, and live clusters whose nodes hold bound pods, for the
+consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
+`ranked_candidates`).
 
 Prices are those the reference environment serves after its operator's
 start-up price refresh: on-demand from the shapes' seed prices, spot at the
@@ -15,6 +17,7 @@ fake cloud's default discount of the on-demand price in every zone.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -287,3 +290,133 @@ def heterogeneous_problem(
                 )
             )
     return [general, dedicated], inventory, pods
+
+
+# ---------------------------------------------------------------------------
+# Live clusters for the consolidation verdicts
+# ---------------------------------------------------------------------------
+
+# the pod sizes of bench.py's consolidation configs (4b, 4c)
+BOUND_SIZES = (
+    Resources(cpu=0.5, memory="1Gi"),
+    Resources(cpu=1, memory="2Gi"),
+)
+
+
+def node_of_type(
+    name: str, it: InstanceType, zone: str, pool: str,
+    capacity_type: str = L.CAPACITY_TYPE_ON_DEMAND, pods: Sequence[Pod] = (),
+) -> StateNode:
+    """A live node of instance type ``it`` in ``zone`` holding ``pods``
+    (their requests counted in its usage)."""
+    used = Resources()
+    for p in pods:
+        used = used + p.requests
+    return StateNode(
+        name=name,
+        provider_id=f"i-{name}",
+        labels={
+            L.LABEL_ARCH: "amd64",
+            L.LABEL_OS: "linux",
+            L.LABEL_ZONE: zone,
+            L.LABEL_NODEPOOL: pool,
+            L.LABEL_INSTANCE_TYPE: it.name,
+            L.LABEL_CAPACITY_TYPE: capacity_type,
+            L.LABEL_HOSTNAME: name,
+        },
+        taints=[],
+        allocatable=it.allocatable(),
+        capacity=it.capacity,
+        pods=list(pods),
+        used=used,
+    )
+
+
+def ranked_candidates(existing: Sequence[StateNode]) -> list:
+    """Every node as a `RemovalCandidate` (its bound pods to reschedule),
+    ranked as consolidation ranks them: fewest pods first, then node
+    order."""
+    from karpenter_tpu_torch.scheduling.solver import RemovalCandidate
+
+    order = sorted(range(len(existing)), key=lambda i: (len(existing[i].pods), i))
+    return [RemovalCandidate(existing[i].name, tuple(existing[i].pods)) for i in order]
+
+
+def consolidation_cluster(
+    seed: int,
+    nodes: int,
+    types: Sequence[InstanceType],
+    pool: str = "general",
+    per_node: Tuple[int, int] = (1, 4),
+    sizes: Sequence[Resources] = BOUND_SIZES,
+) -> Tuple[List[StateNode], list]:
+    """A live cluster, deterministic from ``seed`` (numpy's generator):
+    node i is ``node-i`` of a seeded type of ``types`` in zone ``ZONES[i %
+    3]``, on demand, in ``pool``, holding those of a seeded ``per_node[0]``
+    to ``per_node[1]`` bound pods of seeded ``sizes`` (``node-i-j``) that
+    fit it.
+    Returns ``(existing, ranked_candidates(existing))``."""
+    rng = np.random.RandomState(seed)
+    existing = []
+    for i in range(nodes):
+        it = types[rng.randint(len(types))]
+        name = f"node-{i}"
+        pods, used = [], Resources()
+        for j in range(rng.randint(per_node[0], per_node[1] + 1)):
+            pod = Pod(name=f"{name}-{j}", requests=sizes[rng.randint(len(sizes))],
+                      node_name=name, phase="Running")
+            if (used + pod.requests).fits(it.allocatable()):
+                pods.append(pod)
+                used = used + pod.requests
+        existing.append(node_of_type(name, it, ZONES[i % len(ZONES)], pool, pods=pods))
+    return existing, ranked_candidates(existing)
+
+
+def settled_cluster(result) -> List[StateNode]:
+    """A solve's new nodes as live nodes holding their pods, as they stand
+    once launched and bound: node i of the node's committed type (its first
+    feasible type), zone and capacity type."""
+    out = []
+    for i, vn in enumerate(result.new_nodes):
+        name = f"node-{i}"
+        ct = next(
+            r.single_value() for r in vn.requirements if r.key == L.LABEL_CAPACITY_TYPE
+        )
+        pods = [dataclasses.replace(p, node_name=name, phase="Running") for p in vn.pods]
+        out.append(node_of_type(
+            name, vn.feasible_types[0], sorted(vn.zone_options())[0], vn.pool.name,
+            ct, pods,
+        ))
+    return out
+
+
+def node_prices(
+    existing: Sequence[StateNode], inventory: Dict[str, List[InstanceType]],
+) -> List[float]:
+    """Each node's price: its type's offering in its zone and capacity
+    type, from its pool's inventory."""
+    out = []
+    for sn in existing:
+        it = next(t for t in inventory[sn.pool_name] if t.name == sn.instance_type_name)
+        out.append(next(
+            o.price for o in it.offerings
+            if o.zone == sn.zone and o.capacity_type == sn.capacity_type
+        ))
+    return out
+
+
+def consolidation_sweep(pods: int = 560, device="cpu"):
+    """The cluster of ``bench.py``'s consolidation configs (4b, 4c): ``pods``
+    pods alternating 0.5 vCPU / 1 GiB and 1 vCPU / 2 GiB over the
+    two-generation catalog of 4 and 8 vCPU shapes, solved cold by the port
+    on ``device``; the nodes it opens become the live cluster, every node a
+    candidate.  Returns ``(pools, inventory, existing, candidates)``."""
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pool = default_node_pool()
+    shapes = generate_catalog(generations=(1, 2), cpus=(4, 8))
+    inventory = {pool.name: instance_types(pool, shapes)}
+    batch = [Pod(requests=BOUND_SIZES[i % 2]) for i in range(pods)]
+    result = TorchScheduler([pool], inventory, device=device).solve(batch)
+    existing = settled_cluster(result)
+    return [pool], inventory, existing, ranked_candidates(existing)

@@ -98,14 +98,21 @@ def test_scan_latency_floor():
 
 
 def test_kernels_line_rows():
-    """Four rows, one per counted kernel, the two big-slot scans at the live
-    cluster; phase 4 times the cluster sizes the rule does not pick."""
+    """A row per counted kernel: the solve's four, the two big-slot scans
+    at the live cluster, then phase 6's five (the batched scans, each at the
+    problem whose shapes pick it, and the verdict kernels at ``live``);
+    phase 4 times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
-        "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
+        "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
+        "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
+        "verdict_rows", "population_prologue")
     assert set(chip_smoke.KERNELS) == set(fused_packer.LAUNCHES)
     assert set(chip_smoke.ROW_PROBLEM) == set(chip_smoke.KERNELS)
+    assert set(chip_smoke.VERDICT_REPLACES) == set(chip_smoke.VERDICT_KERNELS)
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
+    for name, scan in chip_smoke.VERDICT_SCAN.items():
+        assert chip_smoke.ROW_PROBLEM[f"{scan}_batched"] == name
     picked = fused_packer.cluster_layout(4096, 6, 2, 8192)[0]
     others = chip_smoke.other_cluster_sizes(4096, 6, 2, 8192)
     assert sorted(others + [picked]) == [2, 4, 8]
@@ -155,13 +162,14 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "1"], 1),
     (["--through", "3"], 3),
     (["--through", "4"], 4),
+    (["--through", "5"], 5),
 ])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "5"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "6"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -212,3 +220,79 @@ def test_ptxas_resources_per_kernel():
         "_ZN12_GLOBAL__N_120choose_config_kernelILb1EEEvPKfPKiPKhS2_S2_S6_iiiiPiS7_S7_": (54, 0, 0),
         "_ZN12_GLOBAL__N_115ffd_scan_kernelILi1EEEvPKf": (40, 12, 8),
     }
+
+
+def _tiny_batch():
+    """`_tiny_pack` as one element of a batch: its own class order, its
+    counts, nothing removed; with the scan's outputs."""
+    from karpenter_tpu_torch.ops import packer as P
+
+    args, take, node_cfg = _tiny_pack()
+    (req, cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    chosen = P.choose_config_reference(req, maxper, feas, alloc, price, openable)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt[None], torch.zeros((1, 3), dtype=torch.bool),
+                 torch.arange(2, dtype=torch.int32)[None])
+    outs = P.ffd_scan_batch_reference(*scan_args)
+    return args, take, node_cfg, scan_args, outs
+
+
+def test_batched_bound_is_the_scan_bound_per_element():
+    """Phase 6's batched-scan bound of one element in base order counts the
+    operations of the scan's bound, and its bytes plus the element's class
+    order and removal row."""
+    args, _, _, scan_args, outs = _tiny_batch()
+    one = chip_smoke.kernel_bounds(args, outs[0][0], outs[2][0])["ffd_scan"]
+    b = chip_smoke.batched_scan_bound(torch, scan_args, outs)
+    assert b["operations"] == one["operations"]
+    assert b["bytes"] == one["bytes"] + 3 * 1 + 2 * 4  # rm_b [1, K] bool, perm_b [1, G]
+    assert b["bound_ms"] == b["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+def test_verdict_bounds_count_the_run():
+    from karpenter_tpu_torch.ops import packer as P
+
+    args, _, _, scan_args, outs = _tiny_batch()
+    feas, alloc, price, openable = args[4:8]
+    ids = torch.zeros(4, dtype=torch.int32)
+    tail = (scan_args[15], feas, alloc, price, openable, ids, ids, ids,
+            torch.ones(2, dtype=torch.bool), 1)
+    rows = P.verdict_rows_reference(*outs, *tail)
+    assert rows[0, P.RV_NEW_COUNT] == 2  # slots 1 and 2 open, class 0 on them
+    b = chip_smoke.verdict_rows_bound(torch, outs, tail, rows)
+    # B 1, G 2, K 3, C 4, R 1: leftovers, pod counts of slots 1-2, k_star's
+    # config, take columns and usage rows of 2 new slots + k_star, the class
+    # order, class 0's feasibility row, the config arrays, compactable, the row
+    assert b["bytes"] == 8 + 2 * 4 + 4 + 3 * (2 + 1) * 4 + 8 + 4 + 4 * (4 + 4 + 1 + 12) + 2 + 24
+    assert b["operations"] == 4 * (3 + 4 + 6) + 2 + 2 * 2
+    pop = (torch.tensor([[1, 0], [2, 1]], dtype=torch.int32), torch.tensor([0, 3], dtype=torch.int32),
+           torch.tensor([[0, 2**29], [4, 5]], dtype=torch.int32), torch.tensor([1, 0], dtype=torch.int32),
+           9, torch.tensor([[True, True], [False, True]]), 3)
+    cnt_b, rm_b, perm_b = P.population_prologue_reference(*pop)
+    assert perm_b.tolist() == [[1, 0], [1, 0]] and cnt_b.tolist() == [[1, 3], [1, 2]]
+    assert rm_b.tolist() == [[True, False, False], [False, False, False]]
+    b = chip_smoke.prologue_bound(pop, (cnt_b, rm_b, perm_b))
+    assert b["bytes"] == 4 + 16 + 16 + 8 + 8 + (16 + 6 + 16)
+    assert b["operations"] == 3 * 2 * 2 + 2 * 2 * 2 + 3
+
+
+def test_phase6_drive_on_the_cpu():
+    """Phase 6's drive at a small sweep on the CPU: the removal batch and
+    each round of a plan pass go through the verdict entry points, and
+    `verdict_inputs`' removal batch is the one the entry point built."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, existing, cands = T.consolidation_sweep(pods=80)
+    spec = dict(pools=pools, inventory=inv, existing=existing, universe=cands,
+                subsets=[[c] for c in cands], population=16,
+                prices=T.node_prices(existing, inv))
+    sched = TorchScheduler(pools, inv, existing=existing, device="cpu")
+    removals, rounds, best, calls = chip_smoke.drive_verdicts(sched, spec)
+    assert len(removals) == len(cands)
+    assert [c[0] for c in calls] == ["evaluate_removals"] + ["evaluate_population"] * len(rounds)
+    assert 1 <= len(rounds) <= chip_smoke.SEARCH_ROUNDS
+    assert all(len(keys) == len(vs) for keys, vs in rounds)
+    masks = chip_smoke.key_masks(rounds[0][0], len(cands))
+    assert masks.sum(1).tolist() == [len(k) for k in rounds[0][0]]

@@ -259,3 +259,140 @@ def test_warm_ticks_on_card_match_cpu(cuda_device, live_nodes, kernel):
         if h.dtype == np.float32:
             d, h = d.view(np.int32), h.view(np.int32)
         np.testing.assert_array_equal(d, h)
+
+
+# ---------------------------------------------------------------------------
+# The consolidation verdicts: the batched scans, verdict_rows and
+# population_prologue against their plain versions on the same card tensors
+# ---------------------------------------------------------------------------
+
+
+def _sweep(dev, pods=560):
+    """bench.py's consolidation sweep (testing.consolidation_sweep): its
+    removal base on ``dev``, the universe and the scheduler."""
+    pools, inv, existing, cands = T.consolidation_sweep(pods)
+    sched = TorchScheduler(pools, inv, existing=existing, device=dev)
+    base = sched._removal_base(tuple(cands))
+    assert not base.reason and not base.empty and not base.pop_reason
+    return sched, base, cands
+
+
+def _random_batch(base, B, seed):
+    """B seeded what-if elements over a base (host numpy): class orders,
+    counts and removed live slots."""
+    rng = np.random.RandomState(seed)
+    perm = np.stack([rng.permutation(base.gp) for _ in range(B)]).astype(np.int32)
+    cnt = rng.randint(0, 5, (B, base.gp)).astype(np.int32)
+    rm = np.zeros((B, base.kp), bool)
+    rm[:, : base.n_live] = rng.rand(B, base.n_live) < 0.2
+    return cnt, rm, perm
+
+
+def _batched_case(case, dev):
+    """``(base args on dev, cnt_b, rm_b, perm_b)``: the sweep's singles
+    (the resident scan at Kp 1024), or config 2's pods at 4096 slots with a
+    seeded batch (the cluster scan)."""
+    if case == "sweep":
+        sched, base, cands = _sweep(dev)
+        cnt, rm, perm, bad = sched._subset_batch(base, [[c] for c in cands])
+        assert not bad
+        return base.args, *to_device((cnt, rm, perm), dev)
+    pools, inv, pods = T.heterogeneous_problem(scale=0.02)
+    host = pad_problem(compile_problem(pods, pools, inv), 4096)[0]
+    G, K = host[0].shape[0], host[8].shape[0]
+    rng = np.random.RandomState(5)
+    perm = np.stack([rng.permutation(G) for _ in range(16)]).astype(np.int32)
+    cnt = rng.randint(0, 9, (16, G)).astype(np.int32)
+    return to_device(host, dev), *to_device((cnt, np.zeros((16, K), bool), perm), dev)
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("case,kernel", [("sweep", "ffd_scan_batched"),
+                                         ("heterogeneous-4096", "ffd_scan_cluster_batched")])
+def test_batched_scan_matches_reference(cuda_device, case, kernel, objective):
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference
+
+    args, cnt_b, rm_b, perm_b = _batched_case(case, cuda_device)
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
+    assert moved == {kernel: 1}
+    _assert_bit_equal(got, ffd_scan_batch_reference(*scan_args))
+
+
+def test_batched_global_scan_matches_reference(cuda_device):
+    """The global scan with the batch axis (the shapes past the cluster
+    scan's), through its launcher, on the sweep's singles."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference
+
+    args, cnt_b, rm_b, perm_b = _batched_case("sweep", cuda_device)
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    shapes = (req.shape[0], alloc.shape[0], used0.shape[0], req.shape[1], sig0.shape[0])
+    got, moved = _launch_moves(lambda: fused_packer._launch_global(
+        (req, cnt_b[0], maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0),
+        shapes, (perm_b.shape[0], perm_b, cnt_b, rm_b)))
+    assert moved == {"ffd_scan_global_batched": 1}
+    _assert_bit_equal(got, ffd_scan_batch_reference(
+        req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+        cnt_b, rm_b, perm_b))
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+def test_verdict_kernels_match_reference(cuda_device, objective):
+    """At the sweep's shape: `population_prologue` on a seeded population,
+    then `verdict_rows` on the batched scan's outputs, each bit-equal to
+    its plain version, and the whole `population_verdicts` to the plain
+    `population_verdicts_reference`."""
+    from karpenter_tpu_torch.ops.packer import (
+        population_prologue_reference,
+        population_verdicts_reference,
+        verdict_rows_reference,
+    )
+
+    _, base, cands = _sweep(cuda_device)
+    rng = np.random.RandomState(1)
+    masks = torch.from_numpy(rng.rand(64, base.cand_slot.shape[0]) < 0.3).to(cuda_device)
+    masks[:, len(cands):] = False
+    pop = (base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank, base.occ_span,
+           masks, base.k_slots)
+    got, moved = _launch_moves(lambda: fused_packer.population_prologue(*pop))
+    assert moved == {"population_prologue": 1}
+    _assert_bit_equal(got, population_prologue_reference(*pop))
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = base.args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    outs = fused_packer.ffd_scan_batch(req, maxper, slot, feas, alloc, *chosen,
+                                       used0, cfg0, npods0, next0, sig0, *got)
+    tail = (got[2], feas, alloc, price, openable, base.pool_id, base.zone_id, base.ct_id,
+            base.compactable, next0)
+    rows, moved = _launch_moves(lambda: fused_packer.verdict_rows(*outs, *tail))
+    assert moved == {"verdict_rows": 1}
+    _assert_bit_equal([rows], [verdict_rows_reference(*outs, *tail)])
+    plain_args = (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0,
+                  next0, sig0, base.pool_id, base.zone_id, base.ct_id, base.compactable,
+                  base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank,
+                  base.occ_span, masks)
+    _assert_bit_equal([rows], [population_verdicts_reference(*plain_args, objective=objective)])
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+def test_verdicts_on_card_match_cpu(cuda_device, objective):
+    """`evaluate_removals` on the singles and `evaluate_population` on a
+    seeded population through the card equal the same calls on the CPU."""
+    pools, inv, existing, cands = T.consolidation_sweep()
+    card = TorchScheduler(pools, inv, existing=existing, device=cuda_device,
+                          objective=objective)
+    cpu = TorchScheduler(pools, inv, existing=existing, device="cpu", objective=objective)
+    singles = [[c] for c in cands]
+    got, moved = _launch_moves(lambda: card.evaluate_removals(singles, cands))
+    assert moved.get("verdict_rows") == 1 and moved.get("ffd_scan_batched") == 1
+    assert got == cpu.evaluate_removals(singles, cands)
+    masks = np.random.RandomState(2).rand(100, len(cands)) < 0.25
+    got, moved = _launch_moves(lambda: card.evaluate_population(masks, cands))
+    assert moved.get("population_prologue") == 1
+    assert got == cpu.evaluate_population(masks, cands)

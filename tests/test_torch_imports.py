@@ -2,8 +2,10 @@
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
 and ``karpenter_tpu`` / ``karpenter_tpu.*`` (but not ``karpenter_tpu_torch``),
-then imports the port (the resident tensors' module too) and ``chip_smoke``
-and runs a small CPU cold solve, a compile-cache hit and a one-pod delta."""
+then imports the port (the resident tensors' module and the population
+search too) and ``chip_smoke`` and runs a small CPU cold solve, a
+compile-cache hit, a one-pod delta, a removal batch and a population
+round."""
 
 import pathlib
 import subprocess
@@ -37,6 +39,7 @@ import chip_smoke  # noqa: F401
 import karpenter_tpu_torch
 from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.ops import _build, fused_packer, resident  # noqa: F401
+from karpenter_tpu_torch.scheduling.popsearch import SearchPlan
 
 pools, inv, pods = T.heterogeneous_problem(scale=0.01)
 sched = karpenter_tpu_torch.TorchScheduler(pools, inv, device="cpu")
@@ -51,6 +54,20 @@ pods = pods + [type(pods[0])(requests=pods[0].requests)]  # one arrival
 result = sched.solve(pods)
 assert sched.last_resident and sched.last_delta_rows > 0, sched.last_delta_rows
 assert sum(len(n.pods) for n in result.new_nodes) == len(pods)
+# the consolidation verdicts: a removal batch and a population round
+import numpy as np
+
+pools, inv, existing, cands = T.consolidation_sweep(pods=60)
+sched = karpenter_tpu_torch.TorchScheduler(pools, inv, existing=existing, device="cpu")
+verdicts = sched.evaluate_removals([[c] for c in cands], cands)
+assert len(verdicts) == len(cands) and sched.last_removal_batch == len(cands)
+plan = SearchPlan(len(cands), T.node_prices(existing, inv), [False] * len(cands), 8, 1, 0)
+keys = plan.propose()
+masks = np.zeros((len(keys), len(cands)), bool)
+for r, k in enumerate(keys):
+    masks[r, list(k)] = True
+plan.observe(keys, [(v.fits, v.replacement_price) for v in sched.evaluate_population(masks, cands)])
+assert sched.last_removal_batch == len(keys)
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

@@ -12,6 +12,8 @@ from __future__ import annotations
 import importlib
 from types import SimpleNamespace
 
+import numpy as np
+
 SMALL_SHAPES = dict(generations=(1, 2), cpus=(1, 2, 4, 8, 16, 32, 64, 128))
 
 
@@ -42,6 +44,7 @@ def side(pkg: str) -> SimpleNamespace:
             return s.api.NodePool(name=name, node_class_ref="default", **kw)
 
         scheduler = TensorScheduler
+        from karpenter_tpu.scheduling.solver import RemovalCandidate
     else:
         from karpenter_tpu_torch import testing as T
         from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
@@ -57,7 +60,10 @@ def side(pkg: str) -> SimpleNamespace:
         def scheduler(pools, inventory, **kw):
             return TorchScheduler(pools, inventory, device="cpu", **kw)
 
+        from karpenter_tpu_torch.scheduling.solver import RemovalCandidate
+
     s.catalog, s.pool, s.Node = catalog, pool, Node
+    s.RemovalCandidate = RemovalCandidate
     # the side's tensor scheduler (the port's on the CPU)
     s.scheduler = scheduler
     return s
@@ -280,3 +286,93 @@ def canonical(result, L):
         sorted(result.existing_placements.items()),
         sorted(result.unschedulable),
     )
+
+
+# ---------------------------------------------------------------------------
+# Consolidation clusters: live nodes holding bound pods
+# ---------------------------------------------------------------------------
+
+
+def consolidation_sizes(s, mixed: bool):
+    """The bound pods' sizes: bench.py's consolidation pair, or (``mixed``)
+    two sizes of one FFD sort key (cpu + memory / 4 GiB = 2) beside a
+    smaller one, so a subset's class order follows first occurrence."""
+    R = s.Resources
+    if mixed:
+        return [R(cpu=1, memory="4Gi"), R(cpu=1.5, memory="2Gi"), R(cpu=0.5, memory="1Gi")]
+    return [R(cpu=0.5, memory="1Gi"), R(cpu=1, memory="2Gi")]
+
+
+def consolidation_types(inventory):
+    """The general pool's 2 and 4 vCPU types, by name."""
+    return sorted(
+        (it for it in inventory["general"] if it.capacity.get("cpu") in (2.0, 4.0)),
+        key=lambda it: it.name,
+    )
+
+
+def consolidation(s, seed: int, nodes: int, mixed: bool = False):
+    """``(pools, inventory, existing, candidates)`` of a seeded live cluster
+    on side ``s``, the JAX package's and the port's alike: node i is
+    ``node-i`` of a seeded 2 or 4 vCPU type of the general pool in zone i %
+    3, holding those of a seeded 2-6 bound pods of seeded sizes that fit it;
+    every node is a candidate, ranked by pod count, then node order.  The same draws as
+    ``karpenter_tpu_torch.testing.consolidation_cluster``."""
+    s.reset()
+    L = s.L
+    pools = [s.pool("general")]
+    inventory = s.catalog(pools, SMALL_SHAPES)
+    types = consolidation_types(inventory)
+    sizes = consolidation_sizes(s, mixed)
+    rng = np.random.RandomState(seed)
+    existing = []
+    for i in range(nodes):
+        it = types[rng.randint(len(types))]
+        name = f"node-{i}"
+        pods, used = [], s.Resources()
+        for j in range(rng.randint(2, 7)):
+            pod = s.Pod(name=f"{name}-{j}", requests=sizes[rng.randint(len(sizes))],
+                        node_name=name, phase="Running")
+            if (used + pod.requests).fits(it.allocatable()):
+                pods.append(pod)
+                used = used + pod.requests
+        zone = ("zone-a", "zone-b", "zone-c")[i % 3]
+        existing.append(
+            s.StateNode(
+                name=name,
+                provider_id=f"i-{name}",
+                labels={
+                    L.LABEL_ARCH: "amd64",
+                    L.LABEL_OS: "linux",
+                    L.LABEL_ZONE: zone,
+                    L.LABEL_NODEPOOL: "general",
+                    L.LABEL_INSTANCE_TYPE: it.name,
+                    L.LABEL_CAPACITY_TYPE: "on-demand",
+                    L.LABEL_HOSTNAME: name,
+                },
+                taints=[],
+                allocatable=it.allocatable(),
+                capacity=it.capacity,
+                pods=pods,
+                used=used,
+            )
+        )
+    order = sorted(range(nodes), key=lambda i: (len(existing[i].pods), i))
+    candidates = [
+        s.RemovalCandidate(existing[i].name, tuple(existing[i].pods)) for i in order
+    ]
+    return pools, inventory, existing, candidates
+
+
+def node_content(existing):
+    """Live nodes as comparable plain data."""
+    return [
+        (
+            sn.name,
+            sorted(sn.labels.items()),
+            sorted(sn.allocatable.items()),
+            sorted(sn.used.items()),
+            [(p.name, sorted(p.requests.items()), p.node_name) for p in sn.pods],
+        )
+        for sn in existing
+    ]
