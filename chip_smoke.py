@@ -10,8 +10,8 @@ Phases (each failure exits non-zero before the last line is printed):
    power limit as ``nvidia-smi`` reports them.
 2. Build: compiles every CUDA source of the package with ``nvcc`` (all at
    once) and prints the ``-Xptxas -v`` summary of each, then the registers
-   and spills of each instance of ``choose_config_kernel`` (fails on a
-   spill).
+   and spills of each instance of ``choose_config_kernel`` and of the
+   verdict and prologue kernels (fails on a spill).
 3. Kernel vs plain: each kernel beside its plain PyTorch version on the
    same card tensors, both objectives; every output must be bit-equal, and
    each scan call must launch the kernel expected of it (the wrapper picks
@@ -86,18 +86,28 @@ Phases (each failure exits non-zero before the last line is printed):
    scan); the 64 singles and the 64 drop-one subsets, then a pass at
    population 512, 2 rounds.  The launch counters are set to 0 just before
    the drive and read just after: the batched scan of each problem's
-   shapes, ``verdict_rows`` and ``population_prologue`` must each have
-   launched, ``ffd_scan_global_batched`` not.  The decoded verdicts (and
-   the plan's proposals and pick) must equal the same calls through
-   ``device="cpu"``.  Then on the same card tensors each kernel against its
-   plain version, bit for bit: the batched scan (full outputs; at ``live``
-   also through the global scan), ``population_prologue``'s three outputs
-   and the [B, 6] rows; each kernel's device time (torch.profiler), its
-   bound and the batched scan's latency floor (class steps x (barrier + 2 /
-   32 L2 loads) x ceil(B / elements the card runs at once)), the plain
-   versions' times, ``torch.argsort(stable=True)`` beside the prologue, the
-   p50 of both entry points with their last phases, and the count of
-   ``needs_host`` verdicts.
+   shapes, each of `verdict_rows`' three launches (``verdict_summary``,
+   ``verdict_configs``, ``verdict_write``) and ``population_pairs`` (the
+   prologue) must have launched, ``ffd_scan_global_batched`` not.  The
+   decoded verdicts (and the plan's proposals and pick) must equal the
+   same calls through ``device="cpu"``.  Then on the same card tensors
+   each kernel against its plain version, bit for bit: the batched scan
+   (full outputs; at ``live`` also through the global scan),
+   ``population_prologue``'s three outputs and the [B, 6] rows; then the
+   tie and edge cases (``testing.verdict_tie_arrays``: equal masked prices
+   across warps and config tiles, elements in two groups, an element with
+   every config masked, one with no new slot, one with many; Gp 8 and 40;
+   Cp 6, 1000 and 8192 at the live problem's Kp 4096 and B 512; next0 0
+   and K), both objectives, through ``removal_verdicts`` and through
+   `verdict_rows` at next0, 0 and K; the prologue with U and Gp past its
+   block (``testing.population_arrays``).  Each kernel's device time
+   (torch.profiler; `verdict_rows`' launches and their sum, and its
+   CUDA-event time a back-to-back call), its bound and the batched scan's
+   latency floor (class steps x (barrier + 2 / 32 L2 loads) x ceil(B /
+   elements the card runs at once)), the plain versions' times,
+   ``torch.argsort(stable=True)`` beside the prologue, the p50 of both
+   entry points with their last phases, and the count of ``needs_host``
+   verdicts.
 Then it prints the kernels JSON line (every kernel, the old and the new),
 the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -121,9 +131,14 @@ KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
 SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
 # the consolidation verdicts' kernels (phase 6): the scans with the batch
-# axis, counted apart from the solve's, and the two verdict kernels
+# axis, counted apart from the solve's, the three launches of
+# `verdict_rows` and the one of `population_prologue`
+VERDICT_ROWS = ("verdict_summary", "verdict_configs", "verdict_write")
 VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
-                   "ffd_scan_global_batched", "verdict_rows", "population_prologue")
+                   "ffd_scan_global_batched", *VERDICT_ROWS, "population_pairs")
+# the wrapper (the function held to its plain version) of each verdict launch
+VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
+                    "population_pairs": "population_prologue"}
 KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS)
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
@@ -132,22 +147,36 @@ LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live",
                "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
-               "ffd_scan_global_batched": "live", "verdict_rows": "live",
-               "population_prologue": "live"}
+               "ffd_scan_global_batched": "live",
+               **{k: "live" for k in VERDICT_FUNCTION}}
 OBJECTIVES = ("nodes", "cost")
 # phase 6: the sweep's pods, the live cluster's nodes and universe, each
 # problem's population and rounds, the plan's seed, timed repeats
 # the JAX package's device functions each verdict kernel takes the place of
 # (jitted XLA functions, not Pallas kernels): the batched scans run
-# removal_verdict_kernel's vmapped _pack_core, verdict_rows its _verdict_row
-# epilogue, population_prologue population_verdict_kernel's prologue
+# removal_verdict_kernel's vmapped _pack_core, verdict_rows' launches its
+# _verdict_row epilogue, population_pairs population_verdict_kernel's
+# prologue
 VERDICT_REPLACES = {
     "ffd_scan_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_cluster_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_global_batched": "karpenter_tpu/ops/packer.py:615",
-    "verdict_rows": "karpenter_tpu/ops/packer.py:525",
-    "population_prologue": "karpenter_tpu/ops/packer.py:686",
+    **{k: "karpenter_tpu/ops/packer.py:525" for k in VERDICT_ROWS},
+    "population_pairs": "karpenter_tpu/ops/packer.py:686",
 }
+# phase 6's tie and edge cases (testing.verdict_tie_arrays): name ->
+# (classes, configs, slots, elements, live slots); the first at the live
+# problem's shape
+TIE_CASES = {
+    "ties Cp 8192 Kp 4096 B 512": (8, 8192, 4096, 512, 2000),
+    "ties Gp 40 Cp 1000": (40, 1000, 512, 40, 4),
+    "ties Cp 6": (8, 6, 64, 40, 4),
+    "ties next0 = K": (8, 300, 16, 3, 16),
+    "ties next0 = 0": (8, 300, 32, 5, 0),
+}
+# population_prologue's cases (testing.population_arrays): (candidates,
+# classes, slots, members), the first two past its block of 256 threads
+PROLOGUE_CASES = ((300, 300, 1000, 16), (600, 40, 4096, 8), (64, 8, 4096, 512))
 SWEEP_PODS = 560
 LIVE_UNIVERSE = 64
 POPULATION = {"sweep": 320, "live": 512}
@@ -156,6 +185,8 @@ TIMED_VERDICTS = 5
 # the scan each verdict problem's shapes pick, and its batched launch count
 VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
+# the kernels whose registers phase 2 prints and whose spills fail the run
+SPILL_CHECKED = ("choose_config", *VERDICT_ROWS, "population_pairs")
 
 
 LAST_PHASE = 6
@@ -525,9 +556,9 @@ def _device_us(ev) -> float:
     return dev_us if dev_us is not None else getattr(ev, "self_cuda_time_total", 0.0)
 
 
-def profiled_ms(torch, fn, kernel: str, iters: int):
-    """Mean device milliseconds per launch of ``kernel`` over ``iters``
-    calls of ``fn``, from torch.profiler."""
+def profiled_launches_ms(torch, fn, kernels, iters: int) -> dict:
+    """Mean device milliseconds per launch of each kernel of ``kernels``
+    over ``iters`` calls of ``fn``, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -536,14 +567,24 @@ def profiled_ms(torch, fn, kernel: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if f"{kernel}_kernel" in ev.key and _device_us(ev) > 0:
-            total_us += _device_us(ev)
-            count += ev.count
-    if not count:
-        fail(f"torch.profiler saw no device time of {kernel}")
-    return total_us / count / 1e3
+    events = prof.key_averages()
+    out = {}
+    for kernel in kernels:
+        total_us, count = 0.0, 0
+        for ev in events:
+            if f"{kernel}_kernel" in ev.key and _device_us(ev) > 0:
+                total_us += _device_us(ev)
+                count += ev.count
+        if not count:
+            fail(f"torch.profiler saw no device time of {kernel}")
+        out[kernel] = total_us / count / 1e3
+    return out
+
+
+def profiled_ms(torch, fn, kernel: str, iters: int):
+    """Mean device milliseconds per launch of ``kernel`` over ``iters``
+    calls of ``fn``, from torch.profiler."""
+    return profiled_launches_ms(torch, fn, (kernel,), iters)[kernel]
 
 
 def time_kernels(torch, args, scan_turns: bool = False):
@@ -982,7 +1023,10 @@ def verdict_rows_bound(torch, outs, tail, rows):
     feasibility rows of the classes on new slots are read once; operations:
     per element and config the fit tests (2 per axis and the add), the
     class feasibility tests and the argmin (6), plus a test per window slot
-    and class of a new slot."""
+    and class of a new slot.  ``parts`` splits the bytes and operations
+    over the three launches: the per-element reads and the slot and class
+    tests (`verdict_summary`), the config arrays, the feasibility rows and
+    the per-config tests (`verdict_configs`), the rows (`verdict_write`)."""
     take, leftover, node_cfg, node_pods, node_used = outs
     (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0) = tail
     B, G, K = take.shape
@@ -990,10 +1034,15 @@ def verdict_rows_bound(torch, outs, tail, rows):
     new = rows[:, 1].long()  # new slots per element
     on_new = (take[:, :, int(next0):] > 0).any(2)  # [B, G]
     feas_rows = int(torch.unique(perm_b.long()[on_new]).numel())
-    byts = (B * G * 4 + B * (K - int(next0)) * 4 + B * 4 + int((new + 1).sum()) * (G + R) * 4
-            + B * G * 4 + feas_rows * C + C * (R * 4 + 4 + 1 + 12) + G + B * 6 * 4)
-    ops = B * C * (3 * R + 2 * G + 6) + B * (K - int(next0)) + int(new.sum()) * G
-    return _bound(byts, ops)
+    summary = (B * G * 4 + B * (K - int(next0)) * 4 + B * 4 + int((new + 1).sum()) * (G + R) * 4
+               + B * G * 4 + G, B * (K - int(next0)) + int(new.sum()) * G)
+    configs = (feas_rows * C + C * (R * 4 + 4 + 1 + 12), B * C * (3 * R + 2 * G + 6))
+    write = (B * 6 * 4, 0)
+    parts = dict(zip(("verdict_summary", "verdict_configs", "verdict_write"),
+                     (summary, configs, write)))
+    out = _bound(sum(b for b, _ in parts.values()), sum(o for _, o in parts.values()))
+    out["parts"] = {k: _bound(*v) for k, v in parts.items()}
+    return out
 
 
 def prologue_bound(pop, outs):
@@ -1011,28 +1060,49 @@ def prologue_bound(pop, outs):
 
 
 def time_verdict_kernels(torch, name, pop, pop_outs):
-    """Device ms a launch (torch.profiler) of the batched scan,
-    `verdict_rows` and `population_prologue` on the population's tensors,
+    """Device ms a launch (torch.profiler) of the batched scan, each launch
+    of `verdict_rows` and `population_pairs` on the population's tensors,
     beside their plain versions (CUDA events) and, beside the prologue,
     ``torch.argsort(stable=True)`` of the same keys' shape; at ``live``
-    the global batched scan's ms a launch by CUDA events."""
+    the global batched scan's ms a launch by CUDA events.  Returns those,
+    the argsort's ms and `verdict_rows`' CUDA-event ms per back-to-back
+    call of the wrapper (its three launches and their host enqueue)."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
     scan_args, outs, tail = pop_outs
     picked = VERDICT_SCAN[name]
+    rows = lambda: F.verdict_rows(*outs, *tail)
+    rows_ms = profiled_launches_ms(torch, rows, VERDICT_ROWS, iters=50)
+    rows_plain = cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)
     out = {
         f"{picked}_batched": (
             profiled_ms(torch, lambda: F.ffd_scan_batch(*scan_args), picked, iters=20),
             cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=2, warmup=1)),
-        "verdict_rows": (
-            profiled_ms(torch, lambda: F.verdict_rows(*outs, *tail), "verdict_rows", iters=50),
-            cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)),
-        "population_prologue": (
-            profiled_ms(torch, lambda: F.population_prologue(*pop), "population_prologue",
+        **{k: (rows_ms[k], rows_plain) for k in VERDICT_ROWS},
+        "population_pairs": (
+            profiled_ms(torch, lambda: F.population_prologue(*pop), "population_pairs",
                         iters=50),
             cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
     }
+    rows_events = cuda_ms(torch, rows, iters=50)
+    # draft: the config pass writing the rows itself (the last block of an
+    # element group to finish), against the third launch, in turns
+    want = P.verdict_rows_reference(*outs, *tail)
+    turns = []
+    for fused in (False, True, True, False):
+        F.VERDICT_FUSED_WRITE = fused
+        try:
+            if max_abs_err(torch, [rows()], [want]) != 0:
+                fail(f"{name}: verdict_rows (fused={fused}) disagrees with its plain version")
+            launched = VERDICT_ROWS if not fused else VERDICT_ROWS[:2]
+            ms = profiled_launches_ms(torch, rows, launched, iters=50)
+            turns.append((fused, sum(ms.values()), ms, cuda_ms(torch, rows, iters=50)))
+        finally:
+            F.VERDICT_FUSED_WRITE = False
+    for fused, total, ms, ev in turns:
+        print(f"  {name} verdict_rows {'fused write' if fused else 'third launch'}: "
+              f"device ms a launch {ms!r}, sum {total!r}; CUDA events a call {ev!r}")
     if name == "live":
         shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
                   scan_args[0].shape[1], scan_args[12].shape[0])
@@ -1046,7 +1116,7 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
     keys = torch.randint(0, 2**30, (pop[5].shape[0], pop[3].shape[0]), dtype=torch.int32,
                          device="cuda")
     argsort_ms = cuda_ms(torch, lambda: torch.argsort(keys, dim=1, stable=True), iters=50)
-    return out, argsort_ms
+    return out, argsort_ms, rows_events
 
 
 def batched_floor_ms(torch, name, base, B, barrier_us, l2_us) -> float:
@@ -1065,6 +1135,64 @@ def batched_floor_ms(torch, name, base, B, barrier_us, l2_us) -> float:
           f"barrier + {loads} L2 x {l2_us!r} us) x {waves} waves ({B} elements, {at_once} at "
           f"once) = {ms!r} ms")
     return ms
+
+
+def compare_tie_cases(torch):
+    """Phase 6's tie and edge cases, both objectives, kernels against their
+    plain versions bit for bit: on each of `TIE_CASES` the removal verdicts
+    through the card (the choice, the batched scan the shapes pick, the
+    three launches of `verdict_rows`, each once) and `verdict_rows` on the
+    scan's outputs at next0, 0 and K; `population_prologue` on each of
+    `PROLOGUE_CASES` (one launch).  Returns the largest error per function."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    dev = torch.device("cuda")
+    errs = {"verdict_rows": 0.0, "population_prologue": 0.0}
+
+    def moved_by(fn):
+        before = dict(F.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
+
+    for name, shape in TIE_CASES.items():
+        a = P.to_device(T.verdict_tie_arrays(*shape), dev)
+        (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+         pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+        K, R = used0.shape
+        scan = F.scan_kernel(K, R, sig0.shape[0], alloc.shape[0]) + "_batched"
+        tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
+        for objective in OBJECTIVES:
+            got, moved = moved_by(lambda: F.removal_verdicts(*a, objective=objective))
+            if moved != {"choose_config": 1, scan: 1, **{k: 1 for k in VERDICT_ROWS}}:
+                fail(f"{name}: removal_verdicts launched {moved}")
+            e = max_abs_err(torch, [got], [P.removal_verdicts_reference(*a, objective=objective)])
+            chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
+            outs = F.ffd_scan_batch(req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0,
+                                    next0, sig0, cnt_b, rm_b, perm_b)
+            for n0 in sorted({next0, 0, K}):
+                e = max(e, max_abs_err(torch, [F.verdict_rows(*outs, *tail, n0)],
+                                       [P.verdict_rows_reference(*outs, *tail, n0)]))
+            print(f"  {name} {objective}: B={perm_b.shape[0]} Gp={req.shape[0]} Kp={K} "
+                  f"Cp={alloc.shape[0]} next0={next0} ({scan}): verdict_rows max_abs_err={e!r} "
+                  f"(also at next0 0 and K); rows {int(torch.isinf(got[:, 3]).sum())} +inf, "
+                  f"c_min {sorted(set(got[:, 2].int().tolist()))[:6]}...")
+            if e != 0:
+                fail(f"{name} {objective}: verdict_rows disagrees with its plain version")
+            errs["verdict_rows"] = max(errs["verdict_rows"], e)
+    for U, G, K, Pm in PROLOGUE_CASES:
+        a = P.to_device(T.population_arrays(U, G, K, Pm), dev)
+        got, moved = moved_by(lambda: F.population_prologue(*a))
+        if moved != {"population_pairs": 1}:
+            fail(f"population_prologue at U {U} Gp {G} launched {moved}")
+        e = max_abs_err(torch, got, P.population_prologue_reference(*a))
+        errs["population_prologue"] = max(errs["population_prologue"], e)
+        print(f"  population_prologue U={U} Gp={G} K={K} P={Pm}: max_abs_err={e!r}")
+        if e != 0:
+            fail(f"population_prologue disagrees with its plain version at U {U} Gp {G}")
+    return errs
 
 
 def verdict_phase(torch, card):
@@ -1095,7 +1223,7 @@ def verdict_phase(torch, card):
     print(f"  launches over the drive: {{{', '.join(f'{k!r}: {launches[k]}' for k in VERDICT_KERNELS)}}}"
           f", per problem {per_problem}")
     for name, got in per_problem.items():
-        for k in (f"{VERDICT_SCAN[name]}_batched", "verdict_rows", "population_prologue"):
+        for k in (f"{VERDICT_SCAN[name]}_batched", *VERDICT_FUNCTION):
             if got[k] <= 0:
                 fail(f"{name}: {k} launched no time in the drive")
         print(f"  {name}: the elements ran {VERDICT_SCAN[name]} (batched)")
@@ -1135,6 +1263,8 @@ def verdict_phase(torch, card):
                 errs[k] = max(errs.get(k, 0.0), v)
             if objective == "nodes":
                 timing[name] = (base, pop, pop_outs)
+    for k, v in compare_tie_cases(torch).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     # times, bounds and floors
     threads = sorted({F.scan_threads(pack_shapes(t[0].args)[0]) for t in timing.values()})
     K, R, S, C = pack_shapes(timing["live"][0].args)
@@ -1143,13 +1273,13 @@ def verdict_phase(torch, card):
         torch, threads, [(ctas, F.scan_threads(-(-K // ctas)))])
     figures = {}
     for name, (base, pop, pop_outs) in timing.items():
-        t, argsort_ms = time_verdict_kernels(torch, name, pop, pop_outs)
+        t, argsort_ms, rows_events = time_verdict_kernels(torch, name, pop, pop_outs)
         scan_args, outs, tail = pop_outs
         rows = F.verdict_rows(*outs, *tail)
         b_scan = batched_scan_bound(torch, scan_args, outs)
-        bounds = {f"{VERDICT_SCAN[name]}_batched": b_scan,
-                  "verdict_rows": verdict_rows_bound(torch, outs, tail, rows),
-                  "population_prologue": prologue_bound(pop, scan_args[13:16])}
+        b_rows = verdict_rows_bound(torch, outs, tail, rows)
+        bounds = {f"{VERDICT_SCAN[name]}_batched": b_scan, **b_rows["parts"],
+                  "population_pairs": prologue_bound(pop, scan_args[13:16])}
         if name == "live":
             bounds["ffd_scan_global_batched"] = b_scan
         B = scan_args[15].shape[0]
@@ -1165,14 +1295,21 @@ def verdict_phase(torch, card):
             if ROW_PROBLEM[k] == name:
                 figures[k] = dict(ms=dev_ms, plain_ms=plain_ms, bound=bounds[k],
                                   floor=floor if k == f"{VERDICT_SCAN[name]}_batched" else None,
-                                  argsort_ms=argsort_ms if k == "population_prologue" else None)
+                                  argsort_ms=argsort_ms if k == "population_pairs" else None)
+        launch_sum = sum(t[k][0] for k in VERDICT_ROWS)
+        print(f"  {name} verdict_rows: {' + '.join(f'{k} {t[k][0]!r}' for k in VERDICT_ROWS)} = "
+              f"{launch_sum!r} ms device (profiler); {rows_events!r} ms per back-to-back call of "
+              f"the wrapper (CUDA events); bound {b_rows['bound_ms']!r} ms "
+              f"({b_rows['bound_by']}) ({card})")
         print(f"  {name} torch.argsort(stable=True) of [{pop[5].shape[0]}, {pop[3].shape[0]}] "
-              f"int32 keys: {argsort_ms!r} ms a call (CUDA events) beside population_prologue's "
-              f"{t['population_prologue'][0]!r} ms")
-    for k in VERDICT_KERNELS:
-        if k not in errs:
-            fail(f"phase 6 never compared {k}")
-    return {k: dict(figures[k], launches=launches[k], err=errs[k]) for k in VERDICT_KERNELS}
+              f"int32 keys: {argsort_ms!r} ms a call (CUDA events) beside population_pairs' "
+              f"{t['population_pairs'][0]!r} ms")
+    for f in ("ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
+              "verdict_rows", "population_prologue"):
+        if f not in errs:
+            fail(f"phase 6 never compared {f}")
+    return {k: dict(figures[k], launches=launches[k], err=errs[VERDICT_FUNCTION.get(k, k)])
+            for k in VERDICT_KERNELS}
 
 
 def main(argv) -> int:
@@ -1205,15 +1342,20 @@ def main(argv) -> int:
             fail(f"no -Xptxas -v summary for {name}.cu")
         for line in log.splitlines():
             print(f"  {name}: {line}")
-    choice = {k: v for k, v in ptxas_resources(_build.BUILD_LOG["ffd_pack"]).items()
-              if "choose_config_kernel" in k}
+    res = ptxas_resources(_build.BUILD_LOG["ffd_pack"])
+    choice = [k for k in res if "choose_config_kernel" in k]
     if len(choice) != 2:  # kMulti false and true
         fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 2")
-    for sym, (regs, st, ld) in sorted(choice.items()):
-        print(f"  choose_config_kernel {sym}: {regs} registers, spill stores {st} bytes, "
-              f"spill loads {ld} bytes")
-        if st or ld:
-            fail(f"choose_config_kernel {sym} spills ({st} / {ld} bytes)")
+    for name in SPILL_CHECKED:
+        syms = [k for k in res if f"{name}_kernel" in k]
+        if not syms:
+            fail(f"ptxas reported no {name}_kernel")
+        for sym in sorted(syms):
+            regs, st, ld = res[sym]
+            print(f"  {name}_kernel {sym}: {regs} registers, spill stores {st} bytes, "
+                  f"spill loads {ld} bytes")
+            if st or ld:
+                fail(f"{name}_kernel {sym} spills ({st} / {ld} bytes)")
     phase_done(2, through)
 
     specs = problems()

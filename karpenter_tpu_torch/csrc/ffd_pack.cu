@@ -26,8 +26,8 @@
 //                           counts whose state does not fit a cluster.
 // Each scan takes a batch axis (struct Batch): B what-if problems over one
 // base, one block (resident, global: grid (1, B)) or one cluster (grid
-// (N, B)) per element, for the consolidation verdicts, whose last steps are
-// verdict_rows_kernel and population_prologue_kernel (see "The
+// (N, B)) per element, for the consolidation verdicts, whose other steps
+// are the verdict kernels and the population prologue (see "The
 // consolidation verdicts" below).  The solve's scan is the one element B =
 // 1 with no descriptor.
 // Per class each scan computes per-slot capacity, an exclusive int32 prefix
@@ -1481,203 +1481,436 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
 // removal_verdict_kernel and population_verdict_kernel
 // (karpenter_tpu/ops/packer.py), each _pack_core vmapped over B problems
 // plus a per-element epilogue, _verdict_row.  Here the B scans are one
-// launch of the scans above with the batch axis (Batch), and two kernels
-// do the rest:
-//   verdict_rows_kernel         grid (B,): one block per element reads its
-//                               scan outputs and writes the six-value
-//                               verdict row;
-//   population_prologue_kernel  grid (P,): one block per removal mask
-//                               derives its counts, removed slots and FFD
-//                               class order, the batched scan's inputs.
-// Both are small next to the scans: what bounds them is the latency of a
-// few dependent passes of one block, so each keeps its passes few and its
-// reads coalesced (threads over slots, classes or configs, consecutive
-// threads on consecutive addresses).
+// launch of the scans above with the batch axis (Batch), and the rest is
+// four small kernels:
+//   verdict_summary_kernel  grid (B,): one block per element reads its scan
+//                           outputs and writes a record to scratch: the
+//                           leftover sum, the new slots' count and
+//                           non-donors, c_star and its (pool, zone, ct)
+//                           key, k_star's usage and the new slots' load
+//                           [R] each, and as bit words over base classes
+//                           the classes on k_star and on any new slot;
+//   verdict_configs_kernel  grid (ceil(Cp / kCfgTile), ceil(B / kGroup)):
+//                           each thread loads one config once and tests it
+//                           against the kGroup elements of its group; the
+//                           masked price's first-index argmin per element
+//                           is reduced in the warp and combined across
+//                           blocks by one 64-bit atomicMin, `hold` by
+//                           atomicOr;
+//   verdict_write_kernel    grid (ceil(B / 256),): the six-value rows;
+//   population_pairs_kernel grid (P,): one block per removal mask derives
+//                           its counts, removed slots and FFD class order,
+//                           the batched scan's inputs.
+// What bounds them is latency: each is a few dependent passes.  PR 8's
+// one-block-per-element verdict kernel reloaded the whole config table for
+// every element, a chain of loads per config (31x its bound at 8192
+// configs); the config pass now reads each config once per group of
+// kGroup elements, every load issued before its first use, and tests the
+// group's records from shared memory as mask words (bit el: element
+// e0 + el).  The prologue's block spread its work over 8 of 256 threads,
+// each walking every candidate; now every (candidate, class) pair gets a
+// thread's load.
 
-constexpr int kVerdictThreads = 256;
-constexpr int kVerdictWarps = kVerdictThreads / 32;
-constexpr float kFitSlack = 1e-6f;  // `used <= alloc + 1e-6`
-constexpr int kVerdictWidth = 6;    // ops/packer.py: RV_WIDTH
+constexpr int kSummaryThreads = 256;
+constexpr int kSummaryWarps = kSummaryThreads / 32;
+constexpr int kCfgTile = 256;  // configs of a config-pass block, one a thread
+constexpr int kCfgWarps = kCfgTile / 32;
+constexpr int kGroup = 32;     // elements of a config-pass block: a mask word
+constexpr int kWriteThreads = 256;
+constexpr int kRecInts = 8;    // lo_units, new_count, non_donors, cs, pool, zone, ct, 0
+constexpr float kFitSlack = 1e-6f;   // `used <= alloc + 1e-6`
+constexpr int kVerdictWidth = 6;     // ops/packer.py: RV_WIDTH
+constexpr unsigned kInfKey = 0xff800000u;  // price_key(+inf)
 
-// (s, i) goes before (bs, bi) in a first-index argmin.
-__device__ __forceinline__ bool argmin_before(float s, int i, float bs, int bi) {
-  return s < bs || (s == bs && i < bi);
+// The order-preserving map of a float onto uint32 (a < b as floats iff
+// key(a) < key(b)), with -0.0 taken as +0.0 so the two tie as they compare
+// equal; the first-index argmin of (key << 32 | config) is then a plain
+// 64-bit min.
+__device__ __forceinline__ unsigned price_key(float f) {
+  unsigned u = __float_as_uint(f);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Dynamic shared memory of one verdict block: new_load [R] and the first
-// new slot's usage [R] floats, the element's base rows [Gp], the new-slot
-// bit mask [ceil(K / 32)], then two flag bytes a class.
-__host__ __device__ inline size_t verdict_smem(int Gp, int K, int R) {
-  return (size_t)4 * (2 * R + Gp + (K + 31) / 32) + (size_t)2 * Gp;
+// The scratch of verdict_rows (one allocation, laid out by verdict_scratch).
+struct VerdictScratch {
+  unsigned long long* best;  // [B] (price_key << 32 | config): the argmin cell
+  int* rec;                  // [B][kRecInts]
+  float* load;               // [B][2R]: k_star's usage, then the new slots' load
+  unsigned* flags;           // [B][2W]: on k_star, then on a new slot (bit b: base class b)
+  unsigned* hold;            // [B]
+  unsigned* done;            // [ceil(B / kGroup)]: config tiles finished
+};
+
+inline uintptr_t up16(uintptr_t n) { return (n + 15) & ~(uintptr_t)15; }
+
+// The scratch at `base` for B elements of G classes and R axes; `bytes`
+// gets its size.
+inline VerdictScratch verdict_scratch(void* base, int B, int G, int R, size_t* bytes) {
+  const uintptr_t W = (G + 31) / 32, b = (uintptr_t)B;
+  VerdictScratch s;
+  uintptr_t o = (uintptr_t)base;
+  s.best = (unsigned long long*)o;
+  o = up16(o + 8 * b);
+  s.rec = (int*)o;
+  o = up16(o + 4 * kRecInts * b);
+  s.load = (float*)o;
+  o = up16(o + 4 * 2 * (uintptr_t)R * b);
+  s.flags = (unsigned*)o;
+  o = up16(o + 4 * 2 * W * b);
+  s.hold = (unsigned*)o;
+  o = up16(o + 4 * b);
+  s.done = (unsigned*)o;
+  o = up16(o + 4 * ((b + kGroup - 1) / kGroup));
+  if (bytes) *bytes = (size_t)(o - (uintptr_t)base);
+  return s;
+}
+
+// Sets base class b's bit in `words` (b outside [0, G) names no class).
+__device__ __forceinline__ void set_class(unsigned* words, int b, int G) {
+  if ((unsigned)b < (unsigned)G) atomicOr(words + (b >> 5), 1u << (b & 31));
+}
+
+// Dynamic shared memory of a summary block: the element's base rows [Gp],
+// the new-slot bit mask [ceil(K / 32)], the two class flag masks
+// [ceil(Gp / 32)] each, then compactable of each base row as bytes [Gp].
+__host__ __device__ inline size_t summary_smem(int Gp, int K) {
+  return (size_t)4 * (Gp + (K + 31) / 32 + 2 * ((Gp + 31) / 32)) + (size_t)Gp;
 }
 
 // _verdict_row's epilogue over element e's scan outputs (the batched
-// layout of ffd_scan_batch).  Pass 1: the leftover sum.  Pass 2, threads
-// over the slots [next0, K): the new slots (node_pods > 0; newmask is false
-// below next0), their count, the first (k_star, else 0: argmax of an
-// all-false mask), the non-donors, and per class whether it sits on some
-// new slot.  Pass 3: per class whether it sits on k_star; per axis
-// k_star's usage and new_load, summed in ascending slot order over the bit
-// mask of new slots.  Pass 4, threads over the configs: the masked price's
-// first-index argmin and `hold`.  All counts int32, the row float32 as
-// JAX's.
-__global__ void __launch_bounds__(kVerdictThreads) verdict_rows_kernel(
+// layout of ffd_scan_batch), up to the configs.  Pass 1: the leftover sum,
+// the base rows and their compactable flags.  Pass 2, threads over the
+// slots [next0, K), four slots' pod counts loaded at once: the new slots
+// (node_pods > 0; newmask is false below next0) as a bit mask, their count
+// and the first (k_star, else 0: argmax of an all-false mask); after the
+// barrier, the classes on each new slot and the non-donors.  Pass 3: the
+// classes on k_star; per axis a warp reads k_star's usage and sums
+// new_load in ascending slot order, the usage of each 32 slots of the
+// new-slot mask loaded at once.  All counts int32, as JAX's.  feas_p[g] = feas[perm[g]], so a permuted class g's
+// flag is bit perm[g] of the record's words.
+__global__ void __launch_bounds__(kSummaryThreads) verdict_summary_kernel(
     const int* __restrict__ take, const int* __restrict__ leftover,
     const int* __restrict__ node_cfg, const int* __restrict__ node_pods,
     const float* __restrict__ node_used, const int* __restrict__ perm_b,
-    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
-    const float* __restrict__ price, const uint8_t* __restrict__ openable,
     const int* __restrict__ pool_id, const int* __restrict__ zone_id,
     const int* __restrict__ ct_id, const uint8_t* __restrict__ compactable,
-    int Gp, int Cp, int K, int R, int next0, float* __restrict__ rows) {
+    int Gp, int K, int R, int next0, VerdictScratch vs) {
   extern __shared__ __align__(16) unsigned char vsm[];
-  __shared__ unsigned s_sum[3][kVerdictWarps];  // leftover, new slots, non-donors
-  __shared__ int s_first[kVerdictWarps];
-  __shared__ float s_best[kVerdictWarps];
-  __shared__ int s_bidx[kVerdictWarps];
+  __shared__ unsigned s_sum[3][kSummaryWarps];  // leftover, new slots, non-donors
+  __shared__ int s_first[kSummaryWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int e = blockIdx.x;
-  const int nwords = (K + 31) >> 5;
+  const int nwords = (K + 31) >> 5, W = (Gp + 31) >> 5;
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
   node_cfg += (size_t)e * K;
   node_pods += (size_t)e * K;
   node_used += (size_t)e * K * R;
   perm_b += (size_t)e * Gp;
-  float* s_load = (float*)vsm;                     // [R]
-  float* s_usedk = s_load + R;                     // [R]
-  int* s_perm = (int*)(s_usedk + R);               // [Gp]
-  unsigned* s_new = (unsigned*)(s_perm + Gp);      // [nwords]
-  uint8_t* s_onnew = (uint8_t*)(s_new + nwords);   // [Gp]
-  uint8_t* s_onany = s_onnew + Gp;                 // [Gp]
+  int* s_perm = (int*)vsm;                          // [Gp]
+  unsigned* s_new = (unsigned*)(s_perm + Gp);       // [nwords]
+  unsigned* s_onnew = s_new + nwords;               // [W]
+  unsigned* s_onany = s_onnew + W;                  // [W]
+  uint8_t* s_comp = (uint8_t*)(s_onany + W);        // [Gp]
 
-  // ---- 1. the leftover sum (wrapping, as int32); flags cleared ------------
+  // ---- 1. the leftover sum (wrapping, as int32); masks cleared -------------
   unsigned lsum = 0u;
-  for (int g = tid; g < Gp; g += kVerdictThreads) {
+  for (int g = tid; g < Gp; g += kSummaryThreads) {
     lsum += (unsigned)leftover[g];
-    s_perm[g] = perm_b[g];
-    s_onany[g] = 0;
+    const int b = perm_b[g];
+    s_perm[g] = b;
+    s_comp[g] = compactable[b];
   }
-  for (int w = tid; w < nwords; w += kVerdictThreads) s_new[w] = 0u;
+  for (int w = tid; w < nwords; w += kSummaryThreads) s_new[w] = 0u;
+  for (int w = tid; w < 2 * W; w += kSummaryThreads) s_onnew[w] = 0u;  // and s_onany
   __syncthreads();
 
   // ---- 2. the new slots ----------------------------------------------------
-  unsigned cnt = 0u, nondonor = 0u;
+  // 2a: the pod counts, four slots' loaded at once: the new-slot mask, the
+  // count and the first
+  constexpr int T = kSummaryThreads;
+  unsigned cnt = 0u;
   int first = 0x7fffffff;
-  for (int k = next0 + tid; k < K; k += kVerdictThreads) {
-    const int pods = node_pods[k];
-    if (pods > 0) {
-      ++cnt;
-      first = min(first, k);
+  for (int k0 = next0 + tid; k0 < K; k0 += 4 * T) {
+    const int p0 = node_pods[k0];
+    const int p1 = k0 + T < K ? node_pods[k0 + T] : 0;
+    const int p2 = k0 + 2 * T < K ? node_pods[k0 + 2 * T] : 0;
+    const int p3 = k0 + 3 * T < K ? node_pods[k0 + 3 * T] : 0;
+    const unsigned m = (p0 > 0) | (p1 > 0) << 1 | (p2 > 0) << 2 | (p3 > 0) << 3;
+    if (m) first = min(first, k0 + (__ffs(m) - 1) * T);
+    cnt += __popc(m);
+    for (unsigned b = m; b; b &= b - 1u) {
+      const int k = k0 + (__ffs(b) - 1) * T;
       atomicOr(s_new + (k >> 5), 1u << (k & 31));
-      bool bad = false;  // a class on it that compaction cannot move
-      for (int g = 0; g < Gp; ++g)
-        if (take[(size_t)g * K + k] > 0) {
-          s_onany[g] = 1;
-          bad |= compactable[s_perm[g]] == 0;
-        }
-      nondonor += (pods > 8 || bad) ? 1u : 0u;
     }
   }
   lsum = warp_sum(lsum);
   cnt = warp_sum(cnt);
-  nondonor = warp_sum(nondonor);
   for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
   if (lane == 0) {
     s_sum[0][warp] = lsum;
     s_sum[1][warp] = cnt;
-    s_sum[2][warp] = nondonor;
     s_first[warp] = first;
   }
-  __syncthreads();
-  unsigned lo_units = 0u, new_count = 0u, non_donors = 0u;
+  __syncthreads();  // the new-slot mask and the sums are complete
+  unsigned lo_units = 0u, new_count = 0u;
   first = 0x7fffffff;
-  for (int w = 0; w < kVerdictWarps; ++w) {
+  for (int w = 0; w < kSummaryWarps; ++w) {
     lo_units += s_sum[0][w];
     new_count += s_sum[1][w];
-    non_donors += s_sum[2][w];
     first = min(first, s_first[w]);
   }
   const int k_star = first == 0x7fffffff ? 0 : first;
-  const int cs = max(node_cfg[k_star], 0);
 
   // ---- 3. the classes on k_star, its usage, the new slots' load -----------
-  for (int g = tid; g < Gp; g += kVerdictThreads)
-    s_onnew[g] = take[(size_t)g * K + k_star] > 0;
-  for (int r = tid; r < R; r += kVerdictThreads) {
-    s_usedk[r] = node_used[(size_t)k_star * R + r];
-    float acc = 0.0f;
-    for (int w = next0 >> 5; w < nwords; ++w)
-      for (unsigned bits = s_new[w]; bits; bits &= bits - 1u) {
-        const int k = w * 32 + __ffs(bits) - 1;
-        acc = __fadd_rn(acc, node_used[(size_t)k * R + r]);
+  // 2b: the classes on each new slot, and the non-donors
+  unsigned nondonor = 0u;
+  for (int k = next0 + tid; k < K; k += T) {
+    if (!((s_new[k >> 5] >> (k & 31)) & 1u)) continue;
+    bool bad = node_pods[k] > 8;  // or a class on it that compaction cannot move
+    for (int g = 0; g < Gp; ++g)
+      if (take[(size_t)g * K + k] > 0) {
+        set_class(s_onany, s_perm[g], Gp);
+        bad |= s_comp[g] == 0;
       }
-    s_load[r] = acc;
+    nondonor += bad ? 1u : 0u;
+  }
+  nondonor = warp_sum(nondonor);
+  if (lane == 0) s_sum[2][warp] = nondonor;
+  for (int g = tid; g < Gp; g += kSummaryThreads)
+    if (take[(size_t)g * K + k_star] > 0) set_class(s_onnew, s_perm[g], Gp);
+  float* load = vs.load + (size_t)e * 2 * R;
+  for (int r = warp; r < R; r += kSummaryWarps) {
+    if (lane == 0) load[r] = node_used[(size_t)k_star * R + r];
+    float acc = 0.0f;
+    for (int w0 = next0 >> 5; w0 < nwords; w0 += 32) {
+      const unsigned mine = w0 + lane < nwords ? s_new[w0 + lane] : 0u;
+      for (unsigned words = __ballot_sync(kFull, mine != 0u); words; words &= words - 1u) {
+        const int wi = __ffs(words) - 1;
+        const unsigned bits = __shfl_sync(kFull, mine, wi);
+        const float v = (bits >> lane) & 1u
+                            ? node_used[(size_t)((w0 + wi) * 32 + lane) * R + r] : 0.0f;
+        for (unsigned b = bits; b; b &= b - 1u)
+          acc = __fadd_rn(acc, __shfl_sync(kFull, v, __ffs(b) - 1));
+      }
+    }
+    if (lane == 0) load[R + r] = acc;
+  }
+  __syncthreads();  // the flag words and the non-donor sums are complete
+  unsigned* flags = vs.flags + (size_t)e * 2 * W;
+  for (int w = tid; w < 2 * W; w += kSummaryThreads) flags[w] = s_onnew[w];  // then s_onany
+  if (tid == 0) {
+    unsigned non_donors = 0u;
+    for (int w = 0; w < kSummaryWarps; ++w) non_donors += s_sum[2][w];
+    const int cs = max(node_cfg[k_star], 0);
+    int* rec = vs.rec + (size_t)e * kRecInts;
+    rec[0] = (int)lo_units;
+    rec[1] = (int)new_count;
+    rec[2] = (int)non_donors;
+    rec[3] = cs;
+    rec[4] = pool_id[cs];
+    rec[5] = zone_id[cs];
+    rec[6] = ct_id[cs];
+    rec[7] = 0;
+    vs.best[e] = ~0ull;  // the argmin cell and hold, neutral
+    vs.hold[e] = 0u;
+    if (e % kGroup == 0) vs.done[e / kGroup] = 0u;
+  }
+}
+
+// Dynamic shared memory of a config-pass block: the tile's alloc rows plus
+// the slack [R][kCfgTile] (thread t reads column t), the group's usage and
+// load [2R][kGroup], keys [3][kGroup], flag words [2W][kGroup] (element
+// minor, read four elements at a time), and the union of the flag words
+// [W].
+__host__ __device__ inline size_t configs_smem(int G, int R) {
+  const int W = (G + 31) / 32;
+  return (size_t)4 * (R * kCfgTile + 2 * R * kGroup + 3 * kGroup + 2 * W * kGroup + W);
+}
+
+// Masks of four elements' compares: bit q*4+i from component i.
+__device__ __forceinline__ unsigned bits4(bool x, bool y, bool z, bool w, int q) {
+  return ((unsigned)x | (unsigned)y << 1 | (unsigned)z << 2 | (unsigned)w << 3) << (4 * q);
+}
+
+// Row e of the verdicts from its record, its argmin cell and hold.
+__device__ __forceinline__ void write_row(const VerdictScratch& vs, const float* price,
+                                          int e, unsigned long long best, unsigned hold,
+                                          float* rows) {
+  const int* rec = vs.rec + (size_t)e * kRecInts;
+  const int bidx = (int)(unsigned)best;
+  float* row = rows + (size_t)e * kVerdictWidth;
+  row[0] = (float)rec[0];
+  row[1] = (float)rec[1];
+  row[2] = (float)bidx;
+  // the masked price at bidx: +inf where every config is masked
+  row[3] = (unsigned)(best >> 32) == kInfKey ? INFINITY : price[bidx];
+  row[4] = (float)rec[3];
+  row[5] = (rec[1] >= 2 && rec[2] <= 1 && hold) ? 1.0f : 0.0f;
+}
+
+// The config pass of _verdict_row: config c = tile * kCfgTile + t against
+// the elements e0 .. e0 + kGroup - 1.  Per element: class_feas (every
+// class on k_star feasible on c: no on-new bit outside c's feasibility
+// bits), fits_used and holds (2R compares), the key compare; the masked
+// price's first-index argmin and `hold` (holds, openable and every class on
+// a new slot feasible).  With `fused`, the last block of the group to
+// finish (a counter per group in `done`, zeroed by the summary) writes the
+// group's rows.
+__global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const float* __restrict__ price, const uint8_t* __restrict__ openable,
+    const int* __restrict__ pool_id, const int* __restrict__ zone_id,
+    const int* __restrict__ ct_id, int B, int G, int Cp, int R, VerdictScratch vs,
+    int fused, float* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char csm[];
+  __shared__ unsigned long long s_best[kCfgWarps][kGroup];
+  __shared__ unsigned s_hold[kCfgWarps];
+  __shared__ int s_last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int W = (G + 31) >> 5;
+  const int c0 = blockIdx.x * kCfgTile, e0 = blockIdx.y * kGroup;
+  const int ne = min(kGroup, B - e0), nc = min(kCfgTile, Cp - c0);
+  const int c = c0 + t;
+  const bool valid = t < nc;
+  float* s_alloc = (float*)csm;                       // [R][kCfgTile]
+  float* s_el = s_alloc + R * kCfgTile;               // [2R][kGroup]
+  int* s_key = (int*)(s_el + 2 * R * kGroup);         // [3][kGroup]
+  unsigned* s_fl = (unsigned*)(s_key + 3 * kGroup);   // [2W][kGroup]
+  unsigned* s_union = s_fl + 2 * W * kGroup;          // [W]
+
+  // ---- this thread's config, its tile's alloc rows, the group's records --
+  float pr = 0.0f;
+  int pz = 0, zz = 0, tz = 0;
+  bool op = false;
+  if (valid) {
+    pr = price[c];
+    op = openable[c] != 0;
+    pz = pool_id[c];
+    zz = zone_id[c];
+    tz = ct_id[c];
+  }
+  for (int i = t; i < nc * R; i += kCfgTile) {
+    const int cl = i / R;
+    s_alloc[(i - cl * R) * kCfgTile + cl] = __fadd_rn(alloc[(size_t)c0 * R + i], kFitSlack);
+  }
+  for (int i = t; i < 2 * R * kGroup; i += kCfgTile) {
+    const int j = i / kGroup, el = i - j * kGroup;
+    s_el[i] = el < ne ? vs.load[(size_t)(e0 + el) * 2 * R + j] : 0.0f;
+  }
+  for (int i = t; i < 3 * kGroup; i += kCfgTile) {
+    const int j = i / kGroup, el = i - j * kGroup;
+    s_key[i] = el < ne ? vs.rec[(size_t)(e0 + el) * kRecInts + 4 + j] : 0;
+  }
+  for (int i = t; i < 2 * W * kGroup; i += kCfgTile) {
+    const int j = i / kGroup, el = i - j * kGroup;
+    s_fl[i] = el < ne ? vs.flags[(size_t)(e0 + el) * 2 * W + j] : 0u;
+  }
+  __syncthreads();
+  for (int w = warp; w < W; w += kCfgWarps) {  // the classes some element flags
+    const unsigned u = __reduce_or_sync(
+        kFull, s_fl[w * kGroup + lane] | s_fl[(W + w) * kGroup + lane]);
+    if (lane == 0) s_union[w] = u;
   }
   __syncthreads();
 
-  // ---- 4. the configs --------------------------------------------------------
-  const int pc = pool_id[cs], zc = zone_id[cs], tc = ct_id[cs];
-  float best = INFINITY;
-  int bidx = 0x7fffffff;
-  bool hold = false;
-  for (int c = tid; c < Cp; c += kVerdictThreads) {
-    const bool op = openable[c] != 0;
-    bool class_feas = true, all_new_feas = true;
-    for (int g = 0; g < Gp; ++g) {
-      const bool on = s_onnew[g] != 0, any = s_onany[g] != 0;
-      if (on || any) {
-        const bool f = feas[(size_t)s_perm[g] * Cp + c] != 0;
-        class_feas &= !on || f;
-        all_new_feas &= !any || f;
-      }
-    }
-    bool fits_used = true, holds = true;
-    for (int r = 0; r < R; ++r) {
-      const float a = __fadd_rn(alloc[(size_t)c * R + r], kFitSlack);
-      fits_used &= s_usedk[r] <= a;
-      holds &= s_load[r] <= a;
-    }
-    const bool same = pool_id[c] == pc && zone_id[c] == zc && ct_id[c] == tc;
-    const float masked = (op && class_feas && fits_used && same) ? price[c] : INFINITY;
-    if (argmin_before(masked, c, best, bidx)) {
-      best = masked;
-      bidx = c;
-    }
-    hold |= holds && op && all_new_feas;
+  // ---- the tests, as masks over the group --------------------------------
+  unsigned same = 0u;
+#pragma unroll
+  for (int q = 0; q < kGroup / 4; ++q) {
+    const int4 p = reinterpret_cast<const int4*>(s_key)[q];
+    const int4 z = reinterpret_cast<const int4*>(s_key + kGroup)[q];
+    const int4 y = reinterpret_cast<const int4*>(s_key + 2 * kGroup)[q];
+    same |= bits4(p.x == pz && z.x == zz && y.x == tz, p.y == pz && z.y == zz && y.y == tz,
+                  p.z == pz && z.z == zz && y.z == tz, p.w == pz && z.w == zz && y.w == tz, q);
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float os = __shfl_xor_sync(kFull, best, o);
-    const int oi = __shfl_xor_sync(kFull, bidx, o);
-    if (argmin_before(os, oi, best, bidx)) {
-      best = os;
-      bidx = oi;
+  unsigned cls = ~0u, any = ~0u;  // class_feas, all_new_feas
+  for (int w = 0; w < W; ++w) {
+    const unsigned u = s_union[w];
+    if (u == 0u) continue;
+    unsigned fb = 0u;  // c's feasibility bits of the flagged classes of word w
+    if (valid) {
+      const uint8_t* col = feas + (size_t)w * 32 * Cp + c;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if ((u >> i) & 1u) fb |= (unsigned)(col[(size_t)i * Cp] != 0) << i;
+    }
+#pragma unroll
+    for (int q = 0; q < kGroup / 4; ++q) {
+      const uint4 on = reinterpret_cast<const uint4*>(s_fl + w * kGroup)[q];
+      const uint4 an = reinterpret_cast<const uint4*>(s_fl + (W + w) * kGroup)[q];
+      cls &= ~bits4((on.x & ~fb) != 0u, (on.y & ~fb) != 0u, (on.z & ~fb) != 0u,
+                    (on.w & ~fb) != 0u, q);
+      any &= ~bits4((an.x & ~fb) != 0u, (an.y & ~fb) != 0u, (an.z & ~fb) != 0u,
+                    (an.w & ~fb) != 0u, q);
     }
   }
-  if (lane == 0) {
-    s_best[warp] = best;
-    s_bidx[warp] = bidx;
+  unsigned fit = ~0u, holds = ~0u;  // fits_used, new_load held
+  for (int r = 0; r < R; ++r) {
+    const float a = valid ? s_alloc[r * kCfgTile + t] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < kGroup / 4; ++q) {
+      const float4 u = reinterpret_cast<const float4*>(s_el + r * kGroup)[q];
+      const float4 l = reinterpret_cast<const float4*>(s_el + (R + r) * kGroup)[q];
+      fit &= ~bits4(!(u.x <= a), !(u.y <= a), !(u.z <= a), !(u.w <= a), q);
+      holds &= ~bits4(!(l.x <= a), !(l.y <= a), !(l.z <= a), !(l.w <= a), q);
+    }
   }
-  const bool any_hold = __syncthreads_or(hold) != 0;
-  if (tid == 0) {
-    for (int w = 0; w < kVerdictWarps; ++w)
-      if (argmin_before(s_best[w], s_bidx[w], best, bidx)) {
-        best = s_best[w];
-        bidx = s_bidx[w];
-      }
-    float* row = rows + (size_t)e * kVerdictWidth;
-    row[0] = (float)(int)lo_units;
-    row[1] = (float)(int)new_count;
-    row[2] = (float)bidx;
-    row[3] = best;  // the masked price at bidx: +inf where every one is
-    row[4] = (float)cs;
-    row[5] = ((int)new_count >= 2 && (int)non_donors <= 1 && any_hold) ? 1.0f : 0.0f;
+  const unsigned live = ne == kGroup ? ~0u : (1u << ne) - 1u;
+  const unsigned ok = valid && op ? same & cls & fit & live : 0u;
+  const unsigned hk = valid && op ? holds & any & live : 0u;
+
+  // ---- argmin and hold: the warp, the block, then across blocks ----------
+  const unsigned pk = price_key(pr), cu = valid ? (unsigned)c : ~0u;
+  unsigned long long mine = ~0ull;
+  for (int el = 0; el < ne; ++el) {
+    const unsigned hi = valid ? ((ok >> el) & 1u ? pk : kInfKey) : ~0u;
+    const unsigned mn = __reduce_min_sync(kFull, hi);
+    const unsigned ci = __reduce_min_sync(kFull, hi == mn ? cu : ~0u);
+    if (lane == el) mine = (unsigned long long)mn << 32 | ci;
   }
+  s_best[warp][lane] = mine;
+  const unsigned hw = __reduce_or_sync(kFull, hk);
+  if (lane == 0) s_hold[warp] = hw;
+  __syncthreads();
+  if (t < ne) {
+    unsigned long long b = s_best[0][t];
+    unsigned h = s_hold[0];
+    for (int w = 1; w < kCfgWarps; ++w) {
+      b = min(b, s_best[w][t]);
+      h |= s_hold[w];
+    }
+    atomicMin(vs.best + e0 + t, b);
+    if ((h >> t) & 1u) atomicOr(vs.hold + e0 + t, 1u);
+  }
+  if (!fused) return;
+  __threadfence();  // this block's atomics land before its count
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(vs.done + blockIdx.y, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (s_last && t < ne) {
+    __threadfence();
+    write_row(vs, price, e0 + t, __ldcg(vs.best + e0 + t), __ldcg(vs.hold + e0 + t), rows);
+  }
+}
+
+__global__ void __launch_bounds__(kWriteThreads) verdict_write_kernel(
+    const float* __restrict__ price, int B, VerdictScratch vs, float* __restrict__ rows) {
+  const int e = blockIdx.x * kWriteThreads + threadIdx.x;
+  if (e < B) write_row(vs, price, e, vs.best[e], vs.hold[e], rows);
 }
 
 constexpr int kPrologueThreads = 256;
 constexpr int kPopKeyAbsent = 1 << 30;  // ops/packer.py: POP_KEY_ABSENT
 constexpr int kPopOccAbsent = 1 << 29;  // ops/packer.py: POP_OCC_ABSENT
+
+// Dynamic shared memory of a prologue block: the mask's bit words
+// [ceil(U / 32)], count and key [Gp] each, then the partial (count, first
+// occurrence) of each thread [kPrologueThreads] each.
+__host__ __device__ inline size_t prologue_smem(int U, int Gp) {
+  return (size_t)4 * ((U + 31) / 32 + 2 * Gp + 2 * kPrologueThreads);
+}
 
 // population_verdict_kernel's per-member prologue for member p: cnt[g] =
 // the int32 sum of cand_cnt[j][g] over the selected candidates j, occ[g]
@@ -1687,35 +1920,83 @@ constexpr int kPopOccAbsent = 1 << 29;  // ops/packer.py: POP_OCC_ABSENT
 // sort of the keys by rank -- (key, index) pairs are distinct, so rank(g)
 // is the count of pairs before g's -- gives perm[rank(g)] = g and the
 // counts in that order.
-__global__ void __launch_bounds__(kPrologueThreads) population_prologue_kernel(
+// The mask is staged once as bit words (a ballot over sel).  The classes
+// go in blocks of up to kPrologueThreads; within one, gw classes by nj =
+// kPrologueThreads / gw candidate lanes: thread t takes class t % gw and
+// candidates t / gw, t / gw + nj, ..., so consecutive threads read
+// consecutive (j * Gp + g) and each selected pair costs one load of each
+// tensor.  The lanes of a class fold in a tree in shared memory: the count
+// as a wrapping unsigned sum and the occurrence as a min, both
+// order-free, so exact.  rm is zeroed with 16-byte stores where K % 16 ==
+// 0 (the row is then 16-byte aligned), else with byte stores, and the
+// selected slots set after a barrier.
+__global__ void __launch_bounds__(kPrologueThreads) population_pairs_kernel(
     const int* __restrict__ cand_cnt, const int* __restrict__ cand_slot,
     const int* __restrict__ cand_occ, const int* __restrict__ sort_rank,
     const uint8_t* __restrict__ masks, int U, int Gp, int K, int occ_span,
     int* __restrict__ cnt_b, uint8_t* __restrict__ rm_b, int* __restrict__ perm_b) {
-  extern __shared__ int psm[];  // key [Gp], cnt [Gp]
-  int* s_key = psm;
-  int* s_cnt = psm + Gp;
-  const int p = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned psm[];
+  const int UW = (U + 31) >> 5;
+  unsigned* s_sel = psm;                              // [UW]
+  int* s_cnt = (int*)(s_sel + UW);                    // [Gp]
+  int* s_key = s_cnt + Gp;                            // [Gp]
+  unsigned* s_pc = (unsigned*)(s_key + Gp);           // [kPrologueThreads]
+  int* s_po = (int*)(s_pc + kPrologueThreads);        // [kPrologueThreads]
+  const int p = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const uint8_t* sel = masks + (size_t)p * U;
   uint8_t* rm = rm_b + (size_t)p * K;
-  for (int g = tid; g < Gp; g += kPrologueThreads) {
-    unsigned c = 0u;
-    int occ = kPopOccAbsent;
-    for (int j = 0; j < U; ++j)
-      if (sel[j]) {
-        c += (unsigned)cand_cnt[(size_t)j * Gp + g];
-        occ = min(occ, cand_occ[(size_t)j * Gp + g]);
+
+  for (int j0 = warp * 32; j0 < U; j0 += kPrologueThreads) {
+    const unsigned m = __ballot_sync(kFull, j0 + lane < U && sel[j0 + lane] != 0);
+    if (lane == 0) s_sel[j0 >> 5] = m;
+  }
+  if ((K & 15) == 0) {
+    for (int i = t; i < K / 16; i += kPrologueThreads)
+      reinterpret_cast<uint4*>(rm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    for (int k = t; k < K; k += kPrologueThreads) rm[k] = 0;
+  }
+  __syncthreads();  // the mask is staged, the zeros land before a slot is set
+  for (int j = t; j < U; j += kPrologueThreads)
+    if ((s_sel[j >> 5] >> (j & 31)) & 1u) {
+      const int k = cand_slot[j];
+      if (k >= 0 && k < K) rm[k] = 1;
+    }
+  for (int gb = 0; gb < Gp; gb += kPrologueThreads) {
+    const int gw = min(Gp - gb, kPrologueThreads);
+    const int nj = kPrologueThreads / gw;  // candidate lanes a class
+    const int jl = t / gw, g = gb + t - jl * gw;
+    const int rank_g = t < gw ? sort_rank[gb + t] : 0;
+    if (jl < nj) {
+      unsigned c = 0u;
+      int occ = kPopOccAbsent;
+#pragma unroll 4
+      for (int j = jl; j < U; j += nj)
+        if ((s_sel[j >> 5] >> (j & 31)) & 1u) {
+          c += (unsigned)cand_cnt[(size_t)j * Gp + g];
+          occ = min(occ, cand_occ[(size_t)j * Gp + g]);
+        }
+      s_pc[t] = c;  // lane jl of class g: slot jl * gw + (g - gb) = t
+      s_po[t] = occ;
+    }
+    __syncthreads();
+    for (int n = nj; n > 1;) {  // lanes [h, n) fold onto [0, n - h)
+      const int h = (n + 1) >> 1;
+      if (t < (n - h) * gw) {
+        s_pc[t] += s_pc[t + h * gw];
+        s_po[t] = min(s_po[t], s_po[t + h * gw]);
       }
-    s_cnt[g] = (int)c;
-    s_key[g] = (int)c > 0 ? wadd(wmul(sort_rank[g], occ_span), occ) : kPopKeyAbsent;
+      n = h;
+      __syncthreads();
+    }
+    if (t < gw) {
+      const int cc = (int)s_pc[t];
+      s_cnt[gb + t] = cc;
+      s_key[gb + t] = cc > 0 ? wadd(wmul(rank_g, occ_span), s_po[t]) : kPopKeyAbsent;
+    }
+    __syncthreads();  // the partials are free for the next block of classes
   }
-  for (int k = tid; k < K; k += kPrologueThreads) rm[k] = 0;
-  __syncthreads();  // the zeros land before any slot is set
-  for (int j = tid; j < U; j += kPrologueThreads) {
-    const int k = cand_slot[j];
-    if (sel[j] && k >= 0 && k < K) rm[k] = 1;
-  }
-  for (int g = tid; g < Gp; g += kPrologueThreads) {
+  for (int g = t; g < Gp; g += kPrologueThreads) {
     const int kg = s_key[g];
     int rank = 0;
     for (int h = 0; h < Gp; ++h) {
@@ -1919,26 +2200,67 @@ int ffd_scan_concurrency(int kind, int M, int ctas, int threads, int smem_bytes)
   return n;
 }
 
-// The verdict rows of a batched scan's B elements: `rows` [B][6].
-int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
-                     const int* node_pods, const float* node_used,
-                     const int* perm_b, const uint8_t* feas, const float* alloc,
-                     const float* price, const uint8_t* openable,
-                     const int* pool_id, const int* zone_id, const int* ct_id,
-                     const uint8_t* compactable, int B, int Gp, int Cp, int K,
-                     int R, int next0, float* rows, void* stream) {
+// The bytes of verdict_rows' scratch for B elements, G classes and R axes.
+long long ffd_verdict_scratch_bytes(int B, int G, int R) {
+  size_t bytes = 0;
+  verdict_scratch(nullptr, B, G, R, &bytes);
+  return (long long)bytes;
+}
+
+// verdict_rows, launch 1 of 3: the element records of a batched scan's B
+// elements into `scratch` (ffd_verdict_scratch_bytes(B, Gp, R) bytes,
+// 16-byte aligned).
+int ffd_verdict_summary(const int* take, const int* leftover, const int* node_cfg,
+                        const int* node_pods, const float* node_used,
+                        const int* perm_b, const int* pool_id, const int* zone_id,
+                        const int* ct_id, const uint8_t* compactable, int B,
+                        int Gp, int K, int R, int next0, void* scratch,
+                        void* stream) {
   if (B <= 0) return 0;
-  if (Gp < 0 || Cp <= 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K)
+  if (Gp < 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = verdict_smem(Gp, K, R);
-  const cudaError_t e = allow_smem(verdict_rows_kernel, smem);
+  const size_t smem = summary_smem(Gp, K);
+  const cudaError_t e = allow_smem(verdict_summary_kernel, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
-  verdict_rows_kernel<<<B, kVerdictThreads, smem, (cudaStream_t)stream>>>(
-      take, leftover, node_cfg, node_pods, node_used, perm_b, feas, alloc, price,
-      openable, pool_id, zone_id, ct_id, compactable, Gp, Cp, K, R, next0, rows);
+  verdict_summary_kernel<<<B, kSummaryThreads, smem, (cudaStream_t)stream>>>(
+      take, leftover, node_cfg, node_pods, node_used, perm_b, pool_id, zone_id,
+      ct_id, compactable, Gp, K, R, next0, verdict_scratch(scratch, B, Gp, R, nullptr));
+  return (int)cudaGetLastError();
+}
+
+// verdict_rows, launch 2: the config pass over the records; with `fused`
+// it also writes `rows` [B][6], else verdict_write does.
+int ffd_verdict_configs(const uint8_t* feas, const float* alloc, const float* price,
+                        const uint8_t* openable, const int* pool_id,
+                        const int* zone_id, const int* ct_id, int B, int Gp, int Cp,
+                        int R, void* scratch, int fused, float* rows, void* stream) {
+  if (B <= 0) return 0;
+  if (Gp < 0 || Cp <= 0 || R < 0 || (B + kGroup - 1) / kGroup > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = configs_smem(Gp, R);
+  const cudaError_t e = allow_smem(verdict_configs_kernel, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  const dim3 grid((Cp + kCfgTile - 1) / kCfgTile, (B + kGroup - 1) / kGroup);
+  verdict_configs_kernel<<<grid, kCfgTile, smem, (cudaStream_t)stream>>>(
+      feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R,
+      verdict_scratch(scratch, B, Gp, R, nullptr), fused, rows);
+  return (int)cudaGetLastError();
+}
+
+// verdict_rows, launch 3: `rows` [B][6] from the records and argmin cells.
+int ffd_verdict_write(const float* price, int B, int Gp, int R, void* scratch,
+                      float* rows, void* stream) {
+  if (B <= 0) return 0;
+  verdict_write_kernel<<<(B + kWriteThreads - 1) / kWriteThreads, kWriteThreads, 0,
+                         (cudaStream_t)stream>>>(
+      price, B, verdict_scratch(scratch, B, Gp, R, nullptr), rows);
   return (int)cudaGetLastError();
 }
 
@@ -1950,14 +2272,16 @@ int ffd_population_prologue(const int* cand_cnt, const int* cand_slot,
                             int occ_span, int* cnt_b, uint8_t* rm_b,
                             int* perm_b, void* stream) {
   if (P <= 0) return 0;
-  if (U < 0 || Gp < 0 || K <= 0 || occ_span < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)8 * Gp;
-  const cudaError_t e = allow_smem(population_prologue_kernel, smem);
+  if (U < 0 || Gp < 0 || K <= 0 || occ_span < 0 ||
+      ((K & 15) == 0 && reinterpret_cast<uintptr_t>(rm_b) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = prologue_smem(U, Gp);
+  const cudaError_t e = allow_smem(population_pairs_kernel, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
-  population_prologue_kernel<<<P, kPrologueThreads, smem, (cudaStream_t)stream>>>(
+  population_pairs_kernel<<<P, kPrologueThreads, smem, (cudaStream_t)stream>>>(
       cand_cnt, cand_slot, cand_occ, sort_rank, masks, U, Gp, K, occ_span, cnt_b,
       rm_b, perm_b);
   return (int)cudaGetLastError();

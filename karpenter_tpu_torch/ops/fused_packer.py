@@ -18,10 +18,11 @@ pack is two launches:
 The consolidation verdicts (the JAX package's ``removal_verdict_kernel``
 and ``population_verdict_kernel``, jitted XLA functions) reuse the scans
 with a batch axis, `ffd_scan_batch`: B what-if problems over one base, one
-block or one cluster per element.  Two more kernels finish them:
-`verdict_rows` (each element's six-value verdict) and
-`population_prologue` (each removal mask's counts, removed slots and class
-order).
+block or one cluster per element.  `verdict_rows` finishes them (each
+element's six-value verdict, three launches: a record per element, a pass
+over the configs shared by groups of elements, the rows), and
+`population_prologue` (one launch) derives each removal mask's counts,
+removed slots and class order.
 
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
@@ -53,8 +54,13 @@ from karpenter_tpu_torch.ops.packer import (
 LAUNCHES: Dict[str, int] = {
     "choose_config": 0, "ffd_scan": 0, "ffd_scan_cluster": 0, "ffd_scan_global": 0,
     "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
-    "verdict_rows": 0, "population_prologue": 0,
+    "verdict_summary": 0, "verdict_configs": 0, "verdict_write": 0, "population_pairs": 0,
 }
+# the launches of each verdict wrapper, in order
+VERDICT_ROWS_LAUNCHES = ("verdict_summary", "verdict_configs", "verdict_write")
+# whether the config pass writes the rows itself (the last block of an
+# element group to finish), instead of `verdict_write`
+VERDICT_FUSED_WRITE = False
 
 # the resident scan's shared memory and axes (kRing, kTile, kXchgBytes and
 # kMaxR in ffd_pack.cu)
@@ -95,8 +101,14 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_scan_cluster.restype = _I
         lib.ffd_scan_concurrency.argtypes = [_I] * 5
         lib.ffd_scan_concurrency.restype = _I
-        lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 6 + [_P] + [_P]
-        lib.ffd_verdict_rows.restype = _I
+        lib.ffd_verdict_scratch_bytes.argtypes = [_I] * 3
+        lib.ffd_verdict_scratch_bytes.restype = ctypes.c_longlong
+        lib.ffd_verdict_summary.argtypes = [_P] * 10 + [_I] * 5 + [_P] + [_P]
+        lib.ffd_verdict_summary.restype = _I
+        lib.ffd_verdict_configs.argtypes = [_P] * 7 + [_I] * 4 + [_P, _I, _P] + [_P]
+        lib.ffd_verdict_configs.restype = _I
+        lib.ffd_verdict_write.argtypes = [_P] + [_I] * 3 + [_P] * 2 + [_P]
+        lib.ffd_verdict_write.restype = _I
         lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_population_prologue.restype = _I
     return lib
@@ -529,8 +541,12 @@ def verdict_rows(
     next0: int,
 ) -> torch.Tensor:
     """The verdict epilogue of each element of a batched scan: [B,
-    RV_WIDTH] float32 rows (ops/packer.py: RV_*).  On the card one block
-    per element."""
+    RV_WIDTH] float32 rows (ops/packer.py: RV_*).  On the card three
+    launches over one scratch allocation: `verdict_summary` (one block per
+    element: its counts, c_star's key, k_star's usage, the new slots' load
+    and the class flags), `verdict_configs` (each config tested once
+    against a group of 32 elements; a first-index argmin by 64-bit
+    atomicMin) and `verdict_write` (the rows)."""
     dev = take.device
     args = (take, leftover, node_cfg, node_pods, node_used, perm_b,
             feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
@@ -564,12 +580,23 @@ def verdict_rows(
     rows = torch.empty((B, RV_WIDTH), dtype=torch.float32, device=dev)
     if B == 0:
         return rows
+    lib = _lib()
+    scratch = torch.empty(int(lib.ffd_verdict_scratch_bytes(B, G, R)), dtype=torch.uint8,
+                          device=dev)
+    tmp = scratch.data_ptr()
+    fused = int(VERDICT_FUSED_WRITE)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ffd_verdict_rows(
-            *_ptrs(*args), B, G, C, K, R, int(next0), rows.data_ptr(), stream,
-        )
-    _launched("verdict_rows", err)
+        _launched("verdict_summary", lib.ffd_verdict_summary(
+            *_ptrs(take, leftover, node_cfg, node_pods, node_used, perm_b,
+                   pool_id, zone_id, ct_id, compactable),
+            B, G, K, R, int(next0), tmp, stream))
+        _launched("verdict_configs", lib.ffd_verdict_configs(
+            *_ptrs(feas, alloc, price, openable, pool_id, zone_id, ct_id),
+            B, G, C, R, tmp, fused, rows.data_ptr(), stream))
+        if not fused:
+            _launched("verdict_write", lib.ffd_verdict_write(
+                price.data_ptr(), B, G, R, tmp, rows.data_ptr(), stream))
     return rows
 
 
@@ -580,7 +607,8 @@ def population_prologue(
     G])`` from its removal mask (``population_verdict_kernel``'s prologue):
     the selected candidates' class counts, their live slots, and the FFD
     class order by a stable sort of the first-occurrence keys.  On the card
-    one block per member."""
+    one block per member (`population_pairs`), its (candidate, class)
+    pairs spread over the threads."""
     dev = masks.device
     args = (cand_cnt, cand_slot, cand_occ, sort_rank)
     if dev.type == "cpu":
@@ -611,7 +639,7 @@ def population_prologue(
             *_ptrs(*args, masks), P, U, G, k_slots, int(occ_span),
             *_ptrs(cnt_b, rm_b, perm_b), stream,
         )
-    _launched("population_prologue", err)
+    _launched("population_pairs", err)
     return cnt_b, rm_b, perm_b
 
 

@@ -6,7 +6,8 @@ in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 ``bench.py`` (`build_problem`, `build_heterogeneous`) with a ``scale`` on
 the pod count, a cluster of live nodes, pack inputs on which the scan's
 int32 sums wrap, pack inputs on which the new-node choice must break ties
-by first index, and live clusters whose nodes hold bound pods, for the
+by first index, removal-verdict inputs on which the verdict rows must
+(`verdict_tie_arrays`), and live clusters whose nodes hold bound pods, for the
 consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
 `ranked_candidates`).
 
@@ -239,6 +240,117 @@ def first_configs(args: tuple, n: int) -> tuple:
      used0, cfg0, npods0, next0, sig0) = args
     return (req, cnt, maxper, slot, np.ascontiguousarray(feas[:, :n]), alloc[:n].copy(),
             price[:n].copy(), openable[:n].copy(), used0, cfg0, npods0, next0, sig0)
+
+
+def population_arrays(candidates: int, classes: int, k_slots: int, members: int,
+                      seed: int = 0) -> tuple:
+    """Population-prologue inputs (numpy, in ``population_prologue``'s
+    order: ``cand_cnt``, ``cand_slot``, ``cand_occ``, ``sort_rank``,
+    ``occ_span``, ``masks``, ``k_slots``) at any shape: counts of 0-3 with
+    half the pairs empty, slots in [0, k_slots] (k_slots: not live), first
+    occurrences below ``occ_span`` (POP_OCC_ABSENT where a candidate has no
+    pod of the class), dense ranks with ties, and masks selecting about a
+    third of the candidates (member 0 none, member 1 all)."""
+    rng = np.random.default_rng(seed)
+    U, G, P = candidates, classes, members
+    cand_cnt = rng.integers(0, 4, (U, G)).astype(np.int32)
+    cand_cnt[rng.random((U, G)) < 0.5] = 0
+    cand_slot = rng.integers(0, k_slots + 1, U).astype(np.int32)
+    occ_span = 64 * U
+    cand_occ = (np.arange(U)[:, None] * 64 + rng.integers(0, 64, (U, G))).astype(np.int32)
+    cand_occ[cand_cnt == 0] = 2**29  # POP_OCC_ABSENT
+    sort_rank = rng.integers(0, max(G // 3, 1), G).astype(np.int32)
+    masks = rng.random((P, U)) < 0.33
+    masks[0] = False
+    masks[1 % P] = True
+    return cand_cnt, cand_slot, cand_occ, sort_rank, occ_span, masks, k_slots
+
+
+# the configs holding the tie arrays' cheapest shape: warps 0, 1 and 2 of
+# the first tile of 256 configs, then the second tile and the 17th
+VERDICT_TIE_CONFIGS = (3, 37, 70, 300, 4100)
+
+
+def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512,
+                       elements: int = 40, live: int = 4) -> tuple:
+    """Removal-verdict inputs (numpy, in the argument order of the JAX
+    package's ``removal_verdict_kernel``: the base arrays, then ``cnt_b``,
+    ``rm_b``, ``perm_b``) on which the verdict rows must break ties by first
+    index, with their edge cases.
+
+    - One node shape, the largest and the cheapest a pod, at one price in
+      the (pool, zone, capacity type) key (0, 0, 0), at the configs of
+      `VERDICT_TIE_CONFIGS` below ``configs - 2``: a new node opens on the
+      first and its masked price ties at the others.  Class 1 cannot run on
+      the first of them and class 2 on the first three, so an element whose
+      k_star holds class 1 (2) finds its minimum at the second (fourth).
+    - The last two configs are the live nodes' rows: no pool (key -1), not
+      openable.  Slots 0 .. ``live`` - 1 are live (``next0`` = ``live``:
+      0 and ``k_slots`` are allowed).
+    - Element 0 places nothing: no new slot, k_star 0, and with slot 0 live
+      every config is masked (``c_min`` 0, ``+inf``).  Element 1 places
+      (k_slots - live) // 2 pods of class 3, one a node (``maxper`` 1): as
+      many new slots.  The others draw counts of 0-39 a class, a random
+      class order and removed live slots.
+    - Requests are dyadic (0.5-4 vCPU, 1-8 GiB), so every ``new_load`` sum
+      is exact in float32, whatever its order.
+
+    ``configs`` is at least 6; ``elements`` at least 2."""
+    if configs < 6 or elements < 2 or not 0 <= live <= k_slots:
+        raise ValueError("need configs >= 6, elements >= 2, 0 <= live <= k_slots")
+    rng = np.random.default_rng(13)
+    G, C, K, B, E, R, S = classes, configs, k_slots, elements, live, 3, 2
+    c = np.arange(C)
+    ex = C - 2  # the live nodes' rows
+    cpu = (2 + 2 * (c % 7)).astype(np.float32)
+    alloc = np.stack([cpu, 4 * cpu, np.full(C, 110, np.float32)], 1)
+    price = (0.05 * cpu + 0.01 * rng.random(C)).astype(np.float32)
+    openable = rng.random(C) < 0.9
+    pool_id = (c % 2).astype(np.int32)
+    zone_id = (c // 2 % 3).astype(np.int32)
+    ct_id = (c // 6 % 2).astype(np.int32)
+    feas = rng.random((G, C)) < 0.7
+    champ = [k for k in VERDICT_TIE_CONFIGS if k < ex]
+    alloc[champ] = (16.0, 64.0, 110.0)
+    price[champ] = 0.5
+    openable[champ] = True
+    pool_id[champ] = zone_id[champ] = ct_id[champ] = 0
+    feas[:, champ] = True
+    feas[1 % G, champ[:1]] = False
+    feas[2 % G, champ[:3]] = False
+    alloc[ex:] = (8.0, 32.0, 110.0)
+    price[ex:] = 0.0
+    openable[ex:] = False
+    pool_id[ex:] = zone_id[ex:] = ct_id[ex:] = -1
+    req = np.zeros((G, R), np.float32)
+    req[:, 0] = rng.choice([0.5, 1.0, 2.0, 4.0], G)
+    req[:, 1] = rng.choice([1.0, 2.0, 4.0, 8.0], G)
+    req[:, 2] = 1.0
+    maxper = np.full(G, 2**30, np.int32)
+    maxper[3 % G] = 1
+    slot = (np.arange(G) % S).astype(np.int32)
+    compactable = rng.random(G) < 0.8
+    used0 = np.zeros((K, R), np.float32)
+    cfg0 = np.full(K, -1, np.int32)
+    npods0 = np.zeros(K, np.int32)
+    cfg0[:E] = ex + np.arange(E) % 2
+    npods0[:E] = rng.integers(1, 5, E)
+    used0[:E, 0] = rng.choice([1.0, 2.0, 4.0], E)
+    used0[:E, 1] = 2 * used0[:E, 0]
+    used0[:E, 2] = npods0[:E]
+    sig0 = np.zeros((S, K), np.int32)
+    cnt = rng.integers(0, 40, (B, G)).astype(np.int32)
+    cnt[rng.random((B, G)) < 0.4] = 0
+    cnt[0] = 0
+    cnt[1] = 0
+    cnt[1, 3 % G] = (K - E) // 2
+    rm = np.zeros((B, K), bool)
+    rm[:, :E] = rng.random((B, E)) < 0.3
+    rm[0] = False
+    perm = np.stack([rng.permutation(G) for _ in range(B)]).astype(np.int32)
+    cnt_b = np.take_along_axis(cnt, perm, 1)  # counts in permuted positions
+    return (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, E, sig0,
+            pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
 
 
 def heterogeneous_problem(

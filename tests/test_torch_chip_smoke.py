@@ -99,16 +99,25 @@ def test_scan_latency_floor():
 
 def test_kernels_line_rows():
     """A row per counted kernel: the solve's four, the two big-slot scans
-    at the live cluster, then phase 6's five (the batched scans, each at the
-    problem whose shapes pick it, and the verdict kernels at ``live``);
-    phase 4 times the cluster sizes the rule does not pick."""
+    at the live cluster, then phase 6's seven (the batched scans, each at
+    the problem whose shapes pick it, `verdict_rows`' three launches and
+    the prologue's at ``live``, those four in place of the JAX package's
+    verdict epilogue and prologue); phase 4 times the cluster sizes the
+    rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-        "verdict_rows", "population_prologue")
+        "verdict_summary", "verdict_configs", "verdict_write", "population_pairs")
     assert set(chip_smoke.KERNELS) == set(fused_packer.LAUNCHES)
+    assert chip_smoke.VERDICT_ROWS == fused_packer.VERDICT_ROWS_LAUNCHES
     assert set(chip_smoke.ROW_PROBLEM) == set(chip_smoke.KERNELS)
     assert set(chip_smoke.VERDICT_REPLACES) == set(chip_smoke.VERDICT_KERNELS)
+    for k, fn in chip_smoke.VERDICT_FUNCTION.items():
+        assert chip_smoke.ROW_PROBLEM[k] == "live"
+        assert chip_smoke.VERDICT_REPLACES[k] == (
+            "karpenter_tpu/ops/packer.py:525" if fn == "verdict_rows"
+            else "karpenter_tpu/ops/packer.py:686")
+    assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", *chip_smoke.VERDICT_FUNCTION}
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
     for name, scan in chip_smoke.VERDICT_SCAN.items():
@@ -266,6 +275,16 @@ def test_verdict_bounds_count_the_run():
     # order, class 0's feasibility row, the config arrays, compactable, the row
     assert b["bytes"] == 8 + 2 * 4 + 4 + 3 * (2 + 1) * 4 + 8 + 4 + 4 * (4 + 4 + 1 + 12) + 2 + 24
     assert b["operations"] == 4 * (3 + 4 + 6) + 2 + 2 * 2
+    # the launches' shares: per-element reads and slot tests, the config
+    # arrays and feasibility row with the per-config tests, the row
+    parts = b["parts"]
+    assert list(parts) == list(chip_smoke.VERDICT_ROWS)
+    assert parts["verdict_summary"]["bytes"] == 8 + 2 * 4 + 4 + 3 * (2 + 1) * 4 + 8 + 2
+    assert parts["verdict_summary"]["operations"] == 2 + 2 * 2
+    assert parts["verdict_configs"]["bytes"] == 4 + 4 * (4 + 4 + 1 + 12)
+    assert parts["verdict_configs"]["operations"] == 4 * (3 + 4 + 6)
+    assert parts["verdict_write"] == chip_smoke._bound(24, 0)
+    assert sum(v["bytes"] for v in parts.values()) == b["bytes"]
     pop = (torch.tensor([[1, 0], [2, 1]], dtype=torch.int32), torch.tensor([0, 3], dtype=torch.int32),
            torch.tensor([[0, 2**29], [4, 5]], dtype=torch.int32), torch.tensor([1, 0], dtype=torch.int32),
            9, torch.tensor([[True, True], [False, True]]), 3)

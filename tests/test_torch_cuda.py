@@ -6,7 +6,10 @@ cluster one above it (2, 4 or 8 CTAs), on the wrap case (int32 sums that
 wrap) too, also with its prefilled slots straddling a CTA boundary; and
 the global one through its own entry point.  The choice is held to the
 plain version on its own cases: ties broken by first index, few classes,
-6 configs and a ``feas`` one byte off (both read a config at a time).
+6 configs and a ``feas`` one byte off (both read a config at a time).  The
+verdict kernels are held to theirs at the sweep's shape, on the tie arrays
+(at the live problem's shape too, and at next0 0 and K) and, for the
+prologue, with U and Gp past its block.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -361,7 +364,7 @@ def test_verdict_kernels_match_reference(cuda_device, objective):
     pop = (base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank, base.occ_span,
            masks, base.k_slots)
     got, moved = _launch_moves(lambda: fused_packer.population_prologue(*pop))
-    assert moved == {"population_prologue": 1}
+    assert moved == {"population_pairs": 1}
     _assert_bit_equal(got, population_prologue_reference(*pop))
     (req, _, maxper, slot, feas, alloc, price, openable,
      used0, cfg0, npods0, next0, sig0) = base.args
@@ -371,7 +374,7 @@ def test_verdict_kernels_match_reference(cuda_device, objective):
     tail = (got[2], feas, alloc, price, openable, base.pool_id, base.zone_id, base.ct_id,
             base.compactable, next0)
     rows, moved = _launch_moves(lambda: fused_packer.verdict_rows(*outs, *tail))
-    assert moved == {"verdict_rows": 1}
+    assert moved == {k: 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES}
     _assert_bit_equal([rows], [verdict_rows_reference(*outs, *tail)])
     plain_args = (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0,
                   next0, sig0, base.pool_id, base.zone_id, base.ct_id, base.compactable,
@@ -390,9 +393,63 @@ def test_verdicts_on_card_match_cpu(cuda_device, objective):
     cpu = TorchScheduler(pools, inv, existing=existing, device="cpu", objective=objective)
     singles = [[c] for c in cands]
     got, moved = _launch_moves(lambda: card.evaluate_removals(singles, cands))
-    assert moved.get("verdict_rows") == 1 and moved.get("ffd_scan_batched") == 1
+    assert moved.get("ffd_scan_batched") == 1
+    assert all(moved.get(k) == 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES)
     assert got == cpu.evaluate_removals(singles, cands)
     masks = np.random.RandomState(2).rand(100, len(cands)) < 0.25
     got, moved = _launch_moves(lambda: card.evaluate_population(masks, cands))
-    assert moved.get("population_prologue") == 1
+    assert moved.get("population_pairs") == 1
     assert got == cpu.evaluate_population(masks, cands)
+
+
+# testing.verdict_tie_arrays: name -> (classes, configs, slots, elements,
+# live slots).  Equal masked prices across warps and config tiles, elements
+# in two groups of 32, an element with every config masked, one with no new
+# slot, one with many; the first at the live problem's shape.
+TIE_CASES = {
+    "cp8192-kp4096-b512": (8, 8192, 4096, 512, 2000),
+    "gp40-cp1000": (40, 1000, 512, 40, 4),
+    "cp6": (8, 6, 64, 40, 4),
+    "next0-k": (8, 300, 16, 3, 16),
+    "next0-0": (8, 300, 32, 5, 0),
+}
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("case", list(TIE_CASES))
+def test_verdict_rows_on_tie_arrays(cuda_device, case, objective):
+    """The removal verdicts through the card (each launch once) and
+    `verdict_rows` on the scan's outputs at next0, 0 and K, bit-equal to
+    their plain versions on the tie arrays."""
+    from karpenter_tpu_torch.ops.packer import removal_verdicts_reference, verdict_rows_reference
+
+    a = to_device(T.verdict_tie_arrays(*TIE_CASES[case]), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+    K, R = used0.shape
+    scan = fused_packer.scan_kernel(K, R, sig0.shape[0], alloc.shape[0])
+    got, moved = _launch_moves(lambda: fused_packer.removal_verdicts(*a, objective=objective))
+    assert moved == {"choose_config": 1, f"{scan}_batched": 1,
+                     **{k: 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES}}
+    _assert_bit_equal([got], [removal_verdicts_reference(*a, objective=objective)])
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    outs = fused_packer.ffd_scan_batch(req, maxper, slot, feas, alloc, *chosen, used0, cfg0,
+                                       npods0, next0, sig0, cnt_b, rm_b, perm_b)
+    tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
+    for n0 in sorted({next0, 0, K}):
+        _assert_bit_equal([fused_packer.verdict_rows(*outs, *tail, n0)],
+                          [verdict_rows_reference(*outs, *tail, n0)])
+
+
+@pytest.mark.parametrize("shape", [(300, 300, 1000, 16), (600, 40, 4096, 8),
+                                   (64, 8, 4096, 512), (5, 3, 7, 4)])
+def test_population_prologue_past_the_block(cuda_device, shape):
+    """`population_prologue` (one launch) bit-equal to its plain version
+    with U and Gp past its block of 256 threads, rm rows of 16-byte stores
+    and of byte stores (K 1000, 7)."""
+    from karpenter_tpu_torch.ops.packer import population_prologue_reference
+
+    a = to_device(T.population_arrays(*shape), cuda_device)
+    got, moved = _launch_moves(lambda: fused_packer.population_prologue(*a))
+    assert moved == {"population_pairs": 1}
+    _assert_bit_equal(got, population_prologue_reference(*a))

@@ -19,7 +19,13 @@ its classes.  For each snapshot and objective:
   element.
 
 The guards (an empty universe, each ``removal_search_guard`` reason, a
-``pop_reason``) must resolve without any launch.  Tolerance: none.
+``pop_reason``) must resolve without any launch.  On
+``testing.verdict_tie_arrays`` (ties of the masked price across warps and
+config tiles, elements in two groups of 32, an element with every config
+masked, one with no new slot, one with many; Gp 8 and 40, Cp 6, 1000 and
+8192, next0 0 and K) JAX's ``removal_verdict_kernel`` and the port's
+plain ``removal_verdicts_reference`` give the same rows bit for bit.
+Tolerance: none.
 """
 
 import random
@@ -337,3 +343,45 @@ def test_subset_outside_the_universe_needs_the_host():
     want = jsched.evaluate_removals([[jc[0]], [jstray], [jc[1]]], jc)
     assert [tuple(v) for v in got] == [tuple(v) for v in want]
     assert got[1].needs_host and not got[0].needs_host
+
+
+# testing.verdict_tie_arrays: name -> (classes, configs, slots, elements,
+# live slots)
+TIE_CASES = {
+    "gp8-cp6": (8, 6, 64, 40, 4),
+    "gp8-cp8192": (8, 8192, 256, 40, 4),
+    "gp40-cp1000": (40, 1000, 512, 40, 4),
+    "next0-k": (8, 300, 16, 3, 16),
+    "next0-0": (8, 300, 32, 5, 0),
+}
+
+
+def _tie_rows(case, objective):
+    a = T.verdict_tie_arrays(*TIE_CASES[case])
+    port = P.removal_verdicts_reference(
+        *(x if isinstance(x, int) else torch.from_numpy(x) for x in a), objective=objective)
+    return a, port.numpy()
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("case", list(TIE_CASES))
+def test_tie_arrays_rows_bit_equal(case, objective):
+    a, port = _tie_rows(case, objective)
+    want = JP.removal_verdict_kernel(*a, k_slots=a[7].shape[0], objective=objective)
+    np.testing.assert_array_equal(_bits(port), _bits(np.asarray(want)))
+
+
+def test_tie_arrays_cover_their_cases():
+    """The tie arrays reach what they are for: element 0 has no new slot and
+    every config masked, element 1 many new slots, and the minimum lands on
+    the first, second and fourth copy of the tied shape (warps 0 and 1 of
+    the first tile of 256 configs, and the second tile)."""
+    _, rows = _tie_rows("gp8-cp8192", "nodes")
+    assert rows.shape[0] % 32 != 0
+    assert rows[0, P.RV_NEW_COUNT] == 0 and rows[0, P.RV_C_MIN] == 0
+    assert np.isinf(rows[0, P.RV_MIN_PRICE])
+    assert rows[1, P.RV_NEW_COUNT] >= 100
+    ties = T.VERDICT_TIE_CONFIGS
+    assert {ties[0], ties[1], ties[3]} <= set(rows[:, P.RV_C_MIN].astype(int).tolist())
+    _, rows = _tie_rows("gp40-cp1000", "nodes")
+    assert rows[1, P.RV_NEW_COUNT] >= 200
