@@ -164,19 +164,6 @@ VERDICT_REPLACES = {
     **{k: "karpenter_tpu/ops/packer.py:525" for k in VERDICT_ROWS},
     "population_pairs": "karpenter_tpu/ops/packer.py:686",
 }
-# phase 6's tie and edge cases (testing.verdict_tie_arrays): name ->
-# (classes, configs, slots, elements, live slots); the first at the live
-# problem's shape
-TIE_CASES = {
-    "ties Cp 8192 Kp 4096 B 512": (8, 8192, 4096, 512, 2000),
-    "ties Gp 40 Cp 1000": (40, 1000, 512, 40, 4),
-    "ties Cp 6": (8, 6, 64, 40, 4),
-    "ties next0 = K": (8, 300, 16, 3, 16),
-    "ties next0 = 0": (8, 300, 32, 5, 0),
-}
-# population_prologue's cases (testing.population_arrays): (candidates,
-# classes, slots, members), the first two past its block of 256 threads
-PROLOGUE_CASES = ((300, 300, 1000, 16), (600, 40, 4096, 8), (64, 8, 4096, 512))
 SWEEP_PODS = 560
 LIVE_UNIVERSE = 64
 POPULATION = {"sweep": 320, "live": 512}
@@ -1086,23 +1073,12 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
             cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
     }
     rows_events = cuda_ms(torch, rows, iters=50)
-    # draft: the config pass writing the rows itself (the last block of an
-    # element group to finish), against the third launch, in turns
-    want = P.verdict_rows_reference(*outs, *tail)
-    turns = []
-    for fused in (False, True, True, False):
-        F.VERDICT_FUSED_WRITE = fused
-        try:
-            if max_abs_err(torch, [rows()], [want]) != 0:
-                fail(f"{name}: verdict_rows (fused={fused}) disagrees with its plain version")
-            launched = VERDICT_ROWS if not fused else VERDICT_ROWS[:2]
-            ms = profiled_launches_ms(torch, rows, launched, iters=50)
-            turns.append((fused, sum(ms.values()), ms, cuda_ms(torch, rows, iters=50)))
-        finally:
-            F.VERDICT_FUSED_WRITE = False
-    for fused, total, ms, ev in turns:
-        print(f"  {name} verdict_rows {'fused write' if fused else 'third launch'}: "
-              f"device ms a launch {ms!r}, sum {total!r}; CUDA events a call {ev!r}")
+    B, C = outs[0].shape[0], tail[2].shape[0]
+    picked_group = F.verdict_group(B, C, F._sm_count(torch.cuda.current_device()))
+    by_group = {g: profiled_ms(torch, lambda g=g: rows_in_groups(F, g, outs, tail),
+                               "verdict_configs", iters=50) for g in F.VERDICT_GROUPS}
+    print(f"  {name} verdict_configs device ms a launch by element group (B {B}, Cp {C}; the "
+          f"rule picks {picked_group}): {by_group!r}")
     if name == "live":
         shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
                   scan_args[0].shape[1], scan_args[12].shape[0])
@@ -1137,19 +1113,33 @@ def batched_floor_ms(torch, name, base, B, barrier_us, l2_us) -> float:
     return ms
 
 
+def rows_in_groups(F, group: int, outs, tail):
+    """`verdict_rows` with its config pass on element groups of ``group``
+    (`fused_packer.verdict_group` replaced for the call)."""
+    rule = F.verdict_group
+    F.verdict_group = lambda B, C, sms: group
+    try:
+        return F.verdict_rows(*outs, *tail)
+    finally:
+        F.verdict_group = rule
+
+
 def compare_tie_cases(torch):
     """Phase 6's tie and edge cases, both objectives, kernels against their
-    plain versions bit for bit: on each of `TIE_CASES` the removal verdicts
-    through the card (the choice, the batched scan the shapes pick, the
-    three launches of `verdict_rows`, each once) and `verdict_rows` on the
-    scan's outputs at next0, 0 and K; `population_prologue` on each of
-    `PROLOGUE_CASES` (one launch).  Returns the largest error per function."""
+    plain versions bit for bit: on each of `testing.VERDICT_TIE_CASES` the
+    removal verdicts through the card (the choice, the batched scan the
+    shapes pick, the three launches of `verdict_rows`, each once) and
+    `verdict_rows` on the scan's outputs at next0, 0 and K (on the first
+    case also on every element group); `population_prologue` on each of
+    `testing.PROLOGUE_CASES` (one launch).  Returns the largest error per
+    function."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
     dev = torch.device("cuda")
     errs = {"verdict_rows": 0.0, "population_prologue": 0.0}
+    first = next(iter(T.VERDICT_TIE_CASES))
 
     def moved_by(fn):
         before = dict(F.LAUNCHES)
@@ -1157,7 +1147,7 @@ def compare_tie_cases(torch):
         torch.cuda.synchronize()
         return out, {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
 
-    for name, shape in TIE_CASES.items():
+    for name, shape in T.VERDICT_TIE_CASES.items():
         a = P.to_device(T.verdict_tie_arrays(*shape), dev)
         (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
          pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
@@ -1175,14 +1165,20 @@ def compare_tie_cases(torch):
             for n0 in sorted({next0, 0, K}):
                 e = max(e, max_abs_err(torch, [F.verdict_rows(*outs, *tail, n0)],
                                        [P.verdict_rows_reference(*outs, *tail, n0)]))
+            groups = F.VERDICT_GROUPS if name == first else ()
+            want = P.verdict_rows_reference(*outs, *tail, next0) if groups else None
+            for group in groups:  # each element group of the config pass
+                e = max(e, max_abs_err(torch, [rows_in_groups(F, group, outs, (*tail, next0))],
+                                       [want]))
             print(f"  {name} {objective}: B={perm_b.shape[0]} Gp={req.shape[0]} Kp={K} "
                   f"Cp={alloc.shape[0]} next0={next0} ({scan}): verdict_rows max_abs_err={e!r} "
-                  f"(also at next0 0 and K); rows {int(torch.isinf(got[:, 3]).sum())} +inf, "
+                  f"(also at next0 0 and K{', groups ' + repr(groups) if groups else ''}); rows "
+                  f"{int(torch.isinf(got[:, 3]).sum())} +inf, "
                   f"c_min {sorted(set(got[:, 2].int().tolist()))[:6]}...")
             if e != 0:
                 fail(f"{name} {objective}: verdict_rows disagrees with its plain version")
             errs["verdict_rows"] = max(errs["verdict_rows"], e)
-    for U, G, K, Pm in PROLOGUE_CASES:
+    for U, G, K, Pm in T.PROLOGUE_CASES:
         a = P.to_device(T.population_arrays(U, G, K, Pm), dev)
         got, moved = moved_by(lambda: F.population_prologue(*a))
         if moved != {"population_pairs": 1}:

@@ -1490,32 +1490,32 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
 //                           key, k_star's usage and the new slots' load
 //                           [R] each, and as bit words over base classes
 //                           the classes on k_star and on any new slot;
-//   verdict_configs_kernel  grid (ceil(Cp / kCfgTile), ceil(B / kGroup)):
+//   verdict_configs_kernel  grid (ceil(Cp / kCfgTile), ceil(B / group)):
 //                           each thread loads one config once and tests it
-//                           against the kGroup elements of its group; the
-//                           masked price's first-index argmin per element
-//                           is reduced in the warp and combined across
-//                           blocks by one 64-bit atomicMin, `hold` by
-//                           atomicOr;
+//                           against the `group` elements (at most kGroup)
+//                           of its block; the masked price's first-index
+//                           argmin per element is reduced in the warp and
+//                           combined across blocks by one 64-bit atomicMin,
+//                           `hold` by atomicOr;
 //   verdict_write_kernel    grid (ceil(B / 256),): the six-value rows;
 //   population_pairs_kernel grid (P,): one block per removal mask derives
 //                           its counts, removed slots and FFD class order,
 //                           the batched scan's inputs.
-// What bounds them is latency: each is a few dependent passes.  PR 8's
-// one-block-per-element verdict kernel reloaded the whole config table for
-// every element, a chain of loads per config (31x its bound at 8192
-// configs); the config pass now reads each config once per group of
-// kGroup elements, every load issued before its first use, and tests the
-// group's records from shared memory as mask words (bit el: element
-// e0 + el).  The prologue's block spread its work over 8 of 256 threads,
-// each walking every candidate; now every (candidate, class) pair gets a
-// thread's load.
+// What bounds them is latency: each is a few dependent passes.  A block
+// per element walking every config would reload the whole config table
+// for each element, a chain of loads per config; the config pass reads
+// each config once per group of elements, every load issued before its
+// first use, and tests the group's records from shared memory as mask
+// words (bit el: element e0 + el), skipping the tests no element of the
+// warp needs.  The prologue spreads its (candidate, class) pairs over the
+// threads, one load of each tensor a selected pair.
 
 constexpr int kSummaryThreads = 256;
 constexpr int kSummaryWarps = kSummaryThreads / 32;
+constexpr int kSummaryMinBlocks = 4;  // a SM's summary blocks: 132 x 4 hold B 512 at once
 constexpr int kCfgTile = 256;  // configs of a config-pass block, one a thread
 constexpr int kCfgWarps = kCfgTile / 32;
-constexpr int kGroup = 32;     // elements of a config-pass block: a mask word
+constexpr int kGroup = 32;     // the most elements of a config-pass block: a mask word
 constexpr int kWriteThreads = 256;
 constexpr int kRecInts = 8;    // lo_units, new_count, non_donors, cs, pool, zone, ct, 0
 constexpr float kFitSlack = 1e-6f;   // `used <= alloc + 1e-6`
@@ -1539,7 +1539,6 @@ struct VerdictScratch {
   float* load;               // [B][2R]: k_star's usage, then the new slots' load
   unsigned* flags;           // [B][2W]: on k_star, then on a new slot (bit b: base class b)
   unsigned* hold;            // [B]
-  unsigned* done;            // [ceil(B / kGroup)]: config tiles finished
 };
 
 inline uintptr_t up16(uintptr_t n) { return (n + 15) & ~(uintptr_t)15; }
@@ -1560,8 +1559,6 @@ inline VerdictScratch verdict_scratch(void* base, int B, int G, int R, size_t* b
   o = up16(o + 4 * 2 * W * b);
   s.hold = (unsigned*)o;
   o = up16(o + 4 * b);
-  s.done = (unsigned*)o;
-  o = up16(o + 4 * ((b + kGroup - 1) / kGroup));
   if (bytes) *bytes = (size_t)(o - (uintptr_t)base);
   return s;
 }
@@ -1573,23 +1570,26 @@ __device__ __forceinline__ void set_class(unsigned* words, int b, int G) {
 
 // Dynamic shared memory of a summary block: the element's base rows [Gp],
 // the new-slot bit mask [ceil(K / 32)], the two class flag masks
-// [ceil(Gp / 32)] each, then compactable of each base row as bytes [Gp].
+// [ceil(Gp / 32)] each, then compactable of each base class as bytes [Gp].
 __host__ __device__ inline size_t summary_smem(int Gp, int K) {
   return (size_t)4 * (Gp + (K + 31) / 32 + 2 * ((Gp + 31) / 32)) + (size_t)Gp;
 }
 
 // _verdict_row's epilogue over element e's scan outputs (the batched
 // layout of ffd_scan_batch), up to the configs.  Pass 1: the leftover sum,
-// the base rows and their compactable flags.  Pass 2, threads over the
-// slots [next0, K), four slots' pod counts loaded at once: the new slots
-// (node_pods > 0; newmask is false below next0) as a bit mask, their count
-// and the first (k_star, else 0: argmax of an all-false mask); after the
-// barrier, the classes on each new slot and the non-donors.  Pass 3: the
-// classes on k_star; per axis a warp reads k_star's usage and sums
-// new_load in ascending slot order, the usage of each 32 slots of the
-// new-slot mask loaded at once.  All counts int32, as JAX's.  feas_p[g] = feas[perm[g]], so a permuted class g's
-// flag is bit perm[g] of the record's words.
-__global__ void __launch_bounds__(kSummaryThreads) verdict_summary_kernel(
+// the base rows, the compactable flags (by base class) and each thread's
+// first kSlots slots' pod counts, all loaded before the first barrier.
+// Pass 2, threads over the slots [next0, K): the new slots (node_pods > 0;
+// newmask is false below next0) as a bit mask, their count, the first
+// (k_star, else 0: argmax of an all-false mask), the classes on each and
+// the non-donors.  Pass 3: the classes on k_star; per axis a warp reads
+// k_star's usage and sums new_load in ascending slot order, the usage of
+// four words (32 slots each) of the new-slot mask loaded at once.  All
+// counts int32, as JAX's.  feas_p[g] = feas[perm[g]], so a permuted class
+// g's flag is bit perm[g] of the record's words.  Its launch bounds name
+// kSummaryMinBlocks: with the thread count alone ptxas capped it at 32
+// registers (a full SM's worth of blocks) and spilled.
+__global__ void __launch_bounds__(kSummaryThreads, kSummaryMinBlocks) verdict_summary_kernel(
     const int* __restrict__ take, const int* __restrict__ leftover,
     const int* __restrict__ node_cfg, const int* __restrict__ node_pods,
     const float* __restrict__ node_used, const int* __restrict__ perm_b,
@@ -1612,72 +1612,96 @@ __global__ void __launch_bounds__(kSummaryThreads) verdict_summary_kernel(
   unsigned* s_new = (unsigned*)(s_perm + Gp);       // [nwords]
   unsigned* s_onnew = s_new + nwords;               // [W]
   unsigned* s_onany = s_onnew + W;                  // [W]
-  uint8_t* s_comp = (uint8_t*)(s_onany + W);        // [Gp]
+  uint8_t* s_comp = (uint8_t*)(s_onany + W);        // [Gp], by base class
 
-  // ---- 1. the leftover sum (wrapping, as int32); masks cleared -------------
-  unsigned lsum = 0u;
-  for (int g = tid; g < Gp; g += kSummaryThreads) {
-    lsum += (unsigned)leftover[g];
-    const int b = perm_b[g];
-    s_perm[g] = b;
-    s_comp[g] = compactable[b];
+  // ---- 1. the leftover sum (wrapping, as int32); masks cleared; this
+  // thread's first kSlots slots' pod counts loaded before the barrier -------
+  constexpr int T = kSummaryThreads, kSlots = 8;
+  int pods[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int k = next0 + tid + i * T;
+    pods[i] = k < K ? node_pods[k] : 0;
   }
-  for (int w = tid; w < nwords; w += kSummaryThreads) s_new[w] = 0u;
-  for (int w = tid; w < 2 * W; w += kSummaryThreads) s_onnew[w] = 0u;  // and s_onany
+  unsigned lsum = 0u;
+  for (int g = tid; g < Gp; g += T) {
+    lsum += (unsigned)leftover[g];
+    s_perm[g] = perm_b[g];
+    s_comp[g] = compactable[g];
+  }
+  for (int w = tid; w < nwords; w += T) s_new[w] = 0u;
+  for (int w = tid; w < 2 * W; w += T) s_onnew[w] = 0u;  // and s_onany
   __syncthreads();
 
-  // ---- 2. the new slots ----------------------------------------------------
-  // 2a: the pod counts, four slots' loaded at once: the new-slot mask, the
-  // count and the first
-  constexpr int T = kSummaryThreads;
-  unsigned cnt = 0u;
+  // ---- 2. the new slots: the mask, count and first, the classes on each
+  // (eight classes' take loaded at once), the non-donors --------------------
+  unsigned cnt = 0u, nondonor = 0u;
   int first = 0x7fffffff;
-  for (int k0 = next0 + tid; k0 < K; k0 += 4 * T) {
-    const int p0 = node_pods[k0];
-    const int p1 = k0 + T < K ? node_pods[k0 + T] : 0;
-    const int p2 = k0 + 2 * T < K ? node_pods[k0 + 2 * T] : 0;
-    const int p3 = k0 + 3 * T < K ? node_pods[k0 + 3 * T] : 0;
-    const unsigned m = (p0 > 0) | (p1 > 0) << 1 | (p2 > 0) << 2 | (p3 > 0) << 3;
-    if (m) first = min(first, k0 + (__ffs(m) - 1) * T);
-    cnt += __popc(m);
-    for (unsigned b = m; b; b &= b - 1u) {
-      const int k = k0 + (__ffs(b) - 1) * T;
+  for (int k0 = next0 + tid; k0 < K; k0 += kSlots * T) {
+    if (k0 != next0 + tid) {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i)
+        pods[i] = k0 + i * T < K ? node_pods[k0 + i * T] : 0;
+    }
+    unsigned m = 0u, big = 0u;  // bit i: slot k0 + i * T is new; holds > 8 units
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      m |= (unsigned)(pods[i] > 0) << i;
+      big |= (unsigned)(pods[i] > 8) << i;
+    }
+    for (; m; m &= m - 1u) {
+      const int i = __ffs(m) - 1, k = k0 + i * T;
+      ++cnt;
+      first = min(first, k);
       atomicOr(s_new + (k >> 5), 1u << (k & 31));
+      bool bad = (big >> i) & 1u;  // or a class on it that compaction cannot move
+      for (int g0 = 0; g0 < Gp; g0 += 8) {
+        int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = g0 + j < Gp ? take[(size_t)(g0 + j) * K + k] : 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (v[j] > 0) {
+            const int b = s_perm[g0 + j];
+            set_class(s_onany, b, Gp);
+            bad |= (unsigned)b >= (unsigned)Gp || s_comp[b] == 0;
+          }
+      }
+      nondonor += bad ? 1u : 0u;
     }
   }
   lsum = warp_sum(lsum);
   cnt = warp_sum(cnt);
+  nondonor = warp_sum(nondonor);
   for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
   if (lane == 0) {
     s_sum[0][warp] = lsum;
     s_sum[1][warp] = cnt;
+    s_sum[2][warp] = nondonor;
     s_first[warp] = first;
   }
-  __syncthreads();  // the new-slot mask and the sums are complete
-  unsigned lo_units = 0u, new_count = 0u;
+  __syncthreads();  // the new-slot mask, the classes on new slots, the sums
+  unsigned lo_units = 0u, new_count = 0u, non_donors = 0u;
   first = 0x7fffffff;
   for (int w = 0; w < kSummaryWarps; ++w) {
     lo_units += s_sum[0][w];
     new_count += s_sum[1][w];
+    non_donors += s_sum[2][w];
     first = min(first, s_first[w]);
   }
   const int k_star = first == 0x7fffffff ? 0 : first;
+  // c_star and its key: a chain of two loads, issued now by the thread that
+  // writes the record, to land while the block works on
+  const bool writer = tid == kSummaryThreads - 32;
+  int cs = 0, key_pool = 0, key_zone = 0, key_ct = 0;
+  if (writer) {
+    cs = max(node_cfg[k_star], 0);
+    key_pool = pool_id[cs];
+    key_zone = zone_id[cs];
+    key_ct = ct_id[cs];
+  }
 
   // ---- 3. the classes on k_star, its usage, the new slots' load -----------
-  // 2b: the classes on each new slot, and the non-donors
-  unsigned nondonor = 0u;
-  for (int k = next0 + tid; k < K; k += T) {
-    if (!((s_new[k >> 5] >> (k & 31)) & 1u)) continue;
-    bool bad = node_pods[k] > 8;  // or a class on it that compaction cannot move
-    for (int g = 0; g < Gp; ++g)
-      if (take[(size_t)g * K + k] > 0) {
-        set_class(s_onany, s_perm[g], Gp);
-        bad |= s_comp[g] == 0;
-      }
-    nondonor += bad ? 1u : 0u;
-  }
-  nondonor = warp_sum(nondonor);
-  if (lane == 0) s_sum[2][warp] = nondonor;
   for (int g = tid; g < Gp; g += kSummaryThreads)
     if (take[(size_t)g * K + k_star] > 0) set_class(s_onnew, s_perm[g], Gp);
   float* load = vs.load + (size_t)e * 2 * R;
@@ -1686,47 +1710,50 @@ __global__ void __launch_bounds__(kSummaryThreads) verdict_summary_kernel(
     float acc = 0.0f;
     for (int w0 = next0 >> 5; w0 < nwords; w0 += 32) {
       const unsigned mine = w0 + lane < nwords ? s_new[w0 + lane] : 0u;
-      for (unsigned words = __ballot_sync(kFull, mine != 0u); words; words &= words - 1u) {
-        const int wi = __ffs(words) - 1;
-        const unsigned bits = __shfl_sync(kFull, mine, wi);
-        const float v = (bits >> lane) & 1u
-                            ? node_used[(size_t)((w0 + wi) * 32 + lane) * R + r] : 0.0f;
-        for (unsigned b = bits; b; b &= b - 1u)
-          acc = __fadd_rn(acc, __shfl_sync(kFull, v, __ffs(b) - 1));
+      for (unsigned words = __ballot_sync(kFull, mine != 0u); words;) {
+        unsigned bits[4];  // four non-empty words, ascending: loads first
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int wi = words ? __ffs(words) - 1 : 0;
+          bits[i] = words ? __shfl_sync(kFull, mine, wi) : 0u;
+          words &= words - 1u;
+          v[i] = (bits[i] >> lane) & 1u
+                     ? node_used[(size_t)((w0 + wi) * 32 + lane) * R + r] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          for (unsigned b = bits[i]; b; b &= b - 1u)
+            acc = __fadd_rn(acc, __shfl_sync(kFull, v[i], __ffs(b) - 1));
       }
     }
     if (lane == 0) load[R + r] = acc;
   }
-  __syncthreads();  // the flag words and the non-donor sums are complete
+  __syncthreads();  // the flag words are complete
   unsigned* flags = vs.flags + (size_t)e * 2 * W;
   for (int w = tid; w < 2 * W; w += kSummaryThreads) flags[w] = s_onnew[w];  // then s_onany
-  if (tid == 0) {
-    unsigned non_donors = 0u;
-    for (int w = 0; w < kSummaryWarps; ++w) non_donors += s_sum[2][w];
-    const int cs = max(node_cfg[k_star], 0);
+  if (writer) {
     int* rec = vs.rec + (size_t)e * kRecInts;
     rec[0] = (int)lo_units;
     rec[1] = (int)new_count;
     rec[2] = (int)non_donors;
     rec[3] = cs;
-    rec[4] = pool_id[cs];
-    rec[5] = zone_id[cs];
-    rec[6] = ct_id[cs];
+    rec[4] = key_pool;
+    rec[5] = key_zone;
+    rec[6] = key_ct;
     rec[7] = 0;
     vs.best[e] = ~0ull;  // the argmin cell and hold, neutral
     vs.hold[e] = 0u;
-    if (e % kGroup == 0) vs.done[e / kGroup] = 0u;
   }
 }
 
 // Dynamic shared memory of a config-pass block: the tile's alloc rows plus
 // the slack [R][kCfgTile] (thread t reads column t), the group's usage and
-// load [2R][kGroup], keys [3][kGroup], flag words [2W][kGroup] (element
-// minor, read four elements at a time), and the union of the flag words
-// [W].
+// load [2R][kGroup], keys [3][kGroup] and flag words [2W][kGroup] (element
+// minor, read four elements at a time).
 __host__ __device__ inline size_t configs_smem(int G, int R) {
   const int W = (G + 31) / 32;
-  return (size_t)4 * (R * kCfgTile + 2 * R * kGroup + 3 * kGroup + 2 * W * kGroup + W);
+  return (size_t)4 * (R * kCfgTile + 2 * R * kGroup + 3 * kGroup + 2 * W * kGroup);
 }
 
 // Masks of four elements' compares: bit q*4+i from component i.
@@ -1734,51 +1761,36 @@ __device__ __forceinline__ unsigned bits4(bool x, bool y, bool z, bool w, int q)
   return ((unsigned)x | (unsigned)y << 1 | (unsigned)z << 2 | (unsigned)w << 3) << (4 * q);
 }
 
-// Row e of the verdicts from its record, its argmin cell and hold.
-__device__ __forceinline__ void write_row(const VerdictScratch& vs, const float* price,
-                                          int e, unsigned long long best, unsigned hold,
-                                          float* rows) {
-  const int* rec = vs.rec + (size_t)e * kRecInts;
-  const int bidx = (int)(unsigned)best;
-  float* row = rows + (size_t)e * kVerdictWidth;
-  row[0] = (float)rec[0];
-  row[1] = (float)rec[1];
-  row[2] = (float)bidx;
-  // the masked price at bidx: +inf where every config is masked
-  row[3] = (unsigned)(best >> 32) == kInfKey ? INFINITY : price[bidx];
-  row[4] = (float)rec[3];
-  row[5] = (rec[1] >= 2 && rec[2] <= 1 && hold) ? 1.0f : 0.0f;
-}
-
 // The config pass of _verdict_row: config c = tile * kCfgTile + t against
-// the elements e0 .. e0 + kGroup - 1.  Per element: class_feas (every
-// class on k_star feasible on c: no on-new bit outside c's feasibility
-// bits), fits_used and holds (2R compares), the key compare; the masked
-// price's first-index argmin and `hold` (holds, openable and every class on
-// a new slot feasible).  With `fused`, the last block of the group to
-// finish (a counter per group in `done`, zeroed by the summary) writes the
-// group's rows.
+// the elements e0 .. e0 + ng - 1 (ng at most `group`, at most kGroup).  Per
+// element: `same` (c's key is c_star's), class_feas (no class on k_star
+// outside c's feasibility bits), fits_used (R compares), for the masked
+// price's first-index argmin; and for `hold`: holds (R compares), every
+// class on a new slot feasible, openable -- only for the elements whose
+// row reads it (new_count >= 2, non_donors <= 1: `need`).  A warp skips
+// the tests of four elements where no lane needs them, and the two argmin
+// reductions of an element no lane's config is open to.
 __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const float* __restrict__ price, const uint8_t* __restrict__ openable,
     const int* __restrict__ pool_id, const int* __restrict__ zone_id,
-    const int* __restrict__ ct_id, int B, int G, int Cp, int R, VerdictScratch vs,
-    int fused, float* __restrict__ rows) {
+    const int* __restrict__ ct_id, int B, int G, int Cp, int R, int group,
+    VerdictScratch vs) {
   extern __shared__ __align__(16) unsigned char csm[];
   __shared__ unsigned long long s_best[kCfgWarps][kGroup];
   __shared__ unsigned s_hold[kCfgWarps];
-  __shared__ int s_last;
+  __shared__ unsigned s_need;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int W = (G + 31) >> 5;
-  const int c0 = blockIdx.x * kCfgTile, e0 = blockIdx.y * kGroup;
-  const int ne = min(kGroup, B - e0), nc = min(kCfgTile, Cp - c0);
+  const int c0 = blockIdx.x * kCfgTile, e0 = blockIdx.y * group;
+  const int ng = min(group, B - e0), nc = min(kCfgTile, Cp - c0);
+  const int nq = (ng + 3) >> 2;  // quads of elements
   const int c = c0 + t;
   const bool valid = t < nc;
   float* s_alloc = (float*)csm;                       // [R][kCfgTile]
   float* s_el = s_alloc + R * kCfgTile;               // [2R][kGroup]
   int* s_key = (int*)(s_el + 2 * R * kGroup);         // [3][kGroup]
   unsigned* s_fl = (unsigned*)(s_key + 3 * kGroup);   // [2W][kGroup]
-  unsigned* s_union = s_fl + 2 * W * kGroup;          // [W]
 
   // ---- this thread's config, its tile's alloc rows, the group's records --
   float pr = 0.0f;
@@ -1797,37 +1809,44 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
   }
   for (int i = t; i < 2 * R * kGroup; i += kCfgTile) {
     const int j = i / kGroup, el = i - j * kGroup;
-    s_el[i] = el < ne ? vs.load[(size_t)(e0 + el) * 2 * R + j] : 0.0f;
+    s_el[i] = el < ng ? vs.load[(size_t)(e0 + el) * 2 * R + j] : 0.0f;
   }
   for (int i = t; i < 3 * kGroup; i += kCfgTile) {
     const int j = i / kGroup, el = i - j * kGroup;
-    s_key[i] = el < ne ? vs.rec[(size_t)(e0 + el) * kRecInts + 4 + j] : 0;
+    s_key[i] = el < ng ? vs.rec[(size_t)(e0 + el) * kRecInts + 4 + j] : 0;
   }
   for (int i = t; i < 2 * W * kGroup; i += kCfgTile) {
     const int j = i / kGroup, el = i - j * kGroup;
-    s_fl[i] = el < ne ? vs.flags[(size_t)(e0 + el) * 2 * W + j] : 0u;
+    s_fl[i] = el < ng ? vs.flags[(size_t)(e0 + el) * 2 * W + j] : 0u;
   }
-  __syncthreads();
-  for (int w = warp; w < W; w += kCfgWarps) {  // the classes some element flags
-    const unsigned u = __reduce_or_sync(
-        kFull, s_fl[w * kGroup + lane] | s_fl[(W + w) * kGroup + lane]);
-    if (lane == 0) s_union[w] = u;
+  if (warp == 0) {  // the elements whose row reads `hold`
+    bool nh = false;
+    if (lane < ng) {
+      const int* rec = vs.rec + (size_t)(e0 + lane) * kRecInts;
+      nh = rec[1] >= 2 && rec[2] <= 1;
+    }
+    const unsigned m = __ballot_sync(kFull, nh);
+    if (lane == 0) s_need = m;
   }
   __syncthreads();
 
   // ---- the tests, as masks over the group --------------------------------
   unsigned same = 0u;
-#pragma unroll
-  for (int q = 0; q < kGroup / 4; ++q) {
+  for (int q = 0; q < nq; ++q) {
     const int4 p = reinterpret_cast<const int4*>(s_key)[q];
     const int4 z = reinterpret_cast<const int4*>(s_key + kGroup)[q];
     const int4 y = reinterpret_cast<const int4*>(s_key + 2 * kGroup)[q];
     same |= bits4(p.x == pz && z.x == zz && y.x == tz, p.y == pz && z.y == zz && y.y == tz,
                   p.z == pz && z.z == zz && y.z == tz, p.w == pz && z.w == zz && y.w == tz, q);
   }
+  const unsigned live = ng == kGroup ? ~0u : (1u << ng) - 1u;
+  const unsigned want = valid && op ? same & live : 0u;  // elements c may be the min of
+  const unsigned need = valid && op ? s_need : 0u;       // elements c may hold
+  const unsigned wf = __reduce_or_sync(kFull, want), wh = __reduce_or_sync(kFull, need);
   unsigned cls = ~0u, any = ~0u;  // class_feas, all_new_feas
-  for (int w = 0; w < W; ++w) {
-    const unsigned u = s_union[w];
+  for (int w = 0; w < W && (wf | wh); ++w) {
+    const unsigned u = __reduce_or_sync(  // the classes of word w some element flags
+        kFull, s_fl[w * kGroup + lane] | s_fl[(W + w) * kGroup + lane]);
     if (u == 0u) continue;
     unsigned fb = 0u;  // c's feasibility bits of the flagged classes of word w
     if (valid) {
@@ -1836,45 +1855,58 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
       for (int i = 0; i < 32; ++i)
         if ((u >> i) & 1u) fb |= (unsigned)(col[(size_t)i * Cp] != 0) << i;
     }
-#pragma unroll
-    for (int q = 0; q < kGroup / 4; ++q) {
-      const uint4 on = reinterpret_cast<const uint4*>(s_fl + w * kGroup)[q];
-      const uint4 an = reinterpret_cast<const uint4*>(s_fl + (W + w) * kGroup)[q];
-      cls &= ~bits4((on.x & ~fb) != 0u, (on.y & ~fb) != 0u, (on.z & ~fb) != 0u,
-                    (on.w & ~fb) != 0u, q);
-      any &= ~bits4((an.x & ~fb) != 0u, (an.y & ~fb) != 0u, (an.z & ~fb) != 0u,
-                    (an.w & ~fb) != 0u, q);
+    for (int q = 0; q < nq; ++q) {
+      if ((wf >> (4 * q)) & 15u) {
+        const uint4 on = reinterpret_cast<const uint4*>(s_fl + w * kGroup)[q];
+        cls &= ~bits4((on.x & ~fb) != 0u, (on.y & ~fb) != 0u, (on.z & ~fb) != 0u,
+                      (on.w & ~fb) != 0u, q);
+      }
+      if ((wh >> (4 * q)) & 15u) {
+        const uint4 an = reinterpret_cast<const uint4*>(s_fl + (W + w) * kGroup)[q];
+        any &= ~bits4((an.x & ~fb) != 0u, (an.y & ~fb) != 0u, (an.z & ~fb) != 0u,
+                      (an.w & ~fb) != 0u, q);
+      }
     }
   }
   unsigned fit = ~0u, holds = ~0u;  // fits_used, new_load held
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R && (wf | wh); ++r) {
     const float a = valid ? s_alloc[r * kCfgTile + t] : 0.0f;
-#pragma unroll
-    for (int q = 0; q < kGroup / 4; ++q) {
-      const float4 u = reinterpret_cast<const float4*>(s_el + r * kGroup)[q];
-      const float4 l = reinterpret_cast<const float4*>(s_el + (R + r) * kGroup)[q];
-      fit &= ~bits4(!(u.x <= a), !(u.y <= a), !(u.z <= a), !(u.w <= a), q);
-      holds &= ~bits4(!(l.x <= a), !(l.y <= a), !(l.z <= a), !(l.w <= a), q);
+    for (int q = 0; q < nq; ++q) {
+      if ((wf >> (4 * q)) & 15u) {
+        const float4 u = reinterpret_cast<const float4*>(s_el + r * kGroup)[q];
+        fit &= ~bits4(!(u.x <= a), !(u.y <= a), !(u.z <= a), !(u.w <= a), q);
+      }
+      if ((wh >> (4 * q)) & 15u) {
+        const float4 l = reinterpret_cast<const float4*>(s_el + (R + r) * kGroup)[q];
+        holds &= ~bits4(!(l.x <= a), !(l.y <= a), !(l.z <= a), !(l.w <= a), q);
+      }
     }
   }
-  const unsigned live = ne == kGroup ? ~0u : (1u << ne) - 1u;
-  const unsigned ok = valid && op ? same & cls & fit & live : 0u;
-  const unsigned hk = valid && op ? holds & any & live : 0u;
+  const unsigned ok = want & cls & fit;
+  const unsigned hk = need & holds & any;
 
   // ---- argmin and hold: the warp, the block, then across blocks ----------
   const unsigned pk = price_key(pr), cu = valid ? (unsigned)c : ~0u;
+  const unsigned wok = __reduce_or_sync(kFull, ok);
+  const unsigned first_c = __reduce_min_sync(kFull, cu);  // ~0u: no config in the warp
+  const unsigned long long none =  // every lane's masked price +inf
+      (unsigned long long)(first_c == ~0u ? ~0u : kInfKey) << 32 | first_c;
   unsigned long long mine = ~0ull;
-  for (int el = 0; el < ne; ++el) {
-    const unsigned hi = valid ? ((ok >> el) & 1u ? pk : kInfKey) : ~0u;
-    const unsigned mn = __reduce_min_sync(kFull, hi);
-    const unsigned ci = __reduce_min_sync(kFull, hi == mn ? cu : ~0u);
-    if (lane == el) mine = (unsigned long long)mn << 32 | ci;
+  for (int el = 0; el < ng; ++el) {
+    unsigned long long v = none;
+    if ((wok >> el) & 1u) {
+      const unsigned hi = valid ? ((ok >> el) & 1u ? pk : kInfKey) : ~0u;
+      const unsigned mn = __reduce_min_sync(kFull, hi);
+      const unsigned ci = __reduce_min_sync(kFull, hi == mn ? cu : ~0u);
+      v = (unsigned long long)mn << 32 | ci;
+    }
+    if (lane == el) mine = v;
   }
   s_best[warp][lane] = mine;
   const unsigned hw = __reduce_or_sync(kFull, hk);
   if (lane == 0) s_hold[warp] = hw;
   __syncthreads();
-  if (t < ne) {
+  if (t < ng) {
     unsigned long long b = s_best[0][t];
     unsigned h = s_hold[0];
     for (int w = 1; w < kCfgWarps; ++w) {
@@ -1884,21 +1916,24 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
     atomicMin(vs.best + e0 + t, b);
     if ((h >> t) & 1u) atomicOr(vs.hold + e0 + t, 1u);
   }
-  if (!fused) return;
-  __threadfence();  // this block's atomics land before its count
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(vs.done + blockIdx.y, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (s_last && t < ne) {
-    __threadfence();
-    write_row(vs, price, e0 + t, __ldcg(vs.best + e0 + t), __ldcg(vs.hold + e0 + t), rows);
-  }
 }
 
+// Row e of the verdicts from its record, its argmin cell and hold.
 __global__ void __launch_bounds__(kWriteThreads) verdict_write_kernel(
     const float* __restrict__ price, int B, VerdictScratch vs, float* __restrict__ rows) {
   const int e = blockIdx.x * kWriteThreads + threadIdx.x;
-  if (e < B) write_row(vs, price, e, vs.best[e], vs.hold[e], rows);
+  if (e >= B) return;
+  const int* rec = vs.rec + (size_t)e * kRecInts;
+  const unsigned long long best = vs.best[e];
+  const int bidx = (int)(unsigned)best;
+  float* row = rows + (size_t)e * kVerdictWidth;
+  row[0] = (float)rec[0];
+  row[1] = (float)rec[1];
+  row[2] = (float)bidx;
+  // the masked price at bidx: +inf where every config is masked
+  row[3] = (unsigned)(best >> 32) == kInfKey ? INFINITY : price[bidx];
+  row[4] = (float)rec[3];
+  row[5] = (rec[1] >= 2 && rec[2] <= 1 && vs.hold[e]) ? 1.0f : 0.0f;
 }
 
 constexpr int kPrologueThreads = 256;
@@ -2207,60 +2242,44 @@ long long ffd_verdict_scratch_bytes(int B, int G, int R) {
   return (long long)bytes;
 }
 
-// verdict_rows, launch 1 of 3: the element records of a batched scan's B
-// elements into `scratch` (ffd_verdict_scratch_bytes(B, Gp, R) bytes,
-// 16-byte aligned).
-int ffd_verdict_summary(const int* take, const int* leftover, const int* node_cfg,
-                        const int* node_pods, const float* node_used,
-                        const int* perm_b, const int* pool_id, const int* zone_id,
-                        const int* ct_id, const uint8_t* compactable, int B,
-                        int Gp, int K, int R, int next0, void* scratch,
-                        void* stream) {
+// The verdict rows of a batched scan's B elements, `rows` [B][6]: the
+// summary, the config pass (`group` elements a block, 1 to 32) and the
+// write, in order on `stream`, over `scratch`
+// (ffd_verdict_scratch_bytes(B, Gp, R) bytes, 16-byte aligned).
+int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
+                     const int* node_pods, const float* node_used,
+                     const int* perm_b, const uint8_t* feas, const float* alloc,
+                     const float* price, const uint8_t* openable,
+                     const int* pool_id, const int* zone_id, const int* ct_id,
+                     const uint8_t* compactable, int B, int Gp, int Cp, int K,
+                     int R, int next0, int group, void* scratch, float* rows,
+                     void* stream) {
   if (B <= 0) return 0;
-  if (Gp < 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K ||
+  if (Gp < 0 || Cp <= 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K || group < 1 ||
+      group > kGroup || (B + group - 1) / group > 65535 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = summary_smem(Gp, K);
-  const cudaError_t e = allow_smem(verdict_summary_kernel, smem);
+  const size_t smem_s = summary_smem(Gp, K), smem_c = configs_smem(Gp, R);
+  cudaError_t e = allow_smem(verdict_summary_kernel, smem_s);
+  if (e == cudaSuccess) e = allow_smem(verdict_configs_kernel, smem_c);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
-  verdict_summary_kernel<<<B, kSummaryThreads, smem, (cudaStream_t)stream>>>(
+  const VerdictScratch vs = verdict_scratch(scratch, B, Gp, R, nullptr);
+  const auto st = (cudaStream_t)stream;
+  verdict_summary_kernel<<<B, kSummaryThreads, smem_s, st>>>(
       take, leftover, node_cfg, node_pods, node_used, perm_b, pool_id, zone_id,
-      ct_id, compactable, Gp, K, R, next0, verdict_scratch(scratch, B, Gp, R, nullptr));
-  return (int)cudaGetLastError();
-}
-
-// verdict_rows, launch 2: the config pass over the records; with `fused`
-// it also writes `rows` [B][6], else verdict_write does.
-int ffd_verdict_configs(const uint8_t* feas, const float* alloc, const float* price,
-                        const uint8_t* openable, const int* pool_id,
-                        const int* zone_id, const int* ct_id, int B, int Gp, int Cp,
-                        int R, void* scratch, int fused, float* rows, void* stream) {
-  if (B <= 0) return 0;
-  if (Gp < 0 || Cp <= 0 || R < 0 || (B + kGroup - 1) / kGroup > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = configs_smem(Gp, R);
-  const cudaError_t e = allow_smem(verdict_configs_kernel, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  const dim3 grid((Cp + kCfgTile - 1) / kCfgTile, (B + kGroup - 1) / kGroup);
-  verdict_configs_kernel<<<grid, kCfgTile, smem, (cudaStream_t)stream>>>(
-      feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R,
-      verdict_scratch(scratch, B, Gp, R, nullptr), fused, rows);
-  return (int)cudaGetLastError();
-}
-
-// verdict_rows, launch 3: `rows` [B][6] from the records and argmin cells.
-int ffd_verdict_write(const float* price, int B, int Gp, int R, void* scratch,
-                      float* rows, void* stream) {
-  if (B <= 0) return 0;
-  verdict_write_kernel<<<(B + kWriteThreads - 1) / kWriteThreads, kWriteThreads, 0,
-                         (cudaStream_t)stream>>>(
-      price, B, verdict_scratch(scratch, B, Gp, R, nullptr), rows);
+      ct_id, compactable, Gp, K, R, next0, vs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Cp + kCfgTile - 1) / kCfgTile, (B + group - 1) / group);
+  verdict_configs_kernel<<<grid, kCfgTile, smem_c, st>>>(
+      feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R, group, vs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  verdict_write_kernel<<<(B + kWriteThreads - 1) / kWriteThreads, kWriteThreads, 0, st>>>(
+      price, B, vs, rows);
   return (int)cudaGetLastError();
 }
 

@@ -34,6 +34,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -56,11 +57,12 @@ LAUNCHES: Dict[str, int] = {
     "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
     "verdict_summary": 0, "verdict_configs": 0, "verdict_write": 0, "population_pairs": 0,
 }
-# the launches of each verdict wrapper, in order
+# the launches of `verdict_rows`, in order
 VERDICT_ROWS_LAUNCHES = ("verdict_summary", "verdict_configs", "verdict_write")
-# whether the config pass writes the rows itself (the last block of an
-# element group to finish), instead of `verdict_write`
-VERDICT_FUSED_WRITE = False
+# the config pass: configs a block (kCfgTile in ffd_pack.cu) and the element
+# group sizes it may test them against (at most kGroup, 32)
+VERDICT_CONFIG_TILE = 256
+VERDICT_GROUPS = (32, 16, 8, 4)
 
 # the resident scan's shared memory and axes (kRing, kTile, kXchgBytes and
 # kMaxR in ffd_pack.cu)
@@ -103,12 +105,8 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_scan_concurrency.restype = _I
         lib.ffd_verdict_scratch_bytes.argtypes = [_I] * 3
         lib.ffd_verdict_scratch_bytes.restype = ctypes.c_longlong
-        lib.ffd_verdict_summary.argtypes = [_P] * 10 + [_I] * 5 + [_P] + [_P]
-        lib.ffd_verdict_summary.restype = _I
-        lib.ffd_verdict_configs.argtypes = [_P] * 7 + [_I] * 4 + [_P, _I, _P] + [_P]
-        lib.ffd_verdict_configs.restype = _I
-        lib.ffd_verdict_write.argtypes = [_P] + [_I] * 3 + [_P] * 2 + [_P]
-        lib.ffd_verdict_write.restype = _I
+        lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 7 + [_P] * 2 + [_P]
+        lib.ffd_verdict_rows.restype = _I
         lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_population_prologue.restype = _I
     return lib
@@ -535,6 +533,30 @@ def scan_concurrency(K: int, R: int, S: int, C: int) -> int:
     return n
 
 
+def verdict_group(B: int, C: int, sms: int) -> int:
+    """Elements a block of `verdict_rows`' config pass tests its configs
+    against: the largest of `VERDICT_GROUPS` whose grid (ceil(C / 256)
+    config tiles x ceil(B / group) groups) gives each of the card's ``sms``
+    SMs a block, else the smallest.  A larger group reads each config fewer
+    times; a smaller one shortens each thread's chain of tests where the
+    grid would leave SMs idle."""
+    tiles = -(-C // VERDICT_CONFIG_TILE)
+    for group in VERDICT_GROUPS:
+        if tiles * -(-B // group) >= sms:
+            return group
+    return VERDICT_GROUPS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _verdict_scratch_bytes(B: int, G: int, R: int) -> int:
+    return int(_lib().ffd_verdict_scratch_bytes(B, G, R))
+
+
 def verdict_rows(
     take, leftover, node_cfg, node_pods, node_used, perm_b,
     feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable,
@@ -545,8 +567,8 @@ def verdict_rows(
     launches over one scratch allocation: `verdict_summary` (one block per
     element: its counts, c_star's key, k_star's usage, the new slots' load
     and the class flags), `verdict_configs` (each config tested once
-    against a group of 32 elements; a first-index argmin by 64-bit
-    atomicMin) and `verdict_write` (the rows)."""
+    against a group of up to 32 elements, `verdict_group`; a first-index
+    argmin by 64-bit atomicMin) and `verdict_write` (the rows)."""
     dev = take.device
     args = (take, leftover, node_cfg, node_pods, node_used, perm_b,
             feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
@@ -580,23 +602,17 @@ def verdict_rows(
     rows = torch.empty((B, RV_WIDTH), dtype=torch.float32, device=dev)
     if B == 0:
         return rows
-    lib = _lib()
-    scratch = torch.empty(int(lib.ffd_verdict_scratch_bytes(B, G, R)), dtype=torch.uint8,
-                          device=dev)
-    tmp = scratch.data_ptr()
-    fused = int(VERDICT_FUSED_WRITE)
+    group = verdict_group(B, C, _sm_count(dev.index if dev.index is not None
+                                          else torch.cuda.current_device()))
+    scratch = torch.empty(_verdict_scratch_bytes(B, G, R), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launched("verdict_summary", lib.ffd_verdict_summary(
-            *_ptrs(take, leftover, node_cfg, node_pods, node_used, perm_b,
-                   pool_id, zone_id, ct_id, compactable),
-            B, G, K, R, int(next0), tmp, stream))
-        _launched("verdict_configs", lib.ffd_verdict_configs(
-            *_ptrs(feas, alloc, price, openable, pool_id, zone_id, ct_id),
-            B, G, C, R, tmp, fused, rows.data_ptr(), stream))
-        if not fused:
-            _launched("verdict_write", lib.ffd_verdict_write(
-                price.data_ptr(), B, G, R, tmp, rows.data_ptr(), stream))
+        err = _lib().ffd_verdict_rows(
+            *_ptrs(*args), B, G, C, K, R, int(next0), group, scratch.data_ptr(),
+            rows.data_ptr(), stream,
+        )
+    for name in VERDICT_ROWS_LAUNCHES:  # one C call launches the three in order
+        _launched(name, err)
     return rows
 
 

@@ -269,6 +269,21 @@ def population_arrays(candidates: int, classes: int, k_slots: int, members: int,
 # the configs holding the tie arrays' cheapest shape: warps 0, 1 and 2 of
 # the first tile of 256 configs, then the second tile and the 17th
 VERDICT_TIE_CONFIGS = (3, 37, 70, 300, 4100)
+# `verdict_tie_arrays`' cases: name -> (classes, configs, slots, elements,
+# live slots).  The first is the live consolidation problem's shape (Cp
+# 8192, Kp 4096, B 512); B 40 is not a multiple of 32 elements a group.
+VERDICT_TIE_CASES = {
+    "cp8192-kp4096-b512": (8, 8192, 4096, 512, 2000),
+    "gp8-cp8192": (8, 8192, 256, 40, 4),
+    "gp40-cp1000": (40, 1000, 512, 40, 4),
+    "gp8-cp6": (8, 6, 64, 40, 4),
+    "next0-k": (8, 300, 16, 3, 16),
+    "next0-0": (8, 300, 32, 5, 0),
+}
+# `population_arrays`' cases: (candidates, classes, slots, members); the
+# first two past a block of 256 threads, the last with rm rows of byte
+# stores (K not a multiple of 16)
+PROLOGUE_CASES = ((300, 300, 1000, 16), (600, 40, 4096, 8), (64, 8, 4096, 512), (5, 3, 7, 4))
 
 
 def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512,

@@ -402,28 +402,18 @@ def test_verdicts_on_card_match_cpu(cuda_device, objective):
     assert got == cpu.evaluate_population(masks, cands)
 
 
-# testing.verdict_tie_arrays: name -> (classes, configs, slots, elements,
-# live slots).  Equal masked prices across warps and config tiles, elements
-# in two groups of 32, an element with every config masked, one with no new
-# slot, one with many; the first at the live problem's shape.
-TIE_CASES = {
-    "cp8192-kp4096-b512": (8, 8192, 4096, 512, 2000),
-    "gp40-cp1000": (40, 1000, 512, 40, 4),
-    "cp6": (8, 6, 64, 40, 4),
-    "next0-k": (8, 300, 16, 3, 16),
-    "next0-0": (8, 300, 32, 5, 0),
-}
-
-
 @pytest.mark.parametrize("objective", ["nodes", "cost"])
-@pytest.mark.parametrize("case", list(TIE_CASES))
+@pytest.mark.parametrize("case", list(T.VERDICT_TIE_CASES))
 def test_verdict_rows_on_tie_arrays(cuda_device, case, objective):
     """The removal verdicts through the card (each launch once) and
     `verdict_rows` on the scan's outputs at next0, 0 and K, bit-equal to
-    their plain versions on the tie arrays."""
+    their plain versions on the tie arrays: equal masked prices across
+    warps and config tiles, elements in two groups of 32, an element with
+    every config masked, one with no new slot, one with many; at the live
+    problem's shape too."""
     from karpenter_tpu_torch.ops.packer import removal_verdicts_reference, verdict_rows_reference
 
-    a = to_device(T.verdict_tie_arrays(*TIE_CASES[case]), cuda_device)
+    a = to_device(T.verdict_tie_arrays(*T.VERDICT_TIE_CASES[case]), cuda_device)
     (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
      pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
     K, R = used0.shape
@@ -441,8 +431,7 @@ def test_verdict_rows_on_tie_arrays(cuda_device, case, objective):
                           [verdict_rows_reference(*outs, *tail, n0)])
 
 
-@pytest.mark.parametrize("shape", [(300, 300, 1000, 16), (600, 40, 4096, 8),
-                                   (64, 8, 4096, 512), (5, 3, 7, 4)])
+@pytest.mark.parametrize("shape", T.PROLOGUE_CASES)
 def test_population_prologue_past_the_block(cuda_device, shape):
     """`population_prologue` (one launch) bit-equal to its plain version
     with U and Gp past its block of 256 threads, rm rows of 16-byte stores
@@ -453,3 +442,22 @@ def test_population_prologue_past_the_block(cuda_device, shape):
     got, moved = _launch_moves(lambda: fused_packer.population_prologue(*a))
     assert moved == {"population_pairs": 1}
     _assert_bit_equal(got, population_prologue_reference(*a))
+
+
+@pytest.mark.parametrize("group", fused_packer.VERDICT_GROUPS)
+@pytest.mark.parametrize("case", ["cp8192-kp4096-b512", "gp40-cp1000"])
+def test_verdict_rows_every_group(cuda_device, case, group, monkeypatch):
+    """The config pass at each element group size (partial last groups, two
+    flag words at Gp 40) gives the plain version's rows."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference, verdict_rows_reference
+
+    a = to_device(T.verdict_tie_arrays(*T.VERDICT_TIE_CASES[case]), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    outs = ffd_scan_batch_reference(req, maxper, slot, feas, alloc, *chosen, used0, cfg0,
+                                    npods0, next0, sig0, cnt_b, rm_b, perm_b)
+    tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
+    monkeypatch.setattr(fused_packer, "verdict_group", lambda B, C, sms: group)
+    _assert_bit_equal([fused_packer.verdict_rows(*outs, *tail)],
+                      [verdict_rows_reference(*outs, *tail)])

@@ -345,15 +345,9 @@ def test_subset_outside_the_universe_needs_the_host():
     assert got[1].needs_host and not got[0].needs_host
 
 
-# testing.verdict_tie_arrays: name -> (classes, configs, slots, elements,
-# live slots)
-TIE_CASES = {
-    "gp8-cp6": (8, 6, 64, 40, 4),
-    "gp8-cp8192": (8, 8192, 256, 40, 4),
-    "gp40-cp1000": (40, 1000, 512, 40, 4),
-    "next0-k": (8, 300, 16, 3, 16),
-    "next0-0": (8, 300, 32, 5, 0),
-}
+# testing.verdict_tie_arrays' cases but the first (the live problem's
+# shape, which the card tests take)
+TIE_CASES = dict(list(T.VERDICT_TIE_CASES.items())[1:])
 
 
 def _tie_rows(case, objective):
@@ -385,3 +379,16 @@ def test_tie_arrays_cover_their_cases():
     assert {ties[0], ties[1], ties[3]} <= set(rows[:, P.RV_C_MIN].astype(int).tolist())
     _, rows = _tie_rows("gp40-cp1000", "nodes")
     assert rows[1, P.RV_NEW_COUNT] >= 200
+
+
+def test_verdict_group_rule():
+    """The config pass takes the largest element group whose grid gives each
+    SM a block: 32 at the live problem's population (32 config tiles x 16
+    groups), 16 at its removal batch, 4 at the sweep's single tile."""
+    from karpenter_tpu_torch.ops.fused_packer import VERDICT_GROUPS, verdict_group
+
+    assert verdict_group(512, 8192, 132) == 32
+    assert verdict_group(128, 8192, 132) == 16
+    assert verdict_group(512, 256, 132) == VERDICT_GROUPS[-1] == 4
+    assert verdict_group(8192, 256, 132) == 32
+    assert verdict_group(40, 6, 132) == 4
