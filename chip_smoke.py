@@ -1004,26 +1004,45 @@ def _bound(byts: int, ops: int) -> dict:
 
 
 def verdict_rows_bound(torch, outs, tail, rows):
-    """`verdict_rows`' least time: each element reads its leftovers, the
-    pod counts of the slots past next0, the take column and usage row of
-    each new slot and of k_star, its class order; the config arrays and the
-    feasibility rows of the classes on new slots are read once; operations:
-    per element and config the fit tests (2 per axis and the add), the
-    class feasibility tests and the argmin (6), plus a test per window slot
-    and class of a new slot.  ``parts`` splits the bytes and operations
-    over the three launches: the per-element reads and the slot and class
-    tests (`verdict_summary`), the config arrays, the feasibility rows and
-    the per-config tests (`verdict_configs`), the rows (`verdict_write`)."""
+    """`verdict_rows`' least time for this run's data.  Bytes: each element
+    reads its leftovers, the pod counts of the slots past next0, the take
+    column and usage row of each new slot and of k_star, its class order;
+    the config arrays and the feasibility rows of the classes on new slots
+    are read once.  Operations, as the data needs them: per element a test
+    per window slot and a class test per new slot; per config the slack add
+    of each axis; per (element, config) pair the openable test and the
+    three key compares; where the config is openable with the element's
+    c_star key, the fit compare of each axis, a feasibility test per class
+    on k_star and the argmin's compare and select; where the element's row
+    reads `hold` (new_count >= 2, at most one non-donor), per openable
+    config the compare of each axis, a feasibility test per class on a new
+    slot and the or.  ``parts`` splits the bytes and operations over the
+    three launches: the per-element reads and the slot and class tests
+    (`verdict_summary`), the config arrays, the feasibility rows and the
+    per-config tests (`verdict_configs`), the rows (`verdict_write`)."""
     take, leftover, node_cfg, node_pods, node_used = outs
     (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0) = tail
     B, G, K = take.shape
     C, R = alloc.shape
     new = rows[:, 1].long()  # new slots per element
-    on_new = (take[:, :, int(next0):] > 0).any(2)  # [B, G]
-    feas_rows = int(torch.unique(perm_b.long()[on_new]).numel())
-    summary = (B * G * 4 + B * (K - int(next0)) * 4 + B * 4 + int((new + 1).sum()) * (G + R) * 4
-               + B * G * 4 + G, B * (K - int(next0)) + int(new.sum()) * G)
-    configs = (feas_rows * C + C * (R * 4 + 4 + 1 + 12), B * C * (3 * R + 2 * G + 6))
+    n0 = int(next0)
+    taken = take > 0
+    newmask = (torch.arange(K, device=take.device) >= n0)[None, :] & (node_pods > 0)  # [B, K]
+    on_any = (taken & newmask[:, None, :]).any(2)  # [B, G]
+    feas_rows = int(torch.unique(perm_b.long()[on_any]).numel())
+    k_star = newmask.to(torch.uint8).argmax(1)
+    cs = node_cfg.gather(1, k_star[:, None])[:, 0].clamp(min=0).long()
+    on_k = taken.gather(2, k_star[:, None, None].expand(B, G, 1))[:, :, 0].sum(1)  # [B]
+    same = ((pool_id[None, :] == pool_id[cs][:, None]) & (zone_id[None, :] == zone_id[cs][:, None])
+            & (ct_id[None, :] == ct_id[cs][:, None]) & openable[None, :])  # [B, C]
+    bad = (taken & ~compactable[perm_b.long()][:, :, None]).any(1)  # [B, K]
+    non_donors = (newmask & ((node_pods > 8) | bad)).sum(1)
+    hold = (new >= 2) & (non_donors <= 1)
+    argmin_ops = int((same.sum(1) * (R + on_k + 2)).sum())
+    hold_ops = int((hold * (R + on_any.sum(1) + 1)).sum()) * int(openable.sum())
+    summary = (B * G * 4 + B * (K - n0) * 4 + B * 4 + int((new + 1).sum()) * (G + R) * 4
+               + B * G * 4 + G, B * (K - n0) + int(new.sum()) * G)
+    configs = (feas_rows * C + C * (R * 4 + 4 + 1 + 12), C * R + 4 * B * C + argmin_ops + hold_ops)
     write = (B * 6 * 4, 0)
     parts = dict(zip(("verdict_summary", "verdict_configs", "verdict_write"),
                      (summary, configs, write)))
@@ -1073,12 +1092,6 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
             cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
     }
     rows_events = cuda_ms(torch, rows, iters=50)
-    B, C = outs[0].shape[0], tail[2].shape[0]
-    picked_group = F.verdict_group(B, C, F._sm_count(torch.cuda.current_device()))
-    by_group = {g: profiled_ms(torch, lambda g=g: rows_in_groups(F, g, outs, tail),
-                               "verdict_configs", iters=50) for g in F.VERDICT_GROUPS}
-    print(f"  {name} verdict_configs device ms a launch by element group (B {B}, Cp {C}; the "
-          f"rule picks {picked_group}): {by_group!r}")
     if name == "live":
         shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
                   scan_args[0].shape[1], scan_args[12].shape[0])
@@ -1117,7 +1130,7 @@ def rows_in_groups(F, group: int, outs, tail):
     """`verdict_rows` with its config pass on element groups of ``group``
     (`fused_packer.verdict_group` replaced for the call)."""
     rule = F.verdict_group
-    F.verdict_group = lambda B, C, sms: group
+    F.verdict_group = lambda *shape: group
     try:
         return F.verdict_rows(*outs, *tail)
     finally:
@@ -1165,7 +1178,7 @@ def compare_tie_cases(torch):
             for n0 in sorted({next0, 0, K}):
                 e = max(e, max_abs_err(torch, [F.verdict_rows(*outs, *tail, n0)],
                                        [P.verdict_rows_reference(*outs, *tail, n0)]))
-            groups = F.VERDICT_GROUPS if name == first else ()
+            groups = F.verdict_groups(F.verdict_shape()[1]) if name == first else ()
             want = P.verdict_rows_reference(*outs, *tail, next0) if groups else None
             for group in groups:  # each element group of the config pass
                 e = max(e, max_abs_err(torch, [rows_in_groups(F, group, outs, (*tail, next0))],
@@ -1293,7 +1306,10 @@ def verdict_phase(torch, card):
                                   floor=floor if k == f"{VERDICT_SCAN[name]}_batched" else None,
                                   argsort_ms=argsort_ms if k == "population_pairs" else None)
         launch_sum = sum(t[k][0] for k in VERDICT_ROWS)
-        print(f"  {name} verdict_rows: {' + '.join(f'{k} {t[k][0]!r}' for k in VERDICT_ROWS)} = "
+        group = F.verdict_group(B, tail[2].shape[0], F._sm_count(torch.cuda.current_device()),
+                                *F.verdict_shape())
+        print(f"  {name} verdict_rows (config pass on element groups of {group}): "
+              f"{' + '.join(f'{k} {t[k][0]!r}' for k in VERDICT_ROWS)} = "
               f"{launch_sum!r} ms device (profiler); {rows_events!r} ms per back-to-back call of "
               f"the wrapper (CUDA events); bound {b_rows['bound_ms']!r} ms "
               f"({b_rows['bound_by']}) ({card})")

@@ -694,6 +694,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
 constexpr int kRing = 8;   // feasibility rows in flight
 constexpr int kTile = 32;  // classes per tile of class rows
 constexpr int kMaxR = 31;  // resource axes, at most: one flag bit each
+// (verdict_rows' limit is its own, ffd_verdict_max_axes: about 179 axes)
 constexpr unsigned kFinite = 1u << 31;
 constexpr int kXchgBytes = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4;
 
@@ -2242,10 +2243,37 @@ long long ffd_verdict_scratch_bytes(int B, int G, int R) {
   return (long long)bytes;
 }
 
+// The config pass's configs a block (kCfgTile) and its largest element
+// group (kGroup), for the wrapper's choice of group.
+int ffd_verdict_config_tile() { return kCfgTile; }
+int ffd_verdict_max_group() { return kGroup; }
+
+// The most resource axes verdict_rows takes at G classes on the current
+// device: the config pass stages its tile's alloc rows, R x kCfgTile
+// floats, in shared memory (about 179 axes in a Hopper block's 227 KB).
+// A negative CUDA error code where the device query fails.
+int ffd_verdict_max_axes(int G) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, verdict_configs_kernel);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  const long long room = (long long)optin - (long long)attr.sharedSizeBytes -
+                         (long long)configs_smem(G, 0);
+  const long long per_axis = (long long)(configs_smem(G, 1) - configs_smem(G, 0));
+  return room < 0 ? 0 : (int)(room / per_axis);
+}
+
 // The verdict rows of a batched scan's B elements, `rows` [B][6]: the
 // summary, the config pass (`group` elements a block, 1 to 32) and the
 // write, in order on `stream`, over `scratch`
-// (ffd_verdict_scratch_bytes(B, Gp, R) bytes, 16-byte aligned).
+// (ffd_verdict_scratch_bytes(B, Gp, R) bytes, 16-byte aligned).  R at most
+// ffd_verdict_max_axes(Gp).
 int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
                      const int* node_pods, const float* node_used,
                      const int* perm_b, const uint8_t* feas, const float* alloc,

@@ -59,10 +59,6 @@ LAUNCHES: Dict[str, int] = {
 }
 # the launches of `verdict_rows`, in order
 VERDICT_ROWS_LAUNCHES = ("verdict_summary", "verdict_configs", "verdict_write")
-# the config pass: configs a block (kCfgTile in ffd_pack.cu) and the element
-# group sizes it may test them against (at most kGroup, 32)
-VERDICT_CONFIG_TILE = 256
-VERDICT_GROUPS = (32, 16, 8, 4)
 
 # the resident scan's shared memory and axes (kRing, kTile, kXchgBytes and
 # kMaxR in ffd_pack.cu)
@@ -105,6 +101,12 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_scan_concurrency.restype = _I
         lib.ffd_verdict_scratch_bytes.argtypes = [_I] * 3
         lib.ffd_verdict_scratch_bytes.restype = ctypes.c_longlong
+        lib.ffd_verdict_config_tile.argtypes = []
+        lib.ffd_verdict_config_tile.restype = _I
+        lib.ffd_verdict_max_group.argtypes = []
+        lib.ffd_verdict_max_group.restype = _I
+        lib.ffd_verdict_max_axes.argtypes = [_I]
+        lib.ffd_verdict_max_axes.restype = _I
         lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 7 + [_P] * 2 + [_P]
         lib.ffd_verdict_rows.restype = _I
         lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
@@ -533,23 +535,48 @@ def scan_concurrency(K: int, R: int, S: int, C: int) -> int:
     return n
 
 
-def verdict_group(B: int, C: int, sms: int) -> int:
+def verdict_groups(max_group: int) -> Tuple[int, ...]:
+    """The element groups `verdict_rows`' config pass may take, largest
+    first: its largest, ``max_group``, halved down to one quad of elements
+    (the pass reads its records four elements at a time)."""
+    return tuple(max_group >> i for i in range(max_group.bit_length() - 2))
+
+
+def verdict_group(B: int, C: int, sms: int, tile: int, max_group: int) -> int:
     """Elements a block of `verdict_rows`' config pass tests its configs
-    against: the largest of `VERDICT_GROUPS` whose grid (ceil(C / 256)
+    against: the largest of `verdict_groups` whose grid (ceil(C / tile)
     config tiles x ceil(B / group) groups) gives each of the card's ``sms``
     SMs a block, else the smallest.  A larger group reads each config fewer
     times; a smaller one shortens each thread's chain of tests where the
     grid would leave SMs idle."""
-    tiles = -(-C // VERDICT_CONFIG_TILE)
-    for group in VERDICT_GROUPS:
+    tiles = -(-C // tile)
+    groups = verdict_groups(max_group)
+    for group in groups:
         if tiles * -(-B // group) >= sms:
             return group
-    return VERDICT_GROUPS[-1]
+    return groups[-1]
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def verdict_shape() -> Tuple[int, int]:
+    """The config pass's configs a block and its largest element group,
+    from the built library."""
+    lib = _lib()
+    return int(lib.ffd_verdict_config_tile()), int(lib.ffd_verdict_max_group())
+
+
+@functools.lru_cache(maxsize=None)
+def _verdict_max_axes(index: int, G: int) -> int:
+    with torch.cuda.device(index):
+        n = int(_lib().ffd_verdict_max_axes(G))
+    if n < 0:
+        raise RuntimeError(f"verdict_rows: the shared memory query failed (CUDA error {-n})")
+    return n
 
 
 @functools.lru_cache(maxsize=64)
@@ -602,8 +629,13 @@ def verdict_rows(
     rows = torch.empty((B, RV_WIDTH), dtype=torch.float32, device=dev)
     if B == 0:
         return rows
-    group = verdict_group(B, C, _sm_count(dev.index if dev.index is not None
-                                          else torch.cuda.current_device()))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    max_axes = _verdict_max_axes(index, G)
+    if R > max_axes:
+        raise ValueError(f"verdict_rows takes at most {max_axes} resource axes at {G} classes "
+                         f"(the config pass holds its tile's alloc rows in shared memory); "
+                         f"got {R}")
+    group = verdict_group(B, C, _sm_count(index), *verdict_shape())
     scratch = torch.empty(_verdict_scratch_bytes(B, G, R), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -274,7 +274,14 @@ def test_verdict_bounds_count_the_run():
     # config, take columns and usage rows of 2 new slots + k_star, the class
     # order, class 0's feasibility row, the config arrays, compactable, the row
     assert b["bytes"] == 8 + 2 * 4 + 4 + 3 * (2 + 1) * 4 + 8 + 4 + 4 * (4 + 4 + 1 + 12) + 2 + 24
-    assert b["operations"] == 4 * (3 + 4 + 6) + 2 + 2 * 2
+    # operations as the data needs them: the slack adds (C x R), the
+    # openable test and key compares of each pair (4 x C), the fit, class
+    # and argmin tests at the 3 openable configs of c_star's key (R + 1
+    # class on k_star + 2 each), the hold tests at the 3 openable configs
+    # (the row reads hold: 2 new slots, no non-donor; R + 1 class + 1
+    # each), the window's 2 slot tests and a class test per new slot
+    configs_ops = 4 * 1 + 4 * 4 + 3 * (1 + 1 + 2) + 3 * (1 + 1 + 1)
+    assert b["operations"] == configs_ops + 2 + 2 * 2
     # the launches' shares: per-element reads and slot tests, the config
     # arrays and feasibility row with the per-config tests, the row
     parts = b["parts"]
@@ -282,7 +289,14 @@ def test_verdict_bounds_count_the_run():
     assert parts["verdict_summary"]["bytes"] == 8 + 2 * 4 + 4 + 3 * (2 + 1) * 4 + 8 + 2
     assert parts["verdict_summary"]["operations"] == 2 + 2 * 2
     assert parts["verdict_configs"]["bytes"] == 4 + 4 * (4 + 4 + 1 + 12)
-    assert parts["verdict_configs"]["operations"] == 4 * (3 + 4 + 6)
+    assert parts["verdict_configs"]["operations"] == configs_ops
+    # two pools, c_star's openable in one config; class 0 not compactable:
+    # both new slots are non-donors, the row reads no hold, no hold tests
+    pools = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    other = (tail[0], feas, alloc, price, openable, pools, ids, ids,
+             torch.tensor([False, True]), 1)
+    b = chip_smoke.verdict_rows_bound(torch, outs, other, P.verdict_rows_reference(*outs, *other))
+    assert b["parts"]["verdict_configs"]["operations"] == 4 * 1 + 4 * 4 + 1 * (1 + 1 + 2)
     assert parts["verdict_write"] == chip_smoke._bound(24, 0)
     assert sum(v["bytes"] for v in parts.values()) == b["bytes"]
     pop = (torch.tensor([[1, 0], [2, 1]], dtype=torch.int32), torch.tensor([0, 3], dtype=torch.int32),

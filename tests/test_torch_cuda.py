@@ -444,13 +444,17 @@ def test_population_prologue_past_the_block(cuda_device, shape):
     _assert_bit_equal(got, population_prologue_reference(*a))
 
 
-@pytest.mark.parametrize("group", fused_packer.VERDICT_GROUPS)
+@pytest.mark.parametrize("step", range(4))
 @pytest.mark.parametrize("case", ["cp8192-kp4096-b512", "gp40-cp1000"])
-def test_verdict_rows_every_group(cuda_device, case, group, monkeypatch):
-    """The config pass at each element group size (partial last groups, two
-    flag words at Gp 40) gives the plain version's rows."""
+def test_verdict_rows_every_group(cuda_device, case, step, monkeypatch):
+    """The config pass at each element group size (``step`` halvings of the
+    largest; partial last groups, two flag words at Gp 40) gives the plain
+    version's rows."""
     from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference, verdict_rows_reference
 
+    groups = fused_packer.verdict_groups(fused_packer.verdict_shape()[1])
+    assert len(groups) == 4
+    group = groups[step]
     a = to_device(T.verdict_tie_arrays(*T.VERDICT_TIE_CASES[case]), cuda_device)
     (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
      pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
@@ -458,6 +462,23 @@ def test_verdict_rows_every_group(cuda_device, case, group, monkeypatch):
     outs = ffd_scan_batch_reference(req, maxper, slot, feas, alloc, *chosen, used0, cfg0,
                                     npods0, next0, sig0, cnt_b, rm_b, perm_b)
     tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
-    monkeypatch.setattr(fused_packer, "verdict_group", lambda B, C, sms: group)
+    monkeypatch.setattr(fused_packer, "verdict_group", lambda *shape: group)
     _assert_bit_equal([fused_packer.verdict_rows(*outs, *tail)],
                       [verdict_rows_reference(*outs, *tail)])
+
+
+def test_verdict_rows_axis_limit(cuda_device):
+    """Past the axes the config pass's shared memory holds, `verdict_rows`
+    raises and names the limit instead of launching."""
+    R = fused_packer._verdict_max_axes(torch.cuda.current_device(), 8) + 1
+    assert R > 150
+    i32, f32 = torch.int32, torch.float32
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=cuda_device)
+    args = (z((2, 8, 4), i32), z((2, 8), i32), z((2, 4), i32), z((2, 4), i32),
+            z((2, 4, R), f32), z((2, 8), i32), z((8, 3), torch.bool), z((3, R), f32),
+            z((3,), f32), z((3,), torch.bool), z((3,), i32), z((3,), i32), z((3,), i32),
+            z((8,), torch.bool))
+    before = dict(fused_packer.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {R - 1} resource axes"):
+        fused_packer.verdict_rows(*args, 0)
+    assert fused_packer.LAUNCHES == before

@@ -384,11 +384,13 @@ def test_tie_arrays_cover_their_cases():
 def test_verdict_group_rule():
     """The config pass takes the largest element group whose grid gives each
     SM a block: 32 at the live problem's population (32 config tiles x 16
-    groups), 16 at its removal batch, 4 at the sweep's single tile."""
-    from karpenter_tpu_torch.ops.fused_packer import VERDICT_GROUPS, verdict_group
+    groups), 16 at its removal batch, 4 at the sweep's single tile (tiles
+    of 256 configs, groups of at most 32, as ffd_pack.cu builds them)."""
+    from karpenter_tpu_torch.ops.fused_packer import verdict_group, verdict_groups
 
-    assert verdict_group(512, 8192, 132) == 32
-    assert verdict_group(128, 8192, 132) == 16
-    assert verdict_group(512, 256, 132) == VERDICT_GROUPS[-1] == 4
-    assert verdict_group(8192, 256, 132) == 32
-    assert verdict_group(40, 6, 132) == 4
+    assert verdict_groups(32) == (32, 16, 8, 4)
+    assert verdict_group(512, 8192, 132, 256, 32) == 32
+    assert verdict_group(128, 8192, 132, 256, 32) == 16
+    assert verdict_group(512, 256, 132, 256, 32) == 4
+    assert verdict_group(8192, 256, 132, 256, 32) == 32
+    assert verdict_group(40, 6, 132, 256, 32) == 4
