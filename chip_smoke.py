@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-5), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-6), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -108,8 +108,33 @@ Phases (each failure exits non-zero before the last line is printed):
    ``torch.argsort(stable=True)`` beside the prologue, the p50 of both
    entry points with their last phases, and the count of ``needs_host``
    verdicts.
-Then it prints the kernels JSON line (every kernel, the old and the new),
-the card line, and last ``{"ok": true, "device": {...}}``.
+7. The operator: the port's provisioning loop through its normal entry
+   point, ``testing.Environment(device="cuda")`` (the `Operator` over the
+   fake cloud, a fake clock and the fake kubelet) over config 2's catalog
+   with its ``general`` and ``dedicated`` pools and a default NodeClass.
+   All 10,000 of config 2's pods go into the store and the run ticks
+   (``env.step``, 2 s of fake clock) until every pod is bound; then 5
+   churn rounds each replace 100 bound pods by new pods of their shapes
+   (an arrival tick, then the tick that solves and binds them).  The
+   launch counters are set to 0 just before the drive and read just after:
+   every solve must run on the card (``last_kernel == "cuda_ffd"``) and
+   launch ``choose_config`` and the scan `fused_packer.scan_kernel` picks
+   for its resident state, ``ffd_scan_global`` never; every pod must be
+   bound; no controller may have failed a reconcile
+   (``karpenter_controller_reconcile_errors_total``); and the run's
+   NodeClaims, Nodes, bindings and nominations, cloud calls, ledger stream
+   and solver counters (`testing.operator_state`) must equal those of the
+   same drive on the port's CPU operator.  One line a tick: the
+   operator's tick ms, each controller's ms, the solve's kind (cold, hit,
+   delta) and phases, the garbage collector's ms in the step, and the
+   device observatory's tick section with its
+   launches by function, new signatures, transfer bytes by site and
+   resident updates; then the p50 tick of each kind and the device busy
+   share of the last churn round's solve tick, profiled (device-side
+   events only).
+Then it prints the kernels JSON line (every kernel, the old and the new;
+``operator_launches`` is phase 7's count), the card line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,9 +199,18 @@ VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 # the kernels whose registers phase 2 prints and whose spills fail the run
 SPILL_CHECKED = ("choose_config", *VERDICT_ROWS, "population_pairs")
+# phase 7: the operator over config 2's catalog and all of its pods, ticks
+# of fake clock, the ticks allowed until every pod is bound, the churn
+OPERATOR_PODS = 10_000
+TICK_S = 2.0
+MAX_BIND_TICKS = 12
+CHURN_ROUNDS, CHURN_PODS, CHURN_SEED = 5, 100, 3
+# the ported controllers, in the operator's order
+CONTROLLERS = ("nodeclass", "provisioner", "lifecycle", "termination", "link",
+               "garbagecollection", "tagging")
 
 
-LAST_PHASE = 6
+LAST_PHASE = 7
 
 
 def fail(msg: str) -> None:
@@ -185,13 +219,13 @@ def fail(msg: str) -> None:
 
 
 def parse_through(argv) -> int:
-    """The last phase to run: ``--through N`` (N = 1-5) stops after phase
+    """The last phase to run: ``--through N`` (N = 1-6) stops after phase
     N; no argument runs them all.  Anything else exits 2."""
     if not argv:
         return LAST_PHASE
-    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4", "5"):
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4", "5", "6"):
         return int(argv[1])
-    print("usage: python3 chip_smoke.py [--through N]  (N = 1-5: stop after phase N)",
+    print("usage: python3 chip_smoke.py [--through N]  (N = 1-6: stop after phase N)",
           file=sys.stderr, flush=True)
     raise SystemExit(2)
 
@@ -1324,6 +1358,246 @@ def verdict_phase(torch, card):
             for k in VERDICT_KERNELS}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 7: the operator's provisioning loop
+# ---------------------------------------------------------------------------
+
+
+def operator_env(device: str):
+    """The port's operator environment over config 2's catalog, its
+    ``general`` and tainted ``dedicated`` pools and a default NodeClass,
+    the Provisioner's solver on ``device``.  Launches go one at a time in
+    claim order (the simulator's determinism knob), so a card run and a
+    CPU run hand out the same instance ids."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import Settings, reset_name_sequences
+    from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
+
+    reset_name_sequences()
+    settings = Settings(cluster_name="chip-smoke", enable_admission_fastpath=False,
+                        enable_pipelined_reconcile=False)
+    env = T.Environment(shapes=generate_catalog(**T.CONFIG2_CATALOG), settings=settings,
+                        device=device)
+    env.default_node_class()
+    env.default_node_pool(name="general")
+    env.default_node_pool(name="dedicated", taints=[T.DEDICATED_TAINT])
+    env.operator.provisioner.launch_concurrency = 1
+    return env
+
+
+class GcTimer:
+    """A ``gc.callbacks`` entry that sums the milliseconds of the garbage
+    collector's passes."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+
+def tick_summary(tick: int, kind: str, tick_s: float, controller_s: dict,
+                 phases: dict, kernel: str, section: dict, detail: dict,
+                 launches: dict, gc_ms: float = 0.0) -> dict:
+    """One operator tick as phase 7 prints it: the operator's own tick time
+    (``karpenter_reconcile_tick_duration_seconds``) and each controller's
+    in ms, the solve's kind ("" where the tick solved nothing), its phases
+    in ms and the kernel it ran, the kernel launches the tick counted, the
+    garbage collector's ms in the step, and the device observatory's tick
+    section with its breakdown."""
+    return {
+        "tick": tick,
+        "tick_ms": tick_s * 1e3,
+        "gc_ms": gc_ms,
+        "controllers_ms": {k: v * 1e3 for k, v in controller_s.items()},
+        "solve": kind,
+        "kernel": kernel if kind else "",
+        "phases_ms": {k: v * 1e3 for k, v in sorted(phases.items())} if kind else {},
+        "launches": {k: v for k, v in launches.items() if v},
+        "device": {**section, **detail},
+    }
+
+
+def operator_tick(env, tick: int, launches=None, gc_timer=None) -> dict:
+    """One ``env.step`` of fake clock, read back as its `tick_summary`.
+    ``launches`` is the kernel wrappers' counter dict (None on the CPU),
+    ``gc_timer`` a `GcTimer` (None: not timed)."""
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+    from karpenter_tpu_torch.operator import solve_kind, solver_counters
+
+    sched = env.operator.provisioner.scheduler
+    before = solver_counters(sched)
+    counted = dict(launches) if launches is not None else {}
+    gc0 = gc_timer.ms if gc_timer is not None else 0.0
+    env.step(TICK_S)
+    kind = solve_kind(before, solver_counters(sched))
+    reg = env.registry
+    controller_s = {}
+    for name in CONTROLLERS:
+        samples = reg.histogram("karpenter_controller_reconcile_time_seconds",
+                                {"controller": name})
+        controller_s[name] = samples[-1] if samples else 0.0
+    tick_s = reg.histogram("karpenter_reconcile_tick_duration_seconds")[-1]
+    return tick_summary(
+        tick, kind, tick_s, controller_s, sched.last_phases, sched.last_kernel,
+        OBSERVATORY.tick_section(), OBSERVATORY.tick_detail(),
+        {k: v - counted[k] for k, v in launches.items()} if launches is not None else {},
+        gc_timer.ms - gc0 if gc_timer is not None else 0.0,
+    )
+
+
+def churn_bound(env, rng, n: int) -> None:
+    """Replace ``n`` bound pods (drawn from the bound pods in key order) by
+    new pending pods of their shapes."""
+    from karpenter_tpu_torch.api import Pod
+
+    kube = env.kube
+    bound = sorted(k for k, p in kube.pods.items() if p.node_name)
+    for key in rng.sample(bound, n):
+        old = kube.pods[key]
+        kube.delete_pod(key)
+        kube.put_pod(Pod(requests=old.requests, node_selector=dict(old.node_selector),
+                         tolerations=list(old.tolerations)))
+
+
+def drive_operator(device: str, n_pods: int = OPERATOR_PODS, rounds: int = CHURN_ROUNDS,
+                   churn_pods: int = CHURN_PODS, launches=None, profile_last=None,
+                   gc_timer=None):
+    """Phase 7's drive on ``device``: config 2's first ``n_pods`` pods into
+    the store, ticks until every pod is bound, then ``rounds`` churn rounds
+    (an arrival tick, a solving tick, and up to two more while pods wait).
+    ``profile_last(run_tick)`` wraps the last round's solving tick.
+    Returns (env, tick summaries, what ``profile_last`` returned)."""
+    import random
+
+    from karpenter_tpu_torch import testing as T
+
+    env = operator_env(device)
+    for p in T.heterogeneous_pods(n_pods):
+        env.kube.put_pod(p)
+    ticks = []
+
+    def run_tick():
+        ticks.append(operator_tick(env, len(ticks) + 1, launches, gc_timer))
+
+    for _ in range(MAX_BIND_TICKS):
+        run_tick()
+        if not env.kube.pending_pods():
+            break
+    if env.kube.pending_pods():
+        fail(f"phase 7 ({device}): {len(env.kube.pending_pods())} of {n_pods} pods "
+             f"unbound after {MAX_BIND_TICKS} ticks")
+    rng = random.Random(CHURN_SEED)
+    profiled = None
+    for r in range(rounds):
+        churn_bound(env, rng, churn_pods)
+        run_tick()
+        if profile_last is not None and r == rounds - 1:
+            profiled = profile_last(run_tick)
+        else:
+            run_tick()
+        for _ in range(2):
+            if env.kube.pending_pods():
+                run_tick()
+        if env.kube.pending_pods():
+            fail(f"phase 7 ({device}): churn round {r + 1} left "
+                 f"{len(env.kube.pending_pods())} pods unbound")
+    errors = env.registry.counters.get("karpenter_controller_reconcile_errors_total", {})
+    if errors:
+        fail(f"phase 7 ({device}): controller reconcile errors {dict(errors)}")
+    return env, ticks, profiled
+
+
+def tick_p50s(ticks) -> dict:
+    """The p50 of the operator's tick ms by the kind of its solve ("none"
+    where the tick solved nothing), with the tick count of each kind."""
+    by_kind = {}
+    for t in ticks:
+        by_kind.setdefault(t["solve"] or "none", []).append(t["tick_ms"])
+    return {k: {"p50_ms": statistics.median(v), "ticks": len(v)}
+            for k, v in sorted(by_kind.items())}
+
+
+def operator_phase(torch, card):
+    """Phase 7 as the module docstring lists it.  Returns the launch counts
+    of the card's drive."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    F.reset_launches()
+    t0 = time.perf_counter()
+
+    def profiled_tick(run_tick):
+        torch.cuda.synchronize()
+        return profile_solve(torch, lambda _: run_tick(), None)
+
+    import gc
+
+    gc_timer = GcTimer()
+    gc.callbacks.append(gc_timer)
+    try:
+        env, ticks, profiled = drive_operator("cuda", launches=F.LAUNCHES,
+                                              profile_last=profiled_tick, gc_timer=gc_timer)
+    finally:
+        gc.callbacks.remove(gc_timer)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    card_s = time.perf_counter() - t0
+    sched = env.operator.provisioner.scheduler
+    for t in ticks:
+        print("  tick " + json.dumps(t), flush=True)
+    solves = [t for t in ticks if t["solve"]]
+    print(f"  {len(ticks)} ticks, {len(solves)} solves "
+          f"({', '.join(t['solve'] for t in solves)}) in {card_s!r} s; "
+          f"{len(env.kube.node_claims)} NodeClaims, {len(env.kube.nodes)} nodes, "
+          f"{len(env.kube.pods)} pods bound; launches over the drive {launches}", flush=True)
+    for t in solves:
+        if t["kernel"] != "cuda_ffd":
+            fail(f"phase 7: tick {t['tick']} solved with {t['kernel']!r}, not on the card")
+        got = t["launches"]
+        if got.get("choose_config", 0) < 1 or sum(got.get(k, 0) for k in SCAN_KERNELS) < 1:
+            fail(f"phase 7: tick {t['tick']}'s solve launched {got}")
+    if launches["choose_config"] < len(solves) or launches["ffd_scan_global"]:
+        fail(f"phase 7: launches {launches} over {len(solves)} solves")
+    if sched.last_resident:
+        picked = F.scan_kernel(*pack_shapes(sched._resident.states[-1].pack_args()))
+        if not solves[-1]["launches"].get(picked):
+            fail(f"phase 7: the last solve did not launch {picked}, the scan its shapes pick")
+        print(f"  the last solve ran {picked}, the scan its resident state's shapes pick")
+    print(f"  tick p50 by solve kind ({card}): {json.dumps(tick_p50s(ticks))}")
+    print(f"  profiled churn solve tick (torch.profiler, {card}): "
+          + (json.dumps(profiled) if profiled else "not measured: no device time seen"))
+    print(f"  observatory totals: {json.dumps(observatory_totals())}", flush=True)
+    t0 = time.perf_counter()
+    cpu_env, cpu_ticks, _ = drive_operator("cpu")
+    print(f"  the same drive on the CPU (plain version): {len(cpu_ticks)} ticks in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    card_state, cpu_state = T.operator_state(env), T.operator_state(cpu_env)
+    for key in card_state:
+        if card_state[key] != cpu_state[key]:
+            fail(f"phase 7: the card's {key} differ from the CPU operator's")
+    if [t["solve"] for t in ticks] != [t["solve"] for t in cpu_ticks]:
+        fail("phase 7: the card's solve kinds differ from the CPU operator's")
+    print(f"  the card's NodeClaims, nodes, bindings, cloud calls, ledger "
+          f"({sum(card_state['event_counts'].values())} events, the last "
+          f"{len(card_state['events'])} compared one by one) and solver counters equal "
+          f"the CPU operator's")
+    return launches
+
+
+def observatory_totals() -> dict:
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+
+    snap = OBSERVATORY.snapshot()
+    return {k: snap[k] for k in ("dispatches", "compiles", "compile_seconds",
+                                 "transfer_bytes", "resident")}
+
+
 def main(argv) -> int:
     """The run as the module docstring lists it."""
     through = parse_through(argv)
@@ -1549,6 +1823,10 @@ def main(argv) -> int:
 
     print(f"[verdicts] the consolidation verdicts on the card, {card}", flush=True)
     verdicts = verdict_phase(torch, card)
+    phase_done(6, through)
+
+    print(f"[operator] the provisioning loop on the card, {card}", flush=True)
+    op_launches = operator_phase(torch, card)
 
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
@@ -1567,6 +1845,7 @@ def main(argv) -> int:
             "bound_by": bounds[k]["bound_by"],
             "library_ms": None,
             "latency_floor_ms": floors[k],
+            "operator_launches": op_launches[k],
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -1584,6 +1863,7 @@ def main(argv) -> int:
             "bound_by": v["bound"]["bound_by"],
             "library_ms": None,
             "latency_floor_ms": v["floor"],
+            "operator_launches": op_launches[k],
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,5 @@
-"""API data model: the CRD-equivalent objects and the requirements algebra
-(port copy of ``karpenter_tpu/api``, without Settings and the operator's
-objects)."""
+"""API data model: the CRD-equivalent objects, the requirements algebra and
+the operator's Settings (port copy of ``karpenter_tpu/api``)."""
 
 from karpenter_tpu_torch.api.labels import *  # noqa: F401,F403
 from karpenter_tpu_torch.api.resources import Resources, parse_quantity  # noqa: F401
@@ -17,5 +16,11 @@ from karpenter_tpu_torch.api.objects import (  # noqa: F401
     InstanceType,
     Disruption,
     NodePool,
+    NodeClaim,
+    NodeClaimCondition,
+    NodeClass,
+    PersistentVolumeClaim,
+    StorageClass,
     reset_name_sequences,
 )
+from karpenter_tpu_torch.api.settings import Settings  # noqa: F401

@@ -1,8 +1,4 @@
-"""CRD-equivalent objects: Pod, InstanceType, NodePool.
-
-Port copy of ``karpenter_tpu/api/objects.py`` with the objects the
-provisioning solve reads; NodeClaim, NodeClass and the volume objects wait
-for the operator slice.
+"""CRD-equivalent objects: Pod, InstanceType, NodePool, NodeClaim, NodeClass.
 
 Re-creations of the reference's API surface:
 - Pod scheduling fields: the subset karpenter-core schedules on (resources,
@@ -12,11 +8,18 @@ Re-creations of the reference's API surface:
   reference pkg/providers/instancetype/types.go:52-67,130-158 and
   pkg/cloudprovider/cloudprovider.go:296-307.
 - NodePool: karpenter-core v1beta1 NodePool (designs/v1beta1-api.md).
+- NodeClaim: the desired-machine handshake object
+  (pkg/cloudprovider/cloudprovider.go:94-120).
+- NodeClass: the provider-specific class, analogous to EC2NodeClass
+  (pkg/apis/v1beta1/ec2nodeclass.go:28-107).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import itertools
+import json
 import logging
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
@@ -173,15 +176,16 @@ _pod_seq = itertools.count()
 
 
 def reset_name_sequences() -> None:
-    """Rewind the auto-name counter (pod-N).
+    """Rewind the auto-name counters (pod-N / nodeclaim-N).
 
     The cluster simulator's determinism contract is byte-identical traces
     for equal seeds, and generated names leak into the trace (CreateTags
     carries the claim name).  A fresh simulation therefore rewinds the
     process-global counters — only safe against a FRESH KubeStore/FakeCloud,
     where no live object can collide with a re-issued name."""
-    global _pod_seq
+    global _pod_seq, _claim_seq
     _pod_seq = itertools.count()
+    _claim_seq = itertools.count()
 
 
 @dataclass
@@ -501,7 +505,7 @@ class InstanceType:
 
 
 # ---------------------------------------------------------------------------
-# NodePool (the provisioner)
+# NodePool (the provisioner) and NodeClaim
 # ---------------------------------------------------------------------------
 
 
@@ -556,3 +560,180 @@ class NodePool:
         reqs = reqs.union(self.requirements)
         reqs.add(Requirement(L.LABEL_NODEPOOL, Op.IN, [self.name]))
         return reqs
+
+
+class NodeClaimCondition:
+    LAUNCHED = "Launched"
+    REGISTERED = "Registered"
+    INITIALIZED = "Initialized"
+    EMPTY = "Empty"
+    EXPIRED = "Expired"
+    DRIFTED = "Drifted"
+
+
+_claim_seq = itertools.count()
+
+
+@dataclass
+class NodeClaim:
+    """Desired-machine handshake object: core hands this down, the cloud
+    provider launches and fills in status (reference
+    pkg/cloudprovider/cloudprovider.go:94-120,348-383)."""
+
+    name: str = ""
+    pool_name: str = ""
+    node_class_ref: str = ""
+    requirements: Requirements = field(default_factory=Requirements)
+    requests: Resources = field(default_factory=Resources)
+    taints: List[Taint] = field(default_factory=list)
+    startup_taints: List[Taint] = field(default_factory=list)
+    labels: Dict[str, str] = field(default_factory=dict)
+    annotations: Dict[str, str] = field(default_factory=dict)
+    kubelet_max_pods: Optional[int] = None
+    # status
+    provider_id: str = ""
+    instance_type_name: str = ""
+    zone: str = ""
+    capacity_type: str = ""
+    image_id: str = ""
+    price: float = 0.0
+    capacity: Resources = field(default_factory=Resources)
+    allocatable: Resources = field(default_factory=Resources)
+    conditions: Dict[str, bool] = field(default_factory=dict)
+    created_at: float = 0.0
+    deleted_at: Optional[float] = None
+
+    def __post_init__(self):
+        if not self.name:
+            self.name = f"nodeclaim-{next(_claim_seq)}"
+
+    def set_condition(self, cond: str, value: bool = True) -> None:
+        self.conditions[cond] = value
+
+    def has_condition(self, cond: str) -> bool:
+        return self.conditions.get(cond, False)
+
+    @property
+    def launched(self) -> bool:
+        return self.has_condition(NodeClaimCondition.LAUNCHED)
+
+    @property
+    def registered(self) -> bool:
+        return self.has_condition(NodeClaimCondition.REGISTERED)
+
+    @property
+    def initialized(self) -> bool:
+        return self.has_condition(NodeClaimCondition.INITIALIZED)
+
+
+# ---------------------------------------------------------------------------
+# NodeClass (provider-specific; analogous to EC2NodeClass)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SelectorTerm:
+    """Tag/id selector term (reference pkg/apis/v1beta1/ec2nodeclass.go
+    subnet/SG/AMI selector terms): OR-ed terms, AND-ed tag matches."""
+
+    tags: Tuple[Tuple[str, str], ...] = ()
+    id: str = ""
+    name: str = ""
+
+    @classmethod
+    def of(cls, id: str = "", name: str = "", **tags: str) -> "SelectorTerm":
+        return cls(tags=tuple(sorted(tags.items())), id=id, name=name)
+
+    def matches(self, obj_id: str, obj_name: str, obj_tags: Mapping[str, str]) -> bool:
+        if self.id:
+            return self.id == obj_id
+        if self.name and self.name != obj_name:
+            return False
+        return all(
+            (k in obj_tags) if v == "*" else obj_tags.get(k) == v
+            for k, v in self.tags
+        )
+
+
+@dataclass(frozen=True)
+class BlockDeviceMapping:
+    device_name: str = "/dev/xvda"
+    volume_size: float = 20 * 2**30
+    volume_type: str = "gp3"
+    encrypted: bool = True
+    delete_on_termination: bool = True
+
+
+@dataclass
+class NodeClass:
+    """Provider-side machine class (image family, networking, storage).
+
+    Analogous to EC2NodeClass (reference pkg/apis/v1beta1/ec2nodeclass.go:
+    28-107): selector terms resolve against the cloud inventory into status,
+    and the hash of the launch-relevant spec drives drift detection
+    (reference pkg/cloudprovider/drift.go:136-152).
+    """
+
+    name: str
+    subnet_selector_terms: List[SelectorTerm] = field(default_factory=list)
+    security_group_selector_terms: List[SelectorTerm] = field(default_factory=list)
+    image_selector_terms: List[SelectorTerm] = field(default_factory=list)
+    image_family: str = "standard"  # standard | accelerated | custom
+    # static launch-template passthrough: when set, template resolution is
+    # bypassed and this user-owned template launches as-is (reference
+    # launchtemplate.go:104-107)
+    launch_template_name: str = ""
+    user_data: str = ""
+    role: str = ""
+    tags: Dict[str, str] = field(default_factory=dict)
+    block_device_mappings: List[BlockDeviceMapping] = field(default_factory=list)
+    detailed_monitoring: bool = False
+    metadata_options: Dict[str, str] = field(default_factory=dict)
+    # status (resolved by the nodeclass controller)
+    resolved_subnets: List[str] = field(default_factory=list)
+    resolved_security_groups: List[str] = field(default_factory=list)
+    resolved_images: List[str] = field(default_factory=list)
+    resolved_instance_profile: str = ""
+    deleted: bool = False
+
+    def static_hash(self) -> str:
+        """Hash of launch-relevant spec fields for drift detection
+        (reference drift.go:136-152: NodeClass(Template)Drift)."""
+        spec = {
+            "image_family": self.image_family,
+            "launch_template_name": self.launch_template_name,
+            "user_data": self.user_data,
+            "role": self.role,
+            "tags": sorted(self.tags.items()),
+            "bdm": [dataclasses.astuple(b) for b in self.block_device_mappings],
+            "detailed_monitoring": self.detailed_monitoring,
+            "metadata_options": sorted(self.metadata_options.items()),
+        }
+        return hashlib.sha256(json.dumps(spec, sort_keys=True).encode()).hexdigest()[
+            :16
+        ]
+
+
+@dataclass
+class StorageClass:
+    """Zonal storage topology (reference website v0.31
+    concepts/scheduling.md:387-411: a StorageClass's allowedTopologies +
+    volumeBindingMode constrain where a consuming pod's node may land)."""
+
+    name: str
+    zones: Tuple[str, ...] = ()  # allowedTopologies; empty = any zone
+    binding_mode: str = "WaitForFirstConsumer"  # or "Immediate"
+
+
+@dataclass
+class PersistentVolumeClaim:
+    """The scheduling-relevant projection of a PVC: which storage class
+    provisions it and, once provisioned, which zone the volume lives in."""
+
+    name: str
+    namespace: str = "default"
+    storage_class: str = ""
+    bound_zone: str = ""  # set when the volume provisions / first consumer binds
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"

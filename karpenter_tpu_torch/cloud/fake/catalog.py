@@ -3,8 +3,7 @@
 Port copy of the catalog half of ``karpenter_tpu/cloud/fake/backend.py``
 (`MachineShape`, `_FAMILY_SPECS`, `_size_name`, `generate_catalog`): the
 deterministic shapes and on-demand prices the instance-type build runs over.
-The rest of the fake cloud (instances, launches, chaos) waits for the
-operator slice.
+``backend.py`` (the rest of the fake cloud) imports them from here.
 """
 
 from __future__ import annotations

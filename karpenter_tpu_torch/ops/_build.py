@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -92,9 +93,15 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  The
+    build and load time is the port's one compile: the device observatory
+    records it once a process as ``karpenter_device_compile_seconds{fn}``."""
     lib = _LIBS.get(name)
     if lib is None:
+        from karpenter_tpu_torch.obs.device import OBSERVATORY
+
+        t0 = time.perf_counter()
         path = build_all([name])[name]
         lib = _LIBS[name] = ctypes.CDLL(str(path))
+        OBSERVATORY.record_build(name, time.perf_counter() - t0)
     return lib

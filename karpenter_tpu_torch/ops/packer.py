@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.obs.device import OBSERVATORY
 from karpenter_tpu_torch.ops.tensorize import CompiledProblem
 from karpenter_tpu_torch.utils.trace import TRACER, phase
 
@@ -560,12 +561,35 @@ def pad_problem(prob: CompiledProblem, k_slots: int = 0) -> Tuple[tuple, int]:
 # ---------------------------------------------------------------------------
 
 
-def to_device(args: tuple, device: torch.device) -> tuple:
-    """Padded numpy pack arguments -> tensors on ``device`` (the first free
-    slot stays a host int)."""
+# the catalog columns among the pack arguments (alloc, price, openable):
+# the reference uploads them through its device-constant cache, under the
+# site "device_constants"
+_CONSTANT_ARGS = (5, 6, 7)
+
+
+def to_device(
+    args: tuple, device: torch.device, site: str = "kernel_args"
+) -> tuple:
+    """Host numpy arguments -> tensors on ``device`` (host ints stay host
+    ints), each upload counted by the device observatory under ``site``
+    (``kernel_args``: inputs handed straight to a kernel's wrapper)."""
     return tuple(
-        a if isinstance(a, int) else torch.from_numpy(a).to(device)
+        a if isinstance(a, int) else OBSERVATORY.put(site, a, device)
         for a in args
+    )
+
+
+def upload_pack_args(args: tuple, device: torch.device) -> tuple:
+    """A cold pack's padded arguments on ``device``: the catalog columns
+    counted as ``device_constants``, the rest as the reference's one
+    buffered upload, ``pack_kernel_buffered``."""
+    return tuple(
+        a if isinstance(a, int) else OBSERVATORY.put(
+            "device_constants" if i in _CONSTANT_ARGS
+            else "pack_kernel_buffered",
+            a, device,
+        )
+        for i, a in enumerate(args)
     )
 
 
@@ -581,7 +605,9 @@ def dispatch_pack(
     dev = resolve_device(device)
     with phase("pad"):
         args, _ = pad_problem(prob, k_slots)
-    return ffd_pack(*to_device(args, dev), objective=objective)
+    return OBSERVATORY.dispatch(
+        "ffd_pack", ffd_pack, *upload_pack_args(args, dev), objective=objective
+    )
 
 
 def fetch_pack(outs: Tuple[torch.Tensor, ...]) -> PackResult:
@@ -607,10 +633,11 @@ def run_pack(
 # ---------------------------------------------------------------------------
 
 
-def _on(device: torch.device, a):
-    """A host numpy array uploaded to ``device``; tensors pass as they are."""
+def _on(device: torch.device, a, site: str):
+    """A host numpy array uploaded to ``device`` (counted under ``site``);
+    tensors pass as they are."""
     if isinstance(a, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return OBSERVATORY.put(site, a, device)
     return a
 
 
@@ -633,14 +660,15 @@ def dispatch_population_verdicts(
     (req, _cnt, maxper, slot, feas, alloc, price, openable,
      used0, cfg0, npods0, e0, sig0) = padded_args
     dev = req.device
+    site = "population_verdict_kernel"  # the masks: a round's one upload
     with phase("dispatch"):
-        # the masks' upload: one the device observatory (ROADMAP A2) will count
-        return population_verdicts(
+        return OBSERVATORY.dispatch(
+            "population_verdicts", population_verdicts,
             req, maxper, slot, feas, alloc, price, openable,
             used0, cfg0, npods0, e0, sig0,
-            *(_on(dev, a) for a in (pool_id, zone_id, ct_id, compactable,
-                                    cand_cnt, cand_slot, cand_occ, sort_rank)),
-            occ_span, _on(dev, masks), k_slots=k_slots, objective=objective,
+            *(_on(dev, a, site) for a in (pool_id, zone_id, ct_id, compactable,
+                                          cand_cnt, cand_slot, cand_occ, sort_rank)),
+            occ_span, _on(dev, masks, site), k_slots=k_slots, objective=objective,
         )
 
 
@@ -685,12 +713,14 @@ def run_removal_verdicts(
     dev = req.device
     if used0.shape[0] != k_slots:
         raise ValueError(f"k_slots={k_slots} but the base has {used0.shape[0]} slots")
+    site = "removal_verdict_kernel"  # the batch's subsets
     with phase("dispatch"):
-        out = removal_verdicts(
+        out = OBSERVATORY.dispatch(
+            "removal_verdicts", removal_verdicts,
             req, maxper, slot, feas, alloc, price, openable,
             used0, cfg0, npods0, e0, sig0,
-            *(_on(dev, a) for a in (pool_id, zone_id, ct_id, compactable,
-                                    cnt_b, rm_b, perm_b)),
+            *(_on(dev, a, site) for a in (pool_id, zone_id, ct_id, compactable,
+                                          cnt_b, rm_b, perm_b)),
             objective=objective,
         )
     return fetch_verdict_rows(out, "removal_verdicts")

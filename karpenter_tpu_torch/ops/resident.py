@@ -28,6 +28,10 @@ ticks** and updates them with **gather + scatter deltas** instead.
 - The resident pack (`ResidentState.pack`) launches `fused_packer.ffd_pack`
   straight on the resident tensors: on the card the hand-written kernels,
   for a CPU state their plain version.
+- Every upload goes through the device observatory's counted `put`
+  (obs/device.py) under the reference's sites, ``resident_seed`` and
+  ``resident_delta``; the pack and the delta step launch through its
+  `dispatch`, and each update counts as ``seed``, ``donated`` or ``noop``.
 
 Eligibility (the "plain" subset): every batch pod free of pod affinity /
 topology spread / preferences / multi-OR-term node affinity / volume
@@ -45,6 +49,7 @@ import torch
 
 from karpenter_tpu_torch.api import Pod
 from karpenter_tpu_torch.api import labels as L
+from karpenter_tpu_torch.obs.device import OBSERVATORY
 from karpenter_tpu_torch.ops.packer import _bucket, _bucket_classes, dispatch_pack
 from karpenter_tpu_torch.ops.tensorize import (
     BIG,
@@ -148,15 +153,6 @@ def _pad_idx(idx: List[int], scratch: int, floor: int = 4) -> np.ndarray:
     step's shapes come from a few buckets instead of every delta size."""
     n = _bucket(max(len(idx), 1), floor=floor)
     return np.asarray(idx + [scratch] * (n - len(idx)), np.int32)
-
-
-def _upload(h: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A whole new device allocation holding a copy of ``h``: never a view
-    of the host mirror (on the CPU `torch.from_numpy` would alias it) and
-    never an offset into a larger buffer (the scan wants ``feas`` 16-byte
-    aligned)."""
-    src = torch.from_numpy(np.ascontiguousarray(h))
-    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
 
 
 class ResidentState:
@@ -301,23 +297,28 @@ class ResidentState:
         """Upload the mirrors once (the rebuild's one full transfer), plus
         the pack-time constants the plain shape never mutates (maxper=BIG,
         slot=0, sig0=0), and allocate the gather partners.  Every later
-        tick reuses these allocations."""
+        tick reuses these allocations.  Each upload is a fresh allocation
+        (never a view of a mirror), counted under ``resident_seed``."""
         dev = self.device
+
+        def _upload(h: np.ndarray) -> torch.Tensor:
+            return OBSERVATORY.put("resident_seed", h, dev)
+
         E = len(self.live)
         cfg0 = np.full(self.Kp, -1, np.int32)
         cfg0[:E] = np.arange(self.fe, self.fe + E, dtype=np.int32)
-        self.d_req = _upload(self.h_req, dev)
-        self.d_cnt = _upload(self.h_cnt, dev)
-        self.d_feas = _upload(self.h_feas, dev)
-        self.d_alloc = _upload(self.h_alloc, dev)
-        self.d_price = _upload(self.h_price, dev)
-        self.d_openable = _upload(self.h_openable, dev)
-        self.d_used0 = _upload(self.h_used0, dev)
-        self.d_npods0 = _upload(self.h_npods0, dev)
-        self.d_cfg0 = _upload(cfg0, dev)
-        self.d_maxper = _upload(np.full(self.Gp, BIG, np.int32), dev)
-        self.d_slot = _upload(np.zeros(self.Gp, np.int32), dev)
-        self.d_sig0 = _upload(np.zeros((2, self.Kp), np.int32), dev)  # Sp floor 2
+        self.d_req = _upload(self.h_req)
+        self.d_cnt = _upload(self.h_cnt)
+        self.d_feas = _upload(self.h_feas)
+        self.d_alloc = _upload(self.h_alloc)
+        self.d_price = _upload(self.h_price)
+        self.d_openable = _upload(self.h_openable)
+        self.d_used0 = _upload(self.h_used0)
+        self.d_npods0 = _upload(self.h_npods0)
+        self.d_cfg0 = _upload(cfg0)
+        self.d_maxper = _upload(np.full(self.Gp, BIG, np.int32))
+        self.d_slot = _upload(np.zeros(self.Gp, np.int32))
+        self.d_sig0 = _upload(np.zeros((2, self.Kp), np.int32))  # Sp floor 2
         self.partner = {
             name: torch.empty_like(getattr(self, f"d_{name}"))
             for name in self._MUTABLE
@@ -686,18 +687,28 @@ class ResidentState:
             [self.h_feas[g_idx].ravel(), self.h_feas[:, col_idx].ravel()]
         )
         ints, f32, bools = (
-            torch.from_numpy(a).to(dev) for a in (h_ints, h_f32, h_bool)
+            OBSERVATORY.put("resident_delta", a, dev)
+            for a in (h_ints, h_f32, h_bool)
         )
-        sizes = [len(g_perm), len(c_perm), len(k_perm),
-                 len(g_idx), len(col_idx), len(k_idx)]
+        sizes = (len(g_perm), len(c_perm), len(k_perm),
+                 len(g_idx), len(col_idx), len(k_idx))
+        OBSERVATORY.dispatch(
+            "resident_delta", self._delta_apply, ints, f32, bools, sizes,
+            e_new,
+        )
+
+    def _delta_apply(self, ints, f32, bools, sizes, e_new: int) -> None:
+        """The device half of `_delta_step`: the gathers into the partner
+        buffers and the scatters of the uploaded payloads."""
         n_idx = sum(sizes)
+        ng, nc, nk = sizes[3:]
         # index_select / index_copy_ take int64 indices: convert the index
         # half of the int32 upload on the device, never the payloads
         gp, cp, kp, gi, ci, ki = ints[:n_idx].long().split(sizes)
-        g_cnt, k_np = ints[n_idx:].split([len(g_idx), len(k_idx)])
-        R, ng, nc = self.R, len(g_idx), len(col_idx)
+        g_cnt, k_np = ints[n_idx:].split([ng, nk])
+        R = self.R
         g_req, col_alloc, col_price, k_used = f32.split(
-            [ng * R, nc * R, nc, len(k_idx) * R]
+            [ng * R, nc * R, nc, nk * R]
         )
         g_feas, col_feas = bools.split([ng * self.Cp, self.Gp * nc])
         # 1) permutations: class rows compact/insert to the new FFD order,
@@ -800,7 +811,9 @@ class ResidentState:
         that fails raises, as the cold path's does."""
         from karpenter_tpu_torch.ops.fused_packer import ffd_pack
 
-        return ffd_pack(*self.pack_args(), objective=objective)
+        return OBSERVATORY.dispatch(
+            "ffd_pack", ffd_pack, *self.pack_args(), objective=objective
+        )
 
     def _fallback_pack(self, prob, k_slots: int, objective: str):
         return dispatch_pack(prob, k_slots, objective, self.device)
@@ -823,9 +836,6 @@ class ResidentCache:
         # open tick trust window (note_sync): (witness, token, carrier_ok,
         # cat_key, live_new, node_fps) or None
         self._tick = None
-        # device updates by kind: "seed" (a rebuild's fresh allocation),
-        # "donated" (a delta that reused the resident buffers), "noop"
-        self.updates: Dict[str, int] = {"seed": 0, "donated": 0, "noop": 0}
 
     def note_sync(self, solver) -> None:
         """Open a tick trust window: compute the tick-wide invariants
@@ -906,7 +916,9 @@ class ResidentCache:
                 solver, pods, cat_key, live_new, node_fps, nodes_same
             ):
                 st.tick_token = token
-                self.updates[st.last_update] += 1
+                # "donated" (a delta that reused the resident buffers)
+                # or "noop"
+                OBSERVATORY.count_resident_update(st.last_update)
                 self.states.remove(st)
                 self.states.append(st)  # most-recently-used last
                 return st
@@ -927,7 +939,8 @@ class ResidentCache:
         while len(self.states) >= self.CAP:
             self.states.pop(0)
         self.states.append(st)
-        self.updates["seed"] += 1
+        OBSERVATORY.count_resident_update("seed")
+        self._report_footprint()
         return st
 
     def footprint(self) -> Dict[str, int]:
@@ -936,6 +949,9 @@ class ResidentCache:
         for st in self.states:
             out[st.consumer] = out.get(st.consumer, 0) + st.device_bytes()
         return out
+
+    def _report_footprint(self) -> None:
+        OBSERVATORY.set_resident_footprint(self, self.footprint())
 
     def match(self, prob: CompiledProblem, device=None) -> Optional[ResidentState]:
         """The state whose CURRENT snapshot is exactly `prob` (identity): a

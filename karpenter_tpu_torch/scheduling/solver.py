@@ -1092,11 +1092,12 @@ class TorchScheduler:
             r = cm.requests
             base.sort_key[g] = -(r.cpu + r.memory / (4 * 2**30))
         # the base's tensors go to the device ONCE: every verdict batch and
-        # population round of the pass reads them there (the upload the
-        # device observatory, ROADMAP A2, will count)
-        base.args = to_device(base.args, self.device)
+        # population round of the pass reads them there (the one full
+        # upload a consolidation pass pays per base, counted as
+        # ``removal_base``)
+        base.args = to_device(base.args, self.device, "removal_base")
         base.pool_id, base.zone_id, base.ct_id, base.compactable = to_device(
-            (pool_id, zone_id, ct_id, compactable), self.device
+            (pool_id, zone_id, ct_id, compactable), self.device, "removal_base"
         )
         base.compact_ok = self._compact_guard(pods)
         base.price_py = [float(cfg.price) for cfg in prob.configs]
@@ -1146,10 +1147,11 @@ class TorchScheduler:
         sort_rank = np.zeros(base.gp, np.int32)
         for g, v in base.sort_key.items():
             sort_rank[g] = ranks[v]
-        # on the device like base.args (an upload the device observatory,
-        # ROADMAP A2, will count): a population round uploads only its masks
+        # on the device like base.args (counted as ``population_tensors``):
+        # a population round uploads only its masks
         base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank = to_device(
-            (cand_cnt, cand_slot, cand_occ, sort_rank), device
+            (cand_cnt, cand_slot, cand_occ, sort_rank), device,
+            "population_tensors",
         )
         base.occ_span = occ_span
 

@@ -1,37 +1,25 @@
-"""The scheduling view of a live node.
+"""In-memory cluster state: the scheduling snapshot.
 
-Trimmed port of ``karpenter_tpu/state/cluster.py``: only `StateNode`, with
-the fields of the kube `Node` and the `NodeClaim` that the solve reads
-(cordon, deletion, readiness).  The store and the `Cluster` snapshot builder
-wait for the operator slice.
+Analogue of karpenter-core's `state.Cluster` (instantiated at reference
+cmd/controller/main.go:49-55): a cache over nodes + bound pods that the
+provisioner and deprovisioner consult.  Where the reference incrementally
+maintains it from informer events, we rebuild the snapshot from the
+KubeStore on demand (cheap at our scale) plus track in-flight NodeClaims
+that have no Node yet — those still reserve capacity against scheduling.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-from karpenter_tpu_torch.api import Pod, Resources, Taint
+from karpenter_tpu_torch.api import NodeClaim, Pod, Resources, Taint
 from karpenter_tpu_torch.api import labels as L
+from karpenter_tpu_torch.state.kube import KubeStore, Node
 
-
-@dataclass
-class Node:
-    """The fields of a registered kube Node the solve reads."""
-
-    name: str
-    ready: bool = True
-    cordoned: bool = False
-    deleted_at: Optional[float] = None
-
-
-@dataclass
-class NodeClaim:
-    """The fields of an in-flight NodeClaim the solve reads."""
-
-    name: str
-    initialized: bool = False
-    deleted_at: Optional[float] = None
+# how long a nomination holds before the pod returns to the provisionable
+# pool (reference karpenter-core state.Cluster nomination window)
+NOMINATION_TTL = 20.0
 
 
 @dataclass
@@ -83,3 +71,118 @@ class StateNode:
         return (self.node is not None and self.node.deleted_at is not None) or (
             self.claim is not None and self.claim.deleted_at is not None
         )
+
+
+class Cluster:
+    """Snapshot builder + nomination ledger.
+
+    Nominations (pods the provisioner has decided to place on an in-flight
+    node) prevent double-provisioning between the launch and the kube
+    scheduler binding the pod — the reference tracks these the same way in
+    state.Cluster's podNominations.
+    """
+
+    def __init__(self, kube: KubeStore, clock=None):
+        self.kube = kube
+        self.clock = clock
+        # pod key -> (node/claim name, nomination timestamp)
+        self._nominations: Dict[str, Tuple[str, float]] = {}
+
+    def _now(self) -> float:
+        return self.clock.now() if self.clock is not None else 0.0
+
+    def nominate(self, pod_key: str, node_name: str) -> None:
+        self._nominations[pod_key] = (node_name, self._now())
+
+    def clear_nomination(self, pod_key: str) -> None:
+        self._nominations.pop(pod_key, None)
+
+    def _live(self, pod_key: str) -> Optional[str]:
+        entry = self._nominations.get(pod_key)
+        if entry is None:
+            return None
+        node_name, ts = entry
+        # nominations EXPIRE: if the scheduler hasn't bound the pod within
+        # the window (taint added after nomination, kubelet wedged), the
+        # pod must return to the provisionable pool and the node must stop
+        # being charged for it — otherwise both deadlock forever (the
+        # reference's state.Cluster nomination window is ~20s)
+        if self.clock is not None and self._now() - ts > NOMINATION_TTL:
+            self._nominations.pop(pod_key, None)
+            return None
+        return node_name
+
+    def nominated_node(self, pod_key: str) -> Optional[str]:
+        return self._live(pod_key)
+
+    def nominations(self) -> List[tuple]:
+        """Snapshot of live (pod key, target node/claim name) entries —
+        the read API for consumers like the consistency checker."""
+        return [
+            (k, node)
+            for k in list(self._nominations)
+            if (node := self._live(k)) is not None
+        ]
+
+    def snapshot(self) -> List[StateNode]:
+        nodes: Dict[str, StateNode] = {}
+        claims_by_provider = {
+            c.provider_id: c for c in self.kube.node_claims.values() if c.provider_id
+        }
+        for n in self.kube.nodes.values():
+            claim = claims_by_provider.get(n.provider_id)
+            nodes[n.name] = StateNode(
+                name=n.name,
+                provider_id=n.provider_id,
+                labels=dict(n.labels),
+                taints=list(n.taints),
+                allocatable=n.allocatable,
+                capacity=n.capacity,
+                node=n,
+                claim=claim,
+            )
+        # in-flight claims (launched, not yet registered as Nodes)
+        registered_provider_ids = {n.provider_id for n in self.kube.nodes.values()}
+        for c in self.kube.node_claims.values():
+            if c.provider_id and c.provider_id in registered_provider_ids:
+                continue
+            nodes[c.name] = StateNode(
+                name=c.name,
+                provider_id=c.provider_id,
+                labels=dict(c.labels),
+                taints=list(c.taints),
+                allocatable=c.allocatable,
+                capacity=c.capacity,
+                claim=c,
+            )
+        # charge bound pods
+        for p in self.kube.pods.values():
+            if p.node_name and p.node_name in nodes:
+                sn = nodes[p.node_name]
+                sn.pods.append(p)
+                sn.used = sn.used + p.requests
+        # charge nominated (in-flight) pods
+        for pod_key in list(self._nominations):
+            node_name = self._live(pod_key)  # drops expired entries
+            if node_name is None:
+                continue
+            pod = self.kube.pods.get(pod_key)
+            sn = nodes.get(node_name)
+            if pod is None or pod.node_name or sn is None:
+                # nomination resolved or stale; drop it
+                self._nominations.pop(pod_key, None)
+                continue
+            sn.pods.append(pod)
+            sn.used = sn.used + pod.requests
+            sn.nominated = True
+        return list(nodes.values())
+
+    def pool_usage(self, pool_name: str) -> Resources:
+        """Total capacity consumed by a pool (for NodePool.limits
+        enforcement; reference designs/limits.md).  Uses node capacity
+        uniformly regardless of how the node joined (claim or adoption)."""
+        out = Resources()
+        for sn in self.snapshot():
+            if sn.pool_name == pool_name and not sn.marked_for_deletion():
+                out = out + (sn.capacity if sn.capacity else sn.allocatable)
+        return out

@@ -1,4 +1,5 @@
-"""Fixtures for the port: pools, the synthetic catalog, the bench problems.
+"""Fixtures for the port: pools, the synthetic catalog, the bench problems,
+and the operator's test environment.
 
 The counterpart of ``karpenter_tpu/testing.py``'s `Environment` for what
 the solve reads: a default pool, instance types over `generate_catalog`
@@ -10,6 +11,11 @@ by first index, removal-verdict inputs on which the verdict rows must
 (`verdict_tie_arrays`), and live clusters whose nodes hold bound pods, for the
 consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
 `ranked_candidates`).
+
+`Environment` (with `FakeKubelet` and `FAST_BATCH_WINDOWS`) is a copy of
+the reference's: the port's `Operator` over the fake cloud, a fake clock
+and a kubelet that registers nodes and binds nominated pods, its solver on
+``device``.
 
 Prices are those the reference environment serves after its operator's
 start-up price refresh: on-demand from the shapes' seed prices, spot at the
@@ -31,13 +37,20 @@ from karpenter_tpu_torch.api import (
     Taint,
     Toleration,
 )
+from karpenter_tpu_torch.api import NodeClass, Settings
 from karpenter_tpu_torch.api import labels as L
+from karpenter_tpu_torch.api.objects import SelectorTerm, tolerates_all
+from karpenter_tpu_torch.cloud.fake.backend import FakeCloud
 from karpenter_tpu_torch.cloud.fake.catalog import MachineShape, generate_catalog
+from karpenter_tpu_torch.metrics.registry import Registry
+from karpenter_tpu_torch.operator import Operator
 from karpenter_tpu_torch.providers.instancetype import (
     SeedPrices,
     build_instance_types,
 )
 from karpenter_tpu_torch.state.cluster import StateNode
+from karpenter_tpu_torch.state.kube import KubeStore, Node
+from karpenter_tpu_torch.utils.clock import FakeClock
 
 ZONES = ("zone-a", "zone-b", "zone-c")
 REGION = "region-1"
@@ -368,25 +381,33 @@ def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512
             pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
 
 
+# config 2's catalog: three generations of every family at these sizes
+CONFIG2_CATALOG = dict(
+    generations=(1, 2, 3),
+    cpus=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192),
+)
+DEDICATED_TAINT = Taint(key="dedicated", value="batch", effect="NoSchedule")
+
+
 def heterogeneous_problem(
     scale: float = 1.0,
 ) -> Tuple[List[NodePool], Dict[str, List[InstanceType]], List[Pod]]:
     """Config 2 of ``bench.py``: 10k pods with near-continuous request
     sizes, a tainted dedicated pool and nodeSelector variety over the
     three-generation catalog (~300 types x 3 zones x 2 capacity types)."""
-    shapes = generate_catalog(
-        generations=(1, 2, 3),
-        cpus=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192),
-    )
+    shapes = generate_catalog(**CONFIG2_CATALOG)
     general = default_node_pool(name="general")
-    dedicated = default_node_pool(
-        name="dedicated",
-        taints=[Taint(key="dedicated", value="batch", effect="NoSchedule")],
-    )
+    dedicated = default_node_pool(name="dedicated", taints=[DEDICATED_TAINT])
     inventory = {
         "general": instance_types(general, shapes),
         "dedicated": instance_types(dedicated, shapes),
     }
+    return [general, dedicated], inventory, heterogeneous_pods(_n(scale))
+
+
+def heterogeneous_pods(n: int) -> List[Pod]:
+    """Config 2's pending pods: near-continuous request sizes, nodeSelector
+    variety, 30 % on the tainted dedicated pool."""
     tol = (Toleration(key="dedicated", value="batch", effect="NoSchedule"),)
     selector_variants = [
         {},  # anything
@@ -395,7 +416,7 @@ def heterogeneous_problem(
         {L.LABEL_INSTANCE_CATEGORY: "memory"},
     ]
     pods = []
-    for i in range(_n(scale)):
+    for i in range(n):
         # 80 cpu sizes x 4 memory ratios = 320 request classes per signature
         cpu = 0.05 * (1 + i % 80)
         mem_gib = max(0.25, cpu * (1, 2, 4, 8)[(i // 80) % 4])
@@ -416,7 +437,7 @@ def heterogeneous_problem(
                     node_selector={L.LABEL_NODEPOOL: "dedicated"},
                 )
             )
-    return [general, dedicated], inventory, pods
+    return pods
 
 
 # ---------------------------------------------------------------------------
@@ -547,3 +568,228 @@ def consolidation_sweep(pods: int = 560, device="cpu"):
     result = TorchScheduler([pool], inventory, device=device).solve(batch)
     existing = settled_cluster(result)
     return [pool], inventory, existing, ranked_candidates(existing)
+
+
+# ---------------------------------------------------------------------------
+# The operator's environment: fake cloud, fake kubelet, fake clock
+# ---------------------------------------------------------------------------
+
+# tests shrink the batching windows so coalescing still happens but specs
+# don't wait out the production 35-100ms idle windows
+FAST_BATCH_WINDOWS = {
+    "create_fleet": (0.002, 0.05, 1000),
+    "describe": (0.002, 0.05, 500),
+    "terminate": (0.002, 0.05, 500),
+}
+
+
+class FakeKubelet:
+    """Registers Nodes for launched instances and binds nominated pods —
+    the cluster-side machinery the controller does not own."""
+
+    def __init__(self, env: "Environment", startup_delay: float = 0.0):
+        self.env = env
+        self.startup_delay = startup_delay
+
+    def step(self) -> None:
+        self._register_nodes()
+        self._bind_nominated_pods()
+
+    def _register_nodes(self) -> None:
+        kube = self.env.kube
+        now = self.env.clock.now()
+        for claim in list(kube.node_claims.values()):
+            if not claim.provider_id or claim.deleted_at is not None:
+                continue
+            inst = self.env.cloud.instances.get(claim.provider_id)
+            if inst is None or inst.state != "running":
+                continue
+            if kube.node_by_provider_id(claim.provider_id) is not None:
+                continue
+            if now - claim.created_at < self.startup_delay:
+                continue
+            labels = dict(claim.labels)
+            labels[L.LABEL_HOSTNAME] = claim.name
+            kube.put_node(
+                Node(
+                    name=claim.name,
+                    provider_id=claim.provider_id,
+                    labels=labels,
+                    taints=list(claim.taints),  # startup taints already gone
+                    capacity=claim.capacity,
+                    allocatable=claim.allocatable,
+                    ready=True,
+                    created_at=now,
+                )
+            )
+
+    def _bind_nominated_pods(self) -> None:
+        kube = self.env.kube
+        cluster = self.env.cluster
+        for pod in list(kube.pods.values()):
+            if pod.node_name or pod.phase != "Pending":
+                continue
+            target = cluster.nominated_node(pod.key())
+            if target is None:
+                continue
+            node = kube.nodes.get(target)
+            if node is None or not node.ready or node.cordoned:
+                continue
+            # the real kubelet rejects pods that don't tolerate the node's
+            # taints — a taint added after nomination must block the bind
+            if not tolerates_all(pod.tolerations, node.taints):
+                continue
+            kube.bind_pod(pod.key(), node.name)
+            cluster.clear_nomination(pod.key())
+
+
+class Environment:
+    """The port's operator over the fake cloud, a fake clock and a fake
+    kubelet.  ``device`` is where the Provisioner's solver runs (the card
+    unless the caller asks for the CPU); the default Settings switch off the
+    admission fast path, which is not ported yet (ROADMAP A4)."""
+
+    def __init__(
+        self,
+        shapes: Optional[Sequence[MachineShape]] = None,
+        zones: Sequence[str] = ("zone-a", "zone-b", "zone-c"),
+        settings: Optional[Settings] = None,
+        node_startup_delay: float = 0.0,
+        device=None,
+    ):
+        self._shapes = list(shapes) if shapes is not None else generate_catalog()
+        self._zones = tuple(zones)
+        self._node_startup_delay = node_startup_delay
+        self._device = device
+        self.clock = FakeClock()
+        self.settings = settings or Settings(
+            cluster_name="test", enable_admission_fastpath=False
+        )
+        self._build()
+
+    def _build(self) -> None:
+        self.cloud = FakeCloud(
+            self.clock, shapes=self._shapes, zones=self._zones
+        ).with_default_topology()
+        self.kube = KubeStore()
+        self.registry = Registry()  # per-spec metrics; reset() starts fresh
+        self.operator = Operator(
+            self.cloud,
+            self.kube,
+            settings=self.settings,
+            clock=self.clock,
+            registry=self.registry,
+            batch_windows=FAST_BATCH_WINDOWS,
+            device=self._device,
+        )
+        self.kubelet = FakeKubelet(self, startup_delay=self._node_startup_delay)
+        # provider aliases (suites address them directly, like the
+        # reference's test env exposes every provider)
+        op = self.operator
+        self.cluster = op.cluster
+        self.unavailable = op.unavailable
+        self.pricing = op.pricing
+        self.subnets = op.subnets
+        self.security_groups = op.security_groups
+        self.images = op.images
+        self.version = op.version
+        self.instance_profiles = op.instance_profiles
+        self.launch_templates = op.launch_templates
+        self.instance_types = op.instance_types
+        self.instances = op.instances
+        self.cloud_provider = op.cloud_provider
+
+    # ------------------------------------------------------------- stepping
+    def step(self, seconds: float = 1.0, reconciles: int = 1) -> None:
+        """Advance the fake clock and run kubelet + every controller."""
+        self.clock.step(seconds)
+        for _ in range(reconciles):
+            self.kubelet.step()
+            self.operator.reconcile_once()
+            self.kubelet.step()
+
+    def settle(self, max_rounds: int = 30, seconds: float = 2.0) -> None:
+        """Step until no pending pods remain (or rounds run out), plus one
+        trailing tick so status controllers observe the settled state."""
+        for _ in range(max_rounds):
+            if not self.kube.pending_pods():
+                break
+            self.step(seconds)
+        self.step(seconds)
+
+    # ------------------------------------------------------------- defaults
+    def default_node_class(self) -> NodeClass:
+        nc = NodeClass(
+            name="default",
+            subnet_selector_terms=[SelectorTerm.of(Name="*")],
+            security_group_selector_terms=[SelectorTerm.of(Name="*")],
+        )
+        self.kube.put_node_class(nc)
+        return nc
+
+    def default_node_pool(self, **kw) -> NodePool:
+        pool = NodePool(name=kw.pop("name", "default"), node_class_ref="default", **kw)
+        self.kube.put_node_pool(pool)
+        return pool
+
+    def reset(self) -> None:
+        """Fresh kube state, fresh cloud (instances/capacity/IP spend gone),
+        fresh caches — mirrors reference environment.go:150-176 which resets
+        the fake EC2 API between specs."""
+        self._build()
+
+
+def operator_state(env) -> dict:
+    """An operator environment's cluster as comparable plain data: the
+    NodeClaims, the Nodes, each pod's binding and nomination, every fake
+    cloud API call in order, the event ledger's stream and its count by
+    type, and the compile-cache and resident counters the Provisioner
+    exports.  It reads
+    attributes only, so it serves the JAX package's `Environment` too."""
+    kube, reg = env.kube, env.registry
+    claims = sorted(
+        (
+            c.name, c.pool_name, c.instance_type_name, c.zone,
+            c.capacity_type, c.provider_id, sorted(c.conditions.items()),
+            c.deleted_at,
+        )
+        for c in kube.node_claims.values()
+    )
+    nodes = sorted(
+        (
+            n.name, n.provider_id, sorted(n.labels.items()), n.ready,
+            n.cordoned, n.deleted_at,
+        )
+        for n in kube.nodes.values()
+    )
+    pods = sorted(
+        (key, p.node_name, p.phase, env.cluster.nominated_node(key))
+        for key, p in kube.pods.items()
+    )
+    calls = {
+        api: [repr(args) for args in seq]
+        for api, seq in sorted(env.cloud.recorder.calls.items())
+    }
+    # the ledger's ring keeps its last 4096 events; the registry counts
+    # every event by type
+    events = [
+        (ev.seq, ev.ts, ev.type, ev.trace_id, sorted(ev.attrs.items()))
+        for ev in env.operator.ledger.recent(limit=1 << 30)
+    ]
+    event_counts = {
+        dict(labels)["type"]: v
+        for labels, v in reg.counters.get("karpenter_events_total", {}).items()
+    }
+    counters = {
+        name: sorted(reg.counters.get(name, {}).items())
+        for name in (
+            "karpenter_solver_compile_cache_hits_total",
+            "karpenter_solver_compile_cache_misses_total",
+            "karpenter_solver_resident_hits_total",
+            "karpenter_solver_resident_rebuilds_total",
+        )
+    }
+    return {
+        "claims": claims, "nodes": nodes, "pods": pods, "calls": calls,
+        "events": events, "event_counts": event_counts, "counters": counters,
+    }

@@ -172,13 +172,14 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "3"], 3),
     (["--through", "4"], 4),
     (["--through", "5"], 5),
+    (["--through", "6"], 6),
 ])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "6"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "7"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -329,3 +330,68 @@ def test_phase6_drive_on_the_cpu():
     assert all(len(keys) == len(vs) for keys, vs in rounds)
     masks = chip_smoke.key_masks(rounds[0][0], len(cands))
     assert masks.sum(1).tolist() == [len(k) for k in rounds[0][0]]
+
+
+def test_phase7_tick_summary():
+    """Phase 7's line a tick: seconds become ms, a tick that solved nothing
+    carries no kernel and no phases, launches that did not happen drop out,
+    and the observatory's section and breakdown merge; `tick_p50s` groups
+    the ticks by the kind of their solve."""
+    section = {"compiles": 1, "warm_recompiles": 0, "dispatches": 2, "transfer_bytes": 64,
+               "resident_bytes": 128, "resident_delta_bytes": 128}
+    detail = {"dispatches": {"ffd_pack": 1, "resident_delta": 1}, "compiles": {"ffd_pack": 1},
+              "transfer_bytes": {"resident_seed": 64}, "resident_updates": {"seed": 1}}
+    t = chip_smoke.tick_summary(
+        4, "cold", 0.25, {"provisioner": 0.2, "link": 0.001},
+        {"compile": 0.1, "decode": 0.05}, "cuda_ffd", section, detail,
+        {"choose_config": 1, "ffd_scan": 1, "ffd_scan_cluster": 0})
+    assert t["tick"] == 4 and t["solve"] == "cold" and t["kernel"] == "cuda_ffd"
+    assert t["tick_ms"] == 250.0
+    assert t["controllers_ms"] == {"provisioner": 200.0, "link": 1.0}
+    assert t["phases_ms"] == {"compile": 100.0, "decode": 50.0}
+    assert t["launches"] == {"choose_config": 1, "ffd_scan": 1}
+    assert t["device"]["transfer_bytes"] == {"resident_seed": 64}
+    assert t["device"]["resident_bytes"] == 128 and t["gc_ms"] == 0.0
+    timer = chip_smoke.GcTimer()
+    timer("start", {})
+    timer("stop", {})
+    assert timer.ms >= 0.0
+    assert chip_smoke.tick_summary(1, "", 0.001, {}, {}, "", section, detail, {},
+                                   gc_ms=2.5)["gc_ms"] == 2.5
+    idle = chip_smoke.tick_summary(5, "", 0.002, {}, {"compile": 0.1}, "cuda_ffd",
+                                   section, detail, {})
+    assert idle["kernel"] == "" and idle["phases_ms"] == {} and idle["launches"] == {}
+    p50s = chip_smoke.tick_p50s([t, idle, {**t, "tick_ms": 150.0}])
+    assert p50s == {"cold": {"p50_ms": 200.0, "ticks": 2},
+                    "none": {"p50_ms": idle["tick_ms"], "ticks": 1}}
+
+
+def test_phase7_drive_on_the_cpu():
+    """Phase 7's drive at a small size on the CPU: every pod binds, the
+    churn rounds replace bound pods by new ones of their shapes and each
+    round's batch is solved, no controller fails, every tick's line reads
+    the operator's clocks and the observatory, and a second drive reaches
+    the same `testing.operator_state`, the state the card's run is held to."""
+    from karpenter_tpu_torch import testing as T
+
+    env, ticks, _ = chip_smoke.drive_operator("cpu", n_pods=120, rounds=2, churn_pods=10)
+    assert not env.kube.pending_pods() and len(env.kube.pods) == 120
+    assert all(p.node_name for p in env.kube.pods.values())
+    solves = [t for t in ticks if t["solve"]]
+    assert len(solves) == 3  # the 120 pods, then each round's 10
+    assert all(t["kernel"] == "reference" and t["phases_ms"] for t in solves)
+    assert solves[0]["device"]["dispatches"] == {"ffd_pack": 1}
+    assert solves[0]["device"]["resident_updates"] == {"seed": 1}
+    assert solves[0]["device"]["transfer_bytes"]["resident_seed"] > 0
+    for t in ticks:
+        assert set(t["controllers_ms"]) == set(chip_smoke.CONTROLLERS)
+        assert t["tick_ms"] > 0 and t["launches"] == {}
+    # pod-0 ... pod-119 went in first; the rounds' 20 replacements follow
+    # (round 2 may replace some of round 1's)
+    later = sorted(int(p.name.split("-")[1]) for p in env.kube.pods.values()
+                   if int(p.name.split("-")[1]) >= 120)
+    assert 10 <= len(later) <= 20 and later[-1] == 139
+    again, ticks2, _ = chip_smoke.drive_operator("cpu", n_pods=120, rounds=2, churn_pods=10)
+    assert [t["solve"] for t in ticks2] == [t["solve"] for t in ticks]
+    assert T.operator_state(again) == T.operator_state(env)
+

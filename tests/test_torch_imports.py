@@ -5,7 +5,8 @@ and ``karpenter_tpu`` / ``karpenter_tpu.*`` (but not ``karpenter_tpu_torch``),
 then imports the port (the resident tensors' module and the population
 search too) and ``chip_smoke`` and runs a small CPU cold solve, a
 compile-cache hit, a one-pod delta, a removal batch and a population
-round."""
+round; then imports the operator and ``python -m karpenter_tpu_torch``'s
+module and runs three ticks of a CPU operator `Environment`."""
 
 import pathlib
 import subprocess
@@ -68,6 +69,20 @@ for r, k in enumerate(keys):
     masks[r, list(k)] = True
 plan.observe(keys, [(v.fits, v.replacement_price) for v in sched.evaluate_population(masks, cands)])
 assert sched.last_removal_batch == len(keys)
+# the operator and the entry point: three ticks of a CPU environment
+import karpenter_tpu_torch.__main__  # noqa: F401
+from karpenter_tpu_torch.api import Pod, Resources
+from karpenter_tpu_torch.operator import Operator  # noqa: F401
+
+env = T.Environment(device="cpu")
+env.default_node_class()
+env.default_node_pool()
+for _ in range(12):
+    env.kube.put_pod(Pod(requests=Resources(cpu=0.5, memory="1Gi")))
+for _ in range(3):
+    env.step(2.0)
+assert not env.kube.pending_pods() and env.kube.node_claims
+assert env.operator.provisioner.scheduler.last_kernel == "reference"
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

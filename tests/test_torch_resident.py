@@ -270,17 +270,27 @@ def check_state(st, pods, scratch, ref_state=None) -> None:
 
 @pytest.mark.parametrize("seed", [7, 23])
 def test_twin_stream(seed):
+    from karpenter_tpu.obs.device import OBSERVATORY as JAX_OBS
+    from karpenter_tpu_torch.obs.device import OBSERVATORY as PORT_OBS
+
     steps, rolls = 25, (9, 17)
-    fz = _TwinFuzz(seed)
-    for i in range(steps):
-        fz.step(roll=i in rolls)
+    scopes = (JAX_OBS.begin_scope(), PORT_OBS.begin_scope())
+    try:
+        fz = _TwinFuzz(seed)
+        for i in range(steps):
+            fz.step(roll=i in rolls)
+    finally:
+        JAX_OBS.end_scope(scopes[0])
+        PORT_OBS.end_scope(scopes[1])
     ts = fz.port.ts
     # the stream exercised the warm path AND the rebuild (the cold start
     # and the catalog rolls at least): test_resident_fuzz.py's floors
     assert fz.checked >= steps - max(2, steps // 8), (fz.checked, fz.skipped)
     assert ts.resident_rebuilds >= 1 + len(rolls), (ts.resident_hits, ts.resident_rebuilds)
     assert ts.resident_hits > ts.resident_rebuilds, (ts.resident_hits, ts.resident_rebuilds)
-    assert ts._resident.updates["donated"] > 0
+    # the device observatory counted the same updates on both sides
+    assert scopes[1].resident_updates.get("donated", 0) > 0
+    assert scopes[1].resident_updates == scopes[0].resident_updates
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ def side(pkg: str) -> SimpleNamespace:
         from karpenter_tpu_torch import testing as T
         from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
         from karpenter_tpu_torch.scheduling.solver import TorchScheduler
-        from karpenter_tpu_torch.state.cluster import Node
+        from karpenter_tpu_torch.state.kube import Node
 
         def catalog(pools, shape_kw):
             shapes = generate_catalog(**shape_kw)
