@@ -164,7 +164,7 @@ VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
 # the wrapper (the function held to its plain version) of each verdict launch
 VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
                     "population_pairs": "population_prologue"}
-KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS)
+KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
@@ -173,7 +173,8 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live",
                "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
                "ffd_scan_global_batched": "live",
-               **{k: "live" for k in VERDICT_FUNCTION}}
+               **{k: "live" for k in VERDICT_FUNCTION},
+               "admit_kernel": "arrivals"}
 OBJECTIVES = ("nodes", "cost")
 # phase 6: the sweep's pods, the live cluster's nodes and universe, each
 # problem's population and rounds, the plan's seed, timed repeats
@@ -198,19 +199,29 @@ TIMED_VERDICTS = 5
 VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 # the kernels whose registers phase 2 prints and whose spills fail the run
-SPILL_CHECKED = ("choose_config", *VERDICT_ROWS, "population_pairs")
+SPILL_CHECKED = ("choose_config", *VERDICT_ROWS, "population_pairs", "admit")
 # phase 7: the operator over config 2's catalog and all of its pods, ticks
 # of fake clock, the ticks allowed until every pod is bound, the churn
 OPERATOR_PODS = 10_000
 TICK_S = 2.0
 MAX_BIND_TICKS = 12
 CHURN_ROUNDS, CHURN_PODS, CHURN_SEED = 5, 100, 3
-# the ported controllers, in the operator's order
+# the ported controllers, in the operator's order (interruption only runs
+# with a queue, which phases 7 and 8 do not set)
 CONTROLLERS = ("nodeclass", "provisioner", "lifecycle", "termination", "link",
-               "garbagecollection", "tagging")
+               "garbagecollection", "tagging", "metrics_state", "consistency")
+# phase 8: on the bound cluster of phase 7's first ticks, one arrival a tick:
+# single pods of config 2's shapes, bursts of 2-8 pods of one class (each
+# followed by a quiet tick), then pods larger than any live node's headroom
+ARRIVALS, BURSTS, OVERSIZED = 200, 10, 5
+BURST_SIZES = (2, 8)
+ARRIVAL_SEED = 11
+OVERSIZED_CPU = 100.0  # vCPU: more than half the largest type, so one a node
+ADMIT_REPLACES = "karpenter_tpu/ops/packer.py:197"  # admit_kernel, jitted XLA
+ADMIT_ITERS = 200  # launches a timing reading averages
 
 
-LAST_PHASE = 7
+LAST_PHASE = 8
 
 
 def fail(msg: str) -> None:
@@ -219,13 +230,13 @@ def fail(msg: str) -> None:
 
 
 def parse_through(argv) -> int:
-    """The last phase to run: ``--through N`` (N = 1-6) stops after phase
+    """The last phase to run: ``--through N`` (N = 1-7) stops after phase
     N; no argument runs them all.  Anything else exits 2."""
     if not argv:
         return LAST_PHASE
-    if len(argv) == 2 and argv[0] == "--through" and argv[1] in ("1", "2", "3", "4", "5", "6"):
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in tuple("1234567"):
         return int(argv[1])
-    print("usage: python3 chip_smoke.py [--through N]  (N = 1-6: stop after phase N)",
+    print("usage: python3 chip_smoke.py [--through N]  (N = 1-7: stop after phase N)",
           file=sys.stderr, flush=True)
     raise SystemExit(2)
 
@@ -1217,8 +1228,10 @@ def compare_tie_cases(torch):
             for group in groups:  # each element group of the config pass
                 e = max(e, max_abs_err(torch, [rows_in_groups(F, group, outs, (*tail, next0))],
                                        [want]))
+            smem = F.verdict_rows_in_smem(torch.cuda.current_device(), req.shape[0], R)
             print(f"  {name} {objective}: B={perm_b.shape[0]} Gp={req.shape[0]} Kp={K} "
-                  f"Cp={alloc.shape[0]} next0={next0} ({scan}): verdict_rows max_abs_err={e!r} "
+                  f"Cp={alloc.shape[0]} R={R} next0={next0} ({scan}; config pass rows in "
+                  f"{'shared' if smem else 'device'} memory): verdict_rows max_abs_err={e!r} "
                   f"(also at next0 0 and K{', groups ' + repr(groups) if groups else ''}); rows "
                   f"{int(torch.isinf(got[:, 3]).sum())} +inf, "
                   f"c_min {sorted(set(got[:, 2].int().tolist()))[:6]}...")
@@ -1236,6 +1249,41 @@ def compare_tie_cases(torch):
         if e != 0:
             fail(f"population_prologue disagrees with its plain version at U {U} Gp {G}")
     return errs
+
+
+def compare_batch_limit(torch):
+    """Phase 6's batch past one launch: `testing.verdict_tie_arrays` at Gp 8,
+    Kp 64 and B = `fused_packer.MAX_BATCH` + 101 elements.  The batched scan
+    must launch twice, each launch writing its slice, and equal its plain
+    version bit for bit, as must `verdict_rows` on its outputs.  Returns
+    the largest error per function."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    B = F.MAX_BATCH + 101
+    a = P.to_device(T.verdict_tie_arrays(8, 300, 64, B, 4), torch.device("cuda"))
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+    chosen = F.choose_config(req, maxper, feas, alloc, price, openable)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    before = dict(F.LAUNCHES)
+    outs = F.ffd_scan_batch(*scan_args)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
+    if moved != {"ffd_scan_batched": 2}:
+        fail(f"the batched scan at B {B} launched {moved}, not twice")
+    e_scan = max_abs_err(torch, outs, P.ffd_scan_batch_reference(*scan_args))
+    tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
+    e_rows = max_abs_err(torch, [F.verdict_rows(*outs, *tail)],
+                         [P.verdict_rows_reference(*outs, *tail)])
+    print(f"  batch past one launch: B={B} Gp={req.shape[0]} Kp={used0.shape[0]} "
+          f"(take {outs[0].numel() * 4} bytes), ffd_scan_batched launches {moved['ffd_scan_batched']}: "
+          f"scan max_abs_err={e_scan!r}, verdict_rows max_abs_err={e_rows!r}")
+    if e_scan != 0 or e_rows != 0:
+        fail(f"the batched scan or verdict_rows at B {B} disagrees with its plain version")
+    return {"ffd_scan_batched": e_scan, "verdict_rows": e_rows}
 
 
 def verdict_phase(torch, card):
@@ -1306,7 +1354,7 @@ def verdict_phase(torch, card):
                 errs[k] = max(errs.get(k, 0.0), v)
             if objective == "nodes":
                 timing[name] = (base, pop, pop_outs)
-    for k, v in compare_tie_cases(torch).items():
+    for k, v in (*compare_tie_cases(torch).items(), *compare_batch_limit(torch).items()):
         errs[k] = max(errs.get(k, 0.0), v)
     # times, bounds and floors
     threads = sorted({F.scan_threads(pack_shapes(t[0].args)[0]) for t in timing.values()})
@@ -1364,19 +1412,22 @@ def verdict_phase(torch, card):
 # ---------------------------------------------------------------------------
 
 
-def operator_env(device: str):
+def operator_env(device: str, fastpath: bool = False, bypass: bool = False):
     """The port's operator environment over config 2's catalog, its
     ``general`` and tainted ``dedicated`` pools and a default NodeClass,
     the Provisioner's solver on ``device``.  Launches go one at a time in
     claim order (the simulator's determinism knob), so a card run and a
-    CPU run hand out the same instance ids."""
+    CPU run hand out the same instance ids.  ``fastpath`` switches on the
+    admission fast path, ``bypass`` the singleton bypass (a lone fresh pod
+    goes to the batched solve at once instead of waiting out the batch
+    window)."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.api import Settings, reset_name_sequences
     from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
 
     reset_name_sequences()
-    settings = Settings(cluster_name="chip-smoke", enable_admission_fastpath=False,
-                        enable_pipelined_reconcile=False)
+    settings = Settings(cluster_name="chip-smoke", enable_admission_fastpath=fastpath,
+                        provision_fastpath_bypass=bypass, enable_pipelined_reconcile=False)
     env = T.Environment(shapes=generate_catalog(**T.CONFIG2_CATALOG), settings=settings,
                         device=device)
     env.default_node_class()
@@ -1588,6 +1639,311 @@ def operator_phase(torch, card):
           f"{len(card_state['events'])} compared one by one) and solver counters equal "
           f"the CPU operator's")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: single-pod arrivals through the admission fast path
+# ---------------------------------------------------------------------------
+
+
+class AdmitTimer:
+    """Wraps ``fastpath.try_admit`` for a drive: each attempt's outcome,
+    reason, wall ms on the host clock (an attempt ends with its [K+2]
+    fetch) and its phases (delta: the resident refresh; dispatch;
+    device_block; oracle; decode; the rest is the eligibility checks)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from karpenter_tpu_torch.scheduling import fastpath
+        from karpenter_tpu_torch.utils.trace import phase_collect
+
+        self._mod, self._orig = fastpath, fastpath.try_admit
+
+        def timed(scheduler, pods):
+            sink = {}
+            t0 = time.perf_counter()
+            with phase_collect(sink):
+                res = self._orig(scheduler, pods)
+            self.calls.append({"outcome": res.outcome, "reason": res.reason,
+                               "ms": (time.perf_counter() - t0) * 1e3,
+                               "phases_ms": {k: v * 1e3 for k, v in sink.items()}})
+            return res
+
+        fastpath.try_admit = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.try_admit = self._orig
+
+
+def live_headroom_cpu(env) -> float:
+    """The most vCPU any live node has free (allocatable less its bound
+    pods' requests)."""
+    used = {}
+    for p in env.kube.pods.values():
+        if p.node_name:
+            used[p.node_name] = used.get(p.node_name, 0.0) + p.requests.cpu
+    return max((n.allocatable.cpu - used.get(name, 0.0) for name, n in env.kube.nodes.items()),
+               default=0.0)
+
+
+def fastpath_counts(reg) -> dict:
+    """The fast path's counters: outcomes, fallback reasons, mismatches."""
+    read = lambda name: {dict(k).get("outcome", dict(k).get("reason", "")): v
+                         for k, v in reg.counters.get(name, {}).items()}
+    return {"outcome": read("karpenter_admission_fastpath_total"),
+            "reason": read("karpenter_admission_fastpath_fallback_total"),
+            "mismatch": sum(reg.counters.get("karpenter_admission_fastpath_mismatch_total",
+                                             {}).values())}
+
+
+def drive_arrivals(device: str, fastpath: bool = True, n_pods: int = OPERATOR_PODS,
+                   arrivals: int = ARRIVALS, bursts: int = BURSTS, oversized: int = OVERSIZED,
+                   launches=None):
+    """Phase 8's drive on ``device``: config 2's first ``n_pods`` pods into
+    the store and ticks until every pod is bound (phase 7's start), then
+    one arrival a tick of `TICK_S` of fake clock: ``arrivals`` single pods
+    of the shapes of pods drawn from that batch (seed `ARRIVAL_SEED`),
+    ``bursts`` bursts of 2-8 pods of one drawn shape (each followed by a
+    quiet tick, so a burst the batched path waits a window for is placed
+    before the next arrives), then ``oversized`` pods of `OVERSIZED_CPU`
+    vCPU or more, past every live node's headroom.  The singleton bypass
+    is on, the fast path as ``fastpath`` says.  Every tick's line carries
+    its arrival kind and the fast-path outcomes it counted.  Returns (env,
+    tick summaries)."""
+    import random
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import Pod, Resources
+
+    env = operator_env(device, fastpath=fastpath, bypass=True)
+    pods = T.heterogeneous_pods(n_pods)
+    for p in pods:
+        env.kube.put_pod(p)
+    ticks = []
+
+    def run_tick(kind):
+        before = fastpath_counts(env.registry)["outcome"]
+        t = operator_tick(env, len(ticks) + 1, launches)
+        after = fastpath_counts(env.registry)["outcome"]
+        t["arrival"] = kind
+        t["fastpath"] = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+        ticks.append(t)
+
+    for _ in range(MAX_BIND_TICKS):
+        run_tick("batch")
+        if not env.kube.pending_pods():
+            break
+    if env.kube.pending_pods():
+        fail(f"phase 8 ({device}): {len(env.kube.pending_pods())} pods unbound")
+
+    def shaped(name, tpl):
+        return Pod(name=name, requests=tpl.requests, node_selector=dict(tpl.node_selector),
+                   tolerations=list(tpl.tolerations))
+
+    rng = random.Random(ARRIVAL_SEED)
+    plan = [("single", [shaped(f"arrival-{i:03d}", rng.choice(pods))]) for i in range(arrivals)]
+    for b in range(bursts):
+        tpl, n = rng.choice(pods), rng.randint(*BURST_SIZES)
+        plan += [("burst", [shaped(f"burst-{b:02d}-{j}", tpl) for j in range(n)]), ("quiet", [])]
+    plan += [("oversized", None)] * oversized
+    for o, (kind, new) in enumerate(plan):
+        if new is None:
+            cpu = max(OVERSIZED_CPU, float(int(live_headroom_cpu(env))) + 1.0)
+            new = [Pod(name=f"oversized-{o}", requests=Resources(cpu=cpu, memory="4Gi"))]
+        for p in new:
+            env.kube.put_pod(p)
+        run_tick(kind)
+    for _ in range(3):
+        if env.kube.pending_pods():
+            run_tick("settle")
+    if env.kube.pending_pods():
+        fail(f"phase 8 ({device}): {len(env.kube.pending_pods())} arrivals unbound")
+    errors = env.registry.counters.get("karpenter_controller_reconcile_errors_total", {})
+    if errors:
+        fail(f"phase 8 ({device}): controller reconcile errors {dict(errors)}")
+    return env, ticks
+
+
+def percentiles(xs) -> dict:
+    """p50 and p99 (nearest rank) of ``xs``, with the count."""
+    if not xs:
+        return {"n": 0}
+    v = sorted(xs)
+    return {"n": len(v), "p50": statistics.median(v),
+            "p99": v[min(len(v) - 1, int(0.99 * len(v)))]}
+
+
+def admit_args(args):
+    """``admit_kernel``'s inputs from a pack's arguments: req, cnt, feas,
+    alloc, openable, used0, cfg0."""
+    return tuple(args[i] for i in (0, 1, 4, 5, 7, 8, 9))
+
+
+def admit_bound(args, g: int) -> dict:
+    """``admit_kernel``'s least time for class ``g`` on this run's data.
+    The open-capacity bit is an any(): the configs up to and including the
+    first that fits settle it (all of them when none fits).  Bytes: the
+    class's req row and count, cfg0, its feasibility bytes at the live
+    slots' configs and at those configs, openable where such a config's
+    byte is set, the requested axes of alloc and used0 of each slot the
+    class may use (a live slot with a feasible config), the requested axes
+    of alloc of each such config it may open on, the [K+2] output.
+    Operations: per such slot the capacity (sub, div, add, floor, min a
+    requested axis) and the prefix and clip (3); per such config the
+    capacity without the sub (4 a requested axis) and its test (1)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops.packer import _per_node_cap
+
+    req, cnt, feas, alloc, openable, used0, cfg0 = (t.cpu() for t in args)
+    fits = (feas[g] & openable & (_per_node_cap(alloc, req[g]) > 0)).numpy()
+    req, feas, openable, cfg0 = (t.numpy() for t in (req, feas, openable, cfg0))
+    K = cfg0.shape[0]
+    ru = int((req[g] > 0).sum())
+    live = cfg0[cfg0 >= 0]
+    slots = int(feas[g][live].sum())
+    first = int(np.argmax(fits)) if fits.any() else fits.shape[0] - 1
+    swept = np.arange(first + 1)
+    configs = int((feas[g][swept] & openable[swept]).sum())
+    feas_bytes = np.union1d(live, swept).size
+    byts = (req.shape[1] * 4 + 4 + K * 4 + feas_bytes + int(feas[g][swept].sum())
+            + slots * ru * 8 + configs * ru * 4 + (K + 2) * 4)
+    ops = slots * (5 * ru + 3) + configs * (4 * ru + 1)
+    return _bound(byts, ops)
+
+
+def compare_admit(torch, name, args) -> float:
+    """``admit`` against ``admit_reference`` for every class of ``args``
+    (card tensors), bit for bit; one launch each.  Returns the largest
+    error."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    err = 0.0
+    G = args[0].shape[0]
+    for g in range(G):
+        before = F.LAUNCHES["admit_kernel"]
+        got = F.admit(*args, g)
+        torch.cuda.synchronize()
+        if F.LAUNCHES["admit_kernel"] != before + 1:
+            fail(f"{name}: admit for class {g} did not launch admit_kernel once")
+        err = max(err, max_abs_err(torch, [got], [P.admit_reference(*args, g)]))
+    print(f"  admit_kernel {name}: Gp={G} Kp={args[5].shape[0]} Cp={args[3].shape[0]} "
+          f"R={args[0].shape[1]}: every class, max_abs_err={err!r}")
+    if err != 0:
+        fail(f"{name}: admit_kernel disagrees with admit_reference")
+    return err
+
+
+def time_admit(torch, name, args, g: int, card) -> dict:
+    """``admit_kernel``'s device ms a launch (torch.profiler), a
+    back-to-back wrapper call (CUDA events), the plain version's ms (CUDA
+    events) and the bound, for class ``g``."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    call = lambda: F.admit(*args, g)
+    out = {"ms": profiled_ms(torch, call, "admit", iters=ADMIT_ITERS),
+           "call_ms": cuda_ms(torch, call, iters=ADMIT_ITERS),
+           "plain_ms": cuda_ms(torch, lambda: P.admit_reference(*args, g), iters=20),
+           "bound": admit_bound(args, g)}
+    print(f"  admit_kernel {name} class {g}: kernel {out['ms']!r} ms device (profiler), "
+          f"{out['call_ms']!r} ms a back-to-back call (CUDA events), plain {out['plain_ms']!r} ms "
+          f"(CUDA events), bound {out['bound']} ({card})", flush=True)
+    return out
+
+
+def arrivals_phase(torch, card, live_args):
+    """Phase 8 as the module docstring lists it.  ``live_args``: phase 5's
+    live cluster's pack arguments on the card.  Returns the kernels-line
+    figures of ``admit_kernel``."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    F.reset_launches()
+    t0 = time.perf_counter()
+    with AdmitTimer() as timer:
+        env, ticks = drive_arrivals("cuda", launches=F.LAUNCHES)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    card_s = time.perf_counter() - t0
+    counts = fastpath_counts(env.registry)
+    print(f"  {len(ticks)} ticks in {card_s!r} s; fast path {json.dumps(counts)}; launches over "
+          f"the drive {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    for t in ticks:
+        if t["arrival"] in ("batch", "oversized", "settle") or t["tick"] <= 4:
+            print("  tick " + json.dumps(t))
+    if counts["mismatch"] or counts["outcome"].get("mismatch"):
+        fail(f"phase 8: the fast path counted a mismatch {counts}")
+    if not counts["outcome"].get("nominated"):
+        fail("phase 8: the fast path nominated nothing")
+    dispatched = sum(1 for c in timer.calls if "dispatch" in c["phases_ms"])
+    if launches["admit_kernel"] != dispatched or not dispatched:
+        fail(f"phase 8: {launches['admit_kernel']} admit_kernel launches on the card for "
+             f"{dispatched} scored attempts")
+    st = env.operator.provisioner.scheduler._resident.states[-1]
+    if st.d_req.device.type != "cuda":
+        fail("phase 8: the resident state is not on the card")
+    reg = env.registry
+    latency = {path: percentiles(reg.histogram("karpenter_admission_latency_seconds",
+                                               {"path": path})) for path in ("fast", "batch")}
+    print(f"  karpenter_admission_latency_seconds by path (fake clock, pending to nominated): "
+          f"{json.dumps(latency)}")
+    nominated = [c for c in timer.calls if c["outcome"] == "nominated"]
+    phases = sorted({k for c in nominated for k in c["phases_ms"]})
+    print(f"  fast path attempts (host clock, ends with the [K+2] fetch, {card}): nominated "
+          f"{json.dumps(percentiles([c['ms'] for c in nominated]))} ms; fallbacks "
+          f"{json.dumps(percentiles([c['ms'] for c in timer.calls if c['outcome'] != 'nominated']))}"
+          f" ms; phases p50 of the nominated "
+          + json.dumps({k: statistics.median(c["phases_ms"].get(k, 0.0) for c in nominated)
+                        for k in phases}))
+    by_kind = {}
+    for t in ticks:
+        if t["arrival"] == "batch":
+            continue
+        kind = ("fast" if t["fastpath"].get("nominated") else t["solve"] or "none")
+        by_kind.setdefault(f"{t['arrival']}:{kind}", []).append(t["tick_ms"])
+    print(f"  tick ms by arrival and admission ({card}): "
+          + json.dumps({k: percentiles(v) for k, v in sorted(by_kind.items())}), flush=True)
+
+    t0 = time.perf_counter()
+    cpu_env, _ = drive_arrivals("cpu")
+    print(f"  the same drive on the CPU (plain version) in {time.perf_counter() - t0!r} s",
+          flush=True)
+    card_state, cpu_state = T.operator_state(env), T.operator_state(cpu_env)
+    for key in card_state:
+        if card_state[key] != cpu_state[key]:
+            fail(f"phase 8: the card's {key} differ from the CPU operator's")
+    print(f"  the card's state equals the CPU drive's ({sum(card_state['event_counts'].values())} "
+          f"events; fast-path counters {card_state['counters']['karpenter_admission_fastpath_total']})")
+    t0 = time.perf_counter()
+    off_env, off_ticks = drive_arrivals("cuda", fastpath=False)
+    placed = lambda e: {k: p.node_name for k, p in sorted(e.kube.pods.items())}
+    if placed(off_env) != placed(env):
+        fail("phase 8: the placements differ from the same drive with the fast path off")
+    off_kind = {}
+    for t in off_ticks:
+        if t["arrival"] != "batch":
+            off_kind.setdefault(f"{t['arrival']}:{t['solve'] or 'none'}", []).append(t["tick_ms"])
+    print(f"  the same drive on the card with the fast path off in {time.perf_counter() - t0!r} s: "
+          f"every pod on the same node; tick ms by arrival and solve ({card}): "
+          + json.dumps({k: percentiles(v) for k, v in sorted(off_kind.items())}), flush=True)
+
+    # the kernel: bit-equality and times at the main path's shapes
+    state_args = admit_args(st.pack_args())
+    live = admit_args(live_args)
+    err = max(compare_admit(torch, "phase 8's resident state", state_args),
+              compare_admit(torch, "the live cluster", live))
+    for k in (256, 4096):
+        err = max(err, compare_admit(torch, f"wrap k_slots={k}",
+                                     admit_args(P.to_device(T.wrap_arrays(k), torch.device("cuda")))))
+    row = time_admit(torch, "phase 8's resident state", state_args, 0, card)
+    time_admit(torch, "the live cluster", live, 0, card)
+    return dict(row, launches=launches["admit_kernel"], err=err)
 
 
 def observatory_totals() -> dict:
@@ -1827,6 +2183,10 @@ def main(argv) -> int:
 
     print(f"[operator] the provisioning loop on the card, {card}", flush=True)
     op_launches = operator_phase(torch, card)
+    phase_done(7, through)
+
+    print(f"[arrivals] single-pod arrivals through the admission fast path, {card}", flush=True)
+    admit = arrivals_phase(torch, card, kargs["config2_live"])
 
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
@@ -1866,6 +2226,23 @@ def main(argv) -> int:
             "operator_launches": op_launches[k],
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
+    kernels.append({
+        "name": "admit_kernel",
+        "problem": ROW_PROBLEM["admit_kernel"],
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": ADMIT_REPLACES,
+        "launches": admit["launches"],
+        "max_abs_err": admit["err"],
+        "ms": admit["ms"],
+        "plain_ms": admit["plain_ms"],
+        "bound_ms": admit["bound"]["bound_ms"],
+        "bound_by": admit["bound"]["bound_by"],
+        "library_ms": None,
+        "latency_floor_ms": None,
+        "operator_launches": op_launches["admit_kernel"],
+        "call_ms": admit["call_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

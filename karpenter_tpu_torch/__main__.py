@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     clock = Clock()
     cloud = FakeCloud(clock, shapes=generate_catalog()).with_default_topology()
     kube = KubeStore()
-    settings = Settings(enable_admission_fastpath=False)
+    settings = Settings()
     operator = Operator(cloud, kube, settings=settings, device=args.device)
     kube.put_node_class(
         NodeClass(

@@ -19,10 +19,6 @@ Re-derivation of karpenter-core's provisioner (reference SURVEY.md §3.2):
 - **capacity-error feedback**: a claim that fails with insufficient
   capacity is discarded — the ICE cache already masks the failed pools, so
   the pods re-enter the next batch and resolve onto different offerings.
-
-Port copy of ``karpenter_tpu/controllers/provisioning.py`` without the
-admission fast path (`_admit_fastpath`, ROADMAP A4): the operator refuses
-``enable_admission_fastpath`` until that path is ported.
 """
 
 from __future__ import annotations
@@ -49,6 +45,7 @@ from karpenter_tpu_torch.metrics.registry import (
     export_compile_cache_counters,
     export_resident_counters,
 )
+from karpenter_tpu_torch.scheduling import fastpath
 from karpenter_tpu_torch.scheduling.scheduler import SchedulingResult, VirtualNode
 from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 from karpenter_tpu_torch.state.cluster import Cluster
@@ -151,12 +148,26 @@ class Provisioner:
             "karpenter_pods_pending_age_seconds",
             max((now - t0 for t0 in self._first_seen.values()), default=0.0),
         )
-        # FRESH pods (never observed by the batcher): computed BEFORE
-        # observe() marks them seen
+        # FRESH pods (never observed by the batcher) are the admission
+        # fast path's input: computed BEFORE observe() marks them seen
         fresh = [p for p in pending if p.key() not in self.batcher._seen]
         self.batcher.observe(pending)
         if not pending:
             return []
+        if (
+            fresh
+            and len(fresh) == len(pending)
+            and self.settings.enable_admission_fastpath
+        ):
+            # single-pod / tiny-burst arrival with nothing else waiting:
+            # try the sub-millisecond path (scatter + one admit dispatch
+            # + oracle cross-check + nominate) before any batch window
+            # opens.  Stale pending pods disqualify the tick — the admit
+            # score equals the full solve only when the arriving class
+            # is the sole work (docs/designs/admission-fastpath.md).
+            claims = self._admit_fastpath(pending)
+            if claims is not None:
+                return claims
         if not self.batcher.ready():
             if (
                 self.settings.provision_fastpath_bypass
@@ -173,6 +184,47 @@ class Provisioner:
             return []
         self.batcher.reset()
         return self.provision(pending)
+
+    def _admit_fastpath(self, pods: Sequence[Pod]) -> Optional[List[NodeClaim]]:
+        """One fast-path admission attempt.  Returns the tick's claim
+        list ([] — nominations never launch nodes) when the pods were
+        nominated, or None when the batched solve must run (fallback or
+        mismatch, both counted with their reason)."""
+        scheduler = self._sync_scheduler(pods)
+        if scheduler is None:
+            self.registry.inc(
+                "karpenter_admission_fastpath_total", {"outcome": "fallback"}
+            )
+            self.registry.inc(
+                "karpenter_admission_fastpath_fallback_total",
+                {"reason": fastpath.REASON_NO_POOLS},
+            )
+            return None
+        res = fastpath.try_admit(scheduler, pods)
+        self.registry.inc(
+            "karpenter_admission_fastpath_total", {"outcome": res.outcome}
+        )
+        if res.outcome == "mismatch":
+            # convergence-contract violation: the device score disagreed
+            # with the sequential host oracle.  Never trust the device
+            # half of a disagreement — the batched solve decides.
+            self.registry.inc("karpenter_admission_fastpath_mismatch_total")
+            return None
+        if res.outcome != "nominated":
+            self.registry.inc(
+                "karpenter_admission_fastpath_fallback_total",
+                {"reason": res.reason},
+            )
+            return None
+        for pod_key, node_name in res.placements.items():
+            self.cluster.nominate(pod_key, node_name)
+            self.registry.event(
+                "PodNominated", pod=pod_key, node=node_name,
+                placement="existing",
+            )
+            self._observe_scheduled(pod_key, path="fast")
+        self.batcher.reset()
+        return []
 
     def _provisionable_pods(self) -> List[Pod]:
         """Pending pods not already nominated onto an in-flight node."""

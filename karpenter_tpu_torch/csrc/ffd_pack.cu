@@ -29,7 +29,9 @@
 // (N, B)) per element, for the consolidation verdicts, whose other steps
 // are the verdict kernels and the population prologue (see "The
 // consolidation verdicts" below).  The solve's scan is the one element B =
-// 1 with no descriptor.
+// 1 with no descriptor.  The admission fast path's score of one class
+// against the live nodes is admit_kernel, grid (1,) (see "The admission
+// score" below).
 // Per class each scan computes per-slot capacity, an exclusive int32 prefix
 // over K, first-fit takes, an integer ceil-div window of new slots and the
 // state updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
@@ -122,9 +124,11 @@
 // reads each quad's configs one at a time (a grid-uniform branch).  Past 2
 // blocks of configs the ceiling reads the later blocks' prices once more.
 
-// Float rules (bit-equality with the JAX CPU reference): IEEE division and
-// no contraction of `used + take * req` (explicit __fdiv_rn / __fmul_rn /
-// __fadd_rn; the library is built without --use_fast_math), first-index
+// Float rules (bit-equality with the JAX CPU reference): IEEE division
+// (explicit __fdiv_rn / __fadd_rn; the library is built without
+// --use_fast_math), `used + take * req` as ONE fused multiply-add
+// (__fmaf_rn: XLA on a CPU with FMA contracts it, and the plain version's
+// fma32 rounds once as well), first-index
 // argmin, int32 wraparound where JAX wraps (prefix and sums in unsigned
 // arithmetic).  Per-slot capacities are clamped to 2^30 before the int
 // conversion; every use then takes the minimum with the class cap, which
@@ -671,7 +675,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
       const float tf = (float)t;
       for (int r = 0; r < R; ++r) {
         float* u = used + (size_t)k * R + r;
-        *u = __fadd_rn(*u, __fmul_rn(tf, sreq[r]));
+        *u = __fmaf_rn(tf, sreq[r], *u);
       }
       if (win) cfg[k] = cs;
       npods[k] = wadd(npods[k], t);
@@ -694,7 +698,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
 constexpr int kRing = 8;   // feasibility rows in flight
 constexpr int kTile = 32;  // classes per tile of class rows
 constexpr int kMaxR = 31;  // resource axes, at most: one flag bit each
-// (verdict_rows' limit is its own, ffd_verdict_max_axes: about 179 axes)
+// (verdict_rows takes any R: past ffd_verdict_max_axes its config pass
+// reads its rows from device memory)
 constexpr unsigned kFinite = 1u << 31;
 constexpr int kXchgBytes = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4;
 
@@ -1004,7 +1009,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
         const float tf = (float)t;
         for (int r = 0; r < R; ++r) {
           float* u = s_used + r * KP + pos;
-          *u = __fadd_rn(*u, __fmul_rn(tf, creq[r]));
+          *u = __fmaf_rn(tf, creq[r], *u);
         }
         s_npods[pos] = wadd(s_npods[pos], t);
         sig_s[pos] = wadd(sig_s[pos], t);
@@ -1376,7 +1381,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
         const float tf = (float)t;
         for (int r = 0; r < R; ++r) {
           float* u = s_used + r * KP + pos;
-          *u = __fadd_rn(*u, __fmul_rn(tf, creq[r]));
+          *u = __fmaf_rn(tf, creq[r], *u);
         }
         s_npods[pos] = wadd(s_npods[pos], t);
         sig_s[pos] = wadd(sig_s[pos], t);
@@ -1517,6 +1522,10 @@ constexpr int kSummaryMinBlocks = 4;  // a SM's summary blocks: 132 x 4 hold B 5
 constexpr int kCfgTile = 256;  // configs of a config-pass block, one a thread
 constexpr int kCfgWarps = kCfgTile / 32;
 constexpr int kGroup = 32;     // the most elements of a config-pass block: a mask word
+// config-pass blocks a SM, in its launch bounds: with the thread count alone
+// ptxas capped the instance that reads its rows from device memory at 32
+// registers and spilled; this lifts the cap to 64
+constexpr int kCfgMinBlocks = 4;
 constexpr int kWriteThreads = 256;
 constexpr int kRecInts = 8;    // lo_units, new_count, non_donors, cs, pool, zone, ct, 0
 constexpr float kFitSlack = 1e-6f;   // `used <= alloc + 1e-6`
@@ -1751,10 +1760,26 @@ __global__ void __launch_bounds__(kSummaryThreads, kSummaryMinBlocks) verdict_su
 // Dynamic shared memory of a config-pass block: the tile's alloc rows plus
 // the slack [R][kCfgTile] (thread t reads column t), the group's usage and
 // load [2R][kGroup], keys [3][kGroup] and flag words [2W][kGroup] (element
-// minor, read four elements at a time).
-__host__ __device__ inline size_t configs_smem(int G, int R) {
+// minor, read four elements at a time).  The instance for many axes
+// (kSmemRows false) keeps only the keys and flag words there.
+__host__ __device__ inline size_t configs_smem(int G, int R, bool rows = true) {
   const int W = (G + 31) / 32;
-  return (size_t)4 * (R * kCfgTile + 2 * R * kGroup + 3 * kGroup + 2 * W * kGroup);
+  return (size_t)4 * ((rows ? R * kCfgTile + 2 * R * kGroup : 0) + 3 * kGroup +
+                      2 * W * kGroup);
+}
+
+// Axis j (of 2R: k_star's usage, then the new slots' load) of quad q of the
+// group's elements: from shared memory (kSmemRows), else from the records
+// in device memory (0 past the group's ng elements, as the staged copy).
+template <bool kSmemRows>
+__device__ __forceinline__ float4 group_axis(const float* s_el, const VerdictScratch& vs,
+                                             int e0, int ng, int R, int j, int q) {
+  if (kSmemRows) return reinterpret_cast<const float4*>(s_el + j * kGroup)[q];
+  const int el = 4 * q;
+  const size_t stride = 2 * (size_t)R;
+  const float* col = vs.load + (size_t)(e0 + el) * stride + j;
+  return make_float4(el < ng ? col[0] : 0.0f, el + 1 < ng ? col[stride] : 0.0f,
+                     el + 2 < ng ? col[2 * stride] : 0.0f, el + 3 < ng ? col[3 * stride] : 0.0f);
 }
 
 // Masks of four elements' compares: bit q*4+i from component i.
@@ -1770,8 +1795,13 @@ __device__ __forceinline__ unsigned bits4(bool x, bool y, bool z, bool w, int q)
 // class on a new slot feasible, openable -- only for the elements whose
 // row reads it (new_count >= 2, non_donors <= 1: `need`).  A warp skips
 // the tests of four elements where no lane needs them, and the two argmin
-// reductions of an element no lane's config is open to.
-__global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
+// reductions of an element no lane's config is open to.  kSmemRows stages
+// the tile's alloc rows and the group's usage and load rows in shared
+// memory; past the axes a block's shared memory holds (ffd_verdict_max_axes)
+// the instance with it false reads both from device memory instead, the
+// same arithmetic in the same order.
+template <bool kSmemRows>
+__global__ void __launch_bounds__(kCfgTile, kCfgMinBlocks) verdict_configs_kernel(
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const float* __restrict__ price, const uint8_t* __restrict__ openable,
     const int* __restrict__ pool_id, const int* __restrict__ zone_id,
@@ -1788,9 +1818,10 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
   const int nq = (ng + 3) >> 2;  // quads of elements
   const int c = c0 + t;
   const bool valid = t < nc;
-  float* s_alloc = (float*)csm;                       // [R][kCfgTile]
-  float* s_el = s_alloc + R * kCfgTile;               // [2R][kGroup]
-  int* s_key = (int*)(s_el + 2 * R * kGroup);         // [3][kGroup]
+  const int Rs = kSmemRows ? R : 0;                   // axes staged here
+  float* s_alloc = (float*)csm;                       // [Rs][kCfgTile]
+  float* s_el = s_alloc + Rs * kCfgTile;              // [2Rs][kGroup]
+  int* s_key = (int*)(s_el + 2 * Rs * kGroup);        // [3][kGroup]
   unsigned* s_fl = (unsigned*)(s_key + 3 * kGroup);   // [2W][kGroup]
 
   // ---- this thread's config, its tile's alloc rows, the group's records --
@@ -1804,11 +1835,11 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
     zz = zone_id[c];
     tz = ct_id[c];
   }
-  for (int i = t; i < nc * R; i += kCfgTile) {
+  for (int i = t; i < nc * Rs; i += kCfgTile) {
     const int cl = i / R;
     s_alloc[(i - cl * R) * kCfgTile + cl] = __fadd_rn(alloc[(size_t)c0 * R + i], kFitSlack);
   }
-  for (int i = t; i < 2 * R * kGroup; i += kCfgTile) {
+  for (int i = t; i < 2 * Rs * kGroup; i += kCfgTile) {
     const int j = i / kGroup, el = i - j * kGroup;
     s_el[i] = el < ng ? vs.load[(size_t)(e0 + el) * 2 * R + j] : 0.0f;
   }
@@ -1871,14 +1902,16 @@ __global__ void __launch_bounds__(kCfgTile) verdict_configs_kernel(
   }
   unsigned fit = ~0u, holds = ~0u;  // fits_used, new_load held
   for (int r = 0; r < R && (wf | wh); ++r) {
-    const float a = valid ? s_alloc[r * kCfgTile + t] : 0.0f;
+    const float a = !valid ? 0.0f
+                    : kSmemRows ? s_alloc[r * kCfgTile + t]
+                                : __fadd_rn(alloc[(size_t)c * R + r], kFitSlack);
     for (int q = 0; q < nq; ++q) {
       if ((wf >> (4 * q)) & 15u) {
-        const float4 u = reinterpret_cast<const float4*>(s_el + r * kGroup)[q];
+        const float4 u = group_axis<kSmemRows>(s_el, vs, e0, ng, R, r, q);
         fit &= ~bits4(!(u.x <= a), !(u.y <= a), !(u.z <= a), !(u.w <= a), q);
       }
       if ((wh >> (4 * q)) & 15u) {
-        const float4 l = reinterpret_cast<const float4*>(s_el + (R + r) * kGroup)[q];
+        const float4 l = group_axis<kSmemRows>(s_el, vs, e0, ng, R, R + r, q);
         holds &= ~bits4(!(l.x <= a), !(l.y <= a), !(l.z <= a), !(l.w <= a), q);
       }
     }
@@ -2041,6 +2074,78 @@ __global__ void __launch_bounds__(kPrologueThreads) population_pairs_kernel(
     }
     perm_b[(size_t)p * Gp + rank] = g;
     cnt_b[(size_t)p * Gp + rank] = s_cnt[g];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The admission score (the single-pod fast path)
+// ---------------------------------------------------------------------------
+//
+// Takes the place of the JAX package's admit_kernel
+// (karpenter_tpu/ops/packer.py:197-241), a jitted XLA function, not a
+// Pallas kernel; its plain version is karpenter_tpu_torch/ops/packer.py:
+// admit_reference.  The fast path (scheduling/fastpath.py) scores ONE class
+// g against the live nodes of a resident state: _pack_core's existing-node
+// fill for that class alone.  Per slot k, cap = node_cap(alloc[cfg0[k]],
+// used0[k], req[g]) where cfg0[k] >= 0 and feas[g][cfg0[k]], else 0; an
+// exclusive int32 prefix over the slots (it wraps, as XLA's cumsum does:
+// a class that requests no axis has 2^30 room a slot); take = clip(cnt[g]
+// - prefix, 0, cap).  Then the placed total (a wrapping sum) and whether
+// some config c may open a node of the class: feas[g][c], openable[c] and
+// node_cap(alloc[c], req[g]) > 0.  out = [take[0..K), placed, open_ok]:
+// K + 2 int32 words, so the host fetches one buffer.  The arithmetic is
+// the scan's own, node_cap and the unsigned block scan, as the reference
+// demands of its kernel (the fast path's host oracle holds the result to
+// bit-equality).
+// What bounds it: latency.  At the live cluster (Kp 4096, Cp 8192, R 6) it
+// moves a few hundred KB, well under a microsecond at the card's memory
+// rate, but it is one launch of dependent passes in one block of up to
+// 1024 threads.  Thread t owns the slots [t * n, t * n + n), n =
+// ceil(K / threads).  Pass 1 computes its slots' caps, stages each in its
+// slot's output word and sums them; one block scan of the thread totals
+// gives each thread its exclusive offset; pass 2 turns the staged caps
+// into takes in slot order and sums the takes.  The configs go strided
+// over the threads, with the division only where a config is feasible and
+// openable, and end in one __syncthreads_or.  Any K, Cp and R.
+__global__ void __launch_bounds__(1024) admit_kernel(
+    const float* __restrict__ req, const int* __restrict__ cnt,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const uint8_t* __restrict__ openable, const float* __restrict__ used0,
+    const int* __restrict__ cfg0, int Cp, int K, int R, int g,
+    int* __restrict__ out) {
+  __shared__ unsigned sh[32];
+  const float* rq = req + (size_t)g * R;
+  const uint8_t* fg = feas + (size_t)g * Cp;
+  const int n = (K + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int k0 = min((int)threadIdx.x * n, K), k1 = min(k0 + n, K);
+  unsigned own = 0u;
+  for (int k = k0; k < k1; ++k) {
+    const int c = cfg0[k];
+    const int cap = (c >= 0 && fg[c])
+                        ? node_cap(alloc + (size_t)c * R, used0 + (size_t)k * R, rq, R)
+                        : 0;
+    out[k] = cap;
+    own += (unsigned)cap;
+  }
+  unsigned total;
+  unsigned prefix = block_incl_scan(own, &total, sh) - own;  // exclusive
+  const int n_g = cnt[g];
+  unsigned placed = 0u;
+  for (int k = k0; k < k1; ++k) {
+    const int cap = out[k];
+    const int take = clip(wsub(n_g, (int)prefix), 0, cap);
+    out[k] = take;
+    placed += (unsigned)take;
+    prefix += (unsigned)cap;
+  }
+  bool fits = false;
+  for (int c = threadIdx.x; c < Cp && !fits; c += blockDim.x)
+    fits = fg[c] && openable[c] && node_cap(alloc + (size_t)c * R, nullptr, rq, R) > 0;
+  const int open_ok = __syncthreads_or(fits);
+  placed = block_sum(placed, sh);
+  if (threadIdx.x == 0) {
+    out[K] = (int)placed;
+    out[K + 1] = open_ok ? 1 : 0;
   }
 }
 
@@ -2248,17 +2353,18 @@ long long ffd_verdict_scratch_bytes(int B, int G, int R) {
 int ffd_verdict_config_tile() { return kCfgTile; }
 int ffd_verdict_max_group() { return kGroup; }
 
-// The most resource axes verdict_rows takes at G classes on the current
-// device: the config pass stages its tile's alloc rows, R x kCfgTile
-// floats, in shared memory (about 179 axes in a Hopper block's 227 KB).
-// A negative CUDA error code where the device query fails.
+// The most resource axes the config pass stages in shared memory at G
+// classes on the current device: its tile's alloc rows, R x kCfgTile
+// floats, and the group's rows (about 179 axes in a Hopper block's 227 KB).
+// Past it verdict_rows takes the instance that reads them from device
+// memory.  A negative CUDA error code where the device query fails.
 int ffd_verdict_max_axes(int G) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, verdict_configs_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, verdict_configs_kernel<true>);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return -(int)e;
@@ -2272,24 +2378,27 @@ int ffd_verdict_max_axes(int G) {
 // The verdict rows of a batched scan's B elements, `rows` [B][6]: the
 // summary, the config pass (`group` elements a block, 1 to 32) and the
 // write, in order on `stream`, over `scratch`
-// (ffd_verdict_scratch_bytes(B, Gp, R) bytes, 16-byte aligned).  R at most
-// ffd_verdict_max_axes(Gp).
+// (ffd_verdict_scratch_bytes(B, Gp, R) bytes, 16-byte aligned).  The config
+// pass stages its rows in shared memory where `smem_rows` is set (R at most
+// ffd_verdict_max_axes(Gp)), else reads them from device memory (any R).
 int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
                      const int* node_pods, const float* node_used,
                      const int* perm_b, const uint8_t* feas, const float* alloc,
                      const float* price, const uint8_t* openable,
                      const int* pool_id, const int* zone_id, const int* ct_id,
                      const uint8_t* compactable, int B, int Gp, int Cp, int K,
-                     int R, int next0, int group, void* scratch, float* rows,
-                     void* stream) {
+                     int R, int next0, int group, int smem_rows, void* scratch,
+                     float* rows, void* stream) {
   if (B <= 0) return 0;
   if (Gp < 0 || Cp <= 0 || K <= 0 || R < 0 || next0 < 0 || next0 > K || group < 1 ||
       group > kGroup || (B + group - 1) / group > 65535 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem_s = summary_smem(Gp, K), smem_c = configs_smem(Gp, R);
+  const size_t smem_s = summary_smem(Gp, K), smem_c = configs_smem(Gp, R, smem_rows != 0);
   cudaError_t e = allow_smem(verdict_summary_kernel, smem_s);
-  if (e == cudaSuccess) e = allow_smem(verdict_configs_kernel, smem_c);
+  if (e == cudaSuccess)
+    e = smem_rows ? allow_smem(verdict_configs_kernel<true>, smem_c)
+                  : allow_smem(verdict_configs_kernel<false>, smem_c);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -2302,8 +2411,12 @@ int ffd_verdict_rows(const int* take, const int* leftover, const int* node_cfg,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Cp + kCfgTile - 1) / kCfgTile, (B + group - 1) / group);
-  verdict_configs_kernel<<<grid, kCfgTile, smem_c, st>>>(
-      feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R, group, vs);
+  if (smem_rows)
+    verdict_configs_kernel<true><<<grid, kCfgTile, smem_c, st>>>(
+        feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R, group, vs);
+  else
+    verdict_configs_kernel<false><<<grid, kCfgTile, smem_c, st>>>(
+        feas, alloc, price, openable, pool_id, zone_id, ct_id, B, Gp, Cp, R, group, vs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   verdict_write_kernel<<<(B + kWriteThreads - 1) / kWriteThreads, kWriteThreads, 0, st>>>(
@@ -2331,6 +2444,19 @@ int ffd_population_prologue(const int* cand_cnt, const int* cand_slot,
   population_pairs_kernel<<<P, kPrologueThreads, smem, (cudaStream_t)stream>>>(
       cand_cnt, cand_slot, cand_occ, sort_rank, masks, U, Gp, K, occ_span, cnt_b,
       rm_b, perm_b);
+  return (int)cudaGetLastError();
+}
+
+// The admission score of class g (admit_kernel above): req [Gp][R], cnt
+// [Gp], feas [Gp][Cp], alloc [Cp][R], openable [Cp], used0 [K][R], cfg0
+// [K] (values in [-1, Cp)), out [K + 2].
+int ffd_admit(const float* req, const int* cnt, const uint8_t* feas,
+              const float* alloc, const uint8_t* openable, const float* used0,
+              const int* cfg0, int Gp, int Cp, int K, int R, int g, int* out,
+              void* stream) {
+  if (g < 0 || g >= Gp || Cp < 0 || K < 0 || R < 0) return (int)cudaErrorInvalidValue;
+  admit_kernel<<<1, scan_threads(K), 0, (cudaStream_t)stream>>>(
+      req, cnt, feas, alloc, openable, used0, cfg0, Cp, K, R, g, out);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,7 @@ same ``karpenter_device_*`` families with the same labels:
   device.  Its bytes count under the caller's site whatever the device, so
   a CPU run counts what the card run counts.  Site names follow the
   reference's (``resident_seed``, ``resident_delta``,
-  ``pack_kernel_buffered``, ``device_constants``, ``removal_base``,
+  ``pack_kernel_buffered``, ``pack_constants``, ``removal_base``,
   ``population_tensors``, ``population_verdict_kernel``,
   ``removal_verdict_kernel``), where the reference counts jit-argument
   uploads under the dispatch's name.

@@ -7,19 +7,21 @@ securitygroup -> version -> instanceprofile -> image -> resolver ->
 launchtemplate -> instancetype -> instance, reference operator.go:126-165),
 composes the CloudProvider facade behind the retry layer and the metrics
 decorator, and registers the control loops in the reference's order:
-nodeclass, provisioner, lifecycle, termination, link, garbage collection,
-tagging.  The Provisioner's long-lived `TorchScheduler` runs on ``device``
-(the card unless the caller asks for the CPU).
+nodeclass, provisioner, lifecycle, interruption (when an interruption queue
+is set), termination, link, garbage collection, tagging, metrics state and
+consistency.  The Provisioner's long-lived `TorchScheduler` runs on
+``device`` (the card unless the caller asks for the CPU), and so does its
+admission fast path (`scheduling/fastpath.py`).
 
 `reconcile_once` drives every controller one tick: it mints the tick's
 trace ID, marks the device observatory's tick boundary, runs the
 controllers with the reference's crash containment and backoff, refreshes
 prices every 12 h, and exports the observatory's counters into the
-registry.  Not ported here, each an item of ROADMAP §A: the disruption,
-interruption, metrics-state and consistency controllers, the admission
-fast path (the constructor refuses ``enable_admission_fastpath``), the
-SLO engine, the anomaly detector, the flight recorder, the lock watchdog
-and leader election.
+registry.  Not ported here, each an item of ROADMAP §A: the disruption
+controller, the SLO engine, the anomaly detector, the flight recorder, the
+span dump under ``profile_dir``, the lock watchdog and leader election.
+The constructor refuses the settings that would ask for one of them
+(`_refuse_unported`), so none is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -33,9 +35,12 @@ from karpenter_tpu_torch.cache.unavailable_offerings import UnavailableOfferings
 from karpenter_tpu_torch.cloud.fake.backend import FakeCloud
 from karpenter_tpu_torch.cloud.provider import CloudProvider, ProviderBundle
 from karpenter_tpu_torch.cloud.retry import RetryingCloud
+from karpenter_tpu_torch.controllers.consistency import ConsistencyController
 from karpenter_tpu_torch.controllers.garbagecollection import GarbageCollectionController
+from karpenter_tpu_torch.controllers.interruption import InterruptionController
 from karpenter_tpu_torch.controllers.lifecycle import LifecycleController
 from karpenter_tpu_torch.controllers.link import LinkController
+from karpenter_tpu_torch.controllers.metrics_state import MetricsStateController
 from karpenter_tpu_torch.controllers.nodeclass import NodeClassController
 from karpenter_tpu_torch.controllers.provisioning import Provisioner
 from karpenter_tpu_torch.controllers.tagging import TaggingController
@@ -83,12 +88,7 @@ class Operator:
         self.kube = kube
         self.settings = settings or Settings()
         self.settings.validate()
-        if self.settings.enable_admission_fastpath:
-            raise ValueError(
-                "enable_admission_fastpath: the admission fast path is not "
-                "ported yet (ROADMAP A4); build the port's operator with "
-                "Settings(enable_admission_fastpath=False)"
-            )
+        _refuse_unported(self.settings)
         # the card unless the caller asks for the CPU; asking for CUDA
         # without a card raises here, before anything is built
         self.device = resolve_device(device)
@@ -201,22 +201,38 @@ class Operator:
             kube, self.subnets, self.security_groups, self.images,
             self.instance_profiles,
         )
+        self.interruption: Optional[InterruptionController] = None
+        if self.settings.interruption_queue_name:
+            self.interruption = InterruptionController(
+                kube, rcloud, self.termination, self.unavailable, registry
+            )
+        self.metrics_state = MetricsStateController(
+            kube, self.cluster, self.clock, registry
+        )
+        self.consistency = ConsistencyController(
+            kube, self.cluster, self.cloud_provider, self.clock, registry
+        )
         self._pricing_updated_at = self.clock.now()
         # per-controller requeue backoff: name -> (retry_at, current delay)
         self._ctrl_backoff: Dict[str, Tuple[float, float]] = {}
-        # the reference's canonical order with its unported controllers
-        # (interruption, disruption, metrics_state, consistency) left out;
-        # no ported controller declares pipelined stages, so the schedule
-        # is the plain sequence either way
+        # the reference's canonical order with its unported disruption
+        # controller left out; no ported controller declares pipelined
+        # stages, so the schedule is the plain sequence either way
         sequence: List[Tuple[str, object]] = [
             ("nodeclass", self.node_class_controller),
             ("provisioner", self.provisioner),
             ("lifecycle", self.lifecycle),
+        ]
+        if self.interruption is not None:
+            sequence.append(("interruption", self.interruption))
+        sequence += [
             ("termination", self.termination),
             # adopt before GC lists, so no race to reap
             ("link", self.link),
             ("garbagecollection", self.garbage_collection),
             ("tagging", self.tagging),
+            ("metrics_state", self.metrics_state),
+            ("consistency", self.consistency),
         ]
         self.pipeline = TickPipeline(
             [StageSpec(name, controller) for name, controller in sequence],
@@ -318,6 +334,26 @@ class Operator:
         )
         self._dev_exported, _warm = export_device_metrics(
             self.registry, OBSERVATORY, self._dev_exported
+        )
+
+
+def _refuse_unported(settings: Settings) -> None:
+    """Raise for a setting whose path the port does not run yet, naming the
+    ROADMAP item that brings it: accepting it and then ignoring it would
+    hide the gap."""
+    refused = []
+    if settings.enable_profiling and settings.profile_dir:
+        refused.append(
+            "profile_dir (the span dump and device trace under "
+            "enable_profiling: ROADMAP A8)"
+        )
+    if settings.flight_dir:
+        refused.append("flight_dir (the flight recorder: ROADMAP A3c)")
+    if settings.lock_watchdog_stall_s > 0:
+        refused.append("lock_watchdog_stall_s (the lock watchdog: ROADMAP A3e)")
+    if refused:
+        raise ValueError(
+            "not ported yet, so the port's operator refuses: " + "; ".join(refused)
         )
 
 

@@ -24,6 +24,10 @@ over the configs shared by groups of elements, the rows), and
 `population_prologue` (one launch) derives each removal mask's counts,
 removed slots and class order.
 
+The admission fast path (the JAX package's ``admit_kernel``, a jitted XLA
+function) scores one class against the live nodes of a resident state:
+`admit`, one launch.
+
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
 launches the kernel or raises, never falls back.  `LAUNCHES` counts the
@@ -56,6 +60,7 @@ LAUNCHES: Dict[str, int] = {
     "choose_config": 0, "ffd_scan": 0, "ffd_scan_cluster": 0, "ffd_scan_global": 0,
     "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
     "verdict_summary": 0, "verdict_configs": 0, "verdict_write": 0, "population_pairs": 0,
+    "admit_kernel": 0,
 }
 # the launches of `verdict_rows`, in order
 VERDICT_ROWS_LAUNCHES = ("verdict_summary", "verdict_configs", "verdict_write")
@@ -75,6 +80,7 @@ CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_XCHG_BYTES = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4
 
 OBJECTIVES = {"nodes": 0, "cost": 1}
+MAX_BATCH = 65_535  # elements of one batched scan launch (its grid's y extent)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -107,10 +113,12 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_verdict_max_group.restype = _I
         lib.ffd_verdict_max_axes.argtypes = [_I]
         lib.ffd_verdict_max_axes.restype = _I
-        lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 7 + [_P] * 2 + [_P]
+        lib.ffd_verdict_rows.argtypes = [_P] * 14 + [_I] * 8 + [_P] * 2 + [_P]
         lib.ffd_verdict_rows.restype = _I
         lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_population_prologue.restype = _I
+        lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 5 + [_P] + [_P]
+        lib.ffd_admit.restype = _I
     return lib
 
 
@@ -350,24 +358,24 @@ def ffd_scan(
     return _launch_picked(args, _scan_shapes(*args), None)
 
 
-def _launch_picked(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
+def _launch_picked(args, shapes, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     """The scan `scan_kernel` picks for the shapes, with the batch axis
-    where ``batch`` is given."""
+    where ``batch`` is given, writing ``outs`` where they are given."""
     G, C, K, R, S = shapes
     kernel = scan_kernel(K, R, S, C)
     if kernel == "ffd_scan_global":
-        return _launch_global(args, shapes, batch)
+        return _launch_global(args, shapes, batch, outs)
     if kernel == "ffd_scan_cluster":
-        return _launch_cluster(args, shapes, cluster_layout(K, R, S, C), batch)
-    return _launch_resident(args, shapes, batch)
+        return _launch_cluster(args, shapes, cluster_layout(K, R, S, C), batch, outs)
+    return _launch_resident(args, shapes, batch, outs)
 
 
-def _launch_resident(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
+def _launch_resident(args, shapes, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
     per_thread, smem = resident_layout(K, R, S, C)
-    outs = _scan_outputs(G, K, R, req.device, batch)
+    outs = outs or _scan_outputs(G, K, R, req.device, batch)
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan(
@@ -413,12 +421,12 @@ def ffd_scan_cluster(
     return _launch_cluster(args, shapes, layout, None)
 
 
-def _launch_cluster(args, shapes, layout, batch) -> Tuple[torch.Tensor, ...]:
+def _launch_cluster(args, shapes, layout, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
     ctas, per_thread, smem = layout
-    outs = _scan_outputs(G, K, R, req.device, batch)
+    outs = outs or _scan_outputs(G, K, R, req.device, batch)
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan_cluster(
@@ -432,11 +440,11 @@ def _launch_cluster(args, shapes, layout, batch) -> Tuple[torch.Tensor, ...]:
     return outs
 
 
-def _launch_global(args, shapes, batch) -> Tuple[torch.Tensor, ...]:
+def _launch_global(args, shapes, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
-    outs = _scan_outputs(G, K, R, req.device, batch)
+    outs = outs or _scan_outputs(G, K, R, req.device, batch)
     B = 1 if batch is None else batch[0]
     sigcnt = torch.empty((B, S, K), dtype=torch.int32, device=req.device)  # scratch
     with torch.cuda.device(req.device):
@@ -480,8 +488,6 @@ def _check_batch(cnt_b, rm_b, perm_b, G: int, K: int, dev) -> int:
         ("perm_b", perm_b, torch.int32, (B, G)),
     ):
         _check(name, t, dt, shp, dev)
-    if B > 65535:
-        raise ValueError(f"B={B} elements: at most 65,535 a launch")
     return B
 
 
@@ -489,14 +495,16 @@ def ffd_scan_batch(
     req, maxper, slot, feas, alloc, c_star, new_ok, per,
     used0, cfg0, npods0, next0: int, sig0, cnt_b, rm_b, perm_b,
 ) -> Tuple[torch.Tensor, ...]:
-    """B what-if scans over one base problem in one launch: element b scans
-    the base rows ``perm_b[b]`` in that order with the counts ``cnt_b[b]``
-    (in permuted positions) and the slots ``rm_b[b]`` removed (their config
-    -1); ``c_star, new_ok, per`` are the base's choice (`choose_config` on
-    the base rows).  Returns ``(take [B, G, K], leftover [B, G], node_cfg
-    [B, K], node_pods [B, K], node_used [B, K, R])``.  On the card it runs
-    the scan `scan_kernel` picks at the base's shapes, with one block (or
-    one cluster) per element; ``perm_b`` must hold base rows in [0, G)."""
+    """B what-if scans over one base problem: element b scans the base rows
+    ``perm_b[b]`` in that order with the counts ``cnt_b[b]`` (in permuted
+    positions) and the slots ``rm_b[b]`` removed (their config -1);
+    ``c_star, new_ok, per`` are the base's choice (`choose_config` on the
+    base rows).  Returns ``(take [B, G, K], leftover [B, G], node_cfg [B,
+    K], node_pods [B, K], node_used [B, K, R])``.  On the card it runs the
+    scan `scan_kernel` picks at the base's shapes, with one block (or one
+    cluster) per element, in one launch per `MAX_BATCH` elements, each
+    writing its slice of the outputs; ``perm_b`` must hold base rows in
+    [0, G)."""
     if req.device.type == "cpu":
         return ffd_scan_batch_reference(
             req, maxper, slot, feas, alloc, c_star, new_ok, per,
@@ -512,7 +520,13 @@ def ffd_scan_batch(
     # read the element's own row of cnt_b)
     args = (req, cnt_b[0], maxper, slot, feas, alloc, c_star, new_ok, per,
             used0, cfg0, npods0, next0, sig0)
-    return _launch_picked(args, _scan_shapes(*args), (B, perm_b, cnt_b, rm_b))
+    shapes = _scan_shapes(*args)
+    outs = _scan_outputs(G, K, req.shape[1], req.device, (B,))
+    for lo in range(0, B, MAX_BATCH):
+        part = slice(lo, min(lo + MAX_BATCH, B))
+        _launch_picked(args, shapes, (part.stop - lo, perm_b[part], cnt_b[part], rm_b[part]),
+                       tuple(o[part] for o in outs))
+    return outs
 
 
 def scan_concurrency(K: int, R: int, S: int, C: int) -> int:
@@ -579,6 +593,14 @@ def _verdict_max_axes(index: int, G: int) -> int:
     return n
 
 
+def verdict_rows_in_smem(index: int, G: int, R: int) -> bool:
+    """Whether `verdict_rows`' config pass stages its tile's alloc rows and
+    its group's rows in shared memory: up to `_verdict_max_axes` axes (about
+    179 on an H100 at small G); past that it reads them from device
+    memory."""
+    return R <= _verdict_max_axes(index, G)
+
+
 @functools.lru_cache(maxsize=64)
 def _verdict_scratch_bytes(B: int, G: int, R: int) -> int:
     return int(_lib().ffd_verdict_scratch_bytes(B, G, R))
@@ -595,7 +617,9 @@ def verdict_rows(
     element: its counts, c_star's key, k_star's usage, the new slots' load
     and the class flags), `verdict_configs` (each config tested once
     against a group of up to 32 elements, `verdict_group`; a first-index
-    argmin by 64-bit atomicMin) and `verdict_write` (the rows)."""
+    argmin by 64-bit atomicMin; its alloc and group rows in shared memory
+    where `verdict_rows_in_smem`, else read from device memory) and
+    `verdict_write` (the rows)."""
     dev = take.device
     args = (take, leftover, node_cfg, node_pods, node_used, perm_b,
             feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
@@ -630,18 +654,13 @@ def verdict_rows(
     if B == 0:
         return rows
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    max_axes = _verdict_max_axes(index, G)
-    if R > max_axes:
-        raise ValueError(f"verdict_rows takes at most {max_axes} resource axes at {G} classes "
-                         f"(the config pass holds its tile's alloc rows in shared memory); "
-                         f"got {R}")
     group = verdict_group(B, C, _sm_count(index), *verdict_shape())
     scratch = torch.empty(_verdict_scratch_bytes(B, G, R), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ffd_verdict_rows(
-            *_ptrs(*args), B, G, C, K, R, int(next0), group, scratch.data_ptr(),
-            rows.data_ptr(), stream,
+            *_ptrs(*args), B, G, C, K, R, int(next0), group,
+            int(verdict_rows_in_smem(index, G, R)), scratch.data_ptr(), rows.data_ptr(), stream,
         )
     for name in VERDICT_ROWS_LAUNCHES:  # one C call launches the three in order
         _launched(name, err)
@@ -732,3 +751,44 @@ def population_verdicts(
         pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b,
         objective=objective,
     )
+
+
+# ---------------------------------------------------------------------------
+# The admission fast path's score
+# ---------------------------------------------------------------------------
+
+
+def admit(req, cnt, feas, alloc, openable, used0, cfg0, g: int) -> torch.Tensor:
+    """The single-pod admission score of class ``g`` (the JAX package's
+    ``admit_kernel``): ONE [K+2] int32 tensor, take per slot, the placed
+    total and the open-capacity bit (ops/packer.py: `admit_reference`, run
+    for CPU tensors by the dispatcher `admit_kernel` there).  One launch of
+    ``admit_kernel``: one block over the live slots, the solve's own
+    capacity arithmetic and block scan."""
+    dev = req.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    G, R = req.shape
+    C = alloc.shape[0]
+    K = used0.shape[0]
+    for name, t, dt, shp in (
+        ("req", req, torch.float32, (G, R)),
+        ("cnt", cnt, torch.int32, (G,)),
+        ("feas", feas, torch.bool, (G, C)),
+        ("alloc", alloc, torch.float32, (C, R)),
+        ("openable", openable, torch.bool, (C,)),
+        ("used0", used0, torch.float32, (K, R)),
+        ("cfg0", cfg0, torch.int32, (K,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if not 0 <= int(g) < G:
+        raise ValueError(f"class {g} outside [0, {G})")
+    out = torch.empty(K + 2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ffd_admit(
+            *_ptrs(req, cnt, feas, alloc, openable, used0, cfg0), G, C, K, R, int(g),
+            out.data_ptr(), stream,
+        )
+    _launched("admit_kernel", err)
+    return out

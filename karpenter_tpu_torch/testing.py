@@ -283,8 +283,9 @@ def population_arrays(candidates: int, classes: int, k_slots: int, members: int,
 # the first tile of 256 configs, then the second tile and the 17th
 VERDICT_TIE_CONFIGS = (3, 37, 70, 300, 4100)
 # `verdict_tie_arrays`' cases: name -> (classes, configs, slots, elements,
-# live slots).  The first is the live consolidation problem's shape (Cp
-# 8192, Kp 4096, B 512); B 40 is not a multiple of 32 elements a group.
+# live slots[, axes]).  The first is the live consolidation problem's shape
+# (Cp 8192, Kp 4096, B 512); B 40 is not a multiple of 32 elements a group;
+# R 200 is past the axes the config pass stages in shared memory.
 VERDICT_TIE_CASES = {
     "cp8192-kp4096-b512": (8, 8192, 4096, 512, 2000),
     "gp8-cp8192": (8, 8192, 256, 40, 4),
@@ -292,6 +293,7 @@ VERDICT_TIE_CASES = {
     "gp8-cp6": (8, 6, 64, 40, 4),
     "next0-k": (8, 300, 16, 3, 16),
     "next0-0": (8, 300, 32, 5, 0),
+    "r200": (8, 300, 64, 40, 4, 200),
 }
 # `population_arrays`' cases: (candidates, classes, slots, members); the
 # first two past a block of 256 threads, the last with rm rows of byte
@@ -300,7 +302,7 @@ PROLOGUE_CASES = ((300, 300, 1000, 16), (600, 40, 4096, 8), (64, 8, 4096, 512), 
 
 
 def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512,
-                       elements: int = 40, live: int = 4) -> tuple:
+                       elements: int = 40, live: int = 4, axes: int = 3) -> tuple:
     """Removal-verdict inputs (numpy, in the argument order of the JAX
     package's ``removal_verdict_kernel``: the base arrays, then ``cnt_b``,
     ``rm_b``, ``perm_b``) on which the verdict rows must break ties by first
@@ -322,10 +324,12 @@ def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512
       class order and removed live slots.
     - Requests are dyadic (0.5-4 vCPU, 1-8 GiB), so every ``new_load`` sum
       is exact in float32, whatever its order.
+    - ``axes`` past the first three are extra resources (`_extra_axes`):
+      some configs lack one, some classes request one, live slots use some.
 
-    ``configs`` is at least 6; ``elements`` at least 2."""
-    if configs < 6 or elements < 2 or not 0 <= live <= k_slots:
-        raise ValueError("need configs >= 6, elements >= 2, 0 <= live <= k_slots")
+    ``configs`` is at least 6; ``elements`` at least 2; ``axes`` at least 3."""
+    if configs < 6 or elements < 2 or not 0 <= live <= k_slots or axes < 3:
+        raise ValueError("need configs >= 6, elements >= 2, 0 <= live <= k_slots, axes >= 3")
     rng = np.random.default_rng(13)
     G, C, K, B, E, R, S = classes, configs, k_slots, elements, live, 3, 2
     c = np.arange(C)
@@ -367,6 +371,8 @@ def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512
     used0[:E, 1] = 2 * used0[:E, 0]
     used0[:E, 2] = npods0[:E]
     sig0 = np.zeros((S, K), np.int32)
+    if axes > 3:
+        req, alloc, used0 = _extra_axes(req, alloc, used0, axes, champ, ex, E, npods0)
     cnt = rng.integers(0, 40, (B, G)).astype(np.int32)
     cnt[rng.random((B, G)) < 0.4] = 0
     cnt[0] = 0
@@ -379,6 +385,26 @@ def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512
     cnt_b = np.take_along_axis(cnt, perm, 1)  # counts in permuted positions
     return (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, E, sig0,
             pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
+
+
+def _extra_axes(req, alloc, used0, axes: int, champ, ex: int, live: int, npods0) -> tuple:
+    """`verdict_tie_arrays`' rows widened to ``axes`` resource axes, drawn
+    from no random stream (the first three axes keep their values).  Axis
+    r >= 3: configs hold 16-32 of it, none where (c + r) % 13 == 0 (the
+    tie configs 64, the live rows 32); class g requests 0.25 where (g + r)
+    % 9 == 0; a live slot uses 0.5 a pod where r % 4 == 0.  All dyadic."""
+    G, C, K = req.shape[0], alloc.shape[0], used0.shape[0]
+    r = np.arange(3, axes)
+    c = np.arange(C)[:, None]
+    more = (16 + 4 * ((c + r) % 5)).astype(np.float32)
+    more[(c + r) % 13 == 0] = 0.0
+    more[champ] = 64.0
+    more[ex:] = 32.0
+    reqx = np.where((np.arange(G)[:, None] + r) % 9 == 0, 0.25, 0.0).astype(np.float32)
+    usedx = np.zeros((K, axes - 3), np.float32)
+    usedx[:live] = np.where(r % 4 == 0, 0.5, 0.0) * npods0[:live, None]
+    return (np.concatenate([req, reqx], 1), np.concatenate([alloc, more], 1),
+            np.concatenate([used0, usedx], 1))
 
 
 # config 2's catalog: three generations of every family at these sizes
@@ -646,8 +672,8 @@ class FakeKubelet:
 class Environment:
     """The port's operator over the fake cloud, a fake clock and a fake
     kubelet.  ``device`` is where the Provisioner's solver runs (the card
-    unless the caller asks for the CPU); the default Settings switch off the
-    admission fast path, which is not ported yet (ROADMAP A4)."""
+    unless the caller asks for the CPU); the default Settings are the
+    reference's, so the admission fast path is on."""
 
     def __init__(
         self,
@@ -662,9 +688,7 @@ class Environment:
         self._node_startup_delay = node_startup_delay
         self._device = device
         self.clock = FakeClock()
-        self.settings = settings or Settings(
-            cluster_name="test", enable_admission_fastpath=False
-        )
+        self.settings = settings or Settings(cluster_name="test")
         self._build()
 
     def _build(self) -> None:
@@ -743,8 +767,9 @@ def operator_state(env) -> dict:
     """An operator environment's cluster as comparable plain data: the
     NodeClaims, the Nodes, each pod's binding and nomination, every fake
     cloud API call in order, the event ledger's stream and its count by
-    type, and the compile-cache and resident counters the Provisioner
-    exports.  It reads
+    type, the compile-cache and resident counters the Provisioner exports,
+    and the admission fast path's outcomes, fallback reasons and
+    mismatches.  It reads
     attributes only, so it serves the JAX package's `Environment` too."""
     kube, reg = env.kube, env.registry
     claims = sorted(
@@ -787,6 +812,9 @@ def operator_state(env) -> dict:
             "karpenter_solver_compile_cache_misses_total",
             "karpenter_solver_resident_hits_total",
             "karpenter_solver_resident_rebuilds_total",
+            "karpenter_admission_fastpath_total",
+            "karpenter_admission_fastpath_fallback_total",
+            "karpenter_admission_fastpath_mismatch_total",
         )
     }
     return {

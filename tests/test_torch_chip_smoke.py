@@ -102,12 +102,15 @@ def test_kernels_line_rows():
     at the live cluster, then phase 6's seven (the batched scans, each at
     the problem whose shapes pick it, `verdict_rows`' three launches and
     the prologue's at ``live``, those four in place of the JAX package's
-    verdict epilogue and prologue); phase 4 times the cluster sizes the
-    rule does not pick."""
+    verdict epilogue and prologue), then phase 8's admission score; phase 4
+    times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-        "verdict_summary", "verdict_configs", "verdict_write", "population_pairs")
+        "verdict_summary", "verdict_configs", "verdict_write", "population_pairs",
+        "admit_kernel")
+    assert chip_smoke.ROW_PROBLEM["admit_kernel"] == "arrivals"
+    assert chip_smoke.ADMIT_REPLACES == "karpenter_tpu/ops/packer.py:197"
     assert set(chip_smoke.KERNELS) == set(fused_packer.LAUNCHES)
     assert chip_smoke.VERDICT_ROWS == fused_packer.VERDICT_ROWS_LAUNCHES
     assert set(chip_smoke.ROW_PROBLEM) == set(chip_smoke.KERNELS)
@@ -117,7 +120,8 @@ def test_kernels_line_rows():
         assert chip_smoke.VERDICT_REPLACES[k] == (
             "karpenter_tpu/ops/packer.py:525" if fn == "verdict_rows"
             else "karpenter_tpu/ops/packer.py:686")
-    assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", *chip_smoke.VERDICT_FUNCTION}
+    assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", *chip_smoke.VERDICT_FUNCTION,
+                                             "admit"}
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
     for name, scan in chip_smoke.VERDICT_SCAN.items():
@@ -173,13 +177,14 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "4"], 4),
     (["--through", "5"], 5),
     (["--through", "6"], 6),
+    (["--through", "7"], 7),
 ])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "7"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "8"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -395,3 +400,67 @@ def test_phase7_drive_on_the_cpu():
     assert [t["solve"] for t in ticks2] == [t["solve"] for t in ticks]
     assert T.operator_state(again) == T.operator_state(env)
 
+
+
+def test_phase8_drive_on_the_cpu():
+    """Phase 8's drive at a small size on the CPU: the batch's first tick
+    is too large a burst for the fast path; after it binds, the first
+    single arrival falls back (the resident tensors cannot absorb the
+    whole batch leaving) and the next ones are nominated by the fast path;
+    the oversized pod falls back to the batched solve and gets a node of
+    its own; `AdmitTimer` records each attempt with its phases; the same
+    drive with the fast path off puts every pod on the same node.  (At
+    this size the single-pod solve's resident state has too few slots for
+    a burst, which falls back as a resident miss.)"""
+    from karpenter_tpu_torch import testing as T
+
+    kw = dict(n_pods=120, arrivals=12, bursts=2, oversized=1)
+    with chip_smoke.AdmitTimer() as timer:
+        env, ticks = chip_smoke.drive_arrivals("cpu", **kw)
+    counts = chip_smoke.fastpath_counts(env.registry)
+    assert counts["mismatch"] == 0 and "mismatch" not in counts["outcome"]
+    assert counts["outcome"]["nominated"] == 11, counts
+    seen = [(c["outcome"], c["reason"]) for c in timer.calls]
+    assert seen[:3] == [("fallback", "burst_too_large"), ("fallback", "resident_miss"),
+                        ("nominated", "")]
+    assert seen[-1] == ("fallback", "needs_new_node")
+    assert [t["arrival"] for t in ticks if t["arrival"] != "batch"] == (
+        ["single"] * 12 + ["burst", "quiet"] * 2 + ["oversized"])
+    assert ticks[-1]["solve"] and ticks[-1]["fastpath"] == {"fallback": 1}
+    assert len(timer.calls) == sum(counts["outcome"].values())
+    scored = [c for c in timer.calls if "dispatch" in c["phases_ms"]]
+    assert {"delta", "dispatch", "device_block", "oracle"} <= set(scored[0]["phases_ms"])
+    assert all(c["ms"] >= sum(c["phases_ms"].values()) for c in timer.calls)
+    big = env.kube.pods["default/oversized-16"]
+    assert big.requests.cpu >= chip_smoke.OVERSIZED_CPU and big.node_name
+    assert sum(1 for p in env.kube.pods.values() if p.node_name == big.node_name) == 1
+    off, _ = chip_smoke.drive_arrivals("cpu", fastpath=False, **kw)
+    assert not chip_smoke.fastpath_counts(off.registry)["outcome"]
+    placed = lambda e: {k: p.node_name for k, p in sorted(e.kube.pods.items())}
+    assert placed(off) == placed(env)
+    again, _ = chip_smoke.drive_arrivals("cpu", **kw)
+    assert T.operator_state(again) == T.operator_state(env)
+
+
+def test_phase8_admit_helpers():
+    """`admit_bound` counts the class's slots and configs from the data,
+    `percentiles` reads p50 and p99 by nearest rank, `admit_args` picks the
+    score's inputs out of a pack's arguments."""
+    args, _, _ = _tiny_pack()
+    got = chip_smoke.admit_args(args)
+    assert [a.shape for a in got] == [(2, 1), (2,), (2, 4), (4, 1), (4,), (3, 1), (3,)]
+    b = chip_smoke.admit_bound(got, 0)
+    # class 0 requests its one axis; slot 0 (config 2, feasible) is the one
+    # slot it may use; config 0 fits and is openable, so the sweep stops
+    # there: feasibility bytes at configs 2 and 0, openable at config 0
+    assert b["bytes"] == 4 + 4 + 3 * 4 + 2 + 1 + 1 * 8 + 1 * 4 + 5 * 4
+    assert b["operations"] == 1 * (5 + 3) + 1 * (4 + 1)
+    assert b["bound_by"] == "bytes"
+    # class 1: slot 0's config 2 not feasible; config 1 is feasible and
+    # openable but too small, so no config fits and all four are swept
+    b1 = chip_smoke.admit_bound(got, 1)
+    assert b1["bytes"] == 4 + 4 + 3 * 4 + 4 + 1 + 1 * 4 + 5 * 4
+    assert b1["operations"] == 1 * (4 + 1)
+    p = chip_smoke.percentiles([float(x) for x in range(1, 101)])
+    assert p == {"n": 100, "p50": 50.5, "p99": 100.0}
+    assert chip_smoke.percentiles([]) == {"n": 0}

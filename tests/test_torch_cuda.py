@@ -8,8 +8,12 @@ the global one through its own entry point.  The choice is held to the
 plain version on its own cases: ties broken by first index, few classes,
 6 configs and a ``feas`` one byte off (both read a config at a time).  The
 verdict kernels are held to theirs at the sweep's shape, on the tie arrays
-(at the live problem's shape too, and at next0 0 and K) and, for the
-prologue, with U and Gp past its block.
+(at the live problem's shape too, and at next0 0 and K, and at R 200,
+where the config pass reads its rows from device memory), past one
+launch's 65,535 elements and, for the prologue, with U and Gp past its
+block.  The admission score (``admit_kernel``) is held to its plain version
+on every class of the wrap case, of config 2 over 4096 slots and of a
+resident state, and a fast-path operator drive on the card to the CPU's.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -469,16 +473,126 @@ def test_verdict_rows_every_group(cuda_device, case, step, monkeypatch):
 
 def test_verdict_rows_axis_limit(cuda_device):
     """Past the axes the config pass's shared memory holds, `verdict_rows`
-    raises and names the limit instead of launching."""
-    R = fused_packer._verdict_max_axes(torch.cuda.current_device(), 8) + 1
-    assert R > 150
-    i32, f32 = torch.int32, torch.float32
-    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=cuda_device)
-    args = (z((2, 8, 4), i32), z((2, 8), i32), z((2, 4), i32), z((2, 4), i32),
-            z((2, 4, R), f32), z((2, 8), i32), z((8, 3), torch.bool), z((3, R), f32),
-            z((3,), f32), z((3,), torch.bool), z((3,), i32), z((3,), i32), z((3,), i32),
-            z((8,), torch.bool))
-    before = dict(fused_packer.LAUNCHES)
-    with pytest.raises(ValueError, match=f"at most {R - 1} resource axes"):
-        fused_packer.verdict_rows(*args, 0)
-    assert fused_packer.LAUNCHES == before
+    launches the config pass that reads its rows from device memory (each
+    of the three launches once) and gives the plain version's rows."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference, verdict_rows_reference
+
+    index = torch.cuda.current_device()
+    a = to_device(T.verdict_tie_arrays(*T.VERDICT_TIE_CASES["r200"]), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+    R = used0.shape[1]
+    assert R > fused_packer._verdict_max_axes(index, req.shape[0]) > 150
+    assert not fused_packer.verdict_rows_in_smem(index, req.shape[0], R)
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    outs = ffd_scan_batch_reference(req, maxper, slot, feas, alloc, *chosen, used0, cfg0,
+                                    npods0, next0, sig0, cnt_b, rm_b, perm_b)
+    tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
+    rows, moved = _launch_moves(lambda: fused_packer.verdict_rows(*outs, *tail))
+    assert moved == {k: 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES}
+    _assert_bit_equal([rows], [verdict_rows_reference(*outs, *tail)])
+
+
+def test_batched_scan_past_the_launch_limit(cuda_device):
+    """B = 65,636 elements, past the 65,535 of one launch's grid: two
+    launches, each writing its slice of the outputs, bit-equal to the
+    plain version; then `verdict_rows` on all of them."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference, verdict_rows_reference
+
+    B = fused_packer.MAX_BATCH + 101
+    a = to_device(T.verdict_tie_arrays(8, 300, 64, B, 4), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
+    assert moved == {"ffd_scan_batched": 2}
+    _assert_bit_equal(got, ffd_scan_batch_reference(*scan_args))
+    tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
+    _assert_bit_equal([fused_packer.verdict_rows(*got, *tail)],
+                      [verdict_rows_reference(*got, *tail)])
+
+
+# ---------------------------------------------------------------------------
+# The admission fast path
+# ---------------------------------------------------------------------------
+
+
+def _admit_args(host):
+    (req, cnt, _maxper, _slot, feas, alloc, _price, openable,
+     used0, cfg0, _npods0, _next0, _sig0) = host
+    return req, cnt, feas, alloc, openable, used0, cfg0
+
+
+@pytest.mark.parametrize("case", ["wrap", "wrap-4096-straddle", "heterogeneous-4096"])
+def test_admit_matches_reference(cuda_device, case):
+    """`admit` (one launch of ``admit_kernel``) bit-equal to
+    `admit_reference` for every class: where four slots of a class that
+    requests no axis wrap the int32 prefix, and at config 2's shapes over
+    4096 slots with live nodes (its first slots prefilled)."""
+    from karpenter_tpu_torch.ops.packer import admit_reference
+
+    host = list(_case(case))
+    if case.startswith("heterogeneous"):
+        K = host[8].shape[0]
+        rng = np.random.RandomState(3)
+        live = 2000
+        host[9] = host[9].copy()
+        host[9][:live] = rng.randint(0, host[5].shape[0], live)
+        host[8] = host[8].copy()
+        host[8][:live] = host[5][host[9][:live]] * rng.rand(live, host[5].shape[1]).astype(np.float32)
+        assert K == 4096
+    args = to_device(_admit_args(host), cuda_device)
+    for g in range(args[0].shape[0]):
+        got, moved = _launch_moves(lambda: fused_packer.admit(*args, g))
+        assert moved == {"admit_kernel": 1}
+        _assert_bit_equal([got], [admit_reference(*args, g)])
+
+
+def test_admit_on_a_resident_state(cuda_device):
+    """Every class of a warm resident state on the card: the kernel on the
+    state's own tensors equals the plain version on the same tensors."""
+    from karpenter_tpu_torch.ops.packer import admit_reference
+
+    pools, inv, pods = T.heterogeneous_problem(scale=0.02)
+    sched = TorchScheduler(pools, inv, existing=T.live_cluster(300), device=cuda_device)
+    sched.solve(pods)
+    st = sched._resident.states[0]
+    args = (st.d_req, st.d_cnt, st.d_feas, st.d_alloc, st.d_openable, st.d_used0, st.d_cfg0)
+    for g in range(st.Gp):
+        _assert_bit_equal([fused_packer.admit(*args, g)], [admit_reference(*args, g)])
+
+
+def test_fast_path_operator_on_card_matches_cpu(cuda_device):
+    """A seed batch and a single-pod trickle through the operator with the
+    fast path on: on the card ``admit_kernel`` launches and the final state
+    (claims, nodes, bindings, cloud calls, ledger, solver and fast-path
+    counters) equals the same drive on the CPU."""
+    from karpenter_tpu_torch.api import Pod, Resources, Settings
+    from karpenter_tpu_torch.api.objects import reset_name_sequences
+
+    def drive(device):
+        reset_name_sequences()
+        env = T.Environment(settings=Settings(cluster_name="test", provision_fastpath_bypass=True,
+                                              enable_pipelined_reconcile=False), device=device)
+        env.default_node_class()
+        env.default_node_pool()
+        env.operator.provisioner.launch_concurrency = 1
+        for i in range(12):
+            env.kube.put_pod(Pod(name=f"seed-{i:02d}", requests=Resources(cpu=2.5, memory="2Gi")))
+        env.settle()
+        for i in range(8):
+            env.kube.put_pod(Pod(name=f"trickle-{i}", requests=Resources(cpu=0.1, memory="64Mi")))
+            env.step(2.0)
+        env.settle()
+        return T.operator_state(env)
+
+    before = fused_packer.LAUNCHES["admit_kernel"]
+    card = drive(cuda_device)
+    assert fused_packer.LAUNCHES["admit_kernel"] > before
+    cpu = drive("cpu")
+    assert card == cpu
+    nominated = dict(card["counters"]["karpenter_admission_fastpath_total"])
+    assert nominated.get((("outcome", "nominated"),), 0) > 0
+    assert not card["counters"]["karpenter_admission_fastpath_mismatch_total"]

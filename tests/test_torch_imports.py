@@ -6,7 +6,10 @@ then imports the port (the resident tensors' module and the population
 search too) and ``chip_smoke`` and runs a small CPU cold solve, a
 compile-cache hit, a one-pod delta, a removal batch and a population
 round; then imports the operator and ``python -m karpenter_tpu_torch``'s
-module and runs three ticks of a CPU operator `Environment`."""
+module and runs three ticks of a CPU operator `Environment`, then the
+admission fast path (``scheduling/fastpath.py``) and the interruption,
+metrics-state and consistency controllers: a single-pod arrival nominated
+by the fast path, and a spot-interruption message drained."""
 
 import pathlib
 import subprocess
@@ -83,6 +86,30 @@ for _ in range(3):
     env.step(2.0)
 assert not env.kube.pending_pods() and env.kube.node_claims
 assert env.operator.provisioner.scheduler.last_kernel == "reference"
+# the admission fast path and the controllers copied with it
+from karpenter_tpu_torch.api import Settings
+from karpenter_tpu_torch.controllers import (  # noqa: F401
+    ConsistencyController, InterruptionController, MetricsStateController)
+from karpenter_tpu_torch.scheduling import fastpath  # noqa: F401
+
+env = T.Environment(settings=Settings(cluster_name="test", interruption_queue_name="q"),
+                    device="cpu")
+env.default_node_class()
+env.default_node_pool()
+for _ in range(12):
+    env.kube.put_pod(Pod(requests=Resources(cpu=1.5, memory="1Gi")))
+env.settle()
+for _ in range(3):  # the first arrival after the batch is a resident miss
+    env.kube.put_pod(Pod(requests=Resources(cpu=0.25, memory="512Mi")))
+    env.step(2.0)
+assert env.registry.counter("karpenter_admission_fastpath_total", {"outcome": "nominated"}) >= 1
+claim = next(iter(env.kube.node_claims.values()))
+env.cloud.send_message({"kind": "spot_interruption", "instance_id": claim.provider_id})
+env.step(2.0)  # receive + drain + terminate
+env.settle()
+assert claim.name not in env.kube.node_claims and not env.kube.pending_pods()
+names = [spec.name for spec in env.operator.pipeline.specs]
+assert names[-2:] == ["metrics_state", "consistency"] and "interruption" in names, names
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

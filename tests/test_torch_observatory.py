@@ -147,3 +147,39 @@ def test_disabled_passes_through(pkg):
     assert disabled_out == enabled_out
     assert not scope.dispatches and not scope.transfer_bytes
     assert not scope.resident_updates and not scope.compiles
+
+
+def test_overflow_retry_uploads_the_catalog_once():
+    """`torch_specs`' overflow scenario solved twice: the first pack runs
+    on the resident tensors and overflows, the retry packs cold at twice
+    the slots, and the second solve retries again.  Both packages upload at
+    the same transfer sites, the cold packs' catalog columns once, through
+    their device-constant cache (``pack_constants``), and the same
+    ``resident_seed`` bytes.  ``pack_kernel_buffered`` bytes differ by
+    design: the reference packs its per-solve arguments into one buffer."""
+    scopes, digests = [], []
+    for pkg in PACKAGES:
+        s = torch_specs.side(pkg)
+        pools, inventory, existing, pods = torch_specs.build(s, "overflow")
+        obs = _observatory(pkg).OBSERVATORY
+        scope = obs.begin_scope()
+        try:
+            sched = s.scheduler(pools, inventory, existing=existing)
+            digests.append([torch_specs.canonical(sched.solve(pods), s.L) for _ in range(2)])
+        finally:
+            obs.end_scope(scope)
+        scopes.append(scope)
+    (ref, port), (ref_out, port_out) = scopes, digests
+    assert port_out == ref_out
+    assert sorted(port.transfer_bytes) == sorted(ref.transfer_bytes)
+    assert {"resident_seed", "pack_constants", "pack_kernel_buffered"} <= set(port.transfer_bytes)
+    assert "device_constants" not in port.transfer_bytes
+    assert port.transfer_bytes["pack_constants"] == ref.transfer_bytes["pack_constants"]
+    assert port.transfer_bytes["resident_seed"] == ref.transfer_bytes["resident_seed"]
+    # once: one upload of the padded alloc, price and openable columns
+    from karpenter_tpu_torch.ops import packer as P
+
+    assert len(P._DEV_CONST_CACHE) >= 1
+    alloc, price, openable = next(reversed(P._DEV_CONST_CACHE.values()))[1]
+    once = sum(t.numel() * t.element_size() for t in (alloc, price, openable))
+    assert port.transfer_bytes["pack_constants"] == once

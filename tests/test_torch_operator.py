@@ -2,25 +2,25 @@
 
 Each scenario builds the JAX package's ``karpenter_tpu.testing.Environment``
 (on the CPU, as tier-1 runs it) and the port's ``Environment(device="cpu")``
-over the same shapes and zones, with the admission fast path and the
-pipelined schedule off and NodePools whose ``consolidate_after`` outlasts
-the run, then feeds both the same seeded arrivals (numpy
+over the same shapes and zones, with the admission fast path at its default
+(on), the pipelined schedule off and NodePools whose ``consolidate_after``
+outlasts the run, then feeds both the same seeded arrivals (numpy
 ``default_rng(seed)``).  After EVERY ``env.step`` the two must agree on:
 the NodeClaims, the Nodes, each pod's binding and nomination, every fake
-cloud API call in order, the event ledger's stream, the compile-cache and
-resident counters in the registry, and the device observatory's resident
-updates by kind, its set of transfer sites and its ``resident_seed`` bytes.
+cloud API call in order, the event ledger's stream, the compile-cache,
+resident and admission fast-path counters in the registry, and the device
+observatory's resident updates by kind, its set of transfer sites and its
+``resident_seed`` bytes.
 
-The reference operator also has controllers the port does not have yet
-(disruption, interruption, metrics_state, consistency: ROADMAP §A).  The
-comparison covers the ported controllers only:
+The reference operator also has a controller the port does not have yet
+(disruption: ROADMAP §A).  The comparison covers the ported controllers
+only:
 
-- the reference's tick skips those controllers (its ``_reconcile`` hook
-  passes over them).  They cannot run and be filtered out afterwards: the
-  disruption controller's drift checks describe instances and subnets, and
-  a subnet read refreshes the TTL cache the ported controllers read too,
-  which moves the next DescribeSubnets call out of the ported controllers'
-  stream;
+- the reference's tick skips it (its ``_reconcile`` hook passes over it).
+  It cannot run and be filtered out afterwards: its drift checks describe
+  instances and subnets, and a subnet read refreshes the TTL cache the
+  ported controllers read too, which moves the next DescribeSubnets call
+  out of the ported controllers' stream;
 - after the last tick the reference's disruption controller reconciles
   once on the final cluster and must take no action, so the pools'
   ``consolidate_after`` keeps every scenario free of disruption;
@@ -33,9 +33,10 @@ Transfer bytes are held equal at ``resident_seed`` only.  The other sites
 differ in bytes by design: the port uploads a delta's payload as three
 packed arrays (``resident_delta``) where the reference hands the scatter
 step its index and payload arrays one by one, and a cold pack uploads its
-arguments as they are (``pack_kernel_buffered``, ``device_constants``)
-where the reference packs them into one buffer and caches the catalog
-constants on the device.
+per-solve arguments as they are (``pack_kernel_buffered``) where the
+reference packs them into one buffer.  Both cache a cold pack's catalog
+columns on the device and upload them once a catalog at
+``pack_constants``.
 """
 
 import importlib
@@ -46,7 +47,7 @@ import pytest
 from karpenter_tpu_torch.testing import operator_state
 
 PACKAGES = ("karpenter_tpu", "karpenter_tpu_torch")
-LEFT_OUT_CONTROLLERS = ("disruption", "interruption", "metrics_state", "consistency")
+LEFT_OUT_CONTROLLERS = ("disruption",)
 FILTERED_EVENTS = ("AnomalyDetected", "DeviceRecompile")
 TICK_S = 2.0
 SMALL_SHAPES = dict(generations=(1, 2), cpus=(1, 2, 4, 8, 16, 32))
@@ -61,7 +62,7 @@ SIZES = ((0.25, "512Mi"), (0.5, "1Gi"), (1, "2Gi"), (2, "4Gi"), (0.75, "3Gi"))
 class Side:
     """One package's operator environment and its accounting."""
 
-    def __init__(self, pkg: str, shapes_kw: dict, pools: tuple):
+    def __init__(self, pkg: str, shapes_kw: dict, pools: tuple, **settings_kw):
         self.pkg = pkg
         a = self.api = importlib.import_module(f"{pkg}.api")
         objects = importlib.import_module(f"{pkg}.api.objects")
@@ -71,9 +72,7 @@ class Side:
         self.obs = importlib.import_module(f"{pkg}.obs.device").OBSERVATORY
         objects.reset_name_sequences()
         settings = a.Settings(
-            cluster_name="test",
-            enable_admission_fastpath=False,
-            enable_pipelined_reconcile=False,
+            cluster_name="test", enable_pipelined_reconcile=False, **settings_kw
         )
         kw = {"device": "cpu"} if pkg == "karpenter_tpu_torch" else {}
         self.env = env = testing.Environment(
@@ -138,8 +137,8 @@ class Side:
         return st
 
 
-def _twin(shapes_kw, pools=(("default", False),)):
-    return [Side(pkg, shapes_kw, pools) for pkg in PACKAGES]
+def _twin(shapes_kw, pools=(("default", False),), **settings_kw):
+    return [Side(pkg, shapes_kw, pools, **settings_kw) for pkg in PACKAGES]
 
 
 def _step_and_compare(sides, tick: int) -> dict:
@@ -281,9 +280,116 @@ def test_insufficient_capacity_on_one_launch():
     assert all(p[1] for p in st["pods"]), "every pod bound"
 
 
-def test_operator_refuses_the_fast_path():
-    """The admission fast path is not ported (ROADMAP A4): asking for it is
-    an error that names the item, never a setting switched off quietly."""
+def _fastpath(st: dict, outcome: str) -> float:
+    return dict(st["counters"]["karpenter_admission_fastpath_total"]).get(
+        (("outcome", outcome),), 0.0)
+
+
+def test_single_pod_trickle_through_the_fast_path():
+    """A seed batch, then one fresh pod a tick (the shape of the reference's
+    ``single-pod-trickle``): most arrivals are nominated onto live nodes by
+    the fast path, a pod too large for any live node falls back to the
+    batched solve, and the mismatch counter stays 0."""
+    rng = np.random.default_rng(41)
+    seed = [(2.5, "2Gi", {}, False)] * 12
+    trickle = [[_spec(rng)] for _ in range(10)] + [[(20, "8Gi", {}, False)]]
+    trickle += [[_spec(rng)] for _ in range(4)] + [[] for _ in range(4)]
+    sides = _twin(SMALL_SHAPES, provision_fastpath_bypass=True)
+    for sd in sides:
+        sd.add(seed)
+    for tick in range(3):
+        st = _step_and_compare(sides, tick)
+    for i, specs in enumerate(trickle):
+        for sd in sides:
+            sd.add(specs)
+        st = _step_and_compare(sides, 3 + i)
+    _finish(sides)
+    assert _fastpath(st, "nominated") >= 8, st["counters"]
+    assert _fastpath(st, "fallback") >= 1
+    assert not st["counters"]["karpenter_admission_fastpath_mismatch_total"]
+    assert all(p[1] for p in st["pods"]), "every pod bound"
+
+
+def test_interruption_queue_drains_interrupted_nodes():
+    """An interruption queue receives a spot interruption and a rebalance
+    recommendation for two live nodes: both operators register their
+    interruption controller, drain and replace the two nodes alike, and
+    put the spot offering in the unavailable-offerings cache."""
+    rng = np.random.default_rng(53)
+    specs = [_spec(rng) for _ in range(20)] + [(2, "4Gi", {}, False)] * 40  # 3+ nodes
+    sides = _twin(SMALL_SHAPES, interruption_queue_name="q")
+    for sd in sides:
+        assert sd.env.operator.interruption is not None
+        sd.add(specs)
+    tick = 0
+    for tick in range(4):
+        st = _step_and_compare(sides, tick)
+    claims = sorted(c[0] for c in st["claims"])
+    assert len(claims) >= 2
+    hit = []
+    for sd in sides:
+        spot, rebalance = (sd.env.kube.node_claims[name] for name in claims[:2])
+        sd.env.cloud.send_message({"kind": "spot_interruption", "instance_id": spot.provider_id})
+        sd.env.cloud.send_message({"kind": "rebalance_recommendation",
+                                   "instance_id": rebalance.provider_id})
+        hit.append((spot.capacity_type, spot.instance_type_name, spot.zone))
+    for i in range(8):
+        st = _step_and_compare(sides, tick + 1 + i)
+    _finish(sides)
+    assert not {c[0] for c in st["claims"]} & set(claims[:2])
+    assert all(p[1] for p in st["pods"]), "every pod bound"
+    for sd, (_ct, itype, zone) in zip(sides, hit):
+        reg = sd.env.registry
+        for kind in ("spot_interruption", "rebalance_recommendation"):
+            assert reg.counter("karpenter_interruption_received_messages",
+                               {"message_type": kind}) == 1, (sd.pkg, kind)
+        assert sd.env.unavailable.is_unavailable("spot", itype, zone), sd.pkg
+
+
+def test_fast_path_on_and_off_place_alike():
+    """The port's operator runs the admission fast path (the default
+    Settings ask for it; it was refused before the path was ported): the
+    same seed batch and single-pod trickle with the fast path on and off
+    end with every pod on the same node, with nominations on the fast
+    path and no mismatch."""
+    from karpenter_tpu_torch.api import Pod, Resources, Settings
+    from karpenter_tpu_torch.api.objects import reset_name_sequences
+    from karpenter_tpu_torch.testing import Environment
+
+    def run(on: bool):
+        reset_name_sequences()
+        env = Environment(settings=Settings(cluster_name="test", enable_admission_fastpath=on,
+                                            provision_fastpath_bypass=on), device="cpu")
+        env.default_node_class()
+        env.default_node_pool()
+        for i in range(12):
+            env.kube.put_pod(Pod(name=f"seed-{i:02d}", requests=Resources(cpu=2.5, memory="2Gi")))
+        env.settle()
+        for i in range(6):
+            env.kube.put_pod(Pod(name=f"trickle-{i}", requests=Resources(cpu=0.1, memory="64Mi")))
+            env.step(TICK_S)
+        env.settle()
+        assert not env.kube.pending_pods()
+        return env, {k: p.node_name for k, p in sorted(env.kube.pods.items())}
+
+    fast, placed_fast = run(True)
+    slow, placed_slow = run(False)
+    assert placed_fast == placed_slow
+    assert fast.registry.counter("karpenter_admission_fastpath_total", {"outcome": "nominated"}) > 0
+    assert fast.registry.counter("karpenter_admission_fastpath_mismatch_total") == 0
+    assert not slow.registry.counters.get("karpenter_admission_fastpath_total")
+    assert Environment(device="cpu").operator.settings.enable_admission_fastpath
+
+
+@pytest.mark.parametrize("setting,item", [
+    (dict(enable_profiling=True, profile_dir="prof"), "A8"),
+    (dict(flight_dir="flight"), "A3c"),
+    (dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=5.0), "A3e"),
+])
+def test_operator_refuses_an_unported_setting(setting, item):
+    """A setting whose path the port does not run yet is an error naming
+    the ROADMAP item that brings it, never a setting accepted and then
+    ignored."""
     from karpenter_tpu_torch.api import Settings
     from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
     from karpenter_tpu_torch.operator import Operator
@@ -291,11 +397,9 @@ def test_operator_refuses_the_fast_path():
     from karpenter_tpu_torch.utils.clock import FakeClock
 
     cloud = FakeCloud(FakeClock(), shapes=generate_catalog(**SMALL_SHAPES)).with_default_topology()
-    settings = Settings(cluster_name="test", enable_admission_fastpath=True)
-    with pytest.raises(ValueError, match="A4"):
-        Operator(cloud, KubeStore(), settings=settings, device="cpu")
-    with pytest.raises(ValueError, match="A4"):
-        Operator(cloud, KubeStore(), device="cpu")  # the default Settings ask for it
+    with pytest.raises(ValueError, match=item):
+        Operator(cloud, KubeStore(), settings=Settings(cluster_name="test", **setting),
+                 device="cpu")
 
 
 def test_operator_runs_on_the_card_unless_asked():

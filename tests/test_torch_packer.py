@@ -288,6 +288,45 @@ def test_random_arrays_parity(seed, objective):
     _assert_arrays_parity(_random_arrays(seed), objective)
 
 
+def _inexact_arrays(seed: int):
+    """`_random_arrays` with config 2's request sizes (multiples of 0.05
+    vCPU, which binary floats hold inexactly) and counts in the hundreds,
+    so ``take * req`` rounds and the scan's ``used + take * req`` rounds
+    once fused and differently in two steps."""
+    args = list(_random_arrays(seed))
+    rng = np.random.default_rng(100 + seed)
+    G, R = args[0].shape
+    args[0] = (0.05 * rng.integers(1, 81, (G, R))).astype(np.float32)
+    args[1] = rng.integers(0, 400, G).astype(np.int32)
+    args[5] = (args[5] * 8 + np.float32(0.45)).astype(np.float32)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("seed", range(4))
+def test_inexact_request_arrays_parity(seed, objective):
+    """`node_used` bit-equal where the fused and the two-step update of
+    the scan's usage differ (XLA on a CPU with FMA fuses it)."""
+    _assert_arrays_parity(_inexact_arrays(seed), objective)
+
+
+def test_fma32_matches_the_fused_update():
+    """`fma32` rounds ``a * b + c`` once, as XLA's fused ``c + a * b``,
+    over signs, magnitudes and integer counts up to 2^24."""
+    import jax
+
+    from karpenter_tpu_torch.ops.packer import fma32
+
+    rng = np.random.default_rng(7)
+    n = 200_000
+    c = (rng.standard_normal(n) * rng.choice([1e-3, 1.0, 200.0, 1e6], n)).astype(np.float32)
+    a = rng.integers(0, 2**24, n).astype(np.float32)
+    b = (rng.standard_normal(n) * rng.choice([1e-4, 0.05, 3.0, 1e3], n)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda c, a, b: c + a * b)(c, a, b))
+    got = fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("objective", OBJECTIVES)
 def test_wrap_arrays_parity(objective):
     """Classes that request no axis meet four prefilled feasible slots with
