@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-6), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-8), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -111,7 +111,9 @@ Phases (each failure exits non-zero before the last line is printed):
 7. The operator: the port's provisioning loop through its normal entry
    point, ``testing.Environment(device="cuda")`` (the `Operator` over the
    fake cloud, a fake clock and the fake kubelet) over config 2's catalog
-   with its ``general`` and ``dedicated`` pools and a default NodeClass.
+   with its ``general`` and ``dedicated`` pools and a default NodeClass
+   (their ``consolidate_after`` outlasts the drive: the disruption
+   controller runs every tick and takes no action).
    All 10,000 of config 2's pods go into the store and the run ticks
    (``env.step``, 2 s of fake clock) until every pod is bound; then 5
    churn rounds each replace 100 bound pods by new pods of their shapes
@@ -132,9 +134,47 @@ Phases (each failure exits non-zero before the last line is printed):
    resident updates; then the p50 tick of each kind and the device busy
    share of the last churn round's solve tick, profiled (device-side
    events only).
+8. Single-pod arrivals: the same operator with the admission fast path and
+   the singleton bypass on; the 10,000 pods bound, a seeded 30 % of them
+   deleted (headroom on most nodes), then one arrival a tick: 200 single
+   pods of config 2's shapes, 10 bursts of 2-8 pods of one shape (each
+   with a quiet tick after it) and 5 pods of 100+ vCPU, interleaved so
+   that the first ``ARRIVAL_CUT`` entries hold every kind.  Fails on a
+   fast-path mismatch, on fewer than half of the singles nominated by the
+   fast path, on ``admit_kernel`` launches unequal to the scored attempts;
+   the CPU drive (in a spawned process, `CpuTwins`, beside the card's
+   drives) and the card drive with the fast path off run the first
+   ``ARRIVAL_CUT`` entries only, must show every outcome and fallback
+   reason of the card's full drive, and must equal the card's drive at
+   that tick (`testing.operator_state`; the placements).  Then
+   ``admit_kernel`` bit for bit against its plain version, its times, its
+   bound, and its latency floor: an empty one-block launch at its thread
+   count (``probe_barrier_kernel`` with no iteration, timed here) plus its
+   7 block barriers and its dependent L2 loads (3, and one a round of its
+   config loop: ceil(Cp / threads)) at the round trips
+   ``csrc/latency_probe.cu`` measures here.
+9. Consolidation through the operator: `testing.consolidating_cluster`
+   on the card (config 2's 10,000 pods bound, a seeded half deleted, the
+   pools' ``consolidate_after`` lowered to 6 s; the default Settings, so
+   the pipelined schedule brackets each tick with the disruption
+   controller's speculative stages), then ticks until disruption takes no
+   action for 3 ticks in a row with no pod pending (120 at most).  The
+   launch counters are set to 0 just before the drive and read just
+   after: ``choose_config``, a batched scan, ``verdict_summary``,
+   ``verdict_configs``, ``verdict_write`` and ``population_pairs`` must
+   have launched, ``ffd_scan_global_batched`` not; at least one action,
+   every pod bound, no reconcile error, no verdict mismatch; the ledger's
+   ``NodeDisrupted`` / ``VerdictFallback`` events in order and the final
+   `testing.operator_state` must equal the same drive on the CPU (run in
+   the spawned process too).  Prints
+   nodes and summed price before and after, actions by mechanism and
+   reason, evaluations by path, the disruption reconcile's ms, the tick
+   ms of ticks that consolidate and of those that do not, the
+   speculation's outcomes, and profiled ticks (the device busy share of
+   the first one that consolidates).
 Then it prints the kernels JSON line (every kernel, the old and the new;
-``operator_launches`` is phase 7's count), the card line, and last
-``{"ok": true, "device": {...}}``.
+``operator_launches`` is phase 7's count, ``consolidation_launches``
+phase 9's), the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,22 +246,50 @@ OPERATOR_PODS = 10_000
 TICK_S = 2.0
 MAX_BIND_TICKS = 12
 CHURN_ROUNDS, CHURN_PODS, CHURN_SEED = 5, 100, 3
-# the ported controllers, in the operator's order (interruption only runs
-# with a queue, which phases 7 and 8 do not set)
-CONTROLLERS = ("nodeclass", "provisioner", "lifecycle", "termination", "link",
-               "garbagecollection", "tagging", "metrics_state", "consistency")
-# phase 8: on the bound cluster of phase 7's first ticks, one arrival a tick:
-# single pods of config 2's shapes, bursts of 2-8 pods of one class (each
-# followed by a quiet tick), then pods larger than any live node's headroom
+# the operator's controllers, in its order (interruption only runs with a
+# queue, which phases 7-9 do not set)
+CONTROLLERS = ("nodeclass", "provisioner", "lifecycle", "disruption", "termination",
+               "link", "garbagecollection", "tagging", "metrics_state", "consistency")
+# phases 7 and 8 drive provisioning: their pools' consolidate_after outlasts
+# the drive, so the disruption controller runs each tick and takes no action
+HOLD_CONSOLIDATION_S = 1e9
+# phase 8: on the bound cluster of phase 7's first ticks with a seeded 30 %
+# of its pods deleted (headroom on most nodes), one arrival a tick: single
+# pods of config 2's shapes, bursts of 2-8 pods of one class (each followed
+# by a quiet tick), pods larger than any live node's headroom, interleaved
+# so that the first ARRIVAL_CUT entries hold every kind
 ARRIVALS, BURSTS, OVERSIZED = 200, 10, 5
 BURST_SIZES = (2, 8)
 ARRIVAL_SEED = 11
+HEADROOM_SEED, HEADROOM_SHARE = 17, 0.3
+BURST_EVERY, OVERSIZED_EVERY = 20, 40  # a burst after every 20th single, ...
+# plan entries the CPU and fast-path-off drives run: past the instance-type
+# cache's 300 s TTL (150 ticks), whose roll is one of the fast path's
+# fallback reasons
+ARRIVAL_CUT = 160
 OVERSIZED_CPU = 100.0  # vCPU: more than half the largest type, so one a node
 ADMIT_REPLACES = "karpenter_tpu/ops/packer.py:197"  # admit_kernel, jitted XLA
 ADMIT_ITERS = 200  # launches a timing reading averages
+# admit_kernel's chain: block_incl_scan (3 barriers), __syncthreads_or (1),
+# block_sum (3); dependent L2 loads: cfg0 then the slot's feasibility byte
+# and alloc row, the staged cap read back, then one round a config of a
+# thread's stride (its feasibility and openable bytes; the loop's next
+# round waits on the last one's test), ceil(Cp / threads) rounds for a
+# thread whose configs fit nothing
+ADMIT_BARRIERS, ADMIT_FIXED_LOADS = 7, 3
+# phase 9: consolidation through the operator (testing.consolidating_cluster:
+# phase 7's bound cluster, a seeded half of its pods deleted), ticks until
+# disruption takes no action for CONSOLIDATION_QUIET ticks in a row with no
+# pod pending, at most CONSOLIDATION_TICKS; profiled ticks at most
+CONSOLIDATION_QUIET, CONSOLIDATION_TICKS, PROFILED_TICKS = 3, 120, 6
+# what phase 9's drive must launch through the operator
+CONSOLIDATION_KERNELS = ("choose_config", *VERDICT_ROWS, "population_pairs")
+# the CPU drives of phases 8 and 9 run in a process of their own, beside
+# the card's drives, on this many of the host's threads
+CPU_TWIN_THREADS = 3
 
 
-LAST_PHASE = 8
+LAST_PHASE = 9
 
 
 def fail(msg: str) -> None:
@@ -230,13 +298,13 @@ def fail(msg: str) -> None:
 
 
 def parse_through(argv) -> int:
-    """The last phase to run: ``--through N`` (N = 1-7) stops after phase
+    """The last phase to run: ``--through N`` (N = 1-8) stops after phase
     N; no argument runs them all.  Anything else exits 2."""
     if not argv:
         return LAST_PHASE
-    if len(argv) == 2 and argv[0] == "--through" and argv[1] in tuple("1234567"):
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in tuple("12345678"):
         return int(argv[1])
-    print("usage: python3 chip_smoke.py [--through N]  (N = 1-7: stop after phase N)",
+    print("usage: python3 chip_smoke.py [--through N]  (N = 1-8: stop after phase N)",
           file=sys.stderr, flush=True)
     raise SystemExit(2)
 
@@ -1415,24 +1483,30 @@ def verdict_phase(torch, card):
 def operator_env(device: str, fastpath: bool = False, bypass: bool = False):
     """The port's operator environment over config 2's catalog, its
     ``general`` and tainted ``dedicated`` pools and a default NodeClass,
-    the Provisioner's solver on ``device``.  Launches go one at a time in
+    the Provisioner's solver on ``device``.  The pools' consolidate_after
+    outlasts the drive: the disruption controller runs every tick and
+    takes no action.  Its drift feature gate is off: the drift check asks
+    the cloud for every node's instance each tick, one batch window a
+    node (phase 9 runs it).  Launches go one at a time in
     claim order (the simulator's determinism knob), so a card run and a
     CPU run hand out the same instance ids.  ``fastpath`` switches on the
     admission fast path, ``bypass`` the singleton bypass (a lone fresh pod
     goes to the batched solve at once instead of waiting out the batch
     window)."""
     from karpenter_tpu_torch import testing as T
-    from karpenter_tpu_torch.api import Settings, reset_name_sequences
+    from karpenter_tpu_torch.api import Disruption, Settings, reset_name_sequences
     from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
 
     reset_name_sequences()
     settings = Settings(cluster_name="chip-smoke", enable_admission_fastpath=fastpath,
-                        provision_fastpath_bypass=bypass, enable_pipelined_reconcile=False)
+                        provision_fastpath_bypass=bypass, enable_pipelined_reconcile=False,
+                        feature_gate_drift=False)
     env = T.Environment(shapes=generate_catalog(**T.CONFIG2_CATALOG), settings=settings,
                         device=device)
     env.default_node_class()
-    env.default_node_pool(name="general")
-    env.default_node_pool(name="dedicated", taints=[T.DEDICATED_TAINT])
+    hold = lambda: Disruption(consolidate_after=HOLD_CONSOLIDATION_S)
+    env.default_node_pool(name="general", disruption=hold())
+    env.default_node_pool(name="dedicated", taints=[T.DEDICATED_TAINT], disruption=hold())
     env.operator.provisioner.launch_concurrency = 1
     return env
 
@@ -1699,24 +1773,70 @@ def fastpath_counts(reg) -> dict:
                                              {}).values())}
 
 
-def drive_arrivals(device: str, fastpath: bool = True, n_pods: int = OPERATOR_PODS,
-                   arrivals: int = ARRIVALS, bursts: int = BURSTS, oversized: int = OVERSIZED,
-                   launches=None):
-    """Phase 8's drive on ``device``: config 2's first ``n_pods`` pods into
-    the store and ticks until every pod is bound (phase 7's start), then
-    one arrival a tick of `TICK_S` of fake clock: ``arrivals`` single pods
-    of the shapes of pods drawn from that batch (seed `ARRIVAL_SEED`),
-    ``bursts`` bursts of 2-8 pods of one drawn shape (each followed by a
-    quiet tick, so a burst the batched path waits a window for is placed
-    before the next arrives), then ``oversized`` pods of `OVERSIZED_CPU`
-    vCPU or more, past every live node's headroom.  The singleton bypass
-    is on, the fast path as ``fastpath`` says.  Every tick's line carries
-    its arrival kind and the fast-path outcomes it counted.  Returns (env,
-    tick summaries)."""
+def arrival_plan(pods, live_headroom, arrivals: int = ARRIVALS, bursts: int = BURSTS,
+                 oversized: int = OVERSIZED):
+    """Phase 8's arrivals, one entry a tick: ``(kind, pods)``.
+    ``arrivals`` single pods of the shapes of pods drawn from ``pods``
+    (seed `ARRIVAL_SEED`); after every `BURST_EVERY`-th single a burst of
+    2-8 pods of one drawn shape and a quiet tick (a burst the batched path
+    waits a window for is placed before the next arrives), ``bursts`` in
+    all; after every `OVERSIZED_EVERY`-th single a pod of `OVERSIZED_CPU`
+    vCPU or more, past every live node's headroom (``live_headroom()``
+    reads it when the entry comes, and its entry is a callable that makes
+    the pod), ``oversized`` in all; the ones left over go at the end."""
     import random
 
-    from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.api import Pod, Resources
+
+    def shaped(name, tpl):
+        return Pod(name=name, requests=tpl.requests, node_selector=dict(tpl.node_selector),
+                   tolerations=list(tpl.tolerations))
+
+    def big(o):
+        def make():
+            cpu = max(OVERSIZED_CPU, float(int(live_headroom())) + 1.0)
+            return [Pod(name=f"oversized-{o}", requests=Resources(cpu=cpu, memory="4Gi"))]
+        return ("oversized", make)
+
+    rng = random.Random(ARRIVAL_SEED)
+    singles = [shaped(f"arrival-{i:03d}", rng.choice(pods)) for i in range(arrivals)]
+    queued = []
+    for b in range(bursts):
+        tpl, n = rng.choice(pods), rng.randint(*BURST_SIZES)
+        queued.append([shaped(f"burst-{b:02d}-{j}", tpl) for j in range(n)])
+    plan, o = [], 0
+    for i, pod in enumerate(singles):
+        plan.append(("single", [pod]))
+        if (i + 1) % BURST_EVERY == 0 and queued:
+            plan += [("burst", queued.pop(0)), ("quiet", [])]
+        if (i + 1) % OVERSIZED_EVERY == 0 and o < oversized:
+            plan.append(big(o))
+            o += 1
+    for b in queued:
+        plan += [("burst", b), ("quiet", [])]
+    plan += [big(k) for k in range(o, oversized)]
+    return plan
+
+
+def drive_arrivals(device: str, fastpath: bool = True, n_pods: int = OPERATOR_PODS,
+                   arrivals: int = ARRIVALS, bursts: int = BURSTS, oversized: int = OVERSIZED,
+                   cut: int = 0, stop_at_cut: bool = False, launches=None, at_cut=None):
+    """Phase 8's drive on ``device``: config 2's first ``n_pods`` pods into
+    the store and ticks until every pod is bound (phase 7's start), then a
+    seeded `HEADROOM_SHARE` of the bound pods deleted (numpy
+    ``default_rng(HEADROOM_SEED)``, uniformly over pods, so that most
+    arrivals fit a live node), then `arrival_plan`'s entries (``arrivals``
+    singles, ``bursts`` bursts, ``oversized`` oversized pods), one a tick
+    of `TICK_S` of fake clock, and up to three ticks while arrivals are
+    pending.  ``at_cut(env)`` runs after the tick of entry ``cut``; with
+    ``stop_at_cut`` the drive ends there, so that its state compares with
+    a full drive's at that tick.  The singleton bypass is on, the fast
+    path as ``fastpath`` says.  Every tick's line carries its arrival
+    kind and the fast-path outcomes it counted.  Returns (env, tick
+    summaries)."""
+    import numpy as np
+
+    from karpenter_tpu_torch import testing as T
 
     env = operator_env(device, fastpath=fastpath, bypass=True)
     pods = T.heterogeneous_pods(n_pods)
@@ -1738,28 +1858,22 @@ def drive_arrivals(device: str, fastpath: bool = True, n_pods: int = OPERATOR_PO
             break
     if env.kube.pending_pods():
         fail(f"phase 8 ({device}): {len(env.kube.pending_pods())} pods unbound")
-
-    def shaped(name, tpl):
-        return Pod(name=name, requests=tpl.requests, node_selector=dict(tpl.node_selector),
-                   tolerations=list(tpl.tolerations))
-
-    rng = random.Random(ARRIVAL_SEED)
-    plan = [("single", [shaped(f"arrival-{i:03d}", rng.choice(pods))]) for i in range(arrivals)]
-    for b in range(bursts):
-        tpl, n = rng.choice(pods), rng.randint(*BURST_SIZES)
-        plan += [("burst", [shaped(f"burst-{b:02d}-{j}", tpl) for j in range(n)]), ("quiet", [])]
-    plan += [("oversized", None)] * oversized
-    for o, (kind, new) in enumerate(plan):
-        if new is None:
-            cpu = max(OVERSIZED_CPU, float(int(live_headroom_cpu(env))) + 1.0)
-            new = [Pod(name=f"oversized-{o}", requests=Resources(cpu=cpu, memory="4Gi"))]
-        for p in new:
+    bound = sorted(k for k, p in env.kube.pods.items() if p.node_name)
+    rng = np.random.default_rng(HEADROOM_SEED)
+    for i in sorted(rng.choice(len(bound), size=int(len(bound) * HEADROOM_SHARE),
+                               replace=False)):
+        env.kube.delete_pod(bound[i])
+    plan = arrival_plan(pods, lambda: live_headroom_cpu(env), arrivals, bursts, oversized)
+    for n, (kind, new) in enumerate(plan[:cut] if stop_at_cut else plan):
+        for p in new() if callable(new) else new:
             env.kube.put_pod(p)
         run_tick(kind)
-    for _ in range(3):
+        if n + 1 == cut and at_cut is not None:
+            at_cut(env)
+    for _ in range(0 if stop_at_cut else 3):
         if env.kube.pending_pods():
             run_tick("settle")
-    if env.kube.pending_pods():
+    if env.kube.pending_pods() and not stop_at_cut:
         fail(f"phase 8 ({device}): {len(env.kube.pending_pods())} arrivals unbound")
     errors = env.registry.counters.get("karpenter_controller_reconcile_errors_total", {})
     if errors:
@@ -1856,18 +1970,27 @@ def time_admit(torch, name, args, g: int, card) -> dict:
     return out
 
 
-def arrivals_phase(torch, card, live_args):
+def arrivals_phase(torch, card, live_args, twins):
     """Phase 8 as the module docstring lists it.  ``live_args``: phase 5's
-    live cluster's pack arguments on the card.  Returns the kernels-line
-    figures of ``admit_kernel``."""
+    live cluster's pack arguments on the card; ``twins``: the `CpuTwins`
+    that runs the CPU drive.  Returns the kernels-line figures of
+    ``admit_kernel``."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
+    at_cut = {}
+
+    def snapshot(env):
+        at_cut["state"] = T.operator_state(env)
+        at_cut["placed"] = placed(env)
+        at_cut["outcomes"] = fastpath_outcomes(env.registry)
+
     F.reset_launches()
     t0 = time.perf_counter()
     with AdmitTimer() as timer:
-        env, ticks = drive_arrivals("cuda", launches=F.LAUNCHES)
+        env, ticks = drive_arrivals("cuda", cut=ARRIVAL_CUT, launches=F.LAUNCHES,
+                                    at_cut=snapshot)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
     card_s = time.perf_counter() - t0
@@ -1879,8 +2002,12 @@ def arrivals_phase(torch, card, live_args):
             print("  tick " + json.dumps(t))
     if counts["mismatch"] or counts["outcome"].get("mismatch"):
         fail(f"phase 8: the fast path counted a mismatch {counts}")
-    if not counts["outcome"].get("nominated"):
-        fail("phase 8: the fast path nominated nothing")
+    singles = [t for t in ticks if t["arrival"] == "single"]
+    nominated_singles = sum(1 for t in singles if t["fastpath"].get("nominated"))
+    print(f"  single arrivals nominated by the fast path: {nominated_singles} of {len(singles)}")
+    if 2 * nominated_singles < len(singles):
+        fail(f"phase 8: the fast path nominated {nominated_singles} of {len(singles)} "
+             f"single arrivals, fewer than half")
     dispatched = sum(1 for c in timer.calls if "dispatch" in c["phases_ms"])
     if launches["admit_kernel"] != dispatched or not dispatched:
         fail(f"phase 8: {launches['admit_kernel']} admit_kernel launches on the card for "
@@ -1910,27 +2037,43 @@ def arrivals_phase(torch, card, live_args):
     print(f"  tick ms by arrival and admission ({card}): "
           + json.dumps({k: percentiles(v) for k, v in sorted(by_kind.items())}), flush=True)
 
-    t0 = time.perf_counter()
-    cpu_env, _ = drive_arrivals("cpu")
-    print(f"  the same drive on the CPU (plain version) in {time.perf_counter() - t0!r} s",
-          flush=True)
-    card_state, cpu_state = T.operator_state(env), T.operator_state(cpu_env)
+    # the CPU and fast-path-off drives run the plan's first ARRIVAL_CUT
+    # entries: they must show every outcome and reason the card's full
+    # drive shows, and equal the card's drive at that tick
+    if not at_cut:
+        fail(f"phase 8: the card's drive never reached entry {ARRIVAL_CUT}")
+    full = fastpath_outcomes(env.registry)
+    if not full <= at_cut["outcomes"]:
+        fail(f"phase 8: the first {ARRIVAL_CUT} entries miss the outcomes "
+             f"{sorted(full - at_cut['outcomes'])} of the card's drive")
+    cpu = twins.get("arrivals")
+    print(f"  the same drive on the CPU (plain version), cut to the first {ARRIVAL_CUT} "
+          f"entries ({cpu['ticks']} ticks), in {cpu['seconds']!r} s (beside the card's drives, "
+          f"in a process of its own)", flush=True)
+    card_state, cpu_state = at_cut["state"], cpu["state"]
     for key in card_state:
         if card_state[key] != cpu_state[key]:
-            fail(f"phase 8: the card's {key} differ from the CPU operator's")
-    print(f"  the card's state equals the CPU drive's ({sum(card_state['event_counts'].values())} "
-          f"events; fast-path counters {card_state['counters']['karpenter_admission_fastpath_total']})")
+            fail(f"phase 8: the card's {key} differ from the CPU operator's at tick "
+                 f"{cpu['ticks']}")
+    if cpu["outcomes"] != at_cut["outcomes"]:
+        fail("phase 8: the CPU drive's outcomes differ from the card's")
+    print(f"  the card's state at tick {cpu['ticks']} equals the CPU drive's "
+          f"({sum(card_state['event_counts'].values())} events; outcomes and reasons "
+          f"{sorted(at_cut['outcomes'])}, every one of the full drive's; fast-path counters "
+          f"{card_state['counters']['karpenter_admission_fastpath_total']})")
     t0 = time.perf_counter()
-    off_env, off_ticks = drive_arrivals("cuda", fastpath=False)
-    placed = lambda e: {k: p.node_name for k, p in sorted(e.kube.pods.items())}
-    if placed(off_env) != placed(env):
-        fail("phase 8: the placements differ from the same drive with the fast path off")
+    off_env, off_ticks = drive_arrivals("cuda", fastpath=False, cut=ARRIVAL_CUT,
+                                        stop_at_cut=True)
+    if placed(off_env) != at_cut["placed"]:
+        fail(f"phase 8: the placements at tick {len(off_ticks)} differ from the same drive "
+             f"with the fast path off")
     off_kind = {}
     for t in off_ticks:
         if t["arrival"] != "batch":
             off_kind.setdefault(f"{t['arrival']}:{t['solve'] or 'none'}", []).append(t["tick_ms"])
-    print(f"  the same drive on the card with the fast path off in {time.perf_counter() - t0!r} s: "
-          f"every pod on the same node; tick ms by arrival and solve ({card}): "
+    print(f"  the same drive on the card with the fast path off, cut to the first "
+          f"{ARRIVAL_CUT} entries, in {time.perf_counter() - t0!r} s: every pod on the same "
+          f"node; tick ms by arrival and solve ({card}): "
           + json.dumps({k: percentiles(v) for k, v in sorted(off_kind.items())}), flush=True)
 
     # the kernel: bit-equality and times at the main path's shapes
@@ -1943,7 +2086,306 @@ def arrivals_phase(torch, card, live_args):
                                      admit_args(P.to_device(T.wrap_arrays(k), torch.device("cuda")))))
     row = time_admit(torch, "phase 8's resident state", state_args, 0, card)
     time_admit(torch, "the live cluster", live, 0, card)
-    return dict(row, launches=launches["admit_kernel"], err=err)
+    floor = admit_floor(torch, state_args, row["ms"], card)
+    return dict(row, launches=launches["admit_kernel"], err=err, **floor)
+
+
+def placed(env) -> dict:
+    """Every pod's node (empty while pending)."""
+    return {k: p.node_name for k, p in sorted(env.kube.pods.items())}
+
+
+def fastpath_outcomes(reg) -> set:
+    """The fast path's outcomes and fallback reasons a drive has shown."""
+    counts = fastpath_counts(reg)
+    return ({f"outcome:{k}" for k, v in counts["outcome"].items() if v}
+            | {f"reason:{k}" for k, v in counts["reason"].items() if v})
+
+
+def empty_launch_ms(torch, threads: int, iters: int) -> float:
+    """Device ms of a launch of one block of ``threads`` threads that
+    passes no barrier and stores one word a thread
+    (``probe_barrier_kernel`` with 0 iterations, csrc/latency_probe.cu),
+    from torch.profiler: what any one-block launch costs."""
+    import ctypes
+
+    from karpenter_tpu_torch.ops import _build
+
+    lib = _build.load("latency_probe")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probe_barrier.argtypes, lib.probe_barrier.restype = [I, I, P, P], I
+    out = torch.empty(1024, dtype=torch.int32, device="cuda")
+
+    def launch():
+        if lib.probe_barrier(threads, 0, out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream) != 0:
+            fail("the empty probe launch failed")
+
+    return profiled_ms(torch, launch, "probe_barrier", iters=iters)
+
+
+def admit_floor(torch, args, kernel_ms: float, card) -> dict:
+    """``admit_kernel``'s latency floor at ``args``' shapes: an empty
+    one-block launch at its thread count, plus its `ADMIT_BARRIERS` block
+    barriers at that thread count and its dependent L2 loads
+    (`ADMIT_FIXED_LOADS` and one a config round, ceil(Cp / threads)),
+    each at the round trip csrc/latency_probe.cu measures here."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    K, C = args[5].shape[0], args[3].shape[0]
+    threads = F.scan_threads(K)
+    loads = ADMIT_FIXED_LOADS + -(-C // threads)
+    barrier_us, _, l2_us = probe_latencies(torch, [threads], [])
+    empty = empty_launch_ms(torch, threads, ADMIT_ITERS)
+    floor = empty + (ADMIT_BARRIERS * barrier_us[threads] + loads * l2_us) / 1e3
+    print(f"  admit_kernel latency floor at Kp {K}, Cp {C} ({threads} threads, {card}): empty "
+          f"one-block launch {empty!r} ms (profiler) + {ADMIT_BARRIERS} barriers x "
+          f"{barrier_us[threads]!r} us + {loads} L2 loads x {l2_us!r} us = {floor!r} ms; "
+          f"kernel / floor {kernel_ms / floor!r}, kernel / empty launch {kernel_ms / empty!r}",
+          flush=True)
+    return {"latency_floor_ms": floor, "empty_launch_ms": empty}
+
+
+def cpu_twin_drives(phases, conn) -> None:
+    """The CPU drives phases 8 and 9 are held to, in a process of their own
+    (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries and phase
+    9's drive, each sent back through ``conn`` as ``(name, readings)``, or
+    ``("error", text)``."""
+    import traceback
+
+    import torch
+
+    from karpenter_tpu_torch import testing as T
+
+    torch.set_num_threads(CPU_TWIN_THREADS)
+    try:
+        if 8 in phases:
+            t0 = time.perf_counter()
+            env, ticks = drive_arrivals("cpu", cut=ARRIVAL_CUT, stop_at_cut=True)
+            conn.send(("arrivals", {"state": T.operator_state(env), "ticks": len(ticks),
+                                    "outcomes": fastpath_outcomes(env.registry),
+                                    "seconds": time.perf_counter() - t0}))
+        if 9 in phases:
+            t0 = time.perf_counter()
+            env, _before, ticks, events, _ = drive_consolidation("cpu")
+            conn.send(("consolidation", {"state": T.operator_state(env), "ticks": len(ticks),
+                                         "events": events,
+                                         "seconds": time.perf_counter() - t0}))
+    except SystemExit as exc:
+        conn.send(("error", f"exit {exc.code}"))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class CpuTwins:
+    """`cpu_twin_drives` for ``phases`` in a spawned process, started at
+    once so that it runs beside the card's drives; `get` waits for one
+    drive's readings, `close` ends the process."""
+
+    def __init__(self, phases):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=cpu_twin_drives, args=(tuple(phases), child),
+                                 daemon=True)
+        self._proc.start()
+        child.close()
+        self._got = {}
+
+    def get(self, name: str) -> dict:
+        while name not in self._got:
+            try:
+                key, value = self._conn.recv()
+            except EOFError:
+                fail(f"the CPU drives' process ended before sending {name}")
+            if key == "error":
+                fail(f"the CPU drives' process failed: {value}")
+            self._got[key] = value
+        return self._got[name]
+
+    def close(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: consolidation through the operator
+# ---------------------------------------------------------------------------
+
+
+def live_fleet(env) -> dict:
+    """The live NodeClaims (not marked for deletion): count and summed price."""
+    live = [c for c in env.kube.node_claims.values() if c.deleted_at is None]
+    return {"nodes": len(live), "price": sum(c.price for c in live)}
+
+
+def counter_sum(reg, name: str) -> float:
+    return sum(reg.counters.get(name, {}).values())
+
+
+def counter_by(reg, name: str, label: str) -> dict:
+    """A counter's values summed by one label."""
+    out = {}
+    for k, v in reg.counters.get(name, {}).items():
+        key = dict(k).get(label, "")
+        out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def drive_consolidation(device: str, n_pods: int = OPERATOR_PODS, launches=None,
+                        profile_tick=None):
+    """Phase 9's drive on ``device``: `testing.consolidating_cluster` (config
+    2's first ``n_pods`` pods bound, a seeded half deleted, consolidate_after lowered
+    to a few ticks; the default Settings, so the pipelined schedule is on),
+    then ticks of `TICK_S` until the disruption controller takes no action
+    for `CONSOLIDATION_QUIET` ticks in a row with no pod pending, or
+    `CONSOLIDATION_TICKS` ticks.  ``profile_tick(run_tick)`` runs a tick
+    under the profiler and returns what it saw; it is asked for each tick
+    until a profiled tick consolidates, at most `PROFILED_TICKS` times.
+    Each tick's line carries its disruption actions, its speculation
+    outcomes and the ledger's ``NodeDisrupted`` / ``VerdictFallback``
+    events.  Returns (env, the fleet before, tick summaries, the events in
+    order, the profiled ticks)."""
+    from karpenter_tpu_torch import testing as T
+
+    env = T.consolidating_cluster(device, n_pods=n_pods)
+    reg = env.registry
+    before = live_fleet(env)
+    ticks, events, profiled = [], [], []
+    seen = [max((ev.seq for ev in env.operator.ledger.recent(limit=1 << 30)), default=0)]
+
+    def run_tick():
+        actions0 = counter_sum(reg, "karpenter_deprovisioning_actions")
+        spec0 = counter_by(reg, "karpenter_pipeline_speculation_total", "outcome")
+        t = operator_tick(env, len(ticks) + 1, launches)
+        t["actions"] = counter_sum(reg, "karpenter_deprovisioning_actions") - actions0
+        spec = counter_by(reg, "karpenter_pipeline_speculation_total", "outcome")
+        t["speculation"] = {k: v - spec0.get(k, 0) for k, v in spec.items() if v != spec0.get(k, 0)}
+        new = [ev for ev in env.operator.ledger.recent(limit=1 << 30) if ev.seq > seen[0]]
+        if new:
+            seen[0] = new[-1].seq
+        mine = [(ev.ts, ev.type, sorted(ev.attrs.items())) for ev in new
+                if ev.type in T.DISRUPTION_EVENTS]
+        t["disrupted"] = sum(1 for e in mine if e[1] == "NodeDisrupted")
+        t["fallbacks"] = sum(1 for e in mine if e[1] == "VerdictFallback")
+        t["pending"] = len(env.kube.pending_pods())
+        events.extend(mine)
+        ticks.append(t)
+
+    quiet = 0
+    for _ in range(CONSOLIDATION_TICKS):
+        if (profile_tick is not None and len(profiled) < PROFILED_TICKS
+                and not any(p["actions"] for p in profiled)):
+            prof = profile_tick(run_tick) or {}
+            profiled.append(dict(prof, tick=len(ticks), actions=ticks[-1]["actions"]))
+        else:
+            run_tick()
+        quiet = 0 if ticks[-1]["actions"] else quiet + 1
+        if quiet >= CONSOLIDATION_QUIET and not env.kube.pending_pods():
+            break
+    if env.kube.pending_pods():
+        fail(f"phase 9 ({device}): {len(env.kube.pending_pods())} pods unbound after "
+             f"{len(ticks)} ticks")
+    errors = reg.counters.get("karpenter_controller_reconcile_errors_total", {})
+    if errors:
+        fail(f"phase 9 ({device}): controller reconcile errors {dict(errors)}")
+    return env, before, ticks, events, profiled
+
+
+def consolidation_phase(torch, card, twins) -> dict:
+    """Phase 9 as the module docstring lists it; ``twins``: the `CpuTwins`
+    that runs the CPU drive.  Returns the launch counts of the card's
+    drive."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    def profiled_tick(run_tick):
+        torch.cuda.synchronize()
+        return profile_solve(torch, lambda _: run_tick(), None)
+
+    F.reset_launches()
+    t0 = time.perf_counter()
+    env, before, ticks, events, profiled = drive_consolidation(
+        "cuda", launches=F.LAUNCHES, profile_tick=profiled_tick)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    card_s = time.perf_counter() - t0
+    reg = env.registry
+    after = live_fleet(env)
+    for t in ticks:
+        if t["actions"] or t["tick"] <= 3 or t["fallbacks"]:
+            print("  tick " + json.dumps(t))
+    actions = counter_by(reg, "karpenter_deprovisioning_actions", "mechanism")
+    reasons = {}
+    for _ts, kind, attrs in events:
+        if kind == "NodeDisrupted":
+            r = dict(attrs).get("reason", "")
+            reasons[r] = reasons.get(r, 0) + 1
+    evals = counter_by(reg, "karpenter_consolidation_evals_total", "path")
+    spec = counter_by(reg, "karpenter_pipeline_speculation_total", "outcome")
+    disruption_ms = [t["controllers_ms"]["disruption"] for t in ticks]
+    acting = [t["tick_ms"] for t in ticks if t["actions"]]
+    idle = [t["tick_ms"] for t in ticks if not t["actions"]]
+    print(f"  {len(ticks)} ticks in {card_s!r} s ({card}; the 10,000-pod bind and the deletions "
+          f"before them not counted, the tick lines above in ms on the same card); launches "
+          f"over the drive "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    print(f"  nodes {before['nodes']} -> {after['nodes']}, summed node price "
+          f"{before['price']!r} -> {after['price']!r} per hour")
+    print(f"  actions by mechanism {json.dumps(actions)}; NodeDisrupted by reason "
+          f"{json.dumps(reasons)}; VerdictFallback events "
+          f"{sum(1 for e in events if e[1] == 'VerdictFallback')}")
+    print(f"  karpenter_consolidation_evals_total by path {json.dumps(evals)}; search winners "
+          f"{json.dumps(counter_by(reg, 'karpenter_consolidation_search_winners_total', 'action'))}")
+    print(f"  disruption reconcile ms ({card}): {json.dumps(percentiles(disruption_ms))}; "
+          f"tick ms of the ticks that consolidate {json.dumps(percentiles(acting))}, of those "
+          f"that do not {json.dumps(percentiles(idle))}")
+    print(f"  speculation outcomes (pipelined schedule): {json.dumps(spec)}")
+    for p in profiled:
+        print(f"  profiled tick {p['tick']} (torch.profiler, {card}, {p['actions']} actions): "
+              + json.dumps({k: v for k, v in p.items() if k not in ("tick", "actions")}))
+    if not any(p.get("actions") and p.get("device_busy_share") is not None for p in profiled):
+        fail("phase 9: no profiled tick consolidated with device time seen")
+    mismatch = counter_sum(reg, "karpenter_consolidation_verdict_mismatch_total")
+    if not sum(actions.values()):
+        fail("phase 9: the drive took no consolidation action")
+    if mismatch:
+        fail(f"phase 9: {mismatch} verdict mismatches")
+    for k in CONSOLIDATION_KERNELS:
+        if not launches[k]:
+            fail(f"phase 9: {k} never launched through the operator")
+    batched = {k: launches[k] for k in ("ffd_scan_batched", "ffd_scan_cluster_batched")}
+    if not sum(batched.values()):
+        fail(f"phase 9: no batched scan launched through the operator {batched}")
+    if launches["ffd_scan_global_batched"]:
+        fail(f"phase 9: ffd_scan_global_batched launched {launches['ffd_scan_global_batched']} "
+             f"times")
+    cache = list(env.operator.disruption._scheduler._removal_cache.values())
+    base = cache[-1] if cache else None
+    if base is not None and base[0].args:
+        picked = F.scan_kernel(*pack_shapes(base[0].args))
+        print(f"  the last removal base (Kp {base[0].kp}, Gp {base[0].gp}) picks {picked}: its "
+              f"batched form launched {batched}")
+    cpu = twins.get("consolidation")
+    print(f"  the same drive on the CPU (plain versions): {cpu['ticks']} ticks in "
+          f"{cpu['seconds']!r} s (beside the card's drives, in a process of its own)", flush=True)
+    if cpu["ticks"] != len(ticks):
+        fail(f"phase 9: the CPU drive ran {cpu['ticks']} ticks, the card's {len(ticks)}")
+    if cpu["events"] != events:
+        fail("phase 9: the ledger's NodeDisrupted / VerdictFallback events differ from the "
+             "CPU drive's")
+    card_state, cpu_state = T.operator_state(env), cpu["state"]
+    for key in card_state:
+        if card_state[key] != cpu_state[key]:
+            fail(f"phase 9: the card's {key} differ from the CPU operator's")
+    print(f"  the card's NodeClaims created and deleted, bindings, cloud calls, ledger "
+          f"({len(events)} NodeDisrupted / VerdictFallback events in order) and solver and "
+          f"disruption counters equal the CPU operator's")
+    return launches
 
 
 def observatory_totals() -> dict:
@@ -2186,7 +2628,16 @@ def main(argv) -> int:
     phase_done(7, through)
 
     print(f"[arrivals] single-pod arrivals through the admission fast path, {card}", flush=True)
-    admit = arrivals_phase(torch, card, kargs["config2_live"])
+    twins = CpuTwins((8, 9) if through > 8 else (8,))
+    try:
+        admit = arrivals_phase(torch, card, kargs["config2_live"], twins)
+        phase_done(8, through)
+
+        print(f"[consolidation] the disruption controller through the operator, {card}",
+              flush=True)
+        consolidation = consolidation_phase(torch, card, twins)
+    finally:
+        twins.close()
 
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
@@ -2206,6 +2657,7 @@ def main(argv) -> int:
             "library_ms": None,
             "latency_floor_ms": floors[k],
             "operator_launches": op_launches[k],
+            "consolidation_launches": consolidation[k],
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -2224,6 +2676,7 @@ def main(argv) -> int:
             "library_ms": None,
             "latency_floor_ms": v["floor"],
             "operator_launches": op_launches[k],
+            "consolidation_launches": consolidation[k],
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     kernels.append({
@@ -2239,8 +2692,10 @@ def main(argv) -> int:
         "bound_ms": admit["bound"]["bound_ms"],
         "bound_by": admit["bound"]["bound_by"],
         "library_ms": None,
-        "latency_floor_ms": None,
+        "latency_floor_ms": admit["latency_floor_ms"],
+        "empty_launch_ms": admit["empty_launch_ms"],
         "operator_launches": op_launches["admit_kernel"],
+        "consolidation_launches": consolidation["admit_kernel"],
         "call_ms": admit["call_ms"],
     })
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Control loops of the port's operator: provisioning, lifecycle,
-interruption, link, termination, garbage collection, node class, tagging,
-metrics state and consistency (the disruption loop is not ported yet)."""
+interruption, disruption, link, termination, garbage collection, node
+class, tagging, metrics state and consistency."""
 
 from karpenter_tpu_torch.controllers.consistency import ConsistencyController
+from karpenter_tpu_torch.controllers.disruption import DisruptionController
 from karpenter_tpu_torch.controllers.garbagecollection import GarbageCollectionController
 from karpenter_tpu_torch.controllers.interruption import InterruptionController
 from karpenter_tpu_torch.controllers.lifecycle import LifecycleController
@@ -14,6 +15,7 @@ from karpenter_tpu_torch.controllers.termination import TerminationController
 
 __all__ = [
     "ConsistencyController",
+    "DisruptionController",
     "GarbageCollectionController",
     "InterruptionController",
     "LifecycleController",

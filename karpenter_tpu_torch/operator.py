@@ -1,25 +1,30 @@
 """Operator: the dependency-injection root of the port (reference pkg/operator
 operator.go:83-204 + cmd/controller/main.go:33-70).
 
-Port of ``karpenter_tpu/operator.py`` with the provisioning loop: it builds
-the caches and providers in dependency order (pricing -> subnet ->
-securitygroup -> version -> instanceprofile -> image -> resolver ->
-launchtemplate -> instancetype -> instance, reference operator.go:126-165),
-composes the CloudProvider facade behind the retry layer and the metrics
-decorator, and registers the control loops in the reference's order:
-nodeclass, provisioner, lifecycle, interruption (when an interruption queue
-is set), termination, link, garbage collection, tagging, metrics state and
-consistency.  The Provisioner's long-lived `TorchScheduler` runs on
-``device`` (the card unless the caller asks for the CPU), and so does its
-admission fast path (`scheduling/fastpath.py`).
+Port of ``karpenter_tpu/operator.py`` with the provisioning and disruption
+loops: it builds the caches and providers in dependency order (pricing ->
+subnet -> securitygroup -> version -> instanceprofile -> image -> resolver
+-> launchtemplate -> instancetype -> instance, reference
+operator.go:126-165), composes the CloudProvider facade behind the retry
+layer and the metrics decorator, and registers the control loops in the
+reference's order: nodeclass, provisioner, lifecycle, interruption (when an
+interruption queue is set), disruption, termination, link, garbage
+collection, tagging, metrics state and consistency.  The Provisioner's
+long-lived `TorchScheduler` and the disruption controller's simulation
+scheduler run on ``device`` (the card unless the caller asks for the CPU),
+and so does the admission fast path (`scheduling/fastpath.py`).  Under
+``enable_pipelined_reconcile`` the disruption controller's speculative
+stages bracket the tick as in the reference: `reconcile_dispatch` enqueues
+the next pass's round-0 population scoring on the card at the tick's end,
+and `reconcile_advance` joins it at the next tick's start.
 
 `reconcile_once` drives every controller one tick: it mints the tick's
 trace ID, marks the device observatory's tick boundary, runs the
 controllers with the reference's crash containment and backoff, refreshes
 prices every 12 h, and exports the observatory's counters into the
-registry.  Not ported here, each an item of ROADMAP §A: the disruption
-controller, the SLO engine, the anomaly detector, the flight recorder, the
-span dump under ``profile_dir``, the lock watchdog and leader election.
+registry.  Not ported here, each an item of ROADMAP §A: the SLO engine,
+the anomaly detector, the flight recorder, the span dump under
+``profile_dir``, the lock watchdog and leader election.
 The constructor refuses the settings that would ask for one of them
 (`_refuse_unported`), so none is accepted and then ignored.
 """
@@ -36,6 +41,7 @@ from karpenter_tpu_torch.cloud.fake.backend import FakeCloud
 from karpenter_tpu_torch.cloud.provider import CloudProvider, ProviderBundle
 from karpenter_tpu_torch.cloud.retry import RetryingCloud
 from karpenter_tpu_torch.controllers.consistency import ConsistencyController
+from karpenter_tpu_torch.controllers.disruption import DisruptionController
 from karpenter_tpu_torch.controllers.garbagecollection import GarbageCollectionController
 from karpenter_tpu_torch.controllers.interruption import InterruptionController
 from karpenter_tpu_torch.controllers.lifecycle import LifecycleController
@@ -201,6 +207,14 @@ class Operator:
             kube, self.subnets, self.security_groups, self.images,
             self.instance_profiles,
         )
+        self.disruption = DisruptionController(
+            kube, self.cluster, self.cloud_provider, self.termination,
+            self.clock, feature_gate_drift=self.settings.feature_gate_drift,
+            registry=registry,
+            search_rounds=self.settings.consolidation_search_rounds,
+            population_size=self.settings.consolidation_population_size,
+            device=self.device,
+        )
         self.interruption: Optional[InterruptionController] = None
         if self.settings.interruption_queue_name:
             self.interruption = InterruptionController(
@@ -215,9 +229,12 @@ class Operator:
         self._pricing_updated_at = self.clock.now()
         # per-controller requeue backoff: name -> (retry_at, current delay)
         self._ctrl_backoff: Dict[str, Tuple[float, float]] = {}
-        # the reference's canonical order with its unported disruption
-        # controller left out; no ported controller declares pipelined
-        # stages, so the schedule is the plain sequence either way
+        # pipelined reconcile schedule (pipeline.py): the canonical mutate
+        # order below is unchanged either way; pipelining brackets it with
+        # disruption's speculative stages — dispatch (tick end: enqueue the
+        # next consolidation search's round-0 scoring on the device) and
+        # advance (tick start: join round 0, chain round 1 under the
+        # provisioning solve)
         sequence: List[Tuple[str, object]] = [
             ("nodeclass", self.node_class_controller),
             ("provisioner", self.provisioner),
@@ -226,6 +243,7 @@ class Operator:
         if self.interruption is not None:
             sequence.append(("interruption", self.interruption))
         sequence += [
+            ("disruption", self.disruption),
             ("termination", self.termination),
             # adopt before GC lists, so no race to reap
             ("link", self.link),
@@ -234,9 +252,23 @@ class Operator:
             ("metrics_state", self.metrics_state),
             ("consistency", self.consistency),
         ]
+        specs = [
+            StageSpec(
+                name,
+                controller,
+                dispatch=(
+                    self.disruption.reconcile_dispatch
+                    if name == "disruption" else None
+                ),
+                advance=(
+                    self.disruption.reconcile_advance
+                    if name == "disruption" else None
+                ),
+            )
+            for name, controller in sequence
+        ]
         self.pipeline = TickPipeline(
-            [StageSpec(name, controller) for name, controller in sequence],
-            registry=registry, tracer=self.tracer,
+            specs, registry=registry, tracer=self.tracer,
             enabled=self.settings.enable_pipelined_reconcile,
         )
 
@@ -280,7 +312,7 @@ class Operator:
 
     def reconcile_once(self) -> None:
         """One tick of every control loop, in a stable order: status
-        resolution, provisioning, lifecycle, cleanup."""
+        resolution, provisioning, lifecycle, events, disruption, cleanup."""
         # mint this tick's trace ID: every controller span, solver phase,
         # retry attempt and ledger event below correlates on it
         self._tick_seq += 1

@@ -317,7 +317,14 @@ def ffd_scan_batch_reference(
     class's choice depends only on its own row and the price ceiling,
     which no element changes.  One Python step per class, [B, K] tensors
     in each.  Returns ``(take [B, G, K], leftover [B, G], node_cfg [B, K],
-    node_pods [B, K], node_used [B, K, R])``."""
+    node_pods [B, K], node_used [B, K, R])``.
+
+    A slot at or past every element's frontier (its live slots and the new
+    slots opened so far) holds no config and takes nothing, so each step
+    runs over the slots before the frontier only.  Its usage then stays as
+    it is, which is what the fused update of a zero take gives where every
+    usage and request is finite and no usage is a negative zero; other
+    inputs run every step over all K slots."""
     i32 = torch.int32
     B, G = perm_b.shape
     K, R = used0.shape
@@ -333,17 +340,27 @@ def ffd_scan_batch_reference(
     npods = npods0.expand(B, K).clone()
     sigcnt = sig0.expand(B, *sig0.shape).clone()
     nxt = torch.full((B,), int(next0), dtype=i32, device=dev)
-    takes, leftovers = [], []
+    take_all = torch.zeros((B, G, K), dtype=i32, device=dev)
+    left_all = torch.zeros((B, G), dtype=i32, device=dev)
+    tail_still = bool(
+        torch.isfinite(used0).all()
+        and torch.isfinite(req).all()
+        and not ((used0 == 0) & torch.signbit(used0)).any()
+    )
+    live = torch.nonzero(cfg0 >= 0)
+    front = max(int(next0), int(live[-1]) + 1 if len(live) else 0) if tail_still else K
     for g in range(G):
         req_g, n_g, s = req_p[:, g], cnt_b[:, g], slot_p[:, g]
+        h = min(front, K)
         # ---- fill open nodes, first-fit in slot order -------------------
-        valid = cfg >= 0
-        cfg_safe = torch.clamp(cfg, min=0).long()
-        rem = alloc[cfg_safe] - used  # [B, K, R]
+        cfg_h = cfg[:, :h]
+        valid = cfg_h >= 0
+        cfg_safe = torch.clamp(cfg_h, min=0).long()
+        rem = alloc[cfg_safe] - used[:, :h]  # [B, h, R]
         cap = _per_node_cap(rem, req_g[:, None, :])
-        sig_room = torch.clamp(maxper_p[:, g, None] - sigcnt[bi, s], min=0)
+        sig_room = torch.clamp(maxper_p[:, g, None] - sigcnt[bi, s, :h], min=0)
         cap = torch.minimum(cap, sig_room)
-        feas_g = feas[pl[:, g]].gather(1, cfg_safe)  # [B, K]
+        feas_g = feas[pl[:, g]].gather(1, cfg_safe)  # [B, h]
         cap = torch.where(valid & feas_g, cap, zero)
         prefix = torch.cumsum(cap, 1, dtype=i32) - cap  # exclusive
         take1 = torch.minimum(torch.clamp(n_g[:, None] - prefix, min=0), cap)
@@ -352,29 +369,30 @@ def ffd_scan_batch_reference(
         per_g = per_p[:, g]
         need = torch.where(ok_p[:, g] != 0, (n2 + per_g - 1) // per_g, zero)
         opened = torch.minimum(need, K - nxt)
+        if tail_still:
+            front = max(front, int((nxt + opened).max()) if B else 0)
+            h = min(front, K)
         lo, hi = nxt[:, None], (nxt + opened)[:, None]
-        window = (idx >= lo) & (idx < hi)
+        idx_h = idx[:h]
+        window = (idx_h >= lo) & (idx_h < hi)
         take2 = torch.where(
             window,
             torch.minimum(
-                torch.clamp(n2[:, None] - (idx - lo) * per_g[:, None], min=0),
+                torch.clamp(n2[:, None] - (idx_h - lo) * per_g[:, None], min=0),
                 per_g[:, None],
             ),
             zero,
         )
-        leftovers.append(n2 - take2.sum(1, dtype=i32))
-        take = take1 + take2
-        used = fma32(take[:, :, None].to(torch.float32), req_g[:, None, :], used)
-        cfg = torch.where(window, cs_p[:, g, None], cfg)
-        npods = npods + take
-        sigcnt[bi, s] += take
+        left_all[:, g] = n2 - take2.sum(1, dtype=i32)
+        take = take2
+        take[:, : take1.shape[1]] += take1
+        used[:, :h] = fma32(take[:, :, None].to(torch.float32), req_g[:, None, :],
+                            used[:, :h])
+        cfg[:, :h] = torch.where(window, cs_p[:, g, None], cfg[:, :h])
+        npods[:, :h] += take
+        sigcnt[bi, s, :h] += take
         nxt = nxt + opened
-        takes.append(take)
-    if takes:
-        take_all, left_all = torch.stack(takes, 1), torch.stack(leftovers, 1)
-    else:
-        take_all = torch.zeros((B, 0, K), dtype=i32, device=dev)
-        left_all = torch.zeros((B, 0), dtype=i32, device=dev)
+        take_all[:, g, :h] = take
     return take_all, left_all, cfg, npods, used
 
 
@@ -399,7 +417,11 @@ def verdict_rows_reference(
     float32 (see the RV_* layout).  First-index argmin and argmax, int32
     counts; ``new_load`` is summed in ascending slot order (the kernel's
     order; XLA's is unspecified, so bit-equality with JAX assumes the sum
-    is exact, as it is for dyadic requests)."""
+    is exact, as it is for dyadic requests).
+
+    A slot takes pods only where it holds a config at the end, and a new
+    slot counts only where it holds pods, so the reads of ``take`` and
+    the load sum stop at the last slot that does either."""
     i32, f32 = torch.int32, torch.float32
     B, G, K = take.shape
     dev = take.device
@@ -408,7 +430,10 @@ def verdict_rows_reference(
     left_units = leftover.sum(1, dtype=i32)
     newmask = (idx >= int(next0))[None, :] & (node_pods > 0)  # [B, K]
     new_count = newmask.sum(1, dtype=i32)
-    k_star = torch.argmax(newmask.to(torch.uint8), dim=1)  # first True, else 0
+    used_slots = torch.nonzero(((node_cfg >= 0) | newmask).any(0))
+    kmax = max(int(used_slots[-1]) + 1 if len(used_slots) else 0, 1) if K else 0
+    take, newmask_all, newmask = take[:, :, :kmax], newmask, newmask[:, :kmax]
+    k_star = torch.argmax(newmask_all.to(torch.uint8), dim=1)  # first True, else 0
     c_star = torch.clamp(node_cfg.gather(1, k_star[:, None])[:, 0], min=0)
     cs = c_star.long()
     taken = take > 0  # [B, G, K]
@@ -434,12 +459,12 @@ def verdict_rows_reference(
     masked = torch.where(m, price[None, :], torch.full_like(m, float("inf"), dtype=f32))
     c_min = torch.argmin(masked, dim=1)  # first index of the minimum
     min_price = masked.gather(1, c_min[:, None])[:, 0]
-    bad_k = (taken & ~compactable[pl][:, :, None]).any(1)  # [B, K]
-    donor_k = newmask & (node_pods <= 8) & ~bad_k
+    bad_k = (taken & ~compactable[pl][:, :, None]).any(1)  # [B, kmax]
+    donor_k = newmask & (node_pods[:, :kmax] <= 8) & ~bad_k
     n_nondonor = (newmask & ~donor_k).sum(1, dtype=i32)
     new_load = torch.zeros((B, node_used.shape[2]), dtype=f32, device=dev)
     zf = torch.zeros((), dtype=f32, device=dev)
-    for k in range(max(int(next0), 0), K):  # ascending slot order
+    for k in range(max(int(next0), 0), kmax):  # ascending slot order
         new_load = new_load + torch.where(newmask[:, k, None], node_used[:, k], zf)
     hold = (
         (new_load[:, None, :] <= slack[None]).all(2)

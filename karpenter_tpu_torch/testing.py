@@ -767,9 +767,14 @@ def operator_state(env) -> dict:
     """An operator environment's cluster as comparable plain data: the
     NodeClaims, the Nodes, each pod's binding and nomination, every fake
     cloud API call in order, the event ledger's stream and its count by
-    type, the compile-cache and resident counters the Provisioner exports,
-    and the admission fast path's outcomes, fallback reasons and
-    mismatches.  It reads
+    type, the compile-cache and resident counters the Provisioner and the
+    disruption controller export, the admission fast path's outcomes,
+    fallback reasons and mismatches, and the disruption side: every
+    instance ever launched with its claim and state (the NodeClaims created
+    and deleted), the claims marked for deletion, the replacement claims,
+    the disruption counters (actions by mechanism and pool, evaluations by
+    path, verdict mismatches, search winners) and the ledger's
+    ``NodeDisrupted`` and ``VerdictFallback`` events in order.  It reads
     attributes only, so it serves the JAX package's `Environment` too."""
     kube, reg = env.kube, env.registry
     claims = sorted(
@@ -815,9 +820,100 @@ def operator_state(env) -> dict:
             "karpenter_admission_fastpath_total",
             "karpenter_admission_fastpath_fallback_total",
             "karpenter_admission_fastpath_mismatch_total",
+            "karpenter_deprovisioning_actions",
+            "karpenter_consolidation_evals_total",
+            "karpenter_consolidation_verdict_mismatch_total",
+            "karpenter_consolidation_search_winners_total",
         )
+    }
+    # every launch the fake cloud holds, terminated ones included: the
+    # NodeClaims created and, by their state, deleted
+    instances = sorted(
+        (i.id, i.tags.get("karpenter.sh/nodeclaim", ""), i.instance_type,
+         i.zone, i.capacity_type, i.state)
+        for i in env.cloud.instances.values()
+    )
+    disrupted = [
+        (ev.ts, ev.type, sorted(ev.attrs.items()))
+        for ev in env.operator.ledger.recent(limit=1 << 30)
+        if ev.type in DISRUPTION_EVENTS
+    ]
+    disruption = {
+        "instances": instances,
+        "marked": sorted(
+            c.name for c in kube.node_claims.values() if c.deleted_at is not None
+        ),
+        "replacements": [
+            (dict(attrs)["node"], dict(attrs)["replacement"])
+            for _ts, _type, attrs in disrupted
+            if "replacement" in dict(attrs)
+        ],
+        "events": disrupted,
     }
     return {
         "claims": claims, "nodes": nodes, "pods": pods, "calls": calls,
         "events": events, "event_counts": event_counts, "counters": counters,
+        "disruption": disruption,
     }
+
+
+# the ledger events of the disruption controller's decisions
+DISRUPTION_EVENTS = ("NodeDisrupted", "VerdictFallback")
+
+
+# phase 9 of chip_smoke: config 2's 10,000 pods bound, then a seeded half
+# deleted, and the pools' consolidate_after lowered to a few ticks
+CONSOLIDATION_SEED = 13
+CONSOLIDATION_SHARE = 0.5
+CONSOLIDATE_AFTER_S = 6.0
+
+
+def consolidating_cluster(device=None, n_pods: int = N_PODS) -> "Environment":
+    """A cluster for consolidation through the operator, the same for
+    either device: an `Environment` on ``device`` over config 2's catalog
+    with its ``general`` and tainted ``dedicated`` pools and a default
+    NodeClass; the first ``n_pods`` of `heterogeneous_pods` go into the
+    store and the run ticks (2 s of fake clock) until every pod is bound,
+    the pools' ``consolidate_after`` outlasting the bind; then a
+    `CONSOLIDATION_SHARE` of the bound pods, drawn uniformly with numpy's
+    ``default_rng(CONSOLIDATION_SEED)``, is deleted, which leaves most
+    nodes part-empty, and each pool's ``consolidate_after`` is lowered to
+    `CONSOLIDATE_AFTER_S`.  Launches go one at a time in claim order, so
+    two drives hand out the same instance ids.  The Settings are the
+    reference's defaults (the pipelined schedule, drift and the admission
+    fast path on).  Raises if a pod is still pending after 12 ticks."""
+    from karpenter_tpu_torch.api import Disruption
+    from karpenter_tpu_torch.api.objects import reset_name_sequences
+
+    reset_name_sequences()
+    env = Environment(
+        shapes=generate_catalog(**CONFIG2_CATALOG),
+        settings=Settings(cluster_name="consolidation"),
+        device=device,
+    )
+    env.default_node_class()
+    hold = Disruption(consolidate_after=1e9)
+    env.default_node_pool(name="general", disruption=hold)
+    env.default_node_pool(name="dedicated", taints=[DEDICATED_TAINT],
+                          disruption=dataclasses.replace(hold))
+    env.operator.provisioner.launch_concurrency = 1
+    for p in heterogeneous_pods(n_pods):
+        env.kube.put_pod(p)
+    for _ in range(12):
+        env.step(2.0)
+        if not env.kube.pending_pods():
+            break
+    if env.kube.pending_pods():
+        raise RuntimeError(
+            f"{len(env.kube.pending_pods())} of {n_pods} pods unbound after 12 ticks"
+        )
+    bound = sorted(k for k, p in env.kube.pods.items() if p.node_name)
+    rng = np.random.default_rng(CONSOLIDATION_SEED)
+    size = int(len(bound) * CONSOLIDATION_SHARE)
+    for i in sorted(rng.choice(len(bound), size=size, replace=False)):
+        env.kube.delete_pod(bound[i])
+    for pool in env.kube.node_pools.values():
+        pool.disruption = dataclasses.replace(
+            pool.disruption, consolidate_after=CONSOLIDATE_AFTER_S
+        )
+    return env

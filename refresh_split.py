@@ -188,29 +188,26 @@ def config2_pods(pkg: str, n: int) -> list:
 
 def environment(pkg: str, device: str):
     """``pkg``'s operator environment as chip_smoke.py's ``operator_env``
-    builds it, with the fast path and the singleton bypass on; the JAX
-    package's tick skips its disruption controller, which the port does
-    not have."""
+    builds it, with the fast path and the singleton bypass on: both
+    packages run their disruption controller, the pools never consolidate
+    and the drift gate is off."""
     a = importlib.import_module(f"{pkg}.api")
     objects = importlib.import_module(f"{pkg}.api.objects")
     testing = importlib.import_module(f"{pkg}.testing")
     backend = importlib.import_module(f"{pkg}.cloud.fake.backend")
     objects.reset_name_sequences()
     settings = a.Settings(cluster_name="chip-smoke", enable_admission_fastpath=True,
-                          provision_fastpath_bypass=True, enable_pipelined_reconcile=False)
+                          provision_fastpath_bypass=True, enable_pipelined_reconcile=False,
+                          feature_gate_drift=False)
     kw = {"device": device} if pkg == "karpenter_tpu_torch" else {}
     env = testing.Environment(shapes=backend.generate_catalog(**CONFIG2_CATALOG),
                               settings=settings, **kw)
     env.default_node_class()
-    env.default_node_pool(name="general")
-    env.default_node_pool(name="dedicated",
+    hold = lambda: a.Disruption(consolidate_after=1e9)
+    env.default_node_pool(name="general", disruption=hold())
+    env.default_node_pool(name="dedicated", disruption=hold(),
                           taints=[a.Taint(key="dedicated", value="batch", effect="NoSchedule")])
     env.operator.provisioner.launch_concurrency = 1
-    if pkg == "karpenter_tpu":
-        # the port has no disruption controller yet: the reference's tick
-        # passes over it, as the operator twin's does
-        inner = env.operator._reconcile
-        env.operator._reconcile = lambda name, c: None if name == "disruption" else inner(name, c)
     return env
 
 

@@ -178,13 +178,14 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "5"], 5),
     (["--through", "6"], 6),
     (["--through", "7"], 7),
+    (["--through", "8"], 8),
 ])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "8"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "9"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -404,14 +405,16 @@ def test_phase7_drive_on_the_cpu():
 
 def test_phase8_drive_on_the_cpu():
     """Phase 8's drive at a small size on the CPU: the batch's first tick
-    is too large a burst for the fast path; after it binds, the first
-    single arrival falls back (the resident tensors cannot absorb the
-    whole batch leaving) and the next ones are nominated by the fast path;
-    the oversized pod falls back to the batched solve and gets a node of
-    its own; `AdmitTimer` records each attempt with its phases; the same
-    drive with the fast path off puts every pod on the same node.  (At
-    this size the single-pod solve's resident state has too few slots for
-    a burst, which falls back as a resident miss.)"""
+    is too large a burst for the fast path; after it binds and 30 % of its
+    pods are deleted, the first single arrival falls back (the resident
+    tensors cannot absorb the whole batch leaving) and the next ones are
+    nominated by the fast path; the oversized pod falls back to the
+    batched solve and gets a node of its own; `AdmitTimer` records each
+    attempt with its phases; the same drive with the fast path off puts
+    every pod on the same node, and so does a drive cut to its first
+    entries at that tick.  (At this size the single-pod solve's resident
+    state has too few slots for a burst, which falls back as a resident
+    miss.)"""
     from karpenter_tpu_torch import testing as T
 
     kw = dict(n_pods=120, arrivals=12, bursts=2, oversized=1)
@@ -431,7 +434,7 @@ def test_phase8_drive_on_the_cpu():
     scored = [c for c in timer.calls if "dispatch" in c["phases_ms"]]
     assert {"delta", "dispatch", "device_block", "oracle"} <= set(scored[0]["phases_ms"])
     assert all(c["ms"] >= sum(c["phases_ms"].values()) for c in timer.calls)
-    big = env.kube.pods["default/oversized-16"]
+    big = env.kube.pods["default/oversized-0"]
     assert big.requests.cpu >= chip_smoke.OVERSIZED_CPU and big.node_name
     assert sum(1 for p in env.kube.pods.values() if p.node_name == big.node_name) == 1
     off, _ = chip_smoke.drive_arrivals("cpu", fastpath=False, **kw)
@@ -439,6 +442,55 @@ def test_phase8_drive_on_the_cpu():
     placed = lambda e: {k: p.node_name for k, p in sorted(e.kube.pods.items())}
     assert placed(off) == placed(env)
     again, _ = chip_smoke.drive_arrivals("cpu", **kw)
+    assert T.operator_state(again) == T.operator_state(env)
+    batch = [k for k in env.kube.pods if k.startswith("default/pod-")]
+    assert len(batch) == 120 - int(120 * chip_smoke.HEADROOM_SHARE)
+    # the cut drive equals the full drive's state at the cut's tick
+    at = {}
+    full, _ = chip_smoke.drive_arrivals(
+        "cpu", **kw, cut=14, at_cut=lambda e: at.update(state=T.operator_state(e)))
+    short, short_ticks = chip_smoke.drive_arrivals("cpu", **kw, cut=14, stop_at_cut=True)
+    assert [t["arrival"] for t in short_ticks][-1] != "settle"
+    assert T.operator_state(short) == at["state"]
+    assert chip_smoke.fastpath_outcomes(short.registry) <= chip_smoke.fastpath_outcomes(
+        full.registry)
+
+
+def test_phase8_arrival_plan_interleaves_every_kind():
+    """The arrival mix is the docstring's (200 singles, 10 bursts each with
+    a quiet tick, 5 oversized pods) and its first `ARRIVAL_CUT` entries
+    hold singles, bursts and an oversized pod."""
+    from karpenter_tpu_torch import testing as T
+
+    plan = chip_smoke.arrival_plan(T.heterogeneous_pods(100), lambda: 10.0)
+    kinds = [k for k, _ in plan]
+    assert (kinds.count("single"), kinds.count("burst"), kinds.count("quiet"),
+            kinds.count("oversized")) == (200, 10, 10, 5)
+    head = kinds[:chip_smoke.ARRIVAL_CUT]
+    assert {"single", "burst", "quiet", "oversized"} <= set(head)
+    assert all(2 <= len(pods) <= 8 for k, pods in plan if k == "burst")
+    big = [new() for k, new in plan if k == "oversized"]
+    assert all(p[0].requests.cpu >= chip_smoke.OVERSIZED_CPU for p in big)
+
+
+def test_phase9_drive_on_the_cpu():
+    """Phase 9's drive at a small size on the CPU: consolidation acts, the
+    drive stops after `CONSOLIDATION_QUIET` quiet ticks with every pod
+    bound, each tick's line carries its actions and the ledger's
+    disruption events, and a second drive reaches the same events and
+    `testing.operator_state`."""
+    from karpenter_tpu_torch import testing as T
+
+    env, before, ticks, events, profiled = chip_smoke.drive_consolidation("cpu", n_pods=600)
+    assert profiled == [] and not env.kube.pending_pods()
+    assert sum(t["actions"] for t in ticks) >= 1
+    assert all(not t["actions"] for t in ticks[-chip_smoke.CONSOLIDATION_QUIET:])
+    assert chip_smoke.live_fleet(env)["nodes"] < before["nodes"]
+    assert sum(t["disrupted"] for t in ticks) == sum(1 for e in events if e[1] == "NodeDisrupted")
+    assert all(set(t["controllers_ms"]) == set(chip_smoke.CONTROLLERS) for t in ticks)
+    assert any(t["speculation"].get("adopted") for t in ticks)
+    again, _, ticks2, events2, _ = chip_smoke.drive_consolidation("cpu", n_pods=600)
+    assert events2 == events and len(ticks2) == len(ticks)
     assert T.operator_state(again) == T.operator_state(env)
 
 

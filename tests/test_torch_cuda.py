@@ -13,7 +13,8 @@ where the config pass reads its rows from device memory), past one
 launch's 65,535 elements and, for the prologue, with U and Gp past its
 block.  The admission score (``admit_kernel``) is held to its plain version
 on every class of the wrap case, of config 2 over 4096 slots and of a
-resident state, and a fast-path operator drive on the card to the CPU's.
+resident state, and a fast-path operator drive on the card to the CPU's;
+an operator drive that consolidates on the card, to the CPU's.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -596,3 +597,30 @@ def test_fast_path_operator_on_card_matches_cpu(cuda_device):
     nominated = dict(card["counters"]["karpenter_admission_fastpath_total"])
     assert nominated.get((("outcome", "nominated"),), 0) > 0
     assert not card["counters"]["karpenter_admission_fastpath_mismatch_total"]
+
+
+def test_consolidation_operator_on_card_matches_cpu(cuda_device):
+    """Consolidation through the operator (``testing.consolidating_cluster``
+    at 1,000 of config 2's pods, half of them deleted; the pipelined
+    schedule on): on the card the batched scan, the three verdict launches
+    and the population prologue launch, and the final state (claims
+    created, marked and replaced, bindings, cloud calls, ledger, the
+    disruption counters) equals the same drive on the CPU."""
+    def drive(device):
+        env = T.consolidating_cluster(device, n_pods=1000)
+        for _ in range(10):
+            env.step(2.0)
+        return T.operator_state(env)
+
+    before = dict(fused_packer.LAUNCHES)
+    card = drive(cuda_device)
+    launched = {k: v - before[k] for k, v in fused_packer.LAUNCHES.items()}
+    for k in ("choose_config", "verdict_summary", "verdict_configs", "verdict_write",
+              "population_pairs"):
+        assert launched[k] > 0, (k, launched)
+    assert launched["ffd_scan_batched"] + launched["ffd_scan_cluster_batched"] > 0, launched
+    assert launched["ffd_scan_global_batched"] == 0
+    cpu = drive("cpu")
+    assert card == cpu
+    assert sum(dict(card["counters"]["karpenter_deprovisioning_actions"]).values()) >= 1
+    assert not card["counters"]["karpenter_consolidation_verdict_mismatch_total"]

@@ -9,7 +9,9 @@ round; then imports the operator and ``python -m karpenter_tpu_torch``'s
 module and runs three ticks of a CPU operator `Environment`, then the
 admission fast path (``scheduling/fastpath.py``) and the interruption,
 metrics-state and consistency controllers: a single-pod arrival nominated
-by the fast path, and a spot-interruption message drained."""
+by the fast path, and a spot-interruption message drained; then the
+disruption controller (``controllers/disruption.py``) consolidating a small
+cluster through the operator under the pipelined schedule."""
 
 import pathlib
 import subprocess
@@ -110,6 +112,16 @@ env.settle()
 assert claim.name not in env.kube.node_claims and not env.kube.pending_pods()
 names = [spec.name for spec in env.operator.pipeline.specs]
 assert names[-2:] == ["metrics_state", "consistency"] and "interruption" in names, names
+# the disruption controller: consolidation through the operator, with the
+# pipelined schedule's speculative stages
+from karpenter_tpu_torch.controllers import DisruptionController  # noqa: F401
+
+env = T.consolidating_cluster("cpu", n_pods=400)
+assert isinstance(env.operator.disruption, DisruptionController)
+for _ in range(6):
+    env.step(2.0)
+assert sum(env.registry.counters.get("karpenter_deprovisioning_actions", {}).values()) >= 1
+assert env.registry.counters.get("karpenter_pipeline_speculation_total")
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

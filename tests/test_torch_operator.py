@@ -3,31 +3,30 @@
 Each scenario builds the JAX package's ``karpenter_tpu.testing.Environment``
 (on the CPU, as tier-1 runs it) and the port's ``Environment(device="cpu")``
 over the same shapes and zones, with the admission fast path at its default
-(on), the pipelined schedule off and NodePools whose ``consolidate_after``
-outlasts the run, then feeds both the same seeded arrivals (numpy
+(on), then feeds both the same seeded arrivals (numpy
 ``default_rng(seed)``).  After EVERY ``env.step`` the two must agree on:
 the NodeClaims, the Nodes, each pod's binding and nomination, every fake
 cloud API call in order, the event ledger's stream, the compile-cache,
-resident and admission fast-path counters in the registry, and the device
-observatory's resident updates by kind, its set of transfer sites and its
-``resident_seed`` bytes.
+resident, admission fast-path and disruption counters in the registry, the
+disruption side (instances launched and terminated, claims marked and
+replaced, ``NodeDisrupted`` and ``VerdictFallback`` events), and the
+device observatory's resident updates by kind, its set of transfer sites
+and its ``resident_seed`` bytes.
 
-The reference operator also has a controller the port does not have yet
-(disruption: ROADMAP §A).  The comparison covers the ported controllers
-only:
+Both operators run every controller, disruption included
+(``LEFT_OUT_CONTROLLERS`` is empty).  Most scenarios keep the pipelined
+schedule off and give their NodePools a ``consolidate_after`` that
+outlasts the run, so they drive provisioning alone: after the last tick
+the reference's disruption controller reconciles once more on the final
+cluster and must take no action.  The consolidating scenario lowers
+``consolidate_after`` and deletes pods so that nodes go part-empty, and
+runs with the pipelined schedule on and off.
 
-- the reference's tick skips it (its ``_reconcile`` hook passes over it).
-  It cannot run and be filtered out afterwards: its drift checks describe
-  instances and subnets, and a subnet read refreshes the TTL cache the
-  ported controllers read too, which moves the next DescribeSubnets call
-  out of the ported controllers' stream;
-- after the last tick the reference's disruption controller reconciles
-  once on the final cluster and must take no action, so the pools'
-  ``consolidate_after`` keeps every scenario free of disruption;
-- its ledger's ``AnomalyDetected`` and ``DeviceRecompile`` events are
-  filtered: both come from the anomaly detector of its diagnosis layer,
-  which judges wall-clock latencies and process compile history and is not
-  ported (ROADMAP §A).
+The reference ledger's ``AnomalyDetected``, ``DeviceRecompile``,
+``SLOBreach`` and ``SLORecovered`` events are filtered: they come from the
+anomaly detector and the SLO engine of its diagnosis layer, which judge
+wall-clock latencies and process compile history and are not ported
+(ROADMAP §A).
 
 Transfer bytes are held equal at ``resident_seed`` only.  The other sites
 differ in bytes by design: the port uploads a delta's payload as three
@@ -47,8 +46,8 @@ import pytest
 from karpenter_tpu_torch.testing import operator_state
 
 PACKAGES = ("karpenter_tpu", "karpenter_tpu_torch")
-LEFT_OUT_CONTROLLERS = ("disruption",)
-FILTERED_EVENTS = ("AnomalyDetected", "DeviceRecompile")
+LEFT_OUT_CONTROLLERS = ()
+FILTERED_EVENTS = ("AnomalyDetected", "DeviceRecompile", "SLOBreach", "SLORecovered")
 TICK_S = 2.0
 SMALL_SHAPES = dict(generations=(1, 2), cpus=(1, 2, 4, 8, 16, 32))
 # config 2's catalog (bench.py's heterogeneous problem)
@@ -62,7 +61,8 @@ SIZES = ((0.25, "512Mi"), (0.5, "1Gi"), (1, "2Gi"), (2, "4Gi"), (0.75, "3Gi"))
 class Side:
     """One package's operator environment and its accounting."""
 
-    def __init__(self, pkg: str, shapes_kw: dict, pools: tuple, **settings_kw):
+    def __init__(self, pkg: str, shapes_kw: dict, pools: tuple,
+                 consolidate_after: float = 1e6, pipelined: bool = False, **settings_kw):
         self.pkg = pkg
         a = self.api = importlib.import_module(f"{pkg}.api")
         objects = importlib.import_module(f"{pkg}.api.objects")
@@ -72,7 +72,7 @@ class Side:
         self.obs = importlib.import_module(f"{pkg}.obs.device").OBSERVATORY
         objects.reset_name_sequences()
         settings = a.Settings(
-            cluster_name="test", enable_pipelined_reconcile=False, **settings_kw
+            cluster_name="test", enable_pipelined_reconcile=pipelined, **settings_kw
         )
         kw = {"device": "cpu"} if pkg == "karpenter_tpu_torch" else {}
         self.env = env = testing.Environment(
@@ -82,7 +82,7 @@ class Side:
         for name, tainted in pools:
             env.default_node_pool(
                 name=name,
-                disruption=objects.Disruption(consolidate_after=1e6),
+                disruption=objects.Disruption(consolidate_after=consolidate_after),
                 taints=[a.Taint(key="dedicated", value="batch", effect="NoSchedule")]
                 if tainted else [],
             )
@@ -90,16 +90,6 @@ class Side:
         # determinism knob): concurrent creates would hand out instance ids
         # in thread order
         env.operator.provisioner.launch_concurrency = 1
-        if pkg == "karpenter_tpu":
-            # the reference's tick runs the ported controllers only
-            op = env.operator
-            inner = op._reconcile
-
-            def reconcile(name, controller):
-                if name not in LEFT_OUT_CONTROLLERS:
-                    inner(name, controller)
-
-            op._reconcile = reconcile
         self.scope = self.obs.begin_scope()
 
     def close(self):
@@ -137,8 +127,13 @@ class Side:
         return st
 
 
-def _twin(shapes_kw, pools=(("default", False),), **settings_kw):
-    return [Side(pkg, shapes_kw, pools, **settings_kw) for pkg in PACKAGES]
+def _twin(shapes_kw, pools=(("default", False),), **kw):
+    sides = [Side(pkg, shapes_kw, pools, **kw) for pkg in PACKAGES]
+    # the port's operator runs the reference's controllers, in its order
+    ref, port = ([(s.name, bool(s.dispatch), bool(s.advance))
+                  for s in sd.env.operator.pipeline.specs] for sd in sides)
+    assert [s for s in ref if s[0] not in LEFT_OUT_CONTROLLERS] == port
+    return sides
 
 
 def _step_and_compare(sides, tick: int) -> dict:
@@ -152,7 +147,13 @@ def _step_and_compare(sides, tick: int) -> dict:
     return ref
 
 
-def _finish(sides) -> dict:
+def _finish(sides, consolidating: bool = False) -> dict:
+    for sd in sides:
+        errs = sd.env.registry.counters.get("karpenter_controller_reconcile_errors_total", {})
+        assert not errs, (sd.pkg, errs)
+        sd.close()
+    if consolidating:
+        return sides[1].scope
     ref_env = sides[0].env
     # the reference's disruption controller, run on the final cluster,
     # takes no action
@@ -167,10 +168,6 @@ def _finish(sides) -> dict:
     )
     assert sorted(ref_env.kube.node_claims) == claims
     assert all(c.deleted_at is None for c in ref_env.kube.node_claims.values())
-    for sd in sides:
-        errs = sd.env.registry.counters.get("karpenter_controller_reconcile_errors_total", {})
-        assert not errs, (sd.pkg, errs)
-        sd.close()
     return sides[1].scope
 
 
@@ -344,6 +341,43 @@ def test_interruption_queue_drains_interrupted_nodes():
             assert reg.counter("karpenter_interruption_received_messages",
                                {"message_type": kind}) == 1, (sd.pkg, kind)
         assert sd.env.unavailable.is_unavailable("spot", itype, zone), sd.pkg
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_consolidation_of_part_empty_nodes(pipelined):
+    """Pools that consolidate: seeded pods of mixed sizes fill a few nodes
+    of both pools, then a seeded 60 % of them is deleted and the pools'
+    ``consolidate_after`` lets the nodes go after 4 s.  Both operators
+    consolidate alike tick for tick (multi-node deletes, replacements,
+    the evicted pods' rebinding), with the pipelined schedule on and off;
+    the port's batched verdicts answer, and no verdict mismatches."""
+    rng = np.random.default_rng(61)
+    specs = [_spec(rng, selectors=({}, {"kubernetes.io/arch": "amd64"}), tolerate_share=0.3)
+             for _ in range(70)]
+    sides = _twin(SMALL_SHAPES, pools=(("general", False), ("dedicated", True)),
+                  consolidate_after=4.0, pipelined=pipelined)
+    for sd in sides:
+        sd.add(specs)
+    tick = 0
+    for tick in range(3):
+        st = _step_and_compare(sides, tick)
+    claims0 = len(st["claims"])
+    rngs = [np.random.default_rng(67) for _ in sides]
+    for sd, r in zip(sides, rngs):
+        sd.delete_bound(r, 42)
+    for i in range(16):
+        st = _step_and_compare(sides, tick + 1 + i)
+    scope = _finish(sides, consolidating=True)
+    actions = dict(st["counters"]["karpenter_deprovisioning_actions"])
+    assert sum(actions.values()) >= 1, st["counters"]
+    assert len([c for c in st["claims"] if c[7] is None]) < claims0
+    evals = dict(st["counters"]["karpenter_consolidation_evals_total"])
+    assert evals.get((("path", "batched"),), 0) > 0, evals
+    assert not st["counters"]["karpenter_consolidation_verdict_mismatch_total"]
+    assert all(p[1] for p in st["pods"]), "every pod bound"
+    assert scope.dispatches.get("population_verdicts", 0) > 0, dict(scope.dispatches)
+    spec = sides[1].env.registry.counters.get("karpenter_pipeline_speculation_total", {})
+    assert bool(spec) is pipelined, spec
 
 
 def test_fast_path_on_and_off_place_alike():
