@@ -10,8 +10,9 @@ Phases (each failure exits non-zero before the last line is printed):
    power limit as ``nvidia-smi`` reports them.
 2. Build: compiles every CUDA source of the package with ``nvcc`` (all at
    once) and prints the ``-Xptxas -v`` summary of each, then the registers
-   and spills of each instance of ``choose_config_kernel`` and of the
-   verdict and prologue kernels (fails on a spill).
+   and spills of each instance of ``choose_config_kernel``, of the
+   frontier-window scan and of the verdict and prologue kernels (fails on
+   a spill).
 3. Kernel vs plain: each kernel beside its plain PyTorch version on the
    same card tensors, both objectives; every output must be bit-equal, and
    each scan call must launch the kernel expected of it (the wrapper picks
@@ -85,14 +86,21 @@ Phases (each failure exits non-zero before the last line is printed):
    sizes, the universe its 64 least-loaded nodes (Kp 4096, the cluster
    scan); the 64 singles and the 64 drop-one subsets, then a pass at
    population 512, 2 rounds.  The launch counters are set to 0 just before
-   the drive and read just after: the batched scan of each problem's
-   shapes, each of `verdict_rows`' three launches (``verdict_summary``,
-   ``verdict_configs``, ``verdict_write``) and ``population_pairs`` (the
-   prologue) must have launched, ``ffd_scan_global_batched`` not.  The
+   the drive and read just after: the batched scans of each problem's
+   shapes (`fused_packer.batch_launches`: the frontier-window scan alone at
+   ``sweep``, whose Kp 1024 fits its window, the cluster scan alone at
+   ``live``, whose 2,000 live slots pass it), each of `verdict_rows`' three
+   launches (``verdict_summary``, ``verdict_configs``, ``verdict_write``)
+   and ``population_pairs`` (the prologue) must have launched, no other
+   batched scan; each batched launch group's shapes, W, plan, the elements
+   the window finished and those the picked scan took (its ``done`` mask,
+   read after a synchronize, must be the elements whose frontier stays
+   within W), and the largest element frontier.  The
    decoded verdicts (and the plan's proposals and pick) must equal the
    same calls through ``device="cpu"``.  Then on the same card tensors
    each kernel against its plain version, bit for bit: the batched scan
-   (full outputs; at ``live`` also through the global scan),
+   (full outputs, as the wrapper launches it and the picked scan on every
+   element; at ``live`` also through the global scan),
    ``population_prologue``'s three outputs and the [B, 6] rows; then the
    tie and edge cases (``testing.verdict_tie_arrays``: equal masked prices
    across warps and config tiles, elements in two groups, an element with
@@ -100,7 +108,13 @@ Phases (each failure exits non-zero before the last line is printed):
    Cp 6, 1000 and 8192 at the live problem's Kp 4096 and B 512; next0 0
    and K), both objectives, through ``removal_verdicts`` and through
    `verdict_rows` at next0, 0 and K; the prologue with U and Gp past its
-   block (``testing.population_arrays``).  Each kernel's device time
+   block (``testing.population_arrays``); the frontier-window cases
+   (``testing.frontier_arrays``: frontiers inside, at and past W, next0
+   past W, Kp within W, -0.0 usages in the tail and the window, a request
+   of +inf, caps of 2^30), each with the launches its plan makes, its
+   ``done`` mask, its outputs and its verdict rows, together all three
+   plans and elements the picked scan took after the window.  Each
+   kernel's device time
    (torch.profiler; `verdict_rows`' launches and their sum, and its
    CUDA-event time a back-to-back call), its bound and the batched scan's
    latency floor (class steps x (barrier + 2 / 32 L2 loads) x ceil(B /
@@ -160,7 +174,7 @@ Phases (each failure exits non-zero before the last line is printed):
    controller's speculative stages), then ticks until disruption takes no
    action for 3 ticks in a row with no pod pending (120 at most).  The
    launch counters are set to 0 just before the drive and read just
-   after: ``choose_config``, a batched scan, ``verdict_summary``,
+   after: ``choose_config``, the frontier-window scan, ``verdict_summary``,
    ``verdict_configs``, ``verdict_write`` and ``population_pairs`` must
    have launched, ``ffd_scan_global_batched`` not; at least one action,
    every pod bound, no reconcile error, no verdict mismatch; the ledger's
@@ -171,7 +185,15 @@ Phases (each failure exits non-zero before the last line is printed):
    reason, evaluations by path, the disruption reconcile's ms, the tick
    ms of ticks that consolidate and of those that do not, the
    speculation's outcomes, and profiled ticks (the device busy share of
-   the first one that consolidates).
+   the first one that consolidates), and each batched launch group as
+   phase 6 prints them.  Then phase 9's base (`consolidation_base`: the
+   removal base the drive built at its largest Kp, with a seeded first
+   population round as its batch): the wrapper's launches and the picked
+   scan on every element held to the plain version bit for bit, the
+   batched scan's bound and latency floors at these shapes, and the two
+   timed in turns (the parent's batched scan; the window scan and the
+   launch after it; twice; the parent's), which gives the window scan's
+   row of the kernels line.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's), the card line, and last ``{"ok": true, "device": {...}}``.
@@ -200,7 +222,8 @@ SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
 # `verdict_rows` and the one of `population_prologue`
 VERDICT_ROWS = ("verdict_summary", "verdict_configs", "verdict_write")
 VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
-                   "ffd_scan_global_batched", *VERDICT_ROWS, "population_pairs")
+                   "ffd_scan_global_batched", "ffd_scan_window_batched", *VERDICT_ROWS,
+                   "population_pairs")
 # the wrapper (the function held to its plain version) of each verdict launch
 VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
                     "population_pairs": "population_prologue"}
@@ -213,6 +236,7 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live",
                "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
                "ffd_scan_global_batched": "live",
+               "ffd_scan_window_batched": "consolidation",
                **{k: "live" for k in VERDICT_FUNCTION},
                "admit_kernel": "arrivals"}
 OBJECTIVES = ("nodes", "cost")
@@ -227,6 +251,7 @@ VERDICT_REPLACES = {
     "ffd_scan_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_cluster_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_global_batched": "karpenter_tpu/ops/packer.py:615",
+    "ffd_scan_window_batched": "karpenter_tpu/ops/packer.py:615",
     **{k: "karpenter_tpu/ops/packer.py:525" for k in VERDICT_ROWS},
     "population_pairs": "karpenter_tpu/ops/packer.py:686",
 }
@@ -235,11 +260,14 @@ LIVE_UNIVERSE = 64
 POPULATION = {"sweep": 320, "live": 512}
 SEARCH_ROUNDS, SEARCH_SEED, VERDICT_SEED = 2, 7, 8
 TIMED_VERDICTS = 5
-# the scan each verdict problem's shapes pick, and its batched launch count
+# the scan each verdict problem's shapes pick (its batched form runs after
+# the frontier-window scan where `fused_packer.batch_launches` says so: at
+# ``sweep`` the window holds every slot, at ``live`` next0 is past it)
 VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 # the kernels whose registers phase 2 prints and whose spills fail the run
-SPILL_CHECKED = ("choose_config", *VERDICT_ROWS, "population_pairs", "admit")
+SPILL_CHECKED = ("choose_config", "ffd_scan_window", *VERDICT_ROWS, "population_pairs",
+                 "admit")
 # phase 7: the operator over config 2's catalog and all of its pods, ticks
 # of fake clock, the ticks allowed until every pod is bound, the churn
 OPERATOR_PODS = 10_000
@@ -282,6 +310,11 @@ ADMIT_BARRIERS, ADMIT_FIXED_LOADS = 7, 3
 # disruption takes no action for CONSOLIDATION_QUIET ticks in a row with no
 # pod pending, at most CONSOLIDATION_TICKS; profiled ticks at most
 CONSOLIDATION_QUIET, CONSOLIDATION_TICKS, PROFILED_TICKS = 3, 120, 6
+# phase 9's base: the removal batch its kernels are held and timed on (the
+# first round of a SearchPlan pass over the base's universe, as the
+# disruption controller's population search sizes it), and the timed calls
+# of each side of the in-turns reading
+BASE_POPULATION, BASE_SEED, BASE_ITERS = 128, 19, 5
 # what phase 9's drive must launch through the operator
 CONSOLIDATION_KERNELS = ("choose_config", *VERDICT_ROWS, "population_pairs")
 # the CPU drives of phases 8 and 9 run in a process of their own, beside
@@ -1022,6 +1055,50 @@ def verdict_inputs(torch, sched, spec):
     return base, batch, torch.from_numpy(masks).to(dev)
 
 
+def window_report(torch, label, records, each: bool = False) -> dict:
+    """The batched launch groups `fused_packer.WINDOW_RECORDS` took (read
+    after a synchronize, off the main path): for each group its B, Gp, Kp,
+    Cp, next0, W and plan, how many elements the frontier-window scan
+    finished and how many the picked scan took after it, and the largest
+    element frontier (`testing.element_frontiers` of its node_cfg).  Fails
+    where the window's `done` mask is not the elements whose frontier stays
+    within W (the main path's usages are sums of requests: clean and
+    finite, so no tail moves).  ``each``: a line a group, else a line per
+    distinct shape.  Returns the totals."""
+    from karpenter_tpu_torch import testing as T
+
+    torch.cuda.synchronize()
+    lines, tot = {}, {"groups": 0, "elements": 0, "window": 0, "second": 0, "max_frontier": 0}
+    for r in records:
+        front = T.element_frontiers(r["node_cfg"].cpu().numpy(), r["next0"])
+        if r["done"] is None:
+            finished = 0
+        else:
+            done = r["done"].cpu().numpy()
+            if (done != (front <= r["W"])).any():
+                fail(f"{label}: the window's done mask {done.tolist()} is not the elements whose "
+                     f"frontier {front.tolist()} stays within W {r['W']}")
+            finished = int(done.sum())
+        second = r["B"] - finished if r["plan"] != "window" else 0
+        key = tuple(r[k] for k in ("B", "Gp", "Kp", "Cp", "next0", "W", "plan"))
+        line = lines.setdefault(key if not each else (len(lines), *key), [0, 0, 0, 0])
+        line[0] += 1
+        line[1] += finished
+        line[2] += second
+        line[3] = max(line[3], int(front.max()))
+        for k, v in (("groups", 1), ("elements", r["B"]), ("window", finished),
+                     ("second", second)):
+            tot[k] += v
+        tot["max_frontier"] = max(tot["max_frontier"], int(front.max()))
+    for key, (n, fin, sec, mf) in lines.items():
+        B, Gp, Kp, Cp, next0, W, plan = key[-7:]
+        print(f"  {label} batched launch{'es' if n > 1 else ''}: {n} x B={B} Gp={Gp} Kp={Kp} "
+              f"Cp={Cp} next0={next0} W={W} plan={plan}: the window finished {fin}, the picked "
+              f"scan took {sec}; largest element frontier {mf}")
+    print(f"  {label} batched totals: {json.dumps(tot)}")
+    return tot
+
+
 def compare_verdict_kernels(torch, name, base, batch, masks, objective):
     """Phase 6's bit-equality on one problem's card tensors: the batched
     scan on the removal batch and on the population (the global scan too at
@@ -1044,19 +1121,23 @@ def compare_verdict_kernels(torch, name, base, batch, masks, objective):
     if picked != VERDICT_SCAN[name]:
         fail(f"{name}: the shape rule picks {picked}, expected {VERDICT_SCAN[name]}")
     shapes = (req.shape[0], alloc.shape[0], used0.shape[0], req.shape[1], sig0.shape[0])
+    plan = F.batch_launches(next0, *pack_shapes(base.args))
     pop_outs = None
     for label, (cnt_b, rm_b, perm_b) in (("removal batch", batch), ("population", got_pop)):
         scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
                      sig0, cnt_b, rm_b, perm_b)
-        outs = F.ffd_scan_batch(*scan_args)
+        outs, moved = launches_of(torch, lambda: F.ffd_scan_batch(*scan_args))
+        if moved != dict.fromkeys(plan, 1):
+            fail(f"{name} {label}: the batched scan launched {moved}, expected {plan}")
         want = P.ffd_scan_batch_reference(*scan_args)
-        torch.cuda.synchronize()
-        scans = [(f"{picked}_batched", outs)]
+        # the plan's launches, and the picked scan on every element
+        scans = [(k, outs) for k in plan]
+        scans.append((f"{picked}_batched", forced_scan(F, scan_args)()))
         if name == "live":
-            g = F._launch_global((req, cnt_b[0], *scan_args[1:13]), shapes,
-                                 (perm_b.shape[0], perm_b, cnt_b, rm_b))
-            torch.cuda.synchronize()
-            scans.append(("ffd_scan_global_batched", g))
+            scans.append(("ffd_scan_global_batched", F._launch_global(
+                (req, cnt_b[0], *scan_args[1:13]), shapes,
+                (perm_b.shape[0], perm_b, cnt_b, rm_b))))
+        torch.cuda.synchronize()
         for k, got in scans:
             errs[k] = max(errs.get(k, 0.0), max_abs_err(torch, got, want))
         tail = (perm_b, feas, alloc, price, openable, base.pool_id, base.zone_id, base.ct_id,
@@ -1067,13 +1148,23 @@ def compare_verdict_kernels(torch, name, base, batch, masks, objective):
         errs["verdict_rows"] = max(errs.get("verdict_rows", 0.0),
                                    max_abs_err(torch, [rows], [want_rows]))
         print(f"  {name} {objective} {label}: B={perm_b.shape[0]} Gp={req.shape[0]} "
-              f"Kp={used0.shape[0]} Cp={alloc.shape[0]} R={req.shape[1]}: "
+              f"Kp={used0.shape[0]} Cp={alloc.shape[0]} R={req.shape[1]} launches {plan}: "
               + " ".join(f"{k} max_abs_err={v!r}" for k, v in sorted(errs.items())))
         if label == "population":
             pop_outs = (scan_args, outs, tail)
     if any(v != 0 for v in errs.values()):
         fail(f"{name} {objective}: a verdict kernel disagrees with its plain version: {errs}")
     return errs, pop, pop_outs
+
+
+def launches_of(torch, fn):
+    """``fn()``'s result (after a synchronize) and the launches it made."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    before = dict(F.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
 
 
 def batched_scan_bound(torch, scan_args, outs):
@@ -1178,8 +1269,25 @@ def prologue_bound(pop, outs):
     return _bound(byts, ops)
 
 
+def batch_shapes(scan_args):
+    """``(K, R, S, C)`` of `ffd_scan_batch`'s arguments, as `pack_shapes`."""
+    return (scan_args[8].shape[0], scan_args[0].shape[1], scan_args[12].shape[0],
+            scan_args[4].shape[0])
+
+
+def forced_scan(F, scan_args):
+    """A call of the scan `scan_kernel` picks at the shapes, with the batch
+    axis, on every element of ``scan_args`` (no window scan before it)."""
+    req, cnt_b, rm_b, perm_b = scan_args[0], *scan_args[13:]
+    K, R, S, C = batch_shapes(scan_args)
+    return lambda: F._launch_picked((req, cnt_b[0], *scan_args[1:13]), (req.shape[0], C, K, R, S),
+                                    (perm_b.shape[0], perm_b, cnt_b, rm_b))
+
+
 def time_verdict_kernels(torch, name, pop, pop_outs):
-    """Device ms a launch (torch.profiler) of the batched scan, each launch
+    """Device ms a launch (torch.profiler) of the batched scan the shapes
+    pick (on every element: `forced_scan`) and, where the wrapper launches
+    it, of the frontier-window scan (through `ffd_scan_batch`), each launch
     of `verdict_rows` and `population_pairs` on the population's tensors,
     beside their plain versions (CUDA events) and, beside the prologue,
     ``torch.argsort(stable=True)`` of the same keys' shape; at ``live``
@@ -1194,16 +1302,19 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
     rows = lambda: F.verdict_rows(*outs, *tail)
     rows_ms = profiled_launches_ms(torch, rows, VERDICT_ROWS, iters=50)
     rows_plain = cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)
+    scan_plain = cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=2, warmup=1)
     out = {
         f"{picked}_batched": (
-            profiled_ms(torch, lambda: F.ffd_scan_batch(*scan_args), picked, iters=20),
-            cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=2, warmup=1)),
+            profiled_ms(torch, forced_scan(F, scan_args), picked, iters=20), scan_plain),
         **{k: (rows_ms[k], rows_plain) for k in VERDICT_ROWS},
         "population_pairs": (
             profiled_ms(torch, lambda: F.population_prologue(*pop), "population_pairs",
                         iters=50),
             cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
     }
+    if "ffd_scan_window_batched" in F.batch_launches(scan_args[11], *batch_shapes(scan_args)):
+        out["ffd_scan_window_batched"] = (profiled_ms(
+            torch, lambda: F.ffd_scan_batch(*scan_args), "ffd_scan_window", iters=20), scan_plain)
     rows_events = cuda_ms(torch, rows, iters=50)
     if name == "live":
         shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
@@ -1221,19 +1332,22 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
     return out, argsort_ms, rows_events
 
 
-def batched_floor_ms(torch, name, base, B, barrier_us, l2_us) -> float:
-    """The batched scan's latency floor: class steps x (its barrier + 2 /
+def batched_floor_ms(torch, name, base, B, barrier_us, l2_us, kernel=None) -> float:
+    """A batched scan's latency floor: class steps x (its barrier + 2 /
     SCAN_TILE dependent L2 loads) x ceil(B / elements the card runs at
-    once)."""
+    once).  ``kernel``: the scan the base's shapes pick (``None``) or
+    ``"ffd_scan_window"``, whose step is the resident scan's (one block
+    barrier, the same tiles of class rows)."""
     from karpenter_tpu_torch.ops import fused_packer as F
 
     K, R, S, C = pack_shapes(base.args)
     G = base.args[0].shape[0]
-    at_once = F.scan_concurrency(K, R, S, C)
+    kernel = kernel or F.scan_kernel(K, R, S, C)
+    at_once = F.scan_concurrency(K, R, S, C, kernel)
     waves = -(-B // at_once)
-    _, loads = scan_step_model(VERDICT_SCAN[name], K)
+    _, loads = scan_step_model("ffd_scan" if kernel == "ffd_scan_window" else kernel, K)
     ms = G * (barrier_us + loads * l2_us) * waves / 1e3
-    print(f"  {name} {VERDICT_SCAN[name]}_batched latency floor: {G} steps x ({barrier_us!r} us "
+    print(f"  {name} {kernel}_batched latency floor: {G} steps x ({barrier_us!r} us "
           f"barrier + {loads} L2 x {l2_us!r} us) x {waves} waves ({B} elements, {at_once} at "
           f"once) = {ms!r} ms")
     return ms
@@ -1253,8 +1367,9 @@ def rows_in_groups(F, group: int, outs, tail):
 def compare_tie_cases(torch):
     """Phase 6's tie and edge cases, both objectives, kernels against their
     plain versions bit for bit: on each of `testing.VERDICT_TIE_CASES` the
-    removal verdicts through the card (the choice, the batched scan the
-    shapes pick, the three launches of `verdict_rows`, each once) and
+    removal verdicts through the card (the choice, the batched scans
+    `fused_packer.batch_launches` names, the three launches of
+    `verdict_rows`, each once) and
     `verdict_rows` on the scan's outputs at next0, 0 and K (on the first
     case also on every element group); `population_prologue` on each of
     `testing.PROLOGUE_CASES` (one launch).  Returns the largest error per
@@ -1267,22 +1382,18 @@ def compare_tie_cases(torch):
     errs = {"verdict_rows": 0.0, "population_prologue": 0.0}
     first = next(iter(T.VERDICT_TIE_CASES))
 
-    def moved_by(fn):
-        before = dict(F.LAUNCHES)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
-
     for name, shape in T.VERDICT_TIE_CASES.items():
         a = P.to_device(T.verdict_tie_arrays(*shape), dev)
         (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
          pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
         K, R = used0.shape
-        scan = F.scan_kernel(K, R, sig0.shape[0], alloc.shape[0]) + "_batched"
+        scans = F.batch_launches(next0, K, R, sig0.shape[0], alloc.shape[0])
+        scan = "+".join(scans)
         tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable)
         for objective in OBJECTIVES:
-            got, moved = moved_by(lambda: F.removal_verdicts(*a, objective=objective))
-            if moved != {"choose_config": 1, scan: 1, **{k: 1 for k in VERDICT_ROWS}}:
+            got, moved = launches_of(torch, lambda: F.removal_verdicts(*a, objective=objective))
+            if moved != {"choose_config": 1, **dict.fromkeys(scans, 1),
+                         **{k: 1 for k in VERDICT_ROWS}}:
                 fail(f"{name}: removal_verdicts launched {moved}")
             e = max_abs_err(torch, [got], [P.removal_verdicts_reference(*a, objective=objective)])
             chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
@@ -1308,7 +1419,7 @@ def compare_tie_cases(torch):
             errs["verdict_rows"] = max(errs["verdict_rows"], e)
     for U, G, K, Pm in T.PROLOGUE_CASES:
         a = P.to_device(T.population_arrays(U, G, K, Pm), dev)
-        got, moved = moved_by(lambda: F.population_prologue(*a))
+        got, moved = launches_of(torch, lambda: F.population_prologue(*a))
         if moved != {"population_pairs": 1}:
             fail(f"population_prologue at U {U} Gp {G} launched {moved}")
         e = max_abs_err(torch, got, P.population_prologue_reference(*a))
@@ -1322,9 +1433,10 @@ def compare_tie_cases(torch):
 def compare_batch_limit(torch):
     """Phase 6's batch past one launch: `testing.verdict_tie_arrays` at Gp 8,
     Kp 64 and B = `fused_packer.MAX_BATCH` + 101 elements.  The batched scan
-    must launch twice, each launch writing its slice, and equal its plain
-    version bit for bit, as must `verdict_rows` on its outputs.  Returns
-    the largest error per function."""
+    (at Kp 64 the frontier-window scan alone) must launch twice, each launch
+    writing its slice, and equal its plain version bit for bit, as must
+    `verdict_rows` on its outputs.  Returns the largest error per
+    function."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
@@ -1336,22 +1448,89 @@ def compare_batch_limit(torch):
     chosen = F.choose_config(req, maxper, feas, alloc, price, openable)
     scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
                  cnt_b, rm_b, perm_b)
-    before = dict(F.LAUNCHES)
-    outs = F.ffd_scan_batch(*scan_args)
-    torch.cuda.synchronize()
-    moved = {k: n - before[k] for k, n in F.LAUNCHES.items() if n != before[k]}
-    if moved != {"ffd_scan_batched": 2}:
-        fail(f"the batched scan at B {B} launched {moved}, not twice")
+    outs, moved = launches_of(torch, lambda: F.ffd_scan_batch(*scan_args))
+    plan = F.batch_launches(next0, *batch_shapes(scan_args))
+    if moved != dict.fromkeys(plan, 2):
+        fail(f"the batched scan at B {B} launched {moved}, not {plan} twice")
     e_scan = max_abs_err(torch, outs, P.ffd_scan_batch_reference(*scan_args))
     tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
     e_rows = max_abs_err(torch, [F.verdict_rows(*outs, *tail)],
                          [P.verdict_rows_reference(*outs, *tail)])
     print(f"  batch past one launch: B={B} Gp={req.shape[0]} Kp={used0.shape[0]} "
-          f"(take {outs[0].numel() * 4} bytes), ffd_scan_batched launches {moved['ffd_scan_batched']}: "
+          f"(take {outs[0].numel() * 4} bytes), launches {moved}: "
           f"scan max_abs_err={e_scan!r}, verdict_rows max_abs_err={e_rows!r}")
     if e_scan != 0 or e_rows != 0:
         fail(f"the batched scan or verdict_rows at B {B} disagrees with its plain version")
-    return {"ffd_scan_batched": e_scan, "verdict_rows": e_rows}
+    return {**dict.fromkeys(plan, e_scan), "verdict_rows": e_rows}
+
+
+def compare_frontier_cases(torch):
+    """Phase 6's frontier-window cases (`testing.frontier_arrays`), both
+    objectives: `ffd_scan_batch` must make the launches `window_plan` says
+    (the window alone, both, or the picked scan alone), its window's `done`
+    mask must be `testing.window_finishes` (the elements whose frontier
+    stays within W, where the tail does not move), and every output must
+    equal the plain version bit for bit, as must the removal verdicts'
+    rows.  The cases together must show all three plans and elements the
+    picked scan took after they left the window.  Returns the largest error
+    per function."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    dev = torch.device("cuda")
+    errs = {"ffd_scan_window_batched": 0.0, "verdict_rows": 0.0}
+    plans, left = set(), 0
+    for case, (_, _, _, what) in T.FRONTIER_CASES.items():
+        a = P.to_device(T.frontier_arrays(case), dev)
+        (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+         *_, cnt_b, rm_b, perm_b) = a
+        K, R = used0.shape
+        W = F.window_layout(K, R, sig0.shape[0], alloc.shape[0])[0]
+        for objective in OBJECTIVES:
+            chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
+            scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
+                         sig0, cnt_b, rm_b, perm_b)
+            F.WINDOW_RECORDS = []
+            try:
+                outs, moved = launches_of(torch, lambda: F.ffd_scan_batch(*scan_args))
+                (rec,) = F.WINDOW_RECORDS
+            finally:
+                F.WINDOW_RECORDS = None
+            plan = F.batch_launches(next0, *batch_shapes(scan_args))
+            if moved != dict.fromkeys(plan, 1):
+                fail(f"frontier case {case}: the batched scan launched {moved}, expected {plan}")
+            want = P.ffd_scan_batch_reference(*scan_args)
+            e = max_abs_err(torch, outs, want)
+            finishes = T.window_finishes(used0.cpu().numpy(), req.cpu().numpy(),
+                                         want[2].cpu().numpy(), next0, W)
+            done = rec["done"].cpu().numpy() if rec["done"] is not None else None
+            if done is not None and (done != finishes).any():
+                fail(f"frontier case {case}: the window's done mask {done.tolist()}, "
+                     f"expected {finishes.astype(int).tolist()}")
+            rows = F.removal_verdicts(*a, objective=objective)
+            e_rows = max_abs_err(torch, [rows], [P.removal_verdicts_reference(
+                *a, objective=objective)])
+            front = T.element_frontiers(want[2].cpu().numpy(), next0)
+            finished = 0 if done is None else int(done.sum())
+            second = 0 if rec["plan"] == "window" else perm_b.shape[0] - finished
+            print(f"  frontier case {case} ({what}) {objective}: B={perm_b.shape[0]} "
+                  f"Gp={req.shape[0]} Kp={K} Cp={alloc.shape[0]} next0={next0} W={W} "
+                  f"plan={rec['plan']} {plan}: the window finished {finished}, the picked scan "
+                  f"took {second}; frontiers {front.min()}-{front.max()}; scan "
+                  f"max_abs_err={e!r}, verdict rows max_abs_err={e_rows!r}")
+            if e != 0 or e_rows != 0:
+                fail(f"frontier case {case} {objective}: the batched scan or the verdict rows "
+                     f"disagree with the plain version")
+            plans.add(rec["plan"])
+            if rec["plan"] == "both":
+                left += second
+            errs["ffd_scan_window_batched"] = max(errs["ffd_scan_window_batched"], e)
+            errs["verdict_rows"] = max(errs["verdict_rows"], e_rows)
+    if plans != {"pick", "window", "both"} or not left:
+        fail(f"the frontier cases showed the plans {sorted(plans)} and {left} elements that "
+             f"left the window")
+    return errs
 
 
 def verdict_phase(torch, card):
@@ -1366,28 +1545,38 @@ def verdict_phase(torch, card):
     for name, spec in specs.items():
         print(f"  {name}: {len(spec['existing'])} live nodes, universe {len(spec['universe'])}, "
               f"{len(spec['subsets'])} subsets, population {spec['population']}", flush=True)
+    records = F.WINDOW_RECORDS = []
     F.reset_launches()
-    card_runs, per_problem = {}, {}
-    for name, spec in specs.items():
-        before = dict(F.LAUNCHES)
-        for objective in OBJECTIVES:
-            sched = TorchScheduler(spec["pools"], spec["inventory"], existing=spec["existing"],
-                                   device="cuda", objective=objective)
-            runs = [drive_verdicts(sched, spec)
-                    for _ in range(1 + (TIMED_VERDICTS if objective == "nodes" else 0))]
-            torch.cuda.synchronize()
-            card_runs[(name, objective)] = (sched, runs)
-        per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in VERDICT_KERNELS}
+    card_runs, per_problem, per_records = {}, {}, {}
+    try:
+        for name, spec in specs.items():
+            before, first = dict(F.LAUNCHES), len(records)
+            for objective in OBJECTIVES:
+                sched = TorchScheduler(spec["pools"], spec["inventory"],
+                                       existing=spec["existing"], device="cuda",
+                                       objective=objective)
+                runs = [drive_verdicts(sched, spec)
+                        for _ in range(1 + (TIMED_VERDICTS if objective == "nodes" else 0))]
+                torch.cuda.synchronize()
+                card_runs[(name, objective)] = (sched, runs)
+            per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in VERDICT_KERNELS}
+            per_records[name] = records[first:]
+    finally:
+        F.WINDOW_RECORDS = None
     launches = dict(F.LAUNCHES)
     print(f"  launches over the drive: {{{', '.join(f'{k!r}: {launches[k]}' for k in VERDICT_KERNELS)}}}"
           f", per problem {per_problem}")
+    batched = [k for k in VERDICT_KERNELS if k.startswith("ffd_scan")]
     for name, got in per_problem.items():
-        for k in (f"{VERDICT_SCAN[name]}_batched", *VERDICT_FUNCTION):
+        base = card_runs[(name, "nodes")][0]._removal_base(tuple(specs[name]["universe"]))
+        plan = F.batch_launches(base.args[11], *pack_shapes(base.args))
+        for k in (*plan, *VERDICT_FUNCTION):
             if got[k] <= 0:
                 fail(f"{name}: {k} launched no time in the drive")
-        print(f"  {name}: the elements ran {VERDICT_SCAN[name]} (batched)")
-    if launches["ffd_scan_global_batched"]:
-        fail(f"ffd_scan_global_batched launched {launches['ffd_scan_global_batched']} times")
+        if any(got[k] for k in batched if k not in plan):
+            fail(f"{name}: batched scans launched {got}, expected only {plan}")
+        print(f"  {name}: the batched scans ran as {plan} (fused_packer.batch_launches)")
+        window_report(torch, f"{name} drive", per_records[name])
     # the same calls through the plain versions on the CPU
     for (name, objective), (sched, runs) in card_runs.items():
         spec = specs[name]
@@ -1422,10 +1611,12 @@ def verdict_phase(torch, card):
                 errs[k] = max(errs.get(k, 0.0), v)
             if objective == "nodes":
                 timing[name] = (base, pop, pop_outs)
-    for k, v in (*compare_tie_cases(torch).items(), *compare_batch_limit(torch).items()):
+    for k, v in (*compare_tie_cases(torch).items(), *compare_batch_limit(torch).items(),
+                 *compare_frontier_cases(torch).items()):
         errs[k] = max(errs.get(k, 0.0), v)
     # times, bounds and floors
-    threads = sorted({F.scan_threads(pack_shapes(t[0].args)[0]) for t in timing.values()})
+    threads = sorted({F.scan_threads(pack_shapes(t[0].args)[0]) for t in timing.values()}
+                     | {F.WINDOW_THREADS})
     K, R, S, C = pack_shapes(timing["live"][0].args)
     ctas, _, _ = F.cluster_layout(K, R, S, C)
     barrier_us, cluster_us, l2_us = probe_latencies(
@@ -1448,6 +1639,10 @@ def verdict_phase(torch, card):
         else:
             b_us = barrier_us[F.scan_threads(Kb)]
         floor = batched_floor_ms(torch, name, base, B, b_us, l2_us)
+        if "ffd_scan_window_batched" in t:
+            bounds["ffd_scan_window_batched"] = b_scan
+            batched_floor_ms(torch, name, base, B, barrier_us[F.WINDOW_THREADS], l2_us,
+                             kernel="ffd_scan_window")
         for k, (dev_ms, plain_ms) in t.items():
             print(f"  {name} {k}: kernel {dev_ms!r} ms device (profiler), plain {plain_ms!r} ms "
                   f"(CUDA events), bound {bounds[k]} ({card})")
@@ -1467,11 +1662,12 @@ def verdict_phase(torch, card):
               f"int32 keys: {argsort_ms!r} ms a call (CUDA events) beside population_pairs' "
               f"{t['population_pairs'][0]!r} ms")
     for f in ("ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-              "verdict_rows", "population_prologue"):
+              "ffd_scan_window_batched", "verdict_rows", "population_prologue"):
         if f not in errs:
             fail(f"phase 6 never compared {f}")
-    return {k: dict(figures[k], launches=launches[k], err=errs[VERDICT_FUNCTION.get(k, k)])
-            for k in VERDICT_KERNELS}
+    # the window scan's row is measured at phase 9's base
+    return {k: dict(figures.get(k, {}), launches=launches[k],
+                    err=errs[VERDICT_FUNCTION.get(k, k)]) for k in VERDICT_KERNELS}
 
 
 
@@ -2237,7 +2433,7 @@ def counter_by(reg, name: str, label: str) -> dict:
 
 
 def drive_consolidation(device: str, n_pods: int = OPERATOR_PODS, launches=None,
-                        profile_tick=None):
+                        profile_tick=None, bases=None):
     """Phase 9's drive on ``device``: `testing.consolidating_cluster` (config
     2's first ``n_pods`` pods bound, a seeded half deleted, consolidate_after lowered
     to a few ticks; the default Settings, so the pipelined schedule is on),
@@ -2249,7 +2445,8 @@ def drive_consolidation(device: str, n_pods: int = OPERATOR_PODS, launches=None,
     Each tick's line carries its disruption actions, its speculation
     outcomes and the ledger's ``NodeDisrupted`` / ``VerdictFallback``
     events.  Returns (env, the fleet before, tick summaries, the events in
-    order, the profiled ticks)."""
+    order, the profiled ticks).  ``bases``: a list that gets each removal
+    base the disruption controller's scheduler builds, in order."""
     from karpenter_tpu_torch import testing as T
 
     env = T.consolidating_cluster(device, n_pods=n_pods)
@@ -2275,6 +2472,10 @@ def drive_consolidation(device: str, n_pods: int = OPERATOR_PODS, launches=None,
         t["pending"] = len(env.kube.pending_pods())
         events.extend(mine)
         ticks.append(t)
+        if bases is not None:
+            for entry in env.operator.disruption._scheduler._removal_cache.values():
+                if all(entry[0] is not b for b in bases):
+                    bases.append(entry[0])
 
     quiet = 0
     for _ in range(CONSOLIDATION_TICKS):
@@ -2296,10 +2497,122 @@ def drive_consolidation(device: str, n_pods: int = OPERATOR_PODS, launches=None,
     return env, before, ticks, events, profiled
 
 
-def consolidation_phase(torch, card, twins) -> dict:
+def consolidation_base(torch, card, bases) -> dict:
+    """Phase 9's base: of the removal bases the drive built, the one at the
+    largest Kp (the last of them), with the first round of a `SearchPlan`
+    pass over its universe (`BASE_POPULATION` members, the controller's
+    objective "cost") as its batch, through `population_prologue` on the
+    card.  Prints its launch group (`window_report`); holds
+    `ffd_scan_batch` (the window scan and the picked scan after it) and the
+    picked scan on every element (the parent's batched scan) to the plain
+    version bit for bit; prints the batched scan's bound and both latency
+    floors at these shapes; times the two in turns (parent, new, new,
+    parent: profiler ms a launch of each kernel and CUDA-event ms a call).
+    Returns the window scan's kernels-line figures."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.scheduling.popsearch import SearchPlan
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    usable = [b for b in bases if b.args and not (b.reason or b.empty or b.pop_reason)]
+    if not usable:
+        fail("phase 9: the drive built no removal base with a population path")
+    base = max(reversed(usable), key=lambda b: b.kp)
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = base.args
+    U = base.cand_slot.shape[0]
+    keys = SearchPlan(U, [1.0] * U, [False] * U, BASE_POPULATION, SEARCH_ROUNDS,
+                      BASE_SEED).propose()
+    pp = P._bucket(len(keys), floor=TorchScheduler.MIN_REMOVAL_BATCH)
+    masks = key_masks(keys, U)
+    masks = np.concatenate([masks, np.zeros((pp - len(keys), U), bool)])
+    pop = (base.cand_cnt, base.cand_slot, base.cand_occ, base.sort_rank, base.occ_span,
+           torch.from_numpy(masks).to(used0.device), base.k_slots)
+    cnt_b, rm_b, perm_b = F.population_prologue(*pop)
+    chosen = F.choose_config(req, maxper, feas, alloc, price, openable, "cost")
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    shapes = K, R, S, C = batch_shapes(scan_args)
+    B = perm_b.shape[0]
+    plan = F.batch_launches(next0, *shapes)
+    picked = F.scan_kernel(*shapes)
+    print(f"  phase 9's base ({len(bases)} built; the last at the largest Kp): B={B} "
+          f"Gp={req.shape[0]} Kp={K} Cp={C} R={R} S={S} next0={next0}, universe {U}; "
+          f"launches {plan}", flush=True)
+    F.WINDOW_RECORDS = []
+    try:
+        outs, moved = launches_of(torch, lambda: F.ffd_scan_batch(*scan_args))
+        records = F.WINDOW_RECORDS
+    finally:
+        F.WINDOW_RECORDS = None
+    if moved != dict.fromkeys(plan, 1):
+        fail(f"phase 9's base: the batched scan launched {moved}, expected {plan}")
+    window_report(torch, "phase 9's base", records, each=True)
+    parent = forced_scan(F, scan_args)
+    want = P.ffd_scan_batch_reference(*scan_args)
+    err = max_abs_err(torch, outs, want)
+    err_parent = max_abs_err(torch, parent(), want)
+    print(f"  phase 9's base: ffd_scan_batch ({'+'.join(plan)}) max_abs_err={err!r}, "
+          f"{picked}_batched on every element max_abs_err={err_parent!r}")
+    if err != 0 or err_parent != 0:
+        fail("phase 9's base: a batched scan disagrees with its plain version")
+    bound = batched_scan_bound(torch, scan_args, outs)
+    print(f"  phase 9's base batched scan bound: {bound} ({card})")
+    clusters = []
+    if picked == "ffd_scan_cluster":
+        ctas = F.cluster_layout(*shapes)[0]
+        clusters = [(ctas, F.scan_threads(-(-K // ctas)))]
+    barrier_us, cluster_us, l2_us = probe_latencies(
+        torch, sorted({F.WINDOW_THREADS, F.scan_threads(K)}), clusters)
+    floor = batched_floor_ms(torch, "phase 9's base", base, B, barrier_us[F.WINDOW_THREADS],
+                             l2_us, kernel="ffd_scan_window")
+    batched_floor_ms(torch, "phase 9's base", base, B,
+                     cluster_us[clusters[0]] if clusters else barrier_us[F.scan_threads(K)],
+                     l2_us)
+    # CUDA events around back-to-back calls, each side: the profiler records
+    # no device time for the batched cluster scan at these shapes (PERF.md §7)
+    args14 = (req, cnt_b[0], *scan_args[1:13])
+    shapes5 = (req.shape[0], C, K, R, S)
+    batch = (B, perm_b, cnt_b, rm_b)
+    done = torch.empty(B, dtype=torch.int32, device=used0.device)
+    scratch = F._scan_outputs(req.shape[0], K, R, used0.device, (B,))
+    layout = F.window_layout(*shapes)
+    sides = {
+        "parent": parent,
+        "window": lambda: F._launch_window(args14, shapes5, layout, batch, done, scratch),
+        "after": lambda: F._launch_picked(args14, shapes5, (*batch, done), scratch),
+        "call": lambda: F.ffd_scan_batch(*scan_args),
+    }
+    if plan[-1] == "ffd_scan_window_batched":
+        del sides["after"]
+    turns = {k: [] for k in sides}
+    for side in ("parent", "new", "new", "parent"):
+        for k in (("parent",) if side == "parent" else [k for k in sides if k != "parent"]):
+            turns[k].append(cuda_ms(torch, sides[k], iters=BASE_ITERS, warmup=1))
+        print(f"  phase 9's base in turns, {side}: ms a call (CUDA events) "
+              f"{json.dumps({k: v[-1] for k, v in turns.items() if v})} ({card})", flush=True)
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    print(f"  phase 9's base: the parent's {picked}_batched {mean['parent']!r} ms a launch; the "
+          f"window scan {mean['window']!r} ms, the launch after it {mean.get('after')!r} ms "
+          f"({int(done.sum())} of {B} elements done), ffd_scan_batch {mean['call']!r} ms a call; "
+          f"parent / call {mean['parent'] / mean['call']!r}x; bound {bound['bound_ms']!r} ms, "
+          f"window floor {floor!r} ms (CUDA events, {card})")
+    window_ms = mean["window"]
+    seen = profile_solve(torch, lambda _: parent(), None)
+    print(f"  phase 9's base: torch.profiler over one call of the parent's "
+          f"{picked}_batched saw " + (json.dumps(seen["top_device_events"]) if seen
+                                      else "no device time"))
+    plain_ms = cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=1, warmup=1)
+    return dict(ms=window_ms, plain_ms=plain_ms, bound=bound, floor=floor, err=err,
+                argsort_ms=None)
+
+
+def consolidation_phase(torch, card, twins):
     """Phase 9 as the module docstring lists it; ``twins``: the `CpuTwins`
-    that runs the CPU drive.  Returns the launch counts of the card's
-    drive."""
+    that runs the CPU drive.  Returns the launch counts of the card's drive
+    and the window scan's figures at its base (`consolidation_base`)."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import fused_packer as F
 
@@ -2308,10 +2621,15 @@ def consolidation_phase(torch, card, twins) -> dict:
         return profile_solve(torch, lambda _: run_tick(), None)
 
     F.reset_launches()
+    bases, records = [], []
+    F.WINDOW_RECORDS = records
     t0 = time.perf_counter()
-    env, before, ticks, events, profiled = drive_consolidation(
-        "cuda", launches=F.LAUNCHES, profile_tick=profiled_tick)
-    torch.cuda.synchronize()
+    try:
+        env, before, ticks, events, profiled = drive_consolidation(
+            "cuda", launches=F.LAUNCHES, profile_tick=profiled_tick, bases=bases)
+        torch.cuda.synchronize()
+    finally:
+        F.WINDOW_RECORDS = None
     launches = dict(F.LAUNCHES)
     card_s = time.perf_counter() - t0
     reg = env.registry
@@ -2358,18 +2676,27 @@ def consolidation_phase(torch, card, twins) -> dict:
     for k in CONSOLIDATION_KERNELS:
         if not launches[k]:
             fail(f"phase 9: {k} never launched through the operator")
-    batched = {k: launches[k] for k in ("ffd_scan_batched", "ffd_scan_cluster_batched")}
-    if not sum(batched.values()):
-        fail(f"phase 9: no batched scan launched through the operator {batched}")
+    batched = {k: launches[k] for k in ("ffd_scan_batched", "ffd_scan_cluster_batched",
+                                        "ffd_scan_window_batched")}
+    if not batched["ffd_scan_window_batched"]:
+        fail(f"phase 9: the frontier-window scan never launched through the operator {batched}")
     if launches["ffd_scan_global_batched"]:
         fail(f"phase 9: ffd_scan_global_batched launched {launches['ffd_scan_global_batched']} "
              f"times")
+    window_report(torch, "phase 9", records, each=True)
+    planned = {k: 0 for k in batched}
+    for r in records:
+        for k in F.batch_launches(r["next0"], r["Kp"], r["R"], r["S"], r["Cp"]):
+            planned[k] = planned.get(k, 0) + 1
+    if planned != batched:
+        fail(f"phase 9: the batched launches {batched} are not those the launch groups' plans "
+             f"make {planned}")
     cache = list(env.operator.disruption._scheduler._removal_cache.values())
     base = cache[-1] if cache else None
     if base is not None and base[0].args:
         picked = F.scan_kernel(*pack_shapes(base[0].args))
-        print(f"  the last removal base (Kp {base[0].kp}, Gp {base[0].gp}) picks {picked}: its "
-              f"batched form launched {batched}")
+        print(f"  the last removal base (Kp {base[0].kp}, Gp {base[0].gp}) picks {picked}: the "
+              f"batched launches over the drive {batched}")
     cpu = twins.get("consolidation")
     print(f"  the same drive on the CPU (plain versions): {cpu['ticks']} ticks in "
           f"{cpu['seconds']!r} s (beside the card's drives, in a process of its own)", flush=True)
@@ -2385,7 +2712,7 @@ def consolidation_phase(torch, card, twins) -> dict:
     print(f"  the card's NodeClaims created and deleted, bindings, cloud calls, ledger "
           f"({len(events)} NodeDisrupted / VerdictFallback events in order) and solver and "
           f"disruption counters equal the CPU operator's")
-    return launches
+    return launches, consolidation_base(torch, card, bases)
 
 
 def observatory_totals() -> dict:
@@ -2635,9 +2962,11 @@ def main(argv) -> int:
 
         print(f"[consolidation] the disruption controller through the operator, {card}",
               flush=True)
-        consolidation = consolidation_phase(torch, card, twins)
+        consolidation, window_row = consolidation_phase(torch, card, twins)
     finally:
         twins.close()
+    verdicts["ffd_scan_window_batched"].update(window_row, err=max(
+        window_row["err"], verdicts["ffd_scan_window_batched"]["err"]))
 
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):

@@ -29,7 +29,11 @@
 // (N, B)) per element, for the consolidation verdicts, whose other steps
 // are the verdict kernels and the population prologue (see "The
 // consolidation verdicts" below).  The solve's scan is the one element B =
-// 1 with no descriptor.  The admission fast path's score of one class
+// 1 with no descriptor.  A batch runs first through
+// ffd_scan_window_kernel<M>, grid (1, B): one CTA an element over a window
+// of the first slots, where every element's frontier lies (see "The
+// frontier-window scan"); the elements it cannot hold go on to the scan
+// the shapes pick, whose blocks skip the others.  The admission fast path's score of one class
 // against the live nodes is admit_kernel, grid (1,) (see "The admission
 // score" below).
 // Per class each scan computes per-slot capacity, an exclusive int32 prefix
@@ -171,12 +175,22 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 // through the base row: a class's choice depends on its own row and the
 // price ceiling alone.  All null: the solve's scan, one element, the base
 // rows in order.  perm is read where a class row or a feasibility row is
-// loaded, never per slot.
+// loaded, never per slot.  done is set where the frontier-window scan ran
+// before this launch (see "The frontier-window scan"): an element whose
+// word is non-zero was finished there, and its block (or its whole
+// cluster: every CTA reads the same word) returns before its first barrier.
 struct Batch {
   const int* perm;    // [B][Gp] base rows, or null
   const int* cnt;     // [B][Gp] counts, or null (the base's cnt)
   const uint8_t* rm;  // [B][K] removed slots, or null
+  const int* done;    // [B] 1 where the window scan finished the element, or null
 };
+
+// Element e of a launch after the window scan, finished there already.
+template <bool kBatched>
+__device__ __forceinline__ bool finished(const Batch& bt, int e) {
+  return kBatched && bt.done && __ldg(bt.done + e) != 0;
+}
 
 // One element's view of the batch.
 struct Elem {
@@ -612,6 +626,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
   __shared__ unsigned sh[32];
   const int B = blockDim.x;
   const int e = kBatched ? blockIdx.y : 0;  // batch element
+  if (finished<kBatched>(bt, e)) return;
   const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
@@ -702,6 +717,14 @@ constexpr int kMaxR = 31;  // resource axes, at most: one flag bit each
 // reads its rows from device memory)
 constexpr unsigned kFinite = 1u << 31;
 constexpr int kXchgBytes = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4;
+
+// A usage that the fused update of a zero take (finite request) does not
+// leave as it is: -0.0 (0 * req + -0.0 is +0.0) or a NaN other than the
+// card's canonical one (the update returns the canonical NaN).
+__device__ __forceinline__ bool unclean(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u == 0x80000000u || (isnan(f) && u != 0x7fffffffu);
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -841,6 +864,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // slot i of thread t sits at i * B + t
   const int e = kBatched ? blockIdx.y : 0;  // batch element
+  if (finished<kBatched>(bt, e)) return;
   const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
@@ -886,10 +910,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   // non-canonical NaN in used, which holds for good if it holds for used0
   // (an add gives -0.0 only from two -0.0, and only canonical NaNs).
   bool odd = false;
-  for (int i = tid; i < K * R; i += B) {
-    const unsigned u = __float_as_uint(used0[i]);
-    odd |= u == 0x80000000u || (isnan(__uint_as_float(u)) && u != 0x7fffffffu);
-  }
+  for (int i = tid; i < K * R; i += B) odd |= unclean(used0[i]);
   const bool used_clean = !__syncthreads_or(odd);
 
   // ---- classes 0 .. kRing-2 in flight and the first tile, before step 0 ---
@@ -1197,6 +1218,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
   const int e = kBatched ? blockIdx.y : 0;  // batch element: the cluster's grid row
+  if (finished<kBatched>(bt, e)) return;  // every CTA of the cluster, before any DSMEM store
   const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
@@ -1247,10 +1269,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   // decides whether they skip used += 0 * req
   const int own = min(max(K - k0, 0), KP);
   bool odd = false;
-  for (int i = tid; i < own * R; i += B) {
-    const unsigned u = __float_as_uint(used0[(size_t)k0 * R + i]);
-    odd |= u == 0x80000000u || (isnan(__uint_as_float(u)) && u != 0x7fffffffu);
-  }
+  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(size_t)k0 * R + i]);
   const bool used_clean = !__syncthreads_or(odd);
 
   for (int h = 0; h < kRing - 1; ++h) {
@@ -1476,6 +1495,386 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
     cudaGetLastError();
     return (int)e;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The frontier-window scan
+// ---------------------------------------------------------------------------
+//
+// Replaces, with the batched scans above, the scan half of the JAX
+// package's removal_verdict_kernel / population_verdict_kernel
+// (karpenter_tpu/ops/packer.py, a vmap of _pack_core) for the
+// consolidation verdicts (ops/fused_packer.py: ffd_scan_batch).  Each
+// element is one what-if over the removal base, whose slot count is padded
+// to the worst case, one new node per universe pod (phase 9: n_live 77-151
+// live slots in Kp 8192), while an element only ever touches its frontier:
+// its live slots and the new slots opened so far.  Past the frontier a slot
+// holds no config and takes nothing, and the fused update of a zero take
+// leaves its usage as it is where the request is finite and the usage
+// clean (`unclean`).  The batched cluster scan gave CTA rank r the slots
+// [r * KP, (r + 1) * KP), so 7 of 8 CTAs held only such slots yet paid
+// every step's exchange and cluster barrier, and 16 clusters fit the card.
+// This kernel, grid (1, B), one CTA of kWinThreads an element:
+//   A. The CTA holds a window of W = M * kWinThreads slots [0, W) in shared
+//      memory, slot k on thread k % kWinThreads (round k / kWinThreads), so
+//      the first slots, where the frontier lies, spread over every warp.
+//      The wrapper picks W from (R, S, Cp) so that two CTAs fit a SM
+//      (fused_packer.window_layout): the whole batch in one wave up to 264
+//      elements.  Feasibility ring and class tiles as the resident scan.
+//   B. A step works on the 32-slot entries before the frontier only (the
+//      capacity pass; the update up to the frontier after the step's
+//      openings, or every slot of the window for a class whose request is
+//      not finite or where the window's usages are not clean).  The entry
+//      totals (at most 32: W <= 1024) meet at the step's one barrier,
+//      every warp scans them: one block barrier a step, no cluster.
+//   C. The slots past the window are written once: their node_cfg (-1
+//      where removed), node_pods and node_used (copied in 16-byte loads,
+//      checked clean on the way) before the first step, their take zeros
+//      with each step's row, in 16-byte streaming stores, off the step's
+//      chain.  That tail is the kernel's bytes bound: take alone is B x Gp
+//      x Kp x 4 bytes.
+//   D. The element leaves the window, with no host sync, where its
+//      frontier would pass W, or where the tail would change (a tail usage
+//      not clean, a class whose request is not finite): it sets its word
+//      of `done` to 0 and returns, and the launch that scan_kernel picks at
+//      Kp runs next on the stream and takes it (Batch::done); every
+//      element the window finishes sets its word to 1.
+// The per-slot arithmetic is the resident scan's, in the same order, so
+// the outputs are bit for bit those of ffd_scan_batch_reference (float
+// rules above).  What bounds it: the take bytes at the batch's shapes, else
+// the chain of Gp steps, each one capacity pass, one barrier and one
+// update over the frontier's entries.
+constexpr int kWinThreads = 256;
+constexpr int kWinWarps = kWinThreads / 32;
+constexpr int kWinMinBlocks = 2;  // CTAs a SM the wrapper's W leaves room for
+// the exchanges (fused_packer.WINDOW_XCHG_BYTES): the resident scan's, and
+// the prologue's per-warp last live slot and flags [2][32]
+constexpr int kWinXchgBytes = kXchgBytes + 2 * 32 * 4;
+
+// Copies n floats, 16 bytes at a time where both ends are aligned, with
+// streaming stores; true where one of them is not clean.
+__device__ __forceinline__ bool copy_tail(const float* __restrict__ src,
+                                          float* __restrict__ dst, size_t n) {
+  bool odd = false;
+  size_t i0 = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const size_t n4 = n / 4;
+    for (size_t i = threadIdx.x; i < n4; i += blockDim.x) {
+      const float4 v = __ldg(s4 + i);
+      odd |= unclean(v.x) || unclean(v.y) || unclean(v.z) || unclean(v.w);
+      __stcs(d4 + i, v);
+    }
+    i0 = n4 * 4;
+  }
+  for (size_t i = i0 + threadIdx.x; i < n; i += blockDim.x) {
+    const float v = src[i];
+    odd |= unclean(v);
+    dst[i] = v;
+  }
+  return odd;
+}
+
+template <int M>  // rounds of kWinThreads slots: the window holds M * kWinThreads
+__global__ void __launch_bounds__(kWinThreads, kWinMinBlocks) ffd_scan_window_kernel(
+    const float* __restrict__ req, const int* __restrict__ maxper,
+    const int* __restrict__ slot, const uint8_t* __restrict__ feas,
+    const float* __restrict__ alloc, const int* __restrict__ c_star,
+    const int* __restrict__ new_ok, const int* __restrict__ per,
+    const float* __restrict__ used0, const int* __restrict__ cfg0,
+    const int* __restrict__ npods0, const int* __restrict__ sig0, int Gp, int Cp,
+    int K, int R, int S, int next0, int smem_bytes, int chunk, Batch bt,
+    int* __restrict__ take, int* __restrict__ leftover, int* __restrict__ cfg_out,
+    int* __restrict__ npods_out, float* __restrict__ used_out, int* __restrict__ done) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int T = kWinThreads, nw = kWinWarps, W = M * T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e = blockIdx.y;  // batch element
+  const Elem el = elem_of<true>(bt, nullptr, e, Gp, K);
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  cfg_out += (size_t)e * K;
+  npods_out += (size_t)e * K;
+  used_out += (size_t)e * K * R;
+  const int lim = min(K, W);  // the window's slots that exist
+
+  // ring | class tiles | exchanges | window state, each [R or S][W]
+  const int slot_bytes = (Cp + 15) & ~15;
+  const int cw = 2 * R + 7;  // words of a class row
+  unsigned char* ring = smem;
+  int* tiles = (int*)(smem + (size_t)kRing * slot_bytes);  // [2][kTile][cw]
+  size_t off = (size_t)kRing * slot_bytes + (size_t)8 * kTile * cw;
+  unsigned* xtot = (unsigned*)(smem + off);  // [2][32] entry totals, by step parity
+  unsigned* xsum = xtot + 2 * 32;             // [32]
+  unsigned* xleft = xsum + 32;                // [2][32], by step parity
+  int* xpro = (int*)(xleft + 2 * 32);         // [2][32] last live slot, flags
+  off += kWinXchgBytes;
+  float* s_used = (float*)(smem + off);
+  float* s_alloc = s_used + (size_t)R * W;  // alloc row of the slot's config
+  int* s_cfg = (int*)(s_alloc + (size_t)R * W);
+  int* s_npods = s_cfg + W;
+  int* s_sig = s_npods + W;
+  off += (size_t)4 * W * (2 * R + 2 + S);
+  if (off > (size_t)smem_bytes) __trap();
+
+  // ---- classes 0 .. kRing-2 and the first tile in flight -------------------
+  for (int h = 0; h < kRing - 1; ++h) {
+    if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    cp_async_commit();
+  }
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  int ring_row = Gp > kRing - 1 ? el.row(kRing - 1) : 0;
+
+  // ---- the window's slot state in ------------------------------------------
+  int last = -1;     // the last slot with a config (rm applied)
+  bool odd = false;  // a window usage not clean
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int k = i * T + tid;
+    const bool real = k < K;
+    const int c = real ? el.cfg_in(cfg0, k) : -1;
+    if (c >= 0) last = k;
+    s_cfg[k] = c;
+    s_npods[k] = real ? npods0[k] : 0;
+    for (int r = 0; r < R; ++r) {
+      const float u = real ? used0[(size_t)k * R + r] : 0.0f;
+      odd |= unclean(u);
+      s_used[r * W + k] = u;
+      s_alloc[r * W + k] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
+    }
+    for (int s = 0; s < S; ++s) s_sig[s * W + k] = real ? sig0[(size_t)s * K + k] : 0;
+  }
+  // ---- the tail past the window, written once ------------------------------
+  bool moved = false;  // the tail would change: a usage not clean, a request not finite
+  if (K > W) {
+    for (int k = W + tid; k < K; k += T) {
+      const int c = el.cfg_in(cfg0, k);
+      if (c >= 0) last = k;
+      cfg_out[k] = c;
+      npods_out[k] = npods0[k];
+    }
+    moved = copy_tail(used0 + (size_t)W * R, used_out + (size_t)W * R, (size_t)(K - W) * R);
+    for (int i = tid; i < Gp * R; i += T) {
+      const int g = i / R;
+      moved |= !isfinite(req[(size_t)el.row(g) * R + (i - g * R)]);
+    }
+  }
+  last = __reduce_max_sync(kFull, last);
+  const unsigned wflags = __reduce_or_sync(kFull, (odd ? 1u : 0u) | (moved ? 2u : 0u));
+  if (lane == 0) {
+    xpro[warp] = last;
+    xpro[32 + warp] = (int)wflags;
+  }
+  cp_async_wait<kRing - 2>();
+  __syncthreads();
+  unsigned flags_all = 0u;
+  for (int w = 0; w < nw; ++w) {
+    last = max(last, xpro[w]);
+    flags_all |= (unsigned)xpro[32 + w];
+  }
+  const bool window_clean = !(flags_all & 1u);
+  int front = max(next0, last + 1);  // the frontier: at most K, and at most W to stay
+  if (K > W && (front > W || (flags_all & 2u))) {  // block-uniform
+    if (tid == 0) done[e] = 0;
+    cp_async_wait<0>();
+    return;
+  }
+  const bool vec = (K & 3) == 0 && (reinterpret_cast<uintptr_t>(take) & 15) == 0;
+
+  int nxt = next0;
+  bool pend = false;  // a leftover waits for the next barrier
+  int pend_g = 0, pend_n2 = 0;
+  for (int g = 0; g < Gp; ++g) {
+    const int p = g & 1;
+    const unsigned char* row = ring + (size_t)(g % kRing) * slot_bytes;
+    const float* creq =
+        (const float*)(tiles + ((g / kTile) & 1) * kTile * cw + (g % kTile) * cw);
+    const float* cacs = creq + R;
+    const int* cint = (const int*)(creq + 2 * R);
+    const int n = cint[0], mp = cint[1];
+    int* sig_s = s_sig + cint[2] * W;
+    const unsigned flags = (unsigned)cint[6];
+    const unsigned asked = flags & ~kFinite;
+    const bool skip_idle = window_clean && (flags & kFinite);
+    const int act = (front + 31) >> 5;  // entries (32 slots) before the frontier
+
+    // ---- capacities of the entries before the frontier, warp scans ---------
+    int cap[M];
+    unsigned ex[M];  // exclusive prefix within the entry
+    bool big = false;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int j = i * nw + warp;  // this warp's entry of round i: slots [32j, 32j + 32)
+      cap[i] = 0;
+      ex[i] = 0u;
+      if (j < act) {  // warp-uniform
+        const int k = i * T + tid;
+        const int c = s_cfg[k];
+        int cp = 0;
+        if (c >= 0 && row[c]) {
+          cp = node_cap_sh(s_alloc + k, s_used + k, W, creq, asked);
+          cp = min(cp, max(wsub(mp, sig_s[k]), 0));
+        }
+        unsigned incl = (unsigned)cp;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        if (lane == 31) xtot[p * 32 + j] = incl;
+        cap[i] = cp;
+        ex[i] = incl - (unsigned)cp;
+        big |= cp >= (1 << 18);
+      }
+    }
+    {  // class g+kRing-1's row into the slot class g-1 left: every read of
+       // it was before the previous step's barrier
+      const int h = g + kRing - 1, hr = ring_row;
+      if (h + 1 < Gp) ring_row = el.row(h + 1);
+      if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      cp_async_commit();
+    }
+    cp_async_wait<kRing - 2>();  // class g+1's row has landed
+    // the step's barrier; with no cap >= 2^18 (at most 1024 slots) the
+    // exact sum of caps is below 2^31
+    const bool wraps = __syncthreads_or(big);
+
+    if (pend) {
+      flush_leftover(xleft + (p ^ 1) * 32, pend_n2, leftover + pend_g);
+      pend = false;
+    }
+    if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
+      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * cw, Gp, Cp, R,
+                el, req, alloc, maxper, slot, c_star, new_ok, per);
+
+    // ---- the entries' bases and the total, first fit in slot order ---------
+    unsigned w = lane < act ? xtot[p * 32 + lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    const unsigned total = __shfl_sync(kFull, w, 31);
+    int t1[M];
+    unsigned t1sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int j = i * nw + warp;
+      t1[i] = 0;
+      if (j < act) {  // warp-uniform
+        const unsigned below = __shfl_sync(kFull, w, j > 0 ? j - 1 : 0);
+        t1[i] = clip(wsub(n, (int)((j > 0 ? below : 0u) + ex[i])), 0, cap[i]);
+        t1sum += (unsigned)t1[i];
+      }
+    }
+    // sum(take1) = min(n, sum(cap)) where no prefix wraps; else the wrapped
+    // sum, as _pack_core takes it (a block-uniform branch)
+    const int n2 = (n >= 0 && !wraps)
+                       ? n - min(n, (int)total)
+                       : wsub(n, (int)block_sum_once(t1sum, xsum));
+
+    // ---- open new slots on the precomputed best config --------------------
+    const int pg = cint[5], cs = cint[3];
+    const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
+    const int opened = min(need, wsub(K, nxt));
+    const int end = wadd(nxt, opened);
+    const int front2 = max(front, end);
+    if (front2 > W) {  // block-uniform: the element leaves the window
+      if (tid == 0) done[e] = 0;
+      cp_async_wait<0>();
+      return;
+    }
+    const int uact = ((skip_idle ? front2 : lim) + 31) >> 5;  // entries updated
+    int* take_g = take + (size_t)g * K;
+    unsigned t2sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int j = i * nw + warp;
+      if (j < uact) {
+        const int k = i * T + tid;
+        const bool win = k < K && k >= nxt && k < end;
+        const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
+        const int t = wadd(t1[i], t2);
+        if (k < K) take_g[k] = t;
+        if (t != 0 || !skip_idle) {
+          const float tf = (float)t;
+          for (int r = 0; r < R; ++r) {
+            float* u = s_used + r * W + k;
+            *u = __fmaf_rn(tf, creq[r], *u);
+          }
+          s_npods[k] = wadd(s_npods[k], t);
+          sig_s[k] = wadd(sig_s[k], t);
+        }
+        if (win) {
+          s_cfg[k] = cs;
+          for (int r = 0; r < R; ++r) s_alloc[r * W + k] = cacs[r];
+        }
+        t2sum += (unsigned)t2;
+      }
+    }
+    // the row's slots past the updated entries take nothing
+    const int z0 = min(uact * 32, K);
+    if (vec) {
+      int4* row4 = reinterpret_cast<int4*>(take_g);
+      for (int q = (z0 >> 2) + tid; q < (K >> 2); q += T) __stcs(row4 + q, make_int4(0, 0, 0, 0));
+    } else {
+      for (int k = z0 + tid; k < K; k += T) take_g[k] = 0;
+    }
+    if (nxt >= 0) {  // closed form, as in ffd_scan_kernel
+      if (tid == 0) {
+        const long long placed =
+            opened > 0 ? min((long long)n2, (long long)opened * pg) : 0ll;
+        leftover[g] = n2 - (int)placed;
+      }
+    } else {
+      const unsigned v = warp_sum(t2sum);
+      if (lane == 0) xleft[p * 32 + warp] = v;
+      pend = true;
+      pend_g = g;
+      pend_n2 = n2;
+    }
+    nxt = end;
+    front = front2;
+  }
+  if (pend) {
+    __syncthreads();
+    flush_leftover(xleft + ((Gp - 1) & 1) * 32, pend_n2, leftover + pend_g);
+  }
+
+  // ---- the window's slot state out -----------------------------------------
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int k = tid; k < lim; k += T) {
+    cfg_out[k] = s_cfg[k];
+    npods_out[k] = s_npods[k];
+  }
+  for (int idx = tid; idx < lim * R; idx += T) {
+    const int k = idx / R;
+    used_out[idx] = s_used[(idx - k * R) * W + k];
+  }
+  if (tid == 0) done[e] = 1;
+}
+
+template <int M>
+int launch_window(const float* req, const int* maxper, const int* slot,
+                  const uint8_t* feas, const float* alloc, const int* c_star,
+                  const int* new_ok, const int* per, const float* used0,
+                  const int* cfg0, const int* npods0, const int* sig0, int Gp,
+                  int Cp, int K, int R, int S, int next0, int smem_bytes,
+                  int chunk, int nb, Batch bt, int* take, int* leftover, int* cfg,
+                  int* npods, float* used, int* done, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ffd_scan_window_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  ffd_scan_window_kernel<M><<<dim3(1, nb), kWinThreads, smem_bytes, stream>>>(
+      req, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0, npods0, sig0,
+      Gp, Cp, K, R, S, next0, smem_bytes, chunk, bt, take, leftover, cfg, npods, used,
+      done);
   return (int)cudaGetLastError();
 }
 
@@ -2186,20 +2585,22 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
 
 // The batch descriptor of every scan: `nb` elements (1 to 65,535) and
 // perm_b / cnt_b [nb][Gp], rm_b [nb][K], all null for the solve's scan
-// (nb 1); each output (and the global scan's sigcnt) holds nb elements'
-// worth, element after element.
+// (nb 1), and done_b [nb] (ffd_scan_window's mask: the elements it
+// finished are skipped) or null; each output (and the global scan's
+// sigcnt) holds nb elements' worth, element after element.
 int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
                     const int* slot, const uint8_t* feas, const float* alloc,
                     const int* c_star, const int* new_ok, const int* per,
                     const float* used0, const int* cfg0, const int* npods0,
                     const int* sig0, int Gp, int Cp, int K, int R, int S,
                     int next0, int nb, const int* perm_b, const int* cnt_b,
-                    const uint8_t* rm_b, int* take, int* leftover, int* cfg,
-                    int* npods, float* used, int* sigcnt, void* stream) {
+                    const uint8_t* rm_b, const int* done_b, int* take, int* leftover,
+                    int* cfg, int* npods, float* used, int* sigcnt, void* stream) {
   if (K <= 0) return 0;
-  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
+  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) ||
+      (!perm_b && (nb != 1 || done_b)))
     return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b};
+  const Batch bt{perm_b, cnt_b, rm_b, done_b};
   const dim3 grid(1, nb);
   const auto st = (cudaStream_t)stream;
   if (perm_b)
@@ -2228,15 +2629,15 @@ int ffd_scan(const float* req, const int* cnt, const int* maxper,
              const int* sig0, int Gp, int Cp, int K, int R, int S, int next0,
              int slots_per_thread, int smem_bytes, int chunk, int nb,
              const int* perm_b, const int* cnt_b, const uint8_t* rm_b,
-             int* take, int* leftover, int* cfg, int* npods, float* used,
-             void* stream) {
+             const int* done_b, int* take, int* leftover, int* cfg, int* npods,
+             float* used, void* stream) {
   if (K <= 0) return 0;
   const int threads = scan_threads(K);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
       R > kMaxR || (long long)slots_per_thread * threads < K || nb < 1 ||
-      nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
+      nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && (nb != 1 || done_b)))
     return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b};
+  const Batch bt{perm_b, cnt_b, rm_b, done_b};
 #define FFD_LAUNCH(M, BATCHED)                                               \
   launch_resident<M, BATCHED>(req, cnt, maxper, slot, feas, alloc, c_star,   \
                               new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,\
@@ -2264,14 +2665,15 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
                      const int* sig0, int Gp, int Cp, int K, int R, int S,
                      int next0, int ctas, int slots_per_thread, int smem_bytes,
                      int chunk, int wrap_guard, int nb, const int* perm_b,
-                     const int* cnt_b, const uint8_t* rm_b, int* take,
-                     int* leftover, int* cfg, int* npods, float* used,
+                     const int* cnt_b, const uint8_t* rm_b, const int* done_b,
+                     int* take, int* leftover, int* cfg, int* npods, float* used,
                      void* stream) {
   if (K <= 0) return 0;
   if (ctas != 2 && ctas != 4 && ctas != 8) return (int)cudaErrorInvalidValue;
-  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && nb != 1))
+  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) ||
+      (!perm_b && (nb != 1 || done_b)))
     return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b};
+  const Batch bt{perm_b, cnt_b, rm_b, done_b};
   const int threads = scan_threads((K + ctas - 1) / ctas);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
       R > kMaxR || wrap_guard < 1 ||
@@ -2292,16 +2694,62 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
 #undef FFD_LAUNCH
 }
 
+// The frontier-window scan of nb elements (1 to 65,535; perm_b, cnt_b,
+// rm_b as above, all set) on a window of `window` slots (256, 512 or
+// 1024) with `smem_bytes` of shared memory (fused_packer.window_layout),
+// `chunk` as for ffd_scan; done_b [nb] gets 1 for each element it
+// finished and 0 for each it left to the next launch on the stream.
+int ffd_scan_window(const float* req, const int* maxper, const int* slot,
+                    const uint8_t* feas, const float* alloc, const int* c_star,
+                    const int* new_ok, const int* per, const float* used0,
+                    const int* cfg0, const int* npods0, const int* sig0, int Gp,
+                    int Cp, int K, int R, int S, int next0, int window,
+                    int smem_bytes, int chunk, int nb, const int* perm_b,
+                    const int* cnt_b, const uint8_t* rm_b, int* take, int* leftover,
+                    int* cfg, int* npods, float* used, int* done_b, void* stream) {
+  if (K <= 0) return 0;
+  if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 || R > kMaxR ||
+      nb < 1 || nb > 65535 || !(perm_b && cnt_b && rm_b && done_b) || next0 < 0 ||
+      next0 > K)
+    return (int)cudaErrorInvalidValue;
+  const Batch bt{perm_b, cnt_b, rm_b, nullptr};
+#define FFD_LAUNCH(M)                                                              \
+  launch_window<M>(req, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0, \
+                   npods0, sig0, Gp, Cp, K, R, S, next0, smem_bytes, chunk, nb, bt, \
+                   take, leftover, cfg, npods, used, done_b, (cudaStream_t)stream)
+  switch (window) {
+    case 1 * kWinThreads: return FFD_LAUNCH(1);
+    case 2 * kWinThreads: return FFD_LAUNCH(2);
+    case 4 * kWinThreads: return FFD_LAUNCH(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFD_LAUNCH
+}
+
 // How many elements of a batched scan (the kBatched instances) run on the
 // card at once: kind 0 the
 // resident scan (blocks of `threads` with `smem_bytes`, M slots a thread),
-// 1 the cluster scan (clusters of `ctas`), 2 the global scan; negative on
-// a CUDA error.
+// 1 the cluster scan (clusters of `ctas`), 2 the global scan, 3 the
+// frontier-window scan (M rounds of kWinThreads slots); negative on a
+// CUDA error.
 int ffd_scan_concurrency(int kind, int M, int ctas, int threads, int smem_bytes) {
   int dev = 0, sms = 0, n = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return -(int)e;
+  if (kind == 3) {
+    const auto kernel = M == 1   ? ffd_scan_window_kernel<1>
+                        : M == 2 ? ffd_scan_window_kernel<2>
+                                 : ffd_scan_window_kernel<4>;
+    e = allow_smem(kernel, smem_bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWinThreads, smem_bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)e;
+    }
+    return n * sms;
+  }
   if (kind == 0 || kind == 2) {
     if (kind == 0)
       e = M == 1 ? allow_smem(ffd_scan_kernel<1, true>, smem_bytes)

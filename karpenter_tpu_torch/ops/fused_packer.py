@@ -16,9 +16,13 @@ pack is two launches:
   device memory.
 
 The consolidation verdicts (the JAX package's ``removal_verdict_kernel``
-and ``population_verdict_kernel``, jitted XLA functions) reuse the scans
-with a batch axis, `ffd_scan_batch`: B what-if problems over one base, one
-block or one cluster per element.  `verdict_rows` finishes them (each
+and ``population_verdict_kernel``, jitted XLA functions) run B what-if
+problems over one base, `ffd_scan_batch`: first the frontier-window scan
+(``ffd_scan_window``, one CTA an element over the first `window_layout`
+slots, where each element's frontier lies), then, for the elements that
+leave that window, the scan `scan_kernel` picks with a batch axis, one
+block or one cluster per element (`window_plan` says which of the two
+launches the shapes need).  `verdict_rows` finishes them (each
 element's six-value verdict, three launches: a record per element, a pass
 over the configs shared by groups of elements, the rows), and
 `population_prologue` (one launch) derives each removal mask's counts,
@@ -59,6 +63,7 @@ from karpenter_tpu_torch.ops.packer import (
 LAUNCHES: Dict[str, int] = {
     "choose_config": 0, "ffd_scan": 0, "ffd_scan_cluster": 0, "ffd_scan_global": 0,
     "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
+    "ffd_scan_window_batched": 0,
     "verdict_summary": 0, "verdict_configs": 0, "verdict_write": 0, "population_pairs": 0,
     "admit_kernel": 0,
 }
@@ -79,8 +84,21 @@ MAX_AXES = 31  # resource axes the resident scan's class flags cover
 CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_XCHG_BYTES = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4
 
+# the frontier-window scan (kWinThreads, kWinXchgBytes in ffd_pack.cu): its
+# threads, its window sizes (1, 2 or 4 rounds of its threads), largest
+# first, and the shared memory a SM holds for two of its CTAs (228 KB, 1 KB
+# of it reserved a CTA)
+WINDOW_THREADS = 256
+WINDOW_SLOTS = (1024, 512, 256)
+WINDOW_XCHG_BYTES = SCAN_XCHG_BYTES + 2 * 32 * 4
+WINDOW_TWO_A_SM = 233_472 // 2 - 1024
+
 OBJECTIVES = {"nodes": 0, "cost": 1}
 MAX_BATCH = 65_535  # elements of one batched scan launch (its grid's y extent)
+# Where set to a list, `ffd_scan_batch` appends one record a launch group
+# (its shapes, W, the plan, the window's `done` mask and the node_cfg
+# output), for a caller that reads them after a synchronize; None: off.
+WINDOW_RECORDS: Optional[list] = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -96,13 +114,15 @@ def _lib() -> ctypes.CDLL:
     if lib.ffd_scan.argtypes is None:
         lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_P]
         lib.ffd_choose_config.restype = _I
-        batch = [_I] + [_P] * 3  # B, perm_b, cnt_b, rm_b
+        batch = [_I] + [_P] * 4  # B, perm_b, cnt_b, rm_b, done_b
         lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + batch + [_P] * 5 + [_P]
         lib.ffd_scan.restype = _I
         lib.ffd_scan_global.argtypes = [_P] * 13 + [_I] * 6 + batch + [_P] * 6 + [_P]
         lib.ffd_scan_global.restype = _I
         lib.ffd_scan_cluster.argtypes = [_P] * 13 + [_I] * 11 + batch + [_P] * 5 + [_P]
         lib.ffd_scan_cluster.restype = _I
+        lib.ffd_scan_window.argtypes = [_P] * 12 + [_I] * 10 + [_P] * 3 + [_P] * 6 + [_P]
+        lib.ffd_scan_window.restype = _I
         lib.ffd_scan_concurrency.argtypes = [_I] * 5
         lib.ffd_scan_concurrency.restype = _I
         lib.ffd_verdict_scratch_bytes.argtypes = [_I] * 3
@@ -273,6 +293,55 @@ def scan_kernel(K: int, R: int, S: int, C: int) -> str:
     return "ffd_scan_global"
 
 
+def window_smem(W: int, R: int, S: int, C: int) -> int:
+    """Dynamic shared-memory bytes of the frontier-window scan on W slots:
+    the resident scan's ring and tiles, `WINDOW_XCHG_BYTES` and the state
+    of W slots (cfg, npods, used [R], cached alloc [R], signature counters
+    [S])."""
+    return (SCAN_RING * _up16(C) + 2 * SCAN_TILE * 4 * (2 * R + 7) + WINDOW_XCHG_BYTES
+            + 4 * W * (2 * R + 2 + S))
+
+
+def window_layout(K: int, R: int, S: int, C: int) -> Optional[Tuple[int, int]]:
+    """``(W, dynamic shared-memory bytes)`` of the frontier-window scan at
+    these shapes: the largest window of `WINDOW_SLOTS`, no larger than K
+    rounded up to `WINDOW_THREADS`, whose CTA leaves room for two a SM
+    (`WINDOW_TWO_A_SM`: B up to 264 in one wave on 132 SMs), else the
+    largest that fits one a SM.  None where the scan cannot run: more than
+    `MAX_AXES` axes, or feasibility rows no cp.async size divides (the
+    resident scan's limits), or no window fits."""
+    if R > MAX_AXES or not feas_copy_bytes(C):
+        return None
+    need = max(-(-K // WINDOW_THREADS) * WINDOW_THREADS, WINDOW_SLOTS[-1])
+    for budget in (WINDOW_TWO_A_SM, SMEM_PER_BLOCK):
+        for w in WINDOW_SLOTS:
+            if w <= need and window_smem(w, R, S, C) <= budget:
+                return w, window_smem(w, R, S, C)
+    return None
+
+
+def window_plan(next0: int, K: int, W: int) -> str:
+    """Which launches a batched scan makes, from host ints alone: ``"pick"``
+    (the scan `scan_kernel` picks, alone) where the live slots already
+    reach the window (``next0 >= W``; W 0: no window); ``"window"`` (the
+    frontier-window scan alone) where the window holds every slot (``K <=
+    W``); else ``"both"``: the window scan, then the picked scan for the
+    elements that leave the window."""
+    if next0 >= W:
+        return "pick"
+    return "window" if K <= W else "both"
+
+
+def batch_launches(next0: int, K: int, R: int, S: int, C: int) -> Tuple[str, ...]:
+    """The `LAUNCHES` names of one launch group of `ffd_scan_batch` at these
+    shapes (`MAX_BATCH` elements at most), in their order."""
+    layout = window_layout(K, R, S, C)
+    picked = f"{scan_kernel(K, R, S, C)}_batched"
+    return {"pick": (picked,), "window": ("ffd_scan_window_batched",),
+            "both": ("ffd_scan_window_batched", picked)}[
+        window_plan(int(next0), K, layout[0] if layout else 0)]
+
+
 def _scan_shapes(
     req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
     used0, cfg0, npods0, next0, sig0,
@@ -323,15 +392,20 @@ def _scan_outputs(G: int, K: int, R: int, dev, batch=None) -> Tuple[torch.Tensor
     )
 
 
-_NO_BATCH = (1, 0, 0, 0)  # B = 1, no perm_b / cnt_b / rm_b: the solve's scan
+_NO_BATCH = (1, 0, 0, 0, 0)  # B = 1, no perm_b / cnt_b / rm_b / done_b: the solve's scan
 
 
 def _batch_ptrs(batch) -> tuple:
-    """The C batch descriptor ``(B, perm_b, cnt_b, rm_b)``."""
+    """The C batch descriptor ``(B, perm_b, cnt_b, rm_b, done_b)`` of
+    ``batch``, ``(B, perm_b, cnt_b, rm_b[, done])``: ``done`` the window
+    scan's mask (the elements it finished are skipped), absent or None
+    where no window scan ran before."""
     if batch is None:
         return _NO_BATCH
-    B, perm_b, cnt_b, rm_b = batch
-    return (B, perm_b.data_ptr(), cnt_b.data_ptr(), rm_b.data_ptr())
+    B, perm_b, cnt_b, rm_b, *rest = batch
+    done = rest[0] if rest else None
+    return (B, perm_b.data_ptr(), cnt_b.data_ptr(), rm_b.data_ptr(),
+            0 if done is None else done.data_ptr())
 
 
 def _launch_name(kernel: str, batch) -> str:
@@ -504,7 +578,9 @@ def ffd_scan_batch(
     scan `scan_kernel` picks at the base's shapes, with one block (or one
     cluster) per element, in one launch per `MAX_BATCH` elements, each
     writing its slice of the outputs; ``perm_b`` must hold base rows in
-    [0, G)."""
+    [0, G).  Each launch group first runs the frontier-window scan where
+    `window_plan` says so (``ffd_scan_window``), and the picked scan takes
+    the elements that leave its window (its blocks skip the others)."""
     if req.device.type == "cpu":
         return ffd_scan_batch_reference(
             req, maxper, slot, feas, alloc, c_star, new_ok, per,
@@ -521,21 +597,60 @@ def ffd_scan_batch(
     args = (req, cnt_b[0], maxper, slot, feas, alloc, c_star, new_ok, per,
             used0, cfg0, npods0, next0, sig0)
     shapes = _scan_shapes(*args)
-    outs = _scan_outputs(G, K, req.shape[1], req.device, (B,))
+    _, C, _, R, S = shapes
+    outs = _scan_outputs(G, K, R, req.device, (B,))
+    layout = window_layout(K, R, S, C)
+    W = layout[0] if layout else 0
+    plan = window_plan(int(next0), K, W)
     for lo in range(0, B, MAX_BATCH):
         part = slice(lo, min(lo + MAX_BATCH, B))
-        _launch_picked(args, shapes, (part.stop - lo, perm_b[part], cnt_b[part], rm_b[part]),
-                       tuple(o[part] for o in outs))
+        batch = (part.stop - lo, perm_b[part], cnt_b[part], rm_b[part])
+        sub = tuple(o[part] for o in outs)
+        done = None
+        if plan != "pick":
+            done = torch.empty(batch[0], dtype=torch.int32, device=req.device)
+            _launch_window(args, shapes, layout, batch, done, sub)
+        if plan != "window":  # the elements the window left, or all of them
+            _launch_picked(args, shapes, (*batch, done), sub)
+        if WINDOW_RECORDS is not None:
+            WINDOW_RECORDS.append(dict(B=batch[0], Gp=G, Kp=K, Cp=C, R=R, S=S,
+                                       next0=int(next0), W=W, plan=plan, done=done,
+                                       node_cfg=sub[2]))
     return outs
 
 
-def scan_concurrency(K: int, R: int, S: int, C: int) -> int:
+def _launch_window(args, shapes, layout, batch, done, outs) -> Tuple[torch.Tensor, ...]:
+    """The frontier-window scan of ``batch`` (``(B, perm_b, cnt_b, rm_b)``)
+    into ``outs``; ``done`` [B] int32 gets 1 for each element it finished,
+    0 for each it left to the next launch."""
+    (req, _cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+     used0, cfg0, npods0, next0, sig0) = args
+    G, C, K, R, S = shapes
+    W, smem = layout
+    n, perm_b, cnt_b, rm_b = batch
+    with torch.cuda.device(req.device):
+        stream = torch.cuda.current_stream(req.device).cuda_stream
+        err = _lib().ffd_scan_window(
+            *_ptrs(req, maxper, slot, feas, alloc, c_star, new_ok, per,
+                   used0, cfg0, npods0, sig0),
+            G, C, K, R, S, int(next0), W, smem, feas_copy_bytes(C), n,
+            *_ptrs(perm_b, cnt_b, rm_b, *outs, done), stream,
+        )
+    _launched("ffd_scan_window_batched", err)
+    return outs
+
+
+def scan_concurrency(K: int, R: int, S: int, C: int, kernel: Optional[str] = None) -> int:
     """How many elements of a batched scan at these shapes the card runs at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs for the
     one-block scans, ``cudaOccupancyMaxActiveClusters`` for the cluster
-    scan).  Needs the card."""
-    kernel = scan_kernel(K, R, S, C)
-    if kernel == "ffd_scan_cluster":
+    scan): the scan `scan_kernel` picks, or ``kernel`` (``"ffd_scan_window"``
+    for the frontier-window scan).  Needs the card."""
+    kernel = scan_kernel(K, R, S, C) if kernel is None else kernel
+    if kernel == "ffd_scan_window":
+        W, smem = window_layout(K, R, S, C)
+        args = (3, W // WINDOW_THREADS, 1, WINDOW_THREADS, smem)
+    elif kernel == "ffd_scan_cluster":
         ctas, per_thread, smem = cluster_layout(K, R, S, C)
         args = (1, per_thread, ctas, scan_threads(-(-K // ctas)), smem)
     elif kernel == "ffd_scan":

@@ -40,6 +40,7 @@ from karpenter_tpu_torch.ops.tensorize import CompiledProblem
 from karpenter_tpu_torch.utils.trace import TRACER, phase
 
 BIGF = float(2**30)  # "unbounded" per-axis capacity (tensorize.BIG)
+CUDA_NAN_BITS = 0x7FFFFFFF  # the card's canonical float32 NaN, as int32 bits
 NUDGE = 1e-4  # absorbs float32 accumulation error in floor(rem / req)
 
 
@@ -80,7 +81,11 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     FMA contracts the scan's ``used + take * req`` into one).  The product
     of two float32 values is exact in float64; the float64 sum is rounded
     to odd (TwoSum's error decides the last bit), so rounding it to float32
-    is the correctly rounded result."""
+    is the correctly rounded result.  A NaN result is the float32 NaN the
+    tensors' device gives: on the card its one canonical NaN (0x7fffffff,
+    what the kernels' ``__fmaf_rn`` returns), where the float64 detour
+    would give the narrowed float64 NaN (0xffc00000); on a CPU the NaN
+    propagated as XLA's float32 arithmetic there propagates it."""
     p = a.double() * b.double()
     c = c.double()
     s = p + c
@@ -89,7 +94,11 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     bits = s.view(torch.int64)
     inexact_even = (err != 0) & ((bits & 1) == 0)
     step = torch.where((err > 0) == (s > 0), 1, -1)
-    return torch.where(inexact_even, bits + step, bits).view(torch.float64).float()
+    out = torch.where(inexact_even, bits + step, bits).view(torch.float64).float()
+    if out.is_cuda:
+        out = torch.where(torch.isnan(out), CUDA_NAN_BITS, out.view(torch.int32))
+        out = out.view(torch.float32)
+    return out
 
 
 def _per_node_cap(rem: torch.Tensor, req: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 the pod count, a cluster of live nodes, pack inputs on which the scan's
 int32 sums wrap, pack inputs on which the new-node choice must break ties
 by first index, removal-verdict inputs on which the verdict rows must
-(`verdict_tie_arrays`), and live clusters whose nodes hold bound pods, for the
+(`verdict_tie_arrays`), removal-verdict inputs that put the elements'
+frontiers in and past the frontier-window scan's window
+(`frontier_arrays`), and live clusters whose nodes hold bound pods, for the
 consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
 `ranked_candidates`).
 
@@ -385,6 +387,148 @@ def verdict_tie_arrays(classes: int = 8, configs: int = 8192, k_slots: int = 512
     cnt_b = np.take_along_axis(cnt, perm, 1)  # counts in permuted positions
     return (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, E, sig0,
             pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
+
+
+# `frontier_arrays`' cases: name -> (slots, live slots, elements, what the
+# case is for).  W is `fused_packer.window_layout`'s window at the case's
+# shapes: 1024 at 2048 slots, 512 at 512 (R 3, S 2, Cp 304; the wrap case
+# R 6, S 8, Cp 8).
+FRONTIER_CASES = {
+    "inside": (2048, 300, 12, "every element's frontier well inside the window"),
+    "exact": (2048, 40, 12, "one element's frontier reaches W exactly"),
+    "past": (2048, 40, 12, "two elements pass W mid-scan, the others stay"),
+    "next0-past-w": (2048, 1100, 12, "the live slots reach past W: the picked scan alone"),
+    "k-within-w": (512, 40, 12, "Kp <= W: the window alone, one frontier at K"),
+    "negzero-tail": (2048, 40, 12, "a -0.0 usage in the tail: every element leaves"),
+    "negzero-window": (2048, 40, 12, "a -0.0 usage in the window past the live slots: "
+                                     "every slot of the window updated each step"),
+    "inf-request": (2048, 40, 12, "a request of +inf (the last class): every element leaves"),
+    "wrap": (2048, 4, 12, "caps of 2^30: prefix sums wrap, windows of negative length"),
+}
+FRONTIER_ONE_A_NODE = 3  # the class that takes one pod a node and no live slot
+
+
+def frontier_arrays(case: str) -> tuple:
+    """Removal-verdict inputs (numpy, in ``removal_verdict_kernel``'s
+    argument order, as `verdict_tie_arrays`) for the frontier-window scan:
+    each case of `FRONTIER_CASES` puts the elements' frontiers (the live
+    slots and the new slots opened so far) where its description says,
+    against the window W that `fused_packer.window_layout` picks at its
+    shapes.
+
+    The base: G 8 classes of dyadic requests (cpu, memory, one pod) over Cp
+    304 configs (the last two the live nodes' rows, not openable), the
+    live slots ``0 .. live - 1``, ``next0`` = live; class
+    `FRONTIER_ONE_A_NODE` fits no live node and takes one pod a new node,
+    so a count of n opens n slots.  Elements draw counts of 0-20 a class
+    (40 % zero), a random class order and removed live slots.  The
+    ``wrap`` case is `wrap_arrays` at 2048 slots with such a batch over it
+    (every count at least one)."""
+    from karpenter_tpu_torch.ops.fused_packer import window_layout
+
+    K, E, B, _ = FRONTIER_CASES[case]
+    rng = np.random.default_rng(29)
+    if case == "wrap":
+        (req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0,
+         sig0) = wrap_arrays(K)
+        G, C = feas.shape
+        pool_id, zone_id, ct_id = (np.zeros(C, np.int32) for _ in range(3))
+        compactable = np.ones(G, bool)
+        counts = np.maximum(cnt[None, :] - rng.integers(0, 4, (B, G)), 1).astype(np.int32)
+        rm = np.zeros((B, K), bool)
+        rm[:, :E] = rng.random((B, E)) < 0.25
+    else:
+        G, C, R, S = 8, 304, 3, 2
+        c = np.arange(C)
+        ex = C - 2  # the live nodes' rows
+        cpu = (2 + 2 * (c % 7)).astype(np.float32)
+        alloc = np.stack([cpu, 4 * cpu, np.full(C, 110, np.float32)], 1)
+        price = (0.05 * cpu + 0.01 * rng.random(C)).astype(np.float32)
+        openable = rng.random(C) < 0.9
+        pool_id = (c % 2).astype(np.int32)
+        zone_id = (c // 2 % 3).astype(np.int32)
+        ct_id = (c // 6 % 2).astype(np.int32)
+        feas = rng.random((G, C)) < 0.8
+        alloc[ex:] = (8.0, 32.0, 110.0)
+        price[ex:] = 0.0
+        openable[ex:] = False
+        pool_id[ex:] = zone_id[ex:] = ct_id[ex:] = -1
+        one = FRONTIER_ONE_A_NODE
+        feas[one, ex:] = False
+        req = np.zeros((G, R), np.float32)
+        req[:, 0] = rng.choice([0.5, 1.0, 2.0], G)
+        req[:, 1] = rng.choice([1.0, 2.0, 4.0], G)
+        req[:, 2] = 1.0
+        maxper = np.full(G, 2**30, np.int32)
+        maxper[one] = 1
+        slot = (np.arange(G) % S).astype(np.int32)
+        compactable = rng.random(G) < 0.8
+        used0 = np.zeros((K, R), np.float32)
+        cfg0 = np.full(K, -1, np.int32)
+        npods0 = np.zeros(K, np.int32)
+        cfg0[:E] = ex + np.arange(E) % 2
+        npods0[:E] = rng.integers(1, 4, E)
+        used0[:E, 0] = rng.choice([0.5, 1.0, 2.0], E)
+        used0[:E, 1] = 2 * used0[:E, 0]
+        used0[:E, 2] = npods0[:E]
+        sig0 = np.zeros((S, K), np.int32)
+        next0 = E
+        counts = rng.integers(0, 21, (B, G)).astype(np.int32)
+        counts[rng.random((B, G)) < 0.4] = 0
+        counts[:, one] = np.minimum(counts[:, one], 3)
+        rm = np.zeros((B, K), bool)
+        rm[:, :E] = rng.random((B, E)) < 0.3
+    W = window_layout(K, req.shape[1], sig0.shape[0], feas.shape[1])[0]
+    perm = np.stack([rng.permutation(G) for _ in range(B)]).astype(np.int32)
+    if case in ("exact", "k-within-w"):
+        counts[1] = 0
+        counts[1, FRONTIER_ONE_A_NODE] = min(W, K) - E  # its frontier: W (K) exactly
+    elif case == "past":
+        for b, n in ((1, W - E + 3), (2, 2 * K)):
+            counts[b] = np.minimum(counts[b], 2)
+            counts[b, FRONTIER_ONE_A_NODE] = n
+            rest = [g for g in perm[b] if g != FRONTIER_ONE_A_NODE]
+            perm[b] = rest[:G // 2] + [FRONTIER_ONE_A_NODE] + rest[G // 2:]  # mid-scan
+    elif case == "negzero-tail":
+        used0[W + 7, 1] = -0.0
+    elif case == "negzero-window":
+        used0[E + 60, 1] = -0.0
+    elif case == "inf-request":
+        req[G - 1, 0] = np.inf
+        perm = np.stack([np.concatenate([p[p != G - 1], [G - 1]]) for p in perm]).astype(np.int32)
+    cnt_b = np.take_along_axis(counts, perm, 1)  # counts in permuted positions
+    return (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+            pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
+
+
+def element_frontiers(node_cfg, next0: int) -> np.ndarray:
+    """Each element's frontier after its scan, from a batched scan's
+    ``node_cfg`` [B, K]: ``next0`` or one past its last slot holding a
+    config, whichever is larger (every slot a window opens takes the
+    class's config, so this is the largest frontier the scan reached)."""
+    cfg = np.asarray(node_cfg)
+    has = cfg >= 0
+    last = np.where(has.any(1), cfg.shape[1] - np.argmax(has[:, ::-1], 1), 0)
+    return np.maximum(last, int(next0))
+
+
+def tail_moves(used0, req, W: int) -> bool:
+    """Whether the fused update of a zero take would change a slot past
+    the first W: a usage there that is -0.0 or a NaN, or a request that is
+    not finite (the frontier-window scan then leaves every element to the
+    picked scan)."""
+    used0, req = np.asarray(used0), np.asarray(req)
+    tail = used0[W:]
+    return bool(len(tail) and ((np.isnan(tail) | ((tail == 0) & np.signbit(tail))).any()
+                               or not np.isfinite(req).all()))
+
+
+def window_finishes(used0, req, node_cfg, next0: int, W: int) -> np.ndarray:
+    """[B] bool: the elements the frontier-window scan finishes (its
+    ``done`` mask where it runs): those whose frontier stays within W,
+    where the tail does not move."""
+    fits = element_frontiers(node_cfg, next0) <= W
+    return fits & (W >= np.asarray(used0).shape[0] or not tail_moves(used0, req, W))
 
 
 def _extra_axes(req, alloc, used0, axes: int, champ, ex: int, live: int, npods0) -> tuple:

@@ -99,16 +99,18 @@ def test_scan_latency_floor():
 
 def test_kernels_line_rows():
     """A row per counted kernel: the solve's four, the two big-slot scans
-    at the live cluster, then phase 6's seven (the batched scans, each at
-    the problem whose shapes pick it, `verdict_rows`' three launches and
+    at the live cluster, then phase 6's eight (the batched scans, each at
+    the problem whose shapes pick it, the frontier-window scan at phase
+    9's base, `verdict_rows`' three launches and
     the prologue's at ``live``, those four in place of the JAX package's
     verdict epilogue and prologue), then phase 8's admission score; phase 4
     times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-        "verdict_summary", "verdict_configs", "verdict_write", "population_pairs",
-        "admit_kernel")
+        "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
+        "population_pairs", "admit_kernel")
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_window_batched"] == "consolidation"
     assert chip_smoke.ROW_PROBLEM["admit_kernel"] == "arrivals"
     assert chip_smoke.ADMIT_REPLACES == "karpenter_tpu/ops/packer.py:197"
     assert set(chip_smoke.KERNELS) == set(fused_packer.LAUNCHES)
@@ -120,8 +122,8 @@ def test_kernels_line_rows():
         assert chip_smoke.VERDICT_REPLACES[k] == (
             "karpenter_tpu/ops/packer.py:525" if fn == "verdict_rows"
             else "karpenter_tpu/ops/packer.py:686")
-    assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", *chip_smoke.VERDICT_FUNCTION,
-                                             "admit"}
+    assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", "ffd_scan_window",
+                                             *chip_smoke.VERDICT_FUNCTION, "admit"}
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
     for name, scan in chip_smoke.VERDICT_SCAN.items():

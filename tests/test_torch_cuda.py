@@ -11,7 +11,11 @@ verdict kernels are held to theirs at the sweep's shape, on the tie arrays
 (at the live problem's shape too, and at next0 0 and K, and at R 200,
 where the config pass reads its rows from device memory), past one
 launch's 65,535 elements and, for the prologue, with U and Gp past its
-block.  The admission score (``admit_kernel``) is held to its plain version
+block.  The batched scans launch as `fused_packer.batch_launches` says:
+the frontier-window scan (``ffd_scan_window_batched``), then the picked
+scan for the elements that leave its window; on each of
+``testing.frontier_arrays``' cases the window scan's ``done`` mask is the
+elements whose frontier stays within W.  The admission score (``admit_kernel``) is held to its plain version
 on every class of the wrap case, of config 2 over 4096 slots and of a
 resident state, and a fast-path operator drive on the card to the CPU's;
 an operator drive that consolidates on the card, to the CPU's.
@@ -323,11 +327,16 @@ def test_batched_scan_matches_reference(cuda_device, case, kernel, objective):
     args, cnt_b, rm_b, perm_b = _batched_case(case, cuda_device)
     (req, _, maxper, slot, feas, alloc, price, openable,
      used0, cfg0, npods0, next0, sig0) = args
+    shapes = (used0.shape[0], req.shape[1], sig0.shape[0], alloc.shape[0])
+    assert f"{fused_packer.scan_kernel(*shapes)}_batched" == kernel
     chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
     scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
                  cnt_b, rm_b, perm_b)
     got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
-    assert moved == {kernel: 1}
+    # the sweep (Kp 1024) fits the window: the window scan alone; at 4096
+    # slots the window scan, then the picked scan for what leaves it
+    assert moved == dict.fromkeys(fused_packer.batch_launches(next0, *shapes), 1)
+    assert ("ffd_scan_window_batched" in moved) and (len(moved) == 1) == (case == "sweep")
     _assert_bit_equal(got, ffd_scan_batch_reference(*scan_args))
 
 
@@ -398,7 +407,7 @@ def test_verdicts_on_card_match_cpu(cuda_device, objective):
     cpu = TorchScheduler(pools, inv, existing=existing, device="cpu", objective=objective)
     singles = [[c] for c in cands]
     got, moved = _launch_moves(lambda: card.evaluate_removals(singles, cands))
-    assert moved.get("ffd_scan_batched") == 1
+    assert moved.get("ffd_scan_window_batched") == 1  # Kp 1024: the window alone
     assert all(moved.get(k) == 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES)
     assert got == cpu.evaluate_removals(singles, cands)
     masks = np.random.RandomState(2).rand(100, len(cands)) < 0.25
@@ -422,9 +431,9 @@ def test_verdict_rows_on_tie_arrays(cuda_device, case, objective):
     (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
      pool_id, zone_id, ct_id, compactable, cnt_b, rm_b, perm_b) = a
     K, R = used0.shape
-    scan = fused_packer.scan_kernel(K, R, sig0.shape[0], alloc.shape[0])
+    scans = fused_packer.batch_launches(next0, K, R, sig0.shape[0], alloc.shape[0])
     got, moved = _launch_moves(lambda: fused_packer.removal_verdicts(*a, objective=objective))
-    assert moved == {"choose_config": 1, f"{scan}_batched": 1,
+    assert moved == {"choose_config": 1, **dict.fromkeys(scans, 1),
                      **{k: 1 for k in fused_packer.VERDICT_ROWS_LAUNCHES}}
     _assert_bit_equal([got], [removal_verdicts_reference(*a, objective=objective)])
     chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
@@ -434,6 +443,44 @@ def test_verdict_rows_on_tie_arrays(cuda_device, case, objective):
     for n0 in sorted({next0, 0, K}):
         _assert_bit_equal([fused_packer.verdict_rows(*outs, *tail, n0)],
                           [verdict_rows_reference(*outs, *tail, n0)])
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("case", list(T.FRONTIER_CASES))
+def test_window_scan_on_frontier_arrays(cuda_device, case, objective):
+    """The frontier-window scan through `ffd_scan_batch` on each of
+    `testing.frontier_arrays`' cases: the launches its plan makes (the
+    window alone, both, or the picked scan alone), its `done` mask equal
+    to the elements whose frontier stays within W where the tail does not
+    move, every output bit-equal to the plain version, and the removal
+    verdicts' rows too."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference, removal_verdicts_reference
+
+    a = to_device(T.frontier_arrays(case), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     *_, cnt_b, rm_b, perm_b) = a
+    K, R = used0.shape
+    shapes = (K, R, sig0.shape[0], alloc.shape[0])
+    W = fused_packer.window_layout(*shapes)[0]
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    fused_packer.WINDOW_RECORDS = []
+    try:
+        got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
+        (rec,) = fused_packer.WINDOW_RECORDS
+    finally:
+        fused_packer.WINDOW_RECORDS = None
+    assert moved == dict.fromkeys(fused_packer.batch_launches(next0, *shapes), 1)
+    want = ffd_scan_batch_reference(*scan_args)
+    _assert_bit_equal(got, want)
+    assert rec["W"] == W and rec["plan"] == fused_packer.window_plan(next0, K, W)
+    if rec["done"] is not None:
+        finishes = T.window_finishes(used0.cpu().numpy(), req.cpu().numpy(),
+                                     want[2].cpu().numpy(), next0, W)
+        np.testing.assert_array_equal(rec["done"].cpu().numpy(), finishes.astype(np.int32))
+    rows, _ = _launch_moves(lambda: fused_packer.removal_verdicts(*a, objective=objective))
+    _assert_bit_equal([rows], [removal_verdicts_reference(*a, objective=objective)])
 
 
 @pytest.mark.parametrize("shape", T.PROLOGUE_CASES)
@@ -508,7 +555,7 @@ def test_batched_scan_past_the_launch_limit(cuda_device):
     scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
                  cnt_b, rm_b, perm_b)
     got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
-    assert moved == {"ffd_scan_batched": 2}
+    assert moved == {"ffd_scan_window_batched": 2}  # Kp 64: the window alone
     _assert_bit_equal(got, ffd_scan_batch_reference(*scan_args))
     tail = (perm_b, feas, alloc, price, openable, pool_id, zone_id, ct_id, compactable, next0)
     _assert_bit_equal([fused_packer.verdict_rows(*got, *tail)],
@@ -618,7 +665,7 @@ def test_consolidation_operator_on_card_matches_cpu(cuda_device):
     for k in ("choose_config", "verdict_summary", "verdict_configs", "verdict_write",
               "population_pairs"):
         assert launched[k] > 0, (k, launched)
-    assert launched["ffd_scan_batched"] + launched["ffd_scan_cluster_batched"] > 0, launched
+    assert launched["ffd_scan_window_batched"] > 0, launched
     assert launched["ffd_scan_global_batched"] == 0
     cpu = drive("cpu")
     assert card == cpu
