@@ -161,11 +161,14 @@ Phases (each failure exits non-zero before the last line is printed):
    ``ARRIVAL_CUT`` entries only, must show every outcome and fallback
    reason of the card's full drive, and must equal the card's drive at
    that tick (`testing.operator_state`; the placements).  Then
-   ``admit_kernel`` bit for bit against its plain version, its times, its
-   bound, and its latency floor: an empty one-block launch at its thread
-   count (``probe_barrier_kernel`` with no iteration, timed here) plus its
-   7 block barriers and its dependent L2 loads (3, and one a round of its
-   config loop: ceil(Cp / threads)) at the round trips
+   ``admit_kernel`` bit for bit against its plain version (every class of
+   the resident state, the live cluster, the wrap cases and each of
+   ``testing.admit_edge_arrays``' cases), its times and bound at the
+   resident state and the live cluster, and its latency floor at both: an
+   empty one-block launch at its thread count (``probe_barrier_kernel``
+   with no iteration, timed here) plus its 2 block barriers and its
+   dependent L2 load rounds (2, and one for each further pair of slot
+   rounds that holds a live slot: `admit_loads`) at the round trips
    ``csrc/latency_probe.cu`` measures here.
 9. Consolidation through the operator: `testing.consolidating_cluster`
    on the card (config 2's 10,000 pods bound, a seeded half deleted, the
@@ -298,13 +301,16 @@ ARRIVAL_CUT = 160
 OVERSIZED_CPU = 100.0  # vCPU: more than half the largest type, so one a node
 ADMIT_REPLACES = "karpenter_tpu/ops/packer.py:197"  # admit_kernel, jitted XLA
 ADMIT_ITERS = 200  # launches a timing reading averages
-# admit_kernel's chain: block_incl_scan (3 barriers), __syncthreads_or (1),
-# block_sum (3); dependent L2 loads: cfg0 then the slot's feasibility byte
-# and alloc row, the staged cap read back, then one round a config of a
-# thread's stride (its feasibility and openable bytes; the loop's next
-# round waits on the last one's test), ceil(Cp / threads) rounds for a
-# thread whose configs fit nothing
-ADMIT_BARRIERS, ADMIT_FIXED_LOADS = 7, 3
+# admit_kernel's chain (csrc/ffd_pack.cu): 2 block barriers (the warps'
+# slot round totals, whose shared words carry the open bit too; the placed
+# total) and 2 dependent load rounds: the class row, the slots' configs and
+# the configs' bytes; then the first group of ADMIT_SLOT_GROUP slot rounds'
+# feasibility bytes and alloc and used0 axes with the first group of
+# candidate configs' alloc axes.  Each further group of slot rounds that
+# holds a live slot is a round more; a warp none of whose first configs
+# fits tests the next group in a further round (data-dependent: the floor
+# counts none).
+ADMIT_BARRIERS, ADMIT_FIXED_LOADS, ADMIT_SLOT_GROUP = 2, 2, 2
 # phase 9: consolidation through the operator (testing.consolidating_cluster:
 # phase 7's bound cluster, a seeded half of its pods deleted), ticks until
 # disruption takes no action for CONSOLIDATION_QUIET ticks in a row with no
@@ -2280,9 +2286,13 @@ def arrivals_phase(torch, card, live_args, twins):
     for k in (256, 4096):
         err = max(err, compare_admit(torch, f"wrap k_slots={k}",
                                      admit_args(P.to_device(T.wrap_arrays(k), torch.device("cuda")))))
+    for case in T.ADMIT_EDGE_CASES:
+        err = max(err, compare_admit(torch, f"edge case {case}",
+                                     P.to_device(T.admit_edge_arrays(case), torch.device("cuda"))))
     row = time_admit(torch, "phase 8's resident state", state_args, 0, card)
-    time_admit(torch, "the live cluster", live, 0, card)
+    live_row = time_admit(torch, "the live cluster", live, 0, card)
     floor = admit_floor(torch, state_args, row["ms"], card)
+    admit_floor(torch, live, live_row["ms"], card)
     return dict(row, launches=launches["admit_kernel"], err=err, **floor)
 
 
@@ -2320,17 +2330,30 @@ def empty_launch_ms(torch, threads: int, iters: int) -> float:
     return profiled_ms(torch, launch, "probe_barrier", iters=iters)
 
 
+def admit_loads(K: int, Cp: int, live_end: int) -> int:
+    """``admit_kernel``'s dependent L2 load rounds at K slots and Cp
+    configs whose live slots end at ``live_end``: `ADMIT_FIXED_LOADS`, and
+    one for each further group of `ADMIT_SLOT_GROUP` slot rounds (a round
+    is `fused_packer.admit_threads` slots) that holds a live slot."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    live_rounds = -(-live_end // F.admit_threads(K, Cp))
+    return ADMIT_FIXED_LOADS + max(0, -(-live_rounds // ADMIT_SLOT_GROUP) - 1)
+
+
 def admit_floor(torch, args, kernel_ms: float, card) -> dict:
     """``admit_kernel``'s latency floor at ``args``' shapes: an empty
-    one-block launch at its thread count, plus its `ADMIT_BARRIERS` block
-    barriers at that thread count and its dependent L2 loads
-    (`ADMIT_FIXED_LOADS` and one a config round, ceil(Cp / threads)),
-    each at the round trip csrc/latency_probe.cu measures here."""
+    one-block launch at its thread count (`fused_packer.admit_threads`),
+    plus its `ADMIT_BARRIERS` block barriers at that thread count and its
+    `admit_loads` dependent L2 load rounds, each at the round trip
+    csrc/latency_probe.cu measures here."""
     from karpenter_tpu_torch.ops import fused_packer as F
 
     K, C = args[5].shape[0], args[3].shape[0]
-    threads = F.scan_threads(K)
-    loads = ADMIT_FIXED_LOADS + -(-C // threads)
+    threads = F.admit_threads(K, C)
+    live = (args[6] >= 0).nonzero()
+    live_end = int(live.max()) + 1 if live.numel() else 0
+    loads = admit_loads(K, C, live_end)
     barrier_us, _, l2_us = probe_latencies(torch, [threads], [])
     empty = empty_launch_ms(torch, threads, ADMIT_ITERS)
     floor = empty + (ADMIT_BARRIERS * barrier_us[threads] + loads * l2_us) / 1e3

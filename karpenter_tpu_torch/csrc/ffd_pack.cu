@@ -2493,58 +2493,366 @@ __global__ void __launch_bounds__(kPrologueThreads) population_pairs_kernel(
 // some config c may open a node of the class: feas[g][c], openable[c] and
 // node_cap(alloc[c], req[g]) > 0.  out = [take[0..K), placed, open_ok]:
 // K + 2 int32 words, so the host fetches one buffer.  The arithmetic is
-// the scan's own, node_cap and the unsigned block scan, as the reference
-// demands of its kernel (the fast path's host oracle holds the result to
-// bit-equality).
-// What bounds it: latency.  At the live cluster (Kp 4096, Cp 8192, R 6) it
+// node_cap's (__fsub_rn, __fdiv_rn, __fadd_rn, floorf, fminf in axis
+// order) and the sums are unsigned, so the result is bit-equal to the
+// reference (the fast path's host oracle demands it).
+//
+// What bounds it: one SM.  At the live cluster (Kp 4096, Cp 8192, R 6) it
 // moves a few hundred KB, well under a microsecond at the card's memory
-// rate, but it is one launch of dependent passes in one block of up to
-// 1024 threads.  Thread t owns the slots [t * n, t * n + n), n =
-// ceil(K / threads).  Pass 1 computes its slots' caps, stages each in its
-// slot's output word and sums them; one block scan of the thread totals
-// gives each thread its exclusive offset; pass 2 turns the staged caps
-// into takes in slot order and sums the takes.  The configs go strided
-// over the threads, with the division only where a config is feasible and
-// openable, and end in one __syncthreads_or.  Any K, Cp and R.
-__global__ void __launch_bounds__(1024) admit_kernel(
+// rate, but one block runs on one SM: its L1 serves about one 128-byte
+// line a cycle to all warps, its four schedulers issue about one warp
+// instruction a cycle each, and a thread's rounds run one after another
+// behind its dependent loads.  A strided walk over the configs that waits
+// on each stride's test is one dependent round a stride; a contiguous run
+// of slots or configs a thread makes each warp-wide row load touch 32
+// lines; and a zero dividend (a slot with no config) takes __fdiv_rn's
+// slow path.  So:
+//   1. Coalesced.  Slot round i of warp w is the block round of 32 x W
+//      slots (W warps) at (i W + w) 32, lane l its slot (i W + w) 32 + l;
+//      config round r likewise (r W + w) 32 + l.  A warp's byte loads read
+//      one line, its alloc and used0 rows six (24 bytes apart at R 6; the
+//      live slots' configs are consecutive columns), its take stores one,
+//      and the live slots (the first ones) spread over every warp.
+//   2. One load round before anything waits: the class row (up to
+//      kAdmitRow axes), its count, the slots' configs (up to kAdmitSlots
+//      rounds) and the feasibility and openable bytes of its first
+//      kAdmitRounds config rounds (the next ones' with the group that
+//      reaches them).  The block's threads are the caller's
+//      (fused_packer.admit_threads: a multiple of 32 up to kAdmitThreads,
+//      at most kAdmitSlots slot rounds a thread up to K 4096).
+//   3. Then a second, issued together: per slot round of the first group
+//      (2 rounds), fg[c] and the requested axes of alloc[c] and used0[k];
+//      per candidate config (feasible and openable) of the first group (2
+//      rounds), the requested axes of alloc; later groups follow.  The
+//      class's requested axes (the set bits of the row, at most
+//      kAdmitAxes) are the template argument of admit_held, so no
+//      instruction runs for an axis the class does not request.  A slot
+//      with no config or an infeasible one divides nothing, and an axis
+//      with r >= q, or r <= fl(0.99 q), needs no division either
+//      (admit_axis_holds_none: its floor is >= 1, or 0).  A warp stops
+//      testing configs once one of its lanes has found one that fits: the
+//      open bit is an any().
+//   4. Two barriers.  Each warp's slot total of each round and its
+//      __any_sync of the open test go to their own shared words; after the
+//      one barrier each warp sums, round by round, the totals of the
+//      rounds before and of the warps before it (__reduce_add_sync).  Then
+//      the takes, a warp sum of them, the second barrier, and warp 0 sums
+//      the warp sums and reads the open words.
+// A class row wider than kAdmitRow axes, or one that requests more than
+// kAdmitAxes of them, takes node_cap's loop for every slot and config, and
+// more than kAdmitSlots slot rounds (K > 4096) give each warp a contiguous
+// run of slots whose caps are staged in the output's own words between
+// the scan's two passes: any K, Cp and R.
+constexpr int kAdmitThreads = 512;  // the block's bound (one block an SM: 128 registers a thread)
+constexpr int kAdmitSlots = 8;      // slot rounds whose caps a thread keeps
+constexpr int kAdmitRounds = 4;     // config rounds whose bytes a thread loads at once
+constexpr int kAdmitAxes = 4;       // requested axes admit_held takes
+constexpr int kAdmitRow = 8;        // axes of the class row loaded at once
+
+// What a thread of the admission block holds: its inputs, its lane and
+// warp, its slot rounds (ns) and their configs (-1 past K), its candidate
+// configs' bits (round r: bit r) and the class's requested axes (bits of
+// `axes`).
+struct AdmitThread {
+  const float* rq;
+  const uint8_t* fg;
+  const uint8_t* openable;
+  const float* alloc;
+  const float* used0;
+  int R, Cp, ns, lane, nw, warp;
+  unsigned cand, axes;
+  int cf[kAdmitSlots];
+  // slot round i of a held slot: a block round of 32 x nw slots, warp
+  // after warp
+  __device__ __forceinline__ int slot(int i) const { return (i * nw + warp) * 32 + lane; }
+  // config round r: a block round of 32 x nw configs, warp after warp
+  __device__ __forceinline__ int config(int r) const { return (r * nw + warp) * 32 + lane; }
+};
+
+// The feasible-and-openable bits of config rounds [r0, r0 + kAdmitRounds):
+// a byte of each row a config, a warp's 32 on one line.
+__device__ __forceinline__ unsigned admit_candidates(const AdmitThread& th, int r0) {
+  uint8_t f[kAdmitRounds], o[kAdmitRounds];
+#pragma unroll
+  for (int r = 0; r < kAdmitRounds; ++r) {
+    const int c = th.config(r0 + r);
+    f[r] = c < th.Cp ? th.fg[c] : 0;
+    o[r] = c < th.Cp ? th.openable[c] : 0;
+  }
+  unsigned m = 0u;
+#pragma unroll
+  for (int r = 0; r < kAdmitRounds; ++r) m |= (f[r] && o[r] ? 1u : 0u) << r;
+  return m;
+}
+
+// node_cap's floor(fl(fl(r / q) + 1e-4)) of one axis (q > 0), decided
+// without its division where that is exact.  r >= q: the floor is >= 1
+// (fl(r / q) >= 1, rounding being monotone), or NaN at inf / inf, which
+// fminf ignores.  r < q and r <= fl(0.99 q) (admit_axis_holds_none): r / q
+// <= 0.99 (1 + 2^-24), so the floor is 0 or below (for a q of a few
+// subnormal ulps fl(0.99 q) may round to q, but then r, a whole number of
+// ulps below q, is at most (1 - 1/50) q).
+__device__ __forceinline__ bool admit_axis_holds_none(float r, float q) {
+  return r < q && r <= __fmul_rn(0.99f, q);
+}
+
+// Whether one axis of a config holds a pod: node_cap's floor >= 1, or NaN.
+__device__ __forceinline__ bool admit_axis_holds(float a, float q) {
+  return a >= q ||
+         (!admit_axis_holds_none(a, q) && !(floorf(__fadd_rn(__fdiv_rn(a, q), kNudge)) < 1.0f));
+}
+
+// Whether a candidate among the CG config rounds from r0 (bits of m, bit 0
+// round r0) holds a pod of the class: node_cap(alloc[c], req) > 0, every
+// requested axis's floor >= 1 or NaN (fminf ignores NaN).
+template <int NA, int CG>
+__device__ __forceinline__ bool admit_fits(const AdmitThread& th, unsigned m, int r0,
+                                           const int* ax, const float* q) {
+  constexpr int A = NA > 0 ? NA : 1;
+  float a[CG][A];
+#pragma unroll
+  for (int i = 0; i < CG; ++i)
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+      a[i][j] = (m >> i) & 1u ? th.alloc[(size_t)th.config(r0 + i) * th.R + ax[j]] : 0.0f;
+  bool fits = false;
+#pragma unroll
+  for (int i = 0; i < CG; ++i) {
+    bool ok = (m >> i) & 1u;
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+      ok = ok && admit_axis_holds(a[i][j], q[j]);
+    fits |= ok;
+  }
+  return fits;
+}
+
+// The caps of slot rounds [i0, i0 + SG) (0 past ns or for a slot with no
+// config or an infeasible one), the NA requested axes of their rows loaded
+// together.
+template <int NA, int SG>
+__device__ __forceinline__ void admit_caps(const AdmitThread& th, int i0, const int* ax,
+                                           const float* q, int* cap) {
+  constexpr int A = NA > 0 ? NA : 1;
+  float a[SG][A], u[SG][A];
+  bool f[SG];
+#pragma unroll
+  for (int s = 0; s < SG; ++s) {
+    const int c = th.cf[i0 + s];
+    f[s] = c >= 0 && th.fg[c];
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      a[s][j] = c >= 0 ? th.alloc[(size_t)c * th.R + ax[j]] : 0.0f;
+      u[s][j] = c >= 0 ? th.used0[(size_t)th.slot(i0 + s) * th.R + ax[j]] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < SG; ++s) {
+    float rem[A];
+    bool none = false;  // an axis that holds no pod: the cap is 0
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      rem[j] = __fsub_rn(a[s][j], u[s][j]);
+      none |= admit_axis_holds_none(rem[j], q[j]);
+    }
+    cap[i0 + s] = 0;
+    if (f[s] && !none) {
+      float m = kBigF;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+        m = fminf(m, floorf(__fadd_rn(__fdiv_rn(rem[j], q[j]), kNudge)));
+      cap[i0 + s] = (int)fmaxf(m, 0.0f);
+    }
+  }
+}
+
+// A class of NA requested axes: its held slots' caps and whether one of
+// the thread's configs opens a node of the class.
+template <int NA>
+__device__ __forceinline__ void admit_held(const AdmitThread& th, int rounds, int* cap,
+                                           bool& fits) {
+  constexpr int A = NA > 0 ? NA : 1;
+  constexpr int SG = 2;                 // slot rounds a group
+  constexpr int CG = 2;                 // config rounds a group
+  int ax[A];
+  float q[A];
+  unsigned bits = th.axes;
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    ax[j] = __ffs(bits) - 1;
+    bits &= bits - 1;
+    q[j] = th.rq[ax[j]];
+  }
+  admit_caps<NA, SG>(th, 0, ax, q, cap);
+  fits = admit_fits<NA, CG>(th, th.cand & ((1u << CG) - 1u), 0, ax, q);
+#pragma unroll
+  for (int i0 = SG; i0 < kAdmitSlots; i0 += SG)
+    if (i0 < th.ns) admit_caps<NA, SG>(th, i0, ax, q, cap);
+  unsigned m = th.cand;
+  for (int r0 = CG; r0 < rounds && !__any_sync(kFull, fits); r0 += CG) {
+    if (r0 % kAdmitRounds == 0) m = admit_candidates(th, r0);
+    const int sh = r0 % kAdmitRounds;
+    fits = admit_fits<NA, CG>(th, (m >> sh) & ((1u << CG) - 1u), r0, ax, q);
+  }
+}
+
+// A wide row: node_cap's loop for every slot and candidate config.
+__device__ __forceinline__ void admit_wide(const AdmitThread& th, int rounds, int* cap,
+                                           bool& fits) {
+  fits = false;
+  unsigned m = th.cand;
+  for (int r = 0; r < rounds; ++r) {  // warp-uniform, for the __any_sync
+    if (r % kAdmitRounds == 0 && r > 0) {
+      if (__any_sync(kFull, fits)) break;
+      m = admit_candidates(th, r);
+    }
+    if (!fits && ((m >> (r % kAdmitRounds)) & 1u))
+      fits = node_cap(th.alloc + (size_t)th.config(r) * th.R, nullptr, th.rq, th.R) > 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kAdmitSlots; ++i) {
+    const int c = th.cf[i];
+    cap[i] = c >= 0 && th.fg[c] ? node_cap(th.alloc + (size_t)c * th.R,
+                                           th.used0 + (size_t)th.slot(i) * th.R, th.rq, th.R)
+                                : 0;
+  }
+}
+
+// Warp inclusive scan (wrapping).
+__device__ __forceinline__ unsigned warp_incl_scan(unsigned v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kAdmitThreads, 1) admit_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const uint8_t* __restrict__ openable, const float* __restrict__ used0,
-    const int* __restrict__ cfg0, int Cp, int K, int R, int g,
-    int* __restrict__ out) {
-  __shared__ unsigned sh[32];
-  const float* rq = req + (size_t)g * R;
-  const uint8_t* fg = feas + (size_t)g * Cp;
-  const int n = (K + (int)blockDim.x - 1) / (int)blockDim.x;
-  const int k0 = min((int)threadIdx.x * n, K), k1 = min(k0 + n, K);
-  unsigned own = 0u;
-  for (int k = k0; k < k1; ++k) {
-    const int c = cfg0[k];
-    const int cap = (c >= 0 && fg[c])
-                        ? node_cap(alloc + (size_t)c * R, used0 + (size_t)k * R, rq, R)
-                        : 0;
-    out[k] = cap;
-    own += (unsigned)cap;
-  }
-  unsigned total;
-  unsigned prefix = block_incl_scan(own, &total, sh) - own;  // exclusive
+    const int* __restrict__ cfg0, int Cp, int K, int R, int g, int* __restrict__ out) {
+  // slot round totals of each warp (a staged launch: the warp's total)
+  __shared__ unsigned sh_total[kAdmitSlots][32], sh_open[32], sh_placed[32];
+  AdmitThread th;
+  th.rq = req + (size_t)g * R;
+  th.fg = feas + (size_t)g * Cp;
+  th.openable = openable;
+  th.alloc = alloc;
+  th.used0 = used0;
+  th.R = R;
+  th.Cp = Cp;
+  th.lane = threadIdx.x & 31;
+  th.warp = threadIdx.x >> 5;
+  th.nw = blockDim.x >> 5;
+  th.ns = (K + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int rounds = (Cp + (int)blockDim.x - 1) / (int)blockDim.x;
+  const bool held = th.ns <= kAdmitSlots;
+
+  // round 1: the class row and count, the slots' configs, the configs' bytes
+  float row[kAdmitRow];
+#pragma unroll
+  for (int r = 0; r < kAdmitRow; ++r) row[r] = r < R ? th.rq[r] : 0.0f;
   const int n_g = cnt[g];
-  unsigned placed = 0u;
-  for (int k = k0; k < k1; ++k) {
-    const int cap = out[k];
-    const int take = clip(wsub(n_g, (int)prefix), 0, cap);
-    out[k] = take;
-    placed += (unsigned)take;
-    prefix += (unsigned)cap;
-  }
+#pragma unroll
+  for (int i = 0; i < kAdmitSlots; ++i)
+    th.cf[i] = held && i < th.ns && th.slot(i) < K ? cfg0[th.slot(i)] : -1;
+  th.cand = admit_candidates(th, 0);
+  th.axes = 0u;
+#pragma unroll
+  for (int r = 0; r < kAdmitRow; ++r) th.axes |= (row[r] > 0.0f ? 1u : 0u) << r;
+  const int na = __popc(th.axes);
+
+  // the caps and the open test
+  int cap[kAdmitSlots];
   bool fits = false;
-  for (int c = threadIdx.x; c < Cp && !fits; c += blockDim.x)
-    fits = fg[c] && openable[c] && node_cap(alloc + (size_t)c * R, nullptr, rq, R) > 0;
-  const int open_ok = __syncthreads_or(fits);
-  placed = block_sum(placed, sh);
-  if (threadIdx.x == 0) {
-    out[K] = (int)placed;
-    out[K + 1] = open_ok ? 1 : 0;
+  const int base = th.warp * 32 * th.ns;  // a staged warp's contiguous slots
+  if (!held) {  // K > 4096: node_cap's loop, the caps staged in the output words
+    admit_wide(th, rounds, cap, fits);
+    unsigned off = 0u;
+    for (int i = 0; i < th.ns; ++i) {
+      const int k = base + 32 * i + th.lane;
+      const int c = k < K ? cfg0[k] : -1;
+      const int ck = c >= 0 && th.fg[c] ? node_cap(alloc + (size_t)c * R, used0 + (size_t)k * R,
+                                                   th.rq, R)
+                                        : 0;
+      if (k < K) out[k] = ck;
+      off += __shfl_sync(kFull, warp_incl_scan((unsigned)ck, th.lane), 31);
+    }
+    cap[0] = (int)off;  // the warp's total
+  } else if (R <= kAdmitRow && na <= kAdmitAxes) {
+    switch (na) {
+      case 0: admit_held<0>(th, rounds, cap, fits); break;
+      case 1: admit_held<1>(th, rounds, cap, fits); break;
+      case 2: admit_held<2>(th, rounds, cap, fits); break;
+      case 3: admit_held<3>(th, rounds, cap, fits); break;
+      default: admit_held<4>(th, rounds, cap, fits); break;
+    }
+  } else {
+    admit_wide(th, rounds, cap, fits);
+  }
+
+  // each held slot's prefix within its warp's part of its round; barrier
+  // 1: the round totals of the warps (a staged warp's total) and the open
+  // bit
+  unsigned pre[kAdmitSlots];
+  if (held) {
+#pragma unroll
+    for (int i = 0; i < kAdmitSlots; ++i) {
+      if (i < th.ns) {
+        const unsigned incl = warp_incl_scan((unsigned)cap[i], th.lane);
+        pre[i] = incl - (unsigned)cap[i];
+        if (th.lane == 31) sh_total[i][th.warp] = incl;
+      }
+    }
+  } else if (th.lane == 0) {
+    sh_total[0][th.warp] = (unsigned)cap[0];
+  }
+  const bool warp_fits = __any_sync(kFull, fits);
+  if (th.lane == 0) sh_open[th.warp] = warp_fits;
+  __syncthreads();
+
+  // the takes; barrier 2: the placed total
+  unsigned placed = 0u;
+  if (held) {
+    unsigned before = 0u;  // the slots of the earlier rounds
+#pragma unroll
+    for (int i = 0; i < kAdmitSlots; ++i) {
+      if (i < th.ns) {
+        const unsigned t = th.lane < th.nw ? sh_total[i][th.lane] : 0u;
+        const unsigned off = before + __reduce_add_sync(kFull, th.lane < th.warp ? t : 0u);
+        before += __reduce_add_sync(kFull, t);
+        const int k = th.slot(i);
+        if (k < K) {
+          const int take = clip(wsub(n_g, (int)(off + pre[i])), 0, cap[i]);
+          out[k] = take;
+          placed += (unsigned)take;
+        }
+      }
+    }
+  } else {
+    unsigned o = __reduce_add_sync(kFull, th.lane < th.warp ? sh_total[0][th.lane] : 0u);
+    for (int i = 0; i < th.ns; ++i) {
+      const int k = base + 32 * i + th.lane;
+      const int ck = k < K ? out[k] : 0;
+      const unsigned incl = warp_incl_scan((unsigned)ck, th.lane);
+      const int take = clip(wsub(n_g, (int)(o + incl - (unsigned)ck)), 0, ck);
+      if (k < K) out[k] = take;
+      placed += (unsigned)take;
+      o += __shfl_sync(kFull, incl, 31);
+    }
+  }
+  placed = __reduce_add_sync(kFull, placed);
+  if (th.lane == 0) sh_placed[th.warp] = placed;
+  __syncthreads();
+  if (th.warp == 0) {
+    const unsigned total = __reduce_add_sync(kFull, th.lane < th.nw ? sh_placed[th.lane] : 0u);
+    const bool open_ok = __any_sync(kFull, th.lane < th.nw && sh_open[th.lane]);
+    if (th.lane == 0) {
+      out[K] = (int)total;
+      out[K + 1] = open_ok ? 1 : 0;
+    }
   }
 }
 
@@ -2897,13 +3205,17 @@ int ffd_population_prologue(const int* cand_cnt, const int* cand_slot,
 
 // The admission score of class g (admit_kernel above): req [Gp][R], cnt
 // [Gp], feas [Gp][Cp], alloc [Cp][R], openable [Cp], used0 [K][R], cfg0
-// [K] (values in [-1, Cp)), out [K + 2].
+// [K] (values in [-1, Cp)), out [K + 2]; `threads` a multiple of 32 from 32
+// to kAdmitThreads (any such count is exact; fused_packer.admit_threads
+// picks it).
 int ffd_admit(const float* req, const int* cnt, const uint8_t* feas,
               const float* alloc, const uint8_t* openable, const float* used0,
-              const int* cfg0, int Gp, int Cp, int K, int R, int g, int* out,
+              const int* cfg0, int Gp, int Cp, int K, int R, int g, int threads, int* out,
               void* stream) {
-  if (g < 0 || g >= Gp || Cp < 0 || K < 0 || R < 0) return (int)cudaErrorInvalidValue;
-  admit_kernel<<<1, scan_threads(K), 0, (cudaStream_t)stream>>>(
+  if (g < 0 || g >= Gp || Cp < 0 || K < 0 || R < 0 || threads < 32 ||
+      threads > kAdmitThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  admit_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
       req, cnt, feas, alloc, openable, used0, cfg0, Cp, K, R, g, out);
   return (int)cudaGetLastError();
 }

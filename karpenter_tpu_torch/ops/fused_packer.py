@@ -30,7 +30,7 @@ removed slots and class order.
 
 The admission fast path (the JAX package's ``admit_kernel``, a jitted XLA
 function) scores one class against the live nodes of a resident state:
-`admit`, one launch.
+`admit`, one launch of one block (`admit_threads`).
 
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
@@ -137,7 +137,7 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_verdict_rows.restype = _I
         lib.ffd_population_prologue.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_population_prologue.restype = _I
-        lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 5 + [_P] + [_P]
+        lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 6 + [_P] + [_P]
         lib.ffd_admit.restype = _I
     return lib
 
@@ -873,13 +873,34 @@ def population_verdicts(
 # ---------------------------------------------------------------------------
 
 
+# ``admit_kernel``'s block (csrc/ffd_pack.cu): at most ADMIT_THREADS
+# threads (kAdmitThreads, its launch bound), and enough for
+# ADMIT_SLOTS_AIM slot rounds and ADMIT_ROUNDS_AIM config rounds a thread,
+# from ADMIT_MIN_THREADS.  A thread's rounds run one after another, so more
+# warps shorten the chain; each warp adds its share of instructions to the
+# one SM's issue, so past these counts they cost more than they save
+# (measured on the card at phase 8's resident state and the live cluster).
+ADMIT_THREADS, ADMIT_MIN_THREADS, ADMIT_SLOTS_AIM, ADMIT_ROUNDS_AIM = 512, 128, 4, 8
+
+
+def admit_threads(K: int, Cp: int) -> int:
+    """``admit_kernel``'s threads for K slots and Cp configs: a multiple of
+    32 from `ADMIT_MIN_THREADS` to `ADMIT_THREADS`, enough for
+    `ADMIT_SLOTS_AIM` slot rounds and `ADMIT_ROUNDS_AIM` config rounds a
+    thread (so at most 8 slot rounds, the kernel's register-held ones, up
+    to K 4096)."""
+    need = max(-(-K // ADMIT_SLOTS_AIM), -(-Cp // ADMIT_ROUNDS_AIM))
+    return min(max((need + 31) // 32 * 32, ADMIT_MIN_THREADS), ADMIT_THREADS)
+
+
 def admit(req, cnt, feas, alloc, openable, used0, cfg0, g: int) -> torch.Tensor:
     """The single-pod admission score of class ``g`` (the JAX package's
     ``admit_kernel``): ONE [K+2] int32 tensor, take per slot, the placed
     total and the open-capacity bit (ops/packer.py: `admit_reference`, run
     for CPU tensors by the dispatcher `admit_kernel` there).  One launch of
-    ``admit_kernel``: one block over the live slots, the solve's own
-    capacity arithmetic and block scan."""
+    ``admit_kernel``: one block of `admit_threads` threads, two load rounds
+    (the configs' bytes and the slots' configs; then the rows they name)
+    and two block barriers."""
     dev = req.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -903,7 +924,7 @@ def admit(req, cnt, feas, alloc, openable, used0, cfg0, g: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ffd_admit(
             *_ptrs(req, cnt, feas, alloc, openable, used0, cfg0), G, C, K, R, int(g),
-            out.data_ptr(), stream,
+            admit_threads(K, C), out.data_ptr(), stream,
         )
     _launched("admit_kernel", err)
     return out

@@ -10,7 +10,8 @@ int32 sums wrap, pack inputs on which the new-node choice must break ties
 by first index, removal-verdict inputs on which the verdict rows must
 (`verdict_tie_arrays`), removal-verdict inputs that put the elements'
 frontiers in and past the frontier-window scan's window
-(`frontier_arrays`), and live clusters whose nodes hold bound pods, for the
+(`frontier_arrays`), admission inputs at the admission kernel's edges
+(`admit_edge_arrays`), and live clusters whose nodes hold bound pods, for the
 consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
 `ranked_candidates`).
 
@@ -529,6 +530,119 @@ def window_finishes(used0, req, node_cfg, next0: int, W: int) -> np.ndarray:
     where the tail does not move."""
     fits = element_frontiers(node_cfg, next0) <= W
     return fits & (W >= np.asarray(used0).shape[0] or not tail_moves(used0, req, W))
+
+
+# `admit_edge_arrays`' cases: name -> what the case is for.  The admission
+# kernel (``admit_kernel``, csrc/ffd_pack.cu) gives each thread slot rounds
+# (up to 8 in registers, K <= 4096; past that a run staged in the output)
+# and config rounds (their bytes 16 rounds at a time), and holds up to 4
+# requested axes of a row of up to 8 (more take node_cap's loop).
+ADMIT_EDGE_CASES = {
+    "last-config": "the only config that fits any class is the last, Cp - 1",
+    "none-fits": "no config fits any class: the open bit is 0 for every class",
+    "nudge": "configs and slots just under a multiple of q (q 3.0): alloc 2.9999 fits "
+             "only through the 1e-4 nudge, 2.999 does not",
+    "exact": "alloc == q and alloc - used == q exactly on every requested axis",
+    "unaligned": "Cp 300: no multiple of 8, and odd classes' feasibility rows start off "
+                 "8-byte alignment (byte loads)",
+    "k-ragged": "K 1000, no multiple of 32",
+    "k-16384": "K 16,384: more slots a thread than its registers hold (caps staged)",
+    "k-0": "K 0: only the placed total and the open bit",
+    "no-axis": "classes that request no axis: 2^30 room a slot, the int32 prefix wraps",
+    "last-class": "the one class with pods is the last row of req, cnt and feas",
+    "wide": "R 10 with classes requesting 5 or 6 axes: node_cap's loop",
+    "axes": "R 8, classes requesting 0, 1, 2, 4, 5 and 8 axes: each register pass and "
+            "node_cap's loop past 4",
+    "many-configs": "Cp 20,000: past 16 config rounds a thread, the fitting config last",
+    "k-4096": "K 4096, every slot live: 8 slot rounds a thread, each holding live slots",
+}
+ADMIT_LIVE_ROWS = 16  # config columns 0 .. 15: the live nodes' rows, never openable
+
+
+def admit_edge_arrays(case: str) -> tuple:
+    """Admission inputs (numpy, in ``admit_kernel``'s argument order: req,
+    cnt, feas, alloc, openable, used0, cfg0) for one of `ADMIT_EDGE_CASES`.
+
+    The base (seed 23): G 6 classes of requests 0.25-3 over R 3 axes (cpu,
+    memory, pods), counts up to 300; Cp 512 configs, the first
+    `ADMIT_LIVE_ROWS` the live nodes' rows (never openable), the rest a
+    catalog of which 60 % is openable, 80 % feasible; K 256 slots, the
+    first 200 live on random configs (mostly live rows) with usage a random
+    share of their alloc row."""
+    rng = np.random.default_rng(23)
+    G, C, K, R, live = 6, 512, 256, 3, 200
+    E = ADMIT_LIVE_ROWS
+    if case == "unaligned":
+        G, C = 7, 300
+    elif case == "k-ragged":
+        K, live = 1000, 900
+    elif case == "k-16384":
+        K, live = 16384, 12000
+    elif case == "k-0":
+        K, live = 0, 0
+    elif case == "wide":
+        R = 10
+    elif case == "axes":
+        R = 8
+    elif case == "many-configs":
+        C = 20_000
+    elif case == "k-4096":
+        K, live = 4096, 4096
+    req = rng.choice([0.25, 0.5, 1.0, 2.0, 3.0], size=(G, R)).astype(np.float32)
+    req[:, 2] = 1.0  # one pod
+    if R > 3:
+        req[:, 3:] = np.where(rng.random((G, R - 3)) < 0.4, req[:, 3:], 0.0)
+    cnt = rng.integers(0, 300, G).astype(np.int32)
+    feas = rng.random((G, C)) < 0.8
+    alloc = rng.choice([2.0, 4.0, 8.0, 16.0, 32.0], size=(C, R)).astype(np.float32)
+    alloc[:, 2] = 110.0
+    alloc[:E, :2] = (16.0, 64.0)
+    openable = rng.random(C) < 0.6
+    openable[:E] = False
+    cfg0 = np.full(K, -1, np.int32)
+    cfg0[:live] = np.where(rng.random(live) < 0.8, rng.integers(0, E, live),
+                           rng.integers(0, C, live))
+    frac = rng.random((live, R)).astype(np.float32)
+    if case == "last-config":
+        alloc[E:C - 1, 0] = 0.125  # below every class's cpu request
+        openable[C - 1] = True
+        feas[:, C - 1] = True
+    elif case in ("none-fits", "many-configs"):
+        alloc[E:, 0] = 0.125
+        if case == "many-configs":  # the last config fits, in a thread's third round
+            alloc[C - 1, 0] = 32.0
+            openable[C - 1] = feas[:, C - 1] = True
+    elif case == "nudge":
+        req[:, 0] = 3.0
+        alloc[E:, 0] = 2.999
+        nudged = E + rng.choice(C - E, 12, replace=False)
+        alloc[nudged, 0] = 2.9999
+        alloc[:E, 0] = 9.0
+    elif case == "exact":
+        req[:] = (2.0, 4.0, 1.0)
+        alloc[E:] = np.where(rng.random((C - E, 1)) < 0.1, req[0], (2.0, 2.0, 110.0))
+        alloc[:E] = (8.0, 16.0, 110.0)
+    elif case == "no-axis":
+        req[:3] = 0.0
+        cnt[:3] = (5, 2**30, 2**31 - 1)
+    elif case == "last-class":
+        cnt[:] = 0
+        cnt[G - 1] = 150
+        req[G - 1] = (0.0, 0.0, 1.0)  # its row's last word is the array's last
+    elif case == "wide":
+        req[:, 3:] = np.where(np.arange(R - 3) < 3, 0.5, 0.0)  # 6 axes a class
+        req[0, 5] = 0.0  # and one of 5
+    elif case == "axes":
+        req[:] = 0.0
+        for g, n in enumerate((0, 1, 2, 4, 5, 8)):
+            req[g, R - n:] = 0.25  # the last n axes (the pods axis 2 among the wider)
+    used0 = np.zeros((K, R), np.float32)
+    used0[:live] = (alloc[cfg0[:live]] * frac).astype(np.float32)
+    if case == "nudge":  # 9 - 0.0001 holds 3 pods only through the nudge
+        used0[:live, 0] = np.where(rng.random(live) < 0.5, np.float32(0.0001), np.float32(0.001))
+    elif case == "exact":  # alloc - used == q: one pod exactly
+        used0[:live] = np.where(cfg0[:live, None] < E, (6.0, 12.0, 109.0), used0[:live])
+    return req, cnt, feas, alloc, openable, used0, cfg0
 
 
 def _extra_axes(req, alloc, used0, axes: int, champ, ex: int, live: int, npods0) -> tuple:

@@ -498,8 +498,10 @@ def test_phase9_drive_on_the_cpu():
 
 def test_phase8_admit_helpers():
     """`admit_bound` counts the class's slots and configs from the data,
-    `percentiles` reads p50 and p99 by nearest rank, `admit_args` picks the
-    score's inputs out of a pack's arguments."""
+    the latency floor counts the kernel's barriers and load rounds at the
+    block `admit_layout` gives, `percentiles` reads p50 and p99 by nearest
+    rank, `admit_args` picks the score's inputs out of a pack's
+    arguments."""
     args, _, _ = _tiny_pack()
     got = chip_smoke.admit_args(args)
     assert [a.shape for a in got] == [(2, 1), (2,), (2, 4), (4, 1), (4,), (3, 1), (3,)]
@@ -515,6 +517,20 @@ def test_phase8_admit_helpers():
     b1 = chip_smoke.admit_bound(got, 1)
     assert b1["bytes"] == 4 + 4 + 3 * 4 + 4 + 1 + 1 * 4 + 5 * 4
     assert b1["operations"] == 1 * (4 + 1)
+    # the floor's chain: 2 barriers, 2 load rounds, one more for each
+    # further group of 2 slot rounds that holds a live slot
+    from karpenter_tpu_torch.ops.fused_packer import admit_threads
+
+    assert (chip_smoke.ADMIT_BARRIERS, chip_smoke.ADMIT_FIXED_LOADS) == (2, 2)
+    assert admit_threads(256, 4096) == 512  # phase 8's resident state: 1 slot round
+    assert admit_threads(4096, 8192) == 512  # the live cluster: 8 slot rounds
+    assert admit_threads(16384, 512) == 512  # 32 slot rounds: staged
+    assert admit_threads(0, 0) == 128 and admit_threads(1000, 300) == 256
+    assert admit_threads(256, 512) == 128  # the edge cases' shape
+    assert admit_threads(256, 20000) == 512
+    assert [chip_smoke.admit_loads(K, C, n) for K, C, n in
+            ((256, 4096, 150), (4096, 8192, 2000), (4096, 8192, 0), (4096, 8192, 4096))] \
+        == [2, 3, 2, 5]
     p = chip_smoke.percentiles([float(x) for x in range(1, 101)])
     assert p == {"n": 100, "p50": 50.5, "p99": 100.0}
     assert chip_smoke.percentiles([]) == {"n": 0}

@@ -16,8 +16,8 @@ the frontier-window scan (``ffd_scan_window_batched``), then the picked
 scan for the elements that leave its window; on each of
 ``testing.frontier_arrays``' cases the window scan's ``done`` mask is the
 elements whose frontier stays within W.  The admission score (``admit_kernel``) is held to its plain version
-on every class of the wrap case, of config 2 over 4096 slots and of a
-resident state, and a fast-path operator drive on the card to the CPU's;
+on every class of the wrap case, of config 2 over 4096 slots, of each of
+``testing.admit_edge_arrays``' cases and of a resident state, and a fast-path operator drive on the card to the CPU's;
 an operator drive that consolidates on the card, to the CPU's.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
@@ -592,6 +592,27 @@ def test_admit_matches_reference(cuda_device, case):
         host[8][:live] = host[5][host[9][:live]] * rng.rand(live, host[5].shape[1]).astype(np.float32)
         assert K == 4096
     args = to_device(_admit_args(host), cuda_device)
+    for g in range(args[0].shape[0]):
+        got, moved = _launch_moves(lambda: fused_packer.admit(*args, g))
+        assert moved == {"admit_kernel": 1}
+        _assert_bit_equal([got], [admit_reference(*args, g)])
+
+
+@pytest.mark.parametrize("case", [*T.ADMIT_EDGE_CASES, "feas-offset"])
+def test_admit_on_edge_arrays(cuda_device, case):
+    """`testing.admit_edge_arrays`, every class, one launch each, bit for
+    bit; ``feas-offset`` is the ``exact`` case with its feasibility rows one
+    byte off 8-byte alignment (Cp 512: the byte loads)."""
+    from karpenter_tpu_torch.ops.packer import admit_reference
+
+    host = list(T.admit_edge_arrays("exact" if case == "feas-offset" else case))
+    args = list(to_device(host, cuda_device))
+    if case == "feas-offset":
+        f = args[2]
+        buf = torch.zeros(f.numel() + 1, dtype=torch.bool, device=cuda_device)
+        buf[1:] = f.reshape(-1)
+        args[2] = buf[1:].view(f.shape)
+        assert args[2].data_ptr() % 8 == 1
     for g in range(args[0].shape[0]):
         got, moved = _launch_moves(lambda: fused_packer.admit(*args, g))
         assert moved == {"admit_kernel": 1}

@@ -6,7 +6,8 @@ Two halves:
   the CPU) and the port's plain version ``ops/packer.py: admit_reference``
   get the same numpy inputs and must return the same [K+2] int32 vector,
   bit for bit: random arrays from a seed, ``testing.wrap_arrays`` (four
-  slots of a class that requests no axis wrap the int32 prefix), and every
+  slots of a class that requests no axis wrap the int32 prefix),
+  ``testing.admit_edge_arrays`` (the admission kernel's edges), and every
   class row of a warm resident state of either package;
 - the path.  Each case of ``tests/test_fastpath.py``'s ``TestAdmit``,
   ``TestEligibilityBoundary``, ``TestTickTrustWindow``,
@@ -94,6 +95,38 @@ def test_admit_matches_jax_on_wrapping_sums(k_slots, at):
     ref, _ = _scores(args, 0)
     assert ref[-2] != cnt[0] and ref[at + 3] == 2**30  # the sum did wrap
     _assert_scores_equal(args, range(req.shape[0]))
+
+
+@pytest.mark.parametrize("case", list(T.ADMIT_EDGE_CASES))
+def test_admit_matches_jax_on_edge_arrays(case):
+    """`testing.admit_edge_arrays`: the admission kernel's edges (the last
+    config the only fit, none fits, the nudge, alloc == q, Cp 300, K 1000 /
+    16,384 / 0, classes that request no axis, the last class, R 10, Cp
+    20,000), every class bit for bit."""
+    args = T.admit_edge_arrays(case)
+    _assert_scores_equal(args, range(args[0].shape[0]))
+
+
+def test_admit_edge_arrays_hit_their_edges():
+    """Each edge case shows what it is for in the plain version's result."""
+    def score(case, g):
+        a = T.admit_edge_arrays(case)
+        return P.admit_reference(*(torch.from_numpy(np.array(x)) for x in a), g).numpy()
+
+    for g in range(6):
+        assert score("none-fits", g)[-1] == 0 and score("last-config", g)[-1] == 1
+        assert score("many-configs", g)[-1] == 1 and score("nudge", g)[-1] == 1
+    req, cnt, feas, alloc, openable, used0, cfg0 = T.admit_edge_arrays("nudge")
+    fit = (alloc[:, 0] == np.float32(2.9999)) & openable
+    assert fit.any() and np.floor(alloc[fit, 0] / req[0, 0]).max() == 0  # the nudge alone
+    a = T.admit_edge_arrays("last-config")
+    ok = a[2] & a[4][None, :] & (a[3][None, :, 0] >= a[0][:, None, 0])
+    assert ok[:, :-1].sum() == 0 and ok[:, -1].all()
+    assert score("last-class", 5)[-2] == 150 and score("last-class", 0)[-2] == 0
+    wrapped = score("no-axis", 2)  # count 2^31 - 1 over slots of 2^30 room
+    assert wrapped[:-2].max() == 2**30 and wrapped[-2] != 2**31 - 1  # the prefix wrapped
+    assert T.admit_edge_arrays("unaligned")[3].shape[0] % 8 != 0
+    assert T.admit_edge_arrays("k-0")[5].shape == (0, 3)
 
 
 def test_admit_dispatch_picks_the_plain_version_for_cpu_tensors():
