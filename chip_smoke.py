@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-8), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-10), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -142,12 +142,14 @@ Phases (each failure exits non-zero before the last line is printed):
    and solver counters (`testing.operator_state`) must equal those of the
    same drive on the port's CPU operator.  One line a tick: the
    operator's tick ms, each controller's ms, the solve's kind (cold, hit,
-   delta) and phases, the garbage collector's ms in the step, and the
+   delta) and phases, the garbage collector's ms in the step, the
+   diagnosis tail's ms (`TailTimer`: the operator's `_observe_tick` and
+   its SLO evaluation, anomaly scan and flight record), and the
    device observatory's tick section with its
    launches by function, new signatures, transfer bytes by site and
-   resident updates; then the p50 tick of each kind and the device busy
-   share of the last churn round's solve tick, profiled (device-side
-   events only).
+   resident updates; then the p50 tick of each kind, the tail's p50 and
+   p99, and the device busy share of the last churn round's solve tick,
+   profiled (device-side events only).
 8. Single-pod arrivals: the same operator with the admission fast path and
    the singleton bypass on; the 10,000 pods bound, a seeded 30 % of them
    deleted (headroom on most nodes), then one arrival a tick: 200 single
@@ -197,9 +199,29 @@ Phases (each failure exits non-zero before the last line is printed):
    timed in turns (the parent's batched scan; the window scan and the
    launch after it; twice; the parent's), which gives the window scan's
    row of the kernels line.
+10. The simulator on the card: ``sim.runner.run_scenario(...,
+   device="cuda")`` with a ``TraceWriter`` for each of `SIM_CELLS`, at the
+   reference tests' seeds and ticks: ``steady``, ``resident-churn``,
+   ``single-pod-trickle``, ``consolidation-storm`` and the two scale
+   anchors at full size (``anchor-500-antiaffinity``: 500 anti-affine
+   pods, one node each; ``anchor-6600-density``: 6,600 pods at 110 a node
+   on 60 nodes).  The launch counters are set to 0 before each scenario
+   and read after it; across the phase ``choose_config``, a solve scan,
+   ``admit_kernel``, the frontier-window scan, the three verdict kernels
+   and ``population_pairs`` must launch.  Fails on an invariant
+   violation, an anchor outside its settle budget or with other than its
+   node count, a fast-path mismatch or no nomination in
+   ``single-pod-trickle``, a verdict mismatch, a card trace unequal byte
+   for byte to the same scenario's trace on the CPU (run in the spawned
+   process, `CpuTwins`), or a replay on the card of one card trace
+   (`SIM_REPLAYED`) that does not reproduce its report and its trace
+   bytes.  Prints, for each scenario on the card and on the CPU, the wall
+   seconds, the tick p50 / p99 ms, the time to settle, the nodes and the
+   summed node price at the end, and the launches on the card.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
-phase 9's), the card line, and last ``{"ok": true, "device": {...}}``.
+phase 9's, ``sim_launches`` phase 10's over its scenarios), the card line,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -268,6 +290,7 @@ TIMED_VERDICTS = 5
 # ``sweep`` the window holds every slot, at ``live`` next0 is past it)
 VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
+PROFILE_ATTEMPTS = 3  # profiler windows a kernel's device time may take
 # the kernels whose registers phase 2 prints and whose spills fail the run
 SPILL_CHECKED = ("choose_config", "ffd_scan_window", *VERDICT_ROWS, "population_pairs",
                  "admit")
@@ -323,12 +346,28 @@ CONSOLIDATION_QUIET, CONSOLIDATION_TICKS, PROFILED_TICKS = 3, 120, 6
 BASE_POPULATION, BASE_SEED, BASE_ITERS = 128, 19, 5
 # what phase 9's drive must launch through the operator
 CONSOLIDATION_KERNELS = ("choose_config", *VERDICT_ROWS, "population_pairs")
-# the CPU drives of phases 8 and 9 run in a process of their own, beside
+# the CPU drives of phases 8-10 run in a process of their own, beside
 # the card's drives, on this many of the host's threads
 CPU_TWIN_THREADS = 3
+# phase 10: (scenario, seed, ticks) as the JAX package's tests run them, the
+# anchors at full size; the node count each anchor must end with; the
+# scenario whose card trace is replayed on the card
+SIM_CELLS = (
+    ("steady", 3, 40),
+    ("resident-churn", 21, 70),
+    ("single-pod-trickle", 11, 60),
+    ("consolidation-storm", 7, 60),
+    ("anchor-500-antiaffinity", 1, 15),
+    ("anchor-6600-density", 1, 15),
+)
+ANCHOR_NODES = {"anchor-500-antiaffinity": 500, "anchor-6600-density": 60}
+SIM_REPLAYED = "consolidation-storm"
+# what phase 10 must launch, over its scenarios (and a solve scan)
+SIM_KERNELS = ("choose_config", "admit_kernel", "ffd_scan_window_batched", *VERDICT_ROWS,
+               "population_pairs")
 
 
-LAST_PHASE = 9
+LAST_PHASE = 10
 
 
 def fail(msg: str) -> None:
@@ -337,14 +376,15 @@ def fail(msg: str) -> None:
 
 
 def parse_through(argv) -> int:
-    """The last phase to run: ``--through N`` (N = 1-8) stops after phase
-    N; no argument runs them all.  Anything else exits 2."""
+    """The last phase to run: ``--through N`` (N = 1-`LAST_PHASE`) stops
+    after phase N; no argument runs them all.  Anything else exits 2."""
     if not argv:
         return LAST_PHASE
-    if len(argv) == 2 and argv[0] == "--through" and argv[1] in tuple("12345678"):
+    phases = tuple(str(n) for n in range(1, LAST_PHASE + 1))
+    if len(argv) == 2 and argv[0] == "--through" and argv[1] in phases:
         return int(argv[1])
-    print("usage: python3 chip_smoke.py [--through N]  (N = 1-8: stop after phase N)",
-          file=sys.stderr, flush=True)
+    print(f"usage: python3 chip_smoke.py [--through N]  (N = 1-{LAST_PHASE}: stop after "
+          f"phase N)", file=sys.stderr, flush=True)
     raise SystemExit(2)
 
 
@@ -697,27 +737,37 @@ def _device_us(ev) -> float:
 
 def profiled_launches_ms(torch, fn, kernels, iters: int) -> dict:
     """Mean device milliseconds per launch of each kernel of ``kernels``
-    over ``iters`` calls of ``fn``, from torch.profiler."""
+    over ``iters`` calls of ``fn``, from torch.profiler.  The profiler now
+    and then records no device event over a whole window (PERF.md §7), so
+    a window that misses a kernel is profiled again, `PROFILE_ATTEMPTS`
+    windows at most, before the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = {}
-    for kernel in kernels:
-        total_us, count = 0.0, 0
-        for ev in events:
-            if f"{kernel}_kernel" in ev.key and _device_us(ev) > 0:
-                total_us += _device_us(ev)
-                count += ev.count
-        if not count:
-            fail(f"torch.profiler saw no device time of {kernel}")
-        out[kernel] = total_us / count / 1e3
-    return out
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        out, missing = {}, []
+        for kernel in kernels:
+            total_us, count = 0.0, 0
+            for ev in events:
+                if f"{kernel}_kernel" in ev.key and _device_us(ev) > 0:
+                    total_us += _device_us(ev)
+                    count += ev.count
+            if count:
+                out[kernel] = total_us / count / 1e3
+            else:
+                missing.append(kernel)
+        if not missing:
+            return out
+        print(f"  torch.profiler saw no device time of {', '.join(missing)} in window "
+              f"{attempt} of {PROFILE_ATTEMPTS}", flush=True)
+    fail(f"torch.profiler saw no device time of {', '.join(missing)} in "
+         f"{PROFILE_ATTEMPTS} windows")
 
 
 def profiled_ms(torch, fn, kernel: str, iters: int):
@@ -1728,19 +1778,63 @@ class GcTimer:
             self.ms += (time.perf_counter() - self._t0) * 1e3
 
 
+class TailTimer:
+    """Times an operator's diagnosis tail: ``Operator._observe_tick`` (the
+    tick histogram, the observatory's export, the SLO rules, the anomaly
+    scan, the flight record, a dump when one is due) and three of its
+    parts, the SLO engine's ``evaluate``, the detector's ``scan`` and the
+    flight recorder's ``record``, each wrapped on the operator's own
+    objects.  ``ticks`` holds one ``{"tail", "slo", "detect", "flight"}``
+    dict of ms a tick."""
+
+    PARTS = (("slo", "slo", "evaluate"), ("detect", "detector", "scan"),
+             ("flight", "flight", "record"))
+
+    def __init__(self, operator):
+        self.ticks = []
+        self._cur = {}
+        tail = operator._observe_tick
+
+        def observe(dur_s):
+            self._cur = {}
+            t0 = time.perf_counter()
+            try:
+                tail(dur_s)
+            finally:
+                self._cur["tail"] = (time.perf_counter() - t0) * 1e3
+                self.ticks.append(self._cur)
+
+        operator._observe_tick = observe
+        for label, attr, method in self.PARTS:
+            owner = getattr(operator, attr)
+            setattr(owner, method, self._timed(label, getattr(owner, method)))
+
+    def _timed(self, label: str, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._cur[label] = (time.perf_counter() - t0) * 1e3
+
+        return timed
+
+
 def tick_summary(tick: int, kind: str, tick_s: float, controller_s: dict,
                  phases: dict, kernel: str, section: dict, detail: dict,
-                 launches: dict, gc_ms: float = 0.0) -> dict:
+                 launches: dict, gc_ms: float = 0.0, tail_ms=None) -> dict:
     """One operator tick as phase 7 prints it: the operator's own tick time
     (``karpenter_reconcile_tick_duration_seconds``) and each controller's
     in ms, the solve's kind ("" where the tick solved nothing), its phases
     in ms and the kernel it ran, the kernel launches the tick counted, the
-    garbage collector's ms in the step, and the device observatory's tick
-    section with its breakdown."""
+    garbage collector's ms in the step, the diagnosis tail's ms
+    (`TailTimer`; empty where not timed), and the device observatory's
+    tick section with its breakdown."""
     return {
         "tick": tick,
         "tick_ms": tick_s * 1e3,
         "gc_ms": gc_ms,
+        "tail_ms": dict(tail_ms or {}),
         "controllers_ms": {k: v * 1e3 for k, v in controller_s.items()},
         "solve": kind,
         "kernel": kernel if kind else "",
@@ -1750,10 +1844,10 @@ def tick_summary(tick: int, kind: str, tick_s: float, controller_s: dict,
     }
 
 
-def operator_tick(env, tick: int, launches=None, gc_timer=None) -> dict:
+def operator_tick(env, tick: int, launches=None, gc_timer=None, tail=None) -> dict:
     """One ``env.step`` of fake clock, read back as its `tick_summary`.
     ``launches`` is the kernel wrappers' counter dict (None on the CPU),
-    ``gc_timer`` a `GcTimer` (None: not timed)."""
+    ``gc_timer`` a `GcTimer`, ``tail`` a `TailTimer` (None: not timed)."""
     from karpenter_tpu_torch.obs.device import OBSERVATORY
     from karpenter_tpu_torch.operator import solve_kind, solver_counters
 
@@ -1775,6 +1869,7 @@ def operator_tick(env, tick: int, launches=None, gc_timer=None) -> dict:
         OBSERVATORY.tick_section(), OBSERVATORY.tick_detail(),
         {k: v - counted[k] for k, v in launches.items()} if launches is not None else {},
         gc_timer.ms - gc0 if gc_timer is not None else 0.0,
+        tail.ticks[-1] if tail is not None else None,
     )
 
 
@@ -1798,7 +1893,8 @@ def drive_operator(device: str, n_pods: int = OPERATOR_PODS, rounds: int = CHURN
     """Phase 7's drive on ``device``: config 2's first ``n_pods`` pods into
     the store, ticks until every pod is bound, then ``rounds`` churn rounds
     (an arrival tick, a solving tick, and up to two more while pods wait).
-    ``profile_last(run_tick)`` wraps the last round's solving tick.
+    ``profile_last(run_tick)`` wraps the last round's solving tick; each
+    tick's diagnosis tail is timed (`TailTimer`).
     Returns (env, tick summaries, what ``profile_last`` returned)."""
     import random
 
@@ -1808,9 +1904,10 @@ def drive_operator(device: str, n_pods: int = OPERATOR_PODS, rounds: int = CHURN
     for p in T.heterogeneous_pods(n_pods):
         env.kube.put_pod(p)
     ticks = []
+    tail = TailTimer(env.operator)
 
     def run_tick():
-        ticks.append(operator_tick(env, len(ticks) + 1, launches, gc_timer))
+        ticks.append(operator_tick(env, len(ticks) + 1, launches, gc_timer, tail))
 
     for _ in range(MAX_BIND_TICKS):
         run_tick()
@@ -1897,6 +1994,9 @@ def operator_phase(torch, card):
             fail(f"phase 7: the last solve did not launch {picked}, the scan its shapes pick")
         print(f"  the last solve ran {picked}, the scan its resident state's shapes pick")
     print(f"  tick p50 by solve kind ({card}): {json.dumps(tick_p50s(ticks))}")
+    print(f"  diagnosis tail ms a tick ({card}): " + json.dumps({
+        part: percentiles([t["tail_ms"][part] for t in ticks if part in t["tail_ms"]])
+        for part in ("tail", "slo", "detect", "flight")}))
     print(f"  profiled churn solve tick (torch.profiler, {card}): "
           + (json.dumps(profiled) if profiled else "not measured: no device time seen"))
     print(f"  observatory totals: {json.dumps(observatory_totals())}", flush=True)
@@ -2366,10 +2466,10 @@ def admit_floor(torch, args, kernel_ms: float, card) -> dict:
 
 
 def cpu_twin_drives(phases, conn) -> None:
-    """The CPU drives phases 8 and 9 are held to, in a process of their own
-    (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries and phase
-    9's drive, each sent back through ``conn`` as ``(name, readings)``, or
-    ``("error", text)``."""
+    """The CPU drives phases 8-10 are held to, in a process of their own
+    (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries, phase 9's
+    drive and phase 10's scenarios, each sent back through ``conn`` as
+    ``(name, readings)``, or ``("error", text)``."""
     import traceback
 
     import torch
@@ -2390,6 +2490,10 @@ def cpu_twin_drives(phases, conn) -> None:
             conn.send(("consolidation", {"state": T.operator_state(env), "ticks": len(ticks),
                                          "events": events,
                                          "seconds": time.perf_counter() - t0}))
+            del env
+        if 10 in phases:
+            runs = {name: sim_run(name, seed, ticks, "cpu") for name, seed, ticks in SIM_CELLS}
+            conn.send(("sim", runs))
     except SystemExit as exc:
         conn.send(("error", f"exit {exc.code}"))
     except Exception:
@@ -2738,6 +2842,153 @@ def consolidation_phase(torch, card, twins):
     return launches, consolidation_base(torch, card, bases)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the simulator on the card
+# ---------------------------------------------------------------------------
+
+
+def sim_run(name: str, seed: int, ticks: int, device: str, trace_path=None) -> dict:
+    """One scenario through the simulator's ``run_scenario`` on ``device``
+    with a ``TraceWriter`` (writing ``trace_path`` too, when given), read
+    back: the trace text, the report, the wall seconds, the operator's tick
+    ms (p50 / p99), the time to settle and its budget, the nodes and the
+    summed price of the live NodeClaims at the end, the invariant
+    violations, the fast path's nominations and mismatches, the
+    consolidation verdict mismatches, and where the run's time went: each
+    controller's reconcile ms and each solver phase's ms, summed over the
+    run."""
+    from karpenter_tpu_torch.sim.runner import run_scenario
+    from karpenter_tpu_torch.sim.trace import TraceWriter
+
+    writer = TraceWriter(trace_path)
+    t0 = time.perf_counter()
+    runner, report = run_scenario(name, seed, ticks, trace=writer, device=device)
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    env = runner.env
+    reg = env.registry
+    tick_ms = [v * 1e3 for v in reg.histogram("karpenter_reconcile_tick_duration_seconds")]
+    return {
+        "trace": writer.text(),
+        "report": report,
+        "wall_s": wall,
+        "ticks": percentiles(tick_ms),
+        "settle_s": report["fleet"]["time_to_settle_s"],
+        "settle_budget_s": report["fleet"]["settle_budget_s"],
+        "nodes": len(env.kube.nodes),
+        "pods": runner.pods_created,
+        "price_per_hour": live_fleet(env)["price"],
+        "violations": report["invariants"]["violations"],
+        "nominated": reg.counter("karpenter_admission_fastpath_total", {"outcome": "nominated"}),
+        "fastpath_mismatch": counter_sum(reg, "karpenter_admission_fastpath_mismatch_total"),
+        "verdict_mismatch": counter_sum(reg, "karpenter_consolidation_verdict_mismatch_total"),
+        "controllers_ms": histogram_ms(reg, "karpenter_controller_reconcile_time_seconds",
+                                       "controller"),
+        "solver_phases_ms": histogram_ms(reg, "karpenter_solver_phase_seconds", "phase"),
+    }
+
+
+def histogram_ms(reg, name: str, label: str) -> dict:
+    """A histogram family's summed samples in ms, by one label."""
+    out = {}
+    for k, h in reg.histograms.get(name, {}).items():
+        key = dict(k).get(label, "")
+        out[key] = out.get(key, 0.0) + h.total * 1e3
+    return dict(sorted(out.items()))
+
+
+def sim_line(run: dict) -> str:
+    """A `sim_run`'s figures as phase 10 prints them (no trace, no report)."""
+    return json.dumps({k: v for k, v in run.items() if k not in ("trace", "report")})
+
+
+def sim_checks(name: str, run: dict) -> None:
+    """What phase 10 holds each scenario's card run to, apart from the CPU
+    trace and the launches."""
+    if run["violations"]:
+        fail(f"phase 10: {name}: invariant violations {run['violations'][:5]}")
+    if run["verdict_mismatch"]:
+        fail(f"phase 10: {name}: {run['verdict_mismatch']} verdict mismatches")
+    if run["fastpath_mismatch"]:
+        fail(f"phase 10: {name}: {run['fastpath_mismatch']} fast-path mismatches")
+    if name == "single-pod-trickle" and not run["nominated"]:
+        fail("phase 10: single-pod-trickle: the fast path nominated no pod")
+    if name in ANCHOR_NODES:
+        budget = run["settle_budget_s"]
+        if budget is None or not 0.0 <= run["settle_s"] <= budget:
+            fail(f"phase 10: {name}: settled at +{run['settle_s']} s (budget {budget} s)")
+        if run["nodes"] != ANCHOR_NODES[name]:
+            fail(f"phase 10: {name}: {run['nodes']} nodes at the end, not "
+                 f"{ANCHOR_NODES[name]}")
+
+
+def sim_phase(torch, card, twins) -> dict:
+    """Phase 10 as the module docstring lists it; ``twins``: the `CpuTwins`
+    that runs the CPU side.  Returns the launches summed over the
+    scenarios."""
+    import os
+    import tempfile
+
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.sim.runner import replay
+    from karpenter_tpu_torch.sim.trace import TraceWriter
+
+    total = {k: 0 for k in KERNELS}
+    card_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, seed, ticks in SIM_CELLS:
+            path = os.path.join(tmp, f"{name}.jsonl")
+            F.reset_launches()
+            run = sim_run(name, seed, ticks, "cuda", trace_path=path)
+            launches = {k: v for k, v in F.LAUNCHES.items() if v}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            card_runs[name] = run
+            print(f"  {name} (seed {seed}, {ticks} ticks) on the card ({card}): "
+                  f"{sim_line(run)}", flush=True)
+            print(f"    launches {json.dumps(launches)}", flush=True)
+            sim_checks(name, run)
+        F.reset_launches()
+        writer = TraceWriter()
+        t0 = time.perf_counter()
+        _runner, replayed, recorded = replay(os.path.join(tmp, f"{SIM_REPLAYED}.jsonl"),
+                                             trace=writer, device="cuda")
+        torch.cuda.synchronize()
+        original = card_runs[SIM_REPLAYED]
+        print(f"  {SIM_REPLAYED} replayed on the card in {time.perf_counter() - t0!r} s, "
+              f"launches {json.dumps({k: v for k, v in F.LAUNCHES.items() if v})}", flush=True)
+        if recorded != original["report"] or replayed != original["report"]:
+            fail(f"phase 10: the replay of {SIM_REPLAYED} did not reproduce its report")
+        if writer.text() != original["trace"]:
+            fail(f"phase 10: the replay of {SIM_REPLAYED} did not reproduce its trace bytes")
+        print(f"  the replay reproduced the report and the trace, byte for byte "
+              f"({len(writer.text())} bytes)")
+    print(f"  launches over the phase's scenarios: "
+          f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    for k in SIM_KERNELS:
+        if not total.get(k):
+            fail(f"phase 10: {k} never launched through the simulator")
+    if not sum(total.get(k, 0) for k in SCAN_KERNELS):
+        fail("phase 10: no solve scan launched through the simulator")
+    cpu = twins.get("sim")
+    for name, _seed, _ticks in SIM_CELLS:
+        run = cpu[name]
+        print(f"  {name} on the CPU (plain versions, beside the card's drives): "
+              f"{sim_line(run)}", flush=True)
+        if run["trace"] != card_runs[name]["trace"]:
+            card_lines, cpu_lines = card_runs[name]["trace"].splitlines(), run["trace"].splitlines()
+            at = next((i for i, (a, b) in enumerate(zip(card_lines, cpu_lines)) if a != b),
+                      min(len(card_lines), len(cpu_lines)))
+            fail(f"phase 10: {name}: the card's trace differs from the CPU's at line {at}")
+    print(f"  every card trace equals its CPU trace byte for byte "
+          f"({sum(len(r['trace']) for r in card_runs.values())} bytes over "
+          f"{len(SIM_CELLS)} scenarios)")
+    return total
+
+
 def observatory_totals() -> dict:
     from karpenter_tpu_torch.obs.device import OBSERVATORY
 
@@ -2978,7 +3229,7 @@ def main(argv) -> int:
     phase_done(7, through)
 
     print(f"[arrivals] single-pod arrivals through the admission fast path, {card}", flush=True)
-    twins = CpuTwins((8, 9) if through > 8 else (8,))
+    twins = CpuTwins(tuple(p for p in (8, 9, 10) if p <= through))
     try:
         admit = arrivals_phase(torch, card, kargs["config2_live"], twins)
         phase_done(8, through)
@@ -2986,6 +3237,10 @@ def main(argv) -> int:
         print(f"[consolidation] the disruption controller through the operator, {card}",
               flush=True)
         consolidation, window_row = consolidation_phase(torch, card, twins)
+        phase_done(9, through)
+
+        print(f"[sim] the simulator's scenarios on the card, {card}", flush=True)
+        sim_launches = sim_phase(torch, card, twins)
     finally:
         twins.close()
     verdicts["ffd_scan_window_batched"].update(window_row, err=max(
@@ -3010,6 +3265,7 @@ def main(argv) -> int:
             "latency_floor_ms": floors[k],
             "operator_launches": op_launches[k],
             "consolidation_launches": consolidation[k],
+            "sim_launches": sim_launches.get(k, 0),
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -3029,6 +3285,7 @@ def main(argv) -> int:
             "latency_floor_ms": v["floor"],
             "operator_launches": op_launches[k],
             "consolidation_launches": consolidation[k],
+            "sim_launches": sim_launches.get(k, 0),
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     kernels.append({
@@ -3048,6 +3305,7 @@ def main(argv) -> int:
         "empty_launch_ms": admit["empty_launch_ms"],
         "operator_launches": op_launches["admit_kernel"],
         "consolidation_launches": consolidation["admit_kernel"],
+        "sim_launches": sim_launches.get("admit_kernel", 0),
         "call_ms": admit["call_ms"],
     })
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,20 @@ reconciles ``--interval`` seconds apart on the wall clock, the
 Provisioner's solver on ``--device`` (the card unless ``cpu`` is asked
 for).  Each tick prints one JSON line: the tick's ``reconcile_once`` ms,
 the solves by kind (cold, hit or delta), the claims launched so far and
-the device observatory's tick section.  The HTTP telemetry server, the
-remote store and the solver sidecar are not ported (ROADMAP §A).
+the device observatory's tick section.  The HTTP telemetry server's
+``--metrics-port``, the remote store and the solver sidecar are not ported
+(ROADMAP §A).
+
+Subcommands, dispatched as the JAX package's entry point does:
+
+- ``sim``: the deterministic cluster simulator (``sim/cli.py``), on the
+  card unless ``--device cpu``;
+- ``doctor``: the diagnosis of a flight-recorder dump (``obs/doctor.py``);
+- ``obs``: span dumps and simulator traces rendered as Chrome-trace JSON
+  (``obs/render.py``).
 
     python -m karpenter_tpu_torch --ticks 3 --device cpu
+    python -m karpenter_tpu_torch sim --scenario steady --seed 3 --ticks 40 --device cpu
 """
 
 from __future__ import annotations
@@ -31,6 +41,19 @@ from karpenter_tpu_torch.utils.clock import Clock
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "obs":
+        from karpenter_tpu_torch.obs.render import main as obs_main
+
+        return obs_main(argv[1:])
+    if argv and argv[0] == "doctor":
+        from karpenter_tpu_torch.obs.doctor import main as doctor_main
+
+        return doctor_main(argv[1:])
+    if argv and argv[0] == "sim":
+        from karpenter_tpu_torch.sim.cli import main as sim_main
+
+        return sim_main(argv[1:])
     parser = argparse.ArgumentParser(prog="python -m karpenter_tpu_torch")
     parser.add_argument("--ticks", type=int, default=3, help="reconciles to run")
     parser.add_argument(

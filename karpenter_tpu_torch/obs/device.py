@@ -97,7 +97,7 @@ class DeviceScope:
 
     __slots__ = (
         "dispatches", "compiles", "compile_s", "warm_recompiles",
-        "shapes", "transfer_bytes", "resident_updates",
+        "shapes", "transfer_bytes", "resident_updates", "resident_bytes",
     )
 
     def __init__(self):
@@ -108,9 +108,35 @@ class DeviceScope:
         self.shapes: Dict[str, set] = {}  # fn -> distinct launch signatures
         self.transfer_bytes: Dict[str, int] = {}  # site -> bytes
         self.resident_updates: Dict[str, int] = {}  # donated / seed / noop
+        self.resident_bytes: Dict[str, int] = {}  # consumer -> live bytes
 
     def unique_shapes(self) -> Dict[str, int]:
         return {fn: len(s) for fn, s in sorted(self.shapes.items())}
+
+    def device_section(self, resident: Optional[Dict[str, int]] = None) -> dict:
+        """The DETERMINISTIC per-scope summary (the simulator's report
+        contract): launch, transfer and resident counts and bytes only, no
+        wall clock.  ``compiles`` is the count of distinct launch
+        signatures this scope has seen: the port has no jit cache, so a
+        new launch signature stands where the JAX package counts a
+        compile, and the count does not depend on what the process ran
+        before.  ``resident`` is the caller's footprint mapping: the
+        simulator passes its OWN environment's caches, because the
+        process-wide view merges every live cache (a previous run's
+        not-yet-collected Environment would leak into a byte-compared
+        report); without it the section carries what the caller stored on
+        the scope (empty by default)."""
+        if resident is None:
+            resident = self.resident_bytes
+        return {
+            "compiles": self.unique_shapes(),
+            "dispatches": dict(sorted(self.dispatches.items())),
+            "transfer_bytes": dict(sorted(self.transfer_bytes.items())),
+            "resident": {
+                "bytes": dict(sorted(resident.items())),
+                "updates": dict(sorted(self.resident_updates.items())),
+            },
+        }
 
 
 class DeviceObservatory:
@@ -228,6 +254,11 @@ class DeviceObservatory:
             for consumer, v in fp.items():
                 merged[consumer] = merged.get(consumer, 0) + v
         return merged
+
+    def resident_footprint(self) -> Dict[str, int]:
+        with self._lock:
+            note_access("DeviceObservatory._resident_sources", write=False)
+            return self._merged_resident()
 
     def count_resident_update(self, kind: str) -> None:
         """kind: 'donated' (a delta applied in the resident buffers),

@@ -21,17 +21,21 @@ and `reconcile_advance` joins it at the next tick's start.
 `reconcile_once` drives every controller one tick: it mints the tick's
 trace ID, marks the device observatory's tick boundary, runs the
 controllers with the reference's crash containment and backoff, refreshes
-prices every 12 h, and exports the observatory's counters into the
-registry.  Not ported here, each an item of ROADMAP §A: the SLO engine,
-the anomaly detector, the flight recorder, the span dump under
-``profile_dir``, the lock watchdog and leader election.
-The constructor refuses the settings that would ask for one of them
-(`_refuse_unported`), so none is accepted and then ignored.
+prices every 12 h, and runs the reference's diagnosis tail
+(`_observe_tick`): the tick histogram, the observatory's counters into the
+registry, the SLO engine (`obs/slo.py`), the anomaly detector
+(`obs/detect.py`) and the flight recorder (`obs/flight.py`), dumped under
+``flight_dir`` on a fresh breach, a controller crash or a request.  Not
+ported here, each an item of ROADMAP §A: the span dump under
+``profile_dir``, the lock watchdog and leader election.  The constructor
+refuses the settings that would ask for one of them (`_refuse_unported`),
+so none is accepted and then ignored.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -53,9 +57,12 @@ from karpenter_tpu_torch.controllers.tagging import TaggingController
 from karpenter_tpu_torch.controllers.termination import TerminationController
 from karpenter_tpu_torch.metrics.decorators import MetricsCloudProvider
 from karpenter_tpu_torch.metrics.registry import REGISTRY, Registry
-from karpenter_tpu_torch.obs.context import mint_trace_id, set_tick
+from karpenter_tpu_torch.obs.context import current_trace_id, mint_trace_id, set_tick
+from karpenter_tpu_torch.obs.detect import AnomalyDetector
 from karpenter_tpu_torch.obs.device import OBSERVATORY, export_device_metrics
 from karpenter_tpu_torch.obs.events import EventLedger
+from karpenter_tpu_torch.obs.flight import FlightRecorder
+from karpenter_tpu_torch.obs.slo import SLOEngine, default_rules
 from karpenter_tpu_torch.ops.packer import resolve_device
 from karpenter_tpu_torch.pipeline import StageSpec, TickPipeline
 from karpenter_tpu_torch.providers.image import ImageProvider, Resolver
@@ -113,12 +120,36 @@ class Operator:
         # assign unconditionally: a later operator with profiling off must
         # actually turn the process tracer off
         self.tracer.enabled = self.settings.enable_profiling
+        # diagnosis layer:
+        # - the SLO engine evaluates its rule set at the end of every tick
+        #   against the registry the controllers just wrote,
+        # - the anomaly detector baselines the phase-latency series (the
+        #   simulator disables it: wall-clock judgments cannot enter a
+        #   byte-compared trace),
+        # - the flight recorder keeps the last N ticks' full context on a
+        #   ring, dumped on SLOBreach / controller crash / request
+        self.slo = SLOEngine(
+            registry, self.clock, rules=default_rules(self.settings)
+        )
+        self.detector = AnomalyDetector(
+            registry, self.clock,
+            enabled=self.settings.enable_anomaly_detection,
+        )
+        self.flight = FlightRecorder(
+            self.clock, registry, ledger=self.ledger, tracer=self.tracer,
+            capacity=self.settings.flight_ticks,
+        )
         # device observatory (obs/device.py): launch/transfer/resident
         # telemetry behind the kernel wrappers.  Process-global like the
-        # tracer; the tick tail exports its deltas into this registry.
-        # The enabled flag only gates COUNTING.
+        # tracer; the diagnosis tail exports its per-tick deltas into this
+        # registry and snapshots the flight recorder's `device` section
+        # from it.  The enabled flag only gates COUNTING.
         OBSERVATORY.enabled = self.settings.enable_device_observatory
         self._dev_exported: Optional[dict] = None
+        # out-of-band dump requests land here and are honored at the next
+        # tick's diagnosis tail: a signal handler must never dump directly
+        # (it would deadlock on whatever lock the interrupted frame holds)
+        self._flight_request: Optional[str] = None
         # resilience layer (cloud/retry.py): every provider talks to the
         # cloud through classified retries + per-API circuit breakers
         self.retrying = RetryingCloud(
@@ -305,6 +336,12 @@ class Operator:
             log.exception(
                 "controller %s reconcile failed; requeued in %.1fs", name, delay
             )
+            if self.settings.flight_dir and entry is None:
+                # preserve the ticks LEADING UP to the crash (this tick's
+                # own slice lands on the ring in _observe_tick).  Only the
+                # failure that ENTERS backoff dumps: one artifact per
+                # crash episode, not one per retry
+                self.dump_flight("controller_crash")
             return
         if entry is not None:
             del self._ctrl_backoff[name]
@@ -357,16 +394,81 @@ class Operator:
                 now if ok else now - PRICING_UPDATE_PERIOD + PRICING_RETRY_PERIOD
             )
 
+    # ------------------------------------------------------------ diagnosis
     def _observe_tick(self, dur_s: float) -> None:
-        """The tick tail: observe the tick's wall duration and export the
-        device observatory's counter deltas into the registry (the
-        ``karpenter_device_*`` families)."""
+        """The per-tick diagnosis tail: observe the tick's wall duration,
+        export the device observatory's counter deltas, evaluate the SLO
+        rules, scan for phase-latency anomalies, and snapshot the tick into
+        the flight recorder — in that order, so the flight slice captures
+        any SLOBreach/AnomalyDetected events this very tick produced.  A
+        fresh breach dumps the ring when ``settings.flight_dir`` is set."""
         self.registry.observe(
             "karpenter_reconcile_tick_duration_seconds", dur_s
         )
-        self._dev_exported, _warm = export_device_metrics(
+        # the karpenter_device_* deltas land before the SLO, anomaly and
+        # flight passes, so the detector can judge them and the flight
+        # slice diffs them.  A warm new launch signature is a
+        # DeviceRecompile event only under the anomaly-detection gate: it
+        # depends on process history, which byte-compared sim traces must
+        # not contain
+        self._dev_exported, warm_recompiles = export_device_metrics(
             self.registry, OBSERVATORY, self._dev_exported
         )
+        if self.detector.enabled:
+            for ev in warm_recompiles:
+                self.registry.event("DeviceRecompile", **ev)
+        breaches = self.slo.evaluate()
+        self.detector.scan()
+        summary = {
+            "pending": len(self.kube.pending_pods()),
+            "nodes": len(self.kube.nodes),
+            "claims": len(self.kube.node_claims),
+        }
+        instances = getattr(self.cloud, "instances", None)
+        if instances is not None:
+            summary["running"] = sum(
+                1 for i in instances.values() if i.state == "running"
+            )
+        self.flight.record(
+            self._tick_seq, current_trace_id(), dur_s, summary,
+            device=OBSERVATORY.tick_section(),
+        )
+        request = self._flight_request
+        if request:
+            self._flight_request = None
+            path = self.dump_flight(
+                request, directory=self.settings.flight_dir or "."
+            )
+            log.info("flight recorder dumped to %s (%s)", path, request)
+        if breaches and self.settings.flight_dir:
+            path = self.dump_flight("slo_breach")
+            log.warning(
+                "SLO breach (%s); flight recorder dumped to %s",
+                ", ".join(breaches), path,
+            )
+
+    def request_flight_dump(self, trigger: str) -> None:
+        """Ask for a flight dump at the end of the current/next tick.
+        Safe to call from a signal handler (a single attribute write); the
+        dump itself runs in ``_observe_tick``, falling back to the working
+        directory when ``flight_dir`` is unset."""
+        self._flight_request = trigger
+
+    def dump_flight(
+        self, trigger: str, directory: Optional[str] = None
+    ) -> Optional[str]:
+        """Dump the flight ring to ``<dir>/flight-<trace_id>-<trigger>
+        .jsonl``; ``directory`` falls back to ``settings.flight_dir`` (None
+        when neither is set: the ring stays in memory)."""
+        directory = directory or self.settings.flight_dir
+        if not directory:
+            return None
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(
+            directory,
+            f"flight-{current_trace_id() or 'boot'}-{trigger}.jsonl",
+        )
+        return self.flight.dump(path, trigger=trigger)
 
 
 def _refuse_unported(settings: Settings) -> None:
@@ -379,8 +481,6 @@ def _refuse_unported(settings: Settings) -> None:
             "profile_dir (the span dump and device trace under "
             "enable_profiling: ROADMAP A8)"
         )
-    if settings.flight_dir:
-        refused.append("flight_dir (the flight recorder: ROADMAP A3c)")
     if settings.lock_watchdog_stall_s > 0:
         refused.append("lock_watchdog_stall_s (the lock watchdog: ROADMAP A3e)")
     if refused:

@@ -1033,7 +1033,22 @@ def operator_state(env) -> dict:
     the disruption counters (actions by mechanism and pool, evaluations by
     path, verdict mismatches, search winners) and the ledger's
     ``NodeDisrupted`` and ``VerdictFallback`` events in order.  It reads
-    attributes only, so it serves the JAX package's `Environment` too."""
+    attributes only, so it serves the JAX package's `Environment` too.
+
+    The diagnosis layer's wall-clock events are left out, of the event
+    stream and of the counts by type: ``AnomalyDetected`` (the detector
+    judges wall-time series), ``DeviceRecompile`` (a warm new launch
+    signature or jit compile depends on what the process ran before) and
+    the ``SLOBreach`` / ``SLORecovered`` events of the rules that read the
+    tick's wall time (signal `WALL_CLOCK_SIGNAL`; their count comes from
+    the SLO engine's own tally).  Two drives of one scenario, on two
+    devices or two packages, interleave a different number of them, so
+    the events keep their order without their sequence numbers, and the
+    SLO events of the other rules stay in.  The ledger's ring keeps its
+    last 4096 events, so once more than `LEDGER_COMPARED` deterministic
+    events were emitted only the last `LEDGER_COMPARED` are kept: the
+    wall-clock events in a ring push a different number of the others
+    out.  Raises if a ring holds fewer than that."""
     kube, reg = env.kube, env.registry
     claims = sorted(
         (
@@ -1060,14 +1075,32 @@ def operator_state(env) -> dict:
     }
     # the ledger's ring keeps its last 4096 events; the registry counts
     # every event by type
-    events = [
-        (ev.seq, ev.ts, ev.type, ev.trace_id, sorted(ev.attrs.items()))
-        for ev in env.operator.ledger.recent(limit=1 << 30)
-    ]
     event_counts = {
         dict(labels)["type"]: v
         for labels, v in reg.counters.get("karpenter_events_total", {}).items()
+        if dict(labels)["type"] not in WALL_CLOCK_EVENTS
     }
+    slo = env.operator.slo
+    for rule in slo.rules:
+        state = slo._states.get(rule.name)
+        if rule.signal == WALL_CLOCK_SIGNAL and state is not None:
+            for kind, n in (("SLOBreach", state.breaches),
+                            ("SLORecovered", state.recoveries)):
+                if n:
+                    event_counts[kind] -= n
+    event_counts = {k: v for k, v in event_counts.items() if v}
+    events = [
+        (ev.ts, ev.type, ev.trace_id, sorted(ev.attrs.items()))
+        for ev in env.operator.ledger.recent(limit=1 << 30)
+        if not wall_clock_event(ev.type, ev.attrs)
+    ]
+    keep = min(LEDGER_COMPARED, int(sum(event_counts.values())))
+    if len(events) < keep:
+        raise RuntimeError(
+            f"the ledger ring holds {len(events)} deterministic events of "
+            f"the last {keep}: too many wall-clock events to compare"
+        )
+    events = events[len(events) - keep:]
     counters = {
         name: sorted(reg.counters.get(name, {}).items())
         for name in (
@@ -1117,6 +1150,24 @@ def operator_state(env) -> dict:
 
 # the ledger events of the disruption controller's decisions
 DISRUPTION_EVENTS = ("NodeDisrupted", "VerdictFallback")
+
+# the diagnosis layer's events that depend on wall-clock time or process
+# history, and the SLO signal that reads the tick's wall time
+WALL_CLOCK_EVENTS = ("AnomalyDetected", "DeviceRecompile")
+WALL_CLOCK_SIGNAL = "tick_duration_p99"
+# deterministic ledger events `operator_state` compares at most: the ring's
+# 4096 less room for 512 wall-clock events
+LEDGER_COMPARED = 3584
+
+
+def wall_clock_event(type_: str, attrs: dict) -> bool:
+    """A ledger event that a second drive of the same scenario need not
+    repeat: the detector's, a warm recompile, and the SLO transitions of a
+    rule on the tick's wall time."""
+    return type_ in WALL_CLOCK_EVENTS or (
+        type_ in ("SLOBreach", "SLORecovered")
+        and attrs.get("signal") == WALL_CLOCK_SIGNAL
+    )
 
 
 # phase 9 of chip_smoke: config 2's 10,000 pods bound, then a seeded half

@@ -1,11 +1,14 @@
 """Span tracing and per-solve phase accounting.
 
-A small port of ``karpenter_tpu/utils/trace.py``: the same `phase` /
+A port of ``karpenter_tpu/utils/trace.py``: the same `phase` /
 `phase_collect` self-time collector, so a solve's ``last_phases`` (delta /
 partition / compile / pad / dispatch / device_block / oracle / decode /
-other) still sums to its wall time, and a `Tracer` whose `span` records
-count / total / max per dotted path when enabled.  Trace-context stamping and the lock
-sanitizer stay with the operator slice.
+other) still sums to its wall time, and a `Tracer` whose `span` records,
+when enabled, each span into a bounded ring (`Span`: dotted path, start,
+duration, meta and the tick's trace ID from ``obs/context.py``, read back
+by `Tracer.recent` for the flight recorder) and count / total / max per
+dotted path.  The span dump and the device trace under ``profile_dir``
+are not ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -13,8 +16,15 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from dataclasses import dataclass
+from collections import deque
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, List
+
+from karpenter_tpu_torch.obs.context import current_trace_id
+from karpenter_tpu_torch.utils.locks import make_lock
+
+# bounded history: enough for several reconcile ticks of every controller
+RING_SIZE = 4096
 
 
 @dataclass
@@ -30,13 +40,26 @@ class SpanStat:
             self.max_s = dt
 
 
+@dataclass
+class Span:
+    path: str  # dotted: "controller.disruption.simulate"
+    start_s: float
+    duration_s: float
+    meta: Dict[str, str] = field(default_factory=dict)
+    # the reconcile tick this span acted for, stamped from obs/context.py
+    # at record time, so one trace ID joins controller spans and solver
+    # phases into a single timeline
+    trace_id: str = ""
+
+
 class Tracer:
-    """Process-local span aggregates.  Disabled by default: `span()` costs a
+    """Process-local span recorder.  Disabled by default: `span()` costs a
     single attribute read when off."""
 
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
-        self._lock = threading.Lock()
+        self._lock = make_lock("Tracer._lock")
+        self._ring: deque = deque(maxlen=RING_SIZE)
         self._stats: Dict[str, SpanStat] = {}
         self._local = threading.local()
 
@@ -47,7 +70,7 @@ class Tracer:
         return st
 
     @contextlib.contextmanager
-    def span(self, name: str, **meta) -> Iterator[None]:
+    def span(self, name: str, **meta: str) -> Iterator[None]:
         if not self.enabled:
             yield
             return
@@ -61,6 +84,11 @@ class Tracer:
             dt = time.perf_counter() - t0
             stack.pop()
             with self._lock:
+                self._ring.append(
+                    Span(path=path, start_s=t0, duration_s=dt,
+                         meta={k: str(v) for k, v in meta.items()},
+                         trace_id=current_trace_id())
+                )
                 stat = self._stats.get(path)
                 if stat is None:
                     stat = self._stats[path] = SpanStat()
@@ -70,6 +98,15 @@ class Tracer:
         with self._lock:
             return {k: SpanStat(v.count, v.total_s, v.max_s)
                     for k, v in self._stats.items()}
+
+    def recent(self, limit: int = 100) -> List[Span]:
+        with self._lock:
+            return list(self._ring)[-limit:]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._stats.clear()
 
 
 # the default process tracer; tests may build their own

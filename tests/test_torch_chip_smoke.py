@@ -181,13 +181,17 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "6"], 6),
     (["--through", "7"], 7),
     (["--through", "8"], 8),
-])
+    (["--through", "9"], 9),
+    (["--through", "10"], 10),
+], ids=[  # the first eight as they were named while the last phase was 9
+    "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
+    "argv8-9", "argv9-10"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "9"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "11"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -208,7 +212,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "9"],
+        [sys.executable, "chip_smoke.py", "--through", "11"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -534,3 +538,41 @@ def test_phase8_admit_helpers():
     p = chip_smoke.percentiles([float(x) for x in range(1, 101)])
     assert p == {"n": 100, "p50": 50.5, "p99": 100.0}
     assert chip_smoke.percentiles([]) == {"n": 0}
+
+
+def test_phase7_tail_timer():
+    """`TailTimer` times the operator's diagnosis tail and its SLO
+    evaluation, anomaly scan and flight record, one entry a tick, and phase
+    7's tick line carries it."""
+    from karpenter_tpu_torch.api import Pod, Resources
+    from karpenter_tpu_torch.testing import Environment
+
+    env = Environment(device="cpu")
+    env.default_node_class()
+    env.default_node_pool()
+    timer = chip_smoke.TailTimer(env.operator)
+    env.kube.put_pod(Pod(requests=Resources(cpu=0.5, memory="1Gi")))
+    t = chip_smoke.operator_tick(env, 1, tail=timer)
+    chip_smoke.operator_tick(env, 2, tail=timer)
+    assert len(timer.ticks) == 2 and env.operator.flight.dump_lines()[1:]
+    for tick in timer.ticks:
+        assert set(tick) == {"tail", "slo", "detect", "flight"}
+        assert tick["tail"] >= tick["slo"] + tick["detect"] + tick["flight"] > 0
+    assert t["tail_ms"] == timer.ticks[0]
+
+
+def test_phase10_sim_run_on_the_cpu():
+    """Phase 10's reading of one scenario on the CPU: the trace and the
+    report, the figures it prints, and the checks it holds an anchor to;
+    a second run writes the same trace."""
+    run = chip_smoke.sim_run("anchor-6600-density-smoke", 1, 12, "cpu")
+    assert run["trace"].splitlines()[0].startswith('{"')
+    assert run["violations"] == [] and run["nodes"] == 2 and run["pods"] == 220
+    assert run["settle_budget_s"] == 600.0 and 0.0 <= run["settle_s"] <= 600.0
+    assert run["ticks"]["n"] > 12 and run["price_per_hour"] > 0
+    assert "trace" not in chip_smoke.sim_line(run)
+    chip_smoke.sim_checks("anchor-6600-density-smoke", run)
+    with pytest.raises(SystemExit):
+        chip_smoke.sim_checks("anchor-6600-density", run)  # 2 nodes, not 60
+    assert chip_smoke.sim_run("anchor-6600-density-smoke", 1, 12, "cpu")["trace"] == run["trace"]
+    assert [c[0] for c in chip_smoke.SIM_CELLS][-2:] == list(chip_smoke.ANCHOR_NODES)

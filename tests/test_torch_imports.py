@@ -11,7 +11,12 @@ admission fast path (``scheduling/fastpath.py``) and the interruption,
 metrics-state and consistency controllers: a single-pod arrival nominated
 by the fast path, and a spot-interruption message drained; then the
 disruption controller (``controllers/disruption.py``) consolidating a small
-cluster through the operator under the pipelined schedule."""
+cluster through the operator under the pipelined schedule; then the
+diagnosis layer, the simulator and the load harness (every module of
+``obs/``, ``state/wire.py``, ``sim/`` and ``load/``): a short ``steady``
+run through the ``sim`` subcommand with its trace replayed, an operator
+with ``flight_dir`` whose flight dump goes through the ``doctor`` and
+``obs`` subcommands."""
 
 import pathlib
 import subprocess
@@ -122,6 +127,39 @@ for _ in range(6):
     env.step(2.0)
 assert sum(env.registry.counters.get("karpenter_deprovisioning_actions", {}).values()) >= 1
 assert env.registry.counters.get("karpenter_pipeline_speculation_total")
+# the diagnosis layer, the simulator and the load harness, through the
+# entry point's sim / doctor / obs subcommands
+import contextlib
+import io
+import os
+import tempfile
+
+from karpenter_tpu_torch.__main__ import main as entry
+from karpenter_tpu_torch.load import corpus, generators, invariants, sketch  # noqa: F401
+from karpenter_tpu_torch.obs import detect, doctor, flight, http, render, slo  # noqa: F401
+from karpenter_tpu_torch.sim import cli, report, runner, trace, workload  # noqa: F401
+from karpenter_tpu_torch.sim import invariants as sim_invariants  # noqa: F401
+from karpenter_tpu_torch.state import wire  # noqa: F401
+
+tmp = tempfile.mkdtemp()
+path = os.path.join(tmp, "steady.jsonl")
+out = io.StringIO()
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    assert entry(["sim", "--scenario", "steady", "--seed", "2", "--ticks", "6",
+                  "--device", "cpu", "--trace", path]) == 0
+    assert entry(["sim", "--replay", path, "--device", "cpu"]) == 0
+    assert entry(["sim", "--scenario", "solver-fleet", "--device", "cpu"]) == 64
+env = T.Environment(settings=Settings(cluster_name="test", flight_dir=tmp), device="cpu")
+env.default_node_class()
+env.default_node_pool()
+env.kube.put_pod(Pod(requests=Resources(cpu=0.5, memory="1Gi")))
+for _ in range(3):
+    env.step(2.0)
+dump = env.operator.dump_flight("manual")
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    assert entry(["doctor", dump]) == 0
+    assert entry(["obs", dump]) == 0
+assert "suspected causes" in out.getvalue()
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

@@ -6,18 +6,20 @@ port's (``device="cpu"``), read back as plain data for an equality check.
 written once and run for each package.  Both sides launch one NodeClaim at
 a time (`Twin.env`): concurrent launches hand out instance ids in thread
 order, which would make the two cloud call streams differ in ids only.
-`state` is `testing.operator_state` with the sequence numbers and the JAX
-package's anomaly-detector and SLO-engine events dropped (they judge
-wall-clock time, and its diagnosis layer is not ported: ROADMAP A3c), as
-the operator twin reads it.
+`state` is `testing.operator_state`, which leaves out the diagnosis
+layer's wall-clock events (the anomaly detector's, warm recompiles, and the
+SLO transitions of the rule on the tick's wall time) and the events'
+sequence numbers, as the operator twin reads it: both packages run the SLO
+engine, so its other rules' breaches and recoveries are held equal.
 """
 
 import importlib
 import random
 
+from karpenter_tpu_torch.testing import operator_state as state  # noqa: F401
+
 PACKAGES = ("karpenter_tpu", "karpenter_tpu_torch")
 PORT = "karpenter_tpu_torch"
-FILTERED_EVENTS = ("AnomalyDetected", "DeviceRecompile", "SLOBreach", "SLORecovered")
 
 # the reference consolidation tests' pod sizes
 SIZES = ((0.5, "1Gi"), (1, "2Gi"), (2, "4Gi"))
@@ -88,18 +90,6 @@ def ranked_candidates(dc):
         (c for c in dc._candidates() if dc._consolidatable(c)),
         key=lambda c: c.disruption_cost(),
     )
-
-
-def state(env) -> dict:
-    """`operator_state` without sequence numbers and diagnosis events."""
-    from karpenter_tpu_torch.testing import operator_state
-
-    st = operator_state(env)
-    st["events"] = [ev[1:] for ev in st["events"] if ev[2] not in FILTERED_EVENTS]
-    st["event_counts"] = {
-        k: v for k, v in st["event_counts"].items() if k not in FILTERED_EVENTS
-    }
-    return st
 
 
 def tick_digest(env, dc) -> tuple:
