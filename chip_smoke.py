@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-10), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-11), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -218,9 +218,39 @@ Phases (each failure exits non-zero before the last line is printed):
    bytes.  Prints, for each scenario on the card and on the CPU, the wall
    seconds, the tick p50 / p99 ms, the time to settle, the nodes and the
    summed node price at the end, and the launches on the card.
+11. The multi-tenant solver service on the card (``service/server.py``).
+   First the fleet pack (``fused_packer.fleet_pack``: ``choose_config``
+   with a grid y of B, then the picked scan in fleet mode) bit for bit
+   against its plain version on the same card tensors and against one
+   solo ``ffd_pack`` a tenant, both objectives, each call launching both
+   fleet kernels once: B 1, 4 and 16 at the bench cell's shape, B 4 at
+   config 2's (the resident scan), B 4 at the live cluster's (config 2 on
+   2,000 live nodes, each tenant's live usage and counts seeded apart:
+   Kp 4096, the cluster scan; and through the global scan's own entry
+   point, ``scan="ffd_scan_global"``), B 4 ``wrap_arrays`` tenants at 256
+   slots (int32 sums that wrap), each from its own seed.  Then two cells,
+   each one ``SolverServer(multi_tenant=True)`` and one legacy sidecar on
+   the card, all of a cell's tenants in one solve group (else the phase
+   fails): ``service-16-bench`` (``bench.py:run_solver_service`` at full
+   scale: 16 tenants of 240 pods, tenant i 0.25 (i + 1) vCPU and 1 GiB)
+   and ``service-16-config2`` (16 tenants, each a seeded 95 % subset of
+   config 2's 10,000 pods, ``default_rng(100 + i)``, with its two pools
+   and catalog).  Every tenant's answer through the sidecar is its twin;
+   one solve a tenant warms the service's pool; then 5 rounds of a
+   barrier-released burst of every tenant through the service and the
+   same 16 solves one after another through the sidecar.  Fails on a
+   mismatch, on no batched solve, on a fleet kernel never launched in the
+   bursts (the launch counters are set to 0 just before the rounds), on
+   tenant tensors uploaded in the last (warm) burst, or on ``info`` not
+   reporting the card.  Prints the bursts' and the sequential rounds' p50
+   and their ratio, the batch sizes, the warm burst's uploads by site, the
+   pool's bytes; then each fleet launch's device time at B 16
+   (torch.profiler) beside 16 solo launches', the stack's time, both
+   entry points' times a call, the plain version's, and the bounds.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
-phase 9's, ``sim_launches`` phase 10's over its scenarios), the card line,
+phase 9's, ``sim_launches`` phase 10's over its scenarios,
+``service_launches`` phase 11's over its cells' rounds), the card line,
 and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -252,7 +282,9 @@ VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
 # the wrapper (the function held to its plain version) of each verdict launch
 VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
                     "population_pairs": "population_prologue"}
-KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel")
+KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel",
+           "choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
+           "ffd_scan_global_fleet")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
@@ -263,7 +295,10 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_global_batched": "live",
                "ffd_scan_window_batched": "consolidation",
                **{k: "live" for k in VERDICT_FUNCTION},
-               "admit_kernel": "arrivals"}
+               "admit_kernel": "arrivals",
+               "choose_config_fleet": "service-16-config2",
+               "ffd_scan_fleet": "service-16-config2",
+               "ffd_scan_cluster_fleet": "fleet_live", "ffd_scan_global_fleet": "fleet_live"}
 OBJECTIVES = ("nodes", "cost")
 # phase 6: the sweep's pods, the live cluster's nodes and universe, each
 # problem's population and rounds, the plan's seed, timed repeats
@@ -366,8 +401,24 @@ SIM_REPLAYED = "consolidation-storm"
 SIM_KERNELS = ("choose_config", "admit_kernel", "ffd_scan_window_batched", *VERDICT_ROWS,
                "population_pairs")
 
+# phase 11: the solver service's cells (bench.py:run_solver_service at full
+# scale: 16 tenants of 240 pods; config 2 as a fleet: 16 seeded 95 %
+# subsets of its pods), each cell's bursts and sequential rounds, the
+# fleet parity cases (B at the bench shape; the live cluster's per-tenant
+# usage seed; the wrap tenants' first seed) and the profiled calls a fleet
+# reading averages
+SERVICE_TENANTS, SERVICE_PODS, SERVICE_SHARE, SERVICE_SEED = 16, 240, 0.95, 100
+SERVICE_ROUNDS = 5
+FLEET_BATCHES = (1, 4, 16)
+FLEET_LIVE_SEED, FLEET_WRAP_SEED, FLEET_ITERS = 23, 7, 20
+# the fleet pack's launches (choose_config with a grid y of B, the picked
+# scan in fleet mode), in place of the JAX package's fleet_pack_kernel, a
+# jitted vmap of _pack_core (not a Pallas kernel)
+FLEET_KERNELS = ("choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
+                 "ffd_scan_global_fleet")
+FLEET_REPLACES = "karpenter_tpu/ops/packer.py:930"
 
-LAST_PHASE = 10
+LAST_PHASE = 11
 
 
 def fail(msg: str) -> None:
@@ -2989,6 +3040,413 @@ def sim_phase(torch, card, twins) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-tenant solver service
+# ---------------------------------------------------------------------------
+
+
+def bench_tenants(n: int = SERVICE_TENANTS, pods: int = SERVICE_PODS) -> dict:
+    """``bench.py:run_solver_service``'s tenants at full scale: tenant i
+    (``t-00`` ...) has ``pods`` pods of 0.25 (i + 1) vCPU and 1 GiB on
+    `testing.Environment`'s default pool and catalog, compiled."""
+    from karpenter_tpu_torch.api import Pod, Resources
+    from karpenter_tpu_torch.ops.tensorize import compile_problem
+    from karpenter_tpu_torch.testing import Environment
+
+    env = Environment(device="cpu")  # its catalog only: nothing solves here
+    pool = env.default_node_pool()
+    env.default_node_class()
+    types = env.instance_types.list(pool, env.kube.get_node_class("default"))
+    return {
+        f"t-{i:02d}": compile_problem(
+            [Pod(requests=Resources(cpu=0.25 * (i + 1), memory="1Gi")) for _ in range(pods)],
+            [pool], {pool.name: types})
+        for i in range(n)
+    }
+
+
+def config2_tenants(n: int = SERVICE_TENANTS, share: float = SERVICE_SHARE,
+                    seed: int = SERVICE_SEED, scale: float = 1.0) -> dict:
+    """Config 2 as a fleet: tenant i is a seeded ``share`` of config 2's
+    pods (``numpy.random.default_rng(seed + i)``), with config 2's two pools
+    and catalog, compiled."""
+    import numpy as np
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops.tensorize import compile_problem
+
+    pools, inv, pods = T.heterogeneous_problem(scale)
+    out = {}
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        idx = np.sort(rng.choice(len(pods), int(share * len(pods)), replace=False))
+        out[f"t-{i:02d}"] = compile_problem([pods[j] for j in idx], pools, inv)
+    return out
+
+
+def one_group(name: str, probs: dict) -> tuple:
+    """The one solve group (``service.server.solve_group_key``) every
+    tenant of a cell lands in, or a failure: a cell whose tenants do not
+    stack into one fleet pack would quietly measure solo solves."""
+    from karpenter_tpu_torch.ops.packer import pad_problem
+    from karpenter_tpu_torch.service.server import solve_group_key
+
+    keys = set()
+    for prob in probs.values():
+        args, kp = pad_problem(prob)
+        keys.add(solve_group_key(args, kp, "nodes"))
+    if len(keys) != 1:
+        fail(f"{name}: the tenants fall into {len(keys)} solve groups, not one: "
+             f"{sorted(keys)}")
+    return next(iter(keys))
+
+
+def tenant_args(torch, probs: dict, dev) -> list:
+    """Each tenant's padded pack arguments on ``dev``, in tenant order."""
+    from karpenter_tpu_torch.ops import packer as P
+
+    return [P.to_device(P.pad_problem(prob)[0], dev) for prob in probs.values()]
+
+
+def live_tenants(torch, prob, n: int, dev) -> list:
+    """``n`` tenants of config 2 on its 2,000 live nodes (Kp 4096): each
+    the padded problem with every live node's usage scaled by a seeded
+    factor in [0.5, 1) and each class's count cut by a seeded share up to
+    10 % (``numpy.random.default_rng(FLEET_LIVE_SEED + i)``)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import packer as P
+
+    base, _ = P.pad_problem(prob)
+    E = base[11]
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(FLEET_LIVE_SEED + i)
+        args = list(base)
+        used0 = args[8].copy()
+        used0[:E] = (used0[:E] * rng.uniform(0.5, 1.0, (E, 1))).astype(np.float32)
+        args[8] = used0
+        cnt = args[1]
+        args[1] = (cnt - np.floor(cnt * rng.uniform(0.0, 0.1, cnt.shape))).astype(np.int32)
+        out.append(P.to_device(tuple(args), dev))
+    return out
+
+
+def compare_fleet(torch, name: str, tenants: list, picked: str, scan=None) -> float:
+    """`fleet_pack` of ``tenants`` (card tensors) bit for bit against its
+    plain version on the same tensors and against one solo `ffd_pack` a
+    tenant, both objectives; each call must launch `choose_config` and
+    ``picked`` once each, in fleet mode.  Returns the largest error."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    cols = T.fleet_columns(tenants)
+    K = tenants[0][8].shape[0]
+    err = 0.0
+    for objective in OBJECTIVES:
+        got, launched = launches_of(torch, lambda: F.fleet_pack(
+            cols, k_slots=K, objective=objective, scan=scan))
+        want = {"choose_config_fleet": 1, f"{picked}_fleet": 1}
+        if launched != want:
+            fail(f"fleet {name} {objective}: launched {launched}, expected {want}")
+        plain = P.fleet_pack_reference(cols, k_slots=K, objective=objective)
+        solo = [F.ffd_pack(*t, objective=objective) for t in tenants]
+        solo = tuple(torch.stack(o) for o in zip(*solo))
+        e_plain, e_solo = max_abs_err(torch, got, plain), max_abs_err(torch, got, solo)
+        print(f"  fleet {name} B={len(tenants)} {objective}: {picked}, max_abs_err vs plain "
+              f"{e_plain!r}, vs {len(tenants)} solo ffd_pack {e_solo!r}", flush=True)
+        if e_plain or e_solo:
+            fail(f"fleet {name} {objective}: fleet_pack differs (plain {e_plain}, solo {e_solo})")
+        err = max(err, e_plain, e_solo)
+    return err
+
+
+def fleet_bounds(tenants: list, outs) -> dict:
+    """The two fleet launches' bounds: each tenant's work counted as
+    `kernel_bounds` counts one problem's, summed over the tenants."""
+    sums = {"choose_config": [0, 0], "ffd_scan": [0, 0]}
+    for b, args in enumerate(tenants):
+        for k, v in kernel_bounds(args, outs[0][b], outs[2][b]).items():
+            sums[k][0] += v["bytes"]
+            sums[k][1] += v["operations"]
+    return {k: _bound(*v) for k, v in sums.items()}
+
+
+def time_fleet(torch, name: str, tenants: list, card: str, scan=None) -> dict:
+    """One shape's fleet launches on the card: each launch's device time
+    (torch.profiler, mean over `FLEET_ITERS` calls), beside the B solo
+    launches they replace (the same, over B `ffd_pack` calls: their summed
+    time), the stack's device time (CUDA events), both entry points'
+    times a back-to-back call (CUDA events), the plain version's, and the
+    bounds."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    cols = T.fleet_columns(tenants)
+    K = tenants[0][8].shape[0]
+    B = len(tenants)
+    picked = scan or F.scan_kernel(*pack_shapes(tenants[0]))
+    fleet = lambda: F.fleet_pack(cols, k_slots=K, scan=scan)
+    solo_fn = F.ffd_scan_global if scan else F.ffd_scan
+
+    def solo():
+        for t in tenants:
+            c = F.choose_config(*(t[i] for i in (0, 2, 4, 5, 6, 7)))
+            solo_fn(*t[:6], *c, *t[8:])
+
+    kernels = ("choose_config", picked)
+    f_ms = profiled_launches_ms(torch, fleet, kernels, FLEET_ITERS)
+    s_ms = profiled_launches_ms(torch, solo, kernels, FLEET_ITERS)
+    stack_ms = cuda_ms(torch, lambda: [torch.stack(list(c)) for i, c in enumerate(cols)
+                                       if i != 11], FLEET_ITERS)
+    call_ms = cuda_ms(torch, fleet, FLEET_ITERS)
+    solo_call_ms = cuda_ms(torch, lambda: [F.ffd_pack(*t) for t in tenants], FLEET_ITERS)
+    plain_ms = cuda_ms(torch, lambda: P.fleet_pack_reference(cols, k_slots=K), 1, warmup=1)
+    outs = fleet()
+    torch.cuda.synchronize()
+    bounds = fleet_bounds(tenants, outs)
+    out = {"B": B, "picked": picked, "stack_ms": stack_ms, "call_ms": call_ms,
+           "solo_call_ms": solo_call_ms, "plain_ms": plain_ms, "rows": {}}
+    for k, bound in zip(kernels, (bounds["choose_config"], bounds["ffd_scan"])):
+        out["rows"][f"{k}_fleet"] = {"ms": f_ms[k], "solo_ms": s_ms[k] * B,
+                                     "solo_launch_ms": s_ms[k], "bound": bound}
+        print(f"  {name} B={B} {k}_fleet: {f_ms[k]!r} ms a launch (profiler) against "
+              f"{B} solo launches {s_ms[k] * B!r} ms ({s_ms[k]!r} each); bound "
+              f"{bound['bound_ms']!r} ms ({bound['bound_by']}) ({card})", flush=True)
+    print(f"  {name} B={B}: the stack {stack_ms!r} ms (CUDA events), fleet_pack "
+          f"{call_ms!r} ms a call against {B} ffd_pack calls {solo_call_ms!r} ms, the plain "
+          f"version {plain_ms!r} ms (CUDA events) ({card})", flush=True)
+    return out
+
+
+def concurrent_round(remotes: dict, probs: dict, results=None) -> float:
+    """``bench.py``'s burst: every tenant released on one barrier, solving
+    through its own client; the seconds from release to the last answer."""
+    import threading
+
+    start = threading.Barrier(len(remotes) + 1)
+    done = threading.Barrier(len(remotes) + 1)
+    errs = []
+
+    def worker(t):
+        try:
+            start.wait(timeout=120)
+            out = remotes[t].pack_problem(probs[t])
+            if results is not None:
+                results[t] = out
+        except BaseException as exc:  # reported after the round
+            errs.append((t, exc))
+        finally:
+            done.wait(timeout=600)
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in remotes]
+    for th in threads:
+        th.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    done.wait(timeout=600)
+    dt = time.perf_counter() - t0
+    for th in threads:
+        th.join(timeout=60)
+    if errs:
+        fail(f"a tenant's solve failed: {errs[:3]}")
+    return dt
+
+
+def mismatches(got: dict, want: dict) -> int:
+    """Fields of every tenant's answer that differ from its twin's."""
+    import numpy as np
+
+    return sum(
+        not np.array_equal(getattr(got[t], f), getattr(want[t], f))
+        for t in want for f in ("take", "leftover", "node_cfg", "node_pods", "node_used"))
+
+
+def fingerprint_ms(probs: dict) -> float:
+    """Host milliseconds the tenant pool's content fingerprints of one
+    tenant's wire arrays take (``ops/resident._content_fp``, sha1), the
+    median over the tenants."""
+    import statistics as stats
+
+    from karpenter_tpu_torch.ops.packer import pad_problem
+    from karpenter_tpu_torch.ops.resident import _content_fp
+
+    out = []
+    for prob in probs.values():
+        arrays = [a for a in pad_problem(prob)[0] if not isinstance(a, int)]
+        t0 = time.perf_counter()
+        for a in arrays:
+            _content_fp(a)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return stats.median(out)
+
+
+def service_cell(name: str, probs: dict, device: str, rounds: int = SERVICE_ROUNDS) -> dict:
+    """One cell: a ``SolverServer(multi_tenant=True)`` and a legacy sidecar
+    on ``device``; every tenant's answer through the sidecar (the twin),
+    one warm-up solve a tenant through the service (its pool upload), then
+    ``rounds`` times a barrier-released burst of every tenant through the
+    service and the same solves one after another through the sidecar.
+    Every answer must equal the sidecar's; the service must have batched.
+    The launch counters cover the bursts and the sidecar's rounds; the
+    device observatory's transfer bytes the last burst (warm)."""
+    import statistics as stats
+
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.service import RemoteSolver, SolverServer
+
+    key = one_group(name, probs)
+    srv = SolverServer(port=0, multi_tenant=True, resident_budget_mb=256,
+                       device=device).start_background()
+    legacy = SolverServer(port=0, device=device).start_background()
+    remotes = {t: RemoteSolver(*srv.address, tenant=t) for t in probs}
+    sidecar = RemoteSolver(*legacy.address)
+    try:
+        info = remotes[next(iter(probs))].info()
+        if info.get("platform") != device or not info.get("multi_tenant"):
+            fail(f"{name}: the service reports {info}, expected platform {device}")
+        expected = {t: sidecar.pack_problem(p) for t, p in probs.items()}
+        warm = {t: remotes[t].pack_problem(p) for t, p in probs.items()}
+        bad = mismatches(warm, expected)
+        F.reset_launches()
+        conc, seq = [], []
+        scope = None
+        for r in range(rounds):
+            got = {}
+            if r == rounds - 1:
+                OBSERVATORY.enabled = True
+                scope = OBSERVATORY.begin_scope()
+            conc.append(concurrent_round(remotes, probs, got))
+            if scope is not None:
+                OBSERVATORY.end_scope(scope)
+            bad += mismatches(got, expected)
+            t0 = time.perf_counter()
+            for t, p in probs.items():
+                sidecar.pack_problem(p)
+            seq.append(time.perf_counter() - t0)
+        launches = {k: v for k, v in F.LAUNCHES.items() if v}
+        # the server's own time a dispatch (the flight ring: the pool's
+        # fingerprints and swaps, the launches, the fetch), by path
+        dispatch = {}
+        for tick in srv.flight._ring:
+            dispatch.setdefault(tick["summary"].get("path", "?"), []).append(tick["dur_s"] * 1e3)
+        payload = srv.tenants_payload()
+        batched = sum(d.get("batched", 0) for d in payload["tenants"].values())
+        sizes = [int(ev.attrs["size"]) for ev in srv.ledger.recent(4096)
+                 if ev.type == "TenantBatch"]
+        with srv._pool_lock:
+            pool_bytes = srv._pool.total_bytes()
+    finally:
+        for c in (*remotes.values(), sidecar):
+            c.close()
+        srv.stop()
+        legacy.stop()
+    conc_p50, seq_p50 = stats.median(conc) * 1e3, stats.median(seq) * 1e3
+    out = {
+        "tenants": len(probs), "group": key, "info": info, "mismatches": bad,
+        "batched": batched, "batch_sizes": sizes, "launches": launches,
+        "concurrent_ms": [x * 1e3 for x in conc], "sequential_ms": [x * 1e3 for x in seq],
+        "concurrent_p50_ms": conc_p50, "sequential_p50_ms": seq_p50,
+        "speedup_vs_sidecars": seq_p50 / conc_p50,
+        "warm_transfer_bytes": dict(scope.transfer_bytes), "pool_bytes": pool_bytes,
+        "dispatch_p50_ms": {k: stats.median(v) for k, v in sorted(dispatch.items())},
+        "fingerprint_ms": fingerprint_ms(probs),
+    }
+    if bad:
+        fail(f"{name}: {bad} answers differ from the dedicated sidecar's")
+    if not batched:
+        fail(f"{name}: no burst took the batched path")
+    if scope.transfer_bytes.get("tenant_resident", 0):
+        fail(f"{name}: a warm burst uploaded {scope.transfer_bytes['tenant_resident']} "
+             f"bytes of tenant tensors")
+    return out
+
+
+def service_phase(torch, card, probs) -> dict:
+    """Phase 11, as the module docstring lists it.  Returns the kernels
+    line's fleet rows and each kernel's launches in the cells."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    dev = torch.device("cuda")
+    cells = {"service-16-bench": bench_tenants(), "service-16-config2": config2_tenants()}
+    for name, tp in cells.items():
+        one_group(name, tp)
+        args, kp = P.pad_problem(next(iter(tp.values())))
+        G, R = args[0].shape
+        print(f"  {name}: {len(tp)} tenants of {sum(p.total_pods() for p in tp.values())} "
+              f"pods in one solve group: Gp={G} Cp={args[5].shape[0]} Kp={kp} R={R} "
+              f"Sp={args[12].shape[0]} (classes {[p.feas.shape[0] for p in tp.values()]})",
+              flush=True)
+    bench = tenant_args(torch, cells["service-16-bench"], dev)
+    config2 = tenant_args(torch, cells["service-16-config2"], dev)
+    live = live_tenants(torch, probs["config2_live"], 4, dev)
+    wrap = [P.to_device(T.fleet_tenant_arrays("wrap", FLEET_WRAP_SEED + i, 256), dev)
+            for i in range(4)]
+    print("  [fleet vs plain and vs solo] bit-equality on the card", flush=True)
+    err = {}
+
+    def held(kernel, e):
+        err[kernel] = max(err.get(kernel, 0.0), e)
+
+    for B in FLEET_BATCHES:
+        e = compare_fleet(torch, "bench", bench[:B], F.scan_kernel(*pack_shapes(bench[0])))
+        held("choose_config_fleet", e)
+        held(f"{F.scan_kernel(*pack_shapes(bench[0]))}_fleet", e)
+    for name, tenants in (("config2", config2[:4]), ("config2_live", live), ("wrap", wrap)):
+        picked = F.scan_kernel(*pack_shapes(tenants[0]))
+        e = compare_fleet(torch, name, tenants, picked)
+        held("choose_config_fleet", e)
+        held(f"{picked}_fleet", e)
+    held("ffd_scan_global_fleet",
+         compare_fleet(torch, "config2_live global", live, "ffd_scan_global",
+                       scan="ffd_scan_global"))
+    for k in FLEET_KERNELS:
+        if k not in err:
+            fail(f"phase 11 never held {k} to its plain version")
+
+    print(f"  [cells] the solver service on the card, {card}", flush=True)
+    results = {}
+    for name, tp in cells.items():
+        r = results[name] = service_cell(name, tp, "cuda")
+        print(f"  {name}: mismatches {r['mismatches']}, batched {r['batched']}, batch sizes "
+              f"{r['batch_sizes']}, launches {r['launches']} ({card})")
+        print(f"    concurrent round p50 {r['concurrent_p50_ms']!r} ms "
+              f"({r['concurrent_ms']!r}), sequential round through the sidecar p50 "
+              f"{r['sequential_p50_ms']!r} ms ({r['sequential_ms']!r}), "
+              f"speedup_vs_sidecars {r['speedup_vs_sidecars']!r} ({card})")
+        print(f"    warm burst's uploads by site {r['warm_transfer_bytes']}, the pool's "
+              f"resident bytes {r['pool_bytes']}, info {r['info']}", flush=True)
+        print(f"    the server's time a dispatch p50 by path {r['dispatch_p50_ms']!r} ms (host "
+              f"clock), the pool's fingerprints of one tenant's arrays "
+              f"{r['fingerprint_ms']!r} ms (host clock) ({card})", flush=True)
+        for k in ("choose_config_fleet", "ffd_scan_fleet"):
+            if not r["launches"].get(k):
+                fail(f"{name}: {k} never launched in the cells' bursts")
+    launches = {k: sum(r["launches"].get(k, 0) for r in results.values()) for k in F.LAUNCHES}
+
+    print(f"  [fleet times] torch.profiler and CUDA events, {card}", flush=True)
+    times = {
+        "service-16-bench": time_fleet(torch, "service-16-bench", bench, card),
+        "service-16-config2": time_fleet(torch, "service-16-config2", config2, card),
+        "fleet_live": time_fleet(torch, "fleet_live", live, card),
+        "fleet_live global": time_fleet(torch, "fleet_live global", live, card,
+                                        scan="ffd_scan_global"),
+    }
+    rows = {}
+    for k in FLEET_KERNELS:
+        where = ROW_PROBLEM[k] + (" global" if k == "ffd_scan_global_fleet" else "")
+        t = times[where]
+        rows[k] = dict(t["rows"][k], err=err[k], plain_ms=t["plain_ms"], B=t["B"],
+                       stack_ms=t["stack_ms"], call_ms=t["call_ms"],
+                       solo_call_ms=t["solo_call_ms"])
+    return {"rows": rows, "launches": launches, "cells": results}
+
+
 def observatory_totals() -> dict:
     from karpenter_tpu_torch.obs.device import OBSERVATORY
 
@@ -3243,6 +3701,10 @@ def main(argv) -> int:
         sim_launches = sim_phase(torch, card, twins)
     finally:
         twins.close()
+    phase_done(10, through)
+
+    print(f"[service] the multi-tenant solver service on the card, {card}", flush=True)
+    service = service_phase(torch, card, probs)
     verdicts["ffd_scan_window_batched"].update(window_row, err=max(
         window_row["err"], verdicts["ffd_scan_window_batched"]["err"]))
 
@@ -3266,6 +3728,7 @@ def main(argv) -> int:
             "operator_launches": op_launches[k],
             "consolidation_launches": consolidation[k],
             "sim_launches": sim_launches.get(k, 0),
+            "service_launches": service["launches"][k],
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -3286,6 +3749,7 @@ def main(argv) -> int:
             "operator_launches": op_launches[k],
             "consolidation_launches": consolidation[k],
             "sim_launches": sim_launches.get(k, 0),
+            "service_launches": service["launches"][k],
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     kernels.append({
@@ -3306,8 +3770,34 @@ def main(argv) -> int:
         "operator_launches": op_launches["admit_kernel"],
         "consolidation_launches": consolidation["admit_kernel"],
         "sim_launches": sim_launches.get("admit_kernel", 0),
+        "service_launches": service["launches"]["admit_kernel"],
         "call_ms": admit["call_ms"],
     })
+    for k in FLEET_KERNELS:
+        v = service["rows"][k]
+        kernels.append({
+            "name": k,
+            "problem": ROW_PROBLEM[k],
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": FLEET_REPLACES,
+            "launches": service["launches"][k],
+            "max_abs_err": v["err"],
+            "ms": v["ms"],
+            "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound"]["bound_ms"],
+            "bound_by": v["bound"]["bound_by"],
+            "library_ms": None,
+            "B": v["B"],
+            "solo_ms": v["solo_ms"],
+            "stack_ms": v["stack_ms"],
+            "call_ms": v["call_ms"],
+            "solo_call_ms": v["solo_call_ms"],
+            "operator_launches": op_launches.get(k, 0),
+            "consolidation_launches": consolidation.get(k, 0),
+            "sim_launches": sim_launches.get(k, 0),
+            "service_launches": service["launches"][k],
+        })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

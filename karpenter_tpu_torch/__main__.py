@@ -7,9 +7,12 @@ reconciles ``--interval`` seconds apart on the wall clock, the
 Provisioner's solver on ``--device`` (the card unless ``cpu`` is asked
 for).  Each tick prints one JSON line: the tick's ``reconcile_once`` ms,
 the solves by kind (cold, hit or delta), the claims launched so far and
-the device observatory's tick section.  The HTTP telemetry server's
-``--metrics-port``, the remote store and the solver sidecar are not ported
-(ROADMAP §A).
+the device observatory's tick section.  ``--solver-address host:port``
+moves the device half of every solve into a solver sidecar
+(``python -m karpenter_tpu_torch.service.server``): the Provisioner's
+scheduler packs through `RemoteSolver.pack_problem`.  The HTTP telemetry
+server's ``--metrics-port`` and the remote store are not ported (ROADMAP
+§A).
 
 Subcommands, dispatched as the JAX package's entry point does:
 
@@ -20,6 +23,7 @@ Subcommands, dispatched as the JAX package's entry point does:
   (``obs/render.py``).
 
     python -m karpenter_tpu_torch --ticks 3 --device cpu
+    python -m karpenter_tpu_torch --ticks 3 --device cpu --solver-address 127.0.0.1:7421
     python -m karpenter_tpu_torch sim --scenario steady --seed 3 --ticks 40 --device cpu
 """
 
@@ -67,6 +71,11 @@ def main(argv=None) -> int:
         "--pods", type=int, default=100,
         help="pending demo pods seeded before the first tick",
     )
+    parser.add_argument(
+        "--solver-address", default="",
+        help="host:port of a solver sidecar (service/server.py) that packs "
+        "every solve; default port 7421",
+    )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
 
@@ -89,6 +98,13 @@ def main(argv=None) -> int:
         )
 
     scheduler = operator.provisioner.scheduler
+    if args.solver_address:
+        from karpenter_tpu_torch.service.client import RemoteSolver
+
+        host, _, port = args.solver_address.partition(":")
+        # default port matches service/server.py's listener
+        remote = RemoteSolver(host, int(port)) if port else RemoteSolver(host)
+        scheduler.pack_fn = remote.pack_problem
     for tick in range(args.ticks):
         before = solver_counters(scheduler)
         t0 = time.perf_counter()

@@ -36,6 +36,16 @@
 // the shapes pick, whose blocks skip the others.  The admission fast path's score of one class
 // against the live nodes is admit_kernel, grid (1,) (see "The admission
 // score" below).
+// The fleet pack (the multi-tenant solver service, replacing the JAX
+// package's fleet_pack_kernel, a jitted vmap of _pack_core over B tenants
+// in karpenter_tpu/ops/packer.py) is choose_config with a grid y of B and
+// the picked scan in its third mode, kFleet: B problems of one shape, each
+// array of each element its own (struct Batch), one block or one cluster
+// an element, each the solo computation on its element's slice, so a
+// tenant's row equals its solo pack bit for bit.  What bounds it is what
+// bounds the solo scan, a chain of Gp dependent steps an element; at the
+// service's B <= 16 most SMs stay idle (one CTA, or one cluster, an
+// element), which a later design may spend.
 // Per class each scan computes per-slot capacity, an exclusive int32 prefix
 // over K, first-fit takes, an integer ceil-div window of new slots and the
 // state updates.  Unlike the TPU kernel they gather feas[g, cfg[k]] directly and
@@ -166,31 +176,68 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return q;
 }
 
-// The batch axis of a what-if scan launch (the consolidation verdicts,
-// ops/fused_packer.py: ffd_scan_batch).  Element e scans the base class
-// rows perm[e][0..Gp) in that order, with the counts cnt[e][g] (in the
-// element's order) and the slots k with rm[e][k] set removed: their config
-// is -1 from the start, so they take nothing, and the survivors keep their
-// first-fit order.  The choice (c_star, new_ok, per) is the base's, read
-// through the base row: a class's choice depends on its own row and the
-// price ceiling alone.  All null: the solve's scan, one element, the base
-// rows in order.  perm is read where a class row or a feasibility row is
-// loaded, never per slot.  done is set where the frontier-window scan ran
-// before this launch (see "The frontier-window scan"): an element whose
-// word is non-zero was finished there, and its block (or its whole
-// cluster: every CTA reads the same word) returns before its first barrier.
+// The batch axis of a scan launch.  A scan kernel's mode (its template
+// argument kMode) is one of three:
+//   kSolo    the solve's scan: one element, grid y 1, no descriptor;
+//   kWhatIf  B what-if problems over one base (the consolidation verdicts,
+//            ops/fused_packer.py: ffd_scan_batch).  Element e scans the
+//            base class rows perm[e][0..Gp) in that order, with the counts
+//            cnt[e][g] (in the element's order) and the slots k with
+//            rm[e][k] set removed: their config is -1 from the start, so
+//            they take nothing, and the survivors keep their first-fit
+//            order.  The choice (c_star, new_ok, per) is the base's, read
+//            through the base row: a class's choice depends on its own row
+//            and the price ceiling alone.  perm is read where a class row
+//            or a feasibility row is loaded, never per slot.  done is set
+//            where the frontier-window scan ran before this launch (see
+//            "The frontier-window scan"): an element whose word is non-zero
+//            was finished there, and its block (or its whole cluster: every
+//            CTA reads the same word) returns before its first barrier;
+//   kFleet   B independent problems of one shape (the multi-tenant
+//            service's fleet pack, ops/fused_packer.py: fleet_pack): every
+//            input, the choice included, is stacked element after element,
+//            and element e's first free slot is next0[e].  A block (or a
+//            cluster) offsets each input pointer to its element before
+//            anything else (FLEET_ELEMENT) and then runs the solo scan.
+// The solo instance folds every batch branch away.
+constexpr int kSolo = 0, kWhatIf = 1, kFleet = 2;
+
 struct Batch {
-  const int* perm;    // [B][Gp] base rows, or null
-  const int* cnt;     // [B][Gp] counts, or null (the base's cnt)
-  const uint8_t* rm;  // [B][K] removed slots, or null
-  const int* done;    // [B] 1 where the window scan finished the element, or null
+  const int* perm;    // [B][Gp] base rows (kWhatIf)
+  const int* cnt;     // [B][Gp] counts (kWhatIf)
+  const uint8_t* rm;  // [B][K] removed slots (kWhatIf)
+  const int* done;    // [B] 1 where the window scan finished the element, or null (kWhatIf)
+  const int* next0;   // [B] first free slot of each element (kFleet)
 };
 
 // Element e of a launch after the window scan, finished there already.
-template <bool kBatched>
+template <int kMode>
 __device__ __forceinline__ bool finished(const Batch& bt, int e) {
-  return kBatched && bt.done && __ldg(bt.done + e) != 0;
+  return kMode == kWhatIf && bt.done && __ldg(bt.done + e) != 0;
 }
+
+// A fleet launch's element e: every input pointer of a scan kernel moved
+// to the element's slice of its stacked [B, ...] tensor (the per-element
+// sizes follow from Gp, Cp, K, R and S), and next0 read from next0[e].
+// A no-op in the other modes.
+#define FLEET_ELEMENT(e)                                                    \
+  if constexpr (kMode == kFleet) {                                          \
+    const size_t eg = (size_t)(e) * Gp, ek = (size_t)(e) * K;               \
+    req += eg * R;                                                          \
+    cnt += eg;                                                              \
+    maxper += eg;                                                           \
+    slot += eg;                                                             \
+    feas += eg * Cp;                                                        \
+    alloc += (size_t)(e) * Cp * R;                                          \
+    c_star += eg;                                                           \
+    new_ok += eg;                                                           \
+    per += eg;                                                              \
+    used0 += ek * R;                                                        \
+    cfg0 += ek;                                                             \
+    npods0 += ek;                                                           \
+    sig0 += ek * S;                                                         \
+    next0 = __ldg(bt.next0 + (e));                                          \
+  }
 
 // One element's view of the batch.
 struct Elem {
@@ -203,15 +250,15 @@ struct Elem {
   }
 };
 
-// Element e of a batched launch (every pointer of bt set), or, with
-// kBatched false, the solve's one element, whose null perm and rm the
-// compiler folds away: the solve's instance of each scan is the scan
-// without a batch axis.
-template <bool kBatched>
+// Element e of a what-if launch (every pointer of bt set), or, in the
+// other modes, the element's own rows in order (null perm and rm, which
+// the compiler folds away): the solo and fleet instances of each scan are
+// the scan without a what-if axis.
+template <int kMode>
 __device__ __forceinline__ Elem elem_of(const Batch& bt, const int* cnt, int e,
                                         int Gp, int K) {
   Elem el{nullptr, cnt, nullptr};
-  if (kBatched) {
+  if (kMode == kWhatIf) {
     el.perm = bt.perm + (size_t)e * Gp;
     el.cnt = bt.cnt + (size_t)e * Gp;
     el.rm = bt.rm + (size_t)e * K;
@@ -518,6 +565,19 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
   __shared__ int s_idx[kChooseWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = blockIdx.x;
+  {  // a fleet launch's element blockIdx.y (grid y 1 for one problem): its
+     // slice of each stacked input and output
+    const size_t e = blockIdx.y, eg = e * gridDim.x;
+    req += eg * R;
+    maxper += eg;
+    feas += eg * Cp;
+    alloc += e * Cp * R;
+    price += e * Cp;
+    openable += e * Cp;
+    c_star += eg;
+    new_ok += eg;
+    per += eg;
+  }
   const ChooseRow t{feas + (size_t)g * Cp, req + (size_t)g * R, Cp, vec != 0};
   const int nb = (Cp + kBlockConfigs - 1) / kBlockConfigs;
 
@@ -610,7 +670,7 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
   }
 }
 
-template <bool kBatched>
+template <int kMode>
 __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -625,9 +685,10 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
   extern __shared__ float sreq[];  // [R]
   __shared__ unsigned sh[32];
   const int B = blockDim.x;
-  const int e = kBatched ? blockIdx.y : 0;  // batch element
-  if (finished<kBatched>(bt, e)) return;
-  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  const int e = kMode != kSolo ? blockIdx.y : 0;  // batch element
+  if (finished<kMode>(bt, e)) return;
+  FLEET_ELEMENT(e);
+  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
   cfg += (size_t)e * K;
@@ -847,7 +908,7 @@ __device__ __forceinline__ void flush_leftover(const unsigned* part, int n2,
   }
 }
 
-template <int M, bool kBatched>  // consecutive slots each thread owns; batch axis
+template <int M, int kMode>  // consecutive slots each thread owns; batch axis
 __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -863,9 +924,10 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // slot i of thread t sits at i * B + t
-  const int e = kBatched ? blockIdx.y : 0;  // batch element
-  if (finished<kBatched>(bt, e)) return;
-  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  const int e = kMode != kSolo ? blockIdx.y : 0;  // batch element
+  if (finished<kMode>(bt, e)) return;
+  FLEET_ELEMENT(e);
+  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
   cfg_out += (size_t)e * K;
@@ -921,7 +983,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
   // the base row of the class whose feasibility row the next step issues,
   // loaded a step ahead of its use
-  int ring_row = kBatched && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
+  int ring_row = kMode == kWhatIf && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
   cp_async_wait<kRing - 2>();
   __syncthreads();
 
@@ -969,8 +1031,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     if (lane == 31) xtot[p * 32 + warp] = incl;
     {  // class g+kRing-1's row into the slot class g-1 left: every read of
        // it was before the previous step's barrier
-      const int h = g + kRing - 1, hr = kBatched ? ring_row : h;
-      if (kBatched && h + 1 < Gp) ring_row = el.row(h + 1);
+      const int h = g + kRing - 1, hr = kMode == kWhatIf ? ring_row : h;
+      if (kMode == kWhatIf && h + 1 < Gp) ring_row = el.row(h + 1);
       if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
       cp_async_commit();
     }
@@ -1080,7 +1142,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
   }
 }
 
-template <int M, bool kBatched>
+template <int M, int kMode>
 int launch_resident(const float* req, const int* cnt, const int* maxper,
                     const int* slot, const uint8_t* feas, const float* alloc,
                     const int* c_star, const int* new_ok, const int* per,
@@ -1090,12 +1152,12 @@ int launch_resident(const float* req, const int* cnt, const int* maxper,
                     int nb, Batch bt, int* take, int* leftover, int* cfg,
                     int* npods, float* used, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      ffd_scan_kernel<M, kBatched>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      ffd_scan_kernel<M, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return (int)e;
   }
-  ffd_scan_kernel<M, kBatched><<<dim3(1, nb), threads, smem_bytes, stream>>>(
+  ffd_scan_kernel<M, kMode><<<dim3(1, nb), threads, smem_bytes, stream>>>(
       req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
       npods0, sig0, Gp, Cp, K, R, S, next0, smem_bytes, chunk, bt, take,
       leftover, cfg, npods, used);
@@ -1200,7 +1262,7 @@ __device__ __forceinline__ unsigned warp_sum_of(const unsigned* part, int count)
   return warp_sum(v);
 }
 
-template <int M, bool kBatched>  // consecutive slots each thread owns; batch axis
+template <int M, int kMode>  // consecutive slots each thread owns; batch axis
 __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
@@ -1217,9 +1279,10 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
-  const int e = kBatched ? blockIdx.y : 0;  // batch element: the cluster's grid row
-  if (finished<kBatched>(bt, e)) return;  // every CTA of the cluster, before any DSMEM store
-  const Elem el = elem_of<kBatched>(bt, cnt, e, Gp, K);
+  const int e = kMode != kSolo ? blockIdx.y : 0;  // batch element: the cluster's grid row
+  if (finished<kMode>(bt, e)) return;  // every CTA of the cluster, before any DSMEM store
+  FLEET_ELEMENT(e);
+  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
   cfg_out += (size_t)e * K;
@@ -1279,7 +1342,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
   // the base row of the class whose feasibility row the next step issues,
   // loaded a step ahead of its use
-  int ring_row = kBatched && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
+  int ring_row = kMode == kWhatIf && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
   cp_async_wait<kRing - 2>();
   cluster_sync();  // every CTA runs before the first DSMEM store
 
@@ -1333,8 +1396,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     cluster_arrive();
     {  // class g+kRing-1's row into the slot class g-1 left: every read of
        // it was before the previous step's barrier
-      const int h = g + kRing - 1, hr = kBatched ? ring_row : h;
-      if (kBatched && h + 1 < Gp) ring_row = el.row(h + 1);
+      const int h = g + kRing - 1, hr = kMode == kWhatIf ? ring_row : h;
+      if (kMode == kWhatIf && h + 1 < Gp) ring_row = el.row(h + 1);
       if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
       cp_async_commit();
     }
@@ -1452,7 +1515,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
 // (cudaOccupancyMaxActiveClusters gives 0).
 constexpr int kClusterRefused = -2;
 
-template <int M, bool kBatched>
+template <int M, int kMode>
 int launch_cluster(const float* req, const int* cnt, const int* maxper,
                    const int* slot, const uint8_t* feas, const float* alloc,
                    const int* c_star, const int* new_ok, const int* per,
@@ -1461,7 +1524,7 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
                    int next0, int ctas, int threads, int smem_bytes, int chunk,
                    int wrap_guard, int nb, Batch bt, int* take, int* leftover,
                    int* cfg, int* npods, float* used, cudaStream_t stream) {
-  const auto kernel = ffd_scan_cluster_kernel<M, kBatched>;
+  const auto kernel = ffd_scan_cluster_kernel<M, kMode>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) {
@@ -1592,7 +1655,7 @@ __global__ void __launch_bounds__(kWinThreads, kWinMinBlocks) ffd_scan_window_ke
   constexpr int T = kWinThreads, nw = kWinWarps, W = M * T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int e = blockIdx.y;  // batch element
-  const Elem el = elem_of<true>(bt, nullptr, e, Gp, K);
+  const Elem el = elem_of<kWhatIf>(bt, nullptr, e, Gp, K);
   take += (size_t)e * Gp * K;
   leftover += (size_t)e * Gp;
   cfg_out += (size_t)e * K;
@@ -2864,28 +2927,41 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The scan mode of a C batch descriptor, or -1 where it is not a valid one.
+int mode_of(int nb, const int* perm_b, const int* cnt_b, const uint8_t* rm_b,
+            const int* done_b, const int* next0_b) {
+  if (nb < 1 || nb > 65535) return -1;
+  if (next0_b) return (perm_b || cnt_b || rm_b || done_b) ? -1 : kFleet;
+  if (perm_b) return (cnt_b && rm_b) ? kWhatIf : -1;
+  return (nb == 1 && !done_b) ? kSolo : -1;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the CUDA error code of the launch (0 = launched).
+// Returns the CUDA error code of the launch (0 = launched).  `nb`
+// problems of one shape (1 for a solve; the fleet pack's B up to 65,535),
+// each input and output stacked element after element.
 int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
                       const float* alloc, const float* price,
                       const uint8_t* openable, int Gp, int Cp, int R,
-                      int objective, int* c_star, int* new_ok, int* per,
+                      int objective, int nb, int* c_star, int* new_ok, int* per,
                       void* stream) {
   if (Gp <= 0) return 0;
-  if (Cp <= 0) return (int)cudaErrorInvalidValue;
+  if (Cp <= 0 || nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  // with Cp % 4 == 0 every element's slice keeps its base's alignment
   const int vec = Cp % 4 == 0 && reinterpret_cast<uintptr_t>(feas) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(openable) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(price) % 16 == 0;
   const auto st = (cudaStream_t)stream;
+  const dim3 grid(Gp, nb);
   if (Cp > kBlockConfigs)
-    choose_config_kernel<true><<<Gp, kChooseThreads, 0, st>>>(
+    choose_config_kernel<true><<<grid, kChooseThreads, 0, st>>>(
         req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
         c_star, new_ok, per);
   else
-    choose_config_kernel<false><<<Gp, kChooseThreads, 0, st>>>(
+    choose_config_kernel<false><<<grid, kChooseThreads, 0, st>>>(
         req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
         c_star, new_ok, per);
   return (int)cudaGetLastError();
@@ -2895,32 +2971,36 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
 // perm_b / cnt_b [nb][Gp], rm_b [nb][K], all null for the solve's scan
 // (nb 1), and done_b [nb] (ffd_scan_window's mask: the elements it
 // finished are skipped) or null; each output (and the global scan's
-// sigcnt) holds nb elements' worth, element after element.
+// sigcnt) holds nb elements' worth, element after element.  next0_b [nb]
+// set (and perm_b, cnt_b, rm_b, done_b null) is a fleet launch: every
+// input, c_star / new_ok / per included, holds nb problems of one shape,
+// element after element, and `next0` is not read (mode_of).
 int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
                     const int* slot, const uint8_t* feas, const float* alloc,
                     const int* c_star, const int* new_ok, const int* per,
                     const float* used0, const int* cfg0, const int* npods0,
                     const int* sig0, int Gp, int Cp, int K, int R, int S,
                     int next0, int nb, const int* perm_b, const int* cnt_b,
-                    const uint8_t* rm_b, const int* done_b, int* take, int* leftover,
-                    int* cfg, int* npods, float* used, int* sigcnt, void* stream) {
+                    const uint8_t* rm_b, const int* done_b, const int* next0_b,
+                    int* take, int* leftover, int* cfg, int* npods, float* used,
+                    int* sigcnt, void* stream) {
   if (K <= 0) return 0;
-  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) ||
-      (!perm_b && (nb != 1 || done_b)))
-    return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b, done_b};
+  const int mode = mode_of(nb, perm_b, cnt_b, rm_b, done_b, next0_b);
+  if (mode < 0) return (int)cudaErrorInvalidValue;
+  const Batch bt{perm_b, cnt_b, rm_b, done_b, next0_b};
   const dim3 grid(1, nb);
   const auto st = (cudaStream_t)stream;
-  if (perm_b)
-    ffd_scan_global_kernel<true><<<grid, scan_threads(K), R * sizeof(float), st>>>(
-        req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
-        npods0, sig0, Gp, Cp, K, R, S, next0, bt, take, leftover, cfg, npods, used,
-        sigcnt);
-  else
-    ffd_scan_global_kernel<false><<<grid, scan_threads(K), R * sizeof(float), st>>>(
-        req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,
-        npods0, sig0, Gp, Cp, K, R, S, next0, bt, take, leftover, cfg, npods, used,
-        sigcnt);
+#define FFD_LAUNCH(MODE)                                                        \
+  ffd_scan_global_kernel<MODE><<<grid, scan_threads(K), R * sizeof(float), st>>>( \
+      req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0,     \
+      npods0, sig0, Gp, Cp, K, R, S, next0, bt, take, leftover, cfg, npods, used,\
+      sigcnt)
+  switch (mode) {
+    case kWhatIf: FFD_LAUNCH(kWhatIf); break;
+    case kFleet: FFD_LAUNCH(kFleet); break;
+    default: FFD_LAUNCH(kSolo);
+  }
+#undef FFD_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -2937,26 +3017,31 @@ int ffd_scan(const float* req, const int* cnt, const int* maxper,
              const int* sig0, int Gp, int Cp, int K, int R, int S, int next0,
              int slots_per_thread, int smem_bytes, int chunk, int nb,
              const int* perm_b, const int* cnt_b, const uint8_t* rm_b,
-             const int* done_b, int* take, int* leftover, int* cfg, int* npods,
-             float* used, void* stream) {
+             const int* done_b, const int* next0_b, int* take, int* leftover,
+             int* cfg, int* npods, float* used, void* stream) {
   if (K <= 0) return 0;
   const int threads = scan_threads(K);
+  const int mode = mode_of(nb, perm_b, cnt_b, rm_b, done_b, next0_b);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
-      R > kMaxR || (long long)slots_per_thread * threads < K || nb < 1 ||
-      nb > 65535 || (perm_b && !(cnt_b && rm_b)) || (!perm_b && (nb != 1 || done_b)))
+      R > kMaxR || (long long)slots_per_thread * threads < K || mode < 0)
     return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b, done_b};
-#define FFD_LAUNCH(M, BATCHED)                                               \
-  launch_resident<M, BATCHED>(req, cnt, maxper, slot, feas, alloc, c_star,   \
-                              new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,\
-                              K, R, S, next0, threads, smem_bytes, chunk, nb,\
-                              bt, take, leftover, cfg, npods, used,          \
-                              (cudaStream_t)stream)
+  const Batch bt{perm_b, cnt_b, rm_b, done_b, next0_b};
+#define FFD_LAUNCH(M, MODE)                                                  \
+  launch_resident<M, MODE>(req, cnt, maxper, slot, feas, alloc, c_star,      \
+                           new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,   \
+                           K, R, S, next0, threads, smem_bytes, chunk, nb,   \
+                           bt, take, leftover, cfg, npods, used,             \
+                           (cudaStream_t)stream)
+#define FFD_MODES(M)                                                         \
+  (mode == kWhatIf  ? FFD_LAUNCH(M, kWhatIf)                                 \
+   : mode == kFleet ? FFD_LAUNCH(M, kFleet)                                  \
+                    : FFD_LAUNCH(M, kSolo))
   switch (slots_per_thread) {
-    case 1: return perm_b ? FFD_LAUNCH(1, true) : FFD_LAUNCH(1, false);
-    case 2: return perm_b ? FFD_LAUNCH(2, true) : FFD_LAUNCH(2, false);
+    case 1: return FFD_MODES(1);
+    case 2: return FFD_MODES(2);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FFD_MODES
 #undef FFD_LAUNCH
 }
 
@@ -2974,31 +3059,35 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
                      int next0, int ctas, int slots_per_thread, int smem_bytes,
                      int chunk, int wrap_guard, int nb, const int* perm_b,
                      const int* cnt_b, const uint8_t* rm_b, const int* done_b,
-                     int* take, int* leftover, int* cfg, int* npods, float* used,
-                     void* stream) {
+                     const int* next0_b, int* take, int* leftover, int* cfg,
+                     int* npods, float* used, void* stream) {
   if (K <= 0) return 0;
   if (ctas != 2 && ctas != 4 && ctas != 8) return (int)cudaErrorInvalidValue;
-  if (nb < 1 || nb > 65535 || (perm_b && !(cnt_b && rm_b)) ||
-      (!perm_b && (nb != 1 || done_b)))
-    return (int)cudaErrorInvalidValue;
-  const Batch bt{perm_b, cnt_b, rm_b, done_b};
+  const int mode = mode_of(nb, perm_b, cnt_b, rm_b, done_b, next0_b);
+  if (mode < 0) return (int)cudaErrorInvalidValue;
+  const Batch bt{perm_b, cnt_b, rm_b, done_b, next0_b};
   const int threads = scan_threads((K + ctas - 1) / ctas);
   if ((chunk != 4 && chunk != 8 && chunk != 16) || Cp % chunk != 0 ||
       R > kMaxR || wrap_guard < 1 ||
       (long long)wrap_guard - 1 > (long long)0x7fffffff / K ||
       (long long)ctas * slots_per_thread * threads < K)
     return (int)cudaErrorInvalidValue;
-#define FFD_LAUNCH(M, BATCHED)                                                 \
-  launch_cluster<M, BATCHED>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, \
-                             per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S,    \
-                             next0, ctas, threads, smem_bytes, chunk, wrap_guard,\
-                             nb, bt, take, leftover, cfg, npods, used,           \
-                             (cudaStream_t)stream)
+#define FFD_LAUNCH(M, MODE)                                                  \
+  launch_cluster<M, MODE>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, \
+                          per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S,    \
+                          next0, ctas, threads, smem_bytes, chunk, wrap_guard,\
+                          nb, bt, take, leftover, cfg, npods, used,           \
+                          (cudaStream_t)stream)
+#define FFD_MODES(M)                                                         \
+  (mode == kWhatIf  ? FFD_LAUNCH(M, kWhatIf)                                 \
+   : mode == kFleet ? FFD_LAUNCH(M, kFleet)                                  \
+                    : FFD_LAUNCH(M, kSolo))
   switch (slots_per_thread) {
-    case 1: return perm_b ? FFD_LAUNCH(1, true) : FFD_LAUNCH(1, false);
-    case 2: return perm_b ? FFD_LAUNCH(2, true) : FFD_LAUNCH(2, false);
+    case 1: return FFD_MODES(1);
+    case 2: return FFD_MODES(2);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FFD_MODES
 #undef FFD_LAUNCH
 }
 
@@ -3034,7 +3123,7 @@ int ffd_scan_window(const float* req, const int* maxper, const int* slot,
 #undef FFD_LAUNCH
 }
 
-// How many elements of a batched scan (the kBatched instances) run on the
+// How many elements of a batched scan (the what-if instances) run on the
 // card at once: kind 0 the
 // resident scan (blocks of `threads` with `smem_bytes`, M slots a thread),
 // 1 the cluster scan (clusters of `ctas`), 2 the global scan, 3 the
@@ -3060,15 +3149,15 @@ int ffd_scan_concurrency(int kind, int M, int ctas, int threads, int smem_bytes)
   }
   if (kind == 0 || kind == 2) {
     if (kind == 0)
-      e = M == 1 ? allow_smem(ffd_scan_kernel<1, true>, smem_bytes)
-                 : allow_smem(ffd_scan_kernel<2, true>, smem_bytes);
+      e = M == 1 ? allow_smem(ffd_scan_kernel<1, kWhatIf>, smem_bytes)
+                 : allow_smem(ffd_scan_kernel<2, kWhatIf>, smem_bytes);
     if (e == cudaSuccess)
       e = kind == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          &n, ffd_scan_global_kernel<true>, threads, smem_bytes)
+                          &n, ffd_scan_global_kernel<kWhatIf>, threads, smem_bytes)
           : M == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, ffd_scan_kernel<1, true>, threads, smem_bytes)
+                         &n, ffd_scan_kernel<1, kWhatIf>, threads, smem_bytes)
                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, ffd_scan_kernel<2, true>, threads, smem_bytes);
+                         &n, ffd_scan_kernel<2, kWhatIf>, threads, smem_bytes);
     if (e != cudaSuccess) {
       cudaGetLastError();
       return -(int)e;
@@ -3076,7 +3165,7 @@ int ffd_scan_concurrency(int kind, int M, int ctas, int threads, int smem_bytes)
     return n * sms;
   }
   const auto kernel =
-      M == 1 ? ffd_scan_cluster_kernel<1, true> : ffd_scan_cluster_kernel<2, true>;
+      M == 1 ? ffd_scan_cluster_kernel<1, kWhatIf> : ffd_scan_cluster_kernel<2, kWhatIf>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

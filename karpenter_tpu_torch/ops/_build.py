@@ -12,6 +12,10 @@ so each kernel's registers, shared memory and spills are kept in
 `BUILD_LOG` for the caller to print.  The log is saved beside the library
 and read back when a built library is reused, so `BUILD_LOG` holds every
 source's summary either way.
+
+`load` is safe from many threads at once (the solver service solves from
+its handler threads): the first caller builds and loads under a lock, and
+the others wait for its library.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+from karpenter_tpu_torch.utils.locks import make_lock
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -37,6 +43,7 @@ NVCC_FLAGS = (
 
 BUILD_LOG: Dict[str, str] = {}  # source name -> nvcc/ptxas output
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = make_lock("_build._LOAD_LOCK")  # one build and load of a source at a time
 
 
 def nvcc_path() -> str:
@@ -97,11 +104,15 @@ def load(name: str) -> ctypes.CDLL:
     build and load time is the port's one compile: the device observatory
     records it once a process as ``karpenter_device_compile_seconds{fn}``."""
     lib = _LIBS.get(name)
-    if lib is None:
-        from karpenter_tpu_torch.obs.device import OBSERVATORY
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            from karpenter_tpu_torch.obs.device import OBSERVATORY
 
-        t0 = time.perf_counter()
-        path = build_all([name])[name]
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
-        OBSERVATORY.record_build(name, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            path = build_all([name])[name]
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
+            OBSERVATORY.record_build(name, time.perf_counter() - t0)
     return lib

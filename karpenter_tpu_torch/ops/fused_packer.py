@@ -32,41 +32,59 @@ The admission fast path (the JAX package's ``admit_kernel``, a jitted XLA
 function) scores one class against the live nodes of a resident state:
 `admit`, one launch of one block (`admit_threads`).
 
+The multi-tenant solver service's fleet pack (the JAX package's
+``fleet_pack_kernel``, a jitted vmap of ``_pack_core``) solves B problems of
+one shape, each with arrays of its own: `fleet_pack`, `choose_config` with a
+grid y of B and the scan `scan_kernel` picks in its fleet mode, one block or
+one cluster an element.
+
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
 launches the kernel or raises, never falls back.  `LAUNCHES` counts the
 kernel launches of each wrapper, so a run can show that its solves went
-through the kernels.
+through the kernels.  The service solves from many threads at once: the
+library's first load and the counts are taken under a lock, and each
+launch goes to the calling thread's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from karpenter_tpu_torch.obs.device import OBSERVATORY
 from karpenter_tpu_torch.ops import _build
 from karpenter_tpu_torch.ops.packer import (
     RV_WIDTH,
     choose_config_reference,
     ffd_scan_batch_reference,
     ffd_scan_reference,
+    fleet_pack_reference,
     population_prologue_reference,
     verdict_rows_reference,
 )
+from karpenter_tpu_torch.utils.locks import make_lock
 
-# kernel name -> launches since the last reset (plain integers).  A scan
-# launched with a batch axis (`ffd_scan_batch`) counts under its kernel's
-# name with "_batched": the solve's counts stay the solve's.
+# kernel name -> launches since the last reset (plain integers, updated
+# under `_LOCK`).  A scan launched with a what-if batch axis
+# (`ffd_scan_batch`) counts under its kernel's name with "_batched", and a
+# fleet launch (`fleet_pack`, choose_config too) with "_fleet": the solve's
+# counts stay the solve's.
 LAUNCHES: Dict[str, int] = {
     "choose_config": 0, "ffd_scan": 0, "ffd_scan_cluster": 0, "ffd_scan_global": 0,
     "ffd_scan_batched": 0, "ffd_scan_cluster_batched": 0, "ffd_scan_global_batched": 0,
     "ffd_scan_window_batched": 0,
     "verdict_summary": 0, "verdict_configs": 0, "verdict_write": 0, "population_pairs": 0,
     "admit_kernel": 0,
+    "choose_config_fleet": 0, "ffd_scan_fleet": 0, "ffd_scan_cluster_fleet": 0,
+    "ffd_scan_global_fleet": 0,
 }
+# the library's first load (its build and its C signatures) and LAUNCHES
+_LOCK = make_lock("fused_packer._LOCK")
 # the launches of `verdict_rows`, in order
 VERDICT_ROWS_LAUNCHES = ("verdict_summary", "verdict_configs", "verdict_write")
 
@@ -104,17 +122,29 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
-    """The built library, with its C signatures declared once."""
-    lib = _build.load("ffd_pack")
+    """The built library, with its C signatures declared once: the first
+    caller builds and declares under `_LOCK`, the others wait for it."""
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        return _LIB if _LIB is not None else _declare(_build.load("ffd_pack"))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    global _LIB
     if lib.ffd_scan.argtypes is None:
-        lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_P]
+        lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_choose_config.restype = _I
-        batch = [_I] + [_P] * 4  # B, perm_b, cnt_b, rm_b, done_b
+        batch = [_I] + [_P] * 5  # B, perm_b, cnt_b, rm_b, done_b, next0_b
         lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + batch + [_P] * 5 + [_P]
         lib.ffd_scan.restype = _I
         lib.ffd_scan_global.argtypes = [_P] * 13 + [_I] * 6 + batch + [_P] * 6 + [_P]
@@ -139,6 +169,7 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_population_prologue.restype = _I
         lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 6 + [_P] + [_P]
         lib.ffd_admit.restype = _I
+    _LIB = lib
     return lib
 
 
@@ -158,7 +189,8 @@ def _launched(fn: str, err: int) -> None:
         raise RuntimeError(f"{fn}: no thread-block cluster of this shape fits the card")
     if err != 0:
         raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
-    LAUNCHES[fn] += 1
+    with _LOCK:
+        LAUNCHES[fn] += 1
 
 
 def choose_config(
@@ -198,7 +230,7 @@ def choose_config(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ffd_choose_config(
             *_ptrs(req, maxper, feas, alloc, price, openable),
-            G, C, R, OBJECTIVES[objective], base, base + 4 * G, base + 8 * G, stream,
+            G, C, R, OBJECTIVES[objective], 1, base, base + 4 * G, base + 8 * G, stream,
         )
     _launched("choose_config", err)
     return out.unbind(0)
@@ -392,24 +424,38 @@ def _scan_outputs(G: int, K: int, R: int, dev, batch=None) -> Tuple[torch.Tensor
     )
 
 
-_NO_BATCH = (1, 0, 0, 0, 0)  # B = 1, no perm_b / cnt_b / rm_b / done_b: the solve's scan
+# B = 1, no perm_b / cnt_b / rm_b / done_b / next0_b: the solve's scan
+_NO_BATCH = (1, 0, 0, 0, 0, 0)
+
+
+class Fleet(NamedTuple):
+    """A fleet launch's batch: B problems of one shape, every input
+    stacked [B, ...], ``next0_b`` [B] int32 each one's first free slot."""
+
+    B: int
+    next0_b: torch.Tensor
 
 
 def _batch_ptrs(batch) -> tuple:
-    """The C batch descriptor ``(B, perm_b, cnt_b, rm_b, done_b)`` of
-    ``batch``, ``(B, perm_b, cnt_b, rm_b[, done])``: ``done`` the window
+    """The C batch descriptor ``(B, perm_b, cnt_b, rm_b, done_b,
+    next0_b)`` of ``batch``: None (the solve's scan), a `Fleet`, or a
+    what-if batch ``(B, perm_b, cnt_b, rm_b[, done])``, ``done`` the window
     scan's mask (the elements it finished are skipped), absent or None
     where no window scan ran before."""
     if batch is None:
         return _NO_BATCH
+    if isinstance(batch, Fleet):
+        return (batch.B, 0, 0, 0, 0, batch.next0_b.data_ptr())
     B, perm_b, cnt_b, rm_b, *rest = batch
     done = rest[0] if rest else None
     return (B, perm_b.data_ptr(), cnt_b.data_ptr(), rm_b.data_ptr(),
-            0 if done is None else done.data_ptr())
+            0 if done is None else done.data_ptr(), 0)
 
 
 def _launch_name(kernel: str, batch) -> str:
-    return kernel if batch is None else f"{kernel}_batched"
+    if batch is None:
+        return kernel
+    return f"{kernel}_fleet" if isinstance(batch, Fleet) else f"{kernel}_batched"
 
 
 def _ptrs(*ts) -> list:
@@ -546,6 +592,110 @@ def ffd_pack(
         req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
         used0, cfg0, npods0, next0, sig0,
     )
+
+
+# ---------------------------------------------------------------------------
+# The fleet pack: B problems of one shape, each with arrays of its own
+# ---------------------------------------------------------------------------
+
+# the positions of the pack's arguments (service/server.py: PACK_ARG_ORDER)
+FLEET_COLUMNS = (
+    "req", "cnt", "maxper", "slot", "feas", "alloc", "price", "openable",
+    "used0", "cfg0", "npods0", "next0", "sig0",
+)
+_NEXT0 = FLEET_COLUMNS.index("next0")
+
+
+def _fleet_check(stacked: Sequence[torch.Tensor], B: int) -> Tuple[int, int, int, int, int]:
+    """Checks the stacked card inputs of a fleet pack (``next0`` left out);
+    returns ``(G, C, K, R, S)``."""
+    req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, sig0 = stacked
+    dev = req.device
+    _, G, R = req.shape
+    C, K, S = alloc.shape[1], used0.shape[1], sig0.shape[1]
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt, shp in (
+        ("req", req, f32, (G, R)),
+        ("cnt", cnt, i32, (G,)),
+        ("maxper", maxper, i32, (G,)),
+        ("slot", slot, i32, (G,)),
+        ("feas", feas, torch.bool, (G, C)),
+        ("alloc", alloc, f32, (C, R)),
+        ("price", price, f32, (C,)),
+        ("openable", openable, torch.bool, (C,)),
+        ("used0", used0, f32, (K, R)),
+        ("cfg0", cfg0, i32, (K,)),
+        ("npods0", npods0, i32, (K,)),
+        ("sig0", sig0, i32, (S, K)),
+    ):
+        _check(name, t, dt, (B, *shp), dev)
+    if feas.data_ptr() % 16:
+        raise ValueError("feas must start on a 16-byte boundary")
+    return G, C, K, R, S
+
+
+def fleet_pack(
+    cols: Sequence[Sequence], *, k_slots: int, objective: str = "nodes",
+    scan: Optional[str] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """B packs of one shape in one launch of each kernel (the JAX package's
+    ``fleet_pack_kernel``): ``cols`` holds the 13 `FLEET_COLUMNS`, each a
+    sequence of B per-problem values (tensors; ``next0`` host ints).
+    Returns ``(take [B, G, K], leftover [B, G], node_cfg [B, K], node_pods
+    [B, K], node_used [B, K, R])``; row b is `ffd_pack` of problem b, bit
+    for bit.
+
+    On the card each column is stacked with `torch.stack`, a copy on the
+    card (as the reference's ``jnp.stack`` inside its jit), so a problem
+    whose tensors are resident uploads nothing; the first free slots go up
+    as one [B] int32 tensor (site ``fleet_pack_kernel``).  Then one launch
+    of `choose_config` with a grid y of B and one of the scan `scan_kernel`
+    picks at the shapes (``scan="ffd_scan_global"``: the global scan at any
+    shape, as `ffd_scan_global` for one problem), in its fleet mode (one
+    block or one cluster an element).  The launch is at the true B: the
+    reference pads B to a power of two only for XLA's compile cache, which
+    the port does not have.  For CPU tensors it runs
+    `fleet_pack_reference`."""
+    if len(cols) != len(FLEET_COLUMNS):
+        raise ValueError(f"fleet_pack takes {len(FLEET_COLUMNS)} columns, got {len(cols)}")
+    B = len(cols[0])
+    if B < 1 or any(len(col) != B for col in cols):
+        raise ValueError("every column must hold the same B >= 1 problems")
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    if scan not in (None, "ffd_scan_global"):
+        raise ValueError(f"no fleet entry point for scan {scan!r}")
+    dev = cols[0][0].device
+    if dev.type == "cpu":
+        return fleet_pack_reference(cols, k_slots=k_slots, objective=objective)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if B > MAX_BATCH:
+        raise ValueError(f"B={B} is past the grid's y extent {MAX_BATCH}")
+    stacked = [torch.stack(list(col)) for i, col in enumerate(cols) if i != _NEXT0]
+    G, C, K, R, S = _fleet_check(stacked, B)
+    if K != k_slots:
+        raise ValueError(f"k_slots={k_slots} but the problems have {K} slots")
+    next0 = np.array([int(n) for n in cols[_NEXT0]], dtype=np.int32)
+    if ((next0 < 0) | (next0 > K)).any():
+        raise ValueError(f"next0 outside [0, {K}]: {next0.tolist()}")
+    next0_b = OBSERVATORY.put("fleet_pack_kernel", next0, dev)
+    req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, sig0 = stacked
+    choice = torch.empty((3, B, G), dtype=torch.int32, device=dev)
+    base = choice.data_ptr()  # rows c_star, new_ok, per, each [B, G]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ffd_choose_config(
+            *_ptrs(req, maxper, feas, alloc, price, openable), G, C, R,
+            OBJECTIVES[objective], B, base, base + 4 * B * G, base + 8 * B * G, stream,
+        )
+    _launched("choose_config_fleet", err)
+    c_star, new_ok, per = choice.unbind(0)
+    args = (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, 0, sig0)
+    if scan == "ffd_scan_global":
+        return _launch_global(args, (G, C, K, R, S), Fleet(B, next0_b))
+    return _launch_picked(args, (G, C, K, R, S), Fleet(B, next0_b))
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,11 @@ ticks** and updates them with **gather + scatter deltas** instead.
   ``resident_delta``; the pack and the delta step launch through its
   `dispatch`, and each update counts as ``seed``, ``donated`` or ``noop``.
 
+`TenantResidentPool` is the multi-tenant solver service's counterpart
+(service/server.py): each tenant's solve tensors stay on the device between
+its solves, keyed by content fingerprint, under a global bytes budget with
+tenant-granular LRU eviction.
+
 Eligibility (the "plain" subset): every batch pod free of pod affinity /
 topology spread / preferences / multi-OR-term node affinity / volume
 claims, and no bound pod on ANY existing node (live, cordoned or draining)
@@ -50,7 +55,12 @@ import torch
 from karpenter_tpu_torch.api import Pod
 from karpenter_tpu_torch.api import labels as L
 from karpenter_tpu_torch.obs.device import OBSERVATORY
-from karpenter_tpu_torch.ops.packer import _bucket, _bucket_classes, dispatch_pack
+from karpenter_tpu_torch.ops.packer import (
+    _bucket,
+    _bucket_classes,
+    dispatch_pack,
+    resolve_device,
+)
 from karpenter_tpu_torch.ops.tensorize import (
     BIG,
     Catalog,
@@ -890,8 +900,8 @@ class ResidentCache:
         None when every state misses (the caller runs the full compile and
         seeds a state via `rebuild`).  ``_win`` lets a caller that already
         validated the trust window hand it over."""
-        if not self.states:
-            return None
+        if not self.states or solver.pack_fn is not None:
+            return None  # a sidecar's pack_fn keeps the plain upload path
         # tick-wide invariants, identical for every candidate state: built
         # once per call (and, under an open trust window, once per tick)
         win = self._window(solver) if _win is _WIN_UNSET else _win
@@ -928,7 +938,10 @@ class ResidentCache:
         self, solver, pods: List[Pod], prob: CompiledProblem, catalog,
         consumer: str = "solve",
     ) -> Optional[ResidentState]:
-        if catalog is None:
+        # resident tensors serve only the in-process pack: a sidecar's (or
+        # any custom) pack_fn keeps the plain upload path, as the
+        # reference's resident_capable rules
+        if catalog is None or solver.pack_fn is not None:
             return None
         with phase("delta"):
             st = ResidentState.build(
@@ -962,3 +975,136 @@ class ResidentCache:
             if st.prob is prob and (device is None or st.device == device):
                 return st
         return None
+
+
+# ---------------------------------------------------------------------------
+# Tenant-keyed resident pool (the multi-tenant solver service)
+#
+# ResidentCache above keeps two states warm for one operator.  The
+# multi-tenant SolverServer generalizes the same discipline across a fleet:
+# each tenant's upload-heavy solve tensors stay on the device between its
+# solves, keyed by CONTENT fingerprint (the wire arrays are fresh numpy
+# objects every RPC, so identity keys can never hit).  A global device-bytes
+# budget bounds the footprint; crossing it evicts whole tenants least
+# recently used first, never a tenant currently being served.
+# ---------------------------------------------------------------------------
+
+
+def _content_fp(arr: np.ndarray) -> tuple:
+    """Content fingerprint of a wire array: shape + dtype + payload hash.
+    sha1 over the raw bytes: collision-safe at cache-key strength, and
+    cheap next to the device upload it saves."""
+    import hashlib
+
+    arr = np.ascontiguousarray(arr)
+    return (
+        arr.shape,
+        arr.dtype.str,
+        hashlib.sha1(arr.tobytes()).digest(),
+    )
+
+
+class _TenantEntry:
+    """One tenant's resident tensors: name -> (fingerprint, device tensor,
+    nbytes).  The numpy source is not kept: the fingerprint is content
+    based, so a re-sent identical array hits without it."""
+
+    __slots__ = ("arrays", "nbytes")
+
+    def __init__(self):
+        self.arrays: Dict[str, tuple] = {}
+        self.nbytes = 0
+
+
+class TenantResidentPool:
+    """Device-resident per-tenant tensor cache with a global bytes budget.
+
+    ``get(tenant, name, arr)`` returns a tensor on ``device`` (the card
+    unless the caller asks for the CPU) for ``arr``: a fingerprint hit
+    reuses the resident tensor (zero transfer), a miss uploads through the
+    observatory's counted seam under ``site`` and replaces the tenant's
+    entry for ``name``.  ``budget_bytes <= 0`` disables caching entirely
+    (every get returns the host array untouched: the legacy single-tenant
+    upload path).  Eviction is tenant-granular LRU: python dicts iterate in
+    insertion order and hits re-insert.  NOT thread-safe: the service
+    serializes access under its own lock.
+    """
+
+    def __init__(
+        self, budget_bytes: int, site: str = "tenant_resident", device=None,
+    ):
+        self.budget_bytes = int(budget_bytes)
+        self.site = site
+        self.device = resolve_device(device)
+        self.tenants: Dict[str, _TenantEntry] = {}
+        # lifetime counters the service exports per tenant
+        self.hits = 0
+        self.misses = 0
+        self.evictions: List[str] = []  # evicted tenant names, in order
+
+    # ------------------------------------------------------------- access
+    def get(self, tenant: str, name: str, arr: np.ndarray):
+        if self.budget_bytes <= 0:
+            return arr
+        ent = self.tenants.get(tenant)
+        if ent is None:
+            ent = self.tenants[tenant] = _TenantEntry()
+        else:
+            # mark most-recently-used (insertion-order LRU)
+            del self.tenants[tenant]
+            self.tenants[tenant] = ent
+        fp = _content_fp(arr)
+        cached = ent.arrays.get(name)
+        if cached is not None and cached[0] == fp:
+            self.hits += 1
+            return cached[1]
+        self.misses += 1
+        dev = OBSERVATORY.put(self.site, np.ascontiguousarray(arr), self.device)
+        nbytes = int(dev.numel() * dev.element_size())
+        if cached is not None:
+            ent.nbytes -= cached[2]
+        ent.arrays[name] = (fp, dev, nbytes)
+        ent.nbytes += nbytes
+        self.evict_to_budget(active={tenant})
+        return dev
+
+    # ----------------------------------------------------------- eviction
+    def total_bytes(self) -> int:
+        return sum(e.nbytes for e in self.tenants.values())
+
+    def bytes_of(self, tenant: str) -> int:
+        ent = self.tenants.get(tenant)
+        return ent.nbytes if ent is not None else 0
+
+    def evict_to_budget(self, active=()) -> List[str]:
+        """Drop least-recently-used tenants until the pool fits the budget;
+        tenants in ``active`` (being served) are never dropped, so a single
+        oversized tenant can transiently exceed the budget rather than
+        thrash its own working set mid-solve.  Returns the tenant names
+        evicted by this call (also appended to ``self.evictions`` for the
+        service's counters)."""
+        dropped: List[str] = []
+        while self.total_bytes() > self.budget_bytes:
+            victim = next(
+                (t for t in self.tenants if t not in active), None
+            )
+            if victim is None:
+                break
+            del self.tenants[victim]
+            dropped.append(victim)
+        self.evictions.extend(dropped)
+        return dropped
+
+    def drop(self, tenant: str) -> None:
+        self.tenants.pop(tenant, None)
+
+    # ---------------------------------------------------------- reporting
+    def footprint(self) -> Dict[str, int]:
+        """Per-tenant resident bytes: the karpenter_service_resident_bytes
+        truth, and the consumer-labeled observatory report."""
+        return {t: e.nbytes for t, e in self.tenants.items()}
+
+    def report_footprint(self) -> None:
+        OBSERVATORY.set_resident_footprint(
+            self, {f"tenant:{t}": b for t, b in self.footprint().items()}
+        )

@@ -168,7 +168,13 @@ class _RemovalBase:
 
 class TorchScheduler:
     """Drop-in replacement for the oracle `Scheduler` backed by the pack
-    kernel.  ``device`` defaults to the card; tests pass ``"cpu"``."""
+    kernel.  ``device`` defaults to the card; tests pass ``"cpu"``.
+
+    ``pack_fn`` moves the device half of every solve elsewhere: a callable
+    with `ops.packer.run_pack`'s signature and result, such as a solver
+    sidecar's `RemoteSolver.pack_problem` (service/client.py).  With one
+    set, the resident tensors neither seed nor serve a solve (their
+    transfer contract is the in-process pack's)."""
 
     def __init__(
         self,
@@ -179,6 +185,7 @@ class TorchScheduler:
         zones: Sequence[str] = (),
         objective: str = "nodes",
         device=None,
+        pack_fn=None,
     ):
         self.pools = list(pools)
         self.instance_types = instance_types
@@ -187,8 +194,13 @@ class TorchScheduler:
         self.zones = list(zones)
         self.objective = objective
         self.device = resolve_device(device)
+        # the device half of the solve: None packs in this process on
+        # `device`; a sidecar's RemoteSolver.pack_problem solves remotely
+        self.pack_fn = pack_fn
         self.last_path = ""  # "tensor" | "oracle" | "hybrid"
-        self.last_kernel = ""  # "cuda_ffd" | "reference" | "" (oracle)
+        # "cuda_ffd" | "reference" | a pack_fn's kernel_name ("custom") |
+        # "" (oracle)
+        self.last_kernel = ""
         self.last_compile_relaxed = 0  # pods relaxed on the compiled rows
         # prebuilt config-axis tensors, keyed by the identities of every
         # input (the instance-type provider returns NEW lists on change);
@@ -338,7 +350,7 @@ class TorchScheduler:
             # the device tensors, no delta needed
             resident = (
                 self._resident.match(prob, self.device)
-                if prob is not None
+                if prob is not None and self.pack_fn is None
                 else None
             )
             if resident is not None:
@@ -637,11 +649,19 @@ class TorchScheduler:
 
         ``pack_fn`` overrides the upload pack for this one solve: the
         resident path passes its pack over the device tensors, whose
-        overflow retry falls back to the upload path."""
-        eff_pack = pack_fn if pack_fn is not None else self._upload_pack
+        overflow retry falls back to the upload path.  The scheduler's own
+        ``pack_fn`` (a sidecar's) takes every solve, retries included."""
+        eff_pack = (
+            pack_fn if pack_fn is not None
+            else self.pack_fn if self.pack_fn is not None
+            else self._upload_pack
+        )
         with phase("dispatch"), TRACER.span("solver.pack"):
             outs = eff_pack(prob, objective=self.objective)
-        self.last_kernel = last_kernel_name(self.device)
+        self.last_kernel = (
+            last_kernel_name(self.device) if self.pack_fn is None
+            else getattr(self.pack_fn, "kernel_name", "custom")
+        )
         if overlap is not None:
             overlap()
         with phase("device_block"), TRACER.span("solver.fetch"):

@@ -1,0 +1,21 @@
+"""Solver sidecar: the distributed boundary between the controller half
+and the accelerator half (SURVEY.md §5 north-star).  With
+``multi_tenant`` on, the same process is the fleet-serving SolverService
+(docs/designs/solver-service.md).  Port of ``karpenter_tpu/service/``:
+the solver service alone; the cluster store's server and clients are not
+ported (ROADMAP A3e)."""
+
+from karpenter_tpu_torch.service.client import (
+    RemoteSolver,
+    SolverBusyError,
+    SolverUnavailableError,
+)
+from karpenter_tpu_torch.service.server import SolverServer, SolverService
+
+__all__ = [
+    "RemoteSolver",
+    "SolverBusyError",
+    "SolverServer",
+    "SolverService",
+    "SolverUnavailableError",
+]

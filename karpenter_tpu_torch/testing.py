@@ -177,6 +177,68 @@ def wrap_arrays(k_slots: int = 256, classes: int = 10, at: int = 0) -> tuple:
             used0, cfg0, npods0, at + E, sig0)
 
 
+FLEET_CASES = ("dyadic", "inexact", "wrap")
+
+
+def fleet_tenant_arrays(case: str, seed: int, k_slots: int = 64) -> tuple:
+    """One tenant's pack inputs (numpy, in `pack_reference`'s order) for a
+    fleet pack: tenants of one case share every shape (G 24, C 64, R 4, S
+    4; wrap: `wrap_arrays`' shapes) and differ, by ``seed``, in every array
+    and in the first free slot.
+
+    - ``dyadic``: requests in multiples of 0.25 (binary floats hold every
+      sum exactly), sparse feasibility, unopenable configs, 2 to 6
+      prefilled slots, capped classes sharing signature rows;
+    - ``inexact``: the same with requests in multiples of 0.05 vCPU (config
+      2's sizes, which binary floats hold inexactly) and counts in the
+      hundreds, so ``used + take * req`` rounds;
+    - ``wrap``: `wrap_arrays` (int32 sums that wrap) with the prefilled
+      slots at ``seed % 4``, and the prices and the counts of its last two
+      classes drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    if case == "wrap":
+        args = list(wrap_arrays(k_slots, at=seed % 4))
+        C = args[5].shape[0]
+        args[6] = (np.arange(1, C + 1) * 0.1 + rng.random(C) * 0.01).astype(np.float32)
+        args[1] = args[1].copy()
+        args[1][8] += rng.integers(0, 100)
+        args[1][9] += rng.integers(0, 8)
+        return tuple(args)
+    G, C, R, S, K = 24, 64, 4, 4, k_slots
+    if case == "dyadic":
+        req = rng.choice([0.0, 0.25, 0.5, 1.0, 1.5, 3.0], size=(G, R)).astype(np.float32)
+        req[:, 0] = np.maximum(req[:, 0], 0.25)
+        cnt = rng.integers(0, 40, G).astype(np.int32)
+        alloc = (rng.integers(1, 17, (C, R)) * 0.5).astype(np.float32)
+    elif case == "inexact":
+        req = (0.05 * rng.integers(1, 81, (G, R))).astype(np.float32)
+        cnt = rng.integers(0, 400, G).astype(np.int32)
+        alloc = (rng.integers(1, 17, (C, R)) * 4 + np.float32(0.45)).astype(np.float32)
+    else:
+        raise ValueError(f"unknown fleet case {case!r}")
+    maxper = np.where(rng.random(G) < 0.3, rng.integers(1, 4, G), 2**30).astype(np.int32)
+    slot = rng.integers(0, S, G).astype(np.int32)
+    feas = rng.random((G, C)) < 0.6
+    price = (rng.random(C) * 3 + 0.05).astype(np.float32)
+    openable = rng.random(C) < 0.85
+    E = int(rng.integers(2, 7))
+    used0 = np.zeros((K, R), np.float32)
+    cfg0 = np.full(K, -1, np.int32)
+    cfg0[:E] = rng.integers(0, C, E)
+    used0[:E] = alloc[cfg0[:E]] * rng.random((E, R)).astype(np.float32) * 0.5
+    npods0 = np.zeros(K, np.int32)
+    npods0[:E] = rng.integers(0, 5, E)
+    sig0 = np.zeros((S, K), np.int32)
+    sig0[:, :E] = rng.integers(0, 2, (S, E))
+    return (req, cnt, maxper, slot, feas, alloc, price, openable,
+            used0, cfg0, npods0, E, sig0)
+
+
+def fleet_columns(tenants: Sequence[tuple]) -> tuple:
+    """B tenants' argument tuples as the fleet pack's 13 columns."""
+    return tuple(tuple(t[i] for t in tenants) for i in range(13))
+
+
 def _quad_config(m: int, t: int, i: int) -> int:
     """The config that thread ``t`` of the ``choose_config`` kernel (256
     threads) holds as config ``i`` of its ``m``-th quad: quads t, t + 256,

@@ -103,13 +103,20 @@ def test_kernels_line_rows():
     the problem whose shapes pick it, the frontier-window scan at phase
     9's base, `verdict_rows`' three launches and
     the prologue's at ``live``, those four in place of the JAX package's
-    verdict epilogue and prologue), then phase 8's admission score; phase 4
-    times the cluster sizes the rule does not pick."""
+    verdict epilogue and prologue), then phase 8's admission score, then
+    phase 11's fleet launches (the choice and the picked scan at the config
+    2 service cell, the cluster and global scans at the live cluster's
+    tenants, all in place of the JAX package's ``fleet_pack_kernel``);
+    phase 4 times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
         "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
-        "population_pairs", "admit_kernel")
+        "population_pairs", "admit_kernel", "choose_config_fleet", "ffd_scan_fleet",
+        "ffd_scan_cluster_fleet", "ffd_scan_global_fleet")
+    assert chip_smoke.KERNELS[-4:] == chip_smoke.FLEET_KERNELS
+    assert chip_smoke.FLEET_REPLACES == "karpenter_tpu/ops/packer.py:930"
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_fleet"] == "service-16-config2"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_window_batched"] == "consolidation"
     assert chip_smoke.ROW_PROBLEM["admit_kernel"] == "arrivals"
     assert chip_smoke.ADMIT_REPLACES == "karpenter_tpu/ops/packer.py:197"
@@ -183,15 +190,16 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "8"], 8),
     (["--through", "9"], 9),
     (["--through", "10"], 10),
+    (["--through", "11"], 11),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10"])
+    "argv8-9", "argv9-10", "argv10-11"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "11"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "12"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -212,7 +220,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "11"],
+        [sys.executable, "chip_smoke.py", "--through", "12"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -576,3 +584,29 @@ def test_phase10_sim_run_on_the_cpu():
         chip_smoke.sim_checks("anchor-6600-density", run)  # 2 nodes, not 60
     assert chip_smoke.sim_run("anchor-6600-density-smoke", 1, 12, "cpu")["trace"] == run["trace"]
     assert [c[0] for c in chip_smoke.SIM_CELLS][-2:] == list(chip_smoke.ANCHOR_NODES)
+
+
+def test_phase11_service_cell_on_the_cpu():
+    """Phase 11's cell at a small size on the CPU: four bench tenants of 24
+    pods in one solve group, their bursts through the multi-tenant server
+    equal to the sidecar's answers, the batched path taken, the rounds
+    timed and the pool's bytes read."""
+    probs = chip_smoke.bench_tenants(4, 24)
+    r = chip_smoke.service_cell("bench-small", probs, "cpu", rounds=2)
+    assert r["mismatches"] == 0 and r["batched"] > 0
+    assert r["info"] == {"platform": "cpu", "device_count": 1, "multi_tenant": True}
+    assert len(r["concurrent_ms"]) == len(r["sequential_ms"]) == 2
+    assert r["speedup_vs_sidecars"] > 0 and r["pool_bytes"] > 0
+    assert max(r["batch_sizes"]) >= 2
+
+
+def test_phase11_config2_tenants_form_one_group():
+    """Config 2's fleet cell: its tenants (seeded 95 % subsets) compile to
+    one solve group at config 2's shapes; tenants of other shapes fail the
+    phase instead of running solo."""
+    probs = chip_smoke.config2_tenants(4)
+    key = chip_smoke.one_group("service-16-config2", probs)
+    assert key[:2] == (256, "nodes") and key[2] == ((320, 6), "<f4")
+    mixed = dict(probs, other=next(iter(chip_smoke.bench_tenants(1, 8).values())))
+    with pytest.raises(SystemExit):
+        chip_smoke.one_group("mixed", mixed)

@@ -18,7 +18,12 @@ scan for the elements that leave its window; on each of
 elements whose frontier stays within W.  The admission score (``admit_kernel``) is held to its plain version
 on every class of the wrap case, of config 2 over 4096 slots, of each of
 ``testing.admit_edge_arrays``' cases and of a resident state, and a fast-path operator drive on the card to the CPU's;
-an operator drive that consolidates on the card, to the CPU's.
+an operator drive that consolidates on the card, to the CPU's.  The fleet
+pack (``fused_packer.fleet_pack``) is held to its plain version and to one
+solo ``ffd_pack`` a tenant on ``testing.fleet_tenant_arrays``' cases and on
+config 2 as four tenants (the resident and the cluster scan, and the
+global scan through ``scan=``), and a multi-tenant solver server on the
+card to a dedicated sidecar.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -692,3 +697,109 @@ def test_consolidation_operator_on_card_matches_cpu(cuda_device):
     assert card == cpu
     assert sum(dict(card["counters"]["karpenter_deprovisioning_actions"]).values()) >= 1
     assert not card["counters"]["karpenter_consolidation_verdict_mismatch_total"]
+
+
+# ------------------------------------------------------------- fleet pack
+def _fleet_case(case: str) -> list:
+    """The tenants (host arguments) of a fleet case: ``testing``'s fleet
+    tenants (dyadic, inexact, wrap at 256 slots) at B 1, 3 or 4, or config
+    2 at scale 0.1 as four tenants whose counts and live usage are seeded
+    apart, at its own slots (resident scan) or over 4096 (cluster scan)."""
+    kind, _, rest = case.partition("-")
+    if kind != "heterogeneous":
+        B = int(rest)
+        k = 256 if kind == "wrap" else 64
+        return [T.fleet_tenant_arrays(kind, 30 + b, k) for b in range(B)]
+    base = list(_case(case))
+    out = []
+    for b in range(4):
+        rng = np.random.default_rng(40 + b)
+        args = list(base)
+        args[1] = (base[1] - np.floor(base[1] * rng.uniform(0, 0.2, base[1].shape))).astype(np.int32)
+        args[6] = (base[6] * np.float32(1 + 0.01 * b)).astype(np.float32)
+        out.append(tuple(args))
+    return out
+
+
+# case -> the scan the shapes pick
+FLEET_CASES = {
+    "dyadic-1": "ffd_scan", "dyadic-3": "ffd_scan", "dyadic-4": "ffd_scan",
+    "inexact-4": "ffd_scan", "wrap-4": "ffd_scan",
+    "heterogeneous": "ffd_scan", "heterogeneous-4096": "ffd_scan_cluster",
+}
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("case", list(FLEET_CASES))
+def test_fleet_pack_matches_reference_and_solo(cuda_device, case, objective):
+    """Each tenant's row of the fleet pack equals the plain version and a
+    solo `ffd_pack` of its tenant, bit for bit; one launch of each fleet
+    kernel."""
+    tenants = [to_device(t, cuda_device) for t in _fleet_case(case)]
+    cols = T.fleet_columns(tenants)
+    K = tenants[0][8].shape[0]
+    got, moved = _launch_moves(
+        lambda: fused_packer.fleet_pack(cols, k_slots=K, objective=objective))
+    assert moved == {"choose_config_fleet": 1, f"{FLEET_CASES[case]}_fleet": 1}, moved
+    from karpenter_tpu_torch.ops.packer import fleet_pack_reference
+
+    _assert_bit_equal(got, fleet_pack_reference(cols, k_slots=K, objective=objective))
+    solo = [fused_packer.ffd_pack(*t, objective=objective) for t in tenants]
+    _assert_bit_equal(got, tuple(torch.stack(o) for o in zip(*solo)))
+
+
+def test_fleet_pack_global_scan(cuda_device):
+    tenants = [to_device(t, cuda_device) for t in _fleet_case("heterogeneous-4096")]
+    cols = T.fleet_columns(tenants)
+    got, moved = _launch_moves(
+        lambda: fused_packer.fleet_pack(cols, k_slots=4096, scan="ffd_scan_global"))
+    assert moved == {"choose_config_fleet": 1, "ffd_scan_global_fleet": 1}, moved
+    solo = [fused_packer.ffd_pack(*t) for t in tenants]
+    _assert_bit_equal(got, tuple(torch.stack(o) for o in zip(*solo)))
+
+
+def test_solver_service_on_card_matches_sidecar(cuda_device):
+    """Barrier-released tenants through a multi-tenant server on the card
+    get the dedicated sidecar's answers; the batched path ran."""
+    import socket
+    import threading
+
+    from karpenter_tpu_torch.service import RemoteSolver, SolverServer
+    from karpenter_tpu_torch.service.codec import decode, encode, recv_frame, send_frame
+    from karpenter_tpu_torch.service.server import PACK_ARG_ORDER
+
+    probs = {f"t{b}": T.fleet_tenant_arrays("dyadic", 60 + b) for b in range(4)}
+    legacy = SolverServer(port=0, device="cuda").start_background()
+    srv = SolverServer(port=0, multi_tenant=True, device="cuda").start_background()
+    try:
+        def solve(address, tenant, args):
+            arrays = {n: np.asarray(a) for n, a in zip(PACK_ARG_ORDER, args)}
+            with socket.create_connection(address) as sock:
+                send_frame(sock, encode({"method": "pack", "k_slots": 64, "tenant": tenant},
+                                        arrays))
+                header, out = decode(recv_frame(sock))
+            assert header["status"] == "ok", header
+            return out
+
+        want = {t: solve(legacy.address, "", a) for t, a in probs.items()}
+        assert RemoteSolver(*srv.address).info()["platform"] == "cuda"
+        for _ in range(5):
+            barrier, got = threading.Barrier(len(probs)), {}
+
+            def worker(t):
+                barrier.wait(timeout=30)
+                got[t] = solve(srv.address, t, probs[t])
+
+            threads = [threading.Thread(target=worker, args=(t,)) for t in probs]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            for t in probs:
+                for name, v in want[t].items():
+                    np.testing.assert_array_equal(got[t][name], v, err_msg=f"{t} {name}")
+        batched = sum(d["batched"] for d in srv.tenants_payload()["tenants"].values())
+        assert batched > 0
+    finally:
+        srv.stop()
+        legacy.stop()

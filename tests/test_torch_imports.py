@@ -16,7 +16,11 @@ diagnosis layer, the simulator and the load harness (every module of
 ``obs/``, ``state/wire.py``, ``sim/`` and ``load/``): a short ``steady``
 run through the ``sim`` subcommand with its trace replayed, an operator
 with ``flight_dir`` whose flight dump goes through the ``doctor`` and
-``obs`` subcommands."""
+``obs`` subcommands; then the solver service (``service/``,
+``state/binwire.py``): a multi-tenant ``SolverServer(device="cpu")`` whose
+tenants solve through ``RemoteSolver`` (a fleet pack of two tenants forced
+through ``_run_batch``) and a ``TorchScheduler(pack_fn=...)`` packing
+through it."""
 
 import pathlib
 import subprocess
@@ -160,6 +164,39 @@ with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     assert entry(["doctor", dump]) == 0
     assert entry(["obs", dump]) == 0
 assert "suspected causes" in out.getvalue()
+# the solver service: two tenants' solves as one fleet pack, then a
+# scheduler packing through the sidecar
+from karpenter_tpu_torch.ops.packer import run_pack
+from karpenter_tpu_torch.ops.tensorize import compile_problem
+from karpenter_tpu_torch.service import RemoteSolver, SolverServer
+from karpenter_tpu_torch.service.server import PACK_ARG_ORDER, _Pending
+from karpenter_tpu_torch.ops.packer import pad_problem
+from karpenter_tpu_torch.state import binwire  # noqa: F401
+
+env = T.Environment(device="cpu")
+pool = env.default_node_pool()
+env.default_node_class()
+types = env.instance_types.list(pool, env.kube.get_node_class("default"))
+probs = [compile_problem([Pod(requests=Resources(cpu=c, memory="1Gi")) for _ in range(12)],
+                         [pool], {pool.name: types}) for c in (0.5, 2)]
+srv = SolverServer(port=0, multi_tenant=True, device="cpu").start_background()
+try:
+    pend = []
+    for i, prob in enumerate(probs):
+        args, kp = pad_problem(prob)
+        pend.append(_Pending(f"t{i}", list(args), kp, "nodes"))
+    srv._run_batch(pend)
+    for p, prob in zip(pend, probs):
+        take = p.future.result(timeout=60)[0]
+        assert (take == run_pack(prob, device="cpu").take).all()
+    c = RemoteSolver(*srv.address, tenant="t0")
+    sched = karpenter_tpu_torch.TorchScheduler([pool], {pool.name: types}, device="cpu",
+                                               pack_fn=c.pack_problem)
+    result = sched.solve([Pod(requests=Resources(cpu=1, memory="1Gi")) for _ in range(30)])
+    assert sched.last_kernel == "custom" and not sched.last_resident
+    c.close()
+finally:
+    srv.stop()
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

@@ -13,8 +13,9 @@ text) replacements made in the source after the rename, for what the port
 says in its own words (each port file names them).
 
 `on_the_cpu` is the fixture those files use: the reference tests build
-their operators and schedulers without naming a device, and the port's
-default is the card, so it maps an unnamed device to the CPU for the test.
+their operators, schedulers, solver servers and packs without naming a
+device, and the port's default is the card, so it maps an unnamed device
+to the CPU for the test.
 """
 
 import pathlib
@@ -67,13 +68,18 @@ def port_tests(ref_file: str, left_out=(), only=None, text=()) -> dict:
 
 @pytest.fixture
 def on_the_cpu(monkeypatch):
-    """An operator or scheduler built without a device runs on the CPU."""
+    """An operator, scheduler, solver server (and its tenant pool) or pack
+    (``ops/packer.py``'s `run_pack`) built without a device runs on the
+    CPU."""
     from karpenter_tpu_torch import operator
-    from karpenter_tpu_torch.ops import packer
+    from karpenter_tpu_torch.ops import packer, resident
     from karpenter_tpu_torch.scheduling import solver
+    from karpenter_tpu_torch.service import server
+
+    card_default = packer.resolve_device
 
     def resolve(device=None):
-        return packer.resolve_device("cpu" if device is None else device)
+        return card_default("cpu" if device is None else device)
 
-    monkeypatch.setattr(operator, "resolve_device", resolve)
-    monkeypatch.setattr(solver, "resolve_device", resolve)
+    for mod in (operator, solver, packer, resident, server):
+        monkeypatch.setattr(mod, "resolve_device", resolve)

@@ -33,6 +33,7 @@ DISPATCH_NAMES = {
     "population_verdict_kernel": "population_verdicts",
     "resident_delta": "resident_delta",
     "admit_kernel": "admit_kernel",
+    "fleet_pack_kernel": "fleet_pack",
 }
 JAX_ONLY_DISPATCHES = ("bundle_outputs",)
 
