@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-11), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-12), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -247,10 +247,46 @@ Phases (each failure exits non-zero before the last line is printed):
    pool's bytes; then each fleet launch's device time at B 16
    (torch.profiler) beside 16 solo launches', the stack's time, both
    entry points' times a call, the plain version's, and the bounds.
+12. Two replicas failing over on one shared cluster store:
+   ``testing.HAHarness`` (one ``StoreServer``, two ``RemoteKubeStore``
+   clients negotiating ``bin1``, two operators with ``LeaderElector``s
+   over one fake cloud and clock) over phase 7's cell, both operators'
+   solvers on the card.  ``testing.ha_drive``: config 2's 10,000 pods
+   through replica A's client, rounds of 2 s (the clock, the kubelet,
+   each live replica's tick, the kubelet, both mirrors synced after
+   each) until every pod is bound under A, 3 churn rounds of 100 pods;
+   A crashes (stops ticking and renewing), the clock steps past the
+   lease and B takes over in a round with nothing pending, then 3 churn
+   rounds; B releases the lease and A, with its first term's resident
+   tensors and compile cache, leads 2 churn rounds.  The launch counters
+   are set to 0 just before the drive and read just after.  Fails unless
+   every launch came from the replica that led its round and no claim
+   launched twice, B launched nothing in its take-over round and saw
+   A's claims, no pod is pending, the consistency checker finds nothing,
+   every solve ran on the card and launched ``choose_config`` and a scan
+   (``ffd_scan_global`` none), after each solve the resident tensors
+   equal their host mirrors, each term's first solve equals a cold CPU
+   solve of its pods and live nodes, and the launch list, the ticks'
+   solve kinds, the server's canonical objects and each replica's
+   ``testing.operator_state`` equal the same drive on the CPU (in a
+   spawned process beside it, ``CpuTwins``).  Prints each tick, the tick
+   p50 by term, replica and solve kind beside phase 7's, the failover
+   (rounds and simulated seconds from the crash to B's first nomination,
+   B's first solve, A's first solve of its second term with its resident
+   hits and rebuilds), each replica's compile-cache hits and misses,
+   ``_flush_dirty`` ms (the harness wraps the method) and ``wait_synced``
+   ms, the store plane's RPCs by verb and bytes by codec, and launches by
+   replica.  Then a spawned process enables the runtime lock sanitizer
+   before it imports the port and runs the crash-and-take-over drive on
+   the card on the first 1,000 of config 2's pods with the lock watchdog
+   armed: zero findings and no watchdog fire, or the phase fails; it
+   prints the witness's locks and edges, the kernel wrappers' locks among
+   them.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
-``service_launches`` phase 11's over its cells' rounds), the card line,
+``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
+phase 12's over its card drive), the card line,
 and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -417,8 +453,14 @@ FLEET_LIVE_SEED, FLEET_WRAP_SEED, FLEET_ITERS = 23, 7, 20
 FLEET_KERNELS = ("choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
                  "ffd_scan_global_fleet")
 FLEET_REPLACES = "karpenter_tpu/ops/packer.py:930"
+# phase 12: two replicas over one shared cluster store, phase 7's cell
+# (config 2's pods, CHURN_PODS a churn round, testing.HA_CHURN_ROUNDS in the
+# three terms); the sanitized failover's first pods of config 2, its churn
+# rounds and pods, and the lock watchdog's stall bound
+HA_SANITIZED_PODS, HA_SANITIZED_ROUNDS, HA_SANITIZED_CHURN = 1000, (1, 1, 1), 10
+HA_WATCHDOG_STALL_S = 30.0
 
-LAST_PHASE = 11
+LAST_PHASE = 12
 
 
 def fail(msg: str) -> None:
@@ -2000,7 +2042,7 @@ def tick_p50s(ticks) -> dict:
 
 def operator_phase(torch, card):
     """Phase 7 as the module docstring lists it.  Returns the launch counts
-    of the card's drive."""
+    of the card's drive and its tick p50s by solve kind."""
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import fused_packer as F
 
@@ -2065,7 +2107,7 @@ def operator_phase(torch, card):
           f"({sum(card_state['event_counts'].values())} events, the last "
           f"{len(card_state['events'])} compared one by one) and solver counters equal "
           f"the CPU operator's")
-    return launches
+    return launches, tick_p50s(ticks)
 
 
 # ---------------------------------------------------------------------------
@@ -2517,9 +2559,10 @@ def admit_floor(torch, args, kernel_ms: float, card) -> dict:
 
 
 def cpu_twin_drives(phases, conn) -> None:
-    """The CPU drives phases 8-10 are held to, in a process of their own
-    (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries, phase 9's
-    drive and phase 10's scenarios, each sent back through ``conn`` as
+    """The CPU drives phases 8-10 and 12 are held to, in a process of their
+    own (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries, phase
+    9's drive, phase 10's scenarios and phase 12's failover drive, each
+    sent back through ``conn`` as
     ``(name, readings)``, or ``("error", text)``."""
     import traceback
 
@@ -2545,6 +2588,13 @@ def cpu_twin_drives(phases, conn) -> None:
         if 10 in phases:
             runs = {name: sim_run(name, seed, ticks, "cpu") for name, seed, ticks in SIM_CELLS}
             conn.send(("sim", runs))
+        if 12 in phases:
+            h = ha_harness("cpu")
+            try:
+                marks = ha_run(h)
+                conn.send(("ha", dict(ha_readings(h), seconds=marks["seconds"])))
+            finally:
+                h.close()
     except SystemExit as exc:
         conn.send(("error", f"exit {exc.code}"))
     except Exception:
@@ -2554,17 +2604,18 @@ def cpu_twin_drives(phases, conn) -> None:
 
 
 class CpuTwins:
-    """`cpu_twin_drives` for ``phases`` in a spawned process, started at
-    once so that it runs beside the card's drives; `get` waits for one
-    drive's readings, `close` ends the process."""
+    """`cpu_twin_drives` (or ``target``, with the same arguments) for
+    ``phases`` in a spawned process, started at once so that it runs beside
+    the card's drives; `get` waits for one drive's readings, `close` ends
+    the process."""
 
-    def __init__(self, phases):
+    def __init__(self, phases, target=None):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=cpu_twin_drives, args=(tuple(phases), child),
-                                 daemon=True)
+        self._proc = ctx.Process(target=target or cpu_twin_drives,
+                                 args=(tuple(phases), child), daemon=True)
         self._proc.start()
         child.close()
         self._got = {}
@@ -2574,9 +2625,9 @@ class CpuTwins:
             try:
                 key, value = self._conn.recv()
             except EOFError:
-                fail(f"the CPU drives' process ended before sending {name}")
+                fail(f"the spawned process ended before sending {name}")
             if key == "error":
-                fail(f"the CPU drives' process failed: {value}")
+                fail(f"the spawned process failed: {value}")
             self._got[key] = value
         return self._got[name]
 
@@ -3447,6 +3498,331 @@ def service_phase(torch, card, probs) -> dict:
     return {"rows": rows, "launches": launches, "cells": results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: two replicas failing over on one shared cluster store
+# ---------------------------------------------------------------------------
+
+
+def ha_harness(device: str, launches=None, on_tick=None, sanitized: bool = False):
+    """`testing.HAHarness` over phase 7's cell: config 2's catalog, its
+    ``general`` and tainted ``dedicated`` pools (consolidation held off),
+    the fast path, the pipelined reconcile and the drift gate off, both
+    replicas' solvers on ``device``.  ``sanitized`` sets the lock
+    sanitizer's settings and `HA_WATCHDOG_STALL_S`."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import Disruption, Settings
+    from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
+
+    extra = (dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=HA_WATCHDOG_STALL_S)
+             if sanitized else {})
+    settings = Settings(cluster_name="chip-smoke", enable_admission_fastpath=False,
+                        provision_fastpath_bypass=False, enable_pipelined_reconcile=False,
+                        feature_gate_drift=False, **extra)
+    h = T.HAHarness(device=device, shapes=generate_catalog(**T.CONFIG2_CATALOG),
+                    settings=settings, launches=launches, on_tick=on_tick)
+    h.default_node_class()
+    hold = lambda: Disruption(consolidate_after=HOLD_CONSOLIDATION_S)
+    h.node_pool("general", disruption=hold())
+    h.node_pool("dedicated", taints=[T.DEDICATED_TAINT], disruption=hold())
+    h.sync("pools")
+    for name, kube in h.kubes.items():
+        if kube._sock_codec != "bin1":
+            fail(f"phase 12: {name}'s client negotiated {kube._sock_codec!r}, not bin1")
+    return h
+
+
+def ha_run(h, n_pods: int = OPERATOR_PODS, churn_rounds=None, churn_pods: int = CHURN_PODS):
+    """The failover drive (`testing.ha_drive`) on config 2's first
+    ``n_pods`` pods, its invariants (`testing.ha_checks`) and the leader's
+    consistency checker.  Every failed check fails the phase."""
+    from karpenter_tpu_torch import testing as T
+
+    t0 = time.perf_counter()
+    try:
+        marks = T.ha_drive(h, T.heterogeneous_pods(n_pods), churn_pods=churn_pods,
+                           churn_rounds=churn_rounds or T.HA_CHURN_ROUNDS, seed=CHURN_SEED)
+        T.ha_checks(h, marks)
+        violations = T.ha_consistency(h)
+    except AssertionError as exc:
+        fail(f"phase 12 ({h.device}): {exc}")
+    if violations:
+        fail(f"phase 12 ({h.device}): consistency violations {violations[:3]}")
+    marks["seconds"] = time.perf_counter() - t0
+    return marks
+
+
+def ha_readings(h) -> dict:
+    """What the card's drive is held to: each replica's `operator_state`,
+    the launch list, the server's canonical store state, each tick's
+    (round, replica, led, solve kind)."""
+    from karpenter_tpu_torch import testing as T
+
+    return {
+        "state": {name: T.operator_state(h.view(name)) for name in T.HA_REPLICAS},
+        "launches": list(h.launches),
+        "store": h.store_state(),
+        "ticks": [(t["round"], t["replica"], t["led"], t["kind"]) for t in h.ticks],
+    }
+
+
+def store_plane(h) -> dict:
+    """The store plane's counters: each client's RPCs by verb (count and
+    summed seconds of ``karpenter_store_rpc_seconds``), its bytes by codec,
+    its watch resyncs; the server's requests by verb and bytes by codec."""
+    def by(reg, name, label):
+        return {dict(k).get(label, ""): v for k, v in sorted(reg.counters.get(name, {}).items())}
+
+    out = {}
+    for name, kube in h.kubes.items():
+        reg = kube.registry
+        rpcs = {dict(k).get("method", ""): {"n": hist.count, "s": hist.total}
+                for k, hist in sorted(reg.histograms.get("karpenter_store_rpc_seconds",
+                                                         {}).items())}
+        out[name] = {"rpcs": rpcs,
+                     "bytes_sent": by(reg, "karpenter_store_bytes_sent_total", "codec"),
+                     "bytes_received": by(reg, "karpenter_store_bytes_received_total", "codec"),
+                     "resyncs": dict(kube.watch_resyncs)}
+    reg = h.server.registry
+    out["server"] = {"requests": by(reg, "karpenter_store_requests_total", "method"),
+                     "bytes_sent": by(reg, "karpenter_store_bytes_sent_total", "codec"),
+                     "bytes_received": by(reg, "karpenter_store_bytes_received_total",
+                                          "codec")}
+    return out
+
+
+class HaCardChecks:
+    """The card drive's per-tick checks, as the harness's ``on_tick`` and
+    a wrapper of each replica's ``scheduler.solve``: every solve ran on the
+    card (``cuda_ffd``) and launched ``choose_config`` and a scan; after
+    each solve the resident state's card tensors equal their host mirrors
+    (`check_mirrors`); the first solve of each term equals a cold CPU
+    solve of the same pods and live nodes (`cpu_equal`), its time taken
+    out of the tick's.  Each tick record gains ``solve_ms`` and the
+    resident hits and rebuilds of its solve."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.excluded_ms = 0.0
+        self.firsts = set()
+        self.prev = {}
+
+    def wrap(self, h) -> None:
+        for name, op in h.ops.items():
+            sched = op.provisioner.scheduler
+            self.prev[name] = (sched.resident_hits, sched.resident_rebuilds)
+
+            def solve(pods, _solve=sched.solve, _name=name, _sched=sched):
+                pods = list(pods)
+                result = _solve(pods)
+                if (h.term, _name) not in self.firsts:
+                    self.firsts.add((h.term, _name))
+                    t0 = time.perf_counter()
+                    self.torch.cuda.synchronize()
+                    cpu_equal(f"phase 12 {_name}", f"term {h.term}'s first",
+                              (_sched.pools, _sched.instance_types, None, _sched.existing),
+                              pods, result)
+                    self.excluded_ms += (time.perf_counter() - t0) * 1e3
+                return result
+
+            sched.solve = solve
+
+    def __call__(self, h, rec) -> None:
+        name = rec["replica"]
+        sched = h.ops[name].provisioner.scheduler
+        rec["tick_ms"] -= self.excluded_ms
+        rec["check_ms"], self.excluded_ms = self.excluded_ms, 0.0
+        hits, rebuilds = self.prev[name]
+        self.prev[name] = (sched.resident_hits, sched.resident_rebuilds)
+        rec["resident_hits"] = sched.resident_hits - hits
+        rec["resident_rebuilds"] = sched.resident_rebuilds - rebuilds
+        if not rec["kind"]:
+            return
+        rec["solve_ms"] = sum(sched.last_phases.values()) * 1e3
+        if sched.last_kernel != "cuda_ffd":
+            fail(f"phase 12: {name} solved round {rec['round']} with {sched.last_kernel!r}")
+        got = rec["launches"]
+        if got.get("choose_config", 0) < 1 or sum(got.get(k, 0) for k in SCAN_KERNELS) < 1:
+            fail(f"phase 12: {name}'s solve in round {rec['round']} launched {got}")
+        if sched._resident.states:
+            self.torch.cuda.synchronize()
+            check_mirrors(self.torch, f"phase 12 {name} round {rec['round']}",
+                          sched._resident.states[-1])
+
+
+def ha_summary(h, marks) -> dict:
+    """Phase 12's readings: tick ms p50 by term and solve kind, the
+    failover (rounds and simulated seconds from A's crash to B's first
+    nomination; B's first solve; A's first solve of its second term),
+    each replica's compile-cache counters, ``_flush_dirty`` ms a tick
+    and ``wait_synced`` ms, and launches by kernel for each replica."""
+    ticks = h.ticks
+    by = {}
+    for t in ticks:
+        by.setdefault(f"{t['term']} {t['replica']} {t['kind'] or 'none'}", []).append(t["tick_ms"])
+    first_nom = next(t for t in ticks if t["term"] == "B1" and t["nominated"])
+    first = lambda term: next(t for t in ticks if t["term"] == term and t["kind"])
+    solve = lambda t: {k: t.get(k) for k in ("round", "kind", "solve_ms", "tick_ms",
+                                             "resident_hits", "resident_rebuilds",
+                                             "launches")}
+    launches = {}
+    for t in ticks:
+        per = launches.setdefault(t["replica"], {})
+        for k, v in t["launches"].items():
+            per[k] = per.get(k, 0) + v
+    return {
+        "tick_p50_ms": {k: {"p50_ms": statistics.median(v), "ticks": len(v)}
+                        for k, v in sorted(by.items())},
+        "failover": {"rounds": first_nom["round"] - marks["crash_round"],
+                     "sim_s": first_nom["clock"] - marks["crash_clock"],
+                     "b_first_solve": solve(first("B1")),
+                     "a_second_term_first_solve": solve(first("A2"))},
+        "compile_cache": {name: {"hits": op.provisioner.scheduler.compile_cache_hits,
+                                 "misses": op.provisioner.scheduler.compile_cache_misses}
+                          for name, op in h.ops.items()},
+        "flush_ms": {name: percentiles(v) for name, v in h.flush_ms.items()},
+        "flush_ms_by_term": {
+            term: percentiles([t["flush_ms"] for t in ticks if t["term"] == term])
+            for term in ("A1", "B1", "A2")},
+        "wait_synced_ms": percentiles(h.sync_ms),
+        "launches": launches,
+    }
+
+
+def sanitized_failover(_phases, conn) -> None:
+    """The crash-and-take-over drive under the runtime lock sanitizer, in
+    a process of its own: the sanitizer is enabled before the port is
+    imported, so every lock the port builds (the kernel wrappers' module
+    locks too) is wrapped; both operators arm the lock watchdog.  Sends
+    back the findings, the watchdog's fires, the witness's edge count and
+    its edges into the kernel wrappers' locks, or ``("error", text)``."""
+    import traceback
+
+    try:
+        from karpenter_tpu_torch.analysis import sanitizer
+
+        san = sanitizer.enable("chip-smoke")
+        import torch
+
+        from karpenter_tpu_torch.ops import fused_packer as F
+
+        h = ha_harness("cuda", sanitized=True)
+        fired = []
+        dogs = [op.watchdog for op in h.ops.values()]
+        if any(d is None for d in dogs):
+            raise RuntimeError("an operator armed no lock watchdog under the sanitizer")
+        for d in dogs:
+            d.on_stall = fired.append
+            d.start()
+        try:
+            F.reset_launches()
+            marks = ha_run(h, n_pods=HA_SANITIZED_PODS, churn_rounds=HA_SANITIZED_ROUNDS,
+                           churn_pods=HA_SANITIZED_CHURN)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in F.LAUNCHES.items() if v}
+        finally:
+            for d in dogs:
+                d.stop()
+            h.close()
+        sanitizer.disable()
+        w = san.witness()
+        wrapper_locks = {"_build._LOAD_LOCK", "fused_packer._LOCK"}
+        conn.send(("sanitized", {
+            "findings": [f.render() for f in san.findings()],
+            "fired": len(fired),
+            "locks": len(w.locks),
+            "edges": len(w.edges),
+            "wrapper_locks": sorted(wrapper_locks & set(w.locks)),
+            "wrapper_edges": [(e["outer"], e["inner"]) for e in w.edges
+                              if e["inner"] in wrapper_locks or e["outer"] in wrapper_locks],
+            "launches": launches,
+            "rounds": h.round_no,
+            "seconds": marks["seconds"],
+        }))
+    except SystemExit as exc:
+        conn.send(("error", f"exit {exc.code}"))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def ha_phase(torch, card, p50_7: dict) -> dict:
+    """Phase 12 as the module docstring lists it.  Returns the launch
+    counts of the card's drive."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    t_phase = time.perf_counter()
+    twins = CpuTwins((12,))
+    try:
+        checks = HaCardChecks(torch)
+        h = ha_harness("cuda", launches=F.LAUNCHES, on_tick=checks)
+        checks.wrap(h)
+        try:
+            F.reset_launches()
+            marks = ha_run(h)
+            torch.cuda.synchronize()
+            launches = dict(F.LAUNCHES)
+            got = dict(ha_readings(h), summary=ha_summary(h, marks), plane=store_plane(h))
+            solves = [t for t in h.ticks if t["kind"]]
+        finally:
+            h.close()
+        for t in h.ticks:
+            print("  tick " + json.dumps({k: t[k] for k in (
+                "round", "replica", "term", "led", "kind", "tick_ms", "flush_ms", "nominated",
+                "launches") if k in t} | {k: t[k] for k in ("solve_ms", "check_ms") if k in t}),
+                flush=True)
+        s = got["summary"]
+        print(f"  {h.round_no} rounds, {len(h.ticks)} ticks, {len(solves)} solves "
+              f"({', '.join(t['kind'] for t in solves)}) in {marks['seconds']!r} s; "
+              f"{len(h.launches)} launches, launches by kernel over the drive {launches}",
+              flush=True)
+        if launches["choose_config"] < len(solves) or launches["ffd_scan_global"]:
+            fail(f"phase 12: launches {launches} over {len(solves)} solves")
+        print(f"  tick p50 by term, replica and solve kind ({card}): "
+              f"{json.dumps(s['tick_p50_ms'])}")
+        print(f"  phase 7's tick p50 by solve kind, in process ({card}): {json.dumps(p50_7)}")
+        print(f"  failover: {json.dumps(s['failover'])}")
+        print(f"  compile cache by replica: {json.dumps(s['compile_cache'])}")
+        print(f"  _flush_dirty ms a call by replica: {json.dumps(s['flush_ms'])}; "
+              f"a tick by term: {json.dumps(s['flush_ms_by_term'])}")
+        print(f"  wait_synced ms: {json.dumps(s['wait_synced_ms'])}")
+        print(f"  store plane: {json.dumps(got['plane'])}")
+        print(f"  launches by replica: {json.dumps(s['launches'])}", flush=True)
+        print("  the sanitized failover on the card (a process of its own):", flush=True)
+        spawned = CpuTwins((), target=sanitized_failover)
+        try:
+            san = spawned.get("sanitized")
+        finally:
+            spawned.close()
+        print(f"    {HA_SANITIZED_PODS} pods, {san['rounds']} rounds in {san['seconds']!r} s: "
+              f"{len(san['findings'])} findings, {san['fired']} watchdog fires, "
+              f"{san['locks']} locks, {san['edges']} edges in the witness, the kernel "
+              f"wrappers' locks {san['wrapper_locks']} with edges {san['wrapper_edges']}; "
+              f"launches {san['launches']}", flush=True)
+        if san["findings"] or san["fired"]:
+            fail("phase 12: the sanitized failover found " + "; ".join(san["findings"])
+                 + f" ({san['fired']} watchdog fires)")
+        if not san["launches"].get("choose_config"):
+            fail(f"phase 12: the sanitized failover launched {san['launches']}")
+        cpu = twins.get("ha")
+    finally:
+        twins.close()
+    print(f"  the same drive on the CPU (plain version): {cpu['seconds']!r} s (beside the "
+          f"card's, in a process of its own)", flush=True)
+    for key in ("ticks", "launches", "store"):
+        if got[key] != cpu[key]:
+            fail(f"phase 12: the card's {key} differ from the CPU drive's")
+    for name, state in got["state"].items():
+        for key in state:
+            if state[key] != cpu["state"][name][key]:
+                fail(f"phase 12: {name}'s {key} differ from the CPU drive's")
+    print(f"  the card's launch list ({len(got['launches'])} launches), ticks, store state "
+          f"({sum(len(v) for v in got['store'].values())} objects) and each replica's "
+          f"operator state equal the CPU drive's; phase 12 took "
+          f"{time.perf_counter() - t_phase!r} s", flush=True)
+    return launches
+
+
 def observatory_totals() -> dict:
     from karpenter_tpu_torch.obs.device import OBSERVATORY
 
@@ -3683,7 +4059,7 @@ def main(argv) -> int:
     phase_done(6, through)
 
     print(f"[operator] the provisioning loop on the card, {card}", flush=True)
-    op_launches = operator_phase(torch, card)
+    op_launches, op_p50 = operator_phase(torch, card)
     phase_done(7, through)
 
     print(f"[arrivals] single-pod arrivals through the admission fast path, {card}", flush=True)
@@ -3705,6 +4081,10 @@ def main(argv) -> int:
 
     print(f"[service] the multi-tenant solver service on the card, {card}", flush=True)
     service = service_phase(torch, card, probs)
+    phase_done(11, through)
+
+    print(f"[ha] two replicas failing over on one shared cluster store, {card}", flush=True)
+    ha_launches = ha_phase(torch, card, op_p50)
     verdicts["ffd_scan_window_batched"].update(window_row, err=max(
         window_row["err"], verdicts["ffd_scan_window_batched"]["err"]))
 
@@ -3729,6 +4109,7 @@ def main(argv) -> int:
             "consolidation_launches": consolidation[k],
             "sim_launches": sim_launches.get(k, 0),
             "service_launches": service["launches"][k],
+            "ha_launches": ha_launches[k],
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -3750,6 +4131,7 @@ def main(argv) -> int:
             "consolidation_launches": consolidation[k],
             "sim_launches": sim_launches.get(k, 0),
             "service_launches": service["launches"][k],
+            "ha_launches": ha_launches[k],
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     kernels.append({
@@ -3771,6 +4153,7 @@ def main(argv) -> int:
         "consolidation_launches": consolidation["admit_kernel"],
         "sim_launches": sim_launches.get("admit_kernel", 0),
         "service_launches": service["launches"]["admit_kernel"],
+        "ha_launches": ha_launches["admit_kernel"],
         "call_ms": admit["call_ms"],
     })
     for k in FLEET_KERNELS:
@@ -3797,6 +4180,7 @@ def main(argv) -> int:
             "consolidation_launches": consolidation.get(k, 0),
             "sim_launches": sim_launches.get(k, 0),
             "service_launches": service["launches"][k],
+            "ha_launches": ha_launches.get(k, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

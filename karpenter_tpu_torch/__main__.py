@@ -7,12 +7,25 @@ reconciles ``--interval`` seconds apart on the wall clock, the
 Provisioner's solver on ``--device`` (the card unless ``cpu`` is asked
 for).  Each tick prints one JSON line: the tick's ``reconcile_once`` ms,
 the solves by kind (cold, hit or delta), the claims launched so far and
-the device observatory's tick section.  ``--solver-address host:port``
-moves the device half of every solve into a solver sidecar
-(``python -m karpenter_tpu_torch.service.server``): the Provisioner's
-scheduler packs through `RemoteSolver.pack_problem`.  The HTTP telemetry
-server's ``--metrics-port`` and the remote store are not ported (ROADMAP
-§A).
+the device observatory's tick section and whether this replica leads
+(``leading``: the ``karpenter_leader_election_leading`` gauge).
+``--solver-address host:port`` moves the device half of every solve into
+a solver sidecar (``python -m karpenter_tpu_torch.service.server``): the
+Provisioner's scheduler packs through `RemoteSolver.pack_problem`.
+
+``--store-address host:port`` makes the process a client of a shared
+cluster store (``store-server`` below; `state/remote.py`'s
+`RemoteKubeStore`), so several replicas share one durable state; a
+comma-separated list names a sharded store (keys partition across the
+servers in order, Leases pin to the first).  ``--leader-elect`` (on by
+default) takes the store's Lease before reconciling, and a replica that
+does not lead skips its ticks: run two replicas over one store and one of
+them reconciles.  With ``enable_lock_sanitizer`` in the settings
+(``--settings-file``, or ``KARPENTER_*`` variables), the runtime lock
+sanitizer is enabled before any store or provider is built, the operator
+arms the lock watchdog when ``lock_watchdog_stall_s`` is set, and the lock
+witness lands in ``witness.json`` (under ``flight_dir``) on exit.  The
+HTTP telemetry server's ``--metrics-port`` is not ported (ROADMAP A8).
 
 Subcommands, dispatched as the JAX package's entry point does:
 
@@ -20,11 +33,15 @@ Subcommands, dispatched as the JAX package's entry point does:
   card unless ``--device cpu``;
 - ``doctor``: the diagnosis of a flight-recorder dump (``obs/doctor.py``);
 - ``obs``: span dumps and simulator traces rendered as Chrome-trace JSON
-  (``obs/render.py``).
+  (``obs/render.py``);
+- ``store-server``: the shared cluster store (``service/store_server.py``)
+  that ``--store-address`` replicas share.
 
     python -m karpenter_tpu_torch --ticks 3 --device cpu
     python -m karpenter_tpu_torch --ticks 3 --device cpu --solver-address 127.0.0.1:7421
     python -m karpenter_tpu_torch sim --scenario steady --seed 3 --ticks 40 --device cpu
+    python -m karpenter_tpu_torch store-server --port 18097 &
+    python -m karpenter_tpu_torch --ticks 30 --store-address 127.0.0.1:18097 --leader-elect
 """
 
 from __future__ import annotations
@@ -32,16 +49,22 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import socket
 import sys
+import threading
 import time
 
 from karpenter_tpu_torch.api import NodeClass, NodePool, Pod, Resources, Settings
 from karpenter_tpu_torch.api.objects import SelectorTerm
 from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
+from karpenter_tpu_torch.metrics.registry import REGISTRY
 from karpenter_tpu_torch.obs.device import OBSERVATORY
 from karpenter_tpu_torch.operator import Operator, solve_kind, solver_counters
 from karpenter_tpu_torch.state.kube import KubeStore
 from karpenter_tpu_torch.utils.clock import Clock
+
+log = logging.getLogger("karpenter_tpu_torch")
 
 
 def main(argv=None) -> int:
@@ -58,6 +81,12 @@ def main(argv=None) -> int:
         from karpenter_tpu_torch.sim.cli import main as sim_main
 
         return sim_main(argv[1:])
+    if argv and argv[0] == "store-server":
+        # the shared cluster store: one durable KubeStore that
+        # --store-address replicas (and their Lease election) share
+        from karpenter_tpu_torch.service.store_server import main as store_main
+
+        return store_main(argv[1:])
     parser = argparse.ArgumentParser(prog="python -m karpenter_tpu_torch")
     parser.add_argument("--ticks", type=int, default=3, help="reconciles to run")
     parser.add_argument(
@@ -76,14 +105,74 @@ def main(argv=None) -> int:
         help="host:port of a solver sidecar (service/server.py) that packs "
         "every solve; default port 7421",
     )
+    parser.add_argument(
+        "--settings-file",
+        help="JSON settings file; KARPENTER_* env vars apply when omitted",
+    )
+    parser.add_argument(
+        "--store-address", default="",
+        help="host:port of a shared cluster-store server (`python -m "
+        "karpenter_tpu_torch store-server`; default port 8082): this "
+        "process becomes a store client so replicas share one durable "
+        "state and the Lease election is real.  A comma-separated list "
+        "names a sharded store: keys partition across the servers in "
+        "order, Leases pin to the first.  Without it the store is "
+        "in-process and each replica is a cluster of its own",
+    )
+    parser.add_argument(
+        "--leader-elect", action=argparse.BooleanOptionalAction, default=True,
+        help="take the store's Lease before reconciling; a replica that "
+        "does not lead skips its ticks",
+    )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
 
+    settings = (
+        Settings.from_file(args.settings_file) if args.settings_file
+        else Settings.from_env()
+    )
+    settings.validate()
+    # the runtime lock sanitizer: enabled BEFORE any store or provider is
+    # built, so every lock built through the seams is wrapped into the
+    # witness; the operator arms the deadlock watchdog when
+    # lock_watchdog_stall_s > 0, and the exit leaves the witness
+    sanitizer_mod = None
+    if settings.enable_lock_sanitizer:
+        from karpenter_tpu_torch.analysis import sanitizer as sanitizer_mod
+
+        sanitizer_mod.enable("operator")
+
+    identity = f"{socket.gethostname()}-{os.getpid()}"
     clock = Clock()
     cloud = FakeCloud(clock, shapes=generate_catalog()).with_default_topology()
-    kube = KubeStore()
-    settings = Settings()
-    operator = Operator(cloud, kube, settings=settings, device=args.device)
+    if args.store_address:
+        from karpenter_tpu_torch.state.remote import RemoteKubeStore
+
+        addresses = []
+        for addr in args.store_address.split(","):
+            host, _, port = addr.strip().partition(":")
+            addresses.append((host, int(port) if port else 8082))
+        # the client half of the store plane (karpenter_store_rpc_seconds,
+        # the byte counters, StoreResync events) lands in the process
+        # registry the operator uses
+        kube = RemoteKubeStore(
+            addresses[0][0],
+            addresses[0][1],
+            identity=identity,
+            codec=settings.store_codec,
+            registry=REGISTRY,
+            events_cap=settings.store_events_cap,
+            shards=addresses if len(addresses) > 1 else None,
+        )
+    else:
+        kube = KubeStore()
+    elector = None
+    if args.leader_elect:
+        from karpenter_tpu_torch.utils.leader import LeaderElector
+
+        elector = LeaderElector(kube, cloud.clock, identity=identity)
+    operator = Operator(cloud, kube, settings=settings, elector=elector,
+                        device=args.device)
     kube.put_node_class(
         NodeClass(
             name="default",
@@ -93,9 +182,12 @@ def main(argv=None) -> int:
     )
     kube.put_node_pool(NodePool(name="default", node_class_ref="default"))
     for i in range(args.pods):
-        kube.put_pod(
-            Pod(name=f"demo-{i}", requests=Resources(cpu=0.25, memory=512 * 2**20))
-        )
+        # a replica joining a shared store leaves the demo pods already
+        # there (and their bindings) as they are
+        if f"default/demo-{i}" not in kube.pods:
+            kube.put_pod(
+                Pod(name=f"demo-{i}", requests=Resources(cpu=0.25, memory=512 * 2**20))
+            )
 
     scheduler = operator.provisioner.scheduler
     if args.solver_address:
@@ -105,6 +197,39 @@ def main(argv=None) -> int:
         # default port matches service/server.py's listener
         remote = RemoteSolver(host, int(port)) if port else RemoteSolver(host)
         scheduler.pack_fn = remote.pack_problem
+    stop = threading.Event()
+    if elector is not None:
+        # keep the lease fresh through ticks longer than its duration
+        elector.start_background_renewal(stop)
+    if operator.watchdog is not None:
+        operator.watchdog.start()
+    try:
+        _tick_loop(args, operator, kube, clock, scheduler)
+    finally:
+        stop.set()
+        if operator.watchdog is not None:
+            operator.watchdog.stop()
+        if elector is not None:
+            # graceful handoff: free the Lease so the standby takes over
+            # at once instead of waiting out the expiry
+            elector.release()
+        if hasattr(kube, "close"):  # store client: stop the watch stream
+            kube.close()
+    if sanitizer_mod is not None:
+        san = sanitizer_mod.disable()
+        witness = san.witness()
+        directory = settings.flight_dir or "."
+        os.makedirs(directory, exist_ok=True)
+        path = witness.dump(os.path.join(directory, "witness.json"))
+        log.warning(
+            "lock witness %s -> %s (%d finding(s), %d edge(s))",
+            witness.fingerprint, path, len(witness.findings),
+            len(witness.edges),
+        )
+    return 0
+
+
+def _tick_loop(args, operator, kube, clock, scheduler) -> None:
     for tick in range(args.ticks):
         before = solver_counters(scheduler)
         t0 = time.perf_counter()
@@ -116,6 +241,7 @@ def main(argv=None) -> int:
             "ms": round(ms, 3),
             "solves": {kind: 1} if kind else {},
             "kernel": scheduler.last_kernel if kind else "",
+            "leading": operator.elector is None or operator.elector.leading,
             "claims": len(kube.node_claims),
             "pending": len(kube.pending_pods()),
             "device": OBSERVATORY.tick_section(),
@@ -123,7 +249,6 @@ def main(argv=None) -> int:
         }), flush=True)
         if tick + 1 < args.ticks:
             clock.sleep(args.interval)
-    return 0
 
 
 if __name__ == "__main__":

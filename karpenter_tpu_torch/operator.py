@@ -25,11 +25,23 @@ prices every 12 h, and runs the reference's diagnosis tail
 (`_observe_tick`): the tick histogram, the observatory's counters into the
 registry, the SLO engine (`obs/slo.py`), the anomaly detector
 (`obs/detect.py`) and the flight recorder (`obs/flight.py`), dumped under
-``flight_dir`` on a fresh breach, a controller crash or a request.  Not
-ported here, each an item of ROADMAP §A: the span dump under
-``profile_dir``, the lock watchdog and leader election.  The constructor
-refuses the settings that would ask for one of them (`_refuse_unported`),
-so none is accepted and then ignored.
+``flight_dir`` on a fresh breach, a controller crash or a request.
+
+With an ``elector`` (`utils/leader.py`'s `LeaderElector`, over the Lease
+of the shared cluster store, ``state/remote.py``) every tick first
+acquires or renews the lease and a replica that does not lead skips the
+tick, exporting ``karpenter_leader_election_leading``; the elector's
+identity goes into the tick's trace ID, and the pipeline's gate stops the
+tick before any further controller stage once the lease is lost.  With the
+runtime lock sanitizer enabled (``analysis/sanitizer.py``, turned on by
+the entry point from ``enable_lock_sanitizer`` before any store is built)
+and ``lock_watchdog_stall_s`` set, the operator arms the deadlock watchdog
+(`LockWatchdog`), whose report dumps the lock witness beside a flight
+record.  Not ported here (ROADMAP A8): the span dump under
+``profile_dir``, and the blocking `run` / `stop` loop (the entry point
+runs its own loop and starts the watchdog and the lease renewal itself).
+The constructor refuses the setting that would ask for the span dump
+(`_refuse_unported`), so it is not accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -95,10 +107,17 @@ class Operator:
         clock: Optional[Clock] = None,
         registry: Registry = REGISTRY,
         batch_windows: Optional[dict] = None,
+        elector=None,
         device=None,
     ):
         self.cloud = cloud
         self.kube = kube
+        # leader election (utils/leader.py): with an elector, every tick
+        # first acquires-or-renews the Lease and a non-leading replica
+        # skips reconciling entirely — the reference gets the same from
+        # controller-runtime leader election over a coordination/v1 Lease
+        # (its chart ships replicas: 2 on that basis)
+        self.elector = elector
         self.settings = settings or Settings()
         self.settings.validate()
         _refuse_unported(self.settings)
@@ -139,6 +158,23 @@ class Operator:
             self.clock, registry, ledger=self.ledger, tracer=self.tracer,
             capacity=self.settings.flight_ticks,
         )
+        # deadlock watchdog (analysis/sanitizer.py LockWatchdog): armed
+        # only when the runtime lock sanitizer is active (the entrypoint
+        # enables it from Settings.enable_lock_sanitizer BEFORE the
+        # stores are built, so their locks are wrapped) — it reads the
+        # sanitizer's live holder table and dumps the lock graph plus a
+        # flight record when every holder wedges past the stall bound
+        self.watchdog = None
+        if self.settings.lock_watchdog_stall_s > 0:
+            from karpenter_tpu_torch.analysis import sanitizer as _sanitizer
+
+            san = _sanitizer.current()
+            if san is not None:
+                self.watchdog = _sanitizer.LockWatchdog(
+                    san,
+                    self.settings.lock_watchdog_stall_s,
+                    self._on_lock_stall,
+                )
         # device observatory (obs/device.py): launch/transfer/resident
         # telemetry behind the kernel wrappers.  Process-global like the
         # tracer; the diagnosis tail exports its per-tick deltas into this
@@ -349,15 +385,37 @@ class Operator:
 
     def reconcile_once(self) -> None:
         """One tick of every control loop, in a stable order: status
-        resolution, provisioning, lifecycle, events, disruption, cleanup."""
+        resolution, provisioning, lifecycle, events, disruption, cleanup.
+
+        With an elector, a replica that does not hold the lease skips the
+        tick (idle-watch): two live replicas must never both reconcile, or
+        every NodeClaim would double-launch."""
+        if self.elector is not None:
+            leading = self.elector.acquire_or_renew()
+            self.registry.set(
+                "karpenter_leader_election_leading",
+                1.0 if leading else 0.0,
+                {"identity": self.elector.identity},
+            )
+            if not leading:
+                return
+
         # mint this tick's trace ID: every controller span, solver phase,
-        # retry attempt and ledger event below correlates on it
+        # retry attempt, ledger event and store RPC below correlates on
+        # it.  Minted only for ticks that actually reconcile
         self._tick_seq += 1
-        set_tick(mint_trace_id(self._tick_seq, ""))
+        set_tick(
+            mint_trace_id(
+                self._tick_seq,
+                self.elector.identity if self.elector is not None else "",
+            )
+        )
         # tick boundary for the device observatory: new launch signatures
         # from here on count warm for any function launched in an earlier
         # tick, and the tick sections delta against this point
         OBSERVATORY.begin_tick(self._tick_seq)
+        # the diagnosis tail runs even when the tick abdicates or a
+        # controller layer raises: a minted tick is a recorded tick
         t0 = time.perf_counter()
         try:
             self._run_controllers()
@@ -368,12 +426,21 @@ class Operator:
         # re-arm the shared cloud-API retry budget for this tick
         self.retrying.begin_tick()
 
+        # mid-tick abdication gate: the background renewal thread flips
+        # `leading` False the moment the lease is lost, and the tick
+        # stops before the next stage mutates anything.  The
+        # still_leading() gate also self-fences a WEDGED renewal
+        # thread: once the lease could have expired, the standby may
+        # legitimately hold it, so this replica must stop writing
+        def gate() -> bool:
+            return self.elector is None or self.elector.still_leading()
+
         # a controller inside its crash-requeue backoff window is skipped
         def ready(name: str) -> bool:
             entry = self._ctrl_backoff.get(name)
             return entry is None or self.clock.now() >= entry[0]
 
-        if not self.pipeline.run(self._reconcile, lambda: True, ready):
+        if not self.pipeline.run(self._reconcile, gate, ready):
             return
         # 12h pricing refresh (reference pricing/controller.go:39-41).  The
         # provider degrades to last-good prices on API failure, and the
@@ -447,6 +514,30 @@ class Operator:
                 ", ".join(breaches), path,
             )
 
+    def _on_lock_stall(self, report: dict) -> None:
+        """Watchdog callback (runs on the watchdog thread): persist the
+        live lock graph next to a flight dump so the postmortem has both
+        WHO holds what and what the ticks around the stall looked
+        like."""
+        from karpenter_tpu_torch.analysis import sanitizer as _sanitizer
+
+        log.error(
+            "lock watchdog: every held lock stalled past %.1fs: %s",
+            report["stall_s"],
+            ", ".join(
+                f"{h['lock']}@{h['thread']}({h['held_s']}s)"
+                for h in report["holds"]
+            ),
+        )
+        directory = self.settings.flight_dir or "."
+        os.makedirs(directory, exist_ok=True)
+        san = _sanitizer.current()
+        if san is not None:
+            san.witness().dump(
+                os.path.join(directory, "witness-lock-stall.json")
+            )
+        self.dump_flight("lock_stall", directory=directory)
+
     def request_flight_dump(self, trigger: str) -> None:
         """Ask for a flight dump at the end of the current/next tick.
         Safe to call from a signal handler (a single attribute write); the
@@ -481,8 +572,6 @@ def _refuse_unported(settings: Settings) -> None:
             "profile_dir (the span dump and device trace under "
             "enable_profiling: ROADMAP A8)"
         )
-    if settings.lock_watchdog_stall_s > 0:
-        refused.append("lock_watchdog_stall_s (the lock watchdog: ROADMAP A3e)")
     if refused:
         raise ValueError(
             "not ported yet, so the port's operator refuses: " + "; ".join(refused)

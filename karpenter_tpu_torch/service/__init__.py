@@ -2,8 +2,11 @@
 and the accelerator half (SURVEY.md §5 north-star).  With
 ``multi_tenant`` on, the same process is the fleet-serving SolverService
 (docs/designs/solver-service.md).  Port of ``karpenter_tpu/service/``:
-the solver service alone; the cluster store's server and clients are not
-ported (ROADMAP A3e)."""
+the solver service, and the shared cluster store's server
+(``store_server.py``: `StoreServer`, `VersionedStore`, the
+``store-server`` subcommand), its shard router (``shardrouter.py``) and
+its watch client (``watchclient.py``); the store's client is
+``state/remote.py``'s `RemoteKubeStore`."""
 
 from karpenter_tpu_torch.service.client import (
     RemoteSolver,

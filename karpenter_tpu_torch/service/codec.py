@@ -10,8 +10,8 @@ blob.  Arrays travel as raw C-order bytes — no pickling (the sidecar must
 never execute peer-controlled payloads), no base64 inflation.
 
 A copy of ``karpenter_tpu/service/codec.py``: the blocking seam
-`note_blocking` comes from the port's ``utils/locks.py`` (a no-op there,
-as the reference's is in production).
+`note_blocking` comes from the port's ``utils/locks.py`` (the runtime lock
+sanitizer's seam, a branch when no sanitizer is enabled).
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ def decode_payload(payload: bytes, codec: str = CODEC_JSON) -> dict:
 
 def send_frame(sock: socket.socket, payload: bytes) -> None:
     # the blocking seam (utils/locks.py): socket frame I/O under a held
-    # lock is the convoy class the reference's sanitizer observes here
+    # lock is the convoy class the sanitizer observes here
     note_blocking("send_frame")
     sock.sendall(struct.pack(">Q", len(payload)) + payload)
 

@@ -28,6 +28,7 @@ fake cloud's default discount of the on-demand price in every zone.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +47,7 @@ from karpenter_tpu_torch.api.objects import SelectorTerm, tolerates_all
 from karpenter_tpu_torch.cloud.fake.backend import FakeCloud
 from karpenter_tpu_torch.cloud.fake.catalog import MachineShape, generate_catalog
 from karpenter_tpu_torch.metrics.registry import Registry
-from karpenter_tpu_torch.operator import Operator
+from karpenter_tpu_torch.operator import Operator, solve_kind, solver_counters
 from karpenter_tpu_torch.providers.instancetype import (
     SeedPrices,
     build_instance_types,
@@ -1288,3 +1289,406 @@ def consolidating_cluster(device=None, n_pods: int = N_PODS) -> "Environment":
             pool.disruption, consolidate_after=CONSOLIDATE_AFTER_S
         )
     return env
+
+
+# ---------------------------------------------------------------------------
+# Two replicas over one shared cluster store (leader election, failover)
+# ---------------------------------------------------------------------------
+
+HA_REPLICAS = ("replica-a", "replica-b")
+# the failover drive's terms: A leads first, B takes over after A's crash,
+# A again after B's graceful release
+HA_TERMS = ("A1", "B1", "A2")
+HA_CHURN_ROUNDS = (3, 3, 2)  # churn rounds in each term
+HA_TICK_S = 2.0  # fake-clock seconds a round
+HA_BIND_ROUNDS = 12  # rounds the first batch may take to bind
+HA_SYNC_TIMEOUT_S = 60.0  # wall seconds a mirror may take to catch up
+
+
+class HAHarness:
+    """Two operator replicas failing over on one shared cluster store.
+
+    One `StoreServer` (``service/store_server.py``) on a free port, two
+    `RemoteKubeStore` clients of it (``state/remote.py``, negotiating the
+    codec: ``bin1`` against this server) and two `Operator`s, each with a
+    `LeaderElector` over its client's Lease and a `Registry` of its own,
+    over one `FakeCloud` and `FakeClock`; the operators' solvers run on
+    ``device``, and they launch one claim at a time.  The shape of the JAX
+    package's election-storm harness (``tests/test_election_storm.py``),
+    driven from the caller's thread:
+
+    - `round` steps the clock and runs the kubelet and one
+      ``reconcile_once`` of every replica not in ``crashed`` (A first), with
+      `sync` after every clock step, kubelet step and tick: both mirrors wait
+      until they hold the server's latest write (reads would otherwise
+      race the watch stream);
+    - `kubelet_step` registers Nodes for running instances and binds the
+      pods the current leader nominated (a deposed replica's nominations
+      are inert);
+    - ``launches`` lists every ``CloudProvider.create`` as (round, replica,
+      claim), ``ticks`` every tick as a dict (`tick`), ``flush_ms`` each
+      replica's ``_flush_dirty`` calls (the method wrapped on the client)
+      and ``sync_ms`` each `sync`'s wall ms.
+
+    `parts` names the classes the harness builds from and `operator` builds
+    one replica's operator: a twin of the same drive on another package
+    overrides both."""
+
+    def __init__(self, device=None, shapes=None, settings=None, launches=None,
+                 on_tick=None):
+        p = self.parts()
+        self.p = p
+        p.reset_name_sequences()
+        self.device = device
+        self.server = p.StoreServer().start_background()
+        host, port = self.server.address
+        self.clock = p.FakeClock()
+        self.cloud = p.FakeCloud(
+            self.clock, shapes=shapes if shapes is not None else p.generate_catalog()
+        ).with_default_topology()
+        self.settings = settings or p.Settings(cluster_name="ha")
+        self.counters = launches  # kernel launch counters to diff a tick (or None)
+        self.on_tick = on_tick  # on_tick(harness, record) after each tick
+        self.kubes, self.ops = {}, {}
+        self.launches: List[tuple] = []
+        self.ticks: List[dict] = []
+        self.flush_ms: Dict[str, List[float]] = {}
+        self.sync_ms: List[float] = []
+        self.round_no = 0
+        self.term = HA_TERMS[0]
+        self.crashed: set = set()
+        self._flushed = 0.0
+        for name in HA_REPLICAS:
+            kube = p.RemoteKubeStore(host, port, identity=name)
+            elector = p.LeaderElector(kube, self.clock, name)
+            op = self.operator(kube, elector, p.Registry())
+            op.provisioner.launch_concurrency = 1
+            self._instrument(op, kube, name)
+            self.kubes[name] = kube
+            self.ops[name] = op
+        self._await_watches()
+
+    def _await_watches(self) -> None:
+        """Wait until each client's watch stream has made its first state
+        transfer.  A write made before it can be lost from the writer's
+        own mirror: the first snapshot, taken before the write, sweeps a
+        key the server has acknowledged, and the stream never echoes a
+        client's own writes back to it."""
+        deadline = time.monotonic() + HA_SYNC_TIMEOUT_S
+        for name, kube in self.kubes.items():
+            while not all(ch.ever_synced for ch in kube._channels):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"mirror {name}: no first watch transfer")
+                time.sleep(0.005)
+
+    @staticmethod
+    def parts():
+        """The port's classes the harness builds from."""
+        from types import SimpleNamespace
+
+        from karpenter_tpu_torch.api import reset_name_sequences
+        from karpenter_tpu_torch.controllers.consistency import CHECK_PERIOD
+        from karpenter_tpu_torch.service.store_server import StoreServer
+        from karpenter_tpu_torch.state.remote import RemoteKubeStore
+        from karpenter_tpu_torch.state.wire import STORE_KINDS, canonical
+        from karpenter_tpu_torch.utils.leader import LEASE_DURATION_S, LeaderElector
+
+        return SimpleNamespace(
+            StoreServer=StoreServer, RemoteKubeStore=RemoteKubeStore,
+            LeaderElector=LeaderElector, LEASE_DURATION_S=LEASE_DURATION_S,
+            FakeCloud=FakeCloud, FakeClock=FakeClock, generate_catalog=generate_catalog,
+            Registry=Registry, Settings=Settings, Pod=Pod, Node=Node,
+            NodeClass=NodeClass, NodePool=NodePool, SelectorTerm=SelectorTerm,
+            labels=L, tolerates_all=tolerates_all,
+            reset_name_sequences=reset_name_sequences,
+            STORE_KINDS=STORE_KINDS, canonical=canonical, CHECK_PERIOD=CHECK_PERIOD,
+        )
+
+    def operator(self, kube, elector, registry):
+        return Operator(
+            self.cloud, kube, settings=self.settings, clock=self.clock,
+            registry=registry, batch_windows=FAST_BATCH_WINDOWS, elector=elector,
+            device=self.device,
+        )
+
+    def _instrument(self, op, kube, name: str) -> None:
+        create = op.cloud_provider.create
+
+        def launch(claim, _create=create):
+            self.launches.append((self.round_no, name, claim.name))
+            return _create(claim)
+
+        op.cloud_provider.create = launch
+        flush = kube._flush_dirty
+        self.flush_ms[name] = []
+
+        def timed_flush(_flush=flush):
+            t0 = time.perf_counter()
+            try:
+                _flush()
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                self.flush_ms[name].append(ms)
+                self._flushed += ms
+
+        kube._flush_dirty = timed_flush
+
+    # ------------------------------------------------------------- plumbing
+    def close(self) -> None:
+        for kube in self.kubes.values():
+            kube.close()
+        self.server.stop()
+
+    def sync(self, note: str = "") -> None:
+        """Both mirrors hold every write the server has applied, or
+        AssertionError."""
+        t0 = time.perf_counter()
+        for name, kube in self.kubes.items():
+            if not kube.wait_synced(timeout=HA_SYNC_TIMEOUT_S):
+                raise AssertionError(
+                    f"mirror {name} failed to sync ({note}): synced_rv="
+                    f"{kube.synced_rv} server_rv={self.server.store.rv}"
+                )
+        self.sync_ms.append((time.perf_counter() - t0) * 1e3)
+
+    @property
+    def writer(self):
+        """The client the cluster's users write through (replica A's)."""
+        return self.kubes[HA_REPLICAS[0]]
+
+    def leader(self) -> Optional[str]:
+        """The replica whose elector holds the lease, by the server's Lease."""
+        for lease in self.server.store.kube.leases.values():
+            if lease.holder:
+                return lease.holder
+        return None
+
+    def default_node_class(self):
+        p = self.p
+        nc = p.NodeClass(
+            name="default",
+            subnet_selector_terms=[p.SelectorTerm.of(Name="*")],
+            security_group_selector_terms=[p.SelectorTerm.of(Name="*")],
+        )
+        self.writer.put_node_class(nc)
+        return nc
+
+    def node_pool(self, name: str = "default", **kw):
+        pool = self.p.NodePool(name=name, node_class_ref="default", **kw)
+        self.writer.put_node_pool(pool)
+        return pool
+
+    # -------------------------------------------------------------- stepping
+    def kubelet_step(self) -> None:
+        """Registers Nodes for running instances and binds the pods the
+        current leader nominated, through replica A's client (writes
+        replicate)."""
+        p, kube = self.p, self.writer
+        now = self.clock.now()
+        for claim in list(kube.node_claims.values()):
+            if not claim.provider_id or claim.deleted_at is not None:
+                continue
+            inst = self.cloud.instances.get(claim.provider_id)
+            if inst is None or inst.state != "running":
+                continue
+            if kube.node_by_provider_id(claim.provider_id) is not None:
+                continue
+            labels = dict(claim.labels)
+            labels[p.labels.LABEL_HOSTNAME] = claim.name
+            kube.put_node(p.Node(
+                name=claim.name, provider_id=claim.provider_id, labels=labels,
+                taints=list(claim.taints), capacity=claim.capacity,
+                allocatable=claim.allocatable, ready=True, created_at=now,
+            ))
+        # leader-first nomination lookup
+        ordered = sorted(self.ops.items(), key=lambda kv: not kv[1].elector.leading)
+        for pod in list(kube.pods.values()):
+            if pod.node_name or pod.phase != "Pending":
+                continue
+            for _name, op in ordered:
+                target = op.cluster.nominated_node(pod.key())
+                if target is None:
+                    continue
+                node = kube.nodes.get(target)
+                if node is None or not node.ready or node.cordoned:
+                    continue
+                if not p.tolerates_all(pod.tolerations, node.taints):
+                    continue
+                kube.bind_pod(pod.key(), node.name)
+                op.cluster.clear_nomination(pod.key())
+                break
+
+    def tick(self, name: str) -> dict:
+        """One ``reconcile_once`` of replica ``name``, read back as a dict:
+        round, replica, term, whether it led, the kind of its solve ("" for
+        none), its wall ms, its ``_flush_dirty`` ms, the nominations it
+        added and the kernel launches it counted (with ``launches``)."""
+        op = self.ops[name]
+        sched = op.provisioner.scheduler
+        before = solver_counters(sched)
+        counted = dict(self.counters) if self.counters is not None else {}
+        noms = len(op.cluster._nominations)
+        self._flushed = 0.0
+        t0 = time.perf_counter()
+        op.reconcile_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = solver_counters(sched)
+        rec = {
+            "round": self.round_no, "replica": name, "term": self.term,
+            "led": op.elector.leading, "kind": solve_kind(before, after),
+            "tick_ms": ms, "flush_ms": self._flushed,
+            "nominated": max(0, len(op.cluster._nominations) - noms),
+            "launches": {k: v - counted.get(k, 0) for k, v in self.counters.items()
+                         if v - counted.get(k, 0)} if self.counters is not None else {},
+            "clock": self.clock.now(),
+        }
+        self.ticks.append(rec)
+        if self.on_tick is not None:
+            self.on_tick(self, rec)
+        return rec
+
+    def round(self) -> List[dict]:
+        """One round: the clock steps `HA_TICK_S`, the kubelet steps, every
+        replica not crashed ticks (A, then B), the kubelet steps again."""
+        self.round_no += 1
+        self.clock.step(HA_TICK_S)
+        self.sync(f"round {self.round_no} clock")
+        self.kubelet_step()
+        self.sync(f"round {self.round_no} kubelet")
+        recs = []
+        for name in HA_REPLICAS:
+            if name not in self.crashed:
+                recs.append(self.tick(name))
+                self.sync(f"round {self.round_no} {name}")
+        self.kubelet_step()
+        self.sync(f"round {self.round_no} kubelet after")
+        return recs
+
+    # ---------------------------------------------------------------- state
+    def store_state(self) -> dict:
+        """The server's objects, kind by kind, in canonical wire form."""
+        p, kube = self.p, self.server.store.kube
+        return {
+            kind: {key: p.canonical(obj) for key, obj in sorted(getattr(kube, attr).items())}
+            for kind, (_cls, attr, _key) in sorted(p.STORE_KINDS.items())
+        }
+
+    def view(self, name: str):
+        """Replica ``name`` as `operator_state` reads an environment."""
+        from types import SimpleNamespace
+
+        op = self.ops[name]
+        return SimpleNamespace(kube=self.kubes[name], registry=op.registry,
+                               cluster=op.cluster, cloud=self.cloud, operator=op)
+
+
+def ha_churn(h: HAHarness, rng, n: int) -> None:
+    """Replace ``n`` bound pods (drawn from the bound pods in key order) by
+    new pending pods of their shapes, through replica A's client."""
+    kube = h.writer
+    bound = sorted(k for k, p in kube.pods.items() if p.node_name)
+    for key in rng.sample(bound, n):
+        old = kube.pods[key]
+        kube.delete_pod(key)
+        kube.put_pod(h.p.Pod(requests=old.requests, node_selector=dict(old.node_selector),
+                             tolerations=list(old.tolerations)))
+
+
+def ha_drive(h: HAHarness, pods, churn_pods: int = 100, churn_rounds=HA_CHURN_ROUNDS,
+             seed: int = 3) -> dict:
+    """The failover drive: ``pods`` into the store through A's client;
+    rounds until every pod is bound with A leading (B a standby), then
+    ``churn_rounds[0]`` churn rounds of ``churn_pods`` (each an arrival
+    round, a solving round and up to two more while pods wait).  A
+    crashes (stops ticking and renewing) and the clock steps past the
+    lease; B takes over in a round with no churn (it must launch nothing:
+    the pods are placed), then ``churn_rounds[1]`` rounds.  B releases the
+    lease; A, with the solver state of its first term, acquires at once
+    and runs ``churn_rounds[2]``.  Raises AssertionError where a pod stays
+    pending.  Returns the markers: the crash's round and clock, the
+    claims at the crash, the launches after B's takeover round."""
+    import random
+
+    for pod in pods:
+        h.writer.put_pod(pod)
+    h.sync("pods")
+    rng = random.Random(seed)
+    a, b = HA_REPLICAS
+
+    def settle(what: str, rounds: int) -> None:
+        for _ in range(rounds):
+            if not h.writer.pending_pods():
+                return
+            h.round()
+        if h.writer.pending_pods():
+            raise AssertionError(f"{what}: {len(h.writer.pending_pods())} pods pending")
+
+    def churn_round(r: int) -> None:
+        ha_churn(h, rng, churn_pods)
+        h.sync("churn")
+        h.round()
+        h.round()
+        settle(f"term {h.term} churn round {r + 1}", 2)
+
+    h.term = "A1"
+    settle("binding", HA_BIND_ROUNDS)
+    for r in range(churn_rounds[0]):
+        churn_round(r)
+    marks = {"crash_round": h.round_no, "crash_clock": h.clock.now(),
+             "claims_at_crash": sorted(h.writer.node_claims)}
+    h.crashed = {a}
+    h.clock.step(h.p.LEASE_DURATION_S + 1)
+    h.term = "B1"
+    launched = len(h.launches)
+    h.round()  # B's takeover: nothing pending, nothing to launch
+    marks["takeover_launches"] = h.launches[launched:]
+    marks["claims_after_takeover"] = sorted(h.kubes[b].node_claims)
+    for r in range(churn_rounds[1]):
+        churn_round(r)
+    h.ops[b].elector.release()
+    h.crashed = set()
+    h.term = "A2"
+    for r in range(churn_rounds[2]):
+        churn_round(r)
+    return marks
+
+
+def ha_attribution(ticks, launches) -> None:
+    """Each round had one leader at most, every launch (round, replica,
+    claim) came from the replica that led its round, and no claim launched
+    twice; AssertionError otherwise."""
+    leaders: Dict[int, set] = {}
+    for t in ticks:
+        if t["led"]:
+            leaders.setdefault(t["round"], set()).add(t["replica"])
+    for rnd, names in leaders.items():
+        assert len(names) == 1, f"round {rnd} had two leaders: {sorted(names)}"
+    for rnd, name, claim in launches:
+        assert name in leaders.get(rnd, ()), f"{claim} launched by {name} in round {rnd}"
+    claims = [c for _, _, c in launches]
+    assert len(claims) == len(set(claims)), "a claim launched twice"
+
+
+def ha_checks(h: HAHarness, marks: dict) -> None:
+    """The drive's invariants, AssertionError on the first that fails:
+    `ha_attribution`, each term's replica led its rounds, B launched
+    nothing in its takeover round and saw A's claims, no pod pending."""
+    ha_attribution(h.ticks, h.launches)
+    expect = {"A1": HA_REPLICAS[0], "B1": HA_REPLICAS[1], "A2": HA_REPLICAS[0]}
+    for t in h.ticks:
+        assert t["led"] == (t["replica"] == expect[t["term"]]), t
+    assert not marks["takeover_launches"], marks["takeover_launches"]
+    assert marks["claims_after_takeover"] == marks["claims_at_crash"]
+    assert not h.writer.pending_pods()
+
+
+def ha_consistency(h: HAHarness) -> list:
+    """Steps the clock past the consistency checker's period, runs the
+    leader's checker once and returns the ``ConsistencyViolation`` events
+    in the store."""
+    leader = next((op for op in h.ops.values() if op.elector.leading), None)
+    assert leader is not None, "the drive ended with no leader"
+    h.clock.step(h.p.CHECK_PERIOD + 1)
+    leader.consistency.reconcile()
+    h.sync("consistency")
+    return [e for e in h.writer.events if e[1] == "ConsistencyViolation"]

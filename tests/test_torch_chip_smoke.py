@@ -191,15 +191,16 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "9"], 9),
     (["--through", "10"], 10),
     (["--through", "11"], 11),
+    (["--through", "12"], 12),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10", "argv10-11"])
+    "argv8-9", "argv9-10", "argv10-11", "argv11-12"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "12"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "13"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -220,7 +221,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "12"],
+        [sys.executable, "chip_smoke.py", "--through", "13"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -610,3 +611,76 @@ def test_phase11_config2_tenants_form_one_group():
     mixed = dict(probs, other=next(iter(chip_smoke.bench_tenants(1, 8).values())))
     with pytest.raises(SystemExit):
         chip_smoke.one_group("mixed", mixed)
+
+
+def test_phase12_drive_on_the_cpu():
+    """Phase 12's drive at a small size on the CPU: both clients negotiate
+    bin1, A binds the pods and churns, B takes over after A's crash and
+    launches nothing for A's pods, A leads again after B's release; every
+    launch from the round's leader; the summary reads the failover, the
+    compile caches, the flush and sync times and the store plane; a second
+    drive gives the same readings, what the card's run is held to."""
+    h = chip_smoke.ha_harness("cpu")
+    try:
+        marks = chip_smoke.ha_run(h, n_pods=200, churn_rounds=(1, 1, 1), churn_pods=10)
+        s = chip_smoke.ha_summary(h, marks)
+        plane = chip_smoke.store_plane(h)
+        first = chip_smoke.ha_readings(h)
+    finally:
+        h.close()
+    assert {t["term"] for t in h.ticks} == {"A1", "B1", "A2"}
+    assert s["failover"]["rounds"] >= 1 and s["failover"]["sim_s"] > 15.0
+    assert s["failover"]["b_first_solve"]["kind"] == "cold"
+    assert s["failover"]["a_second_term_first_solve"]["round"] > marks["crash_round"]
+    assert set(s["compile_cache"]) == {"replica-a", "replica-b"}
+    assert s["wait_synced_ms"]["p50"] >= 0 and s["flush_ms"]["replica-b"]["p50"] > 0
+    for name in ("replica-a", "replica-b"):
+        assert plane[name]["rpcs"]["lease_acquire"]["n"] >= 1
+        assert set(plane[name]["bytes_sent"]) == {"bin1", "json"}
+    assert plane["server"]["requests"]["put"] >= 200
+    h2 = chip_smoke.ha_harness("cpu")
+    try:
+        chip_smoke.ha_run(h2, n_pods=200, churn_rounds=(1, 1, 1), churn_pods=10)
+        assert chip_smoke.ha_readings(h2) == first
+    finally:
+        h2.close()
+
+
+def test_phase12_attribution_check():
+    """A launch by a replica that did not lead its round, two leaders in a
+    round, or a claim launched twice fails the drive's checks
+    (`testing.ha_attribution`, which phase 12's `ha_run` runs)."""
+    from karpenter_tpu_torch import testing as T
+
+    ticks = [{"round": 1, "replica": "replica-a", "led": True},
+             {"round": 1, "replica": "replica-b", "led": False},
+             {"round": 2, "replica": "replica-b", "led": True}]
+    T.ha_attribution(ticks, [(1, "replica-a", "c1"), (2, "replica-b", "c2")])
+    for launches in ([(1, "replica-b", "c1")], [(1, "replica-a", "c1"), (2, "replica-b", "c1")],
+                     [(3, "replica-a", "c3")]):
+        with pytest.raises(AssertionError):
+            T.ha_attribution(ticks, launches)
+    with pytest.raises(AssertionError):
+        T.ha_attribution(ticks + [{"round": 2, "replica": "replica-a", "led": True}], [])
+
+
+def test_phase12_flush_timer():
+    """The harness times each client's ``_flush_dirty`` by wrapping the
+    method on the client: a call a lease operation, summed into the tick
+    that made it."""
+    from karpenter_tpu_torch import testing as T
+
+    h = chip_smoke.ha_harness("cpu")
+    try:
+        for name, kube in h.kubes.items():
+            assert kube._flush_dirty.__name__ == "timed_flush"
+            assert h.flush_ms[name] == []
+        recs = h.round()
+        assert [r["replica"] for r in recs] == list(T.HA_REPLICAS)
+        for r in recs:
+            assert h.flush_ms[r["replica"]] and r["flush_ms"] == pytest.approx(
+                sum(h.flush_ms[r["replica"]]))
+        h.ops["replica-a"].elector.release()
+        assert len(h.flush_ms["replica-a"]) == 2
+    finally:
+        h.close()

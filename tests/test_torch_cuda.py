@@ -803,3 +803,51 @@ def test_solver_service_on_card_matches_sidecar(cuda_device):
     finally:
         srv.stop()
         legacy.stop()
+
+
+def _ha_drive(device, launches=None):
+    """The failover drive (`testing.ha_drive`) on 300 of config 2's pods
+    over phase 7's cell, its invariants and the consistency checker."""
+    from karpenter_tpu_torch.api import Disruption, Settings
+    from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
+
+    settings = Settings(cluster_name="ha", enable_admission_fastpath=False,
+                        enable_pipelined_reconcile=False, feature_gate_drift=False)
+    h = T.HAHarness(device=device, shapes=generate_catalog(**T.CONFIG2_CATALOG),
+                    settings=settings, launches=launches)
+    try:
+        h.default_node_class()
+        hold = lambda: Disruption(consolidate_after=1e9)
+        h.node_pool("general", disruption=hold())
+        h.node_pool("dedicated", taints=[T.DEDICATED_TAINT], disruption=hold())
+        h.sync()
+        marks = T.ha_drive(h, T.heterogeneous_pods(300), churn_pods=10,
+                           churn_rounds=(1, 1, 1))
+        T.ha_checks(h, marks)
+        assert T.ha_consistency(h) == []
+        return h, {"launches": list(h.launches), "store": h.store_state(),
+                   "state": {n: T.operator_state(h.view(n)) for n in T.HA_REPLICAS},
+                   "ticks": [(t["round"], t["replica"], t["led"], t["kind"])
+                             for t in h.ticks]}
+    finally:
+        h.close()
+
+
+def test_failover_on_card_matches_cpu(cuda_device):
+    """Two replicas on one shared store, their solvers on the card, through
+    A's crash, B's take-over and release and A's second term: every solve
+    on the card launches ``choose_config`` and the resident scan, and the
+    launches, ticks, store state and each replica's operator state equal
+    the same drive on the CPU."""
+    fused_packer.reset_launches()
+    h, card = _ha_drive("cuda", launches=fused_packer.LAUNCHES)
+    solves = [t for t in h.ticks if t["kind"]]
+    assert solves and all(t["launches"].get("choose_config") for t in solves)
+    assert all(t["launches"].get("ffd_scan") for t in solves)
+    assert fused_packer.LAUNCHES["ffd_scan_global"] == 0
+    _, cpu = _ha_drive("cpu")
+    for key in ("launches", "ticks", "store"):
+        assert card[key] == cpu[key], key
+    for name in T.HA_REPLICAS:
+        for key in cpu["state"][name]:
+            assert card["state"][name][key] == cpu["state"][name][key], (name, key)

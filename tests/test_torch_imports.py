@@ -20,7 +20,12 @@ with ``flight_dir`` whose flight dump goes through the ``doctor`` and
 ``state/binwire.py``): a multi-tenant ``SolverServer(device="cpu")`` whose
 tenants solve through ``RemoteSolver`` (a fleet pack of two tenants forced
 through ``_run_batch``) and a ``TorchScheduler(pack_fn=...)`` packing
-through it."""
+through it; then the shared cluster store, leader election and the lock
+sanitizer (``analysis/``, ``service/store_server.py``,
+``service/shardrouter.py``, ``service/watchclient.py``,
+``state/remote.py``, ``state/storelog.py``, ``sim/faults.py``,
+``utils/leader.py``): two replicas of `testing.HAHarness` failing over on
+one store server, and a sanitized lock witness."""
 
 import pathlib
 import subprocess
@@ -197,6 +202,30 @@ try:
     c.close()
 finally:
     srv.stop()
+# the shared cluster store, leader election and the lock sanitizer: two
+# replicas failing over on one store server
+from karpenter_tpu_torch.analysis import allowlists, core, sanitizer, witness  # noqa: F401
+from karpenter_tpu_torch.service import shardrouter, store_server, watchclient  # noqa: F401
+from karpenter_tpu_torch.sim import faults  # noqa: F401
+from karpenter_tpu_torch.state import remote, storelog  # noqa: F401
+from karpenter_tpu_torch.utils.leader import LeaderElector  # noqa: F401
+
+h = T.HAHarness(device="cpu", settings=Settings(cluster_name="ha", enable_admission_fastpath=False))
+try:
+    h.default_node_class()
+    h.node_pool("default")
+    h.sync()
+    marks = T.ha_drive(h, [Pod(requests=Resources(cpu=0.5, memory="1Gi")) for _ in range(40)],
+                       churn_pods=4, churn_rounds=(1, 1, 1))
+    T.ha_checks(h, marks)
+finally:
+    h.close()
+san = sanitizer.enable("imports")
+lock = sanitizer.make_lock("Imports._lock")
+with lock:
+    sanitizer.note_blocking("send_frame")
+sanitizer.disable()
+assert [f.rule for f in san.findings()] == ["rt-lock-blocking"]
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

@@ -4,10 +4,9 @@ ledger's decision sites, the renderer (``obs/render.py``) and the
 simulator's ledger lines.
 
 Every case of ``tests/test_obs.py`` runs on the port
-(`torch_ported.port_tests`), with the operators on the CPU, but for
-``TestStorePropagation``: it needs the store server and the remote store
-(``service/store_server.py``, ``state/remote.py``), which come with ROADMAP
-A3e.
+(`torch_ported.port_tests`), with the operators on the CPU, the trace ID
+carried from a `RemoteKubeStore` write into the `StoreServer`'s spans
+(``TestStorePropagation``) too.
 """
 
 import pytest
@@ -15,4 +14,4 @@ import pytest
 from torch_ported import on_the_cpu, port_tests  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("on_the_cpu")
-globals().update(port_tests("test_obs.py", left_out=("TestStorePropagation",)))
+globals().update(port_tests("test_obs.py"))

@@ -413,12 +413,15 @@ def test_fast_path_on_and_off_place_alike():
 
 @pytest.mark.parametrize("setting,item", [
     (dict(enable_profiling=True, profile_dir="prof"), "A8"),
-    (dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=5.0), "A3e"),
+    (dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=5.0), None),
 ], ids=["setting0-A8", "setting2-A3e"])  # the ids before flight_dir was ported
 def test_operator_refuses_an_unported_setting(setting, item):
     """A setting whose path the port does not run yet is an error naming
     the ROADMAP item that brings it, never a setting accepted and then
-    ignored."""
+    ignored.  A setting whose item has been ported (``item`` None: the
+    lock watchdog, A3e) is accepted, and the operator arms its path: the
+    watchdog, once the sanitizer is enabled."""
+    from karpenter_tpu_torch.analysis import sanitizer
     from karpenter_tpu_torch.api import Settings
     from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
     from karpenter_tpu_torch.operator import Operator
@@ -426,9 +429,17 @@ def test_operator_refuses_an_unported_setting(setting, item):
     from karpenter_tpu_torch.utils.clock import FakeClock
 
     cloud = FakeCloud(FakeClock(), shapes=generate_catalog(**SMALL_SHAPES)).with_default_topology()
-    with pytest.raises(ValueError, match=item):
-        Operator(cloud, KubeStore(), settings=Settings(cluster_name="test", **setting),
-                 device="cpu")
+    settings = Settings(cluster_name="test", **setting)
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            Operator(cloud, KubeStore(), settings=settings, device="cpu")
+        return
+    sanitizer.enable("refusal")
+    try:
+        op = Operator(cloud, KubeStore(), settings=settings, device="cpu")
+    finally:
+        sanitizer.disable()
+    assert op.watchdog is not None and op.watchdog.stall_s == 5.0
 
 
 def test_operator_runs_on_the_card_unless_asked():

@@ -5,9 +5,6 @@ Every case of ``tests/test_sim.py`` runs on the port
 run/replay byte identity, the trace's structure, the invariant checker's
 teeth, the scenarios, the CLI.  The CLI's device is explicit on the port
 (``--device``, the card by default), so its case passes ``--device cpu``.
-Left out: ``test_remote_store_backoff_rides_injected_clock`` and
-``test_remote_wait_synced_times_out_on_injected_clock``, which need the
-remote store (``state/remote.py``, ROADMAP A3e).
 """
 
 import pytest
@@ -17,8 +14,6 @@ from torch_ported import on_the_cpu, port_tests  # noqa: F401
 pytestmark = pytest.mark.usefixtures("on_the_cpu")
 globals().update(port_tests(
     "test_sim.py",
-    left_out=("test_remote_store_backoff_rides_injected_clock",
-              "test_remote_wait_synced_times_out_on_injected_clock"),
     text=[('"--trace", trace]', '"--trace", trace, "--device", "cpu"]'),
           ('"--trace", replay_trace]', '"--trace", replay_trace, "--device", "cpu"]')],
 ))

@@ -10,7 +10,9 @@ collected; each port file says why it leaves them out.  ``only`` collects
 the named top-level tests alone, for a file most of whose cases another
 port test already twins.  ``text`` is a list of (reference text, port
 text) replacements made in the source after the rename, for what the port
-says in its own words (each port file names them).
+says in its own words (each port file names them).  ``fixtures`` names the
+reference file's module-level fixtures its cases use (an autouse one
+too), returned with them so pytest finds them in the port file.
 
 `on_the_cpu` is the fixture those files use: the reference tests build
 their operators, schedulers, solver servers and packs without naming a
@@ -34,7 +36,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 torch.set_num_threads(1)
 
 
-def port_tests(ref_file: str, left_out=(), only=None, text=()) -> dict:
+def port_tests(ref_file: str, left_out=(), only=None, text=(), fixtures=()) -> dict:
     """The test functions and classes of ``tests/<ref_file>`` run on the
     port, minus ``left_out`` (or ``only`` those named)."""
     path = REPO / "tests" / ref_file
@@ -61,7 +63,10 @@ def port_tests(ref_file: str, left_out=(), only=None, text=()) -> dict:
             # only callables
             obj = type(name, (obj,), {m: None for m in methods[name]})
         out[name] = obj
-    missing = [n for n in (*left_out, *(only or ())) if n.partition(".")[0] not in vars(mod)]
+    for name in fixtures:
+        out[name] = vars(mod)[name]
+    missing = [n for n in (*left_out, *(only or ()), *fixtures)
+               if n.partition(".")[0] not in vars(mod)]
     assert not missing, f"{ref_file} has no {missing}"
     return out
 
