@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-12), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-13), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -282,12 +282,42 @@ Phases (each failure exits non-zero before the last line is printed):
    armed: zero findings and no watchdog fire, or the phase fails; it
    prints the witness's locks and edges, the kernel wrappers' locks among
    them.
+13. The fleet simulator and the deployed process.  (a) The three fleet
+   scenarios of ``sim/fleet.py`` (`FLEET_CELLS`, at the JAX package's own
+   test sizes: ``store-fleet-chaos`` and ``store-fleet-shard-chaos``, 36
+   ticks of 3 operators; ``solver-fleet``, 24 ticks of 12 operators, each
+   a tenant of one multi-tenant solver service) on the card, each also on
+   the CPU in a spawned process beside it (`CpuTwins`); fails on a double
+   launch, an invariant violation, a refusal by the solver service, or a
+   card trace or launch list unequal to the CPU's, and unless the
+   ``solver-fleet`` card trace, replayed on the card, reproduces its
+   report and its bytes.  (b) The scaled cell `SCALED_FLEET`
+   (``solver-fleet-config2``): ``solver-fleet``, 12 operators, 8 ticks,
+   over config 2's catalog, with its two pools and all 10,000 of its pods
+   put through ``op-0``'s client before tick 0, launches one at a time,
+   consolidation held off and the tick-time SLO rule left out
+   (`fleet_runner`), held as
+   (a) holds each scenario; the launch counters are set to 0 just before
+   the drive and read just after: ``choose_config`` and a scan must
+   launch, ``ffd_scan_global`` not.  Prints the wall seconds, the tick
+   p50 / p99, ``_flush_dirty`` ms a call by operator, the service's solves
+   by tenant, each new leader's first remote solve (ms, and the bytes the
+   service uploaded for it by site), the ticks from each crash to the next
+   nomination, and the launches by kernel (`FleetProbe`, `fleet_run`).
+   (c) ``python -m karpenter_tpu_torch --interval 0.05 --metrics-port
+   <free> --demo-pods 10000`` on the card with ``enable_profiling`` and
+   ``profile_dir`` set (`deployed_process`): once its solve has placed
+   the pods (launched NodeClaims on /metrics, ``ffd_pack`` on
+   /debug/device), SIGTERM; fails unless it exits 0, prints its span
+   report and writes ``spans.json``, and its profiler timelines hold
+   device events of ``choose_config`` and a scan.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
 ``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
-phase 12's over its card drive), the card line,
-and last ``{"ok": true, "device": {...}}``.
+phase 12's over its card drive, ``fleet_launches`` phase 13's over the
+scaled cell's drive), the card line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -459,8 +489,22 @@ FLEET_REPLACES = "karpenter_tpu/ops/packer.py:930"
 # rounds and pods, and the lock watchdog's stall bound
 HA_SANITIZED_PODS, HA_SANITIZED_ROUNDS, HA_SANITIZED_CHURN = 1000, (1, 1, 1), 10
 HA_WATCHDOG_STALL_S = 30.0
+# phase 13: the fleet scenarios (sim/fleet.py) at the JAX package's own test
+# sizes, (scenario, seed, ticks, operators); the one whose card trace is
+# replayed on the card; the scaled cell (solver-fleet over config 2's
+# catalog, pools and pods); what it must launch; the deployed process's
+# demo pods and how long it may take to solve them
+FLEET_CELLS = (
+    ("store-fleet-chaos", 0, 36, 3),  # tests/test_sim_fleet.py:22
+    ("store-fleet-shard-chaos", 0, 36, 3),  # tests/test_sim_fleet_shards.py:27
+    ("solver-fleet", 0, 24, 12),  # tests/test_service_tenants.py:326-327
+)
+FLEET_REPLAYED = "solver-fleet"
+# (the scaled cell's ticks cut from the tests' 24: PERF.md §4)
+SCALED_FLEET = ("solver-fleet-config2", "solver-fleet", 0, 8, 12)
+DEPLOYED_PODS, DEPLOYED_WAIT_S = 10_000, 300.0
 
-LAST_PHASE = 12
+LAST_PHASE = 13
 
 
 def fail(msg: str) -> None:
@@ -2559,10 +2603,11 @@ def admit_floor(torch, args, kernel_ms: float, card) -> dict:
 
 
 def cpu_twin_drives(phases, conn) -> None:
-    """The CPU drives phases 8-10 and 12 are held to, in a process of their
-    own (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries, phase
-    9's drive, phase 10's scenarios and phase 12's failover drive, each
-    sent back through ``conn`` as
+    """The CPU drives phases 8-10, 12 and 13 are held to, in a process of
+    their own (`CpuTwins`): phase 8's drive cut to `ARRIVAL_CUT` entries,
+    phase 9's drive, phase 10's scenarios, phase 12's failover drive and
+    phase 13's fleet runs (`FLEET_CELLS`, then `SCALED_FLEET`), each sent
+    back through ``conn`` as
     ``(name, readings)``, or ``("error", text)``."""
     import traceback
 
@@ -2595,6 +2640,13 @@ def cpu_twin_drives(phases, conn) -> None:
                 conn.send(("ha", dict(ha_readings(h), seconds=marks["seconds"])))
             finally:
                 h.close()
+        if 13 in phases:
+            runs = {name: fleet_run(name, seed, ticks, operators, "cpu")
+                    for name, seed, ticks, operators in FLEET_CELLS}
+            conn.send(("fleet", runs))
+            name, scenario, seed, ticks, operators = SCALED_FLEET
+            conn.send(("fleet_scaled", fleet_run(scenario, seed, ticks, operators, "cpu",
+                                                 n_pods=OPERATOR_PODS)))
     except SystemExit as exc:
         conn.send(("error", f"exit {exc.code}"))
     except Exception:
@@ -3823,6 +3875,427 @@ def ha_phase(torch, card, p50_7: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the fleet simulator and the deployed process
+# ---------------------------------------------------------------------------
+
+
+def fleet_runner(scenario: str, seed: int, ticks: int, operators: int, device: str,
+                 n_pods: int = 0, trace_path=None):
+    """A `sim.fleet.FleetRunner` of ``scenario`` on ``device`` (its trace
+    written to ``trace_path`` too, when given).  With ``n_pods`` it is the
+    scaled cell: the fake cloud runs config 2's catalog, and config 2's
+    ``general`` and tainted ``dedicated`` pools and its first ``n_pods``
+    pods are put through ``op-0``'s client and synced before tick 0, the
+    scenario's churn and failover storm on top.  Three settings keep the
+    cell's trace a function of its seed at this size, as the simulator's
+    scenarios and phase 7 keep theirs: each provisioner launches one claim
+    at a time (concurrent launches hand out instance ids in thread order,
+    and a 10,000-pod solve launches about 150 claims at once); the SLO
+    engines leave out the rule on the tick's wall time
+    (``testing.WALL_CLOCK_SIGNAL``: a replica's tick passes its 1 s here);
+    and consolidation is held off on every pool, the scenario's
+    ``default`` pool too: the cell is the service's tenancy across
+    failovers, and each leader's consolidation what-ifs run on its own
+    card state, not through the service (phase 9 drives them)."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import Disruption
+    from karpenter_tpu_torch.cloud.fake.catalog import generate_catalog
+    from karpenter_tpu_torch.obs.slo import default_rules
+    from karpenter_tpu_torch.sim.fleet import FleetRunner, _FleetTrace
+
+    shapes = generate_catalog(**T.CONFIG2_CATALOG) if n_pods else None
+    runner = FleetRunner(scenario, seed, ticks, operators=operators,
+                         trace=_FleetTrace(trace_path), device=device, shapes=shapes)
+    if not n_pods:
+        return runner
+    try:
+        for op in runner.ops.values():
+            op.provisioner.launch_concurrency = 1
+            op.slo.replace_rules([r for r in default_rules(op.settings)
+                                  if r.signal != T.WALL_CLOCK_SIGNAL])
+        kube = runner.kubes[runner.names[0]]
+        hold = lambda: Disruption(consolidate_after=HOLD_CONSOLIDATION_S)
+        kube.put_node_pool(T.default_node_pool(disruption=hold()))
+        kube.put_node_pool(T.default_node_pool(name="general", disruption=hold()))
+        kube.put_node_pool(T.default_node_pool(name="dedicated", taints=[T.DEDICATED_TAINT],
+                                               disruption=hold()))
+        for pod in T.heterogeneous_pods(n_pods):
+            kube.put_pod(pod)
+        runner._sync("config 2")
+    except BaseException:
+        runner.close()
+        raise
+    return runner
+
+
+class FleetProbe:
+    """Times a `FleetRunner`'s ticks (wrapping ``_tick``) and each client's
+    ``_flush_dirty`` (wrapping the method on the client) and, where the
+    operators pack through the solver service, each remote solve that
+    follows another replica's (a new leader's first): its ms and the bytes
+    the service uploaded for it, by site (the device observatory's
+    ``transfer_bytes``: the service runs in this process)."""
+
+    def __init__(self, runner):
+        from karpenter_tpu_torch.obs.device import OBSERVATORY
+
+        self._obs = OBSERVATORY
+        self._runner = runner
+        self._last = None
+        self.tick_ms = []
+        self.flush_ms = {name: [] for name in runner.names}
+        self.first_solves = []
+        runner._tick = self._timed(runner._tick, self.tick_ms)
+        for name, kube in runner.kubes.items():
+            kube._flush_dirty = self._timed(kube._flush_dirty, self.flush_ms[name])
+        for name, op in runner.ops.items():
+            sched = op.provisioner.scheduler
+            if sched.pack_fn is not None:
+                sched.pack_fn = self._first_solve(name, sched.pack_fn)
+
+    @staticmethod
+    def _timed(fn, into: list):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                into.append((time.perf_counter() - t0) * 1e3)
+
+        return timed
+
+    def _first_solve(self, name: str, pack):
+        def solve(*args, **kw):
+            if name == self._last:
+                return pack(*args, **kw)
+            self._last = name
+            before = self._obs.snapshot()["transfer_bytes"]
+            t0 = time.perf_counter()
+            out = pack(*args, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = self._obs.snapshot()["transfer_bytes"]
+            self.first_solves.append({
+                "tick": self._runner.tick_no, "replica": name, "ms": ms,
+                "uploaded": {k: v - before.get(k, 0) for k, v in after.items()
+                             if v != before.get(k, 0)}})
+            return out
+
+        return solve
+
+
+def crash_rounds(trace: str) -> list:
+    """For each ``op_crash`` of a fleet trace, the ticks from the crash to
+    the next tick with a ``PodNominated`` ledger event (None if none
+    follows)."""
+    lines = [json.loads(line) for line in trace.splitlines()]
+    noms = sorted({x["tick"] for x in lines if x["t"] == "led" and x["type"] == "PodNominated"})
+    return [next((n - x["tick"] for n in noms if n >= x["tick"]), None)
+            for x in lines if x["t"] == "ev" and x["kind"] == "op_crash"]
+
+
+def fleet_run(scenario: str, seed: int, ticks: int, operators: int, device: str,
+              n_pods: int = 0, trace_path=None) -> dict:
+    """One fleet run (`fleet_runner`) with its `FleetProbe`, read back: the
+    trace text, the report, the seconds to build the runner (and put the
+    scaled cell's pools and pods in), the wall seconds of the run, the tick
+    p50 / p99 ms and each tick's,
+    ``_flush_dirty`` ms by operator, the service's solves by tenant and
+    refusals, each new leader's first remote solve, the ticks from each
+    crash to the next nomination, the launch list (tick, replica, claim),
+    the double launches, the invariant violations, and the kernel launches
+    of the run (the counters set to 0 just before it)."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    t0 = time.perf_counter()
+    runner = fleet_runner(scenario, seed, ticks, operators, device, n_pods, trace_path)
+    setup = time.perf_counter() - t0
+    probe = FleetProbe(runner)
+    F.reset_launches()
+    t0 = time.perf_counter()
+    report = runner.run()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace = runner.trace.text()
+    solver = report.get("solver") or {}
+    return {
+        "trace": trace,
+        "report": report,
+        "setup_s": setup,
+        "wall_s": wall,
+        "kernel_launches": {k: v for k, v in F.LAUNCHES.items() if v},
+        "ticks": percentiles(probe.tick_ms),
+        "tick_ms": probe.tick_ms,
+        "flush_ms": {name: percentiles(v) for name, v in probe.flush_ms.items()},
+        "solves_by_tenant": solver.get("solves_by_tenant", {}),
+        "refused": solver.get("refused", 0),
+        "first_solves": probe.first_solves,
+        "crash_rounds": crash_rounds(trace),
+        "launches": [list(x) for x in runner.launches],
+        "double_launches": report["double_launches"],
+        "violations": report["invariants"]["violations"],
+    }
+
+
+def fleet_line(run: dict) -> str:
+    """A `fleet_run`'s figures as phase 13 prints them (no trace, report or
+    launch list)."""
+    return json.dumps({k: v for k, v in run.items() if k not in ("trace", "report", "launches")}
+                      | {"launches": len(run["launches"])})
+
+
+def fleet_checks(name: str, run: dict, cpu: dict) -> None:
+    """What phase 13 holds each fleet run on the card to: no double launch,
+    no invariant violation, no refusal by the solver service, and its
+    trace and launch list equal to the same run's on the CPU."""
+    if run["double_launches"] or run["violations"]:
+        fail(f"phase 13: {name}: {run['double_launches']} double launches, violations "
+             f"{run['violations'][:5]}")
+    if run["refused"]:
+        fail(f"phase 13: {name}: the solver service refused {run['refused']} solves")
+    if run["trace"] != cpu["trace"]:
+        card_lines, cpu_lines = run["trace"].splitlines(), cpu["trace"].splitlines()
+        at = next((i for i, (a, b) in enumerate(zip(card_lines, cpu_lines)) if a != b),
+                  min(len(card_lines), len(cpu_lines)))
+        show = lambda lines: lines[at][:400] if at < len(lines) else "(none)"
+        fail(f"phase 13: {name}: the card's trace differs from the CPU's at line {at}: "
+             f"card {show(card_lines)}; CPU {show(cpu_lines)}")
+    if run["launches"] != cpu["launches"]:
+        fail(f"phase 13: {name}: the card's launch list differs from the CPU's")
+
+
+def kernel_events(trace_path: str) -> dict:
+    """The device kernels of a ``torch.profiler`` Chrome trace: count and
+    summed device ms by kernel name."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, ms = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scrape(port: int, path: str):
+    """The body of ``http://127.0.0.1:<port><path>``, or None if the
+    process does not answer yet."""
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as resp:
+            return resp.read().decode()
+    except OSError:
+        return None
+
+
+def metric_sum(body: str, name: str) -> float:
+    """A Prometheus exposition's samples of ``name``, summed over labels."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in body.splitlines()
+               if line.startswith(name) and line[len(name)] in " {")
+
+
+def deployed_process(card: str) -> dict:
+    """Phase 13 (c): ``python -m karpenter_tpu_torch --device cuda
+    --interval 0.05 --metrics-port <free> --demo-pods DEPLOYED_PODS`` with
+    ``enable_profiling`` and ``profile_dir`` in its settings file.  Waits
+    until its demo pods are placed (the process has no kubelet, as the
+    reference's has none: its pods are nominated to launched claims, never
+    bound): ``/debug/device`` shows ``ffd_pack`` launched and ``/metrics``
+    launched NodeClaims.  Scrapes both, sends SIGTERM; fails unless the
+    process exits 0, printed its span report and wrote ``spans.json``, its
+    profiler timelines under ``profile_dir`` hold device events of
+    ``choose_config`` and of a scan, and ``/debug/device`` shows the solve's
+    launch and the resident state it seeded on the card."""
+    import glob
+    import os
+    import signal
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        settings = os.path.join(tmp, "settings.json")
+        with open(settings, "w") as f:
+            json.dump({"cluster_name": "chip-smoke-deployed", "enable_profiling": True,
+                       "profile_dir": prof}, f)
+        port = free_port()
+        out_path, err_path = os.path.join(tmp, "stdout"), os.path.join(tmp, "stderr")
+        cmd = [sys.executable, "-m", "karpenter_tpu_torch", "--device", "cuda",
+               "--interval", "0.05", "--metrics-port", str(port),
+               "--demo-pods", str(DEPLOYED_PODS), "--settings-file", settings]
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            proc = subprocess.Popen(cmd, cwd=repo, stdout=out, stderr=err)
+            try:
+                device, metrics, placed_s = {}, "", None
+                while time.perf_counter() - t0 < DEPLOYED_WAIT_S and proc.poll() is None:
+                    body = scrape(port, "/debug/device")
+                    metrics = scrape(port, "/metrics") or ""
+                    device = json.loads(body) if body else {}
+                    if (device.get("dispatches", {}).get("ffd_pack")
+                            and metric_sum(metrics, "karpenter_nodeclaims_launched") > 0):
+                        placed_s = time.perf_counter() - t0
+                        break
+                    time.sleep(0.5)
+                if placed_s is None:
+                    fail(f"phase 13: the deployed process placed no pod in "
+                         f"{DEPLOYED_WAIT_S} s (exit {proc.poll()})")
+                time.sleep(1.0)
+                device = json.loads(scrape(port, "/debug/device") or "{}")
+                metrics = scrape(port, "/metrics") or ""
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        with open(out_path) as f:
+            stdout = f.read()
+        with open(err_path) as f:
+            stderr = f.read()
+        if rc != 0:
+            fail(f"phase 13: the deployed process exited {rc} on SIGTERM: {stderr[-2000:]}")
+        if "total_ms" not in stdout:
+            fail("phase 13: the deployed process printed no span report")
+        if not os.path.exists(os.path.join(prof, "spans.json")):
+            fail("phase 13: the deployed process wrote no spans.json")
+        with open(os.path.join(prof, "spans.json")) as f:
+            spans = json.load(f)["stats"]
+        traces = sorted(glob.glob(os.path.join(prof, "solve-*.pt.trace.json")))
+        kernels = {}
+        for path in traces:
+            for k, (n, ms) in kernel_events(path).items():
+                got = kernels.get(k, (0, 0.0))
+                kernels[k] = (got[0] + n, got[1] + ms)
+        names = " ".join(kernels)
+        if "choose_config" not in names or "ffd_scan" not in names:
+            fail(f"phase 13: the profiler's timelines ({len(traces)} files) hold no device "
+                 f"event of choose_config and a scan: {sorted(kernels)[:8]}")
+        resident = device.get("resident", {}).get("bytes_total", 0)
+        if not device.get("dispatches", {}).get("ffd_pack") or not resident:
+            fail(f"phase 13: /debug/device shows no launch or no resident state: {device}")
+    return {
+        "placed_s": placed_s,
+        "wall_s": wall,
+        "claims_launched": metric_sum(metrics, "karpenter_nodeclaims_launched"),
+        "debug_device": {k: device.get(k) for k in ("tick", "dispatches", "compiles",
+                                                     "transfer_bytes", "resident")},
+        "profiler_files": len(traces),
+        "kernels": {k: {"events": n, "device_ms": ms} for k, (n, ms) in sorted(kernels.items())},
+        "spans": {k: v for k, v in spans.items() if k.startswith(("controller.provisioner",
+                                                                   "solver"))},
+    }
+
+
+def fleet_phase(torch, card) -> dict:
+    """Phase 13 as the module docstring lists it.  Returns the launches of
+    the scaled cell's drive."""
+    import os
+    import tempfile
+
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.sim.fleet import _FleetTrace, replay_fleet
+
+    t_phase = time.perf_counter()
+    twins = CpuTwins((13,))
+    try:
+        card_runs, total = {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, seed, ticks, operators in FLEET_CELLS:
+                run = fleet_run(name, seed, ticks, operators, "cuda",
+                                trace_path=os.path.join(tmp, f"{name}.jsonl"))
+                for k, v in run["kernel_launches"].items():
+                    total[k] = total.get(k, 0) + v
+                card_runs[name] = run
+                print(f"  {name} (seed {seed}, {ticks} ticks, {operators} operators) on the card "
+                      f"({card}): {fleet_line(run)}", flush=True)
+            F.reset_launches()
+            writer = _FleetTrace()
+            t0 = time.perf_counter()
+            _runner, replayed, recorded = replay_fleet(
+                os.path.join(tmp, f"{FLEET_REPLAYED}.jsonl"), trace=writer, device="cuda")
+            torch.cuda.synchronize()
+            original = card_runs[FLEET_REPLAYED]
+            print(f"  {FLEET_REPLAYED} replayed on the card in {time.perf_counter() - t0!r} s, "
+                  f"launches {json.dumps({k: v for k, v in F.LAUNCHES.items() if v})}",
+                  flush=True)
+            if recorded != original["report"] or replayed != original["report"]:
+                fail(f"phase 13: the replay of {FLEET_REPLAYED} did not reproduce its report")
+            if writer.text() != original["trace"]:
+                fail(f"phase 13: the replay of {FLEET_REPLAYED} did not reproduce its trace bytes")
+            print(f"  the replay reproduced the report and the trace, byte for byte "
+                  f"({len(writer.text())} bytes)", flush=True)
+        print(f"  launches over the three scenarios: {json.dumps(total)}", flush=True)
+        label, scenario, seed, ticks, operators = SCALED_FLEET
+        print(f"  {label}: {scenario} (seed {seed}, {ticks} ticks, {operators} operators) over "
+              f"config 2's catalog, pools and {OPERATOR_PODS} pods, on the card ({card}):",
+              flush=True)
+        scaled = fleet_run(scenario, seed, ticks, operators, "cuda", n_pods=OPERATOR_PODS)
+        launches = {k: scaled["kernel_launches"].get(k, 0) for k in KERNELS}
+        report = scaled["report"]
+        print(f"    setup {scaled['setup_s']!r} s (the runner, then the pools and pods through "
+              f"op-0's client); wall {scaled['wall_s']!r} s; tick ms "
+              f"{json.dumps(scaled['ticks'])}, each {json.dumps(scaled['tick_ms'])}", flush=True)
+        print(f"    _flush_dirty ms a call by operator: {json.dumps(scaled['flush_ms'])}",
+              flush=True)
+        print(f"    the service's solves by tenant: {json.dumps(scaled['solves_by_tenant'])}; "
+              f"refused {scaled['refused']}", flush=True)
+        for first in scaled["first_solves"]:
+            print(f"    a new leader's first remote solve: {json.dumps(first)}", flush=True)
+        print(f"    ticks from each crash to the next nomination: {scaled['crash_rounds']}; "
+              f"{len(scaled['launches'])} launches, {report['replicas_led']} led, "
+              f"{report['leader_transitions']} leader transitions", flush=True)
+        print(f"    launches by kernel over the drive: {json.dumps(scaled['kernel_launches'])}",
+              flush=True)
+        if not launches["choose_config"] or not sum(launches[k] for k in SCAN_KERNELS):
+            fail(f"phase 13: {label} launched {launches}")
+        if launches["ffd_scan_global"]:
+            fail(f"phase 13: {label} launched ffd_scan_global {launches['ffd_scan_global']} times")
+        cpu_runs = twins.get("fleet")
+        for name, _seed, _ticks, _operators in FLEET_CELLS:
+            print(f"  {name} on the CPU (plain versions, beside the card's drives): "
+                  f"{fleet_line(cpu_runs[name])}", flush=True)
+            fleet_checks(name, card_runs[name], cpu_runs[name])
+        print(f"  every card trace and launch list equals the CPU's "
+              f"({sum(len(r['trace']) for r in card_runs.values())} bytes over "
+              f"{len(FLEET_CELLS)} scenarios)", flush=True)
+        cpu = twins.get("fleet_scaled")
+        print(f"  {label} on the CPU: {fleet_line(cpu)}", flush=True)
+        fleet_checks(label, scaled, cpu)
+        print(f"  {label}: the card's trace ({len(scaled['trace'])} bytes) and launch list "
+              f"({len(scaled['launches'])}) equal the CPU's", flush=True)
+    finally:
+        twins.close()
+    print(f"  the deployed process: python -m karpenter_tpu_torch --demo-pods {DEPLOYED_PODS} "
+          f"with enable_profiling and profile_dir ({card}):", flush=True)
+    print(f"    {json.dumps(deployed_process(card))}", flush=True)
+    print(f"  phase 13 took {time.perf_counter() - t_phase!r} s", flush=True)
+    return launches
+
+
+def phase_launches(kernel: str, per_phase: dict) -> dict:
+    """A kernels-line row's launches on each phase's path: ``per_phase``
+    maps each column (``operator_launches``: phase 7's drive,
+    ``consolidation_launches`` phase 9's, ``sim_launches`` phase 10's
+    scenarios, ``service_launches`` phase 11's rounds, ``ha_launches``
+    phase 12's card drive, ``fleet_launches`` phase 13's scaled cell) to
+    that phase's launch counts."""
+    return {col: counts.get(kernel, 0) for col, counts in per_phase.items()}
+
+
 def observatory_totals() -> dict:
     from karpenter_tpu_torch.obs.device import OBSERVATORY
 
@@ -4085,9 +4558,16 @@ def main(argv) -> int:
 
     print(f"[ha] two replicas failing over on one shared cluster store, {card}", flush=True)
     ha_launches = ha_phase(torch, card, op_p50)
+    phase_done(12, through)
+
+    print(f"[fleet] the fleet simulator and the deployed process, {card}", flush=True)
+    fleet_launches = fleet_phase(torch, card)
     verdicts["ffd_scan_window_batched"].update(window_row, err=max(
         window_row["err"], verdicts["ffd_scan_window_batched"]["err"]))
 
+    per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
+                 "sim_launches": sim_launches, "service_launches": service["launches"],
+                 "ha_launches": ha_launches, "fleet_launches": fleet_launches}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]
@@ -4105,11 +4585,7 @@ def main(argv) -> int:
             "bound_by": bounds[k]["bound_by"],
             "library_ms": None,
             "latency_floor_ms": floors[k],
-            "operator_launches": op_launches[k],
-            "consolidation_launches": consolidation[k],
-            "sim_launches": sim_launches.get(k, 0),
-            "service_launches": service["launches"][k],
-            "ha_launches": ha_launches[k],
+            **phase_launches(k, per_phase),
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -4127,11 +4603,7 @@ def main(argv) -> int:
             "bound_by": v["bound"]["bound_by"],
             "library_ms": None,
             "latency_floor_ms": v["floor"],
-            "operator_launches": op_launches[k],
-            "consolidation_launches": consolidation[k],
-            "sim_launches": sim_launches.get(k, 0),
-            "service_launches": service["launches"][k],
-            "ha_launches": ha_launches[k],
+            **phase_launches(k, per_phase),
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
         })
     kernels.append({
@@ -4149,11 +4621,7 @@ def main(argv) -> int:
         "library_ms": None,
         "latency_floor_ms": admit["latency_floor_ms"],
         "empty_launch_ms": admit["empty_launch_ms"],
-        "operator_launches": op_launches["admit_kernel"],
-        "consolidation_launches": consolidation["admit_kernel"],
-        "sim_launches": sim_launches.get("admit_kernel", 0),
-        "service_launches": service["launches"]["admit_kernel"],
-        "ha_launches": ha_launches["admit_kernel"],
+        **phase_launches("admit_kernel", per_phase),
         "call_ms": admit["call_ms"],
     })
     for k in FLEET_KERNELS:
@@ -4176,11 +4644,7 @@ def main(argv) -> int:
             "stack_ms": v["stack_ms"],
             "call_ms": v["call_ms"],
             "solo_call_ms": v["solo_call_ms"],
-            "operator_launches": op_launches.get(k, 0),
-            "consolidation_launches": consolidation.get(k, 0),
-            "sim_launches": sim_launches.get(k, 0),
-            "service_launches": service["launches"][k],
-            "ha_launches": ha_launches.get(k, 0),
+            **phase_launches(k, per_phase),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -7,7 +7,7 @@ behind the `make_lock` / `make_rlock` / `make_condition` / `note_blocking`
 deterministic artifact) and what they read: `Finding` of ``core.py`` and
 the sanctioned tables of ``allowlists.py``.  The static analysis (the rule
 engine, the lock model of ``locks.py``, the lint CLI) is not ported
-(ROADMAP A8).
+(ROADMAP A8b).
 
 The package body imports nothing eagerly: every module that builds a lock
 imports the sanitizer, which runs this ``__init__``.

@@ -6,7 +6,7 @@ findings are Finding-shaped, with the stable fingerprint (sha256 over
 rule, file, message and occurrence, not the line) and the deterministic
 ordering the witness artifact serializes.  The rule engine itself (the
 parsed package snapshot, the registry, the baseline) is not ported
-(ROADMAP A8).
+(ROADMAP A8b).
 """
 
 from __future__ import annotations

@@ -37,17 +37,19 @@ runtime lock sanitizer enabled (``analysis/sanitizer.py``, turned on by
 the entry point from ``enable_lock_sanitizer`` before any store is built)
 and ``lock_watchdog_stall_s`` set, the operator arms the deadlock watchdog
 (`LockWatchdog`), whose report dumps the lock witness beside a flight
-record.  Not ported here (ROADMAP A8): the span dump under
-``profile_dir``, and the blocking `run` / `stop` loop (the entry point
-runs its own loop and starts the watchdog and the lease renewal itself).
-The constructor refuses the setting that would ask for the span dump
-(`_refuse_unported`), so it is not accepted and then ignored.
+record.  Under ``enable_profiling`` the process tracer records every
+controller's and solver phase's span, and with ``profile_dir`` set each
+solve's pack and fetch run under ``torch.profiler`` (`utils/trace.py`'s
+`device_trace`), whose timeline lands in that directory.  `run` is the
+deployed loop: it keeps the lease renewed in the background and the lock
+watchdog running while it ticks every ``interval_s`` until `stop`.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -120,7 +122,6 @@ class Operator:
         self.elector = elector
         self.settings = settings or Settings()
         self.settings.validate()
-        _refuse_unported(self.settings)
         # the card unless the caller asks for the CPU; asking for CUDA
         # without a card raises here, before anything is built
         self.device = resolve_device(device)
@@ -137,8 +138,11 @@ class Operator:
         self._tick_seq = 0
         self.tracer = TRACER
         # assign unconditionally: a later operator with profiling off must
-        # actually turn the process tracer off
+        # actually turn the process tracer off (and drop a stale dir)
         self.tracer.enabled = self.settings.enable_profiling
+        self.tracer.profile_dir = (
+            self.settings.profile_dir if self.settings.enable_profiling else ""
+        )
         # diagnosis layer:
         # - the SLO engine evaluates its rule set at the end of every tick
         #   against the registry the controllers just wrote,
@@ -296,6 +300,7 @@ class Operator:
         self._pricing_updated_at = self.clock.now()
         # per-controller requeue backoff: name -> (retry_at, current delay)
         self._ctrl_backoff: Dict[str, Tuple[float, float]] = {}
+        self._stop = threading.Event()
         # pipelined reconcile schedule (pipeline.py): the canonical mutate
         # order below is unchanged either way; pipelining brackets it with
         # disruption's speculative stages — dispatch (tick end: enqueue the
@@ -561,21 +566,29 @@ class Operator:
         )
         return self.flight.dump(path, trigger=trigger)
 
+    def run(self, interval_s: float = 1.0) -> None:
+        """Blocking controller-manager loop for real deployments.  A tick
+        that still manages to raise (controller failures are already
+        contained in _reconcile) is logged and the loop continues — the
+        loop itself must survive anything the cloud does."""
+        if self.elector is not None:
+            # keep the lease fresh through ticks longer than its duration
+            self.elector.start_background_renewal(self._stop)
+        if self.watchdog is not None:
+            self.watchdog.start()
+        try:
+            while not self._stop.is_set():
+                try:
+                    self.reconcile_once()
+                except Exception:
+                    log.exception("reconcile tick failed; continuing")
+                self.clock.sleep(interval_s)
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.stop()
 
-def _refuse_unported(settings: Settings) -> None:
-    """Raise for a setting whose path the port does not run yet, naming the
-    ROADMAP item that brings it: accepting it and then ignoring it would
-    hide the gap."""
-    refused = []
-    if settings.enable_profiling and settings.profile_dir:
-        refused.append(
-            "profile_dir (the span dump and device trace under "
-            "enable_profiling: ROADMAP A8)"
-        )
-    if refused:
-        raise ValueError(
-            "not ported yet, so the port's operator refuses: " + "; ".join(refused)
-        )
+    def stop(self) -> None:
+        self._stop.set()
 
 
 def solver_counters(scheduler) -> Tuple[int, int, int]:

@@ -79,7 +79,7 @@ from karpenter_tpu_torch.scheduling.scheduler import (
 )
 from karpenter_tpu_torch.scheduling.topology import HOSTNAME, ZONE, TopologyTracker
 from karpenter_tpu_torch.state.cluster import StateNode
-from karpenter_tpu_torch.utils.trace import TRACER, phase, phase_collect
+from karpenter_tpu_torch.utils.trace import TRACER, device_trace, phase, phase_collect
 
 
 class RemovalCandidate(NamedTuple):
@@ -656,26 +656,30 @@ class TorchScheduler:
             else self.pack_fn if self.pack_fn is not None
             else self._upload_pack
         )
-        with phase("dispatch"), TRACER.span("solver.pack"):
-            outs = eff_pack(prob, objective=self.objective)
-        self.last_kernel = (
-            last_kernel_name(self.device) if self.pack_fn is None
-            else getattr(self.pack_fn, "kernel_name", "custom")
-        )
-        if overlap is not None:
-            overlap()
-        with phase("device_block"), TRACER.span("solver.fetch"):
-            res = fetch_pack(outs)
-        # grow the slot bucket if the solve ran out of node slots while
-        # feasible configs remained
-        k = int(res.node_cfg.shape[0])
-        max_k = len(prob.used0) + prob.total_pods()
-        while self._overflowed(prob, res.leftover) and k < max_k:
-            k *= 2
-            with phase("dispatch"), TRACER.span("solver.pack", retry_k=k):
-                outs = eff_pack(prob, k_slots=k, objective=self.objective)
-            with phase("device_block"), TRACER.span("solver.fetch", retry_k=k):
+        # the profiler's timeline (under enable_profiling and profile_dir)
+        # stays open through the last fetch: the launches only enqueue
+        # work, and closing it before the fetch would miss the kernels
+        with device_trace(TRACER):
+            with phase("dispatch"), TRACER.span("solver.pack"):
+                outs = eff_pack(prob, objective=self.objective)
+            self.last_kernel = (
+                last_kernel_name(self.device) if self.pack_fn is None
+                else getattr(self.pack_fn, "kernel_name", "custom")
+            )
+            if overlap is not None:
+                overlap()
+            with phase("device_block"), TRACER.span("solver.fetch"):
                 res = fetch_pack(outs)
+            # grow the slot bucket if the solve ran out of node slots while
+            # feasible configs remained
+            k = int(res.node_cfg.shape[0])
+            max_k = len(prob.used0) + prob.total_pods()
+            while self._overflowed(prob, res.leftover) and k < max_k:
+                k *= 2
+                with phase("dispatch"), TRACER.span("solver.pack", retry_k=k):
+                    outs = eff_pack(prob, k_slots=k, objective=self.objective)
+                with phase("device_block"), TRACER.span("solver.fetch", retry_k=k):
+                    res = fetch_pack(outs)
         with phase("decode"), TRACER.span("solver.decode"):
             return self._decode(prob, res.take, res.node_cfg, res.node_used)
 

@@ -15,8 +15,9 @@ The port of ``karpenter_tpu/sim/cli.py``.  The operator runs on
 ``--device`` (the card by default; without one the run raises rather than
 carrying on on the CPU), and a trace does not depend on the device.  There
 is no platform pin and no re-exec: nothing of the trace depends on set
-iteration order.  The fleet scenarios and fleet traces (``sim/fleet.py``)
-are not ported yet (ROADMAP A6): the CLI refuses them by name.
+iteration order.  The fleet scenarios (``sim/fleet.py``: several operators
+over one store server, shards or solver service) run on ``--device`` too,
+and a trace whose meta line says ``fleet`` replays through `replay_fleet`.
 """
 
 from __future__ import annotations
@@ -24,10 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# the JAX package's multi-operator scenarios (sim/fleet.py), not ported yet
-FLEET_SCENARIOS = ("solver-fleet", "store-fleet-chaos", "store-fleet-shard-chaos")
-FLEET_REFUSAL = "fleet scenarios and traces are not ported yet (ROADMAP A6)"
 
 
 def main(argv=None) -> int:
@@ -63,6 +60,12 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
+    from karpenter_tpu_torch.sim.fleet import (
+        FLEET_SCENARIOS,
+        _FleetTrace,
+        replay_fleet,
+        run_fleet,
+    )
     from karpenter_tpu_torch.sim.report import wall_profile
     from karpenter_tpu_torch.sim.runner import SCENARIOS, replay, run_scenario
     from karpenter_tpu_torch.sim.trace import TraceWriter, read_trace
@@ -74,18 +77,25 @@ def main(argv=None) -> int:
     if args.list:
         for name, factory in sorted(SCENARIOS.items()):
             print(f"{name}: {factory(200).description}")
+        for name, description in sorted(FLEET_SCENARIOS.items()):
+            print(f"{name}: {description}")
         return 0
 
     if args.replay:
+        trace_path = args.trace or (args.replay + ".replayed")
+        # fleet traces replay through the fleet runner (the meta line
+        # says which kind of trace this is)
         head = next(iter(read_trace(args.replay)), {})
         if head.get("fleet"):
-            print(f"{args.replay}: {FLEET_REFUSAL}", file=sys.stderr)
-            return 64
-        trace_path = args.trace or (args.replay + ".replayed")
-        writer = TraceWriter(trace_path)
-        runner, report, recorded = replay(
-            args.replay, trace=writer, device=args.device
-        )
+            writer = _FleetTrace(trace_path)
+            runner, report, recorded = replay_fleet(
+                args.replay, trace=writer, device=args.device
+            )
+        else:
+            writer = TraceWriter(trace_path)
+            runner, report, recorded = replay(
+                args.replay, trace=writer, device=args.device
+            )
         matches = recorded is not None and report == recorded
         print(
             f"replayed {args.replay} -> {trace_path} "
@@ -93,14 +103,23 @@ def main(argv=None) -> int:
             f"{'matches' if matches else 'DIFFERS FROM'} the recorded one",
             file=sys.stderr,
         )
+    elif args.scenario in FLEET_SCENARIOS:
+        trace_path = args.trace or f"sim-{args.scenario}-seed{args.seed}.jsonl"
+        writer = _FleetTrace(trace_path)
+        runner, report = run_fleet(
+            args.scenario, args.seed, args.ticks, trace=writer,
+            device=args.device,
+        )
+        matches = True
+        print(
+            f"trace -> {trace_path} (sha256 {writer.sha256()[:16]})",
+            file=sys.stderr,
+        )
     else:
-        if args.scenario in FLEET_SCENARIOS:
-            print(f"{args.scenario}: {FLEET_REFUSAL}", file=sys.stderr)
-            return 64
         if args.scenario not in SCENARIOS:
             print(
                 f"unknown scenario {args.scenario!r}; have "
-                f"{', '.join(sorted(SCENARIOS))}",
+                f"{', '.join(sorted({**SCENARIOS, **FLEET_SCENARIOS}))}",
                 file=sys.stderr,
             )
             return 64
@@ -117,7 +136,14 @@ def main(argv=None) -> int:
         )
 
     if args.profile:
-        report = dict(report, profile=wall_profile(runner.env.registry))
+        if hasattr(runner, "env"):
+            report = dict(report, profile=wall_profile(runner.env.registry))
+        else:
+            print(
+                "--profile is not supported for fleet scenarios "
+                "(per-operator wall profiles are not aggregated); ignoring",
+                file=sys.stderr,
+            )
     print(json.dumps(report, indent=2, sort_keys=True))
 
     if report["invariants"]["violations"]:

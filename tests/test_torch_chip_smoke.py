@@ -4,6 +4,7 @@ latency floor follows that kernel's own step, the kernels line has a
 row for every kernel the wrappers count, ``--through N`` is parsed by a
 plain function, and the ptxas summary is read per kernel."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -192,15 +193,16 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "10"], 10),
     (["--through", "11"], 11),
     (["--through", "12"], 12),
+    (["--through", "13"], 13),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10", "argv10-11", "argv11-12"])
+    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "13"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "14"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -221,7 +223,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "13"],
+        [sys.executable, "chip_smoke.py", "--through", "14"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -684,3 +686,61 @@ def test_phase12_flush_timer():
         assert len(h.flush_ms["replica-a"]) == 2
     finally:
         h.close()
+
+
+def test_phase13_scaled_fleet_on_the_cpu():
+    """Phase 13's scaled cell at a small size on the CPU: ``solver-fleet``
+    over config 2's catalog with its two pools and 200 of its pods put
+    through op-0's client before tick 0, 3 operators, 6 ticks; no double
+    launch, no violation, no refusal; the probe reads every operator's
+    flushes, each new leader's first remote solve with the tenant tensors
+    the service uploaded for it, and the ticks from each crash to the next
+    nomination; a trace and launch list unequal to the twin's fail the
+    checks."""
+    run = chip_smoke.fleet_run("solver-fleet", 0, 6, 3, "cpu", n_pods=200)
+    assert run["violations"] == [] and run["double_launches"] == 0 and run["refused"] == 0
+    assert run["report"]["operators"] == 3 and run["launches"]
+    assert set(run["flush_ms"]) == {"op-0", "op-1", "op-2"}
+    assert all(f["n"] >= 1 and f["p50"] > 0 for f in run["flush_ms"].values())
+    assert run["ticks"]["n"] >= 6 and run["kernel_launches"] == {}
+    first = run["first_solves"]
+    assert first and first[0]["uploaded"]["tenant_resident"] > 0
+    # a first solve is one that follows another replica's
+    assert all(a["replica"] != b["replica"] for a, b in zip(first, first[1:]))
+    assert sum(run["solves_by_tenant"].values()) >= len(first)
+    assert run["crash_rounds"] and all(r is not None and r >= 0 for r in run["crash_rounds"])
+    # the cell's pods went in before tick 0: the first solve placed them
+    trace = [json.loads(line) for line in run["trace"].splitlines()]
+    assert trace[0]["fleet"] and trace[0]["scenario"] == "solver-fleet"
+    noms = [x for x in trace if x["t"] == "led" and x["type"] == "PodNominated"]
+    assert len(noms) >= 200
+    assert "trace" not in chip_smoke.fleet_line(run)
+    chip_smoke.fleet_checks("small", run, run)
+    for bad in (dict(run, trace=run["trace"] + "x"), dict(run, launches=run["launches"][1:])):
+        with pytest.raises(SystemExit):
+            chip_smoke.fleet_checks("small", run, bad)
+    with pytest.raises(SystemExit):
+        chip_smoke.fleet_checks("small", dict(run, refused=1), run)
+
+
+def test_phase13_crash_rounds_and_launch_columns():
+    """The ticks from each ``op_crash`` to the next ``PodNominated``, and a
+    kernels-line row's launch columns: one a phase, ``fleet_launches`` (phase
+    13's scaled cell) the newest, 0 where a phase launched nothing."""
+    lines = [{"t": "ev", "tick": 2, "kind": "op_crash"},
+             {"t": "led", "tick": 2, "type": "NodeLaunched"},
+             {"t": "led", "tick": 4, "type": "PodNominated"},
+             {"t": "ev", "tick": 9, "kind": "op_crash"}]
+    trace = "\n".join(json.dumps(x) for x in lines)
+    assert chip_smoke.crash_rounds(trace) == [2, None]
+    per_phase = {"operator_launches": {"choose_config": 6}, "consolidation_launches": {},
+                 "sim_launches": {}, "service_launches": {}, "ha_launches": {},
+                 "fleet_launches": {"choose_config": 9}}
+    row = chip_smoke.phase_launches("choose_config", per_phase)
+    assert list(row)[-1] == "fleet_launches"
+    assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
+                   "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
+    assert chip_smoke.LAST_PHASE == 13
+    assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
+        "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
+    assert chip_smoke.FLEET_REPLAYED == "solver-fleet"

@@ -25,7 +25,10 @@ sanitizer (``analysis/``, ``service/store_server.py``,
 ``service/shardrouter.py``, ``service/watchclient.py``,
 ``state/remote.py``, ``state/storelog.py``, ``sim/faults.py``,
 ``utils/leader.py``): two replicas of `testing.HAHarness` failing over on
-one store server, and a sanitized lock witness."""
+one store server, and a sanitized lock witness; then the fleet simulator
+(``sim/fleet.py``): a short ``solver-fleet`` run through the ``sim``
+subcommand with its trace replayed, and the device profiler
+(``utils/trace.py``'s `device_trace`) writing a timeline."""
 
 import pathlib
 import subprocess
@@ -157,7 +160,6 @@ with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     assert entry(["sim", "--scenario", "steady", "--seed", "2", "--ticks", "6",
                   "--device", "cpu", "--trace", path]) == 0
     assert entry(["sim", "--replay", path, "--device", "cpu"]) == 0
-    assert entry(["sim", "--scenario", "solver-fleet", "--device", "cpu"]) == 64
 env = T.Environment(settings=Settings(cluster_name="test", flight_dir=tmp), device="cpu")
 env.default_node_class()
 env.default_node_pool()
@@ -226,6 +228,23 @@ with lock:
     sanitizer.note_blocking("send_frame")
 sanitizer.disable()
 assert [f.rule for f in san.findings()] == ["rt-lock-blocking"]
+# the fleet simulator: a short solver-fleet run (three operators, tenants
+# of one solver service) through the sim subcommand, its trace replayed;
+# then the device profiler's timeline of a block
+import torch
+
+from karpenter_tpu_torch.sim import fleet  # noqa: F401
+from karpenter_tpu_torch.utils.trace import Tracer, device_trace
+
+fleet_path = os.path.join(tmp, "fleet.jsonl")
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    assert entry(["sim", "--scenario", "solver-fleet", "--seed", "0", "--ticks", "8",
+                  "--device", "cpu", "--trace", fleet_path]) == 0
+    assert entry(["sim", "--replay", fleet_path, "--device", "cpu"]) == 0
+prof = os.path.join(tmp, "prof")
+with device_trace(Tracer(enabled=True, profile_dir=prof)):
+    torch.ones(4).sum()
+assert len(os.listdir(prof)) == 1
 leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
 print("ok", len(result.new_nodes))

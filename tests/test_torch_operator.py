@@ -411,28 +411,36 @@ def test_fast_path_on_and_off_place_alike():
     assert Environment(device="cpu").operator.settings.enable_admission_fastpath
 
 
-@pytest.mark.parametrize("setting,item", [
-    (dict(enable_profiling=True, profile_dir="prof"), "A8"),
-    (dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=5.0), None),
+@pytest.mark.parametrize("setting", [
+    dict(enable_profiling=True, profile_dir="prof"),
+    dict(enable_lock_sanitizer=True, lock_watchdog_stall_s=5.0),
 ], ids=["setting0-A8", "setting2-A3e"])  # the ids before flight_dir was ported
-def test_operator_refuses_an_unported_setting(setting, item):
-    """A setting whose path the port does not run yet is an error naming
-    the ROADMAP item that brings it, never a setting accepted and then
-    ignored.  A setting whose item has been ported (``item`` None: the
-    lock watchdog, A3e) is accepted, and the operator arms its path: the
-    watchdog, once the sanitizer is enabled."""
+def test_operator_refuses_an_unported_setting(setting):
+    """A setting whose path the port did not run was an error naming the
+    ROADMAP item that brings it.  Every such item is ported now (the span
+    dump and the device trace under ``profile_dir``, A8a; the lock
+    watchdog, A3e), so each setting is accepted and the operator arms its
+    path: the process tracer with its ``profile_dir``, and the watchdog
+    once the sanitizer is enabled."""
     from karpenter_tpu_torch.analysis import sanitizer
     from karpenter_tpu_torch.api import Settings
     from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
     from karpenter_tpu_torch.operator import Operator
     from karpenter_tpu_torch.state.kube import KubeStore
     from karpenter_tpu_torch.utils.clock import FakeClock
+    from karpenter_tpu_torch.utils.trace import TRACER
 
     cloud = FakeCloud(FakeClock(), shapes=generate_catalog(**SMALL_SHAPES)).with_default_topology()
     settings = Settings(cluster_name="test", **setting)
-    if item is not None:
-        with pytest.raises(ValueError, match=item):
-            Operator(cloud, KubeStore(), settings=settings, device="cpu")
+    if settings.enable_profiling:
+        try:
+            op = Operator(cloud, KubeStore(), settings=settings, device="cpu")
+            assert op.tracer is TRACER and TRACER.enabled
+            assert TRACER.profile_dir == "prof"
+        finally:
+            TRACER.enabled = False
+            TRACER.profile_dir = ""
+            TRACER.reset()
         return
     sanitizer.enable("refusal")
     try:

@@ -11,7 +11,7 @@ sanitizer, the disabled seam handing out stdlib objects).
 
 Left out: ``TestCrossValidation`` and ``TestSanitizedSuites``, which hold
 the witness to the static lock model (``analysis/core.PackageSnapshot``,
-``analysis/locks.py``, the lint CLI), not ported (ROADMAP A8).  In place
+``analysis/locks.py``, the lint CLI), not ported (ROADMAP A8b).  In place
 of the second, `TestSanitizedSuitesOnThePort` runs its four sanitized
 drives on the port (the FakeCloud API storm, the store-plane writer storm
 with a live subscriber, the election mini-storm, the pipelined operator

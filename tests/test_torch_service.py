@@ -6,14 +6,14 @@ Every case of ``tests/test_service.py`` and of
 (`torch_ported.port_tests`) with the servers, schedulers and packs on the
 CPU (the `on_the_cpu` fixture), the twin test too: tenants solving through
 the shared server, the batched `fleet_pack` path forced by concurrent
-peers, get placements bit-equal to a dedicated sidecar.  Left out:
-``TestSolverFleet`` (and its ``solver_fleet_run`` fixture), which drives
-``sim/fleet.py``'s ``solver-fleet`` scenario, ported with the fleet
-simulator (ROADMAP A6b, after the remote store, A3e).  The reference says
-``TensorScheduler`` where the port says ``TorchScheduler`` (`SCHEDULER`),
-and its module-scoped ``server`` fixture, which the port file defines
-again since a module fixture is built before `on_the_cpu`, serves on the
-CPU here.
+peers, get placements bit-equal to a dedicated sidecar; and
+``TestSolverFleet``, which drives ``sim/fleet.py``'s ``solver-fleet``
+scenario, its module-scoped ``solver_fleet_run`` asked for the CPU by
+`torch_ported.FLEET_ON_THE_CPU`'s replacements (a module fixture is
+built before `on_the_cpu`).  The reference says ``TensorScheduler`` where
+the port says ``TorchScheduler`` (`SCHEDULER`), and its module-scoped
+``server`` fixture, which the port file defines again for the same reason,
+serves on the CPU here.
 
 Then the codec twin: `encode` of seeded arrays, and `encode_payload` /
 `encode_value` of seeded store objects, give the same bytes in both
@@ -33,7 +33,7 @@ import sys
 import numpy as np
 import pytest
 
-from torch_ported import on_the_cpu, port_tests  # noqa: F401
+from torch_ported import FLEET_ON_THE_CPU, on_the_cpu, port_tests  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ("karpenter_tpu", "karpenter_tpu_torch")
@@ -41,7 +41,9 @@ SCHEDULER = [("TensorScheduler", "TorchScheduler")]
 
 pytestmark = pytest.mark.usefixtures("on_the_cpu")
 globals().update(port_tests("test_service.py", text=SCHEDULER))
-globals().update(port_tests("test_service_tenants.py", left_out=("TestSolverFleet",)))
+globals().update(port_tests("test_service_tenants.py",
+                            text=FLEET_ON_THE_CPU["test_service_tenants.py"],
+                            fixtures=("solver_fleet_run",)))
 
 
 @pytest.fixture(scope="module")

@@ -74,20 +74,28 @@ def test_sim_runs_on_the_card_unless_asked(capsys):
         main(["sim", "--scenario", "steady", "--ticks", "2", "--trace", "/dev/null"])
 
 
-def test_cli_refuses_fleet_scenarios_and_traces(tmp_path, capsys):
-    """The JAX package's fleet scenarios (``sim/fleet.py``) are not ported:
-    the CLI refuses each by name, and a fleet trace too, naming ROADMAP
-    A6, before it builds anything."""
+def test_cli_runs_and_replays_a_fleet_scenario(tmp_path, capsys):
+    """``python -m karpenter_tpu_torch sim`` runs a fleet scenario
+    (``sim/fleet.py``) on the asked device, lists the JAX package's fleet
+    scenarios, and replays a fleet trace through the fleet runner,
+    reproducing its report and its bytes."""
     import json
 
     from karpenter_tpu.sim.fleet import FLEET_SCENARIOS as REFERENCE_FLEET
-    from karpenter_tpu_torch.sim.cli import FLEET_SCENARIOS, main
+    from karpenter_tpu_torch.sim.cli import main
 
-    assert sorted(FLEET_SCENARIOS) == sorted(REFERENCE_FLEET)
-    for name in FLEET_SCENARIOS:
-        assert main(["--scenario", name, "--device", "cpu"]) == 64
-        assert "ROADMAP A6" in capsys.readouterr().err
+    assert main(["--list"]) == 0
+    listed = {line.split(":")[0] for line in capsys.readouterr().out.splitlines()}
+    assert set(REFERENCE_FLEET) <= listed
     trace = tmp_path / "fleet.jsonl"
-    trace.write_text(json.dumps({"t": "meta", "fleet": True, "scenario": "solver-fleet"}) + "\n")
-    assert main(["--replay", str(trace), "--device", "cpu"]) == 64
-    assert "ROADMAP A6" in capsys.readouterr().err
+    assert main(["--scenario", "store-fleet-chaos", "--seed", "0", "--ticks", "8",
+                 "--device", "cpu", "--trace", str(trace)]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["scenario"] == "store-fleet-chaos" and report["operators"] == 3
+    assert report["invariants"]["violations"] == [] and report["double_launches"] == 0
+    replayed = tmp_path / "fleet.replayed.jsonl"
+    assert main(["--replay", str(trace), "--device", "cpu", "--trace", str(replayed)]) == 0
+    out = capsys.readouterr()
+    assert json.loads(out.out) == report
+    assert "report matches the recorded one" in out.err
+    assert replayed.read_text() == trace.read_text()

@@ -36,6 +36,27 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 torch.set_num_threads(1)
 
 
+# the reference's fleet tests build their runs in module-scoped fixtures,
+# before `on_the_cpu`: these replacements ask each of their `run_fleet` and
+# `replay_fleet` calls for the CPU
+FLEET_ON_THE_CPU = {
+    "test_sim_fleet.py": [
+        ('run_fleet("store-fleet-chaos", 0, TICKS)',
+         'run_fleet("store-fleet-chaos", 0, TICKS, device="cpu")'),
+        ("replay_fleet(str(path))", 'replay_fleet(str(path), device="cpu")'),
+    ],
+    "test_sim_fleet_shards.py": [
+        ('run_fleet("store-fleet-shard-chaos", 0, TICKS)',
+         'run_fleet("store-fleet-shard-chaos", 0, TICKS, device="cpu")'),
+        ("replay_fleet(str(path))", 'replay_fleet(str(path), device="cpu")'),
+    ],
+    "test_service_tenants.py": [
+        ("operators=OPERATORS", 'operators=OPERATORS, device="cpu"'),
+        ("replay_fleet(str(path))", 'replay_fleet(str(path), device="cpu")'),
+    ],
+}
+
+
 def port_tests(ref_file: str, left_out=(), only=None, text=(), fixtures=()) -> dict:
     """The test functions and classes of ``tests/<ref_file>`` run on the
     port, minus ``left_out`` (or ``only`` those named)."""
@@ -73,18 +94,19 @@ def port_tests(ref_file: str, left_out=(), only=None, text=(), fixtures=()) -> d
 
 @pytest.fixture
 def on_the_cpu(monkeypatch):
-    """An operator, scheduler, solver server (and its tenant pool) or pack
-    (``ops/packer.py``'s `run_pack`) built without a device runs on the
-    CPU."""
+    """An operator, scheduler, solver server (and its tenant pool), fleet
+    runner (``sim/fleet.py``) or pack (``ops/packer.py``'s `run_pack`) built
+    without a device runs on the CPU."""
     from karpenter_tpu_torch import operator
     from karpenter_tpu_torch.ops import packer, resident
     from karpenter_tpu_torch.scheduling import solver
     from karpenter_tpu_torch.service import server
+    from karpenter_tpu_torch.sim import fleet
 
     card_default = packer.resolve_device
 
     def resolve(device=None):
         return card_default("cpu" if device is None else device)
 
-    for mod in (operator, solver, packer, resident, server):
+    for mod in (operator, solver, packer, resident, server, fleet):
         monkeypatch.setattr(mod, "resolve_device", resolve)
