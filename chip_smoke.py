@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-13), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-14), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -311,12 +311,31 @@ Phases (each failure exits non-zero before the last line is printed):
    /debug/device), SIGTERM; fails unless it exits 0, prints its span
    report and writes ``spans.json``, and its profiler timelines hold
    device events of ``choose_config`` and a scan.
+14. The static analysis, the tools and the legacy API (`analysis_phase`).
+   (a) ``python -m karpenter_tpu_torch lint --json --profile`` in a
+   subprocess over the port's tree: it must exit 0 with zero live findings
+   from all 18 rules.  A line before it prints the rule count, the launch
+   wrappers ``tracer-safety`` discovers (``analysis/tracer.py``) and the
+   upload sites ``device-put`` matches with its allowlist emptied (each
+   count must be above 0), and the lint's seconds by rule.  (b)
+   ``tools/allocatable_diff.diff_rows`` over phase 7's operator drive on
+   the card (config 2's 10,000 pods bound): one row per managed node,
+   printed; fails on a row whose computed allocatable or capacity differs
+   from the node's registered one, or a skipped node.  (c) A v1alpha5
+   Provisioner and an AWSNodeTemplate converted by ``api/legacy.py`` drive
+   an operator on the card (`LEGACY_PODS` pods that tolerate the
+   Provisioner's taint): the launch counters are set to 0 just before its
+   ticks and read just after, every pod must be nominated by the tick
+   that solves, ``choose_config`` and a scan must launch, every pod bound
+   after, and ``testing.operator_state`` must equal the same drive on the
+   CPU.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
 ``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
 phase 12's over its card drive, ``fleet_launches`` phase 13's over the
-scaled cell's drive), the card line, and last ``{"ok": true, "device":
+scaled cell's drive, ``legacy_launches`` phase 14's over the converted
+objects' drive), the card line, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -503,8 +522,13 @@ FLEET_REPLAYED = "solver-fleet"
 # (the scaled cell's ticks cut from the tests' 24: PERF.md §4)
 SCALED_FLEET = ("solver-fleet-config2", "solver-fleet", 0, 8, 12)
 DEPLOYED_PODS, DEPLOYED_WAIT_S = 10_000, 300.0
+# phase 14: the lint's rules, its time limit, and the converted legacy
+# objects' drive (pods; ticks until they are nominated)
+LINT_RULES = 18
+LINT_TIMEOUT_S = 600
+LEGACY_PODS, LEGACY_TICKS = 40, 4
 
-LAST_PHASE = 13
+LAST_PHASE = 14
 
 
 def fail(msg: str) -> None:
@@ -4286,13 +4310,163 @@ def fleet_phase(torch, card) -> dict:
     return launches
 
 
+def lint_discovery() -> tuple:
+    """What the port's two device rules find on its tree: the launch
+    wrappers ``tracer-safety`` discovers and the upload sites
+    ``device-put`` matches with its allowlist emptied ("file:Qual")."""
+    from karpenter_tpu_torch.analysis import RULES, PackageSnapshot
+    from karpenter_tpu_torch.analysis.allowlists import ALLOWLISTS
+    from karpenter_tpu_torch.analysis.tracer import discover_wrappers
+
+    snap = PackageSnapshot.load()
+    exempt = frozenset(e for e in ALLOWLISTS["tracer-safety"] if isinstance(e, str))
+    wrappers = discover_wrappers(snap, exempt).names()
+    sites = sorted({f"{f.file}:{f.message.split(':')[0]}"
+                    for f in RULES["device-put"]().check(snap, frozenset())})
+    return wrappers, sites
+
+
+def run_lint() -> dict:
+    """Phase 14 (a): the lint subcommand over the port's tree in a fresh
+    process; its JSON report and wall seconds."""
+    import pathlib
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch", "lint", "--json", "--profile"],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=LINT_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 14: lint exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    report["wall_s"] = wall
+    return report
+
+
+def legacy_env(device: str):
+    """Phase 14 (c): an operator environment on ``device`` whose NodeClass
+    and NodePool are a v1alpha5 AWSNodeTemplate and Provisioner converted by
+    ``api/legacy.py``, with `LEGACY_PODS` pending pods that tolerate the
+    Provisioner's taint."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import Pod, Resources, reset_name_sequences
+    from karpenter_tpu_torch.api.legacy import convert_aws_node_template, convert_provisioner
+    from karpenter_tpu_torch.api.objects import Toleration
+
+    reset_name_sequences()
+    env = T.Environment(device=device)
+    env.operator.provisioner.launch_concurrency = 1
+    env.kube.put_node_class(convert_aws_node_template({
+        "apiVersion": "karpenter.k8s.aws/v1alpha1", "kind": "AWSNodeTemplate",
+        "metadata": {"name": "default"},
+        "spec": {"subnetSelector": {"Name": "*"}, "securityGroupSelector": {"Name": "*"}},
+    }))
+    env.kube.put_node_pool(convert_provisioner({
+        "apiVersion": "karpenter.sh/v1alpha5", "kind": "Provisioner",
+        "metadata": {"name": "default"},
+        "spec": {
+            "providerRef": {"name": "default"},
+            "consolidation": {"enabled": True},
+            "taints": [{"key": "dedicated", "value": "ml", "effect": "NoSchedule"}],
+            "limits": {"resources": {"cpu": "1000"}},
+        },
+    }))
+    for i in range(LEGACY_PODS):
+        env.kube.put_pod(Pod(requests=Resources(cpu=0.5 + (i % 4) * 0.5, memory="1Gi"),
+                             tolerations=[Toleration(key="dedicated", value="ml")]))
+    return env
+
+
+def legacy_drive(device: str, launches=None) -> tuple:
+    """Phase 14 (c)'s ticks: 2 s steps until every pod is nominated (at most
+    `LEGACY_TICKS`), then until every pod is bound.  Returns (env, the tick
+    that nominated them, the launches of those ticks by kernel)."""
+    env = legacy_env(device)
+    prov = env.operator.provisioner
+    if launches is not None:
+        launches.reset_launches()
+    for tick in range(1, LEGACY_TICKS + 1):
+        env.step(2.0)
+        if all(prov.cluster.nominated_node(p.key()) is not None or p.node_name
+               for p in env.kube.pods.values()):
+            break
+    else:
+        fail(f"phase 14 ({device}): pods not nominated after {LEGACY_TICKS} ticks")
+    counts = dict(launches.LAUNCHES) if launches is not None else {}
+    env.settle()
+    if env.kube.pending_pods():
+        fail(f"phase 14 ({device}): {len(env.kube.pending_pods())} converted-pool pods unbound")
+    return env, tick, counts
+
+
+def analysis_phase(torch, card) -> dict:
+    """Phase 14 as the module docstring lists it; returns (c)'s launches."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.tools.allocatable_diff import diff_rows
+
+    wrappers, sites = lint_discovery()
+    report = run_lint()
+    rules, timings = report["rules"], report.get("timings_s", {})
+    print(f"  lint: {len(rules)} rules; tracer-safety discovered {len(wrappers)} launch "
+          f"wrappers {wrappers}; device-put matched {len(sites)} upload sites {sites}; "
+          f"seconds by rule {json.dumps(timings, sort_keys=True)}", flush=True)
+    if not wrappers or not sites:
+        fail(f"phase 14: tracer-safety found {len(wrappers)} wrappers, device-put "
+             f"{len(sites)} upload sites")
+    counts = report["counts"]
+    print(f"  lint --json: exit 0, {counts['findings']} live findings, "
+          f"{counts['baselined']} baselined, {len(rules)} rules, "
+          f"{sum(timings.values())!r} s in rules, {report['wall_s']!r} s wall ({card})")
+    if counts["findings"] or report["findings"] or len(rules) != LINT_RULES:
+        fail(f"phase 14: lint reported {counts} over {len(rules)} rules")
+
+    env, _, _ = drive_operator("cuda", rounds=0)
+    diff = diff_rows(env.operator)
+    print(f"  allocatable-diff over phase 7's drive on the card: {len(diff.rows)} managed "
+          f"nodes, {len(diff.skipped)} skipped ({card})")
+    drift = 0
+    for r in diff.rows:
+        moved = (r.alloc_mem_diff_mi, r.alloc_cpu_diff_m,
+                 r.expected_capacity_mem_mi - r.actual_capacity_mem_mi,
+                 r.expected_capacity_cpu_m - r.actual_capacity_cpu_m)
+        drift += any(moved)
+        print(f"    {r.node} {r.instance_type}: allocatable expected "
+              f"{r.expected_alloc_mem_mi} Mi / {r.expected_alloc_cpu_m} m, actual "
+              f"{r.actual_alloc_mem_mi} Mi / {r.actual_alloc_cpu_m} m, diff {moved}")
+    print(f"  allocatable-diff: {drift} rows of drift")
+    if not diff.rows or drift or diff.skipped:
+        fail(f"phase 14: allocatable-diff shows {drift} rows of drift, "
+             f"{len(diff.skipped)} skipped, over {len(diff.rows)} rows")
+    del env
+
+    card_env, tick, launched = legacy_drive("cuda", F)
+    sched = card_env.operator.provisioner.scheduler
+    print(f"  legacy Provisioner + AWSNodeTemplate: {LEGACY_PODS} pods nominated at tick "
+          f"{tick}, {len(card_env.kube.node_claims)} claims, kernel {sched.last_kernel}, "
+          f"launches {json.dumps({k: v for k, v in launched.items() if v})}")
+    if sched.last_kernel != "cuda_ffd":
+        fail(f"phase 14: the converted pool's solve ran {sched.last_kernel}")
+    if not launched.get("choose_config") or not any(launched.get(k) for k in SCAN_KERNELS):
+        fail(f"phase 14: the converted pool's solve launched {launched}")
+    cpu_env, _, _ = legacy_drive("cpu")
+    if T.operator_state(card_env) != T.operator_state(cpu_env):
+        fail("phase 14: the converted objects' drive on the card differs from the CPU's")
+    print("  legacy drive: operator_state equal to the CPU drive's")
+    return launched
+
+
 def phase_launches(kernel: str, per_phase: dict) -> dict:
     """A kernels-line row's launches on each phase's path: ``per_phase``
     maps each column (``operator_launches``: phase 7's drive,
     ``consolidation_launches`` phase 9's, ``sim_launches`` phase 10's
     scenarios, ``service_launches`` phase 11's rounds, ``ha_launches``
-    phase 12's card drive, ``fleet_launches`` phase 13's scaled cell) to
-    that phase's launch counts."""
+    phase 12's card drive, ``fleet_launches`` phase 13's scaled cell,
+    ``legacy_launches`` phase 14's converted objects) to that phase's
+    launch counts."""
     return {col: counts.get(kernel, 0) for col, counts in per_phase.items()}
 
 
@@ -4564,10 +4738,15 @@ def main(argv) -> int:
     fleet_launches = fleet_phase(torch, card)
     verdicts["ffd_scan_window_batched"].update(window_row, err=max(
         window_row["err"], verdicts["ffd_scan_window_batched"]["err"]))
+    phase_done(13, through)
+
+    print(f"[analysis] the static analysis, the tools and the legacy API, {card}", flush=True)
+    legacy_launches = analysis_phase(torch, card)
 
     per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
                  "sim_launches": sim_launches, "service_launches": service["launches"],
-                 "ha_launches": ha_launches, "fleet_launches": fleet_launches}
+                 "ha_launches": ha_launches, "fleet_launches": fleet_launches,
+                 "legacy_launches": legacy_launches}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]

@@ -50,7 +50,10 @@ Subcommands, dispatched as the JAX package's entry point does:
 - ``obs``: span dumps and simulator traces rendered as Chrome-trace JSON
   (``obs/render.py``);
 - ``store-server``: the shared cluster store (``service/store_server.py``)
-  that ``--store-address`` replicas share.
+  that ``--store-address`` replicas share;
+- ``lint``: the static analysis of the port's own tree (``analysis/cli.py``:
+  the rule engine and its 18 rules; ``--json``, ``--rule``,
+  ``--list-rules``, ``--profile``, ``--witness``, ``--baseline``).
 
     python -m karpenter_tpu_torch --interval 1 --metrics-port 8080 --demo-pods 100
     python -m karpenter_tpu_torch --ticks 3 --device cpu --pods 100
@@ -58,6 +61,7 @@ Subcommands, dispatched as the JAX package's entry point does:
     python -m karpenter_tpu_torch sim --scenario store-fleet-chaos --seed 0 --ticks 36 --device cpu
     python -m karpenter_tpu_torch store-server --port 18097 &
     python -m karpenter_tpu_torch --ticks 30 --pods 100 --store-address 127.0.0.1:18097
+    python -m karpenter_tpu_torch lint --json
 """
 
 from __future__ import annotations
@@ -98,6 +102,12 @@ def main(argv=None) -> int:
         from karpenter_tpu_torch.sim.cli import main as sim_main
 
         return sim_main(argv[1:])
+    if argv and argv[0] == "lint":
+        # the static analysis of the port's own tree (analysis/cli.py):
+        # exit 0 clean, 1 findings, 2 checker error
+        from karpenter_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     if argv and argv[0] == "store-server":
         # the shared cluster store: one durable KubeStore that
         # --store-address replicas (and their Lease election) share

@@ -8,7 +8,8 @@ Entry types are rule-defined:
 - ``"LockA|LockB"`` pair ids (lock-order),
 - ``"root:<rel_in_pkg>:<qual>"`` strings (extra determinism roots — the
   teeth harness hook),
-- bare names (doc-vocabulary extensions, used only by synthetic tests).
+- bare names (doc-vocabulary extensions, used only by synthetic tests;
+  for tracer-safety, the CUDA library's host-query entries).
 
 Adding an entry here is a REVIEWED act: the change that adds one must say
 why the exception is sound (see docs/designs/static-analysis.md).
@@ -42,17 +43,17 @@ _SCHEDULER_UPDATE = frozenset(
 )
 
 # rule 7: the sanctioned full-tensorize sites — the wrapper itself, the
-# cold build / resident-miss rebuild, the direct compile+pack+decode
-# kept for tests, and the consolidation base's rebuild fallback.
+# cold build / resident-miss rebuild, and the consolidation base's
+# rebuild fallback.  The port's scheduler is TorchScheduler, and it has
+# no counterpart of the reference's _solve_tensor (the direct
+# compile+pack+decode kept for tests): its cold compile is in _solve.
 _FULL_TENSORIZE = frozenset(
     {
         ("karpenter_tpu_torch/scheduling/solver.py",
-         "TensorScheduler._compile_tensor"),
-        ("karpenter_tpu_torch/scheduling/solver.py", "TensorScheduler._solve"),
+         "TorchScheduler._compile_tensor"),
+        ("karpenter_tpu_torch/scheduling/solver.py", "TorchScheduler._solve"),
         ("karpenter_tpu_torch/scheduling/solver.py",
-         "TensorScheduler._solve_tensor"),
-        ("karpenter_tpu_torch/scheduling/solver.py",
-         "TensorScheduler._build_removal_base"),
+         "TorchScheduler._build_removal_base"),
     }
 )
 
@@ -72,9 +73,23 @@ _SEQUENTIAL_DESCENT = frozenset(
     }
 )
 
-# rule 9: the counted-upload seam is the one sanctioned raw device_put.
+# rule 9: the counted-upload seam is the one sanctioned raw upload (its
+# ``.copy_`` into a fresh device allocation), and one site that matches
+# the upload syntax without being an upload on any path:
 _DEVICE_PUT = frozenset(
-    {("karpenter_tpu_torch/obs/device.py", "DeviceObservatory.put")}
+    {
+        ("karpenter_tpu_torch/obs/device.py", "DeviceObservatory.put"),
+        # The plain version of the scan builds its first-free-slot scalar
+        # on the device its tensors lie on.  The wrappers hand it CPU
+        # tensors only (fused_packer.ffd_scan and fleet_pack run their
+        # kernels for card tensors), where the constructor copies nothing
+        # over a link.  On the card it runs only where a kernel is held
+        # against its plain version on the same card tensors (the smoke
+        # script's comparisons), off every path whose transfers the
+        # observatory accounts, and there its one 4-byte scalar belongs
+        # to the comparison, not to a solve.
+        ("karpenter_tpu_torch/ops/packer.py", "ffd_scan_reference"),
+    }
 )
 
 # rule 11: the one sanctioned pool constructor for the controller layer.
@@ -182,7 +197,25 @@ _DETERMINISM = frozenset(
 )
 
 # --------------------------------------------------- tracer-safety seam
-_TRACER_SAFETY = frozenset()
+# Bare names are the CUDA library's host queries (ops/fused_packer.py):
+# entries that launch no kernel, so a function that calls only them is
+# not a launch wrapper and its calls need no dispatch.  Each returns a
+# figure the host plans a launch with and touches no tensor:
+_TRACER_SAFETY = frozenset(
+    {
+        # cudaOccupancyMaxActiveBlocksPerMultiprocessor / ...Clusters for
+        # a scan at given shapes: how many batch elements run at once
+        "ffd_scan_concurrency",
+        # the largest R whose alloc and group rows the verdict config
+        # pass can stage in shared memory (a device-attribute query)
+        "ffd_verdict_max_axes",
+        # bytes of the scratch buffer verdict_rows allocates (arithmetic)
+        "ffd_verdict_scratch_bytes",
+        # the verdict config pass's compile-time tile and largest group
+        "ffd_verdict_config_tile",
+        "ffd_verdict_max_group",
+    }
+)
 
 # ------------------------------------------------- runtime sanitizer
 # Locks under which the runtime blocking witness (sanitizer.py

@@ -78,18 +78,6 @@ def _nbytes(value) -> int:
     return int(value.nbytes)
 
 
-def upload(value, device) -> torch.Tensor:
-    """A whole new allocation on ``device`` holding a copy of ``value``:
-    never a view of the host array (on the CPU `torch.from_numpy` would
-    alias it) and never an offset into a larger buffer (the scan wants
-    ``feas`` 16-byte aligned)."""
-    src = (
-        value if isinstance(value, torch.Tensor)
-        else torch.from_numpy(np.require(value, requirements=("C", "W")))
-    )
-    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
-
-
 class DeviceScope:
     """One accounting window: the process totals, or a caller's run.  All
     fields are counts and bytes except ``compile_s`` (wall seconds of the
@@ -209,8 +197,15 @@ class DeviceObservatory:
     def put(self, site: str, value, device) -> torch.Tensor:
         """The ONE counted upload: ``value`` (a numpy array or a CPU
         tensor) copied into a fresh allocation on ``device``, its bytes
-        counted under ``site``."""
-        dev = upload(value, device)
+        counted under ``site``.  The copy is a whole new allocation: never
+        a view of the host array (on the CPU `torch.from_numpy` would alias
+        it) and never an offset into a larger buffer (the scan wants
+        ``feas`` 16-byte aligned)."""
+        src = (
+            value if isinstance(value, torch.Tensor)
+            else torch.from_numpy(np.require(value, requirements=("C", "W")))
+        )
+        dev = torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
         if self.enabled:
             self.count_transfer(site, _nbytes(value))
         return dev

@@ -1373,13 +1373,14 @@ class HAHarness:
         transfer.  A write made before it can be lost from the writer's
         own mirror: the first snapshot, taken before the write, sweeps a
         key the server has acknowledged, and the stream never echoes a
-        client's own writes back to it."""
-        deadline = time.monotonic() + HA_SYNC_TIMEOUT_S
+        client's own writes back to it.  It polls on each client's pacing
+        clock, as the client's own `wait_synced` does."""
         for name, kube in self.kubes.items():
+            deadline = kube.clock.now() + HA_SYNC_TIMEOUT_S
             while not all(ch.ever_synced for ch in kube._channels):
-                if time.monotonic() > deadline:
+                if kube.clock.now() > deadline:
                     raise AssertionError(f"mirror {name}: no first watch transfer")
-                time.sleep(0.005)
+                kube.clock.sleep(0.005)
 
     @staticmethod
     def parts():

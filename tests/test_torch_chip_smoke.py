@@ -194,15 +194,16 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "11"], 11),
     (["--through", "12"], 12),
     (["--through", "13"], 13),
+    (["--through", "14"], 14),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13"])
+    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "14"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "15"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -223,7 +224,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "14"],
+        [sys.executable, "chip_smoke.py", "--through", "15"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -740,7 +741,43 @@ def test_phase13_crash_rounds_and_launch_columns():
     assert list(row)[-1] == "fleet_launches"
     assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
                    "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
-    assert chip_smoke.LAST_PHASE == 13
+    assert chip_smoke.LAST_PHASE == 14
     assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
         "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
     assert chip_smoke.FLEET_REPLAYED == "solver-fleet"
+
+
+def test_phase14_lint_discovery():
+    """Phase 14 (a)'s discovery line: the launch wrappers of the CUDA
+    library and the upload sites, each found on the port's tree."""
+    wrappers, sites = chip_smoke.lint_discovery()
+    assert "karpenter_tpu_torch/ops/fused_packer.py:choose_config" in wrappers
+    assert "karpenter_tpu_torch/ops/packer.py:admit_kernel" in wrappers
+    assert "karpenter_tpu_torch/obs/device.py:DeviceObservatory.put" in sites
+    assert chip_smoke.LINT_RULES == 18
+
+
+def test_phase14_legacy_drive_on_the_cpu():
+    """Phase 14 (c) on the CPU: the converted Provisioner and
+    AWSNodeTemplate provision every pod, nominated within the drive's
+    ticks (no kernel counts on the CPU), and a second drive's state equals
+    the first's (the card drive is held to the CPU's so)."""
+    from karpenter_tpu_torch import testing as T
+
+    env, tick, counts = chip_smoke.legacy_drive("cpu")
+    assert 1 <= tick <= chip_smoke.LEGACY_TICKS and counts == {}
+    assert env.operator.provisioner.scheduler.last_kernel == "reference"
+    assert len(env.kube.pods) == chip_smoke.LEGACY_PODS and not env.kube.pending_pods()
+    pool = env.kube.node_pools["default"]
+    assert [t.key for t in pool.taints] == ["dedicated"]
+    again, _, _ = chip_smoke.legacy_drive("cpu")
+    assert T.operator_state(env) == T.operator_state(again)
+
+
+def test_phase14_launch_column():
+    """The kernels line's newest launch column is phase 14's."""
+    per_phase = {"fleet_launches": {"choose_config": 9},
+                 "legacy_launches": {"choose_config": 1, "ffd_scan": 1}}
+    row = chip_smoke.phase_launches("ffd_scan", per_phase)
+    assert list(row) == ["fleet_launches", "legacy_launches"]
+    assert row == {"fleet_launches": 0, "legacy_launches": 1}
