@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-14), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-15), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -329,13 +329,38 @@ Phases (each failure exits non-zero before the last line is printed):
    that solves, ``choose_config`` and a scan must launch, every pod bound
    after, and ``testing.operator_state`` must equal the same drive on the
    CPU.
+15. The device mesh (`mesh_phase`; ``parallel/mesh.py`` and
+   ``csrc/mesh_pack.cu``): a (4, 2) mesh of `MESH_SHARDS` shards over the
+   machine's cards in turn (all 8 on the one card of a one-card machine),
+   its devices printed (the solver takes the mesh only when asked, so
+   this phase builds it by hand).  The main path, with the launch
+   counts set to 0 just before and read just after: config 2's cold, hit
+   and delta ticks through ``TorchScheduler(pack_fn=mesh_pack_fn(mesh))``,
+   the flagship and the live cluster (2,000 live nodes: the prefix crosses
+   shards with existing nodes) through it, and ``sharded_solve_step`` on a
+   factorized problem at config 2's shapes (Gp 320, Cp 8192, Kp 4096);
+   each of the four kernels must launch and no single-device kernel may;
+   each solve must decode equal to a single-device scheduler's, the hit
+   and delta must pack from the sharded resident state, whose buffers
+   must equal their mirrors.  Then ``mesh_pack_fn`` against the
+   single-device ``ffd_pack`` at the three problems, both objectives; each
+   kernel against its plain version step by step (`mesh_lockstep`) on the
+   main path's resident tensors and on ``testing.wrap_arrays`` (256, and
+   4096 with the prefilled slots across shards) and two
+   ``testing.frontier_arrays`` elements, both objectives there;
+   ``assemble_feasibility`` whole and tile by tile.  Then at config 2: the
+   sharded pack and the single-device ``ffd_pack`` in turns (wall ms a
+   solve), the launches a solve, the exchange's host share, the device's
+   busy and copy time, each kernel's profiler time a launch beside its
+   plain version's and its bound from this run's data.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
 ``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
 phase 12's over its card drive, ``fleet_launches`` phase 13's over the
 scaled cell's drive, ``legacy_launches`` phase 14's over the converted
-objects' drive), the card line, and last ``{"ok": true, "device":
+objects' drive, ``mesh_launches`` phase 15's main path; the four mesh
+kernels' rows take ``launches`` from there), the card line, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -369,7 +394,8 @@ VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
                     "population_pairs": "population_prologue"}
 KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel",
            "choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
-           "ffd_scan_global_fleet")
+           "ffd_scan_global_fleet", "assemble_feasibility", "choose_config_shard",
+           "ffd_shard_cap", "ffd_shard_apply")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
@@ -383,7 +409,11 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "admit_kernel": "arrivals",
                "choose_config_fleet": "service-16-config2",
                "ffd_scan_fleet": "service-16-config2",
-               "ffd_scan_cluster_fleet": "fleet_live", "ffd_scan_global_fleet": "fleet_live"}
+               "ffd_scan_cluster_fleet": "fleet_live", "ffd_scan_global_fleet": "fleet_live",
+               # phase 15: the factorized step at config 2's shapes, and the
+               # sharded pack over config 2's resident state on the mesh
+               "assemble_feasibility": "mesh_step", "choose_config_shard": "config2_mesh",
+               "ffd_shard_cap": "config2_mesh", "ffd_shard_apply": "config2_mesh"}
 OBJECTIVES = ("nodes", "cost")
 # phase 6: the sweep's pods, the live cluster's nodes and universe, each
 # problem's population and rounds, the plan's seed, timed repeats
@@ -411,6 +441,10 @@ TIMED_VERDICTS = 5
 VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 PROFILE_ATTEMPTS = 3  # profiler windows a kernel's device time may take
+# a kernel the profiler names otherwise than "<name>_kernel": the choice
+# tile is choose_config_kernel's shard mode (timed where it alone launches)
+PROFILE_SYMBOL = {"choose_config_shard": "choose_config_kernel"}
+SLEEP_PROBE_CYCLES = 10_000_000  # the sleep kernel's calibration (events_device_ms)
 # the kernels whose registers phase 2 prints and whose spills fail the run
 SPILL_CHECKED = ("choose_config", "ffd_scan_window", *VERDICT_ROWS, "population_pairs",
                  "admit")
@@ -526,9 +560,25 @@ DEPLOYED_PODS, DEPLOYED_WAIT_S = 10_000, 300.0
 # objects' drive (pods; ticks until they are nominated)
 LINT_RULES = 18
 LINT_TIMEOUT_S = 600
+# phase 15: the device mesh (parallel/mesh.py, csrc/mesh_pack.cu)
+MESH_SHARDS = 8  # a (4, 2) mesh: 8 shards on one card, one a card on eight
+MESH_SOURCE = "karpenter_tpu_torch/csrc/mesh_pack.cu"
+# the choice tile is the shard mode of ffd_pack.cu's choose_config_kernel
+MESH_SOURCES = {"choose_config_shard": KERNEL_SOURCE}
+MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_cap",
+                "ffd_shard_apply")
+MESH_REPLACES = {  # the jitted XLA the mesh kernels replace (the reference's mesh)
+    "assemble_feasibility": "karpenter_tpu/parallel/mesh.py:74",
+    "choose_config_shard": "karpenter_tpu/ops/packer.py:97",
+    "ffd_shard_cap": "karpenter_tpu/ops/packer.py:124",
+    "ffd_shard_apply": "karpenter_tpu/ops/packer.py:133",
+}
+MESH_STEP_TYPES = 1024  # the factorized step at config 2's shapes: Cp 8192 ...
+MESH_STEP_CLASSES = 320  # ... Gp 320, at the live cluster's 4096 slots
+MESH_TIMED = 3  # timed sharded packs (and single-device packs) at config 2
 LEGACY_PODS, LEGACY_TICKS = 40, 4
 
-LAST_PHASE = 14
+LAST_PHASE = 15
 
 
 def fail(msg: str) -> None:
@@ -896,12 +946,60 @@ def _device_us(ev) -> float:
     return dev_us if dev_us is not None else getattr(ev, "self_cuda_time_total", 0.0)
 
 
-def profiled_launches_ms(torch, fn, kernels, iters: int) -> dict:
+def sleep_cycles_per_ms(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` a device millisecond, measured once
+    by CUDA events."""
+    if "cycles" not in _SLEEP:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(SLEEP_PROBE_CYCLES)
+        end.record()
+        end.synchronize()
+        _SLEEP["cycles"] = SLEEP_PROBE_CYCLES / start.elapsed_time(end)
+    return _SLEEP["cycles"]
+
+
+_SLEEP: dict = {}
+
+
+def events_device_ms(torch, fn, iters: int, launches: int = 1) -> float:
+    """Device milliseconds per launch of ``fn``'s kernel (``fn`` launching
+    it ``launches`` times a call and nothing else), from CUDA events around
+    ``iters`` calls.  A sleep kernel queued first keeps the stream busy
+    while the host enqueues the events and the calls (twice the calls'
+    measured host time, plus 1 ms), so the events time the launches back
+    to back on the device, not the host's enqueue: the fallback where
+    torch.profiler records no device time.  The device's gap between two
+    launches is in it, so a kernel of a few microseconds reads higher
+    than the profiler's duration of it (PERF.md §7)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_ms + 1) * sleep_cycles_per_ms(torch)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * launches)
+
+
+def profiled_launches_ms(torch, fn, kernels, iters: int, fallback=None) -> dict:
     """Mean device milliseconds per launch of each kernel of ``kernels``
     over ``iters`` calls of ``fn``, from torch.profiler.  The profiler now
     and then records no device event over a whole window (PERF.md §7), so
     a window that misses a kernel is profiled again, `PROFILE_ATTEMPTS`
-    windows at most, before the run fails."""
+    windows at most; then ``fallback(missing)`` (CUDA events, where the
+    caller has one) times the kernels still missing, or the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -915,8 +1013,9 @@ def profiled_launches_ms(torch, fn, kernels, iters: int) -> dict:
         out, missing = {}, []
         for kernel in kernels:
             total_us, count = 0.0, 0
+            symbol = PROFILE_SYMBOL.get(kernel, f"{kernel}_kernel")
             for ev in events:
-                if f"{kernel}_kernel" in ev.key and _device_us(ev) > 0:
+                if symbol in ev.key and _device_us(ev) > 0:
                     total_us += _device_us(ev)
                     count += ev.count
             if count:
@@ -927,14 +1026,20 @@ def profiled_launches_ms(torch, fn, kernels, iters: int) -> dict:
             return out
         print(f"  torch.profiler saw no device time of {', '.join(missing)} in window "
               f"{attempt} of {PROFILE_ATTEMPTS}", flush=True)
-    fail(f"torch.profiler saw no device time of {', '.join(missing)} in "
-         f"{PROFILE_ATTEMPTS} windows")
+    if fallback is None:
+        fail(f"torch.profiler saw no device time of {', '.join(missing)} in "
+             f"{PROFILE_ATTEMPTS} windows")
+    timed = fallback(missing)
+    print(f"  {', '.join(missing)} timed by CUDA events instead: {json.dumps(timed)} ms a "
+          "launch", flush=True)
+    return {**out, **timed}
 
 
-def profiled_ms(torch, fn, kernel: str, iters: int):
+def profiled_ms(torch, fn, kernel: str, iters: int, fallback=None):
     """Mean device milliseconds per launch of ``kernel`` over ``iters``
-    calls of ``fn``, from torch.profiler."""
-    return profiled_launches_ms(torch, fn, (kernel,), iters)[kernel]
+    calls of ``fn``, from torch.profiler (``fallback`` as
+    `profiled_launches_ms` takes it)."""
+    return profiled_launches_ms(torch, fn, (kernel,), iters, fallback)[kernel]
 
 
 def time_kernels(torch, args, scan_turns: bool = False):
@@ -1099,7 +1204,7 @@ def check_mirrors(torch, name, st) -> None:
     import numpy as np
 
     for m in MIRRORS:
-        d, h = getattr(st, f"d_{m}").cpu().numpy(), getattr(st, f"h_{m}")
+        d, h = host_of(getattr(st, f"d_{m}")), getattr(st, f"h_{m}")
         if d.dtype == np.float32:
             d, h = d.view(np.int32), h.view(np.int32)
         if d.shape != h.shape or not np.array_equal(d, h):
@@ -1107,8 +1212,14 @@ def check_mirrors(torch, name, st) -> None:
     E = len(st.live)
     cfg0 = np.full(st.Kp, -1, np.int32)
     cfg0[:E] = np.arange(st.fe, st.fe + E)
-    if not np.array_equal(st.d_cfg0.cpu().numpy(), cfg0):
+    if not np.array_equal(host_of(st.d_cfg0), cfg0):
         fail(f"{name}: resident d_cfg0 is not the live slots' configs")
+
+
+def host_of(t):
+    """A resident buffer read back whole: a card tensor, or a buffer
+    sharded over a mesh (``parallel/mesh.Sharded``)."""
+    return t.host() if hasattr(t, "host") else t.cpu().numpy()
 
 
 def placed_all(name, sched, result, n_pods) -> None:
@@ -4459,6 +4570,447 @@ def analysis_phase(torch, card) -> dict:
     return launched
 
 
+def mesh_devices(torch) -> list:
+    """Phase 15's shards: `MESH_SHARDS` over the machine's cards in turn
+    (all of them on the one card of a one-card machine)."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(MESH_SHARDS)]
+
+
+def _differ(torch, a, b, fields):
+    """A card flag: any of the shard buffers ``fields`` of ``a`` and ``b``
+    differ (float32 by bit pattern)."""
+    out = None
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        d = (x != y).any()
+        out = d if out is None else out | d
+    return out
+
+
+# the shard buffers each step writes (ops/packer.py: MeshShard)
+CAP_FIELDS = ("used", "cfg", "npods", "sig", "take", "leftover", "cap", "nxt", "xchg")
+APPLY_FIELDS = ("take", "xchg")
+
+
+def mesh_lockstep(torch, name, mesh, args, objective, plain_s=None) -> tuple:
+    """Each mesh kernel against its plain version on the same card tensors,
+    step by step: every tile's choice records, then per class each shard's
+    cap and apply launches on one copy of the shard and the plain steps on
+    another, every buffer the step writes compared bit for bit (mismatch
+    flags kept on the card, read once at the end).  ``plain_s`` collects
+    the plain steps' seconds and calls by kernel.  Returns the kernels' and
+    the plain steps' five outputs and the choice records' max_abs_err."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+
+    plan, reps, slots, next0 = PM.pack_layout(mesh, args, site="mesh_smoke")
+    recs_k, recs_p = [], []
+    for dev, g0, g1, c0, c1 in plan.tile_bounds():
+        rep = reps[dev]
+        a = (rep[0], rep[2], rep[4], rep[5], rep[6], rep[7], g0, g1, c0, c1, objective)
+        recs_k.append(F.choose_config_shard(*a))
+        recs_p.append(P.choose_config_shard_reference(*a))
+    e_choose = max_abs_err(torch, recs_k, recs_p)
+    if e_choose != 0.0:
+        fail(f"{name} {objective}: choose_config_shard differs from its plain version "
+             f"(max_abs_err {e_choose!r})")
+    kern = P.mesh_shards(plan, reps, recs_k, slots, next0)
+    plain = P.mesh_shards(plan, reps, recs_p, slots, next0)
+    G = kern[0].take.shape[0]
+    bad = {k: [None] * len(kern) for k in ("ffd_shard_cap", "ffd_shard_apply")}
+
+    def step(kernel, fn, ref, fields, g):
+        for i, (a, b) in enumerate(zip(kern, plain)):
+            fn(a, g)
+            t0 = time.perf_counter()
+            ref(b, g)
+            if plain_s is not None:
+                torch.cuda.synchronize()
+                plain_s[kernel][0] += time.perf_counter() - t0
+                plain_s[kernel][1] += 1
+            d = _differ(torch, a, b, fields)
+            bad[kernel][i] = d if bad[kernel][i] is None else bad[kernel][i] | d
+
+    for g in range(G + 1):
+        step("ffd_shard_cap", F.ffd_shard_cap, P.ffd_shard_cap_reference, CAP_FIELDS, g)
+        if g == G:
+            break
+        P.mesh_exchange_row(kern, 0, g)
+        P.mesh_exchange_row(plain, 0, g)
+        step("ffd_shard_apply", F.ffd_shard_apply, P.ffd_shard_apply_reference, APPLY_FIELDS, g)
+        P.mesh_exchange_row(kern, 1, g)
+        P.mesh_exchange_row(plain, 1, g)
+    for kernel, flags in bad.items():
+        if any(bool(f) for f in flags):
+            fail(f"{name} {objective}: {kernel} differs from its plain version")
+    return P.mesh_outputs(kern), P.mesh_outputs(plain), e_choose
+
+
+def open_steps(take, node_cfg, next0: int):
+    """For each class step g, the slots that hold a config before it: the
+    live slots, and each new slot from the class whose window opened it
+    (the first class it takes pods from)."""
+    import numpy as np
+
+    K = node_cfg.shape[0]
+    G = take.shape[0]
+    opened_at = np.full(K, G + 1)
+    idx = np.arange(K)
+    live = (node_cfg >= 0) & (idx < next0)
+    opened_at[live] = 0
+    new = (node_cfg >= 0) & (idx >= next0)
+    took = take[:, new] > 0
+    opened_at[new] = np.where(took.any(0), took.argmax(0) + 1, G + 1)
+    return opened_at  # slot k holds a config at class step g iff opened_at[k] <= g
+
+
+def mesh_bounds(plan, args_host, outs, R_req) -> dict:
+    """The least time of one launch of each scan kernel, averaged over a
+    pack's launches, from this run's data: per class step g the cap launch
+    of a shard reads and writes its slots' state (usage R floats, config,
+    take, pod count, signature counter; the caps written) and gathers the
+    alloc row and the feasibility byte of each slot that holds a config
+    then, and the apply launch reads the caps and writes the takes; their
+    operations are the usage FMAs and the requested axes' divisions of each
+    live slot.  The choice tile reads its classes' rows, its configs' feas
+    bytes and alloc rows and every config's price and openable byte."""
+    import numpy as np
+
+    req = args_host[0]
+    G, R = req.shape
+    C = args_host[5].shape[0]
+    D = len(plan.tiles)
+    take, _, node_cfg, _, _ = (o.cpu().numpy() for o in outs)
+    opened_at = open_steps(take, node_cfg, int(args_host[11]))
+    kb = plan.k_bounds
+    cap_b = cap_o = app_b = app_o = 0
+    for d in range(D):
+        kd = kb[d + 1] - kb[d]
+        at = opened_at[kb[d]: kb[d + 1]]
+        live_by_g = np.searchsorted(np.sort(at), np.arange(G + 1), side="right")
+        live = int(live_by_g.sum())
+        cap_b += (G + 1) * kd * (8 * R + 4 * 9) + live * (4 * R + 1)
+        cap_o += G * kd * R + live * 3 * max(R_req, 1)
+        app_b += G * kd * 8
+        app_o += G * kd * 3
+    n_cap, n_app = (G + 1) * D, G * D
+    tiles = len(plan.tiles) * len(plan.tiles[0])
+    ch_b = G * (4 * R + 4 + 16) + G * C + C * 4 * R + tiles * C * 5
+    ch_o = G * C * (max(R_req, 1) + 4) + tiles * C
+    return {"ffd_shard_cap": _bound(cap_b / n_cap, cap_o / n_cap),
+            "ffd_shard_apply": _bound(app_b / n_app, app_o / n_app),
+            "choose_config_shard": _bound(ch_b / tiles, ch_o / tiles)}
+
+
+def mesh_events_ms(torch, mesh, args, kernels) -> dict:
+    """Phase 15's fallback where torch.profiler records no device time of
+    the sharded pack's kernels: device ms a launch of each of ``kernels``
+    from CUDA events (`events_device_ms`) on the pack's own tensors
+    ``args``, on a mesh of one card.  The choice tiles are timed alone; the
+    scan over the classes on fresh shards (one card: the exchange copies
+    nothing) gives the cap and apply launches' sum, from which a pass of
+    apply launches alone over the finished shards (each writes only its
+    class's take row) is taken out."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+
+    if len(mesh.distinct()) != 1:
+        fail("torch.profiler saw no device time of the mesh kernels; the CUDA-event "
+             "fallback times a mesh of one card only")
+    plan, reps, slots, next0 = PM.pack_layout(mesh, args, site="mesh_smoke")
+    tiles = list(plan.tile_bounds())
+
+    def choose():
+        return [F.choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                      g0, g1, c0, c1) for dev, g0, g1, c0, c1 in tiles]
+
+    out = {"choose_config_shard": events_device_ms(torch, choose, 5, len(tiles))}
+    recs = choose()
+    fresh = [P.mesh_shards(plan, reps, recs, slots, next0) for _ in range(5)]
+    done = fresh[-1]
+    G, D = done[0].take.shape[0], len(done)
+    scan_ms = events_device_ms(
+        torch, lambda: P.mesh_scan(fresh.pop(), F.ffd_shard_cap, F.ffd_shard_apply), 2)
+    out["ffd_shard_apply"] = events_device_ms(
+        torch, lambda: [F.ffd_shard_apply(sh, g) for g in range(G) for sh in done], 2, G * D)
+    out["ffd_shard_cap"] = (scan_ms - out["ffd_shard_apply"] * G * D) / ((G + 1) * D)
+    return {k: out[k] for k in kernels}
+
+
+def assemble_bound(p) -> dict:
+    S = p["type_ok"].shape[0]
+    G, C = len(p["sig_of"]), len(p["t_of"])
+    byts = 4 * G + 12 * C + S * (p["type_ok"].shape[1] + p["zone_ok"].shape[1]
+                                 + p["ct_ok"].shape[1]) + G * C
+    return _bound(byts, 2 * G * C)
+
+
+def mesh_phase(torch, card) -> dict:
+    """Phase 15 as the module docstring lists it; returns the kernels
+    line's rows of the mesh kernels and the counts of its main path."""
+    import random
+
+    import numpy as np
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    dev = torch.device("cuda")
+    mesh = PM.make_mesh(MESH_SHARDS, mesh_devices(torch))
+    if mesh.shape != (4, 2):
+        fail(f"phase 15: a mesh of {MESH_SHARDS} shards has shape {mesh.shape}")
+    print(f"  mesh {mesh.shape}: data rows "
+          f"{[[str(d) for d in row] for row in mesh.devices]} ({card})", flush=True)
+    specs = problems()
+    rng = random.Random(15)
+    pools, inv, pods, _ = specs["config2"]
+    ticks = {"cold": pods, "hit": pods, "delta": churn(rng, pods, [])}
+    step_p = T.mesh_step_problem(classes=MESH_STEP_CLASSES, k_slots=4096, types=MESH_STEP_TYPES)
+
+    # the single-device reference solves, before the counted window
+    single = TorchScheduler(pools, inv, device=dev)
+    want = {kind: canonical(single.solve(p)) for kind, p in ticks.items()}
+    if single.pack_fn is not None or single.last_kernel != "cuda_ffd":
+        fail(f"phase 15: the single-device scheduler picked {single.last_kernel}")
+    for name in ("flagship", "config2_live"):
+        pl, iv, pd, ex = specs[name]
+        want[name] = canonical(TorchScheduler(pl, iv, existing=ex, device=dev).solve(pd))
+
+    # ---- the main path: counts zeroed just before, read just after --------
+    fn = PM.mesh_pack_fn(mesh)
+    F.reset_launches()
+    t0 = time.perf_counter()
+    msched = TorchScheduler(pools, inv, device=dev, pack_fn=fn)
+    got, solve_ms = {}, {}
+    for kind, p in ticks.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got[kind] = canonical(msched.solve(p))
+        torch.cuda.synchronize()
+        solve_ms[kind] = (time.perf_counter() - t1) * 1e3
+        # the cold solve seeds the sharded resident state and packs from it;
+        # the hit and the delta pack from it with no seed
+        seeds = (msched.resident_rebuilds, msched.resident_hits)
+        if (msched.last_kernel != "scan-sharded" or not msched.last_resident
+                or seeds != {"cold": (1, 0), "hit": (1, 1), "delta": (1, 2)}[kind]):
+            fail(f"phase 15: the mesh's {kind} solve ran {msched.last_kernel}, "
+                 f"resident={msched.last_resident}, rebuilds and hits {seeds}")
+    scheds = {}
+    for name in ("flagship", "config2_live"):
+        pl, iv, pd, ex = specs[name]
+        scheds[name] = TorchScheduler(pl, iv, existing=ex, device=dev, pack_fn=fn)
+        got[name] = canonical(scheds[name].solve(pd))
+    step_out = PM.sharded_solve_step(mesh, 4096)(*(step_p[k] for k in T.MESH_STEP_ARGS))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = dict(F.LAUNCHES)
+    print(f"  main path ({main_s:.3f} s): config 2 cold / hit / delta through "
+          f"TorchScheduler(pack_fn=mesh_pack_fn(mesh)) ({json.dumps(solve_ms)} ms), the "
+          f"flagship, the live cluster, sharded_solve_step at Gp {MESH_STEP_CLASSES} Cp "
+          f"{len(step_p['t_of'])} Kp 4096; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    for k in MESH_KERNELS:
+        if not counts[k]:
+            fail(f"phase 15: the main path never launched {k}")
+    single_path = [k for k in ("choose_config", *SCAN_KERNELS) if counts[k]]
+    if single_path:
+        fail(f"phase 15: the mesh's solves launched the single-device {single_path}")
+    for key, val in got.items():
+        if val != want[key]:
+            fail(f"phase 15: the mesh's {key} solve decodes unlike the single-device one")
+    print("  decoded: config 2 cold / hit / delta, the flagship and the live cluster equal "
+          "the single-device scheduler's", flush=True)
+    st = msched._resident.states[-1]
+    check_mirrors(torch, "phase 15 config2", st)
+    if st.mesh is not mesh or st.d_used0.spec != "on_k":
+        fail("phase 15: the resident state is not sharded over the mesh")
+
+    # ---- mesh_pack_fn against the single-device ffd_pack -----------------
+    dp = mesh.shape[0]
+    for name, spec in specs.items():
+        prob = compiled(spec)
+        args, kp = P.pad_problem(prob, max(P.node_slot_bound(prob), 8 * dp))
+        for objective in OBJECTIVES:
+            m = fn(prob, k_slots=kp, objective=objective)
+            s = F.ffd_pack(*P.to_device(args, dev), objective=objective)
+            if max_abs_err(torch, m, s) != 0.0:
+                fail(f"phase 15: mesh_pack_fn differs from ffd_pack at {name} {objective}")
+        print(f"  mesh_pack_fn == ffd_pack at {name} (Kp {kp}, both objectives)", flush=True)
+
+    # ---- each kernel against its plain version -----------------------------
+    errs = {k: 0.0 for k in MESH_KERNELS}
+    plain_s = {k: [0.0, 0] for k in ("ffd_shard_cap", "ffd_shard_apply")}
+    states = {"config2": st, "flagship": scheds["flagship"]._resident.states[-1],
+              "config2_live": scheds["config2_live"]._resident.states[-1]}
+    outs = {}
+    for name, state in states.items():
+        args = state.pack_args()
+        k_out, p_out, e_choose = mesh_lockstep(torch, name, mesh, args, "nodes",
+                                               plain_s if name == "config2" else None)
+        errs["choose_config_shard"] = max(errs["choose_config_shard"], e_choose)
+        outs[name] = (args, k_out)
+        for k in ("ffd_shard_cap", "ffd_shard_apply"):
+            errs[k] = max(errs[k], max_abs_err(torch, k_out, p_out))
+        print(f"  {name}: every step bit-equal (Gp {state.Gp}, Cp {state.Cp}, Kp {state.Kp}, "
+              f"live {len(state.live)})", flush=True)
+    cases = {"wrap 256": T.wrap_arrays(256), "wrap 4096 straddling 2048":
+             T.wrap_arrays(4096, at=2046), "frontier wrap": T.frontier_pack("wrap", 0),
+             "frontier past": T.frontier_pack("past", -1)}
+    for name, args in cases.items():
+        for objective in OBJECTIVES:
+            k_out, p_out, e_choose = mesh_lockstep(torch, name, mesh, args, objective)
+            errs["choose_config_shard"] = max(errs["choose_config_shard"], e_choose)
+            e = max_abs_err(torch, k_out, p_out)
+            for k in ("ffd_shard_cap", "ffd_shard_apply"):
+                errs[k] = max(errs[k], e)
+            want_out = P.pack_reference(*P.to_device(args, dev), objective=objective)
+            if max_abs_err(torch, k_out, want_out) != 0.0:
+                fail(f"phase 15: the sharded pack differs from the plain pack at {name}")
+        print(f"  {name}: every step bit-equal, both objectives", flush=True)
+    adm = [step_p[k] for k in T.MESH_STEP_ARGS[:7]]
+    adm_dev = P.to_device(tuple(adm), dev)
+    whole = F.assemble_feasibility(*adm_dev)
+    plain_mask = P.assemble_feasibility_reference(*adm_dev, 0, len(step_p["sig_of"]), 0,
+                                                  len(step_p["t_of"]))
+    errs["assemble_feasibility"] = max_abs_err(torch, [whole], [plain_mask])
+    if errs["assemble_feasibility"] != 0.0:
+        fail("phase 15: assemble_feasibility differs from its plain version")
+    step_args = P.to_device(tuple(plain_mask if k == "feas" else step_p[k] for k in (
+        "req", "cnt", "maxper", "slot", "feas", "alloc", "price", "openable",
+        "used0", "cfg0", "npods0", "next0", "sig0")), dev)
+    step_args = step_args[:11] + (int(step_p["next0"]),) + step_args[12:]
+    if max_abs_err(torch, step_out, P.pack_reference(*step_args)) != 0.0:
+        fail("phase 15: sharded_solve_step differs from the plain pack of its mask")
+    # the step's own tiles, copied to every device's mask
+    plan = P.mesh_plan(mesh.devices, len(step_p["sig_of"]), len(step_p["t_of"]), 4096)
+    masks = F.mesh_assemble_feasibility(plan, {d: adm_dev for d in mesh.distinct()},
+                                        len(step_p["sig_of"]), len(step_p["t_of"]))
+    for m in masks.values():
+        errs["assemble_feasibility"] = max(errs["assemble_feasibility"],
+                                           max_abs_err(torch, [m], [plain_mask]))
+    if errs["assemble_feasibility"] != 0.0:
+        fail("phase 15: the tiled assemble_feasibility differs from its plain version")
+    print(f"  assemble_feasibility: whole and tiled bit-equal at Gp {len(step_p['sig_of'])} "
+          f"Cp {len(step_p['t_of'])}", flush=True)
+
+    # ---- times at config 2 --------------------------------------------------
+    sst = single._resident.states[-1]
+    margs, sargs = st.pack_args(), sst.pack_args()
+
+    def mesh_pack():
+        return PM.sharded_pack(mesh, *margs, k_slots=st.Kp)
+
+    def single_pack():
+        return F.ffd_pack(*sargs)
+
+    walls = {"mesh": [], "single": []}
+    exch = {"s": 0.0}
+    real_row = P.mesh_exchange_row
+
+    def timed_row(*a):
+        t = time.perf_counter()
+        real_row(*a)
+        exch["s"] += time.perf_counter() - t
+
+    for _ in range(MESH_TIMED):  # in turns: single, mesh, mesh, single
+        for which, call in (("single", single_pack), ("mesh", mesh_pack)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t) * 1e3)
+    P.mesh_exchange_row = timed_row
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mesh_pack()
+        torch.cuda.synchronize()
+        exch_wall = (time.perf_counter() - t) * 1e3
+    finally:
+        P.mesh_exchange_row = real_row
+    before = dict(F.LAUNCHES)
+    mesh_pack()
+    torch.cuda.synchronize()
+    per_solve = {k: F.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+    by_events = set()  # the kernels the profiler missed, timed by CUDA events
+
+    def events_for(timer):
+        def fallback(missing):
+            by_events.update(missing)
+            return timer(missing)
+        return fallback
+
+    dev_ms = profiled_launches_ms(
+        torch, mesh_pack, MESH_KERNELS[1:], 1,
+        events_for(lambda missing: mesh_events_ms(torch, mesh, margs, missing)))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mesh_pack()
+        torch.cuda.synchronize()
+    busy = copy = 0.0
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            busy += us
+            if "Memcpy" in ev.key or "memcpy" in ev.key:
+                copy += us
+    step_dev = P.to_device(tuple(adm), dev)
+    G_s, C_s = len(step_p["sig_of"]), len(step_p["t_of"])
+    assemble = lambda: F.assemble_feasibility(*step_dev)
+    dev_ms["assemble_feasibility"] = profiled_ms(
+        torch, assemble, "assemble_feasibility", 3,
+        events_for(lambda missing: {"assemble_feasibility": events_device_ms(torch, assemble, 20)}))
+    rep = [t.parts[mesh.rows[0]] for t in margs[:8]]
+    b = P.split_bounds(st.Cp, mesh.shape[1])
+    g1 = P.split_bounds(st.Gp, mesh.shape[0])[1]
+    choose_args = (rep[0], rep[2], rep[4], rep[5], rep[6], rep[7], 0, g1, b[0], b[1])
+    plain_ms = {
+        "assemble_feasibility": cuda_ms(torch, lambda: P.assemble_feasibility_reference(
+            *step_dev, 0, G_s, 0, C_s), 3),
+        "choose_config_shard": cuda_ms(torch, lambda: P.choose_config_shard_reference(
+            *choose_args), 3),
+        **{k: v[0] / v[1] * 1e3 for k, v in plain_s.items()},
+    }
+    # the same tile through the kernel, for its CUDA-event time
+    event_ms = {"choose_config_shard": cuda_ms(torch, lambda: F.choose_config_shard(
+        *choose_args), 20)}
+    host_args = tuple(host_of(a) if hasattr(a, "host") else a for a in margs)
+    R_req = int((host_args[0] > 0).sum(1).max())
+    bounds = mesh_bounds(P.mesh_plan(mesh.devices, st.Gp, st.Cp, st.Kp), host_args,
+                         outs["config2"][1], R_req)
+    bounds["assemble_feasibility"] = assemble_bound(step_p)
+    mesh_p50 = statistics.median(walls["mesh"])
+    print(f"  config 2 per solve ({card}): sharded pack {walls['mesh']!r} ms (p50 "
+          f"{mesh_p50!r}), single-device ffd_pack {walls['single']!r} ms, in turns; "
+          f"launches a solve {json.dumps(per_solve)}; the exchange's host time "
+          f"{exch['s'] * 1e3!r} ms of a {exch_wall!r} ms pack "
+          f"({exch['s'] * 1e3 / exch_wall!r}); device busy {busy / 1e3!r} ms of it, "
+          f"copies {copy / 1e3!r} ms", flush=True)
+    rows = {}
+    for k in MESH_KERNELS:
+        rows[k] = {"ms": dev_ms[k], "plain_ms": plain_ms[k], "bound": bounds[k],
+                   "err": errs[k], "launches": counts[k],
+                   "per_solve": per_solve.get(k, 0)}
+        how = ("CUDA events, the gaps between back-to-back launches included: the profiler "
+               "saw none" if k in by_events else "profiler")
+        print(f"  {k}: {dev_ms[k]!r} ms a launch ({how}), plain {plain_ms[k]!r} ms a "
+              f"call, bound {bounds[k]}, {per_solve.get(k, 0)} launches a config-2 solve, "
+              f"{counts[k]} on the main path"
+              + (f", {event_ms[k]!r} ms (CUDA events)" if k in event_ms else ""), flush=True)
+    return {"rows": rows, "launches": counts, "solve_p50_ms": mesh_p50,
+            "single_p50_ms": statistics.median(walls["single"])}
+
+
 def phase_launches(kernel: str, per_phase: dict) -> dict:
     """A kernels-line row's launches on each phase's path: ``per_phase``
     maps each column (``operator_launches``: phase 7's drive,
@@ -4510,8 +5062,8 @@ def main(argv) -> int:
             print(f"  {name}: {line}")
     res = ptxas_resources(_build.BUILD_LOG["ffd_pack"])
     choice = [k for k in res if "choose_config_kernel" in k]
-    if len(choice) != 2:  # kMulti false and true
-        fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 2")
+    if len(choice) != 4:  # kMulti false and true, each solo and shard
+        fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 4")
     for name in SPILL_CHECKED:
         syms = [k for k in res if f"{name}_kernel" in k]
         if not syms:
@@ -4742,11 +5294,15 @@ def main(argv) -> int:
 
     print(f"[analysis] the static analysis, the tools and the legacy API, {card}", flush=True)
     legacy_launches = analysis_phase(torch, card)
+    phase_done(14, through)
+
+    print(f"[mesh] the sharded pack on a {MESH_SHARDS}-shard device mesh, {card}", flush=True)
+    mesh = mesh_phase(torch, card)
 
     per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
                  "sim_launches": sim_launches, "service_launches": service["launches"],
                  "ha_launches": ha_launches, "fleet_launches": fleet_launches,
-                 "legacy_launches": legacy_launches}
+                 "legacy_launches": legacy_launches, "mesh_launches": mesh["launches"]}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]
@@ -4823,6 +5379,24 @@ def main(argv) -> int:
             "stack_ms": v["stack_ms"],
             "call_ms": v["call_ms"],
             "solo_call_ms": v["solo_call_ms"],
+            **phase_launches(k, per_phase),
+        })
+    for k in MESH_KERNELS:
+        v = mesh["rows"][k]
+        kernels.append({
+            "name": k,
+            "problem": ROW_PROBLEM[k],
+            "route": "cuda",
+            "source": MESH_SOURCES.get(k, MESH_SOURCE),
+            "replaces": MESH_REPLACES[k],
+            "launches": v["launches"],
+            "max_abs_err": v["err"],
+            "ms": v["ms"],
+            "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound"]["bound_ms"],
+            "bound_by": v["bound"]["bound_by"],
+            "library_ms": None,
+            "launches_per_solve": v["per_solve"],
             **phase_launches(k, per_phase),
         })
     print(json.dumps({"kernels": kernels}))

@@ -74,11 +74,17 @@ _SEQUENTIAL_DESCENT = frozenset(
 )
 
 # rule 9: the counted-upload seam is the one sanctioned raw upload (its
-# ``.copy_`` into a fresh device allocation), and one site that matches
-# the upload syntax without being an upload on any path:
+# ``.copy_`` into a fresh device allocation), its device-to-device sibling,
+# and one site that matches the upload syntax without being an upload on
+# any path:
 _DEVICE_PUT = frozenset(
     {
         ("karpenter_tpu_torch/obs/device.py", "DeviceObservatory.put"),
+        # The counted device-to-device seam: its ``.copy_`` moves a shard's
+        # slice between two device buffers (the mesh's exchange, the
+        # resident state's reshard), never host data, and counts its bytes
+        # under the caller's site as `put` counts an upload.
+        ("karpenter_tpu_torch/obs/device.py", "DeviceObservatory.exchange"),
         # The plain version of the scan builds its first-free-slot scalar
         # on the device its tensors lie on.  The wrappers hand it CPU
         # tensors only (fused_packer.ffd_scan and fleet_pack run their

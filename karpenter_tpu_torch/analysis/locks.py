@@ -70,6 +70,11 @@ BLOCKING_CALLS: Dict[str, str] = {
     "device_get": "device fetch",
     "fetch_verdict_rows": "device fetch",
     "run_concurrently": "thread fan-out join",
+    # the port's device fetches: each waits for the card's queued work
+    "cpu": "device fetch (.cpu())",
+    "item": "device fetch (.item())",
+    "tolist": "device fetch (.tolist())",
+    "synchronize": "device sync (torch.cuda.synchronize)",
 }
 
 # call-graph expansion depth inside a held region: deep enough for the

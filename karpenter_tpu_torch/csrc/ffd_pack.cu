@@ -8,10 +8,12 @@
 // karpenter_tpu_torch/ops/fused_packer.py.
 //
 // Two launches per pack, choose_config and one of the three scans:
-//   choose_config_kernel<kMulti>  grid (Gp,): one block per class picks
-//                           the config a new node of that class opens on
-//                           (first-index argmin of the objective's score
-//                           over C); see "The choice" below.
+//   choose_config_kernel<kMulti, false>  grid (Gp,): one block per class
+//                           picks the config a new node of that class opens
+//                           on (first-index argmin of the objective's score
+//                           over C); see "The choice" below.  Its shard
+//                           mode <kMulti, true> is one tile of the device
+//                           mesh's choice (parallel/mesh.py, mesh_pack.cu).
 //   ffd_scan_kernel<M>      grid (1,): the resident scan.  One block walks
 //                           the Gp classes in order with the whole slot
 //                           state in shared memory; the wrapper takes it
@@ -152,28 +154,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"  // kBigF, the wrapping int32 helpers, node_cap, block scans
+
 namespace {
 
-constexpr float kBigF = 1073741824.0f;  // 2^30
-constexpr float kNudge = 1e-4f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
 __device__ __forceinline__ int clip(int x, int lo, int hi) {
   return min(max(x, lo), hi);
-}
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
-  return q;
 }
 
 // The batch axis of a scan launch.  A scan kernel's mode (its template
@@ -266,62 +252,13 @@ __device__ __forceinline__ Elem elem_of(const Batch& bt, const int* cnt, int e,
   return el;
 }
 
-// _per_node_cap: copies of `req` that fit in alloc_row - used_row
-// (used_row may be null), over the R axes the class requests.
-__device__ __forceinline__ int node_cap(const float* alloc_row,
-                                        const float* used_row,
-                                        const float* req, int R) {
-  float cap = kBigF;
-  for (int r = 0; r < R; ++r) {
-    const float q = req[r];
-    if (q > 0.0f) {
-      const float rem =
-          used_row ? __fsub_rn(alloc_row[r], used_row[r]) : alloc_row[r];
-      cap = fminf(cap, floorf(__fadd_rn(__fdiv_rn(rem, q), kNudge)));
-    }
-  }
-  return (int)fmaxf(cap, 0.0f);
-}
-
-// Block-wide inclusive scan of unsigned (wrapping) values; blockDim.x is a
-// multiple of 32 and at most 1024.  `sh` holds 32 words.  Ends with a
-// barrier, so `sh` may be reused by the next call.
-__device__ unsigned block_incl_scan(unsigned v, unsigned* total,
-                                    unsigned* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned w = lane < nw ? sh[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
-    }
-    sh[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += sh[warp - 1];
-  *total = sh[nw - 1];
-  __syncthreads();
-  return v;
-}
-
-__device__ unsigned block_sum(unsigned v, unsigned* sh) {
-  unsigned total;
-  block_incl_scan(v, &total, sh);
-  return total;
-}
-
 // ---- the choice (see "The choice" above) ----------------------------------
 
 constexpr int kChooseThreads = 256;
 constexpr int kChooseWarps = kChooseThreads / 32;
 constexpr int kChooseMinBlocks = 3;           // blocks a SM: caps registers
+constexpr int kChooseShardMinBlocks = 1;      // a tile launch: fewer blocks than SMs
+constexpr int kChooseRec = 4;                 // a tile's record: ops/packer.py MESH_REC
 constexpr int kQuads = 1;                     // config quads a thread holds
 constexpr int kPairs = 4 * kQuads;            // configs a thread holds
 constexpr int kBlockConfigs = kChooseThreads * kPairs;  // 1024 a block
@@ -551,22 +488,51 @@ __device__ __forceinline__ void block_scores(const float (&cap)[kPairs],
   }
 }
 
+// One tile of the sharded pack's choice (parallel/mesh.py): the classes
+// [g0, g0 + gridDim.x) over the configs [c0, c0 + Cp) of one model shard
+// of a catalog of ldc configs, each block's record written to rec.
+struct ChooseTile {
+  int g0, c0, ldc;
+  int* rec;  // [gridDim.x][kChooseRec]
+};
+
 // kMulti: Cp > kBlockConfigs, so the thread walks several blocks.
-template <bool kMulti>
-__global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
+// kShard: a tile of the sharded pack (ChooseTile): the kernel sees the
+// shard's Cp configs (price, openable, alloc and the feasibility row moved
+// to c0, the rows ldc wide), takes the price ceiling over all ldc configs
+// first, and writes each class's record (order-preserving score key,
+// global index, cap, ok) where the solve's instances write (c_star,
+// new_ok, per).  The least (key, index) over the shards' records is the
+// first-index argmin over the catalog (the combine: ops/packer.py
+// combine_choice, csrc/mesh_pack.cu).
+template <bool kMulti, bool kShard>
+__global__ void __launch_bounds__(kChooseThreads,
+                                  kShard ? kChooseShardMinBlocks : kChooseMinBlocks)
     choose_config_kernel(
     const float* __restrict__ req, const int* __restrict__ maxper,
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const float* __restrict__ price, const uint8_t* __restrict__ openable,
     int Cp, int R, int objective, int vec, int* __restrict__ c_star,
-    int* __restrict__ new_ok, int* __restrict__ per) {
+    int* __restrict__ new_ok, int* __restrict__ per, ChooseTile tile) {
   __shared__ float s_pm[kChooseWarps];
   __shared__ float s_val[kChooseWarps];
   __shared__ int s_idx[kChooseWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = blockIdx.x;
-  {  // a fleet launch's element blockIdx.y (grid y 1 for one problem): its
-     // slice of each stacked input and output
+  const int g = kShard ? tile.g0 + (int)blockIdx.x : (int)blockIdx.x;
+  // the ceiling's running max: -inf, or in a tile every config's
+  // where(openable, price, 0) (max is exact in any order)
+  float pm = -INFINITY;
+  size_t row = (size_t)g * Cp;
+  if constexpr (kShard) {
+    for (int c = threadIdx.x; c < tile.ldc; c += kChooseThreads)
+      pm = fmaxf(pm, __ldg(openable + c) ? __ldg(price + c) : 0.0f);
+    price += tile.c0;
+    openable += tile.c0;
+    alloc += (size_t)tile.c0 * R;
+    row = (size_t)g * tile.ldc + tile.c0;
+  }
+  if constexpr (!kShard) {  // a fleet launch's element blockIdx.y (grid y 1
+                            // for one problem): its slice of each input and output
     const size_t e = blockIdx.y, eg = e * gridDim.x;
     req += eg * R;
     maxper += eg;
@@ -578,7 +544,7 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
     new_ok += eg;
     per += eg;
   }
-  const ChooseRow t{feas + (size_t)g * Cp, req + (size_t)g * R, Cp, vec != 0};
+  const ChooseRow t{feas + row, req + (size_t)g * R, Cp, vec != 0};
   const int nb = (Cp + kBlockConfigs - 1) / kBlockConfigs;
 
   // ---- every load of the first block, then its alloc round -----------------
@@ -591,14 +557,16 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
   cursor_start(axes, t, R);
   cursor_next(axes, rd, t, R);
   load_alloc(a, rd, 0, alloc, Cp, R);
-  float pm = fold_ceiling(cur, 0, Cp, -INFINITY);
+  pm = fold_ceiling(cur, 0, Cp, pm);
   if constexpr (kMulti) {
     load_block(nxt, 1, t, price, openable);  // before this block's divisions
     pm = fold_ceiling(nxt, 1, Cp, pm);
-    for (int b = 2; b < nb; ++b) {  // later blocks: a ceiling-only read
-      ChooseBlock far;
-      load_block(far, b, t, price, openable);
-      pm = fold_ceiling(far, b, Cp, pm);
+    if constexpr (!kShard) {  // a tile has its ceiling already
+      for (int b = 2; b < nb; ++b) {  // later blocks: a ceiling-only read
+        ChooseBlock far;
+        load_block(far, b, t, price, openable);
+        pm = fold_ceiling(far, b, Cp, pm);
+      }
     }
   }
 
@@ -663,9 +631,18 @@ __global__ void __launch_bounds__(kChooseThreads, kChooseMinBlocks)
       const int c = i;
       const int cap_c =
           min(node_cap(alloc + (size_t)c * R, nullptr, t.req, R), mp);
-      c_star[g] = c;
-      new_ok[g] = (t.feas[c] && openable[c] && cap_c > 0) ? 1 : 0;
-      per[g] = max(cap_c, 1);
+      const int ok = (t.feas[c] && openable[c] && cap_c > 0) ? 1 : 0;
+      if constexpr (kShard) {
+        int* r = tile.rec + (size_t)blockIdx.x * kChooseRec;
+        r[0] = (int)score_key(v);
+        r[1] = tile.c0 + c;
+        r[2] = cap_c;
+        r[3] = ok;
+      } else {
+        c_star[g] = c;
+        new_ok[g] = ok;
+        per[g] = max(cap_c, 1);
+      }
     }
   }
 }
@@ -2956,14 +2933,45 @@ int ffd_choose_config(const float* req, const int* maxper, const uint8_t* feas,
                   reinterpret_cast<uintptr_t>(price) % 16 == 0;
   const auto st = (cudaStream_t)stream;
   const dim3 grid(Gp, nb);
+  const ChooseTile none{0, 0, Cp, nullptr};
   if (Cp > kBlockConfigs)
-    choose_config_kernel<true><<<grid, kChooseThreads, 0, st>>>(
+    choose_config_kernel<true, false><<<grid, kChooseThreads, 0, st>>>(
         req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
-        c_star, new_ok, per);
+        c_star, new_ok, per, none);
   else
-    choose_config_kernel<false><<<grid, kChooseThreads, 0, st>>>(
+    choose_config_kernel<false, false><<<grid, kChooseThreads, 0, st>>>(
         req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
-        c_star, new_ok, per);
+        c_star, new_ok, per, none);
+  return (int)cudaGetLastError();
+}
+
+// One tile of the sharded pack's choice: classes [g0, g1) over the configs
+// [c0, c1) (non-empty) of a catalog of C, the price ceiling over all C;
+// rec [g1 - g0][4] int32 records (choose_config_kernel<., true>).
+int ffd_choose_config_shard(const float* req, const int* maxper,
+                            const uint8_t* feas, const float* alloc,
+                            const float* price, const uint8_t* openable,
+                            int C, int R, int g0, int g1, int c0, int c1,
+                            int objective, int* rec, void* stream) {
+  if (g1 <= g0) return 0;
+  const int Cp = c1 - c0;
+  if (Cp <= 0 || c0 < 0 || c1 > C || g0 < 0) return (int)cudaErrorInvalidValue;
+  // every feasibility row starts at g * C + c0: aligned where C, c0 and
+  // the base are
+  const int vec = Cp % 4 == 0 && C % 4 == 0 && c0 % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(feas) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(openable) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(price) % 16 == 0;
+  const auto st = (cudaStream_t)stream;
+  const ChooseTile tile{g0, c0, C, rec};
+  if (Cp > kBlockConfigs)
+    choose_config_kernel<true, true><<<g1 - g0, kChooseThreads, 0, st>>>(
+        req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
+        nullptr, nullptr, nullptr, tile);
+  else
+    choose_config_kernel<false, true><<<g1 - g0, kChooseThreads, 0, st>>>(
+        req, maxper, feas, alloc, price, openable, Cp, R, objective, vec,
+        nullptr, nullptr, nullptr, tile);
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,12 @@ same ``karpenter_device_*`` families with the same labels:
   ``pack_kernel_buffered``, ``pack_constants``, ``removal_base``,
   ``population_tensors``, ``population_verdict_kernel``,
   ``removal_verdict_kernel``), where the reference counts jit-argument
-  uploads under the dispatch's name.
+  uploads under the dispatch's name.  Its sibling
+  :meth:`DeviceObservatory.exchange` is the one counted device-to-device
+  copy, into an existing buffer: the mesh's exchange between shards
+  (``parallel/mesh.py``, site ``mesh_exchange``) and the resident state's
+  reshard of its slot buffers (``resident_reshard``), where the reference's
+  GSPMD inserts collectives.
 - the resident hooks (:meth:`set_resident_footprint`,
   :meth:`count_resident_update`) — ``ops/resident.py`` reports its live
   device footprint per consumer and whether an update reused the resident
@@ -55,13 +60,18 @@ def _sig_part(v) -> tuple:
     arrays by (shape, dtype, device); strings, flags and None (static
     options such as the objective) by value; numbers by type, since the
     wrappers take data as host numbers (the first free slot, a span), as
-    the reference's numpy scalars count by shape; anything else by type."""
+    the reference's numpy scalars count by shape; a buffer placed on a
+    device mesh (``parallel/mesh.Sharded``) by its own signature; anything
+    else by type."""
     if isinstance(v, torch.Tensor):
         return ("a", tuple(v.shape), str(v.dtype), str(v.device))
     if isinstance(v, np.ndarray):
         return ("a", v.shape, str(v.dtype), "host")
     if isinstance(v, (str, bool, type(None))):
         return ("s", v)
+    sig = getattr(v, "launch_signature", None)
+    if sig is not None:
+        return sig()
     return ("t", type(v).__name__)
 
 
@@ -209,6 +219,17 @@ class DeviceObservatory:
         if self.enabled:
             self.count_transfer(site, _nbytes(value))
         return dev
+
+    def exchange(self, site: str, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """The ONE counted device-to-device copy: ``src`` into the existing
+        buffer ``dst`` (a shard's slice of a mesh buffer), its bytes counted
+        under ``site``.  Between two cards PyTorch orders the copy after the
+        work already queued on both devices' current streams, so a kernel
+        launched after it on either side sees the copied values; on one
+        card it is a copy on the current stream."""
+        dst.copy_(src)
+        if self.enabled:
+            self.count_transfer(site, _nbytes(src))
 
     def count_transfer(self, site: str, nbytes: int) -> None:
         if not self.enabled or nbytes <= 0:

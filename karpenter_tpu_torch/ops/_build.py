@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with `ctypes`.  Builds land
 in ``karpenter_tpu_torch/_build/`` (ignored by git), keyed by a hash of the
-source, so an edited kernel never loads a stale library.  `build_all`
+source and the headers it may include (``csrc/*.cuh``), so an edited
+kernel never loads a stale library.  `build_all`
 starts one ``nvcc`` per source at once and waits for them together.
 
 Flags: IEEE division and no ``--use_fast_math`` (the float rules the
@@ -34,7 +35,7 @@ from karpenter_tpu_torch.utils.locks import make_lock
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ffd_pack", "latency_probe")
+SOURCES = ("ffd_pack", "latency_probe", "mesh_pack")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -58,8 +59,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -38,6 +38,15 @@ one shape, each with arrays of its own: `fleet_pack`, `choose_config` with a
 grid y of B and the scan `scan_kernel` picks in its fleet mode, one block or
 one cluster an element.
 
+The sharded pack over a device mesh (parallel/mesh.py, replacing the JAX
+package's mesh, jitted XLA partitioned by GSPMD) is the second library,
+``csrc/mesh_pack.cu``: `assemble_feasibility` (the dense feasibility mask
+from the factorized admission, a tile a launch), and per class
+`ffd_shard_cap` and `ffd_shard_apply` a data shard, with the exchanges
+between them (`mesh_pack`); its fourth kernel, `choose_config_shard` (a
+(data, model) tile of the new-node choice), is the shard mode of
+``ffd_pack.cu``'s ``choose_config_kernel``.
+
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
 launches the kernel or raises, never falls back.  `LAUNCHES` counts the
@@ -59,8 +68,22 @@ import torch
 from karpenter_tpu_torch.obs.device import OBSERVATORY
 from karpenter_tpu_torch.ops import _build
 from karpenter_tpu_torch.ops.packer import (
+    MESH_REC,
+    REC_NONE,
     RV_WIDTH,
+    MeshPlan,
+    MeshShard,
+    assemble_feasibility_reference,
     choose_config_reference,
+    choose_config_shard_reference,
+    ffd_shard_apply_reference,
+    ffd_shard_cap_reference,
+    mesh_assemble_reference,
+    mesh_masks,
+    mesh_outputs,
+    mesh_pack_reference,
+    mesh_scan,
+    mesh_shards,
     ffd_scan_batch_reference,
     ffd_scan_reference,
     fleet_pack_reference,
@@ -82,7 +105,12 @@ LAUNCHES: Dict[str, int] = {
     "admit_kernel": 0,
     "choose_config_fleet": 0, "ffd_scan_fleet": 0, "ffd_scan_cluster_fleet": 0,
     "ffd_scan_global_fleet": 0,
+    "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_cap": 0,
+    "ffd_shard_apply": 0,
 }
+# the launches of the sharded pack (csrc/mesh_pack.cu), in their order
+MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_cap",
+                "ffd_shard_apply")
 # the library's first load (its build and its C signatures) and LAUNCHES
 _LOCK = make_lock("fused_packer._LOCK")
 # the launches of `verdict_rows`, in order
@@ -121,29 +149,51 @@ WINDOW_RECORDS: Optional[list] = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+class ShardArgs(ctypes.Structure):
+    """One data shard's buffers as the mesh kernels take them (struct
+    ShardArgs in csrc/mesh_pack.cu), built once a solve."""
+
+    _fields_ = [(name, _P) for name in (
+        "req", "cnt", "maxper", "slot", "feas", "alloc", "rec", "xchg", "used", "cfg",
+        "npods", "sig", "take", "leftover", "cap", "nxt")] + [
+        (name, _I) for name in ("G", "C", "R", "S", "M", "D", "d", "k0", "Kd", "K")]
+
+
 def reset_launches() -> None:
     with _LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
 
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[ctypes.CDLL] = None  # csrc/ffd_pack.cu
+_LIBS: Dict[str, ctypes.CDLL] = {}  # the other sources (csrc/mesh_pack.cu)
 
 
-def _lib() -> ctypes.CDLL:
-    """The built library, with its C signatures declared once: the first
-    caller builds and declares under `_LOCK`, the others wait for it."""
-    if _LIB is not None:
-        return _LIB
+def _loaded(source: str) -> Optional[ctypes.CDLL]:
+    return _LIB if source == "ffd_pack" else _LIBS.get(source)
+
+
+def _lib(source: str = "ffd_pack") -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu``, with its C signatures
+    declared once: the first caller builds and declares under `_LOCK`, the
+    others wait for it."""
+    lib = _loaded(source)
+    if lib is not None:
+        return lib
     with _LOCK:
-        return _LIB if _LIB is not None else _declare(_build.load("ffd_pack"))
+        lib = _loaded(source)
+        return lib if lib is not None else _declare(source, _build.load(source))
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     global _LIB
+    if source == "mesh_pack":
+        return _declare_mesh(lib)
     if lib.ffd_scan.argtypes is None:
         lib.ffd_choose_config.argtypes = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
         lib.ffd_choose_config.restype = _I
+        lib.ffd_choose_config_shard.argtypes = [_P] * 6 + [_I] * 7 + [_P, _P]
+        lib.ffd_choose_config_shard.restype = _I
         batch = [_I] + [_P] * 5  # B, perm_b, cnt_b, rm_b, done_b, next0_b
         lib.ffd_scan.argtypes = [_P] * 13 + [_I] * 9 + batch + [_P] * 5 + [_P]
         lib.ffd_scan.restype = _I
@@ -170,6 +220,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 6 + [_P] + [_P]
         lib.ffd_admit.restype = _I
     _LIB = lib
+    return lib
+
+
+def _declare_mesh(lib: ctypes.CDLL) -> ctypes.CDLL:
+    if lib.mesh_shard_cap.argtypes is None:
+        lib.mesh_assemble_feasibility.argtypes = [_P] * 7 + [_I] * 7 + [_P, _I, _P]
+        lib.mesh_assemble_feasibility.restype = _I
+        for entry in (lib.mesh_shard_cap, lib.mesh_shard_apply):
+            entry.argtypes = [ctypes.POINTER(ShardArgs), _I, _I, _P]
+            entry.restype = _I
+    _LIBS["mesh_pack"] = lib
     return lib
 
 
@@ -1078,3 +1139,204 @@ def admit(req, cnt, feas, alloc, openable, used0, cfg0, g: int) -> torch.Tensor:
         )
     _launched("admit_kernel", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded pack over a device mesh (csrc/mesh_pack.cu)
+# ---------------------------------------------------------------------------
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _card(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+
+
+def assemble_feasibility(
+    type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of,
+    g0: int = 0, g1: Optional[int] = None, c0: int = 0, c1: Optional[int] = None,
+) -> torch.Tensor:
+    """The [g1 - g0, c1 - c0] tile (default: all of it) of the dense [G, C]
+    feasibility mask from the factorized admission (the JAX package's
+    ``parallel/mesh.py:assemble_feasibility``): ``type_ok [S, T]``,
+    ``zone_ok [S, Z]``, ``ct_ok [S, CT]`` bool, ``sig_of [G]`` and ``t_of``,
+    ``z_of``, ``ct_of [C]`` int32, every index in range.  On the card one
+    launch of ``assemble_feasibility_kernel``, a byte a thread."""
+    g1 = sig_of.shape[0] if g1 is None else g1
+    c1 = t_of.shape[0] if c1 is None else c1
+    args = (type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of)
+    dev = type_ok.device
+    if dev.type == "cpu":
+        return assemble_feasibility_reference(*args, g0, g1, c0, c1)
+    _card(dev)
+    S, T = type_ok.shape
+    Z, CT = zone_ok.shape[1], ct_ok.shape[1]
+    G, C = sig_of.shape[0], t_of.shape[0]
+    if not (0 <= g0 <= g1 <= G and 0 <= c0 <= c1 <= C):
+        raise ValueError(f"tile [{g0}, {g1}) x [{c0}, {c1}) outside [{G}, {C}]")
+    for name, t, dt, shp in (
+        ("type_ok", type_ok, torch.bool, (S, T)), ("zone_ok", zone_ok, torch.bool, (S, Z)),
+        ("ct_ok", ct_ok, torch.bool, (S, CT)), ("sig_of", sig_of, torch.int32, (G,)),
+        ("t_of", t_of, torch.int32, (C,)), ("z_of", z_of, torch.int32, (C,)),
+        ("ct_of", ct_of, torch.int32, (C,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    out = torch.empty((g1 - g0, c1 - c0), dtype=torch.bool, device=dev)
+    if not out.numel():
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib("mesh_pack").mesh_assemble_feasibility(
+        *_ptrs(*args), T, Z, CT, g0, g1, c0, c1, out.data_ptr(), _index(dev), stream,
+    )
+    _launched("assemble_feasibility", err)
+    return out
+
+
+def choose_config_shard(
+    req, maxper, feas, alloc, price, openable, g0: int, g1: int, c0: int, c1: int,
+    objective: str = "nodes",
+) -> torch.Tensor:
+    """One tile of the hoisted new-node choice (classes [g0, g1), one model
+    shard's configs [c0, c1), the price ceiling of the whole catalog):
+    int32 [g1 - g0, MESH_REC] records (ops/packer.py:
+    `choose_config_shard_reference`).  On the card one launch of the shard
+    mode of ``choose_config_kernel`` (csrc/ffd_pack.cu), a block a class;
+    an empty shard (c0 == c1) gets `REC_NONE` rows and no launch."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    dev = req.device
+    if dev.type == "cpu":
+        return choose_config_shard_reference(
+            req, maxper, feas, alloc, price, openable, g0, g1, c0, c1, objective)
+    _card(dev)
+    G, R = req.shape
+    C = alloc.shape[0]
+    if not (0 <= g0 <= g1 <= G and 0 <= c0 <= c1 <= C):
+        raise ValueError(f"tile [{g0}, {g1}) x [{c0}, {c1}) outside [{G}, {C}]")
+    for name, t, dt, shp in (
+        ("req", req, torch.float32, (G, R)), ("maxper", maxper, torch.int32, (G,)),
+        ("feas", feas, torch.bool, (G, C)), ("alloc", alloc, torch.float32, (C, R)),
+        ("price", price, torch.float32, (C,)), ("openable", openable, torch.bool, (C,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if feas.data_ptr() % 16:
+        raise ValueError("feas must start on a 16-byte boundary")
+    rec = torch.empty((g1 - g0, MESH_REC), dtype=torch.int32, device=dev)
+    if g1 == g0:
+        return rec
+    if c1 == c0:
+        rec.fill_(0)
+        rec[:, 0].fill_(REC_NONE[0])
+        rec[:, 1].fill_(REC_NONE[1])
+        return rec
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ffd_choose_config_shard(
+            *_ptrs(req, maxper, feas, alloc, price, openable), C, R, g0, g1, c0, c1,
+            OBJECTIVES[objective], rec.data_ptr(), stream,
+        )
+    _launched("choose_config_shard", err)
+    return rec
+
+
+def _shard_desc(sh: MeshShard) -> tuple:
+    """``(ShardArgs, device index, stream)`` of a shard's launches, checked
+    and built on its first launch of the solve (its buffers stay put)."""
+    if sh.desc is not None:
+        return sh.desc
+    dev = sh.device
+    _card(dev)
+    req, cnt, maxper, slot, feas, alloc = sh.rep
+    G, R = req.shape
+    C, kd = alloc.shape[0], sh.k1 - sh.k0
+    S, M = sh.sig.shape[0], sh.rec.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt, shp in (
+        ("req", req, f32, (G, R)), ("cnt", cnt, i32, (G,)), ("maxper", maxper, i32, (G,)),
+        ("slot", slot, i32, (G,)), ("feas", feas, torch.bool, (G, C)),
+        ("alloc", alloc, f32, (C, R)), ("rec", sh.rec, i32, (M, G, MESH_REC)),
+        ("xchg", sh.xchg, i32, (2, G, sh.D)), ("used", sh.used, f32, (kd, R)),
+        ("cfg", sh.cfg, i32, (kd,)), ("npods", sh.npods, i32, (kd,)),
+        ("sig", sh.sig, i32, (S, kd)), ("take", sh.take, i32, (G, kd)),
+        ("leftover", sh.leftover, i32, (G,)), ("cap", sh.cap, i32, (kd,)),
+        ("nxt", sh.nxt, i32, (1,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    if feas.data_ptr() % 16:
+        raise ValueError("feas must start on a 16-byte boundary")
+    ptrs = _ptrs(req, cnt, maxper, slot, feas, alloc, sh.rec, sh.xchg, sh.used, sh.cfg,
+                 sh.npods, sh.sig, sh.take, sh.leftover, sh.cap, sh.nxt)
+    args = ShardArgs(*ptrs, G, C, R, S, M, sh.D, sh.d, sh.k0, kd, sh.K)
+    sh.desc = (args, _index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    return sh.desc
+
+
+def ffd_shard_cap(sh: MeshShard, g: int) -> None:
+    """Close class g - 1 on the shard's slots and compute class g's caps and
+    their wrapped total (ops/packer.py: `ffd_shard_cap_reference`).  On the
+    card one launch of ``ffd_shard_cap_kernel``: one block over the
+    shard's slots, its state in device memory."""
+    if sh.device.type == "cpu":
+        return ffd_shard_cap_reference(sh, g)
+    args, index, stream = _shard_desc(sh)
+    _launched("ffd_shard_cap", _lib("mesh_pack").mesh_shard_cap(
+        ctypes.byref(args), g, index, stream))
+
+
+def ffd_shard_apply(sh: MeshShard, g: int) -> None:
+    """Class g's first-fit take1 on the shard's slots from its prefix
+    offset, and their wrapped sum (ops/packer.py:
+    `ffd_shard_apply_reference`).  On the card one launch of
+    ``ffd_shard_apply_kernel``."""
+    if sh.device.type == "cpu":
+        return ffd_shard_apply_reference(sh, g)
+    args, index, stream = _shard_desc(sh)
+    _launched("ffd_shard_apply", _lib("mesh_pack").mesh_shard_apply(
+        ctypes.byref(args), g, index, stream))
+
+
+def _plan_type(plan: MeshPlan) -> str:
+    kinds = {dev.type for row in plan.tiles for dev in row}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh spans one kind of device, not {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device type {kind}")
+    return kind
+
+
+def mesh_assemble_feasibility(plan: MeshPlan, adm: dict, G: int, C: int) -> dict:
+    """The sharded feasibility expansion (ops/packer.py:
+    `mesh_assemble_reference` on CPU shards): on a mesh of cards one launch
+    of ``assemble_feasibility_kernel`` a tile, on the tile's device, each
+    tile then copied into every device's [G, C] mask."""
+    if _plan_type(plan) == "cpu":
+        return mesh_assemble_reference(plan, adm, G, C)
+    tiles = [(g0, g1, c0, c1, assemble_feasibility(*adm[dev], g0, g1, c0, c1))
+             for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    return mesh_masks(plan, adm, tiles, G, C)
+
+
+def mesh_pack(
+    plan: MeshPlan, reps: dict, slots: tuple, next0: int, objective: str = "nodes",
+) -> Tuple[torch.Tensor, ...]:
+    """The sharded pack (ops/packer.py: `mesh_pack_reference`, run for CPU
+    shards): on a mesh of cards one launch of ``choose_config_kernel``'s
+    shard mode a tile, then per class a launch of ``ffd_shard_cap_kernel`` and of
+    ``ffd_shard_apply_kernel`` a data shard with the exchanges between, and
+    one more cap launch a shard to close the last class: (G + 1) + G
+    launches a shard, 2 G exchanges (`mesh_exchange_row`: copies only
+    between devices)."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}")
+    if _plan_type(plan) == "cpu":
+        return mesh_pack_reference(plan, reps, slots, next0, objective)
+    recs = [choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                g0, g1, c0, c1, objective)
+            for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    shards = mesh_shards(plan, reps, recs, slots, next0)
+    mesh_scan(shards, ffd_shard_cap, ffd_shard_apply)
+    return mesh_outputs(shards)

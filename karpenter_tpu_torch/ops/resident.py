@@ -28,6 +28,12 @@ ticks** and updates them with **gather + scatter deltas** instead.
 - The resident pack (`ResidentState.pack`) launches `fused_packer.ffd_pack`
   straight on the resident tensors: on the card the hand-written kernels,
   for a CPU state their plain version.
+- **Sharding**: when the scheduler's pack_fn is the mesh backend
+  (parallel/mesh.py `mesh_pack_fn`), the buffers are placed by the mesh's
+  one table of shard specs (``SHARD_SPECS``: the class and catalog buffers
+  one copy a device, the slot buffers split over the data rows), the delta
+  step edits each copy and reshards the slot buffers, and the pack runs
+  the sharded pack on them (``sharded_pack``).
 - Every upload goes through the device observatory's counted `put`
   (obs/device.py) under the reference's sites, ``resident_seed`` and
   ``resident_delta``; the pack and the delta step launch through its
@@ -74,6 +80,7 @@ from karpenter_tpu_torch.ops.tensorize import (
     open_config_row,
     restrict_open_tier,
 )
+from karpenter_tpu_torch.parallel.mesh import SHARD_SPECS, place
 from karpenter_tpu_torch.utils.trace import phase
 
 # a delta touching more than this fraction of the batch rebuilds instead:
@@ -98,6 +105,14 @@ def _plain_pod(p: Pod) -> bool:
         or p.volume_claims
         or len(p.node_affinity_terms()) > 1
     )
+
+
+def resident_capable(pack_fn) -> bool:
+    """Resident tensors serve only the pack backends that run in this
+    process on its devices: the in-process pack (``pack_fn`` None) or the
+    mesh-sharded one.  A sidecar's (or any custom) pack_fn keeps the plain
+    upload path: its transfer contract is its own."""
+    return pack_fn is None or getattr(pack_fn, "mesh", None) is not None
 
 
 def _carrier_free(existing) -> bool:
@@ -183,6 +198,10 @@ class ResidentState:
         self.pools_by_name: dict = {}
         self.fe = 0  # first_existing == len(catalog.configs)
         self.device: Optional[torch.device] = None  # where the tensors live
+        # the pack backend the state was seeded for, and its mesh (None: one
+        # device); on a mesh every d_* buffer is a `Sharded`
+        self.pack_fn_ref = None
+        self.mesh = None
         self.pins: tuple = ()  # keep every id-keyed object allocated
         # classes / pods
         self.cls: List[_Cls] = []
@@ -253,6 +272,8 @@ class ResidentState:
         st.pools_by_name = {p.name: p for p in catalog.pools}
         st.fe = fe
         st.device = solver.device
+        st.pack_fn_ref = solver.pack_fn
+        st.mesh = getattr(solver.pack_fn, "mesh", None)
         st.pins = (
             tuple(solver.pools),
             tuple(solver.instance_types.values()),
@@ -308,39 +329,57 @@ class ResidentState:
         the pack-time constants the plain shape never mutates (maxper=BIG,
         slot=0, sig0=0), and allocate the gather partners.  Every later
         tick reuses these allocations.  Each upload is a fresh allocation
-        (never a view of a mirror), counted under ``resident_seed``."""
+        (never a view of a mirror), counted under ``resident_seed``.  On a
+        mesh each buffer is placed by ``SHARD_SPECS``, the table the sharded
+        pack reads; the partners are the replicated buffers' (each copy its
+        own), and the delta step's slot edits run whole on the first data
+        row (``_hub``)."""
         dev = self.device
 
-        def _upload(h: np.ndarray) -> torch.Tensor:
-            return OBSERVATORY.put("resident_seed", h, dev)
+        def upload(name: str, h: np.ndarray):
+            if self.mesh is None:
+                return OBSERVATORY.put("resident_seed", h, dev)
+            return place(self.mesh, SHARD_SPECS[name], h, "resident_seed")
 
         E = len(self.live)
         cfg0 = np.full(self.Kp, -1, np.int32)
         cfg0[:E] = np.arange(self.fe, self.fe + E, dtype=np.int32)
-        self.d_req = _upload(self.h_req)
-        self.d_cnt = _upload(self.h_cnt)
-        self.d_feas = _upload(self.h_feas)
-        self.d_alloc = _upload(self.h_alloc)
-        self.d_price = _upload(self.h_price)
-        self.d_openable = _upload(self.h_openable)
-        self.d_used0 = _upload(self.h_used0)
-        self.d_npods0 = _upload(self.h_npods0)
-        self.d_cfg0 = _upload(cfg0)
-        self.d_maxper = _upload(np.full(self.Gp, BIG, np.int32))
-        self.d_slot = _upload(np.zeros(self.Gp, np.int32))
-        self.d_sig0 = _upload(np.zeros((2, self.Kp), np.int32))  # Sp floor 2
-        self.partner = {
-            name: torch.empty_like(getattr(self, f"d_{name}"))
-            for name in self._MUTABLE
-        }
+        for name, h in (
+            ("req", self.h_req), ("cnt", self.h_cnt), ("feas", self.h_feas),
+            ("alloc", self.h_alloc), ("price", self.h_price), ("openable", self.h_openable),
+            ("used0", self.h_used0), ("npods0", self.h_npods0), ("cfg0", cfg0),
+            ("maxper", np.full(self.Gp, BIG, np.int32)), ("slot", np.zeros(self.Gp, np.int32)),
+            ("sig0", np.zeros((2, self.Kp), np.int32)),  # Sp floor 2
+        ):
+            setattr(self, f"d_{name}", upload(name, h))
+        if self.mesh is None:
+            self.partner = {
+                name: torch.empty_like(getattr(self, f"d_{name}"))
+                for name in self._MUTABLE
+            }
+        else:
+            dev = self._hub()
+            self.partner = {
+                (name, d): torch.empty_like(t)
+                for name in self._ROWS for d, t in getattr(self, f"d_{name}").parts.items()
+            }
         self.iota = torch.arange(self.Kp, dtype=torch.int32, device=dev)
         self.neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
         self.last_update = "seed"
 
+    # the mutable buffers a delta edits row by row on every copy, and those
+    # it edits by slot
+    _ROWS = ("req", "cnt", "alloc", "price", "feas")
+    _SLOTS = ("used0", "npods0")
+
+    def _hub(self) -> torch.device:
+        """Where a mesh state's slot edits run: the first data row's device."""
+        return self.mesh.rows[0]
+
     def device_bytes(self) -> int:
         """Live device footprint of this state, gather partners included."""
         return sum(
-            int(t.nbytes)
+            int(t.nbytes)  # a Sharded buffer: the bytes of every part
             for t in (
                 self.d_req, self.d_cnt, self.d_feas, self.d_alloc,
                 self.d_price, self.d_openable, self.d_used0, self.d_npods0,
@@ -375,6 +414,8 @@ class ResidentState:
               nodes_same: bool = False):
         if solver.device != self.device:
             return None  # tensors seeded on another device
+        if solver.pack_fn is not self.pack_fn_ref:
+            return None  # seeded for another pack backend (or mesh)
         if cat_key != self.cat_key:
             return None  # catalog roll / pool mutation: full rebuild
         # ---- live nodes --------------------------------------------------
@@ -696,20 +737,29 @@ class ResidentState:
         h_bool = np.concatenate(
             [self.h_feas[g_idx].ravel(), self.h_feas[:, col_idx].ravel()]
         )
-        ints, f32, bools = (
-            OBSERVATORY.put("resident_delta", a, dev)
-            for a in (h_ints, h_f32, h_bool)
-        )
         sizes = (len(g_perm), len(c_perm), len(k_perm),
                  len(g_idx), len(col_idx), len(k_idx))
+        if self.mesh is None:
+            ints, f32, bools = (
+                OBSERVATORY.put("resident_delta", a, dev)
+                for a in (h_ints, h_f32, h_bool)
+            )
+            OBSERVATORY.dispatch(
+                "resident_delta", self._delta_apply, ints, f32, bools, sizes,
+                e_new,
+            )
+            return
+        # a mesh: the payloads go to every device that holds a copy
+        payloads = {
+            d: tuple(OBSERVATORY.put("resident_delta", a, d) for a in (h_ints, h_f32, h_bool))
+            for d in self.mesh.distinct()
+        }
         OBSERVATORY.dispatch(
-            "resident_delta", self._delta_apply, ints, f32, bools, sizes,
-            e_new,
+            "resident_delta", self._delta_apply_mesh, payloads, sizes, e_new,
         )
 
-    def _delta_apply(self, ints, f32, bools, sizes, e_new: int) -> None:
-        """The device half of `_delta_step`: the gathers into the partner
-        buffers and the scatters of the uploaded payloads."""
+    def _unpack(self, ints, f32, bools, sizes) -> dict:
+        """The uploaded payloads split into the step's indices and rows."""
         n_idx = sum(sizes)
         ng, nc, nk = sizes[3:]
         # index_select / index_copy_ take int64 indices: convert the index
@@ -721,38 +771,89 @@ class ResidentState:
             [ng * R, nc * R, nc, nk * R]
         )
         g_feas, col_feas = bools.split([ng * self.Cp, self.Gp * nc])
-        # 1) permutations: class rows compact/insert to the new FFD order,
-        #    live columns follow the new snapshot order; fresh and vacated
-        #    positions gather from the reserved scratch slot, which
-        #    permanently holds canonical pad values.  Each gather writes the
-        #    partner buffer, which then swaps with the live one; feas takes
-        #    its class permutation into the partner and its column
-        #    permutation back into its own buffer.
-        p = self.partner
-        for name, perm in (("req", gp), ("cnt", gp), ("alloc", cp),
-                           ("price", cp), ("used0", kp), ("npods0", kp)):
-            cur = getattr(self, f"d_{name}")
-            torch.index_select(cur, 0, perm, out=p[name])
-            setattr(self, f"d_{name}", p[name])
-            p[name] = cur
-        torch.index_select(self.d_feas, 0, gp, out=p["feas"])
-        torch.index_select(p["feas"], 1, cp, out=self.d_feas)
-        # 2) scatters in place: class rows, then live columns, then slots.
-        #    Padded index entries all name the scratch slot; on CUDA,
-        #    index_copy_ writes duplicate indices in no fixed order, which
-        #    is bit-safe only because every padded payload entry holds the
-        #    same canonical pad value (the scratch slot's own).
-        self.d_req.index_copy_(0, gi, g_req.view(ng, R))
-        self.d_cnt.index_copy_(0, gi, g_cnt)
-        self.d_feas.index_copy_(0, gi, g_feas.view(ng, self.Cp))
-        self.d_alloc.index_copy_(0, ci, col_alloc.view(nc, R))
-        self.d_price.index_copy_(0, ci, col_price)
-        self.d_feas.index_copy_(1, ci, col_feas.view(self.Gp, nc))
-        self.d_used0.index_copy_(0, ki, k_used.view(-1, R))
-        self.d_npods0.index_copy_(0, ki, k_np)
+        return dict(
+            gp=gp, cp=cp, kp=kp, gi=gi, ci=ci, ki=ki, g_cnt=g_cnt, k_np=k_np,
+            g_req=g_req.view(ng, R), col_alloc=col_alloc.view(nc, R),
+            col_price=col_price, k_used=k_used.view(-1, R),
+            g_feas=g_feas.view(ng, self.Cp), col_feas=col_feas.view(self.Gp, nc),
+        )
+
+    @staticmethod
+    def _edit_rows(cur: dict, partner: dict, u: dict) -> None:
+        """The class-row and live-column edits on one copy of the buffers
+        (``cur``: name -> tensor, swapped with ``partner`` in place).
+        1) permutations: class rows compact/insert to the new FFD order,
+        live columns follow the new snapshot order; fresh and vacated
+        positions gather from the reserved scratch slot, which permanently
+        holds canonical pad values.  Each gather writes the partner buffer,
+        which then swaps with the live one; feas takes its class
+        permutation into the partner and its column permutation back into
+        its own buffer.  2) scatters in place: class rows, then live
+        columns.  Padded index entries all name the scratch slot; on CUDA,
+        index_copy_ writes duplicate indices in no fixed order, which is
+        bit-safe only because every padded payload entry holds the same
+        canonical pad value (the scratch slot's own)."""
+        for name, perm in (("req", u["gp"]), ("cnt", u["gp"]), ("alloc", u["cp"]),
+                           ("price", u["cp"])):
+            torch.index_select(cur[name], 0, perm, out=partner[name])
+            cur[name], partner[name] = partner[name], cur[name]
+        torch.index_select(cur["feas"], 0, u["gp"], out=partner["feas"])
+        torch.index_select(partner["feas"], 1, u["cp"], out=cur["feas"])
+        cur["req"].index_copy_(0, u["gi"], u["g_req"])
+        cur["cnt"].index_copy_(0, u["gi"], u["g_cnt"])
+        cur["feas"].index_copy_(0, u["gi"], u["g_feas"])
+        cur["alloc"].index_copy_(0, u["ci"], u["col_alloc"])
+        cur["price"].index_copy_(0, u["ci"], u["col_price"])
+        cur["feas"].index_copy_(1, u["ci"], u["col_feas"])
+
+    @staticmethod
+    def _edit_slots(cur: dict, partner: dict, u: dict) -> None:
+        """The slot edits (the node-slot permutation, then the changed
+        slots' rows), as `_edit_rows` does them."""
+        for name in ("used0", "npods0"):
+            torch.index_select(cur[name], 0, u["kp"], out=partner[name])
+            cur[name], partner[name] = partner[name], cur[name]
+        cur["used0"].index_copy_(0, u["ki"], u["k_used"])
+        cur["npods0"].index_copy_(0, u["ki"], u["k_np"])
+
+    def _delta_apply(self, ints, f32, bools, sizes, e_new: int) -> None:
+        """The device half of `_delta_step`: the gathers into the partner
+        buffers and the scatters of the uploaded payloads."""
+        u = self._unpack(ints, f32, bools, sizes)
+        cur = {name: getattr(self, f"d_{name}") for name in self._MUTABLE}
+        self._edit_rows(cur, self.partner, u)
+        self._edit_slots(cur, self.partner, u)
+        for name in self._MUTABLE:
+            setattr(self, f"d_{name}", cur[name])
         # 3) the live slots' configs: where(iota < e_new, fe + iota, -1)
         torch.where(self.iota < e_new, self.iota + self.fe, self.neg1,
                     out=self.d_cfg0)
+
+    def _delta_apply_mesh(self, payloads: dict, sizes, e_new: int) -> None:
+        """`_delta_apply` on a mesh: the row edits on each device's copy of
+        the replicated buffers, then the slot edits on the whole slot
+        buffers, gathered to the first data row and split back (the node-slot
+        permutation moves slots ACROSS data rows; each slice is one counted
+        exchange under ``resident_reshard``: 2 x Kp x (R + 2) x 4 bytes a
+        delta)."""
+        for dev, (ints, f32, bools) in payloads.items():
+            u = self._unpack(ints, f32, bools, sizes)
+            cur = {name: getattr(self, f"d_{name}").parts[dev] for name in self._ROWS}
+            partner = {name: self.partner[(name, dev)] for name in self._ROWS}
+            self._edit_rows(cur, partner, u)
+            for name in self._ROWS:
+                getattr(self, f"d_{name}").parts[dev] = cur[name]
+                self.partner[(name, dev)] = partner[name]
+        hub = self._hub()
+        u = self._unpack(*payloads[hub], sizes)
+        site = "resident_reshard"
+        cur = {name: getattr(self, f"d_{name}").gather(hub, site) for name in self._SLOTS}
+        partner = {name: torch.empty_like(t) for name, t in cur.items()}
+        self._edit_slots(cur, partner, u)
+        for name in self._SLOTS:
+            getattr(self, f"d_{name}").scatter(cur[name], site)
+        cfg0 = torch.where(self.iota < e_new, self.iota + self.fe, self.neg1)
+        self.d_cfg0.scatter(cfg0, site)
 
     # ----------------------------------------------------------- snapshot
     def _snapshot(self) -> CompiledProblem:
@@ -817,8 +918,16 @@ class ResidentState:
 
     def _device_pack(self, objective: str):
         """`choose_config` and the scan its shapes pick, launched on the
-        resident tensors (their plain version for a CPU state).  A launch
-        that fails raises, as the cold path's does."""
+        resident tensors (their plain version for a CPU state); on a mesh
+        the sharded pack over the placed buffers.  A launch that fails
+        raises, as the cold path's does."""
+        if self.mesh is not None:
+            from karpenter_tpu_torch.parallel.mesh import sharded_pack
+
+            return OBSERVATORY.dispatch(
+                "mesh_pack", sharded_pack, self.mesh, *self.pack_args(),
+                k_slots=self.Kp, objective=objective,
+            )
         from karpenter_tpu_torch.ops.fused_packer import ffd_pack
 
         return OBSERVATORY.dispatch(
@@ -826,6 +935,8 @@ class ResidentState:
         )
 
     def _fallback_pack(self, prob, k_slots: int, objective: str):
+        if self.mesh is not None:
+            return self.pack_fn_ref(prob, k_slots, objective)
         return dispatch_pack(prob, k_slots, objective, self.device)
 
 
@@ -900,7 +1011,7 @@ class ResidentCache:
         None when every state misses (the caller runs the full compile and
         seeds a state via `rebuild`).  ``_win`` lets a caller that already
         validated the trust window hand it over."""
-        if not self.states or solver.pack_fn is not None:
+        if not self.states or not resident_capable(solver.pack_fn):
             return None  # a sidecar's pack_fn keeps the plain upload path
         # tick-wide invariants, identical for every candidate state: built
         # once per call (and, under an open trust window, once per tick)
@@ -938,10 +1049,9 @@ class ResidentCache:
         self, solver, pods: List[Pod], prob: CompiledProblem, catalog,
         consumer: str = "solve",
     ) -> Optional[ResidentState]:
-        # resident tensors serve only the in-process pack: a sidecar's (or
-        # any custom) pack_fn keeps the plain upload path, as the
-        # reference's resident_capable rules
-        if catalog is None or solver.pack_fn is not None:
+        # resident tensors serve only the in-process packs: a sidecar's (or
+        # any custom) pack_fn keeps the plain upload path
+        if catalog is None or not resident_capable(solver.pack_fn):
             return None
         with phase("delta"):
             st = ResidentState.build(
@@ -966,13 +1076,15 @@ class ResidentCache:
     def _report_footprint(self) -> None:
         OBSERVATORY.set_resident_footprint(self, self.footprint())
 
-    def match(self, prob: CompiledProblem, device=None) -> Optional[ResidentState]:
+    def match(self, prob: CompiledProblem, device=None, pack_fn=None) -> Optional[ResidentState]:
         """The state whose CURRENT snapshot is exactly `prob` (identity): a
         compile-cache hit re-serving that snapshot may pack straight from
-        the resident tensors with no delta at all.  ``device`` fences
-        against a state seeded on another device."""
+        the resident tensors with no delta at all.  ``device`` and
+        ``pack_fn`` fence against a state seeded on another device or for
+        another pack backend."""
         for st in self.states:
-            if st.prob is prob and (device is None or st.device == device):
+            if (st.prob is prob and (device is None or st.device == device)
+                    and st.pack_fn_ref is pack_fn):
                 return st
         return None
 

@@ -226,9 +226,10 @@ def _try_admit(scheduler, pods: Sequence[Pod]) -> FastpathResult:
         st = cache.refresh(scheduler, pods, _win=win)
     if st is None:
         return FastpathResult("fallback", REASON_RESIDENT_MISS)
-    # the reference falls back here with REASON_SHARDED_BACKEND when the
-    # state is sharded over a mesh; the port's resident states have no
-    # mesh until ROADMAP A7 ports it
+    if st.mesh is not None:
+        # the sharded backend packs over its mesh only in the batched
+        # solve; the refresh above still warmed the state for it
+        return FastpathResult("fallback", REASON_SHARDED_BACKEND)
     g = st.slot_of.get(ck)
     if g is None:
         return FastpathResult("fallback", REASON_RESIDENT_MISS)

@@ -23,7 +23,16 @@ candidate subsets) and `evaluate_population` / `dispatch_population` /
 `fetch_population` (a population of removal masks) answer them as the
 reference does, over one compiled base problem per candidate universe, on
 the card as one batched scan (ops/fused_packer.py: `removal_verdicts`,
-`population_verdicts`).  The reference's mesh is a later slice of the port.
+`population_verdicts`).
+
+The device half has three backends, as the reference's (`default_pack_fn`):
+the in-process pack on one device (``pack_fn`` None, the default), the pack
+sharded over a device mesh (parallel/mesh.py `mesh_pack_fn`, passed as
+``pack_fn`` or chosen by ``KARPENTER_TPU_SHARDED=1``), and a solver
+sidecar's (service/client.py).  The resident tensors serve the first two.
+Unlike the reference, a machine with more than one card keeps the
+one-device pack unless asked: the mesh's shard kernels are not yet faster
+than it (PERF.md).
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from karpenter_tpu_torch.ops.packer import (
     run_removal_verdicts,
     to_device,
 )
-from karpenter_tpu_torch.ops.resident import ResidentCache
+from karpenter_tpu_torch.ops.resident import ResidentCache, resident_capable
 from karpenter_tpu_torch.ops.tensorize import (
     _SCALE,
     BIG,
@@ -166,6 +175,30 @@ class _RemovalBase:
         self.occ_span = 0
 
 
+def default_pack_fn(device: torch.device):
+    """Backend selection for the device half of the solve.
+
+    - ``KARPENTER_TPU_SHARDED=1``: the mesh-sharded pack (parallel/mesh.py)
+      over every card, the node-slot state over "data", the [G, C]
+      passes' configs over "model" (for a scheduler on the CPU: a (1, 1)
+      mesh of its device);
+    - otherwise: None, the in-process pack on the scheduler's one device.
+      The reference also takes the mesh on a multi-device TPU, where GSPMD
+      makes it the faster backend; the port's shard kernels are slower
+      than its one-device pack (PERF.md), so more cards alone do not pick
+      it.
+    """
+    import os
+
+    if os.environ.get("KARPENTER_TPU_SHARDED", "") != "1":
+        return None
+    from karpenter_tpu_torch.parallel.mesh import make_mesh, mesh_pack_fn
+
+    if device.type == "cpu":
+        return mesh_pack_fn(make_mesh(devices=[device]))
+    return mesh_pack_fn()
+
+
 class TorchScheduler:
     """Drop-in replacement for the oracle `Scheduler` backed by the pack
     kernel.  ``device`` defaults to the card; tests pass ``"cpu"``.
@@ -174,7 +207,10 @@ class TorchScheduler:
     with `ops.packer.run_pack`'s signature and result, such as a solver
     sidecar's `RemoteSolver.pack_problem` (service/client.py).  With one
     set, the resident tensors neither seed nor serve a solve (their
-    transfer contract is the in-process pack's)."""
+    transfer contract is the in-process pack's), unless it is a mesh's
+    (parallel/mesh.py `mesh_pack_fn`), whose resident tensors are sharded
+    over the mesh.  Left None, the first solve picks the backend
+    (`default_pack_fn`)."""
 
     def __init__(
         self,
@@ -197,6 +233,7 @@ class TorchScheduler:
         # the device half of the solve: None packs in this process on
         # `device`; a sidecar's RemoteSolver.pack_problem solves remotely
         self.pack_fn = pack_fn
+        self._backend_picked = pack_fn is not None
         self.last_path = ""  # "tensor" | "oracle" | "hybrid"
         # "cuda_ffd" | "reference" | a pack_fn's kernel_name ("custom") |
         # "" (oracle)
@@ -282,6 +319,14 @@ class TorchScheduler:
         with phase_collect(phases), phase("other"):
             return self._solve(list(pods))
 
+    def _pick_backend(self) -> None:
+        """Pick the default backend once, before the first resident seed
+        or pack (the reference picks it at the same points)."""
+        if not self._backend_picked:
+            self._backend_picked = True
+            if self.pack_fn is None:
+                self.pack_fn = default_pack_fn(self.device)
+
     def _solve(self, pods: List[Pod]) -> SchedulingResult:
         self.last_compile_relaxed = 0
         self.last_continuation = ""
@@ -338,6 +383,7 @@ class TorchScheduler:
                 # NEXT delta applies on the device (ineligible shapes leave
                 # the layer empty and recompile next time)
                 if prob is not None and prob.supported and not unsupported:
+                    self._pick_backend()
                     resident = self._resident.rebuild(
                         self, pods, prob, self._catalog, consumer="solve"
                     )
@@ -349,8 +395,8 @@ class TorchScheduler:
             # a hit re-serving the resident snapshot packs straight from
             # the device tensors, no delta needed
             resident = (
-                self._resident.match(prob, self.device)
-                if prob is not None and self.pack_fn is None
+                self._resident.match(prob, self.device, self.pack_fn)
+                if prob is not None and resident_capable(self.pack_fn)
                 else None
             )
             if resident is not None:
@@ -650,7 +696,9 @@ class TorchScheduler:
         ``pack_fn`` overrides the upload pack for this one solve: the
         resident path passes its pack over the device tensors, whose
         overflow retry falls back to the upload path.  The scheduler's own
-        ``pack_fn`` (a sidecar's) takes every solve, retries included."""
+        ``pack_fn`` (a mesh's, a sidecar's) takes every solve, retries
+        included."""
+        self._pick_backend()
         eff_pack = (
             pack_fn if pack_fn is not None
             else self.pack_fn if self.pack_fn is not None
@@ -1071,6 +1119,7 @@ class TorchScheduler:
                     return _RemovalBase(reason="macro-class")
             if len(prob.cnt) and (prob.maxper < BIG).any():
                 return _RemovalBase(reason="tracked-signature")
+            self._pick_backend()
             if self._resident.rebuild(
                 self, pods, prob, self._catalog, consumer="removal"
             ) is not None:

@@ -11,9 +11,11 @@ by first index, removal-verdict inputs on which the verdict rows must
 (`verdict_tie_arrays`), removal-verdict inputs that put the elements'
 frontiers in and past the frontier-window scan's window
 (`frontier_arrays`), admission inputs at the admission kernel's edges
-(`admit_edge_arrays`), and live clusters whose nodes hold bound pods, for the
+(`admit_edge_arrays`), live clusters whose nodes hold bound pods, for the
 consolidation verdicts (`consolidation_cluster`, `settled_cluster`,
-`ranked_candidates`).
+`ranked_candidates`), and for the device mesh a mesh of CPU shards
+(`cpu_mesh`), the factorized admission problem of the JAX package's mesh
+tests (`mesh_step_problem`) and a deep class axis (`deep_class_pods`).
 
 `Environment` (with `FakeKubelet` and `FAST_BATCH_WINDOWS`) is a copy of
 the reference's: the port's `Operator` over the fake cloud, a fake clock
@@ -565,6 +567,19 @@ def frontier_arrays(case: str) -> tuple:
             pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
 
 
+def frontier_pack(case: str, b: int) -> tuple:
+    """Element ``b`` of a `frontier_arrays` case as one pack's inputs
+    (numpy, in `pack_reference`'s order): the base rows in its class order,
+    its counts, its removed slots' configs -1 (what the batched scan scans
+    for it)."""
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     *_, cnt_b, rm, perm) = frontier_arrays(case)
+    pb = perm[b]
+    cfg = np.where(rm[b], -1, cfg0).astype(np.int32)
+    return (req[pb], cnt_b[b], maxper[pb], slot[pb], feas[pb], alloc, price, openable,
+            used0, cfg, npods0, int(next0), sig0)
+
+
 def element_frontiers(node_cfg, next0: int) -> np.ndarray:
     """Each element's frontier after its scan, from a batched scan's
     ``node_cfg`` [B, K]: ``next0`` or one past its last slot holding a
@@ -785,6 +800,75 @@ def heterogeneous_pods(n: int) -> List[Pod]:
                 )
             )
     return pods
+
+
+# ---------------------------------------------------------------------------
+# The device mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def cpu_mesh(shape: Tuple[int, int] = (4, 2)):
+    """A (data, model) mesh of ``shape`` CPU shards: the shard kernels'
+    plain versions and the exchange between shards run in one process, the
+    counterpart of the JAX tests' 8 virtual CPU devices."""
+    import torch
+
+    from karpenter_tpu_torch.parallel.mesh import Mesh
+
+    D, M = shape
+    return Mesh(tuple(tuple(torch.device("cpu") for _ in range(M)) for _ in range(D)))
+
+
+MESH_STEP_ARGS = (
+    "type_ok", "zone_ok", "ct_ok", "sig_of", "t_of", "z_of", "ct_of",
+    "req", "cnt", "maxper", "slot", "alloc", "price", "openable",
+    "used0", "cfg0", "npods0", "next0", "sig0",
+)
+
+
+def mesh_step_problem(seed: int = 42, classes: int = 16, k_slots: int = 32,
+                      types: int = 8) -> dict:
+    """The factorized admission problem of the JAX package's mesh tests
+    (tests/test_parallel.py's fixture, at its defaults): 4 signatures,
+    ``types`` types x 2 zones x 2 capacity types x 2 (64 configs at 8
+    types), ``classes`` classes of 5 pods, ``k_slots`` empty slots;
+    `MESH_STEP_ARGS` orders its arrays as ``sharded_solve_step`` takes
+    them."""
+    S, T, Z, CT, R = 4, types, 2, 2, 6
+    C = T * Z * CT * 2
+    G, K = classes, k_slots
+    rng = np.random.RandomState(seed)
+    return dict(
+        type_ok=rng.rand(S, T) < 0.8,
+        zone_ok=np.ones((S, Z), bool),
+        ct_ok=np.ones((S, CT), bool),
+        sig_of=(np.arange(G) % S).astype(np.int32),
+        t_of=(np.arange(C) % T).astype(np.int32),
+        z_of=((np.arange(C) // T) % Z).astype(np.int32),
+        ct_of=((np.arange(C) // (T * Z)) % CT).astype(np.int32),
+        req=(np.abs(rng.rand(G, R)) + 0.1).astype(np.float32),
+        cnt=np.full(G, 5, np.int32),
+        maxper=np.full(G, 2**20, np.int32),
+        slot=np.zeros(G, np.int32),
+        alloc=(np.abs(rng.rand(C, R)) * 16 + 8).astype(np.float32),
+        price=(rng.rand(C) + 0.5).astype(np.float32),
+        openable=np.ones(C, bool),
+        used0=np.zeros((K, R), np.float32),
+        cfg0=np.full(K, -1, np.int32),
+        npods0=np.zeros(K, np.int32),
+        next0=np.int32(0),
+        sig0=np.zeros((5, K), np.int32),
+    )
+
+
+def deep_class_pods(n: int = 600) -> List[Pod]:
+    """``n`` pods over about 200 (cpu, memory) request classes: the deep
+    sequential class axis of the JAX package's
+    ``test_sharded_deep_class_axis_parity``."""
+    return [
+        Pod(requests=Resources(cpu=0.25 * (1 + i % 40), memory=f"{1 + (i // 40) % 5}Gi"))
+        for i in range(n)
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ def _forge(tmp_path, files: dict):
 FUSED_PACKER_LAUNCHERS = {
     "choose_config", "_launch_resident", "_launch_cluster", "_launch_global",
     "fleet_pack", "_launch_window", "verdict_rows", "population_prologue",
-    "admit",
+    "admit", "assemble_feasibility", "choose_config_shard", "ffd_shard_cap",
+    "ffd_shard_apply",
 }
 HOST_QUERIES = {"scan_concurrency", "verdict_shape", "_verdict_max_axes",
                 "_verdict_scratch_bytes"}
@@ -151,7 +152,8 @@ class TestLaunchWrapperDiscovery:
         assert callers == FUSED_PACKER_LAUNCHERS
         assert not HOST_QUERIES & {k.split(":")[1] for k in found.keys}
         # the entry points the port dispatches are wrappers by composition
-        for name in ("ffd_pack", "fleet_pack", "removal_verdicts", "population_verdicts"):
+        for name in ("ffd_pack", "fleet_pack", "removal_verdicts", "population_verdicts",
+                     "mesh_pack", "mesh_assemble_feasibility"):
             assert f"{rel}:{name}" in found.keys
         assert found.keys["karpenter_tpu_torch/ops/packer.py:admit_kernel"] == "dispatched"
 
@@ -195,6 +197,65 @@ class TestLaunchWrapperDiscovery:
                             allowlists={"device-put": frozenset()})
         assert [f.line for f in live] == [4, 5, 6, 7, 8], [f.render() for f in live]
         assert all(f.message.startswith("up:") for f in live)
+
+
+class TestDeviceFetchUnderALock:
+    """``lock-blocking`` counts the port's device fetches as blocking: a
+    ``.cpu()``, ``.item()``, ``.tolist()`` or ``torch.cuda.synchronize()``
+    waits for the card's queued work, so under a lock it convoys every
+    other thread (the solver service solves from many)."""
+
+    SRC = (
+        "import threading\n"
+        "import torch\n"
+        "class Solver:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "    def fetch(self, t):\n"
+        "        with self._lock:\n"
+        "            return t.cpu()\n"
+        "    def count(self, t):\n"
+        "        with self._lock:\n"
+        "            return t.item()\n"
+        "    def rows(self, t):\n"
+        "        with self._lock:\n"
+        "            return t.tolist()\n"
+        "    def wait(self):\n"
+        "        with self._lock:\n"
+        "            torch.cuda.synchronize()\n"
+        "    def _read(self, t):\n"
+        "        return t.cpu()\n"
+        "    def through_a_call(self, t):\n"
+        "        with self._lock:\n"
+        "            return self._read(t)\n"
+        "    def outside(self, t):\n"
+        "        with self._lock:\n"
+        "            n = t.shape[0]\n"
+        "        return t.cpu(), n\n"
+    )
+
+    def test_fetch_under_a_lock_fires(self, tmp_path):
+        from karpenter_tpu_torch.analysis import run_rules
+
+        snap = _forge(tmp_path, {"ops/x.py": self.SRC})
+        live, _ = run_rules(snap, rule_names=["lock-blocking"],
+                            allowlists={"lock-blocking": frozenset()})
+        quals = sorted(f.message.split(":")[0] for f in live)
+        assert quals == ["Solver.count", "Solver.fetch", "Solver.rows",
+                         "Solver.through_a_call", "Solver.wait"], [f.render() for f in live]
+        ops = {f.message.split(":")[0]: f.message.split(" ")[1] for f in live}
+        assert ops["Solver.wait"].startswith("synchronize(")
+        allowed, _ = run_rules(snap, rule_names=["lock-blocking"], allowlists={
+            "lock-blocking": frozenset({("forged/ops/x.py", "Solver.fetch")})})
+        assert len(allowed) == len(live) - 1
+
+    def test_port_tree_holds_no_fetch_under_a_lock(self):
+        from karpenter_tpu_torch.analysis import PackageSnapshot, run_rules
+        from karpenter_tpu_torch.analysis.locks import BLOCKING_CALLS
+
+        assert {"cpu", "item", "tolist", "synchronize"} <= set(BLOCKING_CALLS)
+        live, _ = run_rules(PackageSnapshot.load(), rule_names=["lock-blocking"])
+        assert not live, [f.render() for f in live]
 
 
 @pytest.mark.usefixtures("on_the_cpu")

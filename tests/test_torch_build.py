@@ -43,6 +43,15 @@ def test_edited_source_gets_a_new_library(tree):
     assert _build._lib_path("k") != before
 
 
+def test_edited_header_gets_a_new_library(tree):
+    """A source includes the shared header (csrc/*.cuh): editing it
+    rebuilds every source."""
+    (tree / "csrc" / "common.cuh").write_text("// helpers\n")
+    before = _build._lib_path("k")
+    (tree / "csrc" / "common.cuh").write_text("// helpers, edited\n")
+    assert _build._lib_path("k") != before
+
+
 # ------------------------------------------------- many threads at first use
 THREADS = 8
 

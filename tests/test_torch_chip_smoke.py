@@ -107,15 +107,20 @@ def test_kernels_line_rows():
     verdict epilogue and prologue), then phase 8's admission score, then
     phase 11's fleet launches (the choice and the picked scan at the config
     2 service cell, the cluster and global scans at the live cluster's
-    tenants, all in place of the JAX package's ``fleet_pack_kernel``);
+    tenants, all in place of the JAX package's ``fleet_pack_kernel``),
+    then phase 15's mesh kernels (the feasibility expansion at the
+    factorized step, the sharded pack's three at config 2 on the mesh);
     phase 4 times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
         "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
         "population_pairs", "admit_kernel", "choose_config_fleet", "ffd_scan_fleet",
-        "ffd_scan_cluster_fleet", "ffd_scan_global_fleet")
-    assert chip_smoke.KERNELS[-4:] == chip_smoke.FLEET_KERNELS
+        "ffd_scan_cluster_fleet", "ffd_scan_global_fleet", "assemble_feasibility",
+        "choose_config_shard", "ffd_shard_cap", "ffd_shard_apply")
+    assert chip_smoke.KERNELS[-8:-4] == chip_smoke.FLEET_KERNELS
+    assert chip_smoke.KERNELS[-4:] == chip_smoke.MESH_KERNELS
+    assert chip_smoke.ROW_PROBLEM["ffd_shard_cap"] == "config2_mesh"
     assert chip_smoke.FLEET_REPLACES == "karpenter_tpu/ops/packer.py:930"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_fleet"] == "service-16-config2"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_window_batched"] == "consolidation"
@@ -195,15 +200,16 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "12"], 12),
     (["--through", "13"], 13),
     (["--through", "14"], 14),
+    (["--through", "15"], 15),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14"])
+    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14", "argv14-15"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "15"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "16"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -224,7 +230,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "15"],
+        [sys.executable, "chip_smoke.py", "--through", "16"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -741,7 +747,7 @@ def test_phase13_crash_rounds_and_launch_columns():
     assert list(row)[-1] == "fleet_launches"
     assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
                    "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
-    assert chip_smoke.LAST_PHASE == 14
+    assert chip_smoke.LAST_PHASE == 15
     assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
         "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
     assert chip_smoke.FLEET_REPLAYED == "solver-fleet"
@@ -781,3 +787,75 @@ def test_phase14_launch_column():
     row = chip_smoke.phase_launches("ffd_scan", per_phase)
     assert list(row) == ["fleet_launches", "legacy_launches"]
     assert row == {"fleet_launches": 0, "legacy_launches": 1}
+
+
+def test_phase15_launch_column():
+    """The kernels line's newest launch column is phase 15's main path, and
+    the four mesh kernels' rows name their source and what they replace."""
+    per_phase = {"legacy_launches": {"choose_config": 1},
+                 "mesh_launches": {"ffd_shard_cap": 1284, "choose_config_shard": 8}}
+    row = chip_smoke.phase_launches("ffd_shard_cap", per_phase)
+    assert list(row) == ["legacy_launches", "mesh_launches"]
+    assert row == {"legacy_launches": 0, "mesh_launches": 1284}
+    from karpenter_tpu_torch.ops import fused_packer
+
+    assert chip_smoke.MESH_KERNELS == fused_packer.MESH_KERNELS
+    assert set(chip_smoke.MESH_REPLACES) == set(chip_smoke.MESH_KERNELS)
+    root = pathlib.Path(chip_smoke.__file__).parent
+    assert root.joinpath(chip_smoke.MESH_SOURCE).exists()
+    for k, source in chip_smoke.MESH_SOURCES.items():
+        assert k in chip_smoke.MESH_KERNELS and root.joinpath(source).exists()
+    # the choice tile is choose_config_kernel's shard mode, which the
+    # profiler reports under that kernel's name
+    assert chip_smoke.PROFILE_SYMBOL["choose_config_shard"] == "choose_config_kernel"
+    assert "ffd_choose_config_shard" in root.joinpath(chip_smoke.KERNEL_SOURCE).read_text()
+
+
+def test_phase15_lockstep_on_cpu_shards():
+    """`mesh_lockstep` on a mesh of CPU shards (both sides the plain
+    versions there): the wrap case and a frontier element step by step,
+    its outputs the plain pack's; the bound helpers on its outputs."""
+    import numpy as np
+
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import packer as P
+
+    mesh = T.cpu_mesh()
+    cpu = torch.device("cpu")
+    for args in (T.wrap_arrays(256, at=62), T.frontier_pack("wrap", 0)):
+        k_out, p_out, e_choose = chip_smoke.mesh_lockstep(torch, "cpu", mesh, args, "nodes")
+        assert e_choose == 0.0
+        want = P.pack_reference(*P.to_device(args, cpu))
+        assert chip_smoke.max_abs_err(torch, k_out, want) == 0.0
+        assert chip_smoke.max_abs_err(torch, p_out, want) == 0.0
+    plan = P.mesh_plan(mesh.devices, args[0].shape[0], args[5].shape[0], args[8].shape[0])
+    bounds = chip_smoke.mesh_bounds(plan, args, k_out, 2)
+    assert set(bounds) == {"ffd_shard_cap", "ffd_shard_apply", "choose_config_shard"}
+    assert all(b["bound_ms"] > 0 and b["bound_by"] in ("bytes", "operations")
+               for b in bounds.values())
+    take, _, cfg = (t.numpy() for t in k_out[:3])
+    at = chip_smoke.open_steps(take, cfg, args[11])
+    live = (cfg >= 0) & (np.arange(len(cfg)) < args[11])
+    assert (at[live] == 0).all() and (at[cfg < 0] > take.shape[0]).all()
+    step = T.mesh_step_problem()
+    assert chip_smoke.assemble_bound(step)["bytes"] == (
+        4 * 16 + 12 * 64 + 4 * (8 + 2 + 2) + 16 * 64)
+
+
+def test_profiler_blind_windows_take_the_fallback(monkeypatch, capsys):
+    """A kernel the profiler never sees (here: no card, so no device time
+    at all) is timed by the caller's fallback after `PROFILE_ATTEMPTS`
+    windows, and fails the run where there is none."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    asked = []
+
+    def fallback(missing):
+        asked.append(list(missing))
+        return {k: 1.5 for k in missing}
+
+    fn = lambda: torch.ones(3).sum()
+    assert chip_smoke.profiled_launches_ms(torch, fn, ("k",), 1, fallback) == {"k": 1.5}
+    assert asked == [["k"]]
+    assert "timed by CUDA events instead" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        chip_smoke.profiled_ms(torch, fn, "k", 1)

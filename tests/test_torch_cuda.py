@@ -851,3 +851,103 @@ def test_failover_on_card_matches_cpu(cuda_device):
     for name in T.HA_REPLICAS:
         for key in cpu["state"][name]:
             assert card["state"][name][key] == cpu["state"][name][key], (name, key)
+
+
+# ---------------------------------------------------------------------------
+# The device mesh (parallel/mesh.py, csrc/mesh_pack.cu): 8 shards a (4, 2)
+# mesh over the machine's cards in turn (all on the one card of a one-card
+# machine)
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh():
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(8, [torch.device("cuda", i % n) for i in range(8)])
+
+
+MESH_CASES = {
+    "wrap-256": lambda: T.wrap_arrays(256),
+    "wrap-4096-straddling": lambda: T.wrap_arrays(4096, at=2046),
+    "wrap-64-at-30": lambda: T.wrap_arrays(64, at=30),
+    "ties": lambda: T.tie_arrays(),
+    "configs-6": lambda: T.first_configs(T.wrap_arrays(256), 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+def test_mesh_pack_matches_plain_and_ffd_pack(cuda_device, case, objective):
+    """The sharded pack's kernels (choose_config_shard, ffd_shard_cap,
+    ffd_shard_apply) against their plain versions on the same card shards,
+    and against the single-device ffd_pack, bit for bit."""
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+
+    mesh = _card_mesh()
+    args = MESH_CASES[case]()
+    plan, reps, slots, next0 = PM.pack_layout(mesh, args, site="mesh_pack")
+    fused_packer.reset_launches()
+    got = fused_packer.mesh_pack(plan, reps, slots, next0, objective)
+    G = args[0].shape[0]
+    assert fused_packer.LAUNCHES["ffd_shard_cap"] == (G + 1) * 4
+    assert fused_packer.LAUNCHES["ffd_shard_apply"] == G * 4
+    _assert_bit_equal(got, P.mesh_pack_reference(plan, reps, slots, next0, objective))
+    _assert_bit_equal(got, fused_packer.ffd_pack(*to_device(args, cuda_device),
+                                                 objective=objective))
+
+
+def test_assemble_feasibility_kernel_matches_plain(cuda_device):
+    """One launch a tile and the whole mask, against the plain version, at
+    the mesh tests' problem and at config 2's shapes (Gp 320, Cp 8192)."""
+    from karpenter_tpu_torch.ops import packer as P
+
+    for kw in ({}, {"classes": 320, "k_slots": 4096, "types": 1024}):
+        p = T.mesh_step_problem(**kw)
+        adm = to_device(tuple(p[k] for k in T.MESH_STEP_ARGS[:7]), cuda_device)
+        G, C = len(p["sig_of"]), len(p["t_of"])
+        for g0, g1, c0, c1 in ((0, G, 0, C), (1, G // 2, 3, C - 5), (2, 2, 0, C)):
+            got = fused_packer.assemble_feasibility(*adm, g0, g1, c0, c1)
+            assert torch.equal(got, P.assemble_feasibility_reference(*adm, g0, g1, c0, c1))
+
+
+def test_mesh_scheduler_on_card_matches_single_device(cuda_device):
+    """`TorchScheduler(pack_fn=mesh_pack_fn(mesh))` on the card: config 2
+    at a tenth of its pods, cold, hit and a delta, decodes as the
+    single-device scheduler does; its sharded resident buffers equal their
+    mirrors; the admission fast path falls back with sharded_backend."""
+    from karpenter_tpu_torch.parallel.mesh import mesh_pack_fn
+    from karpenter_tpu_torch.scheduling import fastpath
+
+    pools, inv, pods = T.heterogeneous_problem(scale=0.1)
+    single = TorchScheduler(pools, inv, device=cuda_device)
+    fn = mesh_pack_fn(_card_mesh())
+    sharded = TorchScheduler(pools, inv, device=cuda_device, pack_fn=fn)
+    key = lambda r: (sorted((len(n.pods), n.feasible_types[0].name) for n in r.new_nodes),
+                     sorted(r.unschedulable))
+    for batch in (pods, pods, pods[5:] + [type(p)(requests=p.requests) for p in pods[:5]]):
+        assert key(sharded.solve(batch)) == key(single.solve(batch))
+        assert sharded.last_kernel == "scan-sharded" and sharded.last_resident
+    st = sharded._resident.states[-1]
+    assert st.mesh is fn.mesh
+    for name in ("req", "cnt", "feas", "alloc", "price", "used0", "npods0"):
+        a, b = getattr(st, f"d_{name}").host(), getattr(st, f"h_{name}")
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b)
+    sharded.solve(pods[:4])
+    res = fastpath.try_admit(sharded, [type(pods[0])(requests=pods[0].requests)])
+    assert (res.outcome, res.reason) == ("fallback", fastpath.REASON_SHARDED_BACKEND)
+
+
+def test_mesh_kernels_refuse_misaligned_feas(cuda_device):
+    """The choice and scan kernels read feas rows; like the single-device
+    kernels they refuse one that does not start on a 16-byte boundary."""
+    args = to_device(T.wrap_arrays(256), cuda_device)
+    req, _, maxper, _, feas, alloc, price, openable = args[:8]
+    buf = torch.zeros(feas.numel() + 1, dtype=torch.bool, device=cuda_device)
+    buf[1:] = feas.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_packer.choose_config_shard(req, maxper, buf[1:].view(feas.shape), alloc, price,
+                                         openable, 0, 4, 0, 8)

@@ -44,7 +44,13 @@ port on the CPU, and ends by checking that no blocked module reached
   the port under the finder); ``tools/`` (the chart rendered, the CRDs and
   the metrics page regenerated equal to the checked-in files, a kompat
   matrix, allocatable-diff over a CPU operator) and ``api/legacy.py``
-  (a converted Provisioner and AWSNodeTemplate provisioning pods).
+  (a converted Provisioner and AWSNodeTemplate provisioning pods);
+- ``parallel``: the device mesh (``parallel/``): a (4, 2) mesh of CPU
+  shards; the sharded step on the mesh tests' problem equal to the
+  unsharded plain pack; a `TorchScheduler` with the mesh's pack_fn solving
+  cold, then a one-pod delta on its sharded resident state, equal to the
+  single-device solve; the admission fast path falling back with
+  ``sharded_backend``.
 
 The stages were one script until it outgrew its time limit under the
 suite's parallel load; each now has a limit of its own."""
@@ -321,6 +327,37 @@ env.settle()
 assert not env.kube.pending_pods() and env.kube.node_claims
 rows = allocatable_diff.diff_rows(env.operator)
 assert rows.rows and not rows.skipped and not allocatable_diff.overpromised(rows.rows)
+''',
+    "parallel": r'''
+from karpenter_tpu_torch.ops import packer as P
+from karpenter_tpu_torch.parallel import make_mesh, mesh_pack_fn, sharded_solve_step
+from karpenter_tpu_torch.scheduling import fastpath
+
+mesh = make_mesh(8, ["cpu"] * 8)
+assert mesh.shape == (4, 2)
+p = T.mesh_step_problem()
+got = sharded_solve_step(mesh, 32)(*(p[k] for k in T.MESH_STEP_ARGS))
+feas = P.assemble_feasibility_reference(
+    *(torch.from_numpy(p[k]) for k in T.MESH_STEP_ARGS[:7]), 0, 16, 0, 64)
+args = P.to_device(tuple(feas.numpy() if k == "feas" else p[k] for k in (
+    "req", "cnt", "maxper", "slot", "feas", "alloc", "price", "openable",
+    "used0", "cfg0", "npods0", "next0", "sig0")), torch.device("cpu"))
+args = args[:11] + (int(args[11]),) + args[12:]
+for a, b in zip(got, P.pack_reference(*args)):
+    assert torch.equal(a, b)
+pools, inv, pods = T.heterogeneous_problem(scale=0.01)
+single = karpenter_tpu_torch.TorchScheduler(pools, inv, device="cpu")
+sharded = karpenter_tpu_torch.TorchScheduler(pools, inv, device="cpu", pack_fn=mesh_pack_fn(mesh))
+key = lambda r: sorted((len(n.pods), n.feasible_types[0].name) for n in r.new_nodes)
+assert key(sharded.solve(pods)) == key(single.solve(pods))
+assert sharded.last_kernel == "scan-sharded" and sharded._resident.states[-1].mesh is mesh
+pods = pods + [type(pods[0])(requests=pods[0].requests)]  # one arrival
+assert key(sharded.solve(pods)) == key(single.solve(pods))
+assert sharded.last_resident and sharded.last_delta_rows > 0
+few = pods[:4]  # a warm state a one-pod arrival can refresh
+sharded.solve(few)
+res = fastpath.try_admit(sharded, [type(pods[0])(requests=pods[0].requests)])
+assert (res.outcome, res.reason) == ("fallback", fastpath.REASON_SHARDED_BACKEND), res
 ''',
 }
 

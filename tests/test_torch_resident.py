@@ -232,6 +232,10 @@ class _TwinFuzz:
                     jts._resident.states[-1])
 
 
+def _host(t) -> np.ndarray:
+    return t.host() if hasattr(t, "host") else t.cpu().numpy()
+
+
 def check_state(st, pods, scratch, ref_state=None) -> None:
     """Checks 2-4 on the state that served the solve (refresh moves it to
     the MRU end, rebuild appends it)."""
@@ -252,13 +256,14 @@ def check_state(st, pods, scratch, ref_state=None) -> None:
     row = lambda c: (c.zone, c.capacity_type, c.price,
                      c.existing.name if c.existing is not None else None)
     assert list(map(row, prob.configs)) == list(map(row, scratch.configs))
-    # 3) device tensors equal the mirrors
+    # 3) device tensors equal the mirrors (a state on a mesh: each buffer
+    #    read back whole from its shards)
     for name in MIRRORS:
-        _equal(getattr(st, f"d_{name}").cpu().numpy(), getattr(st, f"h_{name}"), f"d_{name}")
+        _equal(_host(getattr(st, f"d_{name}")), getattr(st, f"h_{name}"), f"d_{name}")
     E = len(st.live)
     cfg0 = np.full(st.Kp, -1, np.int32)
     cfg0[:E] = np.arange(st.fe, st.fe + E)
-    _equal(st.d_cfg0.cpu().numpy(), cfg0, "d_cfg0")
+    _equal(_host(st.d_cfg0), cfg0, "d_cfg0")
     # 4) pad hygiene
     G, C = len(st.cls), st.fe + E
     assert not st.h_feas[G:, :].any() and not st.h_feas[:, C:].any()
