@@ -329,9 +329,9 @@ Phases (each failure exits non-zero before the last line is printed):
    that solves, ``choose_config`` and a scan must launch, every pod bound
    after, and ``testing.operator_state`` must equal the same drive on the
    CPU.
-15. The device mesh (`mesh_phase`; ``parallel/mesh.py`` and
-   ``csrc/mesh_pack.cu``): a (4, 2) mesh of `MESH_SHARDS` shards over the
-   machine's cards in turn (all 8 on the one card of a one-card machine),
+15. The device mesh (`mesh_phase`; ``parallel/mesh.py``,
+   ``csrc/mesh_pack.cu`` and the shard modes of ``csrc/ffd_pack.cu``): a
+   (4, 2) mesh of `MESH_SHARDS` shards over the machine's cards in turn (all 8 on the one card of a one-card machine),
    its devices printed (the solver takes the mesh only when asked, so
    this phase builds it by hand).  The main path, with the launch
    counts set to 0 just before and read just after: config 2's cold, hit
@@ -339,29 +339,44 @@ Phases (each failure exits non-zero before the last line is printed):
    the flagship and the live cluster (2,000 live nodes: the prefix crosses
    shards with existing nodes) through it, and ``sharded_solve_step`` on a
    factorized problem at config 2's shapes (Gp 320, Cp 8192, Kp 4096);
-   each of the four kernels must launch and no single-device kernel may;
-   each solve must decode equal to a single-device scheduler's, the hit
-   and delta must pack from the sharded resident state, whose buffers
-   must equal their mirrors.  Then ``mesh_pack_fn`` against the
-   single-device ``ffd_pack`` at the three problems, both objectives; each
-   kernel against its plain version step by step (`mesh_lockstep`) on the
-   main path's resident tensors and on ``testing.wrap_arrays`` (256, and
-   4096 with the prefilled slots across shards) and two
-   ``testing.frontier_arrays`` elements, both objectives there;
-   ``assemble_feasibility`` whole and tile by tile.  Then at config 2: the
-   sharded pack and the single-device ``ffd_pack`` in turns (wall ms a
-   solve), the launches a solve, the exchange's host share, the device's
-   busy and copy time, each kernel's profiler time a launch beside its
-   plain version's and its bound from this run's data.
+   the scan the plan picks (``fused_packer.shard_scan_kernel``: the one
+   cluster launch ``ffd_shard_scan`` where every data row sits on one
+   card, else the cap / apply pair), the choice tiles and
+   ``assemble_feasibility`` must launch, the other scan and every
+   single-device kernel may not; each solve must decode equal to a
+   single-device scheduler's, the hit and delta must pack from the
+   sharded resident state, whose buffers must equal their mirrors.  Then
+   ``mesh_pack_fn`` against the single-device ``ffd_pack`` at the three
+   problems, both objectives; ``ffd_shard_scan`` whole against
+   ``ffd_shard_scan_reference`` on the same card shards (every shard
+   buffer) on the main path's resident tensors, and with ``ffd_pack`` on
+   ``testing.wrap_arrays`` (256, and 4096 with the prefilled slots across
+   shards) and two ``testing.frontier_arrays`` elements, both objectives
+   there (`mesh_whole_scan`), and on the default mesh of one card, (1, 1),
+   at config 2 and a frontier element (one CTA holding every slot); the
+   pair, driven directly, and the choice against their plain versions step
+   by step (`mesh_lockstep`) on the same cases; ``assemble_feasibility``
+   whole and tile by tile.  Then at config 2: the sharded pack through
+   ``ffd_shard_scan``, through the pair (`mesh_pair_pack`) and the
+   single-device ``ffd_pack`` in turns (wall ms a solve), the launches a
+   solve of each scan, the pair's exchange host share, the device's busy
+   and copy time of each, each kernel's profiler time a launch beside its
+   plain version's and its bound from this run's data; ``ffd_shard_scan``
+   also at the live cluster, with its latency floor at both (classes x the
+   measured cluster exchange and barrier of its CTAs, plus the class
+   tiles' L2 loads).
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
 ``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
 phase 12's over its card drive, ``fleet_launches`` phase 13's over the
 scaled cell's drive, ``legacy_launches`` phase 14's over the converted
-objects' drive, ``mesh_launches`` phase 15's main path; the four mesh
-kernels' rows take ``launches`` from there), the card line, and last ``{"ok": true, "device":
-{...}}``.
+objects' drive, ``mesh_launches`` phase 15's main path; the five mesh
+kernels' rows take ``launches`` from there, ``forced_launches`` from the
+rest of the phase, where the pair is driven directly, ``timer`` the
+clock of ``ms`` (profiler, or CUDA events with the gaps between launches),
+and ``ffd_shard_scan``'s row its latency floor and its time, its timer,
+bound and floor at the live cluster), the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -395,7 +410,7 @@ VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
 KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel",
            "choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
            "ffd_scan_global_fleet", "assemble_feasibility", "choose_config_shard",
-           "ffd_shard_cap", "ffd_shard_apply")
+           "ffd_shard_scan", "ffd_shard_cap", "ffd_shard_apply")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
@@ -413,7 +428,8 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                # phase 15: the factorized step at config 2's shapes, and the
                # sharded pack over config 2's resident state on the mesh
                "assemble_feasibility": "mesh_step", "choose_config_shard": "config2_mesh",
-               "ffd_shard_cap": "config2_mesh", "ffd_shard_apply": "config2_mesh"}
+               "ffd_shard_scan": "config2_mesh", "ffd_shard_cap": "config2_mesh",
+               "ffd_shard_apply": "config2_mesh"}
 OBJECTIVES = ("nodes", "cost")
 # phase 6: the sweep's pods, the live cluster's nodes and universe, each
 # problem's population and rounds, the plan's seed, timed repeats
@@ -443,11 +459,14 @@ L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 PROFILE_ATTEMPTS = 3  # profiler windows a kernel's device time may take
 # a kernel the profiler names otherwise than "<name>_kernel": the choice
 # tile is choose_config_kernel's shard mode (timed where it alone launches)
-PROFILE_SYMBOL = {"choose_config_shard": "choose_config_kernel"}
+PROFILE_SYMBOL = {"choose_config_shard": "choose_config_kernel",
+                  "ffd_shard_scan": "ffd_scan_cluster_kernel"}
 SLEEP_PROBE_CYCLES = 10_000_000  # the sleep kernel's calibration (events_device_ms)
 # the kernels whose registers phase 2 prints and whose spills fail the run
 SPILL_CHECKED = ("choose_config", "ffd_scan_window", *VERDICT_ROWS, "population_pairs",
                  "admit")
+# the same: the cluster scan, whose shard mode is the mesh's ffd_shard_scan
+MESH_SPILL_CHECKED = ("ffd_scan_cluster",)
 # phase 7: the operator over config 2's catalog and all of its pods, ticks
 # of fake clock, the ticks allowed until every pod is bound, the churn
 OPERATOR_PODS = 10_000
@@ -563,13 +582,16 @@ LINT_TIMEOUT_S = 600
 # phase 15: the device mesh (parallel/mesh.py, csrc/mesh_pack.cu)
 MESH_SHARDS = 8  # a (4, 2) mesh: 8 shards on one card, one a card on eight
 MESH_SOURCE = "karpenter_tpu_torch/csrc/mesh_pack.cu"
-# the choice tile is the shard mode of ffd_pack.cu's choose_config_kernel
-MESH_SOURCES = {"choose_config_shard": KERNEL_SOURCE}
-MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_cap",
-                "ffd_shard_apply")
+# the choice tile and the one-launch scan are the shard modes of
+# ffd_pack.cu's choose_config_kernel and ffd_scan_cluster_kernel
+MESH_SOURCES = {"choose_config_shard": KERNEL_SOURCE, "ffd_shard_scan": KERNEL_SOURCE}
+MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_scan",
+                "ffd_shard_cap", "ffd_shard_apply")
+MESH_PAIR = ("ffd_shard_cap", "ffd_shard_apply")  # the scan across cards, a pair a class
 MESH_REPLACES = {  # the jitted XLA the mesh kernels replace (the reference's mesh)
     "assemble_feasibility": "karpenter_tpu/parallel/mesh.py:74",
     "choose_config_shard": "karpenter_tpu/ops/packer.py:97",
+    "ffd_shard_scan": "karpenter_tpu/ops/packer.py:154",
     "ffd_shard_cap": "karpenter_tpu/ops/packer.py:124",
     "ffd_shard_apply": "karpenter_tpu/ops/packer.py:133",
 }
@@ -4650,6 +4672,90 @@ def mesh_lockstep(torch, name, mesh, args, objective, plain_s=None) -> tuple:
     return P.mesh_outputs(kern), P.mesh_outputs(plain), e_choose
 
 
+def mesh_pair_pack(plan, reps, slots, next0, objective: str = "nodes"):
+    """The sharded pack through the pair on any plan, as `mesh_pack` runs
+    it where the data rows lie on several cards: the choice tiles, the
+    shards, ``mesh_scan`` over ``ffd_shard_cap`` / ``ffd_shard_apply``,
+    the outputs gathered."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    recs = [F.choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                  g0, g1, c0, c1, objective)
+            for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    shards = P.mesh_shards(plan, reps, recs, slots, next0)
+    P.mesh_scan(shards, F.ffd_shard_cap, F.ffd_shard_apply)
+    return P.mesh_outputs(shards)
+
+
+# the shard buffers ffd_shard_scan leaves (its exchanges stay in the cluster)
+SCAN_FIELDS = ("used", "cfg", "npods", "sig", "take", "leftover", "nxt")
+
+
+def mesh_whole_scan(torch, name, mesh, args, objective, single=None, plain_s=None):
+    """``ffd_shard_scan`` against its plain version on the same card
+    shards: the tiles' choice records through the kernel, two copies of
+    each data row's shard, one launch of the kernel on one set and
+    `ffd_shard_scan_reference` on the other, every buffer a shard keeps
+    compared bit for bit, then the five outputs (and, given ``single``, a
+    single-device pack's outputs against them).  ``plain_s`` collects the
+    plain call's seconds.  Returns the kernel's outputs and their
+    max_abs_err against the plain version's."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+
+    plan, reps, slots, next0 = PM.pack_layout(mesh, args, site="mesh_smoke")
+    rep = reps[plan.tiles[0][0]]
+    picked = F.shard_scan_kernel(plan, plan.k_bounds[-1], rep[0].shape[1],
+                                 slots[0][3].shape[0], rep[4].shape[1])
+    if picked != "ffd_shard_scan":
+        fail(f"{name}: the plan's scan is {picked}, not ffd_shard_scan")
+    recs = [F.choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                  g0, g1, c0, c1, objective)
+            for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    kern = P.mesh_shards(plan, reps, recs, slots, next0)
+    plain = P.mesh_shards(plan, reps, recs, slots, next0)
+    card = kern[0].device.type == "cuda"  # CPU shards: both sides plain (the tests)
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    before = F.LAUNCHES["ffd_shard_scan"]
+    F.ffd_shard_scan(kern)
+    sync()
+    if F.LAUNCHES["ffd_shard_scan"] != before + card:
+        fail(f"{name}: ffd_shard_scan did not launch once")
+    t0 = time.perf_counter()
+    P.ffd_shard_scan_reference(plain)
+    sync()
+    if plain_s is not None:
+        plain_s.append(time.perf_counter() - t0)
+    for a, b in zip(kern, plain):
+        if bool(_differ(torch, a, b, SCAN_FIELDS)):
+            fail(f"{name} {objective}: ffd_shard_scan differs from its plain version "
+                 f"on data shard {a.d}")
+    k_out = P.mesh_outputs(kern)
+    err = max_abs_err(torch, k_out, P.mesh_outputs(plain))
+    if err != 0.0 or (single is not None and max_abs_err(torch, k_out, single) != 0.0):
+        fail(f"{name} {objective}: ffd_shard_scan's outputs differ (max_abs_err {err!r})")
+    return k_out, err
+
+
+def mesh_scan_bound(torch, plan, args_host, outs) -> dict:
+    """The least time of one ``ffd_shard_scan`` launch from this run's
+    data, from the function's own inputs and outputs: the single-device
+    scan's bytes and operations (`kernel_bounds`: the inputs this data
+    needs read once, the pack's five outputs written once), with the
+    choice read from the model shards' records once (M x G records of 16
+    bytes) in place of the three choice rows.  The shards' copies of the
+    records, their other leftover rows, the signature counters and next
+    free slots they keep are the mesh's state, not the function's, and are
+    not counted."""
+    M = len(plan.tiles[0])
+    tensors = tuple(a if isinstance(a, int) else torch.from_numpy(a) for a in args_host)
+    b = kernel_bounds(tensors, outs[0], outs[2])["ffd_scan"]
+    G = args_host[0].shape[0]
+    return _bound(b["bytes"] - 3 * G * 4 + M * G * 16, b["operations"])
+
+
 def open_steps(take, node_cfg, next0: int):
     """For each class step g, the slots that hold a config before it: the
     live slots, and each new slot from the class whose window opened it
@@ -4710,11 +4816,12 @@ def mesh_events_ms(torch, mesh, args, kernels) -> dict:
     """Phase 15's fallback where torch.profiler records no device time of
     the sharded pack's kernels: device ms a launch of each of ``kernels``
     from CUDA events (`events_device_ms`) on the pack's own tensors
-    ``args``, on a mesh of one card.  The choice tiles are timed alone; the
-    scan over the classes on fresh shards (one card: the exchange copies
-    nothing) gives the cap and apply launches' sum, from which a pass of
-    apply launches alone over the finished shards (each writes only its
-    class's take row) is taken out."""
+    ``args``, on a mesh of one card.  The choice tiles are timed alone, and
+    ``ffd_shard_scan`` on fresh shards; the pair's scan over the classes on
+    fresh shards (one card: the exchange copies nothing) gives the cap and
+    apply launches' sum, from which a pass of apply launches alone over the
+    finished shards (each writes only its class's take row) is taken
+    out."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
     from karpenter_tpu_torch.parallel import mesh as PM
@@ -4731,6 +4838,11 @@ def mesh_events_ms(torch, mesh, args, kernels) -> dict:
 
     out = {"choose_config_shard": events_device_ms(torch, choose, 5, len(tiles))}
     recs = choose()
+    if "ffd_shard_scan" in kernels:
+        sets = [P.mesh_shards(plan, reps, recs, slots, next0) for _ in range(5)]
+        out["ffd_shard_scan"] = events_device_ms(torch, lambda: F.ffd_shard_scan(sets.pop()), 2)
+        if not set(kernels) & set(MESH_PAIR):
+            return {k: out[k] for k in kernels}
     fresh = [P.mesh_shards(plan, reps, recs, slots, next0) for _ in range(5)]
     done = fresh[-1]
     G, D = done[0].take.shape[0], len(done)
@@ -4777,7 +4889,13 @@ def mesh_phase(torch, card) -> dict:
 
     # the single-device reference solves, before the counted window
     single = TorchScheduler(pools, inv, device=dev)
-    want = {kind: canonical(single.solve(p)) for kind, p in ticks.items()}
+    want, single_ms, phases = {}, {}, {"single": {}, "mesh": {}}
+    for kind, p in ticks.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want[kind] = canonical(single.solve(p))
+        single_ms[kind] = (time.perf_counter() - t1) * 1e3
+        phases["single"][kind] = {k: round(v * 1e3, 3) for k, v in single.last_phases.items()}
     if single.pack_fn is not None or single.last_kernel != "cuda_ffd":
         fail(f"phase 15: the single-device scheduler picked {single.last_kernel}")
     for name in ("flagship", "config2_live"):
@@ -4796,6 +4914,7 @@ def mesh_phase(torch, card) -> dict:
         got[kind] = canonical(msched.solve(p))
         torch.cuda.synchronize()
         solve_ms[kind] = (time.perf_counter() - t1) * 1e3
+        phases["mesh"][kind] = {k: round(v * 1e3, 3) for k, v in msched.last_phases.items()}
         # the cold solve seeds the sharded resident state and packs from it;
         # the hit and the delta pack from it with no seed
         seeds = (msched.resident_rebuilds, msched.resident_hits)
@@ -4817,9 +4936,26 @@ def mesh_phase(torch, card) -> dict:
           f"flagship, the live cluster, sharded_solve_step at Gp {MESH_STEP_CLASSES} Cp "
           f"{len(step_p['t_of'])} Kp 4096; launches "
           f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
-    for k in MESH_KERNELS:
+    st = msched._resident.states[-1]
+    margs = st.pack_args()
+    main_scan = F.shard_scan_kernel(P.mesh_plan(mesh.devices, st.Gp, st.Cp, st.Kp), st.Kp,
+                                    margs[0].shape[1], margs[12].shape[0], st.Cp)
+    if len(mesh.distinct()) == 1 and main_scan != "ffd_shard_scan":
+        fail(f"phase 15: the one-card plan's scan is {main_scan}")
+    path = ("assemble_feasibility", "choose_config_shard",
+            *(("ffd_shard_scan",) if main_scan == "ffd_shard_scan" else MESH_PAIR))
+    print(f"  config 2 solve ms by kind, single-device scheduler (before the window) "
+          f"{json.dumps(single_ms)}; phases ms, single-device then mesh: "
+          f"{json.dumps(phases)}", flush=True)
+    for k in path:
         if not counts[k]:
             fail(f"phase 15: the main path never launched {k}")
+    off_path = [k for k in MESH_KERNELS if k not in path and counts[k]]
+    if off_path:
+        fail(f"phase 15: the main path launched {off_path} beside {main_scan}")
+    print(f"  the plan's scan: {main_scan} (one launch a pack where every data row sits "
+          f"on one card); {', '.join(k for k in MESH_KERNELS if k not in path)} "
+          f"launched 0 times", flush=True)
     single_path = [k for k in ("choose_config", *SCAN_KERNELS) if counts[k]]
     if single_path:
         fail(f"phase 15: the mesh's solves launched the single-device {single_path}")
@@ -4828,7 +4964,6 @@ def mesh_phase(torch, card) -> dict:
             fail(f"phase 15: the mesh's {key} solve decodes unlike the single-device one")
     print("  decoded: config 2 cold / hit / delta, the flagship and the live cluster equal "
           "the single-device scheduler's", flush=True)
-    st = msched._resident.states[-1]
     check_mirrors(torch, "phase 15 config2", st)
     if st.mesh is not mesh or st.d_used0.spec != "on_k":
         fail("phase 15: the resident state is not sharded over the mesh")
@@ -4839,15 +4974,20 @@ def mesh_phase(torch, card) -> dict:
         prob = compiled(spec)
         args, kp = P.pad_problem(prob, max(P.node_slot_bound(prob), 8 * dp))
         for objective in OBJECTIVES:
+            before = F.LAUNCHES[main_scan if main_scan == "ffd_shard_scan" else MESH_PAIR[0]]
             m = fn(prob, k_slots=kp, objective=objective)
             s = F.ffd_pack(*P.to_device(args, dev), objective=objective)
             if max_abs_err(torch, m, s) != 0.0:
                 fail(f"phase 15: mesh_pack_fn differs from ffd_pack at {name} {objective}")
-        print(f"  mesh_pack_fn == ffd_pack at {name} (Kp {kp}, both objectives)", flush=True)
+            if F.LAUNCHES[main_scan if main_scan == "ffd_shard_scan" else MESH_PAIR[0]] == before:
+                fail(f"phase 15: mesh_pack_fn at {name} did not launch {main_scan}")
+        print(f"  mesh_pack_fn == ffd_pack at {name} (Kp {kp}, both objectives, through "
+              f"{main_scan})", flush=True)
 
     # ---- each kernel against its plain version -----------------------------
     errs = {k: 0.0 for k in MESH_KERNELS}
-    plain_s = {k: [0.0, 0] for k in ("ffd_shard_cap", "ffd_shard_apply")}
+    plain_s = {k: [0.0, 0] for k in MESH_PAIR}
+    scan_plain_s = []  # ffd_shard_scan_reference's seconds at config 2
     states = {"config2": st, "flagship": scheds["flagship"]._resident.states[-1],
               "config2_live": scheds["config2_live"]._resident.states[-1]}
     outs = {}
@@ -4857,9 +4997,14 @@ def mesh_phase(torch, card) -> dict:
                                                plain_s if name == "config2" else None)
         errs["choose_config_shard"] = max(errs["choose_config_shard"], e_choose)
         outs[name] = (args, k_out)
-        for k in ("ffd_shard_cap", "ffd_shard_apply"):
+        for k in MESH_PAIR:
             errs[k] = max(errs[k], max_abs_err(torch, k_out, p_out))
-        print(f"  {name}: every step bit-equal (Gp {state.Gp}, Cp {state.Cp}, Kp {state.Kp}, "
+        s_out, e_scan = mesh_whole_scan(torch, name, mesh, args, "nodes",
+                                        plain_s=scan_plain_s if name == "config2" else None)
+        errs["ffd_shard_scan"] = max(errs["ffd_shard_scan"], e_scan,
+                                     max_abs_err(torch, s_out, k_out))
+        print(f"  {name}: ffd_shard_scan's shard buffers equal its plain version's, the pair "
+              f"every step (Gp {state.Gp}, Cp {state.Cp}, Kp {state.Kp}, "
               f"live {len(state.live)})", flush=True)
     cases = {"wrap 256": T.wrap_arrays(256), "wrap 4096 straddling 2048":
              T.wrap_arrays(4096, at=2046), "frontier wrap": T.frontier_pack("wrap", 0),
@@ -4869,12 +5014,32 @@ def mesh_phase(torch, card) -> dict:
             k_out, p_out, e_choose = mesh_lockstep(torch, name, mesh, args, objective)
             errs["choose_config_shard"] = max(errs["choose_config_shard"], e_choose)
             e = max_abs_err(torch, k_out, p_out)
-            for k in ("ffd_shard_cap", "ffd_shard_apply"):
+            for k in MESH_PAIR:
                 errs[k] = max(errs[k], e)
             want_out = P.pack_reference(*P.to_device(args, dev), objective=objective)
             if max_abs_err(torch, k_out, want_out) != 0.0:
                 fail(f"phase 15: the sharded pack differs from the plain pack at {name}")
-        print(f"  {name}: every step bit-equal, both objectives", flush=True)
+            single_out = F.ffd_pack(*P.to_device(args, dev), objective=objective)
+            s_out, e_scan = mesh_whole_scan(torch, name, mesh, args, objective,
+                                            single=single_out)
+            errs["ffd_shard_scan"] = max(errs["ffd_shard_scan"], e_scan,
+                                         max_abs_err(torch, s_out, want_out))
+        print(f"  {name}: ffd_shard_scan equal to its plain version and to ffd_pack, the "
+              f"pair every step, both objectives", flush=True)
+    # the default mesh of one card, (1, 1): a cluster of one CTA holding
+    # every slot (the frontier element's 2,048: two a thread)
+    one = PM.make_mesh(1, [dev])
+    prob2 = compiled(specs["config2"])
+    d1 = {"config2": P.pad_problem(prob2, max(P.node_slot_bound(prob2), 32))[0],
+          "frontier wrap": cases["frontier wrap"]}
+    for name, args in d1.items():
+        for objective in OBJECTIVES:
+            single_out = F.ffd_pack(*P.to_device(args, dev), objective=objective)
+            s_out, e_scan = mesh_whole_scan(torch, f"{name} on (1, 1)", one, args, objective,
+                                            single=single_out)
+            errs["ffd_shard_scan"] = max(errs["ffd_shard_scan"], e_scan)
+        print(f"  {name} on the (1, 1) mesh (Kp {args[8].shape[0]}, one CTA): ffd_shard_scan "
+              f"equal to its plain version and to ffd_pack, both objectives", flush=True)
     adm = [step_p[k] for k in T.MESH_STEP_ARGS[:7]]
     adm_dev = P.to_device(tuple(adm), dev)
     whole = F.assemble_feasibility(*adm_dev)
@@ -4901,17 +5066,24 @@ def mesh_phase(torch, card) -> dict:
     print(f"  assemble_feasibility: whole and tiled bit-equal at Gp {len(step_p['sig_of'])} "
           f"Cp {len(step_p['t_of'])}", flush=True)
 
-    # ---- times at config 2 --------------------------------------------------
+    # ---- times at config 2 (and ffd_shard_scan at the live cluster) --------
     sst = single._resident.states[-1]
-    margs, sargs = st.pack_args(), sst.pack_args()
+    sargs = sst.pack_args()
+    lst = scheds["config2_live"]._resident.states[-1]
+    largs = lst.pack_args()
 
-    def mesh_pack():
-        return PM.sharded_pack(mesh, *margs, k_slots=st.Kp)
+    def packer(pack_args, pack=F.mesh_pack):
+        def call():
+            return pack(*PM.pack_layout(mesh, pack_args, site="mesh_smoke"))
+        return call
+
+    scan_pack, pair_pack = packer(margs), packer(margs, mesh_pair_pack)
+    live_pack = packer(largs)
 
     def single_pack():
         return F.ffd_pack(*sargs)
 
-    walls = {"mesh": [], "single": []}
+    walls = {"ffd_shard_scan": [], "ffd_shard_pair": [], "ffd_pack": []}
     exch = {"s": 0.0}
     real_row = P.mesh_exchange_row
 
@@ -4920,8 +5092,9 @@ def mesh_phase(torch, card) -> dict:
         real_row(*a)
         exch["s"] += time.perf_counter() - t
 
-    for _ in range(MESH_TIMED):  # in turns: single, mesh, mesh, single
-        for which, call in (("single", single_pack), ("mesh", mesh_pack)):
+    for _ in range(MESH_TIMED):  # in turns: the one-launch scan, the pair, ffd_pack
+        for which, call in (("ffd_shard_scan", scan_pack), ("ffd_shard_pair", pair_pack),
+                            ("ffd_pack", single_pack)):
             torch.cuda.synchronize()
             t = time.perf_counter()
             call()
@@ -4931,15 +5104,18 @@ def mesh_phase(torch, card) -> dict:
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        mesh_pack()
+        pair_pack()
         torch.cuda.synchronize()
         exch_wall = (time.perf_counter() - t) * 1e3
     finally:
         P.mesh_exchange_row = real_row
-    before = dict(F.LAUNCHES)
-    mesh_pack()
-    torch.cuda.synchronize()
-    per_solve = {k: F.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+    per_solve = {}
+    for which, call in (("ffd_shard_scan", scan_pack), ("ffd_shard_pair", pair_pack)):
+        before = dict(F.LAUNCHES)
+        call()
+        torch.cuda.synchronize()
+        per_solve[which] = {k: F.LAUNCHES[k] - before[k] for k in MESH_KERNELS
+                            if F.LAUNCHES[k] - before[k]}
     by_events = set()  # the kernels the profiler missed, timed by CUDA events
 
     def events_for(timer):
@@ -4949,21 +5125,35 @@ def mesh_phase(torch, card) -> dict:
         return fallback
 
     dev_ms = profiled_launches_ms(
-        torch, mesh_pack, MESH_KERNELS[1:], 1,
+        torch, scan_pack, ("choose_config_shard", "ffd_shard_scan"), 1,
         events_for(lambda missing: mesh_events_ms(torch, mesh, margs, missing)))
+    dev_ms.update(profiled_launches_ms(
+        torch, pair_pack, MESH_PAIR, 1,
+        events_for(lambda missing: mesh_events_ms(torch, mesh, margs, missing))))
+    live_missed = set()
+
+    def live_events(missing):
+        live_missed.update(missing)
+        return mesh_events_ms(torch, mesh, largs, missing)
+
+    live_ms = profiled_launches_ms(torch, live_pack, ("ffd_shard_scan",), 1,
+                                   live_events)["ffd_shard_scan"]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mesh_pack()
-        torch.cuda.synchronize()
-    busy = copy = 0.0
-    for ev in prof.key_averages():
-        us = _device_us(ev)
-        if ev.device_type == DeviceType.CUDA and us > 0:
-            busy += us
-            if "Memcpy" in ev.key or "memcpy" in ev.key:
-                copy += us
+    busy = {}
+    for which, call in (("ffd_shard_scan", scan_pack), ("ffd_shard_pair", pair_pack)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        b = c = 0.0
+        for ev in prof.key_averages():
+            us = _device_us(ev)
+            if ev.device_type == DeviceType.CUDA and us > 0:
+                b += us
+                if "Memcpy" in ev.key or "memcpy" in ev.key:
+                    c += us
+        busy[which] = (b / 1e3, c / 1e3)
     step_dev = P.to_device(tuple(adm), dev)
     G_s, C_s = len(step_p["sig_of"]), len(step_p["t_of"])
     assemble = lambda: F.assemble_feasibility(*step_dev)
@@ -4979,36 +5169,72 @@ def mesh_phase(torch, card) -> dict:
             *step_dev, 0, G_s, 0, C_s), 3),
         "choose_config_shard": cuda_ms(torch, lambda: P.choose_config_shard_reference(
             *choose_args), 3),
+        "ffd_shard_scan": statistics.median(scan_plain_s) * 1e3,
         **{k: v[0] / v[1] * 1e3 for k, v in plain_s.items()},
     }
     # the same tile through the kernel, for its CUDA-event time
     event_ms = {"choose_config_shard": cuda_ms(torch, lambda: F.choose_config_shard(
         *choose_args), 20)}
     host_args = tuple(host_of(a) if hasattr(a, "host") else a for a in margs)
+    live_host = tuple(host_of(a) if hasattr(a, "host") else a for a in largs)
     R_req = int((host_args[0] > 0).sum(1).max())
-    bounds = mesh_bounds(P.mesh_plan(mesh.devices, st.Gp, st.Cp, st.Kp), host_args,
-                         outs["config2"][1], R_req)
+    plan_c2 = P.mesh_plan(mesh.devices, st.Gp, st.Cp, st.Kp)
+    plan_live = P.mesh_plan(mesh.devices, lst.Gp, lst.Cp, lst.Kp)
+    bounds = mesh_bounds(plan_c2, host_args, outs["config2"][1], R_req)
     bounds["assemble_feasibility"] = assemble_bound(step_p)
-    mesh_p50 = statistics.median(walls["mesh"])
-    print(f"  config 2 per solve ({card}): sharded pack {walls['mesh']!r} ms (p50 "
-          f"{mesh_p50!r}), single-device ffd_pack {walls['single']!r} ms, in turns; "
-          f"launches a solve {json.dumps(per_solve)}; the exchange's host time "
-          f"{exch['s'] * 1e3!r} ms of a {exch_wall!r} ms pack "
-          f"({exch['s'] * 1e3 / exch_wall!r}); device busy {busy / 1e3!r} ms of it, "
-          f"copies {copy / 1e3!r} ms", flush=True)
+    bounds["ffd_shard_scan"] = mesh_scan_bound(torch, plan_c2, host_args, outs["config2"][1])
+    live_bound = mesh_scan_bound(torch, plan_live, live_host, outs["config2_live"][1])
+    # ffd_shard_scan's latency floor: a class a step, each step one exchange
+    # and barrier of the cluster's CTAs and the class tiles' 2 / SCAN_TILE
+    # dependent L2 loads (the slot chain inside a step is not in it)
+    D = mesh.shape[0]
+    shapes = {"config2": (st.Gp, max(np.diff(plan_c2.k_bounds))),
+              "config2_live": (lst.Gp, max(np.diff(plan_live.k_bounds)))}
+    probe = sorted({(D, F.scan_threads(int(kd))) for _, kd in shapes.values()})
+    _, cluster_us, l2_us = probe_latencies(torch, [], probe)
+    floors = {name: G * (cluster_us[(D, F.scan_threads(int(kd)))] + 2 / F.SCAN_TILE * l2_us) / 1e3
+              for name, (G, kd) in shapes.items()}
+    p50 = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"  config 2 per solve ({card}), in turns: ffd_shard_scan "
+          f"{walls['ffd_shard_scan']!r} ms (p50 {p50['ffd_shard_scan']!r}), the pair "
+          f"{walls['ffd_shard_pair']!r} ms (p50 {p50['ffd_shard_pair']!r}), single-device "
+          f"ffd_pack {walls['ffd_pack']!r} ms (p50 {p50['ffd_pack']!r}); launches a solve "
+          f"{json.dumps(per_solve)}; the pair's exchange host time {exch['s'] * 1e3!r} ms "
+          f"of a {exch_wall!r} ms pack ({exch['s'] * 1e3 / exch_wall!r}); device busy and "
+          f"copy ms a pack {json.dumps(busy)}", flush=True)
+    print(f"  ffd_shard_scan latency probes ({card}): cluster exchange + barrier "
+          f"{cluster_us!r} us (by CTAs, threads), dependent L2 load {l2_us!r} us; floor "
+          f"config 2 {floors['config2']!r} ms ({shapes['config2'][0]} classes, Kd "
+          f"{shapes['config2'][1]}), live cluster {floors['config2_live']!r} ms "
+          f"({shapes['config2_live'][0]} classes, Kd {shapes['config2_live'][1]})", flush=True)
+    print(f"  ffd_shard_scan at the live cluster: {live_ms!r} ms a launch "
+          f"({'CUDA events' if live_missed else 'profiler'}), bound {live_bound}, "
+          f"measured / floor {live_ms / floors['config2_live']!r}", flush=True)
     rows = {}
+    phase_counts = dict(F.LAUNCHES)
     for k in MESH_KERNELS:
         rows[k] = {"ms": dev_ms[k], "plain_ms": plain_ms[k], "bound": bounds[k],
                    "err": errs[k], "launches": counts[k],
-                   "per_solve": per_solve.get(k, 0)}
+                   "forced_launches": phase_counts[k] - counts[k],
+                   "per_solve": per_solve["ffd_shard_pair" if k in MESH_PAIR
+                                          else "ffd_shard_scan"].get(k, 0)}
+        rows[k]["timer"] = "events" if k in by_events else "profiler"
         how = ("CUDA events, the gaps between back-to-back launches included: the profiler "
                "saw none" if k in by_events else "profiler")
         print(f"  {k}: {dev_ms[k]!r} ms a launch ({how}), plain {plain_ms[k]!r} ms a "
-              f"call, bound {bounds[k]}, {per_solve.get(k, 0)} launches a config-2 solve, "
-              f"{counts[k]} on the main path"
+              f"call, bound {bounds[k]}, {rows[k]['per_solve']} launches a config-2 solve"
+              f"{' (the pair forced)' if k in MESH_PAIR else ''}, {counts[k]} on the main "
+              f"path, {rows[k]['forced_launches']} more in this phase's checks"
               + (f", {event_ms[k]!r} ms (CUDA events)" if k in event_ms else ""), flush=True)
-    return {"rows": rows, "launches": counts, "solve_p50_ms": mesh_p50,
-            "single_p50_ms": statistics.median(walls["single"])}
+    rows["ffd_shard_scan"].update({
+        "latency_floor_ms": floors["config2"], "live_ms": live_ms,
+        "live_timer": "events" if live_missed else "profiler",
+        "live_bound_ms": live_bound["bound_ms"], "live_bound_by": live_bound["bound_by"],
+        "live_latency_floor_ms": floors["config2_live"]})
+    print(f"  ffd_shard_scan measured / floor at config 2: "
+          f"{dev_ms['ffd_shard_scan'] / floors['config2']!r}", flush=True)
+    return {"rows": rows, "launches": counts, "solve_p50_ms": p50["ffd_shard_scan"],
+            "pair_p50_ms": p50["ffd_shard_pair"], "single_p50_ms": p50["ffd_pack"]}
 
 
 def phase_launches(kernel: str, per_phase: dict) -> dict:
@@ -5064,7 +5290,7 @@ def main(argv) -> int:
     choice = [k for k in res if "choose_config_kernel" in k]
     if len(choice) != 4:  # kMulti false and true, each solo and shard
         fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 4")
-    for name in SPILL_CHECKED:
+    for name in (*SPILL_CHECKED, *MESH_SPILL_CHECKED):
         syms = [k for k in res if f"{name}_kernel" in k]
         if not syms:
             fail(f"ptxas reported no {name}_kernel")
@@ -5397,6 +5623,10 @@ def main(argv) -> int:
             "bound_by": v["bound"]["bound_by"],
             "library_ms": None,
             "launches_per_solve": v["per_solve"],
+            "forced_launches": v["forced_launches"],
+            "timer": v["timer"],
+            **{f: v[f] for f in ("latency_floor_ms", "live_ms", "live_timer", "live_bound_ms",
+                                 "live_bound_by", "live_latency_floor_ms") if f in v},
             **phase_launches(k, per_phase),
         })
     print(json.dumps({"kernels": kernels}))

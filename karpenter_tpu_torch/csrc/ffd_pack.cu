@@ -23,6 +23,9 @@
 //                           split over the shared memory of the cluster's
 //                           CTAs, for slot counts whose state does not fit
 //                           one block (see "The cluster-resident scan").
+//                           Its shard mode <M, kShard> is the device
+//                           mesh's scan of one device's data shards, a CTA
+//                           a shard (entry mesh_shard_scan).
 //   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
 //                           the output buffers (device memory), for slot
 //                           counts whose state does not fit a cluster.
@@ -154,6 +157,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"  // kBigF, the wrapping int32 helpers, node_cap, block scans
 
 namespace {
@@ -185,8 +190,10 @@ __device__ __forceinline__ int clip(int x, int lo, int hi) {
 //            and element e's first free slot is next0[e].  A block (or a
 //            cluster) offsets each input pointer to its element before
 //            anything else (FLEET_ELEMENT) and then runs the solo scan.
+// The cluster scan has a fourth, kShard: the device mesh's data shards of
+// one device (see "The cluster-resident scan").
 // The solo instance folds every batch branch away.
-constexpr int kSolo = 0, kWhatIf = 1, kFleet = 2;
+constexpr int kSolo = 0, kWhatIf = 1, kFleet = 2, kShard = 3;
 
 struct Batch {
   const int* perm;    // [B][Gp] base rows (kWhatIf)
@@ -747,9 +754,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_global_kernel(
 
 // The Python wrapper (ops/fused_packer.py: SCAN_RING, SCAN_TILE,
 // SCAN_XCHG_BYTES, MAX_AXES, resident_layout) sizes the shared memory from
-// these; the kernel traps if the bytes it is given do not cover its layout.
-constexpr int kRing = 8;   // feasibility rows in flight
-constexpr int kTile = 32;  // classes per tile of class rows
+// these and common.cuh's kRing and kTile; the kernel traps if the bytes it
+// is given do not cover its layout.
 constexpr int kMaxR = 31;  // resource axes, at most: one flag bit each
 // (verdict_rows takes any R: past ffd_verdict_max_axes its config pass
 // reads its rows from device memory)
@@ -762,31 +768,6 @@ constexpr int kXchgBytes = 2 * 32 * 4 + 32 * 4 + 2 * 32 * 4;
 __device__ __forceinline__ bool unclean(float f) {
   const unsigned u = __float_as_uint(f);
   return u == 0x80000000u || (isnan(f) && u != 0x7fffffffu);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// One cp.async of 4, 8 or 16 bytes (16 goes to L2 only, the form that size
-// takes); both addresses aligned to the size.
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-                 "l"(src) : "memory");
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
-                 "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-                 "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // node_cap over a slot's state in shared memory, laid out [R][stride],
@@ -803,11 +784,6 @@ __device__ __forceinline__ int node_cap_sh(const float* alloc_k,
   return (int)fmaxf(cap, 0.0f);
 }
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // Wrapped int32 sum over the block at one barrier: warp sums into `sh`
 // ([32]), then every warp adds them up.
 __device__ __forceinline__ unsigned block_sum_once(unsigned v, unsigned* sh) {
@@ -818,60 +794,52 @@ __device__ __forceinline__ unsigned block_sum_once(unsigned v, unsigned* sh) {
   return warp_sum(lane < (int)(blockDim.x >> 5) ? sh[lane] : 0u);
 }
 
-// Base row hr's feasibility row into a ring slot, in `chunk`-byte copies.
-__device__ __forceinline__ void issue_feas(int hr, unsigned char* dst, int chunk,
-                                           const uint8_t* feas, int Cp) {
-  const uint8_t* row = feas + (size_t)hr * Cp;
-  for (int i = threadIdx.x * chunk; i < Cp; i += blockDim.x * chunk)
-    cp_async(dst + i, row + i, chunk);
-}
+// A class's choice read from the choice rows c_star, new_ok and per.
+struct ChoiceRows {
+  const int* c_star;
+  const int* new_ok;
+  const int* per;
+  __device__ __forceinline__ Choice operator()(int hr) const {
+    return Choice{c_star[hr], new_ok[hr], per[hr]};
+  }
+};
 
-// The class rows of classes [h0, h0 + kTile) into a tile, W = 2R + 7
-// words a class: req[R], the alloc row of the config its new nodes open on,
-// then cnt, maxper, slot, c_star, new_ok, per, and a word of flags: bit r
-// set where req[r] > 0, kFinite where every req[r] is finite.  Plain
-// loads: the tile is used kTile steps later, so only its own load waits.
+// The class rows of classes [h0, h0 + kTile) into a tile (load_rows), W =
+// 2R + 7 words a class: req[R], the alloc row of the config its new nodes
+// open on, then cnt, maxper, slot, c_star, new_ok, per, and a word of
+// flags: bit r set where req[r] > 0, kFinite where every req[r] is finite.
 // Class h of the element is its base row el.row(h); its count is
-// el.cnt[h].
+// el.cnt[h]; its choice is pick(base row).
+template <class Pick>
 __device__ __forceinline__ void load_tile(
     int h0, int* tile, int Gp, int Cp, int R, const Elem& el, const float* req,
-    const float* alloc, const int* maxper, const int* slot,
-    const int* c_star, const int* new_ok, const int* per) {
-  const int W = 2 * R + 7;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kTile * W; i += blockDim.x) {
-    const int h = h0 + i / W, f = i % W;
-    int v = 0;
-    if (h < Gp) {
-      const int hr = el.row(h);
-      if (f < R) {
-        v = __float_as_int(req[(size_t)hr * R + f]);
-      } else if (f < 2 * R) {
-        const int cs = c_star[hr];
-        if (cs >= 0 && cs < Cp)  // else it never opens a node
-          v = __float_as_int(alloc[(size_t)cs * R + (f - R)]);
-      } else {
-        switch (f - 2 * R) {
-          case 0: v = el.cnt[h]; break;
-          case 1: v = maxper[hr]; break;
-          case 2: v = slot[hr]; break;
-          case 3: v = c_star[hr]; break;
-          case 4: v = new_ok[hr]; break;
-          case 5: v = per[hr]; break;
-          default: {
-            unsigned flags = kFinite;
-            for (int r = 0; r < R; ++r) {
-              const float q = req[(size_t)hr * R + r];
-              if (q > 0.0f) flags |= 1u << r;
-              if (!isfinite(q)) flags &= ~kFinite;
-            }
-            v = (int)flags;
-          }
+    const float* alloc, const int* maxper, const int* slot, const Pick& pick) {
+  load_rows(h0, tile, Gp, 2 * R + 7, [&](int h, int f) {
+    const int hr = el.row(h);
+    if (f < R) return __float_as_int(req[(size_t)hr * R + f]);
+    if (f < 2 * R) {
+      const int cs = pick(hr).c_star;
+      // else it never opens a node
+      return cs >= 0 && cs < Cp ? __float_as_int(alloc[(size_t)cs * R + (f - R)]) : 0;
+    }
+    switch (f - 2 * R) {
+      case 0: return el.cnt[h];
+      case 1: return maxper[hr];
+      case 2: return slot[hr];
+      case 3: return pick(hr).c_star;
+      case 4: return pick(hr).ok;
+      case 5: return pick(hr).per;
+      default: {
+        unsigned flags = kFinite;
+        for (int r = 0; r < R; ++r) {
+          const float q = req[(size_t)hr * R + r];
+          if (q > 0.0f) flags |= 1u << r;
+          if (!isfinite(q)) flags &= ~kFinite;
         }
+        return (int)flags;
       }
     }
-    tile[i] = v;
-  }
+  });
 }
 
 // leftover[g] of a step whose opening window began before slot 0: its
@@ -957,7 +925,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
     cp_async_commit();
   }
-  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot,
+            ChoiceRows{c_star, new_ok, per});
   // the base row of the class whose feasibility row the next step issues,
   // loaded a step ahead of its use
   int ring_row = kMode == kWhatIf && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
@@ -1024,7 +993,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_kernel(
     }
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
       load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
-                el, req, alloc, maxper, slot, c_star, new_ok, per);
+                el, req, alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
 
     // ---- this warp's offset and the block total from the warp totals ------
     unsigned w = lane < nw ? xtot[p * 32 + lane] : 0u;
@@ -1197,47 +1166,29 @@ constexpr int kMaxCluster = 8;
 // xleft [2][32] (fused_packer.CLUSTER_XCHG_BYTES)
 constexpr int kClusterXchgBytes = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4;
 
-__device__ __forceinline__ unsigned cluster_ctarank() {
-  unsigned r;
-  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_nctarank() {
-  unsigned n;
-  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-// `p` (in this CTA's shared memory) as a shared::cluster address in the
-// shared memory of cluster CTA `rank`.
-__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
-  unsigned a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  return a;
-}
-__device__ __forceinline__ void st_cluster(unsigned addr, unsigned v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ void st_cluster2(unsigned addr, unsigned a, unsigned b) {
-  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
-               : "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-
-// Wrapped sum of part[0 .. count), in every lane of the calling warp.
-__device__ __forceinline__ unsigned warp_sum_of(const unsigned* part, int count) {
-  unsigned v = 0u;
-  for (int j = threadIdx.x & 31; j < count; j += 32) v += part[j];
-  return warp_sum(v);
-}
+// The shard mode, kShard: the device mesh's sharded pack where every data
+// row sits on one device (ops/fused_packer.py: ffd_shard_scan, which
+// shard_scan_kernel picks; it replaces, with mesh_pack.cu, the GSPMD
+// partition of _pack_core in karpenter_tpu/parallel/mesh.py).  The
+// cluster is the device's D <= 8 data shards, CTA rank r shard r, each
+// given by its own ShardArgs (ShardSet, by value): its slots [k0, k0 +
+// Kd) of K, in place on its own buffers (used, cfg, npods and the
+// signature counters in, then out; take [G, Kd]; its next free slot), the
+// class and catalog rows of the row device's replica, and each class's
+// choice combined from the model shards' records (best_choice) once, into
+// choice rows in the CTA's shared memory (12 Gp bytes past the slot
+// state), which the class tiles read.  Every shard keeps the leftover,
+// computed in closed form (window_take_sum), as ffd_shard_cap_kernel
+// computes it.  The rest is the scan above: the exchange and barrier a
+// class stand for the pair's two launches a shard and their exchanges.
+struct ShardSet {
+  ShardArgs s[kMaxShards];
+};
+static_assert(2 * 32 * sizeof(unsigned) >= sizeof(ShardArgs),
+              "a CTA's xleft, even of a cluster of one, holds its ShardArgs");
+struct NoShards {};
+template <int kMode>
+using ShardsOf = std::conditional_t<kMode == kShard, ShardSet, NoShards>;
 
 template <int M, int kMode>  // consecutive slots each thread owns; batch axis
 __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
@@ -1245,13 +1196,12 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     const int* __restrict__ maxper, const int* __restrict__ slot,
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const int* __restrict__ c_star, const int* __restrict__ new_ok,
-    const int* __restrict__ per, const float* __restrict__ used0,
-    const int* __restrict__ cfg0, const int* __restrict__ npods0,
-    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S,
-    int next0, int ctas, int smem_bytes, int chunk, int wrap_guard, Batch bt,
-    int* __restrict__ take, int* __restrict__ leftover,
-    int* __restrict__ cfg_out, int* __restrict__ npods_out,
-    float* __restrict__ used_out) {
+    const int* __restrict__ per, const float* used0, const int* cfg0,
+    const int* npods0, const int* sig0, int Gp, int Cp, int K,
+    int R, int S, int next0, int ctas, int smem_bytes, int chunk,
+    int wrap_guard, Batch bt, int* __restrict__ take, int* __restrict__ leftover,
+    int* cfg_out, int* npods_out, float* used_out,
+    const __grid_constant__ ShardsOf<kMode> set) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
@@ -1259,14 +1209,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   const int e = kMode != kSolo ? blockIdx.y : 0;  // batch element: the cluster's grid row
   if (finished<kMode>(bt, e)) return;  // every CTA of the cluster, before any DSMEM store
   FLEET_ELEMENT(e);
-  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
-  take += (size_t)e * Gp * K;
-  leftover += (size_t)e * Gp;
-  cfg_out += (size_t)e * K;
-  npods_out += (size_t)e * K;
-  used_out += (size_t)e * K * R;
   const int rank = (int)cluster_ctarank();
-  const int k0 = rank * KP;        // this CTA's first slot
   const int XN = ctas * 32;        // exchange entries of one parity
   const int me = rank * nw + warp;  // this warp's exchange entry
   const int entries = ctas * nw;
@@ -1287,36 +1230,89 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   int* s_npods = s_cfg + KP;
   int* s_sig = s_npods + KP;
   off += (size_t)4 * KP * (2 * R + 2 + S);
-  if (off > (size_t)smem_bytes || ctas > kMaxCluster ||
+  int* s_choice = (int*)(smem + off);  // shard mode: c_star, new_ok, per [3][Gp]
+  if constexpr (kMode == kShard) off += (size_t)12 * Gp;
+
+  // this CTA's slots [k0, k0 + own): slot k0 + j at index kb + j of the
+  // slot arrays, whose take and signature rows are ks slots long
+  int k0 = rank * KP, ks = K, own = min(max(K - k0, 0), KP);
+  // The shard mode's rank r scans data shard r in place.  Its arguments
+  // are read from the kernel's parameters before the class loop (sa) and
+  // from their copy in this CTA's shared memory, where xleft would be, in
+  // and after it (sh, through SHARD_OR): the loop holds no register for
+  // them across its barriers.
+  const ShardArgs* sa = nullptr;
+  const ShardArgs* sh = reinterpret_cast<const ShardArgs*>(xleft);
+#define SHARD_OR(field, plain) (kMode == kShard ? sh->field : (plain))
+  if constexpr (kMode == kShard) {
+    sa = &set.s[rank];
+    if (tid == 0) *reinterpret_cast<ShardArgs*>(xleft) = *sa;
+    cnt = sa->cnt;
+    alloc = sa->alloc;
+    used0 = sa->used;
+    cfg0 = sa->cfg;
+    npods0 = sa->npods;
+    sig0 = sa->sig;
+    next0 = *sa->nxt;
+    k0 = sa->k0;
+    ks = own = sa->Kd;
+  }
+  const int kb = kMode == kShard ? 0 : k0;
+  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
+  take += (size_t)e * Gp * K;
+  leftover += (size_t)e * Gp;
+  cfg_out += (size_t)e * K;
+  npods_out += (size_t)e * K;
+  used_out += (size_t)e * K * R;
+  if (off > (size_t)smem_bytes || ctas > kMaxCluster || own > KP ||
       (int)cluster_nctarank() != ctas)
     __trap();
 
   // ---- this CTA's slot state in -------------------------------------------
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    const int pos = i * B + tid, k = k0 + tid * M + i;
-    const bool real = k < K;
-    const int c = real ? el.cfg_in(cfg0, k) : -1;
+    const int pos = i * B + tid, j = tid * M + i;
+    const bool real = j < own;
+    const int c = real ? el.cfg_in(cfg0, kb + j) : -1;
     s_cfg[pos] = c;
-    s_npods[pos] = real ? npods0[k] : 0;
+    s_npods[pos] = real ? npods0[kb + j] : 0;
     for (int r = 0; r < R; ++r) {
-      s_used[r * KP + pos] = real ? used0[(size_t)k * R + r] : 0.0f;
+      s_used[r * KP + pos] = real ? used0[(size_t)(kb + j) * R + r] : 0.0f;
       s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
     }
-    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * K + k] : 0;
+    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * ks + kb + j] : 0;
   }
+  // the shard mode's choice rows, each class's combined from the model
+  // shards' records once, for the class tiles
+  if constexpr (kMode == kShard)
+    for (int h = tid; h < Gp; h += B) {
+      const Choice ch = best_choice(sa->rec, sa->M, Gp, h);
+      s_choice[h] = ch.c_star;
+      s_choice[Gp + h] = ch.ok;
+      s_choice[2 * Gp + h] = ch.per;
+    }
   // used_clean as in ffd_scan_kernel, over this CTA's own slots: it only
   // decides whether they skip used += 0 * req
-  const int own = min(max(K - k0, 0), KP);
   bool odd = false;
-  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(size_t)k0 * R + i]);
+  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(size_t)kb * R + i]);
   const bool used_clean = !__syncthreads_or(odd);
 
+  // class tile h0 into dst (in the shard mode from the shard's rows and
+  // the choice rows in shared memory)
+  const auto tile = [&](int h0, int* dst) {
+    if constexpr (kMode == kShard)
+      load_tile(h0, dst, Gp, Cp, R, Elem{nullptr, sh->cnt, nullptr}, sh->req, sh->alloc,
+                sh->maxper, sh->slot, ChoiceRows{s_choice, s_choice + Gp, s_choice + 2 * Gp});
+    else
+      load_tile(h0, dst, Gp, Cp, R, el, req, alloc, maxper, slot,
+                ChoiceRows{c_star, new_ok, per});
+  };
   for (int h = 0; h < kRing - 1; ++h) {
-    if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
+    if (h < Gp)
+      issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, SHARD_OR(feas, feas), Cp);
     cp_async_commit();
   }
-  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  tile(0, tiles);
   // the base row of the class whose feasibility row the next step issues,
   // loaded a step ahead of its use
   int ring_row = kMode == kWhatIf && Gp > kRing - 1 ? el.row(kRing - 1) : 0;
@@ -1375,7 +1371,8 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
        // it was before the previous step's barrier
       const int h = g + kRing - 1, hr = kMode == kWhatIf ? ring_row : h;
       if (kMode == kWhatIf && h + 1 < Gp) ring_row = el.row(h + 1);
-      if (h < Gp) issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, feas, Cp);
+      if (h < Gp)
+        issue_feas(hr, ring + (size_t)(h % kRing) * slot_bytes, chunk, SHARD_OR(feas, feas), Cp);
       cp_async_commit();
     }
     cluster_wait();
@@ -1388,8 +1385,7 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
       pend = false;
     }
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
-      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R,
-                el, req, alloc, maxper, slot, c_star, new_ok, per);
+      tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W);
 
     // ---- this warp's base, the cluster total and the wrap flag ------------
     unsigned below = 0u, sum = 0u, anyw = 0u;
@@ -1427,15 +1423,16 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
     const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
     const int opened = min(need, wsub(K, nxt));
     const int end = wadd(nxt, opened);
-    int* take_g = take + (size_t)g * K;
+    int* take_g = SHARD_OR(take, take) + (size_t)g * SHARD_OR(Kd, ks);
+    const int g_k0 = SHARD_OR(k0, k0), g_own = SHARD_OR(Kd, own);
     unsigned t2sum = 0u;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      const int pos = i * B + tid, k = k0 + tid * M + i;
-      const bool win = k < K && k >= nxt && k < end;
+      const int pos = i * B + tid, j = tid * M + i, k = g_k0 + j;
+      const bool win = j < g_own && k >= nxt && k < end;
       const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
       const int t = wadd(t1[i], t2);
-      if (k < K) take_g[k] = t;
+      if (j < g_own) take_g[kb + j] = t;
       if (t != 0 || !skip_idle) {
         const float tf = (float)t;
         for (int r = 0; r < R; ++r) {
@@ -1451,7 +1448,9 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
       }
       t2sum += (unsigned)t2;
     }
-    if (nxt >= 0) {  // closed form, as in ffd_scan_kernel
+    if constexpr (kMode == kShard) {  // every shard keeps it, in closed form
+      if (tid == 0) sh->leftover[g] = wsub(n2, window_take_sum(n2, pg, nxt, opened));
+    } else if (nxt >= 0) {  // closed form, as in ffd_scan_kernel
       if (rank == 0 && tid == 0) {
         const long long placed =
             opened > 0 ? min((long long)n2, (long long)opened * pg) : 0ll;
@@ -1474,18 +1473,27 @@ __global__ void __launch_bounds__(1024) ffd_scan_cluster_kernel(
   }
 
   // ---- this CTA's slot state out ------------------------------------------
+  const int o_own = SHARD_OR(Kd, own);
+  int* const o_cfg = SHARD_OR(cfg, cfg_out);
+  int* const o_npods = SHARD_OR(npods, npods_out);
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    const int pos = i * B + tid, k = k0 + tid * M + i;
-    if (k < K) {
-      cfg_out[k] = s_cfg[pos];
-      npods_out[k] = s_npods[pos];
+    const int pos = i * B + tid, j = tid * M + i;
+    if (j < o_own) {
+      o_cfg[kb + j] = s_cfg[pos];
+      o_npods[kb + j] = s_npods[pos];
+      if constexpr (kMode == kShard)  // the shard's signature counters too
+        for (int s = 0; s < S; ++s) sh->sig[(size_t)s * o_own + j] = s_sig[s * KP + pos];
     }
   }
-  for (int idx = tid; idx < own * R; idx += B) {
+  float* const o_used = SHARD_OR(used, used_out);
+  for (int idx = tid; idx < o_own * R; idx += B) {
     const int kk = idx / R, r = idx - kk * R;
-    used_out[(size_t)k0 * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
+    o_used[(size_t)kb * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
   }
+  if constexpr (kMode == kShard)
+    if (tid == 0) *sh->nxt = nxt;
+#undef SHARD_OR
 }
 
 // Returned where no cluster of the launch's shape fits the card at once
@@ -1500,7 +1508,8 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
                    const int* sig0, int Gp, int Cp, int K, int R, int S,
                    int next0, int ctas, int threads, int smem_bytes, int chunk,
                    int wrap_guard, int nb, Batch bt, int* take, int* leftover,
-                   int* cfg, int* npods, float* used, cudaStream_t stream) {
+                   int* cfg, int* npods, float* used, cudaStream_t stream,
+                   const ShardsOf<kMode>& set = {}) {
   const auto kernel = ffd_scan_cluster_kernel<M, kMode>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1530,12 +1539,19 @@ int launch_cluster(const float* req, const int* cnt, const int* maxper,
   e = cudaLaunchKernelEx(&config, kernel, req, cnt, maxper, slot, feas, alloc,
                          c_star, new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp,
                          K, R, S, next0, ctas, smem_bytes, chunk, wrap_guard,
-                         bt, take, leftover, cfg, npods, used);
+                         bt, take, leftover, cfg, npods, used, set);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// The cap T below which no sum of K caps passes int32 (fused_packer.wrap_guard).
+int guard_of(int K) {
+  int t = 1;
+  while (t < (1 << 30) && (long long)K * (2ll * t - 1) < (1ll << 31)) t *= 2;
+  return t;
 }
 
 // ---------------------------------------------------------------------------
@@ -1664,7 +1680,8 @@ __global__ void __launch_bounds__(kWinThreads, kWinMinBlocks) ffd_scan_window_ke
     if (h < Gp) issue_feas(el.row(h), ring + (size_t)h * slot_bytes, chunk, feas, Cp);
     cp_async_commit();
   }
-  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, c_star, new_ok, per);
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot,
+            ChoiceRows{c_star, new_ok, per});
   int ring_row = Gp > kRing - 1 ? el.row(kRing - 1) : 0;
 
   // ---- the window's slot state in ------------------------------------------
@@ -1787,7 +1804,7 @@ __global__ void __launch_bounds__(kWinThreads, kWinMinBlocks) ffd_scan_window_ke
     }
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
       load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * cw, Gp, Cp, R,
-                el, req, alloc, maxper, slot, c_star, new_ok, per);
+                el, req, alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
 
     // ---- the entries' bases and the total, first fit in slot order ---------
     unsigned w = lane < act ? xtot[p * 32 + lane] : 0u;
@@ -3096,6 +3113,48 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FFD_MODES
+#undef FFD_LAUNCH
+}
+
+// The whole scan of the D data shards a[0..D) of one device (the device
+// mesh's pack, ops/fused_packer.py: ffd_shard_scan): the cluster scan's
+// shard mode on one cluster of D <= 8 CTAs, rank r scanning shard r in
+// place, on `stream` of `device`.  Every shard has g_count classes and the
+// same C, R, S and K; the largest holds at most 2 * scan_threads(Kd)
+// slots and its CTA fits the shared memory of a block
+// (fused_packer.shard_scan_layout).  Returns -2 where no such cluster fits
+// the card at once.
+int mesh_shard_scan(const ShardArgs* a, int D, int g_count, int device, void* stream) {
+  OnDevice on(device);
+  if (D < 1 || D > kMaxShards) return (int)cudaErrorInvalidValue;
+  ShardSet set = {};
+  int kmax = 0;
+  for (int d = 0; d < D; ++d) {
+    const ShardArgs& s = a[d];
+    if (s.G != g_count || s.C != a[0].C || s.R != a[0].R || s.S != a[0].S ||
+        s.K != a[0].K || s.D != D || s.d != d)
+      return (int)cudaErrorInvalidValue;
+    set.s[d] = s;
+    kmax = max(kmax, s.Kd);
+  }
+  const int C = a[0].C, R = a[0].R, S = a[0].S, K = a[0].K;
+  const int chunk = C % 16 == 0 ? 16 : (C % 8 == 0 ? 8 : (C % 4 == 0 ? 4 : 0));
+  const int threads = scan_threads(kmax);
+  const int m = kmax <= threads ? 1 : 2;
+  const size_t smem = (size_t)kRing * ((C + 15) & ~15) + (size_t)8 * kTile * (2 * R + 7) +
+                      (size_t)kClusterXchgBytes * D + (size_t)4 * m * threads * (2 * R + 2 + S) +
+                      (size_t)12 * g_count;
+  if (!chunk || R > kMaxR || K <= 0 || m * threads < kmax || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  const Batch bt{};
+  const auto st = (cudaStream_t)stream;
+#define FFD_LAUNCH(M)                                                         \
+  launch_cluster<M, kShard>(nullptr, nullptr, nullptr, nullptr, nullptr,      \
+                            nullptr, nullptr, nullptr, nullptr, nullptr,      \
+                            nullptr, nullptr, nullptr, g_count, C, K, R, S, 0, \
+                            D, threads, (int)smem, chunk, guard_of(K), 1, bt, \
+                            nullptr, nullptr, nullptr, nullptr, nullptr, st, set)
+  return m == 1 ? FFD_LAUNCH(1) : FFD_LAUNCH(2);
 #undef FFD_LAUNCH
 }
 

@@ -12,7 +12,7 @@
 // The mesh is single-controller: one process holds a D x M grid of devices
 // and launches each shard's kernel on its own device's current stream.
 // The data axis shards the slot axis K, the model axis the config axis C of
-// the [G, C] passes; the class axis G stays sequential.  Three kernels here:
+// the [G, C] passes; the class axis G stays sequential.  The kernels here:
 //   assemble_feasibility_kernel  grid (ceil(n / 256),): one tile (classes
 //       [g0, g1) x configs [c0, c1)) of the dense feasibility mask from the
 //       factorized admission, one byte a thread.
@@ -24,27 +24,33 @@
 //   ffd_shard_apply_kernel       grid (1,): given the exchanged totals,
 //       the shard's prefix offset (the wrapped sum of the totals of the
 //       shards before it), its first-fit take1 and their wrapped sum.
-// The fourth, the choice tile (one model shard's per-class first-index
-// best config against the price ceiling of the whole catalog, as a record
-// of order-preserving score key, global index, cap and ok), is the shard
-// mode of ffd_pack.cu's choose_config_kernel (choose_config_kernel<., true>,
+// These two are the pair the pack launches per class and shard where the
+// data rows lie on several devices, or where a CTA cannot hold a shard.
+// Where every data row sits on one device the pack instead takes the whole
+// scan in one launch: the shard mode of ffd_pack.cu's cluster scan
+// (ffd_scan_cluster_kernel<M, kShard>, entry mesh_shard_scan), a CTA a
+// data shard, its state resident in the CTA's shared memory and the
+// per-class exchanges through the cluster's (ops/fused_packer.py:
+// shard_scan_kernel picks).
+// The choice tile (one model shard's per-class first-index best config
+// against the price ceiling of the whole catalog, as a record of
+// order-preserving score key, global index, cap and ok) is the shard mode
+// of ffd_pack.cu's choose_config_kernel (choose_config_kernel<., true>,
 // entry ffd_choose_config_shard).  The host copies every tile's records to
-// every data row, where the cap kernel takes the least (key, index): the
-// global first-index argmin.
-// Between the cap and the apply, and after the apply, each shard's int32
-// (the totals, then the take1 sums) reaches every shard: the shards of one
-// device share its exchange buffer (one column a shard), and the buffers
-// of different devices meet through copies (ops/packer.py
-// mesh_exchange_row).  Two exchanges a class, not one: with int32
-// wraparound sum(take1) is not a function of the totals (a prefix that
-// wraps negative lets a later slot take pods), so n2 needs every shard's
-// own sum.  The close of class g-1 rides the cap launch of class g, so a
-// class costs two launches a shard.
-//
-// What bounds it: the chain of launches (and copies between devices), not
-// bytes or operations.  Each kernel is one block over a shard's slots with the
-// state in device memory (the simple form); a later design keeps the state
-// resident and exchanges through peer memory (ROADMAP).
+// every data row, where the scan takes the least (key, index): the global
+// first-index argmin (common.cuh: best_choice).
+// Two exchanges a class, not one: with int32 wraparound sum(take1) is not
+// a function of the shards' cap totals (a prefix that wraps negative lets
+// a later slot take pods), so n2 needs every shard's own sum.  In the pair
+// each shard's int32 (the totals, then the take1 sums) reaches every shard
+// through the exchange buffer (the shards of one device share it, one
+// column a shard; the buffers of different devices meet through copies,
+// ops/packer.py mesh_exchange_row), and the close of class g-1 rides the
+// cap launch of class g, so a class costs two launches a shard.  The pair
+// is a chain of launches, not of bytes or operations (PERF.md); across
+// devices the shards cannot share a barrier, and that design (a persistent
+// kernel a device, per-class flags in peer memory) waits for a machine of
+// several cards (ROADMAP).
 //
 // Float rules as ffd_pack.cu: IEEE division (__fdiv_rn), no fast math, the
 // usage update one __fmaf_rn.  int32 arithmetic wraps as XLA's does
@@ -53,48 +59,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "common.cuh"  // the wrapping int32 helpers, node_cap, block scans
-
-// One data shard's buffers (ops/fused_packer.py: ShardArgs).
-struct ShardArgs {
-  // the row device's replica (read only)
-  const float* req;        // [G, R]
-  const int* cnt;          // [G]
-  const int* maxper;       // [G]
-  const int* slot;         // [G]
-  const uint8_t* feas;     // [G, C]
-  const float* alloc;      // [C, R]
-  const int* rec;          // [M, G, kRec] every model shard's choice record
-  // the shard's own buffers
-  int* xchg;               // [2, G, D]: 0 the totals, 1 the take1 sums
-  float* used;             // [Kd, R]
-  int* cfg;                // [Kd]
-  int* npods;              // [Kd]
-  int* sig;                // [S, Kd]
-  int* take;               // [G, Kd]
-  int* leftover;           // [G]
-  int* cap;                // [Kd] scratch: class g's caps
-  int* nxt;                // [1] the first free slot
-  int G, C, R, S, M, D, d, k0, Kd, K;
-};
+#include "common.cuh"  // ShardArgs, best_choice, window_take_sum, the wrapping
+                       // int32 helpers, node_cap, block scans
 
 namespace {
 
-constexpr int kRec = 4;                 // ops/packer.py: MESH_REC
 constexpr int kAssembleThreads = 256;
 constexpr int kShardThreads = 1024;     // the most a shard launch takes
-
-// sum(take2) over the window's slots that exist (ops/packer.py:
-// window_take_sum): where the window is not empty, n2 > 0 and no term of
-// it overflows.
-__device__ __forceinline__ int window_take_sum(int n2, int per, int nxt,
-                                               int opened) {
-  if (opened <= 0) return 0;
-  const long long j0 = min(max(-(long long)nxt, 0ll), (long long)opened);
-  const long long all = min((long long)n2, (long long)opened * per);
-  const long long below = min((long long)n2, j0 * per);
-  return (int)(all - below);
-}
 
 __global__ void __launch_bounds__(kAssembleThreads) assemble_feasibility_kernel(
     const uint8_t* __restrict__ type_ok, const uint8_t* __restrict__ zone_ok,
@@ -117,25 +88,14 @@ __global__ void __launch_bounds__(kShardThreads) ffd_shard_cap_kernel(
   const int t = threadIdx.x, nt = blockDim.x;
   if (g > 0) {  // close class g - 1
     const int gp = g - 1;
-    unsigned bk = 0xffffffffu;
-    int c_star = 0x7fffffff, bcap = 0, new_ok = 0;
-    for (int m = 0; m < a.M; ++m) {
-      const int* r = a.rec + ((size_t)m * a.G + gp) * kRec;
-      const unsigned k = (unsigned)r[0];
-      if (k < bk || (k == bk && r[1] < c_star)) {
-        bk = k;
-        c_star = r[1];
-        bcap = r[2];
-        new_ok = r[3];
-      }
-    }
-    const int per = max(bcap, 1);
+    const Choice ch = best_choice(a.rec, a.M, a.G, gp);
+    const int c_star = ch.c_star, per = ch.per;
     unsigned lsum = 0;
     for (int d = 0; d < a.D; ++d)
       lsum += (unsigned)a.xchg[((size_t)a.G + gp) * a.D + d];
     const int n2 = wsub(a.cnt[gp], (int)lsum);
     const int nxt = *a.nxt;
-    const int need = new_ok ? floordiv(wsub(wadd(n2, per), 1), per) : 0;
+    const int need = ch.ok ? floordiv(wsub(wadd(n2, per), 1), per) : 0;
     const int opened = min(need, wsub(a.K, nxt));
     const int hi = wadd(nxt, opened);
     const float* rq = a.req + (size_t)gp * a.R;
@@ -216,20 +176,6 @@ int shard_threads(int Kd) {
   return t < 32 ? 32 : (t > kShardThreads ? kShardThreads : t);
 }
 
-// Launch on `device` (the caller's device restored after), on `stream`.
-struct OnDevice {
-  int prev = -1;
-  explicit OnDevice(int device) {
-    cudaGetDevice(&prev);
-    if (prev != device) cudaSetDevice(device);
-  }
-  ~OnDevice() {
-    int now = -1;
-    cudaGetDevice(&now);
-    if (now != prev) cudaSetDevice(prev);
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -263,6 +209,5 @@ int mesh_shard_apply(const ShardArgs* a, int g, int device, void* stream) {
   ffd_shard_apply_kernel<<<1, shard_threads(a->Kd), 0, (cudaStream_t)stream>>>(*a, g);
   return (int)cudaGetLastError();
 }
-
 
 }  // extern "C"

@@ -41,11 +41,14 @@ one cluster an element.
 The sharded pack over a device mesh (parallel/mesh.py, replacing the JAX
 package's mesh, jitted XLA partitioned by GSPMD) is the second library,
 ``csrc/mesh_pack.cu``: `assemble_feasibility` (the dense feasibility mask
-from the factorized admission, a tile a launch), and per class
+from the factorized admission, a tile a launch), and the scan over the
+classes (`mesh_pack`): `ffd_shard_scan`, one thread-block cluster launch
+for the data shards of one device (the shard mode of ``ffd_pack.cu``'s
+cluster scan), or, where the rows lie on several devices, per class
 `ffd_shard_cap` and `ffd_shard_apply` a data shard, with the exchanges
-between them (`mesh_pack`); its fourth kernel, `choose_config_shard` (a
-(data, model) tile of the new-node choice), is the shard mode of
-``ffd_pack.cu``'s ``choose_config_kernel``.
+between them (`shard_scan_kernel` picks); the choice,
+`choose_config_shard` (a (data, model) tile of the new-node choice), is
+the shard mode of ``ffd_pack.cu``'s ``choose_config_kernel``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version
 (ops/packer.py) and CUDA tensors to its kernel; for a CUDA tensor it
@@ -78,6 +81,7 @@ from karpenter_tpu_torch.ops.packer import (
     choose_config_shard_reference,
     ffd_shard_apply_reference,
     ffd_shard_cap_reference,
+    ffd_shard_scan_reference,
     mesh_assemble_reference,
     mesh_masks,
     mesh_outputs,
@@ -105,12 +109,14 @@ LAUNCHES: Dict[str, int] = {
     "admit_kernel": 0,
     "choose_config_fleet": 0, "ffd_scan_fleet": 0, "ffd_scan_cluster_fleet": 0,
     "ffd_scan_global_fleet": 0,
-    "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_cap": 0,
-    "ffd_shard_apply": 0,
+    "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_scan": 0,
+    "ffd_shard_cap": 0, "ffd_shard_apply": 0,
 }
-# the launches of the sharded pack (csrc/mesh_pack.cu), in their order
-MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_cap",
-                "ffd_shard_apply")
+# the launches of the sharded pack (csrc/mesh_pack.cu and the shard modes of
+# csrc/ffd_pack.cu), in their order: the scan is either ffd_shard_scan or
+# the pair after it (`shard_scan_kernel`)
+MESH_KERNELS = ("assemble_feasibility", "choose_config_shard", "ffd_shard_scan",
+                "ffd_shard_cap", "ffd_shard_apply")
 # the library's first load (its build and its C signatures) and LAUNCHES
 _LOCK = make_lock("fused_packer._LOCK")
 # the launches of `verdict_rows`, in order
@@ -129,6 +135,9 @@ MAX_AXES = 31  # resource axes the resident scan's class flags cover
 # xsum [32], xleft [2][32])
 CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_XCHG_BYTES = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4
+# the cluster scan's shard mode: its most data shards, a portable cluster
+# (kMaxShards in csrc/common.cuh)
+MAX_SHARDS = 8
 
 # the frontier-window scan (kWinThreads, kWinXchgBytes in ffd_pack.cu): its
 # threads, its window sizes (1, 2 or 4 rounds of its threads), largest
@@ -151,7 +160,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 class ShardArgs(ctypes.Structure):
     """One data shard's buffers as the mesh kernels take them (struct
-    ShardArgs in csrc/mesh_pack.cu), built once a solve."""
+    ShardArgs in csrc/common.cuh), built once a solve."""
 
     _fields_ = [(name, _P) for name in (
         "req", "cnt", "maxper", "slot", "feas", "alloc", "rec", "xchg", "used", "cfg",
@@ -219,6 +228,8 @@ def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ffd_population_prologue.restype = _I
         lib.ffd_admit.argtypes = [_P] * 7 + [_I] * 6 + [_P] + [_P]
         lib.ffd_admit.restype = _I
+        lib.mesh_shard_scan.argtypes = [ctypes.POINTER(ShardArgs), _I, _I, _I, _P]
+        lib.mesh_shard_scan.restype = _I
     _LIB = lib
     return lib
 
@@ -1274,6 +1285,66 @@ def _shard_desc(sh: MeshShard) -> tuple:
     return sh.desc
 
 
+def shard_scan_layout(kd: int, R: int, S: int, C: int, D: int,
+                      G: int) -> Tuple[int, int, int]:
+    """``(threads, slots per thread, dynamic shared-memory bytes)`` of a CTA
+    of the cluster scan's shard mode (``mesh_shard_scan`` in
+    csrc/ffd_pack.cu) whose largest data shard holds ``kd`` slots of a
+    problem of G classes: the resident scan's block (`_block_layout`) with
+    D x `CLUSTER_XCHG_BYTES` exchange bytes, and the G classes' choice rows
+    (three int32 a class)."""
+    per_thread, smem = _block_layout(kd, R, S, C, D * CLUSTER_XCHG_BYTES + 12 * G)
+    return scan_threads(kd), per_thread, smem
+
+
+def shard_scan_kernel(plan: MeshPlan, K: int, R: int, S: int, C: int) -> str:
+    """Which scan the sharded pack runs, decided by the plan's layout and
+    shapes alone: ``"ffd_shard_scan"`` (the whole scan in one cluster
+    launch, a CTA a data shard) where every data row of ``plan`` sits on
+    one device, there are at most `MAX_SHARDS` of them, the problem has at
+    most `MAX_AXES` resource axes, the feasibility rows copy in 4-byte
+    pieces or wider, and a CTA holds its shard with at most
+    `MAX_SLOTS_PER_THREAD` slots a thread within `SMEM_PER_BLOCK`
+    (`shard_scan_layout`); else ``"ffd_shard_pair"``, the cap and apply
+    launches a shard a class with the exchanges between them (`mesh_scan`),
+    which takes rows on several devices.  Of the default meshes
+    (`parallel.mesh.make_mesh`), (1, 1) on one card and (1, 2) on two hold
+    one data row on one card: D is 1, and the scan takes it up to 2,048
+    slots (two a thread) where their state fits, the pair past that (the
+    live cluster's 4,096); (2, 2) and larger, on four or more cards, put the
+    rows on several cards and take the pair."""
+    D = len(plan.tiles)
+    kd = max((plan.k_bounds[d + 1] - plan.k_bounds[d] for d in range(D)), default=0)
+    if (len({row[0] for row in plan.tiles}) == 1 and D <= MAX_SHARDS and R <= MAX_AXES
+            and feas_copy_bytes(C)):
+        _, per_thread, smem = shard_scan_layout(kd, R, S, C, D, plan.g_bounds[-1])
+        if per_thread <= MAX_SLOTS_PER_THREAD and smem <= SMEM_PER_BLOCK:
+            return "ffd_shard_scan"
+    return "ffd_shard_pair"
+
+
+def ffd_shard_scan(shards: list) -> None:
+    """The whole scan over the classes for the data shards of one device,
+    in place on their buffers (ops/packer.py: `ffd_shard_scan_reference`).
+    On the card one launch of the cluster scan's shard mode
+    (``ffd_scan_cluster_kernel<M, kShard>`` in csrc/ffd_pack.cu): a
+    thread-block cluster of a CTA a shard, each shard's state resident in
+    its CTA's shared memory, the per-class exchanges through the cluster's
+    shared memory (`shard_scan_kernel` says where the pack takes it)."""
+    first = shards[0]
+    if first.device.type == "cpu":
+        return ffd_shard_scan_reference(shards)
+    D = len(shards)
+    if D > MAX_SHARDS or any(sh.device != first.device for sh in shards):
+        raise ValueError(f"ffd_shard_scan takes at most {MAX_SHARDS} shards of one device, "
+                         f"not {[str(sh.device) for sh in shards]}")
+    descs = [_shard_desc(sh) for sh in shards]
+    args = (ShardArgs * D)(*(desc[0] for desc in descs))
+    _, index, stream = descs[0]
+    _launched("ffd_shard_scan", _lib().mesh_shard_scan(args, D, first.take.shape[0], index,
+                                                       stream))
+
+
 def ffd_shard_cap(sh: MeshShard, g: int) -> None:
     """Close class g - 1 on the shard's slots and compute class g's caps and
     their wrapped total (ops/packer.py: `ffd_shard_cap_reference`).  On the
@@ -1325,18 +1396,28 @@ def mesh_pack(
 ) -> Tuple[torch.Tensor, ...]:
     """The sharded pack (ops/packer.py: `mesh_pack_reference`, run for CPU
     shards): on a mesh of cards one launch of ``choose_config_kernel``'s
-    shard mode a tile, then per class a launch of ``ffd_shard_cap_kernel`` and of
-    ``ffd_shard_apply_kernel`` a data shard with the exchanges between, and
-    one more cap launch a shard to close the last class: (G + 1) + G
-    launches a shard, 2 G exchanges (`mesh_exchange_row`: copies only
-    between devices)."""
+    shard mode a tile, then the scan `shard_scan_kernel` picks from the
+    plan: ``"ffd_shard_scan"``, one cluster launch for the data shards of
+    the one device (`ffd_shard_scan`), or ``"ffd_shard_pair"``, per class a
+    launch of ``ffd_shard_cap_kernel`` and of ``ffd_shard_apply_kernel`` a
+    data shard with the exchanges between, and one more cap launch a shard
+    to close the last class: (G + 1) + G launches a shard, 2 G exchanges
+    (`mesh_exchange_row`: copies only between devices).  The pair on any
+    plan is `mesh_shards`, ``mesh_scan(shards, ffd_shard_cap,
+    ffd_shard_apply)`` and `mesh_outputs`."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     if _plan_type(plan) == "cpu":
         return mesh_pack_reference(plan, reps, slots, next0, objective)
+    req, feas, sig0 = reps[plan.tiles[0][0]][0], reps[plan.tiles[0][0]][4], slots[0][3]
+    picked = shard_scan_kernel(plan, plan.k_bounds[-1], req.shape[1], sig0.shape[0],
+                               feas.shape[1])
     recs = [choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
                                 g0, g1, c0, c1, objective)
             for dev, g0, g1, c0, c1 in plan.tile_bounds()]
     shards = mesh_shards(plan, reps, recs, slots, next0)
-    mesh_scan(shards, ffd_shard_cap, ffd_shard_apply)
+    if picked == "ffd_shard_scan":
+        ffd_shard_scan(shards)
+    else:
+        mesh_scan(shards, ffd_shard_cap, ffd_shard_apply)
     return mesh_outputs(shards)

@@ -1225,6 +1225,13 @@ def mesh_scan(shards: list, cap_step, apply_step) -> None:
         mesh_exchange_row(shards, 1, g)
 
 
+def ffd_shard_scan_reference(shards: list) -> None:
+    """The plain version of ``ffd_shard_scan``: the whole scan over the
+    classes on every shard, the two plain steps a class with the exchanges
+    between them (`mesh_scan`), in place on the shards' buffers."""
+    mesh_scan(shards, ffd_shard_cap_reference, ffd_shard_apply_reference)
+
+
 def mesh_outputs(shards: list) -> Tuple[torch.Tensor, ...]:
     """Every shard's outputs copied into whole buffers on the first
     shard's device: ``(take [G, K], leftover [G], node_cfg [K], node_pods
@@ -1263,12 +1270,14 @@ def mesh_pack_reference(
     3. the outputs of every shard copied into whole buffers on the first
        device (`mesh_outputs`).
 
-    The CUDA route (ops/fused_packer.py `mesh_pack`) is the same sequence
-    with each step a kernel.  Returns the five outputs on
+    The CUDA route (ops/fused_packer.py `mesh_pack`) is the same sequence:
+    the choice a tile, then the scan as one cluster launch a device
+    (``ffd_shard_scan``) or as a cap and an apply launch a shard a class
+    (``ffd_shard_cap`` / ``ffd_shard_apply``).  Returns the five outputs on
     ``plan.tiles[0][0]``."""
     recs = [choose_config_shard_reference(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
                                           g0, g1, c0, c1, objective)
             for dev, g0, g1, c0, c1 in plan.tile_bounds()]
     shards = mesh_shards(plan, reps, recs, slots, next0)
-    mesh_scan(shards, ffd_shard_cap_reference, ffd_shard_apply_reference)
+    ffd_shard_scan_reference(shards)
     return mesh_outputs(shards)

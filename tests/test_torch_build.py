@@ -155,3 +155,43 @@ def test_launch_counts_from_many_threads(monkeypatch):
 
     _race(launches)
     assert fused_packer.LAUNCHES["ffd_scan_fleet"] == THREADS * 2000
+
+
+def test_mesh_library_exports_and_declares_the_shard_scan(monkeypatch):
+    """``csrc/ffd_pack.cu`` exports ``mesh_shard_scan`` (the cluster scan's
+    shard mode) and ``csrc/mesh_pack.cu`` the pair's entries, and
+    `fused_packer._lib()` declares the scan's C signature (an array of
+    `ShardArgs`, D, G, the device, the stream) on first load."""
+    import re
+    import types
+
+    from karpenter_tpu_torch.ops import fused_packer
+
+    for source, entries in (("ffd_pack", ("mesh_shard_scan",)),
+                            ("mesh_pack", ("mesh_assemble_feasibility", "mesh_shard_cap",
+                                           "mesh_shard_apply"))):
+        src = (_build.CSRC / f"{source}.cu").read_text()
+        exported = src[src.index('extern "C" {'):]
+        for entry in entries:
+            assert re.search(rf"^int {entry}\(", exported, re.M), entry
+    assert not re.search(r"^int mesh_shard_scan\(", (_build.CSRC / "mesh_pack.cu").read_text(),
+                         re.M)
+
+    class Fn:
+        argtypes = None
+        restype = None
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(fused_packer, "_LIB", None)
+    monkeypatch.setattr(fused_packer, "_build", types.SimpleNamespace(load=lambda name: Lib()))
+    lib = fused_packer._lib()
+    c = fused_packer.ctypes
+    assert lib.mesh_shard_scan.argtypes == [c.POINTER(fused_packer.ShardArgs), c.c_int,
+                                            c.c_int, c.c_int, c.c_void_p]
+    assert lib.mesh_shard_scan.restype is c.c_int
+    assert fused_packer._lib() is lib

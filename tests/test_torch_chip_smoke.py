@@ -109,7 +109,8 @@ def test_kernels_line_rows():
     2 service cell, the cluster and global scans at the live cluster's
     tenants, all in place of the JAX package's ``fleet_pack_kernel``),
     then phase 15's mesh kernels (the feasibility expansion at the
-    factorized step, the sharded pack's three at config 2 on the mesh);
+    factorized step, the sharded pack's four at config 2 on the mesh: the
+    choice, the one-launch scan, the pair);
     phase 4 times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
@@ -117,10 +118,12 @@ def test_kernels_line_rows():
         "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
         "population_pairs", "admit_kernel", "choose_config_fleet", "ffd_scan_fleet",
         "ffd_scan_cluster_fleet", "ffd_scan_global_fleet", "assemble_feasibility",
-        "choose_config_shard", "ffd_shard_cap", "ffd_shard_apply")
-    assert chip_smoke.KERNELS[-8:-4] == chip_smoke.FLEET_KERNELS
-    assert chip_smoke.KERNELS[-4:] == chip_smoke.MESH_KERNELS
+        "choose_config_shard", "ffd_shard_scan", "ffd_shard_cap", "ffd_shard_apply")
+    assert chip_smoke.KERNELS[-9:-5] == chip_smoke.FLEET_KERNELS
+    assert chip_smoke.KERNELS[-5:] == chip_smoke.MESH_KERNELS
+    assert chip_smoke.MESH_KERNELS[-2:] == chip_smoke.MESH_PAIR
     assert chip_smoke.ROW_PROBLEM["ffd_shard_cap"] == "config2_mesh"
+    assert chip_smoke.ROW_PROBLEM["ffd_shard_scan"] == "config2_mesh"
     assert chip_smoke.FLEET_REPLACES == "karpenter_tpu/ops/packer.py:930"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_fleet"] == "service-16-config2"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_window_batched"] == "consolidation"
@@ -791,7 +794,7 @@ def test_phase14_launch_column():
 
 def test_phase15_launch_column():
     """The kernels line's newest launch column is phase 15's main path, and
-    the four mesh kernels' rows name their source and what they replace."""
+    the five mesh kernels' rows name their source and what they replace."""
     per_phase = {"legacy_launches": {"choose_config": 1},
                  "mesh_launches": {"ffd_shard_cap": 1284, "choose_config_shard": 8}}
     row = chip_smoke.phase_launches("ffd_shard_cap", per_phase)
@@ -805,20 +808,26 @@ def test_phase15_launch_column():
     assert root.joinpath(chip_smoke.MESH_SOURCE).exists()
     for k, source in chip_smoke.MESH_SOURCES.items():
         assert k in chip_smoke.MESH_KERNELS and root.joinpath(source).exists()
-    # the choice tile is choose_config_kernel's shard mode, which the
-    # profiler reports under that kernel's name
+    # the choice tile and the one-launch scan are the shard modes of
+    # choose_config_kernel and ffd_scan_cluster_kernel, which the profiler
+    # reports under those kernels' names
     assert chip_smoke.PROFILE_SYMBOL["choose_config_shard"] == "choose_config_kernel"
-    assert "ffd_choose_config_shard" in root.joinpath(chip_smoke.KERNEL_SOURCE).read_text()
+    assert chip_smoke.PROFILE_SYMBOL["ffd_shard_scan"] == "ffd_scan_cluster_kernel"
+    src = root.joinpath(chip_smoke.KERNEL_SOURCE).read_text()
+    assert "ffd_choose_config_shard" in src and "int mesh_shard_scan(" in src
+    assert chip_smoke.MESH_SOURCES["ffd_shard_scan"] == chip_smoke.KERNEL_SOURCE
 
 
 def test_phase15_lockstep_on_cpu_shards():
-    """`mesh_lockstep` on a mesh of CPU shards (both sides the plain
-    versions there): the wrap case and a frontier element step by step,
-    its outputs the plain pack's; the bound helpers on its outputs."""
+    """`mesh_lockstep` and `mesh_whole_scan` on a mesh of CPU shards (both
+    sides the plain versions there): the wrap case and a frontier element
+    step by step and whole, their outputs the plain pack's; the bound
+    helpers on their outputs."""
     import numpy as np
 
     from karpenter_tpu_torch import testing as T
     from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as port_mesh
 
     mesh = T.cpu_mesh()
     cpu = torch.device("cpu")
@@ -828,7 +837,17 @@ def test_phase15_lockstep_on_cpu_shards():
         want = P.pack_reference(*P.to_device(args, cpu))
         assert chip_smoke.max_abs_err(torch, k_out, want) == 0.0
         assert chip_smoke.max_abs_err(torch, p_out, want) == 0.0
+        for objective in ("nodes", "cost"):
+            want = P.pack_reference(*P.to_device(args, cpu), objective=objective)
+            s_out, err = chip_smoke.mesh_whole_scan(torch, "cpu", mesh, args, objective,
+                                                    single=want)
+            assert err == 0.0 and chip_smoke.max_abs_err(torch, s_out, want) == 0.0
+            pair = chip_smoke.mesh_pair_pack(
+                *port_mesh.pack_layout(mesh, args, site="mesh_smoke"), objective)
+            assert chip_smoke.max_abs_err(torch, pair, want) == 0.0
     plan = P.mesh_plan(mesh.devices, args[0].shape[0], args[5].shape[0], args[8].shape[0])
+    scan_bound = chip_smoke.mesh_scan_bound(torch, plan, args, s_out)
+    assert scan_bound["bound_ms"] > 0 and scan_bound["bound_by"] in ("bytes", "operations")
     bounds = chip_smoke.mesh_bounds(plan, args, k_out, 2)
     assert set(bounds) == {"ffd_shard_cap", "ffd_shard_apply", "choose_config_shard"}
     assert all(b["bound_ms"] > 0 and b["bound_by"] in ("bytes", "operations")

@@ -23,7 +23,11 @@ pack (``fused_packer.fleet_pack``) is held to its plain version and to one
 solo ``ffd_pack`` a tenant on ``testing.fleet_tenant_arrays``' cases and on
 config 2 as four tenants (the resident and the cluster scan, and the
 global scan through ``scan=``), and a multi-tenant solver server on the
-card to a dedicated sidecar.
+card to a dedicated sidecar.  The sharded pack on a mesh of the machine's
+cards (8 shards, (4, 2)) runs ``ffd_shard_scan`` where its data rows share
+one card and the cap / apply pair where forced, each held to its plain
+version and to ``ffd_pack`` at the main path's problems and on the wrap
+and frontier cases.
 
 Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
 where ``torch.cuda.is_available()`` is false, so every worker collects the
@@ -860,11 +864,13 @@ def test_failover_on_card_matches_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _card_mesh():
+def _card_mesh(shards=8):
+    """The (4, 2) mesh of 8 shards over the machine's cards in turn, or,
+    with ``shards=1``, the default mesh of one card, (1, 1)."""
     from karpenter_tpu_torch.parallel.mesh import make_mesh
 
     n = torch.cuda.device_count()
-    return make_mesh(8, [torch.device("cuda", i % n) for i in range(8)])
+    return make_mesh(shards, [torch.device("cuda", i % n) for i in range(shards)])
 
 
 MESH_CASES = {
@@ -876,26 +882,115 @@ MESH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(MESH_CASES))
-@pytest.mark.parametrize("objective", ["nodes", "cost"])
-def test_mesh_pack_matches_plain_and_ffd_pack(cuda_device, case, objective):
-    """The sharded pack's kernels (choose_config_shard, ffd_shard_cap,
-    ffd_shard_apply) against their plain versions on the same card shards,
-    and against the single-device ffd_pack, bit for bit."""
+def _mesh_scans_match(device, args, objective, expect_scan=False, shards=8):
+    """Both scans of the sharded pack on the card mesh of ``shards`` shards
+    (the one the plan picks, ``ffd_shard_scan`` where the data rows sit on
+    one card and the shapes fit a CTA, and the pair composed by hand, as
+    the plan runs it across cards): their launches, the whole outputs
+    bit-equal to `mesh_pack_reference` on the same card shards and to the
+    single-device `ffd_pack`, and the one-launch scan's shard buffers equal
+    to `ffd_shard_scan_reference`'s."""
     from karpenter_tpu_torch.ops import packer as P
     from karpenter_tpu_torch.parallel import mesh as PM
 
-    mesh = _card_mesh()
-    args = MESH_CASES[case]()
+    mesh = _card_mesh(shards)
     plan, reps, slots, next0 = PM.pack_layout(mesh, args, site="mesh_pack")
-    fused_packer.reset_launches()
-    got = fused_packer.mesh_pack(plan, reps, slots, next0, objective)
-    G = args[0].shape[0]
-    assert fused_packer.LAUNCHES["ffd_shard_cap"] == (G + 1) * 4
-    assert fused_packer.LAUNCHES["ffd_shard_apply"] == G * 4
-    _assert_bit_equal(got, P.mesh_pack_reference(plan, reps, slots, next0, objective))
-    _assert_bit_equal(got, fused_packer.ffd_pack(*to_device(args, cuda_device),
-                                                 objective=objective))
+    G, R = args[0].shape
+    D, tiles = len(plan.tiles), len(plan.tiles) * len(plan.tiles[0])
+    picked = fused_packer.shard_scan_kernel(plan, args[8].shape[0], R, args[12].shape[0],
+                                            args[5].shape[0])
+    one_card = picked == "ffd_shard_scan"
+    assert one_card == (len(mesh.distinct()) == 1) or not expect_scan
+    want = P.mesh_pack_reference(plan, reps, slots, next0, objective)
+    single = fused_packer.ffd_pack(*to_device(args, device), objective=objective)
+
+    def pair():
+        recs = [fused_packer.choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                                 g0, g1, c0, c1, objective)
+                for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+        shards = P.mesh_shards(plan, reps, recs, slots, next0)
+        P.mesh_scan(shards, fused_packer.ffd_shard_cap, fused_packer.ffd_shard_apply)
+        return P.mesh_outputs(shards)
+
+    for forced, run in ((False, lambda: fused_packer.mesh_pack(plan, reps, slots, next0,
+                                                               objective)), (True, pair)):
+        fused_packer.reset_launches()
+        got = run()
+        by_pair = forced or not one_card
+        assert fused_packer.LAUNCHES["ffd_shard_scan"] == (0 if by_pair else 1)
+        assert fused_packer.LAUNCHES["ffd_shard_cap"] == ((G + 1) * D if by_pair else 0)
+        assert fused_packer.LAUNCHES["ffd_shard_apply"] == (G * D if by_pair else 0)
+        assert fused_packer.LAUNCHES["choose_config_shard"] == tiles
+        _assert_bit_equal(got, want)
+        _assert_bit_equal(got, single)
+    if one_card:
+        recs = [P.choose_config_shard_reference(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                                g0, g1, c0, c1, objective)
+                for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+        kern = P.mesh_shards(plan, reps, recs, slots, next0)
+        plain = P.mesh_shards(plan, reps, recs, slots, next0)
+        fused_packer.ffd_shard_scan(kern)
+        P.ffd_shard_scan_reference(plain)
+        for a, b in zip(kern, plain):
+            for f in ("used", "cfg", "npods", "sig", "take", "leftover", "nxt"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                   y.view(torch.int32) if y.dtype == torch.float32 else y), f
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+def test_mesh_pack_matches_plain_and_ffd_pack(cuda_device, case, objective):
+    """The sharded pack's kernels (choose_config_shard; ffd_shard_scan, or
+    ffd_shard_cap and ffd_shard_apply where forced) against their plain
+    versions on the same card shards, and against the single-device
+    ffd_pack, bit for bit."""
+    _mesh_scans_match(cuda_device, MESH_CASES[case](), objective)
+
+
+def _padded(pools, inv, pods, existing=()):
+    """A problem padded as `mesh_pack_fn` pads it for the (4, 2) mesh."""
+    from karpenter_tpu_torch.ops.packer import node_slot_bound
+
+    prob = compile_problem(pods, pools, inv, existing=list(existing))
+    return pad_problem(prob, max(node_slot_bound(prob), 32))[0]
+
+
+# the main path's problems at full size and the cases that wrap
+MESH_SCAN_CASES = {
+    "config2": lambda: _padded(*T.heterogeneous_problem()),
+    "flagship": lambda: (lambda pool, types, pods: _padded([pool], {pool.name: types},
+                                                          pods))(*T.flagship_problem()),
+    "live-2000": lambda: _padded(*T.heterogeneous_problem(), T.live_cluster(2000)),
+    "wrap-256": lambda: T.wrap_arrays(256),
+    "wrap-4096-straddling-2048": lambda: T.wrap_arrays(4096, at=2046),
+    "frontier-wrap-0": lambda: T.frontier_pack("wrap", 0),
+    "frontier-past-last": lambda: T.frontier_pack("past", -1),
+}
+
+
+# each case on the (4, 2) mesh of one card, and those of at most 2,048
+# slots on the default mesh of one card, (1, 1): one CTA holding every slot
+MESH_SCAN_RUNS = [(case, 8) for case in sorted(MESH_SCAN_CASES)] + [
+    (case, 1) for case in ("config2", "flagship", "wrap-256", "frontier-wrap-0",
+                           "frontier-past-last")]
+
+
+@pytest.mark.parametrize("case,shards", MESH_SCAN_RUNS,
+                         ids=[c if n == 8 else f"{c}-1x1" for c, n in MESH_SCAN_RUNS])
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+def test_mesh_shard_scan_matches_plain_and_ffd_pack(cuda_device, case, shards, objective):
+    """``ffd_shard_scan`` (one cluster launch: 4 CTAs for the (4, 2) mesh's
+    data shards on one card, 1 for the (1, 1) mesh, 2,048 slots at the
+    frontier cases there, two a thread) and the pair driven directly on
+    config 2, the flagship, the live cluster (2,000 live nodes: 4 shards of
+    1,024 slots), the wrap case at 256 and 4096 slots (the prefilled slots
+    across the shard boundary at 2,048) and two frontier elements: equal to
+    their plain versions and to ffd_pack, bit for bit."""
+    args = MESH_SCAN_CASES[case]()
+    if case == "live-2000":
+        assert args[8].shape[0] == 4096
+    _mesh_scans_match(cuda_device, args, objective, expect_scan=True, shards=shards)
 
 
 def test_assemble_feasibility_kernel_matches_plain(cuda_device):
@@ -951,3 +1046,16 @@ def test_mesh_kernels_refuse_misaligned_feas(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         fused_packer.choose_config_shard(req, maxper, buf[1:].view(feas.shape), alloc, price,
                                          openable, 0, 4, 0, 8)
+    from karpenter_tpu_torch.ops import packer as P
+    from karpenter_tpu_torch.parallel import mesh as PM
+
+    plan, reps, slots, next0 = PM.pack_layout(_card_mesh(), T.wrap_arrays(256),
+                                              site="mesh_pack")
+    shards = P.mesh_shards(plan, reps, [torch.zeros((g1 - g0, P.MESH_REC), dtype=torch.int32,
+                                                    device=dev)
+                                        for dev, g0, g1, _, _ in plan.tile_bounds()],
+                           slots, next0)
+    for sh in shards:
+        sh.rep = sh.rep[:4] + (buf[1:].view(feas.shape),) + sh.rep[5:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_packer.ffd_shard_scan(shards)

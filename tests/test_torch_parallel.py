@@ -135,6 +135,19 @@ def _jax_args(args):
     return tuple(np.int32(a) if isinstance(a, int) else a for a in args)
 
 
+def _shard_scan_outputs(mesh, args, objective):
+    """The pack's five outputs through `ffd_shard_scan_reference` on
+    ``mesh``'s CPU shards: the plain choice a tile, the records copied to
+    every data row, the whole scan, the outputs gathered."""
+    plan, reps, slots, next0 = port_mesh.pack_layout(mesh, args, site="mesh_test")
+    recs = [P.choose_config_shard_reference(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                            g0, g1, c0, c1, objective)
+            for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    shards = P.mesh_shards(plan, reps, recs, slots, next0)
+    P.ffd_shard_scan_reference(shards)
+    return P.mesh_outputs(shards)
+
+
 @pytest.mark.parametrize("objective", OBJECTIVES)
 def test_sharded_deep_class_axis_parity(deep_problem, jax_mesh8, objective):
     """A deep sequential class axis: the port's sharded pack on every mesh
@@ -149,6 +162,8 @@ def test_sharded_deep_class_axis_parity(deep_problem, jax_mesh8, objective):
     for shape in SHAPES:
         got = port_mesh._sharded_pack(T.cpu_mesh(shape), kp, objective)(*args)
         _assert_equal(got, single, f"port {shape}")
+    _assert_equal(_shard_scan_outputs(T.cpu_mesh(), args, objective), sharded,
+                  "ffd_shard_scan_reference vs JAX mesh")
 
 
 def test_mesh_pack_fn_flagship_scale_through_scheduler():
@@ -179,22 +194,26 @@ WRAP_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(WRAP_CASES))
-def test_wrap_and_frontier_arrays_match_pack_reference(case):
+def test_wrap_and_frontier_arrays_match_pack_reference(jax_mesh8, case):
     """`testing.wrap_arrays` (int32 sums that wrap: prefixes that wrap
     negative, windows of negative length, a first free slot below 0, the
     prefilled slots across a shard boundary) and `testing.frontier_arrays`
     through the sharded pack on a (4, 2) and a (2, 1) mesh: equal to the
     unsharded plain pack and to the JAX package's ``pack_kernel``, both
-    objectives."""
+    objectives; the whole-scan plain version (`ffd_shard_scan_reference`)
+    equal to the JAX package's sharded pack on its 8-device mesh."""
     args = WRAP_CASES[case]()
     K = args[8].shape[0]
     for objective in OBJECTIVES:
         want = P.pack_reference(*P.to_device(args, torch.device("cpu")), objective=objective)
         _assert_equal(want, jax_pack_kernel(*_jax_args(args), k_slots=K, objective=objective),
                       f"{case} {objective}: plain vs JAX")
+        sharded = jax_mesh._sharded_pack(jax_mesh8, K, objective)(*_jax_args(args))
         for shape in ((4, 2), (2, 1)):
             got = port_mesh._sharded_pack(T.cpu_mesh(shape), K, objective)(*args)
             _assert_equal(got, want, f"{case} {shape} {objective}")
+            _assert_equal(_shard_scan_outputs(T.cpu_mesh(shape), args, objective), sharded,
+                          f"{case} {shape} {objective}: ffd_shard_scan_reference vs JAX mesh")
 
 
 # --------------------------------------------------- the shard kernels
@@ -216,6 +235,69 @@ def test_shard_wrappers_take_cpu_tensors_to_their_plain_versions():
     with pytest.raises(ValueError, match="one kind of device"):
         fused_packer.mesh_pack(plan._replace(tiles=((torch.device("cpu"), torch.device("meta")),)),
                                reps, slots, args[11])
+
+
+def test_mesh_pack_pair_on_cpu():
+    """`mesh_pack` takes CPU shards to `mesh_pack_reference`, and the pair
+    composed by hand (`mesh_shards`, `mesh_scan` over the wrappers,
+    `mesh_outputs`), as the card's checks force it, equals it too: the
+    wrappers take CPU shards to their plain steps and launch nothing."""
+    args = T.wrap_arrays(64, at=30)
+    mesh = T.cpu_mesh()
+    plan, reps, slots, next0 = port_mesh.pack_layout(mesh, args, site="mesh_test")
+    want = P.mesh_pack_reference(plan, reps, slots, next0, "cost")
+    fused_packer.reset_launches()
+    _assert_equal(fused_packer.mesh_pack(plan, reps, slots, next0, "cost"), want, "mesh_pack")
+    recs = [fused_packer.choose_config_shard(*(reps[dev][i] for i in (0, 2, 4, 5, 6, 7)),
+                                             g0, g1, c0, c1, "cost")
+            for dev, g0, g1, c0, c1 in plan.tile_bounds()]
+    shards = P.mesh_shards(plan, reps, recs, slots, next0)
+    P.mesh_scan(shards, fused_packer.ffd_shard_cap, fused_packer.ffd_shard_apply)
+    _assert_equal(P.mesh_outputs(shards), want, "the pair")
+    assert not any(fused_packer.LAUNCHES[k] for k in fused_packer.MESH_KERNELS)
+    with pytest.raises(TypeError):
+        fused_packer.mesh_pack(plan, reps, slots, next0, scan="ffd_shard_pair")
+
+
+def _plan(rows, G=320, C=4096, K=512):
+    return P.mesh_plan(tuple(tuple(torch.device(d) for d in row) for row in rows), G, C, K)
+
+
+def test_shard_scan_kernel_picks_by_layout():
+    """The one-launch scan where the data rows share one device, there are
+    at most 8 and a CTA holds its shard; the pair otherwise."""
+    pick = fused_packer.shard_scan_kernel
+    one = _plan([("cuda:0", "cuda:0")] * 4)
+    assert pick(one, 512, 6, 2, 4096) == "ffd_shard_scan"  # config 2 on one card
+    assert pick(_plan([("cuda:0", "cuda:0")] * 4, C=8192, K=4096),
+                4096, 6, 2, 8192) == "ffd_shard_scan"  # the live cluster: Kd 1,024
+    assert pick(_plan([("cuda:0",)] * 8), 512, 6, 2, 4096) == "ffd_shard_scan"
+    two = _plan([("cuda:0", "cuda:0"), ("cuda:0", "cuda:0"), ("cuda:1", "cuda:1"),
+                 ("cuda:1", "cuda:1")])
+    assert pick(two, 512, 6, 2, 4096) == "ffd_shard_pair"  # rows on two devices
+    # the model column on another device does not matter: the scan runs on
+    # the data rows' first devices
+    assert pick(_plan([("cuda:0", "cuda:1")] * 4), 512, 6, 2, 4096) == "ffd_shard_scan"
+    assert pick(_plan([("cuda:0",)] * 9, K=576), 576, 6, 2, 4096) == "ffd_shard_pair"  # D 9
+    big = _plan([("cuda:0", "cuda:0")] * 4, K=4 * 8192)
+    kd = 8192
+    assert fused_packer.shard_scan_layout(kd, 6, 2, 4096, 4, 320)[2] > fused_packer.SMEM_PER_BLOCK
+    assert pick(big, 4 * kd, 6, 2, 4096) == "ffd_shard_pair"  # a CTA past SMEM_PER_BLOCK
+    assert pick(one, 512, 6, 2, 4094) == "ffd_shard_pair"  # rows no cp.async size divides
+    assert pick(one, 512, 32, 2, 4096) == "ffd_shard_pair"  # past MAX_AXES
+    # the default mesh of one card, (1, 1): D 1 holds config 2 (Kd 512) and
+    # up to two slots a thread; the live cluster's 4,096 slots take the pair
+    assert pick(_plan([("cuda:0",)]), 512, 6, 2, 4096) == "ffd_shard_scan"
+    assert pick(_plan([("cuda:0",)], K=2048), 2048, 6, 2, 4096) == "ffd_shard_scan"
+    assert pick(_plan([("cuda:0",)], C=8192, K=4096), 4096, 6, 2, 8192) == "ffd_shard_pair"
+    # (1, 2) on two cards: one data row, so the scan, on the row's card
+    assert pick(_plan([("cuda:0", "cuda:1")]), 512, 6, 2, 4096) == "ffd_shard_scan"
+    # the layout at config 2 (Kd 128) and at the live cluster (Kd 1,024)
+    assert fused_packer.shard_scan_layout(128, 6, 2, 4096, 4, 320) == (
+        128, 1, 8 * 4096 + 2 * 32 * 4 * 19 + 4 * fused_packer.CLUSTER_XCHG_BYTES + 4 * 128 * 16
+        + 12 * 320)
+    assert fused_packer.shard_scan_layout(1024, 6, 2, 8192, 4, 320)[:2] == (1024, 1)
+    assert fused_packer.shard_scan_layout(1500, 6, 2, 4096, 2, 320)[:2] == (1024, 2)
 
 
 @pytest.mark.parametrize("groups", ((0, 0, 1, 1), (0, 1, 2, 3), (0, 1, 1, 0)),
