@@ -34,6 +34,16 @@ Phases (each failure exits non-zero before the last line is printed):
      256 slots (resident) and 4096 (cluster, and global), and at 4096 and
      16,384 slots with its prefilled slots straddling slot K / 2, a CTA
      boundary (cluster; at 4096 on every cluster size);
+   - config 2's pods on 10,000 and 20,000 live nodes (`LARGE_LIVE`: Kp and
+     Cp 16,384 and 32,768), the shapes at which phase 5's solves launch
+     ``ffd_scan_grid`` (one cluster of 8 CTAs, two), and the global scan
+     there too; the wrap case at 32,768 and 65,536 slots (two clusters,
+     four) with its prefilled slots straddling the first boundary between
+     two CTAs of a cluster and, separately, between two clusters
+     (`grid_wrap_cases`); the grid's co-resident clusters
+     (``cudaOccupancyMaxActiveClusters``) are printed; then, in a process
+     of its own, the grid scan with a spin budget of one clock cycle must
+     trap and torch must raise (`spin_trap`);
    - the choice alone (``compare_choose``): ``choose_config`` on the three
      main-path problems, the wrap case (Gp 10), ``testing.tie_arrays``
      (first-index ties, a class that fits nothing, a class with maxper 0)
@@ -42,24 +52,31 @@ Phases (each failure exits non-zero before the last line is printed):
 4. Kernel times: each kernel's device time per launch (torch.profiler)
    and its CUDA-event time over many launches after warm-up, beside the
    plain versions' times (CUDA events) and each kernel's bound at this
-   run's inputs, at each of the three problems of phase 5 (the scan the
+   run's inputs, at each of the five problems of phase 5 (the scan the
    shapes pick).  At config 2 the global and resident scans run in turns
    (global, resident, resident, global); at the live cluster the global
    and cluster scans (global, cluster, every other cluster size and back,
-   cluster, global); their ratios are printed.  The bound counts the bytes
-   and operations this run's data needs; each scan kernel also gets its
+   cluster, global); on 10,000 and 20,000 live nodes the global and grid
+   scans (global, grid, grid, global); their ratios are printed.  The
+   bound counts the bytes and operations this run's data needs; each scan
+   kernel also gets its
    latency floor, class steps x (its barriers x barrier round trip + its
    exposed dependent L2 loads x L2 round trip), with the round trips (the
    block barrier per thread count, the cluster barrier per cluster size,
-   the L2 load) measured here by ``csrc/latency_probe.cu``.  The kernels
-   line gives each kernel at the problem whose solves launch it:
-   ``choose_config`` and ``ffd_scan`` at config 2, ``ffd_scan_cluster`` on
-   the live cluster, and ``ffd_scan_global`` there too, timed through its
-   own entry point.
+   the L2 load, and for the grid past one cluster the cluster barrier
+   followed by the round trip between its clusters through device memory)
+   measured here by ``csrc/latency_probe.cu``.  The kernels line gives
+   each kernel at the problem whose solves launch it: ``choose_config``
+   and ``ffd_scan`` at config 2, ``ffd_scan_cluster`` on the live cluster,
+   and ``ffd_scan_global`` there too, timed through its own entry point,
+   ``ffd_scan_grid`` on 20,000 live nodes; the grid and global rows also
+   give their time, bound and floor at both problems past one cluster.
 5. The slice: ``TorchScheduler(device="cuda").solve`` on config 2 (10,000
-   pods, 317 classes), on the flagship, and on config 2's pods arriving at
-   a cluster of 2,000 live nodes (4096 slots: the cluster scan).  On one
-   scheduler a problem, 2 warm-up + 10 timed solves of each kind: cold
+   pods, 317 classes), on the flagship, on config 2's pods arriving at a
+   cluster of 2,000 live nodes (4096 slots: the cluster scan) and at
+   clusters of 10,000 and 20,000 (16,384 and 32,768 slots: the grid
+   scan).  On one scheduler a problem, 2 warm-up + 10 timed solves of each
+   kind (1 + 5 past one cluster, `solve_counts`): cold
    (its compile cache and resident states dropped first), hit (the same
    pods again: a compile-cache hit that packs from the resident tensors)
    and delta (1 % of the pods replaced by new pod objects of existing
@@ -70,11 +87,14 @@ Phases (each failure exits non-zero before the last line is printed):
    tensors must equal their host mirrors bit for bit; every solve must
    launch ``choose_config`` and the scan its shapes pick once (the
    resident one on the two bench problems, the cluster one on the live
-   cluster) and none ``ffd_scan_global``; the last cold and the last delta
+   cluster, the grid one past it: `PHASE5_SCAN`) and none
+   ``ffd_scan_global``; the last cold and the last delta
    result must equal a CPU cold solve through the plain version.  Then one
    solve of each kind per problem runs under torch.profiler, after the
    counts are read and just after an unprofiled solve of its kind, for the
    device time of each kernel and the device's busy share of the solve.
+   The phase's seconds are printed, and before the kernels line the
+   script's.
 6. The consolidation verdicts: ``TorchScheduler(device="cuda")``'s
    ``evaluate_removals`` and ``evaluate_population`` on two problems, both
    objectives.  ``sweep``: the cluster of ``bench.py``'s configs 4b/4c (560
@@ -396,7 +416,7 @@ DELTA_PODS = 100  # pods replaced each delta tick: 1 % of 10,000
 DELTA_NODES = 10  # live nodes whose usage changes each delta tick
 KERNEL_SOURCE = "karpenter_tpu_torch/csrc/ffd_pack.cu"
 REPLACES = "karpenter_tpu/ops/pallas_packer.py:99"  # _pack_step
-SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster")
+SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster", "ffd_scan_grid")
 # the consolidation verdicts' kernels (phase 6): the scans with the batch
 # axis, counted apart from the solve's, the three launches of
 # `verdict_rows` and the one of `population_prologue`
@@ -412,11 +432,23 @@ KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel",
            "ffd_scan_global_fleet", "assemble_feasibility", "choose_config_shard",
            "ffd_shard_scan", "ffd_shard_cap", "ffd_shard_apply")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
+# phase 5's clusters past one thread-block cluster (config 2's pods on
+# 10,000 and 20,000 live nodes: Kp 16,384 and 32,768, the grid scan), each
+# driven with fewer solves (warm-up, timed) to stay inside the run's time
+LARGE_LIVE = {"config2_live10k": 10_000, "config2_live20k": 20_000}
+LARGE_SOLVES = (1, 5)
+# phase 3's wrap cases on the grid scan: two clusters and four
+GRID_WRAP_SLOTS = (32768, 65536)
+# the scan each of phase 5's problems must launch once a solve
+PHASE5_SCAN = {"config2": "ffd_scan", "flagship": "ffd_scan",
+               "config2_live": "ffd_scan_cluster",
+               **{name: "ffd_scan_grid" for name in LARGE_LIVE}}
 # the problem each kernel's row of the kernels line is measured at: the one
 # whose solves launch it (the global scan: where it ran before the cluster
 # scan took that shape)
 ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_global": "config2_live", "ffd_scan_cluster": "config2_live",
+               "ffd_scan_grid": "config2_live20k",
                "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
                "ffd_scan_global_batched": "live",
                "ffd_scan_window_batched": "consolidation",
@@ -464,7 +496,7 @@ PROFILE_SYMBOL = {"choose_config_shard": "choose_config_kernel",
 SLEEP_PROBE_CYCLES = 10_000_000  # the sleep kernel's calibration (events_device_ms)
 # the kernels whose registers phase 2 prints and whose spills fail the run
 SPILL_CHECKED = ("choose_config", "ffd_scan_window", *VERDICT_ROWS, "population_pairs",
-                 "admit")
+                 "admit", "ffd_scan_grid")
 # the same: the cluster scan, whose shard mode is the mesh's ffd_shard_scan
 MESH_SPILL_CHECKED = ("ffd_scan_cluster",)
 # phase 7: the operator over config 2's catalog and all of its pods, ticks
@@ -685,6 +717,7 @@ def problems():
         "config2": (pools, inv, pods, []),
         "flagship": ([pool], {pool.name: types}, fpods, []),
         "config2_live": (pools, inv, pods, T.live_cluster(LIVE_NODES)),
+        **{name: (pools, inv, pods, T.live_cluster(n)) for name, n in LARGE_LIVE.items()},
     }
 
 
@@ -730,12 +763,18 @@ def scan_step_model(kernel: str, K: int):
 
     ``ffd_scan_cluster``: the resident step with its one barrier a cluster
     barrier (the warp totals exchanged through the cluster's shared
-    memory), and the same 2 / SCAN_TILE loads."""
+    memory), and the same 2 / SCAN_TILE loads.
+
+    ``ffd_scan_grid``: the cluster step, its one exchange the cluster's
+    barrier and, past one cluster, the round trip between clusters through
+    device memory (the caller passes the two together, as the grid probe
+    measures them); each slot's feasibility byte is gathered a step ahead,
+    so only the class tiles' 2 / SCAN_TILE loads wait."""
     from karpenter_tpu_torch.ops.fused_packer import SCAN_TILE, scan_threads
 
     if kernel == "ffd_scan_global":
         return 1 + 3 * -(-K // scan_threads(K)) + 3 + 3, 2
-    if kernel in ("ffd_scan", "ffd_scan_cluster"):
+    if kernel in ("ffd_scan", "ffd_scan_cluster", "ffd_scan_grid"):
         return 1, 2 / SCAN_TILE
     raise ValueError(f"no step model for {kernel}")
 
@@ -818,16 +857,9 @@ def scan_latency_floor_ms(kernel: str, G: int, K: int, barrier_us: float,
     return G * (barriers * barrier_us + loads * l2_us) / 1e3
 
 
-def probe_latencies(torch, threads, clusters):
-    """``({threads: barrier round trip}, {(ctas, threads): cluster barrier
-    round trip}, dependent L2 load round trip)`` in microseconds: the
-    barrier of one block at each thread count in ``threads``, the
-    exchange and barrier of one cluster at each (size, threads) in
-    ``clusters``; each from two launches of csrc/latency_probe.cu at
-    different step counts (the difference cancels the launch)."""
+def _latency_lib():
+    """csrc/latency_probe.cu, built and loaded, its C signatures declared."""
     import ctypes
-
-    import numpy as np
 
     from karpenter_tpu_torch.ops import _build
 
@@ -837,6 +869,34 @@ def probe_latencies(torch, threads, clusters):
     lib.probe_chase.argtypes, lib.probe_chase.restype = [P, I, P, P], I
     lib.probe_cluster_barrier.argtypes = [I, I, I, P, P]
     lib.probe_cluster_barrier.restype = I
+    lib.probe_grid_exchange.argtypes = [I, I, I, I, P, P, P]
+    lib.probe_grid_exchange.restype = I
+    return lib
+
+
+def _per_step_us(torch, launch, n1: int, n2: int) -> float:
+    """Microseconds a step of a probe ``launch(steps, stream)`` (a CUDA
+    error code), from launches at ``n1`` and ``n2`` steps: the difference
+    cancels the launch."""
+    def launched(err):
+        if err != 0:
+            fail(f"latency probe launch failed with CUDA error {err}")
+
+    stream = torch.cuda.current_stream().cuda_stream
+    t = lambda n: cuda_ms(torch, lambda: launched(launch(n, stream)), iters=3, warmup=1)
+    return (t(n2) - t(n1)) / (n2 - n1) * 1e3
+
+
+def probe_latencies(torch, threads, clusters):
+    """``({threads: barrier round trip}, {(ctas, threads): cluster barrier
+    round trip}, dependent L2 load round trip)`` in microseconds: the
+    barrier of one block at each thread count in ``threads``, the
+    exchange and barrier of one cluster at each (size, threads) in
+    ``clusters``; each from two launches of csrc/latency_probe.cu at
+    different step counts (the difference cancels the launch)."""
+    import numpy as np
+
+    lib = _latency_lib()
     dev = torch.device("cuda")
     out = torch.empty(8 * 1024, dtype=torch.int32, device=dev)
     lines = L2_PROBE_BYTES // 128
@@ -844,31 +904,43 @@ def probe_latencies(torch, threads, clusters):
     chain = np.zeros(lines * 32, np.int32)
     chain[order * 32] = np.roll(order, -1) * 32  # one cycle over every line
     chain = torch.from_numpy(chain).to(dev)
-
-    def launched(err):
-        if err != 0:
-            fail(f"latency probe launch failed with CUDA error {err}")
-
-    def per_step_us(launch, n1, n2):
-        stream = torch.cuda.current_stream().cuda_stream
-        t = lambda n: cuda_ms(torch, lambda: launched(launch(n, stream)), iters=3, warmup=1)
-        return (t(n2) - t(n1)) / (n2 - n1) * 1e3
-
     barrier_us = {
-        b: per_step_us(
-            lambda n, st, b=b: lib.probe_barrier(b, n, out.data_ptr(), st), 20000, 220000)
+        b: _per_step_us(
+            torch, lambda n, st, b=b: lib.probe_barrier(b, n, out.data_ptr(), st), 20000, 220000)
         for b in threads
     }
     cluster_us = {
-        (c, b): per_step_us(
-            lambda n, st, c=c, b=b: lib.probe_cluster_barrier(c, b, n, out.data_ptr(), st),
+        (c, b): _per_step_us(
+            torch, lambda n, st, c=c, b=b: lib.probe_cluster_barrier(c, b, n, out.data_ptr(), st),
             20000, 220000)
         for c, b in clusters
     }
-    l2_us = per_step_us(
-        lambda n, st: lib.probe_chase(chain.data_ptr(), n, out.data_ptr(), st),
+    l2_us = _per_step_us(
+        torch, lambda n, st: lib.probe_chase(chain.data_ptr(), n, out.data_ptr(), st),
         lines, 4 * lines)
     return barrier_us, cluster_us, l2_us
+
+
+def probe_grid_exchange(torch, grids) -> dict:
+    """``{(clusters, ctas, threads): round trip}`` in microseconds: the grid
+    scan's class step past one cluster, the cluster probe's exchange and
+    barrier followed by the round trip between that many co-resident
+    clusters through device memory (a tagged entry each, published with
+    st.release.gpu, read with ld.acquire.gpu), from two launches of
+    csrc/latency_probe.cu at different step counts."""
+    lib = _latency_lib()
+    dev = torch.device("cuda")
+    out = {}
+    for q, c, b in grids:
+        entries = torch.zeros(2 * q, dtype=torch.int64, device=dev)
+        wide = torch.empty(q * c * b, dtype=torch.int32, device=dev)
+
+        def launch(n, st, q=q, c=c, b=b, entries=entries, wide=wide):
+            entries.zero_()  # no tag of the last launch matches
+            return lib.probe_grid_exchange(q, c, b, n, entries.data_ptr(), wide.data_ptr(), st)
+
+        out[(q, c, b)] = _per_step_us(torch, launch, 20000, 220000)
+    return out
 
 
 def pack_shapes(args):
@@ -884,6 +956,83 @@ def other_cluster_sizes(K, R, S, C):
 
     picked = (F.cluster_layout(K, R, S, C) or (None,))[0]
     return [n for n in F.CLUSTER_SIZES if n != picked and F.cluster_layout(K, R, S, C, n)]
+
+
+def grid_wrap_cases(max_clusters: int) -> dict:
+    """Phase 3's wrap cases on the grid scan: name -> (slots, at) of
+    ``testing.wrap_arrays`` at each of `GRID_WRAP_SLOTS`, its prefilled
+    slots straddling the first boundary between two CTAs of a cluster and,
+    separately, the first boundary between two clusters (``at`` = the
+    boundary - 2) of the grid `fused_packer.grid_layout` gives the shape."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    out = {}
+    for k in GRID_WRAP_SLOTS:
+        K, R, S, _ = pack_shapes(T.wrap_arrays(k))
+        q, ctas, per_thread, _ = F.grid_layout(K, R, S, max_clusters)
+        kp = per_thread * F.scan_threads(-(-K // (q * ctas)))  # a CTA's slots
+        for where, b in (("a CTA boundary", kp), ("a cluster boundary", ctas * kp)):
+            out[f"wrap k_slots={k} straddling slot {b} ({where})"] = (k, b - 2)
+    return out
+
+
+def layout_note(shapes, picked: str, max_clusters: int) -> str:
+    """The cluster or grid layout of the scan phase 3 expects at these
+    shapes, for its case line."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    K, R, S, C = shapes
+    if picked == "ffd_scan_cluster":
+        ctas, per_thread, smem = F.cluster_layout(K, R, S, C)
+        return (f" (cluster of {ctas} CTAs, {per_thread} slots a thread, {smem} bytes of "
+                f"shared memory each)")
+    if picked == "ffd_scan_grid":
+        q, ctas, per_thread, smem = F.grid_layout(K, R, S, max_clusters)
+        return (f" (grid of {q} clusters of {ctas} CTAs, {per_thread} slots a thread, {smem} "
+                f"bytes of shared memory each)")
+    return ""
+
+
+SPIN_TRAP_SCRIPT = """
+import sys
+import torch
+from karpenter_tpu_torch import testing as T
+from karpenter_tpu_torch.ops import fused_packer as F, packer as P
+(req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0,
+ sig0) = P.to_device(T.wrap_arrays(%d), torch.device("cuda"))
+chosen = F.choose_config(req, maxper, feas, alloc, price, openable)
+torch.cuda.synchronize()
+try:
+    F.ffd_scan_grid(req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
+                    sig0, spin_budget=1)
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("raised: " + str(exc).splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+
+
+def spin_trap(card: str) -> None:
+    """Phase 3's check that a lost entry ends the grid scan's launch: in a
+    process of its own (the trap ends its CUDA context), ``ffd_scan_grid``
+    on ``wrap_arrays`` over two clusters with a spin budget of one clock
+    cycle, so a wait on the other cluster outlasts it; the launch must
+    fail and torch must raise at the next synchronize."""
+    import pathlib
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SPIN_TRAP_SCRIPT % GRID_WRAP_SLOTS[0]],
+                          cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=300)
+    said = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not said.startswith("raised: "):
+        fail(f"ffd_scan_grid with a spin budget of 1 cycle did not trap and raise "
+             f"(exit {proc.returncode}): {said} {proc.stderr[-2000:]}")
+    print(f" ffd_scan_grid with a spin budget of 1 cycle at {GRID_WRAP_SLOTS[0]} slots: the "
+          f"launch trapped and torch {said} ({time.perf_counter() - t0:.3f} s, {card})")
 
 
 def compare_kernels(torch, args, picked, extra):
@@ -1264,22 +1413,30 @@ def cpu_equal(name, label, spec, pods, result) -> None:
     print(f"    {label}: equals the CPU plain-version cold solve ({len(cpu.new_nodes)} nodes)")
 
 
+def solve_counts(name: str):
+    """Phase 5's ``(warm-up, timed)`` solves of each kind at one problem:
+    fewer past one thread-block cluster (`LARGE_LIVE`)."""
+    return LARGE_SOLVES if name in LARGE_LIVE else (WARMUP_SOLVES, TIMED_SOLVES)
+
+
 def drive_solves(torch, name, spec, rng):
-    """Phase 5 on one problem: warm-up + timed solves of each kind on one
-    scheduler on the card, cold (compile cache and resident states dropped
-    first), hit (the same pods again: a compile-cache hit that packs from
-    the resident tensors) and delta (after each `churn`: the resident
-    tensors absorb the diff).  Returns the scheduler, the last pods, and
-    per kind the timed milliseconds and the last solve's phases."""
+    """Phase 5 on one problem: warm-up + timed solves (`solve_counts`) of
+    each kind on one scheduler on the card, cold (compile cache and
+    resident states dropped first), hit (the same pods again: a
+    compile-cache hit that packs from the resident tensors) and delta
+    (after each `churn`: the resident tensors absorb the diff).  Returns
+    the scheduler, the last pods, and per kind the timed milliseconds and
+    the last solve's phases."""
     from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 
     pools, inv, pods, existing = spec
     sched = TorchScheduler(pools, inv, existing=existing, device="cuda")
     times = {kind: [] for kind in SOLVE_KINDS}
     phases = {}
+    warmup, timed = solve_counts(name)
     for kind in SOLVE_KINDS:
         last = None
-        for i in range(WARMUP_SOLVES + TIMED_SOLVES):
+        for i in range(warmup + timed):
             if kind == "delta":
                 pods = churn(rng, pods, existing)
             hits = sched.compile_cache_hits
@@ -1287,7 +1444,7 @@ def drive_solves(torch, name, spec, rng):
             result = cold_solve(sched, pods) if kind == "cold" else sched.solve(pods)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            if i >= WARMUP_SOLVES:
+            if i >= warmup:
                 times[kind].append(ms)
             placed_all(name, sched, result, len(pods))
             hit = sched.compile_cache_hits > hits
@@ -4881,7 +5038,9 @@ def mesh_phase(torch, card) -> dict:
         fail(f"phase 15: a mesh of {MESH_SHARDS} shards has shape {mesh.shape}")
     print(f"  mesh {mesh.shape}: data rows "
           f"{[[str(d) for d in row] for row in mesh.devices]} ({card})", flush=True)
-    specs = problems()
+    # the mesh phase's own three problems: past one cluster the mesh's
+    # one-card scan (a CTA holds at most 2,048 slots) is the pair
+    specs = {name: spec for name, spec in problems().items() if name not in LARGE_LIVE}
     rng = random.Random(15)
     pools, inv, pods, _ = specs["config2"]
     ticks = {"cold": pods, "hit": pods, "delta": churn(rng, pods, [])}
@@ -5259,6 +5418,7 @@ def observatory_totals() -> dict:
 def main(argv) -> int:
     """The run as the module docstring lists it."""
     through = parse_through(argv)
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5330,6 +5490,9 @@ def main(argv) -> int:
                 for n in other_cluster_sizes(*pack_shapes(args))]
 
     straddle = wrap(4096, at=4096 // 2 - 2)
+    max_clusters = F.grid_clusters(torch.cuda.current_device())
+    print(f"  ffd_scan_grid: {max_clusters} clusters of {F.GRID_CTAS} CTAs resident at once at "
+          f"one CTA a SM (cudaOccupancyMaxActiveClusters, {card})")
     # name -> (card tensors, the scan the shape rule must pick, more scans)
     cases = {
         "config2": (kargs["config2"], "ffd_scan", glob),
@@ -5344,15 +5507,17 @@ def main(argv) -> int:
         "wrap k_slots=4096 straddling slot 2048": (straddle, "ffd_scan_cluster", sizes(straddle)),
         "wrap k_slots=16384 straddling slot 8192": (
             wrap(16384, at=16384 // 2 - 2), "ffd_scan_cluster", []),
+        **{name: (kargs[name], "ffd_scan_grid", glob) for name in LARGE_LIVE},
+        **{name: (wrap(k, at=at), "ffd_scan_grid", [])
+           for name, (k, at) in grid_wrap_cases(max_clusters).items()},
     }
     errs, kouts = {}, {}
     for name, (args, picked, extra) in cases.items():
-        layout = F.cluster_layout(*pack_shapes(args)) if picked == "ffd_scan_cluster" else None
-        print(f" {name}" + (f" (cluster of {layout[0]} CTAs, {layout[1]} slots a thread, "
-                            f"{layout[2]} bytes of shared memory each)" if layout else ""))
+        print(f" {name}{layout_note(pack_shapes(args), picked, max_clusters)}", flush=True)
         e, kouts[name] = compare_kernels(torch, args, picked, extra)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
+    spin_trap(card)
     # the choice on its own cases
     shifted = list(kargs["config2"])
     feas = shifted[4]
@@ -5376,7 +5541,8 @@ def main(argv) -> int:
     phase_done(3, through)
 
     print(f"[kernel times] torch.profiler device time and CUDA events, {card}", flush=True)
-    times = {name: time_kernels(torch, args, scan_turns=name in ("config2", "config2_live"))
+    times = {name: time_kernels(torch, args,
+                                scan_turns=name in ("config2", "config2_live", *LARGE_LIVE))
              for name, args in kargs.items()}
     for name, t in times.items():
         for k, (dev_ms, ev_ms, plain, readings) in t.items():
@@ -5390,24 +5556,46 @@ def main(argv) -> int:
     print(f"  config2_live ffd_scan_global / ffd_scan_cluster device time, in turns at "
           f"{kargs['config2_live'][8].shape[0]} slots: "
           f"{livet['ffd_scan_global'][0] / livet['ffd_scan_cluster'][0]!r}")
+    for name in LARGE_LIVE:
+        t = times[name]
+        print(f"  {name} ffd_scan_global / ffd_scan_grid device time, in turns at "
+              f"{kargs[name][8].shape[0]} slots: "
+              f"{t['ffd_scan_global'][0] / t['ffd_scan_grid'][0]!r}")
     bounds = {}
     for k in ("choose_config", *SCAN_KERNELS):
         name = ROW_PROBLEM[k]
         take, _, node_cfg, _, _ = kouts[name]
         b = kernel_bounds(kargs[name], take, node_cfg)
-        bounds[k] = b[k if k == "choose_config" else "ffd_scan"]  # one function, two scans
+        bounds[k] = b[k if k == "choose_config" else "ffd_scan"]  # one function, four scans
         print(f"  {name} {k} bound: {bounds[k]}")
+    large_bounds = {}
+    for name in LARGE_LIVE:  # the scan's bound at both problems past one cluster
+        take, _, node_cfg, _, _ = kouts[name]
+        large_bounds[name] = kernel_bounds(kargs[name], take, node_cfg)["ffd_scan"]
+        print(f"  {name} ffd_scan_grid and ffd_scan_global bound: {large_bounds[name]}")
     steps = {name: (kargs[name][0].shape[0], kargs[name][8].shape[0])
-             for name in ("config2", "config2_live")}
+             for name in ("config2", "config2_live", *LARGE_LIVE)}
     live_shapes = pack_shapes(kargs["config2_live"])
     cluster_threads = {n: F.scan_threads(-(-live_shapes[0] // n)) for n in F.CLUSTER_SIZES
                        if F.cluster_layout(*live_shapes, n)}
+    # each large problem's grid: (clusters, CTAs a cluster, threads a CTA)
+    grids = {}
+    for name in LARGE_LIVE:
+        K, R, S, _ = pack_shapes(kargs[name])
+        q, c, _, _ = F.grid_layout(K, R, S, max_clusters)
+        grids[name] = (q, c, F.scan_threads(-(-K // (q * c))))
     barrier_us, cluster_us, l2_us = probe_latencies(
         torch, sorted({F.scan_threads(K) for _, K in steps.values()}),
-        sorted(cluster_threads.items()))
+        sorted({*cluster_threads.items(), *((c, b) for _, c, b in grids.values())}))
+    grid_us = probe_grid_exchange(torch, sorted({g for g in grids.values() if g[0] > 1}))
     print(f"  latency probes ({card}): barrier round trip {barrier_us!r} us "
           f"(by threads), cluster exchange + barrier round trip {cluster_us!r} us "
-          f"(by cluster size, threads), dependent L2 load {l2_us!r} us")
+          f"(by cluster size, threads), dependent L2 load {l2_us!r} us, cluster exchange + "
+          f"barrier + round trip between clusters {grid_us!r} us (by clusters, cluster size, "
+          f"threads)")
+    for g, us in grid_us.items():
+        print(f"  the round trip between {g[0]} clusters alone: {us - cluster_us[g[1:]]!r} us "
+              f"(the grid probe less the cluster probe at {g[1]} CTAs of {g[2]} threads)")
 
     def floor_ms(kernel, name, ctas=None):
         """``ctas``: a cluster size the rule does not pick (phase 4's label)."""
@@ -5418,6 +5606,11 @@ def main(argv) -> int:
             n = ctas or F.cluster_layout(*live_shapes)[0]
             b_us, where = cluster_us[(n, cluster_threads[n])], (
                 f"cluster barriers of {n} CTAs of {cluster_threads[n]} threads")
+        elif kernel == "ffd_scan_grid":
+            q, c, b = grids[name]
+            b_us = grid_us[(q, c, b)] if q > 1 else cluster_us[(c, b)]
+            where = (f"cluster barriers of {c} CTAs of {b} threads"
+                     + (f" and round trips between {q} clusters" if q > 1 else ""))
         else:
             b_us, where = barrier_us[F.scan_threads(K)], (
                 f"barriers at {F.scan_threads(K)} threads")
@@ -5427,8 +5620,11 @@ def main(argv) -> int:
               f"{times[name][label or kernel][0] / ms!r}")
         return ms
 
+    large_floors = {name: {k: floor_ms(k, name) for k in ("ffd_scan_grid", "ffd_scan_global")}
+                    for name in LARGE_LIVE}
     floors = {"choose_config": None}
-    floors.update({k: floor_ms(k, ROW_PROBLEM[k]) for k in SCAN_KERNELS})
+    floors.update({k: large_floors[ROW_PROBLEM[k]][k] if ROW_PROBLEM[k] in LARGE_LIVE
+                   else floor_ms(k, ROW_PROBLEM[k]) for k in SCAN_KERNELS})
     for n in other_cluster_sizes(*live_shapes):
         floor_ms("ffd_scan_cluster", "config2_live", ctas=n)
     pr1_floor = floor_ms("ffd_scan_global", "config2")
@@ -5439,7 +5635,7 @@ def main(argv) -> int:
     print(f"[slice] TorchScheduler.solve on the card, {card}", flush=True)
     import random
 
-    solves = len(SOLVE_KINDS) * (WARMUP_SOLVES + TIMED_SOLVES)
+    t5 = time.perf_counter()
     rng = random.Random(0)
     F.reset_launches()
     solved, per_problem = {}, {}
@@ -5449,15 +5645,17 @@ def main(argv) -> int:
         solved[name] = drive_solves(torch, name, spec, rng)
         per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in KERNELS}
     launches = dict(F.LAUNCHES)
-    print(f"  launches over {len(specs) * solves} solves: {launches}, "
+    n_solves = {name: len(SOLVE_KINDS) * sum(solve_counts(name)) for name in specs}
+    print(f"  launches over {sum(n_solves.values())} solves: {launches}, "
           f"per problem {per_problem}")
     for name, got in per_problem.items():
-        scan = "ffd_scan_cluster" if name == "config2_live" else "ffd_scan"
-        for k in ("choose_config", scan):
+        solves = n_solves[name]
+        for k in ("choose_config", PHASE5_SCAN[name]):
             if got[k] != solves:
                 fail(f"{name}: kernel {k} launched {got[k]} times over {solves} solves")
         if got["ffd_scan_global"]:
             fail(f"{name}: ffd_scan_global launched {got['ffd_scan_global']} times")
+    print(f"  phase 5 took {time.perf_counter() - t5:.3f} s", flush=True)
     for name, (sched, pods, ts, phases) in solved.items():
         for sk in SOLVE_KINDS:
             print(f"  {name} {sk}: p50_ms={statistics.median(ts[sk])!r} "
@@ -5547,6 +5745,11 @@ def main(argv) -> int:
             "library_ms": None,
             "latency_floor_ms": floors[k],
             **phase_launches(k, per_phase),
+            # the scans past one cluster, timed in turns at both problems
+            **({"past_one_cluster": {name: {
+                "ms": times[name][k][0], "bound_ms": large_bounds[name]["bound_ms"],
+                "latency_floor_ms": large_floors[name][k]} for name in LARGE_LIVE}}
+               if k in ("ffd_scan_grid", "ffd_scan_global") else {}),
         })
     for k in VERDICT_KERNELS:
         v = verdicts[k]
@@ -5629,6 +5832,7 @@ def main(argv) -> int:
                                  "live_bound_by", "live_latency_floor_ms") if f in v},
             **phase_launches(k, per_phase),
         })
+    print(f"chip_smoke took {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

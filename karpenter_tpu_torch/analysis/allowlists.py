@@ -212,6 +212,9 @@ _TRACER_SAFETY = frozenset(
         # cudaOccupancyMaxActiveBlocksPerMultiprocessor / ...Clusters for
         # a scan at given shapes: how many batch elements run at once
         "ffd_scan_concurrency",
+        # cudaOccupancyMaxActiveClusters for the grid scan at one CTA a
+        # SM: how many clusters its grid may hold (asked once a card)
+        "ffd_scan_grid_clusters",
         # the largest R whose alloc and group rows the verdict config
         # pass can stage in shared memory (a device-attribute query)
         "ffd_verdict_max_axes",

@@ -1,10 +1,12 @@
-// Device helpers shared by the package's CUDA sources (ffd_pack.cu and
-// mesh_pack.cu): the float constants and the capacity of the JAX
-// package's _per_node_cap, int32 arithmetic that wraps as XLA's does, the
-// block-wide scan over unsigned (wrapping) values, the order-preserving
+// Device helpers shared by the package's CUDA sources (ffd_pack.cu,
+// mesh_pack.cu and latency_probe.cu): the float constants and the capacity
+// of the JAX package's _per_node_cap, int32 arithmetic that wraps as XLA's
+// does, the block-wide scan over unsigned (wrapping) values, the order-preserving
 // key of a float32 score, and what the resident scans are built from: the
 // cp.async ring of feasibility rows, the tiles of class rows, and the
-// thread-block cluster's shared-memory stores and barrier; and what the
+// thread-block cluster's shared-memory stores and barrier, and the tagged
+// device-memory entries through which a grid of clusters exchanges a
+// value (the grid scan; the latency probe times them); and what the
 // device mesh's data shards share: their buffers (ShardArgs), the choice
 // combined from the model shards' records, the closed-form leftover.  Each
 // source includes it into its own translation unit (an anonymous
@@ -227,6 +229,43 @@ __device__ __forceinline__ void cluster_wait() {
 __device__ __forceinline__ void cluster_sync() {
   cluster_arrive();
   cluster_wait();
+}
+
+// ---- a grid of co-resident clusters: tagged entries in device memory
+
+// One cluster's entry of a class: the tag word (high) and the value word
+// (low) in one 64-bit store, so a reader sees both of one publication.
+__device__ __forceinline__ void publish_entry(unsigned long long* entry, unsigned tag,
+                                              unsigned value) {
+  const unsigned long long v = ((unsigned long long)tag << 32) | value;
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(entry), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long read_entry(const unsigned long long* entry) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(entry) : "memory");
+  return v;
+}
+
+// Spins the calling warp until entry j of row[0 .. n) (n <= 32) carries a
+// tag word whose bits above the lowest equal `tag`; returns entry `lane`
+// in each lane j < n (0 in the others).  A spin that outlasts `budget`
+// clock cycles traps: a lost entry ends the launch with an error instead
+// of hanging it.
+__device__ __forceinline__ unsigned long long await_entries(const unsigned long long* row,
+                                                            int n, unsigned tag,
+                                                            long long budget) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long e = 0ull;
+  bool ok = lane >= n;
+  const long long t0 = clock64();
+  while (true) {
+    if (!ok) {
+      e = read_entry(row + lane);
+      ok = (unsigned)(e >> 33) == tag;
+    }
+    if (__all_sync(kFull, ok)) return e;
+    if (clock64() - t0 > budget) __trap();
+  }
 }
 
 // ---- the device mesh's data shards

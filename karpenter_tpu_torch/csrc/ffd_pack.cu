@@ -7,7 +7,7 @@
 // karpenter_tpu_torch/ops/packer.py:pack_reference; the Python wrappers are
 // karpenter_tpu_torch/ops/fused_packer.py.
 //
-// Two launches per pack, choose_config and one of the three scans:
+// Two launches per pack, choose_config and one of the four scans:
 //   choose_config_kernel<kMulti, false>  grid (Gp,): one block per class
 //                           picks the config a new node of that class opens
 //                           on (first-index argmin of the objective's score
@@ -26,9 +26,17 @@
 //                           Its shard mode <M, kShard> is the device
 //                           mesh's scan of one device's data shards, a CTA
 //                           a shard (entry mesh_shard_scan).
+//   ffd_scan_grid_kernel<M>  grid (Q x N,): the solve's scan on Q
+//                           co-resident clusters of N CTAs, the slot state
+//                           split over all their shared memory, the class
+//                           totals exchanged between clusters through
+//                           device memory, for slot counts (or feasibility
+//                           rows) one cluster does not hold (see "The
+//                           grid-resident scan").
 //   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
-//                           the output buffers (device memory), for slot
-//                           counts whose state does not fit a cluster.
+//                           the output buffers (device memory), for more
+//                           than kMaxR resource axes, for shapes past the
+//                           grid, and for the batched scans past a cluster.
 // Each scan takes a batch axis (struct Batch): B what-if problems over one
 // base, one block (resident, global: grid (1, B)) or one cluster (grid
 // (N, B)) per element, for the consolidation verdicts, whose other steps
@@ -1555,6 +1563,345 @@ int guard_of(int K) {
 }
 
 // ---------------------------------------------------------------------------
+// The grid-resident scan
+// ---------------------------------------------------------------------------
+//
+// Replaces the same TPU kernel (karpenter_tpu/ops/pallas_packer.py:
+// _pack_step) where the slot state fits no single cluster: a cluster past
+// about 8,000 live nodes (config 2 on 10,000 live nodes: Kp 16,384, Cp
+// 16,384; on 20,000: Kp 32,768, Cp 32,768), whose solves ran the global
+// scan before.  The cluster scan stops there for two reasons: its ring of
+// 8 whole feasibility rows (8 x Cp bytes a CTA: 256 KB at Cp 32,768, more
+// than a CTA has) and its one cluster (8 CTAs x 2,048 slots).  This
+// kernel is the solve's scan (no batch axis) on a grid of Q co-resident
+// clusters of `ctas` CTAs each (the portable 8 where the slots need it):
+//   A. CTA r of cluster q owns the slots [(q * ctas + r) * KP, + KP), KP =
+//      M * blockDim, stored as in the cluster scan, loaded once and
+//      written once: the whole slot state stays in the grid's shared
+//      memory.
+//   B. No ring.  A slot needs feas[g, cfg[k]] of its own config only; its
+//      byte for class g + 1 is gathered at the start of step g (the
+//      matrix, 10.5 MB at Cp 32,768, stays in L2), so the load has the
+//      whole step to land.  A slot that opens in step g takes c_star[g],
+//      whose byte for class g + 1 is one more load a step, the same for
+//      every such slot.  The class rows come in tiles, as in the cluster
+//      scan.
+//   C. One exchange a class inside a cluster (each warp's inclusive cap
+//      total and wrap flag over DSMEM, one cluster barrier), as in the
+//      cluster scan; then, where Q > 1, one across clusters: rank 0 of
+//      each cluster publishes its cluster's total and wrap flag, tagged
+//      with the class, into entry [parity][q] of a buffer in device memory
+//      (one 64-bit st.release.gpu), and every warp of the grid reads the Q
+//      entries (ld.acquire.gpu, spinning until each carries the class's
+//      tag): its base adds the totals of the clusters before its own, the
+//      class's sum is all of them, `wraps` the OR of their flags.  Every
+//      CTA then derives n2, the new slots and nxt from the same sums, so
+//      they stay uniform over the grid with no broadcast.  The wrapped
+//      sum, where a cap reaches wrap_guard(K) or n < 0, is a second such
+//      exchange (the cluster's sum of take1 over DSMEM and a cluster
+//      barrier, then its entry in a second row).  Parity alternates the
+//      rows: a cluster publishes class g + 2 only after reading every
+//      cluster's class g + 1 entry, which each published after its
+//      cluster barrier of step g + 1, after all its warps had read class
+//      g's entries, so no entry is overwritten while it is still read.
+//      The leftover is computed in closed form (window_take_sum) by one
+//      CTA.  The buffer is zeroed before each launch (the wrapper), so no
+//      entry of an earlier launch matches a tag.
+//   D. Co-residency: a cluster that spins on an entry of a cluster that is
+//      not resident would wait forever.  The wrapper sizes the grid to at
+//      most the clusters cudaOccupancyMaxActiveClusters gives at one CTA
+//      a SM (ffd_scan_grid_clusters, asked once a device), which every
+//      layout of this kernel fits (fewer threads or bytes a CTA only fit
+//      more), and the launch carries the cooperative attribute beside the
+//      cluster dimension, so the runtime launches the grid whole or refuses
+//      it.  Every spin has a clock64 budget that ends in __trap(): a lost
+//      entry is a launch failure the caller sees, not a hung process.
+// The per-slot arithmetic is the cluster scan's; what the grid adds is
+// integer (wrapping unsigned sums, associative), so the outputs are bit for
+// bit those of ffd_scan_reference.  What bounds it: latency, a chain of Gp
+// steps, each a cluster barrier and, past one cluster, a round trip
+// through L2 between clusters (the latency probe measures both).
+constexpr int kMaxGridClusters = 32;  // a warp's lanes read the entries
+// exchange bytes per CTA of the cluster: xtot [2][32] uint2, xsum [32]
+// (fused_packer.GRID_XCHG_BYTES)
+constexpr int kGridXchgBytes = 2 * 32 * 8 + 32 * 4;
+
+template <int M>  // consecutive slots each thread owns
+__global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
+    const float* __restrict__ req, const int* __restrict__ cnt,
+    const int* __restrict__ maxper, const int* __restrict__ slot,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const int* __restrict__ c_star, const int* __restrict__ new_ok,
+    const int* __restrict__ per, const float* __restrict__ used0,
+    const int* __restrict__ cfg0, const int* __restrict__ npods0,
+    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S, int next0,
+    int ctas, int smem_bytes, int wrap_guard, long long spin_budget,
+    unsigned long long* __restrict__ xg, int* __restrict__ take,
+    int* __restrict__ leftover, int* __restrict__ cfg_out, int* __restrict__ npods_out,
+    float* __restrict__ used_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, B = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
+  const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
+  const int rank = (int)cluster_ctarank();
+  const int q = blockIdx.x / ctas, Q = gridDim.x / ctas;  // this cluster, the clusters
+  const int XN = ctas * 32;         // exchange entries of one parity
+  const int me = rank * nw + warp;  // this warp's exchange entry
+  const int entries = ctas * nw;
+
+  // class tiles | exchanges | slot state
+  const int W = 2 * R + 7;
+  int* tiles = (int*)smem;  // [2][kTile][W]
+  size_t off = (size_t)8 * kTile * W;
+  uint2* xtot = (uint2*)(smem + off);           // [2][XN] (total, flag)
+  unsigned* xsum = (unsigned*)(xtot + 2 * XN);  // [XN]
+  off += (size_t)kGridXchgBytes * ctas;
+  float* s_used = (float*)(smem + off);
+  float* s_alloc = s_used + (size_t)R * KP;
+  int* s_cfg = (int*)(s_alloc + (size_t)R * KP);
+  int* s_npods = s_cfg + KP;
+  int* s_sig = s_npods + KP;
+  off += (size_t)4 * KP * (2 * R + 2 + S);
+  // the rows of the cross-cluster entries: the totals [2][Q] and the
+  // wrapped take-1 sums [2][Q], by class parity
+  unsigned long long* xg_tot = xg;
+  unsigned long long* xg_sum = xg + 2 * Q;
+  const int k0 = (q * ctas + rank) * KP, own = min(max(K - k0, 0), KP);
+  if (off > (size_t)smem_bytes || ctas > kMaxCluster || Q > kMaxGridClusters ||
+      (int)cluster_nctarank() != ctas || gridDim.x % ctas != 0)
+    __trap();
+  const Elem el{nullptr, cnt, nullptr};
+
+  // ---- this CTA's slot state in, and its slots' bytes of class 0 ---------
+  unsigned char fb[M];  // feas[g, cfg] of the thread's slots at step g
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, j = tid * M + i;
+    const bool real = j < own;
+    const int c = real ? cfg0[k0 + j] : -1;
+    s_cfg[pos] = c;
+    s_npods[pos] = real ? npods0[k0 + j] : 0;
+    for (int r = 0; r < R; ++r) {
+      s_used[r * KP + pos] = real ? used0[(size_t)(k0 + j) * R + r] : 0.0f;
+      s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
+    }
+    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * K + k0 + j] : 0;
+    fb[i] = (Gp > 0 && c >= 0 && c < Cp) ? __ldg(feas + c) : 0;
+  }
+  // used_clean as in ffd_scan_kernel, over this CTA's own slots
+  bool odd = false;
+  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(size_t)k0 * R + i]);
+  const bool used_clean = !__syncthreads_or(odd);
+  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
+  cluster_sync();  // every CTA runs before the first DSMEM store
+
+  int nxt = next0;
+  for (int g = 0; g < Gp; ++g) {
+    const int p = g & 1;
+    const float* creq =
+        (const float*)(tiles + ((g / kTile) & 1) * kTile * W + (g % kTile) * W);
+    const float* cacs = creq + R;
+    const int* cint = (const int*)(creq + 2 * R);
+    const int n = cint[0], mp = cint[1], cs = cint[3];
+    int* sig_s = s_sig + cint[2] * KP;
+    const unsigned flags = (unsigned)cint[6];
+    const unsigned asked = flags & ~kFinite;
+    const bool skip_idle = used_clean && (flags & kFinite);
+
+    // ---- class g + 1's bytes for the configs as they stand, and for c_star
+    // (the slots that open now): read at the end of the step --------------
+    int cfg[M];
+    unsigned char nf[M];
+    const bool more = g + 1 < Gp;
+    const uint8_t* next_row = feas + (size_t)(g + 1) * Cp;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      cfg[i] = s_cfg[i * B + tid];
+      nf[i] = (more && cfg[i] >= 0 && cfg[i] < Cp) ? __ldg(next_row + cfg[i]) : 0;
+    }
+    const unsigned char ncs = (more && cs >= 0 && cs < Cp) ? __ldg(next_row + cs) : 0;
+
+    // ---- capacities, the serial prefix over the thread's slots, the warp's
+    int cap[M];
+    unsigned pre[M];
+    unsigned run = 0u;
+    bool big = false;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid;
+      int cp = 0;
+      if (cfg[i] >= 0 && fb[i]) {
+        cp = node_cap_sh(s_alloc + pos, s_used + pos, KP, creq, asked);
+        cp = min(cp, max(wsub(mp, sig_s[pos]), 0));
+      }
+      cap[i] = cp;
+      pre[i] = run;
+      run += (unsigned)cp;
+      big |= cp >= wrap_guard;
+    }
+    unsigned incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned wbig = __any_sync(kFull, big);
+    if (lane == 31) {
+      const uint2* dst = xtot + p * XN + me;
+      for (int r = 0; r < ctas; ++r) st_cluster2(cluster_addr(dst, r), incl, wbig);
+    }
+    cluster_sync();
+    if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
+      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R, el, req,
+                alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
+
+    // ---- this warp's base, the class total and the wrap flag: the cluster's,
+    // then the grid's --------------------------------------------------------
+    unsigned below = 0u, sum = 0u, anyw = 0u;
+    for (int j = lane; j < entries; j += 32) {
+      const uint2 e = xtot[p * XN + j];
+      sum += e.x;
+      below += j < me ? e.x : 0u;
+      anyw |= e.y;
+    }
+    unsigned total = warp_sum(sum);
+    unsigned base = warp_sum(below) + incl - run;
+    bool wraps = __any_sync(kFull, anyw != 0u);
+    if (Q > 1) {  // grid-uniform
+      unsigned long long* row = xg_tot + p * Q;
+      if (rank == 0 && tid == 0) publish_entry(row + q, (unsigned)(g + 1) << 1 | wraps, total);
+      const unsigned long long e = await_entries(row, Q, (unsigned)(g + 1), spin_budget);
+      base += warp_sum(lane < q ? (unsigned)e : 0u);
+      total = warp_sum((unsigned)e);
+      wraps = __any_sync(kFull, (int)((e >> 32) & 1ull));
+    }
+
+    // ---- first fit in slot order ------------------------------------------
+    int t1[M];
+    unsigned t1sum = 0u;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      t1[i] = clip(wsub(n, (int)(base + pre[i])), 0, cap[i]);
+      t1sum += (unsigned)t1[i];
+    }
+    int n2;
+    if (n >= 0 && !wraps) {
+      n2 = n - min(n, (int)total);
+    } else {  // the wrapped sum, at a second exchange
+      const unsigned v = warp_sum(t1sum);
+      if (lane == 0)
+        for (int r = 0; r < ctas; ++r) st_cluster(cluster_addr(xsum + me, r), v);
+      cluster_sync();
+      unsigned s = warp_sum_of(xsum, entries);
+      if (Q > 1) {
+        unsigned long long* row = xg_sum + p * Q;
+        if (rank == 0 && tid == 0) publish_entry(row + q, (unsigned)(g + 1) << 1, s);
+        s = warp_sum((unsigned)await_entries(row, Q, (unsigned)(g + 1), spin_budget));
+      }
+      n2 = wsub(n, (int)s);
+    }
+
+    // ---- open new slots on the precomputed best config; each CTA its own --
+    const int pg = cint[5];
+    const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
+    const int opened = min(need, wsub(K, nxt));
+    const int end = wadd(nxt, opened);
+    int* take_g = take + (size_t)g * K;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int pos = i * B + tid, j = tid * M + i, k = k0 + j;
+      const bool win = j < own && k >= nxt && k < end;
+      const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
+      const int t = wadd(t1[i], t2);
+      if (j < own) take_g[k] = t;
+      if (t != 0 || !skip_idle) {
+        const float tf = (float)t;
+        for (int r = 0; r < R; ++r) {
+          float* u = s_used + r * KP + pos;
+          *u = __fmaf_rn(tf, creq[r], *u);
+        }
+        s_npods[pos] = wadd(s_npods[pos], t);
+        sig_s[pos] = wadd(sig_s[pos], t);
+      }
+      if (win) {
+        s_cfg[pos] = cs;
+        for (int r = 0; r < R; ++r) s_alloc[r * KP + pos] = cacs[r];
+      }
+      fb[i] = win ? ncs : nf[i];
+    }
+    if (q == 0 && rank == 0 && tid == 0)  // closed form, as the shard mode's
+      leftover[g] = wsub(n2, window_take_sum(n2, pg, nxt, opened));
+    nxt = end;
+  }
+  cluster_sync();  // every DSMEM store has landed; after this none is made
+
+  // ---- this CTA's slot state out ------------------------------------------
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int pos = i * B + tid, j = tid * M + i;
+    if (j < own) {
+      cfg_out[k0 + j] = s_cfg[pos];
+      npods_out[k0 + j] = s_npods[pos];
+    }
+  }
+  for (int idx = tid; idx < own * R; idx += B) {
+    const int kk = idx / R, r = idx - kk * R;
+    used_out[(size_t)k0 * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
+  }
+}
+
+// cudaLaunchKernelEx's configuration of a grid scan: `clusters` clusters
+// of `ctas` CTAs, the attributes in `attr` (2); a launch is `cooperative`
+// (see "The grid-resident scan", D), an occupancy query not.
+inline cudaLaunchConfig_t grid_config(cudaLaunchAttribute* attr, int clusters, int ctas,
+                                      int threads, int smem_bytes, cudaStream_t stream,
+                                      bool cooperative) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(clusters * ctas, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = cooperative ? 2 : 1;
+  return config;
+}
+
+template <int M>
+int launch_grid(const float* req, const int* cnt, const int* maxper, const int* slot,
+                const uint8_t* feas, const float* alloc, const int* c_star,
+                const int* new_ok, const int* per, const float* used0, const int* cfg0,
+                const int* npods0, const int* sig0, int Gp, int Cp, int K, int R, int S,
+                int next0, int clusters, int ctas, int threads, int smem_bytes,
+                int wrap_guard, long long spin_budget, unsigned long long* xg, int* take,
+                int* leftover, int* cfg, int* npods, float* used, cudaStream_t stream) {
+  const auto kernel = ffd_scan_grid_kernel<M>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t config =
+      grid_config(attr, clusters, ctas, threads, smem_bytes, stream, true);
+  e = cudaLaunchKernelEx(&config, kernel, req, cnt, maxper, slot, feas, alloc, c_star,
+                         new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0,
+                         ctas, smem_bytes, wrap_guard, spin_budget, xg, take, leftover, cfg,
+                         npods, used);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The frontier-window scan
 // ---------------------------------------------------------------------------
 //
@@ -3031,7 +3378,8 @@ int ffd_scan_global(const float* req, const int* cnt, const int* maxper,
 
 // The resident scan: `slots_per_thread` is 1 or 2 with
 // slots_per_thread * scan_threads(K) >= K (larger slot counts do not fit
-// a block's shared memory and go to ffd_scan_cluster or ffd_scan_global),
+// a block's shared memory and go to ffd_scan_cluster, ffd_scan_grid or
+// ffd_scan_global),
 // `smem_bytes` the
 // dynamic shared memory the wrapper computed for it, `chunk` (4, 8 or 16)
 // divides Cp and the address of feas.
@@ -3114,6 +3462,65 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
   }
 #undef FFD_MODES
 #undef FFD_LAUNCH
+}
+
+// The grid-resident scan of one problem (the solve's; no batch axis) on
+// `clusters` co-resident clusters of `ctas` (2, 4 or 8) CTAs of
+// scan_threads(ceil(K / (clusters * ctas))) threads, `slots_per_thread` (1
+// or 2) slots a thread, `smem_bytes` a CTA (fused_packer.grid_layout);
+// `max_clusters` what ffd_scan_grid_clusters gave for this device (the grid
+// must not pass it), `wrap_guard` as for ffd_scan_cluster, `spin_budget`
+// the clock cycles a wait on another cluster may take before it traps, xg
+// [4][clusters] the cross-cluster entries, zeroed.  Returns -2 where the
+// grid would pass `max_clusters`.
+int ffd_scan_grid(const float* req, const int* cnt, const int* maxper, const int* slot,
+                  const uint8_t* feas, const float* alloc, const int* c_star,
+                  const int* new_ok, const int* per, const float* used0, const int* cfg0,
+                  const int* npods0, const int* sig0, int Gp, int Cp, int K, int R, int S,
+                  int next0, int clusters, int ctas, int slots_per_thread, int smem_bytes,
+                  int wrap_guard, int max_clusters, long long spin_budget,
+                  unsigned long long* xg, int* take, int* leftover, int* cfg, int* npods,
+                  float* used, void* stream) {
+  if (K <= 0) return 0;
+  if ((ctas != 2 && ctas != 4 && ctas != 8) || clusters < 1 ||
+      clusters > kMaxGridClusters || R > kMaxR || Cp <= 0 || next0 < 0 || next0 > K ||
+      wrap_guard < 1 || (long long)wrap_guard - 1 > (long long)0x7fffffff / K ||
+      spin_budget <= 0 || !xg)
+    return (int)cudaErrorInvalidValue;
+  const int span = clusters * ctas;
+  const int threads = scan_threads((K + span - 1) / span);
+  if ((long long)span * slots_per_thread * threads < K) return (int)cudaErrorInvalidValue;
+  if (clusters > max_clusters) return kClusterRefused;
+#define FFD_LAUNCH(M)                                                               \
+  launch_grid<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0, \
+                 npods0, sig0, Gp, Cp, K, R, S, next0, clusters, ctas, threads,        \
+                 smem_bytes, wrap_guard, spin_budget, xg, take, leftover, cfg, npods,  \
+                 used, (cudaStream_t)stream)
+  switch (slots_per_thread) {
+    case 1: return FFD_LAUNCH(1);
+    case 2: return FFD_LAUNCH(2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFD_LAUNCH
+}
+
+// How many clusters of `ctas` CTAs of `threads` threads with `smem_bytes`
+// each the grid scan can hold resident at once on the current device
+// (cudaOccupancyMaxActiveClusters); negative on a CUDA error.
+int ffd_scan_grid_clusters(int ctas, int threads, int smem_bytes) {
+  const auto kernel = ffd_scan_grid_kernel<2>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t config =
+      grid_config(attr, 1, ctas, threads, smem_bytes, nullptr, false);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &config);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return n;
 }
 
 // The whole scan of the D data shards a[0..D) of one device (the device

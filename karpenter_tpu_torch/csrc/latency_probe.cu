@@ -24,11 +24,26 @@
 //                         passed (arrive.release, wait.acquire) and each
 //                         thread reads an entry back: the exchange of
 //                         ffd_scan_cluster_kernel's class step.
+//   probe_grid_exchange_kernel
+//                         `clusters` co-resident clusters of `ctas` CTAs,
+//                         launched with the cluster and cooperative
+//                         attributes: each iteration is the cluster
+//                         probe's exchange and barrier, then rank 0 of
+//                         each cluster publishes a word tagged with the
+//                         iteration into its entry of a row in device
+//                         memory (st.release.gpu) and every warp spins
+//                         until all the clusters' entries carry the tag
+//                         (ld.acquire.gpu): the class step of
+//                         ffd_scan_grid_kernel past one cluster, whose
+//                         round trip through L2 between clusters is this
+//                         probe's time less the cluster probe's.
 //
 // The caller times two launches with different iteration counts and
 // divides the difference, so the launch overhead cancels.
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"  // the cluster's DSMEM stores and the grid's entries
 
 namespace {
 
@@ -69,6 +84,32 @@ __global__ void probe_cluster_barrier_kernel(int iters, int* __restrict__ out) {
   // no CTA exits while a peer may still store into it
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
   out[rank * blockDim.x + threadIdx.x] = v;
+}
+
+// A wait on another cluster that takes longer than this many cycles traps.
+constexpr long long kProbeSpinBudget = 1ll << 32;
+
+__global__ void probe_grid_exchange_kernel(int iters, unsigned long long* __restrict__ xg,
+                                           int* __restrict__ out) {
+  __shared__ unsigned sh[2][256];
+  const unsigned rank = cluster_ctarank(), ctas = cluster_nctarank();
+  const int q = blockIdx.x / ctas, Q = gridDim.x / ctas;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, entries = ctas * nw;
+  unsigned v = threadIdx.x;
+  cluster_sync();
+  for (int i = 0; i < iters; ++i) {
+    unsigned* buf = sh[i & 1];
+    if (lane == 31)
+      for (unsigned r = 0; r < ctas; ++r) st_cluster(cluster_addr(buf + rank * nw + warp, r), v);
+    cluster_sync();
+    v += buf[threadIdx.x % entries];
+    unsigned long long* row = xg + (i & 1) * Q;
+    if (rank == 0 && threadIdx.x == 0) publish_entry(row + q, (unsigned)(i + 1) << 1, v);
+    v += (unsigned)await_entries(row, Q, (unsigned)(i + 1), kProbeSpinBudget);
+  }
+  cluster_sync();  // no CTA exits while a peer may still store into it
+  out[blockIdx.x * blockDim.x + threadIdx.x] = v;
 }
 
 __global__ void probe_chase_kernel(const int* __restrict__ next, int steps,
@@ -113,6 +154,35 @@ int probe_cluster_barrier(int ctas, int threads, int iters, int* out, void* stre
   config.numAttrs = 1;
   const cudaError_t e =
       cudaLaunchKernelEx(&config, probe_cluster_barrier_kernel, iters, out);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// `clusters` (2 to 32) clusters of `ctas` (2, 4 or 8) CTAs of `threads`
+// threads, all resident at once (the cooperative attribute); `xg` holds 2 *
+// clusters zeroed entries, `out` clusters * ctas * threads ints.
+int probe_grid_exchange(int clusters, int ctas, int threads, int iters,
+                        unsigned long long* xg, int* out, void* stream) {
+  if (clusters < 2 || clusters > 32 || (ctas != 2 && ctas != 4 && ctas != 8) ||
+      threads < 32 || threads > 1024 || threads % 32 != 0)
+    return -1;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(clusters * ctas, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 2;
+  const cudaError_t e = cudaLaunchKernelEx(&config, probe_grid_exchange_kernel, iters, xg, out);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;

@@ -11,9 +11,11 @@ pack is two launches:
   with the slot state resident in shared memory; where that state does not
   fit one block (`scan_kernel`, by shape alone) the same scan runs as
   `ffd_scan_cluster`, with the state split over the shared memory of a
-  thread-block cluster of 2, 4 or 8 CTAs (`cluster_layout`), and where it
-  does not fit a cluster either, as `ffd_scan_global`, with the state in
-  device memory.
+  thread-block cluster of 2, 4 or 8 CTAs (`cluster_layout`); where it does
+  not fit a cluster either, as `ffd_scan_grid`, with the state split over
+  a grid of co-resident clusters that exchange each class's totals through
+  device memory (`grid_layout`); and past the grid, or past `MAX_AXES`
+  resource axes, as `ffd_scan_global`, with the state in device memory.
 
 The consolidation verdicts (the JAX package's ``removal_verdict_kernel``
 and ``population_verdict_kernel``, jitted XLA functions) run B what-if
@@ -109,6 +111,7 @@ LAUNCHES: Dict[str, int] = {
     "admit_kernel": 0,
     "choose_config_fleet": 0, "ffd_scan_fleet": 0, "ffd_scan_cluster_fleet": 0,
     "ffd_scan_global_fleet": 0,
+    "ffd_scan_grid": 0,
     "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_scan": 0,
     "ffd_shard_cap": 0, "ffd_shard_apply": 0,
 }
@@ -138,6 +141,19 @@ CLUSTER_XCHG_BYTES = 2 * 32 * 8 + 32 * 4 + 2 * 32 * 4
 # the cluster scan's shard mode: its most data shards, a portable cluster
 # (kMaxShards in csrc/common.cuh)
 MAX_SHARDS = 8
+# the grid scan: CTAs a cluster (the largest portable), its exchange words
+# per CTA of the cluster (kGridXchgBytes: xtot [2][32] uint2, xsum [32]), its
+# most clusters (kMaxGridClusters: a warp's lanes read their entries), the
+# clusters of GRID_CTAS one-SM CTAs an H100 80GB HBM3 holds at once (its
+# cudaOccupancyMaxActiveClusters, measured: PERF.md), which `scan_kernel`
+# plans with where no card is present, and the clock cycles a wait on
+# another cluster may take before the kernel traps (about 2 s at the H100's
+# clock)
+GRID_CTAS = 8
+GRID_XCHG_BYTES = 2 * 32 * 8 + 32 * 4
+MAX_GRID_CLUSTERS = 32
+GRID_CLUSTERS = 15
+GRID_SPIN_CYCLES = 1 << 32
 
 # the frontier-window scan (kWinThreads, kWinXchgBytes in ffd_pack.cu): its
 # threads, its window sizes (1, 2 or 4 rounds of its threads), largest
@@ -210,6 +226,11 @@ def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ffd_scan_global.restype = _I
         lib.ffd_scan_cluster.argtypes = [_P] * 13 + [_I] * 11 + batch + [_P] * 5 + [_P]
         lib.ffd_scan_cluster.restype = _I
+        lib.ffd_scan_grid.argtypes = ([_P] * 13 + [_I] * 12 + [ctypes.c_longlong]
+                                      + [_P] * 6 + [_P])
+        lib.ffd_scan_grid.restype = _I
+        lib.ffd_scan_grid_clusters.argtypes = [_I] * 3
+        lib.ffd_scan_grid_clusters.restype = _I
         lib.ffd_scan_window.argtypes = [_P] * 12 + [_I] * 10 + [_P] * 3 + [_P] * 6 + [_P]
         lib.ffd_scan_window.restype = _I
         lib.ffd_scan_concurrency.argtypes = [_I] * 5
@@ -379,14 +400,56 @@ def feas_copy_bytes(C: int) -> int:
     return next((b for b in (16, 8, 4) if C % b == 0), 0)
 
 
-def scan_kernel(K: int, R: int, S: int, C: int) -> str:
-    """Which scan kernel runs at these shapes, decided by shape alone.
-    Where the problem has at most `MAX_AXES` resource axes and its
-    feasibility rows copy in 4-byte pieces or wider: ``"ffd_scan"``
-    (resident) where its slot state fits the shared memory of one block
-    with at most `MAX_SLOTS_PER_THREAD` slots a thread, else
-    ``"ffd_scan_cluster"`` where it fits a cluster (`cluster_layout`).
-    Otherwise ``"ffd_scan_global"``."""
+def grid_layout(K: int, R: int, S: int, max_clusters: int) -> Optional[Tuple[int, int, int, int]]:
+    """``(clusters, CTAs a cluster, slots per thread, dynamic shared-memory
+    bytes a CTA)`` of the grid scan: the fewest clusters of `GRID_CTAS`
+    CTAs, at most ``max_clusters`` (and `MAX_GRID_CLUSTERS`), whose CTA
+    holds ceil(K / (clusters x GRID_CTAS)) slots with at most
+    `MAX_SLOTS_PER_THREAD` slots a thread at `scan_threads` threads within
+    `SMEM_PER_BLOCK`: the class tiles, GRID_CTAS x `GRID_XCHG_BYTES`
+    exchange words and the state of its slots.  No feasibility ring (the
+    grid gathers each slot's byte), so the row length does not enter.  None
+    where no grid of co-resident clusters holds the slots.  The fewest,
+    because each cluster more adds readers to every class's exchange."""
+    xchg = GRID_CTAS * GRID_XCHG_BYTES
+    tiles = 2 * SCAN_TILE * 4 * (2 * R + 7)
+    for clusters in range(1, min(max_clusters, MAX_GRID_CLUSTERS) + 1):
+        kc = -(-K // (clusters * GRID_CTAS))
+        threads = scan_threads(kc)
+        per_thread = 1
+        while per_thread * threads < kc:
+            per_thread *= 2
+        smem = tiles + xchg + 4 * per_thread * threads * (2 * R + 2 + S)
+        if per_thread <= MAX_SLOTS_PER_THREAD and smem <= SMEM_PER_BLOCK:
+            return clusters, GRID_CTAS, per_thread, smem
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def grid_clusters(index: int) -> int:
+    """The grid scan's co-resident clusters of `GRID_CTAS` CTAs on card
+    ``index``, asked once: ``cudaOccupancyMaxActiveClusters`` at 1024
+    threads and `SMEM_PER_BLOCK` a CTA, one CTA a SM, the most any of its
+    layouts takes (a CTA with fewer threads or bytes only fits more)."""
+    with torch.cuda.device(index):
+        n = int(_lib().ffd_scan_grid_clusters(GRID_CTAS, 1024, SMEM_PER_BLOCK))
+    if n < 1:
+        raise RuntimeError(f"ffd_scan_grid: the cluster occupancy query gave {n}")
+    return n
+
+
+def scan_kernel(K: int, R: int, S: int, C: int, max_clusters: Optional[int] = None,
+                *, solo: bool = True) -> str:
+    """Which scan kernel runs at these shapes, decided by shape alone (and
+    the card's count of co-resident clusters, ``max_clusters``; default:
+    the current card's `grid_clusters`, or `GRID_CLUSTERS` with no card).  Where the problem has at most `MAX_AXES` resource
+    axes and its feasibility rows copy in 4-byte pieces or wider:
+    ``"ffd_scan"`` (resident) where its slot state fits the shared memory
+    of one block with at most `MAX_SLOTS_PER_THREAD` slots a thread, else
+    ``"ffd_scan_cluster"`` where it fits a cluster (`cluster_layout`), else,
+    for the solve's scan (``solo``; the grid has no batch axis),
+    ``"ffd_scan_grid"`` where it fits a grid of co-resident clusters
+    (`grid_layout`).  Otherwise ``"ffd_scan_global"``."""
     if R > MAX_AXES or not feas_copy_bytes(C):
         return "ffd_scan_global"
     per_thread, smem = resident_layout(K, R, S, C)
@@ -394,6 +457,12 @@ def scan_kernel(K: int, R: int, S: int, C: int) -> str:
         return "ffd_scan"
     if cluster_layout(K, R, S, C) is not None:
         return "ffd_scan_cluster"
+    if solo:
+        if max_clusters is None:
+            max_clusters = (grid_clusters(torch.cuda.current_device())
+                            if torch.cuda.is_available() else GRID_CLUSTERS)
+        if grid_layout(K, R, S, max_clusters) is not None:
+            return "ffd_scan_grid"
     return "ffd_scan_global"
 
 
@@ -440,7 +509,7 @@ def batch_launches(next0: int, K: int, R: int, S: int, C: int) -> Tuple[str, ...
     """The `LAUNCHES` names of one launch group of `ffd_scan_batch` at these
     shapes (`MAX_BATCH` elements at most), in their order."""
     layout = window_layout(K, R, S, C)
-    picked = f"{scan_kernel(K, R, S, C)}_batched"
+    picked = f"{scan_kernel(K, R, S, C, solo=False)}_batched"
     return {"pick": (picked,), "window": ("ffd_scan_window_batched",),
             "both": ("ffd_scan_window_batched", picked)}[
         window_plan(int(next0), K, layout[0] if layout else 0)]
@@ -541,8 +610,8 @@ def ffd_scan(
     """The sequential class scan: ``(take [G, K], leftover [G],
     node_cfg [K], node_pods [K], node_used [K, R])``.  On the card it runs
     the kernel `scan_kernel` picks for the shapes: the resident one, the
-    cluster one where the resident state does not fit a block, or the
-    global one where it does not fit a cluster either."""
+    cluster one where the resident state does not fit a block, the grid
+    one where it does not fit a cluster, or the global one past the grid."""
     args = (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
             used0, cfg0, npods0, next0, sig0)
     if req.device.type == "cpu":
@@ -554,9 +623,13 @@ def _launch_picked(args, shapes, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     """The scan `scan_kernel` picks for the shapes, with the batch axis
     where ``batch`` is given, writing ``outs`` where they are given."""
     G, C, K, R, S = shapes
-    kernel = scan_kernel(K, R, S, C)
+    max_clusters = grid_clusters(_index(args[0].device)) if batch is None else None
+    kernel = scan_kernel(K, R, S, C, max_clusters, solo=batch is None)
     if kernel == "ffd_scan_global":
         return _launch_global(args, shapes, batch, outs)
+    if kernel == "ffd_scan_grid":
+        return _launch_grid(args, shapes, grid_layout(K, R, S, max_clusters), max_clusters,
+                            outs=outs)
     if kernel == "ffd_scan_cluster":
         return _launch_cluster(args, shapes, cluster_layout(K, R, S, C), batch, outs)
     return _launch_resident(args, shapes, batch, outs)
@@ -629,6 +702,49 @@ def _launch_cluster(args, shapes, layout, batch, outs=None) -> Tuple[torch.Tenso
             *_ptrs(*outs), stream,
         )
     _launched(_launch_name("ffd_scan_cluster", batch), err)
+    return outs
+
+
+def ffd_scan_grid(
+    req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+    used0, cfg0, npods0, next0: int, sig0, *, spin_budget: int = GRID_SPIN_CYCLES,
+) -> Tuple[torch.Tensor, ...]:
+    """`ffd_scan` through the grid kernel, on the clusters `grid_layout`
+    picks for the card.  Raises where no grid of its co-resident clusters
+    holds the shapes (`ffd_scan` takes this kernel only where `scan_kernel`
+    says so).  ``spin_budget``: the clock cycles a wait on another cluster
+    may take before the kernel traps."""
+    args = (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+            used0, cfg0, npods0, next0, sig0)
+    if req.device.type == "cpu":
+        return ffd_scan_reference(*args)
+    G, C, K, R, S = shapes = _scan_shapes(*args)
+    max_clusters = grid_clusters(_index(req.device))
+    layout = grid_layout(K, R, S, max_clusters)
+    if layout is None or R > MAX_AXES:
+        raise ValueError(f"no grid of {max_clusters} clusters holds K={K}, R={R}, S={S}")
+    return _launch_grid(args, shapes, layout, max_clusters, spin_budget)
+
+
+def _launch_grid(args, shapes, layout, max_clusters: int, spin_budget: int = GRID_SPIN_CYCLES,
+                 outs=None) -> Tuple[torch.Tensor, ...]:
+    (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+     used0, cfg0, npods0, next0, sig0) = args
+    G, C, K, R, S = shapes
+    clusters, ctas, per_thread, smem = layout
+    outs = outs or _scan_outputs(G, K, R, req.device)
+    # the cross-cluster entries [4][clusters] (64-bit): zeroed, so no tag of
+    # an earlier launch matches
+    xg = torch.zeros(4 * clusters, dtype=torch.int64, device=req.device)
+    with torch.cuda.device(req.device):
+        stream = torch.cuda.current_stream(req.device).cuda_stream
+        err = _lib().ffd_scan_grid(
+            *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
+                   used0, cfg0, npods0, sig0),
+            G, C, K, R, S, int(next0), clusters, ctas, per_thread, smem, wrap_guard(K),
+            max_clusters, int(spin_budget), xg.data_ptr(), *_ptrs(*outs), stream,
+        )
+    _launched("ffd_scan_grid", err)
     return outs
 
 
@@ -868,7 +984,7 @@ def scan_concurrency(K: int, R: int, S: int, C: int, kernel: Optional[str] = Non
     one-block scans, ``cudaOccupancyMaxActiveClusters`` for the cluster
     scan): the scan `scan_kernel` picks, or ``kernel`` (``"ffd_scan_window"``
     for the frontier-window scan).  Needs the card."""
-    kernel = scan_kernel(K, R, S, C) if kernel is None else kernel
+    kernel = scan_kernel(K, R, S, C, solo=False) if kernel is None else kernel
     if kernel == "ffd_scan_window":
         W, smem = window_layout(K, R, S, C)
         args = (3, W // WINDOW_THREADS, 1, WINDOW_THREADS, smem)

@@ -47,13 +47,13 @@ def _forge(tmp_path, files: dict):
 # every function of ops/fused_packer.py whose body calls the library for a
 # launch (the host queries left out)
 FUSED_PACKER_LAUNCHERS = {
-    "choose_config", "_launch_resident", "_launch_cluster", "_launch_global",
+    "choose_config", "_launch_resident", "_launch_cluster", "_launch_grid", "_launch_global",
     "fleet_pack", "_launch_window", "verdict_rows", "population_prologue",
     "admit", "assemble_feasibility", "choose_config_shard", "ffd_shard_scan",
     "ffd_shard_cap", "ffd_shard_apply",
 }
 HOST_QUERIES = {"scan_concurrency", "verdict_shape", "_verdict_max_axes",
-                "_verdict_scratch_bytes"}
+                "_verdict_scratch_bytes", "grid_clusters"}
 
 
 class TestLaunchWrapperDiscovery:

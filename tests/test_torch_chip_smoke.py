@@ -96,11 +96,17 @@ def test_scan_latency_floor():
     floor = chip_smoke.scan_latency_floor_ms(
         "ffd_scan_cluster", 320, 4096, barrier_us=0.5, l2_us=0.1)
     assert np.isclose(floor, 320 * (0.5 + 2 / 32 * 0.1) / 1e3)
+    # the grid kernel: the cluster step, its exchange the cluster barrier
+    # and the round trip between clusters (the caller passes both as one);
+    # each slot's feasibility byte is gathered a step ahead
+    assert chip_smoke.scan_step_model("ffd_scan_grid", 32768) == (
+        1, 2 / fused_packer.SCAN_TILE)
 
 
 def test_kernels_line_rows():
-    """A row per counted kernel: the solve's four, the two big-slot scans
-    at the live cluster, then phase 6's eight (the batched scans, each at
+    """A row per counted kernel: the solve's five (the grid scan measured
+    on 20,000 live nodes), the two big-slot scans at the live cluster,
+    then phase 6's eight (the batched scans, each at
     the problem whose shapes pick it, the frontier-window scan at phase
     9's base, `verdict_rows`' three launches and
     the prologue's at ``live``, those four in place of the JAX package's
@@ -113,7 +119,7 @@ def test_kernels_line_rows():
     choice, the one-launch scan, the pair);
     phase 4 times the cluster sizes the rule does not pick."""
     assert chip_smoke.KERNELS == (
-        "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster",
+        "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster", "ffd_scan_grid",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
         "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
         "population_pairs", "admit_kernel", "choose_config_fleet", "ffd_scan_fleet",
@@ -139,9 +145,13 @@ def test_kernels_line_rows():
             "karpenter_tpu/ops/packer.py:525" if fn == "verdict_rows"
             else "karpenter_tpu/ops/packer.py:686")
     assert set(chip_smoke.SPILL_CHECKED) == {"choose_config", "ffd_scan_window",
-                                             *chip_smoke.VERDICT_FUNCTION, "admit"}
+                                             *chip_smoke.VERDICT_FUNCTION, "admit",
+                                             "ffd_scan_grid"}
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_grid"] == "config2_live20k"
+    assert set(chip_smoke.LARGE_LIVE) < set(chip_smoke.PHASE5_SCAN)
+    assert {chip_smoke.PHASE5_SCAN[n] for n in chip_smoke.LARGE_LIVE} == {"ffd_scan_grid"}
     for name, scan in chip_smoke.VERDICT_SCAN.items():
         assert chip_smoke.ROW_PROBLEM[f"{scan}_batched"] == name
     picked = fused_packer.cluster_layout(4096, 6, 2, 8192)[0]

@@ -71,7 +71,10 @@ def _assert_bit_equal(got, want):
 
 # case -> the scan kernel the shapes pick.  config 2 at scale 0.1 has R 6,
 # S 2 and Cp 4096: its resident state fits one block at 2048 slots, not at
-# 4096, where the cluster scan takes it (8 CTAs), up to 16,384 slots.
+# 4096, where the cluster scan takes it (8 CTAs), up to 16,384 slots, and
+# past that the grid scan (clusters of 8 CTAs of 2,048 slots: at 32,768
+# slots two, at 65,536 four).  "wrap-K-at-N": the wrap case's prefilled
+# slots at N .. N + 3 (N + 2 a boundary between two CTAs or two clusters).
 CASES = {
     "flagship": "ffd_scan",
     "heterogeneous": "ffd_scan",
@@ -83,6 +86,11 @@ CASES = {
     "wrap-4096": "ffd_scan_cluster",
     "wrap-4096-straddle": "ffd_scan_cluster",
     "wrap-16384-straddle": "ffd_scan_cluster",
+    "heterogeneous-32768": "ffd_scan_grid",
+    "wrap-32768-at-2046": "ffd_scan_grid",
+    "wrap-32768-straddle": "ffd_scan_grid",
+    "wrap-65536-at-2046": "ffd_scan_grid",
+    "wrap-65536-at-16382": "ffd_scan_grid",
     "wrap-short": "ffd_scan",
     "wrap-negzero": "ffd_scan",
 }
@@ -103,10 +111,11 @@ def _case(case: str):
         args = T.wrap_arrays(256)
         args[8][0, 3] = -0.0
         return args
-    # wrap[-K[-straddle]]: the prefilled slots straddle slot K / 2
-    _, k, straddle = (case.split("-") + ["", ""])[:3]
+    # wrap[-K[-straddle | -at-N]]: the prefilled slots straddle slot K / 2,
+    # or start at slot N
+    _, k, straddle, at = (case.split("-") + ["", "", ""])[:4]
     k = int(k or 256)
-    return T.wrap_arrays(k, at=k // 2 - 2 if straddle else 0)
+    return T.wrap_arrays(k, at=int(at) if at else (k // 2 - 2 if straddle else 0))
 
 
 @pytest.mark.parametrize("objective", ["nodes", "cost"])
@@ -228,7 +237,38 @@ def test_misaligned_feasibility_raises(cuda_device):
     assert fused_packer.LAUNCHES["ffd_scan_cluster"] == before["ffd_scan_cluster"]
 
 
-@pytest.mark.parametrize("live_nodes,kernel", [(0, "ffd_scan"), (2000, "ffd_scan_cluster")])
+@pytest.mark.parametrize("live", [10_000, 20_000])
+def test_grid_scan_on_live_clusters(cuda_device, live):
+    """Config 2's pods on 10,000 and 20,000 live nodes at full size (Kp and
+    Cp 16,384 and 32,768: one cluster and two): ``ffd_pack`` launches the
+    grid scan, bit-equal to the plain version, both objectives."""
+    pools, inv, pods = T.heterogeneous_problem()
+    args = to_device(pad_problem(compile_problem(pods, pools, inv,
+                                                 existing=T.live_cluster(live)))[0], cuda_device)
+    for objective in ("nodes", "cost"):
+        got, moved = _launch_moves(lambda: fused_packer.ffd_pack(*args, objective=objective))
+        assert moved == {"choose_config": 1, "ffd_scan_grid": 1}
+        _assert_bit_equal(got, pack_reference(*args, objective=objective))
+
+
+def test_grid_that_cannot_hold_raises(cuda_device):
+    """65,536 slots need four clusters: on a card said to hold one, the
+    grid's entry point refuses them and launches nothing."""
+    args = to_device(_case("wrap-65536-straddle"), cuda_device)
+    (req, cnt, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    scan_args = (req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0)
+    assert fused_packer.scan_kernel(65536, 6, 8, 8, 1) == "ffd_scan_global"
+    layout = fused_packer.grid_layout(65536, 6, 8, fused_packer.MAX_GRID_CLUSTERS)
+    before = dict(fused_packer.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no thread-block cluster"):
+        fused_packer._launch_grid(scan_args, (10, 8, 65536, 6, 8), layout, 1)
+    assert fused_packer.LAUNCHES == before
+
+
+@pytest.mark.parametrize("live_nodes,kernel", [(0, "ffd_scan"), (2000, "ffd_scan_cluster"),
+                                               (10_000, "ffd_scan_grid")])
 def test_solve_on_card_matches_cpu(cuda_device, live_nodes, kernel):
     pools, inv, pods = T.heterogeneous_problem(scale=0.1)
     existing = T.live_cluster(live_nodes)

@@ -356,6 +356,22 @@ def test_wrap_arrays_straddle_parity(objective):
 
 
 @pytest.mark.parametrize("objective", OBJECTIVES)
+def test_wrap_arrays_grid_straddle_parity(objective):
+    """The wrap case at 32,768 slots with its prefilled slots at
+    16,382-16,385, across slot 16,384, where the grid scan's two clusters
+    meet (`grid_layout`: 2 clusters of 8 CTAs of 2,048 slots): the plain
+    version held to the JAX package past 16,384 slots."""
+    at = 16384 - 2
+    args = wrap_arrays(32768, at=at)
+    q, ctas, per_thread, _ = fused_packer.grid_layout(32768, 6, 8, fused_packer.GRID_CLUSTERS)
+    assert (q, ctas * per_thread * fused_packer.scan_threads(32768 // (q * ctas))) == (2, at + 2)
+    take, leftover, node_cfg, _, _ = _assert_arrays_parity(args, objective)
+    assert int(take[0, at + 3]) == 2**30
+    assert int(leftover[0]) == -(2**30)
+    assert int(node_cfg[at - 4]) >= 0 and int(node_cfg[at]) != 0
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
 def test_tie_arrays_parity(objective):
     """Equal scores at configs the choice kernel holds in different threads,
     warps and quads: the pack equals JAX's, and the choice takes the first
@@ -390,12 +406,13 @@ def test_choice_wrapper_on_the_cpu():
     "K,kernel,smem",
     [(256, "ffd_scan", 60_800), (2048, "ffd_scan", 218_496),
      (4096, "ffd_scan_cluster", 398_720), (8192, "ffd_scan_cluster", 759_168),
-     (16384, "ffd_scan_cluster", 1_480_064), (32768, "ffd_scan_global", 2_921_856)],
+     (16384, "ffd_scan_cluster", 1_480_064), (32768, "ffd_scan_grid", 2_921_856)],
 )
 def test_scan_kernel_by_shape(K, kernel, smem):
     """config 2's R 6, S 8, Cp 4096: the resident state fits one block up
     to 2048 slots (88 bytes a slot plus the ring), not at 4096; a cluster
-    of up to 8 CTAs holds it up to 16,384 slots."""
+    of up to 8 CTAs holds it up to 16,384 slots, a grid of clusters past
+    that."""
     R, S, C = 6, 8, 4096
     per_thread, got = fused_packer.resident_layout(K, R, S, C)
     assert got == smem
@@ -433,6 +450,87 @@ def test_cluster_layout_of_each_size():
     assert fused_packer.cluster_layout(4096, 6, 2, 8192, ctas=4) == (4, 1, 139_520)
     assert fused_packer.cluster_layout(4096, 6, 2, 8192, ctas=8) == (8, 1, 110_336)
     assert fused_packer.cluster_layout(16384, 6, 2, 8192, ctas=4) is None
+
+
+@pytest.mark.parametrize(
+    "K,R,S,max_clusters,layout",
+    [
+        # config 2 on 10,000 live nodes (Kp 16,384, Sp 2): one cluster of 8
+        # CTAs of 1,024 threads, 2 slots a thread; two tiles of 32 class
+        # rows of 19 words, 8 x 640 exchange bytes, 2,048 slots of 64 bytes
+        (16384, 6, 2, 16, (1, 8, 2, 2 * 32 * 4 * 19 + 8 * 640 + 2048 * 64)),
+        # on 20,000 (Kp 32,768): two such clusters
+        (32768, 6, 2, 16, (2, 8, 2, 141_056)),
+        # the wrap case's S 8 at 65,536 slots: four clusters
+        (65536, 6, 8, 16, (4, 8, 2, 4864 + 8 * 640 + 2048 * 88)),
+        (245760, 6, 2, 15, (15, 8, 2, 141_056)),  # every cluster of an H100
+        (245761, 6, 2, 15, None),  # past the co-resident clusters
+        (32768, 6, 2, 1, None),  # one cluster holds 16,384 slots at most
+        (4096, 6, 2, 16, (1, 8, 1, 4864 + 8 * 640 + 512 * 64)),
+        # 856 bytes a slot: more clusters, 256 slots a CTA
+        (16384, 6, 200, 16, (8, 8, 1, 4864 + 8 * 640 + 256 * 856)),
+    ],
+)
+def test_grid_layout(K, R, S, max_clusters, layout):
+    """The fewest clusters of 8 CTAs whose CTAs hold the slots at up to 2
+    a thread within 227 KB; no feasibility ring, so Cp does not enter."""
+    got = fused_packer.grid_layout(K, R, S, max_clusters)
+    assert got == layout
+    if got is not None:
+        q, ctas, per_thread, smem = got
+        assert smem <= fused_packer.SMEM_PER_BLOCK and q <= max_clusters
+        assert q * ctas * per_thread * fused_packer.scan_threads(-(-K // (q * ctas))) >= K
+
+
+@pytest.mark.parametrize("live", [10_000, 20_000])
+def test_scan_kernel_picks_the_grid_past_one_cluster(live):
+    """Config 2's pods on 10,000 and 20,000 live nodes (Cp and Kp 16,384
+    and 32,768): the cluster scan's ring of 8 feasibility rows and its 8
+    CTAs no longer hold them, so the solve's scan is the grid; a batched
+    or fleet scan there (no grid mode) stays global, as does a card whose
+    co-resident clusters cannot hold the slots."""
+    from karpenter_tpu_torch.ops.packer import pad_problem
+    from karpenter_tpu_torch.ops.tensorize import compile_problem as port_compile
+
+    pools, inv, pods = testing.heterogeneous_problem()
+    prob = port_compile(pods, pools, inv, existing=testing.live_cluster(live))
+    args, kp = pad_problem(prob)
+    K, R, S, C = args[8].shape[0], args[0].shape[1], args[12].shape[0], args[5].shape[0]
+    assert (K, C) == {10_000: (16384, 16384), 20_000: (32768, 32768)}[live]
+    assert (R, S) == (6, 2)
+    assert fused_packer.cluster_layout(K, R, S, C) is None
+    assert fused_packer.scan_kernel(K, R, S, C) == "ffd_scan_grid"
+    assert fused_packer.scan_kernel(K, R, S, C, 16) == "ffd_scan_grid"
+    assert fused_packer.grid_layout(K, R, S, 16)[0] == K // 16384
+    assert fused_packer.scan_kernel(K, R, S, C, solo=False) == "ffd_scan_global"
+    assert fused_packer.batch_launches(0, K, R, S, C)[-1] == "ffd_scan_global_batched"
+    if K > 16384:
+        assert fused_packer.scan_kernel(K, R, S, C, 1) == "ffd_scan_global"
+
+
+def test_scan_kernel_keeps_the_global_scan_past_the_grid():
+    """The global scan stays for more than 31 resource axes (one flag bit
+    each), for slots past the card's co-resident clusters, and for
+    feasibility rows no cp.async size divides."""
+    assert fused_packer.scan_kernel(16384, 6, 2, 16384, 16) == "ffd_scan_grid"
+    assert fused_packer.scan_kernel(32768, 6, 2, 32768, 16) == "ffd_scan_grid"
+    assert fused_packer.scan_kernel(16384, 32, 2, 16384, 16) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(32768, 32, 2, 32768, 16) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(32768, 6, 2, 32768, 1) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(300_000, 6, 2, 32768, 16) == "ffd_scan_global"
+    assert fused_packer.scan_kernel(32768, 6, 2, 32766, 16) == "ffd_scan_global"
+
+
+def test_grid_wrapper_on_the_cpu():
+    """On CPU tensors the grid scan's entry point runs the plain version."""
+    args = [a if isinstance(a, int) else torch.from_numpy(a) for a in wrap_arrays(64)]
+    choice = choose_config_reference(*(args[i] for i in (0, 2, 4, 5, 6, 7)))
+    scan_args = (*args[:6], *choice, *args[8:])
+    got = fused_packer.ffd_scan_grid(*scan_args)
+    want = fused_packer.ffd_scan(*scan_args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
 
 
 @pytest.mark.parametrize("K,guard", [(2048, 2**20), (4096, 2**19), (16384, 2**17)])
