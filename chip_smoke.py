@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-15), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-16), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -385,13 +385,42 @@ Phases (each failure exits non-zero before the last line is printed):
    also at the live cluster, with its latency floor at both (classes x the
    measured cluster exchange and barrier of its CTAs, plus the class
    tiles' L2 loads).
+16. The chart on the card (`chart_phase`, `chart_topology`): the port's
+   chart (``deploy/chart_torch``) rendered by the port's renderer with the
+   HA and tenant values (`CHART_VALUES`: two controller replicas, the store,
+   the multi-tenant solver), the settings configmap's ``settings.json``
+   written to a temporary directory, and each Deployment's container
+   started as a process from its rendered ``command`` + ``args``, only
+   three things changed and the mapping printed (`map_argv`: service
+   hostnames and the bind-all address become 127.0.0.1, every port a free
+   one, the store's default telemetry port 8083 named so that it is mapped
+   too, ``/etc/karpenter`` the temporary directory): the store server;
+   then, through one ``RemoteKubeStore`` client, config 2's NodeClass, its
+   two pools and all `CHART_PODS` of its pods (no cut of scale); the solver
+   sidecar on the card; the two controllers on the card, which serve with
+   the catalog the entry point builds (``generate_catalog()``).  A thread a
+   controller pages its ``/events`` forward (`EventFollower`).  Fails
+   unless exactly one controller leads (and no other ever did), every pod
+   is nominated and the ring dropped none of its events, the store's
+   NodeClaims are the ones the leader launched, their multiset of
+   (instance type, zone, capacity type, pods) equals that of the CPU twin
+   (`chart_twin`: the port's in-process ``Operator(device="cpu")`` over the
+   same objects and catalog, in a spawned process beside the card's run),
+   the solver's ``/debug/device`` shows ``choose_config`` and a scan
+   launched and neither controller launched one, the leader's ``/metrics``
+   and ``/healthz`` answer, each process's peak RSS (``VmHWM``) is within
+   its rendered memory limit, and SIGTERM ends every process with exit
+   code 0.  Prints each process's peak RSS against its limit, the seconds
+   to the leader's first NodeClaim, the leader's solve (wall and phases,
+   from its ``/metrics``), and the solver's launches by kernel.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
 ``service_launches`` phase 11's over its cells' rounds, ``ha_launches``
 phase 12's over its card drive, ``fleet_launches`` phase 13's over the
 scaled cell's drive, ``legacy_launches`` phase 14's over the converted
-objects' drive, ``mesh_launches`` phase 15's main path; the five mesh
+objects' drive, ``mesh_launches`` phase 15's main path,
+``chart_launches`` phase 16's solver sidecar; the five mesh
 kernels' rows take ``launches`` from there, ``forced_launches`` from the
 rest of the phase, where the pair is driven directly, ``timer`` the
 clock of ``ms`` (profiler, or CUDA events with the gaps between launches),
@@ -632,7 +661,21 @@ MESH_STEP_CLASSES = 320  # ... Gp 320, at the live cluster's 4096 slots
 MESH_TIMED = 3  # timed sharded packs (and single-device packs) at config 2
 LEGACY_PODS, LEGACY_TICKS = 40, 4
 
-LAST_PHASE = 15
+# phase 16: the port's chart (deploy/chart_torch) rendered with the HA and
+# tenant values, each Deployment's container started as a process
+CHART_DIR = "deploy/chart_torch"
+CHART_VALUES = {"replicas": "2", "store.enabled": "true",
+                "service.multiTenant.enabled": "true"}
+CHART_MOUNT = "/etc/karpenter"  # where the settings configmap is mounted
+CHART_PORT_FLAGS = ("--port", "--metrics-port", "--telemetry-port")
+# a port a container binds without its argv naming it: the store server's
+# telemetry (service/store_server.py), named here so that it is mapped too
+CHART_IMPLICIT_PORTS = {"store": "--telemetry-port=8083"}
+CHART_PODS = OPERATOR_PODS  # all of config 2's pods: no cut of scale
+CHART_DEADLINE_S = 300.0  # the processes' start, the load and every nomination
+CHART_STOP_S = 60.0  # a process's wait to exit after SIGTERM
+
+LAST_PHASE = 16
 
 
 def fail(msg: str) -> None:
@@ -5396,6 +5439,568 @@ def mesh_phase(torch, card) -> dict:
             "pair_p50_ms": p50["ffd_shard_pair"], "single_p50_ms": p50["ffd_pack"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the chart on the card
+# ---------------------------------------------------------------------------
+
+
+def chart_values(values: dict, tmp: str) -> dict:
+    """``values`` and the two settings the phase sets: a cluster name, and
+    the flight recorder's directory inside the phase's temporary one."""
+    import os
+
+    return {**values, "settings.cluster_name": "chip-smoke-chart",
+            "settings.flight_dir": os.path.join(tmp, "flight")}
+
+
+def chart_render(values: dict, chart: str = CHART_DIR) -> tuple:
+    """The port's chart rendered by the port's renderer with ``values``:
+    (each Deployment's container by its name, `chart_workloads`; the
+    settings configmap's ``settings.json`` payload)."""
+    import os
+
+    import yaml
+
+    from karpenter_tpu_torch.tools.render_chart import render_chart
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), chart)
+    docs = [d for text in render_chart(path, dict(values))
+            for d in yaml.safe_load_all(text) if d]
+    (cm,) = [d for d in docs if d["kind"] == "ConfigMap"]
+    return chart_workloads(docs), cm["data"]["settings.json"]
+
+
+def chart_workloads(docs) -> dict:
+    """Each rendered Deployment's one container by its name: the
+    Deployment's replicas, ``argv`` (command + args), the memory limit
+    (None without one), the accelerator limits and the env."""
+    out = {}
+    for d in docs:
+        if d["kind"] != "Deployment":
+            continue
+        (c,) = d["spec"]["template"]["spec"]["containers"]
+        limits = (c.get("resources") or {}).get("limits") or {}
+        out[c["name"]] = {
+            "replicas": int(d["spec"]["replicas"]),
+            "argv": [str(a) for a in c["command"] + c.get("args", [])],
+            "memory": limits.get("memory"),
+            "accelerators": {k: v for k, v in limits.items() if k not in ("cpu", "memory")},
+            "env": {e["name"]: str(e["value"]) for e in c.get("env", [])},
+        }
+    return out
+
+
+def listen_ports(argv) -> list:
+    """The ports a rendered container listens on (`CHART_PORT_FLAGS`)."""
+    return [int(a.partition("=")[2]) for a in argv
+            if a.partition("=")[0] in CHART_PORT_FLAGS]
+
+
+def implicit_ports(name: str, argv) -> list:
+    """The `CHART_IMPLICIT_PORTS` argument of container ``name`` where its
+    argv does not name that flag, as a list of at most one argument."""
+    arg = CHART_IMPLICIT_PORTS.get(name)
+    flags = {a.partition("=")[0] for a in argv}
+    return [arg] if arg and arg.partition("=")[0] not in flags else []
+
+
+def map_argv(argv, ports: dict, mount: str) -> tuple:
+    """A rendered container's argv as this host runs it: (the argv, the
+    (argument, mapped argument) pairs that changed).  Only three things
+    change: a service hostname (the host of a ``host:port`` value, and the
+    bind-all address 0.0.0.0) becomes 127.0.0.1, a port becomes
+    ``ports[port]`` (a port the map lacks raises ``KeyError``), and
+    `CHART_MOUNT` becomes ``mount``."""
+    import re
+
+    out, changed = [], []
+    for arg in argv:
+        flag, eq, value = arg.partition("=")
+        if eq:
+            value = value.replace(CHART_MOUNT, mount)
+            m = re.fullmatch(r"[A-Za-z0-9.-]+:(\d+)", value)
+            if m:
+                value = f"127.0.0.1:{ports[int(m.group(1))]}"
+            elif value == "0.0.0.0":
+                value = "127.0.0.1"
+            elif flag in CHART_PORT_FLAGS:
+                value = str(ports[int(value)])
+        mapped = flag + eq + value
+        out.append(mapped)
+        if mapped != arg:
+            changed.append((arg, mapped))
+    return out, changed
+
+
+def memory_bytes(quantity: str) -> int:
+    """A Kubernetes memory quantity (``512Mi``, ``1.5Gi``, ``800M``,
+    plain bytes) in bytes."""
+    import re
+
+    m = re.fullmatch(r"([0-9]+(?:\.[0-9]+)?)([KMGT]i?)?", str(quantity).strip())
+    if not m:
+        raise ValueError(f"not a memory quantity: {quantity!r}")
+    unit = m.group(2) or ""
+    scale = 2 ** (10 * "KMGT".index(unit[0]) + 10) if unit.endswith("i") else (
+        10 ** (3 * "KMGT".index(unit) + 3) if unit else 1)
+    return int(float(m.group(1)) * scale)
+
+
+def proc_memory(pid: int) -> dict:
+    """A live process's ``Vm*`` and ``Rss*`` lines of ``/proc/<pid>/status``
+    in bytes (``VmHWM`` is the peak resident set, ``VmRSS`` the current one,
+    ``RssAnon`` / ``RssFile`` its anonymous and file-backed parts; a kernel
+    that does not keep one leaves it out)."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key.startswith(("Vm", "Rss")) and value.strip().endswith("kB"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def rss_over_limit(peaks: dict, limits: dict) -> list:
+    """The processes whose peak RSS (bytes) passes their rendered memory
+    limit (a quantity; None: no limit), by name."""
+    return sorted(name for name, peak in peaks.items()
+                  if limits.get(name) is not None and peak > memory_bytes(limits[name]))
+
+
+def claims_multiset(claims: dict, nominated: dict) -> list:
+    """A cluster's NodeClaims as a sorted multiset: ``claims`` maps a
+    claim's name to its (instance type, zone, capacity type), ``nominated``
+    a pod's key to the claim it was nominated to; one (instance type, zone,
+    capacity type, sorted pod keys) a claim.  Claim names and instance ids
+    follow launch order, so they are left out."""
+    pods = {}
+    for pod, claim in nominated.items():
+        pods.setdefault(claim, []).append(pod)
+    return sorted((*meta, tuple(sorted(pods.get(name, ())))) for name, meta in claims.items())
+
+
+def multiset_diff(got, want) -> tuple:
+    """(what ``got`` has beyond ``want``, what it lacks), each a sorted list."""
+    from collections import Counter
+
+    a, b = Counter(map(tuple, got)), Counter(map(tuple, want))
+    return sorted((a - b).elements()), sorted((b - a).elements())
+
+
+def chart_objects(n_pods: int) -> tuple:
+    """What phase 16 puts in the store: config 2's default NodeClass, its
+    ``general`` and tainted ``dedicated`` pools, and the first ``n_pods``
+    of `heterogeneous_pods`, named ``chart-<i>`` so that the CPU twin
+    builds the same keys."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.api import NodeClass, NodePool
+    from karpenter_tpu_torch.api.objects import SelectorTerm
+
+    node_class = NodeClass(name="default",
+                           subnet_selector_terms=[SelectorTerm.of(Name="*")],
+                           security_group_selector_terms=[SelectorTerm.of(Name="*")])
+    pools = [NodePool(name="general", node_class_ref="default"),
+             NodePool(name="dedicated", node_class_ref="default",
+                      taints=[T.DEDICATED_TAINT])]
+    pods = T.heterogeneous_pods(n_pods)
+    for i, pod in enumerate(pods):
+        pod.name = f"chart-{i:05d}"
+    return node_class, pools, pods
+
+
+def chart_twin(n_pods: int, payload: str, ticks: int = 8) -> dict:
+    """The CPU twin of phase 16's leader: the port's in-process
+    `Operator(device="cpu")` over a fake cloud built as the entry point
+    builds it (`generate_catalog()`, the default topology; a fake clock),
+    with the rendered settings, the same objects (`chart_objects`), ticks
+    of 2 s until every pod is nominated.  Returns its claims multiset
+    (`claims_multiset`) and the ticks it took."""
+    import json as _json
+
+    from karpenter_tpu_torch.api.settings import Settings
+    from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
+    from karpenter_tpu_torch.metrics.registry import Registry
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.state.kube import KubeStore
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    settings = Settings(**_json.loads(payload))
+    cloud = FakeCloud(FakeClock(), shapes=generate_catalog()).with_default_topology()
+    kube = KubeStore()
+    op = Operator(cloud, kube, settings=settings, registry=Registry(), device="cpu")
+    node_class, pools, pods = chart_objects(n_pods)
+    kube.put_node_class(node_class)
+    for pool in pools:
+        kube.put_node_pool(pool)
+    for pod in pods:
+        kube.put_pod(pod)
+    keys = {p.key() for p in pods}
+    for tick in range(1, ticks + 1):
+        cloud.clock.step(2.0)
+        op.reconcile_once()
+        nominated = dict(op.cluster.nominations())
+        if keys <= nominated.keys():
+            break
+    else:
+        raise RuntimeError(f"the CPU twin nominated {len(nominated)} of {n_pods} pods "
+                           f"in {ticks} ticks")
+    claims = {c.name: (c.instance_type_name, c.zone, c.capacity_type)
+              for c in kube.node_claims.values()}
+    return {"claims": claims_multiset(claims, {k: nominated[k] for k in keys}), "ticks": tick}
+
+
+class EventFollower:
+    """A thread that pages one controller's ``/events`` forward by its
+    ``since_seq`` cursor, as a dashboard would, and keeps each
+    ``NodeLaunched`` claim with the time it was read and each pod's first
+    ``PodNominated`` claim; ``dropped`` counts the events the ledger's ring
+    evicted before a page read them."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port, self.seq, self.dropped = port, 0, 0
+        self.launched, self.nominated = {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.poll()
+            self._stop.wait(0.01)
+
+    def poll(self) -> None:
+        body = scrape(self.port, f"/events?since_seq={self.seq}&limit=1000000")
+        if not body:
+            return
+        page = json.loads(body)
+        self.dropped += page["dropped"]
+        for ev in page["events"]:
+            attrs = ev["attrs"]
+            if ev["type"] == "NodeLaunched":
+                self.launched.setdefault(attrs["claim"], time.perf_counter())
+            elif ev["type"] == "PodNominated":
+                self.nominated.setdefault(attrs["pod"], attrs["node"])
+        self.seq = page["last_seq"]
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def wait_listening(port: int, proc, label: str, deadline: float) -> None:
+    """Until ``port`` on 127.0.0.1 accepts a connection; fails if the
+    process exits or the deadline passes."""
+    import socket
+
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            fail(f"phase 16: {label} exited {proc.returncode} before listening on {port}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            time.sleep(0.1)
+    fail(f"phase 16: {label} did not listen on {port} in time")
+
+
+def prom_value(body: str, name: str, labels: str = "") -> float:
+    """One sample of a Prometheus exposition (``labels`` as printed, e.g.
+    ``{phase="pack"}``), 0.0 where it is absent."""
+    for line in body.splitlines():
+        if line.startswith(name + labels + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def chart_topology(n_pods: int = CHART_PODS, values=None, extra_args=None, twin=None,
+                   on_card: bool = True, deadline_s: float = CHART_DEADLINE_S) -> dict:
+    """Phase 16 as the module docstring lists it: the port's chart rendered
+    with ``values`` (default `CHART_VALUES`), its settings payload written
+    to a temporary directory, and each Deployment's container started as a
+    process from its rendered argv (`map_argv`; ``extra_args`` by container
+    name are appended, as the CPU test asks for ``--device=cpu``), the
+    store first, then config 2's objects through one `RemoteKubeStore`
+    client, the solver, and the rendered controller replicas.  ``twin``
+    returns the CPU twin's readings (default `chart_twin` in this
+    process).  ``on_card``: the solver runs on the card, so its
+    ``/debug/device`` must show ``choose_config`` and a scan launched.
+    Fails on any of the holds; returns the readings.  Every process it
+    started has ended when it returns."""
+    import os
+    import signal
+    import tempfile
+
+    from karpenter_tpu_torch.api.settings import Settings
+    from karpenter_tpu_torch.metrics.registry import Registry
+    from karpenter_tpu_torch.state.remote import RemoteKubeStore
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    extra_args = extra_args or {}
+    t_phase = time.perf_counter()
+    deadline = t_phase + deadline_s
+    procs, followers, client = {}, {}, None
+    with tempfile.TemporaryDirectory(prefix="chart-") as tmp:
+        values = chart_values(CHART_VALUES if values is None else values, tmp)
+        workloads, payload = chart_render(values)
+        with open(os.path.join(tmp, "settings.json"), "w") as f:
+            f.write(payload)
+        settings = Settings.from_file(os.path.join(tmp, "settings.json"))
+        print(f"    rendered {CHART_DIR} with {json.dumps(values)}: "
+              + ", ".join(f"{name} x{w['replicas']}" for name, w in workloads.items()),
+              flush=True)
+
+        def bound(name: str) -> list:  # the ports the container listens on
+            argv = workloads[name]["argv"]
+            return listen_ports(argv + implicit_ports(name, argv))
+
+        shared = {p: free_port() for name in ("store", "solver") for p in bound(name)}
+
+        def sample(p: dict) -> None:  # the peaks of the process's memory lines
+            try:
+                mem = proc_memory(p["proc"].pid)
+            except OSError:
+                return
+            for key, value in mem.items():
+                p["vm"][key] = max(p["vm"].get(key, 0), value)
+
+        def start(label: str, name: str, ports: dict):
+            w = workloads[name]
+            implicit = implicit_ports(name, w["argv"])
+            argv, changed = map_argv(w["argv"] + implicit, ports, tmp)
+            argv = [sys.executable if a == "python" and i == 0 else a
+                    for i, a in enumerate(argv)] + list(extra_args.get(name, ()))
+            out = open(os.path.join(tmp, f"{label}.out"), "w")
+            err = open(os.path.join(tmp, f"{label}.err"), "w")
+            proc = subprocess.Popen(argv, cwd=repo, stdout=out, stderr=err,
+                                    env={**os.environ, **w["env"]})
+            procs[label] = {"proc": proc, "memory": w["memory"], "err": err.name, "vm": {}}
+            print(f"    {label}: {' '.join(w['argv'])}"
+                  + (f" (and its default {' '.join(implicit)})" if implicit else "")
+                  + f"; limits: memory {w['memory'] or 'none'}, {json.dumps(w['accelerators'])}",
+                  flush=True)
+            print(f"      mapped: {json.dumps(changed)}; python -> {sys.executable}"
+                  + (f"; appended {extra_args[name]}" if name in extra_args else "")
+                  + (f"; env {json.dumps(w['env'])}" if w["env"] else ""), flush=True)
+            return proc
+
+        try:
+            store = start("store", "store", shared)
+            store_port = shared[bound("store")[0]]
+            wait_listening(store_port, store, "the store", deadline)
+            t0 = time.perf_counter()
+            client = RemoteKubeStore("127.0.0.1", store_port, identity="chip-smoke-loader",
+                                     codec=settings.store_codec, registry=Registry())
+            while not all(ch.ever_synced for ch in client._channels):
+                if time.perf_counter() > deadline:
+                    fail("phase 16: the loader's watch never synced")
+                time.sleep(0.01)
+            node_class, pools, pods = chart_objects(n_pods)
+            client.put_node_class(node_class)
+            for pool in pools:
+                client.put_node_pool(pool)
+            for pod in pods:
+                client.put_pod(pod)
+            if not client.wait_synced(timeout=60.0):
+                fail("phase 16: the loader's mirror did not sync after the puts")
+            load_s = time.perf_counter() - t0
+            print(f"    put the NodeClass, {len(pools)} pools and {n_pods} pods through one "
+                  f"RemoteKubeStore client in {load_s!r} s", flush=True)
+            solver = start("solver", "solver", shared)
+            for p in bound("solver"):
+                wait_listening(shared[p], solver, "the solver", deadline)
+            ctrl_ports = {}
+            t_controllers = time.perf_counter()
+            for i in range(workloads["controller"]["replicas"]):
+                own = {p: free_port() for p in bound("controller")}
+                start(f"controller-{i}", "controller", {**shared, **own})
+                (ctrl_ports[f"controller-{i}"],) = own.values()
+                followers[f"controller-{i}"] = EventFollower(ctrl_ports[f"controller-{i}"])
+            keys = {p.key() for p in pods}
+            led, leaders = set(), []
+            while True:
+                for label, p in procs.items():
+                    if p["proc"].poll() is not None:
+                        with open(p["err"]) as f:
+                            tail = f.read()[-3000:]
+                        fail(f"phase 16: {label} exited {p['proc'].returncode}: {tail}")
+                    sample(p)
+                leaders = []
+                for label, port in ctrl_ports.items():
+                    body = scrape(port, "/metrics")
+                    if body is not None and metric_sum(
+                            body, "karpenter_leader_election_leading") == 1.0:
+                        leaders.append(label)
+                led.update(leaders)
+                done = [lb for lb, fo in followers.items() if keys <= fo.nominated.keys()]
+                if done and len(leaders) == 1:
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"phase 16: in {deadline_s} s "
+                         + ", ".join(f"{lb} nominated {len(fo.nominated)} of {n_pods}"
+                                     for lb, fo in followers.items())
+                         + f"; leaders {leaders}")
+                time.sleep(0.2)
+            nominated_s = time.perf_counter() - t_controllers
+            (leader,) = leaders
+            if len(led) != 1:
+                fail(f"phase 16: more than one controller led: {sorted(led)}")
+            fo = followers[leader]
+            if fo.dropped:
+                fail(f"phase 16: the leader's event ring evicted {fo.dropped} events before "
+                     f"/events read them")
+            first_claim_s = min(fo.launched.values()) - t_controllers
+            if not client.wait_synced(timeout=30.0):
+                fail("phase 16: the loader's mirror did not sync after the solve")
+            claims = {c.name: (c.instance_type_name, c.zone, c.capacity_type)
+                      for c in client.node_claims.values()}
+            if set(claims) != set(fo.launched):
+                fail(f"phase 16: the store holds {len(claims)} NodeClaims, the leader "
+                     f"launched {len(fo.launched)}")
+            got = claims_multiset(claims, {k: fo.nominated[k] for k in keys})
+            metrics = scrape(ctrl_ports[leader], "/metrics") or ""
+            healthz = scrape(ctrl_ports[leader], "/healthz")
+            if not metrics or healthz is None:
+                fail("phase 16: the leader's /metrics or /healthz did not answer")
+            (telemetry,) = (shared[int(a.partition("=")[2])] for a in workloads["solver"]["argv"]
+                            if a.startswith("--telemetry-port="))
+            solver_device = json.loads(scrape(telemetry, "/debug/device") or "{}")
+            ctrl_device = {lb: json.loads(scrape(port, "/debug/device") or "{}")
+                           for lb, port in ctrl_ports.items()}
+            for p in procs.values():
+                sample(p)
+            limits = {lb: p["memory"] for lb, p in procs.items()}
+            # SIGTERM: the standby, then the leader, the solver, the store
+            order = [lb for lb in ctrl_ports if lb != leader] + [leader, "solver", "store"]
+            client.close()
+            client = None
+            rcs = {}
+            for lb in order:
+                procs[lb]["proc"].send_signal(signal.SIGTERM)
+                try:
+                    rcs[lb] = procs[lb]["proc"].wait(timeout=CHART_STOP_S)
+                except subprocess.TimeoutExpired:
+                    rcs[lb] = None
+        finally:
+            for fo in followers.values():
+                fo.stop()
+            if client is not None:
+                client.close()
+            for p in procs.values():
+                if p["proc"].poll() is None:
+                    p["proc"].kill()
+                    p["proc"].wait()
+        bad = {lb: rc for lb, rc in rcs.items() if rc != 0}
+        if bad:
+            tails = {}
+            for lb in bad:
+                with open(procs[lb]["err"]) as f:
+                    tails[lb] = f.read()[-1500:]
+            fail(f"phase 16: SIGTERM did not end with exit code 0: {bad}: {tails}")
+    # the peak: VmHWM where the kernel keeps it, else the largest VmRSS
+    # sampled (wait4's ru_maxrss would count the launching process's own
+    # resident set, which a child keeps as its high-water mark across exec)
+    peaks = {lb: max(p["vm"].get("VmHWM", 0), p["vm"].get("VmRSS", 0))
+             for lb, p in procs.items()}
+    memory = {lb: {"VmHWM": p["vm"].get("VmHWM"), "VmRSS_max_sampled": p["vm"].get("VmRSS"),
+                   **{k: v for k, v in p["vm"].items() if k.startswith("Rss")}}
+              for lb, p in procs.items()}
+    want = (twin or (lambda: chart_twin(n_pods, payload)))()
+    extra, missing = multiset_diff(got, want["claims"])
+    if extra or missing:
+        fail(f"phase 16: the claims differ from the CPU twin's: {len(extra)} not in the twin "
+             f"(first {extra[:2]}), {len(missing)} missing (first {missing[:2]})")
+    for lb, peak in peaks.items():
+        print(f"    {lb} peak RSS {peak} bytes ({peak / 2 ** 20!r} MiB) against its rendered "
+              f"memory limit {limits[lb] or 'none'} (VmHWM, and the largest VmRSS sampled "
+              f"every 0.2 s: {json.dumps(memory[lb])})", flush=True)
+    over = rss_over_limit(peaks, limits)
+    if over:
+        fail("phase 16: peak RSS past the rendered memory limit: "
+             + ", ".join(f"{lb} {peaks[lb]} bytes > {limits[lb]}" for lb in over))
+    launches = solver_device.get("launches", {})
+    if on_card and not (launches.get("choose_config")
+                        and any(launches.get(k) for k in SCAN_KERNELS)):
+        fail(f"phase 16: the solver's /debug/device shows no choose_config and scan "
+             f"launched: {launches}")
+    for lb, d in ctrl_device.items():
+        packed = {k: n for k, n in d.get("launches", {}).items()
+                  if k in ("choose_config", *SCAN_KERNELS)}
+        if packed:
+            fail(f"phase 16: {lb} packed on its own card with --solver-address: {packed}")
+    return {
+        "leader": leader, "nominated": len(keys), "claims": len(got),
+        "load_s": load_s, "first_claim_s": first_claim_s, "nominated_s": nominated_s,
+        "solve_s": prom_value(metrics, "karpenter_provisioner_scheduling_duration_seconds_sum"),
+        "solves": prom_value(metrics, "karpenter_provisioner_scheduling_duration_seconds_count"),
+        "phases_s": {ph: prom_value(metrics, "karpenter_solver_phase_seconds_sum",
+                                    f'{{phase="{ph}"}}')
+                     for ph in ("delta", "partition", "compile", "pad", "dispatch",
+                                "device_block", "oracle", "decode", "other")},
+        "peaks": peaks, "memory": memory, "limits": limits, "rcs": rcs,
+        "solver_launches": launches,
+        "solver_dispatches": solver_device.get("dispatches", {}),
+        "controller_launches": {lb: d.get("launches", {}) for lb, d in ctrl_device.items()},
+        "controller_uploads": {lb: d.get("transfer_bytes", {}) for lb, d in ctrl_device.items()},
+        "twin_ticks": want["ticks"], "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def chart_twin_process(payload: str, _phases, conn) -> None:
+    """`chart_twin` at `CHART_PODS` in a process of its own (`CpuTwins`),
+    its readings sent back through ``conn`` as ``("chart", readings)``, or
+    ``("error", text)``."""
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(CPU_TWIN_THREADS)
+    try:
+        t0 = time.perf_counter()
+        conn.send(("chart", dict(chart_twin(CHART_PODS, payload),
+                                 seconds=time.perf_counter() - t0)))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def chart_phase(torch, card) -> dict:
+    """Phase 16 as the module docstring lists it; the CPU twin runs in a
+    spawned process beside the processes on the card.  Returns the
+    solver's launches by kernel."""
+    import functools
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, payload = chart_render(chart_values(CHART_VALUES, tmp))
+    twins = CpuTwins((16,), target=functools.partial(chart_twin_process, payload))
+    try:
+        r = chart_topology(twin=lambda: twins.get("chart"))
+    finally:
+        twins.close()
+    standby = [lb for lb in r["rcs"] if lb.startswith("controller-") and lb != r["leader"]]
+    print(f"    one leader: {r['leader']} (standby {', '.join(standby) or 'none'})", flush=True)
+    print(f"    all {r['nominated']} pods nominated; the {r['claims']} NodeClaims' multiset of "
+          f"(instance type, zone, capacity type, pods) equals the CPU twin's "
+          f"({r['twin_ticks']} ticks of 2 s of fake clock)", flush=True)
+    print(f"    the solver's launches by kernel on the card (/debug/device, {card}): "
+          f"{json.dumps(r['solver_launches'])}; its dispatches {json.dumps(r['solver_dispatches'])}",
+          flush=True)
+    print(f"    the controllers' launches on their cards: {json.dumps(r['controller_launches'])}; "
+          f"uploads {json.dumps(r['controller_uploads'])}", flush=True)
+    print(f"    {r['first_claim_s']!r} s from the controllers' start to the leader's first "
+          f"NodeClaim, {r['nominated_s']!r} s to the last nomination; the loader put the "
+          f"objects in {r['load_s']!r} s", flush=True)
+    print(f"    the leader's solve: {r['solve_s']!r} s wall over {r['solves']!r} solve(s) "
+          f"(karpenter_provisioner_scheduling_duration_seconds), phases s "
+          f"{json.dumps(r['phases_s'])} ({card})", flush=True)
+    print(f"    SIGTERM exit codes: {json.dumps(r['rcs'])}", flush=True)
+    print(f"  phase 16 took {r['seconds']!r} s", flush=True)
+    return dict(r["solver_launches"])
+
+
 def phase_launches(kernel: str, per_phase: dict) -> dict:
     """A kernels-line row's launches on each phase's path: ``per_phase``
     maps each column (``operator_launches``: phase 7's drive,
@@ -5722,11 +6327,16 @@ def main(argv) -> int:
 
     print(f"[mesh] the sharded pack on a {MESH_SHARDS}-shard device mesh, {card}", flush=True)
     mesh = mesh_phase(torch, card)
+    phase_done(15, through)
+
+    print(f"[chart] {CHART_DIR}'s topology as processes on the card, {card}", flush=True)
+    chart_launches = chart_phase(torch, card)
 
     per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
                  "sim_launches": sim_launches, "service_launches": service["launches"],
                  "ha_launches": ha_launches, "fleet_launches": fleet_launches,
-                 "legacy_launches": legacy_launches, "mesh_launches": mesh["launches"]}
+                 "legacy_launches": legacy_launches, "mesh_launches": mesh["launches"],
+                 "chart_launches": chart_launches}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]

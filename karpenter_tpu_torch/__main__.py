@@ -76,15 +76,6 @@ import sys
 import threading
 import time
 
-from karpenter_tpu_torch.api import NodeClass, NodePool, Pod, Resources, Settings
-from karpenter_tpu_torch.api.objects import SelectorTerm
-from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
-from karpenter_tpu_torch.metrics.registry import REGISTRY
-from karpenter_tpu_torch.obs.device import OBSERVATORY
-from karpenter_tpu_torch.operator import Operator, solve_kind, solver_counters
-from karpenter_tpu_torch.state.kube import KubeStore
-from karpenter_tpu_torch.utils.clock import Clock
-
 log = logging.getLogger("karpenter_tpu_torch")
 
 
@@ -113,7 +104,25 @@ def main(argv=None) -> int:
         # --store-address replicas (and their Lease election) share
         from karpenter_tpu_torch.service.store_server import main as store_main
 
-        return store_main(argv[1:])
+        # a pod is stopped by SIGTERM: the store ends as on SIGINT, which
+        # its serve loop takes as the end, and exits 0, also when the
+        # signal comes before the loop starts
+        signal.signal(signal.SIGTERM, signal.default_int_handler)
+        try:
+            return store_main(argv[1:])
+        except KeyboardInterrupt:
+            return 0
+    # the controller's modules (torch and the CUDA library's wrappers among
+    # them) load only here: the store server above is a process of its own
+    # that needs none of them
+    from karpenter_tpu_torch.api import Settings
+    from karpenter_tpu_torch.cloud.fake.backend import FakeCloud, generate_catalog
+    from karpenter_tpu_torch.metrics.registry import REGISTRY
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.state.kube import KubeStore
+    from karpenter_tpu_torch.utils.clock import Clock
+
     parser = argparse.ArgumentParser(prog="python -m karpenter_tpu_torch")
     parser.add_argument(
         "--settings-file",
@@ -331,6 +340,9 @@ def _seed_demo(kube, n: int) -> None:
     """The demo workload: a default NodeClass and NodePool and ``n`` small
     pending pods (those a shared store already holds are left as they
     are, bindings included)."""
+    from karpenter_tpu_torch.api import NodeClass, NodePool, Pod, Resources
+    from karpenter_tpu_torch.api.objects import SelectorTerm
+
     kube.put_node_class(
         NodeClass(
             name="default",
@@ -350,6 +362,9 @@ def _bounded_run(args, operator, kube, scheduler, stop) -> None:
     """``--ticks`` reconciles, one JSON line each, with the lease renewed
     in the background and the lock watchdog running, as `Operator.run`
     keeps them; a signal ends the run early."""
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+    from karpenter_tpu_torch.operator import solve_kind, solver_counters
+
     if operator.elector is not None:
         # keep the lease fresh through ticks longer than its duration
         operator.elector.start_background_renewal(stop)

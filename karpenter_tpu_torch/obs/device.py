@@ -156,6 +156,10 @@ class DeviceObservatory:
         self._resident_sources: "weakref.WeakKeyDictionary" = (
             weakref.WeakKeyDictionary()
         )
+        # the CUDA library's launches by kernel (ops/fused_packer.py
+        # LAUNCHES, attached when that module loads): /debug/device shows
+        # which kernels a process ran, a solver sidecar's among them
+        self.kernel_launches: Dict[str, int] = {}
         # the totals at the top of the current tick
         self._tick_base: dict = self._base_snapshot()
         self._tick_detail_base: dict = self._detail_snapshot()
@@ -373,6 +377,9 @@ class DeviceObservatory:
                 "warm_recompiles": dict(sorted(t.warm_recompiles.items())),
                 "unique_shapes": t.unique_shapes(),
                 "dispatches": dict(sorted(t.dispatches.items())),
+                "launches": {
+                    k: n for k, n in sorted(self.kernel_launches.items()) if n
+                },
                 "transfer_bytes": dict(sorted(t.transfer_bytes.items())),
                 "resident": {
                     "bytes": dict(sorted(resident.items())),

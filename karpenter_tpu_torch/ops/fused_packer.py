@@ -115,6 +115,7 @@ LAUNCHES: Dict[str, int] = {
     "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_scan": 0,
     "ffd_shard_cap": 0, "ffd_shard_apply": 0,
 }
+OBSERVATORY.kernel_launches = LAUNCHES  # /debug/device's "launches"
 # the launches of the sharded pack (csrc/mesh_pack.cu and the shard modes of
 # csrc/ffd_pack.cu), in their order: the scan is either ffd_shard_scan or
 # the pair after it (`shard_scan_kernel`)

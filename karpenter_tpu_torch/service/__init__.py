@@ -8,12 +8,25 @@ the solver service, and the shared cluster store's server
 its watch client (``watchclient.py``); the store's client is
 ``state/remote.py``'s `RemoteKubeStore`."""
 
-from karpenter_tpu_torch.service.client import (
-    RemoteSolver,
-    SolverBusyError,
-    SolverUnavailableError,
-)
-from karpenter_tpu_torch.service.server import SolverServer, SolverService
+import importlib
+
+# loaded on first use: the store server (``store_server.py``) is a process
+# of its own that needs neither the solver nor torch
+_EXPORTS = {
+    "RemoteSolver": "client",
+    "SolverBusyError": "client",
+    "SolverUnavailableError": "client",
+    "SolverServer": "server",
+    "SolverService": "server",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "RemoteSolver",

@@ -55,8 +55,10 @@ that fails raises to every tenant of the batch; nothing falls back.
 from __future__ import annotations
 
 import logging
+import signal
 import socket
 import socketserver
+import sys
 import threading
 import time
 from collections import deque
@@ -765,6 +767,16 @@ def main(argv=None) -> int:  # pragma: no cover - CLI entry
     )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # a pod is stopped by SIGTERM: stop serving and exit 0, as on SIGINT,
+    # also when the signal comes while the server starts
+    stop = threading.Event()
+
+    def _stop(_sig, _frame):
+        log.info("shutting down")
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
     if args.settings_file:
         from karpenter_tpu_torch.api.settings import Settings
 
@@ -774,11 +786,12 @@ def main(argv=None) -> int:  # pragma: no cover - CLI entry
         )
     else:
         server = SolverServer(args.host, args.port, device=args.device)
+    telemetry = None
     if args.telemetry_port:
         from karpenter_tpu_torch.obs.device import OBSERVATORY
         from karpenter_tpu_torch.obs.http import start_telemetry
 
-        start_telemetry(
+        telemetry = start_telemetry(
             args.telemetry_port,
             server.registry,
             tracer=server.tracer,
@@ -792,9 +805,14 @@ def main(argv=None) -> int:  # pragma: no cover - CLI entry
         "solver sidecar listening on %s:%d (multi_tenant=%s, device=%s)",
         *server.address, server.multi_tenant, server.device,
     )
-    server.serve_forever()
+    server.start_background()
+    while not stop.wait(0.5):
+        pass
+    server.stop()
+    if telemetry is not None:
+        telemetry.shutdown()
     return 0
 
 
 if __name__ == "__main__":  # pragma: no cover
-    main()
+    sys.exit(main())

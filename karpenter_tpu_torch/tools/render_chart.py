@@ -10,8 +10,10 @@ features the templates use:
 - line-level conditionals — a line consisting solely of
   ``{{ if <cond> }}`` opens a block closed by a ``{{ end }}`` line
   (blocks nest); ``<cond>`` is ``and``-joined atoms, each
-  ``.Values.path`` (truthy), ``not .Values.path``, or
-  ``.Values.path > <number>``,
+  ``.Values.path`` (truthy), ``not .Values.path``,
+  ``.Values.path > <number>``, or ``eq .Values.path "<string>"`` (helm's
+  string equality: the port's chart asks for a card only where
+  ``controller.device`` is ``"cuda"``),
 - ``{{ fail "message" }}`` — a render-time assertion: reaching it in an
   active block aborts the render (the helm ``fail`` analogue, used to
   refuse unsafe value combinations like ``replicas: 2`` without the
@@ -68,11 +70,16 @@ def _truthy(v) -> bool:
 
 def _eval_cond(cond: str, values: dict, name: str) -> bool:
     """``and``-joined atoms: ``.Values.p`` | ``not .Values.p`` |
-    ``.Values.p > N``."""
+    ``.Values.p > N`` | ``eq .Values.p "s"``."""
     for atom in (a.strip() for a in cond.split(" and ")):
         negate = False
         if atom.startswith("not "):
             negate, atom = True, atom[4:].strip()
+        m = re.fullmatch(r'eq\s+\.Values\.([A-Za-z0-9_.]+)\s+"([^"]*)"', atom)
+        if m:
+            if (str(_lookup(values, m.group(1))) == m.group(2)) == negate:
+                return False
+            continue
         m = re.fullmatch(
             r"\.Values\.([A-Za-z0-9_.]+)(?:\s*>\s*([0-9.]+))?", atom
         )

@@ -214,15 +214,17 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "13"], 13),
     (["--through", "14"], 14),
     (["--through", "15"], 15),
+    (["--through", "16"], 16),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
-    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14", "argv14-15"])
+    "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14", "argv14-15",
+    "argv15-16"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "16"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "17"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -243,7 +245,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "16"],
+        [sys.executable, "chip_smoke.py", "--through", "17"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -760,7 +762,7 @@ def test_phase13_crash_rounds_and_launch_columns():
     assert list(row)[-1] == "fleet_launches"
     assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
                    "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
-    assert chip_smoke.LAST_PHASE == 15
+    assert chip_smoke.LAST_PHASE == 16
     assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
         "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
     assert chip_smoke.FLEET_REPLAYED == "solver-fleet"
@@ -888,3 +890,80 @@ def test_profiler_blind_windows_take_the_fallback(monkeypatch, capsys):
     assert "timed by CUDA events instead" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         chip_smoke.profiled_ms(torch, fn, "k", 1)
+
+
+def test_phase16_argv_mapping():
+    """A rendered argv as this host runs it: only the service hostnames
+    (and the bind-all address), the ports and the settings mount change;
+    a port the map lacks is an error, not a port left as it was."""
+    argv = ["python", "-m", "karpenter_tpu_torch", "--settings-file=/etc/karpenter/settings.json",
+            "--interval=1.0", "--metrics-port=8080", "--solver-address=karpenter-tpu-solver:8081",
+            "--store-address=karpenter-tpu-store:8082", "--leader-elect", "--device=cuda",
+            "--host=0.0.0.0", "--events-cap=4096", "--shard-index=0"]
+    ports = {8080: 40001, 8081: 40002, 8082: 40003}
+    mapped, changed = chip_smoke.map_argv(argv, ports, "/tmp/x")
+    assert changed == [
+        ("--settings-file=/etc/karpenter/settings.json", "--settings-file=/tmp/x/settings.json"),
+        ("--metrics-port=8080", "--metrics-port=40001"),
+        ("--solver-address=karpenter-tpu-solver:8081", "--solver-address=127.0.0.1:40002"),
+        ("--store-address=karpenter-tpu-store:8082", "--store-address=127.0.0.1:40003"),
+        ("--host=0.0.0.0", "--host=127.0.0.1"),
+    ]
+    assert [a for a in mapped if a not in dict(changed).values()] == [
+        a for a in argv if a not in dict(changed)]
+    with pytest.raises(KeyError):
+        chip_smoke.map_argv(["--port=9999"], ports, "/tmp/x")
+    assert chip_smoke.listen_ports(argv) == [8080]
+    assert chip_smoke.implicit_ports("store", ["--port=8082"]) == ["--telemetry-port=8083"]
+    assert chip_smoke.implicit_ports("store", ["--telemetry-port=1"]) == []
+    assert chip_smoke.implicit_ports("solver", ["--port=8081"]) == []
+
+
+def test_phase16_claims_multiset():
+    """Two clusters with the same claims under other names and launch order
+    compare equal; a pod nominated to another claim, or a claim in another
+    zone, does not."""
+    claims = {"nodeclaim-0": ("m.large", "zone-a", "spot"),
+              "nodeclaim-1": ("m.large", "zone-a", "spot"),
+              "nodeclaim-2": ("c.xlarge", "zone-b", "on-demand")}
+    nominated = {"default/p0": "nodeclaim-0", "default/p1": "nodeclaim-0",
+                 "default/p2": "nodeclaim-1", "default/p3": "nodeclaim-2"}
+    twin_claims = {"nodeclaim-7": ("c.xlarge", "zone-b", "on-demand"),
+                   "nodeclaim-8": ("m.large", "zone-a", "spot"),
+                   "nodeclaim-9": ("m.large", "zone-a", "spot")}
+    twin_nominated = {"default/p3": "nodeclaim-7", "default/p2": "nodeclaim-8",
+                      "default/p0": "nodeclaim-9", "default/p1": "nodeclaim-9"}
+    got = chip_smoke.claims_multiset(claims, nominated)
+    want = chip_smoke.claims_multiset(twin_claims, twin_nominated)
+    assert got == want
+    assert got[0] == ("c.xlarge", "zone-b", "on-demand", ("default/p3",))
+    assert chip_smoke.multiset_diff(got, want) == ([], [])
+    moved = chip_smoke.claims_multiset(claims, {**nominated, "default/p2": "nodeclaim-0"})
+    extra, missing = chip_smoke.multiset_diff(moved, want)
+    assert ("m.large", "zone-a", "spot", ("default/p0", "default/p1", "default/p2")) in extra
+    assert ("m.large", "zone-a", "spot", ("default/p2",)) in missing
+    zoned = chip_smoke.claims_multiset({**claims, "nodeclaim-2": ("c.xlarge", "zone-c",
+                                                                  "on-demand")}, nominated)
+    assert chip_smoke.multiset_diff(zoned, want) == (
+        [("c.xlarge", "zone-c", "on-demand", ("default/p3",))],
+        [("c.xlarge", "zone-b", "on-demand", ("default/p3",))])
+
+
+def test_phase16_rss_against_limit():
+    """Memory quantities as Kubernetes writes them, and the processes whose
+    peak RSS passes their rendered limit (none where there is no limit)."""
+    assert chip_smoke.memory_bytes("512Mi") == 512 * 2 ** 20
+    assert chip_smoke.memory_bytes("1Gi") == 2 ** 30
+    assert chip_smoke.memory_bytes("1.5Gi") == 3 * 2 ** 29
+    assert chip_smoke.memory_bytes("800M") == 800 * 10 ** 6
+    assert chip_smoke.memory_bytes("4096") == 4096
+    with pytest.raises(ValueError):
+        chip_smoke.memory_bytes("1 gig")
+    peaks = {"store": 600 * 2 ** 20, "solver": 9 * 2 ** 30, "controller-0": 2 ** 30,
+             "controller-1": 2 ** 30 + 1}
+    limits = {"store": "512Mi", "solver": None, "controller-0": "1Gi", "controller-1": "1Gi"}
+    assert chip_smoke.rss_over_limit(peaks, limits) == ["controller-1", "store"]
+    import os
+
+    mem = chip_smoke.proc_memory(os.getpid())
+    assert mem["VmRSS"] > 0 and mem["VmHWM"] >= mem["VmRSS"]

@@ -7,8 +7,9 @@ port's `Settings`, and the port's ``tools/gen_crds.py`` regenerates
 ``deploy/crds`` byte for byte from the port's ``api/objects.py``.  The
 chart is the JAX package's and stays as it is: it still starts ``python -m
 karpenter_tpu`` and asks for the TPU, so the two asserts on those words
-keep the reference's (``text`` replacements undo the rename there).  A
-chart for the port is queued in ROADMAP.md.
+keep the reference's (``text`` replacements undo the rename there).  The
+port's own chart is ``deploy/chart_torch``; ``tests/test_torch_chart.py``
+runs the same cases over it in the port's words.
 
 `test_render_chart_equals_the_reference` holds the two packages'
 renderers byte-equal on the same values.
