@@ -41,9 +41,17 @@ Phases (each failure exits non-zero before the last line is printed):
      four) with its prefilled slots straddling the first boundary between
      two CTAs of a cluster and, separately, between two clusters
      (`grid_wrap_cases`); the grid's co-resident clusters
-     (``cudaOccupancyMaxActiveClusters``) are printed; then, in a process
-     of its own, the grid scan with a spin budget of one clock cycle must
-     trap and torch must raise (`spin_trap`);
+     (``cudaOccupancyMaxActiveClusters``) are printed; the grid's batch
+     and fleet modes (`compare_grid_batches`): ``testing.frontier_arrays``'
+     wrap case at 32,768 slots with a what-if batch of `GRID_BATCH`
+     elements (more than the 7 groups of two clusters), its prefilled slots
+     at 0 (the frontier-window scan first) and across each boundary, and
+     its "past" case at Kp 16,384 (two elements leave the window for the
+     grid), through ``ffd_scan_batch`` and through the grid on every
+     element, then a fleet of two wrap tenants at 32,768 slots; then, each in a
+     process of its own, the grid scan with a spin budget of one clock
+     cycle, alone and with a batch axis, must trap and torch must raise
+     (`spin_trap`);
    - the choice alone (``compare_choose``): ``choose_config`` on the three
      main-path problems, the wrap case (Gp 10), ``testing.tie_arrays``
      (first-index ties, a class that fits nothing, a class with maxper 0)
@@ -105,11 +113,15 @@ Phases (each failure exits non-zero before the last line is printed):
    of config 2's general pool, each holding 1-4 seeded pods of those two
    sizes, the universe its 64 least-loaded nodes (Kp 4096, the cluster
    scan); the 64 singles and the 64 drop-one subsets, then a pass at
-   population 512, 2 rounds.  The launch counters are set to 0 just before
+   population 512, 2 rounds.  ``live10k``: the same on 10,000 live nodes
+   (Kp and Cp 16,384: the grid scan's batch mode; one timed pass; its CPU
+   drives, both objectives, in spawned processes beside the card's drives,
+   `VERDICT_TWINNED`; each problem's drive seconds printed).  The launch counters are set to 0 just before
    the drive and read just after: the batched scans of each problem's
    shapes (`fused_packer.batch_launches`: the frontier-window scan alone at
    ``sweep``, whose Kp 1024 fits its window, the cluster scan alone at
-   ``live``, whose 2,000 live slots pass it), each of `verdict_rows`' three
+   ``live``, whose 2,000 live slots pass it, the grid scan alone at
+   ``live10k``), each of `verdict_rows`' three
    launches (``verdict_summary``, ``verdict_configs``, ``verdict_write``)
    and ``population_pairs`` (the prologue) must have launched, no other
    batched scan; each batched launch group's shapes, W, plan, the elements
@@ -120,7 +132,7 @@ Phases (each failure exits non-zero before the last line is printed):
    same calls through ``device="cpu"``.  Then on the same card tensors
    each kernel against its plain version, bit for bit: the batched scan
    (full outputs, as the wrapper launches it and the picked scan on every
-   element; at ``live`` also through the global scan),
+   element; at ``live`` and ``live10k`` also through the global scan),
    ``population_prologue``'s three outputs and the [B, 6] rows; then the
    tie and edge cases (``testing.verdict_tie_arrays``: equal masked prices
    across warps and config tiles, elements in two groups, an element with
@@ -141,7 +153,11 @@ Phases (each failure exits non-zero before the last line is printed):
    elements the card runs at once)), the plain versions' times,
    ``torch.argsort(stable=True)`` beside the prologue, the p50 of both
    entry points with their last phases, and the count of ``needs_host``
-   verdicts.
+   verdicts (`verdict_rows` and the prologue at ``sweep`` and ``live``
+   only).  At ``live10k`` the grid's batched scan and the global scan are
+   timed in turns on the removal batch (B 128) and
+   the population (B 512), each with its bound and latency floor
+   (`grid_turns`).
 7. The operator: the port's provisioning loop through its normal entry
    point, ``testing.Environment(device="cuda")`` (the `Operator` over the
    fake cloud, a fake clock and the fake kubelet) over config 2's catalog
@@ -248,7 +264,11 @@ Phases (each failure exits non-zero before the last line is printed):
    2,000 live nodes, each tenant's live usage and counts seeded apart:
    Kp 4096, the cluster scan; and through the global scan's own entry
    point, ``scan="ffd_scan_global"``), B 4 ``wrap_arrays`` tenants at 256
-   slots (int32 sums that wrap), each from its own seed.  Then two cells,
+   slots (int32 sums that wrap), each from its own seed; and past one
+   cluster (`FLEET_GRID`: such tenants on 10,000 live nodes at B 4 and 16,
+   Kp 16,384, and on 20,000 at B 4, Kp 32,768: the grid's fleet mode),
+   each then timed in turns against the global fleet scan
+   (`fleet_grid_turns`).  Then two cells,
    each one ``SolverServer(multi_tenant=True)`` and one legacy sidecar on
    the card, all of a cell's tenants in one solve group (else the phase
    fails): ``service-16-bench`` (``bench.py:run_solver_service`` at full
@@ -425,7 +445,11 @@ kernels' rows take ``launches`` from there, ``forced_launches`` from the
 rest of the phase, where the pair is driven directly, ``timer`` the
 clock of ``ms`` (profiler, or CUDA events with the gaps between launches),
 and ``ffd_shard_scan``'s row its latency floor and its time, its timer,
-bound and floor at the live cluster), the card line, and last ``{"ok": true, "device": {...}}``.
+bound and floor at the live cluster; ``ffd_scan_grid_batched``'s and
+``ffd_scan_grid_fleet``'s rows their readings in turns with the global
+scan, ``in_turns``, the fleet row also its launches in phase 11's checks,
+``forced_launches``: no cell reaches its shapes), the card line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -451,14 +475,15 @@ SCAN_KERNELS = ("ffd_scan", "ffd_scan_global", "ffd_scan_cluster", "ffd_scan_gri
 # `verdict_rows` and the one of `population_prologue`
 VERDICT_ROWS = ("verdict_summary", "verdict_configs", "verdict_write")
 VERDICT_KERNELS = ("ffd_scan_batched", "ffd_scan_cluster_batched",
-                   "ffd_scan_global_batched", "ffd_scan_window_batched", *VERDICT_ROWS,
-                   "population_pairs")
+                   "ffd_scan_global_batched", "ffd_scan_window_batched",
+                   "ffd_scan_grid_batched", *VERDICT_ROWS, "population_pairs")
 # the wrapper (the function held to its plain version) of each verdict launch
 VERDICT_FUNCTION = {**{k: "verdict_rows" for k in VERDICT_ROWS},
                     "population_pairs": "population_prologue"}
 KERNELS = ("choose_config", *SCAN_KERNELS, *VERDICT_KERNELS, "admit_kernel",
            "choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
-           "ffd_scan_global_fleet", "assemble_feasibility", "choose_config_shard",
+           "ffd_scan_global_fleet", "ffd_scan_grid_fleet", "assemble_feasibility",
+           "choose_config_shard",
            "ffd_shard_scan", "ffd_shard_cap", "ffd_shard_apply")
 LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # phase 5's clusters past one thread-block cluster (config 2's pods on
@@ -466,8 +491,15 @@ LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # driven with fewer solves (warm-up, timed) to stay inside the run's time
 LARGE_LIVE = {"config2_live10k": 10_000, "config2_live20k": 20_000}
 LARGE_SOLVES = (1, 5)
-# phase 3's wrap cases on the grid scan: two clusters and four
+# phase 3's wrap cases on the grid scan: two clusters and four; the first
+# also with a what-if batch axis (B elements: more than the groups of two
+# clusters an H100 holds, 7) and as a fleet of two
 GRID_WRAP_SLOTS = (32768, 65536)
+GRID_BATCH = 16
+# phase 3's frontier case whose elements leave the window for the grid
+# (`testing.frontier_arrays`' "past" at Kp 16,384: Cp 20,000 puts its
+# feasibility ring past a cluster's CTA)
+GRID_FRONTIER = dict(case="past", k_slots=16384, configs=20000)
 # the scan each of phase 5's problems must launch once a solve
 PHASE5_SCAN = {"config2": "ffd_scan", "flagship": "ffd_scan",
                "config2_live": "ffd_scan_cluster",
@@ -481,11 +513,13 @@ ROW_PROBLEM = {"choose_config": "config2", "ffd_scan": "config2",
                "ffd_scan_batched": "sweep", "ffd_scan_cluster_batched": "live",
                "ffd_scan_global_batched": "live",
                "ffd_scan_window_batched": "consolidation",
+               "ffd_scan_grid_batched": "live10k",
                **{k: "live" for k in VERDICT_FUNCTION},
                "admit_kernel": "arrivals",
                "choose_config_fleet": "service-16-config2",
                "ffd_scan_fleet": "service-16-config2",
                "ffd_scan_cluster_fleet": "fleet_live", "ffd_scan_global_fleet": "fleet_live",
+               "ffd_scan_grid_fleet": "fleet_live10k",
                # phase 15: the factorized step at config 2's shapes, and the
                # sharded pack over config 2's resident state on the mesh
                "assemble_feasibility": "mesh_step", "choose_config_shard": "config2_mesh",
@@ -504,18 +538,39 @@ VERDICT_REPLACES = {
     "ffd_scan_cluster_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_global_batched": "karpenter_tpu/ops/packer.py:615",
     "ffd_scan_window_batched": "karpenter_tpu/ops/packer.py:615",
+    "ffd_scan_grid_batched": "karpenter_tpu/ops/packer.py:615",
     **{k: "karpenter_tpu/ops/packer.py:525" for k in VERDICT_ROWS},
     "population_pairs": "karpenter_tpu/ops/packer.py:686",
 }
 SWEEP_PODS = 560
 LIVE_UNIVERSE = 64
-POPULATION = {"sweep": 320, "live": 512}
+# the live cluster past one thread-block cluster (Kp and Cp 16,384: the
+# grid scan), built as ``live`` is
+LIVE10K_NODES = 10_000
+POPULATION = {"sweep": 320, "live": 512, "live10k": 512}
 SEARCH_ROUNDS, SEARCH_SEED, VERDICT_SEED = 2, 7, 8
-TIMED_VERDICTS = 5
+# timed passes a problem (``live10k`` fewer, to stay inside the run's time)
+TIMED_VERDICTS = {"sweep": 5, "live": 5, "live10k": 1}
 # the scan each verdict problem's shapes pick (its batched form runs after
 # the frontier-window scan where `fused_packer.batch_launches` says so: at
-# ``sweep`` the window holds every slot, at ``live`` next0 is past it)
-VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster"}
+# ``sweep`` the window holds every slot, at ``live`` and ``live10k`` next0
+# is past it)
+VERDICT_SCAN = {"sweep": "ffd_scan", "live": "ffd_scan_cluster", "live10k": "ffd_scan_grid"}
+# the problems whose batched scan is also held to and timed against the
+# global scan's (forced through `fused_packer._launch_global`)
+VERDICT_GLOBAL = ("live", "live10k")
+# the problems whose CPU drives (the card's drives repeated through the
+# plain versions, each objective) run in spawned processes, one an
+# objective, beside the card's drives (`verdict_twin`: live10k's takes
+# about 24 s an objective on the card's host), and the problems at which
+# `verdict_rows`' and the prologue's launches are timed (their rows are
+# measured at ``live``)
+VERDICT_TWINNED = ("live10k",)
+VERDICT_ROWS_TIMED = ("sweep", "live")
+# the grid's batched scan and the global one timed in turns (global, grid,
+# grid, global) on live10k's removal batch and population: CUDA-event
+# calls a reading
+GRID_TURN_ITERS = 3
 L2_PROBE_BYTES = 8 << 20  # pointer-chase buffer: past L1, well inside L2
 PROFILE_ATTEMPTS = 3  # profiler windows a kernel's device time may take
 # a kernel the profiler names otherwise than "<name>_kernel": the choice
@@ -614,7 +669,11 @@ FLEET_LIVE_SEED, FLEET_WRAP_SEED, FLEET_ITERS = 23, 7, 20
 # scan in fleet mode), in place of the JAX package's fleet_pack_kernel, a
 # jitted vmap of _pack_core (not a Pallas kernel)
 FLEET_KERNELS = ("choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
-                 "ffd_scan_global_fleet")
+                 "ffd_scan_global_fleet", "ffd_scan_grid_fleet")
+# the fleets past one thread-block cluster: problem, tenants (config 2 on
+# 10,000 live nodes at B 4 and 16, more than the 15 groups of one cluster;
+# on 20,000 at B 4, two clusters an element)
+FLEET_GRID = (("config2_live10k", 4), ("config2_live10k", 16), ("config2_live20k", 4))
 FLEET_REPLACES = "karpenter_tpu/ops/packer.py:930"
 # phase 12: two replicas over one shared cluster store, phase 7's cell
 # (config 2's pods, CHURN_PODS a churn round, testing.HA_CHURN_ROUNDS in the
@@ -1013,9 +1072,9 @@ def grid_wrap_cases(max_clusters: int) -> dict:
     out = {}
     for k in GRID_WRAP_SLOTS:
         K, R, S, _ = pack_shapes(T.wrap_arrays(k))
-        q, ctas, per_thread, _ = F.grid_layout(K, R, S, max_clusters)
-        kp = per_thread * F.scan_threads(-(-K // (q * ctas)))  # a CTA's slots
-        for where, b in (("a CTA boundary", kp), ("a cluster boundary", ctas * kp)):
+        g = F.grid_layout(K, R, S, max_clusters)
+        kp = g.per_thread * F.scan_threads(-(-K // (g.clusters * g.ctas)))  # a CTA's slots
+        for where, b in (("a CTA boundary", kp), ("a cluster boundary", g.ctas * kp)):
             out[f"wrap k_slots={k} straddling slot {b} ({where})"] = (k, b - 2)
     return out
 
@@ -1031,9 +1090,9 @@ def layout_note(shapes, picked: str, max_clusters: int) -> str:
         return (f" (cluster of {ctas} CTAs, {per_thread} slots a thread, {smem} bytes of "
                 f"shared memory each)")
     if picked == "ffd_scan_grid":
-        q, ctas, per_thread, smem = F.grid_layout(K, R, S, max_clusters)
-        return (f" (grid of {q} clusters of {ctas} CTAs, {per_thread} slots a thread, {smem} "
-                f"bytes of shared memory each)")
+        g = F.grid_layout(K, R, S, max_clusters)
+        return (f" (grid of {g.clusters} clusters of {g.ctas} CTAs, {g.per_thread} slots a "
+                f"thread, {g.smem} bytes of shared memory each)")
     return ""
 
 
@@ -1042,13 +1101,23 @@ import sys
 import torch
 from karpenter_tpu_torch import testing as T
 from karpenter_tpu_torch.ops import fused_packer as F, packer as P
-(req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0,
- sig0) = P.to_device(T.wrap_arrays(%d), torch.device("cuda"))
+K, batched = %d, %r
+dev = torch.device("cuda")
+if batched:
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     *_, cnt_b, rm_b, perm_b) = P.to_device(T.frontier_arrays("wrap", k_slots=K, batch=%d), dev)
+    cnt, batch = cnt_b[0], (perm_b.shape[0], perm_b, cnt_b, rm_b)
+else:
+    (req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0,
+     sig0) = P.to_device(T.wrap_arrays(K), dev)
+    batch = None
 chosen = F.choose_config(req, maxper, feas, alloc, price, openable)
+args = (req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0)
+shapes = (req.shape[0], alloc.shape[0], K, req.shape[1], sig0.shape[0])
+layout = F.grid_layout(K, shapes[3], shapes[4], F.grid_clusters(0))
 torch.cuda.synchronize()
 try:
-    F.ffd_scan_grid(req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
-                    sig0, spin_budget=1)
+    F._launch_grid(args, shapes, layout, batch, spin_budget=1)
     torch.cuda.synchronize()
 except RuntimeError as exc:
     print("raised: " + str(exc).splitlines()[0])
@@ -1060,22 +1129,83 @@ sys.exit(1)
 
 def spin_trap(card: str) -> None:
     """Phase 3's check that a lost entry ends the grid scan's launch: in a
-    process of its own (the trap ends its CUDA context), ``ffd_scan_grid``
-    on ``wrap_arrays`` over two clusters with a spin budget of one clock
-    cycle, so a wait on the other cluster outlasts it; the launch must
+    process of its own for each (the trap ends its CUDA context), the grid
+    scan at `GRID_WRAP_SLOTS`' first count (two clusters an element) with a
+    spin budget of one clock cycle, so a wait on the other cluster outlasts
+    it, on ``wrap_arrays`` alone and with a what-if batch of `GRID_BATCH`
+    elements over it (``frontier_arrays``' wrap case); each launch must
     fail and torch must raise at the next synchronize."""
     import pathlib
 
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", SPIN_TRAP_SCRIPT % GRID_WRAP_SLOTS[0]],
-                          cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
-                          text=True, timeout=300)
-    said = (proc.stdout.strip().splitlines() or [""])[-1]
-    if proc.returncode != 0 or not said.startswith("raised: "):
-        fail(f"ffd_scan_grid with a spin budget of 1 cycle did not trap and raise "
-             f"(exit {proc.returncode}): {said} {proc.stderr[-2000:]}")
-    print(f" ffd_scan_grid with a spin budget of 1 cycle at {GRID_WRAP_SLOTS[0]} slots: the "
-          f"launch trapped and torch {said} ({time.perf_counter() - t0:.3f} s, {card})")
+    for batched in (False, True):
+        what = f"with a batch of {GRID_BATCH}" if batched else "alone"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SPIN_TRAP_SCRIPT % (GRID_WRAP_SLOTS[0], batched, GRID_BATCH)],
+            cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=300)
+        said = (proc.stdout.strip().splitlines() or [""])[-1]
+        if proc.returncode != 0 or not said.startswith("raised: "):
+            fail(f"ffd_scan_grid {what} with a spin budget of 1 cycle did not trap and raise "
+                 f"(exit {proc.returncode}): {said} {proc.stderr[-2000:]}")
+        print(f" ffd_scan_grid {what} with a spin budget of 1 cycle at {GRID_WRAP_SLOTS[0]} "
+              f"slots: the launch trapped and torch {said} ({time.perf_counter() - t0:.3f} s, "
+              f"{card})")
+
+
+def compare_grid_batches(torch, max_clusters: int) -> dict:
+    """Phase 3's grid scan with a batch axis, against the plain versions
+    bit for bit, both objectives: `testing.frontier_arrays`' wrap case at
+    `GRID_WRAP_SLOTS`' first count (two clusters an element), `GRID_BATCH`
+    elements, its prefilled slots at 0 (the frontier-window scan first) and
+    straddling each boundary of `grid_wrap_cases`, and `GRID_FRONTIER`
+    (two elements leave the window for the grid); each through
+    `ffd_scan_batch` (the launches `batch_launches` names) and through the
+    grid on every element (`grid_runs`).  Then a fleet of two wrap tenants at
+    the same slots (`compare_fleet`).  Returns the largest error of each
+    kernel."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    dev = torch.device("cuda")
+    k = GRID_WRAP_SLOTS[0]
+    cases = {f"wrap k_slots={k}": dict(case="wrap", k_slots=k, batch=GRID_BATCH),
+             **{name: dict(case="wrap", k_slots=k, batch=GRID_BATCH, at=at)
+                for name, (kk, at) in grid_wrap_cases(max_clusters).items() if kk == k},
+             f"frontier past k_slots={GRID_FRONTIER['k_slots']}": GRID_FRONTIER}
+    errs = {}
+    for name, shape in cases.items():
+        a = P.to_device(T.frontier_arrays(**shape), dev)
+        (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+         *_, cnt_b, rm_b, perm_b) = a
+        for objective in OBJECTIVES:
+            chosen = F.choose_config(req, maxper, feas, alloc, price, openable, objective)
+            scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
+                         sig0, cnt_b, rm_b, perm_b)
+            plan = F.batch_launches(next0, *batch_shapes(scan_args))
+            if plan[-1] != "ffd_scan_grid_batched":
+                fail(f"{name} batched: the plan is {plan}, not the grid's")
+            outs, moved = launches_of(torch, lambda: F.ffd_scan_batch(*scan_args))
+            if moved != dict.fromkeys(plan, 1):
+                fail(f"{name} batched: launched {moved}, expected {plan}")
+            want = P.ffd_scan_batch_reference(*scan_args)
+            got = [("ffd_scan_batch", outs), ("grid", grid_runs(torch, scan_args)["grid"]())]
+            torch.cuda.synchronize()
+            e = {what: max_abs_err(torch, o, want) for what, o in got}
+            front = T.element_frontiers(want[2].cpu().numpy(), next0)
+            print(f"  {name} batched B={perm_b.shape[0]} Kp={used0.shape[0]} {objective}: "
+                  f"launches {plan}, largest frontier {int(front.max())}, max_abs_err "
+                  f"{json.dumps(e)}", flush=True)
+            if any(e.values()):
+                fail(f"{name} batched {objective}: the grid scan differs from its plain version")
+            errs["ffd_scan_grid_batched"] = max(errs.get("ffd_scan_grid_batched", 0.0),
+                                                *e.values())
+    tenants = [P.to_device(T.fleet_tenant_arrays("wrap", FLEET_WRAP_SEED + i, k), dev)
+               for i in range(2)]
+    errs["ffd_scan_grid_fleet"] = compare_fleet(torch, f"wrap k_slots={k}", tenants,
+                                                "ffd_scan_grid")
+    return errs
 
 
 def compare_kernels(torch, args, picked, extra):
@@ -1517,29 +1647,33 @@ def drive_solves(torch, name, spec, rng):
 # ---------------------------------------------------------------------------
 
 
-def verdict_specs(device: str = "cuda"):
-    """Phase 6's problems: name -> dict of pools, inventory, existing nodes,
-    the candidate universe, the removal subsets, node prices, the population
-    and the rounds.  The sweep's nodes come from a cold port solve on
-    ``device``."""
+def verdict_specs(device: str = "cuda", names=tuple(POPULATION)):
+    """Phase 6's problems ``names``: name -> dict of pools, inventory,
+    existing nodes, the candidate universe, the removal subsets, node
+    prices, the population and the rounds.  The sweep's nodes come from a
+    cold port solve on ``device``."""
     from karpenter_tpu_torch import testing as T
 
-    pools, inv, existing, cands = T.consolidation_sweep(SWEEP_PODS, device=device)
     def spec(pools, inv, existing, universe, subsets, name):
         node = {sn.name: sn for sn in existing}
         return dict(pools=pools, inventory=inv, existing=existing, universe=universe,
                     subsets=subsets, population=POPULATION[name],
                     prices=T.node_prices([node[c.node_name] for c in universe], inv))
 
-    pools, inv, existing, cands = T.consolidation_sweep(SWEEP_PODS, device=device)
-    specs = {"sweep": spec(pools, inv, existing, cands, [[c] for c in cands], "sweep")}
+    specs = {}
+    if "sweep" in names:
+        pools, inv, existing, cands = T.consolidation_sweep(SWEEP_PODS, device=device)
+        specs["sweep"] = spec(pools, inv, existing, cands, [[c] for c in cands], "sweep")
     hpools, hinv, _ = T.heterogeneous_problem(scale=1 / T.N_PODS)
     std = next(it for it in hinv["general"] if it.name == "std1.large")
-    existing, cands = T.consolidation_cluster(VERDICT_SEED, LIVE_NODES, [std])
-    universe = cands[:LIVE_UNIVERSE]
-    drop_one = [[c for c in universe if c is not d] for d in universe]
-    specs["live"] = spec(hpools, hinv, existing, universe,
-                         [[c] for c in universe] + drop_one, "live")
+    for name, nodes in (("live", LIVE_NODES), ("live10k", LIVE10K_NODES)):
+        if name not in names:
+            continue
+        existing, cands = T.consolidation_cluster(VERDICT_SEED, nodes, [std])
+        universe = cands[:LIVE_UNIVERSE]
+        drop_one = [[c for c in universe if c is not d] for d in universe]
+        specs[name] = spec(hpools, hinv, existing, universe,
+                           [[c] for c in universe] + drop_one, name)
     return specs
 
 
@@ -1577,6 +1711,31 @@ def drive_verdicts(sched, spec):
         plan.observe(keys, [(v.fits, v.replacement_price) for v in got])
         rounds.append((keys, got))
     return removals, rounds, plan.best(), calls
+
+
+def verdict_twin(objective: str, _phases, conn) -> None:
+    """The CPU drives of `VERDICT_TWINNED`'s problems for ``objective``, in
+    a process of their own (`CpuTwins`) started as phase 6 begins, so that
+    they run beside the card's drives: each sent back through ``conn`` as
+    ``(name, (removals, rounds, best, seconds))``, or ``("error", text)``."""
+    import traceback
+
+    import torch
+
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    torch.set_num_threads(CPU_TWIN_THREADS)
+    try:
+        specs = verdict_specs("cpu", VERDICT_TWINNED)
+        for name, spec in specs.items():
+            t0 = time.perf_counter()
+            cpu = TorchScheduler(spec["pools"], spec["inventory"], existing=spec["existing"],
+                                 device="cpu", objective=objective)
+            conn.send((name, (*drive_verdicts(cpu, spec)[:3], time.perf_counter() - t0)))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
 
 
 def verdict_inputs(torch, sched, spec):
@@ -1652,9 +1811,10 @@ def window_report(torch, label, records, each: bool = False) -> dict:
 def compare_verdict_kernels(torch, name, base, batch, masks, objective):
     """Phase 6's bit-equality on one problem's card tensors: the batched
     scan on the removal batch and on the population (the global scan too at
-    ``live``), `population_prologue`, and `verdict_rows` on each batch,
-    against their plain versions.  Returns the largest error per kernel and
-    the population's inputs and scan outputs (for the times and bounds)."""
+    `VERDICT_GLOBAL`, `grid_runs`), `population_prologue`, and
+    `verdict_rows` on each batch, against their plain versions.  Returns
+    the largest error per kernel, the population's inputs and scan outputs
+    (for the times and bounds) and each batch's scan arguments."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
@@ -1672,7 +1832,7 @@ def compare_verdict_kernels(torch, name, base, batch, masks, objective):
         fail(f"{name}: the shape rule picks {picked}, expected {VERDICT_SCAN[name]}")
     shapes = (req.shape[0], alloc.shape[0], used0.shape[0], req.shape[1], sig0.shape[0])
     plan = F.batch_launches(next0, *pack_shapes(base.args))
-    pop_outs = None
+    pop_outs, batches = None, {}
     for label, (cnt_b, rm_b, perm_b) in (("removal batch", batch), ("population", got_pop)):
         scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
                      sig0, cnt_b, rm_b, perm_b)
@@ -1683,10 +1843,8 @@ def compare_verdict_kernels(torch, name, base, batch, masks, objective):
         # the plan's launches, and the picked scan on every element
         scans = [(k, outs) for k in plan]
         scans.append((f"{picked}_batched", forced_scan(F, scan_args)()))
-        if name == "live":
-            scans.append(("ffd_scan_global_batched", F._launch_global(
-                (req, cnt_b[0], *scan_args[1:13]), shapes,
-                (perm_b.shape[0], perm_b, cnt_b, rm_b))))
+        if name in VERDICT_GLOBAL:
+            scans.append(("ffd_scan_global_batched", grid_runs(torch, scan_args)["global"]()))
         torch.cuda.synchronize()
         for k, got in scans:
             errs[k] = max(errs.get(k, 0.0), max_abs_err(torch, got, want))
@@ -1702,9 +1860,10 @@ def compare_verdict_kernels(torch, name, base, batch, masks, objective):
               + " ".join(f"{k} max_abs_err={v!r}" for k, v in sorted(errs.items())))
         if label == "population":
             pop_outs = (scan_args, outs, tail)
+        batches[label] = scan_args
     if any(v != 0 for v in errs.values()):
         fail(f"{name} {objective}: a verdict kernel disagrees with its plain version: {errs}")
-    return errs, pop, pop_outs
+    return errs, pop, pop_outs, batches
 
 
 def launches_of(torch, fn):
@@ -1834,48 +1993,76 @@ def forced_scan(F, scan_args):
                                     (perm_b.shape[0], perm_b, cnt_b, rm_b))
 
 
+def grid_runs(torch, scan_args) -> dict:
+    """The scans past one cluster on every element of ``scan_args`` (no
+    window scan before them): ``"global"``, the global scan forced through
+    `fused_packer._launch_global`, and where the grid holds the shapes
+    ``"grid"``, its groups as the wrapper launches them."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    req, cnt_b, rm_b, perm_b = scan_args[0], *scan_args[13:]
+    K, R, S, C = batch_shapes(scan_args)
+    args, shapes = (req, cnt_b[0], *scan_args[1:13]), (req.shape[0], C, K, R, S)
+    batch = (perm_b.shape[0], perm_b, cnt_b, rm_b)
+    runs = {"global": lambda: F._launch_global(args, shapes, batch)}
+    layout = F.grid_layout(K, R, S, F.grid_clusters(torch.cuda.current_device()))
+    if layout is not None:
+        runs["grid"] = lambda: F._launch_grid(args, shapes, layout, batch)
+    return runs
+
+
+def timed_in_turns(torch, runs: dict, iters: int) -> dict:
+    """Mean ms a call of each of ``runs`` (CUDA events, ``iters`` calls a
+    reading), read in turns: the first run, the others, the others again
+    in reverse order, the first again; each the mean of its two
+    readings."""
+    names = list(runs)
+    order = names + names[:0:-1] + names[:1]
+    got = {k: [] for k in names}
+    for k in order:
+        got[k].append(cuda_ms(torch, runs[k], iters=iters, warmup=1))
+    return {k: statistics.mean(v) for k, v in got.items()}
+
+
 def time_verdict_kernels(torch, name, pop, pop_outs):
     """Device ms a launch (torch.profiler) of the batched scan the shapes
     pick (on every element: `forced_scan`) and, where the wrapper launches
     it, of the frontier-window scan (through `ffd_scan_batch`), each launch
     of `verdict_rows` and `population_pairs` on the population's tensors,
     beside their plain versions (CUDA events) and, beside the prologue,
-    ``torch.argsort(stable=True)`` of the same keys' shape; at ``live``
-    the global batched scan's ms a launch by CUDA events.  Returns those,
-    the argsort's ms and `verdict_rows`' CUDA-event ms per back-to-back
-    call of the wrapper (its three launches and their host enqueue)."""
+    ``torch.argsort(stable=True)`` of the same keys' shape; where the
+    global batched scan's row is measured, its ms a launch by CUDA
+    events.  Returns those, the argsort's ms and `verdict_rows`' CUDA-event
+    ms per back-to-back call of the wrapper (its three launches and their
+    host enqueue); outside `VERDICT_ROWS_TIMED` the scans alone, and None
+    for both."""
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
 
     scan_args, outs, tail = pop_outs
     picked = VERDICT_SCAN[name]
-    rows = lambda: F.verdict_rows(*outs, *tail)
-    rows_ms = profiled_launches_ms(torch, rows, VERDICT_ROWS, iters=50)
-    rows_plain = cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)
     scan_plain = cuda_ms(torch, lambda: P.ffd_scan_batch_reference(*scan_args), iters=2, warmup=1)
-    out = {
-        f"{picked}_batched": (
-            profiled_ms(torch, forced_scan(F, scan_args), picked, iters=20), scan_plain),
-        **{k: (rows_ms[k], rows_plain) for k in VERDICT_ROWS},
-        "population_pairs": (
-            profiled_ms(torch, lambda: F.population_prologue(*pop), "population_pairs",
-                        iters=50),
-            cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1)),
-    }
+    out = {f"{picked}_batched": (
+        profiled_ms(torch, forced_scan(F, scan_args), picked, iters=20), scan_plain)}
     if "ffd_scan_window_batched" in F.batch_launches(scan_args[11], *batch_shapes(scan_args)):
         out["ffd_scan_window_batched"] = (profiled_ms(
             torch, lambda: F.ffd_scan_batch(*scan_args), "ffd_scan_window", iters=20), scan_plain)
+    if name not in VERDICT_ROWS_TIMED:
+        return out, None, None
+    rows = lambda: F.verdict_rows(*outs, *tail)
+    rows_ms = profiled_launches_ms(torch, rows, VERDICT_ROWS, iters=50)
+    rows_plain = cuda_ms(torch, lambda: P.verdict_rows_reference(*outs, *tail), iters=2, warmup=1)
+    out.update({k: (rows_ms[k], rows_plain) for k in VERDICT_ROWS})
+    out["population_pairs"] = (
+        profiled_ms(torch, lambda: F.population_prologue(*pop), "population_pairs", iters=50),
+        cuda_ms(torch, lambda: P.population_prologue_reference(*pop), iters=5, warmup=1))
     rows_events = cuda_ms(torch, rows, iters=50)
-    if name == "live":
-        shapes = (scan_args[0].shape[0], scan_args[4].shape[0], scan_args[8].shape[0],
-                  scan_args[0].shape[1], scan_args[12].shape[0])
-        cnt_b, rm_b, perm_b = scan_args[13:]
-        glob = lambda: F._launch_global((scan_args[0], cnt_b[0], *scan_args[1:13]), shapes,
-                                        (perm_b.shape[0], perm_b, cnt_b, rm_b))
+    if ROW_PROBLEM["ffd_scan_global_batched"] == name:
         # CUDA events: the profiler records no device time for this
         # kernel's batched launches on the card (PERF.md §7)
-        out["ffd_scan_global_batched"] = (cuda_ms(torch, glob, iters=3, warmup=1),
-                                          out[f"{picked}_batched"][1])
+        out["ffd_scan_global_batched"] = (
+            cuda_ms(torch, grid_runs(torch, scan_args)["global"], iters=3, warmup=1),
+            out[f"{picked}_batched"][1])
     keys = torch.randint(0, 2**30, (pop[5].shape[0], pop[3].shape[0]), dtype=torch.int32,
                          device="cuda")
     argsort_ms = cuda_ms(torch, lambda: torch.argsort(keys, dim=1, stable=True), iters=50)
@@ -1883,11 +2070,12 @@ def time_verdict_kernels(torch, name, pop, pop_outs):
 
 
 def batched_floor_ms(torch, name, base, B, barrier_us, l2_us, kernel=None) -> float:
-    """A batched scan's latency floor: class steps x (its barrier + 2 /
-    SCAN_TILE dependent L2 loads) x ceil(B / elements the card runs at
-    once).  ``kernel``: the scan the base's shapes pick (``None``) or
-    ``"ffd_scan_window"``, whose step is the resident scan's (one block
-    barrier, the same tiles of class rows)."""
+    """A batched scan's latency floor: class steps x (its barriers x
+    ``barrier_us`` + its exposed dependent L2 loads, `scan_step_model`: 2 /
+    SCAN_TILE but in the global scan) x ceil(B / elements the card runs at
+    once).  ``kernel``: the scan the base's shapes pick (``None``), another
+    scan, or ``"ffd_scan_window"``, whose step is the resident scan's (one
+    block barrier, the same tiles of class rows)."""
     from karpenter_tpu_torch.ops import fused_packer as F
 
     K, R, S, C = pack_shapes(base.args)
@@ -1895,12 +2083,40 @@ def batched_floor_ms(torch, name, base, B, barrier_us, l2_us, kernel=None) -> fl
     kernel = kernel or F.scan_kernel(K, R, S, C)
     at_once = F.scan_concurrency(K, R, S, C, kernel)
     waves = -(-B // at_once)
-    _, loads = scan_step_model("ffd_scan" if kernel == "ffd_scan_window" else kernel, K)
-    ms = G * (barrier_us + loads * l2_us) * waves / 1e3
-    print(f"  {name} {kernel}_batched latency floor: {G} steps x ({barrier_us!r} us "
+    barriers, loads = scan_step_model("ffd_scan" if kernel == "ffd_scan_window" else kernel, K)
+    ms = G * (barriers * barrier_us + loads * l2_us) * waves / 1e3
+    print(f"  {name} {kernel}_batched latency floor: {G} steps x ({barriers} x {barrier_us!r} us "
           f"barrier + {loads} L2 x {l2_us!r} us) x {waves} waves ({B} elements, {at_once} at "
           f"once) = {ms!r} ms")
     return ms
+
+
+def grid_turns(torch, name, base, batches, card, floors) -> dict:
+    """The batched scans past one cluster on each of a problem's batches
+    (at ``live10k`` the removal batch, B 128, and the population, B 512),
+    timed in turns (`grid_runs`' global and grid scans, `timed_in_turns`), beside the batch's bound (`batched_scan_bound`: the
+    take write alone is B x Gp x Kp x 4 bytes) and each scan's latency floor
+    (`batched_floor_ms`: ``floors`` holds the grid's exchange, the global
+    scan's block barrier and the L2 round trip, in us).  Returns each B's
+    readings."""
+    out = {}
+    for label, scan_args in batches.items():
+        B = scan_args[15].shape[0]
+        runs = grid_runs(torch, scan_args)
+        ms = timed_in_turns(torch, runs, GRID_TURN_ITERS)
+        bound = batched_scan_bound(torch, scan_args, runs["grid"]())
+        fl = {"grid": batched_floor_ms(torch, name, base, B, floors["grid"], floors["l2"],
+                                       "ffd_scan_grid"),
+              "global": batched_floor_ms(torch, name, base, B, floors["glob"], floors["l2"],
+                                         "ffd_scan_global")}
+        print(f"  {name} {label} B={B} in turns (global, grid, grid, global), "
+              f"ms a launch (CUDA events): {json.dumps(ms)}; global / grid "
+              f"{ms['global'] / ms['grid']!r}; bound {bound['bound_ms']!r} ms "
+              f"({bound['bound_by']}, take alone {B * scan_args[0].shape[0] * scan_args[8].shape[0] * 4} "
+              f"bytes); latency floors {json.dumps(fl)} ms ({card})", flush=True)
+        out[str(B)] = dict(ms=ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                           latency_floor_ms=fl)
+    return out
 
 
 def rows_in_groups(F, group: int, outs, tail):
@@ -2083,10 +2299,33 @@ def compare_frontier_cases(torch):
     return errs
 
 
+def hold_verdicts(name: str, objective: str, runs, want, card: str) -> None:
+    """Phase 6: each of a problem's card drives ``runs`` against its CPU
+    drive ``want``, with the verdicts' counts and (nodes objective) the
+    calls' times printed."""
+    for got in runs:
+        if got[0] != want[0] or [r[0] for r in got[1]] != [r[0] for r in want[1]] \
+                or [r[1] for r in got[1]] != [r[1] for r in want[1]] or got[2] != want[2]:
+            fail(f"{name} {objective}: the card's verdicts differ from the CPU's")
+    removals, rounds, best = runs[0][:3]
+    verdicts = list(removals) + [v for _, vs in rounds for v in vs]
+    print(f"  {name} {objective}: {len(verdicts)} verdicts equal the CPU's "
+          f"({sum(v.fits for v in verdicts)} fit, "
+          f"{sum(v.replacement_price > 0 for v in verdicts)} with a replacement, "
+          f"needs_host {sum(v.needs_host for v in verdicts)}); plan best {best}")
+    if objective == "nodes":
+        for call in ("evaluate_removals", "evaluate_population"):
+            ms = [c[1] for run in runs[1:] for c in run[3] if c[0] == call]
+            last = [c[2] for c in runs[-1][3] if c[0] == call][-1]
+            print(f"  {name} {call}: p50_ms={statistics.median(ms)!r} min_ms={min(ms)!r} "
+                  f"max_ms={max(ms)!r} over {len(ms)} calls ({card}); last_phases_ms="
+                  + json.dumps({k: v * 1e3 for k, v in sorted(last.items())}))
+
+
 def verdict_phase(torch, card):
     """Phase 6 as the module docstring lists it.  Returns the kernels-line
     figures of its kernels."""
-    import numpy as np
+    import functools
 
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.scheduling.solver import TorchScheduler
@@ -2100,17 +2339,18 @@ def verdict_phase(torch, card):
     card_runs, per_problem, per_records = {}, {}, {}
     try:
         for name, spec in specs.items():
-            before, first = dict(F.LAUNCHES), len(records)
+            before, first, t0 = dict(F.LAUNCHES), len(records), time.perf_counter()
             for objective in OBJECTIVES:
                 sched = TorchScheduler(spec["pools"], spec["inventory"],
                                        existing=spec["existing"], device="cuda",
                                        objective=objective)
-                runs = [drive_verdicts(sched, spec)
-                        for _ in range(1 + (TIMED_VERDICTS if objective == "nodes" else 0))]
+                timed = TIMED_VERDICTS[name] if objective == "nodes" else 0
+                runs = [drive_verdicts(sched, spec) for _ in range(1 + timed)]
                 torch.cuda.synchronize()
                 card_runs[(name, objective)] = (sched, runs)
             per_problem[name] = {k: F.LAUNCHES[k] - before[k] for k in VERDICT_KERNELS}
             per_records[name] = records[first:]
+            print(f"  {name}: the card's drive took {time.perf_counter() - t0:.3f} s", flush=True)
     finally:
         F.WINDOW_RECORDS = None
     launches = dict(F.LAUNCHES)
@@ -2127,40 +2367,51 @@ def verdict_phase(torch, card):
             fail(f"{name}: batched scans launched {got}, expected only {plan}")
         print(f"  {name}: the batched scans ran as {plan} (fused_packer.batch_launches)")
         window_report(torch, f"{name} drive", per_records[name])
+    # the twinned problems' CPU drives, one process an objective, from here
+    # on beside the rest of the phase (started after the timed card drives)
+    twins = {o: CpuTwins((), target=functools.partial(verdict_twin, o)) for o in OBJECTIVES}
+    try:
+        return verdict_checks(torch, card, specs, card_runs, launches, twins)
+    finally:
+        for t in twins.values():
+            t.close()
+
+
+def verdict_checks(torch, card, specs, card_runs, launches, twins):
+    """Phase 6 after the card's drives: each drive held to the CPU's (the
+    `VERDICT_TWINNED` problems' last, from ``twins``, their processes by
+    objective), each kernel to its plain version, then the times."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
     # the same calls through the plain versions on the CPU
     for (name, objective), (sched, runs) in card_runs.items():
+        if name in VERDICT_TWINNED:
+            continue
         spec = specs[name]
+        t0 = time.perf_counter()
         cpu = TorchScheduler(spec["pools"], spec["inventory"], existing=spec["existing"],
                              device="cpu", objective=objective)
         want = drive_verdicts(cpu, spec)
-        for got in runs:
-            if got[0] != want[0] or [r[0] for r in got[1]] != [r[0] for r in want[1]] \
-                    or [r[1] for r in got[1]] != [r[1] for r in want[1]] or got[2] != want[2]:
-                fail(f"{name} {objective}: the card's verdicts differ from the CPU's")
-        removals, rounds, best = runs[0][:3]
-        verdicts = list(removals) + [v for _, vs in rounds for v in vs]
-        print(f"  {name} {objective}: {len(verdicts)} verdicts equal the CPU's "
-              f"({sum(v.fits for v in verdicts)} fit, "
-              f"{sum(v.replacement_price > 0 for v in verdicts)} with a replacement, "
-              f"needs_host {sum(v.needs_host for v in verdicts)}); plan best {best}")
-        if objective == "nodes":
-            for call in ("evaluate_removals", "evaluate_population"):
-                ms = [c[1] for run in runs[1:] for c in run[3] if c[0] == call]
-                last = [c[2] for c in runs[-1][3] if c[0] == call][-1]
-                print(f"  {name} {call}: p50_ms={statistics.median(ms)!r} min_ms={min(ms)!r} "
-                      f"max_ms={max(ms)!r} over {len(ms)} calls ({card}); last_phases_ms="
-                      + json.dumps({k: v * 1e3 for k, v in sorted(last.items())}))
+        print(f"  {name} {objective}: the CPU's drive took {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        hold_verdicts(name, objective, runs, want, card)
     # the kernels against their plain versions on the same card tensors
-    errs, timing = {}, {}
+    errs, timing, turn_batches = {}, {}, {}
     for name, spec in specs.items():
+        t0 = time.perf_counter()
         for objective in OBJECTIVES:
             sched = card_runs[(name, objective)][0]
             base, batch, masks = verdict_inputs(torch, sched, spec)
-            e, pop, pop_outs = compare_verdict_kernels(torch, name, base, batch, masks, objective)
+            e, pop, pop_outs, batches = compare_verdict_kernels(torch, name, base, batch, masks,
+                                                                objective)
             for k, v in e.items():
                 errs[k] = max(errs.get(k, 0.0), v)
             if objective == "nodes":
                 timing[name] = (base, pop, pop_outs)
+                turn_batches[name] = batches
+        print(f"  {name}: the kernels against their plain versions took "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
     for k, v in (*compare_tie_cases(torch).items(), *compare_batch_limit(torch).items(),
                  *compare_frontier_cases(torch).items()):
         errs[k] = max(errs.get(k, 0.0), v)
@@ -2169,26 +2420,38 @@ def verdict_phase(torch, card):
                      | {F.WINDOW_THREADS})
     K, R, S, C = pack_shapes(timing["live"][0].args)
     ctas, _, _ = F.cluster_layout(K, R, S, C)
+    K10, R10, S10, _ = pack_shapes(timing["live10k"][0].args)
+    grid = F.grid_layout(K10, R10, S10, F.grid_clusters(torch.cuda.current_device()))
+    grid_probe = (grid.ctas, F.scan_threads(-(-K10 // (grid.clusters * grid.ctas))))
     barrier_us, cluster_us, l2_us = probe_latencies(
-        torch, threads, [(ctas, F.scan_threads(-(-K // ctas)))])
+        torch, threads, [(ctas, F.scan_threads(-(-K // ctas))), grid_probe])
+    grid_us = (probe_grid_exchange(torch, [(grid.clusters, *grid_probe)])[(grid.clusters,
+                                                                           *grid_probe)]
+               if grid.clusters > 1 else cluster_us[grid_probe])
     figures = {}
     for name, (base, pop, pop_outs) in timing.items():
         t, argsort_ms, rows_events = time_verdict_kernels(torch, name, pop, pop_outs)
         scan_args, outs, tail = pop_outs
-        rows = F.verdict_rows(*outs, *tail)
         b_scan = batched_scan_bound(torch, scan_args, outs)
-        b_rows = verdict_rows_bound(torch, outs, tail, rows)
-        bounds = {f"{VERDICT_SCAN[name]}_batched": b_scan, **b_rows["parts"],
-                  "population_pairs": prologue_bound(pop, scan_args[13:16])}
-        if name == "live":
+        bounds = {f"{VERDICT_SCAN[name]}_batched": b_scan}
+        if name in VERDICT_ROWS_TIMED:
+            b_rows = verdict_rows_bound(torch, outs, tail, F.verdict_rows(*outs, *tail))
+            bounds.update(b_rows["parts"], population_pairs=prologue_bound(pop, scan_args[13:16]))
+        if ROW_PROBLEM["ffd_scan_global_batched"] == name:
             bounds["ffd_scan_global_batched"] = b_scan
         B = scan_args[15].shape[0]
         Kb = pack_shapes(base.args)[0]
         if VERDICT_SCAN[name] == "ffd_scan_cluster":
             b_us = cluster_us[(ctas, F.scan_threads(-(-Kb // ctas)))]
+        elif VERDICT_SCAN[name] == "ffd_scan_grid":
+            b_us = grid_us
         else:
             b_us = barrier_us[F.scan_threads(Kb)]
         floor = batched_floor_ms(torch, name, base, B, b_us, l2_us)
+        turns = None
+        if name in turn_batches and VERDICT_SCAN[name] == "ffd_scan_grid":
+            turns = grid_turns(torch, name, base, turn_batches[name], card, floors=dict(
+                grid=b_us, glob=barrier_us[F.scan_threads(Kb)], l2=l2_us))
         if "ffd_scan_window_batched" in t:
             bounds["ffd_scan_window_batched"] = b_scan
             batched_floor_ms(torch, name, base, B, barrier_us[F.WINDOW_THREADS], l2_us,
@@ -2199,7 +2462,10 @@ def verdict_phase(torch, card):
             if ROW_PROBLEM[k] == name:
                 figures[k] = dict(ms=dev_ms, plain_ms=plain_ms, bound=bounds[k],
                                   floor=floor if k == f"{VERDICT_SCAN[name]}_batched" else None,
-                                  argsort_ms=argsort_ms if k == "population_pairs" else None)
+                                  argsort_ms=argsort_ms if k == "population_pairs" else None,
+                                  turns=turns if k == "ffd_scan_grid_batched" else None)
+        if name not in VERDICT_ROWS_TIMED:
+            continue
         launch_sum = sum(t[k][0] for k in VERDICT_ROWS)
         group = F.verdict_group(B, tail[2].shape[0], F._sm_count(torch.cuda.current_device()),
                                 *F.verdict_shape())
@@ -2212,9 +2478,18 @@ def verdict_phase(torch, card):
               f"int32 keys: {argsort_ms!r} ms a call (CUDA events) beside population_pairs' "
               f"{t['population_pairs'][0]!r} ms")
     for f in ("ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-              "ffd_scan_window_batched", "verdict_rows", "population_prologue"):
+              "ffd_scan_window_batched", "ffd_scan_grid_batched", "verdict_rows",
+              "population_prologue"):
         if f not in errs:
             fail(f"phase 6 never compared {f}")
+    for (name, objective), (sched, runs) in card_runs.items():
+        if name not in VERDICT_TWINNED:
+            continue
+        t0 = time.perf_counter()
+        *want, took = twins[objective].get(name)
+        print(f"  {name} {objective}: the CPU's drive took {took:.3f} s in its spawned process, "
+              f"waited for {time.perf_counter() - t0:.3f} s", flush=True)
+        hold_verdicts(name, objective, runs, want, card)
     # the window scan's row is measured at phase 9's base
     return {k: dict(figures.get(k, {}), launches=launches[k],
                     err=errs[VERDICT_FUNCTION.get(k, k)]) for k in VERDICT_KERNELS}
@@ -3569,8 +3844,8 @@ def tenant_args(torch, probs: dict, dev) -> list:
 
 
 def live_tenants(torch, prob, n: int, dev) -> list:
-    """``n`` tenants of config 2 on its 2,000 live nodes (Kp 4096): each
-    the padded problem with every live node's usage scaled by a seeded
+    """``n`` tenants of config 2 on its live nodes (2,000: Kp 4096; 10,000
+    and 20,000: Kp 16,384 and 32,768): each the padded problem with every live node's usage scaled by a seeded
     factor in [0.5, 1) and each class's count cut by a seeded share up to
     10 % (``numpy.random.default_rng(FLEET_LIVE_SEED + i)``)."""
     import numpy as np
@@ -3620,6 +3895,40 @@ def compare_fleet(torch, name: str, tenants: list, picked: str, scan=None) -> fl
             fail(f"fleet {name} {objective}: fleet_pack differs (plain {e_plain}, solo {e_solo})")
         err = max(err, e_plain, e_solo)
     return err
+
+
+def fleet_grid_turns(torch, name: str, tenants: list, card: str) -> dict:
+    """The fleet scan past one cluster on its own (the stacked tenants and
+    their choices made once): the grid scan as `fused_packer.fleet_pack`
+    launches it and the global scan, `fused_packer._launch_global` in its
+    fleet mode, timed in turns (`timed_in_turns`, `GRID_TURN_ITERS` calls a
+    reading); the global scan's outputs must equal the grid's.  Prints and
+    returns both ms a launch and the scan's bound (`fleet_bounds`)."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    B = len(tenants)
+    cols = T.fleet_columns(tenants)
+    stacked = [torch.stack(list(c)) for i, c in enumerate(cols) if i != F._NEXT0]
+    shapes = F._fleet_check(stacked, B)
+    req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, sig0 = stacked
+    chosen = [torch.stack(c) for c in zip(*(F.choose_config(*(t[i] for i in (0, 2, 4, 5, 6, 7)))
+                                            for t in tenants))]
+    args = (req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, 0, sig0)
+    batch = F.Fleet(B, torch.tensor([int(n) for n in cols[F._NEXT0]], dtype=torch.int32,
+                                    device=req.device))
+    runs = {"global": lambda: F._launch_global(args, shapes, batch),
+            "grid": lambda: F._launch_picked(args, shapes, batch)}
+    outs = runs["grid"]()
+    e = max_abs_err(torch, runs["global"](), outs)
+    if e:
+        fail(f"fleet {name} B={B}: the global scan differs from the grid scan ({e})")
+    ms = timed_in_turns(torch, runs, GRID_TURN_ITERS)
+    bound = fleet_bounds(tenants, outs)["ffd_scan"]
+    print(f"  {name} B={B} fleet scans in turns (global, grid, grid, global), ms a launch "
+          f"(CUDA events): {json.dumps(ms)}; global / grid {ms['global'] / ms['grid']!r}; "
+          f"bound {bound['bound_ms']!r} ms ({bound['bound_by']}) ({card})", flush=True)
+    return dict(ms=ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def fleet_bounds(tenants: list, outs) -> dict:
@@ -3847,6 +4156,9 @@ def service_phase(torch, card, probs) -> dict:
     live = live_tenants(torch, probs["config2_live"], 4, dev)
     wrap = [P.to_device(T.fleet_tenant_arrays("wrap", FLEET_WRAP_SEED + i, 256), dev)
             for i in range(4)]
+    # the fleets past one cluster (`FLEET_GRID`), each B the first of its tenants
+    most = {name: max(n for p, n in FLEET_GRID if p == name) for name, _ in FLEET_GRID}
+    grid_tenants = {name: live_tenants(torch, probs[name], n, dev) for name, n in most.items()}
     print("  [fleet vs plain and vs solo] bit-equality on the card", flush=True)
     err = {}
 
@@ -3865,6 +4177,12 @@ def service_phase(torch, card, probs) -> dict:
     held("ffd_scan_global_fleet",
          compare_fleet(torch, "config2_live global", live, "ffd_scan_global",
                        scan="ffd_scan_global"))
+    t0, grid_before = time.perf_counter(), F.LAUNCHES["ffd_scan_grid_fleet"]
+    for name, n in FLEET_GRID:
+        e = compare_fleet(torch, name, grid_tenants[name][:n], "ffd_scan_grid")
+        held("choose_config_fleet", e)
+        held("ffd_scan_grid_fleet", e)
+    print(f"  the fleets past one cluster held in {time.perf_counter() - t0:.3f} s", flush=True)
     for k in FLEET_KERNELS:
         if k not in err:
             fail(f"phase 11 never held {k} to its plain version")
@@ -3897,6 +4215,13 @@ def service_phase(torch, card, probs) -> dict:
         "fleet_live global": time_fleet(torch, "fleet_live global", live, card,
                                         scan="ffd_scan_global"),
     }
+    t0 = time.perf_counter()
+    row_name, row_b = "config2_live10k", 4  # ROW_PROBLEM's fleet_live10k
+    times["fleet_live10k"] = time_fleet(torch, "fleet_live10k",
+                                        grid_tenants[row_name][:row_b], card)
+    turns = {f"{name.removeprefix('config2_')} B={n}": fleet_grid_turns(
+        torch, name, grid_tenants[name][:n], card) for name, n in FLEET_GRID}
+    print(f"  the fleets past one cluster timed in {time.perf_counter() - t0:.3f} s", flush=True)
     rows = {}
     for k in FLEET_KERNELS:
         where = ROW_PROBLEM[k] + (" global" if k == "ffd_scan_global_fleet" else "")
@@ -3904,6 +4229,10 @@ def service_phase(torch, card, probs) -> dict:
         rows[k] = dict(t["rows"][k], err=err[k], plain_ms=t["plain_ms"], B=t["B"],
                        stack_ms=t["stack_ms"], call_ms=t["call_ms"],
                        solo_call_ms=t["solo_call_ms"])
+    # no cell reaches the grid's shapes: its launches are those of the checks
+    # and timings above
+    rows["ffd_scan_grid_fleet"].update(
+        turns=turns, forced_launches=F.LAUNCHES["ffd_scan_grid_fleet"] - grid_before)
     return {"rows": rows, "launches": launches, "cells": results}
 
 
@@ -6122,6 +6451,7 @@ def main(argv) -> int:
         e, kouts[name] = compare_kernels(torch, args, picked, extra)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
+    grid_batch_errs = compare_grid_batches(torch, max_clusters)
     spin_trap(card)
     # the choice on its own cases
     shifted = list(kargs["config2"])
@@ -6187,8 +6517,8 @@ def main(argv) -> int:
     grids = {}
     for name in LARGE_LIVE:
         K, R, S, _ = pack_shapes(kargs[name])
-        q, c, _, _ = F.grid_layout(K, R, S, max_clusters)
-        grids[name] = (q, c, F.scan_threads(-(-K // (q * c))))
+        g = F.grid_layout(K, R, S, max_clusters)
+        grids[name] = (g.clusters, g.ctas, F.scan_threads(-(-K // (g.clusters * g.ctas))))
     barrier_us, cluster_us, l2_us = probe_latencies(
         torch, sorted({F.scan_threads(K) for _, K in steps.values()}),
         sorted({*cluster_threads.items(), *((c, b) for _, c, b in grids.values())}))
@@ -6284,6 +6614,8 @@ def main(argv) -> int:
 
     print(f"[verdicts] the consolidation verdicts on the card, {card}", flush=True)
     verdicts = verdict_phase(torch, card)
+    v = verdicts["ffd_scan_grid_batched"]  # held in phase 3 too
+    v["err"] = max(v["err"], grid_batch_errs["ffd_scan_grid_batched"])
     phase_done(6, through)
 
     print(f"[operator] the provisioning loop on the card, {card}", flush=True)
@@ -6309,6 +6641,8 @@ def main(argv) -> int:
 
     print(f"[service] the multi-tenant solver service on the card, {card}", flush=True)
     service = service_phase(torch, card, probs)
+    v = service["rows"]["ffd_scan_grid_fleet"]  # held in phase 3 too
+    v["err"] = max(v["err"], grid_batch_errs["ffd_scan_grid_fleet"])
     phase_done(11, through)
 
     print(f"[ha] two replicas failing over on one shared cluster store, {card}", flush=True)
@@ -6379,6 +6713,8 @@ def main(argv) -> int:
             "latency_floor_ms": v["floor"],
             **phase_launches(k, per_phase),
             **({"argsort_ms": v["argsort_ms"]} if v["argsort_ms"] is not None else {}),
+            # the grid's batched scan against the global one, in turns at each B
+            **({"in_turns": v["turns"]} if v.get("turns") else {}),
         })
     kernels.append({
         "name": "admit_kernel",
@@ -6419,6 +6755,10 @@ def main(argv) -> int:
             "call_ms": v["call_ms"],
             "solo_call_ms": v["solo_call_ms"],
             **phase_launches(k, per_phase),
+            # the grid's fleet scan against the global one, in turns at each
+            # fleet, and its launches off the cells' path
+            **({"in_turns": v["turns"], "forced_launches": v["forced_launches"]}
+               if v.get("turns") else {}),
         })
     for k in MESH_KERNELS:
         v = mesh["rows"][k]

@@ -26,20 +26,23 @@
 //                           Its shard mode <M, kShard> is the device
 //                           mesh's scan of one device's data shards, a CTA
 //                           a shard (entry mesh_shard_scan).
-//   ffd_scan_grid_kernel<M>  grid (Q x N,): the solve's scan on Q
-//                           co-resident clusters of N CTAs, the slot state
-//                           split over all their shared memory, the class
-//                           totals exchanged between clusters through
-//                           device memory, for slot counts (or feasibility
-//                           rows) one cluster does not hold (see "The
+//   ffd_scan_grid_kernel<M>  grid (groups x Q x N,): the scan on Q
+//                           co-resident clusters of N CTAs an element, the
+//                           slot state split over all their shared memory,
+//                           the class totals exchanged between clusters
+//                           through device memory, for slot counts (or
+//                           feasibility rows) one cluster does not hold;
+//                           `groups` groups of Q clusters each scan every
+//                           groups-th element of a batch (see "The
 //                           grid-resident scan").
 //   ffd_scan_global_kernel  grid (1,): the same scan with the slot state in
 //                           the output buffers (device memory), for more
-//                           than kMaxR resource axes, for shapes past the
-//                           grid, and for the batched scans past a cluster.
+//                           than kMaxR resource axes and for shapes past
+//                           the grid.
 // Each scan takes a batch axis (struct Batch): B what-if problems over one
-// base, one block (resident, global: grid (1, B)) or one cluster (grid
-// (N, B)) per element, for the consolidation verdicts, whose other steps
+// base, one block (resident, global: grid (1, B)), one cluster (grid
+// (N, B)) or one group of the grid's clusters per element, for the
+// consolidation verdicts, whose other steps
 // are the verdict kernels and the population prologue (see "The
 // consolidation verdicts" below).  The solve's scan is the one element B =
 // 1 with no descriptor.  A batch runs first through
@@ -53,8 +56,9 @@
 // package's fleet_pack_kernel, a jitted vmap of _pack_core over B tenants
 // in karpenter_tpu/ops/packer.py) is choose_config with a grid y of B and
 // the picked scan in its third mode, kFleet: B problems of one shape, each
-// array of each element its own (struct Batch), one block or one cluster
-// an element, each the solo computation on its element's slice, so a
+// array of each element its own (struct Batch), one block, one cluster or
+// one group of the grid's clusters an element, each the solo computation
+// on its element's slice, so a
 // tenant's row equals its solo pack bit for bit.  What bounds it is what
 // bounds the solo scan, a chain of Gp dependent steps an element; at the
 // service's B <= 16 most SMs stay idle (one CTA, or one cluster, an
@@ -1569,44 +1573,45 @@ int guard_of(int K) {
 // Replaces the same TPU kernel (karpenter_tpu/ops/pallas_packer.py:
 // _pack_step) where the slot state fits no single cluster: a cluster past
 // about 8,000 live nodes (config 2 on 10,000 live nodes: Kp 16,384, Cp
-// 16,384; on 20,000: Kp 32,768, Cp 32,768), whose solves ran the global
-// scan before.  The cluster scan stops there for two reasons: its ring of
-// 8 whole feasibility rows (8 x Cp bytes a CTA: 256 KB at Cp 32,768, more
-// than a CTA has) and its one cluster (8 CTAs x 2,048 slots).  This
-// kernel is the solve's scan (no batch axis) on a grid of Q co-resident
-// clusters of `ctas` CTAs each (the portable 8 where the slots need it):
-//   A. CTA r of cluster q owns the slots [(q * ctas + r) * KP, + KP), KP =
-//      M * blockDim, stored as in the cluster scan, loaded once and
-//      written once: the whole slot state stays in the grid's shared
-//      memory.
+// 16,384; on 20,000: Kp 32,768, Cp 32,768), whose solves, consolidation
+// what-ifs and fleet packs ran the global scan before.  The cluster scan
+// stops there for two reasons: its ring of 8 whole feasibility rows (8 x
+// Cp bytes a CTA: 256 KB at Cp 32,768, more than a CTA has) and its one
+// cluster (8 CTAs x 2,048 slots).  This kernel scans each element on a
+// group of Q co-resident clusters of `ctas` CTAs each (the portable 8
+// where the slots need it):
+//   A. CTA r of cluster q of the group owns the slots [(q * ctas + r) *
+//      KP, + KP), KP = M * blockDim, stored as in the cluster scan, loaded
+//      once and written once an element: the whole slot state stays in the
+//      group's shared memory.
 //   B. No ring.  A slot needs feas[g, cfg[k]] of its own config only; its
 //      byte for class g + 1 is gathered at the start of step g (the
 //      matrix, 10.5 MB at Cp 32,768, stays in L2), so the load has the
 //      whole step to land.  A slot that opens in step g takes c_star[g],
 //      whose byte for class g + 1 is one more load a step, the same for
 //      every such slot.  The class rows come in tiles, as in the cluster
-//      scan.
+//      scan; a what-if element's base row of class g + 2 (perm) is read a
+//      step ahead of its gather.
 //   C. One exchange a class inside a cluster (each warp's inclusive cap
 //      total and wrap flag over DSMEM, one cluster barrier), as in the
-//      cluster scan; then, where Q > 1, one across clusters: rank 0 of
-//      each cluster publishes its cluster's total and wrap flag, tagged
-//      with the class, into entry [parity][q] of a buffer in device memory
-//      (one 64-bit st.release.gpu), and every warp of the grid reads the Q
-//      entries (ld.acquire.gpu, spinning until each carries the class's
-//      tag): its base adds the totals of the clusters before its own, the
-//      class's sum is all of them, `wraps` the OR of their flags.  Every
-//      CTA then derives n2, the new slots and nxt from the same sums, so
-//      they stay uniform over the grid with no broadcast.  The wrapped
-//      sum, where a cap reaches wrap_guard(K) or n < 0, is a second such
-//      exchange (the cluster's sum of take1 over DSMEM and a cluster
-//      barrier, then its entry in a second row).  Parity alternates the
-//      rows: a cluster publishes class g + 2 only after reading every
-//      cluster's class g + 1 entry, which each published after its
-//      cluster barrier of step g + 1, after all its warps had read class
-//      g's entries, so no entry is overwritten while it is still read.
-//      The leftover is computed in closed form (window_take_sum) by one
-//      CTA.  The buffer is zeroed before each launch (the wrapper), so no
-//      entry of an earlier launch matches a tag.
+//      cluster scan; then, where Q > 1, one across the group's clusters:
+//      rank 0 of each cluster publishes its cluster's total and wrap flag,
+//      tagged with the group's step, into entry [parity][q] of the group's
+//      own rows in device memory (one 64-bit st.release.gpu), and every
+//      warp of the group reads the Q entries (ld.acquire.gpu, spinning
+//      until each carries the step's tag): its base adds the totals of the
+//      clusters before its own, the class's sum is all of them, `wraps`
+//      the OR of their flags.  Every CTA then derives n2, the new slots and
+//      nxt from the same sums, so they stay uniform over the group with no
+//      broadcast.  The wrapped sum, where a cap reaches wrap_guard(K) or n
+//      < 0, is a second such exchange (the cluster's sum of take1 over
+//      DSMEM and a cluster barrier, then its entry in a second row).
+//      Parity alternates the rows by step: a cluster publishes step t + 2
+//      only after reading every cluster's step t + 1 entry, which each
+//      published after its cluster barrier of step t + 1, after all its
+//      warps had read step t's entries, so no entry is overwritten while
+//      it is still read.  The leftover is computed in closed form
+//      (window_take_sum) by one CTA.
 //   D. Co-residency: a cluster that spins on an entry of a cluster that is
 //      not resident would wait forever.  The wrapper sizes the grid to at
 //      most the clusters cudaOccupancyMaxActiveClusters gives at one CTA
@@ -1616,38 +1621,92 @@ int guard_of(int K) {
 //      cluster dimension, so the runtime launches the grid whole or refuses
 //      it.  Every spin has a clock64 budget that ends in __trap(): a lost
 //      entry is a launch failure the caller sees, not a hung process.
+// The batch axis (struct Batch; kWhatIf and kFleet, as the cluster scan
+// carries them).  The launch holds `groups` groups of Q clusters, at most
+// the co-resident clusters over Q (15 groups of one cluster at 16,384
+// slots on an H100, 7 of two at 32,768), and group i scans the elements i,
+// i + groups, ... in turn, one element at a time, on its own slice [4][Q]
+// of the entries.  A launch of B x Q clusters would not make the clusters
+// of one element resident together (D); a loop over the elements does.
+// Across its elements a group numbers its class steps on (the tags: step
+// t carries t + 1, so no entry of an earlier element, or of an earlier
+// launch, zeroed by the wrapper, matches a step's tag), and each element
+// starts and ends with a cluster barrier.  An element the frontier-window
+// scan finished (Batch::done) is skipped by every cluster of its group,
+// which all read the same word before the element's first barrier.  A
+// fleet element reads each input at its slice and its first free slot at
+// next0[e].  Where Q is 1 no entry crosses clusters, and a launch of one
+// cluster an element, grid (ctas, B) with no cooperative attribute, as the
+// batched cluster scan runs, is sound too; on an H100 (700 W) at 16,384
+// slots it took 0.4142 ms against the groups' 0.4134 ms at B 128 and
+// 1.4754 against 1.4568 ms at B 512 (PERF.md), so the kernel keeps the one
+// launch every Q needs, the groups.
 // The per-slot arithmetic is the cluster scan's; what the grid adds is
 // integer (wrapping unsigned sums, associative), so the outputs are bit for
-// bit those of ffd_scan_reference.  What bounds it: latency, a chain of Gp
-// steps, each a cluster barrier and, past one cluster, a round trip
-// through L2 between clusters (the latency probe measures both).
+// bit those of ffd_scan_reference (ffd_scan_batch_reference,
+// fleet_pack_reference).  What bounds it: latency, a chain of Gp steps an
+// element, each a cluster barrier and, past one cluster, a round trip
+// through L2 between clusters (the latency probe measures both), times
+// the rounds of `groups` elements a batch takes.
 constexpr int kMaxGridClusters = 32;  // a warp's lanes read the entries
 // exchange bytes per CTA of the cluster: xtot [2][32] uint2, xsum [32]
 // (fused_packer.GRID_XCHG_BYTES)
 constexpr int kGridXchgBytes = 2 * 32 * 8 + 32 * 4;
 
-template <int M>  // consecutive slots each thread owns
-__global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
+// `v` hidden from the compiler, so that what is derived from it is
+// computed where it is used instead of hoisted out of the class loop into
+// registers held across it.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(v));
+  return v;
+}
+
+// One element of the grid scan: its slot state in, its Gp class steps, its
+// state out.  Its group's steps before it number `step0`; `xg` holds every
+// group's entries, group `grp`'s the slice [4][Q] at `gx`: the totals
+// [2][Q] and the wrapped take-1 sums [2][Q], by step parity.
+template <int M, int kMode>
+__device__ __forceinline__ void grid_element(
     const float* __restrict__ req, const int* __restrict__ cnt,
     const int* __restrict__ maxper, const int* __restrict__ slot,
     const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
     const int* __restrict__ c_star, const int* __restrict__ new_ok,
     const int* __restrict__ per, const float* __restrict__ used0,
     const int* __restrict__ cfg0, const int* __restrict__ npods0,
-    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S, int next0,
-    int ctas, int smem_bytes, int wrap_guard, long long spin_budget,
-    unsigned long long* __restrict__ xg, int* __restrict__ take,
-    int* __restrict__ leftover, int* __restrict__ cfg_out, int* __restrict__ npods_out,
-    float* __restrict__ used_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
+    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S, int next0, int ctas,
+    int q, int Q, int wrap_guard, long long spin_budget, const Batch& bt, int e,
+    unsigned step0, int grp, unsigned long long* __restrict__ xg,
+    unsigned long long* __restrict__ gx, unsigned char* smem,
+    int* __restrict__ take, int* __restrict__ leftover, int* __restrict__ cfg_out,
+    int* __restrict__ npods_out, float* __restrict__ used_out) {
   const int tid = threadIdx.x, B = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = B >> 5;
   const int KP = M * B;  // this CTA's slots; slot i of thread t at i * B + t
   const int rank = (int)cluster_ctarank();
-  const int q = blockIdx.x / ctas, Q = gridDim.x / ctas;  // this cluster, the clusters
   const int XN = ctas * 32;         // exchange entries of one parity
   const int me = rank * nw + warp;  // this warp's exchange entry
   const int entries = ctas * nw;
+  // Registers: a thread of 1024 has 64.  A fleet element's slice of each
+  // stacked input (fe) and each element's slice of the outputs (e) are
+  // offset where they are read or written: pointers moved once for the
+  // element (FLEET_ELEMENT) would each hold two registers across the class
+  // loop, which the solo instance reads from the kernel's parameters.  At
+  // one slot a thread the group's rows of entries are computed from `grp`
+  // where they are read, and a fleet element's offsets of a step from an
+  // opaque copy of its index (`es`); at two slots ptxas (CUDA 12.8) keeps
+  // the pointer `gx` and spilled without it.  Of the variants built, these
+  // alone spill in none of the six instances (chip_smoke's phase 2 fails
+  // on any spill).
+  const int fe = kMode == kFleet ? e : 0;
+  if constexpr (kMode == kFleet) next0 = __ldg(bt.next0 + e);
+  const Elem el = elem_of<kMode>(bt, cnt, e, Gp, K);
+#define GRID_TILE(h0, dst) /* class tile h0 into dst */                                   \
+  {                                                                                       \
+    const size_t g0 = (size_t)fe * Gp;                                                    \
+    load_tile(h0, dst, Gp, Cp, R, Elem{el.perm, el.cnt + g0, el.rm}, req + g0 * R,        \
+              alloc + (size_t)fe * Cp * R, maxper + g0, slot + g0,                        \
+              ChoiceRows{c_star + g0, new_ok + g0, per + g0});                            \
+  }
 
   // class tiles | exchanges | slot state
   const int W = 2 * R + 7;
@@ -1661,43 +1720,45 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
   int* s_cfg = (int*)(s_alloc + (size_t)R * KP);
   int* s_npods = s_cfg + KP;
   int* s_sig = s_npods + KP;
-  off += (size_t)4 * KP * (2 * R + 2 + S);
-  // the rows of the cross-cluster entries: the totals [2][Q] and the
-  // wrapped take-1 sums [2][Q], by class parity
-  unsigned long long* xg_tot = xg;
-  unsigned long long* xg_sum = xg + 2 * Q;
   const int k0 = (q * ctas + rank) * KP, own = min(max(K - k0, 0), KP);
-  if (off > (size_t)smem_bytes || ctas > kMaxCluster || Q > kMaxGridClusters ||
-      (int)cluster_nctarank() != ctas || gridDim.x % ctas != 0)
-    __trap();
-  const Elem el{nullptr, cnt, nullptr};
+  const auto entries_row = [&](int r) {  // row r of the group's [4][Q] entries
+    return M == 1 ? xg + ((size_t)opaque(grp) * 4 + r) * Q : gx + r * Q;
+  };
 
   // ---- this CTA's slot state in, and its slots' bytes of class 0 ---------
+  const size_t fk = (size_t)fe * K;  // a fleet element's first slot in the stacked inputs
+  const float* e_alloc = alloc + (size_t)fe * Cp * R;
+  const uint8_t* row0 = feas + ((size_t)fe * Gp + el.row(0)) * Cp;
   unsigned char fb[M];  // feas[g, cfg] of the thread's slots at step g
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     const int pos = i * B + tid, j = tid * M + i;
     const bool real = j < own;
-    const int c = real ? cfg0[k0 + j] : -1;
+    const int c = real ? el.cfg_in(cfg0 + fk, k0 + j) : -1;
     s_cfg[pos] = c;
-    s_npods[pos] = real ? npods0[k0 + j] : 0;
+    s_npods[pos] = real ? npods0[fk + k0 + j] : 0;
     for (int r = 0; r < R; ++r) {
-      s_used[r * KP + pos] = real ? used0[(size_t)(k0 + j) * R + r] : 0.0f;
-      s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? alloc[(size_t)c * R + r] : 0.0f;
+      s_used[r * KP + pos] = real ? used0[(fk + k0 + j) * R + r] : 0.0f;
+      s_alloc[r * KP + pos] = (c >= 0 && c < Cp) ? e_alloc[(size_t)c * R + r] : 0.0f;
     }
-    for (int s = 0; s < S; ++s) s_sig[s * KP + pos] = real ? sig0[(size_t)s * K + k0 + j] : 0;
-    fb[i] = (Gp > 0 && c >= 0 && c < Cp) ? __ldg(feas + c) : 0;
+    for (int s = 0; s < S; ++s)
+      s_sig[s * KP + pos] = real ? sig0[fk * S + (size_t)s * K + k0 + j] : 0;
+    fb[i] = (Gp > 0 && c >= 0 && c < Cp) ? __ldg(row0 + c) : 0;
   }
   // used_clean as in ffd_scan_kernel, over this CTA's own slots
   bool odd = false;
-  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(size_t)k0 * R + i]);
+  for (int i = tid; i < own * R; i += B) odd |= unclean(used0[(fk + k0) * R + i]);
   const bool used_clean = !__syncthreads_or(odd);
-  load_tile(0, tiles, Gp, Cp, R, el, req, alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
+  GRID_TILE(0, tiles);  // class tile 0
   cluster_sync();  // every CTA runs before the first DSMEM store
 
   int nxt = next0;
+  int next_hr = Gp > 1 ? el.row(1) : 0;  // the base row of class g + 1
   for (int g = 0; g < Gp; ++g) {
     const int p = g & 1;
+    const unsigned t = step0 + (unsigned)g;  // the group's step
+    const unsigned tag = t % 0x7fffffffu + 1u;  // 31 bits, never 0 (a zeroed entry)
+    const int px = (int)(t & 1u);
     const float* creq =
         (const float*)(tiles + ((g / kTile) & 1) * kTile * W + (g % kTile) * W);
     const float* cacs = creq + R;
@@ -1713,7 +1774,9 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
     int cfg[M];
     unsigned char nf[M];
     const bool more = g + 1 < Gp;
-    const uint8_t* next_row = feas + (size_t)(g + 1) * Cp;
+    const int es = kMode == kFleet && M == 1 ? opaque(e) : e;
+    const uint8_t* next_row = feas + ((size_t)(kMode == kFleet ? es : 0) * Gp + next_hr) * Cp;
+    if (g + 2 < Gp) next_hr = el.row(g + 2);  // a step ahead of its gather
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       cfg[i] = s_cfg[i * B + tid];
@@ -1752,28 +1815,28 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
     }
     cluster_sync();
     if (g % kTile == 0 && g + kTile < Gp)  // the next tile, into the other buffer
-      load_tile(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W, Gp, Cp, R, el, req,
-                alloc, maxper, slot, ChoiceRows{c_star, new_ok, per});
+      GRID_TILE(g + kTile, tiles + (((g / kTile) + 1) & 1) * kTile * W);
+#undef GRID_TILE
 
     // ---- this warp's base, the class total and the wrap flag: the cluster's,
-    // then the grid's --------------------------------------------------------
+    // then the group's -------------------------------------------------------
     unsigned below = 0u, sum = 0u, anyw = 0u;
     for (int j = lane; j < entries; j += 32) {
-      const uint2 e = xtot[p * XN + j];
-      sum += e.x;
-      below += j < me ? e.x : 0u;
-      anyw |= e.y;
+      const uint2 x = xtot[p * XN + j];
+      sum += x.x;
+      below += j < me ? x.x : 0u;
+      anyw |= x.y;
     }
     unsigned total = warp_sum(sum);
     unsigned base = warp_sum(below) + incl - run;
     bool wraps = __any_sync(kFull, anyw != 0u);
-    if (Q > 1) {  // grid-uniform
-      unsigned long long* row = xg_tot + p * Q;
-      if (rank == 0 && tid == 0) publish_entry(row + q, (unsigned)(g + 1) << 1 | wraps, total);
-      const unsigned long long e = await_entries(row, Q, (unsigned)(g + 1), spin_budget);
-      base += warp_sum(lane < q ? (unsigned)e : 0u);
-      total = warp_sum((unsigned)e);
-      wraps = __any_sync(kFull, (int)((e >> 32) & 1ull));
+    if (Q > 1) {  // uniform over the group
+      unsigned long long* row = entries_row(px);
+      if (rank == 0 && tid == 0) publish_entry(row + q, tag << 1 | wraps, total);
+      const unsigned long long x = await_entries(row, Q, tag, spin_budget);
+      base += warp_sum(lane < q ? (unsigned)x : 0u);
+      total = warp_sum((unsigned)x);
+      wraps = __any_sync(kFull, (int)((x >> 32) & 1ull));
     }
 
     // ---- first fit in slot order ------------------------------------------
@@ -1794,9 +1857,9 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
       cluster_sync();
       unsigned s = warp_sum_of(xsum, entries);
       if (Q > 1) {
-        unsigned long long* row = xg_sum + p * Q;
-        if (rank == 0 && tid == 0) publish_entry(row + q, (unsigned)(g + 1) << 1, s);
-        s = warp_sum((unsigned)await_entries(row, Q, (unsigned)(g + 1), spin_budget));
+        unsigned long long* row = entries_row(2 + px);
+        if (rank == 0 && tid == 0) publish_entry(row + q, tag << 1, s);
+        s = warp_sum((unsigned)await_entries(row, Q, tag, spin_budget));
       }
       n2 = wsub(n, (int)s);
     }
@@ -1806,22 +1869,22 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
     const int need = cint[4] ? floordiv(wadd(n2, wsub(pg, 1)), pg) : 0;
     const int opened = min(need, wsub(K, nxt));
     const int end = wadd(nxt, opened);
-    int* take_g = take + (size_t)g * K;
+    int* take_g = take + ((size_t)es * Gp + g) * K;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       const int pos = i * B + tid, j = tid * M + i, k = k0 + j;
       const bool win = j < own && k >= nxt && k < end;
       const int t2 = win ? clip(wsub(n2, wmul(wsub(k, nxt), pg)), 0, pg) : 0;
-      const int t = wadd(t1[i], t2);
-      if (j < own) take_g[k] = t;
-      if (t != 0 || !skip_idle) {
-        const float tf = (float)t;
+      const int tk = wadd(t1[i], t2);
+      if (j < own) take_g[k] = tk;
+      if (tk != 0 || !skip_idle) {
+        const float tf = (float)tk;
         for (int r = 0; r < R; ++r) {
           float* u = s_used + r * KP + pos;
           *u = __fmaf_rn(tf, creq[r], *u);
         }
-        s_npods[pos] = wadd(s_npods[pos], t);
-        sig_s[pos] = wadd(sig_s[pos], t);
+        s_npods[pos] = wadd(s_npods[pos], tk);
+        sig_s[pos] = wadd(sig_s[pos], tk);
       }
       if (win) {
         s_cfg[pos] = cs;
@@ -1830,24 +1893,71 @@ __global__ void __launch_bounds__(1024) ffd_scan_grid_kernel(
       fb[i] = win ? ncs : nf[i];
     }
     if (q == 0 && rank == 0 && tid == 0)  // closed form, as the shard mode's
-      leftover[g] = wsub(n2, window_take_sum(n2, pg, nxt, opened));
+      leftover[(size_t)es * Gp + g] = wsub(n2, window_take_sum(n2, pg, nxt, opened));
     nxt = end;
   }
   cluster_sync();  // every DSMEM store has landed; after this none is made
 
   // ---- this CTA's slot state out ------------------------------------------
+  const size_t ek = (size_t)e * K + k0;  // the element's first slot of this CTA
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     const int pos = i * B + tid, j = tid * M + i;
     if (j < own) {
-      cfg_out[k0 + j] = s_cfg[pos];
-      npods_out[k0 + j] = s_npods[pos];
+      cfg_out[ek + j] = s_cfg[pos];
+      npods_out[ek + j] = s_npods[pos];
     }
   }
   for (int idx = tid; idx < own * R; idx += B) {
     const int kk = idx / R, r = idx - kk * R;
-    used_out[(size_t)k0 * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
+    used_out[ek * R + idx] = s_used[r * KP + (kk % M) * B + kk / M];
   }
+  __syncthreads();  // every read of the state before the next element's lands
+}
+
+// grid (groups x Q x ctas,): cluster q of group i scans the elements i,
+// i + groups, i + 2 groups, ...
+// One CTA a SM (the layouts leave no room for two); without that minimum
+// ptxas aimed some instances at two CTAs a SM, 32 registers, and spilled.
+template <int M, int kMode>
+__global__ void __launch_bounds__(1024, 1) ffd_scan_grid_kernel(
+    const float* __restrict__ req, const int* __restrict__ cnt,
+    const int* __restrict__ maxper, const int* __restrict__ slot,
+    const uint8_t* __restrict__ feas, const float* __restrict__ alloc,
+    const int* __restrict__ c_star, const int* __restrict__ new_ok,
+    const int* __restrict__ per, const float* __restrict__ used0,
+    const int* __restrict__ cfg0, const int* __restrict__ npods0,
+    const int* __restrict__ sig0, int Gp, int Cp, int K, int R, int S, int next0,
+    int clusters, int ctas, int smem_bytes, int wrap_guard, long long spin_budget, int nb,
+    Batch bt, unsigned long long* __restrict__ xg, int* __restrict__ take,
+    int* __restrict__ leftover, int* __restrict__ cfg_out, int* __restrict__ npods_out,
+    float* __restrict__ used_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Q = clusters, span = Q * ctas;
+  const int q = (blockIdx.x / ctas) % Q, group = blockIdx.x / span;
+  const int groups = gridDim.x / span;
+  const size_t need = (size_t)8 * kTile * (2 * R + 7) + (size_t)kGridXchgBytes * ctas +
+                      (size_t)4 * M * blockDim.x * (2 * R + 2 + S);
+  if (need > (size_t)smem_bytes || ctas > kMaxCluster || Q > kMaxGridClusters ||
+      (int)cluster_nctarank() != ctas || gridDim.x % span != 0)
+    __trap();
+#define GRID_ELEMENT(E, STEP0, GRP, GX)                                                     \
+  grid_element<M, kMode>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0,   \
+                         cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, ctas, q, Q, wrap_guard, \
+                         spin_budget, bt, E, STEP0, GRP, xg, GX, smem, take, leftover,       \
+                         cfg_out, npods_out, used_out)
+  if constexpr (kMode == kSolo) {  // one element, one group: every index a constant
+    GRID_ELEMENT(0, 0u, 0, xg);
+  } else {
+    unsigned long long* const gx = xg + (size_t)group * 4 * Q;
+    unsigned step0 = 0u;
+    for (int e = group; e < nb; e += groups) {
+      if (finished<kMode>(bt, e)) continue;  // every cluster of the group, before any barrier
+      GRID_ELEMENT(e, step0, group, gx);
+      step0 += (unsigned)Gp;
+    }
+  }
+#undef GRID_ELEMENT
 }
 
 // cudaLaunchKernelEx's configuration of a grid scan: `clusters` clusters
@@ -1872,15 +1982,17 @@ inline cudaLaunchConfig_t grid_config(cudaLaunchAttribute* attr, int clusters, i
   return config;
 }
 
-template <int M>
+// `groups` groups of `clusters` clusters, cooperative.
+template <int M, int kMode>
 int launch_grid(const float* req, const int* cnt, const int* maxper, const int* slot,
                 const uint8_t* feas, const float* alloc, const int* c_star,
                 const int* new_ok, const int* per, const float* used0, const int* cfg0,
                 const int* npods0, const int* sig0, int Gp, int Cp, int K, int R, int S,
-                int next0, int clusters, int ctas, int threads, int smem_bytes,
-                int wrap_guard, long long spin_budget, unsigned long long* xg, int* take,
-                int* leftover, int* cfg, int* npods, float* used, cudaStream_t stream) {
-  const auto kernel = ffd_scan_grid_kernel<M>;
+                int next0, int clusters, int groups, int ctas, int threads,
+                int smem_bytes, int wrap_guard, long long spin_budget, int nb, Batch bt,
+                unsigned long long* xg, int* take, int* leftover, int* cfg, int* npods,
+                float* used, cudaStream_t stream) {
+  const auto kernel = ffd_scan_grid_kernel<M, kMode>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) {
@@ -1889,11 +2001,11 @@ int launch_grid(const float* req, const int* cnt, const int* maxper, const int* 
   }
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t config =
-      grid_config(attr, clusters, ctas, threads, smem_bytes, stream, true);
+      grid_config(attr, clusters * groups, ctas, threads, smem_bytes, stream, true);
   e = cudaLaunchKernelEx(&config, kernel, req, cnt, maxper, slot, feas, alloc, c_star,
                          new_ok, per, used0, cfg0, npods0, sig0, Gp, Cp, K, R, S, next0,
-                         ctas, smem_bytes, wrap_guard, spin_budget, xg, take, leftover, cfg,
-                         npods, used);
+                         clusters, ctas, smem_bytes, wrap_guard, spin_budget, nb, bt, xg, take,
+                         leftover, cfg, npods, used);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -3464,43 +3576,53 @@ int ffd_scan_cluster(const float* req, const int* cnt, const int* maxper,
 #undef FFD_LAUNCH
 }
 
-// The grid-resident scan of one problem (the solve's; no batch axis) on
-// `clusters` co-resident clusters of `ctas` (2, 4 or 8) CTAs of
-// scan_threads(ceil(K / (clusters * ctas))) threads, `slots_per_thread` (1
-// or 2) slots a thread, `smem_bytes` a CTA (fused_packer.grid_layout);
-// `max_clusters` what ffd_scan_grid_clusters gave for this device (the grid
-// must not pass it), `wrap_guard` as for ffd_scan_cluster, `spin_budget`
-// the clock cycles a wait on another cluster may take before it traps, xg
-// [4][clusters] the cross-cluster entries, zeroed.  Returns -2 where the
-// grid would pass `max_clusters`.
+// The grid-resident scan on `clusters` co-resident clusters an element of
+// `ctas` (2, 4 or 8) CTAs of scan_threads(ceil(K / (clusters * ctas)))
+// threads, `slots_per_thread` (1 or 2) slots a thread, `smem_bytes` a CTA
+// (fused_packer.grid_layout); `groups` such groups of clusters at once,
+// each scanning every groups-th element, and `groups * clusters` no more
+// than `max_clusters`, what ffd_scan_grid_clusters gave for this device.
+// `wrap_guard` as for ffd_scan_cluster, `spin_budget` the clock cycles a
+// wait on another cluster may take before it traps, xg [groups][4][clusters]
+// the cross-cluster entries, zeroed; the batch descriptor as for
+// ffd_scan_global.  Returns -2 where the grid would pass `max_clusters`.
 int ffd_scan_grid(const float* req, const int* cnt, const int* maxper, const int* slot,
                   const uint8_t* feas, const float* alloc, const int* c_star,
                   const int* new_ok, const int* per, const float* used0, const int* cfg0,
                   const int* npods0, const int* sig0, int Gp, int Cp, int K, int R, int S,
                   int next0, int clusters, int ctas, int slots_per_thread, int smem_bytes,
-                  int wrap_guard, int max_clusters, long long spin_budget,
+                  int wrap_guard, int max_clusters, long long spin_budget, int groups,
+                  int nb, const int* perm_b, const int* cnt_b,
+                  const uint8_t* rm_b, const int* done_b, const int* next0_b,
                   unsigned long long* xg, int* take, int* leftover, int* cfg, int* npods,
                   float* used, void* stream) {
   if (K <= 0) return 0;
+  const int mode = mode_of(nb, perm_b, cnt_b, rm_b, done_b, next0_b);
   if ((ctas != 2 && ctas != 4 && ctas != 8) || clusters < 1 ||
       clusters > kMaxGridClusters || R > kMaxR || Cp <= 0 || next0 < 0 || next0 > K ||
       wrap_guard < 1 || (long long)wrap_guard - 1 > (long long)0x7fffffff / K ||
-      spin_budget <= 0 || !xg)
+      spin_budget <= 0 || !xg || groups < 1 || mode < 0)
     return (int)cudaErrorInvalidValue;
   const int span = clusters * ctas;
   const int threads = scan_threads((K + span - 1) / span);
   if ((long long)span * slots_per_thread * threads < K) return (int)cudaErrorInvalidValue;
-  if (clusters > max_clusters) return kClusterRefused;
-#define FFD_LAUNCH(M)                                                               \
-  launch_grid<M>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, cfg0, \
-                 npods0, sig0, Gp, Cp, K, R, S, next0, clusters, ctas, threads,        \
-                 smem_bytes, wrap_guard, spin_budget, xg, take, leftover, cfg, npods,  \
-                 used, (cudaStream_t)stream)
+  if ((long long)clusters * groups > max_clusters) return kClusterRefused;
+  const Batch bt{perm_b, cnt_b, rm_b, done_b, next0_b};
+#define FFD_LAUNCH(M, MODE)                                                           \
+  launch_grid<M, MODE>(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per, used0, \
+                       cfg0, npods0, sig0, Gp, Cp, K, R, S, next0, clusters, groups,    \
+                       ctas, threads, smem_bytes, wrap_guard, spin_budget,              \
+                       nb, bt, xg, take, leftover, cfg, npods, used, (cudaStream_t)stream)
+#define FFD_MODES(M)                                                         \
+  (mode == kWhatIf  ? FFD_LAUNCH(M, kWhatIf)                                 \
+   : mode == kFleet ? FFD_LAUNCH(M, kFleet)                                  \
+                    : FFD_LAUNCH(M, kSolo))
   switch (slots_per_thread) {
-    case 1: return FFD_LAUNCH(1);
-    case 2: return FFD_LAUNCH(2);
+    case 1: return FFD_MODES(1);
+    case 2: return FFD_MODES(2);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FFD_MODES
 #undef FFD_LAUNCH
 }
 
@@ -3508,7 +3630,7 @@ int ffd_scan_grid(const float* req, const int* cnt, const int* maxper, const int
 // each the grid scan can hold resident at once on the current device
 // (cudaOccupancyMaxActiveClusters); negative on a CUDA error.
 int ffd_scan_grid_clusters(int ctas, int threads, int smem_bytes) {
-  const auto kernel = ffd_scan_grid_kernel<2>;
+  const auto kernel = ffd_scan_grid_kernel<2, kSolo>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   cudaLaunchAttribute attr[2];

@@ -23,8 +23,8 @@ problems over one base, `ffd_scan_batch`: first the frontier-window scan
 (``ffd_scan_window``, one CTA an element over the first `window_layout`
 slots, where each element's frontier lies), then, for the elements that
 leave that window, the scan `scan_kernel` picks with a batch axis, one
-block or one cluster per element (`window_plan` says which of the two
-launches the shapes need).  `verdict_rows` finishes them (each
+block, one cluster or one group of the grid's clusters per element
+(`window_plan` says which of the two launches the shapes need).  `verdict_rows` finishes them (each
 element's six-value verdict, three launches: a record per element, a pass
 over the configs shared by groups of elements, the rows), and
 `population_prologue` (one launch) derives each removal mask's counts,
@@ -37,8 +37,8 @@ function) scores one class against the live nodes of a resident state:
 The multi-tenant solver service's fleet pack (the JAX package's
 ``fleet_pack_kernel``, a jitted vmap of ``_pack_core``) solves B problems of
 one shape, each with arrays of its own: `fleet_pack`, `choose_config` with a
-grid y of B and the scan `scan_kernel` picks in its fleet mode, one block or
-one cluster an element.
+grid y of B and the scan `scan_kernel` picks in its fleet mode, one block,
+one cluster or one group of the grid's clusters an element.
 
 The sharded pack over a device mesh (parallel/mesh.py, replacing the JAX
 package's mesh, jitted XLA partitioned by GSPMD) is the second library,
@@ -111,7 +111,7 @@ LAUNCHES: Dict[str, int] = {
     "admit_kernel": 0,
     "choose_config_fleet": 0, "ffd_scan_fleet": 0, "ffd_scan_cluster_fleet": 0,
     "ffd_scan_global_fleet": 0,
-    "ffd_scan_grid": 0,
+    "ffd_scan_grid": 0, "ffd_scan_grid_batched": 0, "ffd_scan_grid_fleet": 0,
     "assemble_feasibility": 0, "choose_config_shard": 0, "ffd_shard_scan": 0,
     "ffd_shard_cap": 0, "ffd_shard_apply": 0,
 }
@@ -228,7 +228,7 @@ def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ffd_scan_cluster.argtypes = [_P] * 13 + [_I] * 11 + batch + [_P] * 5 + [_P]
         lib.ffd_scan_cluster.restype = _I
         lib.ffd_scan_grid.argtypes = ([_P] * 13 + [_I] * 12 + [ctypes.c_longlong]
-                                      + [_P] * 6 + [_P])
+                                      + [_I] + batch + [_P] * 6 + [_P])
         lib.ffd_scan_grid.restype = _I
         lib.ffd_scan_grid_clusters.argtypes = [_I] * 3
         lib.ffd_scan_grid_clusters.restype = _I
@@ -401,17 +401,31 @@ def feas_copy_bytes(C: int) -> int:
     return next((b for b in (16, 8, 4) if C % b == 0), 0)
 
 
-def grid_layout(K: int, R: int, S: int, max_clusters: int) -> Optional[Tuple[int, int, int, int]]:
-    """``(clusters, CTAs a cluster, slots per thread, dynamic shared-memory
-    bytes a CTA)`` of the grid scan: the fewest clusters of `GRID_CTAS`
-    CTAs, at most ``max_clusters`` (and `MAX_GRID_CLUSTERS`), whose CTA
-    holds ceil(K / (clusters x GRID_CTAS)) slots with at most
-    `MAX_SLOTS_PER_THREAD` slots a thread at `scan_threads` threads within
-    `SMEM_PER_BLOCK`: the class tiles, GRID_CTAS x `GRID_XCHG_BYTES`
-    exchange words and the state of its slots.  No feasibility ring (the
-    grid gathers each slot's byte), so the row length does not enter.  None
-    where no grid of co-resident clusters holds the slots.  The fewest,
-    because each cluster more adds readers to every class's exchange."""
+class GridLayout(NamedTuple):
+    """The grid scan's layout (`grid_layout`): each element (the solve's
+    scan is one) on a group of ``clusters`` clusters of ``ctas`` CTAs,
+    ``groups`` groups at once, each scanning every groups-th element."""
+
+    clusters: int
+    groups: int
+    ctas: int
+    per_thread: int
+    smem: int
+
+
+def grid_layout(K: int, R: int, S: int, max_clusters: int) -> Optional[GridLayout]:
+    """The grid scan's layout on a card of ``max_clusters`` co-resident
+    clusters: Q, the fewest clusters of `GRID_CTAS` CTAs, at most
+    ``max_clusters`` (and `MAX_GRID_CLUSTERS`), whose CTA holds
+    ceil(K / (Q x GRID_CTAS)) slots with at most `MAX_SLOTS_PER_THREAD`
+    slots a thread at `scan_threads` threads within `SMEM_PER_BLOCK`: the
+    class tiles, GRID_CTAS x `GRID_XCHG_BYTES` exchange words and the state
+    of its slots; the groups of Q clusters the card holds at once (a batch
+    axis's elements in flight), ``max_clusters // Q``; slots per thread and
+    shared-memory bytes a CTA.  No feasibility ring (the grid gathers each
+    slot's byte), so the row length does not enter.  None where no grid of
+    co-resident clusters holds the slots.  The fewest, because each cluster
+    more adds readers to every class's exchange."""
     xchg = GRID_CTAS * GRID_XCHG_BYTES
     tiles = 2 * SCAN_TILE * 4 * (2 * R + 7)
     for clusters in range(1, min(max_clusters, MAX_GRID_CLUSTERS) + 1):
@@ -422,7 +436,7 @@ def grid_layout(K: int, R: int, S: int, max_clusters: int) -> Optional[Tuple[int
             per_thread *= 2
         smem = tiles + xchg + 4 * per_thread * threads * (2 * R + 2 + S)
         if per_thread <= MAX_SLOTS_PER_THREAD and smem <= SMEM_PER_BLOCK:
-            return clusters, GRID_CTAS, per_thread, smem
+            return GridLayout(clusters, max_clusters // clusters, GRID_CTAS, per_thread, smem)
     return None
 
 
@@ -439,18 +453,21 @@ def grid_clusters(index: int) -> int:
     return n
 
 
-def scan_kernel(K: int, R: int, S: int, C: int, max_clusters: Optional[int] = None,
-                *, solo: bool = True) -> str:
+def scan_kernel(K: int, R: int, S: int, C: int, max_clusters: Optional[int] = None) -> str:
     """Which scan kernel runs at these shapes, decided by shape alone (and
     the card's count of co-resident clusters, ``max_clusters``; default:
-    the current card's `grid_clusters`, or `GRID_CLUSTERS` with no card).  Where the problem has at most `MAX_AXES` resource
-    axes and its feasibility rows copy in 4-byte pieces or wider:
-    ``"ffd_scan"`` (resident) where its slot state fits the shared memory
-    of one block with at most `MAX_SLOTS_PER_THREAD` slots a thread, else
-    ``"ffd_scan_cluster"`` where it fits a cluster (`cluster_layout`), else,
-    for the solve's scan (``solo``; the grid has no batch axis),
+    the current card's `grid_clusters`, or `GRID_CLUSTERS` with no card).
+    Where the problem has at most `MAX_AXES` resource axes and its
+    feasibility rows copy in 4-byte pieces or wider: ``"ffd_scan"``
+    (resident) where its slot state fits the shared memory of one block
+    with at most `MAX_SLOTS_PER_THREAD` slots a thread, else
+    ``"ffd_scan_cluster"`` where it fits a cluster (`cluster_layout`), else
     ``"ffd_scan_grid"`` where it fits a grid of co-resident clusters
-    (`grid_layout`).  Otherwise ``"ffd_scan_global"``."""
+    (`grid_layout`; a batch on its groups).  Otherwise
+    ``"ffd_scan_global"``.  The solve's scan, a what-if batch and a fleet
+    pick alike: on an H100 the grid's batch and fleet modes beat the global
+    scan at every B measured, 4 and 16 tenants, 128 and 512 what-ifs
+    (PERF.md), so no batch size keeps the global scan."""
     if R > MAX_AXES or not feas_copy_bytes(C):
         return "ffd_scan_global"
     per_thread, smem = resident_layout(K, R, S, C)
@@ -458,12 +475,11 @@ def scan_kernel(K: int, R: int, S: int, C: int, max_clusters: Optional[int] = No
         return "ffd_scan"
     if cluster_layout(K, R, S, C) is not None:
         return "ffd_scan_cluster"
-    if solo:
-        if max_clusters is None:
-            max_clusters = (grid_clusters(torch.cuda.current_device())
-                            if torch.cuda.is_available() else GRID_CLUSTERS)
-        if grid_layout(K, R, S, max_clusters) is not None:
-            return "ffd_scan_grid"
+    if max_clusters is None:
+        max_clusters = (grid_clusters(torch.cuda.current_device())
+                        if torch.cuda.is_available() else GRID_CLUSTERS)
+    if grid_layout(K, R, S, max_clusters) is not None:
+        return "ffd_scan_grid"
     return "ffd_scan_global"
 
 
@@ -510,7 +526,7 @@ def batch_launches(next0: int, K: int, R: int, S: int, C: int) -> Tuple[str, ...
     """The `LAUNCHES` names of one launch group of `ffd_scan_batch` at these
     shapes (`MAX_BATCH` elements at most), in their order."""
     layout = window_layout(K, R, S, C)
-    picked = f"{scan_kernel(K, R, S, C, solo=False)}_batched"
+    picked = f"{scan_kernel(K, R, S, C)}_batched"
     return {"pick": (picked,), "window": ("ffd_scan_window_batched",),
             "both": ("ffd_scan_window_batched", picked)}[
         window_plan(int(next0), K, layout[0] if layout else 0)]
@@ -624,13 +640,12 @@ def _launch_picked(args, shapes, batch, outs=None) -> Tuple[torch.Tensor, ...]:
     """The scan `scan_kernel` picks for the shapes, with the batch axis
     where ``batch`` is given, writing ``outs`` where they are given."""
     G, C, K, R, S = shapes
-    max_clusters = grid_clusters(_index(args[0].device)) if batch is None else None
-    kernel = scan_kernel(K, R, S, C, max_clusters, solo=batch is None)
+    max_clusters = grid_clusters(_index(args[0].device))
+    kernel = scan_kernel(K, R, S, C, max_clusters)
     if kernel == "ffd_scan_global":
         return _launch_global(args, shapes, batch, outs)
     if kernel == "ffd_scan_grid":
-        return _launch_grid(args, shapes, grid_layout(K, R, S, max_clusters), max_clusters,
-                            outs=outs)
+        return _launch_grid(args, shapes, grid_layout(K, R, S, max_clusters), batch, outs=outs)
     if kernel == "ffd_scan_cluster":
         return _launch_cluster(args, shapes, cluster_layout(K, R, S, C), batch, outs)
     return _launch_resident(args, shapes, batch, outs)
@@ -724,28 +739,35 @@ def ffd_scan_grid(
     layout = grid_layout(K, R, S, max_clusters)
     if layout is None or R > MAX_AXES:
         raise ValueError(f"no grid of {max_clusters} clusters holds K={K}, R={R}, S={S}")
-    return _launch_grid(args, shapes, layout, max_clusters, spin_budget)
+    return _launch_grid(args, shapes, layout, None, spin_budget=spin_budget)
 
 
-def _launch_grid(args, shapes, layout, max_clusters: int, spin_budget: int = GRID_SPIN_CYCLES,
+def _launch_grid(args, shapes, layout: GridLayout, batch, *, spin_budget: int = GRID_SPIN_CYCLES,
                  outs=None) -> Tuple[torch.Tensor, ...]:
+    """The grid scan on ``layout`` (`grid_layout`), with the batch axis
+    where ``batch`` is given: min(B, groups) groups of its clusters.  A
+    grid of more clusters than the card holds at once (`grid_clusters`) is
+    refused."""
     (req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
      used0, cfg0, npods0, next0, sig0) = args
     G, C, K, R, S = shapes
-    clusters, ctas, per_thread, smem = layout
-    outs = outs or _scan_outputs(G, K, R, req.device)
-    # the cross-cluster entries [4][clusters] (64-bit): zeroed, so no tag of
-    # an earlier launch matches
-    xg = torch.zeros(4 * clusters, dtype=torch.int64, device=req.device)
+    B = 1 if batch is None else batch[0]
+    groups = min(layout.groups, B)
+    outs = outs or _scan_outputs(G, K, R, req.device, batch)
+    # each group's cross-cluster entries [4][clusters] (64-bit): zeroed, so
+    # no tag of an earlier launch matches
+    xg = torch.zeros(groups * 4 * layout.clusters, dtype=torch.int64, device=req.device)
     with torch.cuda.device(req.device):
         stream = torch.cuda.current_stream(req.device).cuda_stream
         err = _lib().ffd_scan_grid(
             *_ptrs(req, cnt, maxper, slot, feas, alloc, c_star, new_ok, per,
                    used0, cfg0, npods0, sig0),
-            G, C, K, R, S, int(next0), clusters, ctas, per_thread, smem, wrap_guard(K),
-            max_clusters, int(spin_budget), xg.data_ptr(), *_ptrs(*outs), stream,
+            G, C, K, R, S, int(next0), layout.clusters, layout.ctas, layout.per_thread,
+            layout.smem, wrap_guard(K),
+            grid_clusters(_index(req.device)), int(spin_budget),
+            groups, *_batch_ptrs(batch), xg.data_ptr(), *_ptrs(*outs), stream,
         )
-    _launched("ffd_scan_grid", err)
+    _launched(_launch_name("ffd_scan_grid", batch), err)
     return outs
 
 
@@ -841,7 +863,7 @@ def fleet_pack(
     of `choose_config` with a grid y of B and one of the scan `scan_kernel`
     picks at the shapes (``scan="ffd_scan_global"``: the global scan at any
     shape, as `ffd_scan_global` for one problem), in its fleet mode (one
-    block or one cluster an element).  The launch is at the true B: the
+    block, one cluster or one group of the grid's clusters an element).  The launch is at the true B: the
     reference pads B to a power of two only for XLA's compile cache, which
     the port does not have.  For CPU tensors it runs
     `fleet_pack_reference`."""
@@ -983,9 +1005,12 @@ def scan_concurrency(K: int, R: int, S: int, C: int, kernel: Optional[str] = Non
     """How many elements of a batched scan at these shapes the card runs at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs for the
     one-block scans, ``cudaOccupancyMaxActiveClusters`` for the cluster
-    scan): the scan `scan_kernel` picks, or ``kernel`` (``"ffd_scan_window"``
-    for the frontier-window scan).  Needs the card."""
-    kernel = scan_kernel(K, R, S, C, solo=False) if kernel is None else kernel
+    scan, the groups of `grid_layout` for the grid scan): the scan
+    `scan_kernel` picks, or ``kernel`` (``"ffd_scan_window"`` for the
+    frontier-window scan).  Needs the card."""
+    kernel = scan_kernel(K, R, S, C) if kernel is None else kernel
+    if kernel == "ffd_scan_grid":
+        return grid_layout(K, R, S, grid_clusters(torch.cuda.current_device())).groups
     if kernel == "ffd_scan_window":
         W, smem = window_layout(K, R, S, C)
         args = (3, W // WINDOW_THREADS, 1, WINDOW_THREADS, smem)

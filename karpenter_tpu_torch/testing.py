@@ -474,7 +474,8 @@ FRONTIER_CASES = {
 FRONTIER_ONE_A_NODE = 3  # the class that takes one pod a node and no live slot
 
 
-def frontier_arrays(case: str) -> tuple:
+def frontier_arrays(case: str, k_slots: Optional[int] = None, configs: int = 304,
+                    batch: Optional[int] = None, at: int = 0) -> tuple:
     """Removal-verdict inputs (numpy, in ``removal_verdict_kernel``'s
     argument order, as `verdict_tie_arrays`) for the frontier-window scan:
     each case of `FRONTIER_CASES` puts the elements' frontiers (the live
@@ -489,22 +490,25 @@ def frontier_arrays(case: str) -> tuple:
     so a count of n opens n slots.  Elements draw counts of 0-20 a class
     (40 % zero), a random class order and removed live slots.  The
     ``wrap`` case is `wrap_arrays` at 2048 slots with such a batch over it
-    (every count at least one)."""
+    (every count at least one).  ``k_slots``, ``configs`` (Cp of the other
+    cases) and ``batch`` (at least 3) replace the case's Kp, Cp and B; ``at``
+    places the wrap case's prefilled slots (`wrap_arrays`)."""
     from karpenter_tpu_torch.ops.fused_packer import window_layout
 
     K, E, B, _ = FRONTIER_CASES[case]
+    K, B = k_slots or K, batch or B
     rng = np.random.default_rng(29)
     if case == "wrap":
         (req, cnt, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0,
-         sig0) = wrap_arrays(K)
+         sig0) = wrap_arrays(K, at=at)
         G, C = feas.shape
         pool_id, zone_id, ct_id = (np.zeros(C, np.int32) for _ in range(3))
         compactable = np.ones(G, bool)
         counts = np.maximum(cnt[None, :] - rng.integers(0, 4, (B, G)), 1).astype(np.int32)
         rm = np.zeros((B, K), bool)
-        rm[:, :E] = rng.random((B, E)) < 0.25
+        rm[:, at:at + E] = rng.random((B, E)) < 0.25
     else:
-        G, C, R, S = 8, 304, 3, 2
+        G, C, R, S = 8, configs, 3, 2
         c = np.arange(C)
         ex = C - 2  # the live nodes' rows
         cpu = (2 + 2 * (c % 7)).astype(np.float32)
@@ -567,13 +571,13 @@ def frontier_arrays(case: str) -> tuple:
             pool_id, zone_id, ct_id, compactable, cnt_b, rm, perm)
 
 
-def frontier_pack(case: str, b: int) -> tuple:
-    """Element ``b`` of a `frontier_arrays` case as one pack's inputs
-    (numpy, in `pack_reference`'s order): the base rows in its class order,
-    its counts, its removed slots' configs -1 (what the batched scan scans
-    for it)."""
+def frontier_pack(case: str, b: int, **shape) -> tuple:
+    """Element ``b`` of a `frontier_arrays` case (``shape``: its keyword
+    arguments) as one pack's inputs (numpy, in `pack_reference`'s order):
+    the base rows in its class order, its counts, its removed slots'
+    configs -1 (what the batched scan scans for it)."""
     (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
-     *_, cnt_b, rm, perm) = frontier_arrays(case)
+     *_, cnt_b, rm, perm) = frontier_arrays(case, **shape)
     pb = perm[b]
     cfg = np.where(rm[b], -1, cfg0).astype(np.int32)
     return (req[pb], cnt_b[b], maxper[pb], slot[pb], feas[pb], alloc, price, openable,

@@ -121,11 +121,12 @@ def test_kernels_line_rows():
     assert chip_smoke.KERNELS == (
         "choose_config", "ffd_scan", "ffd_scan_global", "ffd_scan_cluster", "ffd_scan_grid",
         "ffd_scan_batched", "ffd_scan_cluster_batched", "ffd_scan_global_batched",
-        "ffd_scan_window_batched", "verdict_summary", "verdict_configs", "verdict_write",
-        "population_pairs", "admit_kernel", "choose_config_fleet", "ffd_scan_fleet",
-        "ffd_scan_cluster_fleet", "ffd_scan_global_fleet", "assemble_feasibility",
+        "ffd_scan_window_batched", "ffd_scan_grid_batched", "verdict_summary",
+        "verdict_configs", "verdict_write", "population_pairs", "admit_kernel",
+        "choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_fleet",
+        "ffd_scan_global_fleet", "ffd_scan_grid_fleet", "assemble_feasibility",
         "choose_config_shard", "ffd_shard_scan", "ffd_shard_cap", "ffd_shard_apply")
-    assert chip_smoke.KERNELS[-9:-5] == chip_smoke.FLEET_KERNELS
+    assert chip_smoke.KERNELS[-10:-5] == chip_smoke.FLEET_KERNELS
     assert chip_smoke.KERNELS[-5:] == chip_smoke.MESH_KERNELS
     assert chip_smoke.MESH_KERNELS[-2:] == chip_smoke.MESH_PAIR
     assert chip_smoke.ROW_PROBLEM["ffd_shard_cap"] == "config2_mesh"
@@ -150,6 +151,20 @@ def test_kernels_line_rows():
     assert chip_smoke.ROW_PROBLEM["ffd_scan_cluster"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_global"] == "config2_live"
     assert chip_smoke.ROW_PROBLEM["ffd_scan_grid"] == "config2_live20k"
+    # the grid's batch and fleet modes: at the verdicts' and the fleet's
+    # problems past one cluster (config 2's catalog on 10,000 live nodes)
+    assert chip_smoke.VERDICT_SCAN["live10k"] == "ffd_scan_grid"
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_grid_batched"] == "live10k"
+    assert chip_smoke.ROW_PROBLEM["ffd_scan_grid_fleet"] == "fleet_live10k"
+    assert chip_smoke.VERDICT_REPLACES["ffd_scan_grid_batched"] == "karpenter_tpu/ops/packer.py:615"
+    assert set(chip_smoke.TIMED_VERDICTS) == set(chip_smoke.VERDICT_SCAN) == set(
+        chip_smoke.POPULATION)
+    assert chip_smoke.TIMED_VERDICTS["live10k"] < chip_smoke.TIMED_VERDICTS["live"]
+    # live10k's CPU drives, both objectives, run in spawned processes
+    assert chip_smoke.VERDICT_TWINNED == ("live10k",)
+    assert chip_smoke.FLEET_GRID == (("config2_live10k", 4), ("config2_live10k", 16),
+                                     ("config2_live20k", 4))
+    assert {name for name, _ in chip_smoke.FLEET_GRID} == set(chip_smoke.LARGE_LIVE)
     assert set(chip_smoke.LARGE_LIVE) < set(chip_smoke.PHASE5_SCAN)
     assert {chip_smoke.PHASE5_SCAN[n] for n in chip_smoke.LARGE_LIVE} == {"ffd_scan_grid"}
     for name, scan in chip_smoke.VERDICT_SCAN.items():
@@ -375,6 +390,26 @@ def test_phase6_drive_on_the_cpu():
     assert all(len(keys) == len(vs) for keys, vs in rounds)
     masks = chip_smoke.key_masks(rounds[0][0], len(cands))
     assert masks.sum(1).tolist() == [len(k) for k in rounds[0][0]]
+
+
+def test_timed_in_turns_order(monkeypatch):
+    """The scans past one cluster are read in turns: the first run, the
+    others, the others again in reverse, the first again; each run's
+    figure is the mean of its two readings."""
+    order = []
+
+    def fake_ms(torch_, fn, iters, warmup=3):
+        order.append(fn())
+        return float(len(order))
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", fake_ms)
+    runs = {k: (lambda k=k: k) for k in ("global", "grid", "third")}
+    got = chip_smoke.timed_in_turns(torch, runs, 3)
+    assert order == ["global", "grid", "third", "third", "grid", "global"]
+    assert got == {"global": 3.5, "grid": 3.5, "third": 3.5}
+    order.clear()
+    got = chip_smoke.timed_in_turns(torch, {k: runs[k] for k in ("global", "grid")}, 3)
+    assert order == ["global", "grid", "grid", "global"] and got == {"global": 2.5, "grid": 2.5}
 
 
 def test_phase7_tick_summary():

@@ -252,18 +252,23 @@ def test_grid_scan_on_live_clusters(cuda_device, live):
 
 
 def test_grid_that_cannot_hold_raises(cuda_device):
-    """65,536 slots need four clusters: on a card said to hold one, the
-    grid's entry point refuses them and launches nothing."""
-    args = to_device(_case("wrap-65536-straddle"), cuda_device)
-    (req, cnt, maxper, slot, feas, alloc, price, openable,
-     used0, cfg0, npods0, next0, sig0) = args
+    """65,536 slots need four clusters an element: a layout made for
+    `MAX_GRID_CLUSTERS` co-resident clusters (8 groups) launches 8 groups
+    for a batch of 16, more clusters than the card holds, and the grid's
+    entry point refuses them and launches nothing."""
+    a = to_device(T.frontier_arrays("wrap", k_slots=65536, batch=16), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     *_, cnt_b, rm_b, perm_b) = a
     chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
-    scan_args = (req, cnt, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0)
-    assert fused_packer.scan_kernel(65536, 6, 8, 8, 1) == "ffd_scan_global"
+    scan_args = (req, cnt_b[0], maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0,
+                 sig0)
     layout = fused_packer.grid_layout(65536, 6, 8, fused_packer.MAX_GRID_CLUSTERS)
+    assert layout.clusters * min(layout.groups, 16) > fused_packer.grid_clusters(
+        torch.cuda.current_device())
     before = dict(fused_packer.LAUNCHES)
     with pytest.raises(RuntimeError, match="no thread-block cluster"):
-        fused_packer._launch_grid(scan_args, (10, 8, 65536, 6, 8), layout, 1)
+        fused_packer._launch_grid(scan_args, (10, 8, 65536, 6, 8), layout,
+                                  (16, perm_b, cnt_b, rm_b))
     assert fused_packer.LAUNCHES == before
 
 
@@ -1099,3 +1104,149 @@ def test_mesh_kernels_refuse_misaligned_feas(cuda_device):
         sh.rep = sh.rep[:4] + (buf[1:].view(feas.shape),) + sh.rep[5:]
     with pytest.raises(ValueError, match="16-byte"):
         fused_packer.ffd_shard_scan(shards)
+
+
+# ---- the grid scan's batch and fleet modes (past one thread-block cluster)
+
+
+def _live10k_batch(dev, B: int):
+    """The removal base of 10,000 live nodes of config 2's ``std1.large``
+    (1-4 seeded pods each, universe its 64 least-loaded nodes: Kp and Cp
+    16,384) and a batch of its 64 singles and 64 drop-one subsets, tiled to
+    B elements: ``(scan arguments of ffd_scan_batch, next0)``."""
+    hpools, hinv, _ = T.heterogeneous_problem(scale=1 / T.N_PODS)
+    std = next(it for it in hinv["general"] if it.name == "std1.large")
+    existing, cands = T.consolidation_cluster(8, 10_000, [std])
+    universe = cands[:64]
+    sched = TorchScheduler(hpools, hinv, existing=existing, device=dev)
+    base = sched._removal_base(tuple(universe))
+    subsets = [[c] for c in universe] + [[c for c in universe if c is not d] for d in universe]
+    cnt, rm, perm, bad = sched._subset_batch(base, subsets)
+    assert not bad and cnt.shape[0] == 128
+    reps = -(-B // 128)
+    cnt_b, rm_b, perm_b = (torch.from_numpy(np.concatenate([a] * reps)[:B]).to(dev)
+                           for a in (cnt, rm, perm))
+    (req, _, maxper, slot, feas, alloc, price, openable,
+     used0, cfg0, npods0, next0, sig0) = base.args
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable)
+    return (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+            cnt_b, rm_b, perm_b), next0
+
+
+@pytest.mark.parametrize("B", [128, 512])
+def test_batched_grid_scan_on_live10k(cuda_device, B):
+    """The consolidation base of 10,000 live nodes: ``ffd_scan_batch``
+    launches the grid's batch mode alone (next0 past the window), bit-equal
+    to the plain version."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference
+
+    scan_args, next0 = _live10k_batch(cuda_device, B)
+    shapes = (scan_args[8].shape[0], scan_args[0].shape[1], scan_args[12].shape[0],
+              scan_args[4].shape[0])
+    assert shapes == (16384, 6, 2, 16384)
+    assert fused_packer.batch_launches(next0, *shapes) == ("ffd_scan_grid_batched",)
+    got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
+    assert moved == {"ffd_scan_grid_batched": 1}
+    _assert_bit_equal(got, ffd_scan_batch_reference(*scan_args))
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("shape", [
+    dict(case="past", k_slots=16384, configs=20000),  # the "both" plan, one cluster
+    dict(case="wrap", k_slots=32768, batch=16),  # two clusters, 16 elements, "both"
+    dict(case="wrap", k_slots=32768, batch=16, at=2046),  # across a CTA boundary
+    dict(case="wrap", k_slots=32768, batch=16, at=16382),  # across a cluster boundary
+])
+def test_batched_grid_scan_on_frontier_arrays(cuda_device, shape, objective):
+    """The grid's batch mode after the frontier-window scan (the elements
+    that leave the window) and on every element, bit-equal to the plain
+    version; the window's done mask is the elements whose frontier stays
+    within W."""
+    from karpenter_tpu_torch.ops.packer import ffd_scan_batch_reference
+
+    a = to_device(T.frontier_arrays(**shape), cuda_device)
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     *_, cnt_b, rm_b, perm_b) = a
+    chosen = fused_packer.choose_config(req, maxper, feas, alloc, price, openable, objective)
+    scan_args = (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+                 cnt_b, rm_b, perm_b)
+    K, R = used0.shape
+    plan = fused_packer.batch_launches(next0, K, R, sig0.shape[0], alloc.shape[0])
+    assert plan[-1] == "ffd_scan_grid_batched"
+    fused_packer.WINDOW_RECORDS = []
+    try:
+        got, moved = _launch_moves(lambda: fused_packer.ffd_scan_batch(*scan_args))
+        records = fused_packer.WINDOW_RECORDS
+    finally:
+        fused_packer.WINDOW_RECORDS = None
+    assert moved == dict.fromkeys(plan, 1)
+    want = ffd_scan_batch_reference(*scan_args)
+    _assert_bit_equal(got, want)
+    if records[0]["done"] is not None:
+        W = records[0]["W"]
+        front = T.element_frontiers(want[2].cpu().numpy(), next0)
+        np.testing.assert_array_equal(records[0]["done"].cpu().numpy(), front <= W)
+        if shape["case"] == "past":
+            assert (front > W).sum() == 2  # two elements went on to the grid
+    every = fused_packer._launch_picked(
+        (req, cnt_b[0], *scan_args[1:13]), (req.shape[0], alloc.shape[0], K, R, sig0.shape[0]),
+        (perm_b.shape[0], perm_b, cnt_b, rm_b))
+    torch.cuda.synchronize()
+    _assert_bit_equal(every, want)
+
+
+def _live_fleet(live: int, n: int, dev) -> list:
+    """``n`` tenants of config 2 on ``live`` live nodes at full size, each
+    live node's usage scaled by a seeded factor and each class's count cut
+    by a seeded share (chip_smoke's ``live_tenants``)."""
+    pools, inv, pods = T.heterogeneous_problem()
+    base, _ = pad_problem(compile_problem(pods, pools, inv, existing=T.live_cluster(live)))
+    E = base[11]
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(23 + i)
+        args = list(base)
+        used0 = args[8].copy()
+        used0[:E] = (used0[:E] * rng.uniform(0.5, 1.0, (E, 1))).astype(np.float32)
+        args[8] = used0
+        cnt = args[1]
+        args[1] = (cnt - np.floor(cnt * rng.uniform(0.0, 0.1, cnt.shape))).astype(np.int32)
+        out.append(to_device(tuple(args), dev))
+    return out
+
+
+@pytest.mark.parametrize("live,B", [(10_000, 4), (10_000, 16), (20_000, 4)])
+def test_fleet_grid_scan(cuda_device, live, B):
+    """Fleets past one cluster (Kp 16,384 at B 4 and 16, more than the card's
+    15 groups; 32,768 at B 4, two clusters an element): ``fleet_pack``
+    launches the grid's fleet mode, and each tenant's row equals the plain
+    version and its solo ``ffd_pack``, both objectives."""
+    from karpenter_tpu_torch.ops.packer import fleet_pack_reference
+
+    tenants = _live_fleet(live, B, cuda_device)
+    cols = T.fleet_columns(tenants)
+    K = tenants[0][8].shape[0]
+    for objective in ("nodes", "cost"):
+        got, moved = _launch_moves(
+            lambda: fused_packer.fleet_pack(cols, k_slots=K, objective=objective))
+        assert moved == {"choose_config_fleet": 1, "ffd_scan_grid_fleet": 1}, moved
+        _assert_bit_equal(got, fleet_pack_reference(cols, k_slots=K, objective=objective))
+        solo = [fused_packer.ffd_pack(*t, objective=objective) for t in tenants]
+        _assert_bit_equal(got, tuple(torch.stack(o) for o in zip(*solo)))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_grid_spin_budget_traps(cuda_device, batched):
+    """A grid launch of two clusters an element whose waits may take one
+    clock cycle traps, alone and with a batch axis, and torch raises (in a
+    process of its own: the trap ends its CUDA context)."""
+    import pathlib
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    script = chip_smoke.SPIN_TRAP_SCRIPT % (32768, batched, chip_smoke.GRID_BATCH)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=pathlib.Path(chip_smoke.__file__).resolve().parent, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1].startswith("raised: ")

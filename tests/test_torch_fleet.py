@@ -72,6 +72,28 @@ def test_fleet_pack_matches_jax_fleet_kernel(case, B, seed, objective):
         np.testing.assert_array_equal(_bits(node_used[b]), _bits(solo[4]))
 
 
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("case,seed", [("dyadic", 60), ("wrap", 70)])
+def test_fleet_pack_matches_jax_fleet_kernel_past_one_cluster(case, seed, objective):
+    """Two tenants at Kp 16,384 (the shapes past which a fleet scan runs on
+    the grid's fleet mode): the port's plain fleet pack equals JAX
+    ``fleet_pack_kernel`` bit for bit."""
+    K = 16384
+    tenants = [fleet_tenant_arrays(case, seed + b, K) for b in range(2)]
+    Gp, R = tenants[0][0].shape
+    jax_cols = fleet_columns([t[:11] + (np.int32(t[11]),) + t[12:] for t in tenants])
+    want = fleet_unbundle(np.asarray(fleet_pack_kernel(jax_cols, k_slots=K, objective=objective)),
+                          Gp, K, R)
+    got = fleet_pack(fleet_columns([_tensors(t) for t in tenants]), k_slots=K,
+                     objective=objective)
+    assert got[0].shape == (2, Gp, K)
+    for b, (wt, wl, wc, wu) in enumerate(want):
+        np.testing.assert_array_equal(got[0][b].numpy(), wt, err_msg=f"take {b}")
+        np.testing.assert_array_equal(got[1][b].numpy(), wl, err_msg=f"leftover {b}")
+        np.testing.assert_array_equal(got[2][b].numpy(), wc, err_msg=f"node_cfg {b}")
+        np.testing.assert_array_equal(_bits(got[4][b]), _bits(wu), err_msg=f"used {b}")
+
+
 def test_wrap_tenants_wrap():
     """The wrap case's tenants do wrap: a prefilled slot takes 2^30 pods of
     a class that requests no axis and its leftover goes negative."""

@@ -55,6 +55,34 @@ def test_frontier_rows_bit_equal(case, objective):
     np.testing.assert_array_equal(_bits(port.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_frontier_rows_bit_equal_past_one_cluster(objective):
+    """The "past" case at Kp 16,384 and Cp 20,000, B 4 (the shapes at which
+    the elements that leave the window go to the grid's batch mode): the
+    port's plain rows equal JAX ``removal_verdict_kernel``'s bit for bit,
+    and two elements do leave the window."""
+    shape = dict(k_slots=16384, configs=20000, batch=4)
+    a = T.frontier_arrays("past", **shape)
+    K, R = a[7].shape
+    assert F.batch_launches(a[10], K, R, a[11].shape[0], a[3].shape[1]) == (
+        "ffd_scan_window_batched", "ffd_scan_grid_batched")
+    port = P.removal_verdicts_reference(*_torch(a), objective=objective)
+    want = JP.removal_verdict_kernel(*a, k_slots=K, objective=objective)
+    np.testing.assert_array_equal(_bits(port.numpy()), _bits(want))
+    scan = P.ffd_scan_batch_reference(*_scan_inputs(a))
+    W = F.window_layout(K, R, a[11].shape[0], a[3].shape[1])[0]
+    front = T.element_frontiers(scan[2].numpy(), a[10])
+    assert sorted(front[front > W].tolist()) == [W + 3, K]
+
+
+def _scan_inputs(a):
+    (req, maxper, slot, feas, alloc, price, openable, used0, cfg0, npods0, next0, sig0,
+     _pool, _zone, _ct, _comp, cnt_b, rm_b, perm_b) = _torch(a)
+    chosen = P.choose_config_reference(req, maxper, feas, alloc, price, openable)
+    return (req, maxper, slot, feas, alloc, *chosen, used0, cfg0, npods0, next0, sig0,
+            cnt_b, rm_b, perm_b)
+
+
 @pytest.mark.parametrize("case", list(T.FRONTIER_CASES))
 def test_frontier_cases_reach_their_purpose(case):
     a, outs, W = _scan(case)
@@ -128,6 +156,13 @@ def test_batch_launches():
     assert F.batch_launches(60, 1024, 6, 1, 256) == ("ffd_scan_window_batched",)
     assert F.batch_launches(2000, 4096, 6, 2, 8192) == ("ffd_scan_cluster_batched",)
     assert F.batch_launches(4, 64, 200, 2, 300) == ("ffd_scan_global_batched",)
+    # past one cluster (config 2 on 10,000 live nodes: Kp and Cp 16,384):
+    # the grid's batch mode, alone where next0 passes W, after the window
+    # where a small cluster's universe pods pad Kp to 16,384 ("both")
+    assert F.batch_launches(10000, 16384, 6, 2, 16384) == ("ffd_scan_grid_batched",)
+    assert F.batch_launches(100, 16384, 6, 2, 16384) == (
+        "ffd_scan_window_batched", "ffd_scan_grid_batched")
+    assert F.window_plan(100, 16384, F.window_layout(16384, 6, 2, 16384)[0]) == "both"
 
 
 def test_batched_scan_on_the_cpu_is_the_plain_version():

@@ -363,8 +363,9 @@ def test_wrap_arrays_grid_straddle_parity(objective):
     version held to the JAX package past 16,384 slots."""
     at = 16384 - 2
     args = wrap_arrays(32768, at=at)
-    q, ctas, per_thread, _ = fused_packer.grid_layout(32768, 6, 8, fused_packer.GRID_CLUSTERS)
-    assert (q, ctas * per_thread * fused_packer.scan_threads(32768 // (q * ctas))) == (2, at + 2)
+    g = fused_packer.grid_layout(32768, 6, 8, fused_packer.GRID_CLUSTERS)
+    assert (g.clusters, g.ctas * g.per_thread * fused_packer.scan_threads(
+        32768 // (g.clusters * g.ctas))) == (2, at + 2)
     take, leftover, node_cfg, _, _ = _assert_arrays_parity(args, objective)
     assert int(take[0, at + 3]) == 2**30
     assert int(leftover[0]) == -(2**30)
@@ -456,19 +457,20 @@ def test_cluster_layout_of_each_size():
     "K,R,S,max_clusters,layout",
     [
         # config 2 on 10,000 live nodes (Kp 16,384, Sp 2): one cluster of 8
-        # CTAs of 1,024 threads, 2 slots a thread; two tiles of 32 class
-        # rows of 19 words, 8 x 640 exchange bytes, 2,048 slots of 64 bytes
-        (16384, 6, 2, 16, (1, 8, 2, 2 * 32 * 4 * 19 + 8 * 640 + 2048 * 64)),
+        # CTAs of 1,024 threads, 2 slots a thread, 16 groups of it; two
+        # tiles of 32 class rows of 19 words, 8 x 640 exchange bytes, 2,048
+        # slots of 64 bytes
+        (16384, 6, 2, 16, (1, 16, 8, 2, 2 * 32 * 4 * 19 + 8 * 640 + 2048 * 64)),
         # on 20,000 (Kp 32,768): two such clusters
-        (32768, 6, 2, 16, (2, 8, 2, 141_056)),
+        (32768, 6, 2, 16, (2, 8, 8, 2, 141_056)),
         # the wrap case's S 8 at 65,536 slots: four clusters
-        (65536, 6, 8, 16, (4, 8, 2, 4864 + 8 * 640 + 2048 * 88)),
-        (245760, 6, 2, 15, (15, 8, 2, 141_056)),  # every cluster of an H100
+        (65536, 6, 8, 16, (4, 4, 8, 2, 4864 + 8 * 640 + 2048 * 88)),
+        (245760, 6, 2, 15, (15, 1, 8, 2, 141_056)),  # every cluster of an H100
         (245761, 6, 2, 15, None),  # past the co-resident clusters
         (32768, 6, 2, 1, None),  # one cluster holds 16,384 slots at most
-        (4096, 6, 2, 16, (1, 8, 1, 4864 + 8 * 640 + 512 * 64)),
+        (4096, 6, 2, 16, (1, 16, 8, 1, 4864 + 8 * 640 + 512 * 64)),
         # 856 bytes a slot: more clusters, 256 slots a CTA
-        (16384, 6, 200, 16, (8, 8, 1, 4864 + 8 * 640 + 256 * 856)),
+        (16384, 6, 200, 16, (8, 2, 8, 1, 4864 + 8 * 640 + 256 * 856)),
     ],
 )
 def test_grid_layout(K, R, S, max_clusters, layout):
@@ -477,18 +479,19 @@ def test_grid_layout(K, R, S, max_clusters, layout):
     got = fused_packer.grid_layout(K, R, S, max_clusters)
     assert got == layout
     if got is not None:
-        q, ctas, per_thread, smem = got
-        assert smem <= fused_packer.SMEM_PER_BLOCK and q <= max_clusters
-        assert q * ctas * per_thread * fused_packer.scan_threads(-(-K // (q * ctas))) >= K
+        q, ctas = got.clusters, got.ctas
+        assert got.smem <= fused_packer.SMEM_PER_BLOCK and q <= max_clusters
+        assert q * ctas * got.per_thread * fused_packer.scan_threads(-(-K // (q * ctas))) >= K
 
 
 @pytest.mark.parametrize("live", [10_000, 20_000])
 def test_scan_kernel_picks_the_grid_past_one_cluster(live):
     """Config 2's pods on 10,000 and 20,000 live nodes (Cp and Kp 16,384
     and 32,768): the cluster scan's ring of 8 feasibility rows and its 8
-    CTAs no longer hold them, so the solve's scan is the grid; a batched
-    or fleet scan there (no grid mode) stays global, as does a card whose
-    co-resident clusters cannot hold the slots."""
+    CTAs no longer hold them, so the solve's scan is the grid, and so is a
+    batched or fleet scan there (the grid's batch and fleet modes); a card
+    whose co-resident clusters cannot hold the slots keeps the global
+    scan."""
     from karpenter_tpu_torch.ops.packer import pad_problem
     from karpenter_tpu_torch.ops.tensorize import compile_problem as port_compile
 
@@ -501,9 +504,10 @@ def test_scan_kernel_picks_the_grid_past_one_cluster(live):
     assert fused_packer.cluster_layout(K, R, S, C) is None
     assert fused_packer.scan_kernel(K, R, S, C) == "ffd_scan_grid"
     assert fused_packer.scan_kernel(K, R, S, C, 16) == "ffd_scan_grid"
-    assert fused_packer.grid_layout(K, R, S, 16)[0] == K // 16384
-    assert fused_packer.scan_kernel(K, R, S, C, solo=False) == "ffd_scan_global"
-    assert fused_packer.batch_launches(0, K, R, S, C)[-1] == "ffd_scan_global_batched"
+    assert fused_packer.grid_layout(K, R, S, 16).clusters == K // 16384
+    assert fused_packer.scan_kernel(K, R, S, C, 15) == "ffd_scan_grid"
+    assert fused_packer.batch_launches(0, K, R, S, C)[-1] == "ffd_scan_grid_batched"
+    assert fused_packer.batch_launches(live, K, R, S, C) == ("ffd_scan_grid_batched",)
     if K > 16384:
         assert fused_packer.scan_kernel(K, R, S, C, 1) == "ffd_scan_global"
 
@@ -511,14 +515,41 @@ def test_scan_kernel_picks_the_grid_past_one_cluster(live):
 def test_scan_kernel_keeps_the_global_scan_past_the_grid():
     """The global scan stays for more than 31 resource axes (one flag bit
     each), for slots past the card's co-resident clusters, and for
-    feasibility rows no cp.async size divides."""
-    assert fused_packer.scan_kernel(16384, 6, 2, 16384, 16) == "ffd_scan_grid"
-    assert fused_packer.scan_kernel(32768, 6, 2, 32768, 16) == "ffd_scan_grid"
-    assert fused_packer.scan_kernel(16384, 32, 2, 16384, 16) == "ffd_scan_global"
-    assert fused_packer.scan_kernel(32768, 32, 2, 32768, 16) == "ffd_scan_global"
-    assert fused_packer.scan_kernel(32768, 6, 2, 32768, 1) == "ffd_scan_global"
-    assert fused_packer.scan_kernel(300_000, 6, 2, 32768, 16) == "ffd_scan_global"
-    assert fused_packer.scan_kernel(32768, 6, 2, 32766, 16) == "ffd_scan_global"
+    feasibility rows no cp.async size divides: for the solve's scan and,
+    the same, for a batched or fleet scan."""
+    pick = fused_packer.scan_kernel
+    assert pick(16384, 6, 2, 16384, 16) == "ffd_scan_grid"
+    assert pick(32768, 6, 2, 32768, 16) == "ffd_scan_grid"
+    assert pick(16384, 6, 2, 16384, 15) == "ffd_scan_grid"
+    assert pick(32768, 6, 2, 32768, 15) == "ffd_scan_grid"
+    assert pick(16384, 32, 2, 16384, 16) == "ffd_scan_global"
+    assert pick(32768, 32, 2, 32768, 16) == "ffd_scan_global"
+    assert pick(32768, 6, 2, 32768, 1) == "ffd_scan_global"
+    assert pick(300_000, 6, 2, 32768, 16) == "ffd_scan_global"
+    assert pick(32768, 6, 2, 32766, 16) == "ffd_scan_global"
+
+
+@pytest.mark.parametrize(
+    "K,S,max_clusters,layout",
+    [
+        # config 2 on 10,000 live nodes: one cluster an element, 15 groups
+        # of it on an H100's 15 co-resident clusters
+        (16384, 2, 15, (1, 15, 8, 2, 141_056)),
+        # on 20,000: two clusters an element, 7 groups
+        (32768, 2, 15, (2, 7, 8, 2, 141_056)),
+        (65536, 8, 15, (4, 3, 8, 2, 4864 + 8 * 640 + 2048 * 88)),
+        (245760, 2, 15, (15, 1, 8, 2, 141_056)),  # every cluster: one group
+        (245761, 2, 15, None),  # past every grid
+        (32768, 2, 1, None),
+    ],
+)
+def test_grid_layout_groups(K, S, max_clusters, layout):
+    """The batched and fleet grid: `grid_layout`'s clusters an element, the
+    groups of them the card holds at once, its slots a thread and bytes."""
+    got = fused_packer.grid_layout(K, 6, S, max_clusters)
+    assert got == layout
+    if got is not None:
+        assert got.clusters * got.groups <= max_clusters
 
 
 def test_grid_wrapper_on_the_cpu():
