@@ -382,7 +382,8 @@ Phases (each failure exits non-zero before the last line is printed):
    the scan the plan picks (``fused_packer.shard_scan_kernel``: the one
    cluster launch ``ffd_shard_scan`` where every data row sits on one
    card, else the cap / apply pair), the choice tiles and
-   ``assemble_feasibility`` must launch, the other scan and every
+   ``assemble_feasibility`` must launch (once a device: the step's
+   tiles of a device in one launch), the other scan and every
    single-device kernel may not; each solve must decode equal to a
    single-device scheduler's, the hit and delta must pack from the
    sharded resident state, whose buffers must equal their mirrors.  Then
@@ -396,7 +397,12 @@ Phases (each failure exits non-zero before the last line is printed):
    at config 2 and a frontier element (one CTA holding every slot); the
    pair, driven directly, and the choice against their plain versions step
    by step (`mesh_lockstep`) on the same cases; ``assemble_feasibility``
-   whole and tile by tile.  Then at config 2: the sharded pack through
+   whole and tile by tile (one launch a device, no mask byte copied on
+   one card), and (`assemble_cases`) on tiles whose bounds and widths are
+   no multiples of 16, fresh and in place into masks prefilled with
+   `ASSEMBLE_SENTINEL` whose rows are C and C + 3 bytes apart, several
+   tiles in one launch, and on rows of 60,000 types.  Then at
+   config 2: the sharded pack through
    ``ffd_shard_scan``, through the pair (`mesh_pair_pack`) and the
    single-device ``ffd_pack`` in turns (wall ms a solve), the launches a
    solve of each scan, the pair's exchange host share, the device's busy
@@ -404,7 +410,9 @@ Phases (each failure exits non-zero before the last line is printed):
    plain version's and its bound from this run's data; ``ffd_shard_scan``
    also at the live cluster, with its latency floor at both (classes x the
    measured cluster exchange and barrier of its CTAs, plus the class
-   tiles' L2 loads).
+   tiles' L2 loads); ``assemble_feasibility``'s whole-mask launch beside
+   an empty launch of its grid (`assemble_floor_ms`), its bound and the
+   step's mask exchange bytes.
 16. The chart on the card (`chart_phase`, `chart_topology`): the port's
    chart (``deploy/chart_torch``) rendered by the port's renderer with the
    HA and tenant values (`CHART_VALUES`: two controller replicas, the store,
@@ -718,6 +726,7 @@ MESH_REPLACES = {  # the jitted XLA the mesh kernels replace (the reference's me
 MESH_STEP_TYPES = 1024  # the factorized step at config 2's shapes: Cp 8192 ...
 MESH_STEP_CLASSES = 320  # ... Gp 320, at the live cluster's 4096 slots
 MESH_TIMED = 3  # timed sharded packs (and single-device packs) at config 2
+ASSEMBLE_SENTINEL = 0xA5  # the bytes of a prefilled mask outside its tiles
 LEGACY_PODS, LEGACY_TICKS = 40, 4
 
 # phase 16: the port's chart (deploy/chart_torch) rendered with the HA and
@@ -973,6 +982,8 @@ def _latency_lib():
     lib.probe_cluster_barrier.restype = I
     lib.probe_grid_exchange.argtypes = [I, I, I, I, P, P, P]
     lib.probe_grid_exchange.restype = I
+    lib.probe_empty_grid.argtypes = [I] * 5 + [P]
+    lib.probe_empty_grid.restype = I
     return lib
 
 
@@ -5391,6 +5402,79 @@ def assemble_bound(p) -> dict:
     return _bound(byts, 2 * G * C)
 
 
+def assemble_cases(torch, adm) -> tuple:
+    """``assemble_feasibility`` past the whole mask on ``adm``'s device
+    (the seven admission tensors), each case against the plain version on
+    the same inputs: tiles whose bounds and widths (1, 15, 17) are no
+    multiples of 16, each as a tile of its own and written in place
+    (`assemble_tiles`, one tile) into a mask prefilled with
+    `ASSEMBLE_SENTINEL` bytes, its rows C and C + 3 bytes apart; then 9
+    disjoint unaligned tiles in one `assemble_tiles` call into such masks.
+    Returns ({case: bytes that differ, the mask's bytes outside the tiles
+    included}, the launches of each call of the kernel's side)."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.ops import packer as P
+
+    G, C = adm[3].shape[0], adm[4].shape[0]
+    dev = adm[0].device
+    tiles = [(3, G, 5, C - 2), (3, G, 5, 6), (3, G, 5, 20), (3, G, 5, 22),
+             (1, G // 2, 3, C - 5)]
+    launches = []
+
+    def counted(call, *args):
+        before = F.LAUNCHES["assemble_feasibility"]
+        got = call(*args)
+        launches.append(F.LAUNCHES["assemble_feasibility"] - before)
+        return got
+
+    def prefilled(pad):
+        base = torch.full((G, C + pad), ASSEMBLE_SENTINEL, dtype=torch.uint8, device=dev)
+        return base, base[:, :C].view(torch.bool)
+
+    def in_place(tiles, pad):
+        (kb, kv), (pb, pv) = prefilled(pad), prefilled(pad)
+        counted(F.assemble_tiles, *adm, tiles, kv)
+        P.assemble_tiles_reference(*adm, tiles, pv)
+        return int((kb != pb).sum())
+
+    diff = {}
+    for t in tiles:
+        got = counted(F.assemble_feasibility, *adm, *t)
+        diff[f"tile {t}"] = int((got != P.assemble_feasibility_reference(*adm, *t)).sum())
+        for pad in (0, 3):
+            diff[f"in place {t}, rows {C + pad} bytes apart"] = in_place([t], pad)
+    gb = [3 + b for b in P.split_bounds(G - 3, 4)]
+    cb = [5 + b for b in P.split_bounds(C - 7, 2)]
+    multi = [(gb[i], gb[i + 1], cb[j], cb[j + 1]) for i in range(4) for j in range(2)]
+    multi.append((0, 1, 0, 1))
+    for pad in (0, 3):
+        diff[f"{len(multi)} tiles in one call, rows {C + pad} bytes apart"] = in_place(multi, pad)
+    return diff, launches
+
+
+def assemble_floor_ms(torch, adm, iters: int) -> tuple:
+    """Device ms of an empty launch (``probe_empty_grid_kernel``,
+    csrc/latency_probe.cu) of the grid and block that
+    ``assemble_feasibility`` gives the whole mask of ``adm``
+    (`fused_packer.assemble_layout`) on ``adm``'s device, from
+    torch.profiler: the kernel's floor for launch latency.  Returns (ms,
+    grid)."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    dev = adm[0].device
+    G, C = adm[3].shape[0], adm[4].shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = F.assemble_layout([(0, G, 0, C, 0)], sms)
+    lib = _latency_lib()
+
+    def launch():
+        if lib.probe_empty_grid(*lay.grid, 32, F.ASSEMBLE_WARPS,
+                                torch.cuda.current_stream(dev).cuda_stream) != 0:
+            fail("the empty grid probe launch failed")
+
+    return profiled_ms(torch, launch, "probe_empty_grid", iters), lay.grid
+
+
 def mesh_phase(torch, card) -> dict:
     """Phase 15 as the module docstring lists it; returns the kernels
     line's rows of the mesh kernels and the counts of its main path."""
@@ -5399,6 +5483,7 @@ def mesh_phase(torch, card) -> dict:
     import numpy as np
 
     from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.ops import packer as P
     from karpenter_tpu_torch.parallel import mesh as PM
@@ -5481,6 +5566,9 @@ def mesh_phase(torch, card) -> dict:
     for k in path:
         if not counts[k]:
             fail(f"phase 15: the main path never launched {k}")
+    if counts["assemble_feasibility"] != len(mesh.distinct()):
+        fail(f"phase 15: the factorized step launched assemble_feasibility "
+             f"{counts['assemble_feasibility']} times on {len(mesh.distinct())} device(s)")
     off_path = [k for k in MESH_KERNELS if k not in path and counts[k]]
     if off_path:
         fail(f"phase 15: the main path launched {off_path} beside {main_scan}")
@@ -5585,17 +5673,42 @@ def mesh_phase(torch, card) -> dict:
     step_args = step_args[:11] + (int(step_p["next0"]),) + step_args[12:]
     if max_abs_err(torch, step_out, P.pack_reference(*step_args)) != 0.0:
         fail("phase 15: sharded_solve_step differs from the plain pack of its mask")
-    # the step's own tiles, copied to every device's mask
-    plan = P.mesh_plan(mesh.devices, len(step_p["sig_of"]), len(step_p["t_of"]), 4096)
-    masks = F.mesh_assemble_feasibility(plan, {d: adm_dev for d in mesh.distinct()},
-                                        len(step_p["sig_of"]), len(step_p["t_of"]))
+    # the step's own tiles: one launch a device in place, the other
+    # devices' tiles copied in
+    G_s, C_s = len(step_p["sig_of"]), len(step_p["t_of"])
+    plan = P.mesh_plan(mesh.devices, G_s, C_s, 4096)
+    site = lambda: OBSERVATORY.snapshot()["transfer_bytes"].get(P.MESH_SITE, 0)
+    counted, OBSERVATORY.enabled = OBSERVATORY.enabled, True
+    bytes0, launches0 = site(), F.LAUNCHES["assemble_feasibility"]
+    masks = F.mesh_assemble_feasibility(plan, {d: adm_dev for d in mesh.distinct()}, G_s, C_s)
+    mask_bytes = site() - bytes0
+    OBSERVATORY.enabled = counted
+    mask_launches = F.LAUNCHES["assemble_feasibility"] - launches0
     for m in masks.values():
         errs["assemble_feasibility"] = max(errs["assemble_feasibility"],
                                            max_abs_err(torch, [m], [plain_mask]))
     if errs["assemble_feasibility"] != 0.0:
         fail("phase 15: the tiled assemble_feasibility differs from its plain version")
-    print(f"  assemble_feasibility: whole and tiled bit-equal at Gp {len(step_p['sig_of'])} "
-          f"Cp {len(step_p['t_of'])}", flush=True)
+    n_dev = len(mesh.distinct())
+    if mask_launches != n_dev or mask_bytes != (n_dev - 1) * G_s * C_s:
+        fail(f"phase 15: the expansion on {n_dev} device(s) launched {mask_launches} times "
+             f"and copied {mask_bytes} bytes")
+    # unaligned, in place, several tiles a launch; and rows of 60,000 types
+    cases, launches = assemble_cases(torch, adm_dev)
+    wide_cases, wide_launches = assemble_cases(
+        torch, P.to_device(T.assemble_arrays(C=300, S=4, T=60000), dev))
+    cases.update({f"T 60,000 {k}": v for k, v in wide_cases.items()})
+    launches += wide_launches
+    bad = {k: v for k, v in cases.items() if v}
+    if bad or set(launches) != {1}:
+        fail(f"phase 15: assemble_feasibility differs from its plain version: {bad}, "
+             f"launches a call {launches} (each must be 1)")
+    print(f"  assemble_feasibility: whole and tiled bit-equal at Gp {G_s} Cp {C_s}; the "
+          f"factorized step's expansion {mask_launches} launch(es) on {n_dev} device(s), mask "
+          f"exchange bytes {mask_bytes} (copying every tile into every device's mask: "
+          f"{n_dev * G_s * C_s}); bit-equal, the bytes outside each tile untouched, one "
+          f"launch a call, in {len(cases)} unaligned, in-place and several-tile cases, at "
+          f"the step's arrays and at T 60,000", flush=True)
 
     # ---- times at config 2 (and ffd_shard_scan at the live cluster) --------
     sst = single._resident.states[-1]
@@ -5686,11 +5799,11 @@ def mesh_phase(torch, card) -> dict:
                     c += us
         busy[which] = (b / 1e3, c / 1e3)
     step_dev = P.to_device(tuple(adm), dev)
-    G_s, C_s = len(step_p["sig_of"]), len(step_p["t_of"])
     assemble = lambda: F.assemble_feasibility(*step_dev)
     dev_ms["assemble_feasibility"] = profiled_ms(
         torch, assemble, "assemble_feasibility", 3,
         events_for(lambda missing: {"assemble_feasibility": events_device_ms(torch, assemble, 20)}))
+    assemble_floor, assemble_grid = assemble_floor_ms(torch, step_dev, 3)
     rep = [t.parts[mesh.rows[0]] for t in margs[:8]]
     b = P.split_bounds(st.Cp, mesh.shape[1])
     g1 = P.split_bounds(st.Gp, mesh.shape[0])[1]
@@ -5764,6 +5877,14 @@ def mesh_phase(torch, card) -> dict:
         "live_latency_floor_ms": floors["config2_live"]})
     print(f"  ffd_shard_scan measured / floor at config 2: "
           f"{dev_ms['ffd_shard_scan'] / floors['config2']!r}", flush=True)
+    rows["assemble_feasibility"]["latency_floor_ms"] = assemble_floor
+    print(f"  assemble_feasibility ({card}): a whole-mask launch at Gp {G_s} Cp {C_s} "
+          f"{dev_ms['assemble_feasibility']!r} ms ({rows['assemble_feasibility']['timer']}), "
+          f"an empty launch of its grid {list(assemble_grid)} {assemble_floor!r} ms "
+          f"(profiler), bound {bounds['assemble_feasibility']}, measured / bound "
+          f"{dev_ms['assemble_feasibility'] / bounds['assemble_feasibility']['bound_ms']!r}; "
+          f"{counts['assemble_feasibility']} launch(es) and {mask_bytes} mask exchange bytes "
+          f"a factorized step on {n_dev} device(s)", flush=True)
     return {"rows": rows, "launches": counts, "solve_p50_ms": p50["ffd_shard_scan"],
             "pair_p50_ms": p50["ffd_shard_pair"], "single_p50_ms": p50["ffd_pack"]}
 
@@ -6384,12 +6505,14 @@ def main(argv) -> int:
     choice = [k for k in res if "choose_config_kernel" in k]
     if len(choice) != 4:  # kMulti false and true, each solo and shard
         fail(f"ptxas reported {len(choice)} instances of choose_config_kernel, expected 4")
-    for name in (*SPILL_CHECKED, *MESH_SPILL_CHECKED):
-        syms = [k for k in res if f"{name}_kernel" in k]
+    res_mesh = ptxas_resources(_build.BUILD_LOG["mesh_pack"])
+    for name in (*SPILL_CHECKED, *MESH_SPILL_CHECKED, "assemble_feasibility"):
+        syms = [k for k in (res_mesh if name == "assemble_feasibility" else res)
+                if f"{name}_kernel" in k]
         if not syms:
             fail(f"ptxas reported no {name}_kernel")
         for sym in sorted(syms):
-            regs, st, ld = res[sym]
+            regs, st, ld = {**res, **res_mesh}[sym]
             print(f"  {name}_kernel {sym}: {regs} registers, spill stores {st} bytes, "
                   f"spill loads {ld} bytes")
             if st or ld:

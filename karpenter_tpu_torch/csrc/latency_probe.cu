@@ -38,6 +38,12 @@
 //                         round trip through L2 between clusters is this
 //                         probe's time less the cluster probe's.
 //
+//   probe_empty_grid_kernel
+//                         does nothing, launched at another kernel's
+//                         grid and block: that launch's
+//                         floor (assemble_feasibility_kernel's in
+//                         chip_smoke.py phase 15).
+//
 // The caller times two launches with different iteration counts and
 // divides the difference, so the launch overhead cancels.
 
@@ -112,6 +118,9 @@ __global__ void probe_grid_exchange_kernel(int iters, unsigned long long* __rest
   out[blockIdx.x * blockDim.x + threadIdx.x] = v;
 }
 
+// Does nothing: a launch of it is the floor of any launch of its grid.
+__global__ void probe_empty_grid_kernel() {}
+
 __global__ void probe_chase_kernel(const int* __restrict__ next, int steps,
                                    int* __restrict__ out) {
   int p = 0;
@@ -127,6 +136,14 @@ extern "C" {
 int probe_barrier(int threads, int iters, int* out, void* stream) {
   if (threads < 32 || threads > 1024 || threads % 32 != 0) return -1;
   probe_barrier_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(iters, out);
+  return (int)cudaGetLastError();
+}
+
+// An empty launch of grid (gx, gy, gz) of blocks (bx, by): the shape of
+// another kernel's launch.
+int probe_empty_grid(int gx, int gy, int gz, int bx, int by, void* stream) {
+  if (gx < 1 || gy < 1 || gz < 1 || bx < 1 || by < 1 || bx * by > 1024) return -1;
+  probe_empty_grid_kernel<<<dim3(gx, gy, gz), dim3(bx, by), 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,8 @@ one cluster or one group of the grid's clusters an element.
 The sharded pack over a device mesh (parallel/mesh.py, replacing the JAX
 package's mesh, jitted XLA partitioned by GSPMD) is the second library,
 ``csrc/mesh_pack.cu``: `assemble_feasibility` (the dense feasibility mask
-from the factorized admission, a tile a launch), and the scan over the
+from the factorized admission; `assemble_tiles` writes every tile of a
+device in place in one launch), and the scan over the
 classes (`mesh_pack`): `ffd_shard_scan`, one thread-block cluster launch
 for the data shards of one device (the shard mode of ``ffd_pack.cu``'s
 cluster scan), or, where the rows lie on several devices, per class
@@ -79,13 +80,16 @@ from karpenter_tpu_torch.ops.packer import (
     MeshPlan,
     MeshShard,
     assemble_feasibility_reference,
+    assemble_tiles_reference,
     choose_config_reference,
     choose_config_shard_reference,
     ffd_shard_apply_reference,
     ffd_shard_cap_reference,
     ffd_shard_scan_reference,
+    mesh_assemble_copies,
+    mesh_assemble_masks,
+    mesh_assemble_plan,
     mesh_assemble_reference,
-    mesh_masks,
     mesh_outputs,
     mesh_pack_reference,
     mesh_scan,
@@ -258,7 +262,7 @@ def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _declare_mesh(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.mesh_shard_cap.argtypes is None:
-        lib.mesh_assemble_feasibility.argtypes = [_P] * 7 + [_I] * 7 + [_P, _I, _P]
+        lib.mesh_assemble_feasibility.argtypes = [_P] * 7 + [_I] * 3 + [_P, _P] + [_I] * 6 + [_P]
         lib.mesh_assemble_feasibility.restype = _I
         for entry in (lib.mesh_shard_cap, lib.mesh_shard_apply):
             entry.argtypes = [ctypes.POINTER(ShardArgs), _I, _I, _P]
@@ -1308,6 +1312,89 @@ def _card(dev: torch.device) -> None:
         raise ValueError(f"no kernel for device {dev}")
 
 
+# assemble_feasibility_kernel's layout (csrc/mesh_pack.cu: kAssembleWarps,
+# kAssembleBytes, kAssembleMaxChunk, kAssembleMaxTiles)
+ASSEMBLE_WARPS = 4  # a block's warps, each every 4th class of its chunk
+ASSEMBLE_BYTES = 16  # configs a lane, one 16-byte store a row
+ASSEMBLE_MAX_CHUNK = 32  # classes a block
+ASSEMBLE_MAX_TILES = 32  # tiles a launch
+
+
+class AssembleLayout(NamedTuple):
+    """One launch of ``assemble_feasibility_kernel``: ``gc`` classes a
+    block, ``grid`` (x, y, z) with z a tile."""
+
+    gc: int
+    grid: Tuple[int, int, int]
+
+
+def assemble_layout(tiles: Sequence[Tuple[int, int, int, int, int]], sms: int) -> AssembleLayout:
+    """The launch of ``tiles``, each ``(g0, g1, c0, c1, shift)`` with
+    ``shift`` its first byte's address mod 16, on a card of ``sms`` SMs: a
+    block runs 32 lanes x `ASSEMBLE_BYTES` configs by ``gc`` classes;
+    ``gc`` is the largest multiple of `ASSEMBLE_WARPS` up to
+    `ASSEMBLE_MAX_CHUNK` that still gives every SM a block (one full wave;
+    else 4)."""
+    xs = [-(-((c1 - c0 + shift + ASSEMBLE_BYTES - 1) // ASSEMBLE_BYTES) // 32)
+          for _, _, c0, c1, shift in tiles]
+    hs = [g1 - g0 for g0, g1, _, _, _ in tiles]
+    blocks = lambda gc: sum(x * -(-h // gc) for x, h in zip(xs, hs))
+    gc = next((gc for gc in range(ASSEMBLE_MAX_CHUNK, 0, -ASSEMBLE_WARPS)
+               if blocks(gc) >= sms), ASSEMBLE_WARPS)
+    return AssembleLayout(gc, (max(xs), max(-(-h // gc) for h in hs), len(tiles)))
+
+
+def _admission(type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of) -> Tuple[int, ...]:
+    """Check the seven admission tensors on one card; ``(S, T, Z, CT, G,
+    C)``."""
+    dev = type_ok.device
+    _card(dev)
+    S, T = type_ok.shape
+    Z, CT = zone_ok.shape[1], ct_ok.shape[1]
+    G, C = sig_of.shape[0], t_of.shape[0]
+    for name, t, dt, shp in (
+        ("type_ok", type_ok, torch.bool, (S, T)), ("zone_ok", zone_ok, torch.bool, (S, Z)),
+        ("ct_ok", ct_ok, torch.bool, (S, CT)), ("sig_of", sig_of, torch.int32, (G,)),
+        ("t_of", t_of, torch.int32, (C,)), ("z_of", z_of, torch.int32, (C,)),
+        ("ct_of", ct_of, torch.int32, (C,)),
+    ):
+        _check(name, t, dt, shp, dev)
+    return S, T, Z, CT, G, C
+
+
+def _assemble_launch(adm: tuple, dims: tuple, tiles: list, ld: int) -> None:
+    """One launch a run of at most `ASSEMBLE_MAX_TILES` of ``tiles``, each
+    ``(g0, g1, c0, c1, address)``: the tile written at ``address``, rows
+    ``ld`` bytes apart."""
+    T, Z, CT = dims[1:4]
+    dev = adm[0].device
+    index = _index(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib("mesh_pack")
+    for i in range(0, len(tiles), ASSEMBLE_MAX_TILES):
+        run = tiles[i: i + ASSEMBLE_MAX_TILES]
+        lay = assemble_layout([(g0, g1, c0, c1, at % 16) for g0, g1, c0, c1, at in run],
+                              _sm_count(index))
+        bounds = (ctypes.c_int * (4 * len(run)))(*(v for t in run for v in t[:4]))
+        outs = (ctypes.c_void_p * len(run))(*(t[4] for t in run))
+        err = lib.mesh_assemble_feasibility(
+            *_ptrs(*adm), T, Z, CT, bounds, outs, len(run), ld, lay.gc,
+            lay.grid[0], lay.grid[1], index, stream,
+        )
+        _launched("assemble_feasibility", err)
+
+
+def _mask_check(out: torch.Tensor, G: int, C: int, dev) -> int:
+    """``out``'s row stride in bytes: a [G, C] bool mask on ``dev`` whose
+    rows are contiguous."""
+    if out.device != dev or out.dtype != torch.bool or tuple(out.shape) != (G, C):
+        raise ValueError(f"out must be a [{G}, {C}] bool mask on {dev}, not "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if (C > 1 and out.stride(1) != 1) or not max(C, 1) <= out.stride(0) < 2**31:
+        raise ValueError(f"out's rows must be contiguous, strides {out.stride()}")
+    return out.stride(0)
+
+
 def assemble_feasibility(
     type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of,
     g0: int = 0, g1: Optional[int] = None, c0: int = 0, c1: Optional[int] = None,
@@ -1317,35 +1404,45 @@ def assemble_feasibility(
     ``parallel/mesh.py:assemble_feasibility``): ``type_ok [S, T]``,
     ``zone_ok [S, Z]``, ``ct_ok [S, CT]`` bool, ``sig_of [G]`` and ``t_of``,
     ``z_of``, ``ct_of [C]`` int32, every index in range.  On the card one
-    launch of ``assemble_feasibility_kernel``, a byte a thread."""
+    launch of ``assemble_feasibility_kernel``, 16 configs of a row a lane;
+    `assemble_tiles` writes tiles in place into a mask instead."""
     g1 = sig_of.shape[0] if g1 is None else g1
     c1 = t_of.shape[0] if c1 is None else c1
     args = (type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of)
     dev = type_ok.device
     if dev.type == "cpu":
         return assemble_feasibility_reference(*args, g0, g1, c0, c1)
-    _card(dev)
-    S, T = type_ok.shape
-    Z, CT = zone_ok.shape[1], ct_ok.shape[1]
-    G, C = sig_of.shape[0], t_of.shape[0]
+    dims = _admission(*args)
+    G, C = dims[4:]
     if not (0 <= g0 <= g1 <= G and 0 <= c0 <= c1 <= C):
         raise ValueError(f"tile [{g0}, {g1}) x [{c0}, {c1}) outside [{G}, {C}]")
-    for name, t, dt, shp in (
-        ("type_ok", type_ok, torch.bool, (S, T)), ("zone_ok", zone_ok, torch.bool, (S, Z)),
-        ("ct_ok", ct_ok, torch.bool, (S, CT)), ("sig_of", sig_of, torch.int32, (G,)),
-        ("t_of", t_of, torch.int32, (C,)), ("z_of", z_of, torch.int32, (C,)),
-        ("ct_of", ct_of, torch.int32, (C,)),
-    ):
-        _check(name, t, dt, shp, dev)
-    out = torch.empty((g1 - g0, c1 - c0), dtype=torch.bool, device=dev)
-    if not out.numel():
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib("mesh_pack").mesh_assemble_feasibility(
-        *_ptrs(*args), T, Z, CT, g0, g1, c0, c1, out.data_ptr(), _index(dev), stream,
-    )
-    _launched("assemble_feasibility", err)
-    return out
+    tile = torch.empty((g1 - g0, c1 - c0), dtype=torch.bool, device=dev)
+    if tile.numel():
+        _assemble_launch(args, dims, [(g0, g1, c0, c1, tile.data_ptr())], c1 - c0)
+    return tile
+
+
+def assemble_tiles(type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of, tiles,
+                   out: torch.Tensor) -> None:
+    """Every tile ``(g0, g1, c0, c1)`` of ``tiles`` written in place into
+    the [G, C] mask ``out`` (ops/packer.py: `assemble_tiles_reference`):
+    on the card one launch of ``assemble_feasibility_kernel`` for up to
+    `ASSEMBLE_MAX_TILES` tiles, a tile a ``blockIdx.z``."""
+    args = (type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of)
+    dev = type_ok.device
+    if dev.type == "cpu":
+        return assemble_tiles_reference(*args, tiles, out)
+    dims = _admission(*args)
+    G, C = dims[4:]
+    ld = _mask_check(out, G, C, dev)
+    run = []
+    for g0, g1, c0, c1 in tiles:
+        if not (0 <= g0 <= g1 <= G and 0 <= c0 <= c1 <= C):
+            raise ValueError(f"tile [{g0}, {g1}) x [{c0}, {c1}) outside [{G}, {C}]")
+        if g1 > g0 and c1 > c0:
+            run.append((g0, g1, c0, c1, out.data_ptr() + g0 * ld + c0))
+    if run:
+        _assemble_launch(args, dims, run, ld)
 
 
 def choose_config_shard(
@@ -1523,14 +1620,19 @@ def _plan_type(plan: MeshPlan) -> str:
 
 def mesh_assemble_feasibility(plan: MeshPlan, adm: dict, G: int, C: int) -> dict:
     """The sharded feasibility expansion (ops/packer.py:
-    `mesh_assemble_reference` on CPU shards): on a mesh of cards one launch
-    of ``assemble_feasibility_kernel`` a tile, on the tile's device, each
-    tile then copied into every device's [G, C] mask."""
+    `mesh_assemble_reference` on CPU shards), in `mesh_assemble_plan`'s
+    order: on a mesh of cards one launch of ``assemble_feasibility_kernel``
+    a distinct device, writing every tile of that device in place into its
+    [G, C] mask (`assemble_tiles`), then the tiles of the other devices
+    copied in.  On one card: one launch and no copy."""
     if _plan_type(plan) == "cpu":
         return mesh_assemble_reference(plan, adm, G, C)
-    tiles = [(g0, g1, c0, c1, assemble_feasibility(*adm[dev], g0, g1, c0, c1))
-             for dev, g0, g1, c0, c1 in plan.tile_bounds()]
-    return mesh_masks(plan, adm, tiles, G, C)
+    ap = mesh_assemble_plan(plan)
+    masks = mesh_assemble_masks(ap, G, C)
+    for dev, tiles in ap.groups:
+        assemble_tiles(*adm[dev], tiles, masks[dev])
+    mesh_assemble_copies(ap, masks)
+    return masks
 
 
 def mesh_pack(

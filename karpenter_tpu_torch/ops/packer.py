@@ -942,6 +942,16 @@ def assemble_feasibility_reference(
     return rows(type_ok, t_of) & rows(zone_ok, z_of) & rows(ct_ok, ct_of)
 
 
+def assemble_tiles_reference(type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of,
+                             tiles, out: torch.Tensor) -> None:
+    """Every tile ``(g0, g1, c0, c1)`` of ``tiles`` written in place into
+    the [G, C] mask ``out`` (`assemble_feasibility_reference` a tile), no
+    other byte touched."""
+    adm = (type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of)
+    for g0, g1, c0, c1 in tiles:
+        out[g0:g1, c0:c1] = assemble_feasibility_reference(*adm, g0, g1, c0, c1)
+
+
 def choose_config_shard_reference(
     req, maxper, feas, alloc, price, openable, g0: int, g1: int, c0: int, c1: int,
     objective: str = "nodes",
@@ -1145,26 +1155,58 @@ def mesh_plan(tiles: tuple, G: int, C: int, K: int) -> MeshPlan:
     return MeshPlan(tiles, split_bounds(K, D), split_bounds(G, D), split_bounds(C, M))
 
 
-def mesh_masks(plan: MeshPlan, adm: dict, tiles: list, G: int, C: int) -> dict:
-    """Every feasibility tile ``(g0, g1, c0, c1, tile)`` copied into each
-    device's [G, C] mask (``adm``'s devices).  Returns device -> mask."""
-    out = {}
-    for dev in adm:
-        out[dev] = feas = torch.empty((G, C), dtype=torch.bool, device=dev)
-        for g0, g1, c0, c1, tile in tiles:
-            if tile.numel():
-                _exchange(feas[g0:g1, c0:c1], tile)
-    return out
+class AssemblePlan(NamedTuple):
+    """Where the sharded feasibility expansion writes and copies: ``groups``
+    one ``(device, tiles)`` a distinct device of the plan, in the order the
+    devices first appear row by row, its non-empty tiles ``(g0, g1, c0,
+    c1)`` written in place into that device's [G, C] mask in one call;
+    ``copies`` each ``(src, dst, tile)``: a tile of device ``src``'s mask
+    copied into device ``dst``'s, for every other device."""
+
+    groups: tuple
+    copies: tuple
+
+
+def mesh_assemble_plan(plan: MeshPlan) -> AssemblePlan:
+    """The grouping both routes of the expansion share: on one card every
+    tile is written by one call into the card's mask and nothing is
+    copied; on D x M distinct devices each tile is written once, on its
+    own device, and copied to the other D x M - 1."""
+    groups: dict = {}
+    for dev, g0, g1, c0, c1 in plan.tile_bounds():
+        tiles = groups.setdefault(dev, [])
+        if g1 > g0 and c1 > c0:
+            tiles.append((g0, g1, c0, c1))
+    copies = tuple((src, dst, tile) for dst in groups for src, tiles in groups.items()
+                   if src != dst for tile in tiles)
+    return AssemblePlan(tuple((dev, tuple(t)) for dev, t in groups.items()), copies)
+
+
+def mesh_assemble_masks(ap: AssemblePlan, G: int, C: int) -> dict:
+    """Each device's [G, C] mask of the expansion, uninitialised, in
+    ``ap``'s order: device -> mask."""
+    return {dev: torch.empty((G, C), dtype=torch.bool, device=dev) for dev, _ in ap.groups}
+
+
+def mesh_assemble_copies(ap: AssemblePlan, masks: dict) -> None:
+    """After every device has written its own tiles: each tile of another
+    device copied into each mask (``ap.copies``, site `MESH_SITE`)."""
+    for src, dst, (g0, g1, c0, c1) in ap.copies:
+        _exchange(masks[dst][g0:g1, c0:c1], masks[src][g0:g1, c0:c1])
 
 
 def mesh_assemble_reference(plan: MeshPlan, adm: dict, G: int, C: int) -> dict:
-    """The sharded feasibility expansion, plain: tile (d, m) expands its
-    classes by its configs on its own device from ``adm`` (device -> the
-    seven admission tensors), then every tile is copied into each
-    device's replica of the [G, C] mask (`mesh_masks`)."""
-    tiles = [(g0, g1, c0, c1, assemble_feasibility_reference(*adm[dev], g0, g1, c0, c1))
-             for dev, g0, g1, c0, c1 in plan.tile_bounds()]
-    return mesh_masks(plan, adm, tiles, G, C)
+    """The sharded feasibility expansion, plain, in `mesh_assemble_plan`'s
+    order as the card runs it: each device's tiles written in place into
+    its [G, C] mask by one call (`assemble_tiles_reference`; ``adm``:
+    device -> the seven admission tensors), then the other devices' tiles
+    copied in.  Returns device -> mask."""
+    ap = mesh_assemble_plan(plan)
+    masks = mesh_assemble_masks(ap, G, C)
+    for dev, tiles in ap.groups:
+        assemble_tiles_reference(*adm[dev], tiles, masks[dev])
+    mesh_assemble_copies(ap, masks)
+    return masks
 
 
 def mesh_shards(plan: MeshPlan, reps: dict, recs: list, slots: tuple, next0: int) -> list:

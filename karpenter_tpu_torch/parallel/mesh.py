@@ -19,7 +19,9 @@ buffer a device (copied between devices):
   new-node choice and `assemble_feasibility`): tile (d, m) scores the
   classes of data row d (``split_bounds(G, D)``) on the configs of model
   column m (``split_bounds(C, M)``), and the per-class records meet in a
-  first-index argmin on every data row.
+  first-index argmin on every data row.  `assemble_feasibility` writes
+  the tiles of each distinct device in place into that device's [G, C]
+  mask in one launch; only the tiles of other devices are copied in.
 - the **class axis G is the sequential dimension**, as in the reference.
 
 Memory: the class and catalog tensors are replicated, one copy on each
@@ -254,7 +256,7 @@ def assemble_feasibility(type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of) -> 
     the device the tensors lie on (one launch of the kernel on the card,
     its plain version for CPU tensors): ``type_ok[sig_of[g], t_of[c]] &
     zone_ok[sig_of[g], z_of[c]] & ct_ok[sig_of[g], ct_of[c]]``.  On a mesh
-    `sharded_solve_step` runs it tile by tile."""
+    `sharded_solve_step` runs it once a device, over that device's tiles."""
     from karpenter_tpu_torch.ops import fused_packer
 
     return OBSERVATORY.dispatch(
@@ -270,8 +272,8 @@ def solve_step(
 ) -> PackResult:
     """The full sharded step of `sharded_solve_step` on host arrays: the
     admission vectors replicated (site ``mesh_solve_step``), the
-    feasibility expanded tile by tile and copied to every device, then
-    `sharded_pack`."""
+    feasibility expanded in place on each device (one launch a device over
+    its tiles, the other devices' tiles copied in), then `sharded_pack`."""
     from karpenter_tpu_torch.ops import fused_packer
 
     adm_host = (type_ok, zone_ok, ct_ok, sig_of, t_of, z_of, ct_of)

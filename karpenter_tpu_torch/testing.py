@@ -865,6 +865,21 @@ def mesh_step_problem(seed: int = 42, classes: int = 16, k_slots: int = 32,
     )
 
 
+def assemble_arrays(G: int = 37, C: int = 100, S: int = 5, T: int = 23, Z: int = 3,
+                    CT: int = 2, seed: int = 7) -> tuple:
+    """The seven admission arrays of the factorized feasibility expansion
+    (``type_ok [S, T]``, ``zone_ok [S, Z]``, ``ct_ok [S, CT]`` bool, about
+    70 % true; ``sig_of [G]``, ``t_of``, ``z_of``, ``ct_of [C]`` int32),
+    every index drawn in range from ``seed``: at the defaults no size is a
+    multiple of 16; with ``S == G`` every class has a signature of its
+    own."""
+    rng = np.random.RandomState(seed)
+    sig_of = rng.permutation(G) if S == G else rng.randint(0, S, G)
+    return (rng.rand(S, T) < 0.7, rng.rand(S, Z) < 0.7, rng.rand(S, CT) < 0.7,
+            sig_of.astype(np.int32), rng.randint(0, T, C).astype(np.int32),
+            rng.randint(0, Z, C).astype(np.int32), rng.randint(0, CT, C).astype(np.int32))
+
+
 def deep_class_pods(n: int = 600) -> List[Pod]:
     """``n`` pods over about 200 (cpu, memory) request classes: the deep
     sequential class axis of the JAX package's

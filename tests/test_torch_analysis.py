@@ -49,7 +49,7 @@ def _forge(tmp_path, files: dict):
 FUSED_PACKER_LAUNCHERS = {
     "choose_config", "_launch_resident", "_launch_cluster", "_launch_grid", "_launch_global",
     "fleet_pack", "_launch_window", "verdict_rows", "population_prologue",
-    "admit", "assemble_feasibility", "choose_config_shard", "ffd_shard_scan",
+    "admit", "_assemble_launch", "choose_config_shard", "ffd_shard_scan",
     "ffd_shard_cap", "ffd_shard_apply",
 }
 HOST_QUERIES = {"scan_concurrency", "verdict_shape", "_verdict_max_axes",

@@ -908,6 +908,24 @@ def test_phase15_lockstep_on_cpu_shards():
         4 * 16 + 12 * 64 + 4 * (8 + 2 + 2) + 16 * 64)
 
 
+def test_phase15_assemble_cases_on_cpu():
+    """`assemble_cases` on CPU tensors (both sides the plain version
+    there): the factorized step's problem and rows of 60,000 types give
+    17 cases, every one bit-equal with the bytes outside its tiles
+    untouched, and none of the 17 calls launches on the CPU."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import packer as P
+
+    step = T.mesh_step_problem(classes=40, types=64)
+    for arrays in (tuple(step[k] for k in T.MESH_STEP_ARGS[:7]),
+                   T.assemble_arrays(C=300, S=4, T=60000)):
+        diff, launches = chip_smoke.assemble_cases(torch, P.to_device(arrays,
+                                                                      torch.device("cpu")))
+        assert len(diff) == 17 and not any(diff.values()), diff
+        assert launches == [0] * 17
+    assert chip_smoke.ASSEMBLE_SENTINEL not in (0, 1)
+
+
 def test_profiler_blind_windows_take_the_fallback(monkeypatch, capsys):
     """A kernel the profiler never sees (here: no card, so no device time
     at all) is timed by the caller's fallback after `PROFILE_ATTEMPTS`

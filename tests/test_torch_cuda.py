@@ -1040,7 +1040,13 @@ def test_mesh_shard_scan_matches_plain_and_ffd_pack(cuda_device, case, shards, o
 
 def test_assemble_feasibility_kernel_matches_plain(cuda_device):
     """One launch a tile and the whole mask, against the plain version, at
-    the mesh tests' problem and at config 2's shapes (Gp 320, Cp 8192)."""
+    the mesh tests' problem and at config 2's shapes (Gp 320, Cp 8192);
+    then chip_smoke's `assemble_cases` (tiles whose bounds and widths 1, 15
+    and 17 are no multiples of 16, fresh and in place into masks
+    prefilled with a sentinel whose rows are C and C + 3 bytes apart, and
+    9 tiles in one launch; one launch a call) at those shapes, at G 37,
+    C 100 with every class its own signature, and at T 60,000."""
+    import chip_smoke
     from karpenter_tpu_torch.ops import packer as P
 
     for kw in ({}, {"classes": 320, "k_slots": 4096, "types": 1024}):
@@ -1050,6 +1056,12 @@ def test_assemble_feasibility_kernel_matches_plain(cuda_device):
         for g0, g1, c0, c1 in ((0, G, 0, C), (1, G // 2, 3, C - 5), (2, 2, 0, C)):
             got = fused_packer.assemble_feasibility(*adm, g0, g1, c0, c1)
             assert torch.equal(got, P.assemble_feasibility_reference(*adm, g0, g1, c0, c1))
+        diff, launches = chip_smoke.assemble_cases(torch, adm)
+        assert set(launches) == {1} and not any(diff.values()), diff
+    for kw in ({"S": 37}, {"C": 300, "S": 4, "T": 60000}):
+        arrays = T.assemble_arrays(**kw)
+        diff, launches = chip_smoke.assemble_cases(torch, to_device(arrays, cuda_device))
+        assert set(launches) == {1} and not any(diff.values()), (kw, diff)
 
 
 def test_mesh_scheduler_on_card_matches_single_device(cuda_device):
