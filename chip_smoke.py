@@ -2,7 +2,7 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-16), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-17), then exit 3
 
 Phases (each failure exits non-zero before the last line is printed):
 
@@ -52,6 +52,12 @@ Phases (each failure exits non-zero before the last line is printed):
      process of its own, the grid scan with a spin budget of one clock
      cycle, alone and with a batch axis, must trap and torch must raise
      (`spin_trap`);
+   - the main-path tensors of four of phase 17's problems, each captured
+     from the ``ffd_pack`` call of a cold card solve (`main_path_args`):
+     config 5 (Cp 16,384: the resident scan's 169,344-byte layout), the
+     100k-pod tick (Kp 2,048 at 2 slots a thread, 1,000 live rows),
+     config 3 (the tracked signature, a class with maxper 1 over 214
+     classes) and the co-location macro units (`PHASE3_CONFIGS`);
    - the choice alone (``compare_choose``): ``choose_config`` on the three
      main-path problems, the wrap case (Gp 10), ``testing.tie_arrays``
      (first-index ties, a class that fits nothing, a class with maxper 0)
@@ -441,6 +447,28 @@ Phases (each failure exits non-zero before the last line is printed):
    code 0.  Prints each process's peak RSS against its limit, the seconds
    to the leader's first NodeClaim, the leader's solve (wall and phases,
    from its ``/metrics``), and the solver's launches by kernel.
+17. The rest of ``bench.py``'s solve problems (`configs_phase`), built at
+   full scale by the port's problem functions in ``testing.py``
+   (`CONFIG_PROBLEMS`): configs 3 and 5 (5 in both objectives), the four
+   co-location lines, relaxation, the hybrid line and the 100k-pod
+   resident tick.  Each problem's pack shapes come from a cold card
+   solve's pack (`main_path_args`), and the shape rule must pick the scan
+   `CONFIG_SCAN` names there.  On one ``TorchScheduler(device="cuda")`` a problem,
+   `CONFIG_SOLVES` warm-up and timed solves of each kind: cold (compile
+   cache and resident states dropped first) and hit (the same pods), and
+   on the 100k problem delta (1 % of the pods replaced by new objects of
+   their shapes; after each, the card tensors equal their host mirrors).
+   Each solve places every pod, reports the path, continuation and count
+   of pods relaxed at compile time that the JAX package reports
+   (`CONFIG_EXPECT`), and launches ``choose_config`` and the scan its
+   shapes pick once each (`CONFIG_SCAN`); the last cold result (and the
+   100k problem's last delta) equals a CPU solve of the port in canonical
+   form (`canonical`).  Then config 4
+   (``testing.consolidation_repack``: 5,000 pods settled, every node a
+   candidate) runs ``_simulate`` over every candidate on the card; its
+   decision (`repack_decision`) equals the same drive on the
+   CPU.  Prints each problem's p50 by kind with its phases, launches by
+   kernel and seconds, and the phase's seconds.
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
@@ -448,7 +476,8 @@ phase 9's, ``sim_launches`` phase 10's over its scenarios,
 phase 12's over its card drive, ``fleet_launches`` phase 13's over the
 scaled cell's drive, ``legacy_launches`` phase 14's over the converted
 objects' drive, ``mesh_launches`` phase 15's main path,
-``chart_launches`` phase 16's solver sidecar; the five mesh
+``chart_launches`` phase 16's solver sidecar, ``configs_launches``
+phase 17's solves and repack; the five mesh
 kernels' rows take ``launches`` from there, ``forced_launches`` from the
 rest of the phase, where the pair is driven directly, ``timer`` the
 clock of ``ms`` (profiler, or CUDA events with the gaps between launches),
@@ -743,7 +772,25 @@ CHART_PODS = OPERATOR_PODS  # all of config 2's pods: no cut of scale
 CHART_DEADLINE_S = 300.0  # the processes' start, the load and every nomination
 CHART_STOP_S = 60.0  # a process's wait to exit after SIGTERM
 
-LAST_PHASE = 16
+# phase 17: bench.py's other solve problems, built by the port's testing.py at full scale
+CONFIG_PROBLEMS = ("config3", "config5", "coloc-tensor", "coloc-crossclass",
+                   "coloc-inequiv", "coloc-prefer", "relax", "hybrid", "resident100k")
+CONFIG_OBJECTIVES = {"config5": OBJECTIVES}  # the others: the nodes objective
+# (path, continuation, pods relaxed at compile time) as the JAX package
+# reports them for each problem at full scale
+CONFIG_EXPECT = {**{name: ("tensor", "", 0) for name in CONFIG_PROBLEMS},
+                 "relax": ("tensor", "", 3000), "hybrid": ("hybrid", "join", 0)}
+# the scan each problem's solves must launch once (the resident scan: the
+# 100k tick at Kp 2,048 and 2 slots a thread, config 5 at Cp 16,384)
+CONFIG_SCAN = {name: "ffd_scan" for name in CONFIG_PROBLEMS}
+CONFIG_SOLVES = (1, 3)  # warm-up, timed solves of each kind
+CONFIG_DELTA = "resident100k"  # the problem that also runs bench's warm tick
+CONFIG_DELTA_SHARE = 100  # its delta replaces 1 pod in 100
+REPACK_SIMULATIONS = (1, 3)  # config 4's warm-up, timed ``_simulate`` calls
+# phase 3: the problems whose main-path tensors it holds each kernel to
+PHASE3_CONFIGS = ("config5", "resident100k", "config3", "coloc-tensor")
+
+LAST_PHASE = 17
 
 
 def fail(msg: str) -> None:
@@ -1104,6 +1151,9 @@ def layout_note(shapes, picked: str, max_clusters: int) -> str:
         g = F.grid_layout(K, R, S, max_clusters)
         return (f" (grid of {g.clusters} clusters of {g.ctas} CTAs, {g.per_thread} slots a "
                 f"thread, {g.smem} bytes of shared memory each)")
+    if picked == "ffd_scan":
+        per_thread, smem = F.resident_layout(K, R, S, C)
+        return f" (one block, {per_thread} slots a thread, {smem} bytes of shared memory)"
     return ""
 
 
@@ -1439,7 +1489,7 @@ def time_kernels(torch, args, scan_turns: bool = False):
         fn, symbol = scans[k]
         readings[k].append(profiled_ms(torch, fn, symbol, iters=50))
     plain_scan = cuda_ms(torch, lambda: P.ffd_scan_reference(*scan_args),
-                         iters=3, warmup=1)
+                         iters=1, warmup=1)
     choose_ms = profiled_ms(torch, choose, "choose_config", iters=200)
     out = {"choose_config": (
         choose_ms,
@@ -1455,12 +1505,12 @@ def time_kernels(torch, args, scan_turns: bool = False):
 
 
 def canonical(result):
-    nodes = sorted(
-        (vn.pool.name, tuple(t.name for t in vn.feasible_types),
-         tuple(sorted(vn.zone_options())), tuple(sorted(p.name for p in vn.pods)))
-        for vn in result.new_nodes
-    )
-    return nodes, sorted(result.existing_placements.items()), sorted(result.unschedulable)
+    """A result in canonical form (``testing.canonical_result``: per new
+    node the pool, types, zones, capacity type and pods; the existing
+    placements; the unschedulable pods)."""
+    from karpenter_tpu_torch import testing as T
+
+    return T.canonical_result(result)
 
 
 def profile_solve(torch, solve, pods):
@@ -1529,19 +1579,19 @@ def cold_solve(sched, pods):
     return sched.solve(pods)
 
 
-def churn(rng, pods, existing):
-    """One delta tick's input: ``DELTA_PODS`` pods leave the batch and as
-    many new pod objects, with the shapes of pods of the batch, join its
-    end (as pods arrive in a pending queue) and, on a live cluster,
+def churn(rng, pods, existing, n: int = DELTA_PODS):
+    """One delta tick's input: ``n`` pods (``DELTA_PODS``) leave the batch
+    and as many new pod objects, with the shapes of pods of the batch, join
+    its end (as pods arrive in a pending queue) and, on a live cluster,
     ``DELTA_NODES`` nodes' usage grows by a bound pod."""
     import dataclasses
 
     from karpenter_tpu_torch.api import Pod, Resources
 
-    gone = set(rng.sample(range(len(pods)), DELTA_PODS))
+    gone = set(rng.sample(range(len(pods)), n))
     out = [p for i, p in enumerate(pods) if i not in gone]
     out += [dataclasses.replace(pods[rng.randrange(len(pods))], name="")
-            for _ in range(DELTA_PODS)]
+            for _ in range(n)]
     for sn in rng.sample(existing, min(DELTA_NODES, len(existing))):
         bp = Pod(requests=Resources(cpu=0.25, memory="256Mi"), node_name=sn.name,
                  phase="Running")
@@ -1585,13 +1635,14 @@ def placed_all(name, sched, result, n_pods) -> None:
         fail(f"{name}: path {sched.last_path}/{sched.last_kernel}")
 
 
-def cpu_equal(name, label, spec, pods, result) -> None:
+def cpu_equal(name, label, spec, pods, result, objective: str = "nodes") -> None:
     """The card's result against a cold CPU solve through the plain version
     of the same pods and live nodes."""
     from karpenter_tpu_torch.scheduling.solver import TorchScheduler
 
     pools, inv, _, existing = spec
-    cpu = TorchScheduler(pools, inv, existing=existing, device="cpu").solve(pods)
+    cpu = TorchScheduler(pools, inv, existing=existing, objective=objective,
+                         device="cpu").solve(pods)
     if canonical(cpu) != canonical(result):
         fail(f"{name}: the card's {label} solve differs from the CPU plain solve")
     print(f"    {label}: equals the CPU plain-version cold solve ({len(cpu.new_nodes)} nodes)")
@@ -3983,7 +4034,9 @@ def time_fleet(torch, name: str, tenants: list, card: str, scan=None) -> dict:
                                        if i != 11], FLEET_ITERS)
     call_ms = cuda_ms(torch, fleet, FLEET_ITERS)
     solo_call_ms = cuda_ms(torch, lambda: [F.ffd_pack(*t) for t in tenants], FLEET_ITERS)
-    plain_ms = cuda_ms(torch, lambda: P.fleet_pack_reference(cols, k_slots=K), 1, warmup=1)
+    # one call, no warm-up: the plain version is a host loop of seconds a
+    # call at config 2, and the script's time limit holds every phase
+    plain_ms = cuda_ms(torch, lambda: P.fleet_pack_reference(cols, k_slots=K), 1, warmup=0)
     outs = fleet()
     torch.cuda.synchronize()
     bounds = fleet_bounds(tenants, outs)
@@ -5457,8 +5510,10 @@ def assemble_floor_ms(torch, adm, iters: int) -> tuple:
     csrc/latency_probe.cu) of the grid and block that
     ``assemble_feasibility`` gives the whole mask of ``adm``
     (`fused_packer.assemble_layout`) on ``adm``'s device, from
-    torch.profiler: the kernel's floor for launch latency.  Returns (ms,
-    grid)."""
+    torch.profiler, or from CUDA events (`events_device_ms`) where the
+    profiler saw no device time in `PROFILE_ATTEMPTS` windows, as the
+    kernel's own reading falls back: the kernel's floor for launch
+    latency.  Returns (ms, grid, the timer)."""
     from karpenter_tpu_torch.ops import fused_packer as F
 
     dev = adm[0].device
@@ -5472,7 +5527,14 @@ def assemble_floor_ms(torch, adm, iters: int) -> tuple:
                                 torch.cuda.current_stream(dev).cuda_stream) != 0:
             fail("the empty grid probe launch failed")
 
-    return profiled_ms(torch, launch, "probe_empty_grid", iters), lay.grid
+    timer = ["profiler"]
+
+    def by_events(_missing):
+        timer[0] = "events"
+        return {"probe_empty_grid": events_device_ms(torch, launch, 20)}
+
+    ms = profiled_ms(torch, launch, "probe_empty_grid", iters, by_events)
+    return ms, lay.grid, timer[0]
 
 
 def mesh_phase(torch, card) -> dict:
@@ -5803,7 +5865,7 @@ def mesh_phase(torch, card) -> dict:
     dev_ms["assemble_feasibility"] = profiled_ms(
         torch, assemble, "assemble_feasibility", 3,
         events_for(lambda missing: {"assemble_feasibility": events_device_ms(torch, assemble, 20)}))
-    assemble_floor, assemble_grid = assemble_floor_ms(torch, step_dev, 3)
+    assemble_floor, assemble_grid, floor_timer = assemble_floor_ms(torch, step_dev, 3)
     rep = [t.parts[mesh.rows[0]] for t in margs[:8]]
     b = P.split_bounds(st.Cp, mesh.shape[1])
     g1 = P.split_bounds(st.Gp, mesh.shape[0])[1]
@@ -5881,7 +5943,7 @@ def mesh_phase(torch, card) -> dict:
     print(f"  assemble_feasibility ({card}): a whole-mask launch at Gp {G_s} Cp {C_s} "
           f"{dev_ms['assemble_feasibility']!r} ms ({rows['assemble_feasibility']['timer']}), "
           f"an empty launch of its grid {list(assemble_grid)} {assemble_floor!r} ms "
-          f"(profiler), bound {bounds['assemble_feasibility']}, measured / bound "
+          f"({floor_timer}), bound {bounds['assemble_feasibility']}, measured / bound "
           f"{dev_ms['assemble_feasibility'] / bounds['assemble_feasibility']['bound_ms']!r}; "
           f"{counts['assemble_feasibility']} launch(es) and {mask_bytes} mask exchange bytes "
           f"a factorized step on {n_dev} device(s)", flush=True)
@@ -6451,13 +6513,244 @@ def chart_phase(torch, card) -> dict:
     return dict(r["solver_launches"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the rest of bench.py's solve problems
+# ---------------------------------------------------------------------------
+
+
+def config_problems() -> dict:
+    """Phase 17's problems at full scale, by the port's problem functions: name ->
+    ``(pools, inventory, pods, existing)``."""
+    from karpenter_tpu_torch import testing as T
+
+    build = {
+        "config3": T.affinity_topology_problem,
+        "config5": T.multipool_spot_problem,
+        **{f"coloc-{v}": (lambda v=v: T.coloc_problem(v)) for v in T.COLOC_VARIANTS},
+        "relax": T.relax_problem,
+        "hybrid": T.hybrid_problem,
+        "resident100k": T.resident_100k_problem,
+    }
+    out = {}
+    for name in CONFIG_PROBLEMS:
+        spec = tuple(build[name]())
+        out[name] = spec + ((),) * (4 - len(spec))
+    return out
+
+
+def main_path_args(torch, spec):
+    """The card tensors a cold ``TorchScheduler.solve`` hands the pack (the
+    arguments of its last ``fused_packer.ffd_pack`` call): the resident
+    tensors where the solve seeds them, else the padded upload."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, pods, existing = spec
+    calls, real = [], F.ffd_pack
+
+    def recorded(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    F.ffd_pack = recorded
+    try:
+        TorchScheduler(pools, inv, existing=existing, device="cuda").solve(pods)
+        torch.cuda.synchronize()
+    finally:
+        F.ffd_pack = real
+    if not calls:
+        fail("a cold solve on the card launched no pack")
+    return calls[-1]
+
+
+def config_checks(name, sched, result, n_pods, moved, objective) -> None:
+    """One of phase 17's solves: every pod placed, the JAX package's path,
+    continuation and relaxed count, and ``choose_config`` and the picked
+    scan launched once each (no other scan)."""
+    label = f"{name} ({objective})"
+    placed = sum(len(n.pods) for n in result.new_nodes) + len(result.existing_placements)
+    if placed != n_pods or result.unschedulable:
+        fail(f"{label}: placed {placed} of {n_pods} pods")
+    got = (sched.last_path, sched.last_continuation, sched.last_compile_relaxed)
+    if got != CONFIG_EXPECT[name] or sched.last_kernel != "cuda_ffd":
+        fail(f"{label}: path, continuation, relaxed {got} on {sched.last_kernel}, "
+             f"expected {CONFIG_EXPECT[name]} on cuda_ffd")
+    want = {"choose_config": 1, CONFIG_SCAN[name]: 1}
+    if {k: v for k, v in moved.items() if v} != want:
+        fail(f"{label}: a solve launched {moved}, expected {want}")
+
+
+def drive_config(torch, name, spec, objective, rng) -> dict:
+    """Phase 17 on one problem and objective: `CONFIG_SOLVES` of each kind
+    on one scheduler on the card, each held by `config_checks`.  Returns
+    per kind the timed milliseconds and the last solve's phases, and the
+    launches by kernel."""
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+
+    pools, inv, pods, existing = spec
+    sched = TorchScheduler(pools, inv, existing=existing, objective=objective,
+                           device="cuda")
+    kinds = ("cold", "hit", "delta") if name == CONFIG_DELTA else ("cold", "hit")
+    times, phases, total = {k: [] for k in kinds}, {}, {k: 0 for k in KERNELS}
+    warmup, timed = CONFIG_SOLVES
+    for kind in kinds:
+        for i in range(warmup + timed):
+            if kind == "delta":
+                pods = churn(rng, pods, (), n=len(pods) // CONFIG_DELTA_SHARE)
+            before, hits = dict(F.LAUNCHES), sched.compile_cache_hits
+            t0 = time.perf_counter()
+            result = cold_solve(sched, pods) if kind == "cold" else sched.solve(pods)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            moved = {k: F.LAUNCHES[k] - before[k] for k in KERNELS}
+            for k, v in moved.items():
+                total[k] += v
+            if i >= warmup:
+                times[kind].append(ms)
+            config_checks(name, sched, result, len(pods), moved, objective)
+            if (kind == "hit") != (sched.compile_cache_hits > hits):
+                fail(f"{name}: a {kind} solve was {'not ' if kind == 'hit' else ''}"
+                     f"a compile-cache hit")
+            if kind == "delta":
+                if not sched.last_resident or sched.last_delta_rows <= 0:
+                    fail(f"{name}: a delta tick did not pack from the resident tensors "
+                         f"({sched.last_delta_rows} rows)")
+                check_mirrors(torch, name, sched._resident.states[-1])
+        phases[kind] = dict(sched.last_phases)
+        if kind == "hit" and canonical(result) != cold:
+            fail(f"{name}: a compile-cache hit decoded another result than the cold solve")
+        if kind == "cold":
+            cold = canonical(result)
+        if kind != "hit":
+            cpu_equal(f"{name} ({objective})", f"last {kind}", spec, pods, result, objective)
+    return {"times": times, "phases": phases, "launches": total,
+            "resident": sched.last_resident}
+
+
+def repack_decision(dc, candidates) -> dict:
+    """One ``dc._simulate(candidates)`` of either package as plain data:
+    whether the pods fit, the replacement's price and canonical node, the
+    removed nodes, and the canonical result of the repack's solve."""
+    from karpenter_tpu_torch import testing as T
+
+    sched, results = dc._scheduler, []
+    solve = sched.solve
+
+    def recorded(pods, *a, **kw):
+        results.append(solve(pods, *a, **kw))
+        return results[-1]
+
+    sched.solve = recorded
+    try:
+        fits, price, vn = dc._simulate(candidates)
+    finally:
+        del sched.solve
+    return {
+        "fits": fits,
+        "price": price,
+        "replacement": None if vn is None else T.canonical_node(vn),
+        "removed": sorted(c.state.name for c in candidates),
+        "repack": canonical(results[-1]) if results else None,
+        "path": sched.last_path,
+    }
+
+
+def drive_repack(torch, device: str) -> dict:
+    """Config 4 on ``device``: the settled cluster of
+    ``testing.consolidation_repack``, then `REPACK_SIMULATIONS` calls of
+    ``_simulate`` over every candidate.  Returns the decision, the timed
+    milliseconds, the last call's phases and the launches of the calls."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    dc, candidates = T.consolidation_repack(device)
+    warmup, timed = REPACK_SIMULATIONS
+    before, times = dict(F.LAUNCHES), []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        decision = repack_decision(dc, candidates)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"decision": decision, "times": times, "phases": dict(dc._scheduler.last_phases),
+            "kernel": dc._scheduler.last_kernel,
+            "launches": {k: F.LAUNCHES[k] - before[k] for k in KERNELS}}
+
+
+def configs_phase(torch, card, specs) -> dict:
+    """Phase 17 as the module docstring lists it: each problem's pack
+    shapes (a cold card solve's `main_path_args`, whose scan the shape rule
+    must pick as `CONFIG_SCAN` says), then its drives.  Returns the
+    launches by kernel of its drives and of the repack's simulations."""
+    import random
+
+    t17 = time.perf_counter()
+    rng = random.Random(17)
+    launches = {k: 0 for k in KERNELS}
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    max_clusters = F.grid_clusters(torch.cuda.current_device())
+    for name, spec in specs.items():
+        args = main_path_args(torch, spec)
+        shapes = pack_shapes(args)
+        if F.scan_kernel(*shapes) != CONFIG_SCAN[name]:
+            fail(f"{name}: the shape rule picks {F.scan_kernel(*shapes)}, expected "
+                 f"{CONFIG_SCAN[name]}")
+        print(f"  {name}: {len(spec[2])} pods, {len(spec[3])} live nodes; the pack's "
+              f"Gp={args[0].shape[0]} ({int((args[1] > 0).sum())} classes) Cp={shapes[3]} "
+              f"Kp={shapes[0]} R={shapes[1]} S={shapes[2]} next0={args[11]}: "
+              f"{CONFIG_SCAN[name]}{layout_note(shapes, CONFIG_SCAN[name], max_clusters)}", flush=True)
+        for objective in CONFIG_OBJECTIVES.get(name, ("nodes",)):
+            t0 = time.perf_counter()
+            print(f"  {name} ({objective}):", flush=True)
+            run = drive_config(torch, name, spec, objective, rng)
+            for k, v in run["launches"].items():
+                launches[k] += v
+            for kind, ts in run["times"].items():
+                print(f"    {kind}: p50_ms={statistics.median(ts)!r} min_ms={min(ts)!r} "
+                      f"max_ms={max(ts)!r} ({card})")
+                print(f"      last_phases_ms="
+                      f"{json.dumps({k: v * 1e3 for k, v in sorted(run['phases'][kind].items())})}")
+            print(f"    launches {json.dumps({k: v for k, v in run['launches'].items() if v})}; "
+                  f"resident={run['resident']}; {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    print("  config4 repack: _simulate over every candidate", flush=True)
+    card_run = drive_repack(torch, "cuda")
+    cpu_run = drive_repack(torch, "cpu")
+    d = card_run["decision"]
+    if card_run["kernel"] != "cuda_ffd" or not card_run["launches"]["choose_config"]:
+        fail(f"config4: the repack ran {card_run['kernel']} with launches "
+             f"{card_run['launches']}")
+    if d != cpu_run["decision"]:
+        fail("config4: the card's repack decision differs from the CPU's")
+    for k, v in card_run["launches"].items():
+        launches[k] += v
+    ts = card_run["times"]
+    print(f"    decision: fits={d['fits']} price={d['price']!r} removed {len(d['removed'])} "
+          f"nodes, the repack {len(d['repack'][0])} new nodes on path {d['path']}; equals the "
+          f"CPU's")
+    print(f"    _simulate: p50_ms={statistics.median(ts)!r} min_ms={min(ts)!r} "
+          f"max_ms={max(ts)!r} ({card}); CPU p50_ms={statistics.median(cpu_run['times'])!r}")
+    print(f"      last_phases_ms="
+          f"{json.dumps({k: v * 1e3 for k, v in sorted(card_run['phases'].items())})}")
+    print(f"    launches {json.dumps({k: v for k, v in card_run['launches'].items() if v})}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"  phase 17 launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    print(f"  phase 17 took {time.perf_counter() - t17:.3f} s", flush=True)
+    return launches
+
+
 def phase_launches(kernel: str, per_phase: dict) -> dict:
     """A kernels-line row's launches on each phase's path: ``per_phase``
     maps each column (``operator_launches``: phase 7's drive,
     ``consolidation_launches`` phase 9's, ``sim_launches`` phase 10's
     scenarios, ``service_launches`` phase 11's rounds, ``ha_launches``
     phase 12's card drive, ``fleet_launches`` phase 13's scaled cell,
-    ``legacy_launches`` phase 14's converted objects) to that phase's
+    ``legacy_launches`` phase 14's converted objects, ``mesh_launches``
+    phase 15's main path, ``chart_launches`` phase 16's sidecar,
+    ``configs_launches`` phase 17's problems) to that phase's
     launch counts."""
     return {col: counts.get(kernel, 0) for col, counts in per_phase.items()}
 
@@ -6525,6 +6818,10 @@ def main(argv) -> int:
         G, C = prob.feas.shape
         print(f"[problem] {name}: pods={prob.total_pods()} classes={G} "
               f"configs={C} axes={len(prob.axes)} tracked={prob.n_track_slots}")
+    t0 = time.perf_counter()
+    config_specs = config_problems()
+    print(f"[problem] phase 17's problems built in {time.perf_counter() - t0:.3f} s: "
+          + ", ".join(f"{name} {len(spec[2])} pods" for name, spec in config_specs.items()))
 
     print("[kernel vs plain] bit-equality on the card", flush=True)
     from karpenter_tpu_torch import testing as T
@@ -6535,10 +6832,14 @@ def main(argv) -> int:
     # each problem at the main path's shapes: the resident tensors a cold
     # solve on the card seeds (config 2 and the flagship: 512 slots)
     kargs = {name: main_path_state(torch, spec).pack_args() for name, spec in specs.items()}
-    for name, args in kargs.items():
+    # phase 17's problems at the inputs that reach the kernels there: the
+    # arguments of a cold card solve's pack
+    cargs = {name: main_path_args(torch, config_specs[name]) for name in PHASE3_CONFIGS}
+    for name, args in {**kargs, **cargs}.items():
         G, R = args[0].shape
         print(f"  {name}: main-path tensors Gp={G} Cp={args[5].shape[0]} "
-              f"Kp={args[8].shape[0]} R={R}")
+              f"Kp={args[8].shape[0]} R={R} S={args[12].shape[0]} next0={args[11]} "
+              f"classes with maxper 1: {int((args[2] == 1).sum())}")
     glob = [("ffd_scan_global", F.ffd_scan_global, "ffd_scan_global")]
 
     def sizes(args):  # the cluster scan forced onto each other cluster size
@@ -6565,6 +6866,7 @@ def main(argv) -> int:
         "wrap k_slots=16384 straddling slot 8192": (
             wrap(16384, at=16384 // 2 - 2), "ffd_scan_cluster", []),
         **{name: (kargs[name], "ffd_scan_grid", glob) for name in LARGE_LIVE},
+        **{name: (cargs[name], CONFIG_SCAN[name], []) for name in PHASE3_CONFIGS},
         **{name: (wrap(k, at=at), "ffd_scan_grid", [])
            for name, (k, at) in grid_wrap_cases(max_clusters).items()},
     }
@@ -6788,12 +7090,16 @@ def main(argv) -> int:
 
     print(f"[chart] {CHART_DIR}'s topology as processes on the card, {card}", flush=True)
     chart_launches = chart_phase(torch, card)
+    phase_done(16, through)
+
+    print(f"[configs] the rest of bench.py's solve problems on the card, {card}", flush=True)
+    configs_launches = configs_phase(torch, card, config_specs)
 
     per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
                  "sim_launches": sim_launches, "service_launches": service["launches"],
                  "ha_launches": ha_launches, "fleet_launches": fleet_launches,
                  "legacy_launches": legacy_launches, "mesh_launches": mesh["launches"],
-                 "chart_launches": chart_launches}
+                 "chart_launches": chart_launches, "configs_launches": configs_launches}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]

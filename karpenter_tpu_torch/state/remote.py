@@ -942,7 +942,6 @@ class RemoteKubeStore(KubeStore):
             self._note_epoch(chan, str(frame.get("epoch") or ""))
         mode = frame.get("mode", "snapshot")
         first_sync = initial and not chan.ever_synced
-        chan.ever_synced = True
         if not first_sync:
             # a genuine resync (not the very first state transfer):
             # count it and put it on the decision ledger — a mirror that
@@ -959,6 +958,8 @@ class RemoteKubeStore(KubeStore):
         else:
             self._absorb_events(chan, frame.get("events", ()), remote=True)
         chan.watch_seq = frame.get("seq", chan.watch_seq)
+        # set once the transfer has applied: `wait_synced` reads it
+        chan.ever_synced = True
 
     def _note_epoch(self, chan: StoreChannel, epoch: str) -> None:
         """Adopt the server's epoch id, resetting every old-space cursor
@@ -1080,15 +1081,24 @@ class RemoteKubeStore(KubeStore):
         With an explicit ``min_rv`` the aggregate high-water mark is
         compared (single-shard semantics — the caller got the target
         from one shard's response); with the default, each shard is
-        statted and waited on in ITS OWN rv space."""
+        statted and waited on in ITS OWN rv space.
+
+        With the watch started, every shard's stream must also have made
+        its first state transfer.  On a fresh server every rv target is
+        0, which a mirror meets before its watch thread has dialed; a
+        caller that went on to restart the server would lose that
+        transfer to the next incarnation, where it is no resync."""
         if min_rv is None:
             targets = [
                 (chan, self._rpc({"method": "stat"}, shard=chan.index)["rv"])
                 for chan in self._channels
             ]
-            synced = lambda: all(c.synced_rv >= t for c, t in targets)
+            at_rv = lambda: all(c.synced_rv >= t for c, t in targets)
         else:
-            synced = lambda: self.synced_rv >= min_rv
+            at_rv = lambda: self.synced_rv >= min_rv
+        synced = lambda: at_rv() and (
+            not self._watch_enabled or all(c.ever_synced for c in self._channels)
+        )
         deadline = self.clock.now() + timeout
         while self.clock.now() < deadline:
             if synced():

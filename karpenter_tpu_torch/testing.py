@@ -5,7 +5,10 @@ The counterpart of ``karpenter_tpu/testing.py``'s `Environment` for what
 the solve reads: a default pool, instance types over `generate_catalog`
 in zones ``zone-a/b/c`` of ``region-1``, the two north-star problems of
 ``bench.py`` (`build_problem`, `build_heterogeneous`) with a ``scale`` on
-the pod count, a cluster of live nodes, pack inputs on which the scan's
+the pod count and its other solve problems (configs 3-5, co-location,
+relaxation, the hybrid line, the 100k-pod tick: `affinity_topology_problem`
+and the functions beside it, each count scaled as ``bench._n`` scales it),
+a cluster of live nodes, pack inputs on which the scan's
 int32 sums wrap, pack inputs on which the new-node choice must break ties
 by first index, removal-verdict inputs on which the verdict rows must
 (`verdict_tie_arrays`), removal-verdict inputs that put the elements'
@@ -804,6 +807,286 @@ def heterogeneous_pods(n: int) -> List[Pod]:
                 )
             )
     return pods
+
+
+# ---------------------------------------------------------------------------
+# bench.py's other solve problems: configs 3-5, co-location, hybrid,
+# relaxation and the 100k-pod resident tick
+# ---------------------------------------------------------------------------
+
+# the catalog of configs 1 and 3-5: five generations of every family
+FLAGSHIP_CATALOG = dict(
+    generations=(1, 2, 3, 4, 5),
+    cpus=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192),
+)
+COLOC_VARIANTS = ("tensor", "crossclass", "inequiv", "prefer")
+
+
+def _count(count: int, scale: float) -> int:
+    """One of a problem's counts at ``scale``, as ``bench._n`` scales it."""
+    return max(1, int(count * scale))
+
+
+def _three_sizes() -> List[Resources]:
+    return [
+        Resources(cpu=0.5, memory="1Gi"),
+        Resources(cpu=1, memory="2Gi"),
+        Resources(cpu=2, memory="4Gi"),
+    ]
+
+
+def affinity_topology_problem(
+    scale: float = 1.0,
+) -> Tuple[List[NodePool], Dict[str, List[InstanceType]], List[Pod]]:
+    """Config 3 of ``bench.py`` (`build_affinity_topology`): 20 services
+    spread over the zones (maxSkew 2), 10 zone-affinity groups, 100
+    hostname-anti-affinity singletons and plain filler."""
+    from karpenter_tpu_torch.api.objects import PodAffinityTerm, TopologySpreadConstraint
+
+    pool = default_node_pool()
+    types = instance_types(pool, generate_catalog(**FLAGSHIP_CATALOG))
+    sizes = _three_sizes()
+    pods: List[Pod] = []
+    for s in range(20):
+        constraint = TopologySpreadConstraint(
+            max_skew=2, topology_key=L.LABEL_ZONE,
+            label_selector=(("svc", f"spread-{s}"),),
+        )
+        for i in range(_count(400, scale)):
+            pods.append(Pod(labels={"svc": f"spread-{s}"}, requests=sizes[i % len(sizes)],
+                            topology_spread=[constraint]))
+    for g in range(10):
+        term = PodAffinityTerm(topology_key=L.LABEL_ZONE,
+                               label_selector=(("app", f"coloc-{g}"),))
+        for i in range(_count(90, scale)):
+            pods.append(Pod(labels={"app": f"coloc-{g}"}, requests=sizes[i % len(sizes)],
+                            pod_affinity=[term]))
+    for _ in range(_count(100, scale)):
+        pods.append(Pod(
+            labels={"app": "singleton"},
+            requests=Resources(cpu=1, memory="2Gi"),
+            pod_affinity=[PodAffinityTerm(topology_key=L.LABEL_HOSTNAME,
+                                          label_selector=(("app", "singleton"),),
+                                          anti=True)],
+        ))
+    for i in range(_count(1000, scale)):
+        pods.append(Pod(requests=sizes[i % len(sizes)]))
+    return [pool], {pool.name: types}, pods
+
+
+def multipool_spot_problem(
+    scale: float = 1.0,
+) -> Tuple[List[NodePool], Dict[str, List[InstanceType]], List[Pod]]:
+    """Config 5 of ``bench.py`` (`build_multipool_spot`): a reserved
+    on-demand pool (weight 100, 2,000 vCPU limit), a spot pool (weight 50)
+    and an unrestricted fallback (weight 0)."""
+    from karpenter_tpu_torch.api import Requirement, Requirements
+    from karpenter_tpu_torch.api.requirements import Op
+
+    shapes = generate_catalog(**FLAGSHIP_CATALOG)
+    reserved = default_node_pool(
+        name="reserved", weight=100, limits=Resources(cpu=2000),
+        requirements=Requirements(
+            [Requirement(L.LABEL_CAPACITY_TYPE, Op.IN, [L.CAPACITY_TYPE_ON_DEMAND])]),
+    )
+    spot = default_node_pool(
+        name="spot", weight=50,
+        requirements=Requirements(
+            [Requirement(L.LABEL_CAPACITY_TYPE, Op.IN, [L.CAPACITY_TYPE_SPOT])]),
+    )
+    fallback = default_node_pool(name="fallback", weight=0)
+    pools = [reserved, spot, fallback]
+    inventory = {p.name: instance_types(p, shapes) for p in pools}
+    sizes = [*_three_sizes(), Resources(cpu=4, memory="16Gi")]
+    pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_count(10_000, scale))]
+    return pools, inventory, pods
+
+
+def coloc_pods(variant: str, scale: float = 1.0) -> List[Pod]:
+    """``bench._coloc_pods``: 100 hostname co-location groups of 5 pods.
+    ``variant`` (`COLOC_VARIANTS`): self-selecting groups (``tensor``), two
+    label variants under one selector (``crossclass``), the odd members
+    also tolerating a taint (``inequiv``) or preferring a zone
+    (``prefer``)."""
+    from karpenter_tpu_torch.api import Requirement
+    from karpenter_tpu_torch.api.objects import PodAffinityTerm
+    from karpenter_tpu_torch.api.requirements import Op
+
+    if variant not in COLOC_VARIANTS:
+        raise ValueError(f"co-location variant {variant!r}, not one of {COLOC_VARIANTS}")
+    cross = variant != "tensor"
+    pods = []
+    for g in range(_count(100, scale)):
+        term = PodAffinityTerm(topology_key=L.LABEL_HOSTNAME,
+                               label_selector=(("pair", f"host-{g}"),))
+        for i in range(5):
+            labels = {"pair": f"host-{g}"}
+            kw = {}
+            if cross:
+                labels["variant"] = str(i % 2)
+                if variant == "inequiv" and i % 2:
+                    kw["tolerations"] = [Toleration(key="burst", value="yes",
+                                                    effect="NoSchedule")]
+                if variant == "prefer" and i % 2:
+                    kw["preferred_affinity"] = [
+                        Requirement(L.LABEL_ZONE, Op.IN, [ZONES[g % len(ZONES)]])]
+            pods.append(Pod(labels=labels, requests=Resources(cpu=1, memory="2Gi"),
+                            pod_affinity=[term], **kw))
+    return pods
+
+
+def coloc_problem(
+    variant: str, scale: float = 1.0,
+) -> Tuple[List[NodePool], Dict[str, List[InstanceType]], List[Pod]]:
+    """``bench._coloc_problem`` (`build_coloc_tensor`,
+    `build_crossclass_coloc`, `build_inequiv_coloc`, `build_prefer_coloc`):
+    9,500 plain pods and the 500 co-location pods of ``variant`` over the
+    flagship's catalog.  The flagship's pods are built first and dropped,
+    as bench builds them, so the pods' generated names agree."""
+    pool, types, _ = flagship_problem(scale)
+    sizes = _three_sizes()
+    pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_count(9_500, scale))]
+    return [pool], {pool.name: types}, pods + coloc_pods(variant, scale)
+
+
+def relax_problem(
+    scale: float = 1.0,
+) -> Tuple[List[NodePool], Dict[str, List[InstanceType]], List[Pod]]:
+    """``bench.build_relax``: 7,000 plain pods, 2,000 preferring a zone
+    that does not exist (every other one after a satisfiable preference)
+    and 1,000 whose first node-affinity term admits nothing; all relaxed
+    at compile time."""
+    from karpenter_tpu_torch.api import Requirement
+    from karpenter_tpu_torch.api.requirements import Op
+
+    pool, types, _ = flagship_problem(scale)
+    sizes = _three_sizes()
+    pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_count(7_000, scale))]
+    for i in range(_count(2_000, scale)):
+        prefs = [Requirement(L.LABEL_ZONE, Op.IN, ["zone-nowhere"])]
+        if i % 2:
+            prefs = [Requirement(L.LABEL_ZONE, Op.IN, [ZONES[i % len(ZONES)]])] + prefs
+        pods.append(Pod(requests=sizes[i % len(sizes)], preferred_affinity=prefs))
+    for i in range(_count(1_000, scale)):
+        pods.append(Pod(
+            requests=sizes[i % len(sizes)],
+            affinity_terms=[
+                (Requirement(L.LABEL_ZONE, Op.IN, ["zone-nowhere"]),),
+                (Requirement(L.LABEL_ZONE, Op.IN, [ZONES[i % len(ZONES)]]),),
+            ],
+        ))
+    return [pool], {pool.name: types}, pods
+
+
+def hybrid_problem(scale: float = 1.0):
+    """``bench.build_hybrid``: 9,500 plain pods and 100 groups of 5 pods
+    that must join the live node running a pod their selector matches.
+    Returns ``(pools, inventory, pods, existing)``, ``existing`` the 100
+    live nodes."""
+    from karpenter_tpu_torch.api.objects import PodAffinityTerm
+
+    pool, types, _ = flagship_problem(scale)
+    sizes = _three_sizes()
+    pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_count(9_500, scale))]
+    existing = []
+    for g in range(_count(100, scale)):
+        bound = Pod(labels={"pair": f"host-{g}"}, requests=Resources(cpu=1, memory="2Gi"))
+        existing.append(StateNode(
+            name=f"live-{g}",
+            provider_id=f"fake://live-{g}",
+            labels={L.LABEL_ZONE: ZONES[g % len(ZONES)], L.LABEL_NODEPOOL: pool.name},
+            taints=[],
+            allocatable=Resources(cpu=16, memory="64Gi", pods=110),
+            pods=[bound],
+            used=Resources(cpu=1, memory="2Gi"),
+        ))
+        term = PodAffinityTerm(topology_key=L.LABEL_HOSTNAME,
+                               label_selector=(("pair", f"host-{g}"),))
+        for _ in range(5):
+            pods.append(Pod(labels={"pair": f"host-{g}"},
+                            requests=Resources(cpu=1, memory="2Gi"), pod_affinity=[term]))
+    return [pool], {pool.name: types}, pods, existing
+
+
+def resident_100k_problem(scale: float = 1.0):
+    """``bench.build_resident_100k``: 100,000 small pods of 8 shapes and
+    1,000 empty live nodes of 64 vCPU / 256 GiB, bench's warm tick.
+    Returns ``(pools, inventory, pods, existing)``."""
+    pool, types, _ = flagship_problem(scale)
+    sizes = [
+        Resources(cpu=0.1, memory="256Mi"),
+        Resources(cpu=0.2, memory="256Mi"),
+        Resources(cpu=0.25, memory="512Mi"),
+        Resources(cpu=0.3, memory="512Mi"),
+        Resources(cpu=0.4, memory="1Gi"),
+        Resources(cpu=0.5, memory="1Gi"),
+        Resources(cpu=0.5, memory="2Gi"),
+        Resources(cpu=0.75, memory="2Gi"),
+    ]
+    pods = [Pod(requests=sizes[i % len(sizes)]) for i in range(_count(100_000, scale))]
+    existing = [
+        StateNode(
+            name=f"live-{i}",
+            provider_id=f"fake://live-{i}",
+            labels={L.LABEL_ZONE: ZONES[i % len(ZONES)], L.LABEL_NODEPOOL: pool.name},
+            taints=[],
+            allocatable=Resources(cpu=64, memory="256Gi", pods=110),
+            pods=[],
+            used=Resources(),
+        )
+        for i in range(_count(1_000, scale))
+    ]
+    return [pool], {pool.name: types}, pods, existing
+
+
+def consolidation_repack(device=None, scale: float = 1.0):
+    """Config 4 of ``bench.py`` (`run_consolidation_repack`): an
+    `Environment` on ``device`` over the flagship's catalog, one pool that
+    consolidates when underutilized, 5,000 pods of four sizes settled onto
+    nodes; then the disruption controller's pass budgets and candidates,
+    ready for ``_simulate(candidates)``: every node removed, every pod
+    repacked.  The name counters are rewound first and launches go one at
+    a time, so two drives name and number their nodes alike.  Returns
+    ``(controller, candidates)``."""
+    from karpenter_tpu_torch.api import Disruption
+    from karpenter_tpu_torch.api.objects import reset_name_sequences
+
+    reset_name_sequences()
+    env = Environment(shapes=generate_catalog(**FLAGSHIP_CATALOG), device=device)
+    env.default_node_class()
+    env.default_node_pool(disruption=Disruption(consolidation_policy="WhenUnderutilized"))
+    env.operator.provisioner.launch_concurrency = 1
+    sizes = [*_three_sizes(), Resources(cpu=4, memory="8Gi")]
+    n_pods = _count(5_000, scale)
+    for i in range(n_pods):
+        env.kube.put_pod(Pod(requests=sizes[i % len(sizes)]))
+    env.settle(max_rounds=60)
+    if env.kube.pending_pods():
+        raise RuntimeError(f"{len(env.kube.pending_pods())} of {n_pods} pods unbound")
+    dc = env.operator.disruption
+    dc._budgets = dc._remaining_budgets()
+    candidates = dc._candidates()
+    moved = sum(len(c.reschedulable) for c in candidates)
+    if moved != n_pods:
+        raise RuntimeError(f"the candidates reschedule {moved} of {n_pods} pods")
+    return dc, candidates
+
+
+def canonical_node(vn) -> tuple:
+    """A new node of either package as plain data: its pool, feasible
+    types, zone options, capacity type and pod names."""
+    ct = next((r.single_value() for r in vn.requirements
+               if r.key == L.LABEL_CAPACITY_TYPE), None)
+    return (vn.pool.name, tuple(t.name for t in vn.feasible_types),
+            tuple(sorted(vn.zone_options())), ct, tuple(sorted(p.name for p in vn.pods)))
+
+
+def canonical_result(result) -> tuple:
+    """A `SchedulingResult` of either package as plain data (the fields of
+    the tests' ``torch_specs.canonical``): every new node's
+    `canonical_node`, the existing placements, the unschedulable pods."""
+    return (sorted(canonical_node(vn) for vn in result.new_nodes),
+            sorted(result.existing_placements.items()), sorted(result.unschedulable))
 
 
 # ---------------------------------------------------------------------------

@@ -230,16 +230,17 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "14"], 14),
     (["--through", "15"], 15),
     (["--through", "16"], 16),
+    (["--through", "17"], 17),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
     "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14", "argv14-15",
-    "argv15-16"])
+    "argv15-16", "argv16-17"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "17"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "18"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -260,7 +261,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "17"],
+        [sys.executable, "chip_smoke.py", "--through", "18"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -797,7 +798,7 @@ def test_phase13_crash_rounds_and_launch_columns():
     assert list(row)[-1] == "fleet_launches"
     assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
                    "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
-    assert chip_smoke.LAST_PHASE == 16
+    assert chip_smoke.LAST_PHASE == 17
     assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
         "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
     assert chip_smoke.FLEET_REPLAYED == "solver-fleet"
@@ -1020,3 +1021,82 @@ def test_phase16_rss_against_limit():
 
     mem = chip_smoke.proc_memory(os.getpid())
     assert mem["VmRSS"] > 0 and mem["VmHWM"] >= mem["VmRSS"]
+
+
+# phase 17's problems at their main path's padded pack shapes (K, R, S, C),
+# as a cold solve of the port pads them at full scale
+CONFIG_SHAPES = {
+    "config3": (256, 6, 2, 4096),
+    "config5": (512, 6, 2, 16384),
+    **{f"coloc-{v}": (256, 6, 2, 4096) for v in ("tensor", "crossclass", "inequiv", "prefer")},
+    "relax": (256, 6, 2, 4096),
+    "hybrid": (512, 6, 2, 4096),
+    "resident100k": (2048, 6, 2, 4096),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIG_SHAPES))
+def test_phase17_expected_scan(name):
+    """Each of phase 17's problems picks, at its padded shapes on an H100's
+    15 co-resident clusters, the scan `CONFIG_SCAN` expects: the resident
+    scan, config 5 at its 169,344-byte layout (the ring of eight 16 KB
+    feasibility rows) and the 100k tick at 2 slots a thread."""
+    K, R, S, C = CONFIG_SHAPES[name]
+    assert set(CONFIG_SHAPES) == set(chip_smoke.CONFIG_PROBLEMS)
+    assert fused_packer.scan_kernel(K, R, S, C, max_clusters=15) == chip_smoke.CONFIG_SCAN[name]
+    per_thread, smem = fused_packer.resident_layout(K, R, S, C)
+    assert per_thread <= fused_packer.MAX_SLOTS_PER_THREAD
+    assert smem <= fused_packer.SMEM_PER_BLOCK
+    if name == "config5":
+        assert smem == 169_344 and fused_packer.SCAN_RING * C == 131_072
+    if name == "resident100k":
+        assert per_thread == 2
+
+
+def test_phase17_tables():
+    """Config 5 runs in both objectives, the others in the nodes one; the
+    JAX package's path, continuation and relaxed count at full scale;
+    phase 3 holds the kernels at four of the problems; the kernels line
+    carries phase 17's launches as ``configs_launches``."""
+    assert chip_smoke.CONFIG_OBJECTIVES == {"config5": ("nodes", "cost")}
+    assert chip_smoke.CONFIG_EXPECT["hybrid"] == ("hybrid", "join", 0)
+    assert chip_smoke.CONFIG_EXPECT["relax"] == ("tensor", "", 3000)
+    assert {chip_smoke.CONFIG_EXPECT[n] for n in chip_smoke.CONFIG_PROBLEMS
+            if n not in ("hybrid", "relax")} == {("tensor", "", 0)}
+    assert set(chip_smoke.PHASE3_CONFIGS) < set(chip_smoke.CONFIG_PROBLEMS)
+    assert chip_smoke.CONFIG_DELTA in chip_smoke.CONFIG_PROBLEMS
+    row = chip_smoke.phase_launches("ffd_scan", {"configs_launches": {"ffd_scan": 7}})
+    assert row == {"configs_launches": 7}
+
+
+def test_phase17_problems_are_the_ports(monkeypatch):
+    """`config_problems` builds each problem with the port's function in
+    ``testing.py`` (here at a tiny scale), as (pools, inventory, pods,
+    existing)."""
+    from karpenter_tpu_torch import testing as T
+
+    for fn in ("affinity_topology_problem", "multipool_spot_problem", "relax_problem",
+               "hybrid_problem", "resident_100k_problem"):
+        monkeypatch.setattr(T, fn, lambda real=getattr(T, fn): real(0.01))
+    monkeypatch.setattr(T, "coloc_problem", lambda v, real=T.coloc_problem: real(v, 0.01))
+    specs = chip_smoke.config_problems()
+    assert list(specs) == list(chip_smoke.CONFIG_PROBLEMS)
+    assert all(len(spec) == 4 for spec in specs.values())
+    assert len(specs["hybrid"][3]) == 1 and len(specs["resident100k"][3]) == 10
+    assert not specs["config3"][3]
+
+
+def test_imports_no_jax_package_nor_bench():
+    """chip_smoke.py imports neither the JAX package nor bench.py: it runs
+    on a machine with the port alone."""
+    import ast
+
+    tree = ast.parse(pathlib.Path(chip_smoke.__file__).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "karpenter_tpu_torch" in names
+    assert not names & {"bench", "karpenter_tpu", "jax", "jaxlib"}

@@ -327,6 +327,64 @@ def test_warm_ticks_on_card_match_cpu(cuda_device, live_nodes, kernel):
         np.testing.assert_array_equal(d, h)
 
 
+# bench.py's problems at the shapes past phase 5's: config 5 at Cp 16,384
+# (the resident scan's 169,344-byte layout) and the 100k-pod tick at Kp 2,048
+# (2 slots a thread, 1,000 live rows); name -> (problem function, Kp, Cp)
+BENCH_SHAPES = {
+    "config5": (T.multipool_spot_problem, 512, 16384),
+    "resident100k": (T.resident_100k_problem, 2048, 4096),
+}
+
+
+@pytest.mark.parametrize("objective", ["nodes", "cost"])
+@pytest.mark.parametrize("problem", list(BENCH_SHAPES))
+def test_bench_problem_on_card_matches_plain_and_cpu(cuda_device, monkeypatch, problem,
+                                                     objective):
+    """A cold solve on the card at full scale hands the pack the shapes
+    above; ``choose_config`` and the resident scan on those tensors equal
+    their plain versions bit for bit, and the solve (then a hit and, on the
+    100k tick, a delta of 1 % of the pods) equals the CPU's."""
+    import dataclasses
+
+    build, kp, cp = BENCH_SHAPES[problem]
+    spec = tuple(build())
+    pools, inv, pods = spec[:3]
+    existing = list(spec[3]) if len(spec) > 3 else []
+    calls, real = [], fused_packer.ffd_pack
+    monkeypatch.setattr(fused_packer, "ffd_pack",
+                        lambda *a, **kw: (calls.append(a), real(*a, **kw))[1])
+    card = TorchScheduler(pools, inv, existing=existing, objective=objective,
+                          device=cuda_device)
+    cpu = TorchScheduler(pools, inv, existing=existing, objective=objective, device="cpu")
+    # 1 % of the pods leave and as many arrive, all of the first pod's shape,
+    # so the class counts change and the delta scatters rows
+    n = len(pods) // 100
+    delta = pods[n:] + [dataclasses.replace(pods[0], name="") for _ in range(n)]
+    batches = (pods, pods, delta) if problem == "resident100k" else (pods, pods)
+    for i, batch in enumerate(batches):
+        before = fused_packer.LAUNCHES["ffd_scan"]
+        got, want = card.solve(batch), cpu.solve(batch)
+        assert fused_packer.LAUNCHES["ffd_scan"] == before + 1
+        assert card.last_kernel == "cuda_ffd" and card.last_resident
+        assert T.canonical_result(got) == T.canonical_result(want)
+        assert not got.unschedulable
+        if i == 0:
+            args = calls[-1]
+            assert (args[8].shape[0], args[5].shape[0]) == (kp, cp)
+            assert args[11] == len(existing)
+            assert fused_packer.scan_kernel(args[8].shape[0], args[0].shape[1],
+                                            args[12].shape[0], cp) == "ffd_scan"
+            chosen = fused_packer.choose_config(*(args[j] for j in (0, 2, 4, 5, 6, 7)),
+                                                objective)
+            plain = choose_config_reference(*(args[j] for j in (0, 2, 4, 5, 6, 7)),
+                                            objective)
+            _assert_bit_equal(chosen, plain)
+            scan_in = (*args[:6], *plain, *args[8:])
+            _assert_bit_equal(fused_packer.ffd_scan(*scan_in), ffd_scan_reference(*scan_in))
+    if problem == "resident100k":
+        assert card.last_delta_rows > 0
+
+
 # ---------------------------------------------------------------------------
 # The consolidation verdicts: the batched scans, verdict_rows and
 # population_prologue against their plain versions on the same card tensors
