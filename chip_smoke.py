@@ -2,9 +2,10 @@
 """Drive karpenter_tpu_torch on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py               # every phase
-    python3 chip_smoke.py --through N   # phases 1-N (N = 1-17), then exit 3
+    python3 chip_smoke.py --through N   # phases 1-N (N = 1-18), then exit 3
 
-Phases (each failure exits non-zero before the last line is printed):
+Phases (each failure exits non-zero before the last line is printed; each
+prints its seconds, ``phase N took X s``):
 
 1. Device: requires ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
@@ -90,7 +91,7 @@ Phases (each failure exits non-zero before the last line is printed):
    cluster of 2,000 live nodes (4096 slots: the cluster scan) and at
    clusters of 10,000 and 20,000 (16,384 and 32,768 slots: the grid
    scan).  On one scheduler a problem, 2 warm-up + 10 timed solves of each
-   kind (1 + 5 past one cluster, `solve_counts`): cold
+   kind (1 + 3 past one cluster, `solve_counts`): cold
    (its compile cache and resident states dropped first), hit (the same
    pods again: a compile-cache hit that packs from the resident tensors)
    and delta (1 % of the pods replaced by new pod objects of existing
@@ -244,10 +245,13 @@ Phases (each failure exits non-zero before the last line is printed):
 10. The simulator on the card: ``sim.runner.run_scenario(...,
    device="cuda")`` with a ``TraceWriter`` for each of `SIM_CELLS`, at the
    reference tests' seeds and ticks: ``steady``, ``resident-churn``,
-   ``single-pod-trickle``, ``consolidation-storm`` and the two scale
+   ``single-pod-trickle``, ``consolidation-storm``, the two scale
    anchors at full size (``anchor-500-antiaffinity``: 500 anti-affine
    pods, one node each; ``anchor-6600-density``: 6,600 pods at 110 a node
-   on 60 nodes).  The launch counters are set to 0 before each scenario
+   on 60 nodes), the load corpus's ``gang-slice``, ``spot-shock-drought``
+   and ``catalog-deprecations``, ``batch-waves``, ``flash-crowd``,
+   ``api-storm+catalog-roll``, ``interruption-storm``, ``slo-burn``,
+   ``chaos-soak`` and ``diurnal+interruption-storm``.  The launch counters are set to 0 before each scenario
    and read after it; across the phase ``choose_config``, a solve scan,
    ``admit_kernel``, the frontier-window scan, the three verdict kernels
    and ``population_pairs`` must launch.  Fails on an invariant
@@ -272,8 +276,8 @@ Phases (each failure exits non-zero before the last line is printed):
    point, ``scan="ffd_scan_global"``), B 4 ``wrap_arrays`` tenants at 256
    slots (int32 sums that wrap), each from its own seed; and past one
    cluster (`FLEET_GRID`: such tenants on 10,000 live nodes at B 4 and 16,
-   Kp 16,384, and on 20,000 at B 4, Kp 32,768: the grid's fleet mode),
-   each then timed in turns against the global fleet scan
+   Kp 16,384: the grid's fleet mode; phase 3 holds it at two clusters an
+   element), each then timed in turns against the global fleet scan
    (`fleet_grid_turns`).  Then two cells,
    each one ``SolverServer(multi_tenant=True)`` and one legacy sidecar on
    the card, all of a cell's tenants in one solve group (else the phase
@@ -300,11 +304,12 @@ Phases (each failure exits non-zero before the last line is printed):
    solvers on the card.  ``testing.ha_drive``: config 2's 10,000 pods
    through replica A's client, rounds of 2 s (the clock, the kubelet,
    each live replica's tick, the kubelet, both mirrors synced after
-   each) until every pod is bound under A, 3 churn rounds of 100 pods;
-   A crashes (stops ticking and renewing), the clock steps past the
-   lease and B takes over in a round with nothing pending, then 3 churn
-   rounds; B releases the lease and A, with its first term's resident
-   tensors and compile cache, leads 2 churn rounds.  The launch counters
+   each) until every pod is bound under A, a churn round of 100 pods
+   (`HA_CHURN`: one a term, where ``testing.ha_drive`` runs 3, 3 and 2); A crashes (stops
+   ticking and renewing), the clock steps past the lease and B takes
+   over in a round with nothing pending, then a churn round; B releases
+   the lease and A, with its first term's resident tensors and compile
+   cache, leads a churn round.  The launch counters
    are set to 0 just before the drive and read just after.  Fails unless
    every launch came from the replica that led its round and no claim
    launched twice, B launched nothing in its take-over round and saw
@@ -339,8 +344,9 @@ Phases (each failure exits non-zero before the last line is printed):
    ``solver-fleet`` card trace, replayed on the card, reproduces its
    report and its bytes.  (b) The scaled cell `SCALED_FLEET`
    (``solver-fleet-config2``): ``solver-fleet``, 12 operators, 8 ticks,
-   over config 2's catalog, with its two pools and all 10,000 of its pods
-   put through ``op-0``'s client before tick 0, launches one at a time,
+   over config 2's catalog, with its two pools and the first
+   `SCALED_FLEET_PODS` (2,000) of its pods put through ``op-0``'s client
+   before tick 0, launches one at a time,
    consolidation held off and the tick-time SLO rule left out
    (`fleet_runner`), held as
    (a) holds each scenario; the launch counters are set to 0 just before
@@ -359,7 +365,8 @@ Phases (each failure exits non-zero before the last line is printed):
    device events of ``choose_config`` and a scan.
 14. The static analysis, the tools and the legacy API (`analysis_phase`).
    (a) ``python -m karpenter_tpu_torch lint --json --profile`` in a
-   subprocess over the port's tree: it must exit 0 with zero live findings
+   subprocess over the port's tree, started first and read after (b) and
+   (c), which run beside it: it must exit 0 with zero live findings
    from all 18 rules.  A line before it prints the rule count, the launch
    wrappers ``tracer-safety`` discovers (``analysis/tracer.py``) and the
    upload sites ``device-put`` matches with its allowlist emptied (each
@@ -468,7 +475,38 @@ Phases (each failure exits non-zero before the last line is printed):
    candidate) runs ``_simulate`` over every candidate on the card; its
    decision (`repack_decision`) equals the same drive on the
    CPU.  Prints each problem's p50 by kind with its phases, launches by
-   kernel and seconds, and the phase's seconds.
+   kernel and seconds.
+18. ``bench.py``'s device lines (`bench_phase`), each through the port's
+   drive function in ``testing.py`` with bench's constants, at full scale, the
+   launch counters set to 0 just before each drive and read just after;
+   the CPU drives in two spawned processes started at the phase's start
+   (`bench_line_twins`, `BENCH_TWIN_GROUPS`).  ``admission_single_pod_p99``
+   (``testing.admission_drive``: `resident_100k_problem`'s 1,000 live
+   nodes, a one-pod seed, the trust window, 3 warm-ups, 2 passes of 200
+   single-pod ``fastpath.try_admit`` calls): fails unless every attempt
+   is nominated, the warm window adds no launch signature,
+   ``admit_kernel`` launches once an attempt and the nominated nodes, in
+   order, equal the CPU drive's; prints p99, p50, the p99 sample's
+   phases, the link floor and the warm transfer bytes an attempt beside
+   README's 1 ms (recorded, not a gate).  ``reconcile_tick_pipelined_p50``
+   (``testing.pipelined_tick_drive``: ``diurnal+interruption-storm``,
+   150 ticks, seed 11, population 256, 0.01 s between ticks), sequential
+   then pipelined: fails unless each tick's state (the claims deleted,
+   the disruption controller's pending set, each pod's node) is equal
+   across both schedules and the CPU's sequential drive, and a
+   speculation is adopted; prints both p50s, their ratio, the overlap,
+   the outcomes and the largest controller phase beside bench's floors
+   (recorded); then the pipelined schedule once more under torch.profiler,
+   each tick a ``record_function`` range, and for each tick that adopts a
+   speculation the device work in flight at its start and whether its
+   first host-to-device copy waited for device work enqueued before it
+   (`upload_waits`).  ``load_harness_1m_events``
+   (``testing.load_harness_drive``: ``million-events``, 850 ticks, seed
+   23) with a `hashed_trace`: fails unless it applies at least 1,000,000
+   events with no invariant violation and checks ticks on the vectorized
+   plane, and its trace's sha256 equals the CPU run's; prints the events a
+   second, the phase totals and the harness fraction beside bench's 20 %
+   (recorded).
 Then it prints the kernels JSON line (every kernel, the old and the new;
 ``operator_launches`` is phase 7's count, ``consolidation_launches``
 phase 9's, ``sim_launches`` phase 10's over its scenarios,
@@ -477,7 +515,8 @@ phase 12's over its card drive, ``fleet_launches`` phase 13's over the
 scaled cell's drive, ``legacy_launches`` phase 14's over the converted
 objects' drive, ``mesh_launches`` phase 15's main path,
 ``chart_launches`` phase 16's solver sidecar, ``configs_launches``
-phase 17's solves and repack; the five mesh
+phase 17's solves and repack, ``bench_launches`` phase 18's drives (the
+profiled run left out); the five mesh
 kernels' rows take ``launches`` from there, ``forced_launches`` from the
 rest of the phase, where the pair is driven directly, ``timer`` the
 clock of ``ms`` (profiler, or CUDA events with the gaps between launches),
@@ -491,6 +530,7 @@ scan, ``in_turns``, the fleet row also its launches in phase 11's checks,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -527,7 +567,7 @@ LIVE_NODES = 2000  # phase 5's live cluster: 2,000 + 256 slots -> 4096
 # 10,000 and 20,000 live nodes: Kp 16,384 and 32,768, the grid scan), each
 # driven with fewer solves (warm-up, timed) to stay inside the run's time
 LARGE_LIVE = {"config2_live10k": 10_000, "config2_live20k": 20_000}
-LARGE_SOLVES = (1, 5)
+LARGE_SOLVES = (1, 3)
 # phase 3's wrap cases on the grid scan: two clusters and four; the first
 # also with a what-if batch axis (B elements: more than the groups of two
 # clusters an H100 holds, 7) and as a fleet of two
@@ -683,6 +723,16 @@ SIM_CELLS = (
     ("resident-churn", 21, 70),
     ("single-pod-trickle", 11, 60),
     ("consolidation-storm", 7, 60),
+    ("gang-slice", 7, 30),  # tests/test_load.py:345-351
+    ("spot-shock-drought", 7, 32),
+    ("catalog-deprecations", 7, 30),
+    ("batch-waves", 7, 50),  # tests/test_sim.py:130-138
+    ("flash-crowd", 7, 50),
+    ("api-storm+catalog-roll", 7, 100),
+    ("interruption-storm", 5, 60),  # tests/test_sim.py:65
+    ("slo-burn", 3, 30),  # tests/test_diagnosis.py:836
+    ("chaos-soak", 3, 60),  # tests/test_consolidation_batch.py:110-124
+    ("diurnal+interruption-storm", 11, 40),  # tests/test_pipeline.py:410
     ("anchor-500-antiaffinity", 1, 15),
     ("anchor-6600-density", 1, 15),
 )
@@ -709,13 +759,16 @@ FLEET_KERNELS = ("choose_config_fleet", "ffd_scan_fleet", "ffd_scan_cluster_flee
                  "ffd_scan_global_fleet", "ffd_scan_grid_fleet")
 # the fleets past one thread-block cluster: problem, tenants (config 2 on
 # 10,000 live nodes at B 4 and 16, more than the 15 groups of one cluster;
-# on 20,000 at B 4, two clusters an element)
-FLEET_GRID = (("config2_live10k", 4), ("config2_live10k", 16), ("config2_live20k", 4))
+# a fleet of two clusters an element is phase 3's, on wrap tenants at 32,768
+# slots: PERF.md §4)
+FLEET_GRID = (("config2_live10k", 4), ("config2_live10k", 16))
 FLEET_REPLACES = "karpenter_tpu/ops/packer.py:930"
 # phase 12: two replicas over one shared cluster store, phase 7's cell
-# (config 2's pods, CHURN_PODS a churn round, testing.HA_CHURN_ROUNDS in the
-# three terms); the sanitized failover's first pods of config 2, its churn
-# rounds and pods, and the lock watchdog's stall bound
+# (config 2's pods, CHURN_PODS a churn round, `HA_CHURN` churn rounds in the
+# three terms: one a term, cut from testing.HA_CHURN_ROUNDS' 3, 3, 2, PERF.md
+# §4); the sanitized failover's first pods of config 2, its churn rounds and
+# pods, and the lock watchdog's stall bound
+HA_CHURN = (1, 1, 1)
 HA_SANITIZED_PODS, HA_SANITIZED_ROUNDS, HA_SANITIZED_CHURN = 1000, (1, 1, 1), 10
 HA_WATCHDOG_STALL_S = 30.0
 # phase 13: the fleet scenarios (sim/fleet.py) at the JAX package's own test
@@ -729,8 +782,10 @@ FLEET_CELLS = (
     ("solver-fleet", 0, 24, 12),  # tests/test_service_tenants.py:326-327
 )
 FLEET_REPLAYED = "solver-fleet"
-# (the scaled cell's ticks cut from the tests' 24: PERF.md §4)
+# (the scaled cell's ticks cut from the tests' 24 and its pods from config
+# 2's 10,000: PERF.md §4; phases 12 and 16 run all 10,000 over the store)
 SCALED_FLEET = ("solver-fleet-config2", "solver-fleet", 0, 8, 12)
+SCALED_FLEET_PODS = 2_000
 DEPLOYED_PODS, DEPLOYED_WAIT_S = 10_000, 300.0
 # phase 14: the lint's rules, its time limit, and the converted legacy
 # objects' drive (pods; ticks until they are nominated)
@@ -789,8 +844,19 @@ CONFIG_DELTA_SHARE = 100  # its delta replaces 1 pod in 100
 REPACK_SIMULATIONS = (1, 3)  # config 4's warm-up, timed ``_simulate`` calls
 # phase 3: the problems whose main-path tensors it holds each kernel to
 PHASE3_CONFIGS = ("config5", "resident100k", "config3", "coloc-tensor")
+# phase 18: bench.py's device lines.  Its CPU drives run in two processes,
+# so that the load harness starts at once: the two short lines, and the
+# load harness
+BENCH_TWIN_GROUPS = (("admission", "pipelined"), ("load",))
+# the profiled pipelined drive: the longest window of ticks it profiles; in
+# its timeline, the names of the CUDA runtime's calls on the host, of a
+# host-to-device copy on the device, and of a tick's record_function range
+PROFILED_TICKS = 12
+RUNTIME_PREFIX = "cu"
+UPLOAD_EVENT = "Memcpy HtoD"
+TICK_RANGE = "pipelined tick "
 
-LAST_PHASE = 17
+LAST_PHASE = 18
 
 
 def fail(msg: str) -> None:
@@ -811,8 +877,21 @@ def parse_through(argv) -> int:
     raise SystemExit(2)
 
 
+_PHASE_CLOCK: dict = {}
+
+
+def phase_seconds(phase: int) -> None:
+    """Prints the seconds since the previous phase ended (the script's
+    start for phase 1)."""
+    now = time.perf_counter()
+    print(f"  phase {phase} took {now - _PHASE_CLOCK.get('last', now):.3f} s", flush=True)
+    _PHASE_CLOCK["last"] = now
+
+
 def phase_done(phase: int, through: int) -> None:
-    """Ends a partial run after ``phase``: exit 3, no result line."""
+    """Prints the phase's seconds; ends a partial run after ``phase``:
+    exit 3, no result line."""
+    phase_seconds(phase)
     if phase >= through:
         print(f"chip_smoke: stopped after phase {phase} (partial run)",
               file=sys.stderr, flush=True)
@@ -3340,7 +3419,7 @@ def cpu_twin_drives(phases, conn) -> None:
             conn.send(("fleet", runs))
             name, scenario, seed, ticks, operators = SCALED_FLEET
             conn.send(("fleet_scaled", fleet_run(scenario, seed, ticks, operators, "cpu",
-                                                 n_pods=OPERATOR_PODS)))
+                                                 n_pods=SCALED_FLEET_PODS)))
     except SystemExit as exc:
         conn.send(("error", f"exit {exc.code}"))
     except Exception:
@@ -3352,11 +3431,14 @@ def cpu_twin_drives(phases, conn) -> None:
 class CpuTwins:
     """`cpu_twin_drives` (or ``target``, with the same arguments) for
     ``phases`` in a spawned process, started at once so that it runs beside
-    the card's drives; `get` waits for one drive's readings, `close` ends
-    the process."""
+    the card's drives; a thread receives each drive's readings as the
+    process sends them (a send blocks while the pipe is full, so the process
+    goes on to its next drive at once), `get` waits for one drive's
+    readings, `close` ends the process."""
 
     def __init__(self, phases, target=None):
         import multiprocessing
+        import threading
 
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe(duplex=False)
@@ -3364,18 +3446,30 @@ class CpuTwins:
                                  args=(tuple(phases), child), daemon=True)
         self._proc.start()
         child.close()
-        self._got = {}
+        self._got, self._arrived = {}, threading.Condition()
+        threading.Thread(target=self._receive, daemon=True).start()
 
-    def get(self, name: str) -> dict:
-        while name not in self._got:
+    def _receive(self) -> None:
+        while True:
             try:
                 key, value = self._conn.recv()
-            except EOFError:
-                fail(f"the spawned process ended before sending {name}")
-            if key == "error":
-                fail(f"the spawned process failed: {value}")
-            self._got[key] = value
-        return self._got[name]
+            except (EOFError, OSError):
+                key, value = "ended", None
+            with self._arrived:
+                self._got[key] = value
+                self._arrived.notify_all()
+            if key in ("ended", "error"):
+                return
+
+    def get(self, name: str) -> dict:
+        with self._arrived:
+            while name not in self._got:
+                if "error" in self._got:
+                    fail(f"the spawned process failed: {self._got['error']}")
+                if "ended" in self._got:
+                    fail(f"the spawned process ended before sending {name}")
+                self._arrived.wait()
+            return self._got[name]
 
     def close(self) -> None:
         if self._proc.is_alive():
@@ -4333,7 +4427,7 @@ def ha_harness(device: str, launches=None, on_tick=None, sanitized: bool = False
     return h
 
 
-def ha_run(h, n_pods: int = OPERATOR_PODS, churn_rounds=None, churn_pods: int = CHURN_PODS):
+def ha_run(h, n_pods: int = OPERATOR_PODS, churn_rounds=HA_CHURN, churn_pods: int = CHURN_PODS):
     """The failover drive (`testing.ha_drive`) on config 2's first
     ``n_pods`` pods, its invariants (`testing.ha_checks`) and the leader's
     consistency checker.  Every failed check fails the phase."""
@@ -4342,7 +4436,7 @@ def ha_run(h, n_pods: int = OPERATOR_PODS, churn_rounds=None, churn_pods: int = 
     t0 = time.perf_counter()
     try:
         marks = T.ha_drive(h, T.heterogeneous_pods(n_pods), churn_pods=churn_pods,
-                           churn_rounds=churn_rounds or T.HA_CHURN_ROUNDS, seed=CHURN_SEED)
+                           churn_rounds=churn_rounds, seed=CHURN_SEED)
         T.ha_checks(h, marks)
         violations = T.ha_consistency(h)
     except AssertionError as exc:
@@ -4553,7 +4647,6 @@ def ha_phase(torch, card, p50_7: dict) -> dict:
     counts of the card's drive."""
     from karpenter_tpu_torch.ops import fused_packer as F
 
-    t_phase = time.perf_counter()
     twins = CpuTwins((12,))
     try:
         checks = HaCardChecks(torch)
@@ -4620,8 +4713,7 @@ def ha_phase(torch, card, p50_7: dict) -> dict:
                 fail(f"phase 12: {name}'s {key} differ from the CPU drive's")
     print(f"  the card's launch list ({len(got['launches'])} launches), ticks, store state "
           f"({sum(len(v) for v in got['store'].values())} objects) and each replica's "
-          f"operator state equal the CPU drive's; phase 12 took "
-          f"{time.perf_counter() - t_phase!r} s", flush=True)
+          f"operator state equal the CPU drive's", flush=True)
     return launches
 
 
@@ -4959,7 +5051,6 @@ def fleet_phase(torch, card) -> dict:
     from karpenter_tpu_torch.ops import fused_packer as F
     from karpenter_tpu_torch.sim.fleet import _FleetTrace, replay_fleet
 
-    t_phase = time.perf_counter()
     twins = CpuTwins((13,))
     try:
         card_runs, total = {}, {}
@@ -4991,9 +5082,9 @@ def fleet_phase(torch, card) -> dict:
         print(f"  launches over the three scenarios: {json.dumps(total)}", flush=True)
         label, scenario, seed, ticks, operators = SCALED_FLEET
         print(f"  {label}: {scenario} (seed {seed}, {ticks} ticks, {operators} operators) over "
-              f"config 2's catalog, pools and {OPERATOR_PODS} pods, on the card ({card}):",
-              flush=True)
-        scaled = fleet_run(scenario, seed, ticks, operators, "cuda", n_pods=OPERATOR_PODS)
+              f"config 2's catalog, pools and first {SCALED_FLEET_PODS} pods, on the card "
+              f"({card}):", flush=True)
+        scaled = fleet_run(scenario, seed, ticks, operators, "cuda", n_pods=SCALED_FLEET_PODS)
         launches = {k: scaled["kernel_launches"].get(k, 0) for k in KERNELS}
         report = scaled["report"]
         print(f"    setup {scaled['setup_s']!r} s (the runner, then the pools and pods through "
@@ -5032,7 +5123,6 @@ def fleet_phase(torch, card) -> dict:
     print(f"  the deployed process: python -m karpenter_tpu_torch --demo-pods {DEPLOYED_PODS} "
           f"with enable_profiling and profile_dir ({card}):", flush=True)
     print(f"    {json.dumps(deployed_process(card))}", flush=True)
-    print(f"  phase 13 took {time.perf_counter() - t_phase!r} s", flush=True)
     return launches
 
 
@@ -5052,23 +5142,47 @@ def lint_discovery() -> tuple:
     return wrappers, sites
 
 
-def run_lint() -> dict:
-    """Phase 14 (a): the lint subcommand over the port's tree in a fresh
-    process; its JSON report and wall seconds."""
+def start_lint():
+    """Phase 14 (a): the lint subcommand over the port's tree, started in a
+    fresh process, a thread reading its output as it comes and noting its
+    wall seconds when it exits; the phase's drives run beside it.
+    `finish_lint` reads the report."""
     import pathlib
+    import threading
 
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "karpenter_tpu_torch", "lint", "--json", "--profile"],
-        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=LINT_TIMEOUT_S,
+        cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
     )
-    wall = time.perf_counter() - t0
+    t0, got = time.perf_counter(), {}
+
+    def read() -> None:
+        try:
+            got["out"], got["err"] = proc.communicate(timeout=LINT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            got["out"], got["err"] = proc.communicate()
+            got["timeout"] = True
+        got["wall"] = time.perf_counter() - t0
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, reader, got
+
+
+def finish_lint(started) -> dict:
+    """The lint of `start_lint`, waited for: its JSON report and wall
+    seconds."""
+    proc, reader, got = started
+    reader.join()
+    if got.get("timeout"):
+        fail(f"phase 14: lint ran past {LINT_TIMEOUT_S} s")
     if proc.returncode != 0:
-        fail(f"phase 14: lint exited {proc.returncode}:\n{proc.stdout[-4000:]}"
-             f"{proc.stderr[-4000:]}")
-    report = json.loads(proc.stdout)
-    report["wall_s"] = wall
+        fail(f"phase 14: lint exited {proc.returncode}:\n{got['out'][-4000:]}"
+             f"{got['err'][-4000:]}")
+    report = json.loads(got["out"])
+    report["wall_s"] = got["wall"]
     return report
 
 
@@ -5129,13 +5243,17 @@ def legacy_drive(device: str, launches=None) -> tuple:
 
 
 def analysis_phase(torch, card) -> dict:
-    """Phase 14 as the module docstring lists it; returns (c)'s launches."""
-    from karpenter_tpu_torch import testing as T
-    from karpenter_tpu_torch.ops import fused_packer as F
-    from karpenter_tpu_torch.tools.allocatable_diff import diff_rows
-
+    """Phase 14 as the module docstring lists it (the lint in its process
+    beside the drives of (b) and (c)); returns (c)'s launches."""
+    lint = start_lint()
+    try:
+        launched = analysis_drives(torch, card)
+    except BaseException:
+        lint[0].kill()
+        lint[1].join()
+        raise
     wrappers, sites = lint_discovery()
-    report = run_lint()
+    report = finish_lint(lint)
     rules, timings = report["rules"], report.get("timings_s", {})
     print(f"  lint: {len(rules)} rules; tracer-safety discovered {len(wrappers)} launch "
           f"wrappers {wrappers}; device-put matched {len(sites)} upload sites {sites}; "
@@ -5146,9 +5264,19 @@ def analysis_phase(torch, card) -> dict:
     counts = report["counts"]
     print(f"  lint --json: exit 0, {counts['findings']} live findings, "
           f"{counts['baselined']} baselined, {len(rules)} rules, "
-          f"{sum(timings.values())!r} s in rules, {report['wall_s']!r} s wall ({card})")
+          f"{sum(timings.values())!r} s in rules, {report['wall_s']!r} s wall beside the "
+          f"phase's drives ({card})")
     if counts["findings"] or report["findings"] or len(rules) != LINT_RULES:
         fail(f"phase 14: lint reported {counts} over {len(rules)} rules")
+    return launched
+
+
+def analysis_drives(torch, card) -> dict:
+    """Phase 14 (b) and (c), beside the lint's process; returns (c)'s
+    launches."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+    from karpenter_tpu_torch.tools.allocatable_diff import diff_rows
 
     env, _, _ = drive_operator("cuda", rounds=0)
     diff = diff_rows(env.operator)
@@ -6509,7 +6637,7 @@ def chart_phase(torch, card) -> dict:
           f"(karpenter_provisioner_scheduling_duration_seconds), phases s "
           f"{json.dumps(r['phases_s'])} ({card})", flush=True)
     print(f"    SIGTERM exit codes: {json.dumps(r['rcs'])}", flush=True)
-    print(f"  phase 16 took {r['seconds']!r} s", flush=True)
+    print(f"  the topology took {r['seconds']!r} s", flush=True)
     return dict(r["solver_launches"])
 
 
@@ -6686,7 +6814,6 @@ def configs_phase(torch, card, specs) -> dict:
     launches by kernel of its drives and of the repack's simulations."""
     import random
 
-    t17 = time.perf_counter()
     rng = random.Random(17)
     launches = {k: 0 for k in KERNELS}
     from karpenter_tpu_torch.ops import fused_packer as F
@@ -6738,8 +6865,413 @@ def configs_phase(torch, card, specs) -> dict:
     print(f"    launches {json.dumps({k: v for k, v in card_run['launches'].items() if v})}; "
           f"{time.perf_counter() - t0:.3f} s")
     print(f"  phase 17 launches {json.dumps({k: v for k, v in launches.items() if v})}")
-    print(f"  phase 17 took {time.perf_counter() - t17:.3f} s", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: bench.py's device lines
+# ---------------------------------------------------------------------------
+
+
+def hashed_trace():
+    """A simulator `TraceWriter` that keeps a running sha256 of its lines
+    (each line and its newline, so ``sha256()`` is ``TraceWriter``'s of the
+    same run) and their count and bytes, not the lines: the million-event
+    run's trace would hold about a million of them.  ``digest_s`` sums the
+    wall seconds of its per-tick state digests."""
+    import hashlib
+
+    from karpenter_tpu_torch.sim.trace import TraceWriter, _dumps
+
+    class HashedTrace(TraceWriter):
+        def __init__(self):
+            super().__init__(None)
+            self._sha = hashlib.sha256()
+            self.lines = self.nbytes = 0
+            self.digest_s = 0.0
+
+        def _write(self, obj: dict) -> None:
+            line = (_dumps(obj) + "\n").encode()
+            with self._lock:
+                self._sha.update(line)
+                self.lines += 1
+                self.nbytes += len(line)
+
+        def digest(self, tick: int, env) -> None:
+            t0 = time.perf_counter()
+            super().digest(tick, env)
+            self.digest_s += time.perf_counter() - t0
+
+        def text(self) -> str:
+            raise RuntimeError("a hashed trace keeps no lines")
+
+        def sha256(self) -> str:
+            with self._lock:
+                return self._sha.hexdigest()
+
+    return HashedTrace()
+
+
+def state_digests(states) -> list:
+    """Each tick's state (`testing.pipeline_state`) as a sha256 hex digest:
+    what phase 18 sends between its processes and compares."""
+    import hashlib
+
+    return [hashlib.sha256(repr(state).encode()).hexdigest() for state in states]
+
+
+def bench_line_twins(lines, conn) -> None:
+    """Phase 18's CPU drives of ``lines`` (of `BENCH_TWIN_GROUPS`), in a
+    process of their own (`CpuTwins` with this target), each at full scale
+    and sent back through ``conn`` as ``(line, readings)``, or ``("error",
+    text)``: the admission drive, the sequential pipelined drive (its
+    states as `state_digests`), the load harness with a `hashed_trace`.
+    Each message stays small: a send blocks while the pipe is full, and the
+    phase reads the pipe only after its own drives."""
+    import traceback
+
+    import torch
+
+    from karpenter_tpu_torch import testing as T
+
+    torch.set_num_threads(CPU_TWIN_THREADS)
+    try:
+        if "admission" in lines:
+            t0 = time.perf_counter()
+            adm = T.admission_drive("cpu")
+            conn.send(("admission", {"nodes": adm["nodes"], "outcomes": adm["outcomes"],
+                                     "p50_ms": adm["p50_ms"], "p99_ms": adm["p99_ms"],
+                                     "seconds": time.perf_counter() - t0}))
+        if "pipelined" in lines:
+            t0 = time.perf_counter()
+            seq = T.pipelined_tick_drive("cpu", False)
+            conn.send(("pipelined", {"states": state_digests(seq["states"]),
+                                     "p50_ms": seq["p50_ms"],
+                                     "seconds": time.perf_counter() - t0}))
+        if "load" in lines:
+            trace = hashed_trace()
+            load = T.load_harness_drive("cpu", trace=trace)
+            conn.send(("load", {**{k: v for k, v in load.items() if k != "report"},
+                                "sha256": trace.sha256(), "lines": trace.lines,
+                                "bytes": trace.nbytes, "digest_s": trace.digest_s}))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def first_difference(a: list, b: list):
+    """The first index at which two lists differ (the shorter's length
+    where one is a prefix of the other), or None."""
+    at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return None if at == len(a) == len(b) else at
+
+
+def kineto_events(prof) -> list:
+    """The profiler's raw events as ``(name, on_device, start_us, end_us,
+    correlation)``: on the host, ops, ranges and CUDA runtime calls; on the
+    device, kernels and copies (not the ranges' copies on the device's
+    timeline).  A runtime call and the device work it enqueued share a
+    correlation id."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        on_device = ev.device_type() == DeviceType.CUDA
+        if on_device and ev.is_user_annotation():
+            continue  # a record_function range drawn on the device's timeline
+        start = ev.start_ns() / 1e3
+        out.append((ev.name(), on_device, start, start + ev.duration_ns() / 1e3,
+                    ev.correlation_id()))
+    return out
+
+
+def upload_waits(events, ticks) -> dict:
+    """For each tick of ``ticks`` in a profiled pipelined drive (its host
+    range the ``TICK_RANGE`` event of `kineto_events`' ``events``): the
+    device work enqueued before the tick began and still running at its
+    start (``in_flight_ms``, 0 where none), and the tick's first
+    host-to-device copy: its device start less the moment the host enqueued
+    it (``enqueue_to_start_ms``), the device work enqueued before it and still
+    running then (``pending_ms``), and ``waited``, true where the copy
+    started only as that work ended (within 2 us).  A tick with no copy
+    has ``upload`` None.  Device work counts only through a runtime call
+    of the same correlation id (not 0) enqueued before it started."""
+    host = {}
+    for name, on_device, start, end, corr in events:
+        if not on_device and corr > 0 and name.startswith(RUNTIME_PREFIX):
+            host[corr] = (start, end)
+    device = []  # (enqueued at, device start, device end, name)
+    for name, on_device, start, end, corr in events:
+        if on_device and corr in host and start >= host[corr][0]:
+            device.append((host[corr][0], start, end, name))
+    device.sort()
+    spans = {int(name[len(TICK_RANGE):]): (start, end) for name, on_device, start, end, _
+             in events if not on_device and name.startswith(TICK_RANGE)}
+    out = {}
+    for t in ticks:
+        if t not in spans:
+            continue
+        s, e = spans[t]
+        before = [d for d in device if d[0] < s and d[2] > s]
+        first = next((d for d in device if s <= d[0] <= e and d[3].startswith(UPLOAD_EVENT)),
+                     None)
+        row = {"in_flight_ms": (max(d[2] for d in before) - s) / 1e3 if before else 0.0,
+               "upload": None}
+        if first is not None:
+            enqueued, ds = first[0], first[1]
+            pending = [d[2] for d in device if d[0] < enqueued and d[2] > enqueued]
+            pending_end = max(pending) if pending else enqueued
+            row["upload"] = {"enqueue_to_start_ms": (ds - enqueued) / 1e3,
+                             "pending_ms": (pending_end - enqueued) / 1e3,
+                             "waited": bool(pending) and ds >= pending_end - 2.0}
+        out[t] = row
+    return out
+
+
+def profile_window(adopted: list, ticks: int, most: int = PROFILED_TICKS) -> tuple:
+    """The ticks (first, last) phase 18 profiles: the longest run of
+    consecutive adopting ticks (the first such run on a tie), from the tick
+    before it to the tick after it, at most ``most`` ticks, within the
+    drive's ``ticks``; None where nothing was adopted."""
+    runs, start = [], None
+    for i, t in enumerate(adopted):
+        if start is None or t != adopted[i - 1] + 1:
+            start = t
+            runs.append([t, t])
+        runs[-1][1] = t
+    if not runs:
+        return None
+    lo, hi = max(runs, key=lambda r: (r[1] - r[0], -r[0]))
+    first = max(0, lo - 1)
+    return first, min(ticks - 1, hi + 1, first + most - 1)
+
+
+class TickWindowProfiler:
+    """A ``tick_span`` for `testing.pipelined_tick_drive`: torch.profiler
+    (host and device activity) runs from the start of tick ``lo`` to the end
+    of tick ``hi``, each of those ticks in a ``record_function`` range named
+    `TICK_RANGE` and its number."""
+
+    def __init__(self, torch, lo: int, hi: int):
+        self.torch, self.lo, self.hi = torch, lo, hi
+        self.prof = None
+
+    @contextlib.contextmanager
+    def __call__(self, t: int):
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        if t == self.lo:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        if self.lo <= t <= self.hi:
+            with record_function(f"{TICK_RANGE}{t}"):
+                yield
+        else:
+            yield
+        if t == self.hi:
+            self.torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+
+
+def profile_pipelined(torch, card, adopted: list) -> dict:
+    """The pipelined schedule of phase 18 once more on the card, torch.profiler
+    (host and device activity) over `profile_window`'s ticks of the
+    unprofiled run's adopting ticks ``adopted``, each tick in a
+    ``record_function`` range; `upload_waits` at the window's ticks that
+    adopt a speculation in this run."""
+    from karpenter_tpu_torch import testing as T
+
+    window = profile_window(adopted, T.PIPELINE_TICKS)
+    if window is None:
+        fail("phase 18: no adopting tick to profile")
+    t0 = time.perf_counter()
+    span = TickWindowProfiler(torch, *window)
+    run = T.pipelined_tick_drive("cuda", True, tick_span=span)
+    drive_s = time.perf_counter() - t0
+    ticks = [t for t, o in enumerate(run["outcomes_by_tick"])
+             if o.get("adopted") and window[0] <= t <= window[1]]
+    events = kineto_events(span.prof)
+    waits = upload_waits(events, ticks)
+    device = [e for e in events if e[1]]
+    matched = len({e[4] for e in device} & {
+        e[4] for e in events if not e[1] and e[0].startswith(RUNTIME_PREFIX)} - {0})
+    longest = sorted(device, key=lambda e: e[2] - e[3])[:3]
+    print(f"  the pipelined schedule profiled over ticks {window[0]}-{window[1]} ({card}): the "
+          f"drive {drive_s:.3f} s, the timeline read in {time.perf_counter() - t0 - drive_s:.3f} "
+          f"s; {len(events)} events, {len(device)} on the device, {matched} correlation ids "
+          f"shared with a runtime call; the longest device events "
+          f"{[(e[0][:48], round((e[3] - e[2]) / 1e3, 4)) for e in longest]} ms; adopting ticks "
+          f"{ticks} (the unprofiled run's in the window: "
+          f"{[t for t in adopted if window[0] <= t <= window[1]]})", flush=True)
+    for t, row in waits.items():
+        print(f"    tick {t}: {json.dumps(row)}", flush=True)
+    with_upload = [row for row in waits.values() if row["upload"] is not None]
+    waited = [row for row in with_upload if row["upload"]["waited"]]
+    print(f"    of {len(waits)} adopting ticks in the timeline, {len(with_upload)} upload; the "
+          f"first upload waited for device work in flight in {len(waited)}, "
+          f"{sum(r['upload']['pending_ms'] for r in waited)!r} ms in all; device work in flight "
+          f"at the tick's start in {sum(1 for r in waits.values() if r['in_flight_ms'] > 0)}",
+          flush=True)
+    return {"window": window, "ticks": ticks, "waits": waits, "device_events": len(device)}
+
+
+def admission_checks(adm: dict, launches: dict) -> None:
+    """What phase 18 holds the admission drive to on the card: the resident
+    plane seeded, every attempt (the first, the warm-ups and both passes)
+    nominated with no mismatch, no new launch signature in the warm window,
+    and ``admit_kernel`` launched once an attempt (``launches``)."""
+    from karpenter_tpu_torch import testing as T
+
+    attempts = 1 + T.ADMISSION_WARMUP + 2 * adm["iters"]
+    if not adm["seeded"] or adm["attempts"] != attempts:
+        fail(f"phase 18: admission seeded={adm['seeded']} with {adm['attempts']} attempts, "
+             f"expected {attempts}")
+    if adm["outcomes"] != {"nominated": attempts}:
+        fail(f"phase 18: admission outcomes {adm['outcomes']}: every attempt must be "
+             "nominated, no mismatch")
+    if adm["new_signatures_warm"]:
+        fail(f"phase 18: the warm admissions added {adm['new_signatures_warm']} launch "
+             "signatures")
+    if launches.get("admit_kernel") != attempts:
+        fail(f"phase 18: admit_kernel launched {launches.get('admit_kernel')} times over "
+             f"{attempts} attempts")
+
+
+def pipelined_checks(seq: dict, pipe: dict) -> None:
+    """Phase 18's pipelined tick: both schedules' states equal tick for tick
+    (the twin contract of ``tests/test_pipeline.py``), a speculation
+    adopted, no verdict mismatch."""
+    at = first_difference(seq["states"], pipe["states"])
+    if at is not None:
+        fail(f"phase 18: the pipelined schedule's actions differ from the sequential's at "
+             f"tick {at}")
+    if not pipe["outcomes"].get("adopted"):
+        fail(f"phase 18: no speculation adopted on the card: {pipe['outcomes']}")
+    if seq["verdict_mismatch"] or pipe["verdict_mismatch"]:
+        fail("phase 18: a consolidation verdict mismatch in the pipelined drives")
+
+
+def load_checks(load: dict, min_events: int | None = None) -> None:
+    """Phase 18's load harness: at least ``min_events`` events applied
+    (bench's 1,000,000 by default), no invariant violation, ticks checked
+    on the vectorized plane."""
+    from karpenter_tpu_torch import testing as T
+
+    least = T.LOAD_HARNESS_MIN_EVENTS if min_events is None else min_events
+    if load["events"] < least:
+        fail(f"phase 18: the load harness applied {load['events']} events, fewer than {least}")
+    if load["violations"]:
+        fail(f"phase 18: invariant violations {load['violations'][:5]}")
+    if not load["vector_checked_ticks"]:
+        fail("phase 18: no tick checked on the vectorized invariant plane")
+
+
+def twin_checks(line: str, what: str, card: list, cpu: list) -> None:
+    """A phase 18 line's card drive against the CPU's: ``card`` and ``cpu``
+    equal item for item."""
+    at = first_difference(card, cpu)
+    if at is not None:
+        fail(f"phase 18: {line}: the card's {what} differ from the CPU's at item {at}")
+
+
+def bench_phase(torch, card) -> dict:
+    """Phase 18 as the module docstring lists it.  Returns the launches by
+    kernel of its card drives (the profiled run left out)."""
+    from karpenter_tpu_torch import testing as T
+    from karpenter_tpu_torch.ops import fused_packer as F
+
+    total = {k: 0 for k in KERNELS}
+
+    def launched() -> dict:
+        got = {k: F.LAUNCHES[k] for k in KERNELS}
+        for k, v in got.items():
+            total[k] += v
+        return {k: v for k, v in got.items() if v}
+
+    short, long_ = (CpuTwins(group, target=bench_line_twins) for group in BENCH_TWIN_GROUPS)
+    try:
+        # admission_single_pod_p99 (bench.py:1251-1385)
+        F.reset_launches()
+        t0 = time.perf_counter()
+        adm = T.admission_drive("cuda")
+        launches = launched()
+        print(f"  admission_single_pod_p99 (bench.py:1251) on the card ({card}), the drive "
+              f"{time.perf_counter() - t0:.3f} s: {adm['live_nodes']} live nodes, "
+              f"{adm['attempts']} attempts "
+              f"{json.dumps(adm['outcomes'])} onto {sorted(set(adm['nodes']) - {None})}; "
+              f"p99 {adm['p99_ms']!r} ms, p50 {adm['p50_ms']!r} ms, noise {adm['noise_ms']!r} ms "
+              f"(README's limit {T.ADMISSION_BUDGET_MS} ms, recorded); the p99 sample's phases "
+              f"{json.dumps(adm['p99_phases_ms'])}; cold {adm['cold_ms']!r} ms; link floor "
+              f"{adm['link_floor_ms']!r} ms; new launch signatures cold "
+              f"{adm['new_signatures_cold']} warm {adm['new_signatures_warm']}; transfer bytes "
+              f"cold {adm['transfer_bytes_cold']} warm {adm['transfer_bytes_warm']!r} an "
+              f"attempt; launches {json.dumps(launches)}", flush=True)
+        admission_checks(adm, launches)
+
+        # reconcile_tick_pipelined_p50 (bench.py:1048-1158)
+        runs = {}
+        for pipelined in (False, True):
+            F.reset_launches()
+            runs[pipelined] = T.pipelined_tick_drive("cuda", pipelined)
+            runs[pipelined]["launches"] = launched()
+        seq, pipe = runs[False], runs[True]
+        ratio = pipe["p50_ms"] / seq["p50_ms"]
+        for label, run in (("sequential", seq), ("pipelined", pipe)):
+            print(f"  reconcile_tick_pipelined_p50 (bench.py:1048), {label}, on the card ({card}): "
+                  f"{run['ticks']} ticks in {run['wall_s']!r} s, tick p50 {run['p50_ms']!r} ms, "
+                  f"controller p50s {json.dumps(run['phases_ms'])}, max phase "
+                  f"{run['max_phase']} {run['max_phase_ms']!r} ms, p50_vs_max_phase "
+                  f"{run['p50_vs_max_phase']!r}, overlap {run['overlap_seconds']!r} s, "
+                  f"speculations {json.dumps(run['outcomes'])}; launches "
+                  f"{json.dumps(run['launches'])}", flush=True)
+        print(f"    pipelined / sequential p50 {ratio!r} (bench's floors, recorded: overlap > 0 "
+              f"{pipe['overlap_seconds'] > 0}, ratio <= {T.PIPELINE_MAX_RATIO} "
+              f"{ratio <= T.PIPELINE_MAX_RATIO})", flush=True)
+        pipelined_checks(seq, pipe)
+        adopted = [t for t, o in enumerate(pipe["outcomes_by_tick"]) if o.get("adopted")]
+        profiled = profile_pipelined(torch, card, adopted)
+
+        # load_harness_1m_events (bench.py:1166-1222)
+        F.reset_launches()
+        trace = hashed_trace()
+        load = T.load_harness_drive("cuda", trace=trace)
+        launches = launched()
+        print(f"  load_harness_1m_events (bench.py:1166) on the card ({card}): {load['ticks']} "
+              f"ticks, {load['events']} events {json.dumps(load['event_counts'])} in "
+              f"{load['wall_s']!r} s ({load['events_per_s']!r} events a second, the trace's "
+              f"state digests {trace.digest_s!r} s of it); phases s "
+              f"{json.dumps(load['phases_s'])}, harness fraction {load['harness_fraction']!r} "
+              f"(bench's limit {T.LOAD_HARNESS_MAX_FRACTION}, recorded); vector-checked ticks "
+              f"{load['vector_checked_ticks']}; violations {len(load['violations'])}; trace "
+              f"{trace.lines} lines, {trace.nbytes} bytes, sha256 {trace.sha256()}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        load_checks(load)
+
+        t0 = time.perf_counter()
+        cpu = short.get("admission")
+        print(f"  admission on the CPU (plain versions, beside the card's drives): "
+              f"{json.dumps(cpu['outcomes'])}, p50 {cpu['p50_ms']!r} ms, p99 {cpu['p99_ms']!r} "
+              f"ms, {cpu['seconds']!r} s", flush=True)
+        twin_checks("admission", "nodes", adm["nodes"], cpu["nodes"])
+        cpu = short.get("pipelined")
+        print(f"  the sequential schedule on the CPU: tick p50 {cpu['p50_ms']!r} ms, "
+              f"{cpu['seconds']!r} s", flush=True)
+        twin_checks("pipelined tick", "states", state_digests(seq["states"]), cpu["states"])
+        cpu = long_.get("load")
+        print(f"  waited {time.perf_counter() - t0:.3f} s for the CPU drives", flush=True)
+        print(f"  the load harness on the CPU: {cpu['events']} events in {cpu['wall_s']!r} s, "
+              f"harness fraction {cpu['harness_fraction']!r}, trace {cpu['lines']} lines, "
+              f"{cpu['bytes']} bytes, sha256 {cpu['sha256']}", flush=True)
+        twin_checks("load harness", "trace", [trace.sha256(), load["events"]],
+                    [cpu["sha256"], cpu["events"]])
+        print("  the admissions' nodes, the pipelined ticks' actions and the million-event "
+              "trace equal the CPU's", flush=True)
+    finally:
+        short.close()
+        long_.close()
+    return {"launches": total, "admission": adm, "pipelined": runs, "profiled": profiled,
+            "load": load}
 
 
 def phase_launches(kernel: str, per_phase: dict) -> dict:
@@ -6750,8 +7282,8 @@ def phase_launches(kernel: str, per_phase: dict) -> dict:
     phase 12's card drive, ``fleet_launches`` phase 13's scaled cell,
     ``legacy_launches`` phase 14's converted objects, ``mesh_launches``
     phase 15's main path, ``chart_launches`` phase 16's sidecar,
-    ``configs_launches`` phase 17's problems) to that phase's
-    launch counts."""
+    ``configs_launches`` phase 17's problems, ``bench_launches`` phase
+    18's drives) to that phase's launch counts."""
     return {col: counts.get(kernel, 0) for col, counts in per_phase.items()}
 
 
@@ -6766,7 +7298,7 @@ def observatory_totals() -> dict:
 def main(argv) -> int:
     """The run as the module docstring lists it."""
     through = parse_through(argv)
-    t_start = time.perf_counter()
+    t_start = _PHASE_CLOCK["last"] = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -7015,7 +7547,7 @@ def main(argv) -> int:
                 fail(f"{name}: kernel {k} launched {got[k]} times over {solves} solves")
         if got["ffd_scan_global"]:
             fail(f"{name}: ffd_scan_global launched {got['ffd_scan_global']} times")
-    print(f"  phase 5 took {time.perf_counter() - t5:.3f} s", flush=True)
+    print(f"  the timed solves took {time.perf_counter() - t5:.3f} s", flush=True)
     for name, (sched, pods, ts, phases) in solved.items():
         for sk in SOLVE_KINDS:
             print(f"  {name} {sk}: p50_ms={statistics.median(ts[sk])!r} "
@@ -7094,12 +7626,18 @@ def main(argv) -> int:
 
     print(f"[configs] the rest of bench.py's solve problems on the card, {card}", flush=True)
     configs_launches = configs_phase(torch, card, config_specs)
+    phase_done(17, through)
+
+    print(f"[bench lines] bench.py's device lines on the card, {card}", flush=True)
+    bench_lines = bench_phase(torch, card)
+    phase_seconds(18)
 
     per_phase = {"operator_launches": op_launches, "consolidation_launches": consolidation,
                  "sim_launches": sim_launches, "service_launches": service["launches"],
                  "ha_launches": ha_launches, "fleet_launches": fleet_launches,
                  "legacy_launches": legacy_launches, "mesh_launches": mesh["launches"],
-                 "chart_launches": chart_launches, "configs_launches": configs_launches}
+                 "chart_launches": chart_launches, "configs_launches": configs_launches,
+                 "bench_launches": bench_lines["launches"]}
     kernels = []
     for k in ("choose_config", *SCAN_KERNELS):
         dev_ms, _, plain, _ = times[ROW_PROBLEM[k]][k]

@@ -1090,6 +1090,264 @@ def canonical_result(result) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# bench.py's device lines: the admission fast path, the pipelined tick and
+# the load harness, each with bench's constants
+# ---------------------------------------------------------------------------
+
+ADMISSION_ITERS = 200  # bench: iters = _n(200), two passes
+ADMISSION_WARMUP = 3  # bench.WARMUP
+ADMISSION_BUDGET_MS = 1.0  # README: pod -> nomination p99 under 1 ms
+PIPELINE_SCENARIO = "diurnal+interruption-storm"
+PIPELINE_TICKS = 150
+PIPELINE_SEED = 11
+PIPELINE_TICK_GAP_S = 0.01  # real sleep between ticks, outside the measured tick
+PIPELINE_POPULATION = 256
+PIPELINE_MAX_RATIO = 1.05  # bench: pipelined p50 <= 1.05 x sequential
+TICK_CONTROLLERS = (
+    "nodeclass", "provisioner", "lifecycle", "interruption", "disruption",
+    "termination", "link", "garbagecollection", "tagging", "metrics_state",
+    "consistency",
+)
+LOAD_HARNESS_SCENARIO = "million-events"
+LOAD_HARNESS_TICKS = 850
+LOAD_HARNESS_SEED = 23
+LOAD_HARNESS_MIN_EVENTS = 1_000_000
+LOAD_HARNESS_MAX_FRACTION = 0.20  # generate + invariants under 20 % of the phases
+
+
+def link_floor_ms(device) -> float:
+    """bench's ``_link_floor_ms`` on ``device``: the least wall time of 5
+    round trips of a one-element tensor op and its ``.cpu()``, each on a
+    fresh value, after one round outside the timing."""
+    import math
+
+    import torch
+
+    x = torch.zeros(1, dtype=torch.float32, device=device)
+    (x + 0.0).cpu()
+    best = math.inf
+    for i in range(5):
+        t0 = time.perf_counter()
+        (x + float(i + 1)).cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def _scope_totals(scope) -> Tuple[int, int]:
+    return sum(scope.compiles.values()), sum(scope.transfer_bytes.values())
+
+
+def admission_drive(device=None, scale: float = 1.0, iters: int = ADMISSION_ITERS) -> dict:
+    """``bench.run_admission_fastpath`` on ``device`` (None: the card):
+    `resident_100k_problem`'s live nodes, the resident plane seeded by a
+    one-pod solve and a first admission (the cold ms), the tick trust
+    window opened (`ResidentCache.note_sync`), `ADMISSION_WARMUP`
+    admissions, then two passes of ``iters`` single-pod
+    `fastpath.try_admit` calls with the collector parked, each sample the
+    min of its two passes.  Every attempt is recorded, not asserted:
+    ``outcomes`` counts them, ``nodes`` holds the node each attempt
+    nominated (None where it did not), in order.  The observatory's new
+    launch signatures and transfer bytes are split at the warm window, as
+    bench's ``_DeviceWindow`` splits them (``transfer_bytes_warm`` a timed
+    attempt)."""
+    import gc
+    import math
+    import statistics
+
+    from karpenter_tpu_torch.obs.device import OBSERVATORY
+    from karpenter_tpu_torch.scheduling import fastpath
+    from karpenter_tpu_torch.scheduling.solver import TorchScheduler
+    from karpenter_tpu_torch.utils.trace import phase_collect
+
+    pools, inventory, _, existing = resident_100k_problem(scale)
+    ts = TorchScheduler(pools, inventory, existing=list(existing), device=device)
+    size = Resources(cpu=0.25, memory="512Mi")
+    outcomes: Dict[str, int] = {}
+    nodes: List[Optional[str]] = []
+
+    def record(res) -> None:
+        outcomes[res.outcome] = outcomes.get(res.outcome, 0) + 1
+        nodes.append(next(iter(res.placements.values()))
+                     if res.outcome == "nominated" else None)
+
+    scope = OBSERVATORY.begin_scope()
+    try:
+        t0 = time.perf_counter()
+        ts.solve([Pod(requests=size)])
+        seeded = bool(ts._resident.states)
+        record(fastpath.try_admit(ts, [Pod(requests=size)]))
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        ts._resident.note_sync(ts)
+        for _ in range(ADMISSION_WARMUP):
+            record(fastpath.try_admit(ts, [Pod(requests=size)]))
+        cold = _scope_totals(scope)
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            passes = []
+            for _ in range(2):
+                one = []
+                for _ in range(iters):
+                    pod = Pod(requests=size)
+                    sink: Dict[str, float] = {}
+                    t0 = time.perf_counter()
+                    with phase_collect(sink):
+                        res = fastpath.try_admit(ts, [pod])
+                    one.append((time.perf_counter() - t0, sink))
+                    record(res)
+                passes.append(one)
+        finally:
+            if gc_was:
+                gc.enable()
+        warm = _scope_totals(scope)
+    finally:
+        OBSERVATORY.end_scope(scope)
+    samples = [min(a, b, key=lambda s: s[0]) for a, b in zip(*passes)]
+    times = sorted(s[0] for s in samples)
+    i99 = min(iters - 1, math.ceil(0.99 * iters) - 1)
+    p99_s, phases = sorted(samples, key=lambda s: s[0])[i99]
+    q = statistics.quantiles(times, n=4) if iters > 1 else [times[0]] * 3
+    return {
+        "seeded": seeded,
+        "live_nodes": len(existing),
+        "iters": iters,
+        "attempts": len(nodes),
+        "p99_ms": p99_s * 1e3,
+        "p50_ms": statistics.median(times) * 1e3,
+        "noise_ms": (q[2] - q[0]) * 1e3,
+        "p99_phases_ms": {k: v * 1e3 for k, v in sorted(phases.items())},
+        "cold_ms": cold_ms,
+        "outcomes": dict(sorted(outcomes.items())),
+        "nodes": nodes,
+        "new_signatures_cold": cold[0],
+        "transfer_bytes_cold": cold[1],
+        "new_signatures_warm": warm[0] - cold[0],
+        "transfer_bytes_warm": (warm[1] - cold[1]) / (2 * iters),
+        "link_floor_ms": link_floor_ms(ts.device),
+    }
+
+
+def pipeline_state(env) -> tuple:
+    """One tick's state as ``tests/test_pipeline.py``'s twin test takes it:
+    the NodeClaims marked for deletion, the disruption controller's pending
+    set, and each pod's node."""
+    kube = env.kube
+    return (
+        tuple(sorted(n for n, cl in kube.node_claims.items() if cl.deleted_at is not None)),
+        tuple(sorted(env.operator.disruption._pending)),
+        tuple(sorted((p.key(), p.node_name or "") for p in kube.pods.values())),
+    )
+
+
+def _outcomes(reg) -> Dict[str, int]:
+    got = reg.counters.get("karpenter_pipeline_speculation_total", {})
+    return {dict(k)["outcome"]: int(v) for k, v in sorted(got.items())}
+
+
+def pipelined_tick_drive(device=None, pipelined: bool = True, ticks: int = PIPELINE_TICKS,
+                         seed: int = PIPELINE_SEED, trace=None, tick_span=None) -> dict:
+    """One schedule of ``bench.run_pipelined_tick`` on ``device`` (None: the
+    card): `PIPELINE_SCENARIO` through `ScenarioRunner` with
+    ``op.pipeline.enabled`` set to ``pipelined`` and the search population
+    at `PIPELINE_POPULATION`, `PIPELINE_TICK_GAP_S` of real sleep after
+    each tick.  ``trace`` (a `TraceWriter`) records the ticks' events, API
+    calls and ledger lines; ``tick_span(t)``, where given, is a context
+    manager each tick runs in (a profiler's ``record_function``, say).
+    Returns the tick p50 ms, each controller's p50 ms and the largest,
+    ``overlap_seconds``, the speculation outcomes in all and tick by tick,
+    each tick's `pipeline_state`, and the wall seconds."""
+    import contextlib
+
+    from karpenter_tpu_torch.sim.runner import SCENARIOS, ScenarioRunner
+    from karpenter_tpu_torch.utils.clock import Clock
+
+    wall = Clock()  # the gap is real time, as bench sleeps it
+    scn = SCENARIOS[PIPELINE_SCENARIO](ticks)
+    runner = ScenarioRunner(scn, seed=seed, ticks=ticks, trace=trace, device=device)
+    op = runner.env.operator
+    op.pipeline.enabled = pipelined
+    op.disruption.search_population = PIPELINE_POPULATION
+    reg = runner.env.registry
+    states, by_tick = [], []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        events = [ev for w in scn.workloads for ev in w.events(t, runner.rng, runner.view)]
+        before = _outcomes(reg)
+        with tick_span(t) if tick_span else contextlib.nullcontext():
+            runner._tick(t, scn.tick_s, "run", events)
+        after = _outcomes(reg)
+        by_tick.append({k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)})
+        states.append(pipeline_state(runner.env))
+        wall.sleep(PIPELINE_TICK_GAP_S)
+    wall_s = time.perf_counter() - t0
+    p50 = reg.quantile("karpenter_reconcile_tick_duration_seconds", 0.5) * 1e3
+    phases = {}
+    for name in TICK_CONTROLLERS:
+        q = reg.quantile("karpenter_controller_reconcile_time_seconds", 0.5,
+                         {"controller": name})
+        if q > 0.0:
+            phases[name] = q * 1e3
+    overlap_s = sum(h.total for h in
+                    reg.histograms.get("karpenter_reconcile_overlap_seconds", {}).values())
+    max_phase = max(phases.values()) if phases else 0.0
+    return {
+        "pipelined": pipelined,
+        "ticks": ticks,
+        "p50_ms": p50,
+        "phases_ms": phases,
+        "max_phase_ms": max_phase,
+        "max_phase": max(phases, key=phases.get) if phases else None,
+        "p50_vs_max_phase": p50 / max_phase if max_phase else None,
+        "sum_phases_ms": sum(phases.values()),
+        "overlap_seconds": overlap_s,
+        "outcomes": _outcomes(reg),
+        "outcomes_by_tick": by_tick,
+        "states": states,
+        "verdict_mismatch": reg.counter("karpenter_consolidation_verdict_mismatch_total"),
+        "wall_s": wall_s,
+    }
+
+
+def load_harness_drive(device=None, ticks: int = LOAD_HARNESS_TICKS,
+                       seed: int = LOAD_HARNESS_SEED, trace=None) -> dict:
+    """``bench.run_load_harness`` on ``device`` (None: the card):
+    `LOAD_HARNESS_SCENARIO` through the simulator's ``run_scenario``
+    (``trace``, a `TraceWriter`, where given).  Returns the events applied,
+    the ticks checked on the vectorized invariant plane, the invariant
+    violations, the simulator's phase totals in seconds (generate / apply /
+    reconcile / invariants), the harness fraction (generate + invariants
+    over their sum), the events a second and the wall seconds, and the
+    report."""
+    from karpenter_tpu_torch.sim.runner import run_scenario
+
+    t0 = time.perf_counter()
+    runner, report = run_scenario(LOAD_HARNESS_SCENARIO, seed, ticks, trace=trace,
+                                  device=device)
+    wall_s = time.perf_counter() - t0
+    reg = runner.env.registry
+    totals = {}
+    for labels, h in reg.histograms.get("karpenter_sim_phase_seconds", {}).items():
+        totals[labels[0][1] if labels else ""] = h.total
+    phase_s = sum(totals.values())
+    harness_s = totals.get("generate", 0.0) + totals.get("invariants", 0.0)
+    events = sum(runner.event_counts.values())
+    return {
+        "ticks": ticks,
+        "events": events,
+        "event_counts": dict(sorted(runner.event_counts.items())),
+        "vector_checked_ticks": int(reg.counter("karpenter_load_vector_checked_ticks_total")),
+        "violations": report["invariants"]["violations"],
+        "phases_s": dict(sorted(totals.items())),
+        "phase_total_s": phase_s,
+        "harness_s": harness_s,
+        "harness_fraction": harness_s / phase_s if phase_s > 0 else 0.0,
+        "events_per_s": events / wall_s if wall_s else None,
+        "wall_s": wall_s,
+        "report": report,
+    }
+
+
+# ---------------------------------------------------------------------------
 # The device mesh (parallel/mesh.py)
 # ---------------------------------------------------------------------------
 

@@ -162,9 +162,10 @@ def test_kernels_line_rows():
     assert chip_smoke.TIMED_VERDICTS["live10k"] < chip_smoke.TIMED_VERDICTS["live"]
     # live10k's CPU drives, both objectives, run in spawned processes
     assert chip_smoke.VERDICT_TWINNED == ("live10k",)
-    assert chip_smoke.FLEET_GRID == (("config2_live10k", 4), ("config2_live10k", 16),
-                                     ("config2_live20k", 4))
-    assert {name for name, _ in chip_smoke.FLEET_GRID} == set(chip_smoke.LARGE_LIVE)
+    # the fleets past one cluster at 10,000 live nodes; phase 3 holds a
+    # fleet of two clusters an element (wrap tenants at 32,768 slots)
+    assert chip_smoke.FLEET_GRID == (("config2_live10k", 4), ("config2_live10k", 16))
+    assert {name for name, _ in chip_smoke.FLEET_GRID} < set(chip_smoke.LARGE_LIVE)
     assert set(chip_smoke.LARGE_LIVE) < set(chip_smoke.PHASE5_SCAN)
     assert {chip_smoke.PHASE5_SCAN[n] for n in chip_smoke.LARGE_LIVE} == {"ffd_scan_grid"}
     for name, scan in chip_smoke.VERDICT_SCAN.items():
@@ -231,16 +232,17 @@ def test_phase5_churn_and_mirror_check():
     (["--through", "15"], 15),
     (["--through", "16"], 16),
     (["--through", "17"], 17),
+    (["--through", "18"], 18),
 ], ids=[  # the first eight as they were named while the last phase was 9
     "argv0-9", "argv1-1", "argv2-3", "argv3-4", "argv4-5", "argv5-6", "argv6-7", "argv7-8",
     "argv8-9", "argv9-10", "argv10-11", "argv11-12", "argv12-13", "argv13-14", "argv14-15",
-    "argv15-16", "argv16-17"])
+    "argv15-16", "argv16-17", "argv17-18"])
 def test_through_parses(argv, through):
     assert chip_smoke.parse_through(argv) == through
 
 
 @pytest.mark.parametrize("argv", [
-    ["--through"], ["--through", "0"], ["--through", "18"], ["--through", "x"],
+    ["--through"], ["--through", "0"], ["--through", "19"], ["--through", "x"],
     ["--through", "2", "3"], ["--thru", "2"], ["3"],
 ])
 def test_through_refuses_bad_values(argv):
@@ -261,7 +263,7 @@ def test_partial_run_exits_3(capsys):
 
 def test_bad_argument_exits_2_without_a_card():
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--through", "18"],
+        [sys.executable, "chip_smoke.py", "--through", "19"],
         cwd=pathlib.Path(chip_smoke.__file__).parent,
         capture_output=True, text=True, timeout=120,
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
@@ -798,7 +800,7 @@ def test_phase13_crash_rounds_and_launch_columns():
     assert list(row)[-1] == "fleet_launches"
     assert row == {"operator_launches": 6, "consolidation_launches": 0, "sim_launches": 0,
                    "service_launches": 0, "ha_launches": 0, "fleet_launches": 9}
-    assert chip_smoke.LAST_PHASE == 17
+    assert chip_smoke.LAST_PHASE == 18
     assert [c[0] for c in chip_smoke.FLEET_CELLS] == [
         "store-fleet-chaos", "store-fleet-shard-chaos", "solver-fleet"]
     assert chip_smoke.FLEET_REPLAYED == "solver-fleet"
@@ -1100,3 +1102,206 @@ def test_imports_no_jax_package_nor_bench():
             names.add(node.module.split(".")[0])
     assert "karpenter_tpu_torch" in names
     assert not names & {"bench", "karpenter_tpu", "jax", "jaxlib"}
+
+
+def test_phase10_cells_and_phase13_cut():
+    """Phase 10 runs the simulator's every scenario the JAX package's tests
+    twin at their seeds and ticks, the anchors last; phase 13's scaled cell
+    puts the first 2,000 of config 2's pods through the store (phases 12
+    and 16 run all 10,000)."""
+    cells = {name: (seed, ticks) for name, seed, ticks in chip_smoke.SIM_CELLS}
+    assert len(cells) == len(chip_smoke.SIM_CELLS) == 16
+    assert {name: cells[name] for name in (
+        "gang-slice", "spot-shock-drought", "catalog-deprecations", "batch-waves",
+        "flash-crowd", "api-storm+catalog-roll", "interruption-storm", "slo-burn",
+        "chaos-soak", "diurnal+interruption-storm")} == {
+        "gang-slice": (7, 30), "spot-shock-drought": (7, 32),
+        "catalog-deprecations": (7, 30), "batch-waves": (7, 50), "flash-crowd": (7, 50),
+        "api-storm+catalog-roll": (7, 100), "interruption-storm": (5, 60),
+        "slo-burn": (3, 30), "chaos-soak": (3, 60), "diurnal+interruption-storm": (11, 40)}
+    assert "million-events" not in cells
+    assert chip_smoke.SCALED_FLEET_PODS == 2_000 < chip_smoke.OPERATOR_PODS
+    assert chip_smoke.CHART_PODS == chip_smoke.OPERATOR_PODS
+
+
+def test_phase18_hashed_trace_is_the_trace_writers():
+    """The hashed trace of a run has the sha256 of the same run's
+    ``TraceWriter`` text, its line count and bytes, and keeps no lines."""
+    from karpenter_tpu_torch.sim.runner import run_scenario
+    from karpenter_tpu_torch.sim.trace import TraceWriter
+
+    full, hashed = TraceWriter(), chip_smoke.hashed_trace()
+    run_scenario("steady", 3, 4, trace=full, device="cpu")
+    run_scenario("steady", 3, 4, trace=hashed, device="cpu")
+    text = full.text()
+    assert hashed.sha256() == full.sha256()
+    assert hashed.lines == len(text.splitlines()) and hashed.nbytes == len(text.encode())
+    assert hashed.digest_s > 0
+    with pytest.raises(RuntimeError):
+        hashed.text()
+
+
+def test_phase18_checks_on_the_cpu():
+    """Phase 18's checks on the three drives run small on the CPU: each
+    passes the drive as it is and fails it with one thing wrong."""
+    from karpenter_tpu_torch import testing as T
+
+    adm = T.admission_drive("cpu", scale=0.02, iters=5)
+    attempts = 1 + T.ADMISSION_WARMUP + 2 * 5
+    assert adm["attempts"] == attempts and len(adm["nodes"]) == attempts
+    chip_smoke.admission_checks(adm, {"admit_kernel": attempts})
+    for bad, launches in ((dict(adm, outcomes={"nominated": attempts - 1, "mismatch": 1}),
+                           {"admit_kernel": attempts}),
+                          (dict(adm, new_signatures_warm=1), {"admit_kernel": attempts}),
+                          (dict(adm, seeded=False), {"admit_kernel": attempts}),
+                          (adm, {"admit_kernel": attempts - 1})):
+        with pytest.raises(SystemExit):
+            chip_smoke.admission_checks(bad, launches)
+    seq = T.pipelined_tick_drive("cpu", False, ticks=12)
+    pipe = T.pipelined_tick_drive("cpu", True, ticks=12)
+    chip_smoke.pipelined_checks(seq, pipe)
+    moved = list(pipe["states"])
+    moved[5] = ((), (), ())
+    for bad_seq, bad_pipe in ((seq, dict(pipe, states=moved)),
+                              (seq, dict(pipe, outcomes={"stale": 1})),
+                              (dict(seq, verdict_mismatch=1.0), pipe)):
+        with pytest.raises(SystemExit):
+            chip_smoke.pipelined_checks(bad_seq, bad_pipe)
+    load = T.load_harness_drive("cpu", ticks=3)
+    chip_smoke.load_checks(load, min_events=load["events"])
+    for bad, least in ((load, None), (dict(load, violations=["x"]), 1),
+                       (dict(load, vector_checked_ticks=0), 1)):
+        with pytest.raises(SystemExit):
+            chip_smoke.load_checks(bad, least)
+    chip_smoke.twin_checks("admission", "nodes", adm["nodes"], list(adm["nodes"]))
+    for other in (adm["nodes"][:-1], adm["nodes"][:-1] + ["elsewhere"]):
+        with pytest.raises(SystemExit):
+            chip_smoke.twin_checks("admission", "nodes", adm["nodes"], other)
+    assert chip_smoke.first_difference([1, 2], [1, 2]) is None
+    assert chip_smoke.first_difference([1, 2], [1, 3]) == 1
+    assert chip_smoke.first_difference([1, 2], [1]) == 1
+
+
+def test_phase18_upload_waits():
+    """`upload_waits` on a hand-made timeline: tick 1 starts while a kernel
+    enqueued in tick 0 runs, and its first host-to-device copy starts as that
+    kernel ends (it waited); tick 2's copy finds the device idle; tick 3
+    uploads nothing."""
+    R = chip_smoke.TICK_RANGE
+    events = [
+        (f"{R}0", False, 0.0, 100.0, 1),
+        ("cudaLaunchKernel", False, 90.0, 95.0, 50),
+        ("verdict_summary_kernel", True, 96.0, 180.0, 50),
+        (f"{R}1", False, 110.0, 300.0, 2),
+        ("cudaMemcpyAsync", False, 120.0, 190.0, 51),
+        ("Memcpy HtoD (Pageable -> Device)", True, 180.5, 185.0, 51),
+        ("cudaMemcpyAsync", False, 200.0, 210.0, 52),
+        ("Memcpy HtoD (Pageable -> Device)", True, 202.0, 204.0, 52),
+        (f"{R}2", False, 400.0, 500.0, 3),
+        ("cudaMemcpyAsync", False, 410.0, 415.0, 53),
+        ("Memcpy HtoD (Pageable -> Device)", True, 412.0, 414.0, 53),
+        (f"{R}3", False, 600.0, 700.0, 4),
+    ]
+    got = chip_smoke.upload_waits(events, [1, 2, 3, 9])
+    assert set(got) == {1, 2, 3}
+    assert got[1]["in_flight_ms"] == pytest.approx(0.07)
+    assert got[1]["upload"] == {"enqueue_to_start_ms": pytest.approx(0.0605),
+                                "pending_ms": pytest.approx(0.06), "waited": True}
+    assert got[2] == {"in_flight_ms": 0.0, "upload": {
+        "enqueue_to_start_ms": pytest.approx(0.002), "pending_ms": 0.0, "waited": False}}
+    assert got[3] == {"in_flight_ms": 0.0, "upload": None}
+
+
+def test_phase18_launch_column():
+    """The kernels line carries phase 18's launches as ``bench_launches``."""
+    row = chip_smoke.phase_launches("admit_kernel", {"configs_launches": {},
+                                                     "bench_launches": {"admit_kernel": 404}})
+    assert row == {"configs_launches": 0, "bench_launches": 404}
+    assert chip_smoke.LAST_PHASE == 18
+
+
+def test_phase18_profile_window():
+    """Phase 18 profiles the longest run of consecutive adopting ticks, from
+    the tick before it to the tick after it, at most `PROFILED_TICKS`."""
+    assert chip_smoke.profile_window([17, 95, 96, 97, 129], 150) == (94, 98)
+    assert chip_smoke.profile_window([3, 9], 150) == (2, 4)
+    assert chip_smoke.profile_window([0, 1], 2) == (0, 1)
+    assert chip_smoke.profile_window(list(range(20, 60)), 150) == (
+        19, 19 + chip_smoke.PROFILED_TICKS - 1)
+    assert chip_smoke.profile_window([], 150) is None
+
+
+def test_phase14_lint_beside_the_drives():
+    """Phase 14's lint runs in a process started before the phase's drives
+    and read after them: exit 0, no finding, every rule, its wall seconds."""
+    report = chip_smoke.finish_lint(chip_smoke.start_lint())
+    assert report["counts"]["findings"] == 0 and not report["findings"]
+    assert len(report["rules"]) == chip_smoke.LINT_RULES
+    assert report["wall_s"] > 0
+
+
+def test_phase18_cpu_twins_send_small_messages(monkeypatch):
+    """Phase 18's CPU process sends each line's readings as a few small
+    messages (a send blocks while the pipe is full, and the phase reads it
+    only after its own drives): the admission's nodes and the pipelined
+    drive's states as one sha256 a tick; here the drives run small."""
+    import pickle
+
+    from karpenter_tpu_torch import testing as T
+
+    monkeypatch.setattr(T, "admission_drive",
+                        lambda device, real=T.admission_drive: real(device, 0.02, 5))
+    monkeypatch.setattr(T, "pipelined_tick_drive",
+                        lambda device, p, real=T.pipelined_tick_drive: real(device, p, ticks=6))
+
+    class Conn:
+        def __init__(self):
+            self.sent = []
+
+        def send(self, msg):
+            self.sent.append(msg)
+
+        def close(self):
+            pass
+
+    conn = Conn()
+    chip_smoke.bench_line_twins(chip_smoke.BENCH_TWIN_GROUPS[0], conn)
+    got = dict(conn.sent)
+    assert set(got) == {"admission", "pipelined"}, got.get("error")
+    assert len(got["pipelined"]["states"]) == 6
+    assert all(len(d) == 64 for d in got["pipelined"]["states"])
+    seq = T.pipelined_tick_drive("cpu", False)
+    assert chip_smoke.state_digests(seq["states"]) == got["pipelined"]["states"]
+    for msg in conn.sent:
+        assert len(pickle.dumps(msg)) < 16_384
+    assert chip_smoke.BENCH_TWIN_GROUPS[1] == ("load",)
+
+
+def _send_in_turn(names, conn):
+    """A `CpuTwins` target: a 1 MB message (more than the pipe holds), then
+    each of ``names`` with a small one, then an error if ``names`` ends with
+    ``"error"``."""
+    conn.send(("big", b"x" * (1 << 20)))
+    for name in names:
+        conn.send((name, name.upper()))
+    conn.close()
+
+
+def test_cpu_twins_receive_as_the_process_sends():
+    """`CpuTwins` takes each message as its process sends it, so a large one
+    does not hold the process up; `get` returns any message in any order
+    and fails on an error or on a message the process never sent."""
+    twins = chip_smoke.CpuTwins(("a", "b"), target=_send_in_turn)
+    try:
+        assert twins.get("b") == "B" and twins.get("a") == "A"
+        assert len(twins.get("big")) == 1 << 20
+        with pytest.raises(SystemExit):
+            twins.get("never")
+    finally:
+        twins.close()
+    twins = chip_smoke.CpuTwins(("a", "error"), target=_send_in_turn)
+    try:
+        with pytest.raises(SystemExit):
+            twins.get("never")
+    finally:
+        twins.close()

@@ -1320,3 +1320,37 @@ def test_grid_spin_budget_traps(cuda_device, batched):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           cwd=pathlib.Path(chip_smoke.__file__).resolve().parent, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1].startswith("raised: ")
+
+
+# bench.py's device lines through the port's drive functions (testing.py) at a small
+# scale: the admission fast path and the pipelined tick on the card against
+# the same drive on the CPU
+BENCH_LINE_SCALE, BENCH_LINE_ITERS, BENCH_LINE_TICKS = 0.05, 20, 12
+
+
+def test_bench_admission_on_card_matches_cpu(cuda_device):
+    """`testing.admission_drive` on the card: every attempt nominated, onto
+    the nodes the CPU drive nominates, in order; ``admit_kernel`` launched
+    once an attempt and no new launch signature in the warm window."""
+    before = fused_packer.LAUNCHES["admit_kernel"]
+    card = T.admission_drive(cuda_device, scale=BENCH_LINE_SCALE, iters=BENCH_LINE_ITERS)
+    launched = fused_packer.LAUNCHES["admit_kernel"] - before
+    cpu = T.admission_drive("cpu", scale=BENCH_LINE_SCALE, iters=BENCH_LINE_ITERS)
+    attempts = 1 + T.ADMISSION_WARMUP + 2 * BENCH_LINE_ITERS
+    assert card["outcomes"] == cpu["outcomes"] == {"nominated": attempts}
+    assert card["nodes"] == cpu["nodes"]
+    assert launched == attempts
+    assert card["new_signatures_warm"] == 0
+
+
+def test_bench_pipelined_tick_on_card_matches_cpu(cuda_device):
+    """`testing.pipelined_tick_drive` on the card, both schedules: each
+    tick's state equal to each other's and to the CPU's pipelined drive,
+    the speculation outcomes tick for tick equal to the CPU's."""
+    seq = T.pipelined_tick_drive(cuda_device, False, ticks=BENCH_LINE_TICKS)
+    pipe = T.pipelined_tick_drive(cuda_device, True, ticks=BENCH_LINE_TICKS)
+    cpu = T.pipelined_tick_drive("cpu", True, ticks=BENCH_LINE_TICKS)
+    assert seq["states"] == pipe["states"] == cpu["states"]
+    assert pipe["outcomes_by_tick"] == cpu["outcomes_by_tick"]
+    assert pipe["outcomes"].get("adopted", 0) > 0
+    assert seq["verdict_mismatch"] == pipe["verdict_mismatch"] == 0

@@ -23,7 +23,9 @@ port on the CPU, and ends by checking that no blocked module reached
   module of ``obs/``, ``state/wire.py``, ``sim/`` and ``load/``): a short
   ``steady`` run through the ``sim`` subcommand with its trace replayed, an
   operator with ``flight_dir`` whose flight dump goes through the
-  ``doctor`` and ``obs`` subcommands;
+  ``doctor`` and ``obs`` subcommands; ``testing.py``'s drive functions of
+  ``bench.py``'s three device lines (the admission fast path, the
+  pipelined tick, the load harness) at a tiny size;
 - ``service``: the solver service (``service/``, ``state/binwire.py``): a
   multi-tenant ``SolverServer(device="cpu")`` whose tenants solve through
   ``RemoteSolver`` (a fleet pack of two tenants forced through
@@ -213,6 +215,12 @@ with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     assert entry(["doctor", dump]) == 0
     assert entry(["obs", dump]) == 0
 assert "suspected causes" in out.getvalue()
+adm = T.admission_drive("cpu", scale=0.01, iters=3)
+assert adm["outcomes"] == {"nominated": 1 + T.ADMISSION_WARMUP + 6}, adm["outcomes"]
+pipe = T.pipelined_tick_drive("cpu", True, ticks=3)
+assert len(pipe["states"]) == 3
+load = T.load_harness_drive("cpu", ticks=2)
+assert load["events"] > 0 and load["violations"] == []
 ''',
     "service": r'''
 from karpenter_tpu_torch.ops.packer import run_pack
